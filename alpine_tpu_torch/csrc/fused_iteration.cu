@@ -2,8 +2,8 @@
 // update with its guided terms, plus every statistic the next iteration's
 // W and B updates and the loss need.
 //
-// Replaces: alpine_tpu/ops/pallas_kernels.py:fused_iteration (_iter_kernel,
-// without counts mode) and, with no covariates (L == 0),
+// Replaces: alpine_tpu/ops/pallas_kernels.py:fused_iteration (_iter_kernel)
+// with and without its counts mode and, with no covariates (L == 0),
 // pallas_kernels.py:fused_h_update (_h_kernel).
 //
 // Bound on the H100: device-memory bytes.  At 100k cells x 2000 genes,
@@ -28,6 +28,20 @@
 //    the same bits each time (no floating-point atomics).
 // All arithmetic is fp32 FMA: matmul_precision="highest" means true fp32,
 // and no TF32 tensor-core path is taken.
+//
+// Counts mode (weighted_fast; pallas_kernels.py:fused_iteration with
+// `counts`, _iter_kernel:471-592): a (2, n) f32 count block C rides along.
+// Row 0 (this iteration's draw) masks the H update: a column drawn 0 times
+// keeps its H, bit for bit (a select; the TPU kernel's lerp H + (Hn - H)·m
+// is a Mosaic workaround that may differ by 1 ulp on drawn columns).  Row 1
+// (the next draw) scales every contraction over cells against Hn:
+// Hs = c_next * Hn feeds X Hsᵀ, HHt = Hs Hnᵀ, rowsum(Hs) and Bnum = Q Hsᵀ;
+// the loss dot and the prediction-loss rows stay unscaled, and one more
+// K x K output, HHtU = Hn Hnᵀ, carries the unscaled product the
+// reconstruction loss needs.  hxt_partial rounds the product c_next * hn
+// to X's partner dtype, as the TPU kernel rounds Hs.  Counts mode is a
+// template parameter, so the passes above compile unchanged without it.  Bound at 100k cells x 2000 genes, K = 40, int8
+// X: 234 MB (the 233 MB above + 0.8 MB of counts), 0.070 ms at 3.35 TB/s.
 #include "common.cuh"
 
 namespace alpine {
@@ -38,21 +52,23 @@ constexpr int kCellChunk = 32;  // cells staged per hxt_partial step
 // Shared-memory layout of iter_tiles; ops/kernels.py:_iter_smem_bytes
 // computes the same size.  K x T and L x T arrays use a row stride of T + 1
 // so that column walks do not hit one bank.
-__host__ __device__ inline size_t iter_smem_floats(int K, int T, int L, int Kg) {
+__host__ __device__ inline size_t iter_smem_floats(int K, int T, int L, int Kg,
+                                                   bool counts) {
   const size_t TP = T + 1;
   return (size_t)kGeneChunk * K + (size_t)kGeneChunk * T + 3 * K * TP +
-         3 * L * TP + (size_t)L * Kg + 2 * (size_t)Kg + kThreads;
+         3 * L * TP + (size_t)L * Kg + 2 * (size_t)Kg + kThreads +
+         (counts ? (K + 2) * TP : 0);
 }
 
-template <typename XT, bool kBf16>
+template <typename XT, bool kBf16, bool kCounts>
 __global__ void __launch_bounds__(kThreads)
 iter_tiles(const XT* __restrict__ X, const float* __restrict__ W,
            const float* __restrict__ H, const float* __restrict__ WtW,
            const XT* __restrict__ Y, const float* __restrict__ Bg,
-           const float* __restrict__ lam_rows, int g, int n, int K, int L,
-           int Kg, int loss_kl, float eps, int T, int tiles_per_block,
-           int n_tiles, int S_len, float* __restrict__ Hn,
-           float* __restrict__ part) {
+           const float* __restrict__ lam_rows, const float* __restrict__ C,
+           int g, int n, int K, int L, int Kg, int loss_kl, float eps, int T,
+           int tiles_per_block, int n_tiles, int S_len,
+           float* __restrict__ Hn, float* __restrict__ part) {
   extern __shared__ float sm[];
   const int TP = T + 1;
   float* sW = sm;                          // kGeneChunk x K
@@ -67,6 +83,9 @@ iter_tiles(const XT* __restrict__ X, const float* __restrict__ W,
   float* sLam = sBg + L * Kg;              // Kg: lambda of each guided row
   float* sCol = sLam + Kg;                 // Kg: column sums of Bg
   float* sRed = sCol + Kg;                 // kThreads
+  // counts mode only: the tile's count rows and Hs = c_next * Hn
+  float* sC = sRed + kThreads;                // 2 x TP: c_cur, then c_next
+  float* sHs = kCounts ? sC + 2 * TP : sHn;  // K x TP
 
   const int tid = threadIdx.x;
   const int KT = K * T;
@@ -74,6 +93,7 @@ iter_tiles(const XT* __restrict__ X, const float* __restrict__ W,
   const int off_bnum = off_rowsum + K;
   const int off_pred = off_bnum + L * K;
   const int off_ld = off_pred + L;
+  const int off_hhtu = off_ld + 1;  // counts mode: unscaled Hn Hnᵀ
   float* mypart = part + (size_t)blockIdx.x * S_len;
 
   for (int j = tid; j < S_len; j += kThreads) mypart[j] = 0.f;
@@ -99,6 +119,12 @@ iter_tiles(const XT* __restrict__ X, const float* __restrict__ W,
     for (int o = tid; o < L * T; o += kThreads) {
       const int l = o / T, t = o - l * T;
       sY[l * TP + t] = t < nv ? to_f(Y[(size_t)l * n + c0 + t]) : 0.f;
+    }
+    if constexpr (kCounts) {
+      for (int o = tid; o < 2 * T; o += kThreads) {
+        const int r = o / T, t = o - r * T;
+        sC[r * TP + t] = t < nv ? C[(size_t)r * n + c0 + t] : 0.f;
+      }
     }
 
     // phase 1: WtX over gene chunks, kept in registers
@@ -174,7 +200,11 @@ iter_tiles(const XT* __restrict__ X, const float* __restrict__ W,
           den += l2 * sb;
         }
       }
-      const float hn = t < nv ? sH[k * TP + t] * (num / fmaxf(den, eps)) : 0.f;
+      float hn = t < nv ? sH[k * TP + t] * (num / fmaxf(den, eps)) : 0.f;
+      if constexpr (kCounts) {
+        if (!(sC[t] > 0.f)) hn = sH[k * TP + t];  // undrawn: keep H
+        sHs[k * TP + t] = hn * sC[TP + t];
+      }
       sHn[k * TP + t] = hn;
       if (t < nv) Hn[(size_t)k * n + c0 + t] = hn;
     }
@@ -198,16 +228,26 @@ iter_tiles(const XT* __restrict__ X, const float* __restrict__ W,
     }
     if (tid == 0) mypart[off_ld] += sRed[0];
 
-    // HHt and the row sums of Hn
+    // HHt = Hs Hnᵀ (and, in counts mode, HHtU = Hn Hnᵀ); row sums of Hs
     for (int j = tid; j < K * K; j += kThreads) {
       const int k1 = j / K, k2 = j - k1 * K;
       float s = 0.f;
-      for (int t = 0; t < nv; ++t) s = fmaf(sHn[k1 * TP + t], sHn[k2 * TP + t], s);
+      if constexpr (kCounts) {
+        float u = 0.f;
+        for (int t = 0; t < nv; ++t) {
+          const float b = sHn[k2 * TP + t];
+          s = fmaf(sHs[k1 * TP + t], b, s);
+          u = fmaf(sHn[k1 * TP + t], b, u);
+        }
+        mypart[off_hhtu + j] += u;
+      } else {
+        for (int t = 0; t < nv; ++t) s = fmaf(sHn[k1 * TP + t], sHn[k2 * TP + t], s);
+      }
       mypart[j] += s;
     }
     for (int k = tid; k < K; k += kThreads) {
       float s = 0.f;
-      for (int t = 0; t < nv; ++t) s += sHn[k * TP + t];
+      for (int t = 0; t < nv; ++t) s += sHs[k * TP + t];
       mypart[off_rowsum + k] += s;
     }
 
@@ -235,7 +275,7 @@ iter_tiles(const XT* __restrict__ X, const float* __restrict__ W,
       for (int j = tid; j < L * K; j += kThreads) {
         const int l = j / K, k = j - l * K;
         float s = 0.f;
-        for (int t = 0; t < nv; ++t) s = fmaf(sA[l * TP + t], sHn[k * TP + t], s);
+        for (int t = 0; t < nv; ++t) s = fmaf(sA[l * TP + t], sHs[k * TP + t], s);
         mypart[off_bnum + j] += s;
       }
       for (int l = tid; l < L; l += kThreads) {
@@ -247,14 +287,14 @@ iter_tiles(const XT* __restrict__ X, const float* __restrict__ W,
   }
 }
 
-template <typename XT, bool kBf16>
+template <typename XT, bool kBf16, bool kCounts>
 __global__ void __launch_bounds__(kThreads)
-hxt_partial(const XT* __restrict__ X, const float* __restrict__ Hn, int g,
-            int n, int K, int GB, int cells_per_split,
-            float* __restrict__ part_hxt) {
+hxt_partial(const XT* __restrict__ X, const float* __restrict__ Hn,
+            const float* __restrict__ C, int g, int n, int K, int GB,
+            int cells_per_split, float* __restrict__ part_hxt) {
   extern __shared__ float sm[];
   constexpr int CT = kCellChunk, CTP = kCellChunk + 1;
-  float* sHc = sm;            // K x CTP: Hn rounded as X's partner operand
+  float* sHc = sm;            // K x CTP: Hn (or c_next * Hn) rounded as X's partner
   float* sXc = sHc + K * CTP;  // GB x CTP
   const int tid = threadIdx.x;
   const int g0 = blockIdx.x * GB;
@@ -271,7 +311,12 @@ hxt_partial(const XT* __restrict__ X, const float* __restrict__ Hn, int g,
     __syncthreads();
     for (int o = tid; o < K * CT; o += kThreads) {
       const int k = o / CT, t = o - k * CT;
-      sHc[k * CTP + t] = t < nv ? round_op<kBf16>(Hn[(size_t)k * n + c0 + t]) : 0.f;
+      float h = 0.f;
+      if (t < nv) {
+        h = Hn[(size_t)k * n + c0 + t];
+        if constexpr (kCounts) h *= C[(size_t)n + c0 + t];  // round c*hn, not hn
+      }
+      sHc[k * CTP + t] = round_op<kBf16>(h);
     }
     for (int o = tid; o < GB * CT; o += kThreads) {
       const int gg = o / CT, t = o - gg * CT;
@@ -323,37 +368,39 @@ reduce_partials(const float* __restrict__ part, int n_part, int S_len,
   }
 }
 
-template <typename XT, bool kBf16>
+template <typename XT, bool kBf16, bool kCounts>
 static int launch(const void* X, const float* W, const float* H,
                   const float* WtW, const void* Y, const float* Bg,
-                  const float* lam_rows, int g, int n, int K, int L, int Kg,
-                  int loss_kl, float eps, int T, int n_part,
+                  const float* lam_rows, const float* C, int g, int n, int K,
+                  int L, int Kg, int loss_kl, float eps, int T, int n_part,
                   int tiles_per_block, int GB, int n_split,
                   int cells_per_split, float* Hn, float* XHt, float* stats,
                   float* part, float* part_hxt, cudaStream_t stream) {
   const int n_tiles = (n + T - 1) / T;
-  const int S_len = K * K + K + L * K + L + 1;
-  const size_t smem_a = iter_smem_floats(K, T, L, Kg) * sizeof(float);
+  // ops/kernels.py:_stats_len: HHt, rowsum, Bnum, pred rows, loss dot, HHtU
+  const int S_len = K * K + K + L * K + L + 1 + (kCounts ? K * K : 0);
+  const size_t smem_a = iter_smem_floats(K, T, L, Kg, kCounts) * sizeof(float);
   const size_t smem_b = (size_t)(K + GB) * (kCellChunk + 1) * sizeof(float);
   if (K * T > kThreads * kMaxOut || K * GB > kThreads * kMaxOut ||
       smem_a > (size_t)kMaxSmem || smem_b > (size_t)kMaxSmem)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      iter_tiles<XT, kBf16>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_a);
+      iter_tiles<XT, kBf16, kCounts>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem_a);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(hxt_partial<XT, kBf16>,
+  err = cudaFuncSetAttribute(hxt_partial<XT, kBf16, kCounts>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_b);
   if (err != cudaSuccess) return (int)err;
 
-  iter_tiles<XT, kBf16><<<n_part, kThreads, smem_a, stream>>>(
+  iter_tiles<XT, kBf16, kCounts><<<n_part, kThreads, smem_a, stream>>>(
       static_cast<const XT*>(X), W, H, WtW, static_cast<const XT*>(Y), Bg,
-      lam_rows, g, n, K, L, Kg, loss_kl, eps, T, tiles_per_block, n_tiles,
+      lam_rows, C, g, n, K, L, Kg, loss_kl, eps, T, tiles_per_block, n_tiles,
       S_len, Hn, part);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   dim3 grid_b((g + GB - 1) / GB, n_split);
-  hxt_partial<XT, kBf16><<<grid_b, kThreads, smem_b, stream>>>(
-      static_cast<const XT*>(X), Hn, g, n, K, GB, cells_per_split, part_hxt);
+  hxt_partial<XT, kBf16, kCounts><<<grid_b, kThreads, smem_b, stream>>>(
+      static_cast<const XT*>(X), Hn, C, g, n, K, GB, cells_per_split, part_hxt);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const size_t total = (size_t)S_len + (size_t)g * K;
@@ -367,21 +414,31 @@ static int launch(const void* X, const float* W, const float* H,
 // Plain C entry point (ctypes).  Returns 0 or a cudaError_t code.
 extern "C" int alpine_fused_iteration(
     const void* X, int xtype, const float* W, const float* H, const float* WtW,
-    const void* Y, const float* Bg, const float* lam_rows, int g, int n, int K,
-    int L, int Kg, int loss_kl, float eps, int T, int n_part,
+    const void* Y, const float* Bg, const float* lam_rows, const float* counts,
+    int g, int n, int K, int L, int Kg, int loss_kl, float eps, int T, int n_part,
     int tiles_per_block, int GB, int n_split, int cells_per_split, float* Hn,
     float* XHt, float* stats, float* part, float* part_hxt, void* stream) {
   using namespace alpine;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define ALPINE_ITER_ARGS                                                      \
-  X, W, H, WtW, Y, Bg, lam_rows, g, n, K, L, Kg, loss_kl, eps, T, n_part,     \
-      tiles_per_block, GB, n_split, cells_per_split, Hn, XHt, stats, part,    \
-      part_hxt, s
+  X, W, H, WtW, Y, Bg, lam_rows, counts, g, n, K, L, Kg, loss_kl, eps, T,    \
+      n_part, tiles_per_block, GB, n_split, cells_per_split, Hn, XHt, stats, \
+      part, part_hxt, s
+  // counts mode is a template parameter: K1 and K2 compile as without it
+  const bool c = counts != nullptr;
   switch (xtype) {
-    case kF32: return launch<float, false>(ALPINE_ITER_ARGS);
-    case kBF16: return launch<__nv_bfloat16, true>(ALPINE_ITER_ARGS);
-    case kI8: return launch<int8_t, true>(ALPINE_ITER_ARGS);
-    case kI16: return launch<int16_t, false>(ALPINE_ITER_ARGS);
+    case kF32:
+      return c ? launch<float, false, true>(ALPINE_ITER_ARGS)
+               : launch<float, false, false>(ALPINE_ITER_ARGS);
+    case kBF16:
+      return c ? launch<__nv_bfloat16, true, true>(ALPINE_ITER_ARGS)
+               : launch<__nv_bfloat16, true, false>(ALPINE_ITER_ARGS);
+    case kI8:
+      return c ? launch<int8_t, true, true>(ALPINE_ITER_ARGS)
+               : launch<int8_t, true, false>(ALPINE_ITER_ARGS);
+    case kI16:
+      return c ? launch<int16_t, false, true>(ALPINE_ITER_ARGS)
+               : launch<int16_t, false, false>(ALPINE_ITER_ARGS);
     default: return (int)cudaErrorInvalidValue;
   }
 #undef ALPINE_ITER_ARGS

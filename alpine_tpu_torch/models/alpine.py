@@ -1,24 +1,28 @@
 """The ALPINE estimator on PyTorch/CUDA — the port's main path.
 
 Counterpart of ``alpine_tpu/models/alpine.py`` for the single-device
-full-batch joint fit and its transform: same constructor, same validation
+full-epoch joint fit and its transform: same constructor, same validation
 messages, same ``obsm``/``varm`` keys.  ``fit`` runs the fused fit loop
 (``ops/mu.py``), which launches one CUDA kernel per iteration on the card
 and runs each kernel's plain PyTorch version on the CPU; ``transform`` runs
-the fused projection kernel.
+the fused projection kernel.  ``sampling_method`` is "random" (full batch)
+or "weighted_fast" (class-balanced draws as per-cell counts over a
+group-sorted cell axis).  A fit keeps its device copy of X, and a
+``transform`` of the same data reuses it.
 
 What this slice leaves out raises ``NotImplementedError``: minibatch and
-weighted/tiled sampling, ALS mode, checkpoints, restarts, component
-bucketing, multi-GPU and multi-process fits, ``get_normalized_expression``
-and save/load.
+gathered weighted or tiled sampling, ALS mode, checkpoints, restarts,
+component bucketing, multi-GPU and multi-process fits,
+``get_normalized_expression`` and save/load.
 
 Random draws come from ``torch.Generator``s seeded with ``random_state``
-through ``draw_init`` and ``draw_transform_h0``; they differ from the JAX
-package's ``jax.random`` streams by design.
+through ``draw_init``, ``draw_counts_stream`` and ``draw_transform_h0``;
+they differ from the JAX package's ``jax.random`` streams by design.
 """
 
 from __future__ import annotations
 
+import os
 import time
 import warnings
 from copy import copy, deepcopy
@@ -32,15 +36,18 @@ from alpine_tpu_torch.ops import mu
 from alpine_tpu_torch.ops.elbow import find_elbow
 from alpine_tpu_torch.parallel.mesh import resolve_device
 from alpine_tpu_torch.utils.adata import (
-    dense_x, is_anndata, is_sparse_x, obs_is_categorical, obs_keys,
-    suggest_data_dtype, x_min,
+    as_compressed, dense_x, is_anndata, is_sparse_x, obs_is_categorical,
+    obs_keys, suggest_data_dtype, x_min,
 )
 from alpine_tpu_torch.utils.encoder import FeatureEncoders
+from alpine_tpu_torch.utils.sampling import balanced_group_tables, joint_label_ids
 
 Float32Array = np.ndarray
 
-# salt of the transform H0 stream, so it never coincides with the fit's
+# salts of the transform H0 and the weighted_fast count streams, so they
+# never coincide with the fit's init stream or with each other
 _TRANSFORM_SALT = 0x7472616E  # "tran"
+_COUNTS_SALT = 0x636E7473  # "cnts"
 
 
 def draw_init(cfg: mu.MUConfig, n_genes: int, random_state: int, eps: float,
@@ -56,6 +63,29 @@ def draw_transform_h0(n_components: int, n_cells: int, random_state: int,
     gen = torch.Generator().manual_seed(random_state + _TRANSFORM_SALT)
     H0 = torch.rand((n_components, n_cells), generator=gen, dtype=torch.float32)
     return torch.clamp(H0, min=eps).to(device)
+
+
+def draw_counts_stream(tables, n_cells: int, random_state: int, device):
+    """weighted_fast's draws: returns ``draw(t)``, epoch t's balanced draw
+    as a (n_cells,) float32 count tensor on ``device``.  ``tables`` are the
+    (start, sizes) group tables of the group-sorted cell axis, on
+    ``device``.  Draw t comes from a device generator seeded from
+    (random_state, salt, t), so it depends on t alone."""
+    gen = torch.Generator(device=device)
+
+    def draw(t: int) -> torch.Tensor:
+        seed = np.random.SeedSequence([random_state, _COUNTS_SALT, t])
+        gen.manual_seed(int(seed.generate_state(1, np.uint64)[0] >> 1))
+        return mu.grouped_balanced_counts(gen, n_cells, tables)
+
+    return draw
+
+
+def _no_x_cache() -> bool:
+    """ALPINE_TPU_NO_X_CACHE (the JAX package's switch): unset, '', '0' or
+    'false' mean the device-X cache is on."""
+    return os.environ.get("ALPINE_TPU_NO_X_CACHE", "").lower() not in (
+        "", "0", "false")
 
 
 def _not_in_slice(what: str) -> NotImplementedError:
@@ -128,16 +158,30 @@ class ALPINE:
             raise ValueError("n_restarts must be a positive integer.")
         if n_restarts > 1:
             raise _not_in_slice("fit(n_restarts > 1)")
-        if self.use_als:
-            raise _not_in_slice("use_als=True (ALS mode)")
         if sampling_method in ("weighted", "weighted_fast") and not covariate_keys:
             raise ValueError(
                 "weighted sampling requires at least one covariate "
                 "(balancing is over the joint covariate labels)."
             )
-        if sampling_method != "random":
-            raise _not_in_slice(f"sampling_method={sampling_method!r}")
+        if sampling_method == "weighted_fast" and self.use_als:
+            raise ValueError(
+                "sampling_method='weighted_fast' supports full-epoch joint "
+                "mode only (batch_size=None, use_als=False); minibatch or "
+                "ALS weighted fits use sampling_method='weighted'."
+            )
+        if self.use_als:
+            raise _not_in_slice("use_als=True (ALS mode)")
         n_sample = adata.shape[0]
+        if (sampling_method == "weighted_fast" and batch_size is not None
+                and batch_size < n_sample):
+            raise ValueError(
+                f"sampling_method='weighted_fast' supports full-epoch joint "
+                f"mode only: batch_size ({batch_size}) must be None or >= "
+                f"n_cells ({n_sample}); minibatch weighted fits use "
+                f"sampling_method='weighted'."
+            )
+        if sampling_method not in ("random", "weighted_fast"):
+            raise _not_in_slice(f"sampling_method={sampling_method!r}")
         if batch_size is not None and batch_size < n_sample:
             raise _not_in_slice("minibatch fitting (batch_size < n_cells)")
 
@@ -161,8 +205,24 @@ class ALPINE:
         self.batch_size: int = n_sample
 
         dev = self.device
+        # X in its storage dtype first, so the group sort below permutes
+        # the narrow copy (200 MB of int8 at 100k x 2,000, not 800 MB)
         Xd = self._cast_x_host(X).to(dev)
         Ysd = [torch.from_numpy(y).to(dev) for y in Ys]
+        cell_perm = tables = None
+        if sampling_method == "weighted_fast":
+            # group-sort the cells (stable) for the grouped sampler; H0
+            # pairs positionally with the sorted cells and H is un-sorted
+            # on extraction
+            cell_perm, start, sizes = balanced_group_tables(joint_label_ids(Ys))
+            perm = torch.from_numpy(cell_perm).to(dev)
+            Xd = Xd[:, perm]
+            Ysd = [y[:, perm] for y in Ysd]
+            tables = (torch.from_numpy(start).to(dev),
+                      torch.from_numpy(sizes).to(dev))
+        # the device X of a same-data transform; installed after the fit
+        new_x_cache = (None if _no_x_cache() else
+                       (Xd, self._x_fingerprint(adata.X), n_sample, cell_perm))
         hyper = self._hyper()
         self.timings_: Dict[str, float] = {}
 
@@ -170,7 +230,10 @@ class ALPINE:
             cfg = self._make_cfg(Ys, n_sample, n_iter)
             W0, H0, Bs0 = draw_init(cfg, self.n_features, self.random_state,
                                     self.eps, dev)
-            return cfg, mu.fit_scan(cfg, W0, H0, Bs0, Xd, Ysd, hyper)
+            draw = (None if tables is None else
+                    draw_counts_stream(tables, n_sample, self.random_state, dev))
+            return cfg, mu.fit_scan(cfg, W0, H0, Bs0, Xd, Ysd, hyper,
+                                    draw_counts=draw)
 
         t0 = time.perf_counter()
         if max_iter is None:
@@ -194,14 +257,19 @@ class ALPINE:
             print(f"ALPINE fit: {self.max_iter} iterations, final objective "
                   f"loss {self.loss_history_[-1, 0]:.6g}")
 
+        H_np = Hd.cpu().numpy()
+        if cell_perm is not None:
+            H_np = H_np[:, np.argsort(cell_perm)]  # back to caller order
         m = AlpineMatrices(
             X=X,
             Ys=[np.asarray(y, dtype=np.float32) for y in Ys],
             Ws=split_w(Wd.cpu().numpy(), self.n_all_components),
-            Hs=split_h(Hd.cpu().numpy(), self.n_all_components),
+            Hs=split_h(H_np, self.n_all_components),
             Bs=[b.cpu().numpy() for b in Bsd],
         )
         self.matrices: Dict[str, Union[Float32Array, List[Float32Array]]] = m.to_numpy()
+        # the fit succeeded: pair its device X with this model
+        self._x_cache = new_x_cache
         self.store_embeddings(adata)
         return self
 
@@ -317,6 +385,17 @@ class ALPINE:
             adata.varm[condition + "_gene_scores"] = df
         return None
 
+    def free_device_cache(self) -> None:
+        """Release the device copy of X kept for same-data transforms
+        (200 MB of int8 at 100k cells x 2,000 genes)."""
+        self._x_cache = None
+
+    def __getstate__(self):
+        # a pickle carries no device tensors (the cache holds all of X)
+        state = dict(self.__dict__)
+        state["_x_cache"] = None
+        return state
+
     def get_normalized_expression(self, *args, **kwargs):
         raise _not_in_slice("get_normalized_expression")
 
@@ -360,6 +439,7 @@ class ALPINE:
             precision=self.matmul_precision,
             x_dtype=self._storage_dtype,
             backend="fused",
+            weighted_counts=(self.sampling_method == "weighted_fast"),
         )
 
     def _hyper(self):
@@ -415,27 +495,76 @@ class ALPINE:
             )
         return torch.from_numpy(np.ascontiguousarray(arr, np.float32))
 
+    @staticmethod
+    def _x_fingerprint(X_host) -> tuple:
+        """Identity of a host X for the device-X cache: shape, a
+        4096-element strided sample, the float64 sum and minimum, and a
+        position-weighted hash of the row sums (which catches reordered
+        cells).  Sparse inputs hash their stored values, row sums and a
+        position-weighted hash of the column sums without densifying.
+        Same rule as the JAX package's ``ALPINE._x_fingerprint``."""
+        if is_sparse_x(X_host):
+            Xc = as_compressed(X_host)
+            data = np.asarray(Xc.data)
+            flat = data.reshape(-1)
+            total = float(data.sum(dtype=np.float64))
+            minimum = x_min(Xc)
+            row_sums = np.asarray(Xc.sum(axis=1), dtype=np.float64).ravel()
+            col_sums = np.asarray(Xc.sum(axis=0), dtype=np.float64).ravel()
+            colkey = np.random.default_rng(0xC01).random(len(col_sums))
+            col_hash = float(np.dot(col_sums, colkey))
+            shape = ("sparse",) + tuple(Xc.shape) + (int(Xc.nnz), col_hash)
+        else:
+            arr = np.asarray(X_host)
+            flat = arr.reshape(-1)
+            total = float(arr.sum(dtype=np.float64))
+            minimum = float(arr.min())
+            row_sums = (arr.sum(axis=-1, dtype=np.float64)
+                        if arr.ndim == 2 else flat)
+            shape = arr.shape
+        stride = max(1, flat.size // 4096)
+        sample = np.asarray(flat[::stride][:4096], dtype=np.float32)
+        poskey = np.random.default_rng(0xA1F1E).random(len(row_sums))
+        return (shape, sample.tobytes(), total, minimum,
+                float(np.dot(np.asarray(row_sums, dtype=np.float64), poskey)))
+
     def _transform(self, adata, n_iter: int) -> None:
         """Out-of-sample projection: Frobenius MU onto the frozen W
-        (reference main.py:678-724), through the fused kernel."""
+        (reference main.py:678-724), through the fused kernel.  On the data
+        the model was fit on, the fit's device X is reused; after a
+        weighted_fast fit its cells are group-sorted, so H0 is re-paired to
+        them and the result un-sorted (each cell's projection is independent
+        of the others)."""
         if adata.shape[1] != self.n_features:
             raise ValueError(
                 f"adata has {adata.shape[1]} genes but the model was fit "
                 f"on {self.n_features}; transform requires the same gene "
                 "axis (same order) as the training data."
             )
-        if not (x_min(adata.X) >= 0):  # NaN fails this like a negative
-            raise ValueError("All elements in adata.X must be non-negative.")
         dev = self.device
         n_sample = adata.shape[0]
-        # out-of-sample data need not be integer-representable: strict=False
-        X = self._cast_x_host(dense_x(adata.X).T, strict=False).to(dev)
+        cached = getattr(self, "_x_cache", None)
+        if (cached is not None and not _no_x_cache() and cached[2] == n_sample
+                and cached[1] == self._x_fingerprint(adata.X)):
+            X, cell_perm = cached[0], cached[3]  # validated at fit
+        else:
+            if not (x_min(adata.X) >= 0):  # NaN fails this like a negative
+                raise ValueError("All elements in adata.X must be non-negative.")
+            # out-of-sample data need not be integer-representable
+            X = self._cast_x_host(dense_x(adata.X).T, strict=False).to(dev)
+            cell_perm = None
         H0 = draw_transform_h0(self.total_components, n_sample,
                                self.random_state, self.eps, dev)
+        if cell_perm is not None:
+            # device column p is caller cell cell_perm[p]
+            H0 = H0[:, torch.from_numpy(cell_perm).to(dev)]
         W = torch.from_numpy(np.concatenate(self.matrices["Ws"], axis=1)).to(dev)
         H = mu.run_transform(W, X, H0, float(np.float32(self.eps)),
                              n_iter=n_iter, precision=self.matmul_precision)
-        Hs = split_h(H.cpu().numpy(), self.n_all_components)
+        H_np = H.cpu().numpy()
+        if cell_perm is not None:
+            H_np = H_np[:, np.argsort(cell_perm)]
+        Hs = split_h(H_np, self.n_all_components)
 
         for i, covariate in enumerate(self.covariate_keys):
             adata.obsm[covariate] = Hs[i].T

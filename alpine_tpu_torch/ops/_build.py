@@ -36,7 +36,7 @@ _F = ctypes.c_float
 # sizes c_int, eps c_float (ctypes would otherwise cut 64-bit pointers)
 SIGNATURES = {
     "fused_iteration": ("alpine_fused_iteration",
-                        [_P, _I, _P, _P, _P, _P, _P, _P]
+                        [_P, _I] + [_P] * 7
                         + [_I] * 6 + [_F] + [_I] * 6 + [_P] * 6),
     "fused_transform": ("alpine_fused_transform",
                         [_P, _P, _P, _I, _I, _I, _I, _F, _P, _P]),

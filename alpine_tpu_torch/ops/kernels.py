@@ -7,7 +7,8 @@ stream.  It runs its plain PyTorch version only for CPU tensors: a CUDA
 tensor launches the kernel or raises, and a failed build raises.
 
 ``launches`` counts each wrapper's kernel launches (plain runs do not
-count), so a run can show that its main path went through the kernels.
+count; ``fused_iteration`` counts its counts mode, K4, apart from K1), so a
+run can show that its main path went through the kernels.
 """
 
 from __future__ import annotations
@@ -20,8 +21,8 @@ from alpine_tpu_torch.ops.mu import (
     block_offsets, guided_width, round_partner,
 )
 
-launches: Dict[str, int] = {"fused_iteration": 0, "fused_h_update": 0,
-                            "fused_transform": 0}
+launches: Dict[str, int] = {"fused_iteration": 0, "fused_iteration_counts": 0,
+                            "fused_h_update": 0, "fused_transform": 0}
 
 # X storage dtype -> code of csrc/common.cuh:XType
 _XTYPE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2, torch.int16: 3}
@@ -56,11 +57,12 @@ def tile_width(K: int) -> int:
     return w
 
 
-def _iter_smem_bytes(K: int, T: int, L: int, Kg: int) -> int:
+def _iter_smem_bytes(K: int, T: int, L: int, Kg: int, counts: bool) -> int:
     """csrc/fused_iteration.cu:iter_smem_floats, in bytes."""
     TP = T + 1
     return 4 * (_GENE_CHUNK * K + _GENE_CHUNK * T + 3 * K * TP + 3 * L * TP
-                + L * Kg + 2 * Kg + _THREADS)
+                + L * Kg + 2 * Kg + _THREADS
+                + ((K + 2) * TP if counts else 0))
 
 
 def _embed_b(Bs: Sequence[torch.Tensor], blocks: Tuple[int, ...]) -> torch.Tensor:
@@ -81,6 +83,13 @@ def _lam_rows(lam: torch.Tensor, blocks: Tuple[int, ...]) -> torch.Tensor:
     return torch.cat([lam[c:c + 1].expand(k) for c, k in enumerate(blocks[:-1])])
 
 
+def _stats_len(K: int, L: int, counts: bool) -> int:
+    """Length of fused_iteration's stats vector: HHt (K·K), rowsum (K),
+    Bnum (L·K), prediction-loss rows (L), the loss dot (1) and, in counts
+    mode, the unscaled HHtU (K·K)."""
+    return K * K + K + L * K + L + 1 + (K * K if counts else 0)
+
+
 def _split_stats(blocks, n_labels, bnum_all, rowsum, pred_rows):
     """Per-covariate (preds, bnums, bdens), each sliced to its block."""
     preds, bnums, bdens = [], [], []
@@ -99,7 +108,8 @@ def _split_stats(blocks, n_labels, bnum_all, rowsum, pred_rows):
 # ---------------------------------------------------------------------------
 
 
-def fused_iteration_plain(X, W, H, WtW, Ys, Bs, lam, eps, *, blocks, loss_kl):
+def fused_iteration_plain(X, W, H, WtW, Ys, Bs, lam, eps, counts=None, *,
+                          blocks, loss_kl):
     """Plain PyTorch version of ``fused_iteration`` (same arguments and
     return tuple)."""
     blocks = tuple(blocks)
@@ -120,8 +130,12 @@ def fused_iteration_plain(X, W, H, WtW, Ys, Bs, lam, eps, *, blocks, loss_kl):
             num[:Kg] += 2.0 * lam_rows * (Bg.T @ Yf)
             den[:Kg] += 2.0 * lam_rows * (Bg.T @ BH)
     Hn = H * (num / torch.clamp(den, min=eps))
-    XHt = (round_partner(Hn, X.dtype) @ Xf.T).T
-    HHt = Hn @ Hn.T
+    Hs = Hn  # the operand of every contraction over cells against Hn
+    if counts is not None:
+        Hn = torch.where(counts[0] > 0, Hn, H)
+        Hs = Hn * counts[1]
+    XHt = (round_partner(Hs, X.dtype) @ Xf.T).T
+    HHt = Hs @ Hn.T
     lossdot = torch.sum(WtX * Hn)
     if not Ys:
         return Hn, XHt, HHt, lossdot, (), (), ()
@@ -133,8 +147,10 @@ def fused_iteration_plain(X, W, H, WtW, Ys, Bs, lam, eps, *, blocks, loss_kl):
     else:
         Q, E = Yf, (Yf - yhat) ** 2
     preds, bnums, bdens = _split_stats(
-        blocks, [y.shape[0] for y in Ys], Q @ Hn.T, torch.sum(Hn, dim=1),
+        blocks, [y.shape[0] for y in Ys], Q @ Hs.T, torch.sum(Hs, dim=1),
         torch.sum(E, dim=1))
+    if counts is not None:
+        return Hn, XHt, HHt, Hn @ Hn.T, lossdot, preds, bnums, bdens
     return Hn, XHt, HHt, lossdot, preds, bnums, bdens
 
 
@@ -178,9 +194,9 @@ def _cuda_or_cpu(X: torch.Tensor) -> bool:
     raise ValueError(f"unsupported device {X.device}")
 
 
-def _launch_iteration(X, W, H, WtW, Ys, Bs, lam, eps, blocks, loss_kl):
+def _launch_iteration(X, W, H, WtW, Ys, Bs, lam, eps, counts, blocks, loss_kl):
     """Run csrc/fused_iteration.cu; returns (Hn, XHt, stats, n_labels) with
-    stats = [HHt (K·K), rowsum (K), Bnum (L·K), pred rows (L), lossdot]."""
+    stats laid out as ``_stats_len`` says."""
     from alpine_tpu_torch.ops import _build
 
     dev = X.device
@@ -211,7 +227,7 @@ def _launch_iteration(X, W, H, WtW, Ys, Bs, lam, eps, blocks, loss_kl):
     if not isinstance(eps, float):
         raise TypeError("eps must be a Python float")
     T = tile_width(K)
-    smem = _iter_smem_bytes(K, T, L, Kg)
+    smem = _iter_smem_bytes(K, T, L, Kg, counts is not None)
     if smem > _MAX_SMEM:
         raise ValueError(
             f"fused_iteration needs {smem} bytes of shared memory at K={K}, "
@@ -225,7 +241,7 @@ def _launch_iteration(X, W, H, WtW, Ys, Bs, lam, eps, blocks, loss_kl):
     want = max(1, min(n_chunks, -(-_TARGET_HXT_BLOCKS // gene_blocks)))
     cells_per_split = -(-n_chunks // want) * _CELL_CHUNK
     n_split = -(-n // cells_per_split)
-    S_len = K * K + K + L * K + L + 1
+    S_len = _stats_len(K, L, counts is not None)
 
     Hn = torch.empty((K, n), dtype=f32, device=dev)
     XHt = torch.empty((g, K), dtype=f32, device=dev)
@@ -239,6 +255,7 @@ def _launch_iteration(X, W, H, WtW, Ys, Bs, lam, eps, blocks, loss_kl):
                 WtW.data_ptr(), Y_all.data_ptr() if Ys else None,
                 Bg.data_ptr() if Ys else None,
                 lam_rows.data_ptr() if Ys else None,
+                counts.data_ptr() if counts is not None else None,
                 g, n, K, L, Kg, int(bool(loss_kl)), eps, T, n_part,
                 tiles_per_block, GB, n_split, cells_per_split,
                 Hn.data_ptr(), XHt.data_ptr(), stats.data_ptr(),
@@ -249,34 +266,52 @@ def _launch_iteration(X, W, H, WtW, Ys, Bs, lam, eps, blocks, loss_kl):
     return Hn, XHt, stats, n_labels
 
 
-def fused_iteration(X, W, H, WtW, Ys, Bs, lam, eps, *, blocks, loss_kl):
+def fused_iteration(X, W, H, WtW, Ys, Bs, lam, eps, counts=None, *, blocks,
+                    loss_kl):
     """One full-batch joint H-update pass with the guided terms of every
     covariate, the prediction-loss partials and the next iteration's B
-    statistics (the counterpart of ``pallas_kernels.fused_iteration``
-    without counts mode).  Any cell count: the last tile is masked.
+    statistics (the counterpart of ``pallas_kernels.fused_iteration``).
+    Any cell count: the last tile is masked.
 
     X (g, n) int8/int16/bf16/f32; W (g, K), H (K, n), WtW (K, K) f32; Ys
     (labels_c, n) in X's dtype; Bs (labels_c, k_c) f32; lam (n_cov,) f32;
     eps a float.  Returns (Hn, XHt (g, K), HHt, lossdot, preds, bnums,
-    bdens), bnums/bdens sliced to each block's columns."""
+    bdens), bnums/bdens sliced to each block's columns.
+
+    ``counts`` (weighted_fast) is a (2, n) f32 tensor: row 0 this
+    iteration's draw counts (columns drawn 0 times keep their H), row 1 the
+    next iteration's, which scale every contraction over cells against Hn
+    (Hs = c_next ⊙ Hn feeds XHt, HHt = Hs Hnᵀ, rowsum and Bnum; the losses
+    stay unscaled).  The return then gains the unscaled HHtU = Hn Hnᵀ after
+    HHt, as the JAX function's does."""
     blocks = tuple(blocks)
+    if counts is not None and not Ys:
+        raise ValueError("counts mode requires covariates (weighted "
+                         "sampling balances over them)")
     if not Ys:
         raise ValueError("fused_iteration needs covariates; use fused_h_update")
+    if counts is not None:
+        _check("counts", counts, (2, X.shape[-1]), torch.float32, X.device)
     if not _cuda_or_cpu(X):
-        return fused_iteration_plain(X, W, H, WtW, Ys, Bs, lam, eps,
+        return fused_iteration_plain(X, W, H, WtW, Ys, Bs, lam, eps, counts,
                                      blocks=blocks, loss_kl=loss_kl)
-    Hn, XHt, stats, n_labels = _launch_iteration(X, W, H, WtW, Ys, Bs, lam,
-                                                 eps, blocks, loss_kl)
-    launches["fused_iteration"] += 1
+    Hn, XHt, stats, n_labels = _launch_iteration(
+        X, W, H, WtW, Ys, Bs, lam, eps, counts, blocks, loss_kl)
+    launches["fused_iteration" if counts is None
+             else "fused_iteration_counts"] += 1
     K, L = H.shape[0], sum(n_labels)
     HHt = stats[:K * K].view(K, K)
     rowsum = stats[K * K:K * K + K]
     off = K * K + K
     bnum_all = stats[off:off + L * K].view(L, K)
     pred_rows = stats[off + L * K:off + L * K + L]
+    lossdot = stats[off + L * K + L]
     preds, bnums, bdens = _split_stats(blocks, n_labels, bnum_all, rowsum,
                                        pred_rows)
-    return Hn, XHt, HHt, stats[-1], preds, bnums, bdens
+    if counts is not None:
+        HHtU = stats[off + L * K + L + 1:].view(K, K)
+        return Hn, XHt, HHt, HHtU, lossdot, preds, bnums, bdens
+    return Hn, XHt, HHt, lossdot, preds, bnums, bdens
 
 
 def fused_h_update(X, W, H, WtW, eps):
@@ -286,7 +321,7 @@ def fused_h_update(X, W, H, WtW, eps):
     if not _cuda_or_cpu(X):
         return fused_h_update_plain(X, W, H, WtW, eps)
     Hn, XHt, stats, _ = _launch_iteration(X, W, H, WtW, (), (), None, eps,
-                                          (H.shape[0],), True)
+                                          None, (H.shape[0],), True)
     launches["fused_h_update"] += 1
     K = H.shape[0]
     return Hn, XHt, stats[:K * K].view(K, K), stats[-1]

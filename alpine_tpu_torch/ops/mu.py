@@ -18,6 +18,11 @@ fit loop does; ``backend="plain"`` is the step-by-step PyTorch reference
 the tests hold the fused fit loop against.  JAX's ``lax.scan`` becomes a
 Python loop; the loss history stays on the device and is fetched once by
 the caller.
+
+``MUConfig.weighted_counts`` is ``sampling_method="weighted_fast"``: each
+iteration's balanced with-replacement draw of n cells becomes a count
+vector c, every contraction over cells against H is scaled by c, and
+undrawn cells keep their H (``joint_weighted_counts_update``).
 """
 
 from __future__ import annotations
@@ -78,7 +83,7 @@ def guided_width(blocks: Tuple[int, ...]) -> int:
 
 @dataclass(frozen=True)
 class MUConfig:
-    """Static configuration of one full-batch joint fit."""
+    """Static configuration of one full-epoch joint fit."""
 
     blocks: Tuple[int, ...]  # k per block; covariate blocks first, unguided last
     n_labels: Tuple[int, ...]  # labels per covariate block
@@ -88,6 +93,7 @@ class MUConfig:
     precision: str = "highest"  # "highest": true fp32, no TF32
     x_dtype: str = "float32"  # storage of X and Ys: see STORAGE_DTYPES
     backend: str = "fused"  # "fused" (kernels) | "plain" (step-by-step)
+    weighted_counts: bool = False  # weighted_fast: count-scaled epochs
 
     def __post_init__(self):
         if self.backend not in ("fused", "plain"):
@@ -208,6 +214,69 @@ def joint_batch_update(cfg: MUConfig, hyper, W, Bs, H, X, Xf, Ys_f):
     return W, Bs, H, (WtX, WtW)
 
 
+def joint_weighted_counts_update(cfg: MUConfig, hyper, W, Bs, H, X, Xf, Ys_f,
+                                 c):
+    """One weighted_fast joint MU step over a whole epoch, with the epoch's
+    draw given as per-cell counts ``c`` (n,) (the counterpart of
+    ``alpine_tpu.ops.mu.joint_weighted_counts_update``).  A contraction
+    over the drawn multiset is a count-weighted one over all cells —
+    H_D H_Dᵀ = (c ⊙ H) Hᵀ, X_D H_Dᵀ = X (c ⊙ H)ᵀ, and likewise for the B
+    statistics — while the H update is per column, so undrawn cells
+    (c = 0) keep their H.  ``c ⊙ H`` is rounded to X's compute dtype as a
+    whole, as the JAX step rounds it."""
+    lam, orth_w, alpha_w, l1_ratio, eps = hyper
+    Hc = H * c[None, :]
+
+    HHt = Hc @ H.T
+    num = 2.0 * _x_ht(X, Xf, Hc)
+    den = (2.0 * (W @ HHt)
+           + (1.0 - l1_ratio) * alpha_w * W
+           + orth_w * (torch.sum(W, dim=1, keepdim=True) - W)
+           + l1_ratio * alpha_w)
+    W = W * (num / _clamp(den, eps))
+
+    bnums, bdens = _b_stats(cfg, hyper, Bs, H, Ys_f, scale=c)
+    Bs = _update_bs(cfg, hyper, Bs, bnums, bdens, HHt)
+
+    WtX = _dot_x(X, W.T, Xf)
+    WtW = W.T @ W
+    num = 2.0 * WtX
+    den = 2.0 * (WtW @ H)
+    for i in range(cfg.n_cov):
+        o, k = cfg.offsets[i], cfg.blocks[i]
+        gnum, gden = _guided_h_terms(cfg, Bs[i], H[o:o + k], Ys_f[i], lam[i],
+                                     eps)
+        num[o:o + k] += gnum
+        den[o:o + k] += gden
+    H = torch.where(c[None, :] > 0, H * (num / _clamp(den, eps)), H)
+    return W, Bs, H, (WtX, WtW)
+
+
+def grouped_balanced_counts(generator: torch.Generator, n: int, tables):
+    """One epoch of the balanced sampler as a (n,) float32 count vector on
+    the generator's device (the counterpart of
+    ``alpine_tpu.ops.mu.grouped_balanced_counts`` with (start, m) tables).
+
+    The cell axis is sorted by joint group: group g holds columns
+    [start[g], start[g] + m[g]).  Every group carries the same probability
+    mass, so a draw is a group, uniform over the J groups, then a cell,
+    uniform within it — two uniform vectors instead of an inverse-CDF
+    search over n cells.  The draws are counted with an integer
+    ``index_add_`` (exact; ``bincount`` would read the largest index back to
+    the host and stall the fit loop every iteration)."""
+    start, m = tables
+    J = m.shape[0]
+    u1 = torch.rand(n, generator=generator, device=m.device)
+    u2 = torch.rand(n, generator=generator, device=m.device)
+    gid = torch.clamp((u1 * J).to(torch.int64), max=J - 1)
+    m_g = m[gid].to(torch.int64)
+    pos = torch.minimum((u2 * m_g.to(torch.float32)).to(torch.int64), m_g - 1)
+    cell = start[gid].to(torch.int64) + pos
+    counts = torch.zeros(n, dtype=torch.int32, device=m.device)
+    counts.index_add_(0, cell, torch.ones_like(cell, dtype=torch.int32))
+    return counts.to(torch.float32)
+
+
 def compute_loss_parts(cfg: MUConfig, hyper, W, H, Bs, X, Xf, Ys_f, normX2,
                        WtX: Optional[torch.Tensor] = None,
                        WtW: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -247,7 +316,7 @@ def _check_inputs(cfg: MUConfig, W0, H0, X, Ys) -> None:
                          "covariate")
 
 
-def _fit_scan_plain(cfg: MUConfig, W0, H0, Bs0, X, Ys, hyper):
+def _fit_scan_plain(cfg: MUConfig, W0, H0, Bs0, X, Ys, hyper, draw_counts):
     Xf = X.float()
     Ys_f = [y.float() for y in Ys]
     normX2 = _norm_x2(X)
@@ -255,8 +324,12 @@ def _fit_scan_plain(cfg: MUConfig, W0, H0, Bs0, X, Ys, hyper):
     losses = torch.empty((cfg.max_iter, 2 + cfg.n_cov), dtype=torch.float32,
                          device=X.device)
     for it in range(cfg.max_iter):
-        W, Bs, H, (WtX, WtW) = joint_batch_update(cfg, hyper, W, Bs, H, X, Xf,
-                                                  Ys_f)
+        if cfg.weighted_counts:
+            W, Bs, H, (WtX, WtW) = joint_weighted_counts_update(
+                cfg, hyper, W, Bs, H, X, Xf, Ys_f, draw_counts(it))
+        else:
+            W, Bs, H, (WtX, WtW) = joint_batch_update(cfg, hyper, W, Bs, H, X,
+                                                      Xf, Ys_f)
         losses[it] = compute_loss_parts(cfg, hyper, W, H, Bs, X, Xf, Ys_f,
                                         normX2, WtX=WtX, WtW=WtW)
     return W, H, Bs, losses
@@ -267,19 +340,22 @@ def _fit_scan_plain(cfg: MUConfig, W0, H0, Bs0, X, Ys, hyper):
 # ---------------------------------------------------------------------------
 
 
-def _b_stats(cfg: MUConfig, hyper, Bs, H, Ys_f):
+def _b_stats(cfg: MUConfig, hyper, Bs, H, Ys_f, scale=None):
     """B-update statistics over the current H (reference main.py:617-626):
-    KL -> ((Y ⊘ max(BH, eps)) Hᵀ, rowsum(H_i)); Frobenius -> (Y Hᵀ, unused)."""
+    KL -> ((Y ⊘ max(BH, eps)) Hᵀ, rowsum(H_i)); Frobenius -> (Y Hᵀ, unused).
+    ``scale`` (weighted_fast): per-cell draw counts; the contractions
+    against H are count-scaled, the per-column B@H is not."""
     eps = hyper[4]
     bnums, bdens = [], []
     for i in range(cfg.n_cov):
         o, k = cfg.offsets[i], cfg.blocks[i]
         Hi = H[o:o + k]
+        His = Hi if scale is None else Hi * scale[None, :]
         if cfg.loss_kl:
-            bnums.append((Ys_f[i] / _clamp(Bs[i] @ Hi, eps)) @ Hi.T)
-            bdens.append(torch.sum(Hi, dim=1))
+            bnums.append((Ys_f[i] / _clamp(Bs[i] @ Hi, eps)) @ His.T)
+            bdens.append(torch.sum(His, dim=1))
         else:
-            bnums.append(Ys_f[i] @ Hi.T)
+            bnums.append(Ys_f[i] @ His.T)
             bdens.append(torch.zeros((k,), dtype=torch.float32, device=H.device))
     return tuple(bnums), tuple(bdens)
 
@@ -312,14 +388,20 @@ def _update_w(hyper, W, XHt, HHt):
     return W * (num / _clamp(den, eps))
 
 
-def _fit_scan_fused(cfg: MUConfig, W0, H0, Bs0, X, Ys, hyper):
+def _fit_scan_fused(cfg: MUConfig, W0, H0, Bs0, X, Ys, hyper, draw_counts):
     """Full-batch joint MU with one fused kernel per iteration (the
-    counterpart of ``alpine_tpu.ops.mu._fit_scan_pallas`` without counts
-    mode).  The loop carries (W, H, Bs, XHt, HHt, bnums, bdens): XHt = X Hᵀ
-    and HHt = H Hᵀ feed the next W update, bnums/bdens the next B update,
-    and the kernel returns all of them for the new H.  The kernels mask the
-    ragged last cell tile, so nothing is padded and the KL loss carries no
-    padding bias."""
+    counterpart of ``alpine_tpu.ops.mu._fit_scan_pallas``).  The loop
+    carries (W, H, Bs, XHt, HHt, bnums, bdens): XHt = X Hᵀ and HHt = H Hᵀ
+    feed the next W update, bnums/bdens the next B update, and the kernel
+    returns all of them for the new H.  The kernels mask the ragged last
+    cell tile, so nothing is padded and the KL loss carries no padding
+    bias.
+
+    With ``cfg.weighted_counts`` the statistics carried into iteration t
+    are scaled by that iteration's draw c_t, so the kernel of iteration t
+    gets [c_t, c_{t+1}]: row 0 masks its H update, row 1 scales the
+    statistics it returns.  T iterations take T + 1 draws; the
+    reconstruction loss uses the kernel's unscaled H Hᵀ (HHtU)."""
     from alpine_tpu_torch.ops import kernels
 
     lam, _, _, _, eps = hyper
@@ -328,26 +410,37 @@ def _fit_scan_fused(cfg: MUConfig, W0, H0, Bs0, X, Ys, hyper):
     Xf = X.float()
     Ys_f = [y.float() for y in Ys]
     W, H, Bs = W0, H0, tuple(Bs0)
-    XHt = _x_ht(X, Xf, H)
-    HHt = H @ H.T
-    bnums, bdens = (_b_stats(cfg, hyper, Bs, H, Ys_f) if cfg.n_cov
-                    else ((), ()))
-    del Xf, Ys_f
+    c_cur = draw_counts(0) if cfg.weighted_counts else None
+    Hc = H if c_cur is None else H * c_cur[None, :]
+    XHt = _x_ht(X, Xf, Hc)
+    HHt = Hc @ H.T
+    bnums, bdens = (_b_stats(cfg, hyper, Bs, H, Ys_f, scale=c_cur)
+                    if cfg.n_cov else ((), ()))
+    del Xf, Ys_f, Hc
 
     losses = torch.empty((cfg.max_iter, 2 + cfg.n_cov), dtype=torch.float32,
                          device=X.device)
     for it in range(cfg.max_iter):
         W = _update_w(hyper, W, XHt, HHt)
         WtW = W.T @ W
-        if cfg.n_cov:
+        if cfg.weighted_counts:
+            c_next = draw_counts(it + 1)
+            Bs = _update_bs(cfg, hyper, Bs, bnums, bdens, HHt)
+            (H, XHt, HHt, HHtU, lossdot, preds, bnums,
+             bdens) = kernels.fused_iteration(
+                X, W, H, WtW, Ys, Bs, lam, eps, torch.stack([c_cur, c_next]),
+                blocks=cfg.blocks, loss_kl=cfg.loss_kl)
+            c_cur = c_next
+        elif cfg.n_cov:
             Bs = _update_bs(cfg, hyper, Bs, bnums, bdens, HHt)
             H, XHt, HHt, lossdot, preds, bnums, bdens = kernels.fused_iteration(
                 X, W, H, WtW, Ys, Bs, lam, eps, blocks=cfg.blocks,
                 loss_kl=cfg.loss_kl)
+            HHtU = HHt
         else:
             H, XHt, HHt, lossdot = kernels.fused_h_update(X, W, H, WtW, eps)
-            preds = ()
-        recon = normX2 - 2.0 * lossdot + torch.sum(WtW * HHt)
+            HHtU, preds = HHt, ()
+        recon = normX2 - 2.0 * lossdot + torch.sum(WtW * HHtU)
         total = recon
         for i in range(cfg.n_cov):
             total = total + lam[i] * preds[i]
@@ -355,21 +448,27 @@ def _fit_scan_fused(cfg: MUConfig, W0, H0, Bs0, X, Ys, hyper):
     return W, H, Bs, losses
 
 
-def fit_scan(cfg: MUConfig, W0, H0, Bs0, X, Ys, hyper):
-    """Run ``cfg.max_iter`` full-batch joint MU iterations.
+def fit_scan(cfg: MUConfig, W0, H0, Bs0, X, Ys, hyper, draw_counts=None):
+    """Run ``cfg.max_iter`` full-epoch joint MU iterations.
 
     ``X`` (genes × cells) and ``Ys`` (labels_i × cells) are cast to the
     storage dtype; ``hyper = (lam, orth_W, alpha_W, l1_ratio_W, eps)`` with
     ``lam`` a float32 tensor on X's device and the rest Python floats.
+    With ``cfg.weighted_counts``, ``draw_counts(t)`` returns draw t as a
+    (n_cells,) float32 count tensor on X's device; iteration t uses draw t.
     Returns (W, H, Bs, losses) with losses (max_iter, 2 + n_cov) on the
     device: [total, recon, pred_0, ...] per iteration."""
     X = X.to(cfg.xdt).contiguous()
     Ys = [y.to(cfg.xdt).contiguous() for y in Ys]
     _check_inputs(cfg, W0, H0, X, Ys)
+    if cfg.weighted_counts and (draw_counts is None or not cfg.n_cov):
+        raise ValueError("weighted_counts needs covariates and a draw_counts "
+                         "callable (weighted sampling balances over them)")
     run = _fit_scan_fused if cfg.backend == "fused" else _fit_scan_plain
     with matmul_precision(cfg.precision):
         return run(cfg, W0.contiguous(), H0.contiguous(),
-                   tuple(b.contiguous() for b in Bs0), X, Ys, hyper)
+                   tuple(b.contiguous() for b in Bs0), X, Ys, hyper,
+                   draw_counts)
 
 
 # ---------------------------------------------------------------------------

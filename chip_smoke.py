@@ -10,14 +10,22 @@ Phases, each printing one JSON line:
           bench shape (100k cells x 2,000 genes, K = 40, labels (2, 3), int8)
           and at small shapes over the other storage types, blocks and
           losses, with its time beside the plain version's and its bound;
+          fused_iteration's counts mode (weighted_fast) with counts from the
+          port's own balanced sampler, undrawn columns checked bit for bit;
   fit_loop  the fused fit loop alone on device-resident bench data: ms
-          per iteration, device busy share and device time per kernel (profiler);
+          per iteration, device busy share and device time per kernel
+          (profiler); then the same for the weighted_fast loop
+          (fit_loop_weighted_fast, the sampler's draws included);
   small   a small fit on the card against the same fit on the CPU (plain
           kernel versions, same seed);
   slice   ALPINE(n_components=30, n_covariate_components=[5, 5]).fit(...,
-          max_iter=50) and .transform() on 100k x 2,000 Poisson counts
-          (int8), with the launch counts read around it, then an unguided
-          fit (no covariates) for fused_h_update's path.
+          max_iter=50) and .transform() (through the fit's device X) on
+          100k x 2,000 Poisson counts (int8), with the launch counts read
+          around it, then an unguided fit (no covariates) for
+          fused_h_update's path;
+  slice_weighted_fast  the same fit with sampling_method="weighted_fast",
+          a transform through the fit's group-sorted device X, then
+          free_device_cache() and the uncached transform.
 Then one JSON line with every kernel's numbers and, last, the result line.
 Any failed check raises: the script exits non-zero and prints no result.
 Without a GPU it exits with code 2 before doing anything.
@@ -44,11 +52,13 @@ PEAKS = {"H100 PCIe": (2.0e12, 756e12, 51e12),
          "H100": (3.35e12, 989e12, 67e12)}
 REPLACES = {
     "fused_iteration": "alpine_tpu/ops/pallas_kernels.py:637",
+    "fused_iteration_counts": "alpine_tpu/ops/pallas_kernels.py:637 (counts)",
     "fused_h_update": "alpine_tpu/ops/pallas_kernels.py:361",
     "fused_transform": "alpine_tpu/ops/pallas_kernels.py:806",
 }
 SOURCES = {
     "fused_iteration": "alpine_tpu_torch/csrc/fused_iteration.cu",
+    "fused_iteration_counts": "alpine_tpu_torch/csrc/fused_iteration.cu",
     "fused_h_update": "alpine_tpu_torch/csrc/fused_iteration.cu",
     "fused_transform": "alpine_tpu_torch/csrc/fused_transform.cu",
 }
@@ -114,13 +124,17 @@ def iteration_problem(torch, gen, dev, g, n, blocks, n_labels, xdtype):
     return X, W, H, W.T @ W, Ys, Bs, lam
 
 
-def iteration_cost(g, n, blocks, n_labels, xbytes, bf16):
-    """(bytes, bf16 flop, fp32 flop) one fused iteration must move/do."""
+def iteration_cost(g, n, blocks, n_labels, xbytes, bf16, counts=False):
+    """(bytes, bf16 flop, fp32 flop) one fused iteration must move/do; the
+    counts mode also reads the (2, n) f32 counts and forms HHtU (K x K)."""
     K, L, Kg = sum(blocks), sum(n_labels), sum(blocks[:-1])
     nbytes = (xbytes * g * n + xbytes * L * n + 4 * 2 * K * n + 4 * 2 * g * K
               + 4 * K * K * 2 + 4 * L * Kg)
     x_ops = 4.0 * g * n * K
     f32_ops = 4.0 * K * K * n + (8.0 * L * Kg + 2.0 * L * K) * n + 12.0 * K * n
+    if counts:
+        nbytes += 4 * 2 * n + 4 * K * K
+        f32_ops += 2.0 * K * K * n
     return nbytes, (x_ops if bf16 else 0.0), f32_ops + (0.0 if bf16 else x_ops)
 
 
@@ -145,6 +159,8 @@ def main():
 
     from alpine_tpu_torch import ALPINE, AnnData
     from alpine_tpu_torch.ops import _build, kernels, mu
+    from alpine_tpu_torch.utils.sampling import (
+        balanced_group_tables, joint_label_ids)
 
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions: true fp32
@@ -171,14 +187,31 @@ def main():
     gen = torch.Generator(device=dev).manual_seed(0)
 
     # -- kernels against their plain versions ------------------------------
-    def run_iteration_case(tag, g, n, blocks, n_labels, xdtype, loss_kl, timed):
+    def group_tables(Ys):
+        """The balanced sampler's (start, sizes) over the joint labels of Ys."""
+        _, start, sizes = balanced_group_tables(
+            joint_label_ids([y.cpu().numpy() for y in Ys]))
+        return torch.from_numpy(start).to(dev), torch.from_numpy(sizes).to(dev)
+
+    def sampler_counts(Ys, n):
+        """Two epochs of the port's balanced sampler (this draw, the next),
+        as fused_iteration's (2, n) counts."""
+        tables = group_tables(Ys)
+        return torch.stack([mu.grouped_balanced_counts(gen, n, tables)
+                            for _ in range(2)])
+
+    def run_iteration_case(tag, g, n, blocks, n_labels, xdtype, loss_kl, timed,
+                           counts=None):
         X, W, H, WtW, Ys, Bs, lam = iteration_problem(
             torch, gen, dev, g, n, blocks, n_labels, xdtype)
+        C = None if counts is None else counts(Ys, n)
         if n_labels:
             kern = lambda: kernels.fused_iteration(
-                X, W, H, WtW, Ys, Bs, lam, EPS, blocks=blocks, loss_kl=loss_kl)
+                X, W, H, WtW, Ys, Bs, lam, EPS, C, blocks=blocks,
+                loss_kl=loss_kl)
             plain = lambda: kernels.fused_iteration_plain(
-                X, W, H, WtW, Ys, Bs, lam, EPS, blocks=blocks, loss_kl=loss_kl)
+                X, W, H, WtW, Ys, Bs, lam, EPS, C, blocks=blocks,
+                loss_kl=loss_kl)
         else:
             kern = lambda: kernels.fused_h_update(X, W, H, WtW, EPS)
             plain = lambda: kernels.fused_h_update_plain(X, W, H, WtW, EPS)
@@ -190,16 +223,26 @@ def main():
         row = {"phase": "kernel", "case": tag, "max_abs_err_Hn": errs[0][0],
                "worst_err_over_tolerance": worst,
                "tolerance": "rtol 1e-4, atol 1e-6*max|plain| per output"}
+        if C is not None:
+            undrawn = C[0] == 0
+            row["counts"] = {"undrawn": int(undrawn.sum()),
+                             "max": float(C.max()), "sum_row0": float(C[0].sum())}
+            row["undrawn_columns_bit_equal"] = bool(
+                torch.equal(got[0][:, undrawn], H[:, undrawn]))
         if timed:
             row["ms"] = time_ms(kern, 5)
             row["plain_ms"] = time_ms(plain, 3)
             xb = torch.empty((), dtype=xdtype).element_size()
             bf16 = xdtype in (torch.int8, torch.bfloat16)
-            cost = iteration_cost(g, n, blocks, n_labels, xb, bf16)
+            cost = iteration_cost(g, n, blocks, n_labels, xb, bf16,
+                                  counts=C is not None)
             row["bytes"], row["bf16_flop"], row["fp32_flop"] = cost
             row["bound_ms"], row["bound_by"] = bound(*cost, card)
         emit(row)
         check(worst <= 1.0, f"{tag}: kernel disagrees with its plain version")
+        if C is not None:
+            check(row["undrawn_columns_bit_equal"] and row["counts"]["undrawn"] > 0,
+                  f"{tag}: undrawn columns must keep H bit for bit")
         return row
 
     results["fused_iteration"] = run_iteration_case(
@@ -214,6 +257,22 @@ def main():
         run_iteration_case(f"fused_iteration small {str(xdt)[6:]} "
                            f"{blocks}/{labels} {'kl' if kl else 'frob'}",
                            300, 5000, blocks, labels, xdt, kl, False)
+    results["fused_iteration_counts"] = run_iteration_case(
+        "fused_iteration counts bench int8 kl", G, N, BLOCKS, N_LABELS,
+        torch.int8, True, True, counts=sampler_counts)
+    mixed_counts = lambda Ys, n: torch.randint(
+        0, 4, (2, n), generator=gen, device=dev).float()  # 0, 1 and above 1
+    for xdt, blocks, labels, kl in [
+            (torch.float32, (3, 4, 6), (2, 3), False),
+            (torch.bfloat16, (3, 9), (2,), True),
+            (torch.int16, (2, 3, 4, 5), (2, 5, 3), False),
+            (torch.float32, (1, 1), (1,), True),
+            (torch.int8, (2, 1), (17,), True),
+            (torch.int8, (5, 5, 30), (2, 3), False)]:
+        run_iteration_case(f"fused_iteration counts small {str(xdt)[6:]} "
+                           f"{blocks}/{labels} {'kl' if kl else 'frob'}",
+                           300, 5003, blocks, labels, xdt, kl, False,
+                           counts=mixed_counts)
     results["fused_h_update"] = run_iteration_case(
         "fused_h_update bench int8", G, N, (sum(BLOCKS),), (), torch.int8,
         True, True)
@@ -250,34 +309,47 @@ def main():
     # -- where the fit's device time goes: the fused fit loop alone ----------
     X, W, H, _, Ys, Bs, lam = iteration_problem(
         torch, gen, dev, G, N, BLOCKS, N_LABELS, torch.int8)
-    cfg = mu.MUConfig(blocks=BLOCKS, n_labels=N_LABELS, n_cells=N,
-                      max_iter=LOOP_ITERS, x_dtype="int8")
     hyper = (lam, 0.0, 0.0, 0.0, EPS)
-    drive = lambda: mu.fit_scan(cfg, W, H, Bs, X, Ys, hyper)
-    drive()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    drive()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    tables = group_tables(Ys)
+    loop_gen = torch.Generator(device=dev)
+
+    def draw_counts(t):
+        loop_gen.manual_seed(t)
+        return mu.grouped_balanced_counts(loop_gen, N, tables)
+
+    for phase, weighted in (("fit_loop", False),
+                            ("fit_loop_weighted_fast", True)):
+        cfg = mu.MUConfig(blocks=BLOCKS, n_labels=N_LABELS, n_cells=N,
+                          max_iter=LOOP_ITERS, x_dtype="int8",
+                          weighted_counts=weighted)
+        drive = lambda: mu.fit_scan(cfg, W, H, Bs, X, Ys, hyper,
+                                    draw_counts=draw_counts)
+        drive()
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         drive()
         torch.cuda.synchronize()
-        traced_wall = time.perf_counter() - t0
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    events.sort(key=lambda e: -e.self_device_time_total)
-    busy_us = sum(e.self_device_time_total for e in events)
-    emit({"phase": "fit_loop", "iterations": LOOP_ITERS,
-          "ms_per_iteration": wall * 1e3 / LOOP_ITERS,
-          # kernel time over wall time, both of the traced run
-          "device_busy_share": busy_us * 1e-6 / traced_wall,
-          "device_ms_per_iteration": busy_us * 1e-3 / LOOP_ITERS,
-          "top_device_kernels_ms_per_iteration": [
-              [e.key[:60], e.self_device_time_total * 1e-3 / LOOP_ITERS]
-              for e in events[:8]]})
-    del X, W, H, Ys, Bs
+        wall = time.perf_counter() - t0
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            drive()
+            torch.cuda.synchronize()
+            traced_wall = time.perf_counter() - t0
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA
+                  and e.self_device_time_total > 0]
+        events.sort(key=lambda e: -e.self_device_time_total)
+        busy_us = sum(e.self_device_time_total for e in events)
+        emit({"phase": phase, "iterations": LOOP_ITERS,
+              "ms_per_iteration": wall * 1e3 / LOOP_ITERS,
+              # kernel time over wall time, both of the traced run
+              "device_busy_share": busy_us * 1e-6 / traced_wall,
+              "device_ms_per_iteration": busy_us * 1e-3 / LOOP_ITERS,
+              "top_device_kernels_ms_per_iteration": [
+                  [e.key[:60], e.self_device_time_total * 1e-3 / LOOP_ITERS]
+                  for e in events[:10]]})
+    del X, W, H, Ys, Bs, tables
     torch.cuda.empty_cache()
 
     # -- a small fit on the card against the same fit on the CPU ------------
@@ -315,13 +387,15 @@ def main():
 
     model = ALPINE(n_components=30, n_covariate_components=[5, 5],
                    lam=[1e3, 1e3], device="cuda")
+    torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     t0 = time.perf_counter()
     model.fit(adata, ["batch", "condition"], max_iter=FIT_ITERS)
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
+    check(model._x_cache is not None, "the fit must keep its device X")
     t0 = time.perf_counter()
-    model.transform(adata)
+    model.transform(adata)  # through the fit's device X
     torch.cuda.synchronize()
     transform_s = time.perf_counter() - t0
     main_launches = dict(kernels.launches)
@@ -329,11 +403,12 @@ def main():
     emit({"phase": "slice", "cells": N, "genes": G, "data_seconds": data_s,
           "fit_seconds": fit_s, "fit_iterations": FIT_ITERS,
           "seconds_per_iteration_incl_setup": fit_s / FIT_ITERS,
-          "timings": model.timings_, "transform_seconds": transform_s,
+          "timings": model.timings_, "transform_seconds_cached": transform_s,
           "transform_iterations": model.max_iter, "data_dtype": model.data_dtype_,
           "launches": main_launches, "loss_first": L[0].tolist(),
           "loss_last": L[-1].tolist(),
           "peak_memory_bytes": torch.cuda.max_memory_allocated()})
+    model.free_device_cache()
     check(model.data_dtype_ == "int8", "auto must resolve to int8")
     check(main_launches["fused_iteration"] == FIT_ITERS,
           "fused_iteration must launch once per fit iteration")
@@ -362,12 +437,66 @@ def main():
     check(unguided_launches["fused_h_update"] == 10,
           "fused_h_update must launch once per unguided fit iteration")
     check(np.isfinite(Lu).all() and Lu[-1, 0] < Lu[0, 0], "unguided loss")
+    unguided.free_device_cache()
+    del model, unguided
+    torch.cuda.empty_cache()
+
+    # -- weighted_fast: balanced sampling as per-cell counts (K4) -------------
+    wf = ALPINE(n_components=30, n_covariate_components=[5, 5],
+                lam=[1e3, 1e3], device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    wf.fit(adata, ["batch", "condition"], max_iter=FIT_ITERS,
+           sampling_method="weighted_fast")
+    torch.cuda.synchronize()
+    wf_fit_s = time.perf_counter() - t0
+    check(wf._x_cache is not None and wf._x_cache[3] is not None,
+          "the weighted_fast fit must keep its group-sorted device X")
+    t0 = time.perf_counter()
+    wf.transform(adata)  # through the group-sorted device X
+    torch.cuda.synchronize()
+    cached_s = time.perf_counter() - t0
+    emb_cached = {k: adata.obsm[k].copy()
+                  for k in ("ALPINE_embedding", "batch", "condition")}
+    wf.free_device_cache()
+    t0 = time.perf_counter()
+    wf.transform(adata)  # uploads X again
+    torch.cuda.synchronize()
+    uncached_s = time.perf_counter() - t0
+    wf_launches = dict(kernels.launches)
+    Lw = wf.loss_history_
+    cache_ok = all(np.allclose(emb_cached[k], adata.obsm[k], rtol=1e-5)
+                   for k in emb_cached)
+    emit({"phase": "slice_weighted_fast", "fit_seconds": wf_fit_s,
+          "fit_iterations": FIT_ITERS, "timings": wf.timings_,
+          "transform_seconds_cached": cached_s,
+          "transform_seconds_uncached": uncached_s,
+          "cached_matches_uncached": bool(cache_ok),
+          "launches": wf_launches, "loss_first": Lw[0].tolist(),
+          "loss_last": Lw[-1].tolist(),
+          "peak_memory_bytes": torch.cuda.max_memory_allocated()})
+    check(wf_launches["fused_iteration_counts"] == FIT_ITERS,
+          "fused_iteration's counts mode must launch once per fit iteration")
+    check(wf_launches["fused_iteration"] == 0,
+          "a weighted_fast fit must not launch the plain fused_iteration")
+    check(wf_launches["fused_transform"] >= 1, "transform must launch fused_transform")
+    check(np.isfinite(Lw).all(), "weighted_fast loss history must be finite")
+    check(Lw[-1, 0] < Lw[0, 0], "weighted_fast total loss must fall")
+    check(adata.obsm["ALPINE_embedding"].shape == (N, 30), "embedding shape")
+    for key in ("batch", "condition"):
+        check(adata.obsm[key].shape == (N, 5), f"{key} block shape")
+    check(all(np.isfinite(v).all() for v in emb_cached.values()),
+          "weighted_fast embeddings finite")
+    check(cache_ok, "cached and uncached transforms must agree (rtol 1e-5)")
 
     launches = {"fused_iteration": main_launches["fused_iteration"],
+                "fused_iteration_counts": wf_launches["fused_iteration_counts"],
                 "fused_transform": main_launches["fused_transform"],
                 "fused_h_update": unguided_launches["fused_h_update"]}
     rows = []
-    for kname in ("fused_iteration", "fused_h_update", "fused_transform"):
+    for kname in ("fused_iteration", "fused_iteration_counts", "fused_h_update",
+                  "fused_transform"):
         res = results[kname]
         rows.append({"name": kname, "route": "cuda", "source": SOURCES[kname],
                      "replaces": REPLACES[kname], "launches": launches[kname],

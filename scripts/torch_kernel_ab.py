@@ -1,0 +1,120 @@
+#!/usr/bin/env python3
+"""Time the port's fused-iteration kernels of two checkouts on one GPU, in turns.
+
+    python3 scripts/torch_kernel_ab.py PARENT_DIR CHANGE_DIR
+
+Each checkout runs in a process of its own, in the order parent, change,
+change, parent, and builds its kernels from its own ``alpine_tpu_torch/csrc``.
+A run times, at the bench shape (100k cells x 2,000 genes, K = 40, labels
+(2, 3), int8 X, KL loss) on inputs made from one seed:
+
+- ``fused_iteration`` (K1) and ``fused_h_update`` (K2): median CUDA-event ms
+  of 20 warm launches;
+- the full-batch fused fit loop (``mu.fit_scan``): ms per iteration over 10
+  iterations, host clock around work that ends in a synchronize.
+
+Prints one JSON line per run, then one summary line with the mean of each
+checkout's two runs and the card's name and power limit.  Needs one NVIDIA
+GPU; exits non-zero without one.
+"""
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+G, N = 2000, 100_000
+BLOCKS, N_LABELS = (5, 5, 30), (2, 3)
+EPS = 1e-6
+REPS = 20
+LOOP_ITERS = 10
+
+
+def child(root):
+    sys.path.insert(0, os.path.abspath(root))
+    import numpy as np
+    import torch
+
+    from alpine_tpu_torch.ops import kernels, mu
+
+    if not torch.cuda.is_available():
+        raise SystemExit("needs an NVIDIA GPU")
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    K = sum(BLOCKS)
+    X = torch.poisson(torch.full((G, N), 1.5, device=dev),
+                      generator=gen).clamp_(max=127).to(torch.int8)
+    W = torch.rand((G, K), generator=gen, device=dev) + 0.05
+    H = torch.rand((K, N), generator=gen, device=dev) + 0.05
+    Ys, Bs = [], []
+    for c, nl in enumerate(N_LABELS):
+        lab = torch.randint(0, nl, (N,), generator=gen, device=dev)
+        Ys.append(torch.nn.functional.one_hot(lab, nl).T.contiguous().to(torch.int8))
+        Bs.append(torch.rand((nl, BLOCKS[c]), generator=gen, device=dev) + 0.05)
+    lam = torch.full((len(N_LABELS),), 1e3, device=dev)
+    WtW = W.T @ W
+
+    def time_ms(fn):
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(REPS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        return float(np.median(times))
+
+    k1 = time_ms(lambda: kernels.fused_iteration(
+        X, W, H, WtW, Ys, Bs, lam, EPS, blocks=BLOCKS, loss_kl=True))
+    k2 = time_ms(lambda: kernels.fused_h_update(X, W, H, WtW, EPS))
+    cfg = mu.MUConfig(blocks=BLOCKS, n_labels=N_LABELS, n_cells=N,
+                      max_iter=LOOP_ITERS, x_dtype="int8")
+    hyper = (lam, 0.0, 0.0, 0.0, EPS)
+    mu.fit_scan(cfg, W, H, Bs, X, Ys, hyper)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mu.fit_scan(cfg, W, H, Bs, X, Ys, hyper)
+    torch.cuda.synchronize()
+    loop_ms = (time.perf_counter() - t0) * 1e3 / LOOP_ITERS
+    print(json.dumps({"root": root, "fused_iteration_ms": k1,
+                      "fused_h_update_ms": k2,
+                      "fit_loop_ms_per_iteration": loop_ms}), flush=True)
+
+
+def main(argv):
+    if len(argv) == 3 and argv[1] == "--child":
+        child(argv[2])
+        return 0
+    if len(argv) != 3:
+        print(__doc__, file=sys.stderr)
+        return 2
+    parent, change = argv[1], argv[2]
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    runs = {parent: [], change: []}
+    for root in (parent, change, change, parent):
+        out = subprocess.run([sys.executable, os.path.abspath(__file__),
+                              "--child", root], capture_output=True, text=True,
+                             timeout=900)
+        if out.returncode != 0:
+            print(out.stderr[-4000:], file=sys.stderr)
+            return out.returncode
+        line = out.stdout.strip().splitlines()[-1]
+        print(line, flush=True)
+        runs[root].append(json.loads(line))
+    summary = {"card": smi.splitlines()[0], "order": "parent, change, change, parent"}
+    for label, root in (("parent", parent), ("change", change)):
+        summary[label] = {k: sum(r[k] for r in runs[root]) / 2
+                          for k in runs[root][0] if k != "root"}
+    print(json.dumps(summary), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv))

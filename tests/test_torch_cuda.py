@@ -8,7 +8,9 @@ GPU machine without them (tests/conftest.py imports JAX, hence
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
 Tolerances: rtol 1e-4 / atol 1e-5 for one fused iteration (fp32 sums in
-another order than cuBLAS), rtol 2e-4 for the 20-step transform loop.
+another order than cuBLAS), rtol 2e-4 for the 20-step transform loop; a
+fit on the card against the same fit on the CPU as chip_smoke.py holds it
+(loss rtol 5e-4 plus 2e-6·‖X‖², embeddings rtol 5e-3 / atol 1e-5).
 """
 
 import numpy as np
@@ -83,6 +85,88 @@ def test_fused_iteration_cuda_matches_plain(cuda, dtype, blocks, n_labels,
     for ga, wa in zip(got[4:], want[4:]):
         for a, b in zip(ga, wa):
             _close(a, b, 1e-4, 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,blocks,n_labels,loss_kl", ITER_CASES)
+def test_fused_iteration_counts_cuda_matches_plain(cuda, dtype, blocks,
+                                                   n_labels, loss_kl):
+    """K4: the counts mode against its plain version.  Undrawn columns keep
+    H bit for bit, and two launches give the same bits (fixed-order sums)."""
+    X, W, H, WtW, Ys, Bs, lam = _problem(9, 70, 1000, blocks, n_labels, dtype,
+                                         cuda)
+    r = np.random.default_rng(10)
+    counts = torch.from_numpy(r.integers(0, 4, (2, 1000)).astype(np.float32))
+    counts = counts.to(cuda)
+    before = dict(kernels.launches)
+    run = lambda: kernels.fused_iteration(X, W, H, WtW, Ys, Bs, lam, EPS,
+                                          counts, blocks=blocks,
+                                          loss_kl=loss_kl)
+    got, again = run(), run()
+    torch.cuda.synchronize()
+    assert kernels.launches["fused_iteration_counts"] == (
+        before["fused_iteration_counts"] + 2)
+    assert kernels.launches["fused_iteration"] == before["fused_iteration"]
+    want = kernels.fused_iteration_plain(X, W, H, WtW, Ys, Bs, lam, EPS,
+                                         counts, blocks=blocks,
+                                         loss_kl=loss_kl)
+    assert len(got) == len(want) == 8
+    for a, b in zip(got[:5], want[:5]):
+        _close(a, b, 1e-4, 1e-5)
+    for ga, wa in zip(got[5:], want[5:]):
+        for a, b in zip(ga, wa):
+            _close(a, b, 1e-4, 1e-5)
+    undrawn = counts[0] == 0
+    assert bool(undrawn.any())
+    assert torch.equal(got[0][:, undrawn], H[:, undrawn])
+    flat = lambda o: [t for v in o for t in (v if isinstance(v, tuple) else (v,))]
+    for a, b in zip(flat(got), flat(again)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_weighted_fast_fit_on_card_matches_cpu(cuda, monkeypatch):
+    """sampling_method="weighted_fast" on the card against the same fit on
+    the CPU, both fed one count stream made with numpy (the card's and the
+    CPU's generators give different numbers from one seed)."""
+    import alpine_tpu_torch.models.alpine as talpine
+    from alpine_tpu_torch import ALPINE, AnnData
+
+    def stream(tables, n_cells, random_state, device):
+        start, sizes = (t.cpu().numpy() for t in tables)
+
+        def draw(t):
+            r = np.random.default_rng([random_state, t])
+            gid = r.integers(0, len(sizes), n_cells)
+            pos = np.floor(r.random(n_cells) * sizes[gid]).astype(np.int64)
+            c = np.bincount(start[gid] + pos, minlength=n_cells)
+            return torch.from_numpy(c.astype(np.float32)).to(device)
+
+        return draw
+
+    monkeypatch.setattr(talpine, "draw_counts_stream", stream)
+    r = np.random.default_rng(1)
+    X = np.minimum(r.poisson(r.gamma(2.0, 1.0, (500, 6)) @ r.gamma(2.0, 0.3, (6, 80))),
+                   127).astype(np.float32)
+    obs = {"batch": np.array(["b0", "b1"], dtype=object)[r.integers(0, 2, 500)],
+           "cond": np.array(["c0", "c1", "c2"], dtype=object)[r.integers(0, 3, 500)]}
+    fits = {}
+    for where in ("cuda", "cpu"):
+        ad = AnnData(X, obs=obs)
+        m = ALPINE(n_components=6, n_covariate_components=[2, 2],
+                   lam=[10.0, 10.0], device=where, random_state=7)
+        kernels.reset_launches()
+        m.fit(ad, ["batch", "cond"], max_iter=5, sampling_method="weighted_fast")
+        m.transform(ad)
+        if where == "cuda":
+            assert kernels.launches["fused_iteration_counts"] == 5
+            assert kernels.launches["fused_iteration"] == 0
+        fits[where] = (m.loss_history_, ad.obsm["ALPINE_embedding"])
+    floor = 2e-6 * float(np.sum(np.square(X.astype(np.float64))))
+    np.testing.assert_allclose(fits["cuda"][0], fits["cpu"][0], rtol=5e-4,
+                               atol=floor)
+    np.testing.assert_allclose(fits["cuda"][1], fits["cpu"][1], rtol=5e-3,
+                               atol=1e-5)
 
 
 @pytest.mark.cuda

@@ -29,6 +29,10 @@ m.fit(ad, ["batch"], max_iter=4)
 m.transform(ad)
 assert ad.obsm["ALPINE_embedding"].shape == (90, 4)
 assert np.isfinite(m.loss_history_).all()
+m.fit(ad, ["batch"], max_iter=4, sampling_method="weighted_fast")
+assert m._x_cache is not None and m._x_cache[3] is not None
+m.transform(ad)  # through the device-X cache
+assert np.isfinite(ad.obsm["ALPINE_embedding"]).all()
 print("ok")
 """
 
@@ -49,6 +53,7 @@ def test_sources_import_no_jax():
     files = sorted((REPO / "alpine_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 5
+    assert REPO / "alpine_tpu_torch" / "utils" / "sampling.py" in files
     for f in files:
         hits = _FORBIDDEN.findall(f.read_text())
         assert not hits, f"{f.relative_to(REPO)} imports {hits}"

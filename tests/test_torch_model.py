@@ -205,7 +205,8 @@ def test_fit_errors_match_jax(case):
 def test_unported_options_raise():
     ad = _adata(integer=True)
     m = ALPINE(device="cpu", **KW)
-    for kw in (dict(batch_size=10), dict(sampling_method="weighted_fast"),
+    for kw in (dict(batch_size=10), dict(sampling_method="weighted"),
+               dict(sampling_method="tiled", batch_size=10),
                dict(n_restarts=2), dict(checkpoint_dir="ckpt")):
         with pytest.raises(NotImplementedError, match="later slice"):
             m.fit(ad, KEYS, max_iter=2, **kw)
