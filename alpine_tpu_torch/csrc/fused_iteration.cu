@@ -10,24 +10,54 @@
 // K = 40, int8 X, one launch must move X (200 MB), H in and out (32 MB) and
 // Y; the X products are 32 GFLOP, below the bf16 tensor-core roof.
 //
-// Design (a first, simple version: right before fast):
+// Design (simple first, then the X products on tensor cores):
 //  * iter_tiles: a grid of at most 2112 blocks, each walking a contiguous
 //    range of T-cell tiles.  Per tile it accumulates WtX = W^T X over gene
-//    chunks staged in shared memory (X widened to fp32, W rounded to bf16
-//    where X computes in bf16), forms Hn = H * num / max(den, eps) with the
-//    guided terms of all covariates through the block-embedded Bg, and adds
-//    the tile's H-side statistics (HHt, rowsum, Bnum, the prediction-loss
-//    rows and the loss dot) into that block's private partial in global
-//    memory.  The ragged last tile is masked, so the cell axis needs no
-//    padding and the KL loss carries no padding bias.
+//    chunks staged in shared memory, forms Hn = H * num / max(den, eps) with
+//    the guided terms of all covariates through the block-embedded Bg, and
+//    adds the tile's H-side statistics (HHt, rowsum, Bnum, the
+//    prediction-loss rows and the loss dot) into that block's private
+//    partial in global memory.  The ragged last tile is masked, so the cell
+//    axis needs no padding and the KL loss carries no padding bias.
 //  * hxt_partial: XHt = X Hn^T split over (gene block, cell range); each
-//    block keeps its K x GB outputs in registers and writes one partial.
-//    This reads X a second time from device memory (the TPU kernel reads it
+//    block accumulates its K x GB outputs and writes one partial.  This
+//    reads X a second time from device memory (the TPU kernel reads it
 //    once); fusing the two passes is later work.
 //  * reduce_partials: sums every partial in a fixed order, so a run gives
 //    the same bits each time (no floating-point atomics).
-// All arithmetic is fp32 FMA: matmul_precision="highest" means true fp32,
-// and no TF32 tensor-core path is taken.
+//
+// Where X computes in bf16 (int8 and bf16 storage, kBf16), both X products
+// run on the tensor cores through the WMMA API (bf16 m16n16k16, fp32
+// accumulators), as the TPU kernel runs them on its matrix unit in one
+// exact bf16 pass: W, Hn (or c_next * Hn) and X are staged in shared memory
+// as bf16, K padded with zero rows to Kp = pad16(K), the ragged cells and
+// genes zeroed.  Warp w of a block owns accumulator fragments w and w + 8
+// of the Kp x T (iter_tiles) or Kp x GB (hxt_partial) output, 16 fragments
+// a pass over the genes (cells); K > 256 takes a second pass, so that two
+// fragments a warp keep each pass within the registers of three blocks an
+// SM.  iter_tiles stores the fragments to shared memory (sWtX, row stride
+// T + 4) for the H update and the loss dot, hxt_partial through shared
+// memory to its partial.  Products are exact and sums fp32: the plain
+// version's result up to summation order.  Since fragments, not kMaxOut
+// registers, hold the outputs, this path has its own tile rule
+// (ops/kernels.py:iteration_tile_width): T = max(16, tile_width(K)), a
+// multiple of 16 for every K up to 512.
+//
+// Staging, not the products, is what the bf16 path spends its time on (on
+// the H100, the X loads alone took most of each pass when they moved a byte
+// a thread): X, Hn·c and W move in 16-byte loads where their rows are
+// 16-byte aligned (n a multiple of 16 / sizeof for X, of 4 for Hn; W always,
+// as one contiguous run a chunk), else element by element, into the same
+// bf16 values either way; X's loads are issued before W's (Hn's) so that
+// the two latencies overlap.  What bounds these passes now is the latency
+// of each chunk's loads, the per-tile scalar work (the H update's WtW·H,
+// HHt, the guided rows) and, in hxt_partial, re-reading Hn from L2 for
+// every gene block.
+//
+// Float32 and int16 X keep fp32 FMA with both operands from shared memory
+// (phase 1 and hxt_partial's else branches): matmul_precision="highest"
+// means true fp32, and no TF32 tensor-core path is taken.  That path is
+// bound by shared-memory loads (two per FMA).
 //
 // Counts mode (weighted_fast; pallas_kernels.py:fused_iteration with
 // `counts`, _iter_kernel:471-592): a (2, n) f32 count block C rides along.
@@ -40,28 +70,255 @@
 // K x K output, HHtU = Hn Hnᵀ, carries the unscaled product the
 // reconstruction loss needs.  hxt_partial rounds the product c_next * hn
 // to X's partner dtype, as the TPU kernel rounds Hs.  Counts mode is a
-// template parameter, so the passes above compile unchanged without it.  Bound at 100k cells x 2000 genes, K = 40, int8
-// X: 234 MB (the 233 MB above + 0.8 MB of counts), 0.070 ms at 3.35 TB/s.
+// template parameter, so the passes above compile unchanged without it.
+// Bound at 100k cells x 2000 genes, K = 40, int8 X: 234 MB (the 233 MB
+// above + 0.8 MB of counts), 0.070 ms at 3.35 TB/s.
 #include "common.cuh"
+
+#include <mma.h>
 
 namespace alpine {
 
-constexpr int kGeneChunk = 16;  // genes staged per phase-1 step
-constexpr int kCellChunk = 32;  // cells staged per hxt_partial step
+using namespace nvcuda;
 
-// Shared-memory layout of iter_tiles; ops/kernels.py:_iter_smem_bytes
-// computes the same size.  K x T and L x T arrays use a row stride of T + 1
-// so that column walks do not hit one bank.
+constexpr int kGeneChunk = 16;  // genes staged per phase-1 step (fp32 path)
+constexpr int kCellChunk = 32;  // cells a split holds a multiple of; fp32 path's step
+// bf16 path: genes per phase-1 step (ops/kernels.py: _MMA_GENE_CHUNK), cells
+// per hxt_partial step, and the accumulator fragments a warp holds in one
+// pass over the genes or cells: a block holds kWarps * kMmaFrags = 16
+// (ops/kernels.py: _MMA_PASS_FRAGS), and a larger output (K > 256) takes a
+// second pass.  Two fragments a warp keep the passes within the registers
+// that let three blocks share an SM (kMmaMinBlocks).
+constexpr int kMmaGeneChunk = 32;
+constexpr int kMmaCellChunk = 64;
+constexpr int kMmaFrags = 2;
+constexpr int kMmaMinBlocks = 3;
+using FragAcc = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
+
+__host__ __device__ inline int pad16(int v) { return (v + 15) / 16 * 16; }
+
+// Shared-memory layout of iter_tiles, in floats:
+//   staging | sH | sWtX | sHn | sY | sA | sE | sBg | sLam | sCol | sRed | sC, sHs
+// ops/kernels.py:_iter_smem_bytes computes the same size.  K x T and L x T
+// arrays use a row stride of T + 1 so that column walks do not hit one bank.
+// On the bf16 path (mma) the staging holds bf16 W and X chunks with rows
+// padded by 8 values, and sWtX has Kp rows of stride T + 4: a fragment store
+// needs a stride that is a multiple of 4 floats and 32-byte aligned rows.
+__host__ __device__ inline size_t iter_stage_floats(bool mma, int K, int T) {
+  return mma ? (size_t)kMmaGeneChunk * (pad16(K) + 8 + T + 8) / 2
+             : (size_t)kGeneChunk * K + (size_t)kGeneChunk * T;
+}
+__host__ __device__ inline size_t iter_h_floats(bool mma, int K, int T) {
+  const size_t f = (size_t)K * (T + 1);
+  return mma ? (f + 7) / 8 * 8 : f;  // keeps sWtX 32-byte aligned
+}
+__host__ __device__ inline size_t iter_wtx_floats(bool mma, int K, int T) {
+  return mma ? (size_t)pad16(K) * (T + 4) : (size_t)K * (T + 1);
+}
 __host__ __device__ inline size_t iter_smem_floats(int K, int T, int L, int Kg,
-                                                   bool counts) {
+                                                   bool counts, bool mma) {
   const size_t TP = T + 1;
-  return (size_t)kGeneChunk * K + (size_t)kGeneChunk * T + 3 * K * TP +
-         3 * L * TP + (size_t)L * Kg + 2 * (size_t)Kg + kThreads +
-         (counts ? (K + 2) * TP : 0);
+  return iter_stage_floats(mma, K, T) + iter_h_floats(mma, K, T) +
+         iter_wtx_floats(mma, K, T) + K * TP + 3 * L * TP + (size_t)L * Kg +
+         2 * (size_t)Kg + kThreads + (counts ? (K + 2) * TP : 0);
+}
+
+// hxt_partial's bf16 path: Hc (Kp x LC) and X (GB x LC) chunks as bf16, LC =
+// kMmaCellChunk + 8; after a pass's last chunk the same bytes hold the
+// Kp x (GB + 4) fp32 output on its way to the partial.
+__host__ __device__ inline size_t hxt_mma_smem_bytes(int K, int GB) {
+  const size_t stage = (size_t)(pad16(K) + GB) * (kMmaCellChunk + 8) * 2;
+  const size_t out = (size_t)pad16(K) * (GB + 4) * 4;
+  return stage > out ? stage : out;
+}
+
+// dst[i * ld + j] = bf16(value(i, j)) for i < rows, j < cols: thread t takes
+// the elements t, t + kThreads, ... of the row-major block, eight loads in
+// flight before their stores.  (i, j) advance by a fixed step, so no
+// element pays an integer division.
+template <typename F>
+__device__ __forceinline__ void stage_bf16(__nv_bfloat16* dst, int ld, int rows,
+                                           int cols, F value) {
+  const int t0 = threadIdx.x, di = kThreads / cols, dj = kThreads - di * cols;
+  int i = t0 / cols, j = t0 - i * cols;
+  while (i < rows) {
+    float v[8];
+    int at[8];
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      at[r] = -1;
+      if (i < rows) {
+        v[r] = value(i, j);
+        at[r] = i * ld + j;
+      }
+      i += di;
+      j += dj;
+      if (j >= cols) {
+        j -= cols;
+        ++i;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 8; ++r)
+      if (at[r] >= 0) dst[at[r]] = __float2bfloat16_rn(v[r]);
+  }
+}
+
+// 16 loaded bytes of T (the pointer only picks the type) widened to floats.
+__device__ __forceinline__ void widen16(uint4 u, const int8_t*, float* f) {
+  const unsigned w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int q = 0; q < 16; ++q) f[q] = (float)(int8_t)(w[q >> 2] >> (8 * (q & 3)));
+}
+__device__ __forceinline__ void widen16(uint4 u, const __nv_bfloat16*, float* f) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const float2 v = __bfloat1622float2(h[q]);
+    f[2 * q] = v.x;
+    f[2 * q + 1] = v.y;
+  }
+}
+__device__ __forceinline__ void widen16(uint4 u, const float*, float* f) {
+  f[0] = __uint_as_float(u.x);
+  f[1] = __uint_as_float(u.y);
+  f[2] = __uint_as_float(u.z);
+  f[3] = __uint_as_float(u.w);
+}
+
+// One 16-byte vector (V = 16 / sizeof(T) values) of a rows x cols block on
+// its way to shared memory as bf16: element (i, j) is src[i * stride + j]
+// (times scale[j]), zero where i >= rv or j >= cv.  load() issues the read
+// and store() widens, rounds and writes, so that other loads can be issued in
+// between.  The caller has checked that src and stride keep every row's
+// vectors 16-byte aligned, so stride, and with it the valid width cv of a
+// tile or chunk that starts at a multiple of V, are multiples of V: a vector
+// is valid or zero as a whole.
+template <typename T, bool kScale>
+struct VecSlot {
+  static constexpr int V = 16 / sizeof(T);
+  static_assert(!kScale || V == 4, "scale goes with fp32 sources");
+  uint4 raw;
+  float4 sc;
+  int i, j;
+  bool live, full;
+
+  __device__ __forceinline__ void load(int q, int vpr, int rows, const T* src,
+                                       size_t stride, int rv, int cv,
+                                       const float* scale) {
+    i = q / vpr;
+    j = (q - i * vpr) * V;
+    live = i < rows;
+    full = live && i < rv && j < cv;
+    if (full) {
+      raw = __ldg(reinterpret_cast<const uint4*>(src + i * stride + j));
+      if constexpr (kScale) sc = __ldg(reinterpret_cast<const float4*>(scale + j));
+    }
+  }
+
+  __device__ __forceinline__ void store(__nv_bfloat16* dst, int ld) const {
+    if (!live) return;
+    float f[V];
+    if (full) {
+      widen16(raw, static_cast<const T*>(nullptr), f);
+      if constexpr (kScale) {
+        f[0] *= sc.x;
+        f[1] *= sc.y;
+        f[2] *= sc.z;
+        f[3] *= sc.w;
+      }
+    } else {
+#pragma unroll
+      for (int u = 0; u < V; ++u) f[u] = 0.f;
+    }
+    __nv_bfloat162 p[V / 2];
+#pragma unroll
+    for (int u = 0; u < V / 2; ++u) p[u] = __floats2bfloat162_rn(f[2 * u], f[2 * u + 1]);
+    __nv_bfloat16* d = dst + i * ld + j;
+    if constexpr (V == 4) {
+      *reinterpret_cast<uint2*>(d) = *reinterpret_cast<const uint2*>(p);
+    } else {
+#pragma unroll
+      for (int w = 0; w < V / 8; ++w)
+        reinterpret_cast<uint4*>(d)[w] = reinterpret_cast<const uint4*>(p)[w];
+    }
+  }
+};
+
+// Vectors of X each thread stages for a rows x cols chunk of X.
+template <typename XT>
+__host__ __device__ constexpr int x_slots(int rows, int cols) {
+  return (rows * cols / VecSlot<XT, false>::V + kThreads - 1) / kThreads;
+}
+
+// The whole rows x cols block through VecSlots, kBatch loads in flight a
+// thread.
+template <typename T, bool kScale, int kBatch = 2>
+__device__ __forceinline__ void stage_vec(__nv_bfloat16* dst, int ld, int rows,
+                                          int cols, const T* src, size_t stride,
+                                          int rv, int cv, const float* scale) {
+  const int vpr = cols / VecSlot<T, kScale>::V;
+  for (int q0 = threadIdx.x; q0 < rows * vpr; q0 += kBatch * kThreads) {
+    VecSlot<T, kScale> s[kBatch];
+#pragma unroll
+    for (int r = 0; r < kBatch; ++r)
+      s[r].load(q0 + r * kThreads, vpr, rows, src, stride, rv, cv, scale);
+#pragma unroll
+    for (int r = 0; r < kBatch; ++r) s[r].store(dst, ld);
+  }
+}
+
+// Rows g0 .. g0 + rows - 1 of W (g x K, fp32) into the bf16 rows of sWb
+// (stride LW).  They are one contiguous run of rows * K floats, starting
+// 16-byte aligned when W is (g0 is a multiple of kMmaGeneChunk, a multiple
+// of 4), so a thread reads 16 bytes a load whatever K is.  Columns K.. and
+// rows past g are left as they are: the caller zeroes sWb once, and rows
+// past g meet zero rows of X.
+__device__ __forceinline__ void stage_w_run(__nv_bfloat16* sWb, int LW,
+                                            const float* W, int g0, int rows,
+                                            int K) {
+  const float* src = W + (size_t)g0 * K;
+  const int nw = rows * K;
+  for (int e0 = threadIdx.x * 4; e0 < nw; e0 += 2 * 4 * kThreads) {
+    float4 v[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int e = e0 + r * 4 * kThreads;
+      if (e + 4 <= nw) {
+        v[r] = __ldg(reinterpret_cast<const float4*>(src + e));
+      } else if (e < nw) {  // the run's last, partial vector
+        v[r].x = src[e];
+        v[r].y = e + 1 < nw ? src[e + 1] : 0.f;
+        v[r].z = e + 2 < nw ? src[e + 2] : 0.f;
+        v[r].w = 0.f;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int e = e0 + r * 4 * kThreads;
+      if (e >= nw) break;
+      int gg = e / K, k = e - gg * K;
+      const float f[4] = {v[r].x, v[r].y, v[r].z, v[r].w};
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        if (e + u < nw) sWb[gg * LW + k] = __float2bfloat16_rn(f[u]);
+        if (++k == K) {
+          k = 0;
+          ++gg;
+        }
+      }
+    }
+  }
+}
+
+// True when every row of a (rows, n) array of T at p starts 16-byte aligned.
+template <typename T>
+__device__ __forceinline__ bool rows_aligned16(const T* p, int n) {
+  return ((size_t)n * sizeof(T)) % 16 == 0 && (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
 template <typename XT, bool kBf16, bool kCounts>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kBf16 ? kMmaMinBlocks : 0)
 iter_tiles(const XT* __restrict__ X, const float* __restrict__ W,
            const float* __restrict__ H, const float* __restrict__ WtW,
            const XT* __restrict__ Y, const float* __restrict__ Bg,
@@ -69,13 +326,18 @@ iter_tiles(const XT* __restrict__ X, const float* __restrict__ W,
            int g, int n, int K, int L, int Kg, int loss_kl, float eps, int T,
            int tiles_per_block, int n_tiles, int S_len,
            float* __restrict__ Hn, float* __restrict__ part) {
-  extern __shared__ float sm[];
+  extern __shared__ __align__(128) float sm[];
   const int TP = T + 1;
-  float* sW = sm;                          // kGeneChunk x K
-  float* sX = sW + kGeneChunk * K;         // kGeneChunk x T
-  float* sH = sX + kGeneChunk * T;         // K x TP
-  float* sWtX = sH + K * TP;               // K x TP
-  float* sHn = sWtX + K * TP;              // K x TP
+  const int TW = kBf16 ? T + 4 : TP;       // row stride of sWtX
+  float* sW = sm;                          // kGeneChunk x K (fp32 path)
+  float* sX = sW + kGeneChunk * K;         // kGeneChunk x T (fp32 path)
+  // bf16 path: kMmaGeneChunk x (Kp + 8) W and kMmaGeneChunk x (T + 8) X
+  const int Kp = pad16(K);
+  __nv_bfloat16* sWb = reinterpret_cast<__nv_bfloat16*>(sm);
+  __nv_bfloat16* sXb = sWb + kMmaGeneChunk * (Kp + 8);
+  float* sH = sm + iter_stage_floats(kBf16, K, T);   // K x TP
+  float* sWtX = sH + iter_h_floats(kBf16, K, T);     // K (Kp) x TW
+  float* sHn = sWtX + iter_wtx_floats(kBf16, K, T);  // K x TP
   float* sY = sHn + K * TP;                // L x TP (Y widened to fp32)
   float* sA = sY + L * TP;                 // L x TP: B H, then Y/max(BH), then Q
   float* sE = sA + L * TP;                 // L x TP: prediction-loss terms
@@ -97,6 +359,10 @@ iter_tiles(const XT* __restrict__ X, const float* __restrict__ W,
   float* mypart = part + (size_t)blockIdx.x * S_len;
 
   for (int j = tid; j < S_len; j += kThreads) mypart[j] = 0.f;
+  if constexpr (kBf16) {  // W's padding columns (and rows past g) stay zero
+    for (int j = tid; j < kMmaGeneChunk * (Kp + 8); j += kThreads)
+      sWb[j] = __float2bfloat16_rn(0.f);
+  }
   for (int j = tid; j < L * Kg; j += kThreads) sBg[j] = Bg[j];
   for (int j = tid; j < Kg; j += kThreads) sLam[j] = lam_rows[j];
   __syncthreads();
@@ -127,8 +393,82 @@ iter_tiles(const XT* __restrict__ X, const float* __restrict__ W,
       }
     }
 
+    float acc[kMaxOut];  // fp32 path: WtX in registers
+    if constexpr (kBf16) {
+      // phase 1 on tensor cores: WtX (Kp x T) = Wᵀ (Kp x chunk) X (chunk x
+      // T) over bf16 gene chunks, then stored to sWtX.  X and W move in
+      // 16-byte loads where their rows allow, else element by element.
+      const bool xvec = rows_aligned16(X, n);
+      const bool wvec = (reinterpret_cast<uintptr_t>(W) & 15) == 0;
+      const int LW = Kp + 8, LX = T + 8, tcols = T / 16;
+      const int n_frag = (Kp / 16) * tcols;
+      const int warp = tid / 32;
+      // one pass over the genes for K <= 256, a second for the rest
+      for (int f0 = 0; f0 < n_frag; f0 += kWarps * kMmaFrags) {
+        FragAcc fr[kMmaFrags];
+#pragma unroll
+        for (int i = 0; i < kMmaFrags; ++i) wmma::fill_fragment(fr[i], 0.f);
+        for (int g0 = 0; g0 < g; g0 += kMmaGeneChunk) {
+          __syncthreads();
+          // X's vectors are read first, so that their latency overlaps W's
+          constexpr int kSlots = x_slots<XT>(kMmaGeneChunk, 64);
+          VecSlot<XT, false> xs[kSlots];
+          const XT* xsrc = X + (size_t)g0 * n + c0;
+          const int xvpr = T / VecSlot<XT, false>::V;
+          if (xvec) {
+#pragma unroll
+            for (int s = 0; s < kSlots; ++s)
+              xs[s].load(tid + s * kThreads, xvpr, kMmaGeneChunk, xsrc, n, g - g0, nv,
+                         nullptr);
+          } else {
+            stage_bf16(sXb, LX, kMmaGeneChunk, T, [&](int gg, int t) {
+              return (g0 + gg < g && t < nv) ? to_f(X[(size_t)(g0 + gg) * n + c0 + t])
+                                             : 0.f;
+            });
+          }
+          if (wvec) {
+            stage_w_run(sWb, LW, W, g0, min(kMmaGeneChunk, g - g0), K);
+          } else {
+            stage_bf16(sWb, LW, kMmaGeneChunk, Kp, [&](int gg, int k) {
+              return (g0 + gg < g && k < K) ? W[(size_t)(g0 + gg) * K + k] : 0.f;
+            });
+          }
+          if (xvec) {
+#pragma unroll
+            for (int s = 0; s < kSlots; ++s)
+              xs[s].store(sXb, LX);
+          }
+          __syncthreads();
+#pragma unroll
+          for (int kk = 0; kk < kMmaGeneChunk; kk += 16) {
+#pragma unroll
+            for (int i = 0; i < kMmaFrags; ++i) {
+              const int f = f0 + warp + i * kWarps;
+              if (f < n_frag) {  // warp-uniform
+                const int r = f / tcols, c = f - r * tcols;
+                wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
+                               wmma::col_major> a;
+                wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
+                               wmma::row_major> b;
+                wmma::load_matrix_sync(a, sWb + kk * LW + r * 16, LW);
+                wmma::load_matrix_sync(b, sXb + kk * LX + c * 16, LX);
+                wmma::mma_sync(fr[i], a, b, fr[i]);
+              }
+            }
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < kMmaFrags; ++i) {
+          const int f = f0 + warp + i * kWarps;
+          if (f < n_frag) {
+            const int r = f / tcols, c = f - r * tcols;
+            wmma::store_matrix_sync(sWtX + r * 16 * TW + c * 16, fr[i], TW,
+                                    wmma::mem_row_major);
+          }
+        }
+      }
+    } else {
     // phase 1: WtX over gene chunks, kept in registers
-    float acc[kMaxOut];
 #pragma unroll
     for (int i = 0; i < kMaxOut; ++i) acc[i] = 0.f;
     for (int g0 = 0; g0 < g; g0 += kGeneChunk) {
@@ -163,6 +503,7 @@ iter_tiles(const XT* __restrict__ X, const float* __restrict__ W,
         sWtX[k * TP + t] = acc[i];
       }
     }
+    }
     __syncthreads();
 
     // guided rows: B H over the guided block of H (all covariates at once)
@@ -181,7 +522,7 @@ iter_tiles(const XT* __restrict__ X, const float* __restrict__ W,
       const int k = o / T, t = o - k * T;
       float d = 0.f;
       for (int j = 0; j < K; ++j) d = fmaf(__ldg(&WtW[k * K + j]), sH[j * TP + t], d);
-      float num = 2.f * sWtX[k * TP + t];
+      float num = 2.f * sWtX[k * TW + t];
       float den = 2.f * d;
       if (k < Kg) {
         if (loss_kl) {
@@ -212,6 +553,12 @@ iter_tiles(const XT* __restrict__ X, const float* __restrict__ W,
 
     // loss dot: sum of WtX * Hn over the tile
     float ld = 0.f;
+    if constexpr (kBf16) {
+      for (int o = tid; o < KT; o += kThreads) {
+        const int k = o / T, t = o - k * T;
+        ld = fmaf(sWtX[k * TW + t], sHn[k * TP + t], ld);
+      }
+    } else {
 #pragma unroll
     for (int i = 0; i < kMaxOut; ++i) {
       const int o = tid + i * kThreads;
@@ -219,6 +566,7 @@ iter_tiles(const XT* __restrict__ X, const float* __restrict__ W,
         const int k = o / T, t = o - k * T;
         ld = fmaf(acc[i], sHn[k * TP + t], ld);
       }
+    }
     }
     sRed[tid] = ld;
     __syncthreads();
@@ -288,11 +636,11 @@ iter_tiles(const XT* __restrict__ X, const float* __restrict__ W,
 }
 
 template <typename XT, bool kBf16, bool kCounts>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kBf16 ? kMmaMinBlocks : 0)
 hxt_partial(const XT* __restrict__ X, const float* __restrict__ Hn,
             const float* __restrict__ C, int g, int n, int K, int GB,
             int cells_per_split, float* __restrict__ part_hxt) {
-  extern __shared__ float sm[];
+  extern __shared__ __align__(128) float sm[];
   constexpr int CT = kCellChunk, CTP = kCellChunk + 1;
   float* sHc = sm;            // K x CTP: Hn (or c_next * Hn) rounded as X's partner
   float* sXc = sHc + K * CTP;  // GB x CTP
@@ -303,6 +651,105 @@ hxt_partial(const XT* __restrict__ X, const float* __restrict__ Hn,
   const int cend = min(n, cbeg + cells_per_split);
   const int KG = K * GB;
 
+  if constexpr (kBf16) {
+    // on tensor cores: out (Kp x GB) = Hc (Kp x CM) Xcᵀ (CM x GB) over bf16
+    // cell chunks; Hc is c_next * Hn in counts mode, rounded after the product
+    constexpr int CM = kMmaCellChunk, LC = kMmaCellChunk + 8;
+    const int Kp = pad16(K), gcols = GB / 16;
+    const int n_frag = (Kp / 16) * gcols;
+    const int warp = tid / 32;
+    __nv_bfloat16* sHb = reinterpret_cast<__nv_bfloat16*>(sm);  // Kp x LC
+    __nv_bfloat16* sXb = sHb + Kp * LC;                          // GB x LC
+    float* sOut = sm;  // Kp x (GB + 4), once a pass's last chunk is done
+    const int LO = GB + 4;
+    // 16-byte loads where the rows allow (Hn and C share X's cell count)
+    const bool xvec = rows_aligned16(X, n);
+    const bool hvec = rows_aligned16(Hn, n) && (!kCounts || rows_aligned16(C, n));
+    // one pass over the cells for K <= 256, a second for the rest; a pass
+    // holds whole fragment rows (16 is a multiple of gcols)
+    for (int f0 = 0; f0 < n_frag; f0 += kWarps * kMmaFrags) {
+      FragAcc fr[kMmaFrags];
+#pragma unroll
+      for (int i = 0; i < kMmaFrags; ++i) wmma::fill_fragment(fr[i], 0.f);
+      for (int c0 = cbeg; c0 < cend; c0 += CM) {
+        const int nv = min(CM, cend - c0);
+        __syncthreads();
+        // X's vectors are read first, so that their latency overlaps Hn's
+        constexpr int kSlots = x_slots<XT>(64, CM);
+        VecSlot<XT, false> xs[kSlots];
+        const XT* xsrc = X + (size_t)g0 * n + c0;
+        const int xvpr = CM / VecSlot<XT, false>::V;
+        if (xvec) {
+#pragma unroll
+          for (int s = 0; s < kSlots; ++s)
+            xs[s].load(tid + s * kThreads, xvpr, GB, xsrc, n, g - g0, nv, nullptr);
+        } else {
+          stage_bf16(sXb, LC, GB, CM, [&](int gg, int t) {
+            return (t < nv && g0 + gg < g) ? to_f(X[(size_t)(g0 + gg) * n + c0 + t])
+                                           : 0.f;
+          });
+        }
+        if (hvec) {
+          // bf16 X holds two X vectors a thread here; with the counts row as
+          // well, one Hn vector in flight keeps the pass in its registers
+          constexpr int kHBatch = kCounts && kSlots > 1 ? 1 : 2;
+          stage_vec<float, kCounts, kHBatch>(sHb, LC, Kp, CM, Hn + c0, n, K, nv,
+                                             kCounts ? C + (size_t)n + c0 : nullptr);
+        } else {
+          stage_bf16(sHb, LC, Kp, CM, [&](int k, int t) {
+            float h = 0.f;
+            if (k < K && t < nv) {
+              h = Hn[(size_t)k * n + c0 + t];
+              if constexpr (kCounts) h *= C[(size_t)n + c0 + t];
+            }
+            return h;
+          });
+        }
+        if (xvec) {
+#pragma unroll
+          for (int s = 0; s < kSlots; ++s)
+            xs[s].store(sXb, LC);
+        }
+        __syncthreads();
+#pragma unroll
+        for (int kk = 0; kk < CM; kk += 16) {
+#pragma unroll
+          for (int i = 0; i < kMmaFrags; ++i) {
+            const int f = f0 + warp + i * kWarps;
+            if (f < n_frag) {  // warp-uniform
+              const int r = f / gcols, c = f - r * gcols;
+              wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
+                             wmma::row_major> a;
+              wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
+                             wmma::col_major> b;
+              wmma::load_matrix_sync(a, sHb + r * 16 * LC + kk, LC);
+              wmma::load_matrix_sync(b, sXb + c * 16 * LC + kk, LC);
+              wmma::mma_sync(fr[i], a, b, fr[i]);
+            }
+          }
+        }
+      }
+      __syncthreads();  // every warp is done with the staged chunks
+#pragma unroll
+      for (int i = 0; i < kMmaFrags; ++i) {
+        const int f = f0 + warp + i * kWarps;
+        if (f < n_frag) {
+          const int r = f / gcols, c = f - r * gcols;
+          wmma::store_matrix_sync(sOut + r * 16 * LO + c * 16, fr[i], LO,
+                                  wmma::mem_row_major);
+        }
+      }
+      __syncthreads();
+      // this pass's rows k_lo .. k_hi - 1 to the partial
+      const int k_lo = f0 / gcols * 16;
+      const int k_hi = min(K, (f0 + kWarps * kMmaFrags) / gcols * 16);
+      for (int o = tid; o < (k_hi - k_lo) * GB; o += kThreads) {
+        const int k = k_lo + o / GB, gg = o - (k - k_lo) * GB;
+        if (g0 + gg < g) part_hxt[((size_t)split * K + k) * g + g0 + gg] = sOut[k * LO + gg];
+      }
+    }
+  } else {
+  // fp32 FMA, both operands from shared memory
   float acc[kMaxOut];
 #pragma unroll
   for (int i = 0; i < kMaxOut; ++i) acc[i] = 0.f;
@@ -344,6 +791,7 @@ hxt_partial(const XT* __restrict__ X, const float* __restrict__ Hn,
       if (g0 + gg < g) part_hxt[((size_t)split * K + k) * g + g0 + gg] = acc[i];
     }
   }
+  }
 }
 
 // stats[j] = sum over blocks of part[b][j]; XHt[gi][k] = sum over splits of
@@ -379,10 +827,15 @@ static int launch(const void* X, const float* W, const float* H,
   const int n_tiles = (n + T - 1) / T;
   // ops/kernels.py:_stats_len: HHt, rowsum, Bnum, pred rows, loss dot, HHtU
   const int S_len = K * K + K + L * K + L + 1 + (kCounts ? K * K : 0);
-  const size_t smem_a = iter_smem_floats(K, T, L, Kg, kCounts) * sizeof(float);
-  const size_t smem_b = (size_t)(K + GB) * (kCellChunk + 1) * sizeof(float);
-  if (K * T > kThreads * kMaxOut || K * GB > kThreads * kMaxOut ||
-      smem_a > (size_t)kMaxSmem || smem_b > (size_t)kMaxSmem)
+  const size_t smem_a = iter_smem_floats(K, T, L, Kg, kCounts, kBf16) * sizeof(float);
+  const size_t smem_b = kBf16 ? hxt_mma_smem_bytes(K, GB)
+                              : (size_t)(K + GB) * (kCellChunk + 1) * sizeof(float);
+  // fp32 path: outputs in kMaxOut registers a thread; bf16 path: 16-wide
+  // fragments, and at most 64 cells (genes) for the X staging's slots
+  const bool tiles_ok =
+      kBf16 ? (T % 16 == 0 && GB % 16 == 0 && T <= 64 && GB <= 64)
+            : (K * T <= kThreads * kMaxOut && K * GB <= kThreads * kMaxOut);
+  if (!tiles_ok || smem_a > (size_t)kMaxSmem || smem_b > (size_t)kMaxSmem)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       iter_tiles<XT, kBf16, kCounts>, cudaFuncAttributeMaxDynamicSharedMemorySize,

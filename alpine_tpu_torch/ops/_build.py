@@ -93,7 +93,17 @@ def _finish(name: str, started) -> None:
     if proc.returncode != 0:
         os.unlink(tmp)
         raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{out}")
+    Path(f"{target}.log").write_text(out)
     os.replace(tmp, target)  # atomic: a concurrent loader never sees half a file
+
+
+def build_log(name: str) -> str:
+    """nvcc's output (ptxas register, shared-memory and spill report) of the
+    build of ``csrc/<name>.cu``, kept beside the library."""
+    if name in build_logs:
+        return build_logs[name]
+    log = Path(f"{_lib_path(name)}.log")
+    return log.read_text() if log.exists() else ""
 
 
 def build_all() -> Dict[str, float]:

@@ -36,6 +36,12 @@ _MAX_PART_BLOCKS = 2112  # blocks of the per-tile pass (16 per H100 SM)
 _TARGET_HXT_BLOCKS = 4224  # blocks of the X Hnᵀ pass (32 per H100 SM)
 _CELL_CHUNK = 32  # csrc/fused_iteration.cu: kCellChunk
 _GENE_CHUNK = 16  # csrc/fused_iteration.cu: kGeneChunk
+# fused_iteration's bf16 path (X products on tensor cores, wmma 16x16x16)
+_MMA_XTYPES = (torch.int8, torch.bfloat16)  # X storage that computes in bf16
+_MMA_GENE_CHUNK = 32  # csrc/fused_iteration.cu: kMmaGeneChunk
+# accumulator fragments a block holds in one pass over the genes or cells
+# (kWarps * kMmaFrags); a larger output takes more passes
+_MMA_PASS_FRAGS = 16
 
 
 def reset_launches() -> None:
@@ -57,12 +63,37 @@ def tile_width(K: int) -> int:
     return w
 
 
-def _iter_smem_bytes(K: int, T: int, L: int, Kg: int, counts: bool) -> int:
-    """csrc/fused_iteration.cu:iter_smem_floats, in bytes."""
+def iteration_tile_width(K: int, x_dtype: torch.dtype) -> int:
+    """fused_iteration's tile width for K components and X's storage dtype.
+
+    float32 and int16 X (fp32 FMA) keep ``tile_width``.  int8 and bf16 X
+    run their X products on tensor cores, whose 16 × 16 accumulator
+    fragments take the place of the per-thread register tile: that path
+    takes max(16, tile_width(K)), which differs only for 256 < K <= 512
+    (16 instead of 8).  Its Kp × T output, Kp = K rounded up to 16, is one
+    pass of at most 16 fragments for K <= 256 and two passes above."""
+    w = tile_width(K)
+    return max(16, w) if x_dtype in _MMA_XTYPES else w
+
+
+def _pad16(v: int) -> int:
+    return -(-v // 16) * 16
+
+
+def _iter_smem_bytes(K: int, T: int, L: int, Kg: int, counts: bool,
+                     mma: bool = False) -> int:
+    """csrc/fused_iteration.cu:iter_smem_floats, in bytes; ``mma`` for the
+    bf16 (tensor-core) path."""
     TP = T + 1
-    return 4 * (_GENE_CHUNK * K + _GENE_CHUNK * T + 3 * K * TP + 3 * L * TP
-                + L * Kg + 2 * Kg + _THREADS
-                + ((K + 2) * TP if counts else 0))
+    if mma:
+        stage = _MMA_GENE_CHUNK * (_pad16(K) + 8 + T + 8) // 2
+        h = -(-K * TP // 8) * 8
+        wtx = _pad16(K) * (T + 4)
+    else:
+        stage = _GENE_CHUNK * K + _GENE_CHUNK * T
+        h = wtx = K * TP
+    return 4 * (stage + h + wtx + K * TP + 3 * L * TP + L * Kg + 2 * Kg
+                + _THREADS + ((K + 2) * TP if counts else 0))
 
 
 def _embed_b(Bs: Sequence[torch.Tensor], blocks: Tuple[int, ...]) -> torch.Tensor:
@@ -226,8 +257,9 @@ def _launch_iteration(X, W, H, WtW, Ys, Bs, lam, eps, counts, blocks, loss_kl):
         lam_rows = _lam_rows(lam, blocks).contiguous()
     if not isinstance(eps, float):
         raise TypeError("eps must be a Python float")
-    T = tile_width(K)
-    smem = _iter_smem_bytes(K, T, L, Kg, counts is not None)
+    T = iteration_tile_width(K, X.dtype)
+    smem = _iter_smem_bytes(K, T, L, Kg, counts is not None,
+                            X.dtype in _MMA_XTYPES)
     if smem > _MAX_SMEM:
         raise ValueError(
             f"fused_iteration needs {smem} bytes of shared memory at K={K}, "
@@ -283,7 +315,14 @@ def fused_iteration(X, W, H, WtW, Ys, Bs, lam, eps, counts=None, *, blocks,
     next iteration's, which scale every contraction over cells against Hn
     (Hs = c_next ⊙ Hn feeds XHt, HHt = Hs Hnᵀ, rowsum and Bnum; the losses
     stay unscaled).  The return then gains the unscaled HHtU = Hn Hnᵀ after
-    HHt, as the JAX function's does."""
+    HHt, as the JAX function's does.
+
+    On the card, int8 and bf16 X run both X products on bf16 tensor cores
+    (exact products, fp32 sums: the plain version's result up to summation
+    order) with tiles from ``iteration_tile_width``, which gives them
+    16 cells per tile where float32/int16 X take 8 (256 < K <= 512): a rule
+    by X's dtype and K, not a fallback.  float32 and int16 X keep fp32 FMA
+    (no TF32)."""
     blocks = tuple(blocks)
     if counts is not None and not Ys:
         raise ValueError("counts mode requires covariates (weighted "

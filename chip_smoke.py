@@ -6,10 +6,17 @@
 Phases, each printing one JSON line:
   device  the card's name, count and power limit (nvidia-smi);
   build   nvcc builds every kernel of alpine_tpu_torch/csrc for sm_90a;
+  sass    cuobjdump of the fused_iteration library: tensor-core (HMMA)
+          instructions in both passes of the int8 and bf16 instantiations
+          and in none of float32/int16, and no spill stores on the bf16 path
+          (ptxas -v);
   kernel  each kernel against its plain PyTorch version on the card, at the
           bench shape (100k cells x 2,000 genes, K = 40, labels (2, 3), int8)
           and at small shapes over the other storage types, blocks and
-          losses, with its time beside the plain version's and its bound;
+          losses (K not a multiple of 16, ragged genes and cells, K = 300
+          and 512 where the bf16 path takes its own tile), with its time
+          beside the plain version's and its bound; beside K1 the two bf16
+          cuBLAS products over a bf16 copy of X as a yardstick;
           fused_iteration's counts mode (weighted_fast) with counts from the
           port's own balanced sampler, undrawn columns checked bit for bit;
   fit_loop  the fused fit loop alone on device-resident bench data: ms
@@ -33,6 +40,7 @@ Without a GPU it exits with code 2 before doing anything.
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -62,6 +70,9 @@ SOURCES = {
     "fused_h_update": "alpine_tpu_torch/csrc/fused_iteration.cu",
     "fused_transform": "alpine_tpu_torch/csrc/fused_transform.cu",
 }
+# mangled names of fused_iteration.cu's passes: <X type>, kBf16, kCounts
+PASS_NAME = re.compile(r"(iter_tiles|hxt_partial)I(\w+?)Lb([01])ELb([01])E")
+X_CODES = {"f": "float32", "13__nv_bfloat16": "bfloat16", "a": "int8", "s": "int16"}
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
@@ -104,6 +115,63 @@ def compare(got, want, rtol, atol_scale):
     atol = atol_scale * float(want.abs().max()) + 1e-30
     err = (got - want).abs()
     return float(err.max()), float((err / (atol + rtol * want.abs())).max())
+
+
+def ptxas_usage(log):
+    """{mangled kernel: {"registers", "spill_stores"}} from nvcc's ptxas -v
+    report."""
+    usage, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties for )"
+                      r"([\w$]+)", line)
+        if m:
+            fn = m.group(1)
+            usage.setdefault(fn, {})
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and fn:
+            usage[fn]["spill_stores"] = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            usage[fn]["registers"] = int(m.group(1))
+    return usage
+
+
+def sass_check(_build):
+    """Which instantiations of fused_iteration's two passes run on tensor
+    cores: HMMA instructions in the SASS of the built library (cuobjdump)
+    for int8/bf16 X and none for float32/int16, and no spill stores on the
+    tensor-core path (ptxas -v)."""
+    tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "--dump-sass", str(_build._lib_path("fused_iteration"))],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    hmma, fn = {}, None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            fn = line.split("Function : ", 1)[1].strip()
+            hmma[fn] = 0
+        elif fn is not None and "HMMA" in line:
+            hmma[fn] += 1
+    usage = ptxas_usage(_build.build_log("fused_iteration"))
+    rows = []
+    for fn, count in sorted(hmma.items()):
+        m = PASS_NAME.search(fn)
+        if m:
+            kernel, x, bf16, counts = m.groups()
+            u = usage.get(fn, {})
+            rows.append({"kernel": kernel, "x": X_CODES.get(x, x),
+                         "counts": counts == "1", "tensor_core_path": bf16 == "1",
+                         "hmma": count, "registers": u.get("registers"),
+                         "spill_stores": u.get("spill_stores")})
+    emit({"phase": "sass", "functions": rows})
+    check(len(rows) == 16, f"expected 16 pass instantiations, found {len(rows)}")
+    for r in rows:
+        tag = f"{r['kernel']} {r['x']} counts={r['counts']}"
+        check((r["hmma"] > 0) == r["tensor_core_path"],
+              f"{tag}: HMMA count {r['hmma']} does not fit its path")
+        if r["tensor_core_path"]:
+            check(r["spill_stores"] == 0, f"{tag}: spill stores {r['spill_stores']}")
 
 
 def iteration_problem(torch, gen, dev, g, n, blocks, n_labels, xdtype):
@@ -178,10 +246,11 @@ def main():
     build_s = _build.build_all()
     for src, log in _build.build_logs.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "properties" in line:
                 print(f"ptxas {src}: {line.strip()}", file=sys.stderr)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "per_source_seconds": build_s})
+    sass_check(_build)
 
     results = {}
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -238,6 +307,13 @@ def main():
                                   counts=C is not None)
             row["bytes"], row["bf16_flop"], row["fp32_flop"] = cost
             row["bound_ms"], row["bound_by"] = bound(*cost, card)
+        if timed and n_labels and C is None:
+            # yardstick, used nowhere in the port: the two X products alone
+            # as bf16 cuBLAS calls over a bf16 copy of X
+            Xb, Wb, Hb = X.to(torch.bfloat16), W.bfloat16(), H.bfloat16()
+            row["x_products_cublas_bf16_ms"] = time_ms(
+                lambda: (Wb.T @ Xb, Hb @ Xb.T), 5)
+            del Xb
         emit(row)
         check(worst <= 1.0, f"{tag}: kernel disagrees with its plain version")
         if C is not None:
@@ -248,12 +324,22 @@ def main():
     results["fused_iteration"] = run_iteration_case(
         "fused_iteration bench int8 kl", G, N, BLOCKS, N_LABELS, torch.int8,
         True, True)
+    # small cases: 300 genes (not a multiple of either gene chunk) and 5000
+    # or 5003 cells (not a multiple of any tile or of the cell chunk); K not
+    # a multiple of 16 on the tensor-core path (int8, bf16), and K = 300 and
+    # 512, where that path takes 16-cell tiles and float32 8-cell ones
+    edge_cases = [
+        (torch.int8, (7, 14), (3,), True),
+        (torch.bfloat16, (5, 5, 30), (2, 3), False),
+        (torch.bfloat16, (150, 150), (3,), False),
+        (torch.int8, (200, 312), (4,), True),
+        (torch.float32, (200, 312), (4,), True)]
     for xdt, blocks, labels, kl in [
             (torch.float32, (3, 4, 6), (2, 3), False),
             (torch.bfloat16, (3, 9), (2,), True),
             (torch.int16, (2, 3, 4, 5), (2, 5, 3), False),
             (torch.float32, (1, 1), (1,), True),
-            (torch.int8, (2, 1), (17,), True)]:
+            (torch.int8, (2, 1), (17,), True)] + edge_cases:
         run_iteration_case(f"fused_iteration small {str(xdt)[6:]} "
                            f"{blocks}/{labels} {'kl' if kl else 'frob'}",
                            300, 5000, blocks, labels, xdt, kl, False)
@@ -268,16 +354,27 @@ def main():
             (torch.int16, (2, 3, 4, 5), (2, 5, 3), False),
             (torch.float32, (1, 1), (1,), True),
             (torch.int8, (2, 1), (17,), True),
-            (torch.int8, (5, 5, 30), (2, 3), False)]:
+            (torch.int8, (5, 5, 30), (2, 3), False)] + edge_cases:
         run_iteration_case(f"fused_iteration counts small {str(xdt)[6:]} "
                            f"{blocks}/{labels} {'kl' if kl else 'frob'}",
                            300, 5003, blocks, labels, xdt, kl, False,
                            counts=mixed_counts)
+    # 5040 cells: a multiple of 16, so the tensor-core path stages X, W and
+    # Hn in 16-byte loads (5000 and 5003 take its element-by-element
+    # staging), but not of the 64-cell tile or chunk
+    for xdt, blocks, labels, kl in edge_cases[:4]:
+        for C in (None, mixed_counts):
+            run_iteration_case(f"fused_iteration {'counts ' if C else ''}small "
+                               f"{str(xdt)[6:]} {blocks}/{labels} "
+                               f"{'kl' if kl else 'frob'} n=5040",
+                               300, 5040, blocks, labels, xdt, kl, False, counts=C)
     results["fused_h_update"] = run_iteration_case(
         "fused_h_update bench int8", G, N, (sum(BLOCKS),), (), torch.int8,
         True, True)
     run_iteration_case("fused_h_update small float32", 300, 5001, (13,), (),
                        torch.float32, True, False)
+    run_iteration_case("fused_h_update small int8", 300, 5001, (21,), (),
+                       torch.int8, True, False)
 
     K = sum(BLOCKS)
     Wt = torch.rand((G, K), generator=gen, device=dev)

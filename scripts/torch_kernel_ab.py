@@ -8,16 +8,22 @@ change, parent, and builds its kernels from its own ``alpine_tpu_torch/csrc``.
 A run times, at the bench shape (100k cells x 2,000 genes, K = 40, labels
 (2, 3), int8 X, KL loss) on inputs made from one seed:
 
-- ``fused_iteration`` (K1) and ``fused_h_update`` (K2): median CUDA-event ms
-  of 20 warm launches;
+- ``fused_iteration`` (K1), ``fused_h_update`` (K2) and ``fused_iteration``
+  with a fixed (2, n) counts tensor drawn from the seed (K4): median
+  CUDA-event ms of 20 warm launches;
 - the full-batch fused fit loop (``mu.fit_scan``): ms per iteration over 10
-  iterations, host clock around work that ends in a synchronize.
+  iterations, host clock around work that ends in a synchronize;
+- a digest of every output of K1, K4 and K2 with the same inputs held as
+  float32 and as int16 X (the fp32 FMA path), so the summary can say
+  whether the two checkouts give those paths the same bits.
 
 Prints one JSON line per run, then one summary line with the mean of each
-checkout's two runs and the card's name and power limit.  Needs one NVIDIA
-GPU; exits non-zero without one.
+checkout's two runs, whether all four runs agree bit for bit on the
+float32/int16 outputs, and the card's name and power limit.  Needs one
+NVIDIA GPU; exits non-zero without one.
 """
 
+import hashlib
 import json
 import os
 import subprocess
@@ -69,9 +75,30 @@ def child(root):
             times.append(start.elapsed_time(end))
         return float(np.median(times))
 
+    C = torch.randint(0, 4, (2, N), generator=gen, device=dev).float()
+    k1_k4_k2 = lambda X, Ys: (
+        kernels.fused_iteration(X, W, H, WtW, Ys, Bs, lam, EPS, blocks=BLOCKS,
+                                loss_kl=True),
+        kernels.fused_iteration(X, W, H, WtW, Ys, Bs, lam, EPS, C,
+                                blocks=BLOCKS, loss_kl=True),
+        kernels.fused_h_update(X, W, H, WtW, EPS))
+
+    def digest(outs):
+        h = hashlib.sha256()
+        for out in outs:
+            for v in out:
+                for t in (v if isinstance(v, tuple) else (v,)):
+                    h.update(t.contiguous().cpu().numpy().tobytes())
+        return h.hexdigest()[:16]
+
+    bits = {str(dt)[6:]: digest(k1_k4_k2(X.to(dt), [y.to(dt) for y in Ys]))
+            for dt in (torch.float32, torch.int16)}
+    torch.cuda.empty_cache()
     k1 = time_ms(lambda: kernels.fused_iteration(
         X, W, H, WtW, Ys, Bs, lam, EPS, blocks=BLOCKS, loss_kl=True))
     k2 = time_ms(lambda: kernels.fused_h_update(X, W, H, WtW, EPS))
+    k4 = time_ms(lambda: kernels.fused_iteration(
+        X, W, H, WtW, Ys, Bs, lam, EPS, C, blocks=BLOCKS, loss_kl=True))
     cfg = mu.MUConfig(blocks=BLOCKS, n_labels=N_LABELS, n_cells=N,
                       max_iter=LOOP_ITERS, x_dtype="int8")
     hyper = (lam, 0.0, 0.0, 0.0, EPS)
@@ -83,7 +110,9 @@ def child(root):
     loop_ms = (time.perf_counter() - t0) * 1e3 / LOOP_ITERS
     print(json.dumps({"root": root, "fused_iteration_ms": k1,
                       "fused_h_update_ms": k2,
-                      "fit_loop_ms_per_iteration": loop_ms}), flush=True)
+                      "fused_iteration_counts_ms": k4,
+                      "fit_loop_ms_per_iteration": loop_ms,
+                      "fp32_path_bits": bits}), flush=True)
 
 
 def main(argv):
@@ -111,7 +140,11 @@ def main(argv):
     summary = {"card": smi.splitlines()[0], "order": "parent, change, change, parent"}
     for label, root in (("parent", parent), ("change", change)):
         summary[label] = {k: sum(r[k] for r in runs[root]) / 2
-                          for k in runs[root][0] if k != "root"}
+                          for k in runs[root][0]
+                          if k not in ("root", "fp32_path_bits")}
+    digests = {json.dumps(r["fp32_path_bits"], sort_keys=True)
+               for rs in runs.values() for r in rs}
+    summary["fp32_path_bits_equal"] = len(digests) == 1
     print(json.dumps(summary), flush=True)
     return 0
 

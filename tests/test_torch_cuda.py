@@ -30,6 +30,14 @@ ITER_CASES = (
        ("float32", (2, 1), (17,), True),
        ("int8", (5, 5, 30), (2, 3), True),
        ("int8", (40, 60, 100), (4, 7), True)]
+    # the tensor-core path (int8, bf16) at K not a multiple of 16, and at
+    # K = 300 and 512, where it takes 16-cell tiles (float32: 8); 70 genes
+    # and 1000 cells are not multiples of any gene chunk, tile or cell chunk
+    + [("int8", (7, 14), (3,), True),
+       ("bfloat16", (5, 5, 30), (2, 3), False),
+       ("bfloat16", (150, 150), (3,), False),
+       ("int8", (200, 312), (4,), True),
+       ("float32", (200, 312), (4,), True)]
 )
 
 
@@ -124,6 +132,44 @@ def test_fused_iteration_counts_cuda_matches_plain(cuda, dtype, blocks,
         assert torch.equal(a, b)
 
 
+def _unaligned(t):
+    """The same values in a contiguous tensor whose address is off 16-byte
+    alignment (one element into its buffer)."""
+    buf = torch.empty(t.numel() + 16, dtype=t.dtype, device=t.device)
+    u = buf[1:1 + t.numel()].view(t.shape)
+    u.copy_(t)
+    return u
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,blocks,n_labels,loss_kl", [
+    ("int8", (7, 14), (3,), True),
+    ("bfloat16", (5, 5, 30), (2, 3), False),
+    ("int8", (200, 312), (4,), True)])
+def test_fused_iteration_cuda_staging_paths_agree(cuda, dtype, blocks, n_labels,
+                                                  loss_kl):
+    """At 1040 cells (a multiple of 16, not of the 64-cell tile or chunk) the
+    tensor-core path stages X, W and Hn in 16-byte loads; the same X and W
+    at addresses off 16-byte alignment take its element-by-element staging.
+    Both match the plain version and give the same bits, with and without
+    counts."""
+    X, W, H, WtW, Ys, Bs, lam = _problem(11, 70, 1040, blocks, n_labels, dtype,
+                                         cuda)
+    r = np.random.default_rng(12)
+    counts = torch.from_numpy(r.integers(0, 4, (2, 1040)).astype(np.float32))
+    flat = lambda o: [t for v in o for t in (v if isinstance(v, tuple) else (v,))]
+    for C in (None, counts.to(cuda)):
+        run = lambda X, W: kernels.fused_iteration(
+            X, W, H, WtW, Ys, Bs, lam, EPS, C, blocks=blocks, loss_kl=loss_kl)
+        got, moved = run(X, W), run(_unaligned(X), _unaligned(W))
+        want = kernels.fused_iteration_plain(X, W, H, WtW, Ys, Bs, lam, EPS, C,
+                                             blocks=blocks, loss_kl=loss_kl)
+        torch.cuda.synchronize()
+        for a, b, c in zip(flat(got), flat(moved), flat(want)):
+            assert torch.equal(a, b)
+            _close(a, c, 1e-4, 1e-5)
+
+
 @pytest.mark.cuda
 def test_weighted_fast_fit_on_card_matches_cpu(cuda, monkeypatch):
     """sampling_method="weighted_fast" on the card against the same fit on
@@ -171,8 +217,9 @@ def test_weighted_fast_fit_on_card_matches_cpu(cuda, monkeypatch):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", list(DTYPES))
-def test_fused_h_update_cuda_matches_plain(cuda, dtype):
-    X, W, H, WtW, _, _, _ = _problem(7, 50, 777, (13,), (), dtype, cuda)
+@pytest.mark.parametrize("K", [13, 40])
+def test_fused_h_update_cuda_matches_plain(cuda, dtype, K):
+    X, W, H, WtW, _, _, _ = _problem(7, 50, 777, (K,), (), dtype, cuda)
     got = kernels.fused_h_update(X, W, H, WtW, EPS)
     want = kernels.fused_h_update_plain(X, W, H, WtW, EPS)
     for a, b in zip(got, want):

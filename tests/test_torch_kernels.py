@@ -139,6 +139,38 @@ def test_tile_rule():
         kernels.tile_width(513)
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_iteration_tile_rule_fits_its_path(dtype):
+    """For every supported K, fused_iteration's tile (iteration_tile_width)
+    suits the path X's dtype selects: int8/bf16 run their X products on
+    tensor cores (16-wide fragments, 16 a pass: one pass up to K = 256, two
+    above), float32/int16 keep fp32 FMA (at most 4096 register outputs a
+    block).  Shared memory stays within a Hopper block's at 8 labels over
+    K - 1 guided components with counts, the widest layout."""
+    xdt = _TORCH[dtype]
+    mma = dtype in ("int8", "bfloat16")
+    assert (xdt in kernels._MMA_XTYPES) == mma
+    for K in range(1, 513):
+        T = kernels.iteration_tile_width(K, xdt)
+        assert T in (8, 16, 32, 64)
+        if mma:
+            assert T % 16 == 0
+            passes = -(-(-(-K // 16) * (T // 16)) // kernels._MMA_PASS_FRAGS)
+            assert passes == (1 if K <= 256 else 2)
+            assert T == max(16, kernels.tile_width(K))
+        else:
+            assert T == kernels.tile_width(K)
+            assert K * T <= 4096
+        for L, Kg, counts in ((0, 0, False), (8, K - 1, False), (8, K - 1, True)):
+            smem = kernels._iter_smem_bytes(K, T, L, Kg, counts, mma)
+            assert smem <= kernels._MAX_SMEM, (K, T, L, Kg, counts)
+    # the fp32 layout is the one the kernels always had
+    assert kernels._iter_smem_bytes(40, 64, 5, 10, False) == 4 * (
+        16 * 40 + 16 * 64 + 3 * 40 * 65 + 3 * 5 * 65 + 5 * 10 + 2 * 10 + 256)
+    with pytest.raises(ValueError, match="K=513"):
+        kernels.iteration_tile_width(513, xdt)
+
+
 def test_wrappers_reject_other_devices_and_bad_input():
     X = torch.zeros((4, 8), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
