@@ -39,7 +39,7 @@ SIGNATURES = {
                         [_P, _I] + [_P] * 7
                         + [_I] * 6 + [_F] + [_I] * 6 + [_P] * 6),
     "fused_transform": ("alpine_fused_transform",
-                        [_P, _P, _P, _I, _I, _I, _I, _F, _P, _P]),
+                        [_P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _P]),
 }
 
 _lock = threading.Lock()

@@ -42,6 +42,9 @@ _MMA_GENE_CHUNK = 32  # csrc/fused_iteration.cu: kMmaGeneChunk
 # accumulator fragments a block holds in one pass over the genes or cells
 # (kWarps * kMmaFrags); a larger output takes more passes
 _MMA_PASS_FRAGS = 16
+# fused_transform's register path: the K buckets it is compiled for
+# (csrc/fused_transform.cu: the instantiations of transform_columns)
+_TRANSFORM_BUCKETS = (8, 16, 24, 32, 40, 48, 56, 64)
 
 
 def reset_launches() -> None:
@@ -74,6 +77,15 @@ def iteration_tile_width(K: int, x_dtype: torch.dtype) -> int:
     pass of at most 16 fragments for K <= 256 and two passes above."""
     w = tile_width(K)
     return max(16, w) if x_dtype in _MMA_XTYPES else w
+
+
+def transform_bucket(K: int) -> int:
+    """fused_transform's path for K components: the smallest bucket of
+    ``_TRANSFORM_BUCKETS`` that holds K (the register path: the cells'
+    columns of H, padded to the bucket, stay in registers), or 0 above the
+    largest bucket (the tiled path, ``tile_width(K)`` cells a tile)."""
+    tile_width(K)  # 1 <= K <= 512
+    return next((b for b in _TRANSFORM_BUCKETS if K <= b), 0)
 
 
 def _pad16(v: int) -> int:
@@ -369,7 +381,12 @@ def fused_h_update(X, W, H, WtW, eps):
 def fused_transform(num2, H0, WtW2, eps, *, n_iter: int):
     """All ``n_iter`` projection steps ``H ← H ∘ num2 / max(WtW2 H, eps)``
     in one pass (the counterpart of ``pallas_kernels.fused_transform``).
-    num2 = 2WᵀX and H0 (K, n) f32, WtW2 = 2WᵀW (K, K) f32."""
+    num2 = 2WᵀX and H0 (K, n) f32, WtW2 = 2WᵀW (K, K) f32.
+
+    On the card K up to the largest bucket takes the register path (two
+    lanes share two cells, whose columns of H stay in registers for all
+    steps), larger K the tiled path: a rule by K (``transform_bucket``).
+    Both give the same bits for the same inputs."""
     if not _cuda_or_cpu(H0):
         return fused_transform_plain(num2, H0, WtW2, eps, n_iter=n_iter)
     from alpine_tpu_torch.ops import _build
@@ -381,12 +398,13 @@ def fused_transform(num2, H0, WtW2, eps, *, n_iter: int):
     _check("WtW2", WtW2, (K, K), torch.float32, dev)
     if not isinstance(eps, float) or not isinstance(n_iter, int) or n_iter < 0:
         raise TypeError("eps must be a float and n_iter a non-negative int")
-    T = tile_width(K)
+    KB = transform_bucket(K)
+    T = 0 if KB else tile_width(K)
     out = torch.empty((K, n), dtype=torch.float32, device=dev)
     fn = _build.entry("fused_transform")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(num2.data_ptr(), H0.data_ptr(), WtW2.data_ptr(), K, n, T,
+        rc = fn(num2.data_ptr(), H0.data_ptr(), WtW2.data_ptr(), K, KB, n, T,
                 n_iter, eps, out.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"fused_transform kernel failed to launch: CUDA "

@@ -9,7 +9,8 @@ Phases, each printing one JSON line:
   sass    cuobjdump of the fused_iteration library: tensor-core (HMMA)
           instructions in both passes of the int8 and bf16 instantiations
           and in none of float32/int16, and no spill stores on the bf16 path
-          (ptxas -v);
+          (ptxas -v); for fused_transform, registers, spill stores (none
+          allowed) and FFMA count of each bucket of the register path;
   kernel  each kernel against its plain PyTorch version on the card, at the
           bench shape (100k cells x 2,000 genes, K = 40, labels (2, 3), int8)
           and at small shapes over the other storage types, blocks and
@@ -19,6 +20,8 @@ Phases, each printing one JSON line:
           cuBLAS products over a bf16 copy of X as a yardstick;
           fused_iteration's counts mode (weighted_fast) with counts from the
           port's own balanced sampler, undrawn columns checked bit for bit;
+          fused_transform at K = 40 (the register path) and K = 300 (the
+          tiled path), each row naming its path;
   fit_loop  the fused fit loop alone on device-resident bench data: ms
           per iteration, device busy share and device time per kernel
           (profiler); then the same for the weighted_fast loop
@@ -73,6 +76,8 @@ SOURCES = {
 # mangled names of fused_iteration.cu's passes: <X type>, kBf16, kCounts
 PASS_NAME = re.compile(r"(iter_tiles|hxt_partial)I(\w+?)Lb([01])ELb([01])E")
 X_CODES = {"f": "float32", "13__nv_bfloat16": "bfloat16", "a": "int8", "s": "int16"}
+# mangled name of fused_transform.cu's register path: transform_columns<KB>
+COLUMNS_NAME = re.compile(r"transform_columnsILi(\d+)E")
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
@@ -137,34 +142,57 @@ def ptxas_usage(log):
     return usage
 
 
-def sass_check(_build):
-    """Which instantiations of fused_iteration's two passes run on tensor
-    cores: HMMA instructions in the SASS of the built library (cuobjdump)
-    for int8/bf16 X and none for float32/int16, and no spill stores on the
-    tensor-core path (ptxas -v)."""
+def sass_counts(_build, name, opcodes):
+    """{mangled kernel: {opcode: number of its instructions}} in the SASS of
+    the built library of csrc/<name>.cu (cuobjdump)."""
     tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
-    sass = subprocess.run([tool, "--dump-sass", str(_build._lib_path("fused_iteration"))],
+    sass = subprocess.run([tool, "--dump-sass", str(_build._lib_path(name))],
                           capture_output=True, text=True, timeout=300,
                           check=True).stdout
-    hmma, fn = {}, None
+    counts, fn = {}, None
     for line in sass.splitlines():
         if "Function : " in line:
             fn = line.split("Function : ", 1)[1].strip()
-            hmma[fn] = 0
-        elif fn is not None and "HMMA" in line:
-            hmma[fn] += 1
+            counts[fn] = dict.fromkeys(opcodes, 0)
+        elif fn is not None:
+            for op in opcodes:
+                if re.search(rf"\b{op}\b", line):
+                    counts[fn][op] += 1
+    return counts
+
+
+def sass_check(_build, kernels):
+    """Which instantiations of fused_iteration's two passes run on tensor
+    cores: HMMA instructions in the SASS of the built library (cuobjdump)
+    for int8/bf16 X and none for float32/int16, and no spill stores on the
+    tensor-core path (ptxas -v).  For fused_transform's register path, one
+    instantiation per bucket with no spill stores, and at least K² FFMA in
+    the K = 40 bucket (its step's sums, each a FFMA of its own); the counts
+    of shared loads, shuffles and MUFU (the division's reciprocal) beside
+    them give the instruction mix of a step."""
     usage = ptxas_usage(_build.build_log("fused_iteration"))
     rows = []
-    for fn, count in sorted(hmma.items()):
+    for fn, count in sorted(sass_counts(_build, "fused_iteration", ("HMMA",)).items()):
         m = PASS_NAME.search(fn)
         if m:
             kernel, x, bf16, counts = m.groups()
             u = usage.get(fn, {})
             rows.append({"kernel": kernel, "x": X_CODES.get(x, x),
                          "counts": counts == "1", "tensor_core_path": bf16 == "1",
-                         "hmma": count, "registers": u.get("registers"),
+                         "hmma": count["HMMA"], "registers": u.get("registers"),
                          "spill_stores": u.get("spill_stores")})
-    emit({"phase": "sass", "functions": rows})
+    usage = ptxas_usage(_build.build_log("fused_transform"))
+    trows = []
+    ops = ("FFMA", "LDS", "SHFL", "MUFU")
+    for fn, count in sorted(sass_counts(_build, "fused_transform", ops).items()):
+        m = COLUMNS_NAME.search(fn)
+        u = usage.get(fn, {})
+        trows.append({"kernel": "transform_columns" if m else "transform_tiles",
+                      "bucket": int(m.group(1)) if m else None,
+                      **{op.lower(): count[op] for op in ops},
+                      "registers": u.get("registers"),
+                      "spill_stores": u.get("spill_stores")})
+    emit({"phase": "sass", "functions": rows, "fused_transform": trows})
     check(len(rows) == 16, f"expected 16 pass instantiations, found {len(rows)}")
     for r in rows:
         tag = f"{r['kernel']} {r['x']} counts={r['counts']}"
@@ -172,6 +200,15 @@ def sass_check(_build):
               f"{tag}: HMMA count {r['hmma']} does not fit its path")
         if r["tensor_core_path"]:
             check(r["spill_stores"] == 0, f"{tag}: spill stores {r['spill_stores']}")
+    buckets = sorted(r["bucket"] for r in trows if r["bucket"])
+    check(buckets == sorted(kernels._TRANSFORM_BUCKETS),
+          f"fused_transform buckets {buckets} differ from the wrapper's")
+    for r in trows:
+        if r["bucket"]:
+            check(r["spill_stores"] == 0,
+                  f"transform_columns<{r['bucket']}>: spill stores {r['spill_stores']}")
+        if r["bucket"] == 40:
+            check(r["ffma"] >= 40 * 40, f"transform_columns<40>: {r['ffma']} FFMA")
 
 
 def iteration_problem(torch, gen, dev, g, n, blocks, n_labels, xdtype):
@@ -250,7 +287,7 @@ def main():
                 print(f"ptxas {src}: {line.strip()}", file=sys.stderr)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "per_source_seconds": build_s})
-    sass_check(_build)
+    sass_check(_build, kernels)
 
     results = {}
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -376,31 +413,43 @@ def main():
     run_iteration_case("fused_h_update small int8", 300, 5001, (21,), (),
                        torch.int8, True, False)
 
-    K = sum(BLOCKS)
-    Wt = torch.rand((G, K), generator=gen, device=dev)
-    Xt = torch.poisson(torch.full((G, N), 1.5, device=dev), generator=gen)
-    num2 = 2.0 * (Wt.T @ Xt)
-    del Xt
-    WtW2 = 2.0 * (Wt.T @ Wt)
-    H0 = torch.rand((K, N), generator=gen, device=dev) + 0.05
-    kern = lambda: kernels.fused_transform(num2, H0, WtW2, EPS,
-                                           n_iter=TRANSFORM_ITERS)
-    plain = lambda: kernels.fused_transform_plain(num2, H0, WtW2, EPS,
-                                                  n_iter=TRANSFORM_ITERS)
-    abs_err, worst = compare(kern(), plain(), 2e-4, 1e-6)
-    t_bytes = 3 * 4 * K * N + 4 * K * K
-    t_ops = TRANSFORM_ITERS * (2.0 * K * K + 3.0 * K) * N
-    bms, bby = bound(t_bytes, 0.0, t_ops, card)
-    row = {"phase": "kernel", "case": f"fused_transform bench n_iter={TRANSFORM_ITERS}",
-           "max_abs_err_Hn": abs_err, "worst_err_over_tolerance": worst,
-           "tolerance": "rtol 2e-4, atol 1e-6*max|plain|",
-           "ms": time_ms(kern, 5), "plain_ms": time_ms(plain, 3),
-           "bytes": t_bytes, "bf16_flop": 0.0, "fp32_flop": t_ops,
-           "bound_ms": bms, "bound_by": bby}
-    emit(row)
-    check(worst <= 1.0, "fused_transform disagrees with its plain version")
-    results["fused_transform"] = row
-    del num2, WtW2, H0, Wt
+    def run_transform_case(K):
+        """fused_transform at 100k cells and K components against its plain
+        version, timed, with the path the rule by K takes."""
+        Wt = torch.rand((G, K), generator=gen, device=dev)
+        Xt = torch.poisson(torch.full((G, N), 1.5, device=dev), generator=gen)
+        num2 = 2.0 * (Wt.T @ Xt)
+        del Xt
+        WtW2 = 2.0 * (Wt.T @ Wt)
+        H0 = torch.rand((K, N), generator=gen, device=dev) + 0.05
+        kern = lambda: kernels.fused_transform(num2, H0, WtW2, EPS,
+                                               n_iter=TRANSFORM_ITERS)
+        plain = lambda: kernels.fused_transform_plain(num2, H0, WtW2, EPS,
+                                                      n_iter=TRANSFORM_ITERS)
+        abs_err, worst = compare(kern(), plain(), 2e-4, 1e-6)
+        bucket = kernels.transform_bucket(K)
+        path = (f"registers, bucket {bucket}" if bucket
+                else f"tiled, {kernels.tile_width(K)} cells a tile")
+        t_bytes = 3 * 4 * K * N + 4 * K * K
+        t_ops = TRANSFORM_ITERS * (2.0 * K * K + 3.0 * K) * N
+        bms, bby = bound(t_bytes, 0.0, t_ops, card)
+        row = {"phase": "kernel",
+               "case": f"fused_transform K={K} n_iter={TRANSFORM_ITERS}",
+               "path": path, "max_abs_err_Hn": abs_err,
+               "worst_err_over_tolerance": worst,
+               "tolerance": "rtol 2e-4, atol 1e-6*max|plain|",
+               "ms": time_ms(kern, 5), "plain_ms": time_ms(plain, 3),
+               # loads and stores alone: what the steps' time sits on
+               "ms_n_iter_0": time_ms(lambda: kernels.fused_transform(
+                   num2, H0, WtW2, EPS, n_iter=0), 5),
+               "bytes": t_bytes, "bf16_flop": 0.0, "fp32_flop": t_ops,
+               "bound_ms": bms, "bound_by": bby}
+        emit(row)
+        check(worst <= 1.0, f"fused_transform at K={K} disagrees with its plain version")
+        return row
+
+    results["fused_transform"] = run_transform_case(sum(BLOCKS))
+    run_transform_case(300)
     torch.cuda.empty_cache()
 
     # -- where the fit's device time goes: the fused fit loop alone ----------

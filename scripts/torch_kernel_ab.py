@@ -13,13 +13,17 @@ A run times, at the bench shape (100k cells x 2,000 genes, K = 40, labels
   CUDA-event ms of 20 warm launches;
 - the full-batch fused fit loop (``mu.fit_scan``): ms per iteration over 10
   iterations, host clock around work that ends in a synchronize;
+- ``fused_transform`` (K3), 50 steps at the bench shape (num2 = 2WᵀX,
+  WtW2 = 2WᵀW, H0 = H): median CUDA-event ms of 20 warm launches;
 - a digest of every output of K1, K4 and K2 with the same inputs held as
-  float32 and as int16 X (the fp32 FMA path), so the summary can say
-  whether the two checkouts give those paths the same bits.
+  float32 and as int16 X (the fp32 FMA path), and of K3's output at the
+  bench shape and at K = 300, so the summary can say whether the two
+  checkouts give those paths the same bits.
 
 Prints one JSON line per run, then one summary line with the mean of each
 checkout's two runs, whether all four runs agree bit for bit on the
-float32/int16 outputs, and the card's name and power limit.  Needs one
+float32/int16 outputs (``fp32_path_bits_equal``) and on K3's
+(``k3_bits_equal``), and the card's name and power limit.  Needs one
 NVIDIA GPU; exits non-zero without one.
 """
 
@@ -34,6 +38,7 @@ G, N = 2000, 100_000
 BLOCKS, N_LABELS = (5, 5, 30), (2, 3)
 EPS = 1e-6
 REPS = 20
+TRANSFORM_ITERS = 50
 LOOP_ITERS = 10
 
 
@@ -94,11 +99,25 @@ def child(root):
     bits = {str(dt)[6:]: digest(k1_k4_k2(X.to(dt), [y.to(dt) for y in Ys]))
             for dt in (torch.float32, torch.int16)}
     torch.cuda.empty_cache()
+
+    def k3(W, H0):
+        """K3 on 2WᵀX and 2WᵀW, as the transform calls it."""
+        num2, WtW2 = 2.0 * (W.T @ X.float()), 2.0 * (W.T @ W)
+        return lambda: kernels.fused_transform(num2, H0, WtW2, EPS,
+                                               n_iter=TRANSFORM_ITERS)
+
+    k3_bench = k3(W, H)
+    k3_300 = k3(torch.rand((G, 300), generator=gen, device=dev),
+                torch.rand((300, N), generator=gen, device=dev) + 0.05)
+    k3_bits = {"K40": digest([[k3_bench()]]), "K300": digest([[k3_300()]])}
+    del k3_300
+    torch.cuda.empty_cache()
     k1 = time_ms(lambda: kernels.fused_iteration(
         X, W, H, WtW, Ys, Bs, lam, EPS, blocks=BLOCKS, loss_kl=True))
     k2 = time_ms(lambda: kernels.fused_h_update(X, W, H, WtW, EPS))
     k4 = time_ms(lambda: kernels.fused_iteration(
         X, W, H, WtW, Ys, Bs, lam, EPS, C, blocks=BLOCKS, loss_kl=True))
+    k3_ms = time_ms(k3_bench)
     cfg = mu.MUConfig(blocks=BLOCKS, n_labels=N_LABELS, n_cells=N,
                       max_iter=LOOP_ITERS, x_dtype="int8")
     hyper = (lam, 0.0, 0.0, 0.0, EPS)
@@ -111,8 +130,9 @@ def child(root):
     print(json.dumps({"root": root, "fused_iteration_ms": k1,
                       "fused_h_update_ms": k2,
                       "fused_iteration_counts_ms": k4,
+                      "fused_transform_ms": k3_ms,
                       "fit_loop_ms_per_iteration": loop_ms,
-                      "fp32_path_bits": bits}), flush=True)
+                      "fp32_path_bits": bits, "k3_bits": k3_bits}), flush=True)
 
 
 def main(argv):
@@ -141,10 +161,12 @@ def main(argv):
     for label, root in (("parent", parent), ("change", change)):
         summary[label] = {k: sum(r[k] for r in runs[root]) / 2
                           for k in runs[root][0]
-                          if k not in ("root", "fp32_path_bits")}
-    digests = {json.dumps(r["fp32_path_bits"], sort_keys=True)
-               for rs in runs.values() for r in rs}
-    summary["fp32_path_bits_equal"] = len(digests) == 1
+                          if k not in ("root", "fp32_path_bits", "k3_bits")}
+    for key, out in (("fp32_path_bits", "fp32_path_bits_equal"),
+                     ("k3_bits", "k3_bits_equal")):
+        digests = {json.dumps(r[key], sort_keys=True)
+                   for rs in runs.values() for r in rs}
+        summary[out] = len(digests) == 1
     print(json.dumps(summary), flush=True)
     return 0
 

@@ -226,18 +226,58 @@ def test_fused_h_update_cuda_matches_plain(cuda, dtype, K):
         _close(a, b, 1e-4, 1e-5)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("K,n", [(40, 1000), (7, 333), (300, 500)])
-def test_fused_transform_cuda_matches_plain(cuda, K, n):
-    r = np.random.default_rng(8)
-    t = lambda a: torch.from_numpy(a).to(cuda)
+def _transform_problem(seed, K, n, dev):
+    r = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(a).to(dev)
     num2 = t(r.random((K, n), dtype=np.float32))
     H0 = t(r.random((K, n), dtype=np.float32) + 0.1)
     A = r.random((K, K), dtype=np.float32)
-    WtW2 = t((A @ A.T).astype(np.float32))
+    return num2, H0, t((A @ A.T).astype(np.float32))
+
+
+_LARGEST_BUCKET = kernels._TRANSFORM_BUCKETS[-1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,n", [
+    (K, 1001) for K in (1, 8, 9, 40, _LARGEST_BUCKET, _LARGEST_BUCKET + 1,
+                        300, 512)] + [(40, 1000), (7, 333), (300, 500)])
+def test_fused_transform_cuda_matches_plain(cuda, K, n):
+    """Both paths (the register path up to the largest bucket, K = 1 and
+    K one past a bucket included; the tiled path above it) against the
+    plain version; 1001 cells fill no block or tile."""
+    num2, H0, WtW2 = _transform_problem(8, K, n, cuda)
+    before = kernels.launches["fused_transform"]
     got = kernels.fused_transform(num2, H0, WtW2, EPS, n_iter=20)
+    torch.cuda.synchronize()
+    assert kernels.launches["fused_transform"] == before + 1
     want = kernels.fused_transform_plain(num2, H0, WtW2, EPS, n_iter=20)
     _close(got, want, 2e-4, 1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,eps", [(9, EPS), (40, EPS), (_LARGEST_BUCKET + 1, EPS),
+                                   (9, 0.0)])
+def test_fused_transform_cuda_same_bits(cuda, K, eps):
+    """Two launches give the same bits; where K has a bucket, the register
+    path gives the bits of the tiled path (the same sums in the same order),
+    which the library still holds for larger K.  At eps = 0 the padded rows
+    of K = 9's bucket must stay 0 (a 0 / 0 there would spread NaN)."""
+    from alpine_tpu_torch.ops import _build
+
+    num2, H0, WtW2 = _transform_problem(13, K, 1001, cuda)
+    run = lambda: kernels.fused_transform(num2, H0, WtW2, eps, n_iter=20)
+    got, again = run(), run()
+    tiled = torch.empty_like(got)
+    fn = _build.entry("fused_transform")
+    rc = fn(num2.data_ptr(), H0.data_ptr(), WtW2.data_ptr(), K, 0, 1001,
+            kernels.tile_width(K), 20, eps, tiled.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert rc == 0
+    assert bool(torch.isfinite(got).all())
+    assert torch.equal(got, again)
+    assert torch.equal(got, tiled)
 
 
 @pytest.mark.cuda
@@ -253,3 +293,7 @@ def test_cuda_tensor_never_takes_the_plain_path(cuda, monkeypatch):
     X, W, H, WtW, _, _, _ = _problem(1, 20, 64, (4,), (), "float32", cuda)
     with pytest.raises(RuntimeError, match="nvcc failed"):
         kernels.fused_h_update(X, W, H, WtW, EPS)
+    for K in (40, 300):  # either path of fused_transform
+        num2, H0, WtW2 = _transform_problem(3, K, 64, cuda)
+        with pytest.raises(RuntimeError, match="nvcc failed"):
+            kernels.fused_transform(num2, H0, WtW2, EPS, n_iter=2)

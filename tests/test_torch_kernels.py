@@ -129,6 +129,50 @@ def test_fused_transform_plain_matches_pallas():
     _close(got, want, 2e-4, 1e-6)
 
 
+def test_transform_path_rule():
+    """fused_transform's rule by K: the smallest bucket that holds K (the
+    register path), or the tiled path above the largest bucket; every
+    supported K has one."""
+    buckets = kernels._TRANSFORM_BUCKETS
+    assert list(buckets) == sorted(set(buckets))
+    # two lanes split a bucket's rows, each half read in 16-byte loads
+    assert all(b % 8 == 0 for b in buckets)
+    for K in range(1, 513):
+        b = kernels.transform_bucket(K)
+        if K <= buckets[-1]:
+            assert b == min(x for x in buckets if x >= K), K
+        else:
+            assert b == 0 and K * kernels.tile_width(K) <= 4096, K
+    assert kernels.transform_bucket(40) == 40  # the bench shape needs no padding
+    with pytest.raises(ValueError, match="K=513"):
+        kernels.transform_bucket(513)
+
+
+@pytest.mark.parametrize("num_pad", [0.0, 1.0])
+@pytest.mark.parametrize("K", [1, 9, 33, 61])
+def test_transform_zero_padding_is_exact(K, num_pad):
+    """The register path pads H0 and WtW2 with zeros up to K's bucket (and
+    num2 with ones, which keeps its padded rows off the division's slow
+    path): the padded rows stay exactly 0 and the real rows keep the
+    unpadded result (float64, so only the summation's zeros differ)."""
+    KB = kernels.transform_bucket(K)
+    assert KB >= K
+    r = np.random.default_rng(K)
+    n = 37
+    num2 = torch.from_numpy(r.random((K, n)))
+    H0 = torch.from_numpy(r.random((K, n)) + 0.1)
+    A = torch.from_numpy(r.random((K, K)))
+    WtW2 = A @ A.T
+    pad = lambda t, rows, cols, value=0.0: torch.nn.functional.pad(
+        t, (0, cols - t.shape[1], 0, rows - t.shape[0]), value=value)
+    want = kernels.fused_transform_plain(num2, H0, WtW2, EPS, n_iter=20)
+    got = kernels.fused_transform_plain(pad(num2, KB, n, num_pad),
+                                        pad(H0, KB, n), pad(WtW2, KB, KB), EPS,
+                                        n_iter=20)
+    assert torch.equal(got[K:], torch.zeros((KB - K, n), dtype=torch.float64))
+    _close(got[:K], want, 1e-12)
+
+
 def test_tile_rule():
     assert kernels.tile_width(40) == 64
     assert kernels.tile_width(100) == 32
