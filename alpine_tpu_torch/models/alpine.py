@@ -1,19 +1,22 @@
 """The ALPINE estimator on PyTorch/CUDA — the port's main path.
 
 Counterpart of ``alpine_tpu/models/alpine.py`` for the single-device
-full-epoch joint fit and its transform: same constructor, same validation
+full-epoch fits and their transform: same constructor, same validation
 messages, same ``obsm``/``varm`` keys.  ``fit`` runs the fused fit loop
 (``ops/mu.py``), which launches one CUDA kernel per iteration on the card
-and runs each kernel's plain PyTorch version on the CPU; ``transform`` runs
-the fused projection kernel.  ``sampling_method`` is "random" (full batch)
-or "weighted_fast" (class-balanced draws as per-cell counts over a
-group-sorted cell axis).  A fit keeps its device copy of X, and a
-``transform`` of the same data reuses it.
+and runs each kernel's plain PyTorch version on the CPU; with
+``use_als=True`` it runs block-cyclic ALS steps, whose X passes are the
+kernels ``hxt`` and ``wtx``.  ``transform`` runs the fused projection
+kernel.  ``sampling_method`` is "random" (full batch) or "weighted_fast"
+(class-balanced draws as per-cell counts over a group-sorted cell axis;
+joint mode only).  A fit keeps its device copy of X, and a ``transform``
+of the same data reuses it.  ``verbose=True`` shows the JAX package's
+progress bar.
 
 What this slice leaves out raises ``NotImplementedError``: minibatch and
-gathered weighted or tiled sampling, ALS mode, checkpoints, restarts,
-component bucketing, multi-GPU and multi-process fits,
-``get_normalized_expression`` and save/load.
+gathered weighted or tiled sampling, checkpoints, restarts, component
+bucketing, multi-GPU and multi-process fits, ``get_normalized_expression``
+and save/load.
 
 Random draws come from ``torch.Generator``s seeded with ``random_state``
 through ``draw_init``, ``draw_counts_stream`` and ``draw_transform_h0``;
@@ -94,6 +97,43 @@ def _not_in_slice(what: str) -> NotImplementedError:
         "port); the JAX package alpine_tpu supports it.")
 
 
+class _Progress:
+    """A verbose fit's progress as the JAX package shows it
+    (alpine_tpu/models/alpine.py:838-866): a tqdm bar "Iteration" over the
+    fit's iterations with the objective loss as its postfix or, where tqdm
+    is not installed, one printed line a report (as its
+    ``run_progress_chunks``, :804-836).  ``mu.fit_scan`` calls it every
+    ``mu.progress_every`` iterations and after the last."""
+
+    def __init__(self, total: int):
+        self.total = total
+        try:
+            from tqdm import tqdm
+        except ImportError:
+            self.bar = None
+        else:
+            self.bar = tqdm(total=total, desc="Iteration", ncols=100)
+
+    def __call__(self, done: int, loss: float) -> None:
+        if self.bar is None:
+            print(f"ALPINE fit: iteration {done}/{self.total}, objective loss "
+                  f"{loss:.6g}", flush=True)
+            return
+        self.bar.set_postfix({"objective loss": loss}, refresh=False)
+        self.bar.n = done
+        self.bar.refresh()
+
+    def reset(self, total: int) -> None:
+        """The elbow's fit after its 200-iteration warm-up."""
+        self.total = total
+        if self.bar is not None:
+            self.bar.reset(total=total)
+
+    def close(self) -> None:
+        if self.bar is not None:
+            self.bar.close()
+
+
 class ALPINE:
     def __init__(
         self,
@@ -147,15 +187,27 @@ class ALPINE:
         sampling_method: str = "random",
         verbose: bool = False,
         checkpoint_dir: Optional[str] = None,
+        checkpoint_every: int = 50,
+        checkpoint_backend: str = "npz",
         n_restarts: int = 1,
     ) -> "ALPINE":
         self._validate_fit_args(
             adata, covariate_keys, batch_size, max_iter, sampling_method, verbose
         )
-        if checkpoint_dir is not None:
-            raise _not_in_slice("fit(checkpoint_dir=...)")
+        # the reference's checks and messages (alpine_tpu/models/alpine.py:
+        # 153-171), then what this slice leaves out
+        if checkpoint_dir is not None and not isinstance(checkpoint_dir, str):
+            raise TypeError("checkpoint_dir must be a string or None.")
+        if not isinstance(checkpoint_every, int) or checkpoint_every <= 0:
+            raise ValueError("checkpoint_every must be a positive integer.")
         if not isinstance(n_restarts, int) or n_restarts <= 0:
             raise ValueError("n_restarts must be a positive integer.")
+        if n_restarts > 1 and checkpoint_dir is not None:
+            raise ValueError("n_restarts > 1 is incompatible with checkpointing.")
+        if checkpoint_dir is not None and checkpoint_backend not in ("npz", "orbax"):
+            raise ValueError("checkpoint backend must be 'npz' or 'orbax'")
+        if checkpoint_dir is not None:
+            raise _not_in_slice("fit(checkpoint_dir=...)")
         if n_restarts > 1:
             raise _not_in_slice("fit(n_restarts > 1)")
         if sampling_method in ("weighted", "weighted_fast") and not covariate_keys:
@@ -163,14 +215,17 @@ class ALPINE:
                 "weighted sampling requires at least one covariate "
                 "(balancing is over the joint covariate labels)."
             )
+        if sampling_method == "tiled" and self.use_als:
+            raise ValueError(
+                "tiled sampling requires joint mode on a 1-D cell mesh "
+                "(or one device); use sampling_method='random'."
+            )
         if sampling_method == "weighted_fast" and self.use_als:
             raise ValueError(
                 "sampling_method='weighted_fast' supports full-epoch joint "
                 "mode only (batch_size=None, use_als=False); minibatch or "
                 "ALS weighted fits use sampling_method='weighted'."
             )
-        if self.use_als:
-            raise _not_in_slice("use_als=True (ALS mode)")
         n_sample = adata.shape[0]
         if (sampling_method == "weighted_fast" and batch_size is not None
                 and batch_size < n_sample):
@@ -225,6 +280,8 @@ class ALPINE:
                        (Xd, self._x_fingerprint(adata.X), n_sample, cell_perm))
         hyper = self._hyper()
         self.timings_: Dict[str, float] = {}
+        # no callback without verbose: the fit loop then never syncs
+        progress = _Progress(max_iter or 200) if verbose else None
 
         def run(n_iter: int):
             cfg = self._make_cfg(Ys, n_sample, n_iter)
@@ -233,24 +290,30 @@ class ALPINE:
             draw = (None if tables is None else
                     draw_counts_stream(tables, n_sample, self.random_state, dev))
             return cfg, mu.fit_scan(cfg, W0, H0, Bs0, Xd, Ysd, hyper,
-                                    draw_counts=draw)
+                                    draw_counts=draw, progress=progress)
 
-        t0 = time.perf_counter()
-        if max_iter is None:
-            # warm-up elbow search (reference main.py:114-131)
-            _, (_, _, _, losses) = run(200)
-            recon = losses[:, 1].cpu().numpy()
-            self.max_iter: int = self._compute_best_iter(recon)
-            self.timings_["warmup"] = time.perf_counter() - t0
+        try:
             t0 = time.perf_counter()
-        else:
-            self.max_iter = max_iter
-        cfg, (Wd, Hd, Bsd, losses) = run(self.max_iter)
-        if self.scale_needed:
-            Wd, Hd, Bsd = mu.scale_matrices(cfg.blocks, Wd, Hd, Bsd)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        self.timings_["fit"] = time.perf_counter() - t0
+            if max_iter is None:
+                # warm-up elbow search (reference main.py:114-131)
+                _, (_, _, _, losses) = run(200)
+                recon = losses[:, 1].cpu().numpy()
+                self.max_iter: int = self._compute_best_iter(recon)
+                self.timings_["warmup"] = time.perf_counter() - t0
+                if progress is not None:
+                    progress.reset(self.max_iter)
+                t0 = time.perf_counter()
+            else:
+                self.max_iter = max_iter
+            cfg, (Wd, Hd, Bsd, losses) = run(self.max_iter)
+            if self.scale_needed:
+                Wd, Hd, Bsd = mu.scale_matrices(cfg.blocks, Wd, Hd, Bsd)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            self.timings_["fit"] = time.perf_counter() - t0
+        finally:
+            if progress is not None:
+                progress.close()
 
         self.loss_history_ = losses.cpu().numpy()
         if verbose and len(self.loss_history_):
@@ -402,6 +465,10 @@ class ALPINE:
     def save(self, path: str) -> None:
         raise _not_in_slice("save/load")
 
+    @classmethod
+    def load(cls, path: str, device="auto") -> "ALPINE":
+        raise _not_in_slice("save/load")
+
     def store_embeddings(self, adata) -> None:
         """Write obsm/varm keys (reference main.py:303-320): the unguided block
         to 'ALPINE_embedding'/'ALPINE_weights'; per covariate its H/W blocks
@@ -440,6 +507,7 @@ class ALPINE:
             x_dtype=self._storage_dtype,
             backend="fused",
             weighted_counts=(self.sampling_method == "weighted_fast"),
+            use_als=self.use_als,
         )
 
     def _hyper(self):

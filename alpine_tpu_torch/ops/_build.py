@@ -24,7 +24,7 @@ from typing import Callable, Dict, Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
-SOURCES = ("fused_iteration", "fused_transform")
+SOURCES = ("fused_iteration", "fused_transform", "x_passes", "stream_probe")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
               "-Xptxas", "-v")
@@ -32,18 +32,23 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# argtypes of every C entry point: pointers and the stream are c_void_p,
-# sizes c_int, eps c_float (ctypes would otherwise cut 64-bit pointers)
+# every C entry point: its source, its symbol and its argtypes (pointers
+# and the stream are c_void_p, sizes c_int, eps c_float: ctypes would
+# otherwise cut 64-bit pointers)
 SIGNATURES = {
-    "fused_iteration": ("alpine_fused_iteration",
+    "fused_iteration": ("fused_iteration", "alpine_fused_iteration",
                         [_P, _I] + [_P] * 7
                         + [_I] * 6 + [_F] + [_I] * 6 + [_P] * 6),
-    "fused_transform": ("alpine_fused_transform",
+    "fused_transform": ("fused_transform", "alpine_fused_transform",
                         [_P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _P]),
+    "hxt": ("x_passes", "alpine_hxt", [_P, _I, _P] + [_I] * 6 + [_P] * 3),
+    "wtx": ("x_passes", "alpine_wtx", [_P, _I, _P] + [_I] * 4 + [_P] * 2),
+    "stream_probe": ("stream_probe", "alpine_stream_probe",
+                     [_P, _I] + [_I] * 5 + [_P] * 4),
 }
 
 _lock = threading.Lock()
-# name -> (library, its C entry point); the library is kept referenced
+# entry name -> (its library, its C function); the library is kept referenced
 _entries: Dict[str, Tuple[ctypes.CDLL, Callable[..., int]]] = {}
 # ptxas register / shared-memory report of the last build of each source
 build_logs: Dict[str, str] = {}
@@ -129,17 +134,17 @@ def build_all() -> Dict[str, float]:
 
 
 def entry(name: str) -> Callable[..., int]:
-    """The C entry point of ``csrc/<name>.cu``, built and loaded first if
-    needed."""
+    """The C entry point ``name`` of ``SIGNATURES``, its source built and
+    loaded first if needed."""
     loaded = _entries.get(name)
     if loaded is None:
         with _lock:
             if name not in _entries:
-                s = _start(name, find_nvcc())
+                source, fn_name, argtypes = SIGNATURES[name]
+                s = _start(source, find_nvcc())
                 if s is not None:
-                    _finish(name, s)
-                lib = ctypes.CDLL(str(_lib_path(name)))
-                fn_name, argtypes = SIGNATURES[name]
+                    _finish(source, s)
+                lib = ctypes.CDLL(str(_lib_path(source)))
                 fn = getattr(lib, fn_name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int

@@ -9,6 +9,10 @@ tensor launches the kernel or raises, and a failed build raises.
 ``launches`` counts each wrapper's kernel launches (plain runs do not
 count; ``fused_iteration`` counts its counts mode, K4, apart from K1), so a
 run can show that its main path went through the kernels.
+
+``hxt`` and ``wtx`` are the X passes of ALS mode (and ``hxt`` the first
+X Hᵀ of the joint fit loops); ``stream_probe`` is the streaming read-rate
+probe's kernel, on no fit path (``alpine_tpu_torch/probe.py``).
 """
 
 from __future__ import annotations
@@ -22,7 +26,8 @@ from alpine_tpu_torch.ops.mu import (
 )
 
 launches: Dict[str, int] = {"fused_iteration": 0, "fused_iteration_counts": 0,
-                            "fused_h_update": 0, "fused_transform": 0}
+                            "fused_h_update": 0, "fused_transform": 0,
+                            "hxt": 0, "wtx": 0, "stream_probe": 0}
 
 # X storage dtype -> code of csrc/common.cuh:XType
 _XTYPE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2, torch.int16: 3}
@@ -45,6 +50,9 @@ _MMA_PASS_FRAGS = 16
 # fused_transform's register path: the K buckets it is compiled for
 # (csrc/fused_transform.cu: the instantiations of transform_columns)
 _TRANSFORM_BUCKETS = (8, 16, 24, 32, 40, 48, 56, 64)
+# stream_probe: blocks of column sums a launch aims at (8 per H100 SM); a
+# block sums 32 lanes x one 16-byte vector of columns over its genes
+_STREAM_BLOCKS = 1056
 
 
 def reset_launches() -> None:
@@ -211,6 +219,37 @@ def fused_transform_plain(num2, H0, WtW2, eps, *, n_iter):
     return H
 
 
+def hxt_plain(X, H):
+    """Plain PyTorch version of ``hxt``: H Xᵀ (K, g), H rounded as X's
+    partner and X widened to f32."""
+    return round_partner(H, X.dtype) @ X.float().T
+
+
+def wtx_plain(X, W):
+    """Plain PyTorch version of ``wtx``: Wᵀ X (K, n), W rounded as X's
+    partner and X widened to f32."""
+    return round_partner(W, X.dtype).T @ X.float()
+
+
+def stream_tile(g: int, itemsize: int) -> int:
+    """The streaming probe's tile width (benchmarks/envelope_probe.py:114):
+    the cells of a 6 MiB slab of X, rounded down to 128, at least 128."""
+    return max(128, (6 * 1024 * 1024 // (g * itemsize)) // 128 * 128)
+
+
+def stream_probe_plain(X, tile=None):
+    """Plain PyTorch version of ``stream_probe``: (fold (8, 128), column
+    sums (n,)), both f32."""
+    g, n = X.shape
+    tile = _stream_tile_arg(X, tile)
+    colsum = torch.sum(X.float(), dim=0)
+    cols = (torch.arange(0, n, tile, device=X.device)[:, None]
+            + torch.arange(128, device=X.device)[None, :])
+    first = torch.where(cols < n, colsum[cols.clamp(max=n - 1)],
+                        torch.zeros((), device=X.device))
+    return torch.sum(first, dim=0).expand(8, 128).contiguous(), colsum
+
+
 # ---------------------------------------------------------------------------
 # Wrappers
 # ---------------------------------------------------------------------------
@@ -235,6 +274,17 @@ def _cuda_or_cpu(X: torch.Tensor) -> bool:
     if X.device.type == "cpu":
         return False
     raise ValueError(f"unsupported device {X.device}")
+
+
+def _cell_splits(g: int, n: int, GB: int) -> Tuple[int, int]:
+    """(n_split, cells_per_split) of an X Hᵀ pass over blocks of GB genes:
+    about _TARGET_HXT_BLOCKS blocks, each summing a range of cells that is
+    a multiple of _CELL_CHUNK into a partial of its own."""
+    gene_blocks = -(-g // GB)
+    n_chunks = -(-n // _CELL_CHUNK)
+    want = max(1, min(n_chunks, -(-_TARGET_HXT_BLOCKS // gene_blocks)))
+    cells_per_split = -(-n_chunks // want) * _CELL_CHUNK
+    return -(-n // cells_per_split), cells_per_split
 
 
 def _launch_iteration(X, W, H, WtW, Ys, Bs, lam, eps, counts, blocks, loss_kl):
@@ -280,11 +330,7 @@ def _launch_iteration(X, W, H, WtW, Ys, Bs, lam, eps, counts, blocks, loss_kl):
     tiles_per_block = -(-n_tiles // _MAX_PART_BLOCKS)
     n_part = -(-n_tiles // tiles_per_block)
     GB = T
-    gene_blocks = -(-g // GB)
-    n_chunks = -(-n // _CELL_CHUNK)
-    want = max(1, min(n_chunks, -(-_TARGET_HXT_BLOCKS // gene_blocks)))
-    cells_per_split = -(-n_chunks // want) * _CELL_CHUNK
-    n_split = -(-n // cells_per_split)
+    n_split, cells_per_split = _cell_splits(g, n, GB)
     S_len = _stats_len(K, L, counts is not None)
 
     Hn = torch.empty((K, n), dtype=f32, device=dev)
@@ -411,3 +457,136 @@ def fused_transform(num2, H0, WtW2, eps, *, n_iter: int):
                            f"error {rc}")
     launches["fused_transform"] += 1
     return out
+
+
+def _check_x(X: torch.Tensor) -> None:
+    if X.dim() != 2 or X.dtype not in _XTYPE:
+        raise ValueError(f"X must be 2-D with dtype in {list(_XTYPE)}, "
+                         f"got {X.dtype} {tuple(X.shape)}")
+    _check("X", X, X.shape, X.dtype, X.device)
+
+
+def _launched(name: str, rc: int) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel failed to launch: CUDA error {rc}")
+    launches[name] += 1
+
+
+def hxt(X, H):
+    """H Xᵀ (K, g) f32, summed over all cells (the counterpart of
+    benchmarks/als_probe.py's ``hxt`` kernel): X (g, n) int8/int16/bf16/f32,
+    H (K, n) f32, 1 <= K <= 512.  ALS runs it once an iteration for
+    X H_startᵀ; the joint fit loops for their first X Hᵀ.
+
+    On the card, int8 and bf16 X run on bf16 tensor cores (H rounded to
+    bf16, exact products, fp32 sums), float32 and int16 X on fp32 FMA; each
+    block sums a range of cells into a partial of its own and the partials
+    are added in a fixed order, so two launches give the same bits."""
+    _check_x(X)
+    g, n = X.shape
+    K = H.shape[0]
+    _check("H", H, (K, n), torch.float32, X.device)
+    if not _cuda_or_cpu(X):
+        return hxt_plain(X, H)
+    from alpine_tpu_torch.ops import _build
+
+    GB = iteration_tile_width(K, X.dtype)  # genes a block
+    n_split, cells_per_split = _cell_splits(g, n, GB)
+    dev = X.device
+    part = torch.empty((n_split, K, g), dtype=torch.float32, device=dev)
+    out = torch.empty((K, g), dtype=torch.float32, device=dev)
+    fn = _build.entry("hxt")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(X.data_ptr(), _XTYPE[X.dtype], H.data_ptr(), g, n, K, GB,
+                n_split, cells_per_split, part.data_ptr(), out.data_ptr(),
+                stream)
+    _launched("hxt", rc)
+    return out
+
+
+def wtx_tile_width(K: int, x_dtype: torch.dtype) -> int:
+    """wtx's cells a block for K outputs a cell.  On the tensor-core path
+    (int8, bf16 X) a block holds at most 16 accumulator fragments of
+    16 x 16 a pass, so T = 256 / (K rounded up to 16), between 16 and 256 (K
+    above 256 takes two passes); the fp32 path keeps ``tile_width(K)``."""
+    w = tile_width(K)
+    if x_dtype not in _MMA_XTYPES:
+        return w
+    t = 256
+    while t > 16 and _pad16(K) * t > 256 * 16:
+        t //= 2
+    return t
+
+
+def wtx(X, W):
+    """Wᵀ X (K, n) f32 (the counterpart of benchmarks/als_probe.py's ``wtx``
+    kernel): X (g, n) int8/int16/bf16/f32, W (g, K) f32, 1 <= K <= 512.
+    ALS runs it once a block an iteration, with the block's Wᵢ.
+
+    Each block computes the K x T outputs of T cells over all genes and
+    writes each once; int8 and bf16 X on bf16 tensor cores (W rounded to
+    bf16, exact products, fp32 sums), float32 and int16 X on fp32 FMA."""
+    _check_x(X)
+    g, n = X.shape
+    K = W.shape[1] if W.dim() == 2 else -1
+    _check("W", W, (g, K), torch.float32, X.device)
+    if not _cuda_or_cpu(X):
+        return wtx_plain(X, W)
+    from alpine_tpu_torch.ops import _build
+
+    T = wtx_tile_width(K, X.dtype)
+    dev = X.device
+    out = torch.empty((K, n), dtype=torch.float32, device=dev)
+    fn = _build.entry("wtx")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(X.data_ptr(), _XTYPE[X.dtype], W.data_ptr(), g, n, K, T,
+                out.data_ptr(), stream)
+    _launched("wtx", rc)
+    return out
+
+
+def _stream_tile_arg(X, tile):
+    if tile is None:
+        return stream_tile(X.shape[0], X.element_size())
+    if not isinstance(tile, int) or tile < 128 or tile % 128:
+        raise ValueError(f"tile must be a multiple of 128, got {tile!r}")
+    return tile
+
+
+def stream_probe(X, tile=None):
+    """The streaming probe (the counterpart of
+    benchmarks/envelope_probe.py:probe_streaming's kernel): reads and
+    widens every element of X (g, n) to f32 and sums over the genes.
+    Returns (fold, colsum): colsum (n,) the column sums, fold (8, 128) the
+    TPU kernel's accumulator, every row the sum over tiles of ``tile``
+    cells (default ``stream_tile``) of each tile's first 128 column sums,
+    columns past n counting as zero.
+
+    On the card, a block's 8 warps split its genes, each lane summing one
+    16-byte vector of columns a row; the partial sums of the gene splits
+    are added in a fixed order."""
+    _check_x(X)
+    tile = _stream_tile_arg(X, tile)
+    if not _cuda_or_cpu(X):
+        return stream_probe_plain(X, tile)
+    from alpine_tpu_torch.ops import _build
+
+    g, n = X.shape
+    col_blocks = -(-n // (32 * (16 // X.element_size())))
+    n_split = max(1, min(g, -(-_STREAM_BLOCKS // col_blocks)))
+    genes_per_split = -(-g // n_split)
+    n_split = -(-g // genes_per_split)
+    dev = X.device
+    part = torch.empty((n_split, n), dtype=torch.float32, device=dev)
+    colsum = torch.empty((n,), dtype=torch.float32, device=dev)
+    fold = torch.empty((8, 128), dtype=torch.float32, device=dev)
+    fn = _build.entry("stream_probe")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(X.data_ptr(), _XTYPE[X.dtype], g, n, n_split, genes_per_split,
+                tile, part.data_ptr(), colsum.data_ptr(), fold.data_ptr(),
+                stream)
+    _launched("stream_probe", rc)
+    return fold, colsum

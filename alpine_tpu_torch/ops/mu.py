@@ -23,6 +23,14 @@ the caller.
 iteration's balanced with-replacement draw of n cells becomes a count
 vector c, every contraction over cells against H is scaled by c, and
 undrawn cells keep their H (``joint_weighted_counts_update``).
+
+``MUConfig.use_als`` is ALS mode: block-cyclic steps (``als_batch_update``)
+that read X n_blocks + 1 times an iteration; its fused backend runs those
+X passes through the kernels ``hxt`` and ``wtx``.
+
+A verbose fit passes ``progress``: the loops call it every
+``progress_every(max_iter)`` iterations and after the last with the
+iterations done and the objective loss, which syncs the host there.
 """
 
 from __future__ import annotations
@@ -94,6 +102,7 @@ class MUConfig:
     x_dtype: str = "float32"  # storage of X and Ys: see STORAGE_DTYPES
     backend: str = "fused"  # "fused" (kernels) | "plain" (step-by-step)
     weighted_counts: bool = False  # weighted_fast: count-scaled epochs
+    use_als: bool = False  # block-cyclic (ALS) steps instead of joint ones
 
     def __post_init__(self):
         if self.backend not in ("fused", "plain"):
@@ -135,9 +144,15 @@ def _clamp(x: torch.Tensor, eps: float) -> torch.Tensor:
 
 
 def _norm_x2(X: torch.Tensor) -> torch.Tensor:
-    """‖X‖_F² in float32 (integer X widens first: int squares overflow)."""
-    Xf = X.float()
-    return torch.sum(Xf * Xf)
+    """‖X‖_F² in float32 (integer X widens first: int squares overflow),
+    summed over chunks of about 2^24 values, so that no float32 copy of
+    all of X is made (a single chunk, and one sum, below that size)."""
+    rows = max(1, (1 << 24) // max(1, X.shape[1]))
+    total = 0.0
+    for chunk in torch.split(X, rows):
+        cf = chunk.float()
+        total = total + torch.sum(cf * cf)
+    return total
 
 
 def _dot_x(X: torch.Tensor, A: torch.Tensor, Xf: torch.Tensor) -> torch.Tensor:
@@ -252,6 +267,52 @@ def joint_weighted_counts_update(cfg: MUConfig, hyper, W, Bs, H, X, Xf, Ys_f,
     return W, Bs, H, (WtX, WtW)
 
 
+def als_batch_update(cfg: MUConfig, hyper, W, Bs, H, X, Xf, Ys_f):
+    """One block-cyclic ("ALS mode") MU step (reference main.py:523-588; the
+    counterpart of ``alpine_tpu.ops.mu.als_batch_update``): for each block
+    in order, W[idx], then B[idx] (covariate blocks), then H[idx]; later
+    blocks see the earlier updates.  Arguments as ``joint_batch_update``'s
+    (``Xf`` unused by the fused backend).  The inputs are not modified.
+
+    X is read n_blocks + 1 times: one X·H_startᵀ serves every W numerator
+    (block idx's rows of H change only in its own H update), and one WᵢᵀX a
+    block, with block i's final Wᵢ.  Their row concatenation is WᵀX of the
+    new W and is returned for the loss, with WtW None.  ``cfg.backend ==
+    "fused"`` runs these passes through ``kernels.hxt`` and ``kernels.wtx``
+    (their plain versions on the CPU), "plain" through ``_x_ht``/``_dot_x``
+    on ``Xf``."""
+    from alpine_tpu_torch.ops import kernels
+
+    lam, orth_w, alpha_w, l1_ratio, eps = hyper
+    fused = cfg.backend == "fused"
+    XHt = kernels.hxt(X, H).T if fused else _x_ht(X, Xf, H)
+    W, H, Bs = W.clone(), H.clone(), list(Bs)
+    WtX_rows = []
+    for idx, (o, k) in enumerate(zip(cfg.offsets, cfg.blocks)):
+        Hi = H[o:o + k]
+        Wi = W[:, o:o + k]
+        den = (2.0 * (W @ (H @ Hi.T))
+               + (1.0 - l1_ratio) * alpha_w * Wi
+               + orth_w * (torch.sum(Wi, dim=1, keepdim=True) - Wi)
+               + l1_ratio * alpha_w)
+        Wi = Wi * (2.0 * XHt[:, o:o + k] / _clamp(den, eps))
+        W[:, o:o + k] = Wi
+        if idx < cfg.n_cov:
+            Bs[idx] = _update_b(cfg, Bs[idx], Hi, Ys_f[idx], lam[idx], eps,
+                                None if cfg.loss_kl else Hi @ Hi.T)
+        WtXi = (kernels.wtx(X, Wi.contiguous()) if fused
+                else _dot_x(X, Wi.T, Xf))
+        WtX_rows.append(WtXi)
+        num = 2.0 * WtXi
+        den = 2.0 * ((Wi.T @ W) @ H)
+        if idx < cfg.n_cov:
+            gnum, gden = _guided_h_terms(cfg, Bs[idx], Hi, Ys_f[idx], lam[idx],
+                                         eps)
+            num, den = num + gnum, den + gden
+        H[o:o + k] = Hi * (num / _clamp(den, eps))
+    return W, tuple(Bs), H, (torch.cat(WtX_rows), None)
+
+
 def grouped_balanced_counts(generator: torch.Generator, n: int, tables):
     """One epoch of the balanced sampler as a (n,) float32 count vector on
     the generator's device (the counterpart of
@@ -316,15 +377,39 @@ def _check_inputs(cfg: MUConfig, W0, H0, X, Ys) -> None:
                          "covariate")
 
 
-def _fit_scan_plain(cfg: MUConfig, W0, H0, Bs0, X, Ys, hyper, draw_counts):
-    Xf = X.float()
+def progress_every(max_iter: int) -> int:
+    """Iterations between two progress reports of a verbose fit: a tenth of
+    the fit, at most 50 (the JAX package's chunk rule,
+    alpine_tpu/models/alpine.py:814)."""
+    return max(1, min(50, -(-max_iter // 10)))
+
+
+def _report(progress, losses, it: int, max_iter: int) -> None:
+    """``progress(done, objective loss)`` every ``progress_every(max_iter)``
+    iterations and after the last one; the loss is read to the host there."""
+    done = it + 1
+    if progress is not None and (done % progress_every(max_iter) == 0
+                                 or done == max_iter):
+        progress(done, float(losses[it, 0]))
+
+
+def _fit_scan_steps(cfg: MUConfig, W0, H0, Bs0, X, Ys, hyper, draw_counts,
+                    progress):
+    """One whole step an iteration, and the loss from its WᵀX (and WᵀW):
+    the joint steps of the plain backend, and ALS on either backend (the
+    fused one runs its X passes as kernels and needs no float32 copy of
+    X)."""
+    Xf = X.float() if cfg.backend == "plain" else None
     Ys_f = [y.float() for y in Ys]
     normX2 = _norm_x2(X)
     W, H, Bs = W0, H0, tuple(Bs0)
     losses = torch.empty((cfg.max_iter, 2 + cfg.n_cov), dtype=torch.float32,
                          device=X.device)
     for it in range(cfg.max_iter):
-        if cfg.weighted_counts:
+        if cfg.use_als:
+            W, Bs, H, (WtX, WtW) = als_batch_update(cfg, hyper, W, Bs, H, X,
+                                                    Xf, Ys_f)
+        elif cfg.weighted_counts:
             W, Bs, H, (WtX, WtW) = joint_weighted_counts_update(
                 cfg, hyper, W, Bs, H, X, Xf, Ys_f, draw_counts(it))
         else:
@@ -332,6 +417,7 @@ def _fit_scan_plain(cfg: MUConfig, W0, H0, Bs0, X, Ys, hyper, draw_counts):
                                                       Xf, Ys_f)
         losses[it] = compute_loss_parts(cfg, hyper, W, H, Bs, X, Xf, Ys_f,
                                         normX2, WtX=WtX, WtW=WtW)
+        _report(progress, losses, it, cfg.max_iter)
     return W, H, Bs, losses
 
 
@@ -388,7 +474,8 @@ def _update_w(hyper, W, XHt, HHt):
     return W * (num / _clamp(den, eps))
 
 
-def _fit_scan_fused(cfg: MUConfig, W0, H0, Bs0, X, Ys, hyper, draw_counts):
+def _fit_scan_fused(cfg: MUConfig, W0, H0, Bs0, X, Ys, hyper, draw_counts,
+                    progress):
     """Full-batch joint MU with one fused kernel per iteration (the
     counterpart of ``alpine_tpu.ops.mu._fit_scan_pallas``).  The loop
     carries (W, H, Bs, XHt, HHt, bnums, bdens): XHt = X Hᵀ and HHt = H Hᵀ
@@ -401,22 +488,21 @@ def _fit_scan_fused(cfg: MUConfig, W0, H0, Bs0, X, Ys, hyper, draw_counts):
     are scaled by that iteration's draw c_t, so the kernel of iteration t
     gets [c_t, c_{t+1}]: row 0 masks its H update, row 1 scales the
     statistics it returns.  T iterations take T + 1 draws; the
-    reconstruction loss uses the kernel's unscaled H Hᵀ (HHtU)."""
+    reconstruction loss uses the kernel's unscaled H Hᵀ (HHtU).  The first
+    X Hᵀ is the kernel ``hxt``, so no float32 copy of X is made."""
     from alpine_tpu_torch.ops import kernels
 
     lam, _, _, _, eps = hyper
     normX2 = _norm_x2(X)
-    # the first statistics need X in f32 once; the loop never does
-    Xf = X.float()
-    Ys_f = [y.float() for y in Ys]
     W, H, Bs = W0, H0, tuple(Bs0)
     c_cur = draw_counts(0) if cfg.weighted_counts else None
     Hc = H if c_cur is None else H * c_cur[None, :]
-    XHt = _x_ht(X, Xf, Hc)
+    XHt = kernels.hxt(X, Hc.contiguous()).T
     HHt = Hc @ H.T
+    Ys_f = [y.float() for y in Ys]
     bnums, bdens = (_b_stats(cfg, hyper, Bs, H, Ys_f, scale=c_cur)
                     if cfg.n_cov else ((), ()))
-    del Xf, Ys_f, Hc
+    del Ys_f, Hc
 
     losses = torch.empty((cfg.max_iter, 2 + cfg.n_cov), dtype=torch.float32,
                          device=X.device)
@@ -445,10 +531,12 @@ def _fit_scan_fused(cfg: MUConfig, W0, H0, Bs0, X, Ys, hyper, draw_counts):
         for i in range(cfg.n_cov):
             total = total + lam[i] * preds[i]
         losses[it] = torch.stack([total, recon, *preds])
+        _report(progress, losses, it, cfg.max_iter)
     return W, H, Bs, losses
 
 
-def fit_scan(cfg: MUConfig, W0, H0, Bs0, X, Ys, hyper, draw_counts=None):
+def fit_scan(cfg: MUConfig, W0, H0, Bs0, X, Ys, hyper, draw_counts=None,
+             progress=None):
     """Run ``cfg.max_iter`` full-epoch joint MU iterations.
 
     ``X`` (genes × cells) and ``Ys`` (labels_i × cells) are cast to the
@@ -456,19 +544,25 @@ def fit_scan(cfg: MUConfig, W0, H0, Bs0, X, Ys, hyper, draw_counts=None):
     ``lam`` a float32 tensor on X's device and the rest Python floats.
     With ``cfg.weighted_counts``, ``draw_counts(t)`` returns draw t as a
     (n_cells,) float32 count tensor on X's device; iteration t uses draw t.
-    Returns (W, H, Bs, losses) with losses (max_iter, 2 + n_cov) on the
-    device: [total, recon, pred_0, ...] per iteration."""
+    ``progress(done, objective loss)``, when given, is called as
+    ``progress_every`` says.  Returns (W, H, Bs, losses) with losses
+    (max_iter, 2 + n_cov) on the device: [total, recon, pred_0, ...] per
+    iteration."""
     X = X.to(cfg.xdt).contiguous()
     Ys = [y.to(cfg.xdt).contiguous() for y in Ys]
     _check_inputs(cfg, W0, H0, X, Ys)
     if cfg.weighted_counts and (draw_counts is None or not cfg.n_cov):
         raise ValueError("weighted_counts needs covariates and a draw_counts "
                          "callable (weighted sampling balances over them)")
-    run = _fit_scan_fused if cfg.backend == "fused" else _fit_scan_plain
+    if cfg.weighted_counts and cfg.use_als:
+        raise ValueError("weighted_counts is a full-epoch joint-mode strategy "
+                         "(batch_size covering all cells, use_als=False)")
+    fused_joint = cfg.backend == "fused" and not cfg.use_als
+    run = _fit_scan_fused if fused_joint else _fit_scan_steps
     with matmul_precision(cfg.precision):
         return run(cfg, W0.contiguous(), H0.contiguous(),
                    tuple(b.contiguous() for b in Bs0), X, Ys, hyper,
-                   draw_counts)
+                   draw_counts, progress)
 
 
 # ---------------------------------------------------------------------------

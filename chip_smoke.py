@@ -10,7 +10,9 @@ Phases, each printing one JSON line:
           instructions in both passes of the int8 and bf16 instantiations
           and in none of float32/int16, and no spill stores on the bf16 path
           (ptxas -v); for fused_transform, registers, spill stores (none
-          allowed) and FFMA count of each bucket of the register path;
+          allowed) and FFMA count of each bucket of the register path; for
+          x_passes (ALS's hxt and wtx), HMMA in the bf16 kernels and none in
+          the fp32 ones, registers and spill stores;
   kernel  each kernel against its plain PyTorch version on the card, at the
           bench shape (100k cells x 2,000 genes, K = 40, labels (2, 3), int8)
           and at small shapes over the other storage types, blocks and
@@ -21,13 +23,23 @@ Phases, each printing one JSON line:
           fused_iteration's counts mode (weighted_fast) with counts from the
           port's own balanced sampler, undrawn columns checked bit for bit;
           fused_transform at K = 40 (the register path) and K = 300 (the
-          tiled path), each row naming its path;
+          tiled path), each row naming its path; ALS's X passes hxt (P1,
+          K = 40) and wtx (P2, k = 5 and 30) on int8 and once on float32 X
+          at the bench shape, timed beside a bf16 (float32) torch.matmul
+          over a pre-cast copy of X, and at small edge shapes on every
+          storage type (1,001 cells, K = 1, 13 and 300);
+  stream_probe  the streaming probe's entry point (alpine_tpu_torch/
+          probe.py) on int8 and float32 X at the bench shape: ms and GB/s
+          read, the fold and column sums checked exactly against the plain
+          version, torch.sum beside it;
   fit_loop  the fused fit loop alone on device-resident bench data: ms
           per iteration, device busy share and device time per kernel
           (profiler); then the same for the weighted_fast loop
-          (fit_loop_weighted_fast, the sampler's draws included);
+          (fit_loop_weighted_fast, the sampler's draws included) and for
+          the ALS loop (fit_loop_als, 50 iterations);
   small   a small fit on the card against the same fit on the CPU (plain
-          kernel versions, same seed);
+          kernel versions, same seed); small_als the same with
+          use_als=True;
   slice   ALPINE(n_components=30, n_covariate_components=[5, 5]).fit(...,
           max_iter=50) and .transform() (through the fit's device X) on
           100k x 2,000 Poisson counts (int8), with the launch counts read
@@ -35,7 +47,9 @@ Phases, each printing one JSON line:
           fused_h_update's path;
   slice_weighted_fast  the same fit with sampling_method="weighted_fast",
           a transform through the fit's group-sorted device X, then
-          free_device_cache() and the uncached transform.
+          free_device_cache() and the uncached transform;
+  slice_als  the same fit with use_als=True (hxt once and wtx three times
+          an iteration, fused_iteration never) and a cached transform.
 Then one JSON line with every kernel's numbers and, last, the result line.
 Any failed check raises: the script exits non-zero and prints no result.
 Without a GPU it exits with code 2 before doing anything.
@@ -55,6 +69,7 @@ BLOCKS, N_LABELS = (5, 5, 30), (2, 3)
 TRANSFORM_ITERS = 50
 FIT_ITERS = 50
 LOOP_ITERS = 10
+ALS_LOOP_ITERS = 50
 EPS = 1e-6
 # published dense peaks (NVIDIA data sheets): bytes/s, bf16 flop/s, fp32
 # flop/s outside the tensor cores
@@ -66,12 +81,18 @@ REPLACES = {
     "fused_iteration_counts": "alpine_tpu/ops/pallas_kernels.py:637 (counts)",
     "fused_h_update": "alpine_tpu/ops/pallas_kernels.py:361",
     "fused_transform": "alpine_tpu/ops/pallas_kernels.py:806",
+    "hxt": "benchmarks/als_probe.py:172",
+    "wtx": "benchmarks/als_probe.py:180",
+    "stream_probe": "benchmarks/envelope_probe.py:129",
 }
 SOURCES = {
     "fused_iteration": "alpine_tpu_torch/csrc/fused_iteration.cu",
     "fused_iteration_counts": "alpine_tpu_torch/csrc/fused_iteration.cu",
     "fused_h_update": "alpine_tpu_torch/csrc/fused_iteration.cu",
     "fused_transform": "alpine_tpu_torch/csrc/fused_transform.cu",
+    "hxt": "alpine_tpu_torch/csrc/x_passes.cu",
+    "wtx": "alpine_tpu_torch/csrc/x_passes.cu",
+    "stream_probe": "alpine_tpu_torch/csrc/stream_probe.cu",
 }
 # mangled names of fused_iteration.cu's passes: <X type>, kBf16, kCounts
 PASS_NAME = re.compile(r"(iter_tiles|hxt_partial)I(\w+?)Lb([01])ELb([01])E")
@@ -200,6 +221,20 @@ def sass_check(_build, kernels):
               f"{tag}: HMMA count {r['hmma']} does not fit its path")
         if r["tensor_core_path"]:
             check(r["spill_stores"] == 0, f"{tag}: spill stores {r['spill_stores']}")
+    xrows = []
+    usage = ptxas_usage(_build.build_log("x_passes"))
+    for fn, count in sorted(sass_counts(_build, "x_passes", ("HMMA",)).items()):
+        m = re.search(r"(hxt_mma|hxt_fma|wtx_mma|wtx_fma)I(\w+?)E", fn)
+        if m:
+            u = usage.get(fn, {})
+            xrows.append({"kernel": m.group(1), "x": X_CODES.get(m.group(2), m.group(2)),
+                          "hmma": count["HMMA"], "registers": u.get("registers"),
+                          "spill_stores": u.get("spill_stores")})
+    emit({"phase": "sass", "x_passes": xrows})
+    check(len(xrows) == 8, f"expected 8 x_passes kernels, found {len(xrows)}")
+    for r in xrows:
+        check((r["hmma"] > 0) == r["kernel"].endswith("_mma"),
+              f"x_passes {r['kernel']} {r['x']}: HMMA count {r['hmma']}")
     buckets = sorted(r["bucket"] for r in trows if r["bucket"])
     check(buckets == sorted(kernels._TRANSFORM_BUCKETS),
           f"fused_transform buckets {buckets} differ from the wrapper's")
@@ -262,7 +297,7 @@ def main():
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from alpine_tpu_torch import ALPINE, AnnData
+    from alpine_tpu_torch import ALPINE, AnnData, probe
     from alpine_tpu_torch.ops import _build, kernels, mu
     from alpine_tpu_torch.utils.sampling import (
         balanced_group_tables, joint_label_ids)
@@ -452,6 +487,98 @@ def main():
     run_transform_case(300)
     torch.cuda.empty_cache()
 
+    # -- ALS's X passes: hxt (P1) and wtx (P2) -------------------------------
+    def x_pass_problem(g, n, K, xdtype):
+        X = torch.poisson(torch.full((g, n), 1.5, device=dev), generator=gen)
+        X = X.clamp_(max=127)
+        if xdtype not in (torch.int8, torch.int16):
+            X += torch.rand((g, n), generator=gen, device=dev)
+        X = X.to(xdtype)
+        H = torch.rand((K, n), generator=gen, device=dev) + 0.05
+        W = torch.rand((g, K), generator=gen, device=dev) + 0.05
+        return X, W, H
+
+    def run_x_pass_case(kind, X, P, timed):
+        """hxt(X, H = P) or wtx(X, W = P) against its plain version; timed
+        at the bench shape beside one torch.matmul over a copy of X cast to
+        its compute dtype outside the timed region (bf16 for int8/bf16 X)."""
+        g, n = X.shape
+        K = P.shape[0] if kind == "hxt" else P.shape[1]
+        kern = lambda: getattr(kernels, kind)(X, P)
+        plain = lambda: getattr(kernels, f"{kind}_plain")(X, P)
+        abs_err, worst = compare(kern(), plain(), 1e-4, 1e-6)
+        tag = f"{kind} {'bench' if timed else 'small'} {str(X.dtype)[6:]} K={K} n={n}"
+        row = {"phase": "kernel", "case": tag, "max_abs_err": abs_err,
+               "worst_err_over_tolerance": worst,
+               "tolerance": "rtol 1e-4, atol 1e-6*max|plain|"}
+        if timed:
+            row["ms"] = time_ms(kern, 5)
+            row["plain_ms"] = time_ms(plain, 3)
+            bf16 = X.dtype in (torch.int8, torch.bfloat16)
+            cdt = torch.bfloat16 if bf16 else torch.float32
+            Xc, Pc = X.to(cdt), mu.round_partner(P, X.dtype).to(cdt)
+            lib = ((lambda: torch.matmul(Pc, Xc.T)) if kind == "hxt"
+                   else (lambda: torch.matmul(Pc.T, Xc)))
+            row["library_ms"] = time_ms(lib, 5)
+            row["library"] = f"torch.matmul, {str(cdt)[6:]} operands"
+            del Xc, Pc
+            side = 4 * K * n if kind == "hxt" else 4 * g * K  # H or W
+            out = 4 * K * g if kind == "hxt" else 4 * K * n
+            row["bytes"] = X.element_size() * g * n + side + out
+            ops = 2.0 * K * g * n
+            row["bf16_flop"], row["fp32_flop"] = (ops, 0.0) if bf16 else (0.0, ops)
+            row["bound_ms"], row["bound_by"] = bound(row["bytes"], row["bf16_flop"],
+                                                     row["fp32_flop"], card)
+        emit(row)
+        check(worst <= 1.0, f"{tag}: kernel disagrees with its plain version")
+        return row
+
+    X, W, H = x_pass_problem(G, N, sum(BLOCKS), torch.int8)
+    results["hxt"] = run_x_pass_case("hxt", X, H, True)
+    run_x_pass_case("wtx", X, W[:, :5].contiguous(), True)
+    results["wtx"] = run_x_pass_case("wtx", X, W[:, 10:].contiguous(), True)
+    del X, W, H  # the int8 X goes before the float32 one is made
+    torch.cuda.empty_cache()
+    X, W, H = x_pass_problem(G, N, sum(BLOCKS), torch.float32)
+    run_x_pass_case("hxt", X, H, True)
+    run_x_pass_case("wtx", X, W[:, 10:].contiguous(), True)
+    del X, W, H
+    torch.cuda.empty_cache()
+    for xdt in (torch.int8, torch.bfloat16, torch.float32, torch.int16):
+        for K, n in ((1, 1001), (13, 1001), (300, 1001), (40, 5040)):
+            X, W, H = x_pass_problem(300, n, K, xdt)
+            run_x_pass_case("hxt", X, H, False)
+            run_x_pass_case("wtx", X, W, False)
+
+    # -- the streaming probe's entry point (P3) -------------------------------
+    kernels.reset_launches()
+    rates = probe.streaming_GBps(("int8", "float32"))
+    torch.cuda.synchronize()
+    probe_launches = kernels.launches["stream_probe"]
+    check(probe_launches > 0, "the streaming probe must launch stream_probe")
+    for xname, rate in rates.items():
+        X = probe.stream_input(xname)
+        fold, colsum = kernels.stream_probe(X)
+        want_fold, want_colsum = kernels.stream_probe_plain(X)
+        exact = bool(torch.equal(fold, want_fold) and torch.equal(colsum, want_colsum))
+        g, n = X.shape
+        nbytes = X.element_size() * g * n + 4 * n + 4 * 8 * 128
+        bms, bby = bound(nbytes, 0.0, float(g) * n, card)
+        row = {"phase": "stream_probe", "x_dtype": xname, "shape": [g, n],
+               "tile": rate["tile"], "reps": rate["reps"], "ms": rate["ms"],
+               "GBps_read": rate["GBps"], "bytes_read": rate["bytes_read"],
+               "fold_and_colsum_exact": exact,
+               "max_abs_err": float((fold - want_fold).abs().max()),
+               "plain_ms": time_ms(lambda: kernels.stream_probe_plain(X), 3),
+               "library_ms": time_ms(lambda: torch.sum(X, dim=0, dtype=torch.float32), 5),
+               "library": "torch.sum(X, dim=0, dtype=float32)",
+               "bytes": nbytes, "bound_ms": bms, "bound_by": bby,
+               "launches": probe_launches}
+        emit(row)
+        check(exact, f"stream_probe {xname}: fold or column sums differ from the plain version")
+        results.setdefault("stream_probe", row)
+        del X
+
     # -- where the fit's device time goes: the fused fit loop alone ----------
     X, W, H, _, Ys, Bs, lam = iteration_problem(
         torch, gen, dev, G, N, BLOCKS, N_LABELS, torch.int8)
@@ -463,11 +590,13 @@ def main():
         loop_gen.manual_seed(t)
         return mu.grouped_balanced_counts(loop_gen, N, tables)
 
-    for phase, weighted in (("fit_loop", False),
-                            ("fit_loop_weighted_fast", True)):
+    for phase, weighted, als, iters in (
+            ("fit_loop", False, False, LOOP_ITERS),
+            ("fit_loop_weighted_fast", True, False, LOOP_ITERS),
+            ("fit_loop_als", False, True, ALS_LOOP_ITERS)):
         cfg = mu.MUConfig(blocks=BLOCKS, n_labels=N_LABELS, n_cells=N,
-                          max_iter=LOOP_ITERS, x_dtype="int8",
-                          weighted_counts=weighted)
+                          max_iter=iters, x_dtype="int8",
+                          weighted_counts=weighted, use_als=als)
         drive = lambda: mu.fit_scan(cfg, W, H, Bs, X, Ys, hyper,
                                     draw_counts=draw_counts)
         drive()
@@ -487,13 +616,13 @@ def main():
                   and e.self_device_time_total > 0]
         events.sort(key=lambda e: -e.self_device_time_total)
         busy_us = sum(e.self_device_time_total for e in events)
-        emit({"phase": phase, "iterations": LOOP_ITERS,
-              "ms_per_iteration": wall * 1e3 / LOOP_ITERS,
+        emit({"phase": phase, "iterations": iters,
+              "ms_per_iteration": wall * 1e3 / iters,
               # kernel time over wall time, both of the traced run
               "device_busy_share": busy_us * 1e-6 / traced_wall,
-              "device_ms_per_iteration": busy_us * 1e-3 / LOOP_ITERS,
+              "device_ms_per_iteration": busy_us * 1e-3 / iters,
               "top_device_kernels_ms_per_iteration": [
-                  [e.key[:60], e.self_device_time_total * 1e-3 / LOOP_ITERS]
+                  [e.key[:60], e.self_device_time_total * 1e-3 / iters]
                   for e in events[:10]]})
     del X, W, H, Ys, Bs, tables
     torch.cuda.empty_cache()
@@ -503,22 +632,23 @@ def main():
     Xs = (r.gamma(2.0, 1.0, (400, 6)) @ r.gamma(2.0, 1.0, (6, 60))
           + r.random((400, 60))).astype(np.float32)
     obs_s = {"batch": np.array([f"b{i % 2}" for i in range(400)], dtype=object)}
-    fits = {}
-    for where in ("cuda", "cpu"):
-        ad = AnnData(Xs, obs=obs_s)
-        m = ALPINE(n_components=6, n_covariate_components=[2], lam=[10.0],
-                   device=where, random_state=7)
-        m.fit(ad, ["batch"], max_iter=20)
-        m.transform(ad)
-        fits[where] = (m.loss_history_, ad.obsm["ALPINE_embedding"])
-    floor = 2e-6 * float(np.sum(np.square(Xs.astype(np.float64))))
-    loss_gap = float(np.max(np.abs(fits["cuda"][0] - fits["cpu"][0])
-                            - 5e-4 * np.abs(fits["cpu"][0]) - floor))
-    emb_ok = np.allclose(fits["cuda"][1], fits["cpu"][1], rtol=5e-3, atol=1e-5)
-    emit({"phase": "small", "loss_excess_over_tolerance": loss_gap,
-          "embedding_allclose": bool(emb_ok),
-          "tolerance": "loss rtol 5e-4 + 2e-6*|X|^2, embedding rtol 5e-3 atol 1e-5"})
-    check(loss_gap <= 0 and emb_ok, "card fit disagrees with the CPU fit")
+    for phase, als in (("small", False), ("small_als", True)):
+        fits = {}
+        for where in ("cuda", "cpu"):
+            ad = AnnData(Xs, obs=obs_s)
+            m = ALPINE(n_components=6, n_covariate_components=[2], lam=[10.0],
+                       device=where, random_state=7, use_als=als)
+            m.fit(ad, ["batch"], max_iter=20)
+            m.transform(ad)
+            fits[where] = (m.loss_history_, ad.obsm["ALPINE_embedding"])
+        floor = 2e-6 * float(np.sum(np.square(Xs.astype(np.float64))))
+        loss_gap = float(np.max(np.abs(fits["cuda"][0] - fits["cpu"][0])
+                                - 5e-4 * np.abs(fits["cpu"][0]) - floor))
+        emb_ok = np.allclose(fits["cuda"][1], fits["cpu"][1], rtol=5e-3, atol=1e-5)
+        emit({"phase": phase, "loss_excess_over_tolerance": loss_gap,
+              "embedding_allclose": bool(emb_ok),
+              "tolerance": "loss rtol 5e-4 + 2e-6*|X|^2, embedding rtol 5e-3 atol 1e-5"})
+        check(loss_gap <= 0 and emb_ok, f"{phase}: card fit disagrees with the CPU fit")
 
     # -- the slice at full width ---------------------------------------------
     r = np.random.default_rng(0)
@@ -635,20 +765,62 @@ def main():
     check(all(np.isfinite(v).all() for v in emb_cached.values()),
           "weighted_fast embeddings finite")
     check(cache_ok, "cached and uncached transforms must agree (rtol 1e-5)")
+    wf.free_device_cache()
+    del wf
+    torch.cuda.empty_cache()
+
+    # -- ALS mode: hxt once and wtx once a block each iteration ---------------
+    als = ALPINE(n_components=30, n_covariate_components=[5, 5],
+                 lam=[1e3, 1e3], use_als=True, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    als.fit(adata, ["batch", "condition"], max_iter=FIT_ITERS)
+    torch.cuda.synchronize()
+    als_fit_s = time.perf_counter() - t0
+    check(als._x_cache is not None, "the ALS fit must keep its device X")
+    t0 = time.perf_counter()
+    als.transform(adata)  # through the fit's device X
+    torch.cuda.synchronize()
+    als_transform_s = time.perf_counter() - t0
+    als_launches = dict(kernels.launches)
+    La = als.loss_history_
+    emit({"phase": "slice_als", "fit_seconds": als_fit_s,
+          "fit_iterations": FIT_ITERS, "timings": als.timings_,
+          "transform_seconds_cached": als_transform_s,
+          "launches": als_launches, "loss_first": La[0].tolist(),
+          "loss_last": La[-1].tolist(),
+          "peak_memory_bytes": torch.cuda.max_memory_allocated()})
+    check(als_launches["hxt"] == FIT_ITERS, "hxt must launch once per ALS iteration")
+    check(als_launches["wtx"] == 3 * FIT_ITERS,
+          "wtx must launch once per block per ALS iteration")
+    check(als_launches["fused_iteration"] == 0, "an ALS fit must not launch fused_iteration")
+    check(als_launches["fused_transform"] == 1, "transform must launch fused_transform")
+    check(np.isfinite(La).all(), "ALS loss history must be finite")
+    check(La[-1, 0] < La[0, 0], "ALS total loss must fall")
+    check(adata.obsm["ALPINE_embedding"].shape == (N, 30), "embedding shape")
+    for key in ("batch", "condition"):
+        check(adata.obsm[key].shape == (N, 5), f"{key} block shape")
+        check(np.isfinite(adata.obsm[key]).all(), f"{key} block finite")
+    check(np.isfinite(adata.obsm["ALPINE_embedding"]).all(), "embedding finite")
+    als.free_device_cache()
 
     launches = {"fused_iteration": main_launches["fused_iteration"],
                 "fused_iteration_counts": wf_launches["fused_iteration_counts"],
                 "fused_transform": main_launches["fused_transform"],
-                "fused_h_update": unguided_launches["fused_h_update"]}
+                "fused_h_update": unguided_launches["fused_h_update"],
+                "hxt": als_launches["hxt"], "wtx": als_launches["wtx"],
+                "stream_probe": probe_launches}
     rows = []
     for kname in ("fused_iteration", "fused_iteration_counts", "fused_h_update",
-                  "fused_transform"):
+                  "fused_transform", "hxt", "wtx", "stream_probe"):
         res = results[kname]
         rows.append({"name": kname, "route": "cuda", "source": SOURCES[kname],
                      "replaces": REPLACES[kname], "launches": launches[kname],
-                     "max_abs_err": res["max_abs_err_Hn"], "ms": res["ms"],
-                     "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
-                     "bound_by": res["bound_by"], "library_ms": None})
+                     "max_abs_err": res.get("max_abs_err_Hn", res.get("max_abs_err")),
+                     "ms": res["ms"], "plain_ms": res["plain_ms"],
+                     "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
+                     "library_ms": res.get("library_ms")})
     emit({"kernels": rows})
 
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

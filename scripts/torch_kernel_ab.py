@@ -11,7 +11,8 @@ A run times, at the bench shape (100k cells x 2,000 genes, K = 40, labels
 - ``fused_iteration`` (K1), ``fused_h_update`` (K2) and ``fused_iteration``
   with a fixed (2, n) counts tensor drawn from the seed (K4): median
   CUDA-event ms of 20 warm launches;
-- the full-batch fused fit loop (``mu.fit_scan``): ms per iteration over 10
+- the full-batch and the weighted_fast fused fit loops (``mu.fit_scan``,
+  the latter with the port's balanced sampler): ms per iteration over 10
   iterations, host clock around work that ends in a synchronize;
 - ``fused_transform`` (K3), 50 steps at the bench shape (num2 = 2WᵀX,
   WtW2 = 2WᵀW, H0 = H): median CUDA-event ms of 20 warm launches;
@@ -48,6 +49,7 @@ def child(root):
     import torch
 
     from alpine_tpu_torch.ops import kernels, mu
+    from alpine_tpu_torch.utils.sampling import balanced_group_tables, joint_label_ids
 
     if not torch.cuda.is_available():
         raise SystemExit("needs an NVIDIA GPU")
@@ -118,20 +120,33 @@ def child(root):
     k4 = time_ms(lambda: kernels.fused_iteration(
         X, W, H, WtW, Ys, Bs, lam, EPS, C, blocks=BLOCKS, loss_kl=True))
     k3_ms = time_ms(k3_bench)
-    cfg = mu.MUConfig(blocks=BLOCKS, n_labels=N_LABELS, n_cells=N,
-                      max_iter=LOOP_ITERS, x_dtype="int8")
     hyper = (lam, 0.0, 0.0, 0.0, EPS)
-    mu.fit_scan(cfg, W, H, Bs, X, Ys, hyper)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    mu.fit_scan(cfg, W, H, Bs, X, Ys, hyper)
-    torch.cuda.synchronize()
-    loop_ms = (time.perf_counter() - t0) * 1e3 / LOOP_ITERS
+    _, start, sizes = balanced_group_tables(joint_label_ids([y.cpu().numpy() for y in Ys]))
+    tables = (torch.from_numpy(start).to(dev), torch.from_numpy(sizes).to(dev))
+    loop_gen = torch.Generator(device=dev)
+
+    def draw_counts(t):
+        loop_gen.manual_seed(t)
+        return mu.grouped_balanced_counts(loop_gen, N, tables)
+
+    def loop_ms(weighted):
+        cfg = mu.MUConfig(blocks=BLOCKS, n_labels=N_LABELS, n_cells=N,
+                          max_iter=LOOP_ITERS, x_dtype="int8",
+                          weighted_counts=weighted)
+        run = lambda: mu.fit_scan(cfg, W, H, Bs, X, Ys, hyper, draw_counts=draw_counts)
+        run()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / LOOP_ITERS
+
     print(json.dumps({"root": root, "fused_iteration_ms": k1,
                       "fused_h_update_ms": k2,
                       "fused_iteration_counts_ms": k4,
                       "fused_transform_ms": k3_ms,
-                      "fit_loop_ms_per_iteration": loop_ms,
+                      "fit_loop_ms_per_iteration": loop_ms(False),
+                      "fit_loop_weighted_fast_ms_per_iteration": loop_ms(True),
                       "fp32_path_bits": bits, "k3_bits": k3_bits}), flush=True)
 
 

@@ -7,10 +7,13 @@ GPU machine without them (tests/conftest.py imports JAX, hence
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
-Tolerances: rtol 1e-4 / atol 1e-5 for one fused iteration (fp32 sums in
-another order than cuBLAS), rtol 2e-4 for the 20-step transform loop; a
-fit on the card against the same fit on the CPU as chip_smoke.py holds it
-(loss rtol 5e-4 plus 2e-6·‖X‖², embeddings rtol 5e-3 / atol 1e-5).
+Tolerances: rtol 1e-4 / atol 1e-5 for one fused iteration and for the ALS
+X passes hxt and wtx (fp32 sums in another order than cuBLAS), rtol 2e-4
+for the 20-step transform loop; the streaming probe exactly (sums of small
+integers); a fit on the card against the same fit on the CPU as
+chip_smoke.py holds it (loss rtol 5e-4 plus 2e-6·‖X‖², embeddings rtol 5e-3
+/ atol 1e-5), and an ALS fit through the kernels against the same fit
+through plain products at loss rtol 5e-4, factors rtol 5e-3.
 """
 
 import numpy as np
@@ -297,3 +300,108 @@ def test_cuda_tensor_never_takes_the_plain_path(cuda, monkeypatch):
         num2, H0, WtW2 = _transform_problem(3, K, 64, cuda)
         with pytest.raises(RuntimeError, match="nvcc failed"):
             kernels.fused_transform(num2, H0, WtW2, EPS, n_iter=2)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        kernels.hxt(X, H)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        kernels.wtx(X, W)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        kernels.stream_probe(X)
+
+
+def _x_pass_problem(seed, g, n, K, dtype, dev):
+    r = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    if dtype in ("int8", "int16"):
+        X = r.poisson(3.0, (g, n)).clip(0, 127).astype(np.float32)
+    else:
+        X = r.random((g, n), dtype=np.float32)
+    H = r.random((K, n), dtype=np.float32) + 0.1
+    W = r.random((g, K), dtype=np.float32)
+    return t(X).to(DTYPES[dtype]), t(W), t(H)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("K,n", [(1, 1001), (13, 1024), (40, 1000), (40, 1024),
+                                 (300, 777), (300, 1040)])
+def test_x_passes_cuda_match_plain(cuda, dtype, K, n):
+    """P1 (hxt) and P2 (wtx) against their plain versions: K = 1, K not a
+    multiple of 16, K = 300 (two passes on the tensor-core path); 70 genes
+    and 1000, 1001 or 777 cells fill no block or tile, 1024 and 1040 cells
+    take the 16-byte staging, and the same values off 16-byte alignment the
+    element-by-element staging, with the same bits."""
+    X, W, H = _x_pass_problem(K + n, 70, n, K, dtype, cuda)
+    before = dict(kernels.launches)
+    got_h, got_w = kernels.hxt(X, H), kernels.wtx(X, W)
+    moved_h = kernels.hxt(_unaligned(X), _unaligned(H))
+    moved_w = kernels.wtx(_unaligned(X), _unaligned(W))
+    torch.cuda.synchronize()
+    assert kernels.launches["hxt"] == before["hxt"] + 2
+    assert kernels.launches["wtx"] == before["wtx"] + 2
+    assert got_h.shape == (K, 70) and got_w.shape == (K, n)
+    _close(got_h, kernels.hxt_plain(X, H), 1e-4, 1e-5)
+    _close(got_w, kernels.wtx_plain(X, W), 1e-4, 1e-5)
+    assert torch.equal(got_h, moved_h) and torch.equal(got_w, moved_w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["int8", "float32"])
+def test_hxt_cuda_same_bits(cuda, dtype):
+    """Two launches of P1 give the same bits (fixed-order partial sums) at a
+    width that splits the cells over many blocks."""
+    X, _, H = _x_pass_problem(5, 300, 50_000, 40, dtype, cuda)
+    assert torch.equal(kernels.hxt(X, H), kernels.hxt(X, H))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("n,tile", [(1001, 128), (1024, 256), (100, None),
+                                    (5000, None)])
+def test_stream_probe_cuda_matches_plain(cuda, dtype, n, tile):
+    """P3 against its plain version, exactly (integers 0..99: every sum is
+    exact in f32); 1001 and 100 cells take the element-by-element reads."""
+    r = np.random.default_rng(n)
+    X = torch.from_numpy(r.integers(0, 100, (37, n)).astype(np.float32))
+    X = X.to(cuda).to(DTYPES[dtype])
+    before = kernels.launches["stream_probe"]
+    fold, colsum = kernels.stream_probe(X, tile)
+    torch.cuda.synchronize()
+    assert kernels.launches["stream_probe"] == before + 1
+    want_fold, want_colsum = kernels.stream_probe_plain(X, tile)
+    assert torch.equal(fold, want_fold) and torch.equal(colsum, want_colsum)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "int8"])
+def test_als_fit_scan_fused_matches_plain_on_card(cuda, dtype):
+    """A small ALS fit through the kernels (1 hxt and 3 wtx launches an
+    iteration) against the same fit through the plain X products."""
+    from alpine_tpu_torch.ops import mu
+
+    iters = 10 if dtype == "float32" else 5
+    X, W, H = _x_pass_problem(3, 80, 600, 12, dtype, cuda)
+    r = np.random.default_rng(4)
+    Ys = []
+    for nl in (2, 3):
+        y = np.zeros((nl, 600), np.float32)
+        y[r.integers(0, nl, 600), np.arange(600)] = 1.0
+        Ys.append(torch.from_numpy(y).to(cuda))
+    Bs = [torch.from_numpy(r.random((nl, k), dtype=np.float32)).to(cuda)
+          for nl, k in ((2, 3), (3, 4))]
+    hyper = (torch.tensor([3.0, 1.5], device=cuda), 0.2, 0.4, 0.3, EPS)
+    out = {}
+    for backend in ("fused", "plain"):
+        cfg = mu.MUConfig(blocks=(3, 4, 5), n_labels=(2, 3), n_cells=600,
+                          max_iter=iters, x_dtype=dtype, backend=backend,
+                          use_als=True)
+        kernels.reset_launches()
+        out[backend] = mu.fit_scan(cfg, W, H, Bs, X, Ys, hyper)
+        torch.cuda.synchronize()
+        if backend == "fused":
+            assert kernels.launches["hxt"] == iters
+            assert kernels.launches["wtx"] == 3 * iters
+            assert kernels.launches["fused_iteration"] == 0
+    fused, plain = out["fused"], out["plain"]
+    _close(fused[3], plain[3], 5e-4, 0.0)
+    for a, b in ((fused[0], plain[0]), (fused[1], plain[1])):
+        _close(a, b, 5e-3, 1e-5)

@@ -1,6 +1,7 @@
-"""The port stands alone: alpine_tpu_torch and chip_smoke.py import nothing
-of JAX or of the JAX package, the fit/transform path needs neither pandas
-nor scikit-learn, and the estimator never falls back to the CPU silently."""
+"""The port stands alone: alpine_tpu_torch, chip_smoke.py and the port's
+scripts (scripts/torch_*.py) import nothing of JAX or of the JAX package,
+the fit/transform path needs neither pandas nor scikit-learn, and the
+estimator never falls back to the CPU silently."""
 
 import re
 import subprocess
@@ -33,6 +34,11 @@ m.fit(ad, ["batch"], max_iter=4, sampling_method="weighted_fast")
 assert m._x_cache is not None and m._x_cache[3] is not None
 m.transform(ad)  # through the device-X cache
 assert np.isfinite(ad.obsm["ALPINE_embedding"]).all()
+als = ALPINE(n_components=4, n_covariate_components=[2], lam=[1.0],
+             use_als=True, device="cpu")
+als.fit(ad, ["batch"], max_iter=4)
+als.transform(ad)
+assert np.isfinite(als.loss_history_).all()
 print("ok")
 """
 
@@ -52,8 +58,11 @@ _FORBIDDEN = re.compile(
 def test_sources_import_no_jax():
     files = sorted((REPO / "alpine_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
+    files += sorted((REPO / "scripts").glob("torch_*.py"))
     assert len(files) > 5
-    assert REPO / "alpine_tpu_torch" / "utils" / "sampling.py" in files
+    for name in ("alpine_tpu_torch/utils/sampling.py", "alpine_tpu_torch/probe.py",
+                 "scripts/torch_envelope_probe.py", "scripts/torch_kernel_ab.py"):
+        assert REPO / name in files
     for f in files:
         hits = _FORBIDDEN.findall(f.read_text())
         assert not hits, f"{f.relative_to(REPO)} imports {hits}"
