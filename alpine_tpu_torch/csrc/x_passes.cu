@@ -12,25 +12,35 @@
 // writes the k x n outputs of wtx (2-12 MB at k = 5-30).  The products are
 // 16 GFLOP or less, far below the bf16 tensor-core roof.
 //
-// Design (simple first; the joint fit's fused_iteration.cu holds the same
-// two products inside K1, whose code is left as it is, so the device helpers
-// below are copies of its own):
+// Design (the joint fit's fused_iteration.cu holds the same two products
+// inside K1, whose code is left as it is, so the device helpers below are
+// copies of its own):
 //  * hxt: a grid of (gene block of GB genes) x (cell split).  A block sums
 //    its K x GB outputs over its split's cells and writes one partial;
 //    reduce_splits adds the partials in a fixed order (no float atomics), so
 //    two launches give the same bits.
 //  * wtx: one block per tile of T cells, looping over all genes in chunks;
 //    every output is written once, by the block of its cells.
-//  * int8 and bf16 X compute in bf16 (kBf16): X and the partner (H or W) are
-//    staged in shared memory as bf16 and multiplied on the tensor cores
-//    through the WMMA API (bf16 m16n16k16, fp32 accumulators), as the TPU
-//    kernels run them on its matrix unit in one exact bf16 pass.  K is padded
-//    with zero rows to Kp = pad16(K); the ragged cells and genes are zeroed.
-//    Warp w holds accumulator fragments w and w + 8 of a pass (16 fragments);
-//    a larger output takes more passes over X.  Products are exact and sums
-//    fp32: the plain version's result up to summation order.  X, H and W move
-//    in 16-byte loads where their rows are 16-byte aligned, else element by
-//    element, into the same bf16 values.
+//  * int8 and bf16 X compute in bf16 (kBf16) on the tensor cores (bf16
+//    operands, fp32 accumulators), as the TPU kernels run them on its matrix
+//    unit in one exact bf16 pass.  K is padded with zero rows to
+//    Kp = pad16(K); the ragged cells and genes are zeroed.  Products are
+//    exact and sums fp32: the plain version's result up to summation order.
+//  * hxt's bf16 path: round_h first rounds H to bf16 once a call (Hb,
+//    padded with zero cells to a multiple of the ring's chunk), then hxt_mma
+//    streams raw X and Hb chunks through a ring of S shared-memory stages
+//    filled by cp.async and multiplies straight from the ring with mma.sync
+//    (int8 widened in registers).  GB is as wide as one pass of 4 fragments
+//    a warp allows (128 genes at K <= 64), and the grid is one wave of long
+//    cell splits (ops/kernels.py:hxt_grid), so few partials are written.
+//    What holds it back is latency, not bytes: two blocks of 8 warps an SM,
+//    a dependent chain of shared loads and products a warp (PERF.md).
+//  * wtx stages X and W in shared memory as bf16 and multiplies through the
+//    WMMA API (m16n16k16); warp w holds accumulator fragments w and w + 8 of
+//    a pass (16 fragments), and a larger output takes more passes over X.
+//    X and W move in 16-byte loads where their rows are 16-byte aligned,
+//    else element by element, into the same bf16 values; so does X in
+//    hxt_mma (cp.async or element by element).
 //  * float32 and int16 X use fp32 FMA with both operands in shared memory
 //    (true fp32 under matmul_precision="highest": no TF32), outputs in
 //    kMaxOut registers a thread.
@@ -38,13 +48,14 @@
 
 #include <mma.h>
 
+#include <type_traits>
+
 namespace alpine {
 
 using namespace nvcuda;
 
 constexpr int kCellChunk = 32;      // hxt: cells a split holds a multiple of; fp32 step
 constexpr int kGeneChunk = 16;      // wtx fp32 path: genes a step
-constexpr int kMmaCellChunk = 64;   // hxt bf16 path: cells a staged chunk
 constexpr int kMmaGeneChunk = 32;   // wtx bf16 path: genes a staged chunk
 constexpr int kMmaFrags = 2;        // accumulator fragments a warp holds in a pass
 constexpr int kPassFrags = kWarps * kMmaFrags;
@@ -101,12 +112,6 @@ __device__ __forceinline__ void widen16(uint4 u, const __nv_bfloat16*, float* f)
     f[2 * q + 1] = v.y;
   }
 }
-__device__ __forceinline__ void widen16(uint4 u, const float*, float* f) {
-  f[0] = __uint_as_float(u.x);
-  f[1] = __uint_as_float(u.y);
-  f[2] = __uint_as_float(u.z);
-  f[3] = __uint_as_float(u.w);
-}
 
 // One 16-byte vector (V = 16 / sizeof(T) values) of a rows x cols block on
 // its way to shared memory as bf16: element (i, j) is src[i * stride + j],
@@ -144,13 +149,9 @@ struct VecSlot {
 #pragma unroll
     for (int u = 0; u < V / 2; ++u) p[u] = __floats2bfloat162_rn(f[2 * u], f[2 * u + 1]);
     __nv_bfloat16* d = dst + i * ld + j;
-    if constexpr (V == 4) {
-      *reinterpret_cast<uint2*>(d) = *reinterpret_cast<const uint2*>(p);
-    } else {
 #pragma unroll
-      for (int w = 0; w < V / 8; ++w)
-        reinterpret_cast<uint4*>(d)[w] = reinterpret_cast<const uint4*>(p)[w];
-    }
+    for (int w = 0; w < V / 8; ++w)
+      reinterpret_cast<uint4*>(d)[w] = reinterpret_cast<const uint4*>(p)[w];
   }
 };
 
@@ -158,21 +159,6 @@ struct VecSlot {
 template <typename T>
 __host__ __device__ constexpr int vec_slots(int rows, int cols) {
   return (rows * cols / VecSlot<T>::V + kThreads - 1) / kThreads;
-}
-
-// The whole rows x cols block through VecSlots, two loads in flight a thread.
-template <typename T>
-__device__ __forceinline__ void stage_vec(__nv_bfloat16* dst, int ld, int rows,
-                                          int cols, const T* src, size_t stride,
-                                          int rv, int cv) {
-  const int vpr = cols / VecSlot<T>::V;
-  for (int q0 = threadIdx.x; q0 < rows * vpr; q0 += 2 * kThreads) {
-    VecSlot<T> s[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) s[r].load(q0 + r * kThreads, vpr, rows, src, stride, rv, cv);
-#pragma unroll
-    for (int r = 0; r < 2; ++r) s[r].store(dst, ld);
-  }
 }
 
 // Rows g0 .. g0 + rows - 1 of W (g x K, fp32) into the bf16 rows of sWb
@@ -226,102 +212,268 @@ __device__ __forceinline__ bool rows_aligned16(const T* p, int n) {
 
 // ---- hxt -----------------------------------------------------------------
 
-// Shared memory of hxt's bf16 path: H (Kp x LC) and X (GB x LC) chunks as
-// bf16, LC = kMmaCellChunk + 8; after a pass's last chunk the same bytes
-// hold the Kp x (GB + 4) fp32 output on its way to the partial.
-__host__ __device__ inline size_t hxt_mma_smem_bytes(int K, int GB) {
-  const size_t stage = (size_t)(pad16(K) + GB) * (kMmaCellChunk + 8) * 2;
-  const size_t out = (size_t)pad16(K) * (GB + 4) * 4;
-  return stage > out ? stage : out;
+// cp.async: 16 bytes from global to shared memory without a register, or 16
+// zero bytes when !full (src-size 0: nothing is read).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool full) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(full ? 16 : 0)
+               : "memory");
 }
 
-// part[split][k][gi] = sum over the split's cells c of H[k][c] X[gi][c], for
-// the GB genes of this block, on the tensor cores.
-template <typename XT>
-__global__ void __launch_bounds__(kThreads, 3)
-hxt_mma(const XT* __restrict__ X, const float* __restrict__ H, int g, int n,
-        int K, int GB, int cells_per_split, float* __restrict__ part) {
-  extern __shared__ __align__(128) float sm[];
-  constexpr int CM = kMmaCellChunk, LC = kMmaCellChunk + 8;
-  const int tid = threadIdx.x, warp = tid / 32;
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most `pending` of this thread's committed groups are in
+// flight (the instruction takes an immediate; waiting for fewer is safe).
+__device__ __forceinline__ void cp_async_wait(int pending) {
+  switch (pending) {
+    case 0: asm volatile("cp.async.wait_group 0;\n" ::: "memory"); break;
+    case 1: asm volatile("cp.async.wait_group 1;\n" ::: "memory"); break;
+    case 2: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
+    case 3: asm volatile("cp.async.wait_group 3;\n" ::: "memory"); break;
+    case 4: asm volatile("cp.async.wait_group 4;\n" ::: "memory"); break;
+    case 5: asm volatile("cp.async.wait_group 5;\n" ::: "memory"); break;
+    case 6: asm volatile("cp.async.wait_group 6;\n" ::: "memory"); break;
+    default: asm volatile("cp.async.wait_group 7;\n" ::: "memory"); break;
+  }
+}
+
+// Two floats that hold bf16 values exactly (here integers |x| <= 128) as
+// one bf16x2 register: the upper halves of their bits, the first low.
+__device__ __forceinline__ unsigned pack_bf16x2(float lo, float hi) {
+  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
+}
+
+// Eight int8 values (two words) widened exactly to four bf16x2 registers:
+// a byte permute makes the fp32 bits 2^23 + (x + 128) and one subtraction
+// gives x (as in stream_probe.cu).
+__device__ __forceinline__ void widen_i8x8(uint2 v, unsigned* out) {
+  const unsigned w[2] = {v.x, v.y};
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    const unsigned u = w[q] ^ 0x80808080u;
+    float f[4];
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+      f[b] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440 + b)) - 8388736.f;
+    out[2 * q] = pack_bf16x2(f[0], f[1]);
+    out[2 * q + 1] = pack_bf16x2(f[2], f[3]);
+  }
+}
+
+// d += a b on the tensor cores: bf16 m16n8k16, fp32 accumulators.
+__device__ __forceinline__ void mma_bf16_16816(float* d, const unsigned* a, unsigned b0,
+                                               unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Hb[k][c] = bf16(H[k][c]) for c < n, 0 for n <= c < n_pad: H rounded once
+// a call (hxt_mma reads it as it is).  One thread an 8-cell vector.
+__global__ void __launch_bounds__(kThreads)
+round_h(const float* __restrict__ H, int K, int n, int n_pad,
+        __nv_bfloat16* __restrict__ Hb) {
+  const int vpr = n_pad / 8;
+  const size_t q = (size_t)blockIdx.x * kThreads + threadIdx.x;
+  if (q >= (size_t)K * vpr) return;
+  const int k = (int)(q / vpr), c = (int)(q - (size_t)k * vpr) * 8;
+  const float* src = H + (size_t)k * n;
+  float v[8];
+  if (rows_aligned16(H, n) && c + 8 <= n) {
+    const float4 a = __ldg(reinterpret_cast<const float4*>(src + c));
+    const float4 b = __ldg(reinterpret_cast<const float4*>(src + c + 4));
+    v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
+    v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
+  } else {
+#pragma unroll
+    for (int u = 0; u < 8; ++u) v[u] = c + u < n ? src[c + u] : 0.f;
+  }
+  __nv_bfloat16 r[8];
+#pragma unroll
+  for (int u = 0; u < 8; ++u) r[u] = __float2bfloat16_rn(v[u]);
+  *reinterpret_cast<uint4*>(Hb + (size_t)k * n_pad + c) = *reinterpret_cast<const uint4*>(r);
+}
+
+// Bytes of a staged row of `data` bytes, padded so that rows start
+// `target` bytes apart modulo 128 (the banks of one shared-memory access).
+__host__ __device__ constexpr int hxt_row_bytes(int data, int target) {
+  return data + ((target - data) % 128 + 128) % 128;
+}
+
+// Shared memory of hxt's bf16 path: a ring of S stages, each a chunk of CW
+// cells of Hb (Kp rows of CW bf16) and of X's GB rows (CW values as stored).
+// Hb and bf16 X rows are read 16 bytes a lane and start 64 bytes apart
+// modulo 128, int8 rows 8 bytes a lane and 32 apart: no bank conflicts.
+// After the last chunk the same bytes hold the Kp x (GB + 4) fp32 output on
+// its way to the partial.  ops/kernels.py:hxt_smem_bytes holds the same
+// formula.
+__host__ __device__ inline size_t hxt_mma_smem_bytes(int K, int GB, int S, int CW,
+                                                     bool int8) {
+  const size_t h = (size_t)pad16(K) * hxt_row_bytes(2 * CW, 64);
+  const size_t x = (size_t)GB * (int8 ? hxt_row_bytes(CW, 32) : hxt_row_bytes(2 * CW, 64));
+  const size_t ring = S * (h + x);
+  const size_t out = (size_t)pad16(K) * (GB + 4) * 4;
+  return ring > out ? ring : out;
+}
+
+constexpr int kHxtFrags = 4;  // 16-row fragments of H a warp holds (one pass)
+
+// part[split][k][gi] = sum over the split's cells c of Hb[k][c] X[gi][c], for
+// the GB genes of this block, on the tensor cores, in one pass over X.
+//
+// The split's chunks of CW cells flow through a ring of S stages filled by
+// cp.async, S - 1 chunks ahead of the one being multiplied, one barrier a
+// chunk.  Warp w holds gene column w % (GB / 16) (two 8-gene tiles) and
+// every (8 / (GB / 16))-th 16-row fragment of H, and multiplies straight
+// from the ring with mma.sync m16n8k16: int8 X is widened in registers.
+// Within each 32 cells a lane reads 8 consecutive cells of a row (16 bytes
+// of Hb, 8 or 16 of X) and feeds them to two k16 steps, cells 4 at a time
+// into the k slots {2t, 2t + 1, 2t + 8, 2t + 9} of both operands: the
+// same bijection on both sides, so the sums run over every cell once.  X
+// rows off 16-byte alignment are staged element by element into the same
+// places, so the summation order does not depend on X's alignment.
+template <typename XT, int CW>
+__global__ void __launch_bounds__(kThreads, 2)
+hxt_mma(const XT* __restrict__ X, const __nv_bfloat16* __restrict__ Hb, int g, int n,
+        int n_pad, int K, int GB, int cells_per_split, int S, float* __restrict__ part) {
+  constexpr bool kInt8 = sizeof(XT) == 1;
+  constexpr int V = 16 / sizeof(XT);  // values of a 16-byte copy
+  // X's values as raw bits, for the element-by-element staging
+  using Raw = typename std::conditional<kInt8, uint8_t, uint16_t>::type;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g0 = blockIdx.x * GB, split = blockIdx.y;
   const int cbeg = split * cells_per_split;
-  const int cend = min(n, cbeg + cells_per_split);
-  const int Kp = pad16(K), gcols = GB / 16;
-  const int n_frag = (Kp / 16) * gcols;
-  __nv_bfloat16* sHb = reinterpret_cast<__nv_bfloat16*>(sm);  // Kp x LC
-  __nv_bfloat16* sXb = sHb + Kp * LC;                          // GB x LC
-  float* sOut = sm;  // Kp x (GB + 4), once a pass's last chunk is done
-  const int LO = GB + 4;
-  const bool xvec = rows_aligned16(X, n), hvec = rows_aligned16(H, n);
-  // a pass holds whole fragment rows (16 is a multiple of gcols)
-  for (int f0 = 0; f0 < n_frag; f0 += kPassFrags) {
-    FragAcc fr[kMmaFrags];
-#pragma unroll
-    for (int i = 0; i < kMmaFrags; ++i) wmma::fill_fragment(fr[i], 0.f);
-    for (int c0 = cbeg; c0 < cend; c0 += CM) {
-      const int nv = min(CM, cend - c0);
-      __syncthreads();
-      // X's vectors are read first, so that their latency overlaps H's
-      constexpr int kSlots = vec_slots<XT>(64, CM);
-      VecSlot<XT> xs[kSlots];
-      const XT* xsrc = X + (size_t)g0 * n + c0;
-      const int xvpr = CM / VecSlot<XT>::V;
+  const int n_chunks = (min(n, cbeg + cells_per_split) - cbeg + CW - 1) / CW;
+  constexpr int HR = hxt_row_bytes(2 * CW, 64);
+  constexpr int XR = kInt8 ? hxt_row_bytes(CW, 32) : hxt_row_bytes(2 * CW, 64);
+  constexpr int HV = CW / 8, XV = CW / V;  // 16-byte copies a row
+  const int Kp = pad16(K), RF = Kp / 16, gcols = GB / 16;
+  const int h_bytes = Kp * HR, stage_bytes = h_bytes + GB * XR;
+  const bool xvec = rows_aligned16(X, n);
+  // Hb's rows K .. Kp - 1 are never copied: zero in every stage
+  for (int st = 0; st < S; ++st)
+    for (int o = tid; o < (Kp - K) * HR / 16; o += kThreads)
+      reinterpret_cast<uint4*>(smem + st * stage_bytes + K * HR)[o] = make_uint4(0, 0, 0, 0);
+
+  // chunk c's copies into stage st; one group committed, empty past the split
+  auto issue = [&](int c, int st) {
+    if (c < n_chunks) {
+      const int c0 = cbeg + c * CW;
+      unsigned char* h = smem + st * stage_bytes;
+      for (int q = tid; q < K * HV; q += kThreads) {
+        const int k = q / HV, j = (q % HV) * 8;
+        cp_async16(h + k * HR + j * 2, Hb + (size_t)k * n_pad + c0 + j, true);
+      }
+      unsigned char* x = h + h_bytes;
       if (xvec) {
+        for (int q = tid; q < GB * XV; q += kThreads) {
+          const int gg = q / XV, j = (q % XV) * V;
+          // n is a multiple of V here: a vector is valid or zero as a whole
+          const bool ok = g0 + gg < g && c0 + j < n;
+          cp_async16(x + gg * XR + j * (int)sizeof(XT),
+                     ok ? X + (size_t)(g0 + gg) * n + c0 + j : X, ok);
+        }
+      } else {  // the same values, element by element, eight loads in flight
+        const Raw* src = reinterpret_cast<const Raw*>(X);
+        for (int e0 = tid; e0 < GB * CW; e0 += 8 * kThreads) {
+          Raw v[8];
 #pragma unroll
-        for (int s = 0; s < kSlots; ++s)
-          xs[s].load(tid + s * kThreads, xvpr, GB, xsrc, n, g - g0, nv);
-      } else {
-        stage_bf16(sXb, LC, GB, CM, [&](int gg, int t) {
-          return (t < nv && g0 + gg < g) ? to_f(X[(size_t)(g0 + gg) * n + c0 + t])
-                                         : 0.f;
-        });
-      }
-      if (hvec) {
-        stage_vec<float>(sHb, LC, Kp, CM, H + c0, n, K, nv);
-      } else {
-        stage_bf16(sHb, LC, Kp, CM, [&](int k, int t) {
-          return (k < K && t < nv) ? H[(size_t)k * n + c0 + t] : 0.f;
-        });
-      }
-      if (xvec) {
+          for (int u = 0; u < 8; ++u) {
+            const int e = e0 + u * kThreads, gg = e / CW, t = e % CW;
+            v[u] = (e < GB * CW && g0 + gg < g && c0 + t < n)
+                       ? src[(size_t)(g0 + gg) * n + c0 + t] : Raw(0);
+          }
 #pragma unroll
-        for (int s = 0; s < kSlots; ++s) xs[s].store(sXb, LC);
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < CM; kk += 16) {
-#pragma unroll
-        for (int i = 0; i < kMmaFrags; ++i) {
-          const int f = f0 + warp + i * kWarps;
-          if (f < n_frag) {  // warp-uniform
-            const int r = f / gcols, c = f - r * gcols;
-            wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> b;
-            wmma::load_matrix_sync(a, sHb + r * 16 * LC + kk, LC);
-            wmma::load_matrix_sync(b, sXb + c * 16 * LC + kk, LC);
-            wmma::mma_sync(fr[i], a, b, fr[i]);
+          for (int u = 0; u < 8; ++u) {
+            const int e = e0 + u * kThreads;
+            if (e < GB * CW) reinterpret_cast<Raw*>(x + e / CW * XR)[e % CW] = v[u];
           }
         }
       }
     }
-    __syncthreads();  // every warp is done with the staged chunks
+    cp_async_commit();
+  };
+
+  const int col = warp % gcols, r0 = warp / gcols, rstep = kWarps / gcols;
+  const int gq = lane / 4, t8 = (lane % 4) * 8;  // the lane's row and cells
+  float acc[kHxtFrags][2][4];
 #pragma unroll
-    for (int i = 0; i < kMmaFrags; ++i) {
-      const int f = f0 + warp + i * kWarps;
-      if (f < n_frag) {
-        const int r = f / gcols, c = f - r * gcols;
-        wmma::store_matrix_sync(sOut + r * 16 * LO + c * 16, fr[i], LO, wmma::mem_row_major);
+  for (int f = 0; f < kHxtFrags; ++f)
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[f][nt][i] = 0.f;
+  for (int c = 0; c < S - 1; ++c) issue(c, c);
+  int st = 0;  // stage of chunk c
+  for (int c = 0; c < n_chunks; ++c) {
+    cp_async_wait(S - 2);  // chunk c (this thread's copies)
+    // chunk c has landed; every warp is done with chunk c - 1, whose stage
+    // the next copies refill
+    __syncthreads();
+    issue(c + S - 1, st == 0 ? S - 1 : st - 1);
+    const unsigned char* h = smem + st * stage_bytes;
+    const unsigned char* x = h + h_bytes + (col * 16 + gq) * XR;
+    // unrolled, so that a slice's loads can be issued under the previous
+    // slice's products
+#pragma unroll
+    for (int c32 = 0; c32 < CW; c32 += 32) {
+      unsigned b[2][4];  // per 8-gene tile: k16 step 0 {b0, b1}, step 1 {b0, b1}
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        if constexpr (kInt8) {
+          widen_i8x8(*reinterpret_cast<const uint2*>(x + nt * 8 * XR + c32 + t8), b[nt]);
+        } else {
+          const uint4 v = *reinterpret_cast<const uint4*>(x + nt * 8 * XR + (c32 + t8) * 2);
+          b[nt][0] = v.x, b[nt][1] = v.y, b[nt][2] = v.z, b[nt][3] = v.w;
+        }
+      }
+#pragma unroll
+      for (int f = 0; f < kHxtFrags; ++f) {
+        const int rf = r0 + f * rstep;
+        if (rf < RF) {  // warp-uniform
+          const unsigned char* hr = h + (rf * 16 + gq) * HR + (c32 + t8) * 2;
+          const uint4 lo = *reinterpret_cast<const uint4*>(hr);
+          const uint4 hi = *reinterpret_cast<const uint4*>(hr + 8 * HR);
+          const unsigned a0[4] = {lo.x, hi.x, lo.y, hi.y};  // cells t8 .. t8 + 3
+          const unsigned a1[4] = {lo.z, hi.z, lo.w, hi.w};  // cells t8 + 4 .. t8 + 7
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt) {
+            mma_bf16_16816(acc[f][nt], a0, b[nt][0], b[nt][1]);
+            mma_bf16_16816(acc[f][nt], a1, b[nt][2], b[nt][3]);
+          }
+        }
       }
     }
-    __syncthreads();
-    // this pass's rows k_lo .. k_hi - 1 to the partial
-    const int k_lo = f0 / gcols * 16;
-    const int k_hi = min(K, (f0 + kPassFrags) / gcols * 16);
-    for (int o = tid; o < (k_hi - k_lo) * GB; o += kThreads) {
-      const int k = k_lo + o / GB, gg = o - (k - k_lo) * GB;
-      if (g0 + gg < g) part[((size_t)split * K + k) * g + g0 + gg] = sOut[k * LO + gg];
+    st = st + 1 == S ? 0 : st + 1;
+  }
+  cp_async_wait(0);
+  __syncthreads();  // every warp is done with the ring
+  float* sOut = reinterpret_cast<float*>(smem);  // Kp x LO
+  const int LO = GB + 4;
+#pragma unroll
+  for (int f = 0; f < kHxtFrags; ++f) {
+    const int rf = r0 + f * rstep;
+    if (rf < RF) {
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        float* o = sOut + (rf * 16 + gq) * LO + col * 16 + nt * 8 + (lane % 4) * 2;
+        o[0] = acc[f][nt][0];
+        o[1] = acc[f][nt][1];
+        o[8 * LO] = acc[f][nt][2];
+        o[8 * LO + 1] = acc[f][nt][3];
+      }
     }
+  }
+  __syncthreads();
+  for (int o = tid; o < K * GB; o += kThreads) {
+    const int k = o / GB, gg = o - k * GB;
+    if (g0 + gg < g) part[((size_t)split * K + k) * g + g0 + gg] = sOut[k * LO + gg];
   }
 }
 
@@ -390,30 +542,65 @@ reduce_splits(const float* __restrict__ part, int n_split, int K, int g,
   out[idx] = s;
 }
 
-template <typename XT, bool kBf16>
-static int launch_hxt(const void* X, const float* H, int g, int n, int K, int GB,
-                      int n_split, int cells_per_split, float* part, float* out,
-                      cudaStream_t stream) {
-  const size_t smem = kBf16 ? hxt_mma_smem_bytes(K, GB)
-                            : (size_t)(K + GB) * (kCellChunk + 1) * sizeof(float);
-  const bool ok = kBf16 ? (GB % 16 == 0 && GB <= 64 && 16 % (GB / 16) == 0)
-                        : (K * GB <= kThreads * kMaxOut);
-  if (!ok || smem > (size_t)kMaxSmem || cells_per_split % kCellChunk != 0)
-    return (int)cudaErrorInvalidValue;
-  void (*kernel)(const XT*, const float*, int, int, int, int, int, float*);
-  if constexpr (kBf16) {
-    kernel = hxt_mma<XT>;
-  } else {
-    kernel = hxt_fma<XT>;
-  }
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+// The bf16 path: H rounded into Hb (K x n_pad, n_pad a multiple of CW), then
+// hxt_mma over a grid of (gene block) x (cell split) with S ring stages of
+// CW cells.
+template <typename XT>
+static int launch_hxt_mma(const void* X, const float* H, int g, int n, int K, int GB,
+                          int n_split, int cells_per_split, int S, int CW,
+                          __nv_bfloat16* Hb, float* part, cudaStream_t stream) {
+  void (*kernel)(const XT*, const __nv_bfloat16*, int, int, int, int, int, int, int,
+                 float*) = CW == 128 ? hxt_mma<XT, 128> : hxt_mma<XT, 64>;
+  const int Kp = pad16(K), gcols = GB / 16;
+  const size_t smem = hxt_mma_smem_bytes(K, GB, S, CW, sizeof(XT) == 1);
+  const bool ok = GB % 16 == 0 && GB <= 128 && kWarps % gcols == 0 &&
+                  (Kp / 16) * gcols <= kWarps * kHxtFrags && S >= 2 && S <= 8 &&
+                  (CW == 64 || CW == 128) &&
+                  cells_per_split % CW == 0 && Hb != nullptr;
+  if (!ok || smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
+  const int n_pad = (n + CW - 1) / CW * CW;
+  const size_t vecs = (size_t)K * (n_pad / 8);
+  round_h<<<(unsigned)((vecs + kThreads - 1) / kThreads), kThreads, 0, stream>>>(H, K, n,
+                                                                                 n_pad, Hb);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((g + GB - 1) / GB, n_split);
-  kernel<<<grid, kThreads, smem, stream>>>(static_cast<const XT*>(X), H, g, n, K, GB,
-                                           cells_per_split, part);
-  err = cudaGetLastError();
+  kernel<<<grid, kThreads, smem, stream>>>(static_cast<const XT*>(X), Hb, g, n, n_pad, K, GB,
+                                           cells_per_split, S, part);
+  return (int)cudaGetLastError();
+}
+
+template <typename XT>
+static int launch_hxt_fma(const void* X, const float* H, int g, int n, int K, int GB,
+                          int n_split, int cells_per_split, float* part,
+                          cudaStream_t stream) {
+  const size_t smem = (size_t)(K + GB) * (kCellChunk + 1) * sizeof(float);
+  if (K * GB > kThreads * kMaxOut || smem > (size_t)kMaxSmem ||
+      cells_per_split % kCellChunk != 0)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      hxt_fma<XT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
+  dim3 grid((g + GB - 1) / GB, n_split);
+  hxt_fma<XT><<<grid, kThreads, smem, stream>>>(static_cast<const XT*>(X), H, g, n, K, GB,
+                                                cells_per_split, part);
+  return (int)cudaGetLastError();
+}
+
+template <typename XT, bool kBf16>
+static int launch_hxt(const void* X, const float* H, int g, int n, int K, int GB,
+                      int n_split, int cells_per_split, int S, int CW,
+                      __nv_bfloat16* Hb, float* part, float* out, cudaStream_t stream) {
+  int rc;
+  if constexpr (kBf16) {
+    rc = launch_hxt_mma<XT>(X, H, g, n, K, GB, n_split, cells_per_split, S, CW, Hb, part,
+                            stream);
+  } else {
+    rc = launch_hxt_fma<XT>(X, H, g, n, K, GB, n_split, cells_per_split, part, stream);
+  }
+  if (rc != 0) return rc;
   const size_t total = (size_t)K * g;
   reduce_splits<<<(unsigned)((total + kThreads - 1) / kThreads), kThreads, 0, stream>>>(
       part, n_split, K, g, out);
@@ -589,23 +776,28 @@ static int launch_wtx(const void* X, const float* W, int g, int n, int K, int T,
 }  // namespace alpine
 
 // Plain C entry points (ctypes).  Each returns 0 or a cudaError_t code.
+// hxt: `stages`, `chunk` (cells a ring stage holds) and the scratch `hb`
+// (K x n rounded up to the chunk, bf16) serve the bf16 path (int8, bf16 X)
+// and are ignored by the fp32 one.
 extern "C" int alpine_hxt(const void* X, int xtype, const float* H, int g, int n,
-                          int K, int GB, int n_split, int cells_per_split,
-                          float* part, float* out, void* stream) {
+                          int K, int GB, int n_split, int cells_per_split, int stages,
+                          int chunk, void* hb, float* part, float* out, void* stream) {
   using namespace alpine;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  __nv_bfloat16* Hb = static_cast<__nv_bfloat16*>(hb);
   switch (xtype) {
     case kF32:
-      return launch_hxt<float, false>(X, H, g, n, K, GB, n_split, cells_per_split, part, out, s);
+      return launch_hxt<float, false>(X, H, g, n, K, GB, n_split, cells_per_split, stages,
+                                      chunk, Hb, part, out, s);
     case kBF16:
       return launch_hxt<__nv_bfloat16, true>(X, H, g, n, K, GB, n_split, cells_per_split,
-                                             part, out, s);
+                                             stages, chunk, Hb, part, out, s);
     case kI8:
-      return launch_hxt<int8_t, true>(X, H, g, n, K, GB, n_split, cells_per_split, part, out,
-                                      s);
+      return launch_hxt<int8_t, true>(X, H, g, n, K, GB, n_split, cells_per_split, stages,
+                                      chunk, Hb, part, out, s);
     case kI16:
-      return launch_hxt<int16_t, false>(X, H, g, n, K, GB, n_split, cells_per_split, part,
-                                        out, s);
+      return launch_hxt<int16_t, false>(X, H, g, n, K, GB, n_split, cells_per_split, stages,
+                                        chunk, Hb, part, out, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -17,6 +17,7 @@ probe's kernel, on no fit path (``alpine_tpu_torch/probe.py``).
 
 from __future__ import annotations
 
+from functools import lru_cache
 from typing import Dict, Sequence, Tuple
 
 import torch
@@ -53,6 +54,16 @@ _TRANSFORM_BUCKETS = (8, 16, 24, 32, 40, 48, 56, 64)
 # stream_probe: blocks of column sums a launch aims at (8 per H100 SM); a
 # block sums 32 lanes x one 16-byte vector of columns over its genes
 _STREAM_BLOCKS = 1056
+# hxt's bf16 path (csrc/x_passes.cu: hxt_mma): chunks of 128 or 64 cells in
+# a ring of 2..8 stages, at most 4 accumulator fragments of 16 × 16 a warp
+# (32 a block, one pass); its grid is one wave on a fixed SM count, so a
+# shape sums its partials in the same order on any card
+_HXT_CHUNKS = (128, 64)
+_HXT_MAX_FRAGS = 32
+_HXT_STAGES = range(2, 9)
+_SMS = 132  # SMs of an H100 SXM
+_SM_SMEM = 233472  # shared memory of one H100 SM, in bytes
+_BLOCK_SMEM_RESERVED = 1024  # of it, what the card keeps for each block
 
 
 def reset_launches() -> None:
@@ -287,6 +298,60 @@ def _cell_splits(g: int, n: int, GB: int) -> Tuple[int, int]:
     return -(-n // cells_per_split), cells_per_split
 
 
+def _hxt_row_bytes(data: int, target: int) -> int:
+    """csrc/x_passes.cu:hxt_row_bytes: ``data`` bytes padded so that rows
+    start ``target`` bytes apart modulo 128."""
+    return data + (target - data) % 128
+
+
+def hxt_smem_bytes(K: int, GB: int, S: int, x_dtype: torch.dtype,
+                   chunk: int) -> int:
+    """csrc/x_passes.cu:hxt_mma_smem_bytes: S ring stages of a chunk of Hb
+    (Kp rows of ``chunk`` bf16) and of X's GB rows (``chunk`` values as
+    stored), each row padded against bank conflicts; at least the
+    Kp × (GB + 4) fp32 output tile that reuses the bytes."""
+    Kp = _pad16(K)
+    x_row = (_hxt_row_bytes(chunk, 32) if x_dtype == torch.int8
+             else _hxt_row_bytes(2 * chunk, 64))
+    ring = S * (Kp * _hxt_row_bytes(2 * chunk, 64) + GB * x_row)
+    return max(ring, 4 * Kp * (GB + 4))
+
+
+@lru_cache(maxsize=None)  # called once an ALS iteration
+def hxt_grid(g: int, n: int, K: int, x_dtype: torch.dtype
+             ) -> Tuple[int, int, int, int, int]:
+    """(GB, n_split, cells_per_split, S, chunk) of hxt's bf16 path (int8,
+    bf16 X).
+
+    GB, the genes a block, is the widest of 128, 64, 32 and 16 whose
+    Kp × GB outputs (Kp = K rounded up to 16) fit 32 accumulator fragments,
+    so X is read in one pass for every K <= 512.  The ring takes the wider
+    of 128 and 64 cells a stage and the most stages (2..8) for which two
+    blocks share an SM, else one block takes it.  The splits, each a
+    multiple of the chunk, make gene blocks × splits at most one wave of
+    those blocks on 132 SMs."""
+    if x_dtype not in _MMA_XTYPES:
+        raise ValueError(f"hxt_grid is for int8 and bf16 X, got {x_dtype}")
+    tile_width(K)  # 1 <= K <= 512
+    rows = _pad16(K) // 16
+    GB = next(w for w in (128, 64, 32, 16) if rows * (w // 16) <= _HXT_MAX_FRAGS)
+    S = 0
+    for per_sm in (2, 1):
+        budget = min(_MAX_SMEM, _SM_SMEM // per_sm - _BLOCK_SMEM_RESERVED)
+        for chunk in _HXT_CHUNKS:
+            S = max((s for s in _HXT_STAGES
+                     if hxt_smem_bytes(K, GB, s, x_dtype, chunk) <= budget), default=0)
+            if S:
+                break
+        if S:
+            break
+    gene_blocks = -(-g // GB)
+    n_chunks = -(-n // chunk)
+    want = max(1, min(n_chunks, _SMS * per_sm // gene_blocks))
+    cells_per_split = -(-n_chunks // want) * chunk
+    return GB, -(-n // cells_per_split), cells_per_split, S, chunk
+
+
 def _launch_iteration(X, W, H, WtW, Ys, Bs, lam, eps, counts, blocks, loss_kl):
     """Run csrc/fused_iteration.cu; returns (Hn, XHt, stats, n_labels) with
     stats laid out as ``_stats_len`` says."""
@@ -479,9 +544,10 @@ def hxt(X, H):
     X H_startᵀ; the joint fit loops for their first X Hᵀ.
 
     On the card, int8 and bf16 X run on bf16 tensor cores (H rounded to
-    bf16, exact products, fp32 sums), float32 and int16 X on fp32 FMA; each
-    block sums a range of cells into a partial of its own and the partials
-    are added in a fixed order, so two launches give the same bits."""
+    bf16 once a call, exact products, fp32 sums) over ``hxt_grid``'s grid,
+    float32 and int16 X on fp32 FMA over ``_cell_splits``'s; each block sums
+    a range of cells into a partial of its own and the partials are added
+    in a fixed order, so two launches give the same bits."""
     _check_x(X)
     g, n = X.shape
     K = H.shape[0]
@@ -490,17 +556,24 @@ def hxt(X, H):
         return hxt_plain(X, H)
     from alpine_tpu_torch.ops import _build
 
-    GB = iteration_tile_width(K, X.dtype)  # genes a block
-    n_split, cells_per_split = _cell_splits(g, n, GB)
     dev = X.device
+    hb = None  # bf16 path: H rounded, K x n padded to the chunk
+    if X.dtype in _MMA_XTYPES:
+        GB, n_split, cells_per_split, S, chunk = hxt_grid(g, n, K, X.dtype)
+        hb = torch.empty((K, -(-n // chunk) * chunk), dtype=torch.bfloat16,
+                         device=dev)
+    else:
+        GB, S, chunk = iteration_tile_width(K, X.dtype), 0, 0  # genes a block
+        n_split, cells_per_split = _cell_splits(g, n, GB)
     part = torch.empty((n_split, K, g), dtype=torch.float32, device=dev)
     out = torch.empty((K, g), dtype=torch.float32, device=dev)
     fn = _build.entry("hxt")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(X.data_ptr(), _XTYPE[X.dtype], H.data_ptr(), g, n, K, GB,
-                n_split, cells_per_split, part.data_ptr(), out.data_ptr(),
-                stream)
+                n_split, cells_per_split, S, chunk,
+                hb.data_ptr() if hb is not None else None, part.data_ptr(),
+                out.data_ptr(), stream)
     _launched("hxt", rc)
     return out
 

@@ -12,7 +12,9 @@ Phases, each printing one JSON line:
           (ptxas -v); for fused_transform, registers, spill stores (none
           allowed) and FFMA count of each bucket of the register path; for
           x_passes (ALS's hxt and wtx), HMMA in the bf16 kernels and none in
-          the fp32 ones, registers and spill stores;
+          the fp32 ones, cp.async copies (LDGSTS) in hxt's bf16 kernels
+          (its ring; none there, or a spill store, fails), registers and
+          spill stores;
   kernel  each kernel against its plain PyTorch version on the card, at the
           bench shape (100k cells x 2,000 genes, K = 40, labels (2, 3), int8)
           and at small shapes over the other storage types, blocks and
@@ -26,8 +28,11 @@ Phases, each printing one JSON line:
           tiled path), each row naming its path; ALS's X passes hxt (P1,
           K = 40) and wtx (P2, k = 5 and 30) on int8 and once on float32 X
           at the bench shape, timed beside a bf16 (float32) torch.matmul
-          over a pre-cast copy of X, and at small edge shapes on every
-          storage type (1,001 cells, K = 1, 13 and 300);
+          over a pre-cast copy of X (one call, and 20 back to back, which
+          hides the host's time per call), the int8 hxt row with the grid it ran
+          (gene block, splits, ring stages, partial bytes), and at small
+          edge shapes on every storage type (17, 1,001 and 5,040 cells,
+          K = 1, 13, 40, 65, 300 and 512);
   stream_probe  the streaming probe's entry point (alpine_tpu_torch/
           probe.py) on int8 and float32 X at the bench shape: ms and GB/s
           read, the fold and column sums checked exactly against the plain
@@ -134,6 +139,27 @@ def time_ms(fn, reps):
     return float(np.median(times))
 
 
+def time_back_to_back_ms(fn, calls, reps=3):
+    """CUDA-event time of `calls` back-to-back calls over `calls`, the
+    median of `reps` (ms): the host enqueues ahead of the card, so its own
+    time per call is hidden where it is shorter than the card's."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return float(np.median(times))
+
+
 def compare(got, want, rtol, atol_scale):
     """Max abs error, and the worst error over its allowance
     (atol_scale * max|want| + rtol * |want|): passes when <= 1."""
@@ -223,18 +249,27 @@ def sass_check(_build, kernels):
             check(r["spill_stores"] == 0, f"{tag}: spill stores {r['spill_stores']}")
     xrows = []
     usage = ptxas_usage(_build.build_log("x_passes"))
-    for fn, count in sorted(sass_counts(_build, "x_passes", ("HMMA",)).items()):
-        m = re.search(r"(hxt_mma|hxt_fma|wtx_mma|wtx_fma)I(\w+?)E", fn)
+    for fn, count in sorted(sass_counts(_build, "x_passes", ("HMMA", "LDGSTS")).items()):
+        # <X type>, and hxt_mma's ring chunk
+        m = re.search(r"(hxt_mma|hxt_fma|wtx_mma|wtx_fma)I(\w+?)(?:Li(\d+)E)?E", fn)
         if m:
             u = usage.get(fn, {})
             xrows.append({"kernel": m.group(1), "x": X_CODES.get(m.group(2), m.group(2)),
-                          "hmma": count["HMMA"], "registers": u.get("registers"),
+                          "chunk": int(m.group(3)) if m.group(3) else None,
+                          "hmma": count["HMMA"], "ldgsts": count["LDGSTS"],
+                          "registers": u.get("registers"),
                           "spill_stores": u.get("spill_stores")})
     emit({"phase": "sass", "x_passes": xrows})
-    check(len(xrows) == 8, f"expected 8 x_passes kernels, found {len(xrows)}")
+    check(len(xrows) == 10, f"expected 10 x_passes kernels, found {len(xrows)}")
+    check(sorted(r["chunk"] for r in xrows if r["kernel"] == "hxt_mma")
+          == sorted(2 * kernels._HXT_CHUNKS), "hxt_mma's chunks differ from the wrapper's")
     for r in xrows:
+        tag = f"x_passes {r['kernel']} {r['x']}"
         check((r["hmma"] > 0) == r["kernel"].endswith("_mma"),
-              f"x_passes {r['kernel']} {r['x']}: HMMA count {r['hmma']}")
+              f"{tag}: HMMA count {r['hmma']}")
+        if r["kernel"] == "hxt_mma":  # P1's bf16 path: the cp.async ring
+            check(r["ldgsts"] > 0, f"{tag}: no cp.async (LDGSTS)")
+            check(r["spill_stores"] == 0, f"{tag}: spill stores {r['spill_stores']}")
     buckets = sorted(r["bucket"] for r in trows if r["bucket"])
     check(buckets == sorted(kernels._TRANSFORM_BUCKETS),
           f"fused_transform buckets {buckets} differ from the wrapper's")
@@ -521,6 +556,8 @@ def main():
                    else (lambda: torch.matmul(Pc.T, Xc)))
             row["library_ms"] = time_ms(lib, 5)
             row["library"] = f"torch.matmul, {str(cdt)[6:]} operands"
+            row["ms_back_to_back"] = time_back_to_back_ms(kern, 20)
+            row["library_ms_back_to_back"] = time_back_to_back_ms(lib, 20)
             del Xc, Pc
             side = 4 * K * n if kind == "hxt" else 4 * g * K  # H or W
             out = 4 * K * g if kind == "hxt" else 4 * K * n
@@ -529,6 +566,10 @@ def main():
             row["bf16_flop"], row["fp32_flop"] = (ops, 0.0) if bf16 else (0.0, ops)
             row["bound_ms"], row["bound_by"] = bound(row["bytes"], row["bf16_flop"],
                                                      row["fp32_flop"], card)
+            if kind == "hxt" and bf16:  # the grid the kernel ran
+                GB, n_split, cps, S, chunk = kernels.hxt_grid(g, n, K, X.dtype)
+                row.update(gene_block=GB, n_split=n_split, cells_per_split=cps,
+                           stages=S, chunk=chunk, partial_bytes=4 * n_split * K * g)
         emit(row)
         check(worst <= 1.0, f"{tag}: kernel disagrees with its plain version")
         return row
@@ -545,7 +586,8 @@ def main():
     del X, W, H
     torch.cuda.empty_cache()
     for xdt in (torch.int8, torch.bfloat16, torch.float32, torch.int16):
-        for K, n in ((1, 1001), (13, 1001), (300, 1001), (40, 5040)):
+        for K, n in ((1, 1001), (13, 1001), (300, 1001), (40, 5040), (65, 5040),
+                     (512, 5040), (40, 17)):
             X, W, H = x_pass_problem(300, n, K, xdt)
             run_x_pass_case("hxt", X, H, False)
             run_x_pass_case("wtx", X, W, False)

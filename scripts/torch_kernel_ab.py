@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the port's fused-iteration kernels of two checkouts on one GPU, in turns.
+"""Time the port's kernels and fit loops of two checkouts on one GPU, in turns.
 
     python3 scripts/torch_kernel_ab.py PARENT_DIR CHANGE_DIR
 
@@ -13,19 +13,28 @@ A run times, at the bench shape (100k cells x 2,000 genes, K = 40, labels
   CUDA-event ms of 20 warm launches;
 - the full-batch and the weighted_fast fused fit loops (``mu.fit_scan``,
   the latter with the port's balanced sampler): ms per iteration over 10
-  iterations, host clock around work that ends in a synchronize;
+  iterations, host clock around work that ends in a synchronize, the
+  median of three runs;
 - ``fused_transform`` (K3), 50 steps at the bench shape (num2 = 2WᵀX,
   WtW2 = 2WᵀW, H0 = H): median CUDA-event ms of 20 warm launches;
+- ALS's X passes: P1 ``hxt`` (K = 40) and P2 ``wtx`` (k = 5 and 30) on the
+  int8 X, median CUDA-event ms of 20 warm launches (P1 also over 20
+  launches in a row, ``hxt_back_to_back_ms``), and the ALS fit loop
+  (``mu.fit_scan`` with ``use_als``), ms per iteration over 20 iterations,
+  the median of three runs;
 - a digest of every output of K1, K4 and K2 with the same inputs held as
-  float32 and as int16 X (the fp32 FMA path), and of K3's output at the
-  bench shape and at K = 300, so the summary can say whether the two
-  checkouts give those paths the same bits.
+  float32 and as int16 X (the fp32 FMA path), of K3's output at the
+  bench shape and at K = 300, of ``hxt`` on float32 and int16 X and of
+  ``wtx`` (k = 5 and 30) on all four storage types, so the summary can say
+  whether the two checkouts give those paths the same bits.
 
 Prints one JSON line per run, then one summary line with the mean of each
 checkout's two runs, whether all four runs agree bit for bit on the
-float32/int16 outputs (``fp32_path_bits_equal``) and on K3's
-(``k3_bits_equal``), and the card's name and power limit.  Needs one
-NVIDIA GPU; exits non-zero without one.
+float32/int16 outputs of K1/K2/K4 (``fp32_path_bits_equal``), on K3's
+(``k3_bits_equal``), on ``hxt``'s float32/int16 outputs
+(``x_pass_fp32_bits_equal``) and on ``wtx``'s (``wtx_bits_equal``), and
+the card's name and power limit.  Needs one NVIDIA GPU; exits non-zero
+without one.
 """
 
 import hashlib
@@ -41,6 +50,8 @@ EPS = 1e-6
 REPS = 20
 TRANSFORM_ITERS = 50
 LOOP_ITERS = 10
+ALS_LOOP_ITERS = 20
+LOOP_REPEATS = 3  # timed runs of each loop; their median is reported
 
 
 def child(root):
@@ -82,6 +93,20 @@ def child(root):
             times.append(start.elapsed_time(end))
         return float(np.median(times))
 
+    def back_to_back_ms(fn, calls=20):
+        """CUDA-event ms a call over `calls` calls in a row, which hides the
+        host's own time per call where it is shorter than the card's."""
+        fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / calls
+
     C = torch.randint(0, 4, (2, N), generator=gen, device=dev).float()
     k1_k4_k2 = lambda X, Ys: (
         kernels.fused_iteration(X, W, H, WtW, Ys, Bs, lam, EPS, blocks=BLOCKS,
@@ -114,6 +139,19 @@ def child(root):
     k3_bits = {"K40": digest([[k3_bench()]]), "K300": digest([[k3_300()]])}
     del k3_300
     torch.cuda.empty_cache()
+    W5, W30 = W[:, :5].contiguous(), W[:, 10:].contiguous()
+    x_pass_bits, wtx_bits = {}, {}
+    for dt in (torch.float32, torch.int16, torch.bfloat16, torch.int8):
+        Xd = X.to(dt)
+        if dt in (torch.float32, torch.int16):
+            x_pass_bits[str(dt)[6:]] = digest([[kernels.hxt(Xd, H)]])
+        wtx_bits[str(dt)[6:]] = digest([[kernels.wtx(Xd, W5), kernels.wtx(Xd, W30)]])
+        del Xd
+    torch.cuda.empty_cache()
+    hxt_ms = time_ms(lambda: kernels.hxt(X, H))
+    hxt_b2b_ms = back_to_back_ms(lambda: kernels.hxt(X, H))
+    wtx5_ms = time_ms(lambda: kernels.wtx(X, W5))
+    wtx30_ms = time_ms(lambda: kernels.wtx(X, W30))
     k1 = time_ms(lambda: kernels.fused_iteration(
         X, W, H, WtW, Ys, Bs, lam, EPS, blocks=BLOCKS, loss_kl=True))
     k2 = time_ms(lambda: kernels.fused_h_update(X, W, H, WtW, EPS))
@@ -129,25 +167,33 @@ def child(root):
         loop_gen.manual_seed(t)
         return mu.grouped_balanced_counts(loop_gen, N, tables)
 
-    def loop_ms(weighted):
+    def loop_ms(weighted, als=False):
+        iters = ALS_LOOP_ITERS if als else LOOP_ITERS
         cfg = mu.MUConfig(blocks=BLOCKS, n_labels=N_LABELS, n_cells=N,
-                          max_iter=LOOP_ITERS, x_dtype="int8",
-                          weighted_counts=weighted)
+                          max_iter=iters, x_dtype="int8",
+                          weighted_counts=weighted, use_als=als)
         run = lambda: mu.fit_scan(cfg, W, H, Bs, X, Ys, hyper, draw_counts=draw_counts)
         run()
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) * 1e3 / LOOP_ITERS
+        times = []
+        for _ in range(LOOP_REPEATS):
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3 / iters)
+        return float(np.median(times))
 
     print(json.dumps({"root": root, "fused_iteration_ms": k1,
                       "fused_h_update_ms": k2,
                       "fused_iteration_counts_ms": k4,
                       "fused_transform_ms": k3_ms,
+                      "hxt_ms": hxt_ms, "hxt_back_to_back_ms": hxt_b2b_ms,
+                      "wtx_k5_ms": wtx5_ms, "wtx_k30_ms": wtx30_ms,
                       "fit_loop_ms_per_iteration": loop_ms(False),
                       "fit_loop_weighted_fast_ms_per_iteration": loop_ms(True),
-                      "fp32_path_bits": bits, "k3_bits": k3_bits}), flush=True)
+                      "fit_loop_als_ms_per_iteration": loop_ms(False, als=True),
+                      "fp32_path_bits": bits, "k3_bits": k3_bits,
+                      "x_pass_fp32_bits": x_pass_bits, "wtx_bits": wtx_bits}), flush=True)
 
 
 def main(argv):
@@ -173,15 +219,18 @@ def main(argv):
         print(line, flush=True)
         runs[root].append(json.loads(line))
     summary = {"card": smi.splitlines()[0], "order": "parent, change, change, parent"}
+    digests = (("fp32_path_bits", "fp32_path_bits_equal"),
+               ("k3_bits", "k3_bits_equal"),
+               ("x_pass_fp32_bits", "x_pass_fp32_bits_equal"),
+               ("wtx_bits", "wtx_bits_equal"))
     for label, root in (("parent", parent), ("change", change)):
         summary[label] = {k: sum(r[k] for r in runs[root]) / 2
                           for k in runs[root][0]
-                          if k not in ("root", "fp32_path_bits", "k3_bits")}
-    for key, out in (("fp32_path_bits", "fp32_path_bits_equal"),
-                     ("k3_bits", "k3_bits_equal")):
-        digests = {json.dumps(r[key], sort_keys=True)
-                   for rs in runs.values() for r in rs}
-        summary[out] = len(digests) == 1
+                          if k != "root" and k not in dict(digests)}
+    for key, out in digests:
+        seen = {json.dumps(r[key], sort_keys=True)
+                for rs in runs.values() for r in rs}
+        summary[out] = len(seen) == 1
     print(json.dumps(summary), flush=True)
     return 0
 

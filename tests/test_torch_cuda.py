@@ -323,12 +323,15 @@ def _x_pass_problem(seed, g, n, K, dtype, dev):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("K,n", [(1, 1001), (13, 1024), (40, 1000), (40, 1024),
-                                 (300, 777), (300, 1040)])
+                                 (300, 777), (300, 1040), (64, 1024), (65, 1040),
+                                 (512, 1024), (40, 17), (512, 17)])
 def test_x_passes_cuda_match_plain(cuda, dtype, K, n):
     """P1 (hxt) and P2 (wtx) against their plain versions: K = 1, K not a
-    multiple of 16, K = 300 (two passes on the tensor-core path); 70 genes
-    and 1000, 1001 or 777 cells fill no block or tile, 1024 and 1040 cells
-    take the 16-byte staging, and the same values off 16-byte alignment the
+    multiple of 16, K = 64 and 65 (hxt's widest gene block and the next),
+    K = 300 and 512 (two passes of wtx's tensor-core path; hxt's narrowest
+    gene block, one block an SM); 70 genes and 1000, 1001, 777 or 17 cells
+    fill no block or tile, 1024 and 1040 cells take the 16-byte staging
+    (hxt: the cp.async ring), and the same values off 16-byte alignment the
     element-by-element staging, with the same bits."""
     X, W, H = _x_pass_problem(K + n, 70, n, K, dtype, cuda)
     before = dict(kernels.launches)
@@ -345,12 +348,24 @@ def test_x_passes_cuda_match_plain(cuda, dtype, K, n):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["int8", "float32"])
-def test_hxt_cuda_same_bits(cuda, dtype):
+@pytest.mark.parametrize("dtype", ["int8", "bfloat16", "float32"])
+@pytest.mark.parametrize("n", [50_000, 50_001, 50_016])
+def test_hxt_cuda_same_bits(cuda, dtype, n):
     """Two launches of P1 give the same bits (fixed-order partial sums) at a
-    width that splits the cells over many blocks."""
-    X, _, H = _x_pass_problem(5, 300, 50_000, 40, dtype, cuda)
-    assert torch.equal(kernels.hxt(X, H), kernels.hxt(X, H))
+    width that splits the cells over many blocks, the last split ragged;
+    50,001 cells take the element-by-element staging, 50,000 and 50,016 the
+    cp.async ring, and on the bf16 path the same values off 16-byte
+    alignment give the same bits too.  The result matches the plain
+    version."""
+    X, _, H = _x_pass_problem(5, 300, n, 40, dtype, cuda)
+    if dtype != "float32":
+        GB, n_split, cps, _, _ = kernels.hxt_grid(300, n, 40, X.dtype)
+        assert n_split > 1 and n % cps != 0  # the last split is ragged
+    got = kernels.hxt(X, H)
+    assert torch.equal(got, kernels.hxt(X, H))
+    if dtype != "float32":
+        assert torch.equal(got, kernels.hxt(_unaligned(X), _unaligned(H)))
+    _close(got, kernels.hxt_plain(X, H), 1e-4, 1e-5)
 
 
 @pytest.mark.cuda

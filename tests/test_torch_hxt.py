@@ -1,0 +1,138 @@
+"""The grid rule of P1 ``hxt``'s bf16 path (``kernels.hxt_grid``) on the CPU.
+
+The CUDA kernel (csrc/x_passes.cu: hxt_mma) runs only on the card; these
+tests hold what it is given: every gene and cell covered once, splits that
+are multiples of the ring's chunk, shared memory within a Hopper block's
+limit for every K, and the sum of per-split partials in split order over
+that grid equal to ``hxt_plain`` (rtol 1e-5: fp32 sums of positive terms in
+another order).  The float32/int16 path and K1 keep ``_cell_splits``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from alpine_tpu_torch.ops import kernels
+from alpine_tpu_torch.ops.mu import round_partner
+
+MMA = {"int8": torch.int8, "bfloat16": torch.bfloat16}
+KS = (1, 13, 40, 64, 65, 300, 512)
+
+
+def _grid_ranges(g, n, K, dtype):
+    GB, n_split, cps, S, chunk = kernels.hxt_grid(g, n, K, dtype)
+    genes = [(g0, min(g, g0 + GB)) for g0 in range(0, g, GB)]
+    cells = [(s * cps, min(n, (s + 1) * cps)) for s in range(n_split)]
+    return GB, n_split, cps, S, chunk, genes, cells
+
+
+@pytest.mark.parametrize("dtype", list(MMA))
+@pytest.mark.parametrize("g,n", [(2000, 100_000), (70, 17), (300, 50_001),
+                                 (300, 50_016), (20_000, 1001), (1, 64)])
+@pytest.mark.parametrize("K", KS)
+def test_hxt_grid_covers_each_gene_and_cell_once(dtype, g, n, K):
+    GB, n_split, cps, S, chunk, genes, cells = _grid_ranges(g, n, K, MMA[dtype])
+    assert chunk in kernels._HXT_CHUNKS and cps % chunk == 0 and GB % 16 == 0
+    assert 2 <= S <= 8
+    seen_g = np.zeros(g, np.int64)
+    for a, b in genes:
+        seen_g[a:b] += 1
+    seen_c = np.zeros(n, np.int64)
+    for a, b in cells:
+        assert a < b  # no empty split
+        seen_c[a:b] += 1
+    assert (seen_g == 1).all() and (seen_c == 1).all()
+
+
+@pytest.mark.parametrize("dtype", list(MMA))
+def test_hxt_grid_fits_shared_memory_and_fragments(dtype):
+    """For every K the kernels take: one pass of at most 4 fragments a warp
+    (X read once), shared memory within a Hopper block's limit, two blocks
+    an SM up to the K where three stages no longer fit half an SM, and the
+    blocks of a wide grid within one wave on 132 SMs."""
+    xdt = MMA[dtype]
+    two_per_sm = []
+    for K in range(1, 513):
+        GB, n_split, cps, S, chunk = kernels.hxt_grid(2000, 100_000, K, xdt)
+        frags = (kernels._pad16(K) // 16) * (GB // 16)
+        assert frags <= 32 and 8 % (GB // 16) == 0
+        smem = kernels.hxt_smem_bytes(K, GB, S, xdt, chunk)
+        assert smem <= kernels._MAX_SMEM
+        per_sm = 2 if smem <= kernels._SM_SMEM // 2 - 1024 else 1
+        two_per_sm.append(per_sm == 2)
+        # the most stages that fit: one more would pass the budget or 8
+        budget = min(kernels._MAX_SMEM, kernels._SM_SMEM // per_sm - 1024)
+        assert S == 8 or kernels.hxt_smem_bytes(K, GB, S + 1, xdt, chunk) > budget
+        if chunk != 128:  # the wider chunk does not fit the same budget
+            assert kernels.hxt_smem_bytes(K, GB, 2, xdt, 128) > budget
+        assert -(-2000 // GB) * n_split <= max(-(-2000 // GB), 132 * per_sm)
+    # two blocks an SM from K = 1 up to some K, one above it
+    first_one = two_per_sm.index(False)
+    assert first_one > 64 and not any(two_per_sm[first_one:])
+
+
+def test_hxt_grid_at_the_bench_shape():
+    """100k cells x 2,000 genes, K = 40: 128 genes a block (16 gene blocks),
+    16 splits of 49 chunks of 128 cells, one wave of 256 blocks at two an
+    SM; int8 X fits three ring stages, bf16 X two."""
+    assert kernels.hxt_grid(2000, 100_000, 40, torch.int8) == (128, 16, 6272, 3, 128)
+    assert kernels.hxt_grid(2000, 100_000, 40, torch.bfloat16) == (128, 16, 6272, 2, 128)
+    # the widest block whose Kp x GB outputs fit 32 fragments
+    assert [kernels.hxt_grid(2000, 100_000, K, torch.int8)[0]
+            for K in (64, 65, 128, 129, 256, 257, 512)] == [128, 64, 64, 32, 32, 16, 16]
+
+
+def test_cell_splits_keep_the_fp32_and_k1_grid():
+    """_cell_splits, which K1 (fused_iteration's X Hnᵀ pass) and hxt's
+    float32/int16 path use, keeps its grid at the bench shape."""
+    for xdt in (torch.int8, torch.float32):
+        assert kernels.iteration_tile_width(40, xdt) == 64
+    assert kernels._cell_splits(2000, 100_000, 64) == (131, 768)
+    assert kernels._cell_splits(300, 50_000, 64) == (782, 64)
+
+
+def test_hxt_grid_rejects_what_the_kernel_does_not_take():
+    for xdt in (torch.float32, torch.int16):
+        with pytest.raises(ValueError, match="int8 and bf16"):
+            kernels.hxt_grid(100, 100, 8, xdt)
+    for K in (0, 513):
+        with pytest.raises(ValueError):
+            kernels.hxt_grid(100, 100, K, torch.int8)
+
+
+def _emulate_hxt(X, H, K):
+    """hxt_mma's arithmetic in PyTorch over hxt_grid's grid: each (gene
+    block, split) sums H rounded to bf16 times X over its cells, chunk by
+    chunk, into its partial; the partials are added in split order."""
+    g, n = X.shape
+    GB, n_split, cps, _, chunk = kernels.hxt_grid(g, n, K, X.dtype)
+    Hb, Xf = round_partner(H, X.dtype), X.float()
+    part = torch.zeros((n_split, K, g), dtype=torch.float32)
+    for s in range(n_split):
+        for c0 in range(s * cps, min(n, (s + 1) * cps), chunk):
+            c1 = min(n, c0 + chunk)
+            for g0 in range(0, g, GB):
+                g1 = min(g, g0 + GB)
+                part[s, :, g0:g1] += Hb[:, c0:c1] @ Xf[g0:g1, c0:c1].T
+    out = torch.zeros((K, g), dtype=torch.float32)
+    for s in range(n_split):
+        out += part[s]
+    return out
+
+
+@pytest.mark.parametrize("dtype", list(MMA))
+@pytest.mark.parametrize("n", [17, 1001, 5040])
+@pytest.mark.parametrize("K", KS)
+def test_hxt_grid_emulation_matches_plain(dtype, n, K):
+    r = np.random.default_rng(K * 7 + n)
+    g = 150  # two gene blocks at GB = 128, ragged
+    if dtype == "int8":
+        X = torch.from_numpy(r.poisson(3.0, (g, n)).clip(0, 127).astype(np.int8))
+    else:
+        X = torch.from_numpy(r.random((g, n), dtype=np.float32)).to(torch.bfloat16)
+    H = torch.from_numpy(r.random((K, n), dtype=np.float32) + 0.1)
+    want = kernels.hxt_plain(X, H)
+    got = _emulate_hxt(X, H, K)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5, atol=0)
+    # the CPU wrapper is the plain version
+    assert torch.equal(kernels.hxt(X, H), want)
