@@ -12,9 +12,7 @@
 // writes the k x n outputs of wtx (2-12 MB at k = 5-30).  The products are
 // 16 GFLOP or less, far below the bf16 tensor-core roof.
 //
-// Design (the joint fit's fused_iteration.cu holds the same two products
-// inside K1, whose code is left as it is, so the device helpers below are
-// copies of its own):
+// Design:
 //  * hxt: a grid of (gene block of GB genes) x (cell split).  A block sums
 //    its K x GB outputs over its split's cells and writes one partial;
 //    reduce_splits adds the partials in a fixed order (no float atomics), so
@@ -26,183 +24,41 @@
 //    unit in one exact bf16 pass.  K is padded with zero rows to
 //    Kp = pad16(K); the ragged cells and genes are zeroed.  Products are
 //    exact and sums fp32: the plain version's result up to summation order.
-//  * hxt's bf16 path: round_h first rounds H to bf16 once a call (Hb,
-//    padded with zero cells to a multiple of the ring's chunk), then hxt_mma
-//    streams raw X and Hb chunks through a ring of S shared-memory stages
-//    filled by cp.async and multiplies straight from the ring with mma.sync
-//    (int8 widened in registers).  GB is as wide as one pass of 4 fragments
-//    a warp allows (128 genes at K <= 64), and the grid is one wave of long
-//    cell splits (ops/kernels.py:hxt_grid), so few partials are written.
-//    What holds it back is latency, not bytes: two blocks of 8 warps an SM,
-//    a dependent chain of shared loads and products a warp (PERF.md).
-//  * wtx stages X and W in shared memory as bf16 and multiplies through the
-//    WMMA API (m16n16k16); warp w holds accumulator fragments w and w + 8 of
-//    a pass (16 fragments), and a larger output takes more passes over X.
-//    X and W move in 16-byte loads where their rows are 16-byte aligned,
-//    else element by element, into the same bf16 values; so does X in
-//    hxt_mma (cp.async or element by element).
+//  * Both bf16 paths share one design: a pre-pass rounds the small operand
+//    to bf16 once a call (round_h: Hb; round_w: Wb, W transposed), then the
+//    kernel streams raw X chunks (as stored) and the rounded operand's
+//    chunks through a ring of S shared-memory stages filled by cp.async and
+//    multiplies straight from the ring with mma.sync m16n8k16, int8 widened
+//    in registers.  Each grid is about one wave at two blocks an SM
+//    (ops/kernels.py: hxt_grid, wtx_grid).  X rows off 16-byte alignment
+//    are staged element by element into the same ring slots, so the bits do
+//    not depend on X's alignment.
+//  * hxt_mma reduces over cells, X's contiguous axis: a lane reads 8 cells
+//    of a gene row and feeds them to the k slots of two k16 steps.  GB is
+//    as wide as one pass of 4 fragments a warp allows (128 genes at
+//    K <= 64), so few partials are written.  What holds it back is latency,
+//    not bytes: two blocks of 8 warps an SM, a dependent chain of shared
+//    loads and products a warp (PERF.md).
+//  * wtx_mma reduces over genes, X's strided axis, so its B operand (genes x
+//    cells) lies in the ring as the transpose of what mma.sync takes:
+//    ldmatrix.trans reads it (int8: as b16 pairs of cells, split by a byte
+//    permute into even and odd cells).  All of K is one pass over X: the
+//    warps split the Kp x T outputs into fragment rows and 16-cell groups
+//    under kWtxAcc accumulators a thread.
 //  * float32 and int16 X use fp32 FMA with both operands in shared memory
 //    (true fp32 under matmul_precision="highest": no TF32), outputs in
 //    kMaxOut registers a thread.
 #include "common.cuh"
 
-#include <mma.h>
-
 #include <type_traits>
 
 namespace alpine {
 
-using namespace nvcuda;
-
 constexpr int kCellChunk = 32;      // hxt: cells a split holds a multiple of; fp32 step
 constexpr int kGeneChunk = 16;      // wtx fp32 path: genes a step
-constexpr int kMmaGeneChunk = 32;   // wtx bf16 path: genes a staged chunk
-constexpr int kMmaFrags = 2;        // accumulator fragments a warp holds in a pass
-constexpr int kPassFrags = kWarps * kMmaFrags;
-constexpr int kMaxWtxTile = 256;    // wtx bf16 path: the widest cell tile
-using FragAcc = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
+constexpr int kWtxAcc = 48;         // wtx bf16 path: accumulators a thread
 
 __host__ __device__ inline int pad16(int v) { return (v + 15) / 16 * 16; }
-
-// ---- device helpers (copies of fused_iteration.cu's) ----------------------
-
-// dst[i * ld + j] = bf16(value(i, j)) for i < rows, j < cols: thread t takes
-// the elements t, t + kThreads, ... of the row-major block, eight loads in
-// flight before their stores.
-template <typename F>
-__device__ __forceinline__ void stage_bf16(__nv_bfloat16* dst, int ld, int rows,
-                                           int cols, F value) {
-  const int t0 = threadIdx.x, di = kThreads / cols, dj = kThreads - di * cols;
-  int i = t0 / cols, j = t0 - i * cols;
-  while (i < rows) {
-    float v[8];
-    int at[8];
-#pragma unroll
-    for (int r = 0; r < 8; ++r) {
-      at[r] = -1;
-      if (i < rows) {
-        v[r] = value(i, j);
-        at[r] = i * ld + j;
-      }
-      i += di;
-      j += dj;
-      if (j >= cols) {
-        j -= cols;
-        ++i;
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < 8; ++r)
-      if (at[r] >= 0) dst[at[r]] = __float2bfloat16_rn(v[r]);
-  }
-}
-
-// 16 loaded bytes of T (the pointer only picks the type) widened to floats.
-__device__ __forceinline__ void widen16(uint4 u, const int8_t*, float* f) {
-  const unsigned w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-  for (int q = 0; q < 16; ++q) f[q] = (float)(int8_t)(w[q >> 2] >> (8 * (q & 3)));
-}
-__device__ __forceinline__ void widen16(uint4 u, const __nv_bfloat16*, float* f) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    const float2 v = __bfloat1622float2(h[q]);
-    f[2 * q] = v.x;
-    f[2 * q + 1] = v.y;
-  }
-}
-
-// One 16-byte vector (V = 16 / sizeof(T) values) of a rows x cols block on
-// its way to shared memory as bf16: element (i, j) is src[i * stride + j],
-// zero where i >= rv or j >= cv.  load() issues the read and store() widens,
-// rounds and writes, so that other loads can be issued in between.  The
-// caller has checked that every row's vectors are 16-byte aligned, so the
-// valid width cv of a block that starts at a multiple of V is a multiple of
-// V: a vector is valid or zero as a whole.
-template <typename T>
-struct VecSlot {
-  static constexpr int V = 16 / sizeof(T);
-  uint4 raw;
-  int i, j;
-  bool live, full;
-
-  __device__ __forceinline__ void load(int q, int vpr, int rows, const T* src,
-                                       size_t stride, int rv, int cv) {
-    i = q / vpr;
-    j = (q - i * vpr) * V;
-    live = i < rows;
-    full = live && i < rv && j < cv;
-    if (full) raw = __ldg(reinterpret_cast<const uint4*>(src + i * stride + j));
-  }
-
-  __device__ __forceinline__ void store(__nv_bfloat16* dst, int ld) const {
-    if (!live) return;
-    float f[V];
-    if (full) {
-      widen16(raw, static_cast<const T*>(nullptr), f);
-    } else {
-#pragma unroll
-      for (int u = 0; u < V; ++u) f[u] = 0.f;
-    }
-    __nv_bfloat162 p[V / 2];
-#pragma unroll
-    for (int u = 0; u < V / 2; ++u) p[u] = __floats2bfloat162_rn(f[2 * u], f[2 * u + 1]);
-    __nv_bfloat16* d = dst + i * ld + j;
-#pragma unroll
-    for (int w = 0; w < V / 8; ++w)
-      reinterpret_cast<uint4*>(d)[w] = reinterpret_cast<const uint4*>(p)[w];
-  }
-};
-
-// Vectors of T each thread stages for a rows x cols block.
-template <typename T>
-__host__ __device__ constexpr int vec_slots(int rows, int cols) {
-  return (rows * cols / VecSlot<T>::V + kThreads - 1) / kThreads;
-}
-
-// Rows g0 .. g0 + rows - 1 of W (g x K, fp32) into the bf16 rows of sWb
-// (stride LW).  They are one contiguous run of rows * K floats, starting
-// 16-byte aligned when W is (g0 is a multiple of kMmaGeneChunk), so a thread
-// reads 16 bytes a load whatever K is.  Columns K.. and rows past g are left
-// as they are: the caller zeroes sWb once, and rows past g meet zero rows
-// of X.
-__device__ __forceinline__ void stage_w_run(__nv_bfloat16* sWb, int LW,
-                                            const float* W, int g0, int rows,
-                                            int K) {
-  const float* src = W + (size_t)g0 * K;
-  const int nw = rows * K;
-  for (int e0 = threadIdx.x * 4; e0 < nw; e0 += 2 * 4 * kThreads) {
-    float4 v[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int e = e0 + r * 4 * kThreads;
-      if (e + 4 <= nw) {
-        v[r] = __ldg(reinterpret_cast<const float4*>(src + e));
-      } else if (e < nw) {  // the run's last, partial vector
-        v[r].x = src[e];
-        v[r].y = e + 1 < nw ? src[e + 1] : 0.f;
-        v[r].z = e + 2 < nw ? src[e + 2] : 0.f;
-        v[r].w = 0.f;
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int e = e0 + r * 4 * kThreads;
-      if (e >= nw) break;
-      int gg = e / K, k = e - gg * K;
-      const float f[4] = {v[r].x, v[r].y, v[r].z, v[r].w};
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        if (e + u < nw) sWb[gg * LW + k] = __float2bfloat16_rn(f[u]);
-        if (++k == K) {
-          k = 0;
-          ++gg;
-        }
-      }
-    }
-  }
-}
 
 // True when every row of a (rows, n) array of T at p starts 16-byte aligned.
 template <typename T>
@@ -609,97 +465,268 @@ static int launch_hxt(const void* X, const float* H, int g, int n, int K, int GB
 
 // ---- wtx -----------------------------------------------------------------
 
-// Shared memory of wtx's bf16 path: W (kMmaGeneChunk x (Kp + 8)) and X
-// (kMmaGeneChunk x (T + 8)) chunks as bf16, then the Kp x (T + 4) fp32
-// output tile.
-__host__ __device__ inline size_t wtx_mma_smem_bytes(int K, int T) {
-  return (size_t)kMmaGeneChunk * (pad16(K) + 8 + T + 8) * 2 + (size_t)pad16(K) * (T + 4) * 4;
+// ldmatrix: four 8 x 8 matrices of b16 from shared memory into r[0..3]; lane
+// i gives the address of row i % 8 of matrix i / 8 (16 bytes).  Lane l gets
+// row l / 4, elements 2 (l % 4) and 2 (l % 4) + 1 of each matrix, or with
+// .trans column l / 4, rows 2 (l % 4) and 2 (l % 4) + 1.
+__device__ __forceinline__ void ldsm_x4(unsigned* r, const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
 }
 
-// out[k][c] = sum over genes gi of W[gi][k] X[gi][c] for the T cells of this
-// block's tile, on the tensor cores.
-template <typename XT>
+__device__ __forceinline__ void ldsm_x4_trans(unsigned* r, const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+// Bytes 0 and 2 of v, int8 values, widened exactly to one bf16x2 register:
+// a byte b gives the bf16 bits 0x4300 | (b & 0x7f), the value
+// 128 + (b & 0x7f), and 0x4300 | (b & 0x80), 128 or 256; their difference
+// is b as a signed value, exact in bf16.
+__device__ __forceinline__ unsigned widen_i8_halves(unsigned v) {
+  const unsigned m = (v & 0x007F007Fu) | 0x43004300u, s = (v & 0x00800080u) | 0x43004300u;
+  unsigned d;
+  asm("sub.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(m), "r"(s));
+  return d;
+}
+
+// A register of int8 X from ldmatrix.trans over b16 pairs of cells: bytes
+// x(k, c), x(k, c + 1), x(k + 1, c), x(k + 1, c + 1) for genes k, k + 1 and
+// cells c, c + 1.  Widened into the bf16x2 B registers of cell c,
+// {x(k, c), x(k + 1, c)}, and of cell c + 1.
+__device__ __forceinline__ void widen_cell_pairs(unsigned r, unsigned& even, unsigned& odd) {
+  even = widen_i8_halves(r);
+  odd = widen_i8_halves(r >> 8);
+}
+
+// Bytes of a staged row of `data` bytes (a multiple of 16) that ldmatrix
+// reads 8 rows at a time: rows start an odd multiple of 16 bytes apart
+// modulo 128, so the 8 rows of a matrix fall in distinct banks.
+__host__ __device__ constexpr int ldsm_row_bytes(int data) {
+  return data / 16 % 2 ? data : data + 16;
+}
+
+// Shared memory of wtx's bf16 path: a ring of S stages, each a chunk of GC
+// genes (32 or 64) of Wb (Kp rows) and of X's rows (T cells as stored).
+// ops/kernels.py:wtx_smem_bytes holds the same formula.
+__host__ __device__ inline size_t wtx_mma_smem_bytes(int K, int T, int S, int GC, bool int8) {
+  return (size_t)S * ((size_t)pad16(K) * ldsm_row_bytes(2 * GC) +
+                      (size_t)GC * ldsm_row_bytes(int8 ? T : 2 * T));
+}
+
+// Wb[k][gi] = bf16(W[gi][k]) for k < K and gi < g, 0 elsewhere in its
+// Kp x g_pad: W transposed and rounded once a call (wtx_mma reads it as it
+// is, so rows past K and genes past g multiply as zeros).  One thread an
+// 8-gene vector of a row.
+__global__ void __launch_bounds__(kThreads)
+round_w(const float* __restrict__ W, int g, int K, int Kp, int g_pad,
+        __nv_bfloat16* __restrict__ Wb) {
+  const int vpr = g_pad / 8;
+  const size_t q = (size_t)blockIdx.x * kThreads + threadIdx.x;
+  if (q >= (size_t)Kp * vpr) return;
+  const int k = (int)(q / vpr), g0 = (int)(q - (size_t)k * vpr) * 8;
+  float v[8];
+#pragma unroll
+  for (int u = 0; u < 8; ++u)
+    v[u] = (k < K && g0 + u < g) ? __ldg(W + (size_t)(g0 + u) * K + k) : 0.f;
+  __nv_bfloat16 r[8];
+#pragma unroll
+  for (int u = 0; u < 8; ++u) r[u] = __float2bfloat16_rn(v[u]);
+  *reinterpret_cast<uint4*>(Wb + (size_t)k * g_pad + g0) = *reinterpret_cast<const uint4*>(r);
+}
+
+// out[k][c] = sum over genes gi of Wb[k][gi] X[gi][c] for the T cells of
+// this block's tile, on the tensor cores, in one pass over X.
+//
+// The genes flow in chunks of GC (32 or 64) through a ring of S stages
+// filled by cp.async (the chunk's Kp rows of Wb and its X rows as stored),
+// S - 1 chunks ahead of the one being multiplied, one barrier a chunk.  The
+// 8 warps are WR rows x (8 / WR) columns: warp (wr, wc) holds the 16-row
+// fragments wr, wr + WR, ... of the output (at most MF) over NT groups of
+// 16 cells, and multiplies straight from the ring with mma.sync m16n8k16:
+// A (Wb) by ldmatrix, B (X, gene-major: the transpose of the .col operand
+// mma.sync takes) by ldmatrix.trans.  bf16 X: one x4.trans gives both
+// 8-cell tiles of a group for one k16 step.  int8 X: one x4.trans reads
+// adjacent cells as one b16 element, 32 genes x 16 cells, and
+// widen_cell_pairs splits each register into the operands of the even and
+// of the odd cells, so n-tile 0 holds cells 2j and n-tile 1 cells 2j + 1 of
+// the group; the epilogue puts them back in order.  Genes run in the same
+// order on every path (chunks, then k16 steps, 16 genes a product), and X
+// rows off 16-byte alignment are staged element by element into the same
+// ring slots, so the bits do not depend on X's alignment.
+template <typename XT, int NT>
 __global__ void __launch_bounds__(kThreads, 2)
-wtx_mma(const XT* __restrict__ X, const float* __restrict__ W, int g, int n,
-        int K, int T, float* __restrict__ out) {
-  extern __shared__ __align__(128) float sm[];
-  constexpr int GC = kMmaGeneChunk;
-  const int tid = threadIdx.x, warp = tid / 32;
-  const int Kp = pad16(K), LW = Kp + 8, LX = T + 8, LO = T + 4;
-  __nv_bfloat16* sWb = reinterpret_cast<__nv_bfloat16*>(sm);  // GC x LW (gene-major W)
-  __nv_bfloat16* sXb = sWb + GC * LW;                          // GC x LX
-  float* sOut = reinterpret_cast<float*>(sXb + GC * LX);       // Kp x LO
-  const int c0 = blockIdx.x * T, nv = min(T, n - c0);
-  const int tcols = T / 16, n_frag = (Kp / 16) * tcols;
+wtx_mma(const XT* __restrict__ X, const __nv_bfloat16* __restrict__ Wb, int g, int n,
+        int g_pad, int K, int T, int WR, int GC, int S, float* __restrict__ out) {
+  constexpr bool kInt8 = sizeof(XT) == 1;
+  constexpr int V = 16 / sizeof(XT);        // values of a 16-byte copy
+  constexpr int MF = kWtxAcc / (8 * NT);    // fragment rows a warp holds
+  // X's values as raw bits, for the element-by-element staging
+  using Raw = typename std::conditional<kInt8, uint8_t, uint16_t>::type;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int c0 = blockIdx.x * T;
+  const int Kp = pad16(K), RF = Kp / 16;
+  const int WB = ldsm_row_bytes(2 * GC), XR = ldsm_row_bytes(T * (int)sizeof(XT));
+  const int wv_shift = GC == 64 ? 3 : 2;  // log2 of Wb's 16-byte copies a row
+  const int w_bytes = Kp * WB, stage_bytes = w_bytes + GC * XR;
+  const int n_chunks = g_pad / GC, xv = T / V;  // xv: 16-byte copies an X row
   const bool xvec = rows_aligned16(X, n);
-  const bool wvec = (reinterpret_cast<uintptr_t>(W) & 15) == 0;
-  // W's padding columns (and, with wvec, the rows past g) stay zero
-  for (int j = tid; j < GC * LW; j += kThreads) sWb[j] = __float2bfloat16_rn(0.f);
-  // a pass holds whole fragment rows (16 is a multiple of tcols)
-  for (int f0 = 0; f0 < n_frag; f0 += kPassFrags) {
-    FragAcc fr[kMmaFrags];
-#pragma unroll
-    for (int i = 0; i < kMmaFrags; ++i) wmma::fill_fragment(fr[i], 0.f);
-    for (int gb = 0; gb < g; gb += GC) {
-      const int rows = min(GC, g - gb);
-      __syncthreads();
-      // X's vectors are read first, so that their latency overlaps W's
-      constexpr int kSlots = vec_slots<XT>(GC, kMaxWtxTile);
-      VecSlot<XT> xs[kSlots];
-      const XT* xsrc = X + (size_t)gb * n + c0;
-      const int xvpr = T / VecSlot<XT>::V;
+  // this thread's first X copy (row, vector) and the step to its next one
+  const int xg0 = tid / xv, xj0 = tid - xg0 * xv, dg = kThreads / xv, dj = kThreads % xv;
+
+  // chunk c's copies into stage st; one group committed, empty past g
+  auto issue = [&](int c, int st) {
+    if (c < n_chunks) {
+      const int g0 = c * GC;
+      unsigned char* w = smem + st * stage_bytes;
+      for (int q = tid; q < Kp << wv_shift; q += kThreads) {
+        const int k = q >> wv_shift, j = (q - (k << wv_shift)) * 8;
+        cp_async16(w + k * WB + j * 2, Wb + (size_t)k * g_pad + g0 + j, true);
+      }
+      unsigned char* x = w + w_bytes;
       if (xvec) {
+        for (int gg = xg0, jv = xj0; gg < GC;) {
+          const int j = jv * V;
+          // n is a multiple of V here: a vector is valid or zero as a whole
+          const bool ok = g0 + gg < g && c0 + j < n;
+          cp_async16(x + gg * XR + j * (int)sizeof(XT),
+                     ok ? X + (size_t)(g0 + gg) * n + c0 + j : X, ok);
+          gg += dg, jv += dj;
+          if (jv >= xv) jv -= xv, ++gg;
+        }
+      } else {  // the same values, element by element, eight loads in flight
+        const Raw* src = reinterpret_cast<const Raw*>(X);
+        for (int e0 = tid; e0 < GC * T; e0 += 8 * kThreads) {
+          Raw v[8];
 #pragma unroll
-        for (int s = 0; s < kSlots; ++s)
-          xs[s].load(tid + s * kThreads, xvpr, GC, xsrc, n, rows, nv);
-      } else {
-        stage_bf16(sXb, LX, GC, T, [&](int gg, int t) {
-          return (gg < rows && t < nv) ? to_f(X[(size_t)(gb + gg) * n + c0 + t]) : 0.f;
-        });
-      }
-      if (wvec) {
-        stage_w_run(sWb, LW, W, gb, rows, K);
-      } else {
-        stage_bf16(sWb, LW, GC, Kp, [&](int gg, int k) {
-          return (gg < rows && k < K) ? W[(size_t)(gb + gg) * K + k] : 0.f;
-        });
-      }
-      if (xvec) {
+          for (int u = 0; u < 8; ++u) {
+            const int e = e0 + u * kThreads, gg = e / T, t = e % T;
+            v[u] = (e < GC * T && g0 + gg < g && c0 + t < n)
+                       ? src[(size_t)(g0 + gg) * n + c0 + t] : Raw(0);
+          }
 #pragma unroll
-        for (int s = 0; s < kSlots; ++s) xs[s].store(sXb, LX);
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < GC; kk += 16) {
-#pragma unroll
-        for (int i = 0; i < kMmaFrags; ++i) {
-          const int f = f0 + warp + i * kWarps;
-          if (f < n_frag) {  // warp-uniform
-            const int r = f / tcols, c = f - r * tcols;
-            wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::col_major> a;
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b;
-            wmma::load_matrix_sync(a, sWb + kk * LW + r * 16, LW);
-            wmma::load_matrix_sync(b, sXb + kk * LX + c * 16, LX);
-            wmma::mma_sync(fr[i], a, b, fr[i]);
+          for (int u = 0; u < 8; ++u) {
+            const int e = e0 + u * kThreads;
+            if (e < GC * T) reinterpret_cast<Raw*>(x + e / T * XR)[e % T] = v[u];
           }
         }
       }
     }
+    cp_async_commit();
+  };
+
+  const int WC = kWarps / WR, wr = warp / WC;
+  const int cw = (warp % WC) * NT * 16;  // the warp's first cell in the tile
+  float acc[MF][NT][2][4];
 #pragma unroll
-    for (int i = 0; i < kMmaFrags; ++i) {
-      const int f = f0 + warp + i * kWarps;
-      if (f < n_frag) {
-        const int r = f / tcols, c = f - r * tcols;
-        wmma::store_matrix_sync(sOut + r * 16 * LO + c * 16, fr[i], LO, wmma::mem_row_major);
+  for (int f = 0; f < MF; ++f)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[f][nt][h][i] = 0.f;
+  for (int c = 0; c < S - 1; ++c) issue(c, c);
+  int st = 0;  // stage of chunk c
+  for (int c = 0; c < n_chunks; ++c) {
+    cp_async_wait(S - 2);  // chunk c (this thread's copies)
+    // chunk c has landed; every warp is done with chunk c - 1, whose stage
+    // the next copies refill
+    __syncthreads();
+    issue(c + S - 1, st == 0 ? S - 1 : st - 1);
+    const unsigned char* w = smem + st * stage_bytes;
+    const unsigned char* x = w + w_bytes;
+#pragma unroll 1
+    for (int g32 = 0; g32 < GC; g32 += 32) {  // 32 genes: two k16 steps
+      unsigned b[NT][2][2][2];  // [group][k16 step][n-tile][b0, b1]
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        if constexpr (kInt8) {
+          unsigned r[4];  // genes 8m .. 8m + 7 in r[m]
+          ldsm_x4_trans(r, x + (g32 + lane) * XR + cw + nt * 16);
+#pragma unroll
+          for (int ks = 0; ks < 2; ++ks)
+#pragma unroll
+            for (int q = 0; q < 2; ++q)
+              widen_cell_pairs(r[2 * ks + q], b[nt][ks][0][q], b[nt][ks][1][q]);
+        } else {
+#pragma unroll
+          for (int ks = 0; ks < 2; ++ks) {
+            unsigned r[4];  // (genes 0-7, 8-15) x (cells 0-7), then cells 8-15
+            ldsm_x4_trans(r, x + (g32 + ks * 16 + (lane & 15)) * XR +
+                                 (cw + nt * 16 + (lane >> 4) * 8) * 2);
+            b[nt][ks][0][0] = r[0], b[nt][ks][0][1] = r[1];
+            b[nt][ks][1][0] = r[2], b[nt][ks][1][1] = r[3];
+          }
+        }
+      }
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks) {
+#pragma unroll
+        for (int f = 0; f < MF; ++f) {
+          const int rf = wr + f * WR;
+          if (rf < RF) {  // warp-uniform
+            unsigned a[4];
+            ldsm_x4(a, w + (rf * 16 + (lane & 15)) * WB + (g32 + ks * 16 + (lane >> 4) * 8) * 2);
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+              for (int h = 0; h < 2; ++h)
+                mma_bf16_16816(acc[f][nt][h], a, b[nt][ks][h][0], b[nt][ks][h][1]);
+          }
+        }
       }
     }
-    __syncthreads();
-    // this pass's rows k_lo .. k_hi - 1, each output written once
-    const int k_lo = f0 / tcols * 16;
-    const int k_hi = min(K, (f0 + kPassFrags) / tcols * 16);
-    for (int o = tid; o < (k_hi - k_lo) * T; o += kThreads) {
-      const int k = k_lo + o / T, t = o - (k - k_lo) * T;
-      if (t < nv) out[(size_t)k * n + c0 + t] = sOut[k * LO + t];
+    st = st + 1 == S ? 0 : st + 1;
+  }
+  cp_async_wait(0);
+  // each lane writes rows gq and gq + 8 of its fragments: four consecutive
+  // cells of a group (int8: even and odd n-tiles interleaved) or two pairs
+  // (bf16: n-tiles of cells 0-7 and 8-15), whole 32-byte sectors a warp
+  const int gq = lane / 4, t = lane % 4;
+  const bool vec = (reinterpret_cast<uintptr_t>(out) & 15) == 0 && n % (kInt8 ? 4 : 2) == 0;
+#pragma unroll
+  for (int f = 0; f < MF; ++f) {
+    const int rf = wr + f * WR;
+    if (rf >= RF) continue;
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int k = rf * 16 + gq + 8 * hr;
+      if (k >= K) continue;
+      float* o = out + (size_t)k * n;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        // acc[f][nt][h][2 hr + j]: n-tile h, column 2t + j of row k
+        if constexpr (kInt8) {
+          const int cc = c0 + cw + nt * 16 + 4 * t;  // even, odd, even, odd
+          const float v[4] = {acc[f][nt][0][2 * hr], acc[f][nt][1][2 * hr],
+                              acc[f][nt][0][2 * hr + 1], acc[f][nt][1][2 * hr + 1]};
+          if (vec && cc + 3 < n) {
+            *reinterpret_cast<float4*>(o + cc) = make_float4(v[0], v[1], v[2], v[3]);
+          } else {
+#pragma unroll
+            for (int u = 0; u < 4; ++u)
+              if (cc + u < n) o[cc + u] = v[u];
+          }
+        } else {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int cc = c0 + cw + nt * 16 + 8 * h + 2 * t;
+            const float v0 = acc[f][nt][h][2 * hr], v1 = acc[f][nt][h][2 * hr + 1];
+            if (vec && cc + 1 < n) {
+              *reinterpret_cast<float2*>(o + cc) = make_float2(v0, v1);
+            } else {
+              if (cc < n) o[cc] = v0;
+              if (cc + 1 < n) o[cc + 1] = v1;
+            }
+          }
+        }
+      }
     }
   }
 }
@@ -751,25 +778,51 @@ wtx_fma(const XT* __restrict__ X, const float* __restrict__ W, int g, int n,
   }
 }
 
-template <typename XT, bool kBf16>
-static int launch_wtx(const void* X, const float* W, int g, int n, int K, int T,
-                      float* out, cudaStream_t stream) {
-  const size_t smem = kBf16 ? wtx_mma_smem_bytes(K, T)
-                            : (size_t)kGeneChunk * (K + T) * sizeof(float);
-  const bool ok = kBf16 ? (T % 16 == 0 && T <= kMaxWtxTile && 16 % (T / 16) == 0)
-                        : (K * T <= kThreads * kMaxOut);
+// The bf16 path: W rounded and transposed into Wb (Kp x g_pad, g_pad a
+// multiple of the gene chunk GC), then wtx_mma over tiles of T cells with
+// the warps as WR rows x (8 / WR) columns of NT groups of 16 cells, S
+// stages of GC genes.
+template <typename XT>
+static int launch_wtx_mma(const void* X, const float* W, int g, int n, int K, int T,
+                          int WR, int GC, int S, __nv_bfloat16* Wb, float* out,
+                          cudaStream_t stream) {
+  const int WC = (WR >= 1 && kWarps % WR == 0) ? kWarps / WR : 0;
+  const int NT = (WC && T % (16 * WC) == 0) ? T / (16 * WC) : 0;
+  void (*kernel)(const XT*, const __nv_bfloat16*, int, int, int, int, int, int, int, int,
+                 float*) = NT == 1 ? wtx_mma<XT, 1>
+                         : NT == 2 ? wtx_mma<XT, 2>
+                         : NT == 3 ? wtx_mma<XT, 3> : nullptr;
+  const int Kp = pad16(K), MF = NT ? kWtxAcc / (8 * NT) : 0;
+  const size_t smem = wtx_mma_smem_bytes(K, T, S, GC, sizeof(XT) == 1);
+  const bool ok = kernel != nullptr && K >= 1 && (Kp / 16 + WR - 1) / WR <= MF && S >= 2 &&
+                  S <= 8 && (GC == 32 || GC == 64) && Wb != nullptr;
   if (!ok || smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
-  void (*kernel)(const XT*, const float*, int, int, int, int, float*);
-  if constexpr (kBf16) {
-    kernel = wtx_mma<XT>;
-  } else {
-    kernel = wtx_fma<XT>;
+  const int g_pad = (g + GC - 1) / GC * GC;
+  const size_t vecs = (size_t)Kp * (g_pad / 8);
+  if (vecs > 0) {
+    round_w<<<(unsigned)((vecs + kThreads - 1) / kThreads), kThreads, 0, stream>>>(
+        W, g, K, Kp, g_pad, Wb);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
   }
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<(n + T - 1) / T, kThreads, smem, stream>>>(static_cast<const XT*>(X), W, g, n,
-                                                      K, T, out);
+  kernel<<<(n + T - 1) / T, kThreads, smem, stream>>>(static_cast<const XT*>(X), Wb, g, n,
+                                                      g_pad, K, T, WR, GC, S, out);
+  return (int)cudaGetLastError();
+}
+
+template <typename XT>
+static int launch_wtx_fma(const void* X, const float* W, int g, int n, int K, int T,
+                          float* out, cudaStream_t stream) {
+  const size_t smem = (size_t)kGeneChunk * (K + T) * sizeof(float);
+  if (K * T > kThreads * kMaxOut || smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
+  cudaError_t err =
+      cudaFuncSetAttribute(wtx_fma<XT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  wtx_fma<XT><<<(n + T - 1) / T, kThreads, smem, stream>>>(static_cast<const XT*>(X), W, g,
+                                                           n, K, T, out);
   return (int)cudaGetLastError();
 }
 
@@ -778,7 +831,9 @@ static int launch_wtx(const void* X, const float* W, int g, int n, int K, int T,
 // Plain C entry points (ctypes).  Each returns 0 or a cudaError_t code.
 // hxt: `stages`, `chunk` (cells a ring stage holds) and the scratch `hb`
 // (K x n rounded up to the chunk, bf16) serve the bf16 path (int8, bf16 X)
-// and are ignored by the fp32 one.
+// and are ignored by the fp32 one.  wtx: `WR` (warp rows), `chunk` (genes a
+// ring stage), `stages` and the scratch `wb` (Kp x g rounded up to the
+// chunk, bf16) likewise; `T` is the cell tile of both paths.
 extern "C" int alpine_hxt(const void* X, int xtype, const float* H, int g, int n,
                           int K, int GB, int n_split, int cells_per_split, int stages,
                           int chunk, void* hb, float* part, float* out, void* stream) {
@@ -803,14 +858,17 @@ extern "C" int alpine_hxt(const void* X, int xtype, const float* H, int g, int n
 }
 
 extern "C" int alpine_wtx(const void* X, int xtype, const float* W, int g, int n,
-                          int K, int T, float* out, void* stream) {
+                          int K, int T, int WR, int chunk, int stages, void* wb,
+                          float* out, void* stream) {
   using namespace alpine;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  __nv_bfloat16* Wb = static_cast<__nv_bfloat16*>(wb);
   switch (xtype) {
-    case kF32: return launch_wtx<float, false>(X, W, g, n, K, T, out, s);
-    case kBF16: return launch_wtx<__nv_bfloat16, true>(X, W, g, n, K, T, out, s);
-    case kI8: return launch_wtx<int8_t, true>(X, W, g, n, K, T, out, s);
-    case kI16: return launch_wtx<int16_t, false>(X, W, g, n, K, T, out, s);
+    case kF32: return launch_wtx_fma<float>(X, W, g, n, K, T, out, s);
+    case kBF16:
+      return launch_wtx_mma<__nv_bfloat16>(X, W, g, n, K, T, WR, chunk, stages, Wb, out, s);
+    case kI8: return launch_wtx_mma<int8_t>(X, W, g, n, K, T, WR, chunk, stages, Wb, out, s);
+    case kI16: return launch_wtx_fma<int16_t>(X, W, g, n, K, T, out, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

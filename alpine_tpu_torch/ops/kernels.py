@@ -61,6 +61,14 @@ _STREAM_BLOCKS = 1056
 _HXT_CHUNKS = (128, 64)
 _HXT_MAX_FRAGS = 32
 _HXT_STAGES = range(2, 9)
+# wtx's bf16 path (csrc/x_passes.cu: wtx_mma): chunks of 64 or 32 genes in
+# a ring of 2..8 stages; a warp holds at most 48 accumulators (6 fragments
+# of 16 x 16) over 1, 2 or 3 groups of 16 cells (the kernel's
+# instantiations)
+_WTX_GENE_CHUNKS = (64, 32)
+_WTX_ACC = 48
+_WTX_GROUPS = (1, 2, 3)
+_WTX_STAGES = range(2, 9)
 _SMS = 132  # SMs of an H100 SXM
 _SM_SMEM = 233472  # shared memory of one H100 SM, in bytes
 _BLOCK_SMEM_RESERVED = 1024  # of it, what the card keeps for each block
@@ -579,17 +587,69 @@ def hxt(X, H):
 
 
 def wtx_tile_width(K: int, x_dtype: torch.dtype) -> int:
-    """wtx's cells a block for K outputs a cell.  On the tensor-core path
-    (int8, bf16 X) a block holds at most 16 accumulator fragments of
-    16 x 16 a pass, so T = 256 / (K rounded up to 16), between 16 and 256 (K
-    above 256 takes two passes); the fp32 path keeps ``tile_width(K)``."""
-    w = tile_width(K)
+    """wtx's cells a block on the fp32 path (float32, int16 X):
+    ``tile_width(K)``.  The tensor-core path takes ``wtx_grid``'s tile."""
+    if x_dtype in _MMA_XTYPES:
+        raise ValueError(f"int8 and bf16 X take wtx_grid's tile, got {x_dtype}")
+    return tile_width(K)
+
+
+def _ldsm_row_bytes(data: int) -> int:
+    """csrc/x_passes.cu:ldsm_row_bytes: ``data`` bytes (a multiple of 16)
+    padded so that rows start an odd multiple of 16 bytes apart modulo 128."""
+    return data if data // 16 % 2 else data + 16
+
+
+def wtx_smem_bytes(K: int, T: int, S: int, x_dtype: torch.dtype,
+                   chunk: int) -> int:
+    """csrc/x_passes.cu:wtx_mma_smem_bytes: S ring stages of a chunk of
+    ``chunk`` genes of Wb (Kp rows of ``chunk`` bf16) and of X's ``chunk``
+    rows (T cells as stored), each row padded against bank conflicts."""
+    x_row = _ldsm_row_bytes(T * (1 if x_dtype == torch.int8 else 2))
+    return S * (_pad16(K) * _ldsm_row_bytes(2 * chunk) + chunk * x_row)
+
+
+@lru_cache(maxsize=None)  # called once a block an ALS iteration
+def wtx_grid(g: int, n: int, K: int, x_dtype: torch.dtype
+             ) -> Tuple[int, int, int, int, int]:
+    """(T, WR, GC, S, blocks) of wtx's bf16 path (int8, bf16 X).
+
+    The 8 warps of a block are WR rows × 8 / WR columns over its Kp × T
+    outputs (Kp = K rounded up to 16); a warp holds at most 6 fragment
+    rows, so all of K is one pass over X for every K <= 512, and its
+    column is 1, 2 or 3 groups of 16 cells, at most 48 accumulators a
+    thread.  WR is the fewest rows that fit or twice that, never more
+    than Kp / 16 (no idle warp row).  Of those layouts the grid takes the
+    one whose block slots (two blocks an SM on 132 SMs) stream the fewest
+    bytes: waves × (T cells of X + Kp values of Wb) a gene; ties go to the
+    wider tile.  The grid depends on the shape only, so a shape sums each
+    output in the same order on any card.  GC, the genes a ring stage, is
+    the wider of 64 and 32 for which two stages fit with two blocks an SM
+    (fewer barriers a pass; the genes are summed in the same order either
+    way), and S the most stages (2..8) that fit."""
     if x_dtype not in _MMA_XTYPES:
-        return w
-    t = 256
-    while t > 16 and _pad16(K) * t > 256 * 16:
-        t //= 2
-    return t
+        raise ValueError(f"wtx_grid is for int8 and bf16 X, got {x_dtype}")
+    tile_width(K)  # 1 <= K <= 512
+    rows = _pad16(K) // 16
+    fewest = next(w for w in (1, 2, 4, 8) if -(-rows // w) * 8 <= _WTX_ACC)
+    itemsize = 1 if x_dtype == torch.int8 else 2
+    layouts = []  # (bytes a block slot streams a gene, -T, WR)
+    for WR in (fewest, 2 * fewest):
+        frags = -(-rows // WR)  # fragment rows a warp
+        for NT in _WTX_GROUPS:
+            if WR <= min(rows, 8) and frags * NT * 8 <= _WTX_ACC:
+                T = 8 // WR * 16 * NT
+                waves = -(-(-(-n // T)) // (2 * _SMS))  # ceil(blocks / slots)
+                layouts.append((waves * (T * itemsize + 2 * rows * 16), -T, WR))
+    _, neg_t, WR = min(layouts)
+    T = -neg_t
+    budget = min(_MAX_SMEM, _SM_SMEM // 2 - _BLOCK_SMEM_RESERVED)
+    for GC in _WTX_GENE_CHUNKS:
+        S = max((s for s in _WTX_STAGES
+                 if wtx_smem_bytes(K, T, s, x_dtype, GC) <= budget), default=0)
+        if S:
+            break
+    return T, WR, GC, S, -(-n // T)
 
 
 def wtx(X, W):
@@ -597,9 +657,11 @@ def wtx(X, W):
     kernel): X (g, n) int8/int16/bf16/f32, W (g, K) f32, 1 <= K <= 512.
     ALS runs it once a block an iteration, with the block's Wᵢ.
 
-    Each block computes the K x T outputs of T cells over all genes and
-    writes each once; int8 and bf16 X on bf16 tensor cores (W rounded to
-    bf16, exact products, fp32 sums), float32 and int16 X on fp32 FMA."""
+    Each block computes the K × T outputs of T cells over all genes and
+    writes each once, so two launches give the same bits.  On the card,
+    int8 and bf16 X run on bf16 tensor cores (W rounded to bf16 once a
+    call, exact products, fp32 sums) over ``wtx_grid``'s tiles, float32
+    and int16 X on fp32 FMA over ``wtx_tile_width``'s."""
     _check_x(X)
     g, n = X.shape
     K = W.shape[1] if W.dim() == 2 else -1
@@ -608,14 +670,21 @@ def wtx(X, W):
         return wtx_plain(X, W)
     from alpine_tpu_torch.ops import _build
 
-    T = wtx_tile_width(K, X.dtype)
     dev = X.device
+    wb = None  # bf16 path: W transposed and rounded, Kp x g padded to the chunk
+    if X.dtype in _MMA_XTYPES:
+        T, WR, GC, S, _ = wtx_grid(g, n, K, X.dtype)
+        wb = torch.empty((_pad16(K), -(-g // GC) * GC), dtype=torch.bfloat16,
+                         device=dev)
+    else:
+        T, WR, GC, S = wtx_tile_width(K, X.dtype), 0, 0, 0
     out = torch.empty((K, n), dtype=torch.float32, device=dev)
     fn = _build.entry("wtx")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(X.data_ptr(), _XTYPE[X.dtype], W.data_ptr(), g, n, K, T,
-                out.data_ptr(), stream)
+        rc = fn(X.data_ptr(), _XTYPE[X.dtype], W.data_ptr(), g, n, K, T, WR, GC,
+                S, wb.data_ptr() if wb is not None else None, out.data_ptr(),
+                stream)
     _launched("wtx", rc)
     return out
 

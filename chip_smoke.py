@@ -12,9 +12,9 @@ Phases, each printing one JSON line:
           (ptxas -v); for fused_transform, registers, spill stores (none
           allowed) and FFMA count of each bucket of the register path; for
           x_passes (ALS's hxt and wtx), HMMA in the bf16 kernels and none in
-          the fp32 ones, cp.async copies (LDGSTS) in hxt's bf16 kernels
-          (its ring; none there, or a spill store, fails), registers and
-          spill stores;
+          the fp32 ones, cp.async copies (LDGSTS) in the bf16 kernels of
+          both (their rings) and ldmatrix (LDSM) in wtx's (none there, or a
+          spill store, fails), registers and spill stores;
   kernel  each kernel against its plain PyTorch version on the card, at the
           bench shape (100k cells x 2,000 genes, K = 40, labels (2, 3), int8)
           and at small shapes over the other storage types, blocks and
@@ -29,8 +29,9 @@ Phases, each printing one JSON line:
           K = 40) and wtx (P2, k = 5 and 30) on int8 and once on float32 X
           at the bench shape, timed beside a bf16 (float32) torch.matmul
           over a pre-cast copy of X (one call, and 20 back to back, which
-          hides the host's time per call), the int8 hxt row with the grid it ran
-          (gene block, splits, ring stages, partial bytes), and at small
+          hides the host's time per call), the int8 rows with the grid they
+          ran (hxt: gene block, splits, ring stages, partial bytes; wtx:
+          tile, warp rows, gene chunk, ring stages, blocks, waves), and at small
           edge shapes on every storage type (17, 1,001 and 5,040 cells,
           K = 1, 13, 40, 65, 300 and 512);
   stream_probe  the streaming probe's entry point (alpine_tpu_torch/
@@ -249,27 +250,34 @@ def sass_check(_build, kernels):
             check(r["spill_stores"] == 0, f"{tag}: spill stores {r['spill_stores']}")
     xrows = []
     usage = ptxas_usage(_build.build_log("x_passes"))
-    for fn, count in sorted(sass_counts(_build, "x_passes", ("HMMA", "LDGSTS")).items()):
-        # <X type>, and hxt_mma's ring chunk
+    ops = ("HMMA", "LDGSTS", "LDSM")
+    for fn, count in sorted(sass_counts(_build, "x_passes", ops).items()):
+        # <X type>, and hxt_mma's ring chunk or wtx_mma's 16-cell groups a warp
         m = re.search(r"(hxt_mma|hxt_fma|wtx_mma|wtx_fma)I(\w+?)(?:Li(\d+)E)?E", fn)
         if m:
             u = usage.get(fn, {})
+            arg = int(m.group(3)) if m.group(3) else None
             xrows.append({"kernel": m.group(1), "x": X_CODES.get(m.group(2), m.group(2)),
-                          "chunk": int(m.group(3)) if m.group(3) else None,
-                          "hmma": count["HMMA"], "ldgsts": count["LDGSTS"],
+                          "chunk": arg if m.group(1) == "hxt_mma" else None,
+                          "cell_groups": arg if m.group(1) == "wtx_mma" else None,
+                          **{op.lower(): count[op] for op in ops},
                           "registers": u.get("registers"),
                           "spill_stores": u.get("spill_stores")})
     emit({"phase": "sass", "x_passes": xrows})
-    check(len(xrows) == 10, f"expected 10 x_passes kernels, found {len(xrows)}")
+    check(len(xrows) == 14, f"expected 14 x_passes kernels, found {len(xrows)}")
     check(sorted(r["chunk"] for r in xrows if r["kernel"] == "hxt_mma")
           == sorted(2 * kernels._HXT_CHUNKS), "hxt_mma's chunks differ from the wrapper's")
+    check(sorted(r["cell_groups"] for r in xrows if r["kernel"] == "wtx_mma")
+          == sorted(2 * kernels._WTX_GROUPS), "wtx_mma's cell groups differ from the wrapper's")
     for r in xrows:
         tag = f"x_passes {r['kernel']} {r['x']}"
         check((r["hmma"] > 0) == r["kernel"].endswith("_mma"),
               f"{tag}: HMMA count {r['hmma']}")
-        if r["kernel"] == "hxt_mma":  # P1's bf16 path: the cp.async ring
+        if r["kernel"].endswith("_mma"):  # the bf16 paths: the cp.async rings
             check(r["ldgsts"] > 0, f"{tag}: no cp.async (LDGSTS)")
             check(r["spill_stores"] == 0, f"{tag}: spill stores {r['spill_stores']}")
+        if r["kernel"] == "wtx_mma":  # operands by ldmatrix
+            check(r["ldsm"] > 0, f"{tag}: no ldmatrix (LDSM)")
     buckets = sorted(r["bucket"] for r in trows if r["bucket"])
     check(buckets == sorted(kernels._TRANSFORM_BUCKETS),
           f"fused_transform buckets {buckets} differ from the wrapper's")
@@ -570,6 +578,10 @@ def main():
                 GB, n_split, cps, S, chunk = kernels.hxt_grid(g, n, K, X.dtype)
                 row.update(gene_block=GB, n_split=n_split, cells_per_split=cps,
                            stages=S, chunk=chunk, partial_bytes=4 * n_split * K * g)
+            if kind == "wtx" and bf16:
+                T, WR, GC, S, blocks = kernels.wtx_grid(g, n, K, X.dtype)
+                row.update(tile=T, warp_rows=WR, gene_chunk=GC, stages=S,
+                           blocks=blocks, waves=blocks / (2 * kernels._SMS))
         emit(row)
         check(worst <= 1.0, f"{tag}: kernel disagrees with its plain version")
         return row

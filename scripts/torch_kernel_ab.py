@@ -18,23 +18,29 @@ A run times, at the bench shape (100k cells x 2,000 genes, K = 40, labels
 - ``fused_transform`` (K3), 50 steps at the bench shape (num2 = 2WᵀX,
   WtW2 = 2WᵀW, H0 = H): median CUDA-event ms of 20 warm launches;
 - ALS's X passes: P1 ``hxt`` (K = 40) and P2 ``wtx`` (k = 5 and 30) on the
-  int8 X, median CUDA-event ms of 20 warm launches (P1 also over 20
-  launches in a row, ``hxt_back_to_back_ms``), and the ALS fit loop
+  int8 X, median CUDA-event ms of 20 warm launches (each also over 20
+  launches in a row: ``hxt_back_to_back_ms``, ``wtx_k5_back_to_back_ms``,
+  ``wtx_k30_back_to_back_ms``), and the ALS fit loop
   (``mu.fit_scan`` with ``use_als``), ms per iteration over 20 iterations,
   the median of three runs;
 - a digest of every output of K1, K4 and K2 with the same inputs held as
   float32 and as int16 X (the fp32 FMA path), of K3's output at the
-  bench shape and at K = 300, of ``hxt`` on float32 and int16 X and of
-  ``wtx`` (k = 5 and 30) on all four storage types, so the summary can say
-  whether the two checkouts give those paths the same bits.
+  bench shape and at K = 300, of ``hxt`` and ``wtx`` (k = 5 and 30) on
+  float32 and int16 X, and of ``wtx`` on int8 and bf16 X (the tensor-core
+  path), whose outputs the run also saves beside ``wtx_plain``'s.
 
 Prints one JSON line per run, then one summary line with the mean of each
 checkout's two runs, whether all four runs agree bit for bit on the
 float32/int16 outputs of K1/K2/K4 (``fp32_path_bits_equal``), on K3's
 (``k3_bits_equal``), on ``hxt``'s float32/int16 outputs
-(``x_pass_fp32_bits_equal``) and on ``wtx``'s (``wtx_bits_equal``), and
-the card's name and power limit.  Needs one NVIDIA GPU; exits non-zero
-without one.
+(``x_pass_fp32_bits_equal``) and on ``wtx``'s (``wtx_fp32_bits_equal``);
+for ``wtx``'s tensor-core path whether the four runs agree
+(``wtx_bf16_path_bits_equal``; false where a change alters that kernel's
+summation order) and whether each checkout's two runs do
+(``wtx_bf16_path_runs_repeat``), and the largest difference between the
+two checkouts' outputs, absolute and over ``wtx_plain``'s tolerance (rtol
+1e-4 + 1e-6 max|plain|: at most 1 when both trees hold it); and the card's
+name and power limit.  Needs one NVIDIA GPU; exits non-zero without one.
 """
 
 import hashlib
@@ -42,6 +48,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 G, N = 2000, 100_000
@@ -54,7 +61,7 @@ ALS_LOOP_ITERS = 20
 LOOP_REPEATS = 3  # timed runs of each loop; their median is reported
 
 
-def child(root):
+def child(root, save_path):
     sys.path.insert(0, os.path.abspath(root))
     import numpy as np
     import torch
@@ -140,18 +147,28 @@ def child(root):
     del k3_300
     torch.cuda.empty_cache()
     W5, W30 = W[:, :5].contiguous(), W[:, 10:].contiguous()
-    x_pass_bits, wtx_bits = {}, {}
+    x_pass_bits, wtx_fp32_bits, wtx_bf16_bits, saved = {}, {}, {}, {}
     for dt in (torch.float32, torch.int16, torch.bfloat16, torch.int8):
-        Xd = X.to(dt)
+        Xd, name = X.to(dt), str(dt)[6:]
+        outs = [kernels.wtx(Xd, W5), kernels.wtx(Xd, W30)]
         if dt in (torch.float32, torch.int16):
-            x_pass_bits[str(dt)[6:]] = digest([[kernels.hxt(Xd, H)]])
-        wtx_bits[str(dt)[6:]] = digest([[kernels.wtx(Xd, W5), kernels.wtx(Xd, W30)]])
-        del Xd
+            x_pass_bits[name] = digest([[kernels.hxt(Xd, H)]])
+            wtx_fp32_bits[name] = digest([outs])
+        else:
+            wtx_bf16_bits[name] = digest([outs])
+            for k, Wk, out in ((5, W5, outs[0]), (30, W30, outs[1])):
+                saved[f"{name}_k{k}"] = out.cpu()
+                saved[f"{name}_k{k}_plain"] = kernels.wtx_plain(Xd, Wk).cpu()
+        del Xd, outs
+    torch.save(saved, save_path)
+    del saved
     torch.cuda.empty_cache()
     hxt_ms = time_ms(lambda: kernels.hxt(X, H))
     hxt_b2b_ms = back_to_back_ms(lambda: kernels.hxt(X, H))
     wtx5_ms = time_ms(lambda: kernels.wtx(X, W5))
+    wtx5_b2b_ms = back_to_back_ms(lambda: kernels.wtx(X, W5))
     wtx30_ms = time_ms(lambda: kernels.wtx(X, W30))
+    wtx30_b2b_ms = back_to_back_ms(lambda: kernels.wtx(X, W30))
     k1 = time_ms(lambda: kernels.fused_iteration(
         X, W, H, WtW, Ys, Bs, lam, EPS, blocks=BLOCKS, loss_kl=True))
     k2 = time_ms(lambda: kernels.fused_h_update(X, W, H, WtW, EPS))
@@ -188,17 +205,37 @@ def child(root):
                       "fused_iteration_counts_ms": k4,
                       "fused_transform_ms": k3_ms,
                       "hxt_ms": hxt_ms, "hxt_back_to_back_ms": hxt_b2b_ms,
-                      "wtx_k5_ms": wtx5_ms, "wtx_k30_ms": wtx30_ms,
+                      "wtx_k5_ms": wtx5_ms, "wtx_k5_back_to_back_ms": wtx5_b2b_ms,
+                      "wtx_k30_ms": wtx30_ms, "wtx_k30_back_to_back_ms": wtx30_b2b_ms,
                       "fit_loop_ms_per_iteration": loop_ms(False),
                       "fit_loop_weighted_fast_ms_per_iteration": loop_ms(True),
                       "fit_loop_als_ms_per_iteration": loop_ms(False, als=True),
                       "fp32_path_bits": bits, "k3_bits": k3_bits,
-                      "x_pass_fp32_bits": x_pass_bits, "wtx_bits": wtx_bits}), flush=True)
+                      "x_pass_fp32_bits": x_pass_bits, "wtx_fp32_bits": wtx_fp32_bits,
+                      "wtx_bf16_bits": wtx_bf16_bits}), flush=True)
+
+
+def bf16_path_difference(parent_path, change_path):
+    """The largest difference between two trees' saved wtx outputs on the
+    tensor-core path: (max abs, max over the plain version's tolerance)."""
+    import torch
+
+    a, b = torch.load(parent_path), torch.load(change_path)
+    worst_abs = worst_tol = 0.0
+    for key in a:
+        if key.endswith("_plain"):
+            continue
+        plain = a[f"{key}_plain"].double()
+        diff = (a[key].double() - b[key].double()).abs()
+        allowed = 1e-6 * float(plain.abs().max()) + 1e-4 * plain.abs()
+        worst_abs = max(worst_abs, float(diff.max()))
+        worst_tol = max(worst_tol, float((diff / allowed).max()))
+    return worst_abs, worst_tol
 
 
 def main(argv):
-    if len(argv) == 3 and argv[1] == "--child":
-        child(argv[2])
+    if len(argv) == 4 and argv[1] == "--child":
+        child(argv[2], argv[3])
         return 0
     if len(argv) != 3:
         print(__doc__, file=sys.stderr)
@@ -208,9 +245,12 @@ def main(argv):
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     runs = {parent: [], change: []}
-    for root in (parent, change, change, parent):
+    tmp = tempfile.TemporaryDirectory()
+    saves = {parent: [], change: []}
+    for i, root in enumerate((parent, change, change, parent)):
+        save = os.path.join(tmp.name, f"run{i}.pt")
         out = subprocess.run([sys.executable, os.path.abspath(__file__),
-                              "--child", root], capture_output=True, text=True,
+                              "--child", root, save], capture_output=True, text=True,
                              timeout=900)
         if out.returncode != 0:
             print(out.stderr[-4000:], file=sys.stderr)
@@ -218,19 +258,27 @@ def main(argv):
         line = out.stdout.strip().splitlines()[-1]
         print(line, flush=True)
         runs[root].append(json.loads(line))
+        saves[root].append(save)
     summary = {"card": smi.splitlines()[0], "order": "parent, change, change, parent"}
     digests = (("fp32_path_bits", "fp32_path_bits_equal"),
                ("k3_bits", "k3_bits_equal"),
                ("x_pass_fp32_bits", "x_pass_fp32_bits_equal"),
-               ("wtx_bits", "wtx_bits_equal"))
+               ("wtx_fp32_bits", "wtx_fp32_bits_equal"),
+               ("wtx_bf16_bits", "wtx_bf16_path_bits_equal"))
     for label, root in (("parent", parent), ("change", change)):
         summary[label] = {k: sum(r[k] for r in runs[root]) / 2
                           for k in runs[root][0]
                           if k != "root" and k not in dict(digests)}
     for key, out in digests:
-        seen = {json.dumps(r[key], sort_keys=True)
+        seen = {json.dumps(r.get(key), sort_keys=True)
                 for rs in runs.values() for r in rs}
         summary[out] = len(seen) == 1
+    summary["wtx_bf16_path_runs_repeat"] = all(
+        rs[0].get("wtx_bf16_bits") == rs[1].get("wtx_bf16_bits") for rs in runs.values())
+    (summary["wtx_bf16_path_max_abs_diff"],
+     summary["wtx_bf16_path_diff_over_tolerance"]) = bf16_path_difference(
+        saves[parent][0], saves[change][0])
+    tmp.cleanup()
     print(json.dumps(summary), flush=True)
     return 0
 

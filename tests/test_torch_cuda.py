@@ -328,10 +328,10 @@ def _x_pass_problem(seed, g, n, K, dtype, dev):
 def test_x_passes_cuda_match_plain(cuda, dtype, K, n):
     """P1 (hxt) and P2 (wtx) against their plain versions: K = 1, K not a
     multiple of 16, K = 64 and 65 (hxt's widest gene block and the next),
-    K = 300 and 512 (two passes of wtx's tensor-core path; hxt's narrowest
-    gene block, one block an SM); 70 genes and 1000, 1001, 777 or 17 cells
-    fill no block or tile, 1024 and 1040 cells take the 16-byte staging
-    (hxt: the cp.async ring), and the same values off 16-byte alignment the
+    K = 300 and 512 (one pass over X on wtx's tensor-core path, its warps
+    in 4 and 8 rows; hxt's narrowest gene block); 70 genes and 1000, 1001,
+    777 or 17 cells fill no block, chunk or tile, 1024 and 1040 cells take
+    the cp.async ring, and the same values off 16-byte alignment the
     element-by-element staging, with the same bits."""
     X, W, H = _x_pass_problem(K + n, 70, n, K, dtype, cuda)
     before = dict(kernels.launches)
@@ -366,6 +366,27 @@ def test_hxt_cuda_same_bits(cuda, dtype, n):
     if dtype != "float32":
         assert torch.equal(got, kernels.hxt(_unaligned(X), _unaligned(H)))
     _close(got, kernels.hxt_plain(X, H), 1e-4, 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["int8", "bfloat16", "float32"])
+@pytest.mark.parametrize("n", [50_000, 50_001, 50_016])
+def test_wtx_cuda_same_bits(cuda, dtype, n):
+    """Two launches of P2 give the same bits (each output written once, by
+    the block of its cells) at a width of many tiles, the last ragged;
+    50,001 cells take the element-by-element staging, 50,000 and 50,016
+    the cp.async ring, and on the bf16 path the same values off 16-byte
+    alignment give the same bits too.  The result matches the plain
+    version."""
+    X, W, _ = _x_pass_problem(6, 300, n, 30, dtype, cuda)
+    if dtype != "float32":
+        T, _, _, _, blocks = kernels.wtx_grid(300, n, 30, X.dtype)
+        assert blocks > 1 and n % T != 0  # the last tile is ragged
+    got = kernels.wtx(X, W)
+    assert torch.equal(got, kernels.wtx(X, W))
+    if dtype != "float32":
+        assert torch.equal(got, kernels.wtx(_unaligned(X), _unaligned(W)))
+    _close(got, kernels.wtx_plain(X, W), 1e-4, 1e-5)
 
 
 @pytest.mark.cuda
