@@ -69,6 +69,17 @@ _WTX_GENE_CHUNKS = (64, 32)
 _WTX_ACC = 48
 _WTX_GROUPS = (1, 2, 3)
 _WTX_STAGES = range(2, 9)
+# the fp32 paths of hxt and wtx (csrc/x_passes.cu: hxt_fma, wtx_fma): hxt
+# stages 64 or 32 cells a ring stage, 8 genes and at most 7 rows of H a
+# thread (8 only at K > 448; lanes 8 along K x 4 along genes), at most 4
+# columns of 32 genes a block; wtx stages 32 genes, 12 cells and at most 6
+# rows of W a thread
+_FMA_CHUNKS = (64, 32)
+_FMA_MAX_MK = 7
+_WTX_FMA_GC = 32
+_WTX_FMA_CELLS = 12
+_WTX_FMA_MAX_MK = 6
+_FMA_STAGES = range(2, 9)
 _SMS = 132  # SMs of an H100 SXM
 _SM_SMEM = 233472  # shared memory of one H100 SM, in bytes
 _BLOCK_SMEM_RESERVED = 1024  # of it, what the card keeps for each block
@@ -360,6 +371,77 @@ def hxt_grid(g: int, n: int, K: int, x_dtype: torch.dtype
     return GB, -(-n // cells_per_split), cells_per_split, S, chunk
 
 
+def hxt_fma_rows(K: int) -> Tuple[int, int]:
+    """(WK, MK) of hxt's fp32 path (csrc/x_passes.cu:hxt_fma_wk): the
+    fewest warp rows WK (1, 2, 4, 8) that keep a thread at MK = ceil(K /
+    (8 WK)) <= 7 rows of H (8 at WK = 8, K > 448); Kp = 8 WK MK rows are
+    computed, those past K on zeros."""
+    wk = 1
+    while wk < 8 and -(-K // (8 * wk)) > _FMA_MAX_MK:
+        wk *= 2
+    return wk, -(-K // (8 * wk))
+
+
+def hxt_fma_smem_bytes(K: int, GB: int, S: int, x_dtype: torch.dtype,
+                       chunk: int) -> int:
+    """csrc/x_passes.cu:hxt_fma_smem_bytes: S ring stages of a chunk of
+    ``chunk`` cells of H (Kp rows) and of X's GB rows (float32 padded to
+    chunk + 4 values, int16 as stored), the int16 chunk widened to fp32, and
+    at least the Q warp tiles (Q x Kp x (GB + 4) fp32) that reuse the
+    bytes."""
+    WK, MK = hxt_fma_rows(K)
+    Kp, Q, row = 8 * WK * MK, 8 // (WK * (GB // 32)), chunk + 4
+    int16 = x_dtype == torch.int16
+    stage = Kp * row * 4 + GB * (2 * chunk if int16 else 4 * row)
+    ring = S * stage + (GB * row * 4 if int16 else 0)
+    return max(ring, Q * Kp * (GB + 4) * 4)
+
+
+def _fma_ring(smem_of, chunks) -> Tuple[int, int, int]:
+    """(S, chunk, blocks an SM) of an fp32 pass's ring: the widest of
+    ``chunks`` and the most stages (2..8) whose ``smem_of(S, chunk)`` bytes
+    let two blocks share an SM, else one block an SM."""
+    for per_sm in (2, 1):
+        budget = min(_MAX_SMEM, _SM_SMEM // per_sm - _BLOCK_SMEM_RESERVED)
+        for chunk in chunks:
+            S = max((s for s in _FMA_STAGES if smem_of(s, chunk) <= budget),
+                    default=0)
+            if S:
+                return S, chunk, per_sm
+    raise ValueError("no ring of two stages fits a Hopper block")
+
+
+@lru_cache(maxsize=None)  # called once an ALS iteration
+def hxt_fma_grid(g: int, n: int, K: int, x_dtype: torch.dtype
+                 ) -> Tuple[int, int, int, int, int]:
+    """(GB, n_split, cells_per_split, S, chunk) of hxt's fp32 path (float32,
+    int16 X).
+
+    The 8 warps of a block are Q cell groups × WK rows × WG columns of 32
+    genes (``hxt_fma_rows``): WG = min(4, 8 / WK), so GB = 32 WG is the
+    widest block whose Kp × GB outputs fit 7 × 8 accumulators a thread, and
+    all of K is one pass over X for every K <= 512.  The ring holds chunks
+    of 64 cells where two stages fit with two blocks an SM, else 32, and the
+    most stages (2..8) that fit; else one block takes an SM (K > 448 always:
+    a thread of 8 rows takes an SM's registers).  The splits, each a
+    multiple of the chunk, make gene blocks × splits at most one wave of
+    those blocks on 132 SMs."""
+    if x_dtype not in (torch.float32, torch.int16):
+        raise ValueError(f"hxt_fma_grid is for float32 and int16 X, got {x_dtype}")
+    tile_width(K)  # 1 <= K <= 512
+    WK, MK = hxt_fma_rows(K)
+    GB = 32 * min(4, 8 // WK)
+    S, chunk, per_sm = _fma_ring(
+        lambda s, c: hxt_fma_smem_bytes(K, GB, s, x_dtype, c), _FMA_CHUNKS)
+    if MK > _FMA_MAX_MK:
+        per_sm = 1
+    gene_blocks = -(-g // GB)
+    n_chunks = -(-n // chunk)
+    want = max(1, min(n_chunks, _SMS * per_sm // gene_blocks))
+    cells_per_split = -(-n_chunks // want) * chunk
+    return GB, -(-n // cells_per_split), cells_per_split, S, chunk
+
+
 def _launch_iteration(X, W, H, WtW, Ys, Bs, lam, eps, counts, blocks, loss_kl):
     """Run csrc/fused_iteration.cu; returns (Hn, XHt, stats, n_labels) with
     stats laid out as ``_stats_len`` says."""
@@ -553,9 +635,10 @@ def hxt(X, H):
 
     On the card, int8 and bf16 X run on bf16 tensor cores (H rounded to
     bf16 once a call, exact products, fp32 sums) over ``hxt_grid``'s grid,
-    float32 and int16 X on fp32 FMA over ``_cell_splits``'s; each block sums
-    a range of cells into a partial of its own and the partials are added
-    in a fixed order, so two launches give the same bits."""
+    float32 and int16 X on the FP32 units (true fp32, register micro-tiles)
+    over ``hxt_fma_grid``'s; each block sums a range of cells into a
+    partial of its own and the partials are added in a fixed order, so two
+    launches give the same bits."""
     _check_x(X)
     g, n = X.shape
     K = H.shape[0]
@@ -571,8 +654,7 @@ def hxt(X, H):
         hb = torch.empty((K, -(-n // chunk) * chunk), dtype=torch.bfloat16,
                          device=dev)
     else:
-        GB, S, chunk = iteration_tile_width(K, X.dtype), 0, 0  # genes a block
-        n_split, cells_per_split = _cell_splits(g, n, GB)
+        GB, n_split, cells_per_split, S, chunk = hxt_fma_grid(g, n, K, X.dtype)
     part = torch.empty((n_split, K, g), dtype=torch.float32, device=dev)
     out = torch.empty((K, g), dtype=torch.float32, device=dev)
     fn = _build.entry("hxt")
@@ -584,14 +666,6 @@ def hxt(X, H):
                 out.data_ptr(), stream)
     _launched("hxt", rc)
     return out
-
-
-def wtx_tile_width(K: int, x_dtype: torch.dtype) -> int:
-    """wtx's cells a block on the fp32 path (float32, int16 X):
-    ``tile_width(K)``.  The tensor-core path takes ``wtx_grid``'s tile."""
-    if x_dtype in _MMA_XTYPES:
-        raise ValueError(f"int8 and bf16 X take wtx_grid's tile, got {x_dtype}")
-    return tile_width(K)
 
 
 def _ldsm_row_bytes(data: int) -> int:
@@ -652,6 +726,52 @@ def wtx_grid(g: int, n: int, K: int, x_dtype: torch.dtype
     return T, WR, GC, S, -(-n // T)
 
 
+def wtx_fma_rows(K: int, LK: int) -> Tuple[int, int]:
+    """(WK, MK) of wtx's fp32 path (csrc/x_passes.cu:wtx_fma_wk) with LK
+    lanes along K: the fewest warp rows WK (1, 2, 4, 8) that keep a thread
+    at MK = ceil(K / (LK WK)) <= 6 rows of W; Kp = WK LK MK."""
+    wk = 1
+    while wk < 8 and -(-K // (LK * wk)) > _WTX_FMA_MAX_MK:
+        wk *= 2
+    return wk, -(-K // (LK * wk))
+
+
+def wtx_fma_smem_bytes(K: int, LK: int, S: int, x_dtype: torch.dtype) -> int:
+    """csrc/x_passes.cu:wtx_fma_smem_bytes: S ring stages of a chunk of 32
+    genes of W (room for 32 × Kp fp32) and of X's rows (T cells as stored),
+    the int16 chunk widened to fp32, and, when the warps split the genes
+    (Q > 1), at least the Q × Kp × T fp32 warp tiles that reuse the bytes."""
+    WK, MK = wtx_fma_rows(K, LK)
+    Kp, Q, T = WK * LK * MK, 8 // WK, 32 // LK * _WTX_FMA_CELLS
+    int16 = x_dtype == torch.int16
+    stage = _WTX_FMA_GC * Kp * 4 + _WTX_FMA_GC * T * (2 if int16 else 4)
+    ring = S * stage + (_WTX_FMA_GC * T * 4 if int16 else 0)
+    return max(ring, Q * Kp * T * 4 if Q > 1 else 0)
+
+
+@lru_cache(maxsize=None)  # called once a block an ALS iteration
+def wtx_fma_grid(g: int, n: int, K: int, x_dtype: torch.dtype
+                 ) -> Tuple[int, int, int, int, int]:
+    """(T, LK, GC, S, blocks) of wtx's fp32 path (float32, int16 X).
+
+    A thread holds MK <= 6 rows × 12 cells (three float4).  LK, the lanes
+    of a warp along K, is the fewest of 1, 2, 4, 8, 16 for which 8 warp
+    rows reach K (K <= 48 LK); the other 32 / LK lanes lie along the cells,
+    so a tile is T = 12 × 32 / LK cells (384 for K <= 48: one wave of 261
+    blocks at two an SM at the bench shape), and all of K is one pass over
+    X for every K <= 512.  The warps not needed along K (``wtx_fma_rows``)
+    split each chunk's 32 genes.  S is the most ring stages (2..8) for
+    which two blocks share an SM, else one block takes it."""
+    if x_dtype not in (torch.float32, torch.int16):
+        raise ValueError(f"wtx_fma_grid is for float32 and int16 X, got {x_dtype}")
+    tile_width(K)  # 1 <= K <= 512
+    LK = next(lk for lk in (1, 2, 4, 8, 16) if K <= 8 * lk * _WTX_FMA_MAX_MK)
+    S, _, _ = _fma_ring(lambda s, _: wtx_fma_smem_bytes(K, LK, s, x_dtype),
+                        (_WTX_FMA_GC,))
+    T = 32 // LK * _WTX_FMA_CELLS
+    return T, LK, _WTX_FMA_GC, S, -(-n // T)
+
+
 def wtx(X, W):
     """Wᵀ X (K, n) f32 (the counterpart of benchmarks/als_probe.py's ``wtx``
     kernel): X (g, n) int8/int16/bf16/f32, W (g, K) f32, 1 <= K <= 512.
@@ -661,7 +781,8 @@ def wtx(X, W):
     writes each once, so two launches give the same bits.  On the card,
     int8 and bf16 X run on bf16 tensor cores (W rounded to bf16 once a
     call, exact products, fp32 sums) over ``wtx_grid``'s tiles, float32
-    and int16 X on fp32 FMA over ``wtx_tile_width``'s."""
+    and int16 X on the FP32 units (true fp32, register micro-tiles) over
+    ``wtx_fma_grid``'s."""
     _check_x(X)
     g, n = X.shape
     K = W.shape[1] if W.dim() == 2 else -1
@@ -676,8 +797,8 @@ def wtx(X, W):
         T, WR, GC, S, _ = wtx_grid(g, n, K, X.dtype)
         wb = torch.empty((_pad16(K), -(-g // GC) * GC), dtype=torch.bfloat16,
                          device=dev)
-    else:
-        T, WR, GC, S = wtx_tile_width(K, X.dtype), 0, 0, 0
+    else:  # WR carries the fp32 path's lanes along K
+        T, WR, GC, S, _ = wtx_fma_grid(g, n, K, X.dtype)
     out = torch.empty((K, n), dtype=torch.float32, device=dev)
     fn = _build.entry("wtx")
     with torch.cuda.device(dev):

@@ -12,9 +12,10 @@ Phases, each printing one JSON line:
           (ptxas -v); for fused_transform, registers, spill stores (none
           allowed) and FFMA count of each bucket of the register path; for
           x_passes (ALS's hxt and wtx), HMMA in the bf16 kernels and none in
-          the fp32 ones, cp.async copies (LDGSTS) in the bf16 kernels of
-          both (their rings) and ldmatrix (LDSM) in wtx's (none there, or a
-          spill store, fails), registers and spill stores;
+          the fp32 ones, FFMA in the fp32 ones, cp.async copies (LDGSTS) in
+          every one (their rings) and ldmatrix (LDSM) in wtx_mma (none
+          there, or a spill store anywhere, fails), registers and spill
+          stores;
   kernel  each kernel against its plain PyTorch version on the card, at the
           bench shape (100k cells x 2,000 genes, K = 40, labels (2, 3), int8)
           and at small shapes over the other storage types, blocks and
@@ -26,12 +27,13 @@ Phases, each printing one JSON line:
           port's own balanced sampler, undrawn columns checked bit for bit;
           fused_transform at K = 40 (the register path) and K = 300 (the
           tiled path), each row naming its path; ALS's X passes hxt (P1,
-          K = 40) and wtx (P2, k = 5 and 30) on int8 and once on float32 X
-          at the bench shape, timed beside a bf16 (float32) torch.matmul
-          over a pre-cast copy of X (one call, and 20 back to back, which
-          hides the host's time per call), the int8 rows with the grid they
-          ran (hxt: gene block, splits, ring stages, partial bytes; wtx:
-          tile, warp rows, gene chunk, ring stages, blocks, waves), and at small
+          K = 40) and wtx (P2, k = 5 and 30) on int8, float32 and int16 X
+          (counts above 127) at the bench shape, timed beside a bf16
+          (float32) torch.matmul over a pre-cast copy of X (one call, and 20
+          back to back, which hides the host's time per call), each row with
+          the grid it ran (hxt: gene block, splits, ring stages, partial
+          bytes; wtx: tile, warp rows or lanes along K, gene chunk, ring
+          stages, blocks, waves), and at small
           edge shapes on every storage type (17, 1,001 and 5,040 cells,
           K = 1, 13, 40, 65, 300 and 512);
   stream_probe  the streaming probe's entry point (alpine_tpu_torch/
@@ -42,7 +44,11 @@ Phases, each printing one JSON line:
           per iteration, device busy share and device time per kernel
           (profiler); then the same for the weighted_fast loop
           (fit_loop_weighted_fast, the sampler's draws included) and for
-          the ALS loop (fit_loop_als, 50 iterations);
+          the ALS loop (fit_loop_als, 50 iterations); then, on int16 X
+          holding counts above 127, the ALS loop (fit_loop_als_int16: the
+          fp32 X passes) and the joint loop (fit_loop_int16: K1's FMA path),
+          and the ALS loop on float32 X (fit_loop_als_float32), each with
+          the launch counts of its timed run;
   small   a small fit on the card against the same fit on the CPU (plain
           kernel versions, same seed); small_als the same with
           use_als=True;
@@ -56,7 +62,9 @@ Phases, each printing one JSON line:
           free_device_cache() and the uncached transform;
   slice_als  the same fit with use_als=True (hxt once and wtx three times
           an iteration, fused_iteration never) and a cached transform.
-Then one JSON line with every kernel's numbers and, last, the result line.
+Then one JSON line with every kernel's numbers (hxt and wtx twice more:
+their fp32 paths hxt_fma and wtx_fma on float32 and on int16 X, with the
+launches of the ALS loop on that X) and, last, the result line.
 Any failed check raises: the script exits non-zero and prints no result.
 Without a GPU it exits with code 2 before doing anything.
 """
@@ -250,9 +258,10 @@ def sass_check(_build, kernels):
             check(r["spill_stores"] == 0, f"{tag}: spill stores {r['spill_stores']}")
     xrows = []
     usage = ptxas_usage(_build.build_log("x_passes"))
-    ops = ("HMMA", "LDGSTS", "LDSM")
+    ops = ("HMMA", "LDGSTS", "LDSM", "FFMA")
     for fn, count in sorted(sass_counts(_build, "x_passes", ops).items()):
-        # <X type>, and hxt_mma's ring chunk or wtx_mma's 16-cell groups a warp
+        # <X type>, and hxt_mma's ring chunk, wtx_mma's 16-cell groups a warp
+        # or the fp32 kernels' rows a thread (MK)
         m = re.search(r"(hxt_mma|hxt_fma|wtx_mma|wtx_fma)I(\w+?)(?:Li(\d+)E)?E", fn)
         if m:
             u = usage.get(fn, {})
@@ -260,24 +269,33 @@ def sass_check(_build, kernels):
             xrows.append({"kernel": m.group(1), "x": X_CODES.get(m.group(2), m.group(2)),
                           "chunk": arg if m.group(1) == "hxt_mma" else None,
                           "cell_groups": arg if m.group(1) == "wtx_mma" else None,
+                          "rows": arg if m.group(1).endswith("_fma") else None,
                           **{op.lower(): count[op] for op in ops},
                           "registers": u.get("registers"),
                           "spill_stores": u.get("spill_stores")})
     emit({"phase": "sass", "x_passes": xrows})
-    check(len(xrows) == 14, f"expected 14 x_passes kernels, found {len(xrows)}")
+    # hxt_fma<XT, 1 .. _FMA_MAX_MK + 1> (8 rows only past K = 448), wtx_fma<XT, 1 .. 6>
+    fma_rows = {"hxt_fma": kernels._FMA_MAX_MK + 1, "wtx_fma": kernels._WTX_FMA_MAX_MK}
+    n_fma = 2 * sum(fma_rows.values())
+    check(len(xrows) == 10 + n_fma, f"expected {10 + n_fma} x_passes kernels, found {len(xrows)}")
     check(sorted(r["chunk"] for r in xrows if r["kernel"] == "hxt_mma")
           == sorted(2 * kernels._HXT_CHUNKS), "hxt_mma's chunks differ from the wrapper's")
     check(sorted(r["cell_groups"] for r in xrows if r["kernel"] == "wtx_mma")
           == sorted(2 * kernels._WTX_GROUPS), "wtx_mma's cell groups differ from the wrapper's")
+    for kname, most in fma_rows.items():
+        check(sorted(r["rows"] for r in xrows if r["kernel"] == kname)
+              == sorted(2 * list(range(1, most + 1))), f"{kname}'s rows differ from the wrapper's")
     for r in xrows:
-        tag = f"x_passes {r['kernel']} {r['x']}"
+        tag = f"x_passes {r['kernel']} {r['x']} {r['rows'] or ''}"
         check((r["hmma"] > 0) == r["kernel"].endswith("_mma"),
               f"{tag}: HMMA count {r['hmma']}")
-        if r["kernel"].endswith("_mma"):  # the bf16 paths: the cp.async rings
-            check(r["ldgsts"] > 0, f"{tag}: no cp.async (LDGSTS)")
-            check(r["spill_stores"] == 0, f"{tag}: spill stores {r['spill_stores']}")
+        # every kernel streams X through a cp.async ring and must not spill
+        check(r["ldgsts"] > 0, f"{tag}: no cp.async (LDGSTS)")
+        check(r["spill_stores"] == 0, f"{tag}: spill stores {r['spill_stores']}")
         if r["kernel"] == "wtx_mma":  # operands by ldmatrix
             check(r["ldsm"] > 0, f"{tag}: no ldmatrix (LDSM)")
+        if r["kernel"].endswith("_fma"):  # the FP32 units
+            check(r["ffma"] >= 8 * r["rows"], f"{tag}: {r['ffma']} FFMA")
     buckets = sorted(r["bucket"] for r in trows if r["bucket"])
     check(buckets == sorted(kernels._TRANSFORM_BUCKETS),
           f"fused_transform buckets {buckets} differ from the wrapper's")
@@ -533,7 +551,10 @@ def main():
     # -- ALS's X passes: hxt (P1) and wtx (P2) -------------------------------
     def x_pass_problem(g, n, K, xdtype):
         X = torch.poisson(torch.full((g, n), 1.5, device=dev), generator=gen)
-        X = X.clamp_(max=127)
+        if xdtype == torch.int16:
+            X *= 3  # counts above 127: int16 is what "auto" gives them
+        else:
+            X = X.clamp_(max=127)
         if xdtype not in (torch.int8, torch.int16):
             X += torch.rand((g, n), generator=gen, device=dev)
         X = X.to(xdtype)
@@ -578,10 +599,22 @@ def main():
                 GB, n_split, cps, S, chunk = kernels.hxt_grid(g, n, K, X.dtype)
                 row.update(gene_block=GB, n_split=n_split, cells_per_split=cps,
                            stages=S, chunk=chunk, partial_bytes=4 * n_split * K * g)
+            if kind == "hxt" and not bf16:
+                GB, n_split, cps, S, chunk = kernels.hxt_fma_grid(g, n, K, X.dtype)
+                WK, MK = kernels.hxt_fma_rows(K)
+                row.update(gene_block=GB, n_split=n_split, cells_per_split=cps,
+                           stages=S, chunk=chunk, warp_rows=WK, rows_a_thread=MK,
+                           partial_bytes=4 * n_split * K * g)
             if kind == "wtx" and bf16:
                 T, WR, GC, S, blocks = kernels.wtx_grid(g, n, K, X.dtype)
                 row.update(tile=T, warp_rows=WR, gene_chunk=GC, stages=S,
                            blocks=blocks, waves=blocks / (2 * kernels._SMS))
+            if kind == "wtx" and not bf16:
+                T, LK, GC, S, blocks = kernels.wtx_fma_grid(g, n, K, X.dtype)
+                WK, MK = kernels.wtx_fma_rows(K, LK)
+                row.update(tile=T, lanes_along_k=LK, warp_rows=WK, rows_a_thread=MK,
+                           gene_chunk=GC, stages=S, blocks=blocks,
+                           waves=blocks / (2 * kernels._SMS))
         emit(row)
         check(worst <= 1.0, f"{tag}: kernel disagrees with its plain version")
         return row
@@ -592,11 +625,15 @@ def main():
     results["wtx"] = run_x_pass_case("wtx", X, W[:, 10:].contiguous(), True)
     del X, W, H  # the int8 X goes before the float32 one is made
     torch.cuda.empty_cache()
-    X, W, H = x_pass_problem(G, N, sum(BLOCKS), torch.float32)
-    run_x_pass_case("hxt", X, H, True)
-    run_x_pass_case("wtx", X, W[:, 10:].contiguous(), True)
-    del X, W, H
-    torch.cuda.empty_cache()
+    # float32 and int16 X (the FP32 units): one X at a time
+    for xdt in (torch.float32, torch.int16):
+        X, W, H = x_pass_problem(G, N, sum(BLOCKS), xdt)
+        results[f"hxt_fma {str(xdt)[6:]}"] = run_x_pass_case("hxt", X, H, True)
+        run_x_pass_case("wtx", X, W[:, :5].contiguous(), True)
+        results[f"wtx_fma {str(xdt)[6:]}"] = run_x_pass_case(
+            "wtx", X, W[:, 10:].contiguous(), True)
+        del X, W, H
+        torch.cuda.empty_cache()
     for xdt in (torch.int8, torch.bfloat16, torch.float32, torch.int16):
         for K, n in ((1, 1001), (13, 1001), (300, 1001), (40, 5040), (65, 5040),
                      (512, 5040), (40, 17)):
@@ -634,52 +671,74 @@ def main():
         del X
 
     # -- where the fit's device time goes: the fused fit loop alone ----------
-    X, W, H, _, Ys, Bs, lam = iteration_problem(
-        torch, gen, dev, G, N, BLOCKS, N_LABELS, torch.int8)
-    hyper = (lam, 0.0, 0.0, 0.0, EPS)
-    tables = group_tables(Ys)
-    loop_gen = torch.Generator(device=dev)
+    def run_fit_loops(loops, xdtype):
+        """Each (phase, weighted, als, iterations) fit loop on device-resident
+        bench data whose X is stored as xdtype (int16: counts above 127)."""
+        X, W, H, _, Ys, Bs, lam = iteration_problem(
+            torch, gen, dev, G, N, BLOCKS, N_LABELS, xdtype)
+        if xdtype == torch.int16:
+            X *= 3
+        hyper = (lam, 0.0, 0.0, 0.0, EPS)
+        tables = group_tables(Ys)
+        loop_gen = torch.Generator(device=dev)
 
-    def draw_counts(t):
-        loop_gen.manual_seed(t)
-        return mu.grouped_balanced_counts(loop_gen, N, tables)
+        def draw_counts(t):
+            loop_gen.manual_seed(t)
+            return mu.grouped_balanced_counts(loop_gen, N, tables)
 
-    for phase, weighted, als, iters in (
-            ("fit_loop", False, False, LOOP_ITERS),
-            ("fit_loop_weighted_fast", True, False, LOOP_ITERS),
-            ("fit_loop_als", False, True, ALS_LOOP_ITERS)):
-        cfg = mu.MUConfig(blocks=BLOCKS, n_labels=N_LABELS, n_cells=N,
-                          max_iter=iters, x_dtype="int8",
-                          weighted_counts=weighted, use_als=als)
-        drive = lambda: mu.fit_scan(cfg, W, H, Bs, X, Ys, hyper,
-                                    draw_counts=draw_counts)
-        drive()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        drive()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        loop_launches = {}
+        for phase, weighted, als, iters in loops:
+            cfg = mu.MUConfig(blocks=BLOCKS, n_labels=N_LABELS, n_cells=N,
+                              max_iter=iters, x_dtype=str(xdtype)[6:],
+                              weighted_counts=weighted, use_als=als)
+            drive = lambda: mu.fit_scan(cfg, W, H, Bs, X, Ys, hyper,
+                                        draw_counts=draw_counts)
+            drive()
+            torch.cuda.synchronize()
+            kernels.reset_launches()
             t0 = time.perf_counter()
             drive()
             torch.cuda.synchronize()
-            traced_wall = time.perf_counter() - t0
-        events = [e for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA
-                  and e.self_device_time_total > 0]
-        events.sort(key=lambda e: -e.self_device_time_total)
-        busy_us = sum(e.self_device_time_total for e in events)
-        emit({"phase": phase, "iterations": iters,
-              "ms_per_iteration": wall * 1e3 / iters,
-              # kernel time over wall time, both of the traced run
-              "device_busy_share": busy_us * 1e-6 / traced_wall,
-              "device_ms_per_iteration": busy_us * 1e-3 / iters,
-              "top_device_kernels_ms_per_iteration": [
-                  [e.key[:60], e.self_device_time_total * 1e-3 / iters]
-                  for e in events[:10]]})
-    del X, W, H, Ys, Bs, tables
-    torch.cuda.empty_cache()
+            wall = time.perf_counter() - t0
+            loop_launches[phase] = dict(kernels.launches)
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                drive()
+                torch.cuda.synchronize()
+                traced_wall = time.perf_counter() - t0
+            events = [e for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA
+                      and e.self_device_time_total > 0]
+            events.sort(key=lambda e: -e.self_device_time_total)
+            busy_us = sum(e.self_device_time_total for e in events)
+            emit({"phase": phase, "iterations": iters, "x_dtype": str(xdtype)[6:],
+                  "launches": loop_launches[phase],
+                  "ms_per_iteration": wall * 1e3 / iters,
+                  # kernel time over wall time, both of the traced run
+                  "device_busy_share": busy_us * 1e-6 / traced_wall,
+                  "device_ms_per_iteration": busy_us * 1e-3 / iters,
+                  "top_device_kernels_ms_per_iteration": [
+                      [e.key[:60], e.self_device_time_total * 1e-3 / iters]
+                      for e in events[:10]]})
+        del X, W, H, Ys, Bs, tables
+        torch.cuda.empty_cache()
+        return loop_launches
+
+    run_fit_loops((("fit_loop", False, False, LOOP_ITERS),
+                   ("fit_loop_weighted_fast", True, False, LOOP_ITERS),
+                   ("fit_loop_als", False, True, ALS_LOOP_ITERS)), torch.int8)
+    # int16 X: the ALS loop runs hxt_fma and wtx_fma, the joint loop K1's
+    # FMA path (and hxt_fma once)
+    int16_launches = run_fit_loops(
+        (("fit_loop_als_int16", False, True, ALS_LOOP_ITERS),
+         ("fit_loop_int16", False, False, LOOP_ITERS)), torch.int16)["fit_loop_als_int16"]
+    float32_launches = run_fit_loops(
+        (("fit_loop_als_float32", False, True, ALS_LOOP_ITERS),), torch.float32
+    )["fit_loop_als_float32"]
+    for tag, counted in (("int16", int16_launches), ("float32", float32_launches)):
+        check(counted["hxt"] == ALS_LOOP_ITERS and counted["wtx"] == 3 * ALS_LOOP_ITERS,
+              f"the {tag} ALS loop must launch hxt once and wtx once a block per iteration")
 
     # -- a small fit on the card against the same fit on the CPU ------------
     r = np.random.default_rng(1)
@@ -864,13 +923,19 @@ def main():
                 "fused_transform": main_launches["fused_transform"],
                 "fused_h_update": unguided_launches["fused_h_update"],
                 "hxt": als_launches["hxt"], "wtx": als_launches["wtx"],
-                "stream_probe": probe_launches}
+                "stream_probe": probe_launches,
+                # the fp32 paths (hxt_fma, wtx_fma): the int16 and float32 ALS loops
+                "hxt_fma int16": int16_launches["hxt"], "wtx_fma int16": int16_launches["wtx"],
+                "hxt_fma float32": float32_launches["hxt"],
+                "wtx_fma float32": float32_launches["wtx"]}
     rows = []
     for kname in ("fused_iteration", "fused_iteration_counts", "fused_h_update",
-                  "fused_transform", "hxt", "wtx", "stream_probe"):
+                  "fused_transform", "hxt", "wtx", "hxt_fma float32", "hxt_fma int16",
+                  "wtx_fma float32", "wtx_fma int16", "stream_probe"):
         res = results[kname]
-        rows.append({"name": kname, "route": "cuda", "source": SOURCES[kname],
-                     "replaces": REPLACES[kname], "launches": launches[kname],
+        base = kname.split()[0].replace("_fma", "")
+        rows.append({"name": kname, "route": "cuda", "source": SOURCES[base],
+                     "replaces": REPLACES[base], "launches": launches[kname],
                      "max_abs_err": res.get("max_abs_err_Hn", res.get("max_abs_err")),
                      "ms": res["ms"], "plain_ms": res["plain_ms"],
                      "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],

@@ -18,29 +18,32 @@ A run times, at the bench shape (100k cells x 2,000 genes, K = 40, labels
 - ``fused_transform`` (K3), 50 steps at the bench shape (num2 = 2WᵀX,
   WtW2 = 2WᵀW, H0 = H): median CUDA-event ms of 20 warm launches;
 - ALS's X passes: P1 ``hxt`` (K = 40) and P2 ``wtx`` (k = 5 and 30) on the
-  int8 X, median CUDA-event ms of 20 warm launches (each also over 20
-  launches in a row: ``hxt_back_to_back_ms``, ``wtx_k5_back_to_back_ms``,
-  ``wtx_k30_back_to_back_ms``), and the ALS fit loop
-  (``mu.fit_scan`` with ``use_als``), ms per iteration over 20 iterations,
-  the median of three runs;
+  int8 X, and on float32 X (the counts plus a uniform fraction) and int16
+  X (the counts times 3: above 127), median CUDA-event ms of 20 warm
+  launches (each also over 20 launches in a row: ``hxt_back_to_back_ms``,
+  ``wtx_k5_back_to_back_ms``, ``..._float32_...``, ``..._int16_...``), and
+  the ALS fit loop (``mu.fit_scan`` with ``use_als``) on the int8 and on
+  the int16 X, ms per iteration over 20 iterations, the median of three
+  runs, and its device ms per iteration (torch.profiler, one more run);
 - a digest of every output of K1, K4 and K2 with the same inputs held as
   float32 and as int16 X (the fp32 FMA path), of K3's output at the
   bench shape and at K = 300, of ``hxt`` and ``wtx`` (k = 5 and 30) on
   float32 and int16 X, and of ``wtx`` on int8 and bf16 X (the tensor-core
-  path), whose outputs the run also saves beside ``wtx_plain``'s.
+  path); the X passes' outputs are also saved beside their plain versions'.
 
 Prints one JSON line per run, then one summary line with the mean of each
 checkout's two runs, whether all four runs agree bit for bit on the
 float32/int16 outputs of K1/K2/K4 (``fp32_path_bits_equal``), on K3's
 (``k3_bits_equal``), on ``hxt``'s float32/int16 outputs
-(``x_pass_fp32_bits_equal``) and on ``wtx``'s (``wtx_fp32_bits_equal``);
-for ``wtx``'s tensor-core path whether the four runs agree
-(``wtx_bf16_path_bits_equal``; false where a change alters that kernel's
-summation order) and whether each checkout's two runs do
-(``wtx_bf16_path_runs_repeat``), and the largest difference between the
-two checkouts' outputs, absolute and over ``wtx_plain``'s tolerance (rtol
-1e-4 + 1e-6 max|plain|: at most 1 when both trees hold it); and the card's
-name and power limit.  Needs one NVIDIA GPU; exits non-zero without one.
+(``x_pass_fp32_bits_equal``), on ``wtx``'s (``wtx_fp32_bits_equal``) and
+on ``wtx``'s tensor-core path (``wtx_bf16_path_bits_equal``); for each of
+the last three, whether each checkout's two runs agree (``..._runs_repeat``)
+and the largest difference between the two checkouts' outputs, absolute
+and over the plain version's tolerance (rtol 1e-4 + 1e-6 max|plain|: at
+most 1 when both trees hold it; ``..._max_abs_diff``,
+``..._diff_over_tolerance``), for a change that alters a kernel's
+summation order; and the card's name and power limit.  Needs one NVIDIA
+GPU; exits non-zero without one.
 """
 
 import hashlib
@@ -65,6 +68,9 @@ def child(root, save_path):
     sys.path.insert(0, os.path.abspath(root))
     import numpy as np
     import torch
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
 
     from alpine_tpu_torch.ops import kernels, mu
     from alpine_tpu_torch.utils.sampling import balanced_group_tables, joint_label_ids
@@ -148,18 +154,29 @@ def child(root, save_path):
     torch.cuda.empty_cache()
     W5, W30 = W[:, :5].contiguous(), W[:, 10:].contiguous()
     x_pass_bits, wtx_fp32_bits, wtx_bf16_bits, saved = {}, {}, {}, {}
+    x_pass_ms = {}
     for dt in (torch.float32, torch.int16, torch.bfloat16, torch.int8):
-        Xd, name = X.to(dt), str(dt)[6:]
+        name = str(dt)[6:]
+        Xd = ((X + torch.rand(X.shape, generator=gen, device=dev)) if dt == torch.float32
+              else X.to(dt) * 3 if dt == torch.int16 else X).to(dt)
         outs = [kernels.wtx(Xd, W5), kernels.wtx(Xd, W30)]
-        if dt in (torch.float32, torch.int16):
-            x_pass_bits[name] = digest([[kernels.hxt(Xd, H)]])
-            wtx_fp32_bits[name] = digest([outs])
-        else:
-            wtx_bf16_bits[name] = digest([outs])
-            for k, Wk, out in ((5, W5, outs[0]), (30, W30, outs[1])):
-                saved[f"{name}_k{k}"] = out.cpu()
-                saved[f"{name}_k{k}_plain"] = kernels.wtx_plain(Xd, Wk).cpu()
+        group = "wtx_bf16" if dt in (torch.bfloat16, torch.int8) else "wtx_fp32"
+        (wtx_bf16_bits if group == "wtx_bf16" else wtx_fp32_bits)[name] = digest([outs])
+        for k, Wk, out in ((5, W5, outs[0]), (30, W30, outs[1])):
+            saved[f"{group}/{name}_k{k}"] = out.cpu()
+            saved[f"{group}/{name}_k{k}_plain"] = kernels.wtx_plain(Xd, Wk).cpu()
+        if group == "wtx_fp32":
+            out = kernels.hxt(Xd, H)
+            x_pass_bits[name] = digest([[out]])
+            saved[f"x_pass_fp32/{name}"] = out.cpu()
+            saved[f"x_pass_fp32/{name}_plain"] = kernels.hxt_plain(Xd, H).cpu()
+            for tag, fn in (("hxt", lambda: kernels.hxt(Xd, H)),
+                            ("wtx_k5", lambda: kernels.wtx(Xd, W5)),
+                            ("wtx_k30", lambda: kernels.wtx(Xd, W30))):
+                x_pass_ms[f"{tag}_{name}_ms"] = time_ms(fn)
+                x_pass_ms[f"{tag}_{name}_back_to_back_ms"] = back_to_back_ms(fn)
         del Xd, outs
+        torch.cuda.empty_cache()
     torch.save(saved, save_path)
     del saved
     torch.cuda.empty_cache()
@@ -184,12 +201,14 @@ def child(root, save_path):
         loop_gen.manual_seed(t)
         return mu.grouped_balanced_counts(loop_gen, N, tables)
 
-    def loop_ms(weighted, als=False):
+    def loop_ms(weighted, als=False, Xl=X, Yl=Ys, device=False):
+        """Host ms an iteration (median of LOOP_REPEATS runs) and, with
+        ``device``, the device ms an iteration of one more run (profiler)."""
         iters = ALS_LOOP_ITERS if als else LOOP_ITERS
         cfg = mu.MUConfig(blocks=BLOCKS, n_labels=N_LABELS, n_cells=N,
-                          max_iter=iters, x_dtype="int8",
+                          max_iter=iters, x_dtype=str(Xl.dtype)[6:],
                           weighted_counts=weighted, use_als=als)
-        run = lambda: mu.fit_scan(cfg, W, H, Bs, X, Ys, hyper, draw_counts=draw_counts)
+        run = lambda: mu.fit_scan(cfg, W, H, Bs, Xl, Yl, hyper, draw_counts=draw_counts)
         run()
         torch.cuda.synchronize()
         times = []
@@ -198,8 +217,22 @@ def child(root, save_path):
             run()
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3 / iters)
-        return float(np.median(times))
+        if not device:
+            return float(np.median(times))
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        busy_us = sum(e.self_device_time_total for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA)
+        return float(np.median(times)), busy_us * 1e-3 / iters
 
+    als_loops = {}
+    X16, Ys16 = X.to(torch.int16) * 3, [y.to(torch.int16) for y in Ys]
+    for tag, Xl, Yl in (("", X, Ys), ("_int16", X16, Ys16)):
+        host, dev_ms = loop_ms(False, als=True, Xl=Xl, Yl=Yl, device=True)
+        als_loops[f"fit_loop_als{tag}_ms_per_iteration"] = host
+        als_loops[f"fit_loop_als{tag}_device_ms_per_iteration"] = dev_ms
+    del X16, Ys16
     print(json.dumps({"root": root, "fused_iteration_ms": k1,
                       "fused_h_update_ms": k2,
                       "fused_iteration_counts_ms": k4,
@@ -209,21 +242,22 @@ def child(root, save_path):
                       "wtx_k30_ms": wtx30_ms, "wtx_k30_back_to_back_ms": wtx30_b2b_ms,
                       "fit_loop_ms_per_iteration": loop_ms(False),
                       "fit_loop_weighted_fast_ms_per_iteration": loop_ms(True),
-                      "fit_loop_als_ms_per_iteration": loop_ms(False, als=True),
+                      **x_pass_ms, **als_loops,
                       "fp32_path_bits": bits, "k3_bits": k3_bits,
                       "x_pass_fp32_bits": x_pass_bits, "wtx_fp32_bits": wtx_fp32_bits,
                       "wtx_bf16_bits": wtx_bf16_bits}), flush=True)
 
 
-def bf16_path_difference(parent_path, change_path):
-    """The largest difference between two trees' saved wtx outputs on the
-    tensor-core path: (max abs, max over the plain version's tolerance)."""
+def path_difference(parent_path, change_path, group):
+    """The largest difference between two trees' saved outputs of one group
+    (``wtx_bf16``, ``wtx_fp32``, ``x_pass_fp32``): (max abs, max over the
+    plain version's tolerance)."""
     import torch
 
     a, b = torch.load(parent_path), torch.load(change_path)
     worst_abs = worst_tol = 0.0
     for key in a:
-        if key.endswith("_plain"):
+        if not key.startswith(f"{group}/") or key.endswith("_plain"):
             continue
         plain = a[f"{key}_plain"].double()
         diff = (a[key].double() - b[key].double()).abs()
@@ -273,11 +307,13 @@ def main(argv):
         seen = {json.dumps(r.get(key), sort_keys=True)
                 for rs in runs.values() for r in rs}
         summary[out] = len(seen) == 1
-    summary["wtx_bf16_path_runs_repeat"] = all(
-        rs[0].get("wtx_bf16_bits") == rs[1].get("wtx_bf16_bits") for rs in runs.values())
-    (summary["wtx_bf16_path_max_abs_diff"],
-     summary["wtx_bf16_path_diff_over_tolerance"]) = bf16_path_difference(
-        saves[parent][0], saves[change][0])
+    for key, group, out in (("wtx_bf16_bits", "wtx_bf16", "wtx_bf16_path"),
+                            ("wtx_fp32_bits", "wtx_fp32", "wtx_fp32"),
+                            ("x_pass_fp32_bits", "x_pass_fp32", "x_pass_fp32")):
+        summary[f"{out}_runs_repeat"] = all(
+            rs[0].get(key) == rs[1].get(key) for rs in runs.values())
+        summary[f"{out}_max_abs_diff"], summary[f"{out}_diff_over_tolerance"] = (
+            path_difference(saves[parent][0], saves[change][0], group))
     tmp.cleanup()
     print(json.dumps(summary), flush=True)
     return 0

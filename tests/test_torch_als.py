@@ -155,20 +155,22 @@ def test_x_pass_wrappers_check_inputs():
 
 
 def test_wtx_tile_rule():
-    """wtx's fp32 path keeps tile_width; its bf16 path takes wtx_grid's
-    tile: all of K in one pass (at most 6 fragment rows a warp, 48
-    accumulators a thread) for every K up to 512, T a multiple of 16."""
+    """wtx's fp32 path takes wtx_fma_grid's tile (12 cells a thread, 32 / LK
+    threads along the cells), its bf16 path wtx_grid's: all of K in one
+    pass (at most 6 fragment rows a warp, 48 accumulators a thread) for
+    every K up to 512, T a multiple of 16."""
     for K in range(1, 513):
-        assert kernels.wtx_tile_width(K, torch.float32) == kernels.tile_width(K)
-        assert kernels.wtx_tile_width(K, torch.int16) == kernels.tile_width(K)
+        for xdt in (torch.float32, torch.int16):
+            T, LK, _, _, blocks = kernels.wtx_fma_grid(2000, 100_000, K, xdt)
+            assert T == 12 * 32 // LK and blocks == -(-100_000 // T)
         T, WR, GC, S, blocks = kernels.wtx_grid(2000, 100_000, K, torch.int8)
         frags = -(-(kernels._pad16(K) // 16) // WR)  # fragment rows a warp
         cells = T // (8 // WR)  # cells a warp
         assert T % 16 == 0 and cells % 16 == 0 and frags <= 6
         assert frags * cells // 2 <= 48  # 8 accumulators a 16 x 16 fragment
         assert blocks == -(-100_000 // T)
-    with pytest.raises(ValueError, match="wtx_grid"):
-        kernels.wtx_tile_width(30, torch.int8)
+    with pytest.raises(ValueError, match="float32 and int16"):
+        kernels.wtx_fma_grid(2000, 100_000, 30, torch.int8)
     assert kernels.wtx_grid(2000, 100_000, 5, torch.int8)[0] == 384
     assert kernels.wtx_grid(2000, 100_000, 30, torch.int8)[0] == 384
     assert kernels.wtx_grid(2000, 100_000, 40, torch.int8)[0] == 192

@@ -311,8 +311,10 @@ def test_cuda_tensor_never_takes_the_plain_path(cuda, monkeypatch):
 def _x_pass_problem(seed, g, n, K, dtype, dev):
     r = np.random.default_rng(seed)
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-    if dtype in ("int8", "int16"):
+    if dtype == "int8":
         X = r.poisson(3.0, (g, n)).clip(0, 127).astype(np.float32)
+    elif dtype == "int16":  # counts above 127, and a few negative values
+        X = (r.poisson(3.0, (g, n)) * 300 - r.integers(0, 2, (g, n)) * 7).astype(np.float32)
     else:
         X = r.random((g, n), dtype=np.float32)
     H = r.random((K, n), dtype=np.float32) + 0.1
@@ -347,46 +349,54 @@ def test_x_passes_cuda_match_plain(cuda, dtype, K, n):
     assert torch.equal(got_h, moved_h) and torch.equal(got_w, moved_w)
 
 
+def _x_pass_grid(kind, g, n, K, xdt):
+    """(cells a split or tile, splits or tiles) of the grid hxt or wtx runs."""
+    if kind == "hxt":
+        rule = kernels.hxt_grid if xdt in (torch.int8, torch.bfloat16) else kernels.hxt_fma_grid
+        _, n_split, cps, _, _ = rule(g, n, K, xdt)
+        return cps, n_split
+    rule = kernels.wtx_grid if xdt in (torch.int8, torch.bfloat16) else kernels.wtx_fma_grid
+    T, _, _, _, blocks = rule(g, n, K, xdt)
+    return T, blocks
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["int8", "bfloat16", "float32"])
+@pytest.mark.parametrize("dtype", ["int8", "bfloat16", "float32", "int16"])
 @pytest.mark.parametrize("n", [50_000, 50_001, 50_016])
 def test_hxt_cuda_same_bits(cuda, dtype, n):
     """Two launches of P1 give the same bits (fixed-order partial sums) at a
     width that splits the cells over many blocks, the last split ragged;
     50,001 cells take the element-by-element staging, 50,000 and 50,016 the
-    cp.async ring, and on the bf16 path the same values off 16-byte
-    alignment give the same bits too.  The result matches the plain
-    version."""
+    cp.async ring, and the same values off 16-byte alignment give the same
+    bits too.  int16 X holds counts above 127.  The result matches the
+    plain version."""
     X, _, H = _x_pass_problem(5, 300, n, 40, dtype, cuda)
-    if dtype != "float32":
-        GB, n_split, cps, _, _ = kernels.hxt_grid(300, n, 40, X.dtype)
-        assert n_split > 1 and n % cps != 0  # the last split is ragged
+    cps, n_split = _x_pass_grid("hxt", 300, n, 40, X.dtype)
+    assert n_split > 1 and n % cps != 0  # the last split is ragged
     got = kernels.hxt(X, H)
     assert torch.equal(got, kernels.hxt(X, H))
-    if dtype != "float32":
-        assert torch.equal(got, kernels.hxt(_unaligned(X), _unaligned(H)))
+    assert torch.equal(got, kernels.hxt(_unaligned(X), _unaligned(H)))
     _close(got, kernels.hxt_plain(X, H), 1e-4, 1e-5)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["int8", "bfloat16", "float32"])
+@pytest.mark.parametrize("dtype", ["int8", "bfloat16", "float32", "int16"])
 @pytest.mark.parametrize("n", [50_000, 50_001, 50_016])
 def test_wtx_cuda_same_bits(cuda, dtype, n):
     """Two launches of P2 give the same bits (each output written once, by
     the block of its cells) at a width of many tiles, the last ragged;
     50,001 cells take the element-by-element staging, 50,000 and 50,016
-    the cp.async ring, and on the bf16 path the same values off 16-byte
-    alignment give the same bits too.  The result matches the plain
-    version."""
-    X, W, _ = _x_pass_problem(6, 300, n, 30, dtype, cuda)
-    if dtype != "float32":
-        T, _, _, _, blocks = kernels.wtx_grid(300, n, 30, X.dtype)
+    the cp.async ring, and the same values off 16-byte alignment give the
+    same bits too.  int16 X holds counts above 127.  The result matches the
+    plain version, at k = 30 and k = 5."""
+    for K in (30, 5):
+        X, W, _ = _x_pass_problem(6, 300, n, K, dtype, cuda)
+        T, blocks = _x_pass_grid("wtx", 300, n, K, X.dtype)
         assert blocks > 1 and n % T != 0  # the last tile is ragged
-    got = kernels.wtx(X, W)
-    assert torch.equal(got, kernels.wtx(X, W))
-    if dtype != "float32":
+        got = kernels.wtx(X, W)
+        assert torch.equal(got, kernels.wtx(X, W))
         assert torch.equal(got, kernels.wtx(_unaligned(X), _unaligned(W)))
-    _close(got, kernels.wtx_plain(X, W), 1e-4, 1e-5)
+        _close(got, kernels.wtx_plain(X, W), 1e-4, 1e-5)
 
 
 @pytest.mark.cuda

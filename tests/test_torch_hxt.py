@@ -5,7 +5,8 @@ tests hold what it is given: every gene and cell covered once, splits that
 are multiples of the ring's chunk, shared memory within a Hopper block's
 limit for every K, and the sum of per-split partials in split order over
 that grid equal to ``hxt_plain`` (rtol 1e-5: fp32 sums of positive terms in
-another order).  The float32/int16 path and K1 keep ``_cell_splits``.
+another order).  The float32/int16 path takes ``hxt_fma_grid``
+(tests/test_torch_fp32_passes.py); K1 keeps ``_cell_splits``.
 """
 
 import numpy as np
@@ -83,8 +84,9 @@ def test_hxt_grid_at_the_bench_shape():
 
 
 def test_cell_splits_keep_the_fp32_and_k1_grid():
-    """_cell_splits, which K1 (fused_iteration's X Hnᵀ pass) and hxt's
-    float32/int16 path use, keeps its grid at the bench shape."""
+    """_cell_splits, which K1 (fused_iteration's X Hnᵀ pass) uses, keeps
+    its grid at the bench shape; hxt's float32/int16 path no longer takes
+    it (hxt_fma_grid)."""
     for xdt in (torch.int8, torch.float32):
         assert kernels.iteration_tile_width(40, xdt) == 64
     assert kernels._cell_splits(2000, 100_000, 64) == (131, 768)

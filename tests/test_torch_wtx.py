@@ -8,7 +8,7 @@ for every K, the bench shape's grid pinned, and an emulation of the
 kernel's arithmetic over that grid (W rounded to bf16, exact products, fp32
 sums chunk by chunk over the genes) equal to ``wtx_plain`` at rtol 1e-5
 (fp32 sums of positive terms in another order).  The float32/int16 path
-keeps ``wtx_tile_width`` (tests/test_torch_als.py::test_wtx_tile_rule).
+takes ``wtx_fma_grid`` (tests/test_torch_fp32_passes.py).
 """
 
 import numpy as np
