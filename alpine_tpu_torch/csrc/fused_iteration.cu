@@ -12,17 +12,18 @@
 //
 // Design (simple first, then the X products on tensor cores):
 //  * iter_tiles: a grid of at most 2112 blocks, each walking a contiguous
-//    range of T-cell tiles.  Per tile it accumulates WtX = W^T X over gene
-//    chunks staged in shared memory, forms Hn = H * num / max(den, eps) with
-//    the guided terms of all covariates through the block-embedded Bg, and
-//    adds the tile's H-side statistics (HHt, rowsum, Bnum, the
-//    prediction-loss rows and the loss dot) into that block's private
-//    partial in global memory.  The ragged last tile is masked, so the cell
+//    range of T-cell tiles.  Per tile it has WtX = W^T X (bf16 path: over
+//    gene chunks staged in shared memory; fp32 path: from wtx_fma), forms
+//    Hn = H * num / max(den, eps) with the guided terms of all covariates
+//    through the block-embedded Bg, and adds the tile's H-side statistics
+//    (HHt, rowsum, Bnum, the prediction-loss rows and the loss dot) into
+//    that block's private partial in global memory.  The ragged last tile is masked, so the cell
 //    axis needs no padding and the KL loss carries no padding bias.
-//  * hxt_partial: XHt = X Hn^T split over (gene block, cell range); each
-//    block accumulates its K x GB outputs and writes one partial.  This
-//    reads X a second time from device memory (the TPU kernel reads it
-//    once); fusing the two passes is later work.
+//  * hxt_partial (bf16 path; hxt_fma on the fp32 path): XHt = X Hn^T split
+//    over (gene block, cell range); each block accumulates its K x GB
+//    outputs and writes one partial.  This reads X a second time from
+//    device memory (the TPU kernel reads it once); fusing the two passes is
+//    later work.
 //  * reduce_partials: sums every partial in a fixed order, so a run gives
 //    the same bits each time (no floating-point atomics).
 //
@@ -38,10 +39,9 @@
 // SM.  iter_tiles stores the fragments to shared memory (sWtX, row stride
 // T + 4) for the H update and the loss dot, hxt_partial through shared
 // memory to its partial.  Products are exact and sums fp32: the plain
-// version's result up to summation order.  Since fragments, not kMaxOut
-// registers, hold the outputs, this path has its own tile rule
-// (ops/kernels.py:iteration_tile_width): T = max(16, tile_width(K)), a
-// multiple of 16 for every K up to 512.
+// version's result up to summation order.  Fragments take 16 cells, so this
+// path has its own tile rule (ops/kernels.py:iteration_tile_width):
+// T = max(16, tile_width(K)), a multiple of 16 for every K up to 512.
 //
 // Staging, not the products, is what the bf16 path spends its time on (on
 // the H100, the X loads alone took most of each pass when they moved a byte
@@ -54,10 +54,20 @@
 // HHt, the guided rows) and, in hxt_partial, re-reading Hn from L2 for
 // every gene block.
 //
-// Float32 and int16 X keep fp32 FMA with both operands from shared memory
-// (phase 1 and hxt_partial's else branches): matmul_precision="highest"
-// means true fp32, and no TF32 tensor-core path is taken.  That path is
-// bound by shared-memory loads (two per FMA).
+// Float32 and int16 X run both X products on the FP32 units
+// (matmul_precision="highest" means true fp32: no TF32) through the
+// kernels of ALS's fp32 X passes (fma_passes.cuh), one C call launching
+// four kernels in order:
+//  * wtx_fma writes WtX = Wᵀ X (K x n fp32) to a scratch buffer over its
+//    own one-wave grid of wide cell tiles (ops/kernels.py:wtx_fma_grid);
+//  * iter_tiles reads its tile of WtX into sWtX and does the H update and
+//    the statistics as above (no gene loop of its own);
+//  * hxt_fma sums X Hnᵀ (in counts mode X Hsᵀ, with Hs = c_next * Hn, which
+//    iter_tiles writes to a second K x n scratch buffer) into one partial a
+//    cell split over hxt_fma_grid's one-wave grid;
+//  * reduce_partials adds the statistics' and the splits' partials.
+// Each pass streams X as stored through a cp.async ring and keeps a
+// register micro-tile a thread; int16 is widened exactly in shared memory.
 //
 // Counts mode (weighted_fast; pallas_kernels.py:fused_iteration with
 // `counts`, _iter_kernel:471-592): a (2, n) f32 count block C rides along.
@@ -69,11 +79,12 @@
 // the loss dot and the prediction-loss rows stay unscaled, and one more
 // K x K output, HHtU = Hn Hnᵀ, carries the unscaled product the
 // reconstruction loss needs.  hxt_partial rounds the product c_next * hn
-// to X's partner dtype, as the TPU kernel rounds Hs.  Counts mode is a
-// template parameter, so the passes above compile unchanged without it.
+// to bf16, as the TPU kernel rounds Hs; on the fp32 path hxt_fma reads the
+// same fp32 product from the Hs buffer.  Counts mode is a template
+// parameter, so the passes above compile unchanged without it.
 // Bound at 100k cells x 2000 genes, K = 40, int8 X: 234 MB (the 233 MB
 // above + 0.8 MB of counts), 0.070 ms at 3.35 TB/s.
-#include "common.cuh"
+#include "fma_passes.cuh"
 
 #include <mma.h>
 
@@ -81,8 +92,6 @@ namespace alpine {
 
 using namespace nvcuda;
 
-constexpr int kGeneChunk = 16;  // genes staged per phase-1 step (fp32 path)
-constexpr int kCellChunk = 32;  // cells a split holds a multiple of; fp32 path's step
 // bf16 path: genes per phase-1 step (ops/kernels.py: _MMA_GENE_CHUNK), cells
 // per hxt_partial step, and the accumulator fragments a warp holds in one
 // pass over the genes or cells: a block holds kWarps * kMmaFrags = 16
@@ -104,9 +113,9 @@ __host__ __device__ inline int pad16(int v) { return (v + 15) / 16 * 16; }
 // On the bf16 path (mma) the staging holds bf16 W and X chunks with rows
 // padded by 8 values, and sWtX has Kp rows of stride T + 4: a fragment store
 // needs a stride that is a multiple of 4 floats and 32-byte aligned rows.
+// The fp32 path stages nothing: its WtX comes from wtx_fma.
 __host__ __device__ inline size_t iter_stage_floats(bool mma, int K, int T) {
-  return mma ? (size_t)kMmaGeneChunk * (pad16(K) + 8 + T + 8) / 2
-             : (size_t)kGeneChunk * K + (size_t)kGeneChunk * T;
+  return mma ? (size_t)kMmaGeneChunk * (pad16(K) + 8 + T + 8) / 2 : 0;
 }
 __host__ __device__ inline size_t iter_h_floats(bool mma, int K, int T) {
   const size_t f = (size_t)K * (T + 1);
@@ -311,26 +320,19 @@ __device__ __forceinline__ void stage_w_run(__nv_bfloat16* sWb, int LW,
   }
 }
 
-// True when every row of a (rows, n) array of T at p starts 16-byte aligned.
-template <typename T>
-__device__ __forceinline__ bool rows_aligned16(const T* p, int n) {
-  return ((size_t)n * sizeof(T)) % 16 == 0 && (reinterpret_cast<uintptr_t>(p) & 15) == 0;
-}
-
 template <typename XT, bool kBf16, bool kCounts>
 __global__ void __launch_bounds__(kThreads, kBf16 ? kMmaMinBlocks : 0)
 iter_tiles(const XT* __restrict__ X, const float* __restrict__ W,
            const float* __restrict__ H, const float* __restrict__ WtW,
            const XT* __restrict__ Y, const float* __restrict__ Bg,
            const float* __restrict__ lam_rows, const float* __restrict__ C,
-           int g, int n, int K, int L, int Kg, int loss_kl, float eps, int T,
-           int tiles_per_block, int n_tiles, int S_len,
-           float* __restrict__ Hn, float* __restrict__ part) {
+           const float* __restrict__ WtXg, int g, int n, int K, int L, int Kg,
+           int loss_kl, float eps, int T, int tiles_per_block, int n_tiles,
+           int S_len, float* __restrict__ Hn, float* __restrict__ Hs_out,
+           float* __restrict__ part) {
   extern __shared__ __align__(128) float sm[];
   const int TP = T + 1;
   const int TW = kBf16 ? T + 4 : TP;       // row stride of sWtX
-  float* sW = sm;                          // kGeneChunk x K (fp32 path)
-  float* sX = sW + kGeneChunk * K;         // kGeneChunk x T (fp32 path)
   // bf16 path: kMmaGeneChunk x (Kp + 8) W and kMmaGeneChunk x (T + 8) X
   const int Kp = pad16(K);
   __nv_bfloat16* sWb = reinterpret_cast<__nv_bfloat16*>(sm);
@@ -393,7 +395,6 @@ iter_tiles(const XT* __restrict__ X, const float* __restrict__ W,
       }
     }
 
-    float acc[kMaxOut];  // fp32 path: WtX in registers
     if constexpr (kBf16) {
       // phase 1 on tensor cores: WtX (Kp x T) = Wᵀ (Kp x chunk) X (chunk x
       // T) over bf16 gene chunks, then stored to sWtX.  X and W move in
@@ -467,42 +468,11 @@ iter_tiles(const XT* __restrict__ X, const float* __restrict__ W,
           }
         }
       }
-    } else {
-    // phase 1: WtX over gene chunks, kept in registers
-#pragma unroll
-    for (int i = 0; i < kMaxOut; ++i) acc[i] = 0.f;
-    for (int g0 = 0; g0 < g; g0 += kGeneChunk) {
-      __syncthreads();
-      for (int o = tid; o < kGeneChunk * K; o += kThreads) {
-        const int gg = o / K, k = o - gg * K;
-        sW[o] = g0 + gg < g ? round_op<kBf16>(W[(size_t)(g0 + gg) * K + k]) : 0.f;
-      }
-      for (int o = tid; o < kGeneChunk * T; o += kThreads) {
-        const int gg = o / T, t = o - gg * T;
-        sX[o] = (g0 + gg < g && t < nv) ? to_f(X[(size_t)(g0 + gg) * n + c0 + t]) : 0.f;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int i = 0; i < kMaxOut; ++i) {
-        const int o = tid + i * kThreads;
-        if (o < KT) {
-          const int k = o / T, t = o - k * T;
-          float a = acc[i];
-#pragma unroll
-          for (int gg = 0; gg < kGeneChunk; ++gg)
-            a = fmaf(sW[gg * K + k], sX[gg * T + t], a);
-          acc[i] = a;
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < kMaxOut; ++i) {
-      const int o = tid + i * kThreads;
-      if (o < KT) {
+    } else {  // the tile's columns of wtx_fma's WtX
+      for (int o = tid; o < KT; o += kThreads) {
         const int k = o / T, t = o - k * T;
-        sWtX[k * TP + t] = acc[i];
+        sWtX[k * TP + t] = t < nv ? WtXg[(size_t)k * n + c0 + t] : 0.f;
       }
-    }
     }
     __syncthreads();
 
@@ -544,7 +514,9 @@ iter_tiles(const XT* __restrict__ X, const float* __restrict__ W,
       float hn = t < nv ? sH[k * TP + t] * (num / fmaxf(den, eps)) : 0.f;
       if constexpr (kCounts) {
         if (!(sC[t] > 0.f)) hn = sH[k * TP + t];  // undrawn: keep H
-        sHs[k * TP + t] = hn * sC[TP + t];
+        const float hs = hn * sC[TP + t];
+        sHs[k * TP + t] = hs;
+        if (!kBf16 && t < nv) Hs_out[(size_t)k * n + c0 + t] = hs;  // for hxt_fma
       }
       sHn[k * TP + t] = hn;
       if (t < nv) Hn[(size_t)k * n + c0 + t] = hn;
@@ -553,20 +525,9 @@ iter_tiles(const XT* __restrict__ X, const float* __restrict__ W,
 
     // loss dot: sum of WtX * Hn over the tile
     float ld = 0.f;
-    if constexpr (kBf16) {
-      for (int o = tid; o < KT; o += kThreads) {
-        const int k = o / T, t = o - k * T;
-        ld = fmaf(sWtX[k * TW + t], sHn[k * TP + t], ld);
-      }
-    } else {
-#pragma unroll
-    for (int i = 0; i < kMaxOut; ++i) {
-      const int o = tid + i * kThreads;
-      if (o < KT) {
-        const int k = o / T, t = o - k * T;
-        ld = fmaf(acc[i], sHn[k * TP + t], ld);
-      }
-    }
+    for (int o = tid; o < KT; o += kThreads) {
+      const int k = o / T, t = o - k * T;
+      ld = fmaf(sWtX[k * TW + t], sHn[k * TP + t], ld);
     }
     sRed[tid] = ld;
     __syncthreads();
@@ -635,162 +596,115 @@ iter_tiles(const XT* __restrict__ X, const float* __restrict__ W,
   }
 }
 
-template <typename XT, bool kBf16, bool kCounts>
-__global__ void __launch_bounds__(kThreads, kBf16 ? kMmaMinBlocks : 0)
+// XHt's partials on the bf16 path (int8, bf16 X); the fp32 path runs
+// hxt_fma (fma_passes.cuh).
+template <typename XT, bool kCounts>
+__global__ void __launch_bounds__(kThreads, kMmaMinBlocks)
 hxt_partial(const XT* __restrict__ X, const float* __restrict__ Hn,
             const float* __restrict__ C, int g, int n, int K, int GB,
             int cells_per_split, float* __restrict__ part_hxt) {
   extern __shared__ __align__(128) float sm[];
-  constexpr int CT = kCellChunk, CTP = kCellChunk + 1;
-  float* sHc = sm;            // K x CTP: Hn (or c_next * Hn) rounded as X's partner
-  float* sXc = sHc + K * CTP;  // GB x CTP
   const int tid = threadIdx.x;
   const int g0 = blockIdx.x * GB;
   const int split = blockIdx.y;
   const int cbeg = split * cells_per_split;
   const int cend = min(n, cbeg + cells_per_split);
-  const int KG = K * GB;
 
-  if constexpr (kBf16) {
-    // on tensor cores: out (Kp x GB) = Hc (Kp x CM) Xcᵀ (CM x GB) over bf16
-    // cell chunks; Hc is c_next * Hn in counts mode, rounded after the product
-    constexpr int CM = kMmaCellChunk, LC = kMmaCellChunk + 8;
-    const int Kp = pad16(K), gcols = GB / 16;
-    const int n_frag = (Kp / 16) * gcols;
-    const int warp = tid / 32;
-    __nv_bfloat16* sHb = reinterpret_cast<__nv_bfloat16*>(sm);  // Kp x LC
-    __nv_bfloat16* sXb = sHb + Kp * LC;                          // GB x LC
-    float* sOut = sm;  // Kp x (GB + 4), once a pass's last chunk is done
-    const int LO = GB + 4;
-    // 16-byte loads where the rows allow (Hn and C share X's cell count)
-    const bool xvec = rows_aligned16(X, n);
-    const bool hvec = rows_aligned16(Hn, n) && (!kCounts || rows_aligned16(C, n));
-    // one pass over the cells for K <= 256, a second for the rest; a pass
-    // holds whole fragment rows (16 is a multiple of gcols)
-    for (int f0 = 0; f0 < n_frag; f0 += kWarps * kMmaFrags) {
-      FragAcc fr[kMmaFrags];
+  // on tensor cores: out (Kp x GB) = Hc (Kp x CM) Xcᵀ (CM x GB) over bf16
+  // cell chunks; Hc is c_next * Hn in counts mode, rounded after the product
+  constexpr int CM = kMmaCellChunk, LC = kMmaCellChunk + 8;
+  const int Kp = pad16(K), gcols = GB / 16;
+  const int n_frag = (Kp / 16) * gcols;
+  const int warp = tid / 32;
+  __nv_bfloat16* sHb = reinterpret_cast<__nv_bfloat16*>(sm);  // Kp x LC
+  __nv_bfloat16* sXb = sHb + Kp * LC;                          // GB x LC
+  float* sOut = sm;  // Kp x (GB + 4), once a pass's last chunk is done
+  const int LO = GB + 4;
+  // 16-byte loads where the rows allow (Hn and C share X's cell count)
+  const bool xvec = rows_aligned16(X, n);
+  const bool hvec = rows_aligned16(Hn, n) && (!kCounts || rows_aligned16(C, n));
+  // one pass over the cells for K <= 256, a second for the rest; a pass
+  // holds whole fragment rows (16 is a multiple of gcols)
+  for (int f0 = 0; f0 < n_frag; f0 += kWarps * kMmaFrags) {
+    FragAcc fr[kMmaFrags];
 #pragma unroll
-      for (int i = 0; i < kMmaFrags; ++i) wmma::fill_fragment(fr[i], 0.f);
-      for (int c0 = cbeg; c0 < cend; c0 += CM) {
-        const int nv = min(CM, cend - c0);
-        __syncthreads();
-        // X's vectors are read first, so that their latency overlaps Hn's
-        constexpr int kSlots = x_slots<XT>(64, CM);
-        VecSlot<XT, false> xs[kSlots];
-        const XT* xsrc = X + (size_t)g0 * n + c0;
-        const int xvpr = CM / VecSlot<XT, false>::V;
-        if (xvec) {
+    for (int i = 0; i < kMmaFrags; ++i) wmma::fill_fragment(fr[i], 0.f);
+    for (int c0 = cbeg; c0 < cend; c0 += CM) {
+      const int nv = min(CM, cend - c0);
+      __syncthreads();
+      // X's vectors are read first, so that their latency overlaps Hn's
+      constexpr int kSlots = x_slots<XT>(64, CM);
+      VecSlot<XT, false> xs[kSlots];
+      const XT* xsrc = X + (size_t)g0 * n + c0;
+      const int xvpr = CM / VecSlot<XT, false>::V;
+      if (xvec) {
 #pragma unroll
-          for (int s = 0; s < kSlots; ++s)
-            xs[s].load(tid + s * kThreads, xvpr, GB, xsrc, n, g - g0, nv, nullptr);
-        } else {
-          stage_bf16(sXb, LC, GB, CM, [&](int gg, int t) {
-            return (t < nv && g0 + gg < g) ? to_f(X[(size_t)(g0 + gg) * n + c0 + t])
-                                           : 0.f;
-          });
-        }
-        if (hvec) {
-          // bf16 X holds two X vectors a thread here; with the counts row as
-          // well, one Hn vector in flight keeps the pass in its registers
-          constexpr int kHBatch = kCounts && kSlots > 1 ? 1 : 2;
-          stage_vec<float, kCounts, kHBatch>(sHb, LC, Kp, CM, Hn + c0, n, K, nv,
-                                             kCounts ? C + (size_t)n + c0 : nullptr);
-        } else {
-          stage_bf16(sHb, LC, Kp, CM, [&](int k, int t) {
-            float h = 0.f;
-            if (k < K && t < nv) {
-              h = Hn[(size_t)k * n + c0 + t];
-              if constexpr (kCounts) h *= C[(size_t)n + c0 + t];
-            }
-            return h;
-          });
-        }
-        if (xvec) {
+        for (int s = 0; s < kSlots; ++s)
+          xs[s].load(tid + s * kThreads, xvpr, GB, xsrc, n, g - g0, nv, nullptr);
+      } else {
+        stage_bf16(sXb, LC, GB, CM, [&](int gg, int t) {
+          return (t < nv && g0 + gg < g) ? to_f(X[(size_t)(g0 + gg) * n + c0 + t])
+                                         : 0.f;
+        });
+      }
+      if (hvec) {
+        // bf16 X holds two X vectors a thread here; with the counts row as
+        // well, one Hn vector in flight keeps the pass in its registers
+        constexpr int kHBatch = kCounts && kSlots > 1 ? 1 : 2;
+        stage_vec<float, kCounts, kHBatch>(sHb, LC, Kp, CM, Hn + c0, n, K, nv,
+                                           kCounts ? C + (size_t)n + c0 : nullptr);
+      } else {
+        stage_bf16(sHb, LC, Kp, CM, [&](int k, int t) {
+          float h = 0.f;
+          if (k < K && t < nv) {
+            h = Hn[(size_t)k * n + c0 + t];
+            if constexpr (kCounts) h *= C[(size_t)n + c0 + t];
+          }
+          return h;
+        });
+      }
+      if (xvec) {
 #pragma unroll
-          for (int s = 0; s < kSlots; ++s)
-            xs[s].store(sXb, LC);
-        }
-        __syncthreads();
+        for (int s = 0; s < kSlots; ++s)
+          xs[s].store(sXb, LC);
+      }
+      __syncthreads();
 #pragma unroll
-        for (int kk = 0; kk < CM; kk += 16) {
+      for (int kk = 0; kk < CM; kk += 16) {
 #pragma unroll
-          for (int i = 0; i < kMmaFrags; ++i) {
-            const int f = f0 + warp + i * kWarps;
-            if (f < n_frag) {  // warp-uniform
-              const int r = f / gcols, c = f - r * gcols;
-              wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                             wmma::row_major> a;
-              wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                             wmma::col_major> b;
-              wmma::load_matrix_sync(a, sHb + r * 16 * LC + kk, LC);
-              wmma::load_matrix_sync(b, sXb + c * 16 * LC + kk, LC);
-              wmma::mma_sync(fr[i], a, b, fr[i]);
-            }
+        for (int i = 0; i < kMmaFrags; ++i) {
+          const int f = f0 + warp + i * kWarps;
+          if (f < n_frag) {  // warp-uniform
+            const int r = f / gcols, c = f - r * gcols;
+            wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
+                           wmma::row_major> a;
+            wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
+                           wmma::col_major> b;
+            wmma::load_matrix_sync(a, sHb + r * 16 * LC + kk, LC);
+            wmma::load_matrix_sync(b, sXb + c * 16 * LC + kk, LC);
+            wmma::mma_sync(fr[i], a, b, fr[i]);
           }
         }
       }
-      __syncthreads();  // every warp is done with the staged chunks
-#pragma unroll
-      for (int i = 0; i < kMmaFrags; ++i) {
-        const int f = f0 + warp + i * kWarps;
-        if (f < n_frag) {
-          const int r = f / gcols, c = f - r * gcols;
-          wmma::store_matrix_sync(sOut + r * 16 * LO + c * 16, fr[i], LO,
-                                  wmma::mem_row_major);
-        }
-      }
-      __syncthreads();
-      // this pass's rows k_lo .. k_hi - 1 to the partial
-      const int k_lo = f0 / gcols * 16;
-      const int k_hi = min(K, (f0 + kWarps * kMmaFrags) / gcols * 16);
-      for (int o = tid; o < (k_hi - k_lo) * GB; o += kThreads) {
-        const int k = k_lo + o / GB, gg = o - (k - k_lo) * GB;
-        if (g0 + gg < g) part_hxt[((size_t)split * K + k) * g + g0 + gg] = sOut[k * LO + gg];
-      }
     }
-  } else {
-  // fp32 FMA, both operands from shared memory
-  float acc[kMaxOut];
+    __syncthreads();  // every warp is done with the staged chunks
 #pragma unroll
-  for (int i = 0; i < kMaxOut; ++i) acc[i] = 0.f;
-  for (int c0 = cbeg; c0 < cend; c0 += CT) {
-    const int nv = min(CT, cend - c0);
-    __syncthreads();
-    for (int o = tid; o < K * CT; o += kThreads) {
-      const int k = o / CT, t = o - k * CT;
-      float h = 0.f;
-      if (t < nv) {
-        h = Hn[(size_t)k * n + c0 + t];
-        if constexpr (kCounts) h *= C[(size_t)n + c0 + t];  // round c*hn, not hn
+    for (int i = 0; i < kMmaFrags; ++i) {
+      const int f = f0 + warp + i * kWarps;
+      if (f < n_frag) {
+        const int r = f / gcols, c = f - r * gcols;
+        wmma::store_matrix_sync(sOut + r * 16 * LO + c * 16, fr[i], LO,
+                                wmma::mem_row_major);
       }
-      sHc[k * CTP + t] = round_op<kBf16>(h);
-    }
-    for (int o = tid; o < GB * CT; o += kThreads) {
-      const int gg = o / CT, t = o - gg * CT;
-      sXc[gg * CTP + t] =
-          (t < nv && g0 + gg < g) ? to_f(X[(size_t)(g0 + gg) * n + c0 + t]) : 0.f;
     }
     __syncthreads();
-#pragma unroll
-    for (int i = 0; i < kMaxOut; ++i) {
-      const int o = tid + i * kThreads;
-      if (o < KG) {
-        const int k = o / GB, gg = o - k * GB;
-        float a = acc[i];
-#pragma unroll 8
-        for (int t = 0; t < CT; ++t) a = fmaf(sHc[k * CTP + t], sXc[gg * CTP + t], a);
-        acc[i] = a;
-      }
+    // this pass's rows k_lo .. k_hi - 1 to the partial
+    const int k_lo = f0 / gcols * 16;
+    const int k_hi = min(K, (f0 + kWarps * kMmaFrags) / gcols * 16);
+    for (int o = tid; o < (k_hi - k_lo) * GB; o += kThreads) {
+      const int k = k_lo + o / GB, gg = o - (k - k_lo) * GB;
+      if (g0 + gg < g) part_hxt[((size_t)split * K + k) * g + g0 + gg] = sOut[k * LO + gg];
     }
-  }
-#pragma unroll
-  for (int i = 0; i < kMaxOut; ++i) {
-    const int o = tid + i * kThreads;
-    if (o < KG) {
-      const int k = o / GB, gg = o - k * GB;
-      if (g0 + gg < g) part_hxt[((size_t)split * K + k) * g + g0 + gg] = acc[i];
-    }
-  }
   }
 }
 
@@ -816,46 +730,60 @@ reduce_partials(const float* __restrict__ part, int n_part, int S_len,
   }
 }
 
+// The bf16 path: iter_tiles (its own phase 1), hxt_partial over
+// _cell_splits' grid of GB-gene blocks, reduce_partials.  The fp32 path:
+// wtx_fma into the scratch WtX (wtx_T, wtx_LK, wtx_GC, wtx_S: its grid),
+// iter_tiles, hxt_fma on Hn (Hs in counts mode) over hxt_fma_grid's grid
+// (GB, n_split, cells_per_split, S, CW), reduce_partials.
 template <typename XT, bool kBf16, bool kCounts>
 static int launch(const void* X, const float* W, const float* H,
                   const float* WtW, const void* Y, const float* Bg,
                   const float* lam_rows, const float* C, int g, int n, int K,
                   int L, int Kg, int loss_kl, float eps, int T, int n_part,
                   int tiles_per_block, int GB, int n_split,
-                  int cells_per_split, float* Hn, float* XHt, float* stats,
-                  float* part, float* part_hxt, cudaStream_t stream) {
+                  int cells_per_split, int S, int CW, int wtx_T, int wtx_LK,
+                  int wtx_GC, int wtx_S, float* Hn, float* XHt, float* stats,
+                  float* part, float* part_hxt, float* WtX, float* Hs,
+                  cudaStream_t stream) {
   const int n_tiles = (n + T - 1) / T;
   // ops/kernels.py:_stats_len: HHt, rowsum, Bnum, pred rows, loss dot, HHtU
   const int S_len = K * K + K + L * K + L + 1 + (kCounts ? K * K : 0);
   const size_t smem_a = iter_smem_floats(K, T, L, Kg, kCounts, kBf16) * sizeof(float);
-  const size_t smem_b = kBf16 ? hxt_mma_smem_bytes(K, GB)
-                              : (size_t)(K + GB) * (kCellChunk + 1) * sizeof(float);
-  // fp32 path: outputs in kMaxOut registers a thread; bf16 path: 16-wide
-  // fragments, and at most 64 cells (genes) for the X staging's slots
-  const bool tiles_ok =
-      kBf16 ? (T % 16 == 0 && GB % 16 == 0 && T <= 64 && GB <= 64)
-            : (K * T <= kThreads * kMaxOut && K * GB <= kThreads * kMaxOut);
-  if (!tiles_ok || smem_a > (size_t)kMaxSmem || smem_b > (size_t)kMaxSmem)
-    return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      iter_tiles<XT, kBf16, kCounts>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem_a);
+  if (smem_a > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
+  cudaError_t err;
+  if constexpr (kBf16) {
+    // 16-wide fragments, and at most 64 cells (genes) for the X staging's slots
+    const size_t smem_b = hxt_mma_smem_bytes(K, GB);
+    if (T % 16 != 0 || GB % 16 != 0 || T > 64 || GB > 64 || smem_b > (size_t)kMaxSmem)
+      return (int)cudaErrorInvalidValue;
+    err = cudaFuncSetAttribute(hxt_partial<XT, kCounts>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_b);
+    if (err != cudaSuccess) return (int)err;
+  } else {
+    if (WtX == nullptr || (kCounts && Hs == nullptr)) return (int)cudaErrorInvalidValue;
+    const int rc = launch_wtx_fma<XT>(X, W, g, n, K, wtx_T, wtx_LK, wtx_GC, wtx_S, WtX, stream);
+    if (rc != 0) return rc;
+  }
+  err = cudaFuncSetAttribute(iter_tiles<XT, kBf16, kCounts>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_a);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(hxt_partial<XT, kBf16, kCounts>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_b);
-  if (err != cudaSuccess) return (int)err;
-
   iter_tiles<XT, kBf16, kCounts><<<n_part, kThreads, smem_a, stream>>>(
       static_cast<const XT*>(X), W, H, WtW, static_cast<const XT*>(Y), Bg,
-      lam_rows, C, g, n, K, L, Kg, loss_kl, eps, T, tiles_per_block, n_tiles,
-      S_len, Hn, part);
+      lam_rows, C, WtX, g, n, K, L, Kg, loss_kl, eps, T, tiles_per_block, n_tiles,
+      S_len, Hn, Hs, part);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  dim3 grid_b((g + GB - 1) / GB, n_split);
-  hxt_partial<XT, kBf16, kCounts><<<grid_b, kThreads, smem_b, stream>>>(
-      static_cast<const XT*>(X), Hn, C, g, n, K, GB, cells_per_split, part_hxt);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  if constexpr (kBf16) {
+    dim3 grid_b((g + GB - 1) / GB, n_split);
+    hxt_partial<XT, kCounts><<<grid_b, kThreads, hxt_mma_smem_bytes(K, GB), stream>>>(
+        static_cast<const XT*>(X), Hn, C, g, n, K, GB, cells_per_split, part_hxt);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  } else {
+    const int rc = launch_hxt_fma<XT>(X, kCounts ? Hs : Hn, g, n, K, GB, n_split,
+                                      cells_per_split, S, CW, part_hxt, stream);
+    if (rc != 0) return rc;
+  }
   const size_t total = (size_t)S_len + (size_t)g * K;
   reduce_partials<<<(unsigned)((total + kThreads - 1) / kThreads), kThreads, 0, stream>>>(
       part, n_part, S_len, stats, part_hxt, n_split, K, g, XHt);
@@ -864,19 +792,25 @@ static int launch(const void* X, const float* W, const float* H,
 
 }  // namespace alpine
 
-// Plain C entry point (ctypes).  Returns 0 or a cudaError_t code.
+// Plain C entry point (ctypes).  Returns 0 or a cudaError_t code.  GB,
+// n_split and cells_per_split are the X Hnᵀ pass's grid on both paths;
+// stages, chunk, the wtx_* grid and the scratch buffers wtx (K x n) and hs
+// (K x n, counts mode) serve the fp32 path (float32, int16 X) only.
 extern "C" int alpine_fused_iteration(
     const void* X, int xtype, const float* W, const float* H, const float* WtW,
     const void* Y, const float* Bg, const float* lam_rows, const float* counts,
     int g, int n, int K, int L, int Kg, int loss_kl, float eps, int T, int n_part,
-    int tiles_per_block, int GB, int n_split, int cells_per_split, float* Hn,
-    float* XHt, float* stats, float* part, float* part_hxt, void* stream) {
+    int tiles_per_block, int GB, int n_split, int cells_per_split, int stages,
+    int chunk, int wtx_T, int wtx_LK, int wtx_GC, int wtx_stages, float* Hn,
+    float* XHt, float* stats, float* part, float* part_hxt, float* wtx, float* hs,
+    void* stream) {
   using namespace alpine;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define ALPINE_ITER_ARGS                                                      \
-  X, W, H, WtW, Y, Bg, lam_rows, counts, g, n, K, L, Kg, loss_kl, eps, T,    \
-      n_part, tiles_per_block, GB, n_split, cells_per_split, Hn, XHt, stats, \
-      part, part_hxt, s
+#define ALPINE_ITER_ARGS                                                       \
+  X, W, H, WtW, Y, Bg, lam_rows, counts, g, n, K, L, Kg, loss_kl, eps, T,     \
+      n_part, tiles_per_block, GB, n_split, cells_per_split, stages, chunk,   \
+      wtx_T, wtx_LK, wtx_GC, wtx_stages, Hn, XHt, stats, part, part_hxt, wtx, \
+      hs, s
   // counts mode is a template parameter: K1 and K2 compile as without it
   const bool c = counts != nullptr;
   switch (xtype) {

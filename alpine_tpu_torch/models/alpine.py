@@ -226,7 +226,19 @@ class ALPINE:
                 "mode only (batch_size=None, use_als=False); minibatch or "
                 "ALS weighted fits use sampling_method='weighted'."
             )
+        if sampling_method == "tiled" and batch_size is None:
+            raise ValueError(
+                "sampling_method='tiled' is a minibatch mode: pass "
+                "batch_size (< n_cells); full-batch fits use "
+                "sampling_method='random'."
+            )
         n_sample = adata.shape[0]
+        if sampling_method == "tiled" and batch_size >= n_sample:
+            raise ValueError(
+                f"sampling_method='tiled' is a minibatch mode: batch_size "
+                f"({batch_size}) must be < n_cells ({n_sample}); full-batch "
+                f"fits use sampling_method='random'."
+            )
         if (sampling_method == "weighted_fast" and batch_size is not None
                 and batch_size < n_sample):
             raise ValueError(
@@ -257,7 +269,7 @@ class ALPINE:
         self.covariate_keys: List[str] = covariate_keys
         self.sampling_method: str = sampling_method
         self.verbose: bool = verbose
-        self.batch_size: int = n_sample
+        self.batch_size: int = batch_size if batch_size is not None else n_sample
 
         dev = self.device
         # X in its storage dtype first, so the group sort below permutes

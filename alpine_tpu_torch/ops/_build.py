@@ -38,7 +38,7 @@ _F = ctypes.c_float
 SIGNATURES = {
     "fused_iteration": ("fused_iteration", "alpine_fused_iteration",
                         [_P, _I] + [_P] * 7
-                        + [_I] * 6 + [_F] + [_I] * 6 + [_P] * 6),
+                        + [_I] * 6 + [_F] + [_I] * 12 + [_P] * 8),
     "fused_transform": ("fused_transform", "alpine_fused_transform",
                         [_P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _P]),
     "hxt": ("x_passes", "alpine_hxt", [_P, _I, _P] + [_I] * 8 + [_P] * 4),

@@ -18,7 +18,7 @@ probe's kernel, on no fit path (``alpine_tpu_torch/probe.py``).
 from __future__ import annotations
 
 from functools import lru_cache
-from typing import Dict, Sequence, Tuple
+from typing import Dict, NamedTuple, Sequence, Tuple
 
 import torch
 
@@ -33,15 +33,16 @@ launches: Dict[str, int] = {"fused_iteration": 0, "fused_iteration_counts": 0,
 # X storage dtype -> code of csrc/common.cuh:XType
 _XTYPE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2, torch.int16: 3}
 _THREADS = 256
-_MAX_TILE_VALUES = 4096  # csrc/common.cuh: kThreads * kMaxOut
+_MAX_TILE_VALUES = 4096  # K × cells of a tile at most (tile_width)
 _MAX_SMEM = 232448  # bytes of dynamic shared memory a Hopper block may use
 # Grid sizes of fused_iteration's two passes: fixed numbers (not the SM
 # count), so a given shape sums its partials in the same order on any card.
 # Several blocks per SM hide the latency of each block's staged loads.
 _MAX_PART_BLOCKS = 2112  # blocks of the per-tile pass (16 per H100 SM)
-_TARGET_HXT_BLOCKS = 4224  # blocks of the X Hnᵀ pass (32 per H100 SM)
-_CELL_CHUNK = 32  # csrc/fused_iteration.cu: kCellChunk
-_GENE_CHUNK = 16  # csrc/fused_iteration.cu: kGeneChunk
+# the bf16 path's X Hnᵀ pass (hxt_partial): about this many blocks (32 per
+# H100 SM), each split a multiple of _CELL_CHUNK cells
+_TARGET_HXT_BLOCKS = 4224
+_CELL_CHUNK = 32
 # fused_iteration's bf16 path (X products on tensor cores, wmma 16x16x16)
 _MMA_XTYPES = (torch.int8, torch.bfloat16)  # X storage that computes in bf16
 _MMA_GENE_CHUNK = 32  # csrc/fused_iteration.cu: kMmaGeneChunk
@@ -91,10 +92,11 @@ def reset_launches() -> None:
 
 
 def tile_width(K: int) -> int:
-    """The port's tile rule: cells per tile (and genes per block of the
-    X Hnᵀ pass) for K components.  A block keeps a K × width output tile in
-    registers, at most 4096 values, so the width halves from 64 as K grows;
-    K > 512 is not supported by the kernels."""
+    """The port's tile rule: cells per tile for K components (fused_iteration's
+    per-tile pass and, on its bf16 path, genes per block of the X Hnᵀ pass;
+    K3's tiled path).  A tile holds K × width values, at most 4096, so the
+    width halves from 64 as K grows; K > 512 is not supported by the
+    kernels."""
     if not 1 <= K <= _MAX_TILE_VALUES // 8:
         raise ValueError(f"the CUDA kernels support 1 <= K <= "
                          f"{_MAX_TILE_VALUES // 8} components, got K={K}")
@@ -107,12 +109,14 @@ def tile_width(K: int) -> int:
 def iteration_tile_width(K: int, x_dtype: torch.dtype) -> int:
     """fused_iteration's tile width for K components and X's storage dtype.
 
-    float32 and int16 X (fp32 FMA) keep ``tile_width``.  int8 and bf16 X
-    run their X products on tensor cores, whose 16 × 16 accumulator
-    fragments take the place of the per-thread register tile: that path
-    takes max(16, tile_width(K)), which differs only for 256 < K <= 512
-    (16 instead of 8).  Its Kp × T output, Kp = K rounded up to 16, is one
-    pass of at most 16 fragments for K <= 256 and two passes above."""
+    float32 and int16 X keep ``tile_width``: their X products run in
+    wtx_fma and hxt_fma over grids of their own (``iteration_grid``), and
+    the tile holds the H update and the statistics.  int8 and bf16 X run
+    their X products on tensor cores, whose 16 × 16 accumulator fragments
+    take the place of a per-thread register tile: that path takes
+    max(16, tile_width(K)), which differs only for 256 < K <= 512 (16
+    instead of 8).  Its Kp × T output, Kp = K rounded up to 16, is one pass
+    of at most 16 fragments for K <= 256 and two passes above."""
     w = tile_width(K)
     return max(16, w) if x_dtype in _MMA_XTYPES else w
 
@@ -133,14 +137,15 @@ def _pad16(v: int) -> int:
 def _iter_smem_bytes(K: int, T: int, L: int, Kg: int, counts: bool,
                      mma: bool = False) -> int:
     """csrc/fused_iteration.cu:iter_smem_floats, in bytes; ``mma`` for the
-    bf16 (tensor-core) path."""
+    bf16 (tensor-core) path.  The fp32 path stages no X or W: its tile of
+    WᵀX comes from wtx_fma."""
     TP = T + 1
     if mma:
         stage = _MMA_GENE_CHUNK * (_pad16(K) + 8 + T + 8) // 2
         h = -(-K * TP // 8) * 8
         wtx = _pad16(K) * (T + 4)
     else:
-        stage = _GENE_CHUNK * K + _GENE_CHUNK * T
+        stage = 0
         h = wtx = K * TP
     return 4 * (stage + h + wtx + K * TP + 3 * L * TP + L * Kg + 2 * Kg
                 + _THREADS + ((K + 2) * TP if counts else 0))
@@ -442,6 +447,46 @@ def hxt_fma_grid(g: int, n: int, K: int, x_dtype: torch.dtype
     return GB, -(-n // cells_per_split), cells_per_split, S, chunk
 
 
+class IterationGrid(NamedTuple):
+    """fused_iteration's launch parameters (csrc/fused_iteration.cu:
+    launch).  T, n_part, tiles_per_block: the per-tile pass iter_tiles;
+    GB, n_split, cells_per_split: the X Hnᵀ pass (both paths); S, chunk:
+    hxt_fma's ring, and wtx_T, wtx_LK, wtx_GC, wtx_S: wtx_fma's grid (fp32
+    path only, 0 on the bf16 path)."""
+    T: int
+    n_part: int
+    tiles_per_block: int
+    GB: int
+    n_split: int
+    cells_per_split: int
+    S: int = 0
+    chunk: int = 0
+    wtx_T: int = 0
+    wtx_LK: int = 0
+    wtx_GC: int = 0
+    wtx_S: int = 0
+
+
+@lru_cache(maxsize=None)  # called once a fit iteration
+def iteration_grid(g: int, n: int, K: int, x_dtype: torch.dtype) -> IterationGrid:
+    """fused_iteration's launch parameters for X (g, n) of ``x_dtype`` and
+    K components.  iter_tiles walks tiles of ``iteration_tile_width`` cells,
+    at most _MAX_PART_BLOCKS blocks.  int8/bf16 X: the X Hnᵀ pass takes
+    GB = T genes a block and ``_cell_splits``.  float32/int16 X: WᵀX comes
+    from wtx_fma over ``wtx_fma_grid`` and X Hnᵀ from hxt_fma over
+    ``hxt_fma_grid``, the kernels of ALS's fp32 X passes."""
+    T = iteration_tile_width(K, x_dtype)
+    n_tiles = -(-n // T)
+    tiles_per_block = -(-n_tiles // _MAX_PART_BLOCKS)
+    n_part = -(-n_tiles // tiles_per_block)
+    if x_dtype in _MMA_XTYPES:
+        return IterationGrid(T, n_part, tiles_per_block, T, *_cell_splits(g, n, T))
+    GB, n_split, cells_per_split, S, chunk = hxt_fma_grid(g, n, K, x_dtype)
+    wtx_T, wtx_LK, wtx_GC, wtx_S, _ = wtx_fma_grid(g, n, K, x_dtype)
+    return IterationGrid(T, n_part, tiles_per_block, GB, n_split, cells_per_split,
+                         S, chunk, wtx_T, wtx_LK, wtx_GC, wtx_S)
+
+
 def _launch_iteration(X, W, H, WtW, Ys, Bs, lam, eps, counts, blocks, loss_kl):
     """Run csrc/fused_iteration.cu; returns (Hn, XHt, stats, n_labels) with
     stats laid out as ``_stats_len`` says."""
@@ -474,25 +519,23 @@ def _launch_iteration(X, W, H, WtW, Ys, Bs, lam, eps, counts, blocks, loss_kl):
         lam_rows = _lam_rows(lam, blocks).contiguous()
     if not isinstance(eps, float):
         raise TypeError("eps must be a Python float")
-    T = iteration_tile_width(K, X.dtype)
-    smem = _iter_smem_bytes(K, T, L, Kg, counts is not None,
-                            X.dtype in _MMA_XTYPES)
+    mma = X.dtype in _MMA_XTYPES
+    grid = iteration_grid(g, n, K, X.dtype)
+    smem = _iter_smem_bytes(K, grid.T, L, Kg, counts is not None, mma)
     if smem > _MAX_SMEM:
         raise ValueError(
             f"fused_iteration needs {smem} bytes of shared memory at K={K}, "
             f"{L} labels, guided width {Kg}; a Hopper block has {_MAX_SMEM}")
-    n_tiles = -(-n // T)
-    tiles_per_block = -(-n_tiles // _MAX_PART_BLOCKS)
-    n_part = -(-n_tiles // tiles_per_block)
-    GB = T
-    n_split, cells_per_split = _cell_splits(g, n, GB)
     S_len = _stats_len(K, L, counts is not None)
 
     Hn = torch.empty((K, n), dtype=f32, device=dev)
     XHt = torch.empty((g, K), dtype=f32, device=dev)
     stats = torch.empty((S_len,), dtype=f32, device=dev)
-    part = torch.empty((n_part, S_len), dtype=f32, device=dev)
-    part_hxt = torch.empty((n_split, K, g), dtype=f32, device=dev)
+    part = torch.empty((grid.n_part, S_len), dtype=f32, device=dev)
+    part_hxt = torch.empty((grid.n_split, K, g), dtype=f32, device=dev)
+    # fp32 path: wtx_fma's WᵀX and, in counts mode, Hs = c_next ⊙ Hn
+    wtx = None if mma else torch.empty((K, n), dtype=f32, device=dev)
+    hs = None if mma or counts is None else torch.empty((K, n), dtype=f32, device=dev)
     fn = _build.entry("fused_iteration")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -501,10 +544,11 @@ def _launch_iteration(X, W, H, WtW, Ys, Bs, lam, eps, counts, blocks, loss_kl):
                 Bg.data_ptr() if Ys else None,
                 lam_rows.data_ptr() if Ys else None,
                 counts.data_ptr() if counts is not None else None,
-                g, n, K, L, Kg, int(bool(loss_kl)), eps, T, n_part,
-                tiles_per_block, GB, n_split, cells_per_split,
+                g, n, K, L, Kg, int(bool(loss_kl)), eps, *grid,
                 Hn.data_ptr(), XHt.data_ptr(), stats.data_ptr(),
-                part.data_ptr(), part_hxt.data_ptr(), stream)
+                part.data_ptr(), part_hxt.data_ptr(),
+                wtx.data_ptr() if wtx is not None else None,
+                hs.data_ptr() if hs is not None else None, stream)
     if rc != 0:
         raise RuntimeError(f"fused_iteration kernel failed to launch: CUDA "
                            f"error {rc}")
@@ -534,8 +578,10 @@ def fused_iteration(X, W, H, WtW, Ys, Bs, lam, eps, counts=None, *, blocks,
     (exact products, fp32 sums: the plain version's result up to summation
     order) with tiles from ``iteration_tile_width``, which gives them
     16 cells per tile where float32/int16 X take 8 (256 < K <= 512): a rule
-    by X's dtype and K, not a fallback.  float32 and int16 X keep fp32 FMA
-    (no TF32)."""
+    by X's dtype and K, not a fallback.  float32 and int16 X run them on
+    the FP32 units (true fp32, no TF32) in the kernels of ALS's fp32 X
+    passes: wtx_fma (WᵀX), the per-tile pass, hxt_fma (X Hnᵀ, or X Hsᵀ
+    in counts mode), then the partials' sum, over ``iteration_grid``."""
     blocks = tuple(blocks)
     if counts is not None and not Ys:
         raise ValueError("counts mode requires covariates (weighted "

@@ -8,8 +8,11 @@ Phases, each printing one JSON line:
   build   nvcc builds every kernel of alpine_tpu_torch/csrc for sm_90a;
   sass    cuobjdump of the fused_iteration library: tensor-core (HMMA)
           instructions in both passes of the int8 and bf16 instantiations
-          and in none of float32/int16, and no spill stores on the bf16 path
-          (ptxas -v); for fused_transform, registers, spill stores (none
+          and in none of the float32/int16 per-tile pass, and no spill
+          stores on the bf16 path (ptxas -v); the library's copies of the
+          fp32 X passes (hxt_fma, wtx_fma: K1's float32/int16 path) with
+          FFMA and cp.async copies (LDGSTS), no HMMA, no spill store and the
+          registers of x_passes' copies; for fused_transform, registers, spill stores (none
           allowed) and FFMA count of each bucket of the register path; for
           x_passes (ALS's hxt and wtx), HMMA in the bf16 kernels and none in
           the fp32 ones, FFMA in the fp32 ones, cp.async copies (LDGSTS) in
@@ -20,9 +23,13 @@ Phases, each printing one JSON line:
           bench shape (100k cells x 2,000 genes, K = 40, labels (2, 3), int8)
           and at small shapes over the other storage types, blocks and
           losses (K not a multiple of 16, ragged genes and cells, K = 300
-          and 512 where the bf16 path takes its own tile), with its time
+          and 512 where the bf16 path takes its own tile), a second launch
+          of each fused_iteration case bit for bit the first, with its time
           beside the plain version's and its bound; beside K1 the two bf16
-          cuBLAS products over a bf16 copy of X as a yardstick;
+          cuBLAS products over a bf16 copy of X as a yardstick; K1, K4 and
+          K2 on int16 X (counts above 127) and K1 on float32 X at the bench
+          shape, each with the two products as fp32 torch.matmul over a
+          float32 copy of X beside it;
           fused_iteration's counts mode (weighted_fast) with counts from the
           port's own balanced sampler, undrawn columns checked bit for bit;
           fused_transform at K = 40 (the register path) and K = 300 (the
@@ -46,9 +53,11 @@ Phases, each printing one JSON line:
           (fit_loop_weighted_fast, the sampler's draws included) and for
           the ALS loop (fit_loop_als, 50 iterations); then, on int16 X
           holding counts above 127, the ALS loop (fit_loop_als_int16: the
-          fp32 X passes) and the joint loop (fit_loop_int16: K1's FMA path),
-          and the ALS loop on float32 X (fit_loop_als_float32), each with
-          the launch counts of its timed run;
+          fp32 X passes), the joint loop (fit_loop_int16: K1's fp32 path),
+          the weighted_fast loop (fit_loop_weighted_fast_int16: K4's) and
+          the unguided loop (fit_loop_unguided_int16: K2's), and on float32
+          X the ALS loop (fit_loop_als_float32) and the joint loop
+          (fit_loop_float32), each with the launch counts of its timed run;
   small   a small fit on the card against the same fit on the CPU (plain
           kernel versions, same seed); small_als the same with
           use_als=True;
@@ -64,7 +73,9 @@ Phases, each printing one JSON line:
           an iteration, fused_iteration never) and a cached transform.
 Then one JSON line with every kernel's numbers (hxt and wtx twice more:
 their fp32 paths hxt_fma and wtx_fma on float32 and on int16 X, with the
-launches of the ALS loop on that X) and, last, the result line.
+launches of the ALS loop on that X; K1, K4 and K2 again on their fp32 path,
+with the launches of the float32/int16 joint, weighted_fast and unguided
+loops) and, last, the result line.
 Any failed check raises: the script exits non-zero and prints no result.
 Without a GPU it exits with code 2 before doing anything.
 """
@@ -108,8 +119,11 @@ SOURCES = {
     "wtx": "alpine_tpu_torch/csrc/x_passes.cu",
     "stream_probe": "alpine_tpu_torch/csrc/stream_probe.cu",
 }
-# mangled names of fused_iteration.cu's passes: <X type>, kBf16, kCounts
-PASS_NAME = re.compile(r"(iter_tiles|hxt_partial)I(\w+?)Lb([01])ELb([01])E")
+# mangled names of fused_iteration.cu's passes: iter_tiles<X type, kBf16,
+# kCounts>, hxt_partial<X type, kCounts> (the bf16 path only)
+PASS_NAME = re.compile(r"(iter_tiles)I(\w+?)Lb([01])ELb([01])E|(hxt_partial)I(\w+?)Lb([01])E")
+# the fp32 X passes: <X type, rows a thread>; and the other kernels' names
+FMA_NAME = re.compile(r"(hxt_mma|hxt_fma|wtx_mma|wtx_fma)I(\w+?)(?:Li(\d+)E)?E")
 X_CODES = {"f": "float32", "13__nv_bfloat16": "bfloat16", "a": "int8", "s": "int16"}
 # mangled name of fused_transform.cu's register path: transform_columns<KB>
 COLUMNS_NAME = re.compile(r"transform_columnsILi(\d+)E")
@@ -227,16 +241,28 @@ def sass_check(_build, kernels):
     of shared loads, shuffles and MUFU (the division's reciprocal) beside
     them give the instruction mix of a step."""
     usage = ptxas_usage(_build.build_log("fused_iteration"))
-    rows = []
-    for fn, count in sorted(sass_counts(_build, "fused_iteration", ("HMMA",)).items()):
+    rows, k1_fma = [], []
+    ops = ("HMMA", "LDGSTS", "FFMA")
+    for fn, count in sorted(sass_counts(_build, "fused_iteration", ops).items()):
         m = PASS_NAME.search(fn)
-        if m:
-            kernel, x, bf16, counts = m.groups()
-            u = usage.get(fn, {})
-            rows.append({"kernel": kernel, "x": X_CODES.get(x, x),
-                         "counts": counts == "1", "tensor_core_path": bf16 == "1",
-                         "hmma": count["HMMA"], "registers": u.get("registers"),
-                         "spill_stores": u.get("spill_stores")})
+        u = usage.get(fn, {})
+        if m and m.group(1):
+            kernel, x, bf16, counts = m.group(1, 2, 3, 4)
+        elif m:
+            kernel, x, bf16, counts = m.group(5), m.group(6), "1", m.group(7)
+        else:
+            f = FMA_NAME.search(fn)
+            if f:
+                k1_fma.append({"kernel": f.group(1), "x": X_CODES.get(f.group(2), f.group(2)),
+                               "rows": int(f.group(3)),
+                               **{op.lower(): count[op] for op in ops},
+                               "registers": u.get("registers"),
+                               "spill_stores": u.get("spill_stores")})
+            continue
+        rows.append({"kernel": kernel, "x": X_CODES.get(x, x),
+                     "counts": counts == "1", "tensor_core_path": bf16 == "1",
+                     "hmma": count["HMMA"], "registers": u.get("registers"),
+                     "spill_stores": u.get("spill_stores")})
     usage = ptxas_usage(_build.build_log("fused_transform"))
     trows = []
     ops = ("FFMA", "LDS", "SHFL", "MUFU")
@@ -248,8 +274,10 @@ def sass_check(_build, kernels):
                       **{op.lower(): count[op] for op in ops},
                       "registers": u.get("registers"),
                       "spill_stores": u.get("spill_stores")})
-    emit({"phase": "sass", "functions": rows, "fused_transform": trows})
-    check(len(rows) == 16, f"expected 16 pass instantiations, found {len(rows)}")
+    emit({"phase": "sass", "functions": rows, "fused_iteration_fp32_passes": k1_fma,
+          "fused_transform": trows})
+    # iter_tiles on four X types with and without counts, hxt_partial on two
+    check(len(rows) == 12, f"expected 12 pass instantiations, found {len(rows)}")
     for r in rows:
         tag = f"{r['kernel']} {r['x']} counts={r['counts']}"
         check((r["hmma"] > 0) == r["tensor_core_path"],
@@ -262,7 +290,7 @@ def sass_check(_build, kernels):
     for fn, count in sorted(sass_counts(_build, "x_passes", ops).items()):
         # <X type>, and hxt_mma's ring chunk, wtx_mma's 16-cell groups a warp
         # or the fp32 kernels' rows a thread (MK)
-        m = re.search(r"(hxt_mma|hxt_fma|wtx_mma|wtx_fma)I(\w+?)(?:Li(\d+)E)?E", fn)
+        m = FMA_NAME.search(fn)
         if m:
             u = usage.get(fn, {})
             arg = int(m.group(3)) if m.group(3) else None
@@ -296,6 +324,21 @@ def sass_check(_build, kernels):
             check(r["ldsm"] > 0, f"{tag}: no ldmatrix (LDSM)")
         if r["kernel"].endswith("_fma"):  # the FP32 units
             check(r["ffma"] >= 8 * r["rows"], f"{tag}: {r['ffma']} FFMA")
+    # fused_iteration's copies of the fp32 X passes (fma_passes.cuh): the same
+    # instantiations, FFMA and LDGSTS, no HMMA, no spill, x_passes' registers
+    check(sorted((r["kernel"], r["x"], r["rows"]) for r in k1_fma)
+          == sorted((r["kernel"], r["x"], r["rows"]) for r in xrows
+                    if r["kernel"].endswith("_fma")),
+          "fused_iteration's fp32 X passes differ from x_passes'")
+    x_regs = {(r["kernel"], r["x"], r["rows"]): r["registers"] for r in xrows}
+    for r in k1_fma:
+        tag = f"fused_iteration {r['kernel']} {r['x']} {r['rows']}"
+        check(r["hmma"] == 0 and r["ldgsts"] > 0 and r["ffma"] >= 8 * r["rows"],
+              f"{tag}: HMMA {r['hmma']}, LDGSTS {r['ldgsts']}, FFMA {r['ffma']}")
+        check(r["spill_stores"] == 0, f"{tag}: spill stores {r['spill_stores']}")
+        check(r["registers"] == x_regs[(r["kernel"], r["x"], r["rows"])],
+              f"{tag}: {r['registers']} registers, x_passes' copy "
+              f"{x_regs[(r['kernel'], r['x'], r['rows'])]}")
     buckets = sorted(r["bucket"] for r in trows if r["bucket"])
     check(buckets == sorted(kernels._TRANSFORM_BUCKETS),
           f"fused_transform buckets {buckets} differ from the wrapper's")
@@ -403,9 +446,10 @@ def main():
                             for _ in range(2)])
 
     def run_iteration_case(tag, g, n, blocks, n_labels, xdtype, loss_kl, timed,
-                           counts=None):
+                           counts=None, x_scale=1):
         X, W, H, WtW, Ys, Bs, lam = iteration_problem(
             torch, gen, dev, g, n, blocks, n_labels, xdtype)
+        X *= x_scale  # int16: counts above 127
         C = None if counts is None else counts(Ys, n)
         if n_labels:
             kern = lambda: kernels.fused_iteration(
@@ -417,13 +461,15 @@ def main():
         else:
             kern = lambda: kernels.fused_h_update(X, W, H, WtW, EPS)
             plain = lambda: kernels.fused_h_update_plain(X, W, H, WtW, EPS)
-        got, want = kern(), plain()
+        got, again, want = kern(), kern(), plain()
         torch.cuda.synchronize()
         flat = lambda o: [t for v in o for t in (v if isinstance(v, tuple) else (v,))]
         errs = [compare(a, b, 1e-4, 1e-6) for a, b in zip(flat(got), flat(want))]
         worst = max(e[1] for e in errs)
+        # fixed-order sums: a second launch gives the same bits
+        repeats = all(torch.equal(a, b) for a, b in zip(flat(got), flat(again)))
         row = {"phase": "kernel", "case": tag, "max_abs_err_Hn": errs[0][0],
-               "worst_err_over_tolerance": worst,
+               "worst_err_over_tolerance": worst, "second_launch_bit_equal": repeats,
                "tolerance": "rtol 1e-4, atol 1e-6*max|plain| per output"}
         if C is not None:
             undrawn = C[0] == 0
@@ -440,15 +486,23 @@ def main():
                                   counts=C is not None)
             row["bytes"], row["bf16_flop"], row["fp32_flop"] = cost
             row["bound_ms"], row["bound_by"] = bound(*cost, card)
-        if timed and n_labels and C is None:
+        if timed and bf16 and n_labels and C is None:
             # yardstick, used nowhere in the port: the two X products alone
             # as bf16 cuBLAS calls over a bf16 copy of X
             Xb, Wb, Hb = X.to(torch.bfloat16), W.bfloat16(), H.bfloat16()
             row["x_products_cublas_bf16_ms"] = time_ms(
                 lambda: (Wb.T @ Xb, Hb @ Xb.T), 5)
             del Xb
+        if timed and not bf16:
+            # the same yardstick on the fp32 path: fp32 torch.matmul over a
+            # float32 copy of X; and the grid the four launches ran
+            Xf = X.float()
+            row["x_products_cublas_fp32_ms"] = time_ms(lambda: (W.T @ Xf, H @ Xf.T), 5)
+            del Xf
+            row["grid"] = kernels.iteration_grid(g, n, sum(blocks), xdtype)._asdict()
         emit(row)
         check(worst <= 1.0, f"{tag}: kernel disagrees with its plain version")
+        check(repeats, f"{tag}: a second launch gave other bits")
         if C is not None:
             check(row["undrawn_columns_bit_equal"] and row["counts"]["undrawn"] > 0,
                   f"{tag}: undrawn columns must keep H bit for bit")
@@ -466,7 +520,8 @@ def main():
         (torch.bfloat16, (5, 5, 30), (2, 3), False),
         (torch.bfloat16, (150, 150), (3,), False),
         (torch.int8, (200, 312), (4,), True),
-        (torch.float32, (200, 312), (4,), True)]
+        (torch.float32, (200, 312), (4,), True),
+        (torch.int16, (150, 150), (3,), False)]
     for xdt, blocks, labels, kl in [
             (torch.float32, (3, 4, 6), (2, 3), False),
             (torch.bfloat16, (3, 9), (2,), True),
@@ -495,7 +550,7 @@ def main():
     # 5040 cells: a multiple of 16, so the tensor-core path stages X, W and
     # Hn in 16-byte loads (5000 and 5003 take its element-by-element
     # staging), but not of the 64-cell tile or chunk
-    for xdt, blocks, labels, kl in edge_cases[:4]:
+    for xdt, blocks, labels, kl in edge_cases:
         for C in (None, mixed_counts):
             run_iteration_case(f"fused_iteration {'counts ' if C else ''}small "
                                f"{str(xdt)[6:]} {blocks}/{labels} "
@@ -504,8 +559,26 @@ def main():
     results["fused_h_update"] = run_iteration_case(
         "fused_h_update bench int8", G, N, (sum(BLOCKS),), (), torch.int8,
         True, True)
+    # the fp32 path (wtx_fma, the per-tile pass, hxt_fma): K1, K4 and K2 on
+    # int16 X holding counts above 127, K1 on float32 X
+    torch.cuda.empty_cache()
+    results["fused_iteration int16"] = run_iteration_case(
+        "fused_iteration bench int16 kl", G, N, BLOCKS, N_LABELS, torch.int16,
+        True, True, x_scale=3)
+    results["fused_iteration_counts int16"] = run_iteration_case(
+        "fused_iteration counts bench int16 kl", G, N, BLOCKS, N_LABELS,
+        torch.int16, True, True, counts=sampler_counts, x_scale=3)
+    results["fused_h_update int16"] = run_iteration_case(
+        "fused_h_update bench int16", G, N, (sum(BLOCKS),), (), torch.int16,
+        True, True, x_scale=3)
+    results["fused_iteration float32"] = run_iteration_case(
+        "fused_iteration bench float32 kl", G, N, BLOCKS, N_LABELS, torch.float32,
+        True, True)
+    torch.cuda.empty_cache()
     run_iteration_case("fused_h_update small float32", 300, 5001, (13,), (),
                        torch.float32, True, False)
+    run_iteration_case("fused_h_update small int16 n=5040", 300, 5040, (300,), (),
+                       torch.int16, True, False, x_scale=3)
     run_iteration_case("fused_h_update small int8", 300, 5001, (21,), (),
                        torch.int8, True, False)
 
@@ -673,12 +746,14 @@ def main():
     # -- where the fit's device time goes: the fused fit loop alone ----------
     def run_fit_loops(loops, xdtype):
         """Each (phase, weighted, als, iterations) fit loop on device-resident
-        bench data whose X is stored as xdtype (int16: counts above 127)."""
+        bench data whose X is stored as xdtype (int16: counts above 127);
+        weighted None: the unguided loop (no covariates, K = 40)."""
         X, W, H, _, Ys, Bs, lam = iteration_problem(
             torch, gen, dev, G, N, BLOCKS, N_LABELS, xdtype)
         if xdtype == torch.int16:
             X *= 3
         hyper = (lam, 0.0, 0.0, 0.0, EPS)
+        unguided_hyper = (lam[:0], 0.0, 0.0, 0.0, EPS)
         tables = group_tables(Ys)
         loop_gen = torch.Generator(device=dev)
 
@@ -688,11 +763,14 @@ def main():
 
         loop_launches = {}
         for phase, weighted, als, iters in loops:
-            cfg = mu.MUConfig(blocks=BLOCKS, n_labels=N_LABELS, n_cells=N,
+            guided = weighted is not None
+            cfg = mu.MUConfig(blocks=BLOCKS if guided else (sum(BLOCKS),),
+                              n_labels=N_LABELS if guided else (), n_cells=N,
                               max_iter=iters, x_dtype=str(xdtype)[6:],
-                              weighted_counts=weighted, use_als=als)
-            drive = lambda: mu.fit_scan(cfg, W, H, Bs, X, Ys, hyper,
-                                        draw_counts=draw_counts)
+                              weighted_counts=bool(weighted), use_als=als)
+            drive = (lambda: mu.fit_scan(cfg, W, H, Bs, X, Ys, hyper,
+                                         draw_counts=draw_counts)) if guided else (
+                lambda: mu.fit_scan(cfg, W, H, (), X, (), unguided_hyper))
             drive()
             torch.cuda.synchronize()
             kernels.reset_launches()
@@ -728,17 +806,30 @@ def main():
     run_fit_loops((("fit_loop", False, False, LOOP_ITERS),
                    ("fit_loop_weighted_fast", True, False, LOOP_ITERS),
                    ("fit_loop_als", False, True, ALS_LOOP_ITERS)), torch.int8)
-    # int16 X: the ALS loop runs hxt_fma and wtx_fma, the joint loop K1's
-    # FMA path (and hxt_fma once)
-    int16_launches = run_fit_loops(
+    # int16 X: the ALS loop runs hxt_fma and wtx_fma, the joint loops K1's,
+    # K4's and K2's fp32 path (wtx_fma, the per-tile pass, hxt_fma; and P1's
+    # hxt_fma once for the first X Hᵀ)
+    int16_loops = run_fit_loops(
         (("fit_loop_als_int16", False, True, ALS_LOOP_ITERS),
-         ("fit_loop_int16", False, False, LOOP_ITERS)), torch.int16)["fit_loop_als_int16"]
-    float32_launches = run_fit_loops(
-        (("fit_loop_als_float32", False, True, ALS_LOOP_ITERS),), torch.float32
-    )["fit_loop_als_float32"]
+         ("fit_loop_int16", False, False, LOOP_ITERS),
+         ("fit_loop_weighted_fast_int16", True, False, LOOP_ITERS),
+         ("fit_loop_unguided_int16", None, False, LOOP_ITERS)), torch.int16)
+    float32_loops = run_fit_loops(
+        (("fit_loop_als_float32", False, True, ALS_LOOP_ITERS),
+         ("fit_loop_float32", False, False, LOOP_ITERS)), torch.float32)
+    int16_launches = int16_loops["fit_loop_als_int16"]
+    float32_launches = float32_loops["fit_loop_als_float32"]
     for tag, counted in (("int16", int16_launches), ("float32", float32_launches)):
         check(counted["hxt"] == ALS_LOOP_ITERS and counted["wtx"] == 3 * ALS_LOOP_ITERS,
               f"the {tag} ALS loop must launch hxt once and wtx once a block per iteration")
+    fp32_k_launches = {
+        "fused_iteration int16": int16_loops["fit_loop_int16"]["fused_iteration"],
+        "fused_iteration_counts int16":
+            int16_loops["fit_loop_weighted_fast_int16"]["fused_iteration_counts"],
+        "fused_h_update int16": int16_loops["fit_loop_unguided_int16"]["fused_h_update"],
+        "fused_iteration float32": float32_loops["fit_loop_float32"]["fused_iteration"]}
+    for kname, counted in fp32_k_launches.items():
+        check(counted == LOOP_ITERS, f"{kname}: {counted} launches in {LOOP_ITERS} iterations")
 
     # -- a small fit on the card against the same fit on the CPU ------------
     r = np.random.default_rng(1)
@@ -927,9 +1018,11 @@ def main():
                 # the fp32 paths (hxt_fma, wtx_fma): the int16 and float32 ALS loops
                 "hxt_fma int16": int16_launches["hxt"], "wtx_fma int16": int16_launches["wtx"],
                 "hxt_fma float32": float32_launches["hxt"],
-                "wtx_fma float32": float32_launches["wtx"]}
+                "wtx_fma float32": float32_launches["wtx"], **fp32_k_launches}
     rows = []
     for kname in ("fused_iteration", "fused_iteration_counts", "fused_h_update",
+                  "fused_iteration float32", "fused_iteration int16",
+                  "fused_iteration_counts int16", "fused_h_update int16",
                   "fused_transform", "hxt", "wtx", "hxt_fma float32", "hxt_fma int16",
                   "wtx_fma float32", "wtx_fma int16", "stream_probe"):
         res = results[kname]

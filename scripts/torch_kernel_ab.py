@@ -10,7 +10,9 @@ A run times, at the bench shape (100k cells x 2,000 genes, K = 40, labels
 
 - ``fused_iteration`` (K1), ``fused_h_update`` (K2) and ``fused_iteration``
   with a fixed (2, n) counts tensor drawn from the seed (K4): median
-  CUDA-event ms of 20 warm launches;
+  CUDA-event ms of 20 warm launches, on the int8 X and again on its fp32
+  path: on float32 X (``fused_iteration_float32_ms``, ...) and on int16 X
+  holding the counts times 3 (``..._int16_ms``);
 - the full-batch and the weighted_fast fused fit loops (``mu.fit_scan``,
   the latter with the port's balanced sampler): ms per iteration over 10
   iterations, host clock around work that ends in a synchronize, the
@@ -25,19 +27,27 @@ A run times, at the bench shape (100k cells x 2,000 genes, K = 40, labels
   the ALS fit loop (``mu.fit_scan`` with ``use_als``) on the int8 and on
   the int16 X, ms per iteration over 20 iterations, the median of three
   runs, and its device ms per iteration (torch.profiler, one more run);
+  the full-batch loop on the int16 and on the float32 X
+  (``fit_loop_int16_...``, ``fit_loop_float32_...``: K1's fp32 path), ms
+  and device ms per iteration over 10 iterations, likewise;
 - a digest of every output of K1, K4 and K2 with the same inputs held as
-  float32 and as int16 X (the fp32 FMA path), of K3's output at the
-  bench shape and at K = 300, of ``hxt`` and ``wtx`` (k = 5 and 30) on
-  float32 and int16 X, and of ``wtx`` on int8 and bf16 X (the tensor-core
-  path); the X passes' outputs are also saved beside their plain versions'.
+  float32 and as int16 X (the fp32 path) and as int8 and bf16 X (the
+  tensor-core path), of K3's output at the bench shape and at K = 300, of
+  ``hxt`` and ``wtx`` (k = 5 and 30) on float32 and int16 X, and of ``hxt``
+  and ``wtx`` on int8 and bf16 X (the tensor-core path); the fp32-path
+  outputs of K1/K4/K2 and the X passes' outputs are also saved beside
+  their plain versions'.
 
 Prints one JSON line per run, then one summary line with the mean of each
 checkout's two runs, whether all four runs agree bit for bit on the
-float32/int16 outputs of K1/K2/K4 (``fp32_path_bits_equal``), on K3's
+float32/int16 outputs of K1/K2/K4 (``fp32_path_bits_equal``), on their
+int8/bf16 outputs (``k1_bf16_path_bits_equal``), on K3's
 (``k3_bits_equal``), on ``hxt``'s float32/int16 outputs
-(``x_pass_fp32_bits_equal``), on ``wtx``'s (``wtx_fp32_bits_equal``) and
-on ``wtx``'s tensor-core path (``wtx_bf16_path_bits_equal``); for each of
-the last three, whether each checkout's two runs agree (``..._runs_repeat``)
+(``x_pass_fp32_bits_equal``) and int8/bf16 ones
+(``x_pass_bf16_path_bits_equal``), on ``wtx``'s (``wtx_fp32_bits_equal``)
+and on ``wtx``'s tensor-core path (``wtx_bf16_path_bits_equal``); for
+``fp32_path``, ``x_pass_fp32``, ``wtx_fp32`` and ``wtx_bf16_path``, whether
+each checkout's two runs agree (``..._runs_repeat``)
 and the largest difference between the two checkouts' outputs, absolute
 and over the plain version's tolerance (rtol 1e-4 + 1e-6 max|plain|: at
 most 1 when both trees hold it; ``..._max_abs_diff``,
@@ -136,9 +146,28 @@ def child(root, save_path):
                     h.update(t.contiguous().cpu().numpy().tobytes())
         return h.hexdigest()[:16]
 
-    bits = {str(dt)[6:]: digest(k1_k4_k2(X.to(dt), [y.to(dt) for y in Ys]))
-            for dt in (torch.float32, torch.int16)}
-    torch.cuda.empty_cache()
+    bits, k1_bf16_bits, saved = {}, {}, {}
+    for dt in (torch.float32, torch.int16, torch.int8, torch.bfloat16):
+        name = str(dt)[6:]
+        Xd, Yd = X.to(dt), [y.to(dt) for y in Ys]
+        outs = k1_k4_k2(Xd, Yd)
+        if dt in (torch.int8, torch.bfloat16):
+            k1_bf16_bits[name] = digest(outs)
+        else:
+            bits[name] = digest(outs)
+            plains = (
+                kernels.fused_iteration_plain(Xd, W, H, WtW, Yd, Bs, lam, EPS,
+                                              blocks=BLOCKS, loss_kl=True),
+                kernels.fused_iteration_plain(Xd, W, H, WtW, Yd, Bs, lam, EPS, C,
+                                              blocks=BLOCKS, loss_kl=True),
+                kernels.fused_h_update_plain(Xd, W, H, WtW, EPS))
+            flat = lambda o: [t for v in o for t in (v if isinstance(v, tuple) else (v,))]
+            for m, (out, plain) in enumerate(zip(outs, plains)):
+                for i, (a, b) in enumerate(zip(flat(out), flat(plain))):
+                    saved[f"fp32_path/{name}_{m}_{i}"] = a.cpu()
+                    saved[f"fp32_path/{name}_{m}_{i}_plain"] = b.cpu()
+        del Xd, Yd, outs
+        torch.cuda.empty_cache()
 
     def k3(W, H0):
         """K3 on 2WᵀX and 2WᵀW, as the transform calls it."""
@@ -153,7 +182,7 @@ def child(root, save_path):
     del k3_300
     torch.cuda.empty_cache()
     W5, W30 = W[:, :5].contiguous(), W[:, 10:].contiguous()
-    x_pass_bits, wtx_fp32_bits, wtx_bf16_bits, saved = {}, {}, {}, {}
+    x_pass_bits, wtx_fp32_bits, wtx_bf16_bits, hxt_bf16_bits = {}, {}, {}, {}
     x_pass_ms = {}
     for dt in (torch.float32, torch.int16, torch.bfloat16, torch.int8):
         name = str(dt)[6:]
@@ -162,6 +191,8 @@ def child(root, save_path):
         outs = [kernels.wtx(Xd, W5), kernels.wtx(Xd, W30)]
         group = "wtx_bf16" if dt in (torch.bfloat16, torch.int8) else "wtx_fp32"
         (wtx_bf16_bits if group == "wtx_bf16" else wtx_fp32_bits)[name] = digest([outs])
+        if group == "wtx_bf16":
+            hxt_bf16_bits[name] = digest([[kernels.hxt(Xd, H)]])
         for k, Wk, out in ((5, W5, outs[0]), (30, W30, outs[1])):
             saved[f"{group}/{name}_k{k}"] = out.cpu()
             saved[f"{group}/{name}_k{k}_plain"] = kernels.wtx_plain(Xd, Wk).cpu()
@@ -192,6 +223,21 @@ def child(root, save_path):
     k4 = time_ms(lambda: kernels.fused_iteration(
         X, W, H, WtW, Ys, Bs, lam, EPS, C, blocks=BLOCKS, loss_kl=True))
     k3_ms = time_ms(k3_bench)
+    fp32_k_ms = {}  # K1/K4/K2 on the fp32 path
+    for dt in (torch.float32, torch.int16):
+        name = str(dt)[6:]
+        Xd = ((X + torch.rand(X.shape, generator=gen, device=dev)) if dt == torch.float32
+              else X.to(dt) * 3).to(dt)
+        Yd = [y.to(dt) for y in Ys]
+        fp32_k_ms[f"fused_iteration_{name}_ms"] = time_ms(lambda: kernels.fused_iteration(
+            Xd, W, H, WtW, Yd, Bs, lam, EPS, blocks=BLOCKS, loss_kl=True))
+        fp32_k_ms[f"fused_iteration_counts_{name}_ms"] = time_ms(
+            lambda: kernels.fused_iteration(Xd, W, H, WtW, Yd, Bs, lam, EPS, C,
+                                            blocks=BLOCKS, loss_kl=True))
+        fp32_k_ms[f"fused_h_update_{name}_ms"] = time_ms(
+            lambda: kernels.fused_h_update(Xd, W, H, WtW, EPS))
+        del Xd, Yd
+        torch.cuda.empty_cache()
     hyper = (lam, 0.0, 0.0, 0.0, EPS)
     _, start, sizes = balanced_group_tables(joint_label_ids([y.cpu().numpy() for y in Ys]))
     tables = (torch.from_numpy(start).to(dev), torch.from_numpy(sizes).to(dev))
@@ -232,7 +278,15 @@ def child(root, save_path):
         host, dev_ms = loop_ms(False, als=True, Xl=Xl, Yl=Yl, device=True)
         als_loops[f"fit_loop_als{tag}_ms_per_iteration"] = host
         als_loops[f"fit_loop_als{tag}_device_ms_per_iteration"] = dev_ms
+    host, dev_ms = loop_ms(False, Xl=X16, Yl=Ys16, device=True)
+    als_loops["fit_loop_int16_ms_per_iteration"] = host
+    als_loops["fit_loop_int16_device_ms_per_iteration"] = dev_ms
     del X16, Ys16
+    X32 = X.float() + torch.rand(X.shape, generator=gen, device=dev)
+    host, dev_ms = loop_ms(False, Xl=X32, Yl=[y.float() for y in Ys], device=True)
+    als_loops["fit_loop_float32_ms_per_iteration"] = host
+    als_loops["fit_loop_float32_device_ms_per_iteration"] = dev_ms
+    del X32
     print(json.dumps({"root": root, "fused_iteration_ms": k1,
                       "fused_h_update_ms": k2,
                       "fused_iteration_counts_ms": k4,
@@ -242,16 +296,18 @@ def child(root, save_path):
                       "wtx_k30_ms": wtx30_ms, "wtx_k30_back_to_back_ms": wtx30_b2b_ms,
                       "fit_loop_ms_per_iteration": loop_ms(False),
                       "fit_loop_weighted_fast_ms_per_iteration": loop_ms(True),
-                      **x_pass_ms, **als_loops,
-                      "fp32_path_bits": bits, "k3_bits": k3_bits,
-                      "x_pass_fp32_bits": x_pass_bits, "wtx_fp32_bits": wtx_fp32_bits,
+                      **fp32_k_ms, **x_pass_ms, **als_loops,
+                      "fp32_path_bits": bits, "k1_bf16_path_bits": k1_bf16_bits,
+                      "k3_bits": k3_bits,
+                      "x_pass_fp32_bits": x_pass_bits, "x_pass_bf16_bits": hxt_bf16_bits,
+                      "wtx_fp32_bits": wtx_fp32_bits,
                       "wtx_bf16_bits": wtx_bf16_bits}), flush=True)
 
 
 def path_difference(parent_path, change_path, group):
     """The largest difference between two trees' saved outputs of one group
-    (``wtx_bf16``, ``wtx_fp32``, ``x_pass_fp32``): (max abs, max over the
-    plain version's tolerance)."""
+    (``fp32_path``, ``wtx_bf16``, ``wtx_fp32``, ``x_pass_fp32``): (max abs,
+    max over the plain version's tolerance)."""
     import torch
 
     a, b = torch.load(parent_path), torch.load(change_path)
@@ -295,8 +351,10 @@ def main(argv):
         saves[root].append(save)
     summary = {"card": smi.splitlines()[0], "order": "parent, change, change, parent"}
     digests = (("fp32_path_bits", "fp32_path_bits_equal"),
+               ("k1_bf16_path_bits", "k1_bf16_path_bits_equal"),
                ("k3_bits", "k3_bits_equal"),
                ("x_pass_fp32_bits", "x_pass_fp32_bits_equal"),
+               ("x_pass_bf16_bits", "x_pass_bf16_path_bits_equal"),
                ("wtx_fp32_bits", "wtx_fp32_bits_equal"),
                ("wtx_bf16_bits", "wtx_bf16_path_bits_equal"))
     for label, root in (("parent", parent), ("change", change)):
@@ -307,7 +365,8 @@ def main(argv):
         seen = {json.dumps(r.get(key), sort_keys=True)
                 for rs in runs.values() for r in rs}
         summary[out] = len(seen) == 1
-    for key, group, out in (("wtx_bf16_bits", "wtx_bf16", "wtx_bf16_path"),
+    for key, group, out in (("fp32_path_bits", "fp32_path", "fp32_path"),
+                            ("wtx_bf16_bits", "wtx_bf16", "wtx_bf16_path"),
                             ("wtx_fp32_bits", "wtx_fp32", "wtx_fp32"),
                             ("x_pass_fp32_bits", "x_pass_fp32", "x_pass_fp32")):
         summary[f"{out}_runs_repeat"] = all(

@@ -1,6 +1,7 @@
 """The estimator's API against the JAX package's where this slice leaves a
 feature out or reports on it: the verbose progress bar, the checkpoint
-keywords of ``fit`` and ``ALPINE.load``.
+keywords of ``fit``, ``ALPINE.load``, the refused tiled configurations and
+the ``batch_size`` a fit keeps.
 
 The bar is tqdm's, as the JAX fit's ("Iteration", ``objective loss``
 postfix, alpine_tpu/models/alpine.py:838-866), but the port updates it every
@@ -24,6 +25,7 @@ from alpine_tpu import ALPINE as JaxALPINE
 from alpine_tpu_torch import ALPINE
 from alpine_tpu_torch.ops import mu as tmu
 
+from .conftest import make_synthetic_adata
 from .test_torch_model import KEYS, KW, _adata, jax_draws  # noqa: F401
 
 torch.set_num_threads(1)
@@ -157,3 +159,30 @@ def test_load_raises_not_implemented():
         ALPINE.load("model", device="cpu")
     with pytest.raises(NotImplementedError, match="save/load"):
         ALPINE(device="cpu", **KW).save("model")
+
+
+@pytest.mark.parametrize("batch_size", [None, 400], ids=["no-batch", "covering"])
+def test_tiled_misconfigurations_match_jax(batch_size):
+    """A tiled fit with no batch_size, or with one that covers every cell,
+    raises the reference's ValueError with its message."""
+    ad = make_synthetic_adata(n_cells=150, n_genes=40, seed=0)
+    kw = dict(batch_size=batch_size, max_iter=3, sampling_method="tiled")
+    with pytest.raises(ValueError) as ej:
+        JaxALPINE(device="cpu", **KW).fit(ad.copy(), KEYS, **kw)
+    with pytest.raises(ValueError) as et:
+        ALPINE(device="cpu", **KW).fit(ad.copy(), KEYS, **kw)
+    assert str(et.value) == str(ej.value)
+    assert "tiled" in str(et.value)
+
+
+@pytest.mark.parametrize("sampling_method", ["random", "weighted_fast"])
+def test_covering_batch_size_is_kept(sampling_method):
+    """A covering batch_size runs full-epoch and is kept as the caller gave
+    it, as the reference keeps it; without one the fit records n_cells."""
+    ad = make_synthetic_adata(n_cells=150, n_genes=40, seed=0)
+    kw = dict(max_iter=3, sampling_method=sampling_method)
+    jm = JaxALPINE(device="cpu", **KW).fit(ad.copy(), KEYS, batch_size=400, **kw)
+    tm = ALPINE(device="cpu", **KW).fit(ad.copy(), KEYS, batch_size=400, **kw)
+    assert tm.batch_size == jm.batch_size == 400
+    tm = ALPINE(device="cpu", **KW).fit(ad.copy(), KEYS, **kw)
+    assert tm.batch_size == 150

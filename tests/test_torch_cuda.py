@@ -296,6 +296,13 @@ def test_cuda_tensor_never_takes_the_plain_path(cuda, monkeypatch):
     X, W, H, WtW, _, _, _ = _problem(1, 20, 64, (4,), (), "float32", cuda)
     with pytest.raises(RuntimeError, match="nvcc failed"):
         kernels.fused_h_update(X, W, H, WtW, EPS)
+    counts = torch.ones((2, 64), device=cuda)
+    for dtype in ("float32", "int16", "int8"):  # K1 and K4, fp32 and bf16 paths
+        Xc, Wc, Hc, WtWc, Ys, Bs, lam = _problem(2, 20, 64, (2, 2), (2,), dtype, cuda)
+        for C in (None, counts):
+            with pytest.raises(RuntimeError, match="nvcc failed"):
+                kernels.fused_iteration(Xc, Wc, Hc, WtWc, Ys, Bs, lam, EPS, C,
+                                        blocks=(2, 2), loss_kl=True)
     for K in (40, 300):  # either path of fused_transform
         num2, H0, WtW2 = _transform_problem(3, K, 64, cuda)
         with pytest.raises(RuntimeError, match="nvcc failed"):
@@ -306,6 +313,58 @@ def test_cuda_tensor_never_takes_the_plain_path(cuda, monkeypatch):
         kernels.wtx(X, W)
     with pytest.raises(RuntimeError, match="nvcc failed"):
         kernels.stream_probe(X)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "int16"])
+@pytest.mark.parametrize("n", [50_000, 50_001, 50_016])
+@pytest.mark.parametrize("mode", ["K1", "K2", "K4"])
+def test_fused_iteration_fp32_path_same_bits(cuda, dtype, n, mode):
+    """K1, K2 and K4 on float32 and int16 X (wtx_fma, the per-tile pass,
+    hxt_fma, the partials' sum): two launches give the same bits at a width
+    of many tiles and splits, the last of each ragged; 50,001 cells take the
+    X passes' element-by-element staging, 50,000 and 50,016 their cp.async
+    rings, and the same X and W off 16-byte alignment give the same bits
+    too.  int16 X holds counts above 127.  The result matches the plain
+    version; in K4 undrawn columns keep H bit for bit."""
+    blocks, n_labels = ((5, 5, 30), (2, 3)) if mode != "K2" else ((40,), ())
+    X, W, H, WtW, Ys, Bs, lam = _problem(13, 300, n, blocks, n_labels, dtype, cuda)
+    if dtype == "int16":
+        X, _, _ = _x_pass_problem(14, 300, n, 1, dtype, cuda)
+    grid = kernels.iteration_grid(300, n, 40, X.dtype)
+    assert grid.n_split > 1 and n % grid.cells_per_split != 0
+    assert n % grid.wtx_T != 0 and n % grid.T != 0
+    C = None
+    if mode == "K4":
+        r = np.random.default_rng(15)
+        C = torch.from_numpy(r.integers(0, 4, (2, n)).astype(np.float32)).to(cuda)
+    flat = lambda o: [t for v in o for t in (v if isinstance(v, tuple) else (v,))]
+
+    def run(X, W):
+        if mode == "K2":
+            return kernels.fused_h_update(X, W, H, WtW, EPS)
+        return kernels.fused_iteration(X, W, H, WtW, Ys, Bs, lam, EPS, C,
+                                       blocks=blocks, loss_kl=True)
+
+    before = dict(kernels.launches)
+    got, again, moved = run(X, W), run(X, W), run(_unaligned(X), _unaligned(W))
+    torch.cuda.synchronize()
+    name = {"K1": "fused_iteration", "K2": "fused_h_update",
+            "K4": "fused_iteration_counts"}[mode]
+    assert kernels.launches[name] == before[name] + 3
+    for a, b, c in zip(flat(got), flat(again), flat(moved), strict=True):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    if mode == "K2":
+        want = kernels.fused_h_update_plain(X, W, H, WtW, EPS)
+    else:
+        want = kernels.fused_iteration_plain(X, W, H, WtW, Ys, Bs, lam, EPS, C,
+                                             blocks=blocks, loss_kl=True)
+    for a, b in zip(flat(got), flat(want), strict=True):
+        _close(a, b, 1e-4, 1e-5)
+    if mode == "K4":
+        undrawn = C[0] == 0
+        assert bool(undrawn.any())
+        assert torch.equal(got[0][:, undrawn], H[:, undrawn])
 
 
 def _x_pass_problem(seed, g, n, K, dtype, dev):

@@ -6,7 +6,7 @@ are multiples of the ring's chunk, shared memory within a Hopper block's
 limit for every K, and the sum of per-split partials in split order over
 that grid equal to ``hxt_plain`` (rtol 1e-5: fp32 sums of positive terms in
 another order).  The float32/int16 path takes ``hxt_fma_grid``
-(tests/test_torch_fp32_passes.py); K1 keeps ``_cell_splits``.
+(tests/test_torch_fp32_passes.py); K1's bf16 path keeps ``_cell_splits``.
 """
 
 import numpy as np
@@ -84,9 +84,9 @@ def test_hxt_grid_at_the_bench_shape():
 
 
 def test_cell_splits_keep_the_fp32_and_k1_grid():
-    """_cell_splits, which K1 (fused_iteration's X Hnᵀ pass) uses, keeps
-    its grid at the bench shape; hxt's float32/int16 path no longer takes
-    it (hxt_fma_grid)."""
+    """_cell_splits, which K1's bf16 path (fused_iteration's X Hnᵀ pass on
+    int8/bf16 X) uses, keeps its grid at the bench shape; the float32/int16
+    paths of hxt and of K1 take hxt_fma_grid instead."""
     for xdt in (torch.int8, torch.float32):
         assert kernels.iteration_tile_width(40, xdt) == 64
     assert kernels._cell_splits(2000, 100_000, 64) == (131, 768)

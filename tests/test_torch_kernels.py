@@ -188,8 +188,8 @@ def test_iteration_tile_rule_fits_its_path(dtype):
     """For every supported K, fused_iteration's tile (iteration_tile_width)
     suits the path X's dtype selects: int8/bf16 run their X products on
     tensor cores (16-wide fragments, 16 a pass: one pass up to K = 256, two
-    above), float32/int16 keep fp32 FMA (at most 4096 register outputs a
-    block).  Shared memory stays within a Hopper block's at 8 labels over
+    above), float32/int16 keep tile_width (at most 4096 outputs a tile;
+    their X products run in wtx_fma and hxt_fma).  Shared memory stays within a Hopper block's at 8 labels over
     K - 1 guided components with counts, the widest layout."""
     xdt = _TORCH[dtype]
     mma = dtype in ("int8", "bfloat16")
@@ -208,9 +208,9 @@ def test_iteration_tile_rule_fits_its_path(dtype):
         for L, Kg, counts in ((0, 0, False), (8, K - 1, False), (8, K - 1, True)):
             smem = kernels._iter_smem_bytes(K, T, L, Kg, counts, mma)
             assert smem <= kernels._MAX_SMEM, (K, T, L, Kg, counts)
-    # the fp32 layout is the one the kernels always had
+    # the fp32 layout stages no X or W: its tile of WᵀX comes from wtx_fma
     assert kernels._iter_smem_bytes(40, 64, 5, 10, False) == 4 * (
-        16 * 40 + 16 * 64 + 3 * 40 * 65 + 3 * 5 * 65 + 5 * 10 + 2 * 10 + 256)
+        3 * 40 * 65 + 3 * 5 * 65 + 5 * 10 + 2 * 10 + 256)
     with pytest.raises(ValueError, match="K=513"):
         kernels.iteration_tile_width(513, xdt)
 
