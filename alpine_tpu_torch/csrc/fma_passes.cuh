@@ -8,8 +8,8 @@
 // Bound on the H100: X's bytes and the fp32 FMA rate alike (float32 X at
 // 100k cells x 2000 genes, K = 40: 816 MB, 16 GFLOP a pass).
 //
-// Also here: the cp.async helpers of every ring in x_passes.cu, and the
-// row-alignment test of both sources.
+// Also here: the row-alignment test of both sources (the cp.async helpers
+// of every ring are in common.cuh).
 #pragma once
 
 #include "common.cuh"
@@ -20,34 +20,6 @@ namespace alpine {
 template <typename T>
 __device__ __forceinline__ bool rows_aligned16(const T* p, int n) {
   return ((size_t)n * sizeof(T)) % 16 == 0 && (reinterpret_cast<uintptr_t>(p) & 15) == 0;
-}
-
-// cp.async: 16 bytes from global to shared memory without a register, or 16
-// zero bytes when !full (src-size 0: nothing is read).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool full) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-               "r"(full ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Wait until at most `pending` of this thread's committed groups are in
-// flight (the instruction takes an immediate; waiting for fewer is safe).
-__device__ __forceinline__ void cp_async_wait(int pending) {
-  switch (pending) {
-    case 0: asm volatile("cp.async.wait_group 0;\n" ::: "memory"); break;
-    case 1: asm volatile("cp.async.wait_group 1;\n" ::: "memory"); break;
-    case 2: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
-    case 3: asm volatile("cp.async.wait_group 3;\n" ::: "memory"); break;
-    case 4: asm volatile("cp.async.wait_group 4;\n" ::: "memory"); break;
-    case 5: asm volatile("cp.async.wait_group 5;\n" ::: "memory"); break;
-    case 6: asm volatile("cp.async.wait_group 6;\n" ::: "memory"); break;
-    default: asm volatile("cp.async.wait_group 7;\n" ::: "memory"); break;
-  }
 }
 
 // ---- the fp32 paths (float32 and int16 X) --------------------------------

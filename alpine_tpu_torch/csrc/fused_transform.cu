@@ -6,15 +6,20 @@
 // and computed outside the kernel, as the JAX package leaves them to XLA.
 //
 // Bound on the H100: operations.  The loop reads num2 and H0 and writes H
-// once (12 bytes per cell and component) but does 2 K^2 fp32 operations per
-// cell and step: at K = 40 and 50 steps that is about 270 flop per byte.
+// once (12 bytes per cell and component) but does 2 K^2 + 3 K fp32
+// operations per cell and step: at K = 40 and 50 steps that is about 270
+// flop per byte, at K = 300 about 2,100.
 //
 // Why the CUDA cores and not the tensor cores: the transform runs at
 // matmul_precision "highest", which is true fp32.  TF32 would drop mantissa
 // bits, and a 3xTF32 split would change every bit of the result for a K x K
-// operand this small.  So the design aims at the fp32 FMA rate.
+// operand this small.  So both paths aim at the fp32 FMA rate, and both
+// form every sum the same way: d from 0.f by fmaf over j in order, zeros
+// past K (fmaf(0, 0, d) = d), IEEE division (no fast-math).  So the two
+// paths give the same bits, and a rule by K picks one
+// (ops/kernels.py:transform_bucket).
 //
-// Design (transform_columns, K up to the largest bucket): the columns of H
+// Register path (transform_columns, K up to the largest bucket): the columns of H
 // are independent, so no step needs a block barrier or H in shared memory.
 // Two lanes of a warp, l and l ^ 16, own the same two cells and keep both
 // cells' K values of H in registers for all n_iter steps.  In a step each of
@@ -23,11 +28,9 @@
 // its rows h_k <- h_k * (num2_k / max(d_k, eps)) in place, and the two swap
 // their updated halves with one shuffle per row and cell.  K is a template
 // parameter (loops fully unrolled, so h and d stay in registers), rounded up
-// to a bucket; WtW2 and H are padded with zeros after j = K - 1
-// (fmaf(0, 0, d) = d) and the padded rows stay 0, so the sums and the update
-// of the real rows are the tiled kernel's arithmetic, bit for bit: d from 0.f
-// by fmaf in j order, IEEE division (no fast-math).  num2 sits in shared
-// memory, each thread reading its own rows.
+// to a bucket; WtW2 and H are padded with zeros after j = K - 1 and the
+// padded rows stay 0.  num2 sits in shared memory, each thread reading its
+// own rows.
 //
 // WtW2 is uniform across each half-warp: it sits transposed in shared memory,
 // and one 16-byte broadcast load feeds eight FMAs (four rows, two cells).
@@ -40,9 +43,29 @@
 // of each step keeps ptxas from hoisting the K^2 loop-invariant loads out of
 // the step loop, which would need K^2 registers and spill.
 //
-// Above the largest bucket the accumulators no longer fit in registers and
-// transform_tiles (one block per tile of cells, H in shared memory, a barrier
-// a step) runs instead: a rule by K (ops/kernels.py:transform_bucket).
+// Tiled path (transform_tiles<T, G>, above the largest bucket, where a
+// cell's column no longer fits in registers): one block owns a tile of T
+// cells for all n_iter steps.  H's tile (KP x T, K padded to KP) stays in
+// shared memory; WtW2, transposed and zero-padded to KP x KP once a call
+// (pad_transpose), streams from L2 through a cp.async ring of S stages of J
+// rows [j][k] each, one barrier a chunk.  The 256 threads are TR = 2048 / T
+// along K by T / 8 along the cells; each holds a register micro-tile of G
+// pairs of rows (2 (TR i + tr) + u) by 8 cells (4 tc + v and T / 2 + 4 tc +
+// v), and its outputs' num2, loaded once: for every j one 8-byte load of
+// the ring a pair and two 16-byte loads of H's tile feed 16 G FMAs.  A
+// warp's lanes are 4 (8 at T = 32) along K by 8 (4) along the cells, so its
+// loads touch contiguous bytes.  num2 in registers leaves room beside H's
+// tile for chunks of 32 rows, and fewer chunks a step cost less.  After a
+// step's last chunk each thread forms its ratios num2 / max(d, eps) in
+// registers; one barrier; then it multiplies its outputs in the H tile in
+// place (the next chunk's barrier orders them before any read).  Padded
+// rows (k >= K) stay 0: they are never updated, and their ratio is 1 / 1
+// (no 0 / 0 at eps = 0); cells past n are never written and no other
+// cell's sum reads them.  ops/kernels.py:transform_tiles_grid picks T = 64
+// (KP = 64 G up to 384) or T = 32 (KP = 512), with J = 32 and S = 2.  WtW2
+// then crosses from L2 n / T * n_iter * 4 KP^2 bytes a call: 32 GB at
+// K = 300 (KP = 320), 100k cells and 50 steps, a seventh of the 225 GB
+// that the earlier kernel (8 cells a block, WtW2 read once an output) read.
 #include "common.cuh"
 
 namespace alpine {
@@ -151,41 +174,183 @@ transform_columns(const float* __restrict__ num2, const float* __restrict__ H0,
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+// Threads of a transform_tiles block along K for T cells a tile (8 cells a
+// thread), and the K it pads to with G pairs of rows a thread.
+__host__ __device__ constexpr int tiles_rows(int T) { return kThreads / (T / 8); }
+__host__ __device__ constexpr int tiles_kp(int T, int G) { return 2 * tiles_rows(T) * G; }
+
+// Blocks an SM should hold: two up to 2 pairs of a 64-cell tile (32
+// accumulators and 32 num2, at most 128 registers a thread), one above.
+// ops/kernels.py:transform_blocks_per_sm holds the same rule.
+constexpr int tiles_min_blocks(int T, int G) { return T == 64 && G <= 2 ? 2 : 1; }
+
+// Shared memory of transform_tiles: H's tile (KP x T) and S stages of J
+// rows of the padded WtW2^T (KP each).
+// ops/kernels.py:transform_tiles_smem_bytes holds the same formula.
+__host__ __device__ inline size_t tiles_smem_bytes(int KP, int T, int J, int S) {
+  return ((size_t)KP * T + (size_t)S * J * KP) * sizeof(float);
+}
+
+// Wt[j][k] = WtW2[k][j] for j, k < K, else 0: an exact copy, once a call.
+__global__ void pad_transpose(const float* __restrict__ WtW2, int K, int KP,
+                              float* __restrict__ Wt) {
+  const int o = blockIdx.x * blockDim.x + threadIdx.x;
+  if (o < KP * KP) {
+    const int j = o / KP, k = o - j * KP;
+    Wt[o] = (j < K && k < K) ? WtW2[k * K + j] : 0.f;
+  }
+}
+
+template <int T, int G>
+__global__ void __launch_bounds__(kThreads, tiles_min_blocks(T, G))
 transform_tiles(const float* __restrict__ num2, const float* __restrict__ H0,
-                const float* __restrict__ WtW2, int K, int n, int T,
-                int n_iter, float eps, float* __restrict__ out) {
-  extern __shared__ float sm[];
-  const int KT = K * T;
-  float* sNum = sm;
-  float* cur = sNum + KT;
-  float* nxt = cur + KT;
-  const int tid = threadIdx.x;
-  const int c0 = blockIdx.x * T;
-  const int nv = min(T, n - c0);
-  for (int o = tid; o < KT; o += kThreads) {
-    const int k = o / T, t = o - k * T;
-    const bool ok = t < nv;
-    sNum[o] = ok ? num2[(size_t)k * n + c0 + t] : 0.f;
-    cur[o] = ok ? H0[(size_t)k * n + c0 + t] : 0.f;
-  }
-  __syncthreads();
-  for (int it = 0; it < n_iter; ++it) {
-    for (int o = tid; o < KT; o += kThreads) {
-      const int k = o / T, t = o - k * T;
-      float d = 0.f;
-      for (int j = 0; j < K; ++j) d = fmaf(__ldg(&WtW2[k * K + j]), cur[j * T + t], d);
-      nxt[o] = cur[o] * (sNum[o] / fmaxf(d, eps));
+                const float* __restrict__ Wt, int K, int n, int n_iter, int J,
+                int S, float eps, float* __restrict__ out) {
+  constexpr int TR = tiles_rows(T), KP = tiles_kp(T, G);
+  constexpr int LC = T / 8 < 8 ? T / 8 : 8;  // a warp's lanes along the cells
+  static_assert(KP * T % (8 * kThreads) == 0, "the tile loads eight values a thread");
+  extern __shared__ __align__(16) float sm[];
+  float* sH = sm;             // [k][T]: H's tile, updated in place
+  float* ring = sH + KP * T;  // S stages of [j][KP], J rows each
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int tr = warp * (32 / LC) + lane / LC, tc = lane % LC;
+  const int c0 = blockIdx.x * T, nv = min(T, n - c0);
+  const int stage = J * KP, steps_chunks = KP / J, n_chunks = n_iter * steps_chunks;
+
+  // chunk q (rows (q mod KP / J) J .. + J - 1 of Wt) into stage st; one group
+  // committed, empty past the last chunk
+  auto issue = [&](int q, int st) {
+    if (q < n_chunks) {
+      const float* src = Wt + (size_t)(q % steps_chunks) * stage;
+      float* dst = ring + st * stage;
+      for (int o = 4 * tid; o < stage; o += 4 * kThreads) cp_async16(dst + o, src + o, true);
     }
-    __syncthreads();
-    float* tmp = cur;
-    cur = nxt;
-    nxt = tmp;
+    cp_async_commit();
+  };
+  for (int q = 0; q < S - 1; ++q) issue(q, q);
+  // rows past K and cells past n: H 0 (never written); eight loads in flight
+  // a thread (KP T is a multiple of 8 x 256), as one block holds an SM
+  for (int o0 = tid; o0 < KP * T; o0 += 8 * kThreads) {
+    float v[8];
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int o = o0 + q * kThreads, k = o / T, t = o % T;
+      v[q] = k < K && t < nv ? H0[(size_t)k * n + c0 + t] : 0.f;
+    }
+#pragma unroll
+    for (int q = 0; q < 8; ++q) sH[o0 + q * kThreads] = v[q];
   }
-  for (int o = tid; o < KT; o += kThreads) {
-    const int k = o / T, t = o - k * T;
-    if (t < nv) out[(size_t)k * n + c0 + t] = cur[o];
+  // this thread's outputs: rows 2 (TR i + tr) + u, cells v / 4 * T / 2 + 4 tc
+  // + v % 4; num2 1 past K and n
+  float num[G][2][8], acc[G][2][8];
+#pragma unroll
+  for (int i = 0; i < G; ++i)
+#pragma unroll
+    for (int u = 0; u < 2; ++u)
+#pragma unroll
+      for (int v = 0; v < 8; ++v) {
+        const int k = 2 * (TR * i + tr) + u, t = v / 4 * (T / 2) + 4 * tc + v % 4;
+        num[i][u][v] = k < K && t < nv ? num2[(size_t)k * n + c0 + t] : 1.f;
+      }
+
+  int st = 0;  // stage of the next chunk
+  for (int it = 0; it < n_iter; ++it) {
+#pragma unroll
+    for (int i = 0; i < G; ++i)
+#pragma unroll
+      for (int u = 0; u < 2; ++u)
+#pragma unroll
+        for (int v = 0; v < 8; ++v) acc[i][u][v] = 0.f;
+    for (int c = 0; c < steps_chunks; ++c) {
+      cp_async_wait(S - 2);  // this thread's copies of the chunk
+      // the chunk has landed; every warp is done with the last one, whose
+      // stage the next copies refill (and, at a step's first chunk, has
+      // updated its outputs in the H tile)
+      __syncthreads();
+      issue(it * steps_chunks + c + S - 1, st == 0 ? S - 1 : st - 1);
+      const float* w = ring + st * stage + 2 * tr;
+      const float* h = sH + c * J * T + 4 * tc;
+      for (int j0 = 0; j0 < J; j0 += 8) {
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+          const int j = j0 + jj;
+          const float4 ha = *reinterpret_cast<const float4*>(h + j * T);
+          const float4 hb = *reinterpret_cast<const float4*>(h + j * T + T / 2);
+#pragma unroll
+          for (int i = 0; i < G; ++i) {
+            const float2 wv = *reinterpret_cast<const float2*>(w + j * KP + 2 * TR * i);
+            const float wu[2] = {wv.x, wv.y};
+#pragma unroll
+            for (int u = 0; u < 2; ++u) {
+              acc[i][u][0] = fmaf(wu[u], ha.x, acc[i][u][0]);
+              acc[i][u][1] = fmaf(wu[u], ha.y, acc[i][u][1]);
+              acc[i][u][2] = fmaf(wu[u], ha.z, acc[i][u][2]);
+              acc[i][u][3] = fmaf(wu[u], ha.w, acc[i][u][3]);
+              acc[i][u][4] = fmaf(wu[u], hb.x, acc[i][u][4]);
+              acc[i][u][5] = fmaf(wu[u], hb.y, acc[i][u][5]);
+              acc[i][u][6] = fmaf(wu[u], hb.z, acc[i][u][6]);
+              acc[i][u][7] = fmaf(wu[u], hb.w, acc[i][u][7]);
+            }
+          }
+        }
+      }
+      st = st + 1 == S ? 0 : st + 1;
+    }
+    // the ratios, in registers, before the barrier; a padded row divides its
+    // num2 of 1 by 1 (no 0 / 0 at eps = 0, no slow path) and is never written
+#pragma unroll
+    for (int i = 0; i < G; ++i)
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const bool real = 2 * (TR * i + tr) + u < K;
+#pragma unroll
+        for (int v = 0; v < 8; ++v)
+          acc[i][u][v] = num[i][u][v] / (real ? fmaxf(acc[i][u][v], eps) : 1.f);
+      }
+    __syncthreads();  // every warp has read this step's H tile
+#pragma unroll
+    for (int i = 0; i < G; ++i)
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int k = 2 * (TR * i + tr) + u;
+        if (k < K) {
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            float4* hp = reinterpret_cast<float4*>(sH + k * T + half * (T / 2) + 4 * tc);
+            float4 hv = *hp;
+            hv.x = hv.x * acc[i][u][4 * half];
+            hv.y = hv.y * acc[i][u][4 * half + 1];
+            hv.z = hv.z * acc[i][u][4 * half + 2];
+            hv.w = hv.w * acc[i][u][4 * half + 3];
+            *hp = hv;
+          }
+        }
+      }
   }
+  cp_async_wait(0);
+  __syncthreads();  // the last step's outputs (or, at n_iter = 0, H0)
+  for (int o = tid; o < K * T; o += kThreads) {
+    const int k = o / T, t = o % T;
+    if (t < nv) out[(size_t)k * n + c0 + t] = sH[o];
+  }
+}
+
+template <int T, int G>
+cudaError_t launch_tiles(const float* num2, const float* H0, const float* WtW2, int K,
+                         int n, int J, int S, int n_iter, float eps, float* Wt,
+                         float* out, cudaStream_t stream) {
+  constexpr int KP = tiles_kp(T, G);
+  const size_t smem = tiles_smem_bytes(KP, T, J, S);
+  if (smem > (size_t)kMaxSmem) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      transform_tiles<T, G>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  pad_transpose<<<(KP * KP + kThreads - 1) / kThreads, kThreads, 0, stream>>>(WtW2, K, KP, Wt);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  transform_tiles<T, G><<<(n + T - 1) / T, kThreads, smem, stream>>>(
+      num2, H0, Wt, K, n, n_iter, J, S, eps, out);
+  return cudaGetLastError();
 }
 
 template <int KB>
@@ -204,15 +369,19 @@ cudaError_t launch_columns(const float* num2, const float* H0,
 
 }  // namespace alpine
 
-// Plain C entry point (ctypes).  Returns 0 or a cudaError_t code.  KB is
-// the bucket of transform_columns, or 0 for transform_tiles with T cells a
-// tile; WtW2 is K x K either way.
+// Plain C entry point (ctypes).  Returns 0 or a cudaError_t code.  WtW2 is
+// K x K.  KB is the bucket of transform_columns, or 0 for transform_tiles
+// with T cells a tile, K padded to KP, S ring stages of J rows and Wt, a
+// KP x KP scratch for WtW2 transposed and zero-padded
+// (ops/kernels.py:transform_tiles_grid); T, KP, J, S and Wt are not read
+// when KB > 0.
 extern "C" int alpine_fused_transform(const float* num2, const float* H0,
                                       const float* WtW2, int K, int KB, int n,
-                                      int T, int n_iter, float eps, float* out,
+                                      int T, int KP, int J, int S, int n_iter,
+                                      float eps, float* Wt, float* out,
                                       void* stream) {
   using namespace alpine;
-  if (n <= 0 || K <= 0) return (int)cudaErrorInvalidValue;
+  if (n <= 0 || K <= 0 || n_iter < 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (KB > 0) {
     if (K > KB) return (int)cudaErrorInvalidValue;
@@ -233,13 +402,21 @@ extern "C" int alpine_fused_transform(const float* num2, const float* H0,
         return (int)cudaErrorInvalidValue;
     }
   }
-  const size_t smem = (size_t)3 * K * T * sizeof(float);
-  if (T <= 0 || smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      transform_tiles, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int n_tiles = (n + T - 1) / T;
-  transform_tiles<<<n_tiles, kThreads, smem, s>>>(num2, H0, WtW2, K, n, T,
-                                                  n_iter, eps, out);
-  return (int)cudaGetLastError();
+  // J: a multiple of the 8 rows the kernel unrolls, dividing KP
+  if (Wt == nullptr || KP < K || J <= 0 || J % 8 != 0 || KP % J != 0 || S < 2 || S > 8)
+    return (int)cudaErrorInvalidValue;
+  // ops/kernels.py:_TRANSFORM_TILES: the (T, KP) instantiated
+#define ALPINE_TILES(TT, G)                                                      \
+  if (T == TT && KP == tiles_kp(TT, G))                                          \
+    return (int)launch_tiles<TT, G>(num2, H0, WtW2, K, n, J, S, n_iter, eps, Wt, \
+                                    out, s);
+  ALPINE_TILES(64, 1)
+  ALPINE_TILES(64, 2)
+  ALPINE_TILES(64, 3)
+  ALPINE_TILES(64, 4)
+  ALPINE_TILES(64, 5)
+  ALPINE_TILES(64, 6)
+  ALPINE_TILES(32, 4)
+#undef ALPINE_TILES
+  return (int)cudaErrorInvalidValue;
 }

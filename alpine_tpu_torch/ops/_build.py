@@ -40,7 +40,7 @@ SIGNATURES = {
                         [_P, _I] + [_P] * 7
                         + [_I] * 6 + [_F] + [_I] * 12 + [_P] * 8),
     "fused_transform": ("fused_transform", "alpine_fused_transform",
-                        [_P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _P]),
+                        [_P, _P, _P] + [_I] * 8 + [_F, _P, _P, _P]),
     "hxt": ("x_passes", "alpine_hxt", [_P, _I, _P] + [_I] * 8 + [_P] * 4),
     "wtx": ("x_passes", "alpine_wtx", [_P, _I, _P] + [_I] * 7 + [_P] * 3),
     "stream_probe": ("stream_probe", "alpine_stream_probe",

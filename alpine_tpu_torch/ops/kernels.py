@@ -52,6 +52,15 @@ _MMA_PASS_FRAGS = 16
 # fused_transform's register path: the K buckets it is compiled for
 # (csrc/fused_transform.cu: the instantiations of transform_columns)
 _TRANSFORM_BUCKETS = (8, 16, 24, 32, 40, 48, 56, 64)
+# fused_transform's tiled path (csrc/fused_transform.cu: transform_tiles<T,
+# G>): (T, KP) instantiated, in the order the rule takes them, T cells a tile
+# and K padded to KP = 2 TR G, TR = 2048 / T threads along K; a thread holds
+# G pairs of rows x 8 cells and their num2 (G <= 6: 252 registers at 6).
+# Chunks of 32 rows of WtW2ᵀ in a ring of two stages: on an H100, 16-row
+# chunks cost 2 ms more at K = 300 and more stages bought nothing (PERF.md)
+_TRANSFORM_TILES = tuple((64, 64 * g) for g in range(1, 7)) + ((32, 512),)
+_TRANSFORM_J = 32
+_TRANSFORM_STAGES = 2
 # stream_probe: blocks of column sums a launch aims at (8 per H100 SM); a
 # block sums 32 lanes x one 16-byte vector of columns over its genes
 _STREAM_BLOCKS = 1056
@@ -93,10 +102,9 @@ def reset_launches() -> None:
 
 def tile_width(K: int) -> int:
     """The port's tile rule: cells per tile for K components (fused_iteration's
-    per-tile pass and, on its bf16 path, genes per block of the X Hnᵀ pass;
-    K3's tiled path).  A tile holds K × width values, at most 4096, so the
-    width halves from 64 as K grows; K > 512 is not supported by the
-    kernels."""
+    per-tile pass and, on its bf16 path, genes per block of the X Hnᵀ pass).
+    A tile holds K × width values, at most 4096, so the width halves from 64
+    as K grows; K > 512 is not supported by the kernels."""
     if not 1 <= K <= _MAX_TILE_VALUES // 8:
         raise ValueError(f"the CUDA kernels support 1 <= K <= "
                          f"{_MAX_TILE_VALUES // 8} components, got K={K}")
@@ -125,9 +133,63 @@ def transform_bucket(K: int) -> int:
     """fused_transform's path for K components: the smallest bucket of
     ``_TRANSFORM_BUCKETS`` that holds K (the register path: the cells'
     columns of H, padded to the bucket, stay in registers), or 0 above the
-    largest bucket (the tiled path, ``tile_width(K)`` cells a tile)."""
+    largest bucket (the tiled path over ``transform_tiles_grid(K)``)."""
     tile_width(K)  # 1 <= K <= 512
     return next((b for b in _TRANSFORM_BUCKETS if K <= b), 0)
+
+
+class TransformGrid(NamedTuple):
+    """fused_transform's tiled path (csrc/fused_transform.cu:
+    transform_tiles): T cells a tile, K padded to KP, chunks of J rows of
+    WtW2ᵀ in a ring of S stages, and the block's shared-memory bytes."""
+    T: int
+    KP: int
+    J: int
+    S: int
+    smem: int
+
+
+def transform_tiles_smem_bytes(KP: int, T: int, J: int, S: int) -> int:
+    """csrc/fused_transform.cu:tiles_smem_bytes: H's tile (KP × T fp32) and
+    S stages of J rows of the padded WtW2ᵀ."""
+    return 4 * (KP * T + S * J * KP)
+
+
+def transform_row_pairs(T: int, KP: int) -> int:
+    """G, the pairs of rows a thread of transform_tiles holds (KP = 2 TR G
+    with TR = 2048 / T threads along K, 8 cells a thread)."""
+    return KP // (2 * (_THREADS // (T // 8)))
+
+
+def transform_tiles_registers(T: int, KP: int) -> int:
+    """An estimate of a transform_tiles thread's registers: 16 G
+    accumulators, 16 G values of num2, the next j's 2 G values of the ring
+    and 48 for H's operands, addresses and indices (ptxas, sm_90a, CUDA
+    12.9: 87, 115, 155, 177, 219 and 252 at G = 1..6)."""
+    return 34 * transform_row_pairs(T, KP) + 48
+
+
+def transform_blocks_per_sm(T: int, KP: int) -> int:
+    """csrc/fused_transform.cu:tiles_min_blocks: two blocks an SM for a
+    64-cell tile of at most 2 pairs of rows (at most 128 registers a
+    thread), else one."""
+    return 2 if T == 64 and transform_row_pairs(T, KP) <= 2 else 1
+
+
+@lru_cache(maxsize=None)  # called once a transform
+def transform_tiles_grid(K: int) -> TransformGrid:
+    """fused_transform's tiled path for K components.
+
+    A tile of T = 64 cells (32 threads along K, KP = K rounded up to 64)
+    where a thread's accumulators and num2 fit its registers (G = KP / 64 <=
+    6 pairs of rows: K <= 384), else T = 32 (64 threads along K, KP = 512,
+    4 pairs).  Each thread holds 2 G rows × 8 cells (80 accumulators at
+    K = 300).  The ring: two stages of 32 rows of WtW2ᵀ, beside H's tile in
+    the block's share of an SM (``transform_blocks_per_sm``) for every K."""
+    tile_width(K)  # 1 <= K <= 512
+    T, KP = next(tile for tile in _TRANSFORM_TILES if tile[1] >= K)
+    J, S = _TRANSFORM_J, _TRANSFORM_STAGES
+    return TransformGrid(T, KP, J, S, transform_tiles_smem_bytes(KP, T, J, S))
 
 
 def _pad16(v: int) -> int:
@@ -632,8 +694,11 @@ def fused_transform(num2, H0, WtW2, eps, *, n_iter: int):
 
     On the card K up to the largest bucket takes the register path (two
     lanes share two cells, whose columns of H stay in registers for all
-    steps), larger K the tiled path: a rule by K (``transform_bucket``).
-    Both give the same bits for the same inputs."""
+    steps), larger K the tiled path (a block keeps a tile of cells in
+    shared memory for all steps and streams WtW2ᵀ, padded into a KP × KP
+    scratch once a call, through a ring; ``transform_tiles_grid``): a rule
+    by K (``transform_bucket``).  Both give the same bits for the same
+    inputs."""
     if not _cuda_or_cpu(H0):
         return fused_transform_plain(num2, H0, WtW2, eps, n_iter=n_iter)
     from alpine_tpu_torch.ops import _build
@@ -646,13 +711,18 @@ def fused_transform(num2, H0, WtW2, eps, *, n_iter: int):
     if not isinstance(eps, float) or not isinstance(n_iter, int) or n_iter < 0:
         raise TypeError("eps must be a float and n_iter a non-negative int")
     KB = transform_bucket(K)
-    T = 0 if KB else tile_width(K)
+    T = KP = J = S = 0
+    Wt = None  # the tiled path's padded WtW2ᵀ (KP × KP), written by the call
+    if not KB:
+        T, KP, J, S, _ = transform_tiles_grid(K)
+        Wt = torch.empty((KP, KP), dtype=torch.float32, device=dev)
     out = torch.empty((K, n), dtype=torch.float32, device=dev)
     fn = _build.entry("fused_transform")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(num2.data_ptr(), H0.data_ptr(), WtW2.data_ptr(), K, KB, n, T,
-                n_iter, eps, out.data_ptr(), stream)
+                KP, J, S, n_iter, eps, None if Wt is None else Wt.data_ptr(),
+                out.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"fused_transform kernel failed to launch: CUDA "
                            f"error {rc}")

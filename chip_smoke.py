@@ -13,7 +13,9 @@ Phases, each printing one JSON line:
           fp32 X passes (hxt_fma, wtx_fma: K1's float32/int16 path) with
           FFMA and cp.async copies (LDGSTS), no HMMA, no spill store and the
           registers of x_passes' copies; for fused_transform, registers, spill stores (none
-          allowed) and FFMA count of each bucket of the register path; for
+          allowed) and FFMA count of each bucket of the register path, and
+          registers, spill stores (none allowed), FFMA, LDGSTS (its WtW2
+          ring) and LDS of each instantiation of the tiled path; for
           x_passes (ALS's hxt and wtx), HMMA in the bf16 kernels and none in
           the fp32 ones, FFMA in the fp32 ones, cp.async copies (LDGSTS) in
           every one (their rings) and ldmatrix (LDSM) in wtx_mma (none
@@ -32,8 +34,9 @@ Phases, each printing one JSON line:
           float32 copy of X beside it;
           fused_iteration's counts mode (weighted_fast) with counts from the
           port's own balanced sampler, undrawn columns checked bit for bit;
-          fused_transform at K = 40 (the register path) and K = 300 (the
-          tiled path), each row naming its path; ALS's X passes hxt (P1,
+          fused_transform at K = 40 (the register path) and K = 100, 300 and
+          512 (the tiled path), each row naming its path and grid; ALS's X
+          passes hxt (P1,
           K = 40) and wtx (P2, k = 5 and 30) on int8, float32 and int16 X
           (counts above 127) at the bench shape, timed beside a bf16
           (float32) torch.matmul over a pre-cast copy of X (one call, and 20
@@ -70,8 +73,13 @@ Phases, each printing one JSON line:
           a transform through the fit's group-sorted device X, then
           free_device_cache() and the uncached transform;
   slice_als  the same fit with use_als=True (hxt once and wtx three times
-          an iteration, fused_iteration never) and a cached transform.
-Then one JSON line with every kernel's numbers (hxt and wtx twice more:
+          an iteration, fused_iteration never) and a cached transform;
+  slice_k100  ALPINE(n_components=90, n_covariate_components=[5, 5]) (K =
+          100: fused_transform's tiled path), a 5-iteration fit and a
+          50-step transform through the fit's device X.
+Then one JSON line with every kernel's numbers (fused_transform twice: its
+register path at K = 40 with the launches of slice, its tiled path at
+K = 100 with those of slice_k100; hxt and wtx twice more:
 their fp32 paths hxt_fma and wtx_fma on float32 and on int16 X, with the
 launches of the ALS loop on that X; K1, K4 and K2 again on their fp32 path,
 with the launches of the float32/int16 joint, weighted_fast and unguided
@@ -125,8 +133,11 @@ PASS_NAME = re.compile(r"(iter_tiles)I(\w+?)Lb([01])ELb([01])E|(hxt_partial)I(\w
 # the fp32 X passes: <X type, rows a thread>; and the other kernels' names
 FMA_NAME = re.compile(r"(hxt_mma|hxt_fma|wtx_mma|wtx_fma)I(\w+?)(?:Li(\d+)E)?E")
 X_CODES = {"f": "float32", "13__nv_bfloat16": "bfloat16", "a": "int8", "s": "int16"}
-# mangled name of fused_transform.cu's register path: transform_columns<KB>
+# mangled names of fused_transform.cu's register path, transform_columns<KB>,
+# and of its tiled path, transform_tiles<T, G> (T cells a tile, G pairs of
+# rows a thread)
 COLUMNS_NAME = re.compile(r"transform_columnsILi(\d+)E")
+TILES_NAME = re.compile(r"transform_tilesILi(\d+)ELi(\d+)E")
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
@@ -239,7 +250,11 @@ def sass_check(_build, kernels):
     instantiation per bucket with no spill stores, and at least K² FFMA in
     the K = 40 bucket (its step's sums, each a FFMA of its own); the counts
     of shared loads, shuffles and MUFU (the division's reciprocal) beside
-    them give the instruction mix of a step."""
+    them give the instruction mix of a step.  Its tiled path: one
+    instantiation per (T, KP) of the wrapper's rule, no spill stores, at
+    most 128 registers where two blocks share an SM, cp.async copies
+    (LDGSTS, its ring) and at least 8 × 16 G FFMA (8 unrolled rows of a
+    chunk, G pairs of rows × 8 cells each)."""
     usage = ptxas_usage(_build.build_log("fused_iteration"))
     rows, k1_fma = [], []
     ops = ("HMMA", "LDGSTS", "FFMA")
@@ -265,12 +280,16 @@ def sass_check(_build, kernels):
                      "spill_stores": u.get("spill_stores")})
     usage = ptxas_usage(_build.build_log("fused_transform"))
     trows = []
-    ops = ("FFMA", "LDS", "SHFL", "MUFU")
+    ops = ("FFMA", "LDS", "LDGSTS", "SHFL", "MUFU")
     for fn, count in sorted(sass_counts(_build, "fused_transform", ops).items()):
-        m = COLUMNS_NAME.search(fn)
+        m, t = COLUMNS_NAME.search(fn), TILES_NAME.search(fn)
         u = usage.get(fn, {})
-        trows.append({"kernel": "transform_columns" if m else "transform_tiles",
-                      "bucket": int(m.group(1)) if m else None,
+        T, G = (int(t.group(1)), int(t.group(2))) if t else (None, None)
+        trows.append({"kernel": ("transform_columns" if m else "transform_tiles" if t
+                                 else "pad_transpose"),
+                      "bucket": int(m.group(1)) if m else None, "T": T,
+                      "KP": 2 * kernels._THREADS // (T // 8) * G if t else None,
+                      "row_pairs": G,
                       **{op.lower(): count[op] for op in ops},
                       "registers": u.get("registers"),
                       "spill_stores": u.get("spill_stores")})
@@ -348,6 +367,17 @@ def sass_check(_build, kernels):
                   f"transform_columns<{r['bucket']}>: spill stores {r['spill_stores']}")
         if r["bucket"] == 40:
             check(r["ffma"] >= 40 * 40, f"transform_columns<40>: {r['ffma']} FFMA")
+    tiles = [r for r in trows if r["kernel"] == "transform_tiles"]
+    check(sorted((r["T"], r["KP"]) for r in tiles) == sorted(kernels._TRANSFORM_TILES),
+          "transform_tiles' instantiations differ from the wrapper's")
+    for r in tiles:
+        tag = f"transform_tiles T={r['T']} KP={r['KP']}"
+        check(r["spill_stores"] == 0, f"{tag}: spill stores {r['spill_stores']}")
+        most = 128 if kernels.transform_blocks_per_sm(r["T"], r["KP"]) == 2 else 255
+        check(r["registers"] is not None and r["registers"] <= most,
+              f"{tag}: {r['registers']} registers")
+        check(r["ldgsts"] > 0, f"{tag}: no cp.async (LDGSTS)")
+        check(r["ffma"] >= 8 * 16 * r["row_pairs"], f"{tag}: {r['ffma']} FFMA")
 
 
 def iteration_problem(torch, gen, dev, g, n, blocks, n_labels, xdtype):
@@ -597,17 +627,23 @@ def main():
                                                       n_iter=TRANSFORM_ITERS)
         abs_err, worst = compare(kern(), plain(), 2e-4, 1e-6)
         bucket = kernels.transform_bucket(K)
+        grid = None if bucket else kernels.transform_tiles_grid(K)
         path = (f"registers, bucket {bucket}" if bucket
-                else f"tiled, {kernels.tile_width(K)} cells a tile")
+                else f"tiled, {grid.T} cells a tile, K padded to {grid.KP}, "
+                     f"ring of {grid.S} stages of {grid.J} rows")
         t_bytes = 3 * 4 * K * N + 4 * K * K
         t_ops = TRANSFORM_ITERS * (2.0 * K * K + 3.0 * K) * N
         bms, bby = bound(t_bytes, 0.0, t_ops, card)
         row = {"phase": "kernel",
                "case": f"fused_transform K={K} n_iter={TRANSFORM_ITERS}",
-               "path": path, "max_abs_err_Hn": abs_err,
+               "path": path, "grid": grid._asdict() if grid else None,
+               "max_abs_err_Hn": abs_err,
                "worst_err_over_tolerance": worst,
                "tolerance": "rtol 2e-4, atol 1e-6*max|plain|",
                "ms": time_ms(kern, 5), "plain_ms": time_ms(plain, 3),
+               # context, not the same function: n_iter fp32 products alone
+               "matmul_fp32_x_n_iter_ms": TRANSFORM_ITERS * time_ms(
+                   lambda: torch.matmul(WtW2, H0), 5),
                # loads and stores alone: what the steps' time sits on
                "ms_n_iter_0": time_ms(lambda: kernels.fused_transform(
                    num2, H0, WtW2, EPS, n_iter=0), 5),
@@ -618,7 +654,9 @@ def main():
         return row
 
     results["fused_transform"] = run_transform_case(sum(BLOCKS))
-    run_transform_case(300)
+    results["fused_transform tiled"] = run_transform_case(100)
+    for K in (300, 512):
+        run_transform_case(K)
     torch.cuda.empty_cache()
 
     # -- ALS's X passes: hxt (P1) and wtx (P2) -------------------------------
@@ -1008,10 +1046,40 @@ def main():
         check(np.isfinite(adata.obsm[key]).all(), f"{key} block finite")
     check(np.isfinite(adata.obsm["ALPINE_embedding"]).all(), "embedding finite")
     als.free_device_cache()
+    del als
+    torch.cuda.empty_cache()
+
+    # -- K = 100: the transform's tiled path through the estimator ------------
+    k100 = ALPINE(n_components=90, n_covariate_components=[5, 5],
+                  lam=[1e3, 1e3], device="cuda")
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    k100.fit(adata, ["batch", "condition"], max_iter=5)
+    torch.cuda.synchronize()
+    k100_fit_s = time.perf_counter() - t0
+    check(k100._x_cache is not None, "the K = 100 fit must keep its device X")
+    t0 = time.perf_counter()
+    k100.transform(adata, n_iter=TRANSFORM_ITERS)  # through the fit's device X
+    torch.cuda.synchronize()
+    k100_transform_s = time.perf_counter() - t0
+    k100_launches = dict(kernels.launches)
+    emb = adata.obsm["ALPINE_embedding"]
+    emit({"phase": "slice_k100", "components": 100, "fit_seconds": k100_fit_s,
+          "fit_iterations": 5, "transform_seconds_cached": k100_transform_s,
+          "transform_iterations": TRANSFORM_ITERS,
+          "transform_path": kernels.transform_tiles_grid(100)._asdict(),
+          "launches": k100_launches, "loss_last": k100.loss_history_[-1].tolist()})
+    check(kernels.transform_bucket(100) == 0, "K = 100 must take the tiled path")
+    check(k100_launches["fused_transform"] == 1, "transform must launch fused_transform once")
+    check(emb.shape == (N, 90), f"embedding shape {emb.shape}")
+    check(np.isfinite(emb).all(), "K = 100 embedding finite")
+    k100.free_device_cache()
+    del k100
 
     launches = {"fused_iteration": main_launches["fused_iteration"],
                 "fused_iteration_counts": wf_launches["fused_iteration_counts"],
                 "fused_transform": main_launches["fused_transform"],
+                "fused_transform tiled": k100_launches["fused_transform"],
                 "fused_h_update": unguided_launches["fused_h_update"],
                 "hxt": als_launches["hxt"], "wtx": als_launches["wtx"],
                 "stream_probe": probe_launches,
@@ -1023,7 +1091,8 @@ def main():
     for kname in ("fused_iteration", "fused_iteration_counts", "fused_h_update",
                   "fused_iteration float32", "fused_iteration int16",
                   "fused_iteration_counts int16", "fused_h_update int16",
-                  "fused_transform", "hxt", "wtx", "hxt_fma float32", "hxt_fma int16",
+                  "fused_transform", "fused_transform tiled", "hxt", "wtx",
+                  "hxt_fma float32", "hxt_fma int16",
                   "wtx_fma float32", "wtx_fma int16", "stream_probe"):
         res = results[kname]
         base = kname.split()[0].replace("_fma", "")

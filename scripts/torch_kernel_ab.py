@@ -18,7 +18,11 @@ A run times, at the bench shape (100k cells x 2,000 genes, K = 40, labels
   iterations, host clock around work that ends in a synchronize, the
   median of three runs;
 - ``fused_transform`` (K3), 50 steps at the bench shape (num2 = 2WᵀX,
-  WtW2 = 2WᵀW, H0 = H): median CUDA-event ms of 20 warm launches;
+  WtW2 = 2WᵀW, H0 = H): median CUDA-event ms of 20 warm launches, and over
+  20 launches in a row (``fused_transform_back_to_back_ms``: the host's
+  time per call hidden); at K = 100 and K = 300 (the tiled path;
+  ``fused_transform_k100_ms``, ``fused_transform_k300_ms``), 5 warm
+  launches each;
 - ALS's X passes: P1 ``hxt`` (K = 40) and P2 ``wtx`` (k = 5 and 30) on the
   int8 X, and on float32 X (the counts plus a uniform fraction) and int16
   X (the counts times 3: above 127), median CUDA-event ms of 20 warm
@@ -32,7 +36,7 @@ A run times, at the bench shape (100k cells x 2,000 genes, K = 40, labels
   and device ms per iteration over 10 iterations, likewise;
 - a digest of every output of K1, K4 and K2 with the same inputs held as
   float32 and as int16 X (the fp32 path) and as int8 and bf16 X (the
-  tensor-core path), of K3's output at the bench shape and at K = 300, of
+  tensor-core path), of K3's output at the bench shape, K = 100 and 300, of
   ``hxt`` and ``wtx`` (k = 5 and 30) on float32 and int16 X, and of ``hxt``
   and ``wtx`` on int8 and bf16 X (the tensor-core path); the fp32-path
   outputs of K1/K4/K2 and the X passes' outputs are also saved beside
@@ -102,11 +106,11 @@ def child(root, save_path):
     lam = torch.full((len(N_LABELS),), 1e3, device=dev)
     WtW = W.T @ W
 
-    def time_ms(fn):
+    def time_ms(fn, reps=REPS):
         fn()
         torch.cuda.synchronize()
         times = []
-        for _ in range(REPS):
+        for _ in range(reps):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -176,10 +180,13 @@ def child(root, save_path):
                                                n_iter=TRANSFORM_ITERS)
 
     k3_bench = k3(W, H)
-    k3_300 = k3(torch.rand((G, 300), generator=gen, device=dev),
-                torch.rand((300, N), generator=gen, device=dev) + 0.05)
-    k3_bits = {"K40": digest([[k3_bench()]]), "K300": digest([[k3_300()]])}
-    del k3_300
+    k3_bits, k3_tiled_ms = {"K40": digest([[k3_bench()]])}, {}
+    for K in (100, 300):
+        k3_tiled = k3(torch.rand((G, K), generator=gen, device=dev),
+                      torch.rand((K, N), generator=gen, device=dev) + 0.05)
+        k3_bits[f"K{K}"] = digest([[k3_tiled()]])
+        k3_tiled_ms[f"fused_transform_k{K}_ms"] = time_ms(k3_tiled, reps=5)
+        del k3_tiled
     torch.cuda.empty_cache()
     W5, W30 = W[:, :5].contiguous(), W[:, 10:].contiguous()
     x_pass_bits, wtx_fp32_bits, wtx_bf16_bits, hxt_bf16_bits = {}, {}, {}, {}
@@ -223,6 +230,7 @@ def child(root, save_path):
     k4 = time_ms(lambda: kernels.fused_iteration(
         X, W, H, WtW, Ys, Bs, lam, EPS, C, blocks=BLOCKS, loss_kl=True))
     k3_ms = time_ms(k3_bench)
+    k3_b2b_ms = back_to_back_ms(k3_bench)
     fp32_k_ms = {}  # K1/K4/K2 on the fp32 path
     for dt in (torch.float32, torch.int16):
         name = str(dt)[6:]
@@ -291,6 +299,7 @@ def child(root, save_path):
                       "fused_h_update_ms": k2,
                       "fused_iteration_counts_ms": k4,
                       "fused_transform_ms": k3_ms,
+                      "fused_transform_back_to_back_ms": k3_b2b_ms, **k3_tiled_ms,
                       "hxt_ms": hxt_ms, "hxt_back_to_back_ms": hxt_b2b_ms,
                       "wtx_k5_ms": wtx5_ms, "wtx_k5_back_to_back_ms": wtx5_b2b_ms,
                       "wtx_k30_ms": wtx30_ms, "wtx_k30_back_to_back_ms": wtx30_b2b_ms,

@@ -244,11 +244,13 @@ _LARGEST_BUCKET = kernels._TRANSFORM_BUCKETS[-1]
 @pytest.mark.cuda
 @pytest.mark.parametrize("K,n", [
     (K, 1001) for K in (1, 8, 9, 40, _LARGEST_BUCKET, _LARGEST_BUCKET + 1,
-                        300, 512)] + [(40, 1000), (7, 333), (300, 500)])
+                        100, 129, 257, 300, 512)] + [(40, 1000), (7, 333), (300, 500)])
 def test_fused_transform_cuda_matches_plain(cuda, K, n):
     """Both paths (the register path up to the largest bucket, K = 1 and
-    K one past a bucket included; the tiled path above it) against the
-    plain version; 1001 cells fill no block or tile."""
+    K one past a bucket included; the tiled path above it, at K one past
+    a multiple of its 64-row micro-tile (65, 129, 257), 100, 300 and, on
+    32-cell tiles, 512) against the plain version; 1001 cells fill no
+    block or tile."""
     num2, H0, WtW2 = _transform_problem(8, K, n, cuda)
     before = kernels.launches["fused_transform"]
     got = kernels.fused_transform(num2, H0, WtW2, EPS, n_iter=20)
@@ -260,27 +262,36 @@ def test_fused_transform_cuda_matches_plain(cuda, K, n):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("K,eps", [(9, EPS), (40, EPS), (_LARGEST_BUCKET + 1, EPS),
-                                   (9, 0.0)])
+                                   (300, EPS), (9, 0.0), (_LARGEST_BUCKET + 1, 0.0)])
 def test_fused_transform_cuda_same_bits(cuda, K, eps):
-    """Two launches give the same bits; where K has a bucket, the register
-    path gives the bits of the tiled path (the same sums in the same order),
-    which the library still holds for larger K.  At eps = 0 the padded rows
-    of K = 9's bucket must stay 0 (a 0 / 0 there would spread NaN)."""
+    """Two launches give the same bits; the tiled path, called through the C
+    entry with ``transform_tiles_grid(K)``'s parameters for any K, gives the
+    bits of the wrapper's path (for K with a bucket, the register path's:
+    the same sums in the same order).  At eps = 0 the padded rows (of K =
+    9's bucket, of K = 65's 128-row tile) must stay 0 (a 0 / 0 there would
+    spread NaN): the result is finite and, at K = 65, its real rows hold
+    the plain version's at rtol 2e-4."""
     from alpine_tpu_torch.ops import _build
 
-    num2, H0, WtW2 = _transform_problem(13, K, 1001, cuda)
+    n = 1001
+    num2, H0, WtW2 = _transform_problem(13, K, n, cuda)
     run = lambda: kernels.fused_transform(num2, H0, WtW2, eps, n_iter=20)
     got, again = run(), run()
     tiled = torch.empty_like(got)
+    T, KP, J, S, _ = kernels.transform_tiles_grid(K)
+    Wt = torch.empty((KP, KP), dtype=torch.float32, device=cuda)
     fn = _build.entry("fused_transform")
-    rc = fn(num2.data_ptr(), H0.data_ptr(), WtW2.data_ptr(), K, 0, 1001,
-            kernels.tile_width(K), 20, eps, tiled.data_ptr(),
+    rc = fn(num2.data_ptr(), H0.data_ptr(), WtW2.data_ptr(), K, 0, n, T, KP, J, S,
+            20, eps, Wt.data_ptr(), tiled.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
     torch.cuda.synchronize()
     assert rc == 0
     assert bool(torch.isfinite(got).all())
     assert torch.equal(got, again)
     assert torch.equal(got, tiled)
+    if K > _LARGEST_BUCKET and eps == 0.0:
+        _close(got, kernels.fused_transform_plain(num2, H0, WtW2, eps, n_iter=20),
+               2e-4, 1e-6)
 
 
 @pytest.mark.cuda

@@ -115,11 +115,12 @@ def test_fused_h_update_plain_matches_pallas(dtype):
     _close(ld, want[3], 1e-4)
 
 
-def test_fused_transform_plain_matches_pallas():
+@pytest.mark.parametrize("K", [11, 65, 100])  # the register path, and the tiled path's KP 128
+def test_fused_transform_plain_matches_pallas(K):
     r = np.random.default_rng(2)
-    W = r.random((G, 11), dtype=np.float32)
+    W = r.random((G, K), dtype=np.float32)
     X = r.random((G, 300), dtype=np.float32)
-    H0 = r.random((11, 300), dtype=np.float32) + 0.1
+    H0 = r.random((K, 300), dtype=np.float32) + 0.1
     num2 = (2.0 * (W.T @ X)).astype(np.float32)
     WtW2 = (2.0 * (W.T @ W)).astype(np.float32)
     want = pk.fused_transform(jnp.asarray(num2), jnp.asarray(H0),
@@ -141,11 +142,71 @@ def test_transform_path_rule():
         b = kernels.transform_bucket(K)
         if K <= buckets[-1]:
             assert b == min(x for x in buckets if x >= K), K
-        else:
-            assert b == 0 and K * kernels.tile_width(K) <= 4096, K
+        else:  # the tiled path: a grid for every K above the largest bucket
+            assert b == 0, K
+            grid = kernels.transform_tiles_grid(K)
+            assert (grid.T, grid.KP) in kernels._TRANSFORM_TILES, K
     assert kernels.transform_bucket(40) == 40  # the bench shape needs no padding
     with pytest.raises(ValueError, match="K=513"):
         kernels.transform_bucket(513)
+
+
+def test_transform_tiles_grid_fits_a_hopper_block():
+    """transform_tiles' rule for every K: (T, KP) is an instantiation, the
+    first that holds K; KP holds K in whole micro-tiles (TR threads × 2 rows
+    a pair) and T whole 8-cell thread tiles; the chunk (a multiple of the
+    kernel's 8 unrolled rows) divides KP; the block's shared memory with
+    its two ring stages fits a Hopper block (and half an SM where two
+    blocks share one); the register estimate stays under the hardware's 255
+    (128 for two blocks an SM).  K = 300 takes 80 accumulators a thread."""
+    for K in range(1, 513):
+        T, KP, J, S, smem = kernels.transform_tiles_grid(K)
+        TR = kernels._THREADS // (T // 8)
+        assert (T, KP) == next(t for t in kernels._TRANSFORM_TILES if t[1] >= K), K
+        assert KP >= K and KP % (2 * TR) == 0 and KP - K < 2 * TR, K
+        assert T % 8 == 0 and (T // 8) * TR == kernels._THREADS, K
+        assert J == kernels._TRANSFORM_J and J % 8 == 0 and KP % J == 0, K
+        assert S == kernels._TRANSFORM_STAGES == 2, K
+        assert smem == kernels.transform_tiles_smem_bytes(KP, T, J, S)
+        per_sm = kernels.transform_blocks_per_sm(T, KP)
+        assert smem <= min(kernels._MAX_SMEM, kernels._SM_SMEM // per_sm
+                           - kernels._BLOCK_SMEM_RESERVED), K
+        assert kernels.transform_tiles_registers(T, KP) <= (255 if per_sm == 1 else 128), K
+    assert kernels.transform_tiles_grid(300)[:3] == (64, 320, 32)
+    assert 16 * kernels.transform_row_pairs(64, 320) == 80
+    assert kernels.transform_tiles_grid(100)[:2] == (64, 128)
+    assert kernels.transform_blocks_per_sm(64, 128) == 2
+    assert kernels.transform_tiles_grid(512)[:2] == (32, 512)
+    # the instantiations: one more pair of rows at T = 64 would not fit
+    assert [kp for t, kp in kernels._TRANSFORM_TILES if t == 64] == [64 * g for g in range(1, 7)]
+    assert kernels.transform_tiles_registers(64, 448) > 255
+    with pytest.raises(ValueError, match="K=513"):
+        kernels.transform_tiles_grid(513)
+
+
+@pytest.mark.parametrize("K", [65, 100, 300, 512])
+def test_transform_tiles_padding_is_exact(K):
+    """transform_tiles pads WtW2ᵀ to KP × KP and H's rows to KP with zeros
+    and never updates a padded row (forms no ratio there): the padded rows
+    stay exactly 0 and the real rows keep the unpadded result (float64, so
+    only the summation's zeros differ)."""
+    KP = kernels.transform_tiles_grid(K).KP
+    r = np.random.default_rng(K)
+    n = 19
+    num2 = torch.from_numpy(r.random((K, n)))
+    H0 = torch.from_numpy(r.random((K, n)) + 0.1)
+    A = torch.from_numpy(r.random((K, K)))
+    WtW2 = A @ A.T
+    Wt = torch.zeros((KP, KP), dtype=torch.float64)
+    Wt[:K, :K] = WtW2.T
+    H = torch.zeros((KP, n), dtype=torch.float64)
+    H[:K] = H0
+    for _ in range(20):
+        d = Wt.T @ H
+        H[:K] = H[:K] * (num2 / torch.clamp(d[:K], min=EPS))
+    want = kernels.fused_transform_plain(num2, H0, WtW2, EPS, n_iter=20)
+    assert torch.equal(H[K:], torch.zeros((KP - K, n), dtype=torch.float64))
+    _close(H[:K], want, 1e-12)
 
 
 @pytest.mark.parametrize("num_pad", [0.0, 1.0])
