@@ -1,26 +1,31 @@
 """The ALPINE estimator on PyTorch/CUDA — the port's main path.
 
-Counterpart of ``alpine_tpu/models/alpine.py`` for the single-device
-full-epoch fits and their transform: same constructor, same validation
-messages, same ``obsm``/``varm`` keys.  ``fit`` runs the fused fit loop
+Counterpart of ``alpine_tpu/models/alpine.py`` for single-device fits and
+their transform: same constructor, same validation messages, same
+``obsm``/``varm``/``layers`` keys.  ``fit`` runs the fused fit loop
 (``ops/mu.py``), which launches one CUDA kernel per iteration on the card
 and runs each kernel's plain PyTorch version on the CPU; with
 ``use_als=True`` it runs block-cyclic ALS steps, whose X passes are the
 kernels ``hxt`` and ``wtx``.  ``transform`` runs the fused projection
-kernel.  ``sampling_method`` is "random" (full batch) or "weighted_fast"
-(class-balanced draws as per-cell counts over a group-sorted cell axis;
-joint mode only).  A fit keeps its device copy of X, and a ``transform``
-of the same data reuses it.  ``verbose=True`` shows the JAX package's
-progress bar.
+kernel.  ``sampling_method`` is "random" (full batch, or minibatches of
+``batch_size`` cells from a permutation an epoch), "weighted" (balanced
+draws with replacement, gathered in batches) or "weighted_fast" (the
+balanced draws as per-cell counts over a group-sorted cell axis; joint
+full-epoch mode only); the gathered steps run their X products through
+``hxt`` and ``wtx``.  A fit keeps its device copy of X, and a
+``transform`` of the same data reuses it.  ``verbose=True`` shows the JAX
+package's progress bar.  ``get_normalized_expression`` exports corrected
+expression blockwise; ``save``/``load`` read and write the JAX package's
+files (``io/checkpoint.py``).
 
-What this slice leaves out raises ``NotImplementedError``: minibatch and
-gathered weighted or tiled sampling, checkpoints, restarts, component
-bucketing, multi-GPU and multi-process fits, ``get_normalized_expression``
-and save/load.
+What this slice leaves out raises ``NotImplementedError``: tiled sampling,
+checkpoints, restarts, component bucketing, multi-GPU and multi-process
+fits.
 
 Random draws come from ``torch.Generator``s seeded with ``random_state``
-through ``draw_init``, ``draw_counts_stream`` and ``draw_transform_h0``;
-they differ from the JAX package's ``jax.random`` streams by design.
+through ``draw_init``, ``draw_counts_stream``, ``draw_cells_stream`` and
+``draw_transform_h0``; they differ from the JAX package's ``jax.random``
+streams by design.
 """
 
 from __future__ import annotations
@@ -43,14 +48,19 @@ from alpine_tpu_torch.utils.adata import (
     obs_keys, suggest_data_dtype, x_min,
 )
 from alpine_tpu_torch.utils.encoder import FeatureEncoders
-from alpine_tpu_torch.utils.sampling import balanced_group_tables, joint_label_ids
+from alpine_tpu_torch.utils.sampling import (
+    balanced_group_tables, balanced_sample_probabilities, joint_label_ids,
+)
+from alpine_tpu_torch.utils.single_cell import library_size_factors
 
 Float32Array = np.ndarray
 
-# salts of the transform H0 and the weighted_fast count streams, so they
-# never coincide with the fit's init stream or with each other
+# salts of the transform H0, the weighted_fast count and the minibatch
+# cell streams, so they never coincide with the fit's init stream or with
+# each other
 _TRANSFORM_SALT = 0x7472616E  # "tran"
 _COUNTS_SALT = 0x636E7473  # "cnts"
+_CELLS_SALT = 0x63656C6C  # "cell": minibatch permutations and weighted draws
 
 
 def draw_init(cfg: mu.MUConfig, n_genes: int, random_state: int, eps: float,
@@ -80,6 +90,31 @@ def draw_counts_stream(tables, n_cells: int, random_state: int, device):
         seed = np.random.SeedSequence([random_state, _COUNTS_SALT, t])
         gen.manual_seed(int(seed.generate_state(1, np.uint64)[0] >> 1))
         return mu.grouped_balanced_counts(gen, n_cells, tables)
+
+    return draw
+
+
+def draw_cells_stream(n_cells: int, random_state: int, device, probs=None):
+    """The cell draws of minibatch and gathered weighted fits: returns
+    ``draw(t)``, epoch t's (n_cells,) int64 cell indices on ``device`` — a
+    permutation, or with ``probs`` (the balanced per-cell probabilities,
+    host numpy) n draws with replacement by inverse CDF.  Draw t comes
+    from a device generator seeded from (random_state, salt, t), so it
+    depends on t alone."""
+    gen = torch.Generator(device=device)
+    cdf = None
+    if probs is not None:
+        cdf = torch.from_numpy(np.cumsum(probs, dtype=np.float64)).to(device)
+
+    def draw(t: int) -> torch.Tensor:
+        seed = np.random.SeedSequence([random_state, _CELLS_SALT, t])
+        gen.manual_seed(int(seed.generate_state(1, np.uint64)[0] >> 1))
+        if cdf is None:
+            return torch.randperm(n_cells, generator=gen, device=device)
+        u = torch.rand(n_cells, generator=gen, dtype=torch.float64,
+                       device=device) * cdf[-1]
+        return torch.clamp(torch.searchsorted(cdf, u, right=True),
+                           max=n_cells - 1)
 
     return draw
 
@@ -247,10 +282,8 @@ class ALPINE:
                 f"n_cells ({n_sample}); minibatch weighted fits use "
                 f"sampling_method='weighted'."
             )
-        if sampling_method not in ("random", "weighted_fast"):
-            raise _not_in_slice(f"sampling_method={sampling_method!r}")
-        if batch_size is not None and batch_size < n_sample:
-            raise _not_in_slice("minibatch fitting (batch_size < n_cells)")
+        if sampling_method == "tiled":
+            raise _not_in_slice("sampling_method='tiled'")
 
         # (genes x cells) layout, as in the reference (main.py:104)
         X: Float32Array = dense_x(adata.X).T
@@ -276,7 +309,9 @@ class ALPINE:
         # the narrow copy (200 MB of int8 at 100k x 2,000, not 800 MB)
         Xd = self._cast_x_host(X).to(dev)
         Ysd = [torch.from_numpy(y).to(dev) for y in Ys]
-        cell_perm = tables = None
+        cell_perm = tables = probs = None
+        if sampling_method == "weighted":
+            probs = balanced_sample_probabilities(joint_label_ids(Ys))
         if sampling_method == "weighted_fast":
             # group-sort the cells (stable) for the grouped sampler; H0
             # pairs positionally with the sorted cells and H is un-sorted
@@ -301,8 +336,11 @@ class ALPINE:
                                     self.eps, dev)
             draw = (None if tables is None else
                     draw_counts_stream(tables, n_sample, self.random_state, dev))
+            cells = (draw_cells_stream(n_sample, self.random_state, dev, probs)
+                     if cfg.minibatch else None)
             return cfg, mu.fit_scan(cfg, W0, H0, Bs0, Xd, Ysd, hyper,
-                                    draw_counts=draw, progress=progress)
+                                    draw_counts=draw, progress=progress,
+                                    draw_cells=cells)
 
         try:
             t0 = time.perf_counter()
@@ -354,10 +392,13 @@ class ALPINE:
         main.py:666-676); ``loss_history_`` holds the raw array."""
         import pandas as pd
 
-        colnames = ["total loss", "reconstruction loss"] + [
+        return pd.DataFrame(self.loss_history_, columns=self.loss_columns())
+
+    def loss_columns(self) -> List[str]:
+        """The names of ``loss_history_``'s columns."""
+        return ["total loss", "reconstruction loss"] + [
             f"prediction loss({k})" for k in self.covariate_keys
         ]
-        return pd.DataFrame(self.loss_history_, columns=colnames)
 
     # ------------------------------------------------------------ transform
     def transform(self, adata, n_iter: Optional[int] = None) -> None:
@@ -471,15 +512,77 @@ class ALPINE:
         state["_x_cache"] = None
         return state
 
-    def get_normalized_expression(self, *args, **kwargs):
-        raise _not_in_slice("get_normalized_expression")
+    def get_normalized_expression(self, adata, library_size: Optional[float] = None,
+                                  on_device: bool = True,
+                                  cell_block_size: Optional[int] = None,
+                                  out: Optional[np.ndarray] = None) -> None:
+        """Batch-corrected expression from the unguided block only
+        (reference main.py:275-301), into
+        ``adata.layers["normalized_expression"]``: W_unguided @ H of
+        ``adata.obsm["ALPINE_embedding"]``, each cell scaled to
+        ``library_size`` (the median of the cells' totals when None).
+
+        Two passes over ``cell_block_size``-cell slabs (about 256 MB of
+        float32 by default) write straight into ``out``, so the transient
+        memory is one slab: the products and the cells' totals, then the
+        scaling.  ``out`` is a preallocated (cells × genes) float32 array
+        (an ``np.memmap`` for out-of-core export); by default one is
+        allocated.  Each slab's product runs on the model's device;
+        ``on_device=False`` runs it with numpy on the host (the JAX
+        package's default)."""
+        if not hasattr(self, "matrices"):
+            raise RuntimeError("Model is not trained yet. Please fit the model first.")
+        elif not is_anndata(adata):
+            raise TypeError("adata must be an AnnData object.")
+        elif "ALPINE_embedding" not in adata.obsm:
+            raise ValueError(
+                "ALPINE_embedding not found in adata.obsm. Please transform the data first."
+            )
+        elif (library_size is not None) and (library_size <= 0):
+            raise ValueError("library_size must be a positive float.")
+
+        W: Float32Array = self.matrices["Ws"][-1]
+        H: Float32Array = np.asarray(adata.obsm["ALPINE_embedding"]).T
+        n_cells, g = H.shape[1], W.shape[0]
+        if cell_block_size is None:
+            cell_block_size = max(1, min(n_cells, (64 << 20) // max(g, 1)))
+        if not isinstance(cell_block_size, int) or cell_block_size <= 0:
+            raise ValueError("cell_block_size must be a positive integer.")
+        if out is None:
+            out = np.empty((n_cells, g), np.float32)
+        elif out.shape != (n_cells, g) or out.dtype != np.float32:
+            raise ValueError(
+                f"out must be a float32 array of shape {(n_cells, g)}, got "
+                f"{out.dtype} {out.shape}."
+            )
+
+        counts = np.empty(n_cells, np.float32)
+        mu.reconstruct_expression_blocks(
+            W, H, out, counts, cell_block_size, device=self.device,
+            precision=self.matmul_precision, on_device=on_device)
+        fac = library_size_factors(counts, library_size)
+        for lo in range(0, n_cells, cell_block_size):
+            hi = min(lo + cell_block_size, n_cells)
+            out[lo:hi] *= fac[lo:hi, None]
+
+        adata.layers["normalized_expression"] = out
 
     def save(self, path: str) -> None:
-        raise _not_in_slice("save/load")
+        """Write the fitted model to ``<path>.npz`` and
+        ``<path>.encoders.pkl`` in the JAX package's format
+        (``alpine_tpu_torch/io/checkpoint.py``)."""
+        from alpine_tpu_torch.io.checkpoint import save_model
+
+        save_model(self, path)
 
     @classmethod
     def load(cls, path: str, device="auto") -> "ALPINE":
-        raise _not_in_slice("save/load")
+        """A fitted model from files written by ``save`` or by the JAX
+        package's ``ALPINE.save``, on ``device`` ("auto": the card).  It has
+        no device copy of X, so its first ``transform`` uploads the data."""
+        from alpine_tpu_torch.io.checkpoint import load_model
+
+        return load_model(path, device=device)
 
     def store_embeddings(self, adata) -> None:
         """Write obsm/varm keys (reference main.py:303-320): the unguided block
@@ -520,6 +623,8 @@ class ALPINE:
             backend="fused",
             weighted_counts=(self.sampling_method == "weighted_fast"),
             use_als=self.use_als,
+            batch_size=None if self.batch_size >= n_sample else self.batch_size,
+            weighted=(self.sampling_method == "weighted"),
         )
 
     def _hyper(self):

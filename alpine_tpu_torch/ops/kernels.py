@@ -10,9 +10,10 @@ tensor launches the kernel or raises, and a failed build raises.
 count; ``fused_iteration`` counts its counts mode, K4, apart from K1), so a
 run can show that its main path went through the kernels.
 
-``hxt`` and ``wtx`` are the X passes of ALS mode (and ``hxt`` the first
-X Hᵀ of the joint fit loops); ``stream_probe`` is the streaming read-rate
-probe's kernel, on no fit path (``alpine_tpu_torch/probe.py``).
+``hxt`` and ``wtx`` are the X passes of ALS mode and of the minibatch
+steps (and ``hxt`` the first X Hᵀ of the joint fit loops); ``stream_probe``
+is the streaming read-rate probe's kernel, on no fit path
+(``alpine_tpu_torch/probe.py``).
 """
 
 from __future__ import annotations
@@ -746,8 +747,9 @@ def _launched(name: str, rc: int) -> None:
 def hxt(X, H):
     """H Xᵀ (K, g) f32, summed over all cells (the counterpart of
     benchmarks/als_probe.py's ``hxt`` kernel): X (g, n) int8/int16/bf16/f32,
-    H (K, n) f32, 1 <= K <= 512.  ALS runs it once an iteration for
-    X H_startᵀ; the joint fit loops for their first X Hᵀ.
+    H (K, n) f32, 1 <= K <= 512.  ALS runs it once an iteration (or a
+    batch) for X H_startᵀ; a joint minibatch step once for X_b H_bᵀ; the
+    joint fit loops for their first X Hᵀ.
 
     On the card, int8 and bf16 X run on bf16 tensor cores (H rounded to
     bf16 once a call, exact products, fp32 sums) over ``hxt_grid``'s grid,
@@ -891,7 +893,9 @@ def wtx_fma_grid(g: int, n: int, K: int, x_dtype: torch.dtype
 def wtx(X, W):
     """Wᵀ X (K, n) f32 (the counterpart of benchmarks/als_probe.py's ``wtx``
     kernel): X (g, n) int8/int16/bf16/f32, W (g, K) f32, 1 <= K <= 512.
-    ALS runs it once a block an iteration, with the block's Wᵢ.
+    ALS runs it once a block an iteration (or a batch), with the block's
+    Wᵢ; a joint minibatch step once for Wᵀ X_b, and a minibatch fit once an
+    epoch for the loss's WᵀX over all cells.
 
     Each block computes the K × T outputs of T cells over all genes and
     writes each once, so two launches give the same bits.  On the card,

@@ -1,7 +1,7 @@
-"""Multiplicative-update (MU) numerical core of the port: full-batch joint
-fits and the out-of-sample projection.
+"""Multiplicative-update (MU) numerical core of the port: the fit loops,
+the out-of-sample projection and the expression export.
 
-Counterpart of ``alpine_tpu/ops/mu.py`` (the full-batch joint subset).  The
+Counterpart of ``alpine_tpu/ops/mu.py`` (its single-device subset).  The
 update math is the same:
 
 - ``(WᵀW)H`` and ``W(HHᵀ)`` replace the reference's ``Wᵀ(WH)`` and
@@ -28,6 +28,12 @@ undrawn cells keep their H (``joint_weighted_counts_update``).
 that read X n_blocks + 1 times an iteration; its fused backend runs those
 X passes through the kernels ``hxt`` and ``wtx``.
 
+``MUConfig.batch_size`` below n_cells (random minibatch) or
+``MUConfig.weighted`` (``sampling_method="weighted"``: balanced draws with
+replacement) gathers each epoch's batches of cells and runs one joint or
+ALS step on each (``_fit_scan_steps``); the fused backend runs the
+steps' X products through ``hxt`` and ``wtx``.
+
 A verbose fit passes ``progress``: the loops call it every
 ``progress_every(max_iter)`` iterations and after the last with the
 iterations done and the objective loss, which syncs the host there.
@@ -39,6 +45,7 @@ from contextlib import contextmanager
 from dataclasses import dataclass
 from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 # The model-layer data_dtype vocabulary, narrowest storage first.
@@ -103,12 +110,16 @@ class MUConfig:
     backend: str = "fused"  # "fused" (kernels) | "plain" (step-by-step)
     weighted_counts: bool = False  # weighted_fast: count-scaled epochs
     use_als: bool = False  # block-cyclic (ALS) steps instead of joint ones
+    batch_size: Optional[int] = None  # cells a step; None: all of them
+    weighted: bool = False  # "weighted": n balanced draws an epoch, gathered
 
     def __post_init__(self):
         if self.backend not in ("fused", "plain"):
             raise ValueError("backend must be 'fused' or 'plain'")
         if self.x_dtype not in STORAGE_DTYPES:
             raise ValueError(f"x_dtype must be one of {STORAGE_DTYPES}")
+        if self.batch_size is not None and self.batch_size <= 0:
+            raise ValueError("batch_size must be a positive integer or None")
 
     @property
     def n_cov(self) -> int:
@@ -125,6 +136,19 @@ class MUConfig:
     @property
     def xdt(self) -> torch.dtype:
         return x_storage_dtype(self.x_dtype)
+
+    @property
+    def minibatch(self) -> bool:
+        """Gathered steps: a batch size below n_cells, or weighted draws
+        (with replacement, so never the full-batch step even when one batch
+        holds them all)."""
+        bs = self.batch_size
+        return self.weighted or (bs is not None and bs < self.n_cells)
+
+    @property
+    def eff_batch_size(self) -> int:
+        bs = self.batch_size
+        return self.n_cells if bs is None else min(bs, self.n_cells)
 
 
 @contextmanager
@@ -196,12 +220,18 @@ def _guided_h_terms(cfg: MUConfig, B, Hi, Yi, lam_i, eps):
 def joint_batch_update(cfg: MUConfig, hyper, W, Bs, H, X, Xf, Ys_f):
     """One joint MU step: W, then Bs, then H (reference main.py:589-663).
     ``X`` is the stored X (its dtype decides the rounding), ``Xf`` the same
-    values in f32 and ``Ys_f`` the label matrices in f32.  Returns
-    (W, Bs, H, (WtX, WtW)) with WtX/WtW valid for the new W."""
+    values in f32 (unused by the fused backend) and ``Ys_f`` the label
+    matrices in f32.  Returns (W, Bs, H, (WtX, WtW)) with WtX/WtW valid
+    for the new W.  ``cfg.backend == "fused"`` runs the two X products
+    through the kernels ``hxt`` (X Hᵀ) and ``wtx`` (Wᵀ X), "plain" through
+    ``_x_ht``/``_dot_x`` on ``Xf``."""
+    from alpine_tpu_torch.ops import kernels
+
     lam, orth_w, alpha_w, l1_ratio, eps = hyper
+    fused = cfg.backend == "fused"
 
     HHt = H @ H.T
-    num = 2.0 * _x_ht(X, Xf, H)
+    num = 2.0 * (kernels.hxt(X, H).T if fused else _x_ht(X, Xf, H))
     den = (2.0 * (W @ HHt)
            + (1.0 - l1_ratio) * alpha_w * W
            + orth_w * (torch.sum(W, dim=1, keepdim=True) - W)
@@ -215,7 +245,7 @@ def joint_batch_update(cfg: MUConfig, hyper, W, Bs, H, X, Xf, Ys_f):
                                HHt[o:o + k, o:o + k]))
     Bs = tuple(newBs)
 
-    WtX = _dot_x(X, W.T, Xf)
+    WtX = kernels.wtx(X, W.contiguous()) if fused else _dot_x(X, W.T, Xf)
     WtW = W.T @ W
     num = 2.0 * WtX
     den = 2.0 * (WtW @ H)
@@ -394,27 +424,60 @@ def _report(progress, losses, it: int, max_iter: int) -> None:
 
 
 def _fit_scan_steps(cfg: MUConfig, W0, H0, Bs0, X, Ys, hyper, draw_counts,
-                    progress):
-    """One whole step an iteration, and the loss from its WᵀX (and WᵀW):
-    the joint steps of the plain backend, and ALS on either backend (the
-    fused one runs its X passes as kernels and needs no float32 copy of
-    X)."""
-    Xf = X.float() if cfg.backend == "plain" else None
-    Ys_f = [y.float() for y in Ys]
+                    draw_cells, progress):
+    """Whole steps: the joint steps of the plain backend, ALS on either
+    backend, and the random-minibatch and gathered weighted epochs of both
+    (the minibatch branch of ``alpine_tpu.ops.mu.fit_scan``).  The fused
+    backend runs every X product through the kernels (``hxt`` and ``wtx``
+    in the steps, ``wtx`` for a minibatch epoch's WᵀX) and makes no
+    float32 copy of X.
+
+    Full batch, iteration t is one step on all cells, and the loss takes
+    that step's WᵀX and WᵀW.  With ``cfg.minibatch``, epoch t takes
+    ``draw_cells(t)``, n cell indices (a permutation, or n balanced draws
+    with replacement), cut into batches of ``cfg.eff_batch_size`` cells;
+    the last batch is short where the size does not divide n (the JAX
+    package zero-fills it, which adds nothing to any sum, so the two agree
+    up to summation order).  Each batch gathers X_b (in X's storage
+    dtype), Ys_b and H_b, runs one step on them and scatters H_b back.  A
+    cell drawn twice into one batch gets the same update in both columns
+    (an H column's update reads only that column), so the scatter writes
+    equal values.  The loss is taken once an epoch over all cells."""
+    from alpine_tpu_torch.ops import kernels
+
+    fused = cfg.backend == "fused"
+    wide = torch.promote_types(X.dtype, torch.float32)  # float64 stays float64
+    Xf = None if fused else X.to(wide)
+    Ys_f = [y.to(wide) for y in Ys]
     normX2 = _norm_x2(X)
-    W, H, Bs = W0, H0, tuple(Bs0)
+
+    def step(W, Bs, H, X, Xf, Ys_f, it):
+        if cfg.use_als:
+            return als_batch_update(cfg, hyper, W, Bs, H, X, Xf, Ys_f)
+        if cfg.weighted_counts:
+            return joint_weighted_counts_update(cfg, hyper, W, Bs, H, X, Xf,
+                                                Ys_f, draw_counts(it))
+        return joint_batch_update(cfg, hyper, W, Bs, H, X, Xf, Ys_f)
+
+    W, Bs = W0, tuple(Bs0)
+    H = H0.clone() if cfg.minibatch else H0  # batches scatter into H
+    n, bs = cfg.n_cells, cfg.eff_batch_size
     losses = torch.empty((cfg.max_iter, 2 + cfg.n_cov), dtype=torch.float32,
                          device=X.device)
     for it in range(cfg.max_iter):
-        if cfg.use_als:
-            W, Bs, H, (WtX, WtW) = als_batch_update(cfg, hyper, W, Bs, H, X,
-                                                    Xf, Ys_f)
-        elif cfg.weighted_counts:
-            W, Bs, H, (WtX, WtW) = joint_weighted_counts_update(
-                cfg, hyper, W, Bs, H, X, Xf, Ys_f, draw_counts(it))
+        if not cfg.minibatch:
+            W, Bs, H, (WtX, WtW) = step(W, Bs, H, X, Xf, Ys_f, it)
         else:
-            W, Bs, H, (WtX, WtW) = joint_batch_update(cfg, hyper, W, Bs, H, X,
-                                                      Xf, Ys_f)
+            idx = draw_cells(it)
+            for lo in range(0, n, bs):
+                b = idx[lo:lo + bs]
+                W, Bs, H_b, _ = step(
+                    W, Bs, H.index_select(1, b), X.index_select(1, b),
+                    None if fused else Xf.index_select(1, b),
+                    [y.index_select(1, b) for y in Ys_f], it)
+                H.index_copy_(1, b, H_b)
+            WtX = kernels.wtx(X, W.contiguous()) if fused else _dot_x(X, W.T, Xf)
+            WtW = None
         losses[it] = compute_loss_parts(cfg, hyper, W, H, Bs, X, Xf, Ys_f,
                                         normX2, WtX=WtX, WtW=WtW)
         _report(progress, losses, it, cfg.max_iter)
@@ -536,33 +599,39 @@ def _fit_scan_fused(cfg: MUConfig, W0, H0, Bs0, X, Ys, hyper, draw_counts,
 
 
 def fit_scan(cfg: MUConfig, W0, H0, Bs0, X, Ys, hyper, draw_counts=None,
-             progress=None):
-    """Run ``cfg.max_iter`` full-epoch joint MU iterations.
+             progress=None, draw_cells=None):
+    """Run ``cfg.max_iter`` MU epochs.
 
     ``X`` (genes × cells) and ``Ys`` (labels_i × cells) are cast to the
     storage dtype; ``hyper = (lam, orth_W, alpha_W, l1_ratio_W, eps)`` with
     ``lam`` a float32 tensor on X's device and the rest Python floats.
     With ``cfg.weighted_counts``, ``draw_counts(t)`` returns draw t as a
     (n_cells,) float32 count tensor on X's device; iteration t uses draw t.
-    ``progress(done, objective loss)``, when given, is called as
-    ``progress_every`` says.  Returns (W, H, Bs, losses) with losses
-    (max_iter, 2 + n_cov) on the device: [total, recon, pred_0, ...] per
-    iteration."""
+    With ``cfg.minibatch``, ``draw_cells(t)`` returns epoch t's (n_cells,)
+    int64 cell indices on X's device.  ``progress(done, objective loss)``,
+    when given, is called as ``progress_every`` says.  Returns (W, H, Bs,
+    losses) with losses (max_iter, 2 + n_cov) on the device: [total,
+    recon, pred_0, ...] per iteration."""
     X = X.to(cfg.xdt).contiguous()
     Ys = [y.to(cfg.xdt).contiguous() for y in Ys]
     _check_inputs(cfg, W0, H0, X, Ys)
     if cfg.weighted_counts and (draw_counts is None or not cfg.n_cov):
         raise ValueError("weighted_counts needs covariates and a draw_counts "
                          "callable (weighted sampling balances over them)")
-    if cfg.weighted_counts and cfg.use_als:
+    if cfg.weighted_counts and (cfg.use_als or cfg.minibatch):
         raise ValueError("weighted_counts is a full-epoch joint-mode strategy "
                          "(batch_size covering all cells, use_als=False)")
-    fused_joint = cfg.backend == "fused" and not cfg.use_als
-    run = _fit_scan_fused if fused_joint else _fit_scan_steps
+    if cfg.minibatch and draw_cells is None:
+        raise ValueError("a minibatch or weighted fit needs a draw_cells "
+                         "callable")
+    W0, H0 = W0.contiguous(), H0.contiguous()
+    Bs0 = tuple(b.contiguous() for b in Bs0)
     with matmul_precision(cfg.precision):
-        return run(cfg, W0.contiguous(), H0.contiguous(),
-                   tuple(b.contiguous() for b in Bs0), X, Ys, hyper,
-                   draw_counts, progress)
+        if cfg.backend == "fused" and not (cfg.use_als or cfg.minibatch):
+            return _fit_scan_fused(cfg, W0, H0, Bs0, X, Ys, hyper,
+                                   draw_counts, progress)
+        return _fit_scan_steps(cfg, W0, H0, Bs0, X, Ys, hyper, draw_counts,
+                               draw_cells, progress)
 
 
 # ---------------------------------------------------------------------------
@@ -596,6 +665,40 @@ def run_transform(W, X, H0, eps: float, *, n_iter: int,
         WtW2 = 2.0 * (W.T @ W)
         return kernels.fused_transform(num2, H0.contiguous(), WtW2, eps,
                                        n_iter=n_iter)
+
+
+def reconstruct_expression_blocks(W, H, out, counts, block: int, device=None,
+                                  precision: str = "highest",
+                                  on_device: bool = True) -> None:
+    """Fill ``out[lo:hi] = (W @ H[:, lo:hi]).T`` and ``counts[lo:hi]`` (the
+    per-cell totals) one ``block``-cell slab at a time (the counterpart of
+    ``alpine_tpu.ops.mu.reconstruct_expression_blocks``): the transient
+    memory is one slab, and ``out`` may be an ``np.memmap``.  Each cell's
+    values depend only on its own column of H, so the blocking changes no
+    value.
+
+    By default W stays resident on ``device`` (the CPU when None) and each
+    slab's product is a ``torch.matmul`` there under ``matmul_precision``
+    (true fp32 at "highest"); ``on_device=False`` computes it with numpy on
+    the host, as the JAX package does by default."""
+    n = H.shape[1]
+    if on_device:
+        Wd = torch.from_numpy(np.ascontiguousarray(W, np.float32)).to(device)
+    for lo in range(0, n, block):
+        hi = min(lo + block, n)
+        if on_device:
+            Hd = torch.from_numpy(np.ascontiguousarray(H[:, lo:hi],
+                                                       np.float32)).to(device)
+            with matmul_precision(precision):
+                slab = (Wd @ Hd).cpu().numpy().T
+        else:
+            slab = np.dot(W, H[:, lo:hi]).astype(np.float32).T
+        out[lo:hi] = slab
+        # the totals come from the C-contiguous rows of out, not from the
+        # transposed slab: numpy's pairwise summation order follows the
+        # layout, and the slab's would make the totals (and so the median
+        # library size) depend on the block size by an ulp
+        counts[lo:hi] = out[lo:hi].sum(axis=1)
 
 
 # ---------------------------------------------------------------------------

@@ -1,10 +1,11 @@
 """Minimal AnnData-compatible container and the X helpers of the fit path.
 
 The port's own copy of ``alpine_tpu/utils/adata.py`` (the subset the
-estimator's fit/transform path needs), written so that this path imports
-neither pandas nor anndata: ``obs`` may be a pandas DataFrame or a plain
-dict of equal-length 1-D arrays.  ``is_anndata`` is duck-typed, so the JAX
-package's ``AnnData`` and a real ``anndata.AnnData`` are accepted too.
+estimator's fit, transform, export and h5ad paths need), written so that
+these paths import neither pandas nor anndata: ``obs`` and ``var`` may be
+pandas DataFrames or plain dicts of equal-length 1-D arrays.  ``is_anndata``
+is duck-typed, so the JAX package's ``AnnData`` and a real
+``anndata.AnnData`` are accepted too.
 """
 
 from __future__ import annotations
@@ -129,8 +130,11 @@ class _AxisMapping(dict):
 class AnnData:
     """A lightweight stand-in for ``anndata.AnnData`` (rows = cells/obs,
     columns = genes/vars) with the subset of the API that ALPINE touches.
-    ``obs`` is a pandas DataFrame or a dict of equal-length 1-D arrays;
-    ``var_names`` defaults to "0".."n_vars-1"."""
+    ``obs`` / ``var`` are pandas DataFrames or dicts of equal-length 1-D
+    arrays; ``obs_names`` / ``var_names`` are a DataFrame's index, else
+    "0".."n-1" (``var_names`` may be given with a dict ``var``).  ``obsm`` and ``layers`` check their
+    values' leading axis against the cells, ``varm`` against the genes, as
+    the JAX package's class does."""
 
     def __init__(
         self,
@@ -139,27 +143,22 @@ class AnnData:
         var_names: Optional[Any] = None,
         obsm: Optional[Dict[str, Any]] = None,
         varm: Optional[Dict[str, Any]] = None,
+        var: Optional[Any] = None,
+        layers: Optional[Dict[str, Any]] = None,
     ):
         X = as_compressed(X) if is_sparse_x(X) else np.asarray(X)
         if len(X.shape) != 2:
             raise ValueError("X must be a 2-D array (obs x var).")
         self.X = X
         n_obs, n_vars = X.shape
-        if obs is None:
-            obs = {}
-        elif not hasattr(obs, "columns"):
-            obs = {k: np.asarray(v).reshape(-1) for k, v in obs.items()}
-        if obs_keys(obs) and obs_length(obs) != n_obs:
-            raise ValueError("obs length does not match X rows")
-        self.obs = obs
-        names = (np.arange(n_vars).astype(str) if var_names is None
-                 else np.asarray(var_names).reshape(-1))
-        if len(names) != n_vars:
-            raise ValueError("var_names length does not match X columns")
-        self.var_names = names
+        self.obs, self._obs_names = _frame(obs, None, n_obs, "obs", "X rows")
+        self.var, self._var_names = _frame(var, var_names, n_vars, "var",
+                                           "X columns")
         self.obsm = _AxisMapping(n_obs, "obsm")
         self.varm = _AxisMapping(n_vars, "varm")
-        for mapping, items in ((self.obsm, obsm), (self.varm, varm)):
+        self.layers = _AxisMapping(n_obs, "layers")
+        for mapping, items in ((self.obsm, obsm), (self.varm, varm),
+                               (self.layers, layers)):
             for k, v in (items or {}).items():
                 mapping[k] = v
 
@@ -175,10 +174,43 @@ class AnnData:
     def n_vars(self) -> int:
         return self.X.shape[1]
 
+    @property
+    def obs_names(self):
+        return self.obs.index if hasattr(self.obs, "columns") else self._obs_names
+
+    @property
+    def var_names(self):
+        return self.var.index if hasattr(self.var, "columns") else self._var_names
+
     def __repr__(self) -> str:  # pragma: no cover
         return (f"AnnData(n_obs={self.n_obs}, n_vars={self.n_vars}, "
                 f"obs={obs_keys(self.obs)}, obsm={list(self.obsm)}, "
-                f"varm={list(self.varm)})")
+                f"varm={list(self.varm)}, layers={list(self.layers)})")
+
+
+def _frame(table: Optional[Any], names: Optional[Any], n: int, what: str,
+           axis: str):
+    """(table, names) of one axis: a DataFrame keeps its own index (``names``
+    must then be None); a dict's columns become 1-D arrays, with ``names``
+    or "0".."n-1" as the axis names."""
+    if table is None:
+        table = {}
+    elif hasattr(table, "columns"):
+        if names is not None:
+            raise ValueError(f"{what} is a DataFrame: its index names the "
+                             f"{what} axis, so {what}_names must be None")
+        if len(table) != n:
+            raise ValueError(f"{what} length does not match {axis}")
+        return table, None
+    else:
+        table = {k: np.asarray(v).reshape(-1) for k, v in table.items()}
+    if obs_keys(table) and obs_length(table) != n:
+        raise ValueError(f"{what} length does not match {axis}")
+    names = (np.arange(n).astype(str) if names is None
+             else np.asarray(names).reshape(-1))
+    if len(names) != n:
+        raise ValueError(f"{what}_names length does not match {axis}")
+    return table, names
 
 
 def is_anndata(obj: Any) -> bool:

@@ -27,8 +27,8 @@ Phases, each printing one JSON line:
           losses (K not a multiple of 16, ragged genes and cells, K = 300
           and 512 where the bf16 path takes its own tile), a second launch
           of each fused_iteration case bit for bit the first, with its time
-          beside the plain version's and its bound; beside K1 the two bf16
-          cuBLAS products over a bf16 copy of X as a yardstick; K1, K4 and
+          beside the plain version's and its bound; beside K1, K4 and K2 the
+          two bf16 cuBLAS products over a bf16 copy of X as a yardstick; K1, K4 and
           K2 on int16 X (counts above 127) and K1 on float32 X at the bench
           shape, each with the two products as fp32 torch.matmul over a
           float32 copy of X beside it;
@@ -40,7 +40,9 @@ Phases, each printing one JSON line:
           K = 40) and wtx (P2, k = 5 and 30) on int8, float32 and int16 X
           (counts above 127) at the bench shape, timed beside a bf16
           (float32) torch.matmul over a pre-cast copy of X (one call, and 20
-          back to back, which hides the host's time per call), each row with
+          back to back, which hides the host's time per call), and at the
+          minibatch steps' shape (8,192 cells, K = 40, int8) and wtx at a
+          minibatch epoch's loss shape (all cells, K = 40, int8), each row with
           the grid it ran (hxt: gene block, splits, ring stages, partial
           bytes; wtx: tile, warp rows or lanes along K, gene chunk, ring
           stages, blocks, waves), and at small
@@ -53,8 +55,10 @@ Phases, each printing one JSON line:
   fit_loop  the fused fit loop alone on device-resident bench data: ms
           per iteration, device busy share and device time per kernel
           (profiler); then the same for the weighted_fast loop
-          (fit_loop_weighted_fast, the sampler's draws included) and for
-          the ALS loop (fit_loop_als, 50 iterations); then, on int16 X
+          (fit_loop_weighted_fast, the sampler's draws included), for
+          the ALS loop (fit_loop_als, 50 iterations) and for 3 epochs of
+          8,192-cell minibatches, joint and ALS (fit_loop_minibatch,
+          fit_loop_minibatch_als: "iterations" are epochs); then, on int16 X
           holding counts above 127, the ALS loop (fit_loop_als_int16: the
           fp32 X passes), the joint loop (fit_loop_int16: K1's fp32 path),
           the weighted_fast loop (fit_loop_weighted_fast_int16: K4's) and
@@ -67,23 +71,45 @@ Phases, each printing one JSON line:
   slice   ALPINE(n_components=30, n_covariate_components=[5, 5]).fit(...,
           max_iter=50) and .transform() (through the fit's device X) on
           100k x 2,000 Poisson counts (int8), with the launch counts read
-          around it, then an unguided fit (no covariates) for
-          fused_h_update's path;
+          around it;
+  slice_persist  that fitted model saved (compressed NPZ, the JAX
+          package's format), loaded onto the card, its uncached transform
+          (one K3 launch) held against the fitted model's own (the same
+          bits, or K3's plain tolerance), the export on the card
+          (get_normalized_expression's default, checked to run its
+          products on the card) against the host's (on_device=False),
+          then write_h5ad and read_h5ad in full and by a range of cells,
+          bit for bit (where h5py and pandas are installed; the phase
+          says so where they are not), with the seconds of each step, the
+          file sizes, peak device memory and K3's launches;
+  slice_unguided  an unguided fit (no covariates) for fused_h_update's
+          path;
   slice_weighted_fast  the same fit with sampling_method="weighted_fast",
           a transform through the fit's group-sorted device X, then
           free_device_cache() and the uncached transform;
   slice_als  the same fit with use_als=True (hxt once and wtx three times
           an iteration, fused_iteration never) and a cached transform;
+  slice_minibatch, slice_minibatch_als, slice_weighted  fits of 10
+          epochs with batch_size=8192 (13 batches an epoch): random
+          minibatch joint, the same with use_als=True, and
+          sampling_method="weighted" (balanced draws with replacement);
+          each checks the launches of hxt (one a batch) and wtx (one a
+          batch, ALS one a block, and one an epoch for the loss), finite
+          losses, a falling reconstruction loss, and peak device memory at
+          most the slice's and under a float32 copy of X;
   slice_k100  ALPINE(n_components=90, n_covariate_components=[5, 5]) (K =
           100: fused_transform's tiled path), a 5-iteration fit and a
           50-step transform through the fit's device X.
 Then one JSON line with every kernel's numbers (fused_transform twice: its
 register path at K = 40 with the launches of slice, its tiled path at
-K = 100 with those of slice_k100; hxt and wtx twice more:
+K = 100 with those of slice_k100; hxt and wtx at the minibatch shape with
+the per-batch launches of slice_minibatch, and wtx at the loss's full shape
+with its once-an-epoch launches; hxt and wtx twice more:
 their fp32 paths hxt_fma and wtx_fma on float32 and on int16 X, with the
 launches of the ALS loop on that X; K1, K4 and K2 again on their fp32 path,
 with the launches of the float32/int16 joint, weighted_fast and unguided
-loops) and, last, the result line.
+loops) and, last, the result line, whose "h5ad_run" says whether
+slice_persist's .h5ad round trip ran.
 Any failed check raises: the script exits non-zero and prints no result.
 Without a GPU it exits with code 2 before doing anything.
 """
@@ -103,6 +129,11 @@ TRANSFORM_ITERS = 50
 FIT_ITERS = 50
 LOOP_ITERS = 10
 ALS_LOOP_ITERS = 50
+# minibatch phases: the JAX package's minibatch bench batch
+# (benchmarks/gather_floor.py:57), 13 batches an epoch at N cells
+MB_BATCH = 8192
+MB_EPOCHS = 10
+MB_LOOP_EPOCHS = 3  # the profiled minibatch loops (fit_loop_minibatch*)
 EPS = 1e-6
 # published dense peaks (NVIDIA data sheets): bytes/s, bf16 flop/s, fp32
 # flop/s outside the tensor cores
@@ -419,6 +450,169 @@ def bound(nbytes, bf16_ops, f32_ops, card):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def run_persist_phase(torch, kernels, ALPINE, AnnData, model, adata, counts, obs):
+    """slice_persist: the slice's fitted model saved, loaded onto the card
+    and its uncached transform (K3) held against the fitted model's own; the
+    export on the card against the host's; the AnnData written to .h5ad and
+    read back whole and by a range of cells."""
+    import importlib.util
+    import tempfile
+
+    sec = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        sec[name] = time.perf_counter() - t0
+        return out
+
+    keys = ["ALPINE_embedding", "batch", "condition"]
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "model")
+        timed("save", lambda: model.save(path))
+        sizes = {"npz": os.path.getsize(path + ".npz"),
+                 "encoders_pkl": os.path.getsize(path + ".encoders.pkl")}
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        loaded = timed("load", lambda: ALPINE.load(path, device="cuda"))
+        check(getattr(loaded, "_x_cache", None) is None, "a loaded model has no device X")
+        fresh = AnnData(counts, obs=obs)
+        timed("transform_uncached", lambda: loaded.transform(fresh))
+        persist_launches = dict(kernels.launches)
+        diffs = {k: float(np.max(np.abs(fresh.obsm[k] - adata.obsm[k]))) for k in keys}
+        same_bits = all(np.array_equal(fresh.obsm[k], adata.obsm[k]) for k in keys)
+        worst = max(compare(torch.from_numpy(fresh.obsm[k]), torch.from_numpy(adata.obsm[k]),
+                            2e-4, 1e-6)[1] for k in keys)
+        with MatmulDevices(torch) as export_devices:  # the default: the model's device
+            timed("export_on_device", lambda: loaded.get_normalized_expression(
+                fresh, library_size=1e4))
+        on_dev = fresh.layers["normalized_expression"]
+        timed("export_host", lambda: loaded.get_normalized_expression(
+            fresh, library_size=1e4, on_device=False))
+        host = fresh.layers["normalized_expression"]
+        export_ok = bool(np.allclose(on_dev, host, rtol=1e-5, atol=1e-6))
+        export_err = float(np.max(np.abs(on_dev - host)))
+        del on_dev
+        peak = torch.cuda.max_memory_allocated()
+        # h5ad I/O needs h5py and pandas, which a GPU machine may not have:
+        # the phase says so and runs the rest (the CPU tests hold h5ad I/O
+        # against the JAX package's)
+        missing = [m for m in ("h5py", "pandas") if importlib.util.find_spec(m) is None]
+        h5ad = {"not_run": f"{', '.join(missing)} not installed"} if missing else (
+            h5ad_round_trip(fresh, os.path.join(d, "slice.h5ad"), timed, sizes))
+    emit({"phase": "slice_persist", "cells": N, "genes": G, "seconds": sec,
+          "total_seconds": sum(sec.values()), "file_bytes": sizes,
+          "layer_bytes": int(host.nbytes), "launches": persist_launches,
+          "transform_bits_equal_fitted": same_bits, "transform_max_abs_diff": diffs,
+          "transform_worst_err_over_tolerance": worst,
+          "transform_tolerance": "rtol 2e-4, atol 1e-6*max|fitted| (K3's plain tolerance)",
+          "export_default_matmul_devices": sorted(set(export_devices.devices)),
+          "export_on_device_allclose_host": export_ok, "export_max_abs_diff": export_err,
+          "export_tolerance": "rtol 1e-5, atol 1e-6", "h5ad": h5ad,
+          "peak_memory_bytes_load_transform_export": peak})
+    check(persist_launches["fused_transform"] == 1,
+          "the loaded model's uncached transform must launch fused_transform once")
+    check(same_bits or worst <= 1.0, "the loaded model's transform differs from the fitted model's")
+    check(export_devices.devices and set(export_devices.devices) == {"cuda"},
+          "get_normalized_expression must run its products on the model's card by default")
+    check(export_ok, "get_normalized_expression on the card differs from the host's")
+    check(np.allclose(host.sum(axis=1), 1e4, rtol=1e-3), "exported rows must sum to 1e4")
+    if not missing:
+        check(all(h5ad["round_trip_bits_equal"].values()), f"h5ad round trip: {h5ad}")
+        check(all(h5ad["range_equals_slice"].values()), f"h5ad obs_range read: {h5ad}")
+    return not missing
+
+
+def MatmulDevices(torch):
+    """A torch function mode that records the device type of every
+    ``torch.matmul`` (or ``@``) made while it is entered."""
+
+    class Mode(torch.overrides.TorchFunctionMode):
+        def __init__(self):
+            super().__init__()
+            self.devices = []
+
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            if getattr(func, "__name__", "") in ("matmul", "__matmul__"):
+                self.devices.append(args[0].device.type)
+            return func(*args, **(kwargs or {}))
+
+    return Mode()
+
+
+def run_minibatch_phase(phase, torch, kernels, ALPINE, adata, slice_peak, use_als=False,
+                        sampling_method="random"):
+    """A MB_BATCH-cell minibatch fit of MB_EPOCHS epochs at full width: each
+    batch runs hxt once and wtx once (ALS: once a block), each epoch's loss
+    wtx once over all cells; no float32 copy of X (peak device memory under
+    X's float32 bytes, and at most the slice's)."""
+    model = ALPINE(n_components=30, n_covariate_components=[5, 5],
+                   lam=[1e3, 1e3], use_als=use_als, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    model.fit(adata, ["batch", "condition"], max_iter=MB_EPOCHS, batch_size=MB_BATCH,
+              sampling_method=sampling_method)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    peak = torch.cuda.max_memory_allocated()
+    L = model.loss_history_
+    batches = MB_EPOCHS * -(-N // MB_BATCH)
+    want = {"hxt": batches, "wtx": (len(BLOCKS) if use_als else 1) * batches + MB_EPOCHS}
+    emit({"phase": phase, "cells": N, "genes": G, "batch_size": MB_BATCH,
+          "epochs": MB_EPOCHS, "batches_an_epoch": batches // MB_EPOCHS,
+          "sampling_method": sampling_method, "use_als": use_als,
+          "fit_seconds": fit_s, "timings": model.timings_,
+          "ms_per_epoch": model.timings_["fit"] * 1e3 / MB_EPOCHS,
+          "launches": launches, "launches_expected": want,
+          "loss_first": L[0].tolist(), "loss_last": L[-1].tolist(),
+          "peak_memory_bytes": peak, "slice_peak_memory_bytes": slice_peak,
+          "x_float32_bytes": 4 * G * N})
+    for name, n in want.items():
+        check(launches[name] == n, f"{phase}: {launches[name]} {name} launches, expected {n}")
+    check(launches["fused_iteration"] == 0, f"{phase}: a minibatch fit runs no fused_iteration")
+    check(np.isfinite(L).all(), f"{phase}: loss history must be finite")
+    check(L[-1, 1] < L[0, 1], f"{phase}: the reconstruction loss must fall")
+    check(peak <= slice_peak, f"{phase}: peak memory {peak} above the slice's {slice_peak}")
+    check(peak < 4 * G * N, f"{phase}: peak memory {peak} holds a float32 copy of X")
+    model.free_device_cache()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def h5ad_round_trip(adata, path, timed, sizes):
+    """write_h5ad, read_h5ad in full and by a range of cells: what came
+    back bit for bit."""
+    from alpine_tpu_torch.io.h5ad import read_h5ad, write_h5ad
+
+    timed("h5ad_write", lambda: write_h5ad(adata, path))
+    sizes["h5ad"] = os.path.getsize(path)
+    back = timed("h5ad_read", lambda: read_h5ad(path))
+    lo, hi = N // 4, 3 * N // 5
+    part = timed("h5ad_read_range", lambda: read_h5ad(path, obs_range=(lo, hi)))
+    layer = "normalized_expression"
+    return {
+        "round_trip_bits_equal": {
+            "X": np.array_equal(back.X, adata.X),
+            "layer": np.array_equal(back.layers[layer], adata.layers[layer]),
+            "obsm": all(np.array_equal(back.obsm[k], np.asarray(v))
+                        for k, v in adata.obsm.items()),
+            "varm": all(np.array_equal(back.varm[k], np.asarray(v))
+                        for k, v in adata.varm.items()),
+            "obs_names": list(back.obs_names) == list(adata.obs_names)},
+        "range": [lo, hi],
+        "range_equals_slice": {
+            "X": np.array_equal(part.X, back.X[lo:hi]),
+            "layer": np.array_equal(part.layers[layer], back.layers[layer][lo:hi]),
+            "obsm": all(np.array_equal(part.obsm[k], back.obsm[k][lo:hi]) for k in back.obsm),
+            "obs": all(list(part.obs[c]) == list(back.obs[c][lo:hi])
+                       for c in back.obs.columns)}}
+
+
 def main():
     import torch
 
@@ -516,9 +710,9 @@ def main():
                                   counts=C is not None)
             row["bytes"], row["bf16_flop"], row["fp32_flop"] = cost
             row["bound_ms"], row["bound_by"] = bound(*cost, card)
-        if timed and bf16 and n_labels and C is None:
+        if timed and bf16:
             # yardstick, used nowhere in the port: the two X products alone
-            # as bf16 cuBLAS calls over a bf16 copy of X
+            # as bf16 cuBLAS calls over a bf16 copy of X (K1, K4 and K2 alike)
             Xb, Wb, Hb = X.to(torch.bfloat16), W.bfloat16(), H.bfloat16()
             row["x_products_cublas_bf16_ms"] = time_ms(
                 lambda: (Wb.T @ Xb, Hb @ Xb.T), 5)
@@ -734,7 +928,13 @@ def main():
     results["hxt"] = run_x_pass_case("hxt", X, H, True)
     run_x_pass_case("wtx", X, W[:, :5].contiguous(), True)
     results["wtx"] = run_x_pass_case("wtx", X, W[:, 10:].contiguous(), True)
-    del X, W, H  # the int8 X goes before the float32 one is made
+    # the minibatch steps' shape: one batch of MB_BATCH cells, all of K
+    Xb = X[:, :MB_BATCH].contiguous()
+    results["hxt minibatch"] = run_x_pass_case("hxt", Xb, H[:, :MB_BATCH].contiguous(), True)
+    results["wtx minibatch"] = run_x_pass_case("wtx", Xb, W, True)
+    # a minibatch epoch's loss: WᵀX over all cells, all of K
+    results["wtx minibatch loss"] = run_x_pass_case("wtx", X, W, True)
+    del X, W, H, Xb  # the int8 X goes before the float32 one is made
     torch.cuda.empty_cache()
     # float32 and int16 X (the FP32 units): one X at a time
     for xdt in (torch.float32, torch.int16):
@@ -783,9 +983,11 @@ def main():
 
     # -- where the fit's device time goes: the fused fit loop alone ----------
     def run_fit_loops(loops, xdtype):
-        """Each (phase, weighted, als, iterations) fit loop on device-resident
-        bench data whose X is stored as xdtype (int16: counts above 127);
-        weighted None: the unguided loop (no covariates, K = 40)."""
+        """Each (phase, weighted, als, iterations[, batch size]) fit loop on
+        device-resident bench data whose X is stored as xdtype (int16:
+        counts above 127); weighted None: the unguided loop (no covariates,
+        K = 40); with a batch size, random minibatch epochs (a permutation
+        an epoch from a seeded device generator)."""
         X, W, H, _, Ys, Bs, lam = iteration_problem(
             torch, gen, dev, G, N, BLOCKS, N_LABELS, xdtype)
         if xdtype == torch.int16:
@@ -799,15 +1001,21 @@ def main():
             loop_gen.manual_seed(t)
             return mu.grouped_balanced_counts(loop_gen, N, tables)
 
+        def draw_cells(t):
+            loop_gen.manual_seed(t)
+            return torch.randperm(N, generator=loop_gen, device=dev)
+
         loop_launches = {}
-        for phase, weighted, als, iters in loops:
+        for phase, weighted, als, iters, *batch in loops:
             guided = weighted is not None
             cfg = mu.MUConfig(blocks=BLOCKS if guided else (sum(BLOCKS),),
                               n_labels=N_LABELS if guided else (), n_cells=N,
                               max_iter=iters, x_dtype=str(xdtype)[6:],
-                              weighted_counts=bool(weighted), use_als=als)
+                              weighted_counts=bool(weighted), use_als=als,
+                              batch_size=batch[0] if batch else None)
             drive = (lambda: mu.fit_scan(cfg, W, H, Bs, X, Ys, hyper,
-                                         draw_counts=draw_counts)) if guided else (
+                                         draw_counts=draw_counts,
+                                         draw_cells=draw_cells)) if guided else (
                 lambda: mu.fit_scan(cfg, W, H, (), X, (), unguided_hyper))
             drive()
             torch.cuda.synchronize()
@@ -843,7 +1051,10 @@ def main():
 
     run_fit_loops((("fit_loop", False, False, LOOP_ITERS),
                    ("fit_loop_weighted_fast", True, False, LOOP_ITERS),
-                   ("fit_loop_als", False, True, ALS_LOOP_ITERS)), torch.int8)
+                   ("fit_loop_als", False, True, ALS_LOOP_ITERS),
+                   ("fit_loop_minibatch", False, False, MB_LOOP_EPOCHS, MB_BATCH),
+                   ("fit_loop_minibatch_als", False, True, MB_LOOP_EPOCHS, MB_BATCH)),
+                  torch.int8)
     # int16 X: the ALS loop runs hxt_fma and wtx_fma, the joint loops K1's,
     # K4's and K2's fp32 path (wtx_fma, the per-tile pass, hxt_fma; and P1's
     # hxt_fma once for the first X Hᵀ)
@@ -917,6 +1128,7 @@ def main():
     torch.cuda.synchronize()
     transform_s = time.perf_counter() - t0
     main_launches = dict(kernels.launches)
+    slice_peak = torch.cuda.max_memory_allocated()
     L = model.loss_history_
     emit({"phase": "slice", "cells": N, "genes": G, "data_seconds": data_s,
           "fit_seconds": fit_s, "fit_iterations": FIT_ITERS,
@@ -924,8 +1136,7 @@ def main():
           "timings": model.timings_, "transform_seconds_cached": transform_s,
           "transform_iterations": model.max_iter, "data_dtype": model.data_dtype_,
           "launches": main_launches, "loss_first": L[0].tolist(),
-          "loss_last": L[-1].tolist(),
-          "peak_memory_bytes": torch.cuda.max_memory_allocated()})
+          "loss_last": L[-1].tolist(), "peak_memory_bytes": slice_peak})
     model.free_device_cache()
     check(model.data_dtype_ == "int8", "auto must resolve to int8")
     check(main_launches["fused_iteration"] == FIT_ITERS,
@@ -938,6 +1149,8 @@ def main():
         check(adata.obsm[key].shape == (N, 5), f"{key} block shape")
         check(np.isfinite(adata.obsm[key]).all(), f"{key} block finite")
     check(np.isfinite(adata.obsm["ALPINE_embedding"]).all(), "embedding finite")
+
+    h5ad_run = run_persist_phase(torch, kernels, ALPINE, AnnData, model, adata, counts, obs)
 
     # -- the unguided path (no covariates): fused_h_update -------------------
     unguided = ALPINE(n_components=40, n_covariate_components=[], lam=[],
@@ -1049,6 +1262,13 @@ def main():
     del als
     torch.cuda.empty_cache()
 
+    # -- random-minibatch and gathered weighted fits: hxt/wtx on the batches --
+    mb_launches = {
+        phase: run_minibatch_phase(phase, torch, kernels, ALPINE, adata, slice_peak, **kw)
+        for phase, kw in (("slice_minibatch", {}),
+                          ("slice_minibatch_als", dict(use_als=True)),
+                          ("slice_weighted", dict(sampling_method="weighted")))}
+
     # -- K = 100: the transform's tiled path through the estimator ------------
     k100 = ALPINE(n_components=90, n_covariate_components=[5, 5],
                   lam=[1e3, 1e3], device="cuda")
@@ -1082,6 +1302,10 @@ def main():
                 "fused_transform tiled": k100_launches["fused_transform"],
                 "fused_h_update": unguided_launches["fused_h_update"],
                 "hxt": als_launches["hxt"], "wtx": als_launches["wtx"],
+                "hxt minibatch": mb_launches["slice_minibatch"]["hxt"],
+                # slice_minibatch's wtx: one a batch, and one an epoch for the loss
+                "wtx minibatch": mb_launches["slice_minibatch"]["wtx"] - MB_EPOCHS,
+                "wtx minibatch loss": MB_EPOCHS,
                 "stream_probe": probe_launches,
                 # the fp32 paths (hxt_fma, wtx_fma): the int16 and float32 ALS loops
                 "hxt_fma int16": int16_launches["hxt"], "wtx_fma int16": int16_launches["wtx"],
@@ -1092,6 +1316,7 @@ def main():
                   "fused_iteration float32", "fused_iteration int16",
                   "fused_iteration_counts int16", "fused_h_update int16",
                   "fused_transform", "fused_transform tiled", "hxt", "wtx",
+                  "hxt minibatch", "wtx minibatch", "wtx minibatch loss",
                   "hxt_fma float32", "hxt_fma int16",
                   "wtx_fma float32", "wtx_fma int16", "stream_probe"):
         res = results[kname]
@@ -1104,8 +1329,10 @@ def main():
                      "library_ms": res.get("library_ms")})
     emit({"kernels": rows})
 
+    # h5ad_run: whether slice_persist's .h5ad round trip ran (it needs h5py)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
-                                             "count": count}}), flush=True)
+                                             "count": count}, "h5ad_run": h5ad_run}),
+          flush=True)
     return 0
 
 

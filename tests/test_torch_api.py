@@ -1,7 +1,8 @@
 """The estimator's API against the JAX package's where this slice leaves a
 feature out or reports on it: the verbose progress bar, the checkpoint
-keywords of ``fit``, ``ALPINE.load``, the refused tiled configurations and
-the ``batch_size`` a fit keeps.
+keywords of ``fit``, ``ALPINE.load`` and ``save`` on a missing file or an
+untrained model, the refused tiled configurations and the ``batch_size`` a
+fit keeps.
 
 The bar is tqdm's, as the JAX fit's ("Iteration", ``objective loss``
 postfix, alpine_tpu/models/alpine.py:838-866), but the port updates it every
@@ -153,12 +154,19 @@ def test_valid_checkpoint_arguments_are_accepted():
         m.fit(ad, KEYS, max_iter=2, checkpoint_dir="ckpt", checkpoint_every=10)
 
 
-def test_load_raises_not_implemented():
+def test_load_raises_not_implemented(tmp_path):
+    """save/load are ported: ``load`` is a classmethod, an untrained save
+    and a missing file raise what the JAX package raises, and nothing
+    raises NotImplementedError."""
     assert isinstance(ALPINE.__dict__["load"], classmethod)
-    with pytest.raises(NotImplementedError, match="save/load"):
-        ALPINE.load("model", device="cpu")
-    with pytest.raises(NotImplementedError, match="save/load"):
-        ALPINE(device="cpu", **KW).save("model")
+    for cls in (JaxALPINE, ALPINE):
+        with pytest.raises(FileNotFoundError):
+            cls.load(str(tmp_path / "missing"), device="cpu")
+    with pytest.raises(RuntimeError) as ej:
+        JaxALPINE(device="cpu", **KW).save(str(tmp_path / "model"))
+    with pytest.raises(RuntimeError) as et:
+        ALPINE(device="cpu", **KW).save(str(tmp_path / "model"))
+    assert str(et.value) == str(ej.value)
 
 
 @pytest.mark.parametrize("batch_size", [None, 400], ids=["no-batch", "covering"])

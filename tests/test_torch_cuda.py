@@ -44,6 +44,20 @@ ITER_CASES = (
 )
 
 
+class MatmulDevices(torch.overrides.TorchFunctionMode):
+    """Records the device type of every ``torch.matmul`` (or ``@``) made
+    while it is entered."""
+
+    def __init__(self):
+        super().__init__()
+        self.devices = []
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        if getattr(func, "__name__", "") in ("matmul", "__matmul__"):
+            self.devices.append(args[0].device.type)
+        return func(*args, **(kwargs or {}))
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -521,3 +535,93 @@ def test_als_fit_scan_fused_matches_plain_on_card(cuda, dtype):
     _close(fused[3], plain[3], 5e-4, 0.0)
     for a, b in ((fused[0], plain[0]), (fused[1], plain[1])):
         _close(a, b, 5e-3, 1e-5)
+
+
+@pytest.mark.cuda
+def test_load_transform_export_on_card(cuda, tmp_path):
+    """A model saved from the card loads onto the card and onto the CPU; the
+    card's uncached transform (one K3 launch) matches the CPU's (plain K3)
+    at rtol 2e-4; by default the export runs one ``torch.matmul`` a slab on
+    the card, equal to ``on_device=True``, and matches the host's
+    (``on_device=False``) at rtol 1e-5, atol 1e-6."""
+    from alpine_tpu_torch import ALPINE, AnnData
+
+    r = np.random.default_rng(2)
+    X = np.minimum(r.poisson(r.gamma(2.0, 1.0, (400, 6)) @ r.gamma(2.0, 0.3, (6, 70))),
+                   127).astype(np.float32)
+    obs = {"batch": np.array(["b0", "b1"], dtype=object)[r.integers(0, 2, 400)]}
+    m = ALPINE(n_components=6, n_covariate_components=[2], lam=[10.0],
+               device="cuda", random_state=3)
+    m.fit(AnnData(X, obs=obs), ["batch"], max_iter=8)
+    m.save(str(tmp_path / "m"))
+    out = {}
+    for where in ("cuda", "cpu"):
+        loaded = ALPINE.load(str(tmp_path / "m"), device=where)
+        assert loaded.device.type == where
+        ad = AnnData(X, obs=obs)
+        kernels.reset_launches()
+        loaded.transform(ad)
+        if where == "cuda":
+            assert kernels.launches["fused_transform"] == 1
+        out[where] = ad.obsm["ALPINE_embedding"]
+    emb = out["cuda"]
+    _close(torch.from_numpy(emb), torch.from_numpy(out["cpu"]), 2e-4, 1e-6 * float(np.abs(emb).max()))
+    ad.obsm["ALPINE_embedding"] = emb
+    loaded = ALPINE.load(str(tmp_path / "m"), device="cuda")
+    with MatmulDevices() as rec:
+        loaded.get_normalized_expression(ad, library_size=100.0, cell_block_size=150)
+    assert rec.devices == ["cuda"] * 3  # 400 cells in slabs of 150
+    default = ad.layers["normalized_expression"].copy()
+    loaded.get_normalized_expression(ad, library_size=100.0, cell_block_size=150,
+                                     on_device=True)
+    np.testing.assert_array_equal(ad.layers["normalized_expression"], default)
+    loaded.get_normalized_expression(ad, library_size=100.0, cell_block_size=150,
+                                     on_device=False)
+    np.testing.assert_allclose(default, ad.layers["normalized_expression"], rtol=1e-5,
+                               atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_als", [False, True], ids=["joint", "als"])
+@pytest.mark.parametrize("sampling", ["random", "weighted"])
+def test_minibatch_fit_on_card_matches_cpu(cuda, monkeypatch, use_als, sampling):
+    """A minibatch (or gathered weighted) fit on the card, whose steps run
+    hxt and wtx on the gathered batches and wtx for each epoch's loss,
+    against the same fit on the CPU, both fed one cell stream made with
+    numpy.  Launches: joint 1 hxt + 1 wtx a batch, ALS 1 hxt + 3 wtx a
+    batch, and 1 wtx an epoch."""
+    import alpine_tpu_torch.models.alpine as talpine
+    from alpine_tpu_torch import ALPINE, AnnData
+
+    def stream(n_cells, random_state, device, probs=None):
+        def draw(t):
+            r = np.random.default_rng([random_state, t])
+            idx = (r.permutation(n_cells) if probs is None
+                   else r.choice(n_cells, n_cells, p=probs / probs.sum()))
+            return torch.from_numpy(idx.astype(np.int64)).to(device)
+        return draw
+
+    monkeypatch.setattr(talpine, "draw_cells_stream", stream)
+    r = np.random.default_rng(5)
+    n, epochs, bs = 500, 3, 128  # int8: 12 steps, short of the bf16 chaos
+    X = np.minimum(r.poisson(r.gamma(2.0, 1.0, (n, 6)) @ r.gamma(2.0, 0.3, (6, 80))),
+                   127).astype(np.float32)
+    obs = {"batch": np.array(["b0", "b1"], dtype=object)[r.integers(0, 2, n)],
+           "cond": np.array(["c0", "c1", "c2"], dtype=object)[r.integers(0, 3, n)]}
+    fits = {}
+    for where in ("cuda", "cpu"):
+        ad = AnnData(X, obs=obs)
+        m = ALPINE(n_components=6, n_covariate_components=[2, 2], lam=[10.0, 10.0],
+                   device=where, random_state=7, use_als=use_als)
+        kernels.reset_launches()
+        m.fit(ad, ["batch", "cond"], max_iter=epochs, batch_size=bs,
+              sampling_method=sampling)
+        if where == "cuda":
+            batches = epochs * -(-n // bs)
+            assert kernels.launches["hxt"] == batches
+            assert kernels.launches["wtx"] == (3 if use_als else 1) * batches + epochs
+            assert kernels.launches["fused_iteration"] == 0
+        fits[where] = (m.loss_history_, ad.obsm["ALPINE_embedding"])
+    floor = 2e-6 * float(np.sum(np.square(X.astype(np.float64))))
+    np.testing.assert_allclose(fits["cuda"][0], fits["cpu"][0], rtol=5e-4, atol=floor)
+    np.testing.assert_allclose(fits["cuda"][1], fits["cpu"][1], rtol=5e-3, atol=1e-5)

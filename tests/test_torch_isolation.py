@@ -1,7 +1,8 @@
 """The port stands alone: alpine_tpu_torch, chip_smoke.py and the port's
 scripts (scripts/torch_*.py) import nothing of JAX or of the JAX package,
-the fit/transform path needs neither pandas nor scikit-learn, and the
-estimator never falls back to the CPU silently."""
+the fit/transform path (minibatch and weighted fits included) and save →
+load → transform → export need neither pandas nor scikit-learn, and the estimator never falls back to the CPU
+silently."""
 
 import re
 import subprocess
@@ -39,6 +40,18 @@ als = ALPINE(n_components=4, n_covariate_components=[2], lam=[1.0],
 als.fit(ad, ["batch"], max_iter=4)
 als.transform(ad)
 assert np.isfinite(als.loss_history_).all()
+for kw in (dict(batch_size=25), dict(batch_size=40, sampling_method="weighted")):
+    mb = ALPINE(n_components=4, n_covariate_components=[2], lam=[1.0], device="cpu")
+    mb.fit(ad, ["batch"], max_iter=3, **kw)
+    assert np.isfinite(mb.loss_history_).all() and mb.loss_history_.shape == (3, 3)
+import tempfile
+d = tempfile.mkdtemp()
+m.save(d + "/model")
+loaded = ALPINE.load(d + "/model", device="cpu")
+assert loaded.fe.encoded_labels == m.fe.encoded_labels
+loaded.transform(ad, n_iter=5)
+loaded.get_normalized_expression(ad, library_size=100.0, cell_block_size=7)
+assert np.allclose(ad.layers["normalized_expression"].sum(axis=1), 100.0, rtol=1e-4)
 print("ok")
 """
 

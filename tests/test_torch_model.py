@@ -203,15 +203,19 @@ def test_fit_errors_match_jax(case):
 
 
 def test_unported_options_raise():
+    """Tiled sampling, restarts, checkpoints and bucketing are left out;
+    minibatch and gathered weighted fits are ported and run."""
     ad = _adata(integer=True)
     m = ALPINE(device="cpu", **KW)
-    for kw in (dict(batch_size=10), dict(sampling_method="weighted"),
-               dict(sampling_method="tiled", batch_size=10),
+    for kw in (dict(sampling_method="tiled", batch_size=10),
                dict(n_restarts=2), dict(checkpoint_dir="ckpt")):
         with pytest.raises(NotImplementedError, match="later slice"):
             m.fit(ad, KEYS, max_iter=2, **kw)
     with pytest.raises(NotImplementedError):
         ALPINE(device="cpu", component_bucket=8, **KW)
+    for kw in (dict(batch_size=10), dict(sampling_method="weighted")):
+        m.fit(ad, KEYS, max_iter=2, **kw)
+        assert np.isfinite(m.loss_history_).all() and m.loss_history_.shape == (2, 4)
 
 
 def test_encoder_matches_sklearn_encoder():
