@@ -16,13 +16,23 @@ and ``_encoder_path`` of ``alpine_tpu/io/checkpoint.py``: one compressed
 - a sidecar the port writes pickles the port's ``FeatureEncoders``, which
   the JAX package's ``load_model`` reads wherever both packages are
   installed.
+
+``FitCheckpointer`` is the port's copy of the JAX package's mid-fit
+snapshots with its npz backend: the same file name (a hash of the fit's
+configuration), the same arrays and the same atomic replace, so a snapshot
+either package wrote resumes in the other.  The orbax backend imports JAX
+and is not ported.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
+import os
 import pickle
-from typing import Dict
+import warnings
+import zipfile
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 
@@ -195,3 +205,72 @@ def _port_encoders(obj) -> FeatureEncoders:
         fe.categories[key] = np.asarray(enc.categories_[0], dtype=object)
         fe.encoded_labels[key] = list(obj.encoded_labels[key])
     return fe
+
+
+# --------------------------------------------------------- mid-fit snapshots
+
+
+def check_backend(backend: str) -> None:
+    """The checkpoint backends the port has: npz only."""
+    if backend == "orbax":
+        raise ValueError(
+            "checkpoint_backend='orbax' is not available in alpine_tpu_torch "
+            "(orbax imports JAX); use checkpoint_backend='npz'.")
+    if backend != "npz":
+        raise ValueError("checkpoint backend must be 'npz' or 'orbax'")
+
+
+class FitCheckpointer:
+    """Snapshots of a fit's state (iteration, W, H, Bs, loss history) in
+    ``<directory>/fit_snapshot_<tag>.npz``, where the tag hashes
+    ``config_key``: a snapshot of another configuration is never resumed.
+    The counterpart of ``alpine_tpu.io.checkpoint.FitCheckpointer`` with
+    ``backend="npz"``."""
+
+    def __init__(self, directory: str, config_key: Dict[str, Any],
+                 backend: str = "npz"):
+        check_backend(backend)
+        self.directory = os.path.abspath(directory)
+        os.makedirs(self.directory, exist_ok=True)
+        blob = json.dumps(config_key, sort_keys=True, default=str).encode("utf-8")
+        self.tag = hashlib.sha256(blob).hexdigest()[:16]
+
+    @property
+    def path(self) -> str:
+        return os.path.join(self.directory, f"fit_snapshot_{self.tag}.npz")
+
+    def save(self, iteration: int, W, H, Bs, losses: np.ndarray) -> None:
+        """Write the snapshot to a temporary file, then replace the old one
+        atomically: a preemption mid-write leaves the previous snapshot."""
+        arrays = {"iteration": np.asarray(iteration), "W": np.asarray(W),
+                  "H": np.asarray(H), "losses": np.asarray(losses)}
+        for i, b in enumerate(Bs):
+            arrays[f"B_{i}"] = np.asarray(b)
+        arrays["n_bs"] = np.asarray(len(Bs))
+        tmp = self.path + ".tmp.npz"
+        np.savez(tmp, **arrays)
+        os.replace(tmp, self.path)
+
+    def load(self) -> Optional[Tuple[int, np.ndarray, np.ndarray, tuple,
+                                     np.ndarray]]:
+        """(iteration, W, H, Bs, losses), or None where there is no
+        snapshot or it is unreadable (with a warning naming the file)."""
+        if not os.path.exists(self.path):
+            return None
+        try:
+            with np.load(self.path, allow_pickle=False) as data:
+                n_bs = int(data["n_bs"])
+                return (int(data["iteration"]), data["W"], data["H"],
+                        tuple(data[f"B_{i}"] for i in range(n_bs)),
+                        data["losses"])
+        except (OSError, ValueError, KeyError, zipfile.BadZipFile) as e:
+            warnings.warn(
+                f"Fit checkpoint at {self.path!r} is unreadable "
+                f"({type(e).__name__}: {e}); restarting the fit from scratch.")
+            return None
+
+    def clear(self) -> None:
+        """Remove the snapshot and a temporary file a preempted save left."""
+        for leftover in (self.path, self.path + ".tmp.npz"):
+            if os.path.exists(leftover):
+                os.remove(leftover)

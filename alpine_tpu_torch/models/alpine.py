@@ -9,23 +9,27 @@ and runs each kernel's plain PyTorch version on the CPU; with
 kernels ``hxt`` and ``wtx``.  ``transform`` runs the fused projection
 kernel.  ``sampling_method`` is "random" (full batch, or minibatches of
 ``batch_size`` cells from a permutation an epoch), "weighted" (balanced
-draws with replacement, gathered in batches) or "weighted_fast" (the
+draws with replacement, gathered in batches), "weighted_fast" (the
 balanced draws as per-cell counts over a group-sorted cell axis; joint
-full-epoch mode only); the gathered steps run their X products through
-``hxt`` and ``wtx``.  A fit keeps its device copy of X, and a
-``transform`` of the same data reuses it.  ``verbose=True`` shows the JAX
-package's progress bar.  ``get_normalized_expression`` exports corrected
-expression blockwise; ``save``/``load`` read and write the JAX package's
-files (``io/checkpoint.py``).
-
-What this slice leaves out raises ``NotImplementedError``: tiled sampling,
-checkpoints, restarts, component bucketing, multi-GPU and multi-process
-fits.
+full-epoch mode only) or "tiled" (minibatches of whole 128-cell tiles of
+a seeded shuffle of the cells); the gathered steps run their X products
+through ``hxt`` and ``wtx``.  ``component_bucket`` pads the blocks with
+phantom components that stay zero (the stored matrices keep their true
+sizes), ``fit(n_restarts=k)`` runs k fits from different inits one after
+another and keeps the one with the lowest final loss, and
+``fit(checkpoint_dir=...)`` runs the fit in chunks of ``checkpoint_every``
+iterations with a snapshot after each, resuming from a matching snapshot.
+A fit keeps its device copy of X, and a ``transform`` of the same data
+reuses it.  ``verbose=True`` shows the JAX package's progress bar.
+``get_normalized_expression`` exports corrected expression blockwise;
+``save``/``load`` read and write the JAX package's files
+(``io/checkpoint.py``).  Multi-GPU and multi-process fits are not ported.
 
 Random draws come from ``torch.Generator``s seeded with ``random_state``
-through ``draw_init``, ``draw_counts_stream``, ``draw_cells_stream`` and
-``draw_transform_h0``; they differ from the JAX package's ``jax.random``
-streams by design.
+through ``draw_init``, ``draw_restart_init``, ``draw_counts_stream``,
+``draw_cells_stream``, ``draw_tiles_stream`` and ``draw_transform_h0``;
+they differ from the JAX package's ``jax.random`` streams by design.  The
+tiled pre-shuffle is numpy's, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -39,6 +43,9 @@ from typing import Dict, List, Optional, Union
 import numpy as np
 import torch
 
+from alpine_tpu_torch.io.checkpoint import (
+    FitCheckpointer, check_backend, load_model, save_model,
+)
 from alpine_tpu_torch.models.state import AlpineMatrices, split_h, split_w
 from alpine_tpu_torch.ops import mu
 from alpine_tpu_torch.ops.elbow import find_elbow
@@ -55,18 +62,43 @@ from alpine_tpu_torch.utils.single_cell import library_size_factors
 
 Float32Array = np.ndarray
 
-# salts of the transform H0, the weighted_fast count and the minibatch
-# cell streams, so they never coincide with the fit's init stream or with
-# each other
+# salts of the transform H0, the weighted_fast count, the minibatch cell
+# and the tile streams, and of restarts and checkpoint chunks, so no two
+# streams coincide
 _TRANSFORM_SALT = 0x7472616E  # "tran"
 _COUNTS_SALT = 0x636E7473  # "cnts"
 _CELLS_SALT = 0x63656C6C  # "cell": minibatch permutations and weighted draws
+_TILES_SALT = 0x74696C65  # "tile": tiled permutations
+_RESTART_SALT = 0x72737472  # "rstr"
+_CHUNK_SALT = 0x63686E6B  # "chnk"
+
+
+def _draw_seed(random_state: int, salt: int, t: int, restart: int = 0,
+               chunk: Optional[int] = None) -> int:
+    """The generator seed of draw t of a stream, from (random_state, salt,
+    t): restart r > 0 and checkpoint chunk c each add their own words, so
+    restart 0 of a fit without checkpoints draws as a single fit does."""
+    words = [random_state, salt]
+    if restart:
+        words += [_RESTART_SALT, restart]
+    if chunk is not None:
+        words += [_CHUNK_SALT, chunk]
+    seq = np.random.SeedSequence(words + [t])
+    return int(seq.generate_state(1, np.uint64)[0] >> 1)
 
 
 def draw_init(cfg: mu.MUConfig, n_genes: int, random_state: int, eps: float,
               device):
     """The fit's initial (W0, H0, Bs0), drawn from ``random_state``."""
     gen = torch.Generator().manual_seed(random_state)
+    return mu.init_matrices(cfg, n_genes, gen, eps, device)
+
+
+def draw_restart_init(cfg: mu.MUConfig, n_genes: int, random_state: int,
+                      restart: int, eps: float, device):
+    """Restart ``restart``'s initial (W0, H0, Bs0) (restart 0 is
+    ``draw_init``'s)."""
+    gen = torch.Generator().manual_seed(_draw_seed(random_state, _RESTART_SALT, restart))
     return mu.init_matrices(cfg, n_genes, gen, eps, device)
 
 
@@ -78,37 +110,37 @@ def draw_transform_h0(n_components: int, n_cells: int, random_state: int,
     return torch.clamp(H0, min=eps).to(device)
 
 
-def draw_counts_stream(tables, n_cells: int, random_state: int, device):
+def draw_counts_stream(tables, n_cells: int, random_state: int, device,
+                       restart: int = 0, chunk: Optional[int] = None):
     """weighted_fast's draws: returns ``draw(t)``, epoch t's balanced draw
     as a (n_cells,) float32 count tensor on ``device``.  ``tables`` are the
     (start, sizes) group tables of the group-sorted cell axis, on
     ``device``.  Draw t comes from a device generator seeded from
-    (random_state, salt, t), so it depends on t alone."""
+    (random_state, salt, restart, chunk, t), so it depends on t alone."""
     gen = torch.Generator(device=device)
 
     def draw(t: int) -> torch.Tensor:
-        seed = np.random.SeedSequence([random_state, _COUNTS_SALT, t])
-        gen.manual_seed(int(seed.generate_state(1, np.uint64)[0] >> 1))
+        gen.manual_seed(_draw_seed(random_state, _COUNTS_SALT, t, restart, chunk))
         return mu.grouped_balanced_counts(gen, n_cells, tables)
 
     return draw
 
 
-def draw_cells_stream(n_cells: int, random_state: int, device, probs=None):
+def draw_cells_stream(n_cells: int, random_state: int, device, probs=None,
+                      restart: int = 0, chunk: Optional[int] = None):
     """The cell draws of minibatch and gathered weighted fits: returns
     ``draw(t)``, epoch t's (n_cells,) int64 cell indices on ``device`` — a
     permutation, or with ``probs`` (the balanced per-cell probabilities,
     host numpy) n draws with replacement by inverse CDF.  Draw t comes
-    from a device generator seeded from (random_state, salt, t), so it
-    depends on t alone."""
+    from a device generator seeded from (random_state, salt, restart,
+    chunk, t), so it depends on t alone."""
     gen = torch.Generator(device=device)
     cdf = None
     if probs is not None:
         cdf = torch.from_numpy(np.cumsum(probs, dtype=np.float64)).to(device)
 
     def draw(t: int) -> torch.Tensor:
-        seed = np.random.SeedSequence([random_state, _CELLS_SALT, t])
-        gen.manual_seed(int(seed.generate_state(1, np.uint64)[0] >> 1))
+        gen.manual_seed(_draw_seed(random_state, _CELLS_SALT, t, restart, chunk))
         if cdf is None:
             return torch.randperm(n_cells, generator=gen, device=device)
         u = torch.rand(n_cells, generator=gen, dtype=torch.float64,
@@ -119,17 +151,25 @@ def draw_cells_stream(n_cells: int, random_state: int, device, probs=None):
     return draw
 
 
+def draw_tiles_stream(n_tiles: int, random_state: int, device,
+                      restart: int = 0, chunk: Optional[int] = None):
+    """The tile draws of tiled fits: returns ``draw(t)``, epoch t's
+    permutation of the n_tiles tiles (int64, on ``device``), from a device
+    generator seeded from (random_state, salt, restart, chunk, t)."""
+    gen = torch.Generator(device=device)
+
+    def draw(t: int) -> torch.Tensor:
+        gen.manual_seed(_draw_seed(random_state, _TILES_SALT, t, restart, chunk))
+        return torch.randperm(n_tiles, generator=gen, device=device)
+
+    return draw
+
+
 def _no_x_cache() -> bool:
     """ALPINE_TPU_NO_X_CACHE (the JAX package's switch): unset, '', '0' or
     'false' mean the device-X cache is on."""
     return os.environ.get("ALPINE_TPU_NO_X_CACHE", "").lower() not in (
         "", "0", "false")
-
-
-def _not_in_slice(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to alpine_tpu_torch yet (a later slice of the "
-        "port); the JAX package alpine_tpu supports it.")
 
 
 class _Progress:
@@ -202,9 +242,29 @@ class ALPINE:
         self.random_state = random_state
         self.matmul_precision = matmul_precision
         self.data_dtype = data_dtype
-        if component_bucket is not None:
-            raise _not_in_slice("component_bucket")
-        self.component_bucket = None
+        # blocks padded past their true sizes with phantom components that
+        # start and stay zero: int N rounds each block up to a multiple of
+        # N, a tuple gives each padded size; the stored matrices keep the
+        # true sizes
+        if isinstance(component_bucket, (tuple, list)):
+            component_bucket = tuple(int(b) for b in component_bucket)
+            true = tuple(n_covariate_components) + (n_components,)
+            if len(component_bucket) != len(true) or any(
+                b < t for b, t in zip(component_bucket, true)
+            ):
+                raise ValueError(
+                    "component_bucket tuple must give a padded size >= the "
+                    "true size for every block (covariates first, unguided "
+                    "last)."
+                )
+        elif component_bucket is not None and (
+            not isinstance(component_bucket, int) or component_bucket < 1
+        ):
+            raise ValueError(
+                "component_bucket must be a positive integer, a tuple of "
+                "padded block sizes, or None."
+            )
+        self.component_bucket = component_bucket
 
         self._validate_init_args()
 
@@ -242,9 +302,7 @@ class ALPINE:
         if checkpoint_dir is not None and checkpoint_backend not in ("npz", "orbax"):
             raise ValueError("checkpoint backend must be 'npz' or 'orbax'")
         if checkpoint_dir is not None:
-            raise _not_in_slice("fit(checkpoint_dir=...)")
-        if n_restarts > 1:
-            raise _not_in_slice("fit(n_restarts > 1)")
+            check_backend(checkpoint_backend)  # before the upload
         if sampling_method in ("weighted", "weighted_fast") and not covariate_keys:
             raise ValueError(
                 "weighted sampling requires at least one covariate "
@@ -282,8 +340,6 @@ class ALPINE:
                 f"n_cells ({n_sample}); minibatch weighted fits use "
                 f"sampling_method='weighted'."
             )
-        if sampling_method == "tiled":
-            raise _not_in_slice("sampling_method='tiled'")
 
         # (genes x cells) layout, as in the reference (main.py:104)
         X: Float32Array = dense_x(adata.X).T
@@ -305,10 +361,19 @@ class ALPINE:
         self.batch_size: int = batch_size if batch_size is not None else n_sample
 
         dev = self.device
-        # X in its storage dtype first, so the group sort below permutes
-        # the narrow copy (200 MB of int8 at 100k x 2,000, not 800 MB)
-        Xd = self._cast_x_host(X).to(dev)
-        Ysd = [torch.from_numpy(y).to(dev) for y in Ys]
+        rs = self.random_state
+        tiled = sampling_method == "tiled"
+        # tiled fits permute whole tiles, so the cell axis is zero-padded to
+        # a tile multiple (zero columns are fixed points of every update)
+        pad = (-n_sample) % mu.DEFAULT_TILE if tiled else 0
+        # X in its storage dtype first, so the pad and the permutation below
+        # copy the narrow X (200 MB of int8 at 100k x 2,000, not 800 MB)
+        Xh = self._cast_x_host(X)
+        if pad:
+            Xh = torch.nn.functional.pad(Xh, (0, pad))
+        Xd = Xh.to(dev)
+        del Xh
+        Ysd = [torch.from_numpy(np.pad(y, ((0, 0), (0, pad)))).to(dev) for y in Ys]
         cell_perm = tables = probs = None
         if sampling_method == "weighted":
             probs = balanced_sample_probabilities(joint_label_ids(Ys))
@@ -317,30 +382,104 @@ class ALPINE:
             # pairs positionally with the sorted cells and H is un-sorted
             # on extraction
             cell_perm, start, sizes = balanced_group_tables(joint_label_ids(Ys))
-            perm = torch.from_numpy(cell_perm).to(dev)
-            Xd = Xd[:, perm]
-            Ysd = [y[:, perm] for y in Ysd]
             tables = (torch.from_numpy(start).to(dev),
                       torch.from_numpy(sizes).to(dev))
+        elif tiled:
+            # one seeded shuffle of the cells (numpy's, as the JAX package
+            # draws it; undone on extraction): cells adjacent in storage
+            # (usually sorted by sample) would otherwise always share a
+            # tile, and a tile would be a cluster rather than a subsample
+            cell_perm = np.random.default_rng(rs).permutation(n_sample)
+        if cell_perm is not None:
+            perm = torch.from_numpy(np.concatenate(
+                [cell_perm, np.arange(n_sample, n_sample + pad)])).to(dev)
+            Xd = Xd[:, perm]
+            Ysd = [y[:, perm] for y in Ysd]
         # the device X of a same-data transform; installed after the fit
         new_x_cache = (None if _no_x_cache() else
-                       (Xd, self._x_fingerprint(adata.X), n_sample, cell_perm))
+                       (Xd, self._x_fingerprint(adata.X), n_sample, cell_perm, pad))
         hyper = self._hyper()
+        true_blocks = tuple(self.n_all_components)
         self.timings_: Dict[str, float] = {}
         # no callback without verbose: the fit loop then never syncs
         progress = _Progress(max_iter or 200) if verbose else None
 
+        def init(cfg, restart=0):
+            if restart:
+                W0, H0, Bs0 = draw_restart_init(cfg, self.n_features, rs, restart,
+                                                self.eps, dev)
+            else:
+                W0, H0, Bs0 = draw_init(cfg, self.n_features, rs, self.eps, dev)
+            if self.component_bucket:
+                # phantom components start (and stay) exactly zero
+                W0, H0, Bs0 = mu.mask_block_padding(cfg.blocks, true_blocks,
+                                                    W0, H0, Bs0)
+            return W0, H0, Bs0
+
+        def fit_from(cfg, W0, H0, Bs0, restart=0, chunk=None, report=progress):
+            key = dict(restart=restart, chunk=chunk)
+            draw = (None if tables is None else
+                    draw_counts_stream(tables, n_sample, rs, dev, **key))
+            if cfg.tiled:
+                cells = draw_tiles_stream(Xd.shape[1] // cfg.tile, rs, dev, **key)
+            elif cfg.minibatch:
+                cells = draw_cells_stream(n_sample, rs, dev, probs, **key)
+            else:
+                cells = None
+            return mu.fit_scan(cfg, W0, H0, Bs0, Xd, Ysd, hyper, draw_counts=draw,
+                               progress=report, draw_cells=cells)
+
         def run(n_iter: int):
             cfg = self._make_cfg(Ys, n_sample, n_iter)
-            W0, H0, Bs0 = draw_init(cfg, self.n_features, self.random_state,
-                                    self.eps, dev)
-            draw = (None if tables is None else
-                    draw_counts_stream(tables, n_sample, self.random_state, dev))
-            cells = (draw_cells_stream(n_sample, self.random_state, dev, probs)
-                     if cfg.minibatch else None)
-            return cfg, mu.fit_scan(cfg, W0, H0, Bs0, Xd, Ysd, hyper,
-                                    draw_counts=draw, progress=progress,
-                                    draw_cells=cells)
+            if n_restarts == 1:
+                return cfg, fit_from(cfg, *init(cfg))
+            # restarts one after another on the same device X, without
+            # progress; the lowest final total loss wins (NaN never does,
+            # unless every restart is NaN: then restart 0), and only the
+            # best state is kept while the others run
+            best, best_loss = None, float("nan")
+            for r in range(n_restarts):
+                out = fit_from(cfg, *init(cfg, r), restart=r, report=None)
+                final = float(out[3][-1, 0])
+                if best is None or final < best_loss or (
+                        np.isnan(best_loss) and not np.isnan(final)):
+                    best, best_loss = out, final
+                del out
+            return cfg, best
+
+        def run_checkpointed(n_iter: int):
+            """The fit in chunks of checkpoint_every iterations, with a
+            snapshot after each; a matching snapshot is resumed.  Chunk c's
+            sampled streams are keyed on c, so a resumed fit draws what the
+            uninterrupted one did."""
+            ckpt = FitCheckpointer(checkpoint_dir, config_key=self._checkpoint_key(
+                Ys, n_sample, n_iter, checkpoint_every))
+            cfg = self._make_cfg(Ys, n_sample, n_iter)
+            W, H, Bs = init(cfg)
+            done, parts = 0, []
+            resumed = ckpt.load()
+            if resumed is not None:
+                done, W_np, H_np, Bs_np, losses0 = resumed
+                to = lambda a: torch.from_numpy(np.array(a, dtype=np.float32)).to(dev)
+                W, H, Bs = to(W_np), to(H_np), tuple(to(b) for b in Bs_np)
+                parts.append(np.asarray(losses0, np.float32))
+                if verbose:
+                    print(f"ALPINE fit: resumed from iteration {done}")
+            chunk = done // checkpoint_every
+            while done < n_iter:
+                size = min(checkpoint_every, n_iter - done)
+                cfg = self._make_cfg(Ys, n_sample, size)
+                # the bar's position stays global across chunks
+                report = (None if progress is None else
+                          lambda d, loss, base=done: progress(base + d, loss))
+                W, H, Bs, L = fit_from(cfg, W, H, Bs, chunk=chunk, report=report)
+                parts.append(L.cpu().numpy())
+                done += size
+                chunk += 1
+                ckpt.save(done, W.cpu().numpy(), H.cpu().numpy(),
+                          [b.cpu().numpy() for b in Bs], np.concatenate(parts))
+            ckpt.clear()
+            return cfg, (W, H, Bs, torch.from_numpy(np.concatenate(parts)))
 
         try:
             t0 = time.perf_counter()
@@ -355,7 +494,10 @@ class ALPINE:
                 t0 = time.perf_counter()
             else:
                 self.max_iter = max_iter
-            cfg, (Wd, Hd, Bsd, losses) = run(self.max_iter)
+            if checkpoint_dir is not None:
+                cfg, (Wd, Hd, Bsd, losses) = run_checkpointed(self.max_iter)
+            else:
+                cfg, (Wd, Hd, Bsd, losses) = run(self.max_iter)
             if self.scale_needed:
                 Wd, Hd, Bsd = mu.scale_matrices(cfg.blocks, Wd, Hd, Bsd)
             if dev.type == "cuda":
@@ -370,15 +512,21 @@ class ALPINE:
             print(f"ALPINE fit: {self.max_iter} iterations, final objective "
                   f"loss {self.loss_history_[-1, 0]:.6g}")
 
-        H_np = Hd.cpu().numpy()
+        W_np, H_np = Wd.cpu().numpy(), Hd.cpu().numpy()
+        Bs_np = [b.cpu().numpy() for b in Bsd]
         if cell_perm is not None:
             H_np = H_np[:, np.argsort(cell_perm)]  # back to caller order
+        if self.component_bucket:
+            # drop the phantom components: the stored matrices are true-sized
+            valid = mu.block_valid_mask(cfg.blocks, true_blocks).numpy()
+            W_np, H_np = W_np[:, valid], H_np[valid]
+            Bs_np = [b[:, :kt] for b, kt in zip(Bs_np, self.n_covariate_components)]
         m = AlpineMatrices(
             X=X,
             Ys=[np.asarray(y, dtype=np.float32) for y in Ys],
-            Ws=split_w(Wd.cpu().numpy(), self.n_all_components),
+            Ws=split_w(W_np, self.n_all_components),
             Hs=split_h(H_np, self.n_all_components),
-            Bs=[b.cpu().numpy() for b in Bsd],
+            Bs=Bs_np,
         )
         self.matrices: Dict[str, Union[Float32Array, List[Float32Array]]] = m.to_numpy()
         # the fit succeeded: pair its device X with this model
@@ -571,8 +719,6 @@ class ALPINE:
         """Write the fitted model to ``<path>.npz`` and
         ``<path>.encoders.pkl`` in the JAX package's format
         (``alpine_tpu_torch/io/checkpoint.py``)."""
-        from alpine_tpu_torch.io.checkpoint import save_model
-
         save_model(self, path)
 
     @classmethod
@@ -580,8 +726,6 @@ class ALPINE:
         """A fitted model from files written by ``save`` or by the JAX
         package's ``ALPINE.save``, on ``device`` ("auto": the card).  It has
         no device copy of X, so its first ``transform`` uploads the data."""
-        from alpine_tpu_torch.io.checkpoint import load_model
-
         return load_model(path, device=device)
 
     def store_embeddings(self, adata) -> None:
@@ -611,9 +755,46 @@ class ALPINE:
             dt = "float32" if self.data_dtype == "auto" else self.data_dtype
         return dt
 
+    def _cfg_blocks(self) -> tuple:
+        """The blocks the fit runs at: bucket-padded where component_bucket
+        is set (alpine_tpu/models/alpine.py:1255-1264)."""
+        blocks = tuple(self.n_all_components)
+        if isinstance(self.component_bucket, tuple):
+            return self.component_bucket
+        if self.component_bucket:
+            return mu.bucket_blocks(blocks, self.component_bucket)
+        return blocks
+
+    def _checkpoint_key(self, Ys, n_sample: int, n_iter: int,
+                        checkpoint_every: int) -> dict:
+        """What a fit snapshot's name hashes: the JAX package's keys and
+        value types (alpine_tpu/models/alpine.py:690-729) with one cell
+        shard on one process, so either package resumes the other's
+        snapshot of the same fit."""
+        return {
+            "blocks": self.n_all_components,
+            "n_labels": [y.shape[0] for y in Ys],
+            "n_cells": n_sample,
+            "lam": self.lam, "orth_W": self.orth_W,
+            "alpha_W": self.alpha_W, "l1_ratio_W": self.l1_ratio_W,
+            "loss_type": self.loss_type, "use_als": self.use_als,
+            "data_dtype": self.data_dtype_,
+            "matmul_precision": self.matmul_precision,
+            "batch_size": self.batch_size,
+            "sampling": self.sampling_method,
+            "tile": mu.DEFAULT_TILE if self.sampling_method == "tiled" else 0,
+            "bucket": self.component_bucket,
+            "cell_shards": 1,
+            "seed": self.random_state, "max_iter": n_iter,
+            "checkpoint_every": checkpoint_every,
+            "n_processes": 1,
+            "process_index": 0,
+            "cell_layout": None,
+        }
+
     def _make_cfg(self, Ys, n_sample: int, n_iter: int) -> mu.MUConfig:
         return mu.MUConfig(
-            blocks=tuple(self.n_all_components),
+            blocks=self._cfg_blocks(),
             n_labels=tuple(y.shape[0] for y in Ys),
             n_cells=n_sample,
             loss_kl=(self.loss_type == "kl-divergence"),
@@ -625,6 +806,7 @@ class ALPINE:
             use_als=self.use_als,
             batch_size=None if self.batch_size >= n_sample else self.batch_size,
             weighted=(self.sampling_method == "weighted"),
+            tile=mu.DEFAULT_TILE if self.sampling_method == "tiled" else 0,
         )
 
     def _hyper(self):
@@ -717,9 +899,10 @@ class ALPINE:
         """Out-of-sample projection: Frobenius MU onto the frozen W
         (reference main.py:678-724), through the fused kernel.  On the data
         the model was fit on, the fit's device X is reused; after a
-        weighted_fast fit its cells are group-sorted, so H0 is re-paired to
-        them and the result un-sorted (each cell's projection is independent
-        of the others)."""
+        weighted_fast or tiled fit its cells are permuted (and, tiled,
+        zero-padded), so H0 is re-paired to them, padded with zero columns
+        and the result stripped and un-permuted (each cell's projection is
+        independent of the others)."""
         if adata.shape[1] != self.n_features:
             raise ValueError(
                 f"adata has {adata.shape[1]} genes but the model was fit "
@@ -731,22 +914,24 @@ class ALPINE:
         cached = getattr(self, "_x_cache", None)
         if (cached is not None and not _no_x_cache() and cached[2] == n_sample
                 and cached[1] == self._x_fingerprint(adata.X)):
-            X, cell_perm = cached[0], cached[3]  # validated at fit
+            X, cell_perm, pad = cached[0], cached[3], cached[4]  # validated at fit
         else:
             if not (x_min(adata.X) >= 0):  # NaN fails this like a negative
                 raise ValueError("All elements in adata.X must be non-negative.")
             # out-of-sample data need not be integer-representable
             X = self._cast_x_host(dense_x(adata.X).T, strict=False).to(dev)
-            cell_perm = None
+            cell_perm, pad = None, 0
         H0 = draw_transform_h0(self.total_components, n_sample,
                                self.random_state, self.eps, dev)
         if cell_perm is not None:
             # device column p is caller cell cell_perm[p]
             H0 = H0[:, torch.from_numpy(cell_perm).to(dev)]
+        if pad:
+            H0 = torch.nn.functional.pad(H0, (0, pad))
         W = torch.from_numpy(np.concatenate(self.matrices["Ws"], axis=1)).to(dev)
         H = mu.run_transform(W, X, H0, float(np.float32(self.eps)),
                              n_iter=n_iter, precision=self.matmul_precision)
-        H_np = H.cpu().numpy()
+        H_np = H[:, :n_sample].cpu().numpy()
         if cell_perm is not None:
             H_np = H_np[:, np.argsort(cell_perm)]
         Hs = split_h(H_np, self.n_all_components)

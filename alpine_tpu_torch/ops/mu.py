@@ -32,7 +32,13 @@ X passes through the kernels ``hxt`` and ``wtx``.
 ``MUConfig.weighted`` (``sampling_method="weighted"``: balanced draws with
 replacement) gathers each epoch's batches of cells and runs one joint or
 ALS step on each (``_fit_scan_steps``); the fused backend runs the
-steps' X products through ``hxt`` and ``wtx``.
+steps' X products through ``hxt`` and ``wtx``.  ``MUConfig.tile``
+("tiled" sampling) permutes whole tiles of ``tile`` adjacent cells
+instead of single cells, so a batch's copy of X moves contiguous runs.
+
+Component bucketing pads each block with phantom components that start
+at zero and stay exactly zero (``bucket_blocks``, ``auto_bucket_blocks``,
+``mask_block_padding``).
 
 A verbose fit passes ``progress``: the loops call it every
 ``progress_every(max_iter)`` iterations and after the last with the
@@ -54,6 +60,11 @@ DATA_DTYPES = ("auto",) + STORAGE_DTYPES
 
 _STORAGE = {"int8": torch.int8, "int16": torch.int16,
             "bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+# "tiled" sampling's tile: one 128-cell run per gene row of X (the JAX
+# package's DEFAULT_TILE, alpine_tpu/ops/mu.py:188-192)
+DEFAULT_TILE = 128
 
 
 def x_storage_dtype(x_dtype: str) -> torch.dtype:
@@ -112,6 +123,7 @@ class MUConfig:
     use_als: bool = False  # block-cyclic (ALS) steps instead of joint ones
     batch_size: Optional[int] = None  # cells a step; None: all of them
     weighted: bool = False  # "weighted": n balanced draws an epoch, gathered
+    tile: int = 0  # "tiled": cells a tile (0: single cells)
 
     def __post_init__(self):
         if self.backend not in ("fused", "plain"):
@@ -149,6 +161,12 @@ class MUConfig:
     def eff_batch_size(self) -> int:
         bs = self.batch_size
         return self.n_cells if bs is None else min(bs, self.n_cells)
+
+    @property
+    def tiled(self) -> bool:
+        """Minibatches of whole tiles ("tiled" sampling); a batch covering
+        every cell has no tiles to permute."""
+        return self.tile > 0 and self.minibatch
 
 
 @contextmanager
@@ -370,9 +388,13 @@ def grouped_balanced_counts(generator: torch.Generator, n: int, tables):
 
 def compute_loss_parts(cfg: MUConfig, hyper, W, H, Bs, X, Xf, Ys_f, normX2,
                        WtX: Optional[torch.Tensor] = None,
-                       WtW: Optional[torch.Tensor] = None) -> torch.Tensor:
+                       WtW: Optional[torch.Tensor] = None,
+                       kl_pad: int = 0) -> torch.Tensor:
     """Loss vector [total, recon, pred_0, ...] on the full matrices
-    (reference main.py:726-753), with the trace identity for recon."""
+    (reference main.py:726-753), with the trace identity for recon.
+    ``kl_pad`` zero columns of X, H and Ys (a tiled fit's pad) each add
+    clamp(B·0, eps) = eps per label row to the KL prediction term; that
+    constant is subtracted, so the pad never reaches the loss."""
     lam, _, _, _, eps = hyper
     if WtX is None:
         WtX = _dot_x(X, W.T, Xf)
@@ -389,6 +411,8 @@ def compute_loss_parts(cfg: MUConfig, hyper, W, H, Bs, X, Xf, Ys_f, normX2,
         if cfg.loss_kl:
             yh = _clamp(yhat, eps)
             pred = torch.sum(Y * torch.log(_clamp(Y / yh, eps)) - Y + yh)
+            if kl_pad:
+                pred = pred - cfg.n_labels[i] * kl_pad * eps
         else:
             d = Y - yhat
             pred = torch.sum(d * d)
@@ -398,11 +422,28 @@ def compute_loss_parts(cfg: MUConfig, hyper, W, H, Bs, X, Xf, Ys_f, normX2,
 
 
 def _check_inputs(cfg: MUConfig, W0, H0, X, Ys) -> None:
-    if X.shape[1] != cfg.n_cells or H0.shape != (cfg.K, cfg.n_cells):
+    """Shapes of the inputs; a tiled fit's X (and Ys) may carry a zero pad
+    to a tile multiple past n_cells, and H0 then has n_cells columns or
+    X's."""
+    t = cfg.tile
+    if cfg.tiled:
+        if cfg.weighted:
+            raise ValueError("tiled and weighted sampling are exclusive")
+        if cfg.use_als:
+            raise ValueError("tiled sampling supports joint mode only")
+        if X.shape[1] % t:
+            raise ValueError(
+                f"tiled sampling needs the cell axis padded to a multiple "
+                f"of tile={t}; got {X.shape[1]} columns")
+    n_x = X.shape[1]
+    pad_ok = cfg.tiled and cfg.n_cells <= n_x < cfg.n_cells + t
+    if not (n_x == cfg.n_cells or pad_ok) or H0.shape not in (
+            (cfg.K, cfg.n_cells), (cfg.K, n_x)):
         raise ValueError(
             f"X must be (genes, {cfg.n_cells}) and H0 ({cfg.K}, "
             f"{cfg.n_cells}); got X {tuple(X.shape)}, H0 {tuple(H0.shape)}")
-    if W0.shape != (X.shape[0], cfg.K) or len(Ys) != cfg.n_cov:
+    if W0.shape != (X.shape[0], cfg.K) or len(Ys) != cfg.n_cov or any(
+            y.shape[1] != n_x for y in Ys):
         raise ValueError("W0 must be (genes, K) and Ys hold one matrix per "
                          "covariate")
 
@@ -426,23 +467,28 @@ def _report(progress, losses, it: int, max_iter: int) -> None:
 def _fit_scan_steps(cfg: MUConfig, W0, H0, Bs0, X, Ys, hyper, draw_counts,
                     draw_cells, progress):
     """Whole steps: the joint steps of the plain backend, ALS on either
-    backend, and the random-minibatch and gathered weighted epochs of both
-    (the minibatch branch of ``alpine_tpu.ops.mu.fit_scan``).  The fused
-    backend runs every X product through the kernels (``hxt`` and ``wtx``
-    in the steps, ``wtx`` for a minibatch epoch's WᵀX) and makes no
-    float32 copy of X.
+    backend, and the random-minibatch, gathered weighted and tiled epochs
+    of both (the minibatch branch of ``alpine_tpu.ops.mu.fit_scan`` and its
+    ``_tiled_epoch``).  The fused backend runs every X product through the
+    kernels (``hxt`` and ``wtx`` in the steps, ``wtx`` for a minibatch
+    epoch's WᵀX) and makes no float32 copy of X.
 
     Full batch, iteration t is one step on all cells, and the loss takes
     that step's WᵀX and WᵀW.  With ``cfg.minibatch``, epoch t takes
-    ``draw_cells(t)``, n cell indices (a permutation, or n balanced draws
-    with replacement), cut into batches of ``cfg.eff_batch_size`` cells;
-    the last batch is short where the size does not divide n (the JAX
-    package zero-fills it, which adds nothing to any sum, so the two agree
-    up to summation order).  Each batch gathers X_b (in X's storage
-    dtype), Ys_b and H_b, runs one step on them and scatters H_b back.  A
+    ``draw_cells(t)``: n cell indices (a permutation, or n balanced draws
+    with replacement) or, when ``cfg.tiled``, a permutation of the tiles of
+    ``cfg.tile`` adjacent columns (X's columns, a tile multiple, include a
+    zero pad past n_cells).  The draws are cut into batches of
+    ``cfg.eff_batch_size`` cells (tiled: that many rounded up to whole
+    tiles); the last batch is short where the size does not divide the
+    epoch (the JAX package zero-fills it, which adds nothing to any sum, so
+    the two agree up to summation order).  Each batch copies X_b (in X's
+    storage dtype: single columns, or contiguous runs of a tile per gene
+    row), Ys_b and H_b, runs one step on them and scatters H_b back.  A
     cell drawn twice into one batch gets the same update in both columns
     (an H column's update reads only that column), so the scatter writes
-    equal values.  The loss is taken once an epoch over all cells."""
+    equal values.  The loss is taken once an epoch over all cells, less
+    the pad's KL constant."""
     from alpine_tpu_torch.ops import kernels
 
     fused = cfg.backend == "fused"
@@ -450,6 +496,7 @@ def _fit_scan_steps(cfg: MUConfig, W0, H0, Bs0, X, Ys, hyper, draw_counts,
     Xf = None if fused else X.to(wide)
     Ys_f = [y.to(wide) for y in Ys]
     normX2 = _norm_x2(X)
+    kl_pad = X.shape[1] - cfg.n_cells
 
     def step(W, Bs, H, X, Xf, Ys_f, it):
         if cfg.use_als:
@@ -459,9 +506,17 @@ def _fit_scan_steps(cfg: MUConfig, W0, H0, Bs0, X, Ys, hyper, draw_counts,
                                                 Ys_f, draw_counts(it))
         return joint_batch_update(cfg, hyper, W, Bs, H, X, Xf, Ys_f)
 
+    # a batch is a set of units: tiles of cfg.tile columns, or single cells
+    unit = cfg.tile if cfg.tiled else 1
+    n_units = X.shape[1] // unit
+    per_batch = min(-(-cfg.eff_batch_size // unit), n_units)
+
+    def take(A, u):
+        return A.view(A.shape[0], n_units, unit).index_select(1, u).view(
+            A.shape[0], -1)
+
     W, Bs = W0, tuple(Bs0)
     H = H0.clone() if cfg.minibatch else H0  # batches scatter into H
-    n, bs = cfg.n_cells, cfg.eff_batch_size
     losses = torch.empty((cfg.max_iter, 2 + cfg.n_cov), dtype=torch.float32,
                          device=X.device)
     for it in range(cfg.max_iter):
@@ -469,17 +524,19 @@ def _fit_scan_steps(cfg: MUConfig, W0, H0, Bs0, X, Ys, hyper, draw_counts,
             W, Bs, H, (WtX, WtW) = step(W, Bs, H, X, Xf, Ys_f, it)
         else:
             idx = draw_cells(it)
-            for lo in range(0, n, bs):
-                b = idx[lo:lo + bs]
+            for lo in range(0, idx.shape[0], per_batch):
+                u = idx[lo:lo + per_batch]
                 W, Bs, H_b, _ = step(
-                    W, Bs, H.index_select(1, b), X.index_select(1, b),
-                    None if fused else Xf.index_select(1, b),
-                    [y.index_select(1, b) for y in Ys_f], it)
-                H.index_copy_(1, b, H_b)
+                    W, Bs, take(H, u), take(X, u),
+                    None if fused else take(Xf, u),
+                    [take(y, u) for y in Ys_f], it)
+                H.view(H.shape[0], n_units, unit).index_copy_(
+                    1, u, H_b.view(H.shape[0], -1, unit))
             WtX = kernels.wtx(X, W.contiguous()) if fused else _dot_x(X, W.T, Xf)
             WtW = None
         losses[it] = compute_loss_parts(cfg, hyper, W, H, Bs, X, Xf, Ys_f,
-                                        normX2, WtX=WtX, WtW=WtW)
+                                        normX2, WtX=WtX, WtW=WtW,
+                                        kl_pad=kl_pad)
         _report(progress, losses, it, cfg.max_iter)
     return W, H, Bs, losses
 
@@ -608,10 +665,13 @@ def fit_scan(cfg: MUConfig, W0, H0, Bs0, X, Ys, hyper, draw_counts=None,
     With ``cfg.weighted_counts``, ``draw_counts(t)`` returns draw t as a
     (n_cells,) float32 count tensor on X's device; iteration t uses draw t.
     With ``cfg.minibatch``, ``draw_cells(t)`` returns epoch t's (n_cells,)
-    int64 cell indices on X's device.  ``progress(done, objective loss)``,
-    when given, is called as ``progress_every`` says.  Returns (W, H, Bs,
-    losses) with losses (max_iter, 2 + n_cov) on the device: [total,
-    recon, pred_0, ...] per iteration."""
+    int64 cell indices on X's device, and with ``cfg.tiled`` its
+    permutation of X's tiles: X and Ys then hold a zero pad to a tile
+    multiple past n_cells, and H0 has n_cells columns or X's.
+    ``progress(done, objective loss)``, when given, is called as
+    ``progress_every`` says.  Returns (W, H, Bs, losses), H with n_cells
+    columns and losses (max_iter, 2 + n_cov) on the device: [total, recon,
+    pred_0, ...] per iteration."""
     X = X.to(cfg.xdt).contiguous()
     Ys = [y.to(cfg.xdt).contiguous() for y in Ys]
     _check_inputs(cfg, W0, H0, X, Ys)
@@ -625,13 +685,19 @@ def fit_scan(cfg: MUConfig, W0, H0, Bs0, X, Ys, hyper, draw_counts=None,
         raise ValueError("a minibatch or weighted fit needs a draw_cells "
                          "callable")
     W0, H0 = W0.contiguous(), H0.contiguous()
+    if H0.shape[1] != X.shape[1]:
+        # zero columns for a tiled fit's pad: fixed points of every update
+        H0 = torch.nn.functional.pad(H0, (0, X.shape[1] - H0.shape[1]))
     Bs0 = tuple(b.contiguous() for b in Bs0)
     with matmul_precision(cfg.precision):
         if cfg.backend == "fused" and not (cfg.use_als or cfg.minibatch):
-            return _fit_scan_fused(cfg, W0, H0, Bs0, X, Ys, hyper,
-                                   draw_counts, progress)
-        return _fit_scan_steps(cfg, W0, H0, Bs0, X, Ys, hyper, draw_counts,
-                               draw_cells, progress)
+            W, H, Bs, losses = _fit_scan_fused(cfg, W0, H0, Bs0, X, Ys, hyper,
+                                               draw_counts, progress)
+        else:
+            W, H, Bs, losses = _fit_scan_steps(cfg, W0, H0, Bs0, X, Ys, hyper,
+                                               draw_counts, draw_cells,
+                                               progress)
+    return W, H[:, :cfg.n_cells], Bs, losses
 
 
 # ---------------------------------------------------------------------------
@@ -732,3 +798,56 @@ def scale_matrices(blocks: Sequence[int], W, H, Bs):
     newBs = tuple(B / s[offsets[i]:offsets[i] + blocks[i]]
                   for i, B in enumerate(Bs))
     return W / s, H * s[:, None], newBs
+
+
+# ---------------------------------------------------------------------------
+# Component bucketing (alpine_tpu/ops/mu.py:1672-1739)
+# ---------------------------------------------------------------------------
+
+
+def bucket_blocks(blocks: Tuple[int, ...], bucket: int) -> Tuple[int, ...]:
+    """Each block size rounded up to a multiple of ``bucket``."""
+    return tuple(-(-k // bucket) * bucket for k in blocks)
+
+
+# about sqrt(2)-spaced size levels for auto bucketing
+_GEO_LEVELS = (2, 3, 4, 6, 8, 12, 16, 24, 32, 48, 64, 96, 128, 192, 256,
+               384, 512, 768, 1024)
+
+
+def auto_bucket_blocks(blocks: Tuple[int, ...]) -> Tuple[int, ...]:
+    """Every guided block padded to the level of the largest one, the
+    unguided block to its own level (past the table: a multiple of 128),
+    so a search over component splits meets few distinct shapes."""
+    def level(k: int) -> int:
+        for lv in _GEO_LEVELS:
+            if lv >= k:
+                return lv
+        return -(-k // 128) * 128
+    guided = blocks[:-1]
+    if not guided:
+        return (level(blocks[-1]),)
+    shared = level(max(guided))
+    return (shared,) * len(guided) + (level(blocks[-1]),)
+
+
+def block_valid_mask(blocks: Tuple[int, ...], true_blocks: Tuple[int, ...],
+                     device=None) -> torch.Tensor:
+    """Boolean (K_padded,) mask of the genuine components of each padded
+    block."""
+    return torch.cat([torch.arange(kp, device=device) < kt
+                      for kp, kt in zip(blocks, true_blocks)])
+
+
+def mask_block_padding(blocks: Tuple[int, ...], true_blocks: Tuple[int, ...],
+                       W, H, Bs):
+    """Zero the phantom components of bucket-padded blocks.  A zero
+    component is a fixed point of every MU update (its numerators are
+    contractions with zero rows or columns) and adds nothing to W·H, B·H,
+    HHᵀ, WᵀW or any loss term, so the genuine components of a padded fit
+    follow the unpadded fit's trajectory from the same genuine values."""
+    valid = block_valid_mask(blocks, true_blocks, W.device)
+    offsets = block_offsets(tuple(blocks))
+    return (W * valid[None, :], H * valid[:, None],
+            tuple(B * valid[offsets[i]:offsets[i] + blocks[i]][None, :]
+                  for i, B in enumerate(Bs)))

@@ -89,27 +89,45 @@ Phases, each printing one JSON line:
           free_device_cache() and the uncached transform;
   slice_als  the same fit with use_als=True (hxt once and wtx three times
           an iteration, fused_iteration never) and a cached transform;
-  slice_minibatch, slice_minibatch_als, slice_weighted  fits of 10
-          epochs with batch_size=8192 (13 batches an epoch): random
-          minibatch joint, the same with use_als=True, and
-          sampling_method="weighted" (balanced draws with replacement);
-          each checks the launches of hxt (one a batch) and wtx (one a
-          batch, ALS one a block, and one an epoch for the loss), finite
-          losses, a falling reconstruction loss, and peak device memory at
-          most the slice's and under a float32 copy of X;
+  slice_minibatch, slice_minibatch_als, slice_weighted, slice_tiled  fits
+          of 10 epochs with batch_size=8192 (13 batches an epoch): random
+          minibatch joint, the same with use_als=True,
+          sampling_method="weighted" (balanced draws with replacement) and
+          sampling_method="tiled" (64 whole 128-cell tiles a batch of 782,
+          96 pad columns, ms an epoch beside slice_minibatch's, and a
+          transform through the padded, shuffled device X against the
+          uncached one); each checks the launches of hxt (one a batch) and
+          wtx (one a batch, ALS one a block, and one an epoch for the loss),
+          finite losses, a falling reconstruction loss, and peak device
+          memory at most the slice's and under a float32 copy of X;
+  slice_bucket  the slice's fit with component_bucket=8: fused_iteration
+          at K = 48 once an iteration, true-sized stored matrices, one K3
+          launch at K = 40; then mu.fit_scan on the fit's device X from
+          masked inits, whose phantom components must stay exactly zero;
+  slice_restarts  the slice's fit with n_restarts=3: fused_iteration 150
+          times, X uploaded once, restart 0 the slice's loss history bit
+          for bit, the winner no worse;
+  slice_checkpoint  the slice's fit with a snapshot every 10 iterations,
+          interrupted after the second and resumed by a fresh model: its
+          loss history against the slice's (rtol 1e-4), seconds and bytes
+          a snapshot, the snapshot gone after success;
   slice_k100  ALPINE(n_components=90, n_covariate_components=[5, 5]) (K =
           100: fused_transform's tiled path), a 5-iteration fit and a
           50-step transform through the fit's device X.
+The fit_loop phases include fit_loop_tiled (3 tiled epochs) with the
+device time of the batches' copies beside fit_loop_minibatch's.
 Then one JSON line with every kernel's numbers (fused_transform twice: its
 register path at K = 40 with the launches of slice, its tiled path at
 K = 100 with those of slice_k100; hxt and wtx at the minibatch shape with
 the per-batch launches of slice_minibatch, and wtx at the loss's full shape
-with its once-an-epoch launches; hxt and wtx twice more:
-their fp32 paths hxt_fma and wtx_fma on float32 and on int16 X, with the
-launches of the ALS loop on that X; K1, K4 and K2 again on their fp32 path,
-with the launches of the float32/int16 joint, weighted_fast and unguided
-loops) and, last, the result line, whose "h5ad_run" says whether
-slice_persist's .h5ad round trip ran.
+with its once-an-epoch launches; hxt and wtx on a tiled batch's slab with
+slice_tiled's launches; fused_iteration at slice_bucket's K = 48; hxt and
+wtx twice more: their fp32 paths hxt_fma and wtx_fma on float32 and on
+int16 X, with the launches of the ALS loop on that X; K1, K4 and K2 again
+on their fp32 path, with the launches of the float32/int16 joint,
+weighted_fast and unguided loops) and, last, the result line
+{"ok": true, "device": {...}}.  slice_persist's line says in "h5ad_run"
+whether its .h5ad round trip ran.
 Any failed check raises: the script exits non-zero and prints no result.
 Without a GPU it exits with code 2 before doing anything.
 """
@@ -125,6 +143,8 @@ import numpy as np
 
 G, N = 2000, 100_000
 BLOCKS, N_LABELS = (5, 5, 30), (2, 3)
+BUCKET_BLOCKS = (8, 8, 32)  # BLOCKS under component_bucket=8
+TILE = 128  # tiled sampling's tile (alpine_tpu_torch.ops.mu.DEFAULT_TILE)
 TRANSFORM_ITERS = 50
 FIT_ITERS = 50
 LOOP_ITERS = 10
@@ -511,6 +531,8 @@ def run_persist_phase(torch, kernels, ALPINE, AnnData, model, adata, counts, obs
           "export_default_matmul_devices": sorted(set(export_devices.devices)),
           "export_on_device_allclose_host": export_ok, "export_max_abs_diff": export_err,
           "export_tolerance": "rtol 1e-5, atol 1e-6", "h5ad": h5ad,
+          # whether the .h5ad round trip ran (it needs h5py)
+          "h5ad_run": not missing,
           "peak_memory_bytes_load_transform_export": peak})
     check(persist_launches["fused_transform"] == 1,
           "the loaded model's uncached transform must launch fused_transform once")
@@ -522,7 +544,6 @@ def run_persist_phase(torch, kernels, ALPINE, AnnData, model, adata, counts, obs
     if not missing:
         check(all(h5ad["round_trip_bits_equal"].values()), f"h5ad round trip: {h5ad}")
         check(all(h5ad["range_equals_slice"].values()), f"h5ad obs_range read: {h5ad}")
-    return not missing
 
 
 def MatmulDevices(torch):
@@ -543,11 +564,14 @@ def MatmulDevices(torch):
 
 
 def run_minibatch_phase(phase, torch, kernels, ALPINE, adata, slice_peak, use_als=False,
-                        sampling_method="random"):
+                        sampling_method="random", baseline=None):
     """A MB_BATCH-cell minibatch fit of MB_EPOCHS epochs at full width: each
     batch runs hxt once and wtx once (ALS: once a block), each epoch's loss
     wtx once over all cells; no float32 copy of X (peak device memory under
-    X's float32 bytes, and at most the slice's)."""
+    X's float32 bytes, and at most the slice's).  Tiled: batches of whole
+    128-cell tiles of the padded, shuffled cell axis, then a transform
+    through that device X against the uncached one; ``baseline`` is
+    slice_minibatch's row, whose ms an epoch is reported beside."""
     model = ALPINE(n_components=30, n_covariate_components=[5, 5],
                    lam=[1e3, 1e3], use_als=use_als, device="cuda")
     torch.cuda.synchronize()
@@ -561,17 +585,41 @@ def run_minibatch_phase(phase, torch, kernels, ALPINE, adata, slice_peak, use_al
     launches = dict(kernels.launches)
     peak = torch.cuda.max_memory_allocated()
     L = model.loss_history_
-    batches = MB_EPOCHS * -(-N // MB_BATCH)
+    tiled = sampling_method == "tiled"
+    if tiled:  # 782 tiles (96 pad columns), 64 a batch: 12 batches and one of 14
+        n_tiles = -(-N // TILE)
+        per_epoch = -(-n_tiles // -(-MB_BATCH // TILE))
+    else:
+        per_epoch = -(-N // MB_BATCH)
+    batches = MB_EPOCHS * per_epoch
     want = {"hxt": batches, "wtx": (len(BLOCKS) if use_als else 1) * batches + MB_EPOCHS}
-    emit({"phase": phase, "cells": N, "genes": G, "batch_size": MB_BATCH,
-          "epochs": MB_EPOCHS, "batches_an_epoch": batches // MB_EPOCHS,
-          "sampling_method": sampling_method, "use_als": use_als,
-          "fit_seconds": fit_s, "timings": model.timings_,
-          "ms_per_epoch": model.timings_["fit"] * 1e3 / MB_EPOCHS,
-          "launches": launches, "launches_expected": want,
-          "loss_first": L[0].tolist(), "loss_last": L[-1].tolist(),
-          "peak_memory_bytes": peak, "slice_peak_memory_bytes": slice_peak,
-          "x_float32_bytes": 4 * G * N})
+    row = {"phase": phase, "cells": N, "genes": G, "batch_size": MB_BATCH,
+           "epochs": MB_EPOCHS, "batches_an_epoch": per_epoch,
+           "sampling_method": sampling_method, "use_als": use_als,
+           "fit_seconds": fit_s, "timings": model.timings_,
+           "ms_per_epoch": model.timings_["fit"] * 1e3 / MB_EPOCHS,
+           "launches": launches, "launches_expected": want,
+           "loss_first": L[0].tolist(), "loss_last": L[-1].tolist(),
+           "peak_memory_bytes": peak, "slice_peak_memory_bytes": slice_peak,
+           "x_float32_bytes": 4 * G * N}
+    if baseline is not None:
+        row["slice_minibatch_ms_per_epoch"] = baseline["ms_per_epoch"]
+    if tiled:
+        X_dev, pad = model._x_cache[0], model._x_cache[4]
+        row.update(n_tiles=n_tiles, pad=pad, device_x_shape=list(X_dev.shape))
+        keys = ("ALPINE_embedding", "batch", "condition")
+        t0 = time.perf_counter()
+        model.transform(adata)  # through the padded, shuffled device X
+        torch.cuda.synchronize()
+        row["transform_seconds_cached"] = time.perf_counter() - t0
+        cached = {k: adata.obsm[k].copy() for k in keys}
+        model.free_device_cache()
+        model.transform(adata)  # uploads X again
+        diff = max(float(np.max(np.abs(cached[k] - adata.obsm[k]))) for k in keys)
+        row["cached_max_abs_diff_uncached"] = diff
+        row["cached_matches_uncached"] = all(
+            np.allclose(cached[k], adata.obsm[k], rtol=1e-5) for k in keys)
+    emit(row)
     for name, n in want.items():
         check(launches[name] == n, f"{phase}: {launches[name]} {name} launches, expected {n}")
     check(launches["fused_iteration"] == 0, f"{phase}: a minibatch fit runs no fused_iteration")
@@ -579,6 +627,191 @@ def run_minibatch_phase(phase, torch, kernels, ALPINE, adata, slice_peak, use_al
     check(L[-1, 1] < L[0, 1], f"{phase}: the reconstruction loss must fall")
     check(peak <= slice_peak, f"{phase}: peak memory {peak} above the slice's {slice_peak}")
     check(peak < 4 * G * N, f"{phase}: peak memory {peak} holds a float32 copy of X")
+    if tiled:
+        check(n_tiles == 782 and per_epoch == 13, f"{phase}: {n_tiles} tiles, {per_epoch} batches")
+        check(row["pad"] == 96 and row["device_x_shape"] == [G, n_tiles * TILE],
+              f"{phase}: device X {row['device_x_shape']}, pad {row['pad']}")
+        check(row["cached_matches_uncached"],
+              f"{phase}: cached and uncached transforms must agree (rtol 1e-5)")
+    model.free_device_cache()
+    torch.cuda.empty_cache()
+    return launches, row
+
+
+def run_bucket_phase(torch, kernels, mu, ALPINE, adata):
+    """slice_bucket: component_bucket=8 pads the blocks (5, 5, 30) to (8, 8,
+    32), so K1 runs at K = 48 and the transform (K3) at the true K = 40;
+    then mu.fit_scan alone on the fit's device-resident int8 X from masked
+    inits, whose phantom components must stay exactly zero."""
+    from alpine_tpu_torch.models.alpine import draw_init
+
+    model = ALPINE(n_components=30, n_covariate_components=[5, 5], lam=[1e3, 1e3],
+                   device="cuda", component_bucket=8)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    model.fit(adata, ["batch", "condition"], max_iter=FIT_ITERS)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    fit_launches = dict(kernels.launches)
+    kernels.reset_launches()
+    model.transform(adata)  # through the fit's device X, at the true K
+    torch.cuda.synchronize()
+    transform_launches = dict(kernels.launches)
+    blocks, true = model._cfg_blocks(), tuple(model.n_all_components)
+    sizes = [w.shape[1] for w in model.matrices["Ws"]]
+    L = model.loss_history_
+    # the same padded fit through mu.fit_scan, its phantom components read back
+    X = model._x_cache[0]
+    Ys = [torch.from_numpy(y.T.copy()).to(X.device) for y in model.fe.transform(adata.obs)]
+    cfg = mu.MUConfig(blocks=blocks, n_labels=N_LABELS, n_cells=N, max_iter=FIT_ITERS,
+                      x_dtype="int8")
+    W0, H0, Bs0 = mu.mask_block_padding(
+        blocks, true, *draw_init(cfg, G, model.random_state, EPS, X.device))
+    kernels.reset_launches()
+    W, H, Bs, Lm = mu.fit_scan(cfg, W0, H0, Bs0, X, Ys, model._hyper())
+    torch.cuda.synchronize()
+    valid = mu.block_valid_mask(blocks, true, X.device)
+    phantom_zero = bool(not W[:, ~valid].any() and not H[~valid].any()
+                        and all(not b[:, k:].any() for b, k in zip(Bs, true)))
+    scan_launches = dict(kernels.launches)
+    emit({"phase": "slice_bucket", "component_bucket": 8, "blocks": list(blocks),
+          "true_blocks": list(true), "fit_seconds": fit_s, "timings": model.timings_,
+          "fit_iterations": FIT_ITERS, "launches_fit": fit_launches,
+          "launches_transform": transform_launches, "stored_block_sizes": sizes,
+          "loss_first": L[0].tolist(), "loss_last": L[-1].tolist(),
+          "fit_scan_launches": scan_launches, "fit_scan_phantom_exactly_zero": phantom_zero,
+          "fit_scan_loss_last": Lm[-1].tolist()})
+    check(blocks == (8, 8, 32), f"slice_bucket: blocks {blocks}")
+    check(fit_launches["fused_iteration"] == FIT_ITERS,
+          "slice_bucket: fused_iteration must launch once an iteration at K = 48")
+    check(transform_launches["fused_transform"] == 1 and sizes == [5, 5, 30],
+          "slice_bucket: one K3 launch at the true K = 40, true-sized matrices")
+    check(np.isfinite(L).all() and L[-1, 0] < L[0, 0], "slice_bucket: loss")
+    check(scan_launches["fused_iteration"] == FIT_ITERS and phantom_zero,
+          "slice_bucket: phantom components must stay exactly zero through K1")
+    check(bool(torch.isfinite(Lm).all()), "slice_bucket: fit_scan loss finite")
+    model.free_device_cache()
+    del X, Ys, W, H, Bs, W0, H0, Bs0
+    torch.cuda.empty_cache()
+    return fit_launches
+
+
+def run_restarts_phase(torch, kernels, mu, ALPINE, adata, slice_losses):
+    """slice_restarts: three restarts of the slice's fit one after another on
+    one upload of X; restart 0 is the slice's fit (its loss history's
+    bits), the winner's final loss at most restart 0's."""
+    runs, uploads = [], []
+    fit_scan, cast = mu.fit_scan, ALPINE._cast_x_host
+
+    def spy(*args, **kw):
+        out = fit_scan(*args, **kw)
+        runs.append(out[3].cpu().numpy())
+        return out
+
+    def counting_cast(self, *args, **kw):
+        uploads.append(1)
+        return cast(self, *args, **kw)
+
+    model = ALPINE(n_components=30, n_covariate_components=[5, 5], lam=[1e3, 1e3],
+                   device="cuda")
+    mu.fit_scan, ALPINE._cast_x_host = spy, counting_cast
+    try:
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        model.fit(adata, ["batch", "condition"], max_iter=FIT_ITERS, n_restarts=3)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+    finally:
+        mu.fit_scan, ALPINE._cast_x_host = fit_scan, cast
+    launches = dict(kernels.launches)
+    L = model.loss_history_
+    finals = [float(r[-1, 0]) for r in runs]
+    emit({"phase": "slice_restarts", "n_restarts": 3, "fit_iterations": FIT_ITERS,
+          "fit_seconds": fit_s, "timings": model.timings_, "launches": launches,
+          "x_uploads": len(uploads), "final_total_losses": finals,
+          "winner": int(np.nanargmin(finals)), "loss_last": L[-1].tolist(),
+          "restart0_bits_equal_slice": bool(np.array_equal(runs[0], slice_losses))})
+    check(launches["fused_iteration"] == 3 * FIT_ITERS,
+          "slice_restarts: fused_iteration must launch once an iteration of each restart")
+    check(len(uploads) == 1, f"slice_restarts: X uploaded {len(uploads)} times")
+    check(len(runs) == 3 and L[-1, 0] <= finals[0], "slice_restarts: the winner must be "
+          "no worse than restart 0")
+    check(np.array_equal(runs[0], slice_losses),
+          "slice_restarts: restart 0 must have the bits of the slice's fit")
+    model.free_device_cache()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def run_checkpoint_phase(torch, kernels, ALPINE, adata, slice_losses):
+    """slice_checkpoint: the slice's fit with a snapshot every 10 iterations,
+    interrupted after its second snapshot, resumed by a fresh model, held
+    against the slice's loss history (each chunk start computes X Hᵀ with
+    hxt, where the single fit carries K1's); the snapshot is gone after
+    success."""
+    import tempfile
+
+    import alpine_tpu_torch.io.checkpoint as ckpt
+
+    class Interrupt(Exception):
+        pass
+
+    saves, orig = [], ckpt.FitCheckpointer.save
+
+    def timed_save(self, *args, interrupt_after=None):
+        t0 = time.perf_counter()
+        orig(self, *args)
+        saves.append((time.perf_counter() - t0, os.path.getsize(self.path)))
+        if interrupt_after is not None and len(saves) == interrupt_after:
+            raise Interrupt
+
+    make = lambda: ALPINE(n_components=30, n_covariate_components=[5, 5],
+                          lam=[1e3, 1e3], device="cuda")
+    kw = dict(max_iter=FIT_ITERS, checkpoint_every=10)
+    with tempfile.TemporaryDirectory() as d:
+        ckpt.FitCheckpointer.save = lambda self, *a: timed_save(self, *a, interrupt_after=2)
+        try:
+            t0 = time.perf_counter()
+            make().fit(adata, ["batch", "condition"], checkpoint_dir=d, **kw)
+            check(False, "slice_checkpoint: the first fit must be interrupted")
+        except Interrupt:
+            first_s = time.perf_counter() - t0
+        finally:
+            ckpt.FitCheckpointer.save = orig
+        left = os.listdir(d)
+        model = make()
+        ckpt.FitCheckpointer.save = timed_save
+        try:
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            model.fit(adata, ["batch", "condition"], checkpoint_dir=d, **kw)
+            torch.cuda.synchronize()
+            resumed_s = time.perf_counter() - t0
+        finally:
+            ckpt.FitCheckpointer.save = orig
+        launches = dict(kernels.launches)
+        gone = not os.listdir(d)
+    L = model.loss_history_
+    rel = np.max(np.abs(L - slice_losses) / np.abs(slice_losses), axis=0)
+    emit({"phase": "slice_checkpoint", "checkpoint_every": 10, "fit_iterations": FIT_ITERS,
+          "interrupted_fit_seconds": first_s, "resumed_fit_seconds": resumed_s,
+          "timings": model.timings_, "snapshots_after_interrupt": left,
+          "launches_resumed": launches, "snapshot_seconds": [v[0] for v in saves],
+          "snapshot_bytes": saves[0][1], "seconds_per_snapshot": float(
+              np.mean([v[0] for v in saves])),
+          "loss_max_rel_diff_slice": rel.tolist(),
+          "first_chunk_bits_equal_slice": bool(np.array_equal(L[:10], slice_losses[:10])),
+          "tolerance": "the first chunk bit for bit, every loss rtol 1e-4, against slice",
+          "snapshot_removed": gone})
+    check(len(left) == 1, f"slice_checkpoint: {left} after the interruption")
+    check(launches["fused_iteration"] == FIT_ITERS - 20 and launches["hxt"] == 3,
+          "slice_checkpoint: the resumed fit runs 30 iterations in 3 chunks")
+    # the first chunk runs as the single fit does; from the first chunk
+    # boundary on, bf16 roundings of W and H flip where the recomputed X Hᵀ
+    # differs from K1's in the last bit
+    check(np.array_equal(L[:10], slice_losses[:10]) and rel.max() <= 1e-4,
+          f"slice_checkpoint: resumed loss history {rel.tolist()} from the slice's")
+    check(gone, "slice_checkpoint: the snapshot must be removed after success")
     model.free_device_cache()
     torch.cuda.empty_cache()
     return launches
@@ -783,6 +1016,10 @@ def main():
     results["fused_h_update"] = run_iteration_case(
         "fused_h_update bench int8", G, N, (sum(BLOCKS),), (), torch.int8,
         True, True)
+    # component_bucket=8: the blocks (5, 5, 30) padded to (8, 8, 32), K = 48
+    results["fused_iteration bucketed"] = run_iteration_case(
+        "fused_iteration bench int8 kl bucketed K=48", G, N, BUCKET_BLOCKS, N_LABELS,
+        torch.int8, True, True)
     # the fp32 path (wtx_fma, the per-tile pass, hxt_fma): K1, K4 and K2 on
     # int16 X holding counts above 127, K1 on float32 X
     torch.cuda.empty_cache()
@@ -867,7 +1104,7 @@ def main():
         W = torch.rand((g, K), generator=gen, device=dev) + 0.05
         return X, W, H
 
-    def run_x_pass_case(kind, X, P, timed):
+    def run_x_pass_case(kind, X, P, timed, note=""):
         """hxt(X, H = P) or wtx(X, W = P) against its plain version; timed
         at the bench shape beside one torch.matmul over a copy of X cast to
         its compute dtype outside the timed region (bf16 for int8/bf16 X)."""
@@ -876,7 +1113,7 @@ def main():
         kern = lambda: getattr(kernels, kind)(X, P)
         plain = lambda: getattr(kernels, f"{kind}_plain")(X, P)
         abs_err, worst = compare(kern(), plain(), 1e-4, 1e-6)
-        tag = f"{kind} {'bench' if timed else 'small'} {str(X.dtype)[6:]} K={K} n={n}"
+        tag = f"{kind} {'bench' if timed else 'small'} {str(X.dtype)[6:]} K={K} n={n}{note}"
         row = {"phase": "kernel", "case": tag, "max_abs_err": abs_err,
                "worst_err_over_tolerance": worst,
                "tolerance": "rtol 1e-4, atol 1e-6*max|plain|"}
@@ -934,7 +1171,14 @@ def main():
     results["wtx minibatch"] = run_x_pass_case("wtx", Xb, W, True)
     # a minibatch epoch's loss: WᵀX over all cells, all of K
     results["wtx minibatch loss"] = run_x_pass_case("wtx", X, W, True)
-    del X, W, H, Xb  # the int8 X goes before the float32 one is made
+    # a tiled batch: 64 whole tiles of 128 cells copied as slabs
+    tiles = torch.randperm(N // TILE, generator=gen, device=dev)[:MB_BATCH // TILE]
+    slab = lambda A: A[:, :N // TILE * TILE].reshape(A.shape[0], -1, TILE).index_select(
+        1, tiles).reshape(A.shape[0], -1)
+    Xt = slab(X)
+    results["hxt tiled"] = run_x_pass_case("hxt", Xt, slab(H), True, " tiled slab")
+    results["wtx tiled"] = run_x_pass_case("wtx", Xt, W, True, " tiled slab")
+    del X, W, H, Xb, Xt  # the int8 X goes before the float32 one is made
     torch.cuda.empty_cache()
     # float32 and int16 X (the FP32 units): one X at a time
     for xdt in (torch.float32, torch.int16):
@@ -983,11 +1227,13 @@ def main():
 
     # -- where the fit's device time goes: the fused fit loop alone ----------
     def run_fit_loops(loops, xdtype):
-        """Each (phase, weighted, als, iterations[, batch size]) fit loop on
-        device-resident bench data whose X is stored as xdtype (int16:
-        counts above 127); weighted None: the unguided loop (no covariates,
-        K = 40); with a batch size, random minibatch epochs (a permutation
-        an epoch from a seeded device generator)."""
+        """Each (phase, weighted, als, iterations[, batch size[, tile]]) fit
+        loop on device-resident bench data whose X is stored as xdtype
+        (int16: counts above 127); weighted None: the unguided loop (no
+        covariates, K = 40); with a batch size, random minibatch epochs (a
+        permutation an epoch from a seeded device generator), and with a
+        tile, tiled epochs over X, Ys and H zero-padded to a tile multiple
+        (a permutation of the tiles an epoch)."""
         X, W, H, _, Ys, Bs, lam = iteration_problem(
             torch, gen, dev, G, N, BLOCKS, N_LABELS, xdtype)
         if xdtype == torch.int16:
@@ -1001,19 +1247,26 @@ def main():
             loop_gen.manual_seed(t)
             return mu.grouped_balanced_counts(loop_gen, N, tables)
 
-        def draw_cells(t):
-            loop_gen.manual_seed(t)
-            return torch.randperm(N, generator=loop_gen, device=dev)
-
         loop_launches = {}
-        for phase, weighted, als, iters, *batch in loops:
+        for phase, weighted, als, iters, *mb in loops:
+            batch = mb[0] if mb else None
+            tile = mb[1] if len(mb) > 1 else 0
             guided = weighted is not None
             cfg = mu.MUConfig(blocks=BLOCKS if guided else (sum(BLOCKS),),
                               n_labels=N_LABELS if guided else (), n_cells=N,
                               max_iter=iters, x_dtype=str(xdtype)[6:],
                               weighted_counts=bool(weighted), use_als=als,
-                              batch_size=batch[0] if batch else None)
-            drive = (lambda: mu.fit_scan(cfg, W, H, Bs, X, Ys, hyper,
+                              batch_size=batch, tile=tile)
+            pad = (-N) % tile if tile else 0
+            pad_cells = lambda A: torch.nn.functional.pad(A, (0, pad)) if pad else A
+            Xl, Ysl = pad_cells(X), [pad_cells(y) for y in Ys]
+            n_draw = Xl.shape[1] // tile if tile else N
+
+            def draw_cells(t, n_draw=n_draw):
+                loop_gen.manual_seed(t)
+                return torch.randperm(n_draw, generator=loop_gen, device=dev)
+
+            drive = (lambda: mu.fit_scan(cfg, W, H, Bs, Xl, Ysl, hyper,
                                          draw_counts=draw_counts,
                                          draw_cells=draw_cells)) if guided else (
                 lambda: mu.fit_scan(cfg, W, H, (), X, (), unguided_hyper))
@@ -1036,9 +1289,14 @@ def main():
                       and e.self_device_time_total > 0]
             events.sort(key=lambda e: -e.self_device_time_total)
             busy_us = sum(e.self_device_time_total for e in events)
+            # the batches' copies of X, Ys and H and the scatter of H back
+            copy_us = sum(e.self_device_time_total for e in events
+                          if re.search(r"index|gather|scatter", e.key, re.I))
+            del Xl, Ysl
             emit({"phase": phase, "iterations": iters, "x_dtype": str(xdtype)[6:],
-                  "launches": loop_launches[phase],
+                  "launches": loop_launches[phase], "tile": tile,
                   "ms_per_iteration": wall * 1e3 / iters,
+                  "gather_scatter_device_ms_per_iteration": copy_us * 1e-3 / iters,
                   # kernel time over wall time, both of the traced run
                   "device_busy_share": busy_us * 1e-6 / traced_wall,
                   "device_ms_per_iteration": busy_us * 1e-3 / iters,
@@ -1053,6 +1311,7 @@ def main():
                    ("fit_loop_weighted_fast", True, False, LOOP_ITERS),
                    ("fit_loop_als", False, True, ALS_LOOP_ITERS),
                    ("fit_loop_minibatch", False, False, MB_LOOP_EPOCHS, MB_BATCH),
+                   ("fit_loop_tiled", False, False, MB_LOOP_EPOCHS, MB_BATCH, TILE),
                    ("fit_loop_minibatch_als", False, True, MB_LOOP_EPOCHS, MB_BATCH)),
                   torch.int8)
     # int16 X: the ALS loop runs hxt_fma and wtx_fma, the joint loops K1's,
@@ -1129,7 +1388,7 @@ def main():
     transform_s = time.perf_counter() - t0
     main_launches = dict(kernels.launches)
     slice_peak = torch.cuda.max_memory_allocated()
-    L = model.loss_history_
+    L = slice_losses = model.loss_history_
     emit({"phase": "slice", "cells": N, "genes": G, "data_seconds": data_s,
           "fit_seconds": fit_s, "fit_iterations": FIT_ITERS,
           "seconds_per_iteration_incl_setup": fit_s / FIT_ITERS,
@@ -1150,7 +1409,7 @@ def main():
         check(np.isfinite(adata.obsm[key]).all(), f"{key} block finite")
     check(np.isfinite(adata.obsm["ALPINE_embedding"]).all(), "embedding finite")
 
-    h5ad_run = run_persist_phase(torch, kernels, ALPINE, AnnData, model, adata, counts, obs)
+    run_persist_phase(torch, kernels, ALPINE, AnnData, model, adata, counts, obs)
 
     # -- the unguided path (no covariates): fused_h_update -------------------
     unguided = ALPINE(n_components=40, n_covariate_components=[], lam=[],
@@ -1263,11 +1522,19 @@ def main():
     torch.cuda.empty_cache()
 
     # -- random-minibatch and gathered weighted fits: hxt/wtx on the batches --
-    mb_launches = {
-        phase: run_minibatch_phase(phase, torch, kernels, ALPINE, adata, slice_peak, **kw)
-        for phase, kw in (("slice_minibatch", {}),
-                          ("slice_minibatch_als", dict(use_als=True)),
-                          ("slice_weighted", dict(sampling_method="weighted")))}
+    mb_launches, mb_rows = {}, {}
+    for phase, kw in (("slice_minibatch", {}),
+                      ("slice_minibatch_als", dict(use_als=True)),
+                      ("slice_weighted", dict(sampling_method="weighted")),
+                      ("slice_tiled", dict(sampling_method="tiled"))):
+        mb_launches[phase], mb_rows[phase] = run_minibatch_phase(
+            phase, torch, kernels, ALPINE, adata, slice_peak,
+            baseline=mb_rows.get("slice_minibatch"), **kw)
+
+    # -- component bucketing, restarts and mid-fit checkpoints ----------------
+    bucket_launches = run_bucket_phase(torch, kernels, mu, ALPINE, adata)
+    run_restarts_phase(torch, kernels, mu, ALPINE, adata, slice_losses)
+    run_checkpoint_phase(torch, kernels, ALPINE, adata, slice_losses)
 
     # -- K = 100: the transform's tiled path through the estimator ------------
     k100 = ALPINE(n_components=90, n_covariate_components=[5, 5],
@@ -1306,6 +1573,10 @@ def main():
                 # slice_minibatch's wtx: one a batch, and one an epoch for the loss
                 "wtx minibatch": mb_launches["slice_minibatch"]["wtx"] - MB_EPOCHS,
                 "wtx minibatch loss": MB_EPOCHS,
+                "hxt tiled": mb_launches["slice_tiled"]["hxt"],
+                # slice_tiled's wtx: one a batch (and one an epoch for the loss)
+                "wtx tiled": mb_launches["slice_tiled"]["wtx"] - MB_EPOCHS,
+                "fused_iteration bucketed": bucket_launches["fused_iteration"],
                 "stream_probe": probe_launches,
                 # the fp32 paths (hxt_fma, wtx_fma): the int16 and float32 ALS loops
                 "hxt_fma int16": int16_launches["hxt"], "wtx_fma int16": int16_launches["wtx"],
@@ -1317,6 +1588,7 @@ def main():
                   "fused_iteration_counts int16", "fused_h_update int16",
                   "fused_transform", "fused_transform tiled", "hxt", "wtx",
                   "hxt minibatch", "wtx minibatch", "wtx minibatch loss",
+                  "hxt tiled", "wtx tiled", "fused_iteration bucketed",
                   "hxt_fma float32", "hxt_fma int16",
                   "wtx_fma float32", "wtx_fma int16", "stream_probe"):
         res = results[kname]
@@ -1328,11 +1600,7 @@ def main():
                      "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
                      "library_ms": res.get("library_ms")})
     emit({"kernels": rows})
-
-    # h5ad_run: whether slice_persist's .h5ad round trip ran (it needs h5py)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
-                                             "count": count}, "h5ad_run": h5ad_run}),
-          flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}})
     return 0
 
 

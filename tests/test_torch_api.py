@@ -145,13 +145,19 @@ def test_checkpoint_arguments_match_jax(kw, tmp_path, monkeypatch):
     assert str(et.value) == str(ej.value)
 
 
-def test_valid_checkpoint_arguments_are_accepted():
+def test_valid_checkpoint_arguments_are_accepted(tmp_path):
+    """Checkpoint keywords without a directory change nothing; with one the
+    npz backend runs a checkpointed fit (and clears its snapshot), and the
+    orbax backend, which imports JAX, is refused before the fit."""
     ad = _adata(integer=True)
     m = ALPINE(device="cpu", **KW)
     m.fit(ad, KEYS, max_iter=2, checkpoint_every=10, checkpoint_backend="orbax")
     assert m.loss_history_.shape == (2, 4)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        m.fit(ad, KEYS, max_iter=2, checkpoint_dir="ckpt", checkpoint_every=10)
+    m.fit(ad, KEYS, max_iter=2, checkpoint_dir=str(tmp_path), checkpoint_every=10)
+    assert m.loss_history_.shape == (2, 4) and not list(tmp_path.iterdir())
+    with pytest.raises(ValueError, match="orbax"):
+        m.fit(ad, KEYS, max_iter=2, checkpoint_dir=str(tmp_path),
+              checkpoint_backend="orbax")
 
 
 def test_load_raises_not_implemented(tmp_path):

@@ -195,7 +195,7 @@ def test_weighted_fast_fit_on_card_matches_cpu(cuda, monkeypatch):
     import alpine_tpu_torch.models.alpine as talpine
     from alpine_tpu_torch import ALPINE, AnnData
 
-    def stream(tables, n_cells, random_state, device):
+    def stream(tables, n_cells, random_state, device, restart=0, chunk=None):
         start, sizes = (t.cpu().numpy() for t in tables)
 
         def draw(t):
@@ -593,7 +593,7 @@ def test_minibatch_fit_on_card_matches_cpu(cuda, monkeypatch, use_als, sampling)
     import alpine_tpu_torch.models.alpine as talpine
     from alpine_tpu_torch import ALPINE, AnnData
 
-    def stream(n_cells, random_state, device, probs=None):
+    def stream(n_cells, random_state, device, probs=None, restart=0, chunk=None):
         def draw(t):
             r = np.random.default_rng([random_state, t])
             idx = (r.permutation(n_cells) if probs is None
@@ -625,3 +625,122 @@ def test_minibatch_fit_on_card_matches_cpu(cuda, monkeypatch, use_als, sampling)
     floor = 2e-6 * float(np.sum(np.square(X.astype(np.float64))))
     np.testing.assert_allclose(fits["cuda"][0], fits["cpu"][0], rtol=5e-4, atol=floor)
     np.testing.assert_allclose(fits["cuda"][1], fits["cpu"][1], rtol=5e-3, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["int8", "float32"])
+def test_phantom_components_stay_zero_through_k1(cuda, dtype):
+    """Bucket-padded blocks (5, 5, 30) -> (8, 8, 32) through fused_iteration
+    on the card from masked inits: the phantom rows of H and columns of W
+    stay exactly zero; on float32 X the genuine components follow the
+    unpadded fit (the two K differ, so the kernel sums in another order)."""
+    from alpine_tpu_torch.ops import mu
+
+    true, padded, n_labels, iters = (5, 5, 30), (8, 8, 32), (2, 3), 10
+    X, W, H, _, Ys, Bs, lam = _problem(8, 300, 5000, true, n_labels, dtype, cuda)
+    valid = mu.block_valid_mask(padded, true, cuda)
+    Wp = torch.zeros((300, 48), device=cuda)
+    Hp = torch.zeros((48, 5000), device=cuda)
+    Wp[:, valid], Hp[valid] = W, H
+    Bsp = [torch.nn.functional.pad(b, (0, kp - b.shape[1])) for b, kp in zip(Bs, padded)]
+    hyper = (lam, 0.0, 0.0, 0.0, EPS)
+    out = {}
+    for blocks, init in ((padded, (Wp, Hp, Bsp)), (true, (W, H, Bs))):
+        cfg = mu.MUConfig(blocks=blocks, n_labels=n_labels, n_cells=5000,
+                          max_iter=iters, x_dtype=dtype)
+        kernels.reset_launches()
+        out[blocks] = mu.fit_scan(cfg, *init, X, Ys, hyper)
+        torch.cuda.synchronize()
+        assert kernels.launches["fused_iteration"] == iters
+    Wo, Ho, Bso, L = out[padded]
+    assert not Wo[:, ~valid].any() and not Ho[~valid].any()
+    assert all(not b[:, k:].any() for b, k in zip(Bso, true))
+    assert torch.isfinite(L).all()
+    if dtype == "float32":
+        Wt, Ht, _, Lt = out[true]
+        _close(L, Lt, 1e-4, 0.0)
+        _close(Wo[:, valid], Wt, 1e-3, 1e-6)
+        _close(Ho[valid], Ht, 1e-3, 1e-6)
+
+
+@pytest.mark.cuda
+def test_tiled_fit_on_card_matches_cpu(cuda, monkeypatch):
+    """sampling_method="tiled" on the card against the same fit on the CPU
+    (the kernels' plain versions), both fed one tile stream made with
+    numpy: 500 cells (4 tiles of 128, 12 pad columns), one tile a batch,
+    3 epochs.  Launches: hxt and wtx once a batch, wtx once an epoch."""
+    import alpine_tpu_torch.models.alpine as talpine
+    from alpine_tpu_torch import ALPINE, AnnData
+
+    def stream(n_tiles, random_state, device, restart=0, chunk=None):
+        return lambda t: torch.from_numpy(
+            np.random.default_rng([random_state, t]).permutation(n_tiles)).to(device)
+
+    monkeypatch.setattr(talpine, "draw_tiles_stream", stream)
+    r = np.random.default_rng(5)
+    n, epochs = 500, 3
+    X = np.minimum(r.poisson(r.gamma(2.0, 1.0, (n, 6)) @ r.gamma(2.0, 0.3, (6, 80))),
+                   127).astype(np.float32)
+    obs = {"batch": np.array(["b0", "b1"], dtype=object)[r.integers(0, 2, n)],
+           "cond": np.array(["c0", "c1", "c2"], dtype=object)[r.integers(0, 3, n)]}
+    fits = {}
+    for where in ("cuda", "cpu"):
+        ad = AnnData(X, obs=obs)
+        m = ALPINE(n_components=6, n_covariate_components=[2, 2], lam=[10.0, 10.0],
+                   device=where, random_state=7)
+        kernels.reset_launches()
+        m.fit(ad, ["batch", "cond"], max_iter=epochs, batch_size=100,
+              sampling_method="tiled")
+        if where == "cuda":
+            assert m._x_cache[0].shape == (80, 512) and m._x_cache[4] == 12
+            assert kernels.launches["hxt"] == 4 * epochs
+            assert kernels.launches["wtx"] == 4 * epochs + epochs
+            assert kernels.launches["fused_iteration"] == 0
+        m.transform(ad)
+        fits[where] = (m.loss_history_, ad.obsm["ALPINE_embedding"])
+    floor = 2e-6 * float(np.sum(np.square(X.astype(np.float64))))
+    np.testing.assert_allclose(fits["cuda"][0], fits["cpu"][0], rtol=5e-4, atol=floor)
+    np.testing.assert_allclose(fits["cuda"][1], fits["cpu"][1], rtol=5e-3, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_checkpoint_round_trip_on_card(cuda, tmp_path):
+    """A checkpointed fit on the card interrupted after its second snapshot
+    and resumed by a fresh model: the uninterrupted checkpointed fit's
+    bits (the snapshot holds float32 W, H and Bs exactly), one hxt launch
+    a chunk start, the snapshot gone after success."""
+    import alpine_tpu_torch.io.checkpoint as tckpt
+    from alpine_tpu_torch import ALPINE, AnnData
+
+    r = np.random.default_rng(2)
+    X = np.minimum(r.poisson(r.gamma(2.0, 1.0, (800, 6)) @ r.gamma(2.0, 0.3, (6, 90))),
+                   127).astype(np.float32)
+    obs = {"batch": np.array(["b0", "b1"], dtype=object)[r.integers(0, 2, 800)]}
+    kw = dict(max_iter=12, checkpoint_every=4)
+    make = lambda: ALPINE(n_components=6, n_covariate_components=[2], lam=[10.0],
+                          device="cuda", random_state=3)
+    full = make().fit(AnnData(X, obs=obs), ["batch"],
+                      checkpoint_dir=str(tmp_path / "full"), **kw)
+    orig, calls = tckpt.FitCheckpointer.save, []
+
+    def interrupting_save(self, *args):
+        orig(self, *args)
+        calls.append(1)
+        if len(calls) == 2:
+            raise KeyboardInterrupt
+
+    tckpt.FitCheckpointer.save = interrupting_save
+    try:
+        with pytest.raises(KeyboardInterrupt):
+            make().fit(AnnData(X, obs=obs), ["batch"],
+                       checkpoint_dir=str(tmp_path / "part"), **kw)
+    finally:
+        tckpt.FitCheckpointer.save = orig
+    kernels.reset_launches()
+    resumed = make().fit(AnnData(X, obs=obs), ["batch"],
+                         checkpoint_dir=str(tmp_path / "part"), **kw)
+    assert kernels.launches["fused_iteration"] == 4
+    assert kernels.launches["hxt"] == 1
+    np.testing.assert_array_equal(resumed.loss_history_, full.loss_history_)
+    assert not list((tmp_path / "part").iterdir())
+    assert not list((tmp_path / "full").iterdir())

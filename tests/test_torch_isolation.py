@@ -1,6 +1,7 @@
 """The port stands alone: alpine_tpu_torch, chip_smoke.py and the port's
 scripts (scripts/torch_*.py) import nothing of JAX or of the JAX package,
-the fit/transform path (minibatch and weighted fits included) and save →
+the fit/transform path (minibatch, weighted, tiled, bucketed, restarted
+and checkpointed fits included) and save →
 load → transform → export need neither pandas nor scikit-learn, and the estimator never falls back to the CPU
 silently."""
 
@@ -44,8 +45,22 @@ for kw in (dict(batch_size=25), dict(batch_size=40, sampling_method="weighted"))
     mb = ALPINE(n_components=4, n_covariate_components=[2], lam=[1.0], device="cpu")
     mb.fit(ad, ["batch"], max_iter=3, **kw)
     assert np.isfinite(mb.loss_history_).all() and mb.loss_history_.shape == (3, 3)
+tl = ALPINE(n_components=4, n_covariate_components=[2], lam=[1.0], device="cpu",
+            component_bucket=4)
+tl.fit(ad, ["batch"], max_iter=3, batch_size=40, sampling_method="tiled")
+assert tl._x_cache[0].shape == (16, 128) and tl._x_cache[4] == 38
+tl.transform(ad)
+assert [w.shape[1] for w in tl.matrices["Ws"]] == [2, 4]
+assert np.isfinite(ad.obsm["ALPINE_embedding"]).all()
+import os
 import tempfile
 d = tempfile.mkdtemp()
+ck = ALPINE(n_components=4, n_covariate_components=[2], lam=[1.0], device="cpu")
+ck.fit(ad, ["batch"], max_iter=5, checkpoint_dir=d, checkpoint_every=2, n_restarts=1)
+assert np.isfinite(ck.loss_history_).all() and not os.listdir(d)
+rs = ALPINE(n_components=4, n_covariate_components=[2], lam=[1.0], device="cpu")
+rs.fit(ad, ["batch"], max_iter=3, n_restarts=2)
+assert np.isfinite(rs.loss_history_).all()
 m.save(d + "/model")
 loaded = ALPINE.load(d + "/model", device="cpu")
 assert loaded.fe.encoded_labels == m.fe.encoded_labels

@@ -46,6 +46,7 @@ from .oracle import (_cat_h, _cat_w, _split_h, _split_w, oracle_als_step,
                      oracle_joint_step)
 from .test_torch_model import KEYS, KW, _adata, _check_fit_and_transform
 from .test_torch_model import jax_draws  # noqa: F401  (fixture)
+from .test_torch_model import jax_fit_key
 from .test_torch_mu import G, N, _TORCH, _data, _hypers
 
 torch.set_num_threads(1)
@@ -281,9 +282,10 @@ def test_cell_stream():
 @pytest.fixture
 def jax_cells(monkeypatch):
     """The estimator's cell stream replaced by the JAX estimator's (its fit
-    key is split(PRNGKey(random_state))[1])."""
-    def stream(n_cells, random_state, device, probs=None):
-        _, fit_key = jax.random.split(jax.random.PRNGKey(random_state))
+    key is split(PRNGKey(random_state))[1]; ``jax_fit_key`` for a restart or
+    a checkpoint chunk)."""
+    def stream(n_cells, random_state, device, probs=None, restart=0, chunk=None):
+        fit_key = jax_fit_key(random_state, restart, chunk)
         return lambda t: torch.from_numpy(
             _jax_cells(fit_key, t, n_cells, probs)).to(device)
 

@@ -38,6 +38,18 @@ KW = dict(n_components=6, n_covariate_components=[2, 3], lam=[5.0, 2.0],
 KEYS = ["batch", "condition"]
 
 
+def jax_fit_key(random_state, restart=0, chunk=None):
+    """The key of the JAX estimator's sampled streams: split(PRNGKey(seed))[1]
+    for a fit, its restart r > 0 starting from fold_in(PRNGKey(seed), r)
+    (alpine_tpu/models/alpine.py:952-996), and checkpoint chunk c's
+    fold_in(fit key, c) (:779)."""
+    base = jax.random.PRNGKey(random_state)
+    if restart:
+        base = jax.random.fold_in(base, restart)
+    _, key = jax.random.split(base)
+    return key if chunk is None else jax.random.fold_in(key, chunk)
+
+
 @pytest.fixture
 def jax_draws(monkeypatch):
     """Make the port draw its fit init and transform H0 exactly as the JAX
@@ -202,20 +214,20 @@ def test_fit_errors_match_jax(case):
     assert str(et.value) == str(ej.value)
 
 
-def test_unported_options_raise():
-    """Tiled sampling, restarts, checkpoints and bucketing are left out;
-    minibatch and gathered weighted fits are ported and run."""
+def test_unported_options_raise(tmp_path):
+    """Nothing of the single-device estimator is left out any more: tiled
+    sampling, restarts, checkpoints, bucketing, minibatch and gathered
+    weighted fits all run and raise no NotImplementedError."""
     ad = _adata(integer=True)
     m = ALPINE(device="cpu", **KW)
-    for kw in (dict(sampling_method="tiled", batch_size=10),
-               dict(n_restarts=2), dict(checkpoint_dir="ckpt")):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            m.fit(ad, KEYS, max_iter=2, **kw)
-    with pytest.raises(NotImplementedError):
-        ALPINE(device="cpu", component_bucket=8, **KW)
-    for kw in (dict(batch_size=10), dict(sampling_method="weighted")):
+    for kw in (dict(sampling_method="tiled", batch_size=100),
+               dict(n_restarts=2), dict(checkpoint_dir=str(tmp_path)),
+               dict(batch_size=10), dict(sampling_method="weighted")):
         m.fit(ad, KEYS, max_iter=2, **kw)
         assert np.isfinite(m.loss_history_).all() and m.loss_history_.shape == (2, 4)
+    b = ALPINE(device="cpu", component_bucket=8, **KW)
+    b.fit(ad, KEYS, max_iter=2)
+    assert [w.shape[1] for w in b.matrices["Ws"]] == [2, 3, 6]
 
 
 def test_encoder_matches_sklearn_encoder():

@@ -39,6 +39,7 @@ from .conftest import make_synthetic_adata
 from .test_torch_kernels import _both, _close, _problem, _t
 from .test_torch_model import KEYS, KW, _adata, _check_fit_and_transform
 from .test_torch_model import jax_draws  # noqa: F401  (fixture)
+from .test_torch_model import jax_fit_key
 from .test_torch_mu import G, N, _assert_trajectory, _data, _hypers
 
 torch.set_num_threads(1)
@@ -68,8 +69,8 @@ def _jax_counts(key, t, n, tables):
 def jax_counts(monkeypatch):
     """The estimator's count stream replaced by the JAX estimator's (its
     fit key is split(PRNGKey(random_state))[1])."""
-    def stream(tables, n_cells, random_state, device):
-        _, fit_key = jax.random.split(jax.random.PRNGKey(random_state))
+    def stream(tables, n_cells, random_state, device, restart=0, chunk=None):
+        fit_key = jax_fit_key(random_state, restart, chunk)
         jt = tuple(jnp.asarray(t.cpu().numpy()) for t in tables)
         return lambda t: torch.from_numpy(
             _jax_counts(fit_key, t, n_cells, jt)).to(device)
