@@ -6,26 +6,32 @@ tensor code is PyTorch, and each Pallas kernel of the JAX package's main
 path is a CUDA kernel written for ``sm_90a`` (``alpine_tpu_torch/csrc``),
 built with ``nvcc`` at first use and bound with ``ctypes``.
 
-    from alpine_tpu_torch import ALPINE, AnnData
+    from alpine_tpu_torch import ALPINE, AnnData, ComponentOptimizer
 
 The estimator runs on the card by default (``device="cuda"``);
 ``device="cpu"`` runs the same fit loop with each kernel's plain PyTorch
-version, which is what the tests use.
+version, which is what the tests use.  ``ComponentOptimizer`` searches
+component counts and regularizers by cross-validated covariate leakage,
+its fold fits and kNN searches on the card.
 """
 
 from typing import TYPE_CHECKING
 
-__all__ = ["ALPINE", "AlpineMatrices", "AnnData", "suggest_data_dtype"]
+__all__ = ["ALPINE", "ComponentOptimizer", "AlpineMatrices", "AnnData",
+           "suggest_data_dtype"]
 __version__ = "0.1.0"
 
 if TYPE_CHECKING:  # pragma: no cover
     from alpine_tpu_torch.models.alpine import ALPINE
     from alpine_tpu_torch.models.state import AlpineMatrices
+    from alpine_tpu_torch.optimize.optimizer import ComponentOptimizer
     from alpine_tpu_torch.utils.adata import AnnData
 
 _LAZY = {
     "ALPINE": ("alpine_tpu_torch.models.alpine", "ALPINE"),
     "AlpineMatrices": ("alpine_tpu_torch.models.state", "AlpineMatrices"),
+    "ComponentOptimizer": ("alpine_tpu_torch.optimize.optimizer",
+                           "ComponentOptimizer"),
     "AnnData": ("alpine_tpu_torch.utils.adata", "AnnData"),
     "suggest_data_dtype": ("alpine_tpu_torch.utils.adata", "suggest_data_dtype"),
 }

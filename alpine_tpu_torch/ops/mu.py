@@ -361,6 +361,21 @@ def als_batch_update(cfg: MUConfig, hyper, W, Bs, H, X, Xf, Ys_f):
     return W, tuple(Bs), H, (torch.cat(WtX_rows), None)
 
 
+def multinomial_counts(generator: torch.Generator, n: int,
+                       weights: torch.Tensor) -> torch.Tensor:
+    """One epoch of the balanced with-replacement draw over a probability
+    vector, as a (len(weights),) float32 count vector on the weights'
+    device (the counterpart of ``alpine_tpu.ops.mu.multinomial_counts``,
+    used by the optimizer's weighted_fast folds, whose zero-padded cell
+    axes hold no group tables): ``n`` cells drawn by ``torch.multinomial``,
+    counted with an integer ``index_add_``.  Pad columns (weight 0) are
+    never drawn and keep count 0."""
+    idx = torch.multinomial(weights, n, replacement=True, generator=generator)
+    counts = torch.zeros(weights.shape[0], dtype=torch.int32, device=weights.device)
+    counts.index_add_(0, idx, torch.ones_like(idx, dtype=torch.int32))
+    return counts.to(torch.float32)
+
+
 def grouped_balanced_counts(generator: torch.Generator, n: int, tables):
     """One epoch of the balanced sampler as a (n,) float32 count vector on
     the generator's device (the counterpart of

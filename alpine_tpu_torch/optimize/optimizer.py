@@ -1,0 +1,684 @@
+"""ComponentOptimizer — TPE Bayesian hyperparameter search with CV scoring.
+
+The port's counterpart of ``alpine_tpu/optimize/optimizer.py`` (one
+process).  It searches n_total_components (quniform), a lam per covariate
+(qloguniform), orth_W / alpha_W / l1_ratio_W (uniform) and a split ratio
+per block; each trial is scored by stratified K-fold cross-validation:
+fit on the training folds, project the validation fold, cluster its
+unguided embedding, and average ARI + homogeneity against every covariate
+(low = covariate-free embedding = good; the score is minimized).  The
+public API, validation messages, printed strings and the history
+DataFrame's layout (with its descending-score sort) are the JAX package's.
+
+What differs from the JAX package:
+- the CV folds of a trial run one after another on the card from one
+  upload of the stacked fold tensors (``optimize/batched.py``), where the
+  JAX package vmaps them into one program;
+- the kNN graph of each validation fold is searched on the card
+  (``ops/knn.py``), the Leiden clustering runs in the port's copy of the
+  native library (``native/``), and the folds, ARI and homogeneity are the
+  port's copies of scikit-learn's (``optimize/metrics.py``): the search
+  needs neither scikit-learn nor pandas, which only ``get_train_history``
+  imports;
+- one process: the JAX package's multi-process route (trial-level
+  parallel rounds, ``tpe.fmin_parallel``) waits for the port's
+  multi-process slice, and a ``device`` that ``resolve_device`` rejects
+  raises its error.
+"""
+
+from __future__ import annotations
+
+import pickle
+from copy import copy
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from alpine_tpu_torch.models.alpine import ALPINE
+from alpine_tpu_torch.ops import mu
+from alpine_tpu_torch.optimize import scoring
+from alpine_tpu_torch.optimize.metrics import stratified_kfold
+from alpine_tpu_torch.optimize.tpe import (
+    STATUS_FAIL,
+    STATUS_OK,
+    Trials,
+    fmin,
+    hp,
+    import_hyperopt_trials,
+    load_foreign_pickle,
+    tpe,
+)
+from alpine_tpu_torch.parallel.mesh import resolve_device
+from alpine_tpu_torch.utils.adata import (
+    dtype_can_store, is_anndata, is_na, obs_column, obs_keys, suggest_data_dtype,
+)
+from alpine_tpu_torch.utils.encoder import FeatureEncoders
+
+# hyperparameters drawn by every search, as (name, kwarg-of-range) pairs;
+# ranges are validated and turned into TPE expressions table-driven
+_UNIFORM_DIMS = ("orth_W", "alpha_W", "l1_ratio_W")
+
+
+def allocate_components(
+    total: int, ratios: Sequence[float], floors: Sequence[int]
+) -> Tuple[int, List[int]]:
+    """Partition a total component budget into guided blocks + unguided rest.
+
+    Provisionally reserves ceil(total/2) for the guided side, hands covariate
+    i its normalized-ratio share of that reserve (rounded, floored at
+    ``floors[i]``), and leaves whatever remains of the *full* budget to the
+    unguided block — which can therefore go small or negative when floors
+    bite; the caller rejects such draws.  The reference's
+    `_distribute_components` (optimization.py:153-176).
+    """
+    weights = np.asarray([float(r) for r in ratios], dtype=float)
+    weights = weights / weights.sum()
+    reserve = total - total // 2
+    guided = [
+        max(int(floor), int(round(reserve * w)))
+        for floor, w in zip(floors, weights[:-1])
+    ]
+    return total - sum(guided), guided
+
+
+@dataclass(frozen=True)
+class SearchSpace:
+    """Declarative search-space: owns range validation, the TPE expression
+    tree, and decoding of raw TPE points into model hyperparameters."""
+
+    n_total_components_range: Tuple[int, int]
+    lam_range: Tuple[float, float]
+    orth_W_range: Tuple[float, float]
+    alpha_W_range: Tuple[float, float]
+    l1_ratio_W_range: Tuple[float, float]
+    n_covariates: int
+
+    def validate(self) -> None:
+        """The reference's messages (optimization.py:552-596)."""
+        rng = self.n_total_components_range
+        if not isinstance(rng, tuple) or len(rng) != 2:
+            raise TypeError("n_total_components_range must be a tuple of two integers")
+        lo, hi = rng
+        if lo >= hi:
+            raise ValueError(
+                "n_total_components_range must be a tuple with the first element less than the second"
+            )
+        if lo < 2:
+            raise ValueError(
+                "n_total_components_range must be a tuple with the first element greater than or equal to 2"
+            )
+
+        for name in ("lam_range",) + tuple(f"{d}_range" for d in _UNIFORM_DIMS):
+            rng = getattr(self, name)
+            if not isinstance(rng, tuple) or len(rng) != 2:
+                raise TypeError(f"{name} must be a tuple of two floats")
+            if not all(isinstance(x, float) for x in rng):
+                raise TypeError(f"All elements of {name} must be floats")
+            if rng[0] >= rng[1]:
+                raise ValueError(
+                    f"{name} must be a tuple with the first element less than the second"
+                )
+        if self.l1_ratio_W_range[1] > 1.0:
+            raise ValueError(
+                "l1_ratio_W_range's second element must be less than or equal to 1.0"
+            )
+
+    def to_tpe(self) -> Dict:
+        """TPE expression tree; the reference's labels and distributions
+        (optimization.py:95-120): quniform component total, uniform
+        regularizers, qloguniform lambdas, one uniform ratio per block."""
+        tree = {
+            "n_total_components": hp.quniform(
+                "n_total_components", *self.n_total_components_range, 1
+            ),
+            "splits": [
+                hp.uniform(f"split_{i}", 0, 1) for i in range(self.n_covariates + 1)
+            ],
+        }
+        for dim in _UNIFORM_DIMS:
+            tree[dim] = hp.uniform(dim, *getattr(self, f"{dim}_range"))
+        lo, hi = self.lam_range
+        for i in range(self.n_covariates):
+            tree[f"lam_{i}"] = hp.qloguniform(f"lam_{i}", np.log(lo), np.log(hi), 1)
+        return tree
+
+    def structure_point(self, flat: Dict) -> Dict:
+        """Lift a flat label->value dict (fmin's `best`) into the structured
+        form `objective` receives (with the "splits" list)."""
+        point = {k: flat[k] for k in ("n_total_components",) + _UNIFORM_DIMS}
+        point["splits"] = [flat[f"split_{i}"] for i in range(self.n_covariates + 1)]
+        for i in range(self.n_covariates):
+            point[f"lam_{i}"] = flat[f"lam_{i}"]
+        return point
+
+
+def _column_labels(obs, key: str) -> np.ndarray:
+    """One covariate as strings, a missing value as "nan"."""
+    return np.array(["nan" if is_na(v) else str(v) for v in obs_column(obs, key)],
+                    dtype=object)
+
+
+class ComponentOptimizer:
+    # validated at construction, so a bad value fails before the first
+    # trial fit; "tiled" is the tile-permutation minibatch sampler
+    _VALID_SAMPLING = ("random", "weighted", "weighted_fast", "tiled")
+
+    def __init__(
+        self,
+        adata,
+        covariate_keys: List[str],
+        use_als: bool = False,
+        loss_type: str = "kl-divergence",
+        max_iter: Optional[int] = None,
+        batch_size: Optional[int] = None,
+        sampling_method: str = "random",
+        device="auto",
+        random_state: int = 42,
+        fold_batching: bool = True,
+        shape_bucket="auto",
+        data_dtype: str = "auto",
+    ):
+        self._validate_init_args(
+            adata, covariate_keys, loss_type, max_iter, batch_size, device, random_state
+        )
+        if not isinstance(fold_batching, bool):
+            raise TypeError("fold_batching must be a boolean")
+        if shape_bucket is not None and shape_bucket != "auto" and (
+            not isinstance(shape_bucket, int) or shape_bucket < 1
+        ):
+            raise ValueError("shape_bucket must be 'auto', a positive integer, or None")
+        if sampling_method not in self._VALID_SAMPLING:
+            raise ValueError(
+                f"Unknown sampling method: {sampling_method}. Only 'weighted', "
+                "'random', 'weighted_fast', and 'tiled' are supported."
+            )
+        if sampling_method == "weighted_fast":
+            # the model layer's contract: full-epoch joint mode; the fold
+            # fits draw per-fold counts (mu.multinomial_counts)
+            if batch_size is not None:
+                raise ValueError(
+                    "sampling_method='weighted_fast' supports full-epoch "
+                    "joint mode only (batch_size=None); minibatch weighted "
+                    "searches use sampling_method='weighted'."
+                )
+            if use_als:
+                raise ValueError(
+                    "weighted_fast requires joint mode (use_als=False)."
+                )
+        if sampling_method == "tiled":
+            # the model layer's contract: a joint-mode minibatch sampler
+            if batch_size is None:
+                raise ValueError(
+                    "sampling_method='tiled' is a minibatch mode: pass "
+                    "batch_size; full-batch searches use "
+                    "sampling_method='random'."
+                )
+            if use_als:
+                raise ValueError(
+                    "tiled sampling requires joint mode (use_als=False)."
+                )
+        if data_dtype not in mu.DATA_DTYPES:
+            choices = ", ".join(f"'{d}'" for d in mu.DATA_DTYPES)
+            raise ValueError(f"data_dtype must be one of: {choices}.")
+
+        # where the trial fits run: one process, the resolved device
+        self._exec_device = resolve_device(device)
+
+        self.adata = adata.copy()
+        self.covariate_keys: List[str] = covariate_keys
+        self.use_als: bool = use_als
+        self.loss_type: str = loss_type
+        self.max_iter: Optional[int] = max_iter
+        self.batch_size: Optional[int] = batch_size
+        self.sampling_method: str = sampling_method
+        self.device = device
+        self.random_state: int = random_state
+        # fit a trial's CV folds from the stacked fold tensors uploaded once
+        # a search (optimize/batched.py); needs a frozen max_iter, so the
+        # first trial under max_iter detection still runs sequentially
+        self.fold_batching: bool = fold_batching
+        # trial fits run at bucket-padded block shapes (phantom components
+        # that stay exactly zero): "auto" pads to shared geometric levels
+        # (mu.auto_bucket_blocks), an int rounds each block to a multiple,
+        # None runs exact shapes; fit_the_best_param refits at exact shapes
+        self.shape_bucket = shape_bucket
+        # X storage dtype of every trial fit, resolved once from the full
+        # dataset so every fold and trial shares one storage regime
+        self.data_dtype: str = data_dtype
+        self.data_dtype_: str = (
+            suggest_data_dtype(self.adata.X) if data_dtype == "auto"
+            else data_dtype
+        )
+        # an explicit integer dtype is validated here: the stacked fold
+        # tensors are cast directly (batched.prepare_fold_data), where a
+        # value out of range would wrap instead of raising ("auto" stores X
+        # by construction, and a second scan of X costs seconds at 10^5
+        # cells)
+        if data_dtype != "auto" and not dtype_can_store(self.data_dtype_, self.adata.X):
+            limit = np.iinfo(self.data_dtype_).max
+            raise ValueError(
+                f"data_dtype='{self.data_dtype_}' requires adata.X to hold "
+                f"integer values in [0, {limit}]; use 'auto' to select a "
+                "storage dtype that fits the data."
+            )
+        self.best_param: dict = {}
+
+        self.max_iter_detect = self.max_iter is None
+        if self.max_iter_detect:
+            print(
+                "Owing to max_iter being None, it will be determine by the "
+                "average of the first n_splits iterations."
+            )
+
+    # ------------------------------------------------------------- search
+    def search_hyperparams(
+        self,
+        n_total_components_range: Tuple[int, int] = (10, 100),
+        lam_range: Tuple[float, float] = (1.0, 1e4),
+        orth_W_range: Tuple[float, float] = (0.0, 1.0),
+        alpha_W_range: Tuple[float, float] = (0.0, 100.0),
+        l1_ratio_W_range: Tuple[float, float] = (0.0, 1.0),
+        min_covariate_components: Optional[List[int]] = None,
+        n_splits: int = 3,
+        max_evals: int = 100,
+        trials_filename: Optional[str] = None,
+    ):
+        space = SearchSpace(
+            n_total_components_range,
+            lam_range,
+            orth_W_range,
+            alpha_W_range,
+            l1_ratio_W_range,
+            n_covariates=len(self.covariate_keys),
+        )
+        space.validate()
+        self._check_cv_args(n_splits, max_evals)
+
+        self.iter_records: List = []
+        self.n_splits: int = n_splits
+        self._search_space = space
+        self.space = space.to_tpe()
+        self.min_covariate_components = self._resolve_floors(min_covariate_components)
+
+        if trials_filename is not None:
+            self.load_trials(trials_filename)
+        else:
+            self.trials = Trials()
+
+        return self._run_tpe(max_evals)
+
+    def extend_training(self, extra_evals=50):
+        """Continue the Bayesian optimization with more evaluations
+        (reference optimization.py:289-333)."""
+        if not hasattr(self, "trials"):
+            raise RuntimeError("Please run bayesian_search() before extending training.")
+        return copy(self._run_tpe(extra_evals))
+
+    def _run_tpe(self, additional_evals: int):
+        """Drive fmin for `additional_evals` more trials on top of whatever
+        the Trials object already holds, then decode + record the best."""
+        best = fmin(
+            self.objective,
+            self.space,
+            algo=tpe.suggest,
+            max_evals=len(self.trials.trials) + additional_evals,
+            trials=self.trials,
+            rstate=np.random.default_rng(self.random_state),
+        )
+        if best is None:
+            raise RuntimeError("Hyperparameter optimization did not return any result.")
+        return self._decode_best(best)
+
+    def _decode_best(self, best: Dict) -> dict:
+        """Flat fmin point -> self.best_param (the ALPINE ctor kwargs)."""
+        params = self._point_to_params(self._search_space.structure_point(best))
+        if params is None:  # fmin returns the best *successful* trial's
+            # point, so an invalid allocation here cannot happen; guard anyway
+            raise RuntimeError("Best trial decodes to an invalid component split.")
+        self.best_param = dict(params, random_state=self.random_state)
+        return self.best_param
+
+    def _resolve_floors(self, min_covariate_components):
+        """Per-covariate component floors; default = observed level count
+        (missing values not counted)."""
+        if min_covariate_components is None:
+            return [
+                len({v for v in obs_column(self.adata.obs, key) if not is_na(v)})
+                for key in self.covariate_keys
+            ]
+        if isinstance(min_covariate_components, list):
+            if len(min_covariate_components) != len(self.covariate_keys):
+                raise ValueError(
+                    "min_covariate_components should have the same length as the number of covariates."
+                )
+        if any(comp < 2 for comp in min_covariate_components):
+            raise ValueError(
+                "min_covariate_components should be greater than or equal to 2."
+            )
+        return min_covariate_components
+
+    # ------------------------------------------------------------ trials
+    def _point_to_params(self, point: Dict) -> Optional[dict]:
+        """Decode one structured TPE point into model hyperparameters, or
+        None when the component allocation is invalid (the reference's
+        cond_1/cond_2 rejection, optimization.py:184-187)."""
+        n_unguided, guided = allocate_components(
+            int(point["n_total_components"]),
+            [float(s) for s in point["splits"]],
+            self.min_covariate_components,
+        )
+        if sum(guided) > n_unguided or any(n < 2 for n in guided):
+            return None
+        return {
+            "n_components": n_unguided,
+            "n_covariate_components": guided,
+            "lam": [float(point[f"lam_{i}"]) for i in range(len(guided))],
+            "orth_W": point["orth_W"],
+            "alpha_W": point["alpha_W"],
+            "l1_ratio_W": point["l1_ratio_W"],
+        }
+
+    def objective(self, space):
+        """One trial.  Invalid component distributions fail with loss=inf
+        (reference optimization.py:178-218)."""
+        params = self._point_to_params(space)
+        if params is None:
+            return {"loss": np.inf, "status": STATUS_FAIL}
+
+        score = self.calc_score(params)
+
+        record = dict(params)
+        record["lam"] = list(record["lam"])
+        # the max_iter this trial ran: the frozen/user value, or — for the
+        # trial that ran elbow detection — its last fold's elbow
+        record["max_iter"] = (
+            self.max_iter if self.max_iter is not None else self.iter_records[-1]
+        )
+        record["score"] = score
+
+        # freeze max_iter to the mean elbow once one full CV round ran
+        if self.max_iter is None and len(self.iter_records) >= self.n_splits:
+            self.max_iter = int(sum(self.iter_records) / len(self.iter_records))
+
+        return {"loss": score, "status": STATUS_OK, "params": record}
+
+    # ------------------------------------------------------------ scoring
+    def _stratified_folds(self):
+        """Stratified K-fold index pairs over the joint covariate label
+        ("_"-joined strings, reference optimization.py:229-241), a missing
+        value read as "nan" (one stratification class)."""
+        labels = _column_labels(self.adata.obs, self.covariate_keys[0])
+        for key in self.covariate_keys[1:]:
+            labels = labels + "_" + _column_labels(self.adata.obs, key)
+        return stratified_kfold(labels, self.n_splits, shuffle=True,
+                                random_state=self.random_state)
+
+    def _scoring_device(self):
+        """The card for the folds' kNN search (ops/knn.py), or None (the
+        float64 host search) when the fits run on the CPU."""
+        dev = self._exec_device
+        return dev if dev.type != "cpu" else None
+
+    def _leakage_score(self, embedding: np.ndarray, rows: np.ndarray) -> float:
+        """Cluster a validation embedding and average ARI+homogeneity leakage
+        across covariates (reference optimization.py:271-278)."""
+        clusters = scoring.leiden(
+            np.asarray(embedding), n_neighbors=15, resolution=1.0,
+            seed=self.random_state, device=self._scoring_device(),
+        )
+        per_cov = [
+            scoring.embedding_score(clusters, obs_column(self.adata.obs, key)[rows])
+            for key in self.covariate_keys
+        ]
+        return float(np.mean(per_cov))
+
+    def calc_score(self, args) -> float:
+        """Stratified-CV covariate-leakage score for one hyperparameter
+        setting (reference optimization.py:220-287): fit on train folds,
+        transform validation, score the unguided embedding; mean over folds."""
+        folds = self._stratified_folds()
+        if self.fold_batching and self.max_iter is not None:
+            embeddings = self._batched_fold_embeddings(args, folds)
+        else:
+            embeddings = (self._fit_one_fold(args, tr, va) for tr, va in folds)
+        scores = [
+            self._leakage_score(emb, val_idx)
+            for (_, val_idx), emb in zip(folds, embeddings)
+        ]
+        return float(np.mean(scores))
+
+    def _bucketed(self, true_blocks):
+        """Padded block shape for one trial's blocks (None = exact)."""
+        if self.shape_bucket == "auto":
+            return mu.auto_bucket_blocks(true_blocks)
+        if self.shape_bucket:
+            return mu.bucket_blocks(true_blocks, self.shape_bucket)
+        return None
+
+    def _fit_one_fold(self, args, train_idx, val_idx) -> np.ndarray:
+        """Fit on one training fold, return the validation fold's unguided
+        embedding (host-side)."""
+        train_adata = self.adata[train_idx].copy()
+        val_adata = self.adata[val_idx].copy()
+
+        true_blocks = tuple(args["n_covariate_components"]) + (args["n_components"],)
+        model = ALPINE(
+            use_als=self.use_als,
+            random_state=self.random_state,
+            loss_type=self.loss_type,
+            device=self._exec_device,
+            component_bucket=self._bucketed(true_blocks),
+            data_dtype=self.data_dtype_,
+            **args,
+        )
+        model.fit(
+            adata=train_adata,
+            covariate_keys=self.covariate_keys,
+            max_iter=self.max_iter,
+            batch_size=self.batch_size,
+            sampling_method=self.sampling_method,
+            verbose=False,
+        )
+        model.store_embeddings(train_adata)
+        model.transform(val_adata)
+
+        if self.max_iter_detect and self.max_iter is None:
+            # only while elbow detection is live: after the freeze the fits
+            # run at the frozen value and must not drift the recorded mean
+            self.iter_records.append(model.max_iter)
+        return np.asarray(val_adata.obsm["ALPINE_embedding"])
+
+    def _fold_data(self, folds):
+        """The trial-invariant stacked fold tensors, built and uploaded once
+        a search (they depend only on the data, folds, sampling mode and
+        dtype)."""
+        from alpine_tpu_torch.optimize.batched import prepare_fold_data
+
+        key = (self.n_splits, self.sampling_method, self.data_dtype_)
+        cached = getattr(self, "_fold_cache", None)
+        if cached is not None and cached[0] == key:
+            return cached[1]
+        self._fold_cache = None  # the old tensors go before the new upload
+        Ys = FeatureEncoders(self.covariate_keys).fit_transform(self.adata.obs)
+        fd = prepare_fold_data(
+            self.adata.X, Ys, folds,
+            weighted=(self.sampling_method in ("weighted", "weighted_fast")),
+            device=self._exec_device,
+            x_dtype=self.data_dtype_,
+            tile=mu.DEFAULT_TILE if self.sampling_method == "tiled" else 0,
+            shuffle_seed=self.random_state,
+        )
+        self._fold_cache = (key, fd)
+        return fd
+
+    def _batched_fold_embeddings(self, args, folds) -> List[np.ndarray]:
+        """All CV folds of this trial from the uploaded fold tensors
+        (optimize/batched.py); one validation embedding per fold."""
+        from alpine_tpu_torch.optimize.batched import batched_fold_embeddings
+
+        true_blocks = tuple(args["n_covariate_components"]) + (args["n_components"],)
+        blocks = self._bucketed(true_blocks) or true_blocks
+        return batched_fold_embeddings(
+            self._fold_data(folds),
+            blocks=blocks,
+            true_blocks=true_blocks,
+            lam=[float(lam) for lam in args["lam"]],
+            orth_w=float(args["orth_W"]),
+            alpha_w=float(args["alpha_W"]),
+            l1_ratio=float(args["l1_ratio_W"]),
+            eps=1e-6,
+            loss_kl=(self.loss_type == "kl-divergence"),
+            use_als=self.use_als,
+            batch_size=self.batch_size,
+            weighted=(self.sampling_method in ("weighted", "weighted_fast")),
+            weighted_counts=(self.sampling_method == "weighted_fast"),
+            max_iter=self.max_iter,
+            seed=self.random_state,
+        )
+
+    # -------------------------------------------------------- persistence
+    def __getstate__(self):
+        # no device tensors in a pickle: the fold cache is rebuilt on
+        # demand, the execution device re-resolved on load
+        state = dict(self.__dict__)
+        for key in ("_fold_cache", "_exec_device"):
+            state.pop(key, None)
+        return state
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        self._exec_device = resolve_device(self.device)
+
+    def save_trials(self, filename: str):
+        """Pickle the current trials (reference optimization.py:335-345)."""
+        with open(filename, "wb") as f:
+            pickle.dump(self.trials, f)
+        print(f"Trials saved to {filename}")
+
+    def load_trials(self, filename: str):
+        """Load pickled trials (reference optimization.py:347-357): this
+        module's Trials pickles, the JAX package's, and, best-effort, real
+        hyperopt Trials pickles (import shim in optimize/tpe.py)."""
+        loaded = load_foreign_pickle(filename)
+        if not isinstance(loaded, Trials):
+            loaded = import_hyperopt_trials(loaded)
+        self.trials = loaded
+        print(f"Trials loaded from {filename}")
+
+    # -------------------------------------------------------- inspection
+    def get_hyperparameter(self, idx):
+        """Hyperparameters of the idx-th row of the (score-sorted) history
+        (reference optimization.py:359-385)."""
+        wanted = self.get_train_history().iloc[idx]["tid"]
+        for trial in self.trials.trials:
+            if trial["tid"] == wanted:
+                return trial["result"]["params"]
+
+    #: get_train_history column layout (the reference's post-reorder frame,
+    #: optimization.py:452-470): component columns first, then the scalar
+    #: params in trial-record order, per-covariate lambdas last.
+    @staticmethod
+    def _history_row(params: Dict, loss: float, tid) -> Dict:
+        guided = params["n_covariate_components"]
+        row = {"n_components": params["n_components"]}
+        row.update({f"n_covariate_components_{i}": k for i, k in enumerate(guided)})
+        row["n_total_components"] = params["n_components"] + sum(guided)
+        for key in ("orth_W", "alpha_W", "l1_ratio_W", "max_iter"):
+            row[key] = params[key]
+        row["score"] = loss
+        row["tid"] = tid
+        row.update({f"lam_{i}": v for i, v in enumerate(params["lam"])})
+        return row
+
+    def get_train_history(self):
+        """pandas DataFrame of successful trials with expanded per-covariate
+        columns, sorted by score DESCENDING (the reference's order, kept for
+        API compatibility; the search itself minimizes —
+        optimization.py:473-475 vs :216)."""
+        import pandas as pd
+
+        rows = [
+            self._history_row(t["result"]["params"], t["result"]["loss"], t["tid"])
+            for t in self.trials.trials
+            if t.get("result", {}).get("status") == STATUS_OK
+        ]
+        if not rows:
+            raise RuntimeError(
+                "No successful trials recorded yet — run search_hyperparams "
+                "(all trials may have failed the component-distribution check)."
+            )
+        frame = pd.DataFrame(rows)
+        return frame.sort_values("score", ascending=False).reset_index(drop=True)
+
+    def fit_the_best_param(self):
+        """Refit on the full data with the best found parameters
+        (reference optimization.py:479-510), random_state taken from
+        best_param alone."""
+        if not self.best_param:
+            raise RuntimeError(
+                "Please run bayesian_search() to find the best parameters first."
+            )
+
+        # the search is over: release the uploaded fold tensors (about
+        # n_splits copies of the dataset on the card) before the full-data
+        # fit uploads X again
+        self.free_device_cache()
+        model = ALPINE(
+            **self.best_param,
+            use_als=self.use_als,
+            loss_type=self.loss_type,
+            device=self._exec_device,
+            data_dtype=self.data_dtype_,
+        )
+        model.fit(
+            adata=self.adata,
+            covariate_keys=self.covariate_keys,
+            max_iter=self.max_iter,
+            batch_size=self.batch_size,
+            verbose=False,
+        )
+        return model
+
+    def free_device_cache(self) -> None:
+        """Release the stacked CV fold tensors kept on the device across
+        trials (about n_splits copies of the dataset).  They are rebuilt on
+        demand if another search runs."""
+        self._fold_cache = None
+
+    # -------------------------------------------------------- validation
+    @staticmethod
+    def _validate_init_args(
+        adata, covariate_keys, loss_type, max_iter, batch_size, device, random_state
+    ) -> None:
+        """(reference optimization.py:512-550, identical messages)"""
+        if not is_anndata(adata):
+            raise TypeError("adata must be an instance of AnnData")
+
+        if not isinstance(covariate_keys, list):
+            raise TypeError("covariate_keys must be a list")
+        if not all(isinstance(key, str) for key in covariate_keys):
+            raise TypeError("All covariate_keys must be strings")
+        columns = obs_keys(adata.obs)
+        if not all(key in columns for key in covariate_keys):
+            raise ValueError("All covariate_keys must be present in adata.obs")
+
+        if loss_type not in ("kl-divergence", "frobenius"):
+            raise ValueError("loss_type must be either 'kl-divergence' or 'frobenius'")
+
+        for name, value in (("max_iter", max_iter), ("batch_size", batch_size)):
+            if value is not None and (not isinstance(value, int) or value < 0):
+                raise ValueError(f"{name} must be a non-negative integer")
+
+        if not isinstance(random_state, int):
+            raise TypeError("random_state must be an integer")
+
+    @staticmethod
+    def _check_cv_args(n_splits, max_evals) -> None:
+        """(reference optimization.py:598-604, identical messages)"""
+        if not isinstance(n_splits, int):
+            raise TypeError("n_splits must be an integer")
+        if n_splits < 2:
+            raise ValueError("n_splits must be greater than or equal to 2")
+        if not isinstance(max_evals, int) or max_evals <= 0:
+            raise ValueError("max_evals must be a positive integer")

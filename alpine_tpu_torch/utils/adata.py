@@ -10,6 +10,7 @@ is duck-typed, so the JAX package's ``AnnData`` and a real
 
 from __future__ import annotations
 
+from copy import deepcopy
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -61,6 +62,29 @@ def suggest_data_dtype(X: Any) -> str:
     if top <= np.iinfo(np.int16).max:
         return "int16"
     return "float32"
+
+
+def dtype_can_store(data_dtype: str, X: Any) -> bool:
+    """Whether X is exactly representable under a storage dtype name: float
+    dtypes always store (bfloat16 rounds by design); int8/int16 need
+    non-negative integers within range (``suggest_data_dtype``'s rule)."""
+    if data_dtype not in ("int8", "int16"):
+        return True
+    suggested = suggest_data_dtype(X)
+    if suggested == "float32":  # fractional, negative, or NaN somewhere
+        return False
+    return np.iinfo(suggested).max <= np.iinfo(data_dtype).max
+
+
+def is_na(v: Any) -> bool:
+    """A missing label: None, a float NaN, or pandas' NA objects (pd.NA,
+    NaT), found without importing pandas."""
+    if v is None:
+        return True
+    try:
+        return bool(v != v)  # NaN, NaT
+    except TypeError:  # pandas.NA: its truth value is ambiguous
+        return True
 
 
 def x_min(X: Any) -> float:
@@ -181,6 +205,50 @@ class AnnData:
     @property
     def var_names(self):
         return self.var.index if hasattr(self.var, "columns") else self._var_names
+
+    def __getitem__(self, idx) -> "AnnData":
+        """Row (obs) subset, as the optimizer's CV folds take it: a new
+        object holding copies of the selected rows of X, obs, obsm and
+        layers, with their obs names; var and varm are shared."""
+        if isinstance(idx, tuple):
+            raise NotImplementedError("only obs-axis subsetting is supported")
+        if np.isscalar(idx) and not isinstance(idx, (slice, bool)):
+            idx = np.asarray([idx])  # a 1-obs object, not a 1-D X
+        Xs = self.X[idx] if is_sparse_x(self.X) else np.asarray(self.X[idx])
+        if hasattr(self.obs, "columns"):
+            obs = self.obs[idx] if isinstance(idx, slice) else self.obs.iloc[idx]
+            names = None
+        else:
+            obs = {k: np.asarray(v)[idx] for k, v in self.obs.items()}
+            names = np.asarray(self._obs_names)[idx]
+        out = AnnData(Xs, obs=obs, var=self.var,
+                      var_names=None if hasattr(self.var, "columns")
+                      else self._var_names)
+        if names is not None:
+            out._obs_names = names
+        for k, v in self.obsm.items():
+            out.obsm[k] = np.asarray(v)[idx]
+        for k, v in self.layers.items():
+            out.layers[k] = np.asarray(v)[idx]
+        for k, v in self.varm.items():
+            out.varm[k] = v
+        return out
+
+    def copy(self) -> "AnnData":
+        """A deep copy: X, obs, var and every obsm/varm/layers value."""
+        copy_table = lambda t: (t.copy() if hasattr(t, "columns")
+                                else {k: np.array(v) for k, v in t.items()})
+        out = AnnData(self.X.copy(), obs=copy_table(self.obs),
+                      var=copy_table(self.var),
+                      var_names=None if hasattr(self.var, "columns")
+                      else self._var_names.copy())
+        if not hasattr(self.obs, "columns"):
+            out._obs_names = self._obs_names.copy()
+        for name in ("obsm", "varm", "layers"):
+            src, dst = getattr(self, name), getattr(out, name)
+            for k, v in src.items():
+                dst[k] = v.copy() if hasattr(v, "copy") else deepcopy(v)
+        return out
 
     def __repr__(self) -> str:  # pragma: no cover
         return (f"AnnData(n_obs={self.n_obs}, n_vars={self.n_vars}, "

@@ -15,16 +15,7 @@ from typing import Any, Dict, List
 
 import numpy as np
 
-from alpine_tpu_torch.utils.adata import obs_column
-
-
-def _is_na(v: Any) -> bool:
-    if v is None:
-        return True
-    try:
-        return bool(v != v)  # NaN
-    except TypeError:  # pandas.NA: its truth value is ambiguous
-        return True
+from alpine_tpu_torch.utils.adata import is_na, obs_column
 
 
 class FeatureEncoders:
@@ -35,7 +26,7 @@ class FeatureEncoders:
 
     def _encode_column(self, obs: Any, key: str, fit: bool) -> np.ndarray:
         col = obs_column(obs, key)
-        na_mask = np.fromiter((_is_na(v) for v in col), bool, len(col))
+        na_mask = np.fromiter((is_na(v) for v in col), bool, len(col))
         values = col[~na_mask]
         if fit:
             cats = np.unique(values)

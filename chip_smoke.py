@@ -113,7 +113,26 @@ Phases, each printing one JSON line:
           a snapshot, the snapshot gone after success;
   slice_k100  ALPINE(n_components=90, n_covariate_components=[5, 5]) (K =
           100: fused_transform's tiled path), a 5-iteration fit and a
-          50-step transform through the fit's device X.
+          50-step transform through the fit's device X;
+  slice_optimize  ComponentOptimizer(adata, ["batch", "condition"],
+          max_iter=50, random_state=0) with its defaults (the card, fold
+          batching, auto bucketing, int8), search_hyperparams((10, 100),
+          n_splits=3, max_evals=4) and fit_the_best_param(): seconds of the
+          fold-data build and of each trial split into fits, transforms,
+          kNN, graph and Leiden, each trial's blocks and score, K1 and K3
+          launches, the Leiden backend (must be "native"), peak device
+          memory; pad columns of H exactly zero after every fold fit, one
+          fold's K3 output against the plain projection, one fold's kNN on
+          the card against the float64 host search (rows that differ
+          counted), and one trial again through the sequential route
+          (fold_batching=False) with its score and seconds; K1 at the
+          largest trial's fold shape gets a kernel row, and K3 a row for
+          each path the search launched (register, tiled), at the
+          validation shape and the largest K that took that path;
+  slice_optimize_paths  one calc_score each at max_iter=10 with frozen
+          parameters: weighted_fast folds (K4, and its kernel row at the
+          fold shape), ALS folds (P1/P2, their rows at the fold shape) and
+          tiled folds of 8,192-cell batches (P1/P2 on slabs).
 The fit_loop phases include fit_loop_tiled (3 tiled epochs) with the
 device time of the batches' copies beside fit_loop_minibatch's.
 Then one JSON line with every kernel's numbers (fused_transform twice: its
@@ -125,7 +144,9 @@ slice_tiled's launches; fused_iteration at slice_bucket's K = 48; hxt and
 wtx twice more: their fp32 paths hxt_fma and wtx_fma on float32 and on
 int16 X, with the launches of the ALS loop on that X; K1, K4 and K2 again
 on their fp32 path, with the launches of the float32/int16 joint,
-weighted_fast and unguided loops) and, last, the result line
+weighted_fast and unguided loops; K1, K3 (a row per path), K4, hxt and
+wtx at the optimizer's fold shapes with the launches of slice_optimize and
+slice_optimize_paths) and, last, the result line
 {"ok": true, "device": {...}}.  slice_persist's line says in "h5ad_run"
 whether its .h5ad round trip ran.
 Any failed check raises: the script exits non-zero and prints no result.
@@ -846,6 +867,332 @@ def h5ad_round_trip(adata, path, timed, sizes):
                        for c in back.obs.columns)}}
 
 
+class StageTimers:
+    """Seconds of a search's stages, from wrappers around the functions that
+    run them: fold fits (batched.fit_fold), validation projections
+    (mu.run_transform), the kNN search (scoring.exact_knn), the whole kNN
+    graph (scoring.knn_graph, its search included) and Leiden
+    (scoring.leiden_native).  Device stages end with a synchronize.  Hooks
+    see each call's arguments and result (checks made outside the timed
+    region)."""
+
+    STAGES = ("fits", "transforms", "knn", "graph", "leiden")
+
+    def __init__(self, torch, batched, mu, scoring, hooks=None):
+        self.torch, self.hooks = torch, hooks or {}
+        self.spent = dict.fromkeys(self.STAGES, 0.0)
+        self.restore = []
+        for module, name, stage, sync in ((batched, "fit_fold", "fits", True),
+                                          (mu, "run_transform", "transforms", True),
+                                          (scoring, "exact_knn", "knn", True),
+                                          (scoring, "knn_graph", "graph", False),
+                                          (scoring, "leiden_native", "leiden", False)):
+            self._wrap(module, name, stage, sync)
+
+    def _wrap(self, module, name, stage, sync):
+        orig = getattr(module, name)
+
+        def timed(*args, **kw):
+            t0 = time.perf_counter()
+            out = orig(*args, **kw)
+            if sync:
+                self.torch.cuda.synchronize()
+            self.spent[stage] += time.perf_counter() - t0
+            if stage in self.hooks:
+                self.hooks[stage](orig, args, kw, out)
+            return out
+
+        setattr(module, name, timed)
+        self.restore.append((module, name, orig))
+
+    def take(self):
+        """Seconds since the last take; graph without its kNN search."""
+        out = dict(self.spent)
+        out["graph"] -= out["knn"]
+        self.spent = dict.fromkeys(self.STAGES, 0.0)
+        return out
+
+    def close(self):
+        for module, name, orig in self.restore:
+            setattr(module, name, orig)
+
+
+OPT_KEYS = ["batch", "condition"]
+OPT_MAX_ITER, OPT_SPLITS, OPT_EVALS = 50, 3, 4
+PATHS_MAX_ITER = 10
+# the paths phase's frozen parameters: the slice's blocks, auto-bucketed to
+# (6, 6, 32)
+PATHS_PARAMS = {"n_components": 30, "n_covariate_components": [5, 5],
+                "lam": [1e3, 1e3], "orth_W": 0.0, "alpha_W": 0.0, "l1_ratio_W": 0.0}
+
+
+def run_optimize_phase(torch, kernels, adata, cases):
+    """slice_optimize: ComponentOptimizer's default search at the bench
+    shape (fold batching, auto bucketing, native Leiden, kNN on the card),
+    four trials of three folds, then fit_the_best_param.  Checks: finite
+    scores, K1 and K3 launches, native Leiden, pad columns of H exactly
+    zero after every fold fit, one fold's K3 output against the plain
+    projection, one fold's card kNN against the float64 host search.  One
+    trial's calc_score runs again through the sequential route."""
+    from alpine_tpu_torch import ComponentOptimizer
+    from alpine_tpu_torch.native import build_error, leiden_backend
+    from alpine_tpu_torch.ops import mu
+    from alpine_tpu_torch.ops.knn import exact_knn
+    from alpine_tpu_torch.optimize import batched, scoring
+
+    seen = {"pad_folds": 0, "pad_nonzero": 0, "k3": None, "knn": None}
+    # the search's K3 launches by path (the rule by K: transform_bucket),
+    # each with the largest K that took it
+    k3_paths = {"registers": [0, 0], "tiled": [0, 0]}
+    fused_transform = kernels.fused_transform
+
+    def counted_transform(num2, H0, *args, **kw):
+        before = kernels.launches["fused_transform"]
+        out = fused_transform(num2, H0, *args, **kw)
+        K = H0.shape[0]
+        entry = k3_paths["registers" if kernels.transform_bucket(K) else "tiled"]
+        entry[0] += kernels.launches["fused_transform"] - before
+        entry[1] = max(entry[1], K)
+        return out
+
+    def on_fit(orig, args, kw, out):
+        fd, f = args[0], args[1]
+        n_real = len(fd.folds[f][0])
+        if n_real < fd.n_tr:
+            seen["pad_folds"] += 1
+            seen["pad_nonzero"] += int(out[1][:, n_real:].count_nonzero())
+
+    def on_transform(orig, args, kw, out):
+        if seen["k3"] is None and kw.get("fused", True):
+            plain = orig(*args, **dict(kw, fused=False))
+            seen["k3"] = compare(out, plain, 2e-4, 1e-6) + (list(out.shape),)
+
+    def on_knn(orig, args, kw, out):
+        if seen["knn"] is None and kw.get("device") is not None:
+            seen["knn"] = (np.array(args[0]), args[1], out)
+
+    from alpine_tpu_torch.utils.adata import suggest_data_dtype
+
+    # the constructor's one scan of X for data_dtype="auto", alone
+    t0 = time.perf_counter()
+    suggest_data_dtype(adata.X)
+    dtype_scan_s = time.perf_counter() - t0
+    timers = StageTimers(torch, batched, mu, scoring, hooks={
+        "fits": on_fit, "transforms": on_transform, "knn": on_knn})
+    trial_rows = []
+    try:
+        t0 = time.perf_counter()
+        co = ComponentOptimizer(adata, OPT_KEYS, max_iter=OPT_MAX_ITER, random_state=0)
+        init_s = time.perf_counter() - t0
+        check(co.fold_batching and co.shape_bucket == "auto" and co.data_dtype_ == "int8",
+              "slice_optimize: the defaults (fold batching, auto buckets, int8)")
+        objective, fold_data = co.objective, co._fold_data
+        build = {}
+
+        def timed_fold_data(folds):
+            fresh = getattr(co, "_fold_cache", None) is None
+            t = time.perf_counter()
+            fd = fold_data(folds)
+            torch.cuda.synchronize()
+            if fresh:
+                build["seconds"] = time.perf_counter() - t
+            return fd
+
+        def timed_objective(point):
+            timers.take()
+            t = time.perf_counter()
+            out = objective(point)
+            row = {"seconds": time.perf_counter() - t, **timers.take(),
+                   "status": out["status"],
+                   "score": out["loss"] if np.isfinite(out["loss"]) else None}
+            if "params" in out:
+                p = out["params"]
+                true = tuple(p["n_covariate_components"]) + (p["n_components"],)
+                row.update(true_blocks=list(true),
+                           blocks=list(mu.auto_bucket_blocks(true)), params=p)
+            trial_rows.append(row)
+            return out
+
+        co.objective, co._fold_data = timed_objective, timed_fold_data
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.fused_transform = counted_transform
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        best = co.search_hyperparams(n_total_components_range=(10, 100),
+                                     n_splits=OPT_SPLITS, max_evals=OPT_EVALS)
+        torch.cuda.synchronize()
+        search_s = time.perf_counter() - t0
+        kernels.fused_transform = fused_transform
+        search_launches = dict(kernels.launches)
+        search_peak = torch.cuda.max_memory_allocated()
+        co.objective, co._fold_data = objective, fold_data
+        valid = [r for r in trial_rows if r["status"] == "ok"]
+        fd = co._fold_cache[1]
+
+        # one trial again through the sequential route (an ALPINE fit a
+        # fold: host preparation, upload, fit, uncached transform)
+        first = valid[0]
+        args = {k: v for k, v in first["params"].items() if k not in ("max_iter", "score")}
+        co.fold_batching = False
+        kernels.reset_launches()
+        timers.take()
+        t0 = time.perf_counter()
+        seq_score = co.calc_score(args)
+        torch.cuda.synchronize()
+        seq_s = time.perf_counter() - t0
+        seq_split = timers.take()
+        seq_launches = dict(kernels.launches)
+        co.fold_batching = True
+    finally:
+        kernels.fused_transform = fused_transform
+        timers.close()
+
+    # the fold shape of the largest trial K, for the kernel rows; K3 a row
+    # for each path the search launched, at the largest K that took it
+    largest = max(valid, key=lambda r: sum(r["blocks"]))
+    cases["iteration"]("fused_iteration optimizer fold", fd.g, fd.n_tr,
+                       tuple(largest["blocks"]))
+    for path, (n_launched, K) in k3_paths.items():
+        if n_launched:
+            cases["transform"](f"fused_transform optimizer {path} fold", K, fd.n_va)
+
+    # the card's kNN of one validation fold against the float64 host search
+    emb, k, (cd, ci) = seen["knn"]
+    t0 = time.perf_counter()
+    hd, hi = exact_knn(emb, k)
+    host_knn_s = time.perf_counter() - t0
+    rows_differ = int((np.sort(ci, axis=1) != np.sort(hi, axis=1)).any(axis=1).sum())
+    knn_err, knn_worst = compare(torch.from_numpy(np.sort(cd, axis=1)),
+                                 torch.from_numpy(np.sort(hd, axis=1)), 1e-4, 1e-6)
+    backend = leiden_backend()
+
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    model = co.fit_the_best_param()
+    torch.cuda.synchronize()
+    best_s = time.perf_counter() - t0
+    best_launches = dict(kernels.launches)
+    best_peak = torch.cuda.max_memory_allocated()
+    Lb = model.loss_history_
+
+    emit({"phase": "slice_optimize", "cells": N, "genes": G, "covariates": OPT_KEYS,
+          "max_iter": OPT_MAX_ITER, "n_splits": OPT_SPLITS, "max_evals": OPT_EVALS,
+          "data_dtype": co.data_dtype_, "constructor_seconds": init_s,
+          "suggest_data_dtype_seconds": dtype_scan_s,
+          "fold_data_seconds": build.get("seconds"), "search_seconds": search_s,
+          "fold_shape": {"genes": fd.g, "n_train": fd.n_tr, "n_validation": fd.n_va},
+          "trials": trial_rows, "launches_search": search_launches,
+          "k3_launches_by_path": {p: {"launches": n, "largest_K": K}
+                                  for p, (n, K) in k3_paths.items()},
+          "launches_expected": {"fused_iteration": len(valid) * OPT_SPLITS * OPT_MAX_ITER,
+                                "fused_transform": len(valid) * OPT_SPLITS},
+          "pad_folds_checked": seen["pad_folds"], "pad_nonzero": seen["pad_nonzero"],
+          "k3_vs_plain": {"max_abs_err": seen["k3"][0],
+                          "worst_err_over_tolerance": seen["k3"][1],
+                          "shape": seen["k3"][2],
+                          "tolerance": "rtol 2e-4, atol 1e-6*max|plain|"},
+          "knn_vs_host": {"cells": len(emb), "dims": emb.shape[1], "k": k,
+                          "rows_differ": rows_differ, "max_abs_err": knn_err,
+                          "worst_err_over_tolerance": knn_worst,
+                          "host_float64_seconds": host_knn_s,
+                          "tolerance": "rtol 1e-4, atol 1e-6*max|host|"},
+          "leiden_backend": backend, "leiden_build_error": build_error(),
+          "peak_memory_bytes_search": search_peak,
+          "sequential": {"score": seq_score, "seconds": seq_s, **seq_split,
+                         "launches": seq_launches, "batched_score": first["score"],
+                         "batched_seconds": first["seconds"]},
+          "best_param": best, "fit_the_best_param_seconds": best_s,
+          "launches_fit_the_best_param": best_launches,
+          "peak_memory_bytes_fit_the_best_param": best_peak,
+          "best_loss_last": Lb[-1].tolist()})
+    check(len(valid) >= 1 and all(np.isfinite(r["score"]) for r in valid),
+          "slice_optimize: every valid trial's score must be finite")
+    check(search_launches["fused_iteration"] == len(valid) * OPT_SPLITS * OPT_MAX_ITER,
+          f"slice_optimize: {search_launches['fused_iteration']} K1 launches")
+    check(search_launches["fused_transform"] == len(valid) * OPT_SPLITS
+          == sum(n for n, _ in k3_paths.values()),
+          f"slice_optimize: {search_launches['fused_transform']} K3 launches "
+          f"({k3_paths} by path)")
+    check(backend == "native", f"slice_optimize: Leiden backend {backend} ({build_error()})")
+    check(seen["pad_folds"] >= 1 and seen["pad_nonzero"] == 0,
+          "slice_optimize: pad columns of H must stay exactly zero through K1")
+    check(seen["k3"][1] <= 1.0, "slice_optimize: a fold's K3 output disagrees with "
+          "the plain projection")
+    check(knn_worst <= 1.0 and rows_differ <= 0.001 * len(emb),
+          f"slice_optimize: card kNN vs host: {rows_differ} rows differ, "
+          f"worst {knn_worst}")
+    check(all(int(i) == r for r, i in enumerate(ci[:, 0])), "slice_optimize: self first")
+    check(np.isfinite(seq_score) and seq_launches["fused_iteration"] == OPT_SPLITS * OPT_MAX_ITER,
+          "slice_optimize: the sequential route's score and K1 launches")
+    check(best_launches["fused_iteration"] == OPT_MAX_ITER and np.isfinite(Lb).all(),
+          "slice_optimize: fit_the_best_param runs K1 once an iteration")
+    check(co._fold_cache is None, "slice_optimize: the fold tensors go before the refit")
+    model.free_device_cache()
+    del co, model, fd
+    torch.cuda.empty_cache()
+    return search_launches, {p: n for p, (n, _) in k3_paths.items() if n}
+
+
+def run_optimize_paths_phase(torch, kernels, adata, cases):
+    """slice_optimize_paths: one calc_score each through the batched route
+    at the bench shape, max_iter = 10, frozen parameters: weighted_fast
+    folds (K4), ALS folds (P1/P2) and tiled folds of 8,192-cell batches
+    (P1/P2 on slabs)."""
+    from alpine_tpu_torch import ComponentOptimizer
+    from alpine_tpu_torch.ops import mu
+    from alpine_tpu_torch.optimize import batched, scoring
+
+    launches = {}
+    for name, kw in (("weighted_fast", dict(sampling_method="weighted_fast")),
+                     ("als", dict(use_als=True)),
+                     ("tiled", dict(sampling_method="tiled", batch_size=MB_BATCH))):
+        co = ComponentOptimizer(adata, OPT_KEYS, max_iter=PATHS_MAX_ITER, random_state=0,
+                                **kw)
+        co.n_splits, co.iter_records = OPT_SPLITS, []
+        timers = StageTimers(torch, batched, mu, scoring)
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            score = co.calc_score(PATHS_PARAMS)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches[name] = dict(kernels.launches)
+            split = timers.take()
+        finally:
+            timers.close()
+        fd = co._fold_cache[1]
+        emit({"phase": "slice_optimize_paths", "path": name, "settings": kw,
+              "max_iter": PATHS_MAX_ITER, "params": PATHS_PARAMS,
+              "blocks": list(mu.auto_bucket_blocks((5, 5, 30))),
+              "fold_shape": {"n_train": fd.n_tr, "n_validation": fd.n_va, "tile": fd.tile},
+              "score": score, "seconds": seconds, **split,
+              "launches": launches[name],
+              "peak_memory_bytes": torch.cuda.max_memory_allocated()})
+        check(np.isfinite(score), f"slice_optimize_paths {name}: score must be finite")
+        L = launches[name]
+        if name == "weighted_fast":
+            check(L["fused_iteration_counts"] == OPT_SPLITS * PATHS_MAX_ITER
+                  and L["fused_iteration"] == 0,
+                  f"slice_optimize_paths weighted_fast: {L['fused_iteration_counts']} K4")
+            cases["iteration"]("fused_iteration_counts optimizer fold", fd.g, fd.n_tr,
+                               mu.auto_bucket_blocks((5, 5, 30)), counts=True)
+        else:
+            check(L["hxt"] > 0 and L["wtx"] > 0 and L["fused_iteration"] == 0,
+                  f"slice_optimize_paths {name}: P1 {L['hxt']}, P2 {L['wtx']}")
+        if name == "als":
+            cases["x_pass"](fd.g, fd.n_tr, sum(mu.auto_bucket_blocks((5, 5, 30))))
+        check(L["fused_transform"] == OPT_SPLITS,
+              f"slice_optimize_paths {name}: one K3 launch a fold")
+        co.free_device_cache()
+        del co, fd
+        torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     import torch
 
@@ -1043,15 +1390,15 @@ def main():
     run_iteration_case("fused_h_update small int8", 300, 5001, (21,), (),
                        torch.int8, True, False)
 
-    def run_transform_case(K):
-        """fused_transform at 100k cells and K components against its plain
-        version, timed, with the path the rule by K takes."""
+    def run_transform_case(K, n=N):
+        """fused_transform at n cells (100k by default) and K components
+        against its plain version, timed, with the path the rule by K takes."""
         Wt = torch.rand((G, K), generator=gen, device=dev)
-        Xt = torch.poisson(torch.full((G, N), 1.5, device=dev), generator=gen)
+        Xt = torch.poisson(torch.full((G, n), 1.5, device=dev), generator=gen)
         num2 = 2.0 * (Wt.T @ Xt)
         del Xt
         WtW2 = 2.0 * (Wt.T @ Wt)
-        H0 = torch.rand((K, N), generator=gen, device=dev) + 0.05
+        H0 = torch.rand((K, n), generator=gen, device=dev) + 0.05
         kern = lambda: kernels.fused_transform(num2, H0, WtW2, EPS,
                                                n_iter=TRANSFORM_ITERS)
         plain = lambda: kernels.fused_transform_plain(num2, H0, WtW2, EPS,
@@ -1062,11 +1409,12 @@ def main():
         path = (f"registers, bucket {bucket}" if bucket
                 else f"tiled, {grid.T} cells a tile, K padded to {grid.KP}, "
                      f"ring of {grid.S} stages of {grid.J} rows")
-        t_bytes = 3 * 4 * K * N + 4 * K * K
-        t_ops = TRANSFORM_ITERS * (2.0 * K * K + 3.0 * K) * N
+        t_bytes = 3 * 4 * K * n + 4 * K * K
+        t_ops = TRANSFORM_ITERS * (2.0 * K * K + 3.0 * K) * n
         bms, bby = bound(t_bytes, 0.0, t_ops, card)
         row = {"phase": "kernel",
-               "case": f"fused_transform K={K} n_iter={TRANSFORM_ITERS}",
+               "case": f"fused_transform K={K} n_iter={TRANSFORM_ITERS}"
+                       + ("" if n == N else f" n={n}"),
                "path": path, "grid": grid._asdict() if grid else None,
                "max_abs_err_Hn": abs_err,
                "worst_err_over_tolerance": worst,
@@ -1562,6 +1910,29 @@ def main():
     check(np.isfinite(emb).all(), "K = 100 embedding finite")
     k100.free_device_cache()
     del k100
+    torch.cuda.empty_cache()
+
+    # -- ComponentOptimizer: a search at the bench shape, then its paths ------
+    def iteration_row(tag, g, n, blocks, counts=False):
+        results[tag[:-len(" fold")]] = run_iteration_case(
+            f"{tag} int8 kl K={sum(blocks)} n={n}", g, n, tuple(blocks), N_LABELS,
+            torch.int8, True, True, counts=sampler_counts if counts else None)
+
+    def transform_row(tag, K, n):
+        results[tag[:-len(" fold")]] = run_transform_case(K, n)
+
+    def x_pass_rows(g, n, K):
+        X, W, H = x_pass_problem(g, n, K, torch.int8)
+        results["hxt optimizer"] = run_x_pass_case("hxt", X, H, True, " optimizer fold")
+        # the unguided block's width (the ALS step's widest wtx)
+        results["wtx optimizer"] = run_x_pass_case(
+            "wtx", X, W[:, K - 32:].contiguous(), True, " optimizer fold")
+        del X, W, H
+        torch.cuda.empty_cache()
+
+    cases = {"iteration": iteration_row, "transform": transform_row, "x_pass": x_pass_rows}
+    opt_launches, opt_k3_paths = run_optimize_phase(torch, kernels, adata, cases)
+    paths_launches = run_optimize_paths_phase(torch, kernels, adata, cases)
 
     launches = {"fused_iteration": main_launches["fused_iteration"],
                 "fused_iteration_counts": wf_launches["fused_iteration_counts"],
@@ -1581,7 +1952,16 @@ def main():
                 # the fp32 paths (hxt_fma, wtx_fma): the int16 and float32 ALS loops
                 "hxt_fma int16": int16_launches["hxt"], "wtx_fma int16": int16_launches["wtx"],
                 "hxt_fma float32": float32_launches["hxt"],
-                "wtx_fma float32": float32_launches["wtx"], **fp32_k_launches}
+                "wtx_fma float32": float32_launches["wtx"], **fp32_k_launches,
+                # the optimizer's folds: the search's K1 and K3, the paths' K4
+                # (weighted_fast folds) and P1/P2 (ALS folds)
+                "fused_iteration optimizer": opt_launches["fused_iteration"],
+                # the search's K3 by path: a row each, timed at its own K
+                **{f"fused_transform optimizer {p}": n for p, n in opt_k3_paths.items()},
+                "fused_iteration_counts optimizer":
+                    paths_launches["weighted_fast"]["fused_iteration_counts"],
+                "hxt optimizer": paths_launches["als"]["hxt"],
+                "wtx optimizer": paths_launches["als"]["wtx"]}
     rows = []
     for kname in ("fused_iteration", "fused_iteration_counts", "fused_h_update",
                   "fused_iteration float32", "fused_iteration int16",
@@ -1590,7 +1970,10 @@ def main():
                   "hxt minibatch", "wtx minibatch", "wtx minibatch loss",
                   "hxt tiled", "wtx tiled", "fused_iteration bucketed",
                   "hxt_fma float32", "hxt_fma int16",
-                  "wtx_fma float32", "wtx_fma int16", "stream_probe"):
+                  "wtx_fma float32", "wtx_fma int16", "stream_probe",
+                  "fused_iteration optimizer",
+                  *(k for k in launches if k.startswith("fused_transform optimizer ")),
+                  "fused_iteration_counts optimizer", "hxt optimizer", "wtx optimizer"):
         res = results[kname]
         base = kname.split()[0].replace("_fma", "")
         rows.append({"name": kname, "route": "cuda", "source": SOURCES[base],

@@ -744,3 +744,58 @@ def test_checkpoint_round_trip_on_card(cuda, tmp_path):
     np.testing.assert_array_equal(resumed.loss_history_, full.loss_history_)
     assert not list((tmp_path / "part").iterdir())
     assert not list((tmp_path / "full").iterdir())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(3000, 24), (5003, 96)])
+def test_knn_on_card_matches_host(cuda, shape):
+    """The blocked float32 kNN on the card against the float64 host search:
+    self first, distances at rtol 1e-4 (float32 expansion and refinement),
+    neighbour sets equal on at least 99.9 % of the rows (near-ties at the
+    k-th place may swap)."""
+    from alpine_tpu_torch.ops.knn import exact_knn
+
+    n, d = shape
+    r = np.random.default_rng(n)
+    emb = np.abs(r.normal(0, 1, (n, d)) + r.integers(0, 4, (n, 1))).astype(np.float32)
+    emb[-5:] = emb[:5]  # duplicate rows at exactly zero distance
+    hd, hi = exact_knn(emb, 15)
+    cd, ci = exact_knn(emb, 15, device=cuda)
+    assert ci[:, 0].tolist() == list(range(n))
+    np.testing.assert_allclose(np.sort(cd, axis=1), np.sort(hd, axis=1), rtol=1e-4, atol=1e-5)
+    same = (np.sort(ci, axis=1) == np.sort(hi, axis=1)).all(axis=1)
+    assert same.mean() >= 0.999, int((~same).sum())
+    for i in range(5):
+        assert cd[i][ci[i] == n - 5 + i][0] == 0.0
+
+
+@pytest.mark.cuda
+def test_search_on_card_launches(cuda):
+    """A 2-trial search on the card at a small shape: the first trial runs
+    the batched route (max_iter given), every fold fit launches K1 once an
+    iteration and every validation projection K3 once, scores finite;
+    fit_the_best_param launches K1 max_iter more times."""
+    from alpine_tpu_torch import AnnData, ComponentOptimizer
+    from alpine_tpu_torch.native import leiden_backend
+
+    r = np.random.default_rng(1)
+    n = 1500
+    X = np.minimum(r.poisson(r.gamma(2.0, 1.0, (n, 6)) @ r.gamma(2.0, 0.3, (6, 120))),
+                   127).astype(np.float32)
+    obs = {"batch": np.array(["b0", "b1"], dtype=object)[r.integers(0, 2, n)],
+           "cond": np.array(["c0", "c1", "c2"], dtype=object)[r.integers(0, 3, n)]}
+    co = ComponentOptimizer(AnnData(X, obs=obs), ["batch", "cond"], max_iter=12,
+                            random_state=0)
+    kernels.reset_launches()
+    co.search_hyperparams(n_total_components_range=(10, 60), n_splits=3, max_evals=2)
+    torch.cuda.synchronize()
+    valid = [t for t in co.trials.trials if t["result"]["status"] == "ok"]
+    assert valid and all(np.isfinite(t["result"]["loss"]) for t in valid)
+    assert kernels.launches["fused_iteration"] == len(valid) * 3 * 12
+    assert kernels.launches["fused_transform"] == len(valid) * 3
+    assert co._fold_cache[1].Xtr.device.type == "cuda"
+    assert leiden_backend() == "native"
+    kernels.reset_launches()
+    model = co.fit_the_best_param()
+    assert kernels.launches["fused_iteration"] == 12
+    assert co._fold_cache is None and np.isfinite(model.loss_history_).all()

@@ -1,9 +1,10 @@
 """The port stands alone: alpine_tpu_torch, chip_smoke.py and the port's
 scripts (scripts/torch_*.py) import nothing of JAX or of the JAX package,
 the fit/transform path (minibatch, weighted, tiled, bucketed, restarted
-and checkpointed fits included) and save →
-load → transform → export need neither pandas nor scikit-learn, and the estimator never falls back to the CPU
-silently."""
+and checkpointed fits included), save → load → transform → export and a
+ComponentOptimizer search (both fold routes, its kNN, Leiden and folds)
+need neither pandas nor scikit-learn, and the estimator never falls back
+to the CPU silently."""
 
 import re
 import subprocess
@@ -67,6 +68,17 @@ assert loaded.fe.encoded_labels == m.fe.encoded_labels
 loaded.transform(ad, n_iter=5)
 loaded.get_normalized_expression(ad, library_size=100.0, cell_block_size=7)
 assert np.allclose(ad.layers["normalized_expression"].sum(axis=1), 100.0, rtol=1e-4)
+from alpine_tpu_torch import ComponentOptimizer
+obs["cond"] = np.array(["u", "v", None] * 30, dtype=object)
+for batching in (False, True):
+    co = ComponentOptimizer(AnnData(X, obs=obs), ["batch", "cond"], max_iter=4,
+                            device="cpu", random_state=0, fold_batching=batching)
+    best = co.search_hyperparams(n_total_components_range=(8, 14),
+                                 lam_range=(1.0, 50.0), n_splits=2, max_evals=2)
+    assert len(co.trials.trials) == 2 and best["random_state"] == 0
+    assert all(np.isfinite(t["result"]["loss"]) for t in co.trials.trials
+               if t["result"]["status"] == "ok")
+assert co.fit_the_best_param().loss_history_.shape[0] == 4
 print("ok")
 """
 
