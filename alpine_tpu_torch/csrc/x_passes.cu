@@ -14,11 +14,16 @@
 //
 // Design:
 //  * hxt: a grid of (gene block of GB genes) x (cell split).  A block sums
-//    its K x GB outputs over its split's cells and writes one partial;
-//    reduce_splits adds the partials in a fixed order (no float atomics), so
-//    two launches give the same bits.
+//    its K x GB outputs over its split's cells and writes one partial; the
+//    partials are added in split order by reduce_splits (no float atomics),
+//    so two launches give the same bits.  (The last block of each gene
+//    block summing the partials in the kernel instead cost more than the
+//    second pass at every shape measured: PERF.md.)
 //  * wtx: one block per tile of T cells, looping over all genes in chunks;
-//    every output is written once, by the block of its cells.
+//    every output is written once, by the block of its cells.  Where the
+//    tiles fill less than a wave (8,192 cells), the bf16 path splits the
+//    genes into ranges and the last block of a tile adds the ranges'
+//    partials in order.
 //  * int8 and bf16 X compute in bf16 (kBf16) on the tensor cores (bf16
 //    operands, fp32 accumulators), as the TPU kernels run them on its matrix
 //    unit in one exact bf16 pass.  K is padded with zero rows to
@@ -30,9 +35,16 @@
 //    chunks through a ring of S shared-memory stages filled by cp.async and
 //    multiplies straight from the ring with mma.sync m16n8k16, int8 widened
 //    in registers.  Each grid is about one wave at two blocks an SM
-//    (ops/kernels.py: hxt_grid, wtx_grid).  X rows off 16-byte alignment
-//    are staged element by element into the same ring slots, so the bits do
-//    not depend on X's alignment.
+//    (ops/kernels.py: hxt_grid, wtx_grid, wtx_gene_split).  X rows off
+//    16-byte alignment (n · sizeof(X) not a multiple of 16, or X at an odd
+//    address) go through the same ring as the 16-byte-aligned windows that
+//    cover them; hxt reads a lane's cells at the row's offset with funnel
+//    shifts, wtx builds the B registers ldmatrix.trans would give from
+//    byte loads at the rows' offsets, so the values meet the same k slots
+//    and the bits do not depend on X's alignment.
+//    The max-shared-memory attribute is set once a kernel and size
+//    (allow_smem), not every call: the host's time a call is what sets
+//    these passes' times at 8,192 cells.
 //  * hxt_mma reduces over cells, X's contiguous axis: a lane reads 8 cells
 //    of a gene row and feeds them to the k slots of two k16 steps.  GB is
 //    as wide as one pass of 4 fragments a warp allows (128 genes at
@@ -55,7 +67,7 @@
 //    X's bytes and the fp32 FMA rate alike (float32 X: 816 MB, 16 GFLOP).
 #include "fma_passes.cuh"
 
-#include <type_traits>
+#include <mutex>
 
 namespace alpine {
 
@@ -131,7 +143,8 @@ __host__ __device__ constexpr int hxt_row_bytes(int data, int target) {
 }
 
 // Shared memory of hxt's bf16 path: a ring of S stages, each a chunk of CW
-// cells of Hb (Kp rows of CW bf16) and of X's GB rows (CW values as stored).
+// cells of Hb (Kp rows of CW bf16) and of X's GB rows (CW values as stored,
+// and 16 bytes more: the aligned window of a row off 16-byte alignment).
 // Hb and bf16 X rows are read 16 bytes a lane and start 64 bytes apart
 // modulo 128, int8 rows 8 bytes a lane and 32 apart: no bank conflicts.
 // After the last chunk the same bytes hold the Kp x (GB + 4) fp32 output on
@@ -140,13 +153,103 @@ __host__ __device__ constexpr int hxt_row_bytes(int data, int target) {
 __host__ __device__ inline size_t hxt_mma_smem_bytes(int K, int GB, int S, int CW,
                                                      bool int8) {
   const size_t h = (size_t)pad16(K) * hxt_row_bytes(2 * CW, 64);
-  const size_t x = (size_t)GB * (int8 ? hxt_row_bytes(CW, 32) : hxt_row_bytes(2 * CW, 64));
+  const size_t x =
+      (size_t)GB * (int8 ? hxt_row_bytes(CW + 16, 32) : hxt_row_bytes(2 * CW + 16, 64));
   const size_t ring = S * (h + x);
   const size_t out = (size_t)pad16(K) * (GB + 4) * 4;
   return ring > out ? ring : out;
 }
 
 constexpr int kHxtFrags = 4;  // 16-row fragments of H a warp holds (one pass)
+
+// ---- X rows at any byte alignment (both bf16 paths) ----------------------
+//
+// A chunk or tile starts a multiple of 16 bytes into each X row (its width
+// is a multiple of 16 values), so a row's staged slice keeps the row's own
+// byte offset from a 16-byte boundary.  Where some row is off alignment
+// (n · sizeof(XT) not a multiple of 16, or X itself off), each row's slice
+// is copied as the 16-byte-aligned window that covers it, one 16-byte copy
+// longer, through the same cp.async ring; the consumers then read each row
+// at its own offset, so every value lands in the k slot it takes on the
+// aligned path and the sums are the aligned copy's, bit for bit.
+
+// Byte offset of X's row gi from the 16-byte boundary below it (mod 16, so
+// in 32 bits).
+template <typename XT>
+__device__ __forceinline__ int row_offset(const XT* X, int gi, int n) {
+  return (int)(((unsigned)reinterpret_cast<uintptr_t>(X) +
+                (unsigned)gi * ((unsigned)n * (unsigned)sizeof(XT))) & 15u);
+}
+
+// Copy jv (16 bytes) of the aligned window of X's row gi that covers the
+// cells from c0; `ok` false (zero fill) once the copy starts past the row.
+// A copy that starts inside the row is read whole: its bytes past the row
+// (never past the 16-byte-aligned vector, so never past the allocation)
+// are masked by hxt's consumer; wtx reads them as cells past n, whose
+// outputs (a cell's sums read only its own column) are never stored.
+template <typename XT>
+__device__ __forceinline__ const void* window_src(const XT* X, int gi, int n, int c0, int jv,
+                                                  bool& ok) {
+  const unsigned char* row = reinterpret_cast<const unsigned char*>(X) + (size_t)gi * n * sizeof(XT);
+  const unsigned char* src = reinterpret_cast<const unsigned char*>(
+      reinterpret_cast<uintptr_t>(row + (size_t)c0 * sizeof(XT)) & ~uintptr_t(15)) + 16 * jv;
+  ok = src < row + (size_t)n * sizeof(XT);
+  return src;
+}
+
+// Word w with only its first `keep` bytes (any int; <= 0: none, >= 4: all).
+__device__ __forceinline__ unsigned keep_bytes(unsigned w, int keep) {
+  return keep >= 4 ? w : keep <= 0 ? 0u : w & ((1u << (8 * keep)) - 1u);
+}
+
+// 8 and 16 bytes at byte o (any) of a staged row: the aligned words that
+// cover them, funnel-shifted.  Reads at most 3 (5) words from o & ~3.
+__device__ __forceinline__ uint2 lds8_at(const unsigned char* row, int o) {
+  const unsigned* w = reinterpret_cast<const unsigned*>(row + (o & ~3));
+  const int sh = (o & 3) * 8;
+  return make_uint2(__funnelshift_r(w[0], w[1], sh), __funnelshift_r(w[1], w[2], sh));
+}
+
+__device__ __forceinline__ uint4 lds16_at(const unsigned char* row, int o) {
+  const unsigned* w = reinterpret_cast<const unsigned*>(row + (o & ~3));
+  const int sh = (o & 3) * 8;
+  return make_uint4(__funnelshift_r(w[0], w[1], sh), __funnelshift_r(w[1], w[2], sh),
+                    __funnelshift_r(w[2], w[3], sh), __funnelshift_r(w[3], w[4], sh));
+}
+
+// The thread's first 16-byte copy of a stage's X rows (row, copy) and its
+// step to the next, for `per_row` copies a row and kThreads threads.
+struct CopyWalk {
+  int row, copy, drow, dcopy, per_row;
+  __device__ CopyWalk(int tid, int per_row_)
+      : row(tid / per_row_), copy(tid % per_row_), drow(kThreads / per_row_),
+        dcopy(kThreads % per_row_), per_row(per_row_) {}
+  __device__ void next() {
+    row += drow, copy += dcopy;
+    if (copy >= per_row) copy -= per_row, ++row;
+  }
+};
+
+// Sums of the blocks of one output tile, taken in a fixed order by the
+// last of them to finish (no float atomics): each block has written its
+// partial; the arrival counter of the tile (zero before the launch, zero
+// again after it) names the last one.  True in every thread of that block.
+// `flag` is shared memory the block no longer needs.
+__device__ __forceinline__ bool last_to_arrive(unsigned* arrivals, int tile, int blocks,
+                                               volatile int* flag) {
+  __threadfence();  // this block's partial, before its arrival
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const unsigned before = atomicAdd(arrivals + tile, 1u);
+    const bool last = before == (unsigned)blocks - 1;
+    if (last) arrivals[tile] = 0u;  // ready for the next launch
+    *flag = last;
+  }
+  __syncthreads();
+  const bool last = *flag;
+  if (last) __threadfence();  // the other blocks' partials, after their arrivals
+  return last;
+}
 
 // part[split][k][gi] = sum over the split's cells c of Hb[k][c] X[gi][c], for
 // the GB genes of this block, on the tensor cores, in one pass over X.
@@ -160,27 +263,27 @@ constexpr int kHxtFrags = 4;  // 16-row fragments of H a warp holds (one pass)
 // of Hb, 8 or 16 of X) and feeds them to two k16 steps, cells 4 at a time
 // into the k slots {2t, 2t + 1, 2t + 8, 2t + 9} of both operands: the
 // same bijection on both sides, so the sums run over every cell once.  X
-// rows off 16-byte alignment are staged element by element into the same
-// places, so the summation order does not depend on X's alignment.
-template <typename XT, int CW>
+// rows off 16-byte alignment are staged as aligned windows and a lane reads
+// its 8 cells at the row's offset with funnel shifts of aligned words (the
+// last chunk masks cells past n), so the products and their order, and
+// the bits, are the aligned copy's.
+template <typename XT, int CW, bool kAligned>
 __global__ void __launch_bounds__(kThreads, 2)
 hxt_mma(const XT* __restrict__ X, const __nv_bfloat16* __restrict__ Hb, int g, int n,
         int n_pad, int K, int GB, int cells_per_split, int S, float* __restrict__ part) {
   constexpr bool kInt8 = sizeof(XT) == 1;
   constexpr int V = 16 / sizeof(XT);  // values of a 16-byte copy
-  // X's values as raw bits, for the element-by-element staging
-  using Raw = typename std::conditional<kInt8, uint8_t, uint16_t>::type;
   extern __shared__ __align__(128) unsigned char smem[];
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g0 = blockIdx.x * GB, split = blockIdx.y;
   const int cbeg = split * cells_per_split;
   const int n_chunks = (min(n, cbeg + cells_per_split) - cbeg + CW - 1) / CW;
   constexpr int HR = hxt_row_bytes(2 * CW, 64);
-  constexpr int XR = kInt8 ? hxt_row_bytes(CW, 32) : hxt_row_bytes(2 * CW, 64);
-  constexpr int HV = CW / 8, XV = CW / V;  // 16-byte copies a row
+  constexpr int XR = kInt8 ? hxt_row_bytes(CW + 16, 32) : hxt_row_bytes(2 * CW + 16, 64);
+  constexpr int HV = CW / 8;  // 16-byte copies an Hb row
   const int Kp = pad16(K), RF = Kp / 16, gcols = GB / 16;
   const int h_bytes = Kp * HR, stage_bytes = h_bytes + GB * XR;
-  const bool xvec = rows_aligned16(X, n);
+  const CopyWalk walk0(tid, CW / V + (kAligned ? 0 : 1));  // 16-byte copies an X row
   // Hb's rows K .. Kp - 1 are never copied: zero in every stage
   for (int st = 0; st < S; ++st)
     for (int o = tid; o < (Kp - K) * HR / 16; o += kThreads)
@@ -196,30 +299,17 @@ hxt_mma(const XT* __restrict__ X, const __nv_bfloat16* __restrict__ Hb, int g, i
         cp_async16(h + k * HR + j * 2, Hb + (size_t)k * n_pad + c0 + j, true);
       }
       unsigned char* x = h + h_bytes;
-      if (xvec) {
-        for (int q = tid; q < GB * XV; q += kThreads) {
-          const int gg = q / XV, j = (q % XV) * V;
-          // n is a multiple of V here: a vector is valid or zero as a whole
-          const bool ok = g0 + gg < g && c0 + j < n;
-          cp_async16(x + gg * XR + j * (int)sizeof(XT),
-                     ok ? X + (size_t)(g0 + gg) * n + c0 + j : X, ok);
+      for (CopyWalk cp = walk0; cp.row < GB; cp.next()) {
+        bool ok;
+        const void* src;
+        if constexpr (kAligned) {  // n is a multiple of V: a copy is valid or zero as a whole
+          ok = g0 + cp.row < g && c0 + cp.copy * V < n;
+          src = X + (size_t)(g0 + cp.row) * n + c0 + cp.copy * V;
+        } else {
+          ok = false;
+          src = g0 + cp.row < g ? window_src(X, g0 + cp.row, n, c0, cp.copy, ok) : X;
         }
-      } else {  // the same values, element by element, eight loads in flight
-        const Raw* src = reinterpret_cast<const Raw*>(X);
-        for (int e0 = tid; e0 < GB * CW; e0 += 8 * kThreads) {
-          Raw v[8];
-#pragma unroll
-          for (int u = 0; u < 8; ++u) {
-            const int e = e0 + u * kThreads, gg = e / CW, t = e % CW;
-            v[u] = (e < GB * CW && g0 + gg < g && c0 + t < n)
-                       ? src[(size_t)(g0 + gg) * n + c0 + t] : Raw(0);
-          }
-#pragma unroll
-          for (int u = 0; u < 8; ++u) {
-            const int e = e0 + u * kThreads;
-            if (e < GB * CW) reinterpret_cast<Raw*>(x + e / CW * XR)[e % CW] = v[u];
-          }
-        }
+        cp_async16(x + cp.row * XR + 16 * cp.copy, ok ? src : X, ok);
       }
     }
     cp_async_commit();
@@ -227,6 +317,13 @@ hxt_mma(const XT* __restrict__ X, const __nv_bfloat16* __restrict__ Hb, int g, i
 
   const int col = warp % gcols, r0 = warp / gcols, rstep = kWarps / gcols;
   const int gq = lane / 4, t8 = (lane % 4) * 8;  // the lane's row and cells
+  // byte offsets of the lane's two X rows (0 where X is aligned)
+  int xoff[2];
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt) {
+    const int gi = g0 + col * 16 + nt * 8 + gq;
+    xoff[nt] = !kAligned && gi < g ? row_offset(X, gi, n) : 0;
+  }
   float acc[kHxtFrags][2][4];
 #pragma unroll
   for (int f = 0; f < kHxtFrags; ++f)
@@ -244,6 +341,9 @@ hxt_mma(const XT* __restrict__ X, const __nv_bfloat16* __restrict__ Hb, int g, i
     issue(c + S - 1, st == 0 ? S - 1 : st - 1);
     const unsigned char* h = smem + st * stage_bytes;
     const unsigned char* x = h + h_bytes + (col * 16 + gq) * XR;
+    // cells of the chunk before n (the last chunk of a misaligned X masks
+    // the bytes its windows read past the row)
+    const int left = kAligned ? CW : n - (cbeg + c * CW);
     // unrolled, so that a slice's loads can be issued under the previous
     // slice's products
 #pragma unroll
@@ -251,10 +351,26 @@ hxt_mma(const XT* __restrict__ X, const __nv_bfloat16* __restrict__ Hb, int g, i
       unsigned b[2][4];  // per 8-gene tile: k16 step 0 {b0, b1}, step 1 {b0, b1}
 #pragma unroll
       for (int nt = 0; nt < 2; ++nt) {
+        const unsigned char* xr = x + nt * 8 * XR;
+        const int keep = (left - (c32 + t8)) * (int)sizeof(XT);  // bytes before n
         if constexpr (kInt8) {
-          widen_i8x8(*reinterpret_cast<const uint2*>(x + nt * 8 * XR + c32 + t8), b[nt]);
+          uint2 v;
+          if constexpr (kAligned) {
+            v = *reinterpret_cast<const uint2*>(xr + c32 + t8);
+          } else {
+            v = lds8_at(xr, xoff[nt] + c32 + t8);
+            v.x = keep_bytes(v.x, keep), v.y = keep_bytes(v.y, keep - 4);
+          }
+          widen_i8x8(v, b[nt]);
         } else {
-          const uint4 v = *reinterpret_cast<const uint4*>(x + nt * 8 * XR + (c32 + t8) * 2);
+          uint4 v;
+          if constexpr (kAligned) {
+            v = *reinterpret_cast<const uint4*>(xr + (c32 + t8) * 2);
+          } else {
+            v = lds16_at(xr, xoff[nt] + (c32 + t8) * 2);
+            v.x = keep_bytes(v.x, keep), v.y = keep_bytes(v.y, keep - 4);
+            v.z = keep_bytes(v.z, keep - 8), v.w = keep_bytes(v.w, keep - 12);
+          }
           b[nt][0] = v.x, b[nt][1] = v.y, b[nt][2] = v.z, b[nt][3] = v.w;
         }
       }
@@ -314,15 +430,40 @@ reduce_splits(const float* __restrict__ part, int n_split, int K, int g,
   out[idx] = s;
 }
 
+// cudaFuncSetAttribute(max dynamic shared memory) once for each kernel,
+// device and larger size: the attribute stays set, and the call costs host
+// time on every launch.
+static cudaError_t allow_smem(const void* kernel, size_t bytes) {
+  struct Seen { const void* kernel; int device; size_t bytes; };
+  static std::mutex mu;
+  static Seen seen[64];
+  static int n_seen = 0;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> lock(mu);
+  int i = 0;
+  while (i < n_seen && (seen[i].kernel != kernel || seen[i].device != device)) ++i;
+  if (i < n_seen && seen[i].bytes >= bytes) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return err;
+  if (i < n_seen) seen[i].bytes = bytes;
+  else if (n_seen < 64) seen[n_seen++] = {kernel, device, bytes};
+  return cudaSuccess;
+}
+
 // The bf16 path: H rounded into Hb (K x n_pad, n_pad a multiple of CW), then
 // hxt_mma over a grid of (gene block) x (cell split) with S ring stages of
-// CW cells.
+// CW cells, X's rows on 16-byte boundaries or not.
 template <typename XT>
 static int launch_hxt_mma(const void* X, const float* H, int g, int n, int K, int GB,
                           int n_split, int cells_per_split, int S, int CW,
                           __nv_bfloat16* Hb, float* part, cudaStream_t stream) {
+  const bool aligned = (reinterpret_cast<uintptr_t>(X) & 15) == 0 && (size_t)n * sizeof(XT) % 16 == 0;
   void (*kernel)(const XT*, const __nv_bfloat16*, int, int, int, int, int, int, int,
-                 float*) = CW == 128 ? hxt_mma<XT, 128> : hxt_mma<XT, 64>;
+                 float*) =
+      CW == 128 ? (aligned ? hxt_mma<XT, 128, true> : hxt_mma<XT, 128, false>)
+                : (aligned ? hxt_mma<XT, 64, true> : hxt_mma<XT, 64, false>);
   const int Kp = pad16(K), gcols = GB / 16;
   const size_t smem = hxt_mma_smem_bytes(K, GB, S, CW, sizeof(XT) == 1);
   const bool ok = GB % 16 == 0 && GB <= 128 && kWarps % gcols == 0 &&
@@ -336,7 +477,7 @@ static int launch_hxt_mma(const void* X, const float* H, int g, int n, int K, in
                                                                                  n_pad, Hb);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  err = allow_smem(reinterpret_cast<const void*>(kernel), smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((g + GB - 1) / GB, n_split);
   kernel<<<grid, kThreads, smem, stream>>>(static_cast<const XT*>(X), Hb, g, n, n_pad, K, GB,
@@ -410,12 +551,18 @@ __host__ __device__ constexpr int ldsm_row_bytes(int data) {
   return data / 16 % 2 ? data : data + 16;
 }
 
+// Bytes of a staged X row of wtx's bf16 path: T cells as stored and 16
+// more (the aligned window of a row off 16-byte alignment).
+__host__ __device__ constexpr int wtx_x_row_bytes(int T, bool int8) {
+  return ldsm_row_bytes((int8 ? T : 2 * T) + 16);
+}
+
 // Shared memory of wtx's bf16 path: a ring of S stages, each a chunk of GC
-// genes (32 or 64) of Wb (Kp rows) and of X's rows (T cells as stored).
+// genes (32 or 64) of Wb (Kp rows) and of X's rows.
 // ops/kernels.py:wtx_smem_bytes holds the same formula.
 __host__ __device__ inline size_t wtx_mma_smem_bytes(int K, int T, int S, int GC, bool int8) {
   return (size_t)S * ((size_t)pad16(K) * ldsm_row_bytes(2 * GC) +
-                      (size_t)GC * ldsm_row_bytes(int8 ? T : 2 * T));
+                      (size_t)GC * wtx_x_row_bytes(T, int8));
 }
 
 // Wb[k][gi] = bf16(W[gi][k]) for k < K and gi < g, 0 elsewhere in its
@@ -440,7 +587,10 @@ round_w(const float* __restrict__ W, int g, int K, int Kp, int g_pad,
 }
 
 // out[k][c] = sum over genes gi of Wb[k][gi] X[gi][c] for the T cells of
-// this block's tile, on the tensor cores, in one pass over X.
+// this block's tile, on the tensor cores, in one pass over X.  The grid is
+// tiles x gene ranges: with one range a block writes its outputs; with
+// more, each block writes the sums over its range's genes as a partial and
+// the last block of the tile to finish adds the partials in range order.
 //
 // The genes flow in chunks of GC (32 or 64) through a ring of S stages
 // filled by cp.async (the chunk's Kp rows of Wb and its X rows as stored),
@@ -455,66 +605,54 @@ round_w(const float* __restrict__ W, int g, int K, int Kp, int g_pad,
 // widen_cell_pairs splits each register into the operands of the even and
 // of the odd cells, so n-tile 0 holds cells 2j and n-tile 1 cells 2j + 1 of
 // the group; the epilogue puts them back in order.  Genes run in the same
-// order on every path (chunks, then k16 steps, 16 genes a product), and X
-// rows off 16-byte alignment are staged element by element into the same
-// ring slots, so the bits do not depend on X's alignment.
-template <typename XT, int NT>
+// order on every path (chunks, then k16 steps, 16 genes a product).  X
+// rows off 16-byte alignment are staged as aligned windows, where
+// ldmatrix.trans cannot read them: each lane builds the same B registers
+// from byte (int8) or 2-byte (bf16) shared loads at each row's offset, so
+// the bits do not depend on X's alignment.  (Copying the rows into place
+// in shared memory first, for ldmatrix, was within 6 % on int8 X and
+// 16-19 % slower on bf16 X: PERF.md.)
+template <typename XT, int NT, bool kAligned>
 __global__ void __launch_bounds__(kThreads, 2)
 wtx_mma(const XT* __restrict__ X, const __nv_bfloat16* __restrict__ Wb, int g, int n,
-        int g_pad, int K, int T, int WR, int GC, int S, float* __restrict__ out) {
+        int g_pad, int K, int T, int WR, int GC, int S, int range_genes,
+        float* __restrict__ part, unsigned* __restrict__ arrivals, float* __restrict__ out) {
   constexpr bool kInt8 = sizeof(XT) == 1;
   constexpr int V = 16 / sizeof(XT);        // values of a 16-byte copy
   constexpr int MF = kWtxAcc / (8 * NT);    // fragment rows a warp holds
-  // X's values as raw bits, for the element-by-element staging
-  using Raw = typename std::conditional<kInt8, uint8_t, uint16_t>::type;
   extern __shared__ __align__(128) unsigned char smem[];
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int c0 = blockIdx.x * T;
+  const int c0 = blockIdx.x * T, range = blockIdx.y, ranges = gridDim.y;
   const int Kp = pad16(K), RF = Kp / 16;
-  const int WB = ldsm_row_bytes(2 * GC), XR = ldsm_row_bytes(T * (int)sizeof(XT));
+  const int WB = ldsm_row_bytes(2 * GC), XR = wtx_x_row_bytes(T, kInt8);
   const int wv_shift = GC == 64 ? 3 : 2;  // log2 of Wb's 16-byte copies a row
   const int w_bytes = Kp * WB, stage_bytes = w_bytes + GC * XR;
-  const int n_chunks = g_pad / GC, xv = T / V;  // xv: 16-byte copies an X row
-  const bool xvec = rows_aligned16(X, n);
-  // this thread's first X copy (row, vector) and the step to its next one
-  const int xg0 = tid / xv, xj0 = tid - xg0 * xv, dg = kThreads / xv, dj = kThreads % xv;
+  // this block's gene range: chunks chunk0 .. chunk0 + n_chunks - 1
+  const int chunk0 = range * (range_genes / GC);
+  const int n_chunks = min(g_pad / GC - chunk0, range_genes / GC);
+  const CopyWalk walk0(tid, T / V + (kAligned ? 0 : 1));  // 16-byte copies an X row
 
-  // chunk c's copies into stage st; one group committed, empty past g
+  // chunk c's copies into stage st; one group committed, empty past the range
   auto issue = [&](int c, int st) {
     if (c < n_chunks) {
-      const int g0 = c * GC;
+      const int g0 = (chunk0 + c) * GC;
       unsigned char* w = smem + st * stage_bytes;
       for (int q = tid; q < Kp << wv_shift; q += kThreads) {
         const int k = q >> wv_shift, j = (q - (k << wv_shift)) * 8;
         cp_async16(w + k * WB + j * 2, Wb + (size_t)k * g_pad + g0 + j, true);
       }
       unsigned char* x = w + w_bytes;
-      if (xvec) {
-        for (int gg = xg0, jv = xj0; gg < GC;) {
-          const int j = jv * V;
-          // n is a multiple of V here: a vector is valid or zero as a whole
-          const bool ok = g0 + gg < g && c0 + j < n;
-          cp_async16(x + gg * XR + j * (int)sizeof(XT),
-                     ok ? X + (size_t)(g0 + gg) * n + c0 + j : X, ok);
-          gg += dg, jv += dj;
-          if (jv >= xv) jv -= xv, ++gg;
+      for (CopyWalk cp = walk0; cp.row < GC; cp.next()) {
+        bool ok;
+        const void* src;
+        if constexpr (kAligned) {  // n is a multiple of V: a copy is valid or zero as a whole
+          ok = g0 + cp.row < g && c0 + cp.copy * V < n;
+          src = X + (size_t)(g0 + cp.row) * n + c0 + cp.copy * V;
+        } else {
+          ok = false;
+          src = g0 + cp.row < g ? window_src(X, g0 + cp.row, n, c0, cp.copy, ok) : X;
         }
-      } else {  // the same values, element by element, eight loads in flight
-        const Raw* src = reinterpret_cast<const Raw*>(X);
-        for (int e0 = tid; e0 < GC * T; e0 += 8 * kThreads) {
-          Raw v[8];
-#pragma unroll
-          for (int u = 0; u < 8; ++u) {
-            const int e = e0 + u * kThreads, gg = e / T, t = e % T;
-            v[u] = (e < GC * T && g0 + gg < g && c0 + t < n)
-                       ? src[(size_t)(g0 + gg) * n + c0 + t] : Raw(0);
-          }
-#pragma unroll
-          for (int u = 0; u < 8; ++u) {
-            const int e = e0 + u * kThreads;
-            if (e < GC * T) reinterpret_cast<Raw*>(x + e / T * XR)[e % T] = v[u];
-          }
-        }
+        cp_async16(x + cp.row * XR + 16 * cp.copy, ok ? src : X, ok);
       }
     }
     cp_async_commit();
@@ -541,6 +679,7 @@ wtx_mma(const XT* __restrict__ X, const __nv_bfloat16* __restrict__ Wb, int g, i
     issue(c + S - 1, st == 0 ? S - 1 : st - 1);
     const unsigned char* w = smem + st * stage_bytes;
     const unsigned char* x = w + w_bytes;
+    const int gx = (chunk0 + c) * GC;  // the chunk's first gene
 #pragma unroll 1
     for (int g32 = 0; g32 < GC; g32 += 32) {  // 32 genes: two k16 steps
       unsigned b[NT][2][2][2];  // [group][k16 step][n-tile][b0, b1]
@@ -548,7 +687,19 @@ wtx_mma(const XT* __restrict__ X, const __nv_bfloat16* __restrict__ Wb, int g, i
       for (int nt = 0; nt < NT; ++nt) {
         if constexpr (kInt8) {
           unsigned r[4];  // genes 8m .. 8m + 7 in r[m]
-          ldsm_x4_trans(r, x + (g32 + lane) * XR + cw + nt * 16);
+          if constexpr (kAligned) {
+            ldsm_x4_trans(r, x + (g32 + lane) * XR + cw + nt * 16);
+          } else {  // what ldmatrix.trans gives, from the rows at their offsets
+            const int c = cw + nt * 16 + 2 * (lane >> 2);
+#pragma unroll
+            for (int m = 0; m < 4; ++m) {
+              const int ga = g32 + 8 * m + 2 * (lane & 3);
+              const unsigned char* pa = x + ga * XR + row_offset(X, gx + ga, n) + c;
+              const unsigned char* pb = x + (ga + 1) * XR + row_offset(X, gx + ga + 1, n) + c;
+              r[m] = (unsigned)pa[0] | (unsigned)pa[1] << 8 | (unsigned)pb[0] << 16 |
+                     (unsigned)pb[1] << 24;
+            }
+          }
 #pragma unroll
           for (int ks = 0; ks < 2; ++ks)
 #pragma unroll
@@ -558,8 +709,21 @@ wtx_mma(const XT* __restrict__ X, const __nv_bfloat16* __restrict__ Wb, int g, i
 #pragma unroll
           for (int ks = 0; ks < 2; ++ks) {
             unsigned r[4];  // (genes 0-7, 8-15) x (cells 0-7), then cells 8-15
-            ldsm_x4_trans(r, x + (g32 + ks * 16 + (lane & 15)) * XR +
-                                 (cw + nt * 16 + (lane >> 4) * 8) * 2);
+            if constexpr (kAligned) {
+              ldsm_x4_trans(r, x + (g32 + ks * 16 + (lane & 15)) * XR +
+                                   (cw + nt * 16 + (lane >> 4) * 8) * 2);
+            } else {  // what ldmatrix.trans gives, from the rows at their offsets
+#pragma unroll
+              for (int m = 0; m < 4; ++m) {
+                const int ga = g32 + ks * 16 + 8 * (m & 1) + 2 * (lane & 3);
+                const int c = cw + nt * 16 + 8 * (m >> 1) + (lane >> 2);
+                const unsigned lo = *reinterpret_cast<const unsigned short*>(
+                    x + ga * XR + row_offset(X, gx + ga, n) + 2 * c);
+                const unsigned hi = *reinterpret_cast<const unsigned short*>(
+                    x + (ga + 1) * XR + row_offset(X, gx + ga + 1, n) + 2 * c);
+                r[m] = lo | hi << 16;
+              }
+            }
             b[nt][ks][0][0] = r[0], b[nt][ks][0][1] = r[1];
             b[nt][ks][1][0] = r[2], b[nt][ks][1][1] = r[3];
           }
@@ -587,9 +751,11 @@ wtx_mma(const XT* __restrict__ X, const __nv_bfloat16* __restrict__ Wb, int g, i
   cp_async_wait(0);
   // each lane writes rows gq and gq + 8 of its fragments: four consecutive
   // cells of a group (int8: even and odd n-tiles interleaved) or two pairs
-  // (bf16: n-tiles of cells 0-7 and 8-15), whole 32-byte sectors a warp
+  // (bf16: n-tiles of cells 0-7 and 8-15), whole 32-byte sectors a warp;
+  // into out, or into its range's partial
   const int gq = lane / 4, t = lane % 4;
-  const bool vec = (reinterpret_cast<uintptr_t>(out) & 15) == 0 && n % (kInt8 ? 4 : 2) == 0;
+  float* dst = ranges == 1 ? out : part + (size_t)range * K * n;
+  const bool vec = (reinterpret_cast<uintptr_t>(dst) & 15) == 0 && n % (kInt8 ? 4 : 2) == 0;
 #pragma unroll
   for (int f = 0; f < MF; ++f) {
     const int rf = wr + f * WR;
@@ -598,7 +764,7 @@ wtx_mma(const XT* __restrict__ X, const __nv_bfloat16* __restrict__ Wb, int g, i
     for (int hr = 0; hr < 2; ++hr) {
       const int k = rf * 16 + gq + 8 * hr;
       if (k >= K) continue;
-      float* o = out + (size_t)k * n;
+      float* o = dst + (size_t)k * n;
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) {
         // acc[f][nt][h][2 hr + j]: n-tile h, column 2t + j of row k
@@ -629,28 +795,50 @@ wtx_mma(const XT* __restrict__ X, const __nv_bfloat16* __restrict__ Wb, int g, i
       }
     }
   }
+  if (ranges == 1) return;
+  __syncthreads();  // the ring is free: its first word holds the arrival flag
+  if (!last_to_arrive(arrivals, blockIdx.x, ranges, reinterpret_cast<volatile int*>(smem)))
+    return;
+  const int cells = min(T, n - c0);
+  for (int o = tid; o < K * cells; o += kThreads) {
+    const int k = o / cells;
+    const size_t idx = (size_t)k * n + c0 + (o - k * cells);
+    float s = 0.f;
+    for (int r = 0; r < ranges; ++r) s += __ldcg(part + (size_t)r * K * n + idx);
+    out[idx] = s;
+  }
 }
 
 // The bf16 path: W rounded and transposed into Wb (Kp x g_pad, g_pad a
-// multiple of the gene chunk GC), then wtx_mma over tiles of T cells with
-// the warps as WR rows x (8 / WR) columns of NT groups of 16 cells, S
-// stages of GC genes.
+// multiple of the gene chunk GC), then wtx_mma over tiles of T cells x
+// `ranges` gene ranges of `range_genes` genes (a multiple of GC), with the
+// warps as WR rows x (8 / WR) columns of NT groups of 16 cells, S stages of
+// GC genes; with more than one range, `part` holds the ranges' partials
+// (ranges x K x n) and `arrivals` one zeroed counter a tile.
 template <typename XT>
 static int launch_wtx_mma(const void* X, const float* W, int g, int n, int K, int T,
-                          int WR, int GC, int S, __nv_bfloat16* Wb, float* out,
+                          int WR, int GC, int S, int ranges, int range_genes,
+                          __nv_bfloat16* Wb, float* part, unsigned* arrivals, float* out,
                           cudaStream_t stream) {
   const int WC = (WR >= 1 && kWarps % WR == 0) ? kWarps / WR : 0;
   const int NT = (WC && T % (16 * WC) == 0) ? T / (16 * WC) : 0;
-  void (*kernel)(const XT*, const __nv_bfloat16*, int, int, int, int, int, int, int, int,
-                 float*) = NT == 1 ? wtx_mma<XT, 1>
-                         : NT == 2 ? wtx_mma<XT, 2>
-                         : NT == 3 ? wtx_mma<XT, 3> : nullptr;
+  const bool aligned = (reinterpret_cast<uintptr_t>(X) & 15) == 0 && (size_t)n * sizeof(XT) % 16 == 0;
+  void (*kernel)(const XT*, const __nv_bfloat16*, int, int, int, int, int, int, int, int, int,
+                 float*, unsigned*, float*) =
+      NT == 1   ? (aligned ? wtx_mma<XT, 1, true> : wtx_mma<XT, 1, false>)
+      : NT == 2 ? (aligned ? wtx_mma<XT, 2, true> : wtx_mma<XT, 2, false>)
+      : NT == 3 ? (aligned ? wtx_mma<XT, 3, true> : wtx_mma<XT, 3, false>) : nullptr;
   const int Kp = pad16(K), MF = NT ? kWtxAcc / (8 * NT) : 0;
   const size_t smem = wtx_mma_smem_bytes(K, T, S, GC, sizeof(XT) == 1);
-  const bool ok = kernel != nullptr && K >= 1 && (Kp / 16 + WR - 1) / WR <= MF && S >= 2 &&
-                  S <= 8 && (GC == 32 || GC == 64) && Wb != nullptr;
-  if (!ok || smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
   const int g_pad = (g + GC - 1) / GC * GC;
+  const bool ok = kernel != nullptr && K >= 1 && (Kp / 16 + WR - 1) / WR <= MF &&
+                  S >= 2 && S <= 8 && (GC == 32 || GC == 64) && Wb != nullptr &&
+                  ranges >= 1 &&
+                  range_genes >= GC && range_genes % GC == 0 &&
+                  (size_t)(ranges - 1) * range_genes < (size_t)g_pad &&
+                  (size_t)ranges * range_genes >= (size_t)g_pad &&
+                  (ranges == 1 || (part != nullptr && arrivals != nullptr));
+  if (!ok || smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
   const size_t vecs = (size_t)Kp * (g_pad / 8);
   if (vecs > 0) {
     round_w<<<(unsigned)((vecs + kThreads - 1) / kThreads), kThreads, 0, stream>>>(
@@ -658,11 +846,11 @@ static int launch_wtx_mma(const void* X, const float* W, int g, int n, int K, in
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = allow_smem(reinterpret_cast<const void*>(kernel), smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<(n + T - 1) / T, kThreads, smem, stream>>>(static_cast<const XT*>(X), Wb, g, n,
-                                                      g_pad, K, T, WR, GC, S, out);
+  dim3 grid((n + T - 1) / T, ranges);
+  kernel<<<grid, kThreads, smem, stream>>>(static_cast<const XT*>(X), Wb, g, n, g_pad, K, T,
+                                           WR, GC, S, range_genes, part, arrivals, out);
   return (int)cudaGetLastError();
 }
 
@@ -671,10 +859,11 @@ static int launch_wtx_mma(const void* X, const float* W, int g, int n, int K, in
 // Plain C entry points (ctypes).  Each returns 0 or a cudaError_t code.
 // hxt: `stages` and `chunk` (cells a ring stage holds) serve both paths,
 // the scratch `hb` (K x n rounded up to the chunk, bf16) only the bf16 path
-// (int8, bf16 X).  wtx: `T` (cells a tile), `chunk` (genes a ring stage)
-// and `stages` serve both paths; `WR` is the bf16 path's warp rows and the
-// fp32 path's lanes along K (LK); the scratch `wb` (Kp x g rounded up to the
-// chunk, bf16) serves the bf16 path only.
+// (int8, bf16 X).  wtx: `T` (cells a tile), `chunk` (genes a ring stage) and
+// `stages` serve both paths; `WR` is the bf16 path's warp rows and the fp32
+// path's lanes along K (LK); `ranges`, `range_genes`, the scratch `wb` (Kp
+// x g rounded up to the chunk, bf16), `part` (ranges x K x n) and
+// `arrivals` (a zeroed counter a tile) serve the bf16 path only.
 extern "C" int alpine_hxt(const void* X, int xtype, const float* H, int g, int n,
                           int K, int GB, int n_split, int cells_per_split, int stages,
                           int chunk, void* hb, float* part, float* out, void* stream) {
@@ -699,16 +888,21 @@ extern "C" int alpine_hxt(const void* X, int xtype, const float* H, int g, int n
 }
 
 extern "C" int alpine_wtx(const void* X, int xtype, const float* W, int g, int n,
-                          int K, int T, int WR, int chunk, int stages, void* wb,
-                          float* out, void* stream) {
+                          int K, int T, int WR, int chunk, int stages, int ranges,
+                          int range_genes, void* wb, float* part, void* arrivals, float* out,
+                          void* stream) {
   using namespace alpine;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   __nv_bfloat16* Wb = static_cast<__nv_bfloat16*>(wb);
+  unsigned* arr = static_cast<unsigned*>(arrivals);
   switch (xtype) {
     case kF32: return launch_wtx_fma<float>(X, W, g, n, K, T, WR, chunk, stages, out, s);
     case kBF16:
-      return launch_wtx_mma<__nv_bfloat16>(X, W, g, n, K, T, WR, chunk, stages, Wb, out, s);
-    case kI8: return launch_wtx_mma<int8_t>(X, W, g, n, K, T, WR, chunk, stages, Wb, out, s);
+      return launch_wtx_mma<__nv_bfloat16>(X, W, g, n, K, T, WR, chunk, stages, ranges,
+                                           range_genes, Wb, part, arr, out, s);
+    case kI8:
+      return launch_wtx_mma<int8_t>(X, W, g, n, K, T, WR, chunk, stages, ranges, range_genes,
+                                    Wb, part, arr, out, s);
     case kI16: return launch_wtx_fma<int16_t>(X, W, g, n, K, T, WR, chunk, stages, out, s);
     default: return (int)cudaErrorInvalidValue;
   }

@@ -42,7 +42,7 @@ SIGNATURES = {
     "fused_transform": ("fused_transform", "alpine_fused_transform",
                         [_P, _P, _P] + [_I] * 8 + [_F, _P, _P, _P]),
     "hxt": ("x_passes", "alpine_hxt", [_P, _I, _P] + [_I] * 8 + [_P] * 4),
-    "wtx": ("x_passes", "alpine_wtx", [_P, _I, _P] + [_I] * 7 + [_P] * 3),
+    "wtx": ("x_passes", "alpine_wtx", [_P, _I, _P] + [_I] * 9 + [_P] * 5),
     "stream_probe": ("stream_probe", "alpine_stream_probe",
                      [_P, _I] + [_I] * 5 + [_P] * 4),
 }

@@ -23,6 +23,7 @@ from typing import Dict, NamedTuple, Sequence, Tuple
 
 import torch
 
+from alpine_tpu_torch.ops import _build
 from alpine_tpu_torch.ops.mu import (
     block_offsets, guided_width, round_partner,
 )
@@ -80,6 +81,8 @@ _WTX_GENE_CHUNKS = (64, 32)
 _WTX_ACC = 48
 _WTX_GROUPS = (1, 2, 3)
 _WTX_STAGES = range(2, 9)
+# wtx's gene ranges (small n): at least this many ring chunks a range
+_WTX_RANGE_CHUNKS = 4
 # the fp32 paths of hxt and wtx (csrc/x_passes.cu: hxt_fma, wtx_fma): hxt
 # stages 64 or 32 cells a ring stage, 8 genes and at most 7 rows of H a
 # thread (8 only at K > 448; lanes 8 along K x 4 along genes), at most 4
@@ -395,11 +398,12 @@ def hxt_smem_bytes(K: int, GB: int, S: int, x_dtype: torch.dtype,
                    chunk: int) -> int:
     """csrc/x_passes.cu:hxt_mma_smem_bytes: S ring stages of a chunk of Hb
     (Kp rows of ``chunk`` bf16) and of X's GB rows (``chunk`` values as
-    stored), each row padded against bank conflicts; at least the
+    stored and 16 bytes more, the aligned window of a row off 16-byte
+    alignment), each row padded against bank conflicts; at least the
     Kp × (GB + 4) fp32 output tile that reuses the bytes."""
     Kp = _pad16(K)
-    x_row = (_hxt_row_bytes(chunk, 32) if x_dtype == torch.int8
-             else _hxt_row_bytes(2 * chunk, 64))
+    x_row = (_hxt_row_bytes(chunk + 16, 32) if x_dtype == torch.int8
+             else _hxt_row_bytes(2 * chunk + 16, 64))
     ring = S * (Kp * _hxt_row_bytes(2 * chunk, 64) + GB * x_row)
     return max(ring, 4 * Kp * (GB + 4))
 
@@ -416,7 +420,10 @@ def hxt_grid(g: int, n: int, K: int, x_dtype: torch.dtype
     of 128 and 64 cells a stage and the most stages (2..8) for which two
     blocks share an SM, else one block takes it.  The splits, each a
     multiple of the chunk, make gene blocks × splits at most one wave of
-    those blocks on 132 SMs."""
+    those blocks on 132 SMs; their fp32 partials (splits × K × g, summed in
+    split order by a second pass) are a few % of X's bytes from 33k cells
+    up, and a third of them at 8,192 cells, where filling the wave took
+    less time than fewer splits (PERF.md)."""
     if x_dtype not in _MMA_XTYPES:
         raise ValueError(f"hxt_grid is for int8 and bf16 X, got {x_dtype}")
     tile_width(K)  # 1 <= K <= 512
@@ -553,8 +560,6 @@ def iteration_grid(g: int, n: int, K: int, x_dtype: torch.dtype) -> IterationGri
 def _launch_iteration(X, W, H, WtW, Ys, Bs, lam, eps, counts, blocks, loss_kl):
     """Run csrc/fused_iteration.cu; returns (Hn, XHt, stats, n_labels) with
     stats laid out as ``_stats_len`` says."""
-    from alpine_tpu_torch.ops import _build
-
     dev = X.device
     f32 = torch.float32
     if X.dim() != 2 or X.dtype not in _XTYPE:
@@ -702,8 +707,6 @@ def fused_transform(num2, H0, WtW2, eps, *, n_iter: int):
     inputs."""
     if not _cuda_or_cpu(H0):
         return fused_transform_plain(num2, H0, WtW2, eps, n_iter=n_iter)
-    from alpine_tpu_torch.ops import _build
-
     dev = H0.device
     K, n = H0.shape
     _check("num2", num2, (K, n), torch.float32, dev)
@@ -744,6 +747,44 @@ def _launched(name: str, rc: int) -> None:
     launches[name] += 1
 
 
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+# (device index, stream) -> (arrival counters, scratch bytes) of the X
+# passes, kept for the calls on that stream (which run in order, so they
+# share them) and grown when a call needs more; wtx's kernel leaves the
+# counters zeroed.  One allocation a call fewer: at 8,192 cells the host's
+# time a call is what sets these passes' times.
+_workspaces: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _stream(dev: torch.device) -> int:
+    """The raw handle of the current stream of ``dev``."""
+    if _raw_stream is not None:
+        return _raw_stream(dev.index)
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _on_device(dev: torch.device, fn, *args) -> int:
+    """fn(*args) with ``dev`` the current CUDA device (switched to only
+    where it is not: the switch costs host time on every call)."""
+    if dev.index == torch.cuda.current_device():
+        return fn(*args)
+    with torch.cuda.device(dev):
+        return fn(*args)
+
+
+def _workspace(dev: torch.device, stream: int, counters: int, nbytes: int):
+    """Addresses of at least ``counters`` zeroed int32 arrival counters
+    (None for 0) and of ``nbytes`` scratch bytes for a launch on
+    ``stream``."""
+    arr, buf = _workspaces.get((dev.index, stream), (None, None))
+    if counters and (arr is None or arr.numel() < counters):
+        arr = torch.zeros(max(counters, 4096), dtype=torch.int32, device=dev)
+    if buf is None or buf.numel() < nbytes:
+        buf = torch.empty(max(nbytes, 1 << 20), dtype=torch.uint8, device=dev)
+    _workspaces[(dev.index, stream)] = arr, buf
+    return arr.data_ptr() if counters else None, buf.data_ptr()
+
+
 def hxt(X, H):
     """H Xᵀ (K, g) f32, summed over all cells (the counterpart of
     benchmarks/als_probe.py's ``hxt`` kernel): X (g, n) int8/int16/bf16/f32,
@@ -756,32 +797,28 @@ def hxt(X, H):
     float32 and int16 X on the FP32 units (true fp32, register micro-tiles)
     over ``hxt_fma_grid``'s; each block sums a range of cells into a
     partial of its own and the partials are added in a fixed order, so two
-    launches give the same bits."""
+    launches give the same bits.  X's rows need not lie on 16-byte
+    boundaries (any cell count, X at any address): the bf16 path gives
+    the bits of X's aligned copy."""
     _check_x(X)
     g, n = X.shape
     K = H.shape[0]
     _check("H", H, (K, n), torch.float32, X.device)
     if not _cuda_or_cpu(X):
         return hxt_plain(X, H)
-    from alpine_tpu_torch.ops import _build
-
     dev = X.device
-    hb = None  # bf16 path: H rounded, K x n padded to the chunk
-    if X.dtype in _MMA_XTYPES:
-        GB, n_split, cells_per_split, S, chunk = hxt_grid(g, n, K, X.dtype)
-        hb = torch.empty((K, -(-n // chunk) * chunk), dtype=torch.bfloat16,
-                         device=dev)
-    else:
-        GB, n_split, cells_per_split, S, chunk = hxt_fma_grid(g, n, K, X.dtype)
-    part = torch.empty((n_split, K, g), dtype=torch.float32, device=dev)
+    bf16 = X.dtype in _MMA_XTYPES
+    GB, n_split, cells_per_split, S, chunk = (hxt_grid if bf16 else hxt_fma_grid)(
+        g, n, K, X.dtype)
+    # bf16 path: H rounded (K x n padded to the chunk); then the splits'
+    # partials
+    hb_bytes = -(-2 * K * -(-n // chunk) * chunk // 256) * 256 if bf16 else 0
+    stream = _stream(dev)
+    _, hb = _workspace(dev, stream, 0, hb_bytes + 4 * n_split * K * g)
     out = torch.empty((K, g), dtype=torch.float32, device=dev)
-    fn = _build.entry("hxt")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(X.data_ptr(), _XTYPE[X.dtype], H.data_ptr(), g, n, K, GB,
-                n_split, cells_per_split, S, chunk,
-                hb.data_ptr() if hb is not None else None, part.data_ptr(),
-                out.data_ptr(), stream)
+    rc = _on_device(dev, _build.entry("hxt"), X.data_ptr(), _XTYPE[X.dtype], H.data_ptr(),
+                    g, n, K, GB, n_split, cells_per_split, S, chunk, hb, hb + hb_bytes,
+                    out.data_ptr(), stream)
     _launched("hxt", rc)
     return out
 
@@ -796,8 +833,9 @@ def wtx_smem_bytes(K: int, T: int, S: int, x_dtype: torch.dtype,
                    chunk: int) -> int:
     """csrc/x_passes.cu:wtx_mma_smem_bytes: S ring stages of a chunk of
     ``chunk`` genes of Wb (Kp rows of ``chunk`` bf16) and of X's ``chunk``
-    rows (T cells as stored), each row padded against bank conflicts."""
-    x_row = _ldsm_row_bytes(T * (1 if x_dtype == torch.int8 else 2))
+    rows (T cells as stored and 16 bytes more, the aligned window of a row
+    off 16-byte alignment), each row padded against bank conflicts."""
+    x_row = _ldsm_row_bytes(T * (1 if x_dtype == torch.int8 else 2) + 16)
     return S * (_pad16(K) * _ldsm_row_bytes(2 * chunk) + chunk * x_row)
 
 
@@ -842,6 +880,23 @@ def wtx_grid(g: int, n: int, K: int, x_dtype: torch.dtype
         if S:
             break
     return T, WR, GC, S, -(-n // T)
+
+
+@lru_cache(maxsize=None)
+def wtx_gene_split(g: int, n: int, K: int, x_dtype: torch.dtype) -> Tuple[int, int]:
+    """(ranges, genes a range) of wtx's bf16 path: where ``wtx_grid``'s
+    tiles fill less than a wave (two blocks an SM on 132 SMs), the genes
+    are split into ranges of whole ring chunks, at least 4 chunks a range,
+    so that tiles × ranges fill at most one wave; each block sums its
+    range into a K × T partial, and the last block of a tile to finish
+    adds the partials in range order.  One range (all genes) otherwise.
+    The split depends on the shape only, so a shape gives the same bits
+    on every launch and card."""
+    T, _, GC, _, blocks = wtx_grid(g, n, K, x_dtype)
+    chunks = -(-g // GC)
+    ranges = max(1, min(2 * _SMS // blocks, chunks // _WTX_RANGE_CHUNKS))
+    per_range = -(-chunks // ranges)
+    return -(-chunks // per_range), per_range * GC
 
 
 def wtx_fma_rows(K: int, LK: int) -> Tuple[int, int]:
@@ -897,35 +952,37 @@ def wtx(X, W):
     Wᵢ; a joint minibatch step once for Wᵀ X_b, and a minibatch fit once an
     epoch for the loss's WᵀX over all cells.
 
-    Each block computes the K × T outputs of T cells over all genes and
-    writes each once, so two launches give the same bits.  On the card,
-    int8 and bf16 X run on bf16 tensor cores (W rounded to bf16 once a
-    call, exact products, fp32 sums) over ``wtx_grid``'s tiles, float32
-    and int16 X on the FP32 units (true fp32, register micro-tiles) over
-    ``wtx_fma_grid``'s."""
+    Each block computes the K × T outputs of T cells over all genes (or, at
+    small n on the bf16 path, over a range of them, the ranges' partials
+    added in a fixed order: ``wtx_gene_split``), so two launches give the
+    same bits.  On the card, int8 and bf16 X run on bf16 tensor cores (W
+    rounded to bf16 once a call, exact products, fp32 sums) over
+    ``wtx_grid``'s tiles, float32 and int16 X on the FP32 units (true fp32,
+    register micro-tiles) over ``wtx_fma_grid``'s."""
     _check_x(X)
     g, n = X.shape
     K = W.shape[1] if W.dim() == 2 else -1
     _check("W", W, (g, K), torch.float32, X.device)
     if not _cuda_or_cpu(X):
         return wtx_plain(X, W)
-    from alpine_tpu_torch.ops import _build
-
     dev = X.device
-    wb = None  # bf16 path: W transposed and rounded, Kp x g padded to the chunk
+    ranges, range_genes, wb_bytes = 1, g, 0
     if X.dtype in _MMA_XTYPES:
-        T, WR, GC, S, _ = wtx_grid(g, n, K, X.dtype)
-        wb = torch.empty((_pad16(K), -(-g // GC) * GC), dtype=torch.bfloat16,
-                         device=dev)
+        T, WR, GC, S, blocks = wtx_grid(g, n, K, X.dtype)
+        ranges, range_genes = wtx_gene_split(g, n, K, X.dtype)
+        # W transposed and rounded (Kp x g padded to the chunk); the ranges'
+        # partials where the genes are split
+        wb_bytes = -(-2 * _pad16(K) * -(-g // GC) * GC // 256) * 256
     else:  # WR carries the fp32 path's lanes along K
-        T, WR, GC, S, _ = wtx_fma_grid(g, n, K, X.dtype)
+        T, WR, GC, S, blocks = wtx_fma_grid(g, n, K, X.dtype)
+    stream = _stream(dev)
+    arrivals, wb = _workspace(dev, stream, blocks if ranges > 1 else 0,
+                              wb_bytes + (4 * ranges * K * n if ranges > 1 else 0))
+    part = wb + wb_bytes
     out = torch.empty((K, n), dtype=torch.float32, device=dev)
-    fn = _build.entry("wtx")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(X.data_ptr(), _XTYPE[X.dtype], W.data_ptr(), g, n, K, T, WR, GC,
-                S, wb.data_ptr() if wb is not None else None, out.data_ptr(),
-                stream)
+    rc = _on_device(dev, _build.entry("wtx"), X.data_ptr(), _XTYPE[X.dtype], W.data_ptr(),
+                    g, n, K, T, WR, GC, S, ranges, range_genes, wb, part, arrivals,
+                    out.data_ptr(), stream)
     _launched("wtx", rc)
     return out
 
@@ -954,8 +1011,6 @@ def stream_probe(X, tile=None):
     tile = _stream_tile_arg(X, tile)
     if not _cuda_or_cpu(X):
         return stream_probe_plain(X, tile)
-    from alpine_tpu_torch.ops import _build
-
     g, n = X.shape
     col_blocks = -(-n // (32 * (16 // X.element_size())))
     n_split = max(1, min(g, -(-_STREAM_BLOCKS // col_blocks)))

@@ -154,21 +154,25 @@ class _AxisMapping(dict):
 class AnnData:
     """A lightweight stand-in for ``anndata.AnnData`` (rows = cells/obs,
     columns = genes/vars) with the subset of the API that ALPINE touches.
-    ``obs`` / ``var`` are pandas DataFrames or dicts of equal-length 1-D
-    arrays; ``obs_names`` / ``var_names`` are a DataFrame's index, else
-    "0".."n-1" (``var_names`` may be given with a dict ``var``).  ``obsm`` and ``layers`` check their
+    The positional order is the JAX package's: ``(X, obs, var, obsm, varm,
+    layers, uns)``.  ``obs`` / ``var`` are pandas DataFrames or dicts of
+    equal-length 1-D arrays; ``obs_names`` / ``var_names`` are a
+    DataFrame's index, else "0".."n-1" (``var_names``, keyword only, may
+    be given with a dict ``var``).  ``obsm`` and ``layers`` check their
     values' leading axis against the cells, ``varm`` against the genes, as
-    the JAX package's class does."""
+    the JAX package's class does; ``uns`` is kept as a dict."""
 
     def __init__(
         self,
         X: np.ndarray,
         obs: Optional[Any] = None,
-        var_names: Optional[Any] = None,
+        var: Optional[Any] = None,
         obsm: Optional[Dict[str, Any]] = None,
         varm: Optional[Dict[str, Any]] = None,
-        var: Optional[Any] = None,
         layers: Optional[Dict[str, Any]] = None,
+        uns: Optional[Dict[str, Any]] = None,
+        *,
+        var_names: Optional[Any] = None,
     ):
         X = as_compressed(X) if is_sparse_x(X) else np.asarray(X)
         if len(X.shape) != 2:
@@ -185,6 +189,7 @@ class AnnData:
                                (self.layers, layers)):
             for k, v in (items or {}).items():
                 mapping[k] = v
+        self.uns: Dict[str, Any] = dict(uns) if uns else {}
 
     @property
     def shape(self):
@@ -209,7 +214,8 @@ class AnnData:
     def __getitem__(self, idx) -> "AnnData":
         """Row (obs) subset, as the optimizer's CV folds take it: a new
         object holding copies of the selected rows of X, obs, obsm and
-        layers, with their obs names; var and varm are shared."""
+        layers, with their obs names, and a deep copy of uns; var and varm
+        are shared."""
         if isinstance(idx, tuple):
             raise NotImplementedError("only obs-axis subsetting is supported")
         if np.isscalar(idx) and not isinstance(idx, (slice, bool)):
@@ -232,10 +238,11 @@ class AnnData:
             out.layers[k] = np.asarray(v)[idx]
         for k, v in self.varm.items():
             out.varm[k] = v
+        out.uns = deepcopy(self.uns)
         return out
 
     def copy(self) -> "AnnData":
-        """A deep copy: X, obs, var and every obsm/varm/layers value."""
+        """A deep copy: X, obs, var, uns and every obsm/varm/layers value."""
         copy_table = lambda t: (t.copy() if hasattr(t, "columns")
                                 else {k: np.array(v) for k, v in t.items()})
         out = AnnData(self.X.copy(), obs=copy_table(self.obs),
@@ -248,6 +255,7 @@ class AnnData:
             src, dst = getattr(self, name), getattr(out, name)
             for k, v in src.items():
                 dst[k] = v.copy() if hasattr(v, "copy") else deepcopy(v)
+        out.uns = deepcopy(self.uns)
         return out
 
     def __repr__(self) -> str:  # pragma: no cover

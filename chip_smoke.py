@@ -45,9 +45,22 @@ Phases, each printing one JSON line:
           minibatch epoch's loss shape (all cells, K = 40, int8), each row with
           the grid it ran (hxt: gene block, splits, ring stages, partial
           bytes; wtx: tile, warp rows or lanes along K, gene chunk, ring
-          stages, blocks, waves), and at small
+          stages, blocks, gene ranges, waves), each timed row also with the
+          card's time of a call (device_us: its kernels' durations from
+          torch.profiler, median of 20 calls) and the host's (host_us: 200
+          calls enqueued behind a sleeping card), the library call's too;
+          and at small
           edge shapes on every storage type (17, 1,001 and 5,040 cells,
-          K = 1, 13, 40, 65, 300 and 512);
+          K = 1, 13, 40, 65, 300 and 512); then (kernel_twin rows) P1 and
+          P2 on int8 X at K = 40 away from the bench shape, each X whose
+          rows are off 16-byte alignment beside its aligned twin: 100k
+          cells and the same X at a 1-byte offset (its aligned copy's bits
+          checked), 66,667 against 66,672 cells, 33,334 against 33,344,
+          8,192 cells and at a 1-byte offset, a tiled slab, and the
+          optimizer's ALS folds (P1 K = 44, P2 k = 32) at 66,667 against
+          66,672, with a summary of each misaligned row's device time over
+          its twin's and each row's time over the library's; and K1 at
+          K = 144 and K4 at K = 44 on 66,667 against 66,672 cells;
   stream_probe  the streaming probe's entry point (alpine_tpu_torch/
           probe.py) on int8 and float32 X at the bench shape: ms and GB/s
           read, the fold and column sums checked exactly against the plain
@@ -202,8 +215,9 @@ SOURCES = {
 # mangled names of fused_iteration.cu's passes: iter_tiles<X type, kBf16,
 # kCounts>, hxt_partial<X type, kCounts> (the bf16 path only)
 PASS_NAME = re.compile(r"(iter_tiles)I(\w+?)Lb([01])ELb([01])E|(hxt_partial)I(\w+?)Lb([01])E")
-# the fp32 X passes: <X type, rows a thread>; and the other kernels' names
-FMA_NAME = re.compile(r"(hxt_mma|hxt_fma|wtx_mma|wtx_fma)I(\w+?)(?:Li(\d+)E)?E")
+# the fp32 X passes: <X type, rows a thread>; and the bf16 ones: <X type,
+# ring chunk or cell groups, X rows aligned>
+FMA_NAME = re.compile(r"(hxt_mma|hxt_fma|wtx_mma|wtx_fma)I(\w+?)(?:Li(\d+)E)?(?:Lb([01])E)?E")
 X_CODES = {"f": "float32", "13__nv_bfloat16": "bfloat16", "a": "int8", "s": "int16"}
 # mangled names of fused_transform.cu's register path, transform_columns<KB>,
 # and of its tiled path, transform_tiles<T, G> (T cells a tile, G pairs of
@@ -380,7 +394,8 @@ def sass_check(_build, kernels):
     ops = ("HMMA", "LDGSTS", "LDSM", "FFMA")
     for fn, count in sorted(sass_counts(_build, "x_passes", ops).items()):
         # <X type>, and hxt_mma's ring chunk, wtx_mma's 16-cell groups a warp
-        # or the fp32 kernels' rows a thread (MK)
+        # or the fp32 kernels' rows a thread (MK); the bf16 kernels' third
+        # argument: X's rows on 16-byte boundaries, or not (aligned windows)
         m = FMA_NAME.search(fn)
         if m:
             u = usage.get(fn, {})
@@ -389,6 +404,7 @@ def sass_check(_build, kernels):
                           "chunk": arg if m.group(1) == "hxt_mma" else None,
                           "cell_groups": arg if m.group(1) == "wtx_mma" else None,
                           "rows": arg if m.group(1).endswith("_fma") else None,
+                          "aligned": m.group(4) == "1" if m.group(4) else None,
                           **{op.lower(): count[op] for op in ops},
                           "registers": u.get("registers"),
                           "spill_stores": u.get("spill_stores")})
@@ -396,11 +412,16 @@ def sass_check(_build, kernels):
     # hxt_fma<XT, 1 .. _FMA_MAX_MK + 1> (8 rows only past K = 448), wtx_fma<XT, 1 .. 6>
     fma_rows = {"hxt_fma": kernels._FMA_MAX_MK + 1, "wtx_fma": kernels._WTX_FMA_MAX_MK}
     n_fma = 2 * sum(fma_rows.values())
-    check(len(xrows) == 10 + n_fma, f"expected {10 + n_fma} x_passes kernels, found {len(xrows)}")
-    check(sorted(r["chunk"] for r in xrows if r["kernel"] == "hxt_mma")
-          == sorted(2 * kernels._HXT_CHUNKS), "hxt_mma's chunks differ from the wrapper's")
-    check(sorted(r["cell_groups"] for r in xrows if r["kernel"] == "wtx_mma")
-          == sorted(2 * kernels._WTX_GROUPS), "wtx_mma's cell groups differ from the wrapper's")
+    # hxt_mma<XT, chunk, aligned>, wtx_mma<XT, cell groups, aligned> on int8 and bf16 X
+    n_mma = 4 * (len(kernels._HXT_CHUNKS) + len(kernels._WTX_GROUPS))
+    check(len(xrows) == n_mma + n_fma,
+          f"expected {n_mma + n_fma} x_passes kernels, found {len(xrows)}")
+    check(sorted((r["chunk"], r["aligned"]) for r in xrows if r["kernel"] == "hxt_mma")
+          == sorted(2 * [(c, a) for c in kernels._HXT_CHUNKS for a in (False, True)]),
+          "hxt_mma's chunks differ from the wrapper's")
+    check(sorted((r["cell_groups"], r["aligned"]) for r in xrows if r["kernel"] == "wtx_mma")
+          == sorted(2 * [(c, a) for c in kernels._WTX_GROUPS for a in (False, True)]),
+          "wtx_mma's cell groups differ from the wrapper's")
     for kname, most in fma_rows.items():
         check(sorted(r["rows"] for r in xrows if r["kernel"] == kname)
               == sorted(2 * list(range(1, most + 1))), f"{kname}'s rows differ from the wrapper's")
@@ -489,6 +510,241 @@ def bound(nbytes, bf16_ops, f32_ops, card):
     t_bytes = nbytes / bw * 1e3
     t_ops = (bf16_ops / p16 + f32_ops / p32) * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def device_us(torch, fn, calls=20, tries=3):
+    """The card's time of one call of `fn`: the durations of the CUDA
+    kernels each of `calls` calls launched (torch.profiler), summed a call,
+    the median over the calls (µs), and the kernels a call.  Calls run one
+    after another on one stream, so a call's kernels are the next run of
+    the same count.  (None, 0) where `tries` profiles in a row saw no
+    kernel or a count that is not a multiple of `calls`."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        spans = sorted((e.time_range.start, e.time_range.elapsed_us()) for e in prof.events()
+                       if e.device_type == DeviceType.CUDA)
+        per_call = len(spans) // calls
+        if per_call and per_call * calls == len(spans):
+            sums = [sum(d for _, d in spans[i * per_call:(i + 1) * per_call])
+                    for i in range(calls)]
+            return float(np.median(sums)), per_call
+    return None, 0
+
+
+def host_us(torch, fn, calls=200):
+    """The host's time to enqueue one call of `fn` (µs): the wall time of
+    `calls` calls enqueued behind a long torch.cuda._sleep, so that no call
+    waits for the card, over `calls`; and whether the card was still
+    asleep when the host was done (else the number holds waits too)."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(400_000_000)  # about 0.2 s at 2 GHz
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = time.perf_counter() - t0
+    done = torch.cuda.Event()
+    done.record()
+    hidden = not done.query()
+    torch.cuda.synchronize()
+    return t * 1e6 / calls, hidden
+
+
+def make_x_pass_problem(torch, gen, dev, g, n, K, xdtype):
+    """X (g, n) of Poisson counts in xdtype (int16: counts x 3, above 127;
+    float32/bf16: plus a uniform fraction), W (g, K) and H (K, n)."""
+    X = torch.poisson(torch.full((g, n), 1.5, device=dev), generator=gen)
+    if xdtype == torch.int16:
+        X *= 3  # counts above 127: int16 is what "auto" gives them
+    else:
+        X = X.clamp_(max=127)
+    if xdtype not in (torch.int8, torch.int16):
+        X += torch.rand((g, n), generator=gen, device=dev)
+    X = X.to(xdtype)
+    H = torch.rand((K, n), generator=gen, device=dev) + 0.05
+    W = torch.rand((g, K), generator=gen, device=dev) + 0.05
+    return X, W, H
+
+
+def at_byte_offset(torch, X, offset):
+    """A copy of X that starts `offset` bytes into a buffer `offset` bytes
+    longer: the same values at another alignment."""
+    nbytes = X.numel() * X.element_size()
+    buf = torch.empty(nbytes + offset, dtype=torch.uint8, device=X.device)
+    view = buf[offset:].view(X.dtype).view(X.shape)
+    view.copy_(X)
+    return view
+
+
+def x_pass_grid(kernels, kind, g, n, K, dtype):
+    """The grid the X pass runs at this shape, as its rule gives it."""
+    bf16 = dtype in kernels._MMA_XTYPES
+    if kind == "hxt" and bf16:
+        GB, n_split, cps, S, chunk = kernels.hxt_grid(g, n, K, dtype)
+        return dict(gene_block=GB, n_split=n_split, cells_per_split=cps, stages=S,
+                    chunk=chunk, partial_bytes=4 * n_split * K * g)
+    if kind == "hxt":
+        GB, n_split, cps, S, chunk = kernels.hxt_fma_grid(g, n, K, dtype)
+        WK, MK = kernels.hxt_fma_rows(K)
+        return dict(gene_block=GB, n_split=n_split, cells_per_split=cps, stages=S,
+                    chunk=chunk, warp_rows=WK, rows_a_thread=MK,
+                    partial_bytes=4 * n_split * K * g)
+    if bf16:
+        T, WR, GC, S, blocks = kernels.wtx_grid(g, n, K, dtype)
+        split = getattr(kernels, "wtx_gene_split", None)
+        ranges, range_genes = split(g, n, K, dtype) if split else (1, g)
+        return dict(tile=T, warp_rows=WR, gene_chunk=GC, stages=S, blocks=blocks,
+                    gene_ranges=ranges, genes_a_range=range_genes,
+                    waves=blocks * ranges / (2 * kernels._SMS),
+                    partial_bytes=4 * K * n * ranges if ranges > 1 else 0)
+    T, LK, GC, S, blocks = kernels.wtx_fma_grid(g, n, K, dtype)
+    WK, MK = kernels.wtx_fma_rows(K, LK)
+    return dict(tile=T, lanes_along_k=LK, warp_rows=WK, rows_a_thread=MK, gene_chunk=GC,
+                stages=S, blocks=blocks, waves=blocks / (2 * kernels._SMS))
+
+
+def x_pass_row(torch, kernels, mu, card, kind, X, P, timed, note=""):
+    """hxt(X, H = P) or wtx(X, W = P) against its plain version; timed
+    at the bench shape beside one torch.matmul over a copy of X cast to
+    its compute dtype outside the timed region (bf16 for int8/bf16 X):
+    one call, 20 back to back, the card's time of a call (device_us, the
+    profiler) and the host's (host_us, enqueued behind a sleeping card)."""
+    g, n = X.shape
+    K = P.shape[0] if kind == "hxt" else P.shape[1]
+    kern = lambda: getattr(kernels, kind)(X, P)
+    plain = lambda: getattr(kernels, f"{kind}_plain")(X, P)
+    abs_err, worst = compare(kern(), plain(), 1e-4, 1e-6)
+    tag = f"{kind} {'bench' if timed else 'small'} {str(X.dtype)[6:]} K={K} n={n}{note}"
+    row = {"phase": "kernel", "case": tag, "max_abs_err": abs_err,
+           "worst_err_over_tolerance": worst,
+           "tolerance": "rtol 1e-4, atol 1e-6*max|plain|"}
+    if timed:
+        row["ms"] = time_ms(kern, 5)
+        row["plain_ms"] = time_ms(plain, 3)
+        bf16 = X.dtype in (torch.int8, torch.bfloat16)
+        cdt = torch.bfloat16 if bf16 else torch.float32
+        Xc, Pc = X.to(cdt), mu.round_partner(P, X.dtype).to(cdt)
+        lib = ((lambda: torch.matmul(Pc, Xc.T)) if kind == "hxt"
+               else (lambda: torch.matmul(Pc.T, Xc)))
+        row["library_ms"] = time_ms(lib, 5)
+        row["library"] = f"torch.matmul, {str(cdt)[6:]} operands"
+        row["ms_back_to_back"] = time_back_to_back_ms(kern, 20)
+        row["library_ms_back_to_back"] = time_back_to_back_ms(lib, 20)
+        row["device_us"], row["kernels_a_call"] = device_us(torch, kern)
+        row["host_us"], row["host_us_hidden"] = host_us(torch, kern)
+        row["library_device_us"], _ = device_us(torch, lib)
+        row["library_host_us"], _ = host_us(torch, lib)
+        del Xc, Pc
+        side = 4 * K * n if kind == "hxt" else 4 * g * K  # H or W
+        out = 4 * K * g if kind == "hxt" else 4 * K * n
+        row["bytes"] = X.element_size() * g * n + side + out
+        ops = 2.0 * K * g * n
+        row["bf16_flop"], row["fp32_flop"] = (ops, 0.0) if bf16 else (0.0, ops)
+        row["bound_ms"], row["bound_by"] = bound(row["bytes"], row["bf16_flop"],
+                                                 row["fp32_flop"], card)
+        row.update(x_pass_grid(kernels, kind, g, n, K, X.dtype))
+    emit(row)
+    check(worst <= 1.0, f"{tag}: kernel disagrees with its plain version")
+    return row
+
+
+# P1/P2 on int8 X away from the bench shape, each misaligned shape beside
+# its aligned twin: (label, cells, byte offset of X, twin label)
+TWIN_SHAPES = (("bench", N, 0, None), ("bench offset 1", N, 1, "bench"),
+               ("fold", 66_667, 0, "fold twin"), ("fold twin", 66_672, 0, None),
+               ("validation fold", 33_334, 0, "validation twin"),
+               ("validation twin", 33_344, 0, None),
+               ("minibatch", MB_BATCH, 0, None),
+               ("minibatch offset 1", MB_BATCH, 1, "minibatch"),
+               ("tiled slab", MB_BATCH, 0, None))
+
+
+def x_pass_twin_rows(torch, kernels, mu, gen, dev, card, K=40):
+    """P1 and P2 (K = 40) on int8 X at TWIN_SHAPES, and at the optimizer's
+    ALS folds (P1 K = 44, P2 k = 32) at 66,667 cells and its twin 66,672:
+    each row timed as x_pass_row times it, with a digest of its output and,
+    for a copy of X at a byte offset, whether it gives the aligned copy's
+    bits.  Returns {(kind, label): row}."""
+    import hashlib
+
+    rows = {}
+    Xf, Wf, Hf = make_x_pass_problem(torch, gen, dev, G, N, 44, torch.int8)
+    tiles = torch.randperm(N // TILE, generator=gen, device=dev)[:MB_BATCH // TILE]
+    slab = lambda A: A[:, :N // TILE * TILE].reshape(A.shape[0], -1, TILE).index_select(
+        1, tiles).reshape(A.shape[0], -1).contiguous()
+    cases = [(label, n, off, K, K) for label, n, off, _ in TWIN_SHAPES]
+    cases += [("als fold", 66_667, 0, 44, 32), ("als fold twin", 66_672, 0, 44, 32)]
+    for label, n, off, kh, kw in cases:
+        X = slab(Xf) if label == "tiled slab" else Xf[:, :n].contiguous()
+        H = slab(Hf[:kh]) if label == "tiled slab" else Hf[:kh, :n].contiguous()
+        W = Wf[:, :kw].contiguous()
+        Xo = at_byte_offset(torch, X, off) if off else X
+        for kind, P in (("hxt", H), ("wtx", W)):
+            row = x_pass_row(torch, kernels, mu, card, kind, Xo, P, True, f" {label}")
+            out = getattr(kernels, kind)(Xo, P)
+            row["digest"] = hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest()[:16]
+            row["x_byte_offset"] = (Xo.data_ptr() % 16, (n * Xo.element_size()) % 16)
+            if off:
+                row["bits_equal_aligned_copy"] = bool(torch.equal(out, getattr(kernels, kind)(X, P)))
+                check(row["bits_equal_aligned_copy"],
+                      f"{kind} {label}: X at a byte offset gave other bits than its aligned copy")
+            emit({"phase": "kernel_twin", "kind": kind, "label": label,
+                  **{k: v for k, v in row.items() if k != "phase"}})
+            rows[(kind, label)] = row
+        del X, H, W, Xo
+        torch.cuda.empty_cache()
+    del Xf, Wf, Hf
+    torch.cuda.empty_cache()
+    twins = {label: twin for label, _, _, twin in TWIN_SHAPES if twin}
+    twins["als fold"] = "als fold twin"
+    emit({"phase": "kernel_twin_summary",
+          "device_us_over_aligned_twin": {
+              f"{kind} {label}": rows[(kind, label)]["device_us"] / rows[(kind, twin)]["device_us"]
+              for kind in ("hxt", "wtx") for label, twin in twins.items()
+              if rows[(kind, label)]["device_us"] and rows[(kind, twin)]["device_us"]},
+          "ms_over_library": {f"{kind} {label}": [r["ms"] / r["library_ms"],
+                                                  r["ms_back_to_back"]
+                                                  / r["library_ms_back_to_back"]]
+                              for (kind, label), r in rows.items()}})
+    return rows
+
+
+def iteration_twin_rows(torch, kernels, gen, dev, card):
+    """K1 at the optimizer's fold K = 144 (blocks (24, 24, 96)) and K4 at
+    the weighted_fast folds' K = 44 (blocks (6, 6, 32), counts 0..3) on
+    int8 X of 66,667 cells and of its aligned twin 66,672: one call
+    (CUDA events), the card's time of a call (device_us) and the kernel's
+    grid."""
+    rows = {}
+    for tag, blocks, counts in (("fused_iteration K=144", (24, 24, 96), False),
+                                ("fused_iteration_counts K=44", (6, 6, 32), True)):
+        for n in (66_667, 66_672):
+            X, W, H, WtW, Ys, Bs, lam = iteration_problem(
+                torch, gen, dev, G, n, blocks, N_LABELS, torch.int8)
+            C = (torch.randint(0, 4, (2, n), generator=gen, device=dev).float()
+                 if counts else None)
+            kern = lambda: kernels.fused_iteration(X, W, H, WtW, Ys, Bs, lam, EPS, C,
+                                                   blocks=blocks, loss_kl=True)
+            cost = iteration_cost(G, n, blocks, N_LABELS, 1, True, counts=counts)
+            b_ms, b_by = bound(*cost, card)
+            row = {"phase": "kernel_twin", "case": f"{tag} int8 n={n}", "ms": time_ms(kern, 5),
+                   "bound_ms": b_ms, "bound_by": b_by,
+                   "x_row_bytes_mod_16": n % 16,
+                   "grid": kernels.iteration_grid(G, n, sum(blocks), torch.int8)._asdict()}
+            row["device_us"], row["kernels_a_call"] = device_us(torch, kern)
+            emit(row)
+            rows[(tag, n)] = row
+            del X, W, H, WtW, Ys, Bs, lam, C
+            torch.cuda.empty_cache()
+    return rows
 
 
 def run_persist_phase(torch, kernels, ALPINE, AnnData, model, adata, counts, obs):
@@ -1439,75 +1695,10 @@ def main():
     torch.cuda.empty_cache()
 
     # -- ALS's X passes: hxt (P1) and wtx (P2) -------------------------------
-    def x_pass_problem(g, n, K, xdtype):
-        X = torch.poisson(torch.full((g, n), 1.5, device=dev), generator=gen)
-        if xdtype == torch.int16:
-            X *= 3  # counts above 127: int16 is what "auto" gives them
-        else:
-            X = X.clamp_(max=127)
-        if xdtype not in (torch.int8, torch.int16):
-            X += torch.rand((g, n), generator=gen, device=dev)
-        X = X.to(xdtype)
-        H = torch.rand((K, n), generator=gen, device=dev) + 0.05
-        W = torch.rand((g, K), generator=gen, device=dev) + 0.05
-        return X, W, H
-
-    def run_x_pass_case(kind, X, P, timed, note=""):
-        """hxt(X, H = P) or wtx(X, W = P) against its plain version; timed
-        at the bench shape beside one torch.matmul over a copy of X cast to
-        its compute dtype outside the timed region (bf16 for int8/bf16 X)."""
-        g, n = X.shape
-        K = P.shape[0] if kind == "hxt" else P.shape[1]
-        kern = lambda: getattr(kernels, kind)(X, P)
-        plain = lambda: getattr(kernels, f"{kind}_plain")(X, P)
-        abs_err, worst = compare(kern(), plain(), 1e-4, 1e-6)
-        tag = f"{kind} {'bench' if timed else 'small'} {str(X.dtype)[6:]} K={K} n={n}{note}"
-        row = {"phase": "kernel", "case": tag, "max_abs_err": abs_err,
-               "worst_err_over_tolerance": worst,
-               "tolerance": "rtol 1e-4, atol 1e-6*max|plain|"}
-        if timed:
-            row["ms"] = time_ms(kern, 5)
-            row["plain_ms"] = time_ms(plain, 3)
-            bf16 = X.dtype in (torch.int8, torch.bfloat16)
-            cdt = torch.bfloat16 if bf16 else torch.float32
-            Xc, Pc = X.to(cdt), mu.round_partner(P, X.dtype).to(cdt)
-            lib = ((lambda: torch.matmul(Pc, Xc.T)) if kind == "hxt"
-                   else (lambda: torch.matmul(Pc.T, Xc)))
-            row["library_ms"] = time_ms(lib, 5)
-            row["library"] = f"torch.matmul, {str(cdt)[6:]} operands"
-            row["ms_back_to_back"] = time_back_to_back_ms(kern, 20)
-            row["library_ms_back_to_back"] = time_back_to_back_ms(lib, 20)
-            del Xc, Pc
-            side = 4 * K * n if kind == "hxt" else 4 * g * K  # H or W
-            out = 4 * K * g if kind == "hxt" else 4 * K * n
-            row["bytes"] = X.element_size() * g * n + side + out
-            ops = 2.0 * K * g * n
-            row["bf16_flop"], row["fp32_flop"] = (ops, 0.0) if bf16 else (0.0, ops)
-            row["bound_ms"], row["bound_by"] = bound(row["bytes"], row["bf16_flop"],
-                                                     row["fp32_flop"], card)
-            if kind == "hxt" and bf16:  # the grid the kernel ran
-                GB, n_split, cps, S, chunk = kernels.hxt_grid(g, n, K, X.dtype)
-                row.update(gene_block=GB, n_split=n_split, cells_per_split=cps,
-                           stages=S, chunk=chunk, partial_bytes=4 * n_split * K * g)
-            if kind == "hxt" and not bf16:
-                GB, n_split, cps, S, chunk = kernels.hxt_fma_grid(g, n, K, X.dtype)
-                WK, MK = kernels.hxt_fma_rows(K)
-                row.update(gene_block=GB, n_split=n_split, cells_per_split=cps,
-                           stages=S, chunk=chunk, warp_rows=WK, rows_a_thread=MK,
-                           partial_bytes=4 * n_split * K * g)
-            if kind == "wtx" and bf16:
-                T, WR, GC, S, blocks = kernels.wtx_grid(g, n, K, X.dtype)
-                row.update(tile=T, warp_rows=WR, gene_chunk=GC, stages=S,
-                           blocks=blocks, waves=blocks / (2 * kernels._SMS))
-            if kind == "wtx" and not bf16:
-                T, LK, GC, S, blocks = kernels.wtx_fma_grid(g, n, K, X.dtype)
-                WK, MK = kernels.wtx_fma_rows(K, LK)
-                row.update(tile=T, lanes_along_k=LK, warp_rows=WK, rows_a_thread=MK,
-                           gene_chunk=GC, stages=S, blocks=blocks,
-                           waves=blocks / (2 * kernels._SMS))
-        emit(row)
-        check(worst <= 1.0, f"{tag}: kernel disagrees with its plain version")
-        return row
+    x_pass_problem = lambda g, n, K, xdtype: make_x_pass_problem(torch, gen, dev, g, n, K,
+                                                                 xdtype)
+    run_x_pass_case = lambda kind, X, P, timed, note="": x_pass_row(
+        torch, kernels, mu, card, kind, X, P, timed, note)
 
     X, W, H = x_pass_problem(G, N, sum(BLOCKS), torch.int8)
     results["hxt"] = run_x_pass_case("hxt", X, H, True)
@@ -1528,6 +1719,10 @@ def main():
     results["wtx tiled"] = run_x_pass_case("wtx", Xt, W, True, " tiled slab")
     del X, W, H, Xb, Xt  # the int8 X goes before the float32 one is made
     torch.cuda.empty_cache()
+    # P1/P2 away from the bench shape: X rows off 16-byte alignment beside
+    # their aligned twins, small n; K1/K4 at the optimizer's fold widths
+    x_pass_twin_rows(torch, kernels, mu, gen, dev, card)
+    iteration_twin_rows(torch, kernels, gen, dev, card)
     # float32 and int16 X (the FP32 units): one X at a time
     for xdt in (torch.float32, torch.int16):
         X, W, H = x_pass_problem(G, N, sum(BLOCKS), xdt)

@@ -113,8 +113,8 @@ def main():
 
                         def run():
                             rc = fn(X.data_ptr(), kernels._XTYPE[X.dtype], Wk.data_ptr(),
-                                    G, N, k, T, WR, GC, S, wb.data_ptr(), out.data_ptr(),
-                                    stream)
+                                    G, N, k, T, WR, GC, S, 1, -(-G // GC) * GC,
+                                    wb.data_ptr(), None, None, out.data_ptr(), stream)
                             if rc:
                                 raise RuntimeError(f"wtx failed: CUDA error {rc}")
 

@@ -115,21 +115,29 @@ def _probe_dots(g, K, tile_n, n):
     return hxt, wtx
 
 
+@pytest.mark.parametrize("n", [384, 1001, 8195])
 @pytest.mark.parametrize("K", [7, 40])
 @pytest.mark.parametrize("dtype", DTYPES)
-def test_x_pass_plain_versions_match_pallas_probe(dtype, K):
-    g, n, tile = 48, 384, 128
+def test_x_pass_plain_versions_match_pallas_probe(dtype, K, n):
+    """384 cells fill the probe's 128-cell tiles; 1,001 and 8,195 (rows off
+    16-byte alignment on the card) do not, and the probe, whose grid takes
+    whole tiles, runs on X and H padded with zero cells (which add nothing
+    to H Xᵀ; WᵀX's padded columns are dropped)."""
+    g, tile = 48, 128
     r = np.random.default_rng(K)
     X = _x_values(r, dtype, (g, n))
     H = r.random((K, n), dtype=np.float32) + 0.1
     W = r.random((g, K), dtype=np.float32)
     Xj, Xt = _both(X, dtype)
-    hxt, wtx = _probe_dots(g, K, tile, n)
+    n_pad = -(-n // tile) * tile
+    Xp = jnp.pad(Xj, ((0, 0), (0, n_pad - n)))
+    Hp = jnp.pad(jnp.asarray(H), ((0, 0), (0, n_pad - n)))
+    hxt, wtx = _probe_dots(g, K, tile, n_pad)
     got_h = kernels.hxt(Xt, torch.from_numpy(H))
     got_w = kernels.wtx(Xt, torch.from_numpy(W))
     assert got_h.shape == (K, g) and got_w.shape == (K, n)
-    _close(got_h, hxt(Xj, jnp.asarray(H)), 1e-5, 1e-6)
-    _close(got_w, wtx(Xj, jnp.asarray(W)), 1e-5, 1e-6)
+    _close(got_h, hxt(Xp, Hp), 1e-5, 1e-6)
+    _close(got_w, np.asarray(wtx(Xp, jnp.asarray(W)))[:, :n], 1e-5, 1e-6)
     # and the JAX fit path's own X products, with MUConfig of each dtype
     cfg = jmu.MUConfig(blocks=(K,), n_labels=(), n_cells=n, x_dtype=dtype)
     _close(got_h.T, jmu._x_ht(cfg, Xj, jnp.asarray(H)), 1e-5, 1e-6)

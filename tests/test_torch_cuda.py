@@ -417,8 +417,8 @@ def test_x_passes_cuda_match_plain(cuda, dtype, K, n):
     K = 300 and 512 (one pass over X on wtx's tensor-core path, its warps
     in 4 and 8 rows; hxt's narrowest gene block); 70 genes and 1000, 1001,
     777 or 17 cells fill no block, chunk or tile, 1024 and 1040 cells take
-    the cp.async ring, and the same values off 16-byte alignment the
-    element-by-element staging, with the same bits."""
+    the cp.async ring with 16-byte rows, the others and the same values
+    off 16-byte alignment its aligned windows, with the same bits."""
     X, W, H = _x_pass_problem(K + n, 70, n, K, dtype, cuda)
     before = dict(kernels.launches)
     got_h, got_w = kernels.hxt(X, H), kernels.wtx(X, W)
@@ -450,8 +450,8 @@ def _x_pass_grid(kind, g, n, K, xdt):
 def test_hxt_cuda_same_bits(cuda, dtype, n):
     """Two launches of P1 give the same bits (fixed-order partial sums) at a
     width that splits the cells over many blocks, the last split ragged;
-    50,001 cells take the element-by-element staging, 50,000 and 50,016 the
-    cp.async ring, and the same values off 16-byte alignment give the same
+    50,001 cells take the ring's aligned windows, 50,000 and 50,016 its
+    16-byte rows, and the same values off 16-byte alignment give the same
     bits too.  int16 X holds counts above 127.  The result matches the
     plain version."""
     X, _, H = _x_pass_problem(5, 300, n, 40, dtype, cuda)
@@ -469,8 +469,8 @@ def test_hxt_cuda_same_bits(cuda, dtype, n):
 def test_wtx_cuda_same_bits(cuda, dtype, n):
     """Two launches of P2 give the same bits (each output written once, by
     the block of its cells) at a width of many tiles, the last ragged;
-    50,001 cells take the element-by-element staging, 50,000 and 50,016
-    the cp.async ring, and the same values off 16-byte alignment give the
+    50,001 cells take the ring's aligned windows, 50,000 and 50,016 its
+    16-byte rows, and the same values off 16-byte alignment give the
     same bits too.  int16 X holds counts above 127.  The result matches the
     plain version, at k = 30 and k = 5."""
     for K in (30, 5):
@@ -481,6 +481,67 @@ def test_wtx_cuda_same_bits(cuda, dtype, n):
         assert torch.equal(got, kernels.wtx(X, W))
         assert torch.equal(got, kernels.wtx(_unaligned(X), _unaligned(W)))
         _close(got, kernels.wtx_plain(X, W), 1e-4, 1e-5)
+
+
+def _at_byte_offset(t, offset):
+    """The same values in a contiguous tensor that starts ``offset`` bytes
+    into its buffer."""
+    nbytes = t.numel() * t.element_size()
+    buf = torch.empty(nbytes + 16, dtype=torch.uint8, device=t.device)
+    u = buf[offset:offset + nbytes].view(t.dtype).view(t.shape)
+    u.copy_(t)
+    return u
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["int8", "bfloat16"])
+@pytest.mark.parametrize("n", [8193, 8198, 8203, 66_667])
+def test_x_passes_cuda_any_byte_offset(cuda, dtype, n):
+    """P1/P2's bf16 path with X rows off 16-byte alignment (n mod 16 = 1,
+    6, 11; 600 genes, so P2 splits its genes at 8k cells and P1 its cells):
+    each matches its plain version, X copied to every base offset of 1-15
+    bytes (bf16: the even ones) gives the same bits, and a copy with the
+    cells padded by zeros to a multiple of 16 (every row aligned: the
+    16-byte rows of the ring) gives them too where its grid is the same."""
+    X, W, H = _x_pass_problem(n, 600, n, 40, dtype, cuda)
+    got_h, got_w = kernels.hxt(X, H), kernels.wtx(X, W)
+    _close(got_h, kernels.hxt_plain(X, H), 1e-4, 1e-5)
+    _close(got_w, kernels.wtx_plain(X, W), 1e-4, 1e-5)
+    for off in range(X.element_size(), 16, X.element_size()):
+        Xo = _at_byte_offset(X, off)
+        assert torch.equal(kernels.hxt(Xo, H), got_h), off
+        assert torch.equal(kernels.wtx(Xo, W), got_w), off
+    n16 = -(-n // 16) * 16
+    Xp = torch.zeros((600, n16), dtype=X.dtype, device=cuda)
+    Xp[:, :n] = X
+    Hp = torch.zeros((40, n16), device=cuda)
+    Hp[:, :n] = H
+    grids = lambda m: (kernels.hxt_grid(600, m, 40, X.dtype), kernels.wtx_grid(600, m, 40, X.dtype),
+                       kernels.wtx_gene_split(600, m, 40, X.dtype))
+    same = [a == b for a, b in zip(grids(n), grids(n16))]
+    assert same[1] and same[2]  # P2's grid at these widths
+    assert torch.equal(kernels.wtx(Xp, W)[:, :n], got_w)
+    if same[0]:
+        assert torch.equal(kernels.hxt(Xp, Hp), got_h)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["int8", "bfloat16"])
+@pytest.mark.parametrize("n", [8192, 8195])
+def test_x_passes_cuda_split_grids_same_bits(cuda, dtype, n):
+    """At the minibatch shape (2,000 genes x 8,192 cells, K = 40) P1 sums
+    its splits and P2 its gene ranges in the last block to finish (integer
+    arrival counters): two launches give the same bits, and the results
+    match the plain versions."""
+    X, W, H = _x_pass_problem(7, 2000, n, 40, dtype, cuda)
+    assert kernels.hxt_grid(2000, n, 40, X.dtype)[1] > 1
+    assert kernels.wtx_gene_split(2000, n, 40, X.dtype)[0] > 1
+    got_h, got_w = kernels.hxt(X, H), kernels.wtx(X, W)
+    for _ in range(2):
+        assert torch.equal(kernels.hxt(X, H), got_h)
+        assert torch.equal(kernels.wtx(X, W), got_w)
+    _close(got_h, kernels.hxt_plain(X, H), 1e-4, 1e-5)
+    _close(got_w, kernels.wtx_plain(X, W), 1e-4, 1e-5)
 
 
 @pytest.mark.cuda

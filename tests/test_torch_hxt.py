@@ -15,6 +15,7 @@ import torch
 
 from alpine_tpu_torch.ops import kernels
 from alpine_tpu_torch.ops.mu import round_partner
+from tests.test_torch_wtx import as_values, device_bytes, keep_bytes, stage_windows, words_at
 
 MMA = {"int8": torch.int8, "bfloat16": torch.bfloat16}
 KS = (1, 13, 40, 64, 65, 300, 512)
@@ -102,20 +103,37 @@ def test_hxt_grid_rejects_what_the_kernel_does_not_take():
             kernels.hxt_grid(100, 100, K, torch.int8)
 
 
-def _emulate_hxt(X, H, K):
+def _emulate_hxt(X, H, K, base=None):
     """hxt_mma's arithmetic in PyTorch over hxt_grid's grid: each (gene
     block, split) sums H rounded to bf16 times X over its cells, chunk by
-    chunk, into its partial; the partials are added in split order."""
+    chunk, into its partial; the partials are added in split order from
+    zero.  ``base`` None takes X's values as they are (the aligned path);
+    an address stages each chunk through the aligned windows of X laid out
+    there and reads a lane's 8 cells at each row's offset, masked past n
+    (lds8_at / lds16_at, keep_bytes)."""
     g, n = X.shape
     GB, n_split, cps, _, chunk = kernels.hxt_grid(g, n, K, X.dtype)
     Hb, Xf = round_partner(H, X.dtype), X.float()
+    sz = X.element_size()
+    mem = None if base is None else device_bytes(X, base)
     part = torch.zeros((n_split, K, g), dtype=torch.float32)
     for s in range(n_split):
         for c0 in range(s * cps, min(n, (s + 1) * cps), chunk):
             c1 = min(n, c0 + chunk)
+            if mem is None:
+                Xc = Xf[:, c0:c1]
+            else:
+                stage, off = stage_windows(mem, base, np.arange(g), n, sz, c0, chunk)
+                keep = (n - c0 - np.arange(0, chunk, 8)[:, None]) * sz - 4 * np.arange(2 * sz)
+                raw = np.concatenate([keep_bytes(words_at(stage, off + e * sz, 2 * sz),
+                                                 keep[e // 8][None, :])
+                                      for e in range(0, chunk, 8)], 1)
+                Xc = as_values(raw.view(np.uint8), X.dtype)
+                assert not Xc[:, c1 - c0:].any()  # cells past n read as zeros
+                Xc = Xc[:, :c1 - c0]
             for g0 in range(0, g, GB):
                 g1 = min(g, g0 + GB)
-                part[s, :, g0:g1] += Hb[:, c0:c1] @ Xf[g0:g1, c0:c1].T
+                part[s, :, g0:g1] += Hb[:, c0:c1] @ Xc[g0:g1].T
     out = torch.zeros((K, g), dtype=torch.float32)
     for s in range(n_split):
         out += part[s]
@@ -138,3 +156,49 @@ def test_hxt_grid_emulation_matches_plain(dtype, n, K):
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5, atol=0)
     # the CPU wrapper is the plain version
     assert torch.equal(kernels.hxt(X, H), want)
+
+
+@pytest.mark.parametrize("dtype", list(MMA))
+@pytest.mark.parametrize("n", [1009, 1014, 1019, 1024])
+@pytest.mark.parametrize("base", [0, 1, 6, 15])
+def test_hxt_window_staging_gives_the_aligned_bits(dtype, n, base):
+    """X at a base address off 16-byte alignment (bf16: the even address
+    below) and rows of n mod 16 = 1, 6, 11 (every row offset 0-15 occurs)
+    or 0, several splits: the chunks staged through the aligned windows
+    and read at each row's offset give the aligned path's values, so its
+    bits, and the plain version's sums at rtol 1e-5, atol 1e-5 max|plain|
+    (X holds negative values, whose bytes have the top bit set: sums near
+    zero cancel)."""
+    K = 13
+    r = np.random.default_rng(n + base)
+    if dtype == "int8":
+        X = torch.from_numpy((r.poisson(3.0, (150, n)) - r.integers(0, 2, (150, n)) * 5
+                              ).astype(np.int8))
+    else:
+        X = torch.from_numpy(r.random((150, n), dtype=np.float32) - 0.25).to(torch.bfloat16)
+    H = torch.from_numpy(r.random((K, n), dtype=np.float32) + 0.1)
+    base -= base % X.element_size()
+    assert kernels.hxt_grid(150, n, K, X.dtype)[1] > 1
+    got, want = _emulate_hxt(X, H, K, base=base), kernels.hxt_plain(X, H)
+    assert torch.equal(got, _emulate_hxt(X, H, K))
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5,
+                               atol=1e-5 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("dtype", list(MMA))
+def test_hxt_partials_stay_a_small_share_of_x(dtype):
+    """The splits' fp32 partials (splits × K × g, read back by the second
+    pass) stay within an eighth of X's bytes from 33k cells up for every
+    K, and within 3 % at the bench shape; at the minibatch shape (2,000 ×
+    8,192, K = 40) the grid keeps filling the wave (16 splits of 4 chunks,
+    the parent's grid: fewer splits took more time on the card), its
+    partials a third of X's int8 bytes."""
+    xdt = MMA[dtype]
+    sz = 1 if dtype == "int8" else 2
+    share = lambda n, K: 4 * kernels.hxt_grid(2000, n, K, xdt)[1] * K * 2000 / (2000 * n * sz)
+    for n in (33_334, 66_667, 100_000):
+        for K in range(1, 513):
+            assert share(n, K) <= 1 / 8
+    assert share(100_000, 40) <= 0.03
+    assert kernels.hxt_grid(2000, 8192, 40, torch.int8) == (128, 16, 512, 3, 128)
+    assert 0.3 < share(8192, 40) * sz < 0.32
