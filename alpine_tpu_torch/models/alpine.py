@@ -23,7 +23,15 @@ A fit keeps its device copy of X, and a ``transform`` of the same data
 reuses it.  ``verbose=True`` shows the JAX package's progress bar.
 ``get_normalized_expression`` exports corrected expression blockwise;
 ``save``/``load`` read and write the JAX package's files
-(``io/checkpoint.py``).  Multi-GPU and multi-process fits are not ported.
+(``io/checkpoint.py``).
+
+``device=distributed.global_cell_mesh()`` fits over processes, one a
+device: each process passes its own cells as ``adata``, its fit and
+transform compute on those cells (``mu.fit_scan_sharded``: one all-reduce
+of the small statistics an iteration) and write its rows of ``obsm``,
+while W, the Bs and the loss history are replicated.  Full-batch joint
+fits and transforms run so; the other fit modes raise
+``NotImplementedError`` there (ROADMAP §1 item 1B).
 
 Random draws come from ``torch.Generator``s seeded with ``random_state``
 through ``draw_init``, ``draw_restart_init``, ``draw_counts_stream``,
@@ -34,8 +42,8 @@ tiled pre-shuffle is numpy's, as in the JAX package.
 
 from __future__ import annotations
 
+import hashlib
 import os
-import time
 import warnings
 from copy import copy, deepcopy
 from typing import Dict, List, Optional, Union
@@ -43,16 +51,19 @@ from typing import Dict, List, Optional, Union
 import numpy as np
 import torch
 
+from alpine_tpu_torch import profiling
 from alpine_tpu_torch.io.checkpoint import (
     FitCheckpointer, check_backend, load_model, save_model,
 )
 from alpine_tpu_torch.models.state import AlpineMatrices, split_h, split_w
 from alpine_tpu_torch.ops import mu
 from alpine_tpu_torch.ops.elbow import find_elbow
-from alpine_tpu_torch.parallel.mesh import resolve_device
+from alpine_tpu_torch.parallel.mesh import (
+    Placement, describe_device, resolve_device, restore_device,
+)
 from alpine_tpu_torch.utils.adata import (
-    as_compressed, dense_x, is_anndata, is_sparse_x, obs_is_categorical,
-    obs_keys, suggest_data_dtype, x_min,
+    as_compressed, dense_x, dtype_can_store, is_anndata, is_sparse_x,
+    obs_is_categorical, obs_keys, suggest_data_dtype, x_min,
 )
 from alpine_tpu_torch.utils.encoder import FeatureEncoders
 from alpine_tpu_torch.utils.sampling import (
@@ -290,7 +301,7 @@ class ALPINE:
             adata, covariate_keys, batch_size, max_iter, sampling_method, verbose
         )
         # the reference's checks and messages (alpine_tpu/models/alpine.py:
-        # 153-171), then what this slice leaves out
+        # 153-236)
         if checkpoint_dir is not None and not isinstance(checkpoint_dir, str):
             raise TypeError("checkpoint_dir must be a string or None.")
         if not isinstance(checkpoint_every, int) or checkpoint_every <= 0:
@@ -299,6 +310,13 @@ class ALPINE:
             raise ValueError("n_restarts must be a positive integer.")
         if n_restarts > 1 and checkpoint_dir is not None:
             raise ValueError("n_restarts > 1 is incompatible with checkpointing.")
+        placement = Placement(self.device)
+        sharded = placement.is_sharded
+        if n_restarts > 1 and sharded:
+            # before the upload, as the reference refuses it
+            raise ValueError(
+                "n_restarts > 1 is not supported with a sharded (Mesh) device."
+            )
         if checkpoint_dir is not None and checkpoint_backend not in ("npz", "orbax"):
             raise ValueError("checkpoint backend must be 'npz' or 'orbax'")
         if checkpoint_dir is not None:
@@ -325,7 +343,39 @@ class ALPINE:
                 "batch_size (< n_cells); full-batch fits use "
                 "sampling_method='random'."
             )
-        n_sample = adata.shape[0]
+        if sharded and sampling_method == "weighted":
+            # the gathered draw needs a global pre-shuffle: a cell exchange
+            # across processes
+            raise ValueError(
+                "sampling_method='weighted' is not supported in "
+                "multi-process fits; use 'weighted_fast' (the exact "
+                "balanced counts strategy — supported multi-process) "
+                "or 'random'."
+            )
+
+        # (genes x cells) layout, as in the reference (main.py:104); on a
+        # cell mesh this process's cells
+        X: Float32Array = dense_x(adata.X).T
+        n_local = X.shape[1]
+        resolved_dtype = (suggest_data_dtype(adata.X) if self.data_dtype == "auto"
+                          else self.data_dtype)
+        fe = FeatureEncoders(covariate_keys)
+        Ys = [y.T.copy() for y in fe.fit_transform(adata.obs)]
+        n_sample, offset = n_local, 0  # the global cell count, this run's start
+        if sharded:
+            resolved_dtype, chunk_sizes = self._agree_fit_inputs(
+                placement, X, Ys, fe, covariate_keys, resolved_dtype,
+                max_iter=max_iter, batch_size=batch_size,
+                checkpoint_dir=checkpoint_dir, checkpoint_every=checkpoint_every)
+            n_sample = int(chunk_sizes.sum())
+            offset = int(chunk_sizes[:placement.process_chunk_index].sum())
+        if (sharded and self.use_als and batch_size is not None
+                and batch_size < n_sample):
+            raise ValueError(
+                "ALS minibatch fits are not supported in multi-process "
+                "mode; use full-batch ALS (batch_size=None) or joint-mode "
+                "minibatch (use_als=False)."
+            )
         if sampling_method == "tiled" and batch_size >= n_sample:
             raise ValueError(
                 f"sampling_method='tiled' is a minibatch mode: batch_size "
@@ -340,18 +390,16 @@ class ALPINE:
                 f"n_cells ({n_sample}); minibatch weighted fits use "
                 f"sampling_method='weighted'."
             )
-
-        # (genes x cells) layout, as in the reference (main.py:104)
-        X: Float32Array = dense_x(adata.X).T
-        resolved_dtype = (suggest_data_dtype(adata.X) if self.data_dtype == "auto"
-                          else self.data_dtype)
-        fe = FeatureEncoders(covariate_keys)
-        Ys = [y.T.copy() for y in fe.fit_transform(adata.obs)]
+        if sharded:
+            # after the first collectives, so every process raises together
+            self._refuse_unported_sharded(n_sample, batch_size, sampling_method,
+                                          checkpoint_dir)
+        coordinator = placement.process_chunk_index == 0
 
         # commit estimator state only after the encoders fitted
         self.fe = fe
         self.data_dtype_ = resolved_dtype
-        if verbose and self.data_dtype == "auto":
+        if verbose and coordinator and self.data_dtype == "auto":
             print(f"ALPINE fit: data_dtype='auto' resolved to '{resolved_dtype}'")
         self.feature_names: List[str] = list(adata.var_names.tolist())
         self.n_features: int = adata.shape[1]
@@ -360,7 +408,7 @@ class ALPINE:
         self.verbose: bool = verbose
         self.batch_size: int = batch_size if batch_size is not None else n_sample
 
-        dev = self.device
+        dev = placement.device
         rs = self.random_state
         tiled = sampling_method == "tiled"
         # tiled fits permute whole tiles, so the cell axis is zero-padded to
@@ -397,12 +445,14 @@ class ALPINE:
             Ysd = [y[:, perm] for y in Ysd]
         # the device X of a same-data transform; installed after the fit
         new_x_cache = (None if _no_x_cache() else
-                       (Xd, self._x_fingerprint(adata.X), n_sample, cell_perm, pad))
+                       (Xd, self._x_fingerprint(adata.X), n_local, cell_perm, pad))
         hyper = self._hyper()
         true_blocks = tuple(self.n_all_components)
         self.timings_: Dict[str, float] = {}
-        # no callback without verbose: the fit loop then never syncs
-        progress = _Progress(max_iter or 200) if verbose else None
+        timer = profiling.StepTimer(self.timings_)
+        # no callback without verbose (the fit loop then never syncs), and
+        # one bar a sharded fit, the coordinator's
+        progress = _Progress(max_iter or 200) if verbose and coordinator else None
 
         def init(cfg, restart=0):
             if restart:
@@ -414,9 +464,16 @@ class ALPINE:
                 # phantom components start (and stay) exactly zero
                 W0, H0, Bs0 = mu.mask_block_padding(cfg.blocks, true_blocks,
                                                     W0, H0, Bs0)
+            if sharded:
+                # every process draws the global H0 and keeps its own
+                # columns, so the trajectory is the single-process one
+                H0 = H0[:, offset:offset + n_local].contiguous()
             return W0, H0, Bs0
 
         def fit_from(cfg, W0, H0, Bs0, restart=0, chunk=None, report=progress):
+            if sharded:
+                return mu.fit_scan_sharded(cfg, placement.mesh, W0, H0, Bs0, Xd,
+                                           Ysd, hyper, progress=report)
             key = dict(restart=restart, chunk=chunk)
             draw = (None if tables is None else
                     draw_counts_stream(tables, n_sample, rs, dev, **key))
@@ -482,36 +539,37 @@ class ALPINE:
             return cfg, (W, H, Bs, torch.from_numpy(np.concatenate(parts)))
 
         try:
-            t0 = time.perf_counter()
             if max_iter is None:
-                # warm-up elbow search (reference main.py:114-131)
-                _, (_, _, _, losses) = run(200)
-                recon = losses[:, 1].cpu().numpy()
+                # warm-up elbow search (reference main.py:114-131) on the
+                # loss history, replicated on a cell mesh
+                with timer.phase("warmup"):
+                    _, (_, _, _, losses) = run(200)
+                    recon = losses[:, 1].cpu().numpy()
                 self.max_iter: int = self._compute_best_iter(recon)
-                self.timings_["warmup"] = time.perf_counter() - t0
                 if progress is not None:
                     progress.reset(self.max_iter)
-                t0 = time.perf_counter()
             else:
                 self.max_iter = max_iter
-            if checkpoint_dir is not None:
-                cfg, (Wd, Hd, Bsd, losses) = run_checkpointed(self.max_iter)
-            else:
-                cfg, (Wd, Hd, Bsd, losses) = run(self.max_iter)
-            if self.scale_needed:
-                Wd, Hd, Bsd = mu.scale_matrices(cfg.blocks, Wd, Hd, Bsd)
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-            self.timings_["fit"] = time.perf_counter() - t0
+            with timer.phase("fit"):
+                if checkpoint_dir is not None:
+                    cfg, (Wd, Hd, Bsd, losses) = run_checkpointed(self.max_iter)
+                else:
+                    cfg, (Wd, Hd, Bsd, losses) = run(self.max_iter)
+                if self.scale_needed:
+                    Wd, Hd, Bsd = mu.scale_matrices(cfg.blocks, Wd, Hd, Bsd)
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
         finally:
             if progress is not None:
                 progress.close()
 
         self.loss_history_ = losses.cpu().numpy()
-        if verbose and len(self.loss_history_):
+        if verbose and coordinator and len(self.loss_history_):
             print(f"ALPINE fit: {self.max_iter} iterations, final objective "
                   f"loss {self.loss_history_[-1, 0]:.6g}")
 
+        # on a cell mesh H holds this process's cells; W, Bs and the losses
+        # are replicated
         W_np, H_np = Wd.cpu().numpy(), Hd.cpu().numpy()
         Bs_np = [b.cpu().numpy() for b in Bsd]
         if cell_perm is not None:
@@ -655,10 +713,16 @@ class ALPINE:
         self._x_cache = None
 
     def __getstate__(self):
-        # a pickle carries no device tensors (the cache holds all of X)
+        # a pickle carries no device tensors (the cache holds all of X), and
+        # a cell mesh travels as a descriptor rebuilt on load
         state = dict(self.__dict__)
         state["_x_cache"] = None
+        state["device"] = describe_device(state.get("device"))
         return state
+
+    def __setstate__(self, state):
+        state["device"] = restore_device(state.get("device"))
+        self.__dict__.update(state)
 
     def get_normalized_expression(self, adata, library_size: Optional[float] = None,
                                   on_device: bool = True,
@@ -706,7 +770,7 @@ class ALPINE:
 
         counts = np.empty(n_cells, np.float32)
         mu.reconstruct_expression_blocks(
-            W, H, out, counts, cell_block_size, device=self.device,
+            W, H, out, counts, cell_block_size, device=self._compute_device,
             precision=self.matmul_precision, on_device=on_device)
         fac = library_size_factors(counts, library_size)
         for lo in range(0, n_cells, cell_block_size):
@@ -746,6 +810,86 @@ class ALPINE:
             adata.varm[covariate] = copy(self.matrices["Ws"][i])
 
     # ------------------------------------------------------------ internals
+    @property
+    def _compute_device(self) -> torch.device:
+        """The device this process computes on (its own on a cell mesh)."""
+        return Placement(self.device).device
+
+    def _agree_fit_inputs(self, placement, X, Ys, fe, covariate_keys,
+                          resolved_dtype, *, max_iter, batch_size,
+                          checkpoint_dir, checkpoint_every):
+        """The sharded fit's first collectives, in the reference's order
+        (alpine_tpu/models/alpine.py:264-374): every fit input that shapes
+        the collective sequence or the replicated trajectory is compared
+        across processes, ``data_dtype="auto"`` takes the widest storage any
+        process resolved, the processes' cell counts are gathered, and an
+        explicit integer dtype that one process's cells cannot store raises
+        on every process.  Returns (storage dtype, cell counts in mesh
+        order)."""
+        from alpine_tpu_torch.parallel import distributed as dist
+
+        def digest(blob: str) -> int:
+            return int.from_bytes(hashlib.sha256(blob.encode()).digest()[:6],
+                                  "big")
+
+        def label_hash(key):
+            return digest("\x1f".join(map(str, fe.encoded_labels[key])))
+
+        ctor = digest(repr((
+            self.n_components, tuple(self.n_covariate_components),
+            tuple(float(v) for v in np.atleast_1d(self.lam)),
+            float(self.orth_W), float(self.alpha_W), float(self.l1_ratio_W),
+            self.loss_type, self.use_als, self.scale_needed, float(self.eps),
+            self.random_state, self.matmul_precision, self.component_bucket,
+        )))
+        dist.assert_same_across_processes(
+            [X.shape[0], placement.local_cell_shards,
+             mu.DATA_DTYPES.index(self.data_dtype), ctor,
+             int(checkpoint_dir is not None),
+             checkpoint_every if checkpoint_dir is not None else -1,
+             -1 if max_iter is None else int(max_iter),
+             -1 if batch_size is None else int(batch_size)]
+            + [y.shape[0] for y in Ys]
+            + [label_hash(k) for k in covariate_keys],
+            "per-process fit inputs (gene count, per-process device "
+            "count, data_dtype setting, model hyperparameters, "
+            "checkpointing, max_iter, batch_size, covariate label "
+            "sets)",
+        )
+        if self.data_dtype == "auto":
+            codes = dist.process_allgather_rows(np.asarray(
+                [mu.STORAGE_DTYPES.index(resolved_dtype)], np.int64))
+            resolved_dtype = mu.STORAGE_DTYPES[int(codes.max())]
+        sizes = dist.chunk_cell_sizes(placement, X.shape[1])
+        if self.data_dtype != "auto" and resolved_dtype in ("int8", "int16"):
+            bad = float(not dtype_can_store(resolved_dtype, X))
+            if dist.process_allgather_rows(np.asarray([bad])).any():
+                limit = np.iinfo(resolved_dtype).max
+                raise ValueError(
+                    f"data_dtype='{resolved_dtype}' cannot represent "
+                    "the data on at least one process's shard "
+                    f"(requires integer values in [0, {limit}])."
+                )
+        return resolved_dtype, sizes
+
+    def _refuse_unported_sharded(self, n_sample: int, batch_size,
+                                 sampling_method: str, checkpoint_dir) -> None:
+        """The fit modes the JAX package runs over processes that the port
+        does not run on a cell mesh yet."""
+        unported = [
+            ("sampling_method='weighted_fast'", sampling_method == "weighted_fast"),
+            ("sampling_method='tiled'", sampling_method == "tiled"),
+            ("a minibatch fit (batch_size < n_cells)",
+             batch_size is not None and batch_size < n_sample),
+            ("a full-batch ALS fit (use_als=True)", self.use_als),
+            ("checkpoint_dir (mid-fit checkpoints)", checkpoint_dir is not None),
+        ]
+        for what, refused in unported:
+            if refused:
+                raise NotImplementedError(
+                    f"{what} on a cell mesh is not ported yet (ROADMAP §1 "
+                    "item 1B); full-batch joint fits run sharded.")
+
     @property
     def _storage_dtype(self) -> str:
         """The resolved X storage dtype (`data_dtype_`, set at fit); before
@@ -815,7 +959,7 @@ class ALPINE:
         f32 = lambda v: float(np.float32(v))
         return (
             torch.tensor(np.asarray(self.lam, dtype=np.float32).reshape(-1),
-                         device=self.device),
+                         device=self._compute_device),
             f32(self.orth_W), f32(self.alpha_W), f32(self.l1_ratio_W),
             f32(self.eps),
         )
@@ -902,18 +1046,45 @@ class ALPINE:
         weighted_fast or tiled fit its cells are permuted (and, tiled,
         zero-padded), so H0 is re-paired to them, padded with zero columns
         and the result stripped and un-permuted (each cell's projection is
-        independent of the others)."""
+        independent of the others).
+
+        On a cell mesh each process projects its own cells: the inputs are
+        compared across processes first, the global H0 is drawn on every
+        process and sliced to its columns, and the device-X cache is used
+        only where every process hits it (alpine_tpu/models/alpine.py:
+        1536-1670)."""
+        placement = Placement(self.device)
+        sharded = placement.is_sharded
+        if sharded:
+            from alpine_tpu_torch.parallel import distributed as dist
+
+            # before any check that one process could fail alone
+            dist.assert_same_across_processes(
+                [adata.shape[1], placement.local_cell_shards,
+                 mu.STORAGE_DTYPES.index(self._storage_dtype)],
+                "per-process transform inputs (genes, per-process device "
+                "count, model storage dtype)",
+            )
         if adata.shape[1] != self.n_features:
             raise ValueError(
                 f"adata has {adata.shape[1]} genes but the model was fit "
                 f"on {self.n_features}; transform requires the same gene "
                 "axis (same order) as the training data."
             )
-        dev = self.device
+        dev = placement.device
         n_sample = adata.shape[0]
         cached = getattr(self, "_x_cache", None)
-        if (cached is not None and not _no_x_cache() and cached[2] == n_sample
-                and cached[1] == self._x_fingerprint(adata.X)):
+        use_cache = (cached is not None and not _no_x_cache()
+                     and cached[2] == n_sample
+                     and cached[1] == self._x_fingerprint(adata.X))
+        n_global, offset = n_sample, 0
+        if sharded:
+            sizes = dist.chunk_cell_sizes(placement, n_sample)
+            n_global = int(sizes.sum())
+            offset = int(sizes[:placement.process_chunk_index].sum())
+            use_cache = bool(dist.process_allgather_rows(
+                np.asarray([float(use_cache)])).all())
+        if use_cache:
             X, cell_perm, pad = cached[0], cached[3], cached[4]  # validated at fit
         else:
             if not (x_min(adata.X) >= 0):  # NaN fails this like a negative
@@ -921,8 +1092,10 @@ class ALPINE:
             # out-of-sample data need not be integer-representable
             X = self._cast_x_host(dense_x(adata.X).T, strict=False).to(dev)
             cell_perm, pad = None, 0
-        H0 = draw_transform_h0(self.total_components, n_sample,
+        H0 = draw_transform_h0(self.total_components, n_global,
                                self.random_state, self.eps, dev)
+        if sharded:
+            H0 = H0[:, offset:offset + n_sample].contiguous()
         if cell_perm is not None:
             # device column p is caller cell cell_perm[p]
             H0 = H0[:, torch.from_numpy(cell_perm).to(dev)]
@@ -930,7 +1103,8 @@ class ALPINE:
             H0 = torch.nn.functional.pad(H0, (0, pad))
         W = torch.from_numpy(np.concatenate(self.matrices["Ws"], axis=1)).to(dev)
         H = mu.run_transform(W, X, H0, float(np.float32(self.eps)),
-                             n_iter=n_iter, precision=self.matmul_precision)
+                             n_iter=n_iter, precision=self.matmul_precision,
+                             mesh=placement.mesh)
         H_np = H[:, :n_sample].cpu().numpy()
         if cell_perm is not None:
             H_np = H_np[:, np.argsort(cell_perm)]

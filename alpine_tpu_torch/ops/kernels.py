@@ -25,7 +25,7 @@ import torch
 
 from alpine_tpu_torch.ops import _build
 from alpine_tpu_torch.ops.mu import (
-    block_offsets, guided_width, round_partner,
+    _wide, block_offsets, guided_width, round_partner,
 )
 
 launches: Dict[str, int] = {"fused_iteration": 0, "fused_iteration_counts": 0,
@@ -222,7 +222,7 @@ def _embed_b(Bs: Sequence[torch.Tensor], blocks: Tuple[int, ...]) -> torch.Tenso
     zeros elsewhere, so one product serves every covariate."""
     Kg = guided_width(blocks)
     L = sum(b.shape[0] for b in Bs)
-    Bg = torch.zeros((L, Kg), dtype=torch.float32, device=Bs[0].device)
+    Bg = torch.zeros((L, Kg), dtype=Bs[0].dtype, device=Bs[0].device)
     row = 0
     for c, (B, o) in enumerate(zip(Bs, block_offsets(blocks))):
         Bg[row:row + B.shape[0], o:o + blocks[c]] = B
@@ -263,15 +263,15 @@ def _split_stats(blocks, n_labels, bnum_all, rowsum, pred_rows):
 def fused_iteration_plain(X, W, H, WtW, Ys, Bs, lam, eps, counts=None, *,
                           blocks, loss_kl):
     """Plain PyTorch version of ``fused_iteration`` (same arguments and
-    return tuple)."""
+    return tuple; float64 inputs compute in float64)."""
     blocks = tuple(blocks)
-    Xf = X.float()
+    Xf = _wide(X)
     WtX = round_partner(W, X.dtype).T @ Xf
     num = 2.0 * WtX
     den = 2.0 * (WtW @ H)
     Kg = guided_width(blocks)
     if Ys:
-        Yf = torch.cat([y.float() for y in Ys])
+        Yf = torch.cat([_wide(y) for y in Ys])
         Bg = _embed_b(Bs, blocks)
         lam_rows = _lam_rows(lam, blocks)[:, None]
         BH = Bg @ H[:Kg]

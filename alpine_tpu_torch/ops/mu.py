@@ -54,6 +54,8 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from alpine_tpu_torch import profiling
+
 # The model-layer data_dtype vocabulary, narrowest storage first.
 STORAGE_DTYPES = ("int8", "int16", "bfloat16", "float32")
 DATA_DTYPES = ("auto",) + STORAGE_DTYPES
@@ -185,14 +187,21 @@ def _clamp(x: torch.Tensor, eps: float) -> torch.Tensor:
     return torch.clamp(x, min=eps)
 
 
+def _wide(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in float32, or float64 where it is float64 (integer and bf16
+    values widen exactly)."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
 def _norm_x2(X: torch.Tensor) -> torch.Tensor:
-    """‖X‖_F² in float32 (integer X widens first: int squares overflow),
-    summed over chunks of about 2^24 values, so that no float32 copy of
-    all of X is made (a single chunk, and one sum, below that size)."""
+    """‖X‖_F² in float32 (float64 for float64 X; integer X widens first:
+    int squares overflow), summed over chunks of about 2^24 values, so that
+    no float32 copy of all of X is made (a single chunk, and one sum, below
+    that size)."""
     rows = max(1, (1 << 24) // max(1, X.shape[1]))
     total = 0.0
     for chunk in torch.split(X, rows):
-        cf = chunk.float()
+        cf = _wide(chunk)
         total = total + torch.sum(cf * cf)
     return total
 
@@ -472,7 +481,10 @@ def progress_every(max_iter: int) -> int:
 
 def _report(progress, losses, it: int, max_iter: int) -> None:
     """``progress(done, objective loss)`` every ``progress_every(max_iter)``
-    iterations and after the last one; the loss is read to the host there."""
+    iterations and after the last one; the loss is read to the host there.
+    With ``profiling.enable_debug_checks()`` every loss row is checked for
+    non-finite values first."""
+    profiling.check_loss_row(losses[it], it)
     done = it + 1
     if progress is not None and (done % progress_every(max_iter) == 0
                                  or done == max_iter):
@@ -532,8 +544,8 @@ def _fit_scan_steps(cfg: MUConfig, W0, H0, Bs0, X, Ys, hyper, draw_counts,
 
     W, Bs = W0, tuple(Bs0)
     H = H0.clone() if cfg.minibatch else H0  # batches scatter into H
-    losses = torch.empty((cfg.max_iter, 2 + cfg.n_cov), dtype=torch.float32,
-                         device=X.device)
+    losses = torch.empty((cfg.max_iter, 2 + cfg.n_cov), device=X.device,
+                         dtype=torch.promote_types(W0.dtype, torch.float32))
     for it in range(cfg.max_iter):
         if not cfg.minibatch:
             W, Bs, H, (WtX, WtW) = step(W, Bs, H, X, Xf, Ys_f, it)
@@ -716,6 +728,133 @@ def fit_scan(cfg: MUConfig, W0, H0, Bs0, X, Ys, hyper, draw_counts=None,
 
 
 # ---------------------------------------------------------------------------
+# The sharded fit loop: each process fits its own cells
+# ---------------------------------------------------------------------------
+
+
+def _all_reduce_parts(parts, group, tag: str):
+    """Sum every tensor of ``parts`` over the ranks of ``group`` with ONE
+    all-reduce of a flat buffer of their dtype (counted under ``tag``), and
+    return them in their shapes."""
+    from alpine_tpu_torch.parallel.distributed import all_reduce_sum
+
+    flat = torch.cat([p.reshape(-1) for p in parts])
+    all_reduce_sum(flat, group, tag=tag)
+    out, off = [], 0
+    for p in parts:
+        out.append(flat[off:off + p.numel()].view(p.shape))
+        off += p.numel()
+    return out
+
+
+def _fit_scan_sharded(cfg: MUConfig, group, W0, H0, Bs0, X, Ys, hyper,
+                      progress):
+    """The loop of ``_fit_scan_fused`` on this process's cells, with the
+    statistics summed over the processes: X, H0 and the Ys hold this
+    process's columns, W0 and Bs0 are replicated.
+
+    Before the loop ‖X‖², the first X Hᵀ (the kernel ``hxt``), H Hᵀ and the
+    B statistics are computed on the local cells and summed in one
+    all-reduce.  Each iteration then runs the replicated W and B updates,
+    the kernel (``fused_iteration``, or ``fused_h_update`` without
+    covariates) on the local cells, and ONE all-reduce of X Hᵀ, H Hᵀ, the
+    loss dot, the prediction losses and the B statistics: genes × K + K × K
+    + 1 + n_cov + Σ labels_i × k_i + Σ k_i values, independent of the cell
+    count.  Every process computes W and the Bs from the same summed
+    values, so they stay bit-identical across processes, and so does the
+    loss history.
+
+    The kernels take any cell count and mask the ragged last tile, so the
+    shards are not padded and no padding bias is stripped from the KL loss
+    (the JAX package pads each shard to a tile multiple and removes that
+    bias).  ``cfg.backend == "plain"`` runs the kernels' plain versions in
+    X's precision (float64 X stays float64), for the float64 checks."""
+    from alpine_tpu_torch.ops import kernels
+
+    lam, _, _, _, eps = hyper
+    fused = cfg.backend == "fused"
+    normX2 = _norm_x2(X)
+    W, H, Bs = W0, H0, tuple(Bs0)
+    Ys_f = [_wide(y) for y in Ys]
+    XHt = kernels.hxt(X, H).T if fused else _x_ht(X, _wide(X), H)
+    HHt = H @ H.T
+    bnums, bdens = (_b_stats(cfg, hyper, Bs, H, Ys_f) if cfg.n_cov
+                    else ((), ()))
+    del Ys_f
+    n_cov = cfg.n_cov
+    normX2, XHt, HHt, *stats = _all_reduce_parts(
+        [torch.as_tensor(normX2, dtype=HHt.dtype), XHt, HHt, *bnums, *bdens],
+        group, "setup")
+    bnums, bdens = tuple(stats[:n_cov]), tuple(stats[n_cov:])
+    if fused:
+        iteration, h_update = kernels.fused_iteration, kernels.fused_h_update
+    else:
+        iteration = kernels.fused_iteration_plain
+        h_update = kernels.fused_h_update_plain
+
+    losses = torch.empty((cfg.max_iter, 2 + n_cov), device=X.device,
+                         dtype=torch.promote_types(W0.dtype, torch.float32))
+    for it in range(cfg.max_iter):
+        W = _update_w(hyper, W, XHt, HHt)
+        WtW = W.T @ W
+        if n_cov:
+            Bs = _update_bs(cfg, hyper, Bs, bnums, bdens, HHt)
+            H, XHt, HHt, lossdot, preds, bnums, bdens = iteration(
+                X, W, H, WtW, Ys, Bs, lam, eps, blocks=cfg.blocks,
+                loss_kl=cfg.loss_kl)
+        else:
+            H, XHt, HHt, lossdot = h_update(X, W, H, WtW, eps)
+            preds = ()
+        XHt, HHt, lossdot, *stats = _all_reduce_parts(
+            [XHt, HHt, lossdot, *preds, *bnums, *bdens], group, "iteration")
+        preds = stats[:n_cov]
+        bnums = tuple(stats[n_cov:2 * n_cov])
+        bdens = tuple(stats[2 * n_cov:])
+        recon = normX2 - 2.0 * lossdot + torch.sum(WtW * HHt)
+        total = recon
+        for i in range(n_cov):
+            total = total + lam[i] * preds[i]
+        losses[it] = torch.stack([total, recon, *preds])
+        _report(progress, losses, it, cfg.max_iter)
+    return W, H, Bs, losses
+
+
+def fit_scan_sharded(cfg: MUConfig, mesh, W0, H0, Bs0, X, Ys, hyper,
+                     progress=None):
+    """Full-batch joint MU over a 1-D cell mesh, one process a device (the
+    counterpart of ``alpine_tpu.ops.mu.fit_scan_sharded``).
+
+    ``cfg.n_cells`` is the global cell count; ``X`` (genes × n_local),
+    ``H0`` (K × n_local) and ``Ys`` hold this process's cells, ``W0`` and
+    ``Bs0`` the replicated initial state; every process of the mesh calls
+    this with the same ``cfg``, ``W0``, ``Bs0`` and ``hyper``.  Returns
+    (W, H, Bs, losses) with H this process's columns and W, Bs and losses
+    replicated (bit-identical on every process).  ``progress`` as in
+    ``fit_scan``."""
+    if (cfg.use_als or cfg.minibatch or cfg.weighted_counts
+            or cfg.backend != "fused"):
+        raise ValueError(
+            "fit_scan_sharded requires full-batch joint mode with the fused "
+            "backend")
+    from alpine_tpu_torch.parallel.mesh import Placement
+
+    X = X.to(cfg.xdt).contiguous()
+    Ys = [y.to(cfg.xdt).contiguous() for y in Ys]
+    n_local = X.shape[1]
+    if (H0.shape != (cfg.K, n_local) or W0.shape != (X.shape[0], cfg.K)
+            or len(Ys) != cfg.n_cov or any(y.shape[1] != n_local for y in Ys)):
+        raise ValueError(
+            f"X, H0 and Ys must hold this process's cells and W0 be (genes, "
+            f"{cfg.K}); got X {tuple(X.shape)}, H0 {tuple(H0.shape)}, W0 "
+            f"{tuple(W0.shape)}")
+    group = Placement(mesh).group
+    with matmul_precision(cfg.precision):
+        return _fit_scan_sharded(cfg, group, W0.contiguous(), H0.contiguous(),
+                                 tuple(b.contiguous() for b in Bs0), X, Ys,
+                                 hyper, progress)
+
+
+# ---------------------------------------------------------------------------
 # Transform (out-of-sample projection)
 # ---------------------------------------------------------------------------
 
@@ -733,10 +872,20 @@ def transform_scan(W, X, H0, eps: float, *, n_iter: int) -> torch.Tensor:
 
 
 def run_transform(W, X, H0, eps: float, *, n_iter: int,
-                  precision: str = "highest", fused: bool = True):
+                  precision: str = "highest", fused: bool = True, mesh=None):
     """Projection entry point: the fused kernel (all iterations on chip
     per cell tile) or the plain loop.  ``2WᵀX`` widens X to f32 without
-    rounding W, as the JAX package's transform does."""
+    rounding W, as the JAX package's transform does.
+
+    With a cell ``mesh``, X and H0 are this process's columns and the
+    result is too: a column's projection reads only that column and the
+    replicated W, so each process runs ``2WᵀX`` and the kernel on its own
+    cells with no communication (the JAX package's shard_map of the
+    kernel)."""
+    if mesh is not None:
+        from alpine_tpu_torch.parallel.mesh import resolve_device
+
+        resolve_device(mesh)  # a 1-D cell mesh
     from alpine_tpu_torch.ops import kernels
 
     with matmul_precision(precision):

@@ -21,9 +21,9 @@ What differs from the JAX package:
   needs neither scikit-learn nor pandas, which only ``get_train_history``
   imports;
 - one process: the JAX package's multi-process route (trial-level
-  parallel rounds, ``tpe.fmin_parallel``) waits for the port's
-  multi-process slice, and a ``device`` that ``resolve_device`` rejects
-  raises its error.
+  parallel rounds, ``tpe.fmin_parallel``) is not ported yet, so a cell mesh
+  as ``device`` raises ``NotImplementedError`` (ROADMAP §1 item 1C), and a
+  ``device`` that ``resolve_device`` rejects raises its error.
 """
 
 from __future__ import annotations
@@ -49,7 +49,7 @@ from alpine_tpu_torch.optimize.tpe import (
     load_foreign_pickle,
     tpe,
 )
-from alpine_tpu_torch.parallel.mesh import resolve_device
+from alpine_tpu_torch.parallel.mesh import is_mesh, resolve_device
 from alpine_tpu_torch.utils.adata import (
     dtype_can_store, is_anndata, is_na, obs_column, obs_keys, suggest_data_dtype,
 )
@@ -224,6 +224,11 @@ class ComponentOptimizer:
 
         # where the trial fits run: one process, the resolved device
         self._exec_device = resolve_device(device)
+        if is_mesh(self._exec_device):
+            raise NotImplementedError(
+                "ComponentOptimizer on a cell mesh (the multi-process "
+                "search) is not ported yet (ROADMAP §1 item 1C); pass one "
+                "device.")
 
         self.adata = adata.copy()
         self.covariate_keys: List[str] = covariate_keys

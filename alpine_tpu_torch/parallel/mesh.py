@@ -1,23 +1,65 @@
-"""Device resolution for the port (single device; cell-axis sharding over
-several GPUs is a later slice).
+"""Device resolution and cell-axis placement for the port.
 
-Counterpart of ``alpine_tpu/parallel/mesh.py:resolve_device``, with one
-deliberate difference: there is no silent CPU fallback.  The estimator runs
-on the card unless the caller asks for the CPU."""
+Counterpart of ``alpine_tpu/parallel/mesh.py``.  ``resolve_device`` maps
+the estimator's ``device`` argument to a ``torch.device`` or to a 1-D
+``torch.distributed.device_mesh.DeviceMesh`` over the processes (from
+``distributed.global_cell_mesh``), with one deliberate difference from the
+JAX package: there is no silent CPU fallback.  The estimator runs on the
+card unless the caller asks for the CPU.
+
+On a cell mesh each process computes on one device and holds one
+contiguous run of the cells: its columns of X, H and the Ys.  W and the Bs
+are replicated, and each fit iteration sums the small per-process
+statistics with one all-reduce (``ops/mu.py:fit_scan_sharded``).  Any cell
+mesh takes that path, whatever its size: a mesh of one process is the
+degenerate case, whose all-reduce changes nothing.  The JAX package's
+single-process multi-device mesh (``make_cell_mesh``) has no counterpart:
+in PyTorch's idiom a process drives one card, so several cards are several
+processes.
+"""
 
 from __future__ import annotations
 
 import torch
 
+CELL_AXIS = "cells"
+GENE_AXIS = "genes"
 
-def resolve_device(device="cuda") -> torch.device:
-    """Map the user-facing ``device`` argument to a ``torch.device``.
+
+def is_mesh(obj) -> bool:
+    """Whether ``obj`` is a ``torch.distributed`` DeviceMesh."""
+    if not torch.distributed.is_available():
+        return False
+    from torch.distributed.device_mesh import DeviceMesh
+
+    return isinstance(obj, DeviceMesh)
+
+
+def _resolve_mesh(mesh):
+    names = tuple(mesh.mesh_dim_names or ())
+    if mesh.ndim == 1:
+        return mesh
+    if mesh.ndim == 2 and names == (GENE_AXIS, CELL_AXIS):
+        raise NotImplementedError(
+            "the 2-D ('genes', 'cells') mesh is not ported yet (ROADMAP §1 "
+            "item 1D); pass a 1-D cell mesh (distributed.global_cell_mesh())")
+    raise ValueError(
+        "ALPINE expects a 1-D mesh (cell-axis sharding) or a 2-D mesh "
+        f"with axes ('genes', 'cells'); got axes {names}"
+    )
+
+
+def resolve_device(device="cuda"):
+    """Map the user-facing ``device`` argument to a ``torch.device``, or to
+    the 1-D cell mesh it is.
 
     ``"cuda"`` (the default) and ``"auto"`` mean the current CUDA device;
     ``"cpu"`` is accepted (the tests use it).  Asking for the card where
     there is none raises instead of falling back to the CPU."""
     if device is None or (isinstance(device, str) and device == "auto"):
         device = "cuda"
+    if is_mesh(device):
+        return _resolve_mesh(device)
     if isinstance(device, str):
         try:
             dev = torch.device(device)
@@ -27,7 +69,8 @@ def resolve_device(device="cuda") -> torch.device:
         dev = device
     else:
         raise TypeError(
-            f"device must be a string or torch.device, got {type(device)}")
+            f"device must be a string, torch.device or DeviceMesh, got "
+            f"{type(device)}")
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(
@@ -41,3 +84,111 @@ def resolve_device(device="cuda") -> torch.device:
         return dev
     raise ValueError(
         f"device must be 'cuda', 'auto' or 'cpu', got {device!r}")
+
+
+def describe_device(dev):
+    """A picklable descriptor of a resolved device: a mesh becomes
+    ``("__mesh__", axis names, shape, device type)``, anything else stays
+    as it is (a ``torch.device`` pickles)."""
+    if is_mesh(dev):
+        return ("__mesh__", tuple(dev.mesh_dim_names or ()),
+                tuple(dev.mesh.shape), dev.device_type)
+    return dev
+
+
+def restore_device(desc):
+    """Inverse of ``describe_device`` in the loading process: a mesh is
+    rebuilt over the process group when one of the same size is
+    initialized, else (with a warning) the device of its type on this
+    process, or the CPU where that type is absent."""
+    if not (isinstance(desc, tuple) and desc and desc[0] == "__mesh__"):
+        return desc
+    _, axes, shape, device_type = desc
+    from alpine_tpu_torch.parallel import distributed as dist
+
+    n = 1
+    for s in shape:
+        n *= s
+    if dist._initialized() and dist.process_count() == n:
+        from torch.distributed.device_mesh import init_device_mesh
+
+        return init_device_mesh(device_type, tuple(shape), mesh_dim_names=axes)
+    import warnings
+
+    fallback = ("cuda" if device_type == "cuda" and torch.cuda.is_available()
+                else "cpu")
+    warnings.warn(
+        f"Could not restore pickled device {desc!r} in this process (no "
+        f"process group of {n} ranks); falling back to {fallback!r} — "
+        "subsequent fits run unsharded."
+    )
+    return resolve_device(fallback)
+
+
+class Placement:
+    """Where fit-time tensors live: one device, or this process's run of
+    cells on a cell mesh (one device a process).
+
+    On a mesh the tensors a process passes and receives are its own: X,
+    H and the Ys hold its cells' columns, W and the Bs are replicated and
+    kept bit-identical by computing them from identical all-reduced
+    statistics.  Nothing is assembled into a global tensor."""
+
+    def __init__(self, target):
+        self.target = target
+        self.mesh = target if is_mesh(target) else None
+
+    @property
+    def is_sharded(self) -> bool:
+        return self.mesh is not None
+
+    @property
+    def n_processes(self) -> int:
+        return 1 if self.mesh is None else int(self.mesh.size())
+
+    @property
+    def is_multiprocess(self) -> bool:
+        """True when the mesh spans more than one process."""
+        return self.n_processes > 1
+
+    @property
+    def cell_shards(self) -> int:
+        """Devices along the cell axis (1 when unsharded)."""
+        return self.n_processes
+
+    @property
+    def local_cell_shards(self) -> int:
+        """This process's devices along the cell axis: one, or an error for
+        a process outside the mesh."""
+        if self.mesh is not None and self.mesh.get_coordinate() is None:
+            raise ValueError(
+                "this process owns no devices of the mesh — every process "
+                "of a multi-process fit must contribute devices (use "
+                "distributed.global_cell_mesh)"
+            )
+        return 1
+
+    @property
+    def process_chunk_index(self) -> int:
+        """This process's position along the mesh's cell axis, i.e. which
+        run of cells it holds (0 when unsharded)."""
+        if self.mesh is None:
+            return 0
+        coord = self.mesh.get_coordinate()
+        if coord is None:
+            raise ValueError("this process owns no devices of the mesh")
+        return int(coord[0])
+
+    @property
+    def group(self):
+        """The process group of the cell axis (None when unsharded)."""
+        return None if self.mesh is None else self.mesh.get_group()
+
+    @property
+    def device(self) -> torch.device:
+        """The device this process computes on."""
+        if self.mesh is None:
+            return self.target
+        if self.mesh.device_type == "cuda":
+            return torch.device("cuda", torch.cuda.current_device())
+        return torch.device(self.mesh.device_type)

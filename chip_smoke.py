@@ -95,6 +95,20 @@ Phases, each printing one JSON line:
           bit for bit (where h5py and pandas are installed; the phase
           says so where they are not), with the seconds of each step, the
           file sizes, peak device memory and K3's launches;
+  slice_sharded  the slice's fit and transform over a cell mesh
+          (alpine_tpu_torch.parallel.distributed): one process (NCCL, this
+          one), then 2 and 3 gloo ranks spawned on the same card, each
+          memory-mapping its run of the cells from one file (50,000 each;
+          33,334 / 33,333 / 33,333 for 10 iterations); world 1 must be the
+          slice bit for bit, worlds 2 and 3 within loss rtol 5e-4 of the
+          slice's, embeddings within 5e-3 (relative Frobenius) of one
+          device's fit of as many iterations, transforms within rtol 1e-5
+          (above 1e-6 of the largest value) of one device's with rank 0's
+          W, W and the losses bit-equal across the ranks, one all-reduce
+          an iteration of the same bytes in every world; each rank prints
+          a slice_sharded_rank line (cells, seconds, device ms an
+          iteration, launches, all-reduce calls, bytes and ms).  Ranks
+          share one card: no time here is a multi-GPU speed;
   slice_unguided  an unguided fit (no covariates) for fused_h_update's
           path;
   slice_weighted_fast  the same fit with sampling_method="weighted_fast",
@@ -745,6 +759,292 @@ def iteration_twin_rows(torch, kernels, gen, dev, card):
             del X, W, H, WtW, Ys, Bs, lam, C
             torch.cuda.empty_cache()
     return rows
+
+
+SHARDED_KEYS = ["batch", "condition"]
+SHARDED_PARAMS = {"n_components": 30, "n_covariate_components": [5, 5],
+                  "lam": [1e3, 1e3]}
+# gloo ranks sharing the card: a rank waiting longer than this in a
+# collective raises, and the parent stops a rank that outlives its budget
+RANK_PG_TIMEOUT = 120.0
+RANK_TIMEOUT = 240.0
+
+
+def _free_port():
+    import socket
+
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def _kernel_device_ms(prof, DeviceType):
+    """The CUDA kernels of a profile (copies and fills left out): their
+    summed durations and the five longest [name, ms], in ms."""
+    events = sorted((e for e in prof.key_averages()
+                     if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+                     and not re.search(r"memcpy|memset", e.key, re.I)),
+                    key=lambda e: -e.self_device_time_total)
+    return (sum(e.self_device_time_total for e in events) * 1e-3,
+            [[e.key[:60], e.self_device_time_total * 1e-3] for e in events[:5]])
+
+
+def sharded_fit(torch, kernels, dist, ALPINE, adata, iters, device):
+    """One fit and cached transform of the slice's model on ``device`` (a
+    cell mesh), the kernel launches and all-reduces of each counted from
+    zero, the fit under the profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    model = ALPINE(device=device, **SHARDED_PARAMS)
+    kernels.reset_launches()
+    dist.reset_collectives(timed=True)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model.fit(adata, SHARDED_KEYS, max_iter=iters)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+    device_ms, top = _kernel_device_ms(prof, DeviceType)
+    fit_launches = dict(kernels.launches)
+    coll = dist.collective_summary()
+    kernels.reset_launches()
+    model.transform(adata)  # through the fit's device X
+    torch.cuda.synchronize()
+    loop = coll["iteration"]
+    row = {"fit_seconds_profiled": fit_s, "timings": model.timings_,
+           "device_ms_per_iteration": device_ms / iters,
+           "top_kernels_device_ms_per_iteration": [[k, ms / iters] for k, ms in top],
+           "launches": {"fused_iteration": fit_launches["fused_iteration"],
+                        "fused_h_update": fit_launches["fused_h_update"],
+                        "fused_transform": kernels.launches["fused_transform"],
+                        "hxt": fit_launches["hxt"]},
+           "allreduce_calls_before_loop": coll["setup"]["calls"],
+           "allreduce_calls_per_iteration": loop["calls"] / iters,
+           "allreduce_bytes_per_iteration": loop["bytes"] / loop["calls"],
+           "allreduce_ms_per_iteration": loop["ms"] / loop["calls"],
+           "allreduce_ms_before_loop": coll["setup"]["ms"]}
+    out = {"loss": model.loss_history_,
+           "W": np.concatenate(model.matrices["Ws"], axis=1),
+           "H": np.concatenate(model.matrices["Hs"], axis=0),
+           "T": np.concatenate([adata.obsm[k] for k in SHARDED_KEYS]
+                               + [adata.obsm["ALPINE_embedding"]], axis=1)}
+    model.free_device_cache()
+    return row, out
+
+
+def sharded_rank(here, workdir, world, rank, port, iters, n_cells):
+    """One gloo rank of slice_sharded (a spawned process): its run of the
+    bench cells, memory-mapped from the parent's file, fit and transformed
+    over the cell mesh; its numbers printed and its results saved."""
+    sys.path.insert(0, here)
+    import torch
+
+    from alpine_tpu_torch import ALPINE, AnnData
+    from alpine_tpu_torch.ops import kernels
+    from alpine_tpu_torch.parallel import distributed as dist
+
+    dist.initialize(f"localhost:{port}", num_processes=world, process_id=rank,
+                    local_device_ids=0, backend="gloo", timeout=RANK_PG_TIMEOUT)
+    try:
+        lo, hi = dist.process_cell_range(n_cells)
+        counts = np.load(os.path.join(workdir, "counts.npy"), mmap_mode="r")
+        labels = np.load(os.path.join(workdir, "obs.npz"), allow_pickle=True)
+        adata = AnnData(np.asarray(counts[lo:hi], dtype=np.float32),
+                        obs={k: labels[k][lo:hi] for k in SHARDED_KEYS})
+        t0 = time.perf_counter()
+        row, out = sharded_fit(torch, kernels, dist, ALPINE, adata, iters,
+                               dist.global_cell_mesh())
+        np.savez(os.path.join(workdir, f"world{world}_rank{rank}.npz"), **out)
+        row = {"phase": "slice_sharded_rank", "world": world, "rank": rank,
+               "backend": torch.distributed.get_backend(), "cells": hi - lo,
+               "first_cell": lo, "iterations": iters,
+               "rank_seconds": time.perf_counter() - t0, **row}
+        with open(os.path.join(workdir, f"world{world}_rank{rank}.json"), "w") as f:
+            json.dump(row, f)
+        emit(row)
+    finally:
+        dist.shutdown()
+
+
+def run_sharded_phase(torch, kernels, mu, ALPINE, AnnData, counts, obs, ref):
+    """slice_sharded: the slice's fit and transform over a cell mesh of 1
+    (NCCL, this process), 2 and 3 (gloo, spawned ranks sharing the card)
+    processes, each held against the slice phase's results (``ref``)."""
+    import multiprocessing
+    import tempfile
+
+    from alpine_tpu_torch.models.alpine import draw_init, draw_transform_h0
+    from alpine_tpu_torch.parallel import distributed as dist
+    from alpine_tpu_torch.utils.encoder import FeatureEncoders
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    phase_t0 = time.perf_counter()
+    n, g = counts.shape
+    K = sum(BLOCKS)
+    payload = 4 * (g * K + K * K + 1 + len(N_LABELS)
+                   + sum(nl * k for nl, k in zip(N_LABELS, BLOCKS)) + sum(BLOCKS[:-1]))
+    worlds = []
+
+    def check_rank(world, row, iters):
+        want = {"fused_iteration": iters, "fused_h_update": 0, "fused_transform": 1,
+                "hxt": 1}
+        check(row["launches"] == want,
+              f"world {world}: launches {row['launches']}, expected {want}")
+        check(row["allreduce_calls_per_iteration"] == 1
+              and row["allreduce_calls_before_loop"] == 1,
+              f"world {world}: one all-reduce an iteration (and one before the loop)")
+        check(row["allreduce_bytes_per_iteration"] == payload,
+              f"world {world}: {row['allreduce_bytes_per_iteration']} bytes an "
+              f"iteration, expected {payload}")
+
+    # world 1: NCCL in this process; the all-reduce changes nothing, so
+    # the fit and transform are the slice's bit for bit
+    t0 = time.perf_counter()
+    dist.initialize(f"localhost:{_free_port()}", num_processes=1, process_id=0,
+                    backend="nccl", timeout=RANK_PG_TIMEOUT)
+    try:
+        backend = torch.distributed.get_backend()
+        row, out = sharded_fit(torch, kernels, dist, ALPINE, AnnData(counts, obs=obs),
+                               FIT_ITERS, dist.global_cell_mesh())
+    finally:
+        dist.shutdown()
+    torch.cuda.empty_cache()
+    bits = {k: bool(np.array_equal(out[k], ref[k])) for k in ("loss", "W", "H", "T")}
+    emit({"phase": "slice_sharded_rank", "world": 1, "rank": 0, "backend": backend,
+          "cells": n, "first_cell": 0, "iterations": FIT_ITERS,
+          "rank_seconds": time.perf_counter() - t0, **row})
+    check_rank(1, row, FIT_ITERS)
+    check(all(bits.values()), f"world 1 must be the slice bit for bit: {bits}")
+    worlds.append({"world": 1, "backend": backend, "iterations": FIT_ITERS,
+                   "cells": [n], "device_ms_per_iteration": [row["device_ms_per_iteration"]],
+                   "allreduce_ms_per_iteration": [row["allreduce_ms_per_iteration"]],
+                   "bits_equal_slice": bits, "seconds": time.perf_counter() - t0})
+
+    # worlds 2 and 3: gloo ranks spawned on the one card (NCCL refuses two
+    # ranks on one GPU); each memory-maps its cells from one file
+    ctx = multiprocessing.get_context("spawn")
+    X_card = torch.from_numpy(np.ascontiguousarray(counts.T.astype(np.int8))).cuda()
+
+    def short_fit_h(iters):
+        """The slice's fit cut to ``iters`` iterations on one device, as the
+        estimator runs it (its first losses must be the slice's bit for
+        bit): the scaled H."""
+        Ys = [torch.from_numpy(y.T.copy()).cuda()
+              for y in FeatureEncoders(SHARDED_KEYS).fit_transform(obs)]
+        cfg = mu.MUConfig(blocks=BLOCKS, n_labels=tuple(y.shape[0] for y in Ys),
+                          n_cells=n, max_iter=iters, x_dtype="int8")
+        W0, H0, Bs0 = draw_init(cfg, g, 42, EPS, X_card.device)
+        hyper = (torch.tensor(SHARDED_PARAMS["lam"], dtype=torch.float32, device="cuda"),
+                 0.0, 0.0, 0.0, float(np.float32(EPS)))
+        W, H, Bs, L = mu.fit_scan(cfg, W0, H0, Bs0, X_card, Ys, hyper)
+        check(np.array_equal(L.cpu().numpy(), ref["loss"][:iters]),
+              "the short single-device fit must be the slice's first iterations")
+        return mu.scale_matrices(cfg.blocks, W, H, Bs)[1].cpu().numpy()
+    with tempfile.TemporaryDirectory() as workdir:
+        np.save(os.path.join(workdir, "counts.npy"), counts.astype(np.int8))
+        np.savez(os.path.join(workdir, "obs.npz"), **obs)
+        for world, iters in ((2, FIT_ITERS), (3, 10)):
+            t0 = time.perf_counter()
+            port = _free_port()
+            procs = [ctx.Process(target=sharded_rank,
+                                 args=(here, workdir, world, r, port, iters, n))
+                     for r in range(world)]
+            for p in procs:
+                p.start()
+            deadline = time.monotonic() + RANK_TIMEOUT
+            for p in procs:
+                p.join(max(1.0, deadline - time.monotonic()))
+            alive = [p for p in procs if p.is_alive()]
+            for p in alive:
+                p.terminate()
+                p.join(10)
+            codes = [p.exitcode for p in procs]
+            check(not alive and codes == [0] * world,
+                  f"world {world}: ranks ended with {codes}"
+                  + (" (stopped at the time limit)" if alive else ""))
+            outs = [dict(np.load(os.path.join(workdir, f"world{world}_rank{r}.npz")))
+                    for r in range(world)]
+            rows = []
+            for r in range(world):
+                with open(os.path.join(workdir, f"world{world}_rank{r}.json")) as f:
+                    rows.append(json.load(f))
+                check_rank(world, rows[-1], iters)
+            same = {k: all(np.array_equal(o[k], outs[0][k]) for o in outs)
+                    for k in ("loss", "W")}
+            check(all(same.values()), f"world {world}: W and the losses must be "
+                  f"bit-equal across the ranks: {same}")
+            loss_gap = float(np.max(np.abs(outs[0]["loss"] / ref["loss"][:iters] - 1)))
+            H = np.concatenate([o["H"] for o in outs], axis=1)
+            H_ref = ref["H"] if iters == FIT_ITERS else short_fit_h(iters)
+            h_err = float(np.linalg.norm(H - H_ref) / np.linalg.norm(H_ref))
+            # a single-device transform of all cells with rank 0's W and the
+            # same global H0 draw
+            W = torch.from_numpy(outs[0]["W"]).cuda()
+            H0 = draw_transform_h0(W.shape[1], n, 42, EPS, X_card.device)
+            T_ref = mu.run_transform(W, X_card, H0, float(np.float32(EPS)),
+                                     n_iter=iters).cpu().numpy().T
+            T = np.concatenate([o["T"] for o in outs], axis=0)
+            # rtol 1e-5 above a floor of 1e-6 of the largest value: 2WᵀX
+            # sums each column in the order cuBLAS picks for the shard's
+            # width, and relative differences of values near 0 measure
+            # nothing
+            floor = 1e-6 * float(np.max(np.abs(T_ref)))
+            t_err = float(np.max(np.abs(T - T_ref) / (np.abs(T_ref) + floor / 1e-5)))
+            t_err_raw = float(np.max(np.abs(T - T_ref) / np.maximum(np.abs(T_ref), 1e-30)))
+            del W, H0
+            worlds.append({"world": world, "backend": rows[0]["backend"],
+                           "iterations": iters, "cells": [r["cells"] for r in rows],
+                           "device_ms_per_iteration": [r["device_ms_per_iteration"]
+                                                       for r in rows],
+                           "allreduce_ms_per_iteration": [r["allreduce_ms_per_iteration"]
+                                                          for r in rows],
+                           "loss_max_rel_err": loss_gap, "H_rel_frobenius_err": h_err,
+                           "transform_err_over_rtol_1e-5_floor_1e-6_max": t_err,
+                           "transform_max_rel_err": t_err_raw, "replicas_bit_equal": same,
+                           "seconds": time.perf_counter() - t0})
+            check(loss_gap <= 5e-4, f"world {world}: losses {loss_gap} from the slice's")
+            check(h_err <= 5e-3, f"world {world}: embedding {h_err} from the slice's")
+            check(t_err <= 1e-5, f"world {world}: transform {t_err} from one device's")
+    del X_card
+    torch.cuda.empty_cache()
+    # what a shard's K1 costs alone on the card (no rank beside it): world
+    # 2's 50,000 cells, world 3's 33,334 (rows off 16-byte alignment) and
+    # that shard's aligned twin, 33,344 cells; the kernels' summed
+    # durations a call (torch.profiler, 20 calls) and one call's CUDA-event
+    # time
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    k1_alone = {}
+    shard3 = -(-n // 3)
+    for cells in (n // 2, shard3, -(-shard3 // 16) * 16):
+        X, W, H, WtW, Ys, Bs, lam = iteration_problem(
+            torch, gen, torch.device("cuda"), g, cells, BLOCKS, N_LABELS, torch.int8)
+
+        def k1():
+            return kernels.fused_iteration(X, W, H, WtW, Ys, Bs, lam, EPS,
+                                           blocks=BLOCKS, loss_kl=True)
+
+        k1()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                k1()
+            torch.cuda.synchronize()
+        k1_alone[str(cells)] = {"device_ms": _kernel_device_ms(prof, DeviceType)[0] / 20,
+                                "ms": time_ms(k1, 5)}
+        del X, W, H, WtW, Ys, Bs, lam
+    torch.cuda.empty_cache()
+    emit({"phase": "slice_sharded", "cells": n, "genes": g,
+          "allreduce_bytes_per_iteration": payload, "worlds": worlds,
+          "k1_alone_by_cells": k1_alone,
+          "tolerance": "world 1 bit for bit; worlds 2, 3: loss rtol 5e-4, embedding "
+                       "relative Frobenius 5e-3, transform rtol 1e-5 with atol 1e-6 of "
+                       "its largest value, W and losses bit-equal across ranks",
+          "seconds": time.perf_counter() - phase_t0})
 
 
 def run_persist_phase(torch, kernels, ALPINE, AnnData, model, adata, counts, obs):
@@ -1951,6 +2251,14 @@ def main():
         check(adata.obsm[key].shape == (N, 5), f"{key} block shape")
         check(np.isfinite(adata.obsm[key]).all(), f"{key} block finite")
     check(np.isfinite(adata.obsm["ALPINE_embedding"]).all(), "embedding finite")
+
+    # -- the slice over a cell mesh of 1, 2 and 3 processes ------------------
+    slice_ref = {"loss": slice_losses, "W": np.concatenate(model.matrices["Ws"], axis=1),
+                 "H": np.concatenate(model.matrices["Hs"], axis=0),
+                 "T": np.concatenate([adata.obsm[k] for k in ("batch", "condition")]
+                                     + [adata.obsm["ALPINE_embedding"]], axis=1)}
+    run_sharded_phase(torch, kernels, mu, ALPINE, AnnData, counts, obs, slice_ref)
+    del slice_ref
 
     run_persist_phase(torch, kernels, ALPINE, AnnData, model, adata, counts, obs)
 

@@ -860,3 +860,52 @@ def test_search_on_card_launches(cuda):
     model = co.fit_the_best_param()
     assert kernels.launches["fused_iteration"] == 12
     assert co._fold_cache is None and np.isfinite(model.loss_history_).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("guided", [True, False], ids=["K1", "K2"])
+def test_world_of_one_nccl_fit_is_the_single_device_fit(cuda, guided):
+    """A cell mesh of one NCCL rank runs the sharded fit loop (one all-reduce
+    an iteration; fused_iteration, or fused_h_update without covariates)
+    and the sharded transform: the loss history, W and both embeddings
+    equal the single-device fit's bit for bit."""
+    import socket
+
+    from alpine_tpu_torch import ALPINE, AnnData
+    from alpine_tpu_torch.parallel import distributed as dist
+
+    r = np.random.default_rng(3)
+    X = np.minimum(r.poisson(r.gamma(2.0, 1.0, (1001, 6)) @ r.gamma(2.0, 0.3, (6, 90))),
+                   127).astype(np.float32)
+    obs = {"batch": np.array(["b0", "b1"], dtype=object)[r.integers(0, 2, 1001)],
+           "cond": np.array(["c0", "c1", "c2"], dtype=object)[r.integers(0, 3, 1001)]}
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    dist.initialize(f"localhost:{port}", num_processes=1, process_id=0,
+                    backend="nccl", timeout=120.0)
+    try:
+        fits = []
+        for device in ("cuda", dist.global_cell_mesh()):
+            ad = AnnData(X, obs=obs)
+            keys = ["batch", "cond"] if guided else []
+            m = ALPINE(n_components=8, n_covariate_components=[2, 2][:len(keys)],
+                       lam=[10.0, 10.0][:len(keys)], device=device, random_state=7)
+            kernels.reset_launches()
+            dist.reset_collectives()
+            m.fit(ad, keys, max_iter=6)
+            fit_emb = ad.obsm["ALPINE_embedding"].copy()
+            m.transform(ad)
+            fits.append((m.loss_history_, np.concatenate(m.matrices["Ws"], axis=1),
+                         fit_emb, ad.obsm["ALPINE_embedding"], dict(kernels.launches),
+                         dist.collective_summary()))
+    finally:
+        dist.shutdown()
+    (La, Wa, Fa, Ta, ka, ca), (Lb, Wb, Fb, Tb, kb, cb) = fits
+    k = "fused_iteration" if guided else "fused_h_update"
+    assert ka[k] == kb[k] == 6 and ka["hxt"] == kb["hxt"] == 1
+    assert ka["fused_transform"] == kb["fused_transform"] == 1
+    assert ca == {} and cb["iteration"]["calls"] == 6 and cb["setup"]["calls"] == 1
+    for a, b in ((La, Lb), (Wa, Wb), (Fa, Fb), (Ta, Tb)):
+        assert np.array_equal(a, b)

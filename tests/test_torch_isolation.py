@@ -1,7 +1,8 @@
-"""The port stands alone: alpine_tpu_torch, chip_smoke.py and the port's
-scripts (scripts/torch_*.py) import nothing of JAX or of the JAX package,
-the fit/transform path (minibatch, weighted, tiled, bucketed, restarted
-and checkpointed fits included), save → load → transform → export and a
+"""The port stands alone: alpine_tpu_torch, chip_smoke.py, the port's
+scripts (scripts/torch_*.py) and the multi-process test worker import
+nothing of JAX or of the JAX package, the fit/transform path (minibatch,
+weighted, tiled, bucketed, restarted, checkpointed and cell-mesh fits
+included), save → load → transform → export and a
 ComponentOptimizer search (both fold routes, its kNN, Leiden and folds)
 need neither pandas nor scikit-learn, and the estimator never falls back
 to the CPU silently."""
@@ -79,6 +80,19 @@ for batching in (False, True):
     assert all(np.isfinite(t["result"]["loss"]) for t in co.trials.trials
                if t["result"]["status"] == "ok")
 assert co.fit_the_best_param().loss_history_.shape[0] == 4
+import socket
+s = socket.socket()
+s.bind(("localhost", 0))
+port = s.getsockname()[1]
+s.close()
+from alpine_tpu_torch.parallel import distributed as dist
+dist.initialize(f"localhost:{port}", num_processes=1, process_id=0, timeout=30.0)
+sm = ALPINE(n_components=4, n_covariate_components=[2], lam=[1.0],
+            device=dist.global_cell_mesh())
+sm.fit(ad, ["batch"], max_iter=3)
+sm.transform(ad)
+assert np.isfinite(sm.loss_history_).all() and sm.timings_["fit"] > 0
+dist.shutdown()
 print("ok")
 """
 
@@ -97,10 +111,12 @@ _FORBIDDEN = re.compile(
 
 def test_sources_import_no_jax():
     files = sorted((REPO / "alpine_tpu_torch").rglob("*.py"))
-    files.append(REPO / "chip_smoke.py")
+    files += [REPO / "chip_smoke.py", REPO / "tests" / "torch_dist_worker.py"]
     files += sorted((REPO / "scripts").glob("torch_*.py"))
     assert len(files) > 5
     for name in ("alpine_tpu_torch/utils/sampling.py", "alpine_tpu_torch/probe.py",
+                 "alpine_tpu_torch/parallel/distributed.py",
+                 "alpine_tpu_torch/parallel/mesh.py", "alpine_tpu_torch/profiling.py",
                  "scripts/torch_envelope_probe.py", "scripts/torch_kernel_ab.py"):
         assert REPO / name in files
     for f in files:
