@@ -843,18 +843,16 @@ class ALPINE:
             self.random_state, self.matmul_precision, self.component_bucket,
         )))
         dist.assert_same_across_processes(
-            [X.shape[0], placement.local_cell_shards,
-             mu.DATA_DTYPES.index(self.data_dtype), ctor,
+            [X.shape[0], mu.DATA_DTYPES.index(self.data_dtype), ctor,
              int(checkpoint_dir is not None),
              checkpoint_every if checkpoint_dir is not None else -1,
              -1 if max_iter is None else int(max_iter),
              -1 if batch_size is None else int(batch_size)]
             + [y.shape[0] for y in Ys]
             + [label_hash(k) for k in covariate_keys],
-            "per-process fit inputs (gene count, per-process device "
-            "count, data_dtype setting, model hyperparameters, "
-            "checkpointing, max_iter, batch_size, covariate label "
-            "sets)",
+            "per-process fit inputs (gene count, data_dtype setting, "
+            "model hyperparameters, checkpointing, max_iter, batch_size, "
+            "covariate label sets)",
         )
         if self.data_dtype == "auto":
             codes = dist.process_allgather_rows(np.asarray(
@@ -1060,10 +1058,8 @@ class ALPINE:
 
             # before any check that one process could fail alone
             dist.assert_same_across_processes(
-                [adata.shape[1], placement.local_cell_shards,
-                 mu.STORAGE_DTYPES.index(self._storage_dtype)],
-                "per-process transform inputs (genes, per-process device "
-                "count, model storage dtype)",
+                [adata.shape[1], mu.STORAGE_DTYPES.index(self._storage_dtype)],
+                "per-process transform inputs (genes, model storage dtype)",
             )
         if adata.shape[1] != self.n_features:
             raise ValueError(
@@ -1103,8 +1099,7 @@ class ALPINE:
             H0 = torch.nn.functional.pad(H0, (0, pad))
         W = torch.from_numpy(np.concatenate(self.matrices["Ws"], axis=1)).to(dev)
         H = mu.run_transform(W, X, H0, float(np.float32(self.eps)),
-                             n_iter=n_iter, precision=self.matmul_precision,
-                             mesh=placement.mesh)
+                             n_iter=n_iter, precision=self.matmul_precision)
         H_np = H[:, :n_sample].cpu().numpy()
         if cell_perm is not None:
             H_np = H_np[:, np.argsort(cell_perm)]

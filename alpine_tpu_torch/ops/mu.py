@@ -445,10 +445,11 @@ def compute_loss_parts(cfg: MUConfig, hyper, W, H, Bs, X, Xf, Ys_f, normX2,
     return torch.stack([total] + parts)
 
 
-def _check_inputs(cfg: MUConfig, W0, H0, X, Ys) -> None:
-    """Shapes of the inputs; a tiled fit's X (and Ys) may carry a zero pad
-    to a tile multiple past n_cells, and H0 then has n_cells columns or
-    X's."""
+def _check_inputs(cfg: MUConfig, W0, H0, X, Ys, n_cells: int) -> None:
+    """Shapes of the inputs, X with ``n_cells`` columns (``cfg.n_cells``,
+    or this process's cells in a sharded fit); a tiled fit's X (and Ys)
+    may carry a zero pad to a tile multiple past n_cells, and H0 then has
+    n_cells columns or X's."""
     t = cfg.tile
     if cfg.tiled:
         if cfg.weighted:
@@ -460,12 +461,12 @@ def _check_inputs(cfg: MUConfig, W0, H0, X, Ys) -> None:
                 f"tiled sampling needs the cell axis padded to a multiple "
                 f"of tile={t}; got {X.shape[1]} columns")
     n_x = X.shape[1]
-    pad_ok = cfg.tiled and cfg.n_cells <= n_x < cfg.n_cells + t
-    if not (n_x == cfg.n_cells or pad_ok) or H0.shape not in (
-            (cfg.K, cfg.n_cells), (cfg.K, n_x)):
+    pad_ok = cfg.tiled and n_cells <= n_x < n_cells + t
+    if not (n_x == n_cells or pad_ok) or H0.shape not in (
+            (cfg.K, n_cells), (cfg.K, n_x)):
         raise ValueError(
-            f"X must be (genes, {cfg.n_cells}) and H0 ({cfg.K}, "
-            f"{cfg.n_cells}); got X {tuple(X.shape)}, H0 {tuple(H0.shape)}")
+            f"X must be (genes, {n_cells}) and H0 ({cfg.K}, "
+            f"{n_cells}); got X {tuple(X.shape)}, H0 {tuple(H0.shape)}")
     if W0.shape != (X.shape[0], cfg.K) or len(Ys) != cfg.n_cov or any(
             y.shape[1] != n_x for y in Ys):
         raise ValueError("W0 must be (genes, K) and Ys hold one matrix per "
@@ -484,7 +485,7 @@ def _report(progress, losses, it: int, max_iter: int) -> None:
     iterations and after the last one; the loss is read to the host there.
     With ``profiling.enable_debug_checks()`` every loss row is checked for
     non-finite values first."""
-    profiling.check_loss_row(losses[it], it)
+    profiling.check_loss_row(losses, it)
     done = it + 1
     if progress is not None and (done % progress_every(max_iter) == 0
                                  or done == max_iter):
@@ -621,8 +622,32 @@ def _update_w(hyper, W, XHt, HHt):
     return W * (num / _clamp(den, eps))
 
 
+def _all_reduce_parts(parts, group, tag: str):
+    """Sum the tensors of ``parts`` (each a tensor or a tuple of tensors)
+    over the ranks of ``group`` with ONE all-reduce of a flat buffer
+    (counted under ``tag``), and return them in the same structure.  With
+    no group, ``parts`` comes back as it is."""
+    if group is None:
+        return parts
+    from alpine_tpu_torch.parallel.distributed import all_reduce_sum
+
+    def leaves(p):
+        return p if isinstance(p, tuple) else (p,)
+
+    flat = torch.cat([t.reshape(-1) for p in parts for t in leaves(p)])
+    all_reduce_sum(flat, group, tag=tag)
+    out, off = [], 0
+    for p in parts:
+        ts = []
+        for t in leaves(p):
+            ts.append(flat[off:off + t.numel()].view(t.shape))
+            off += t.numel()
+        out.append(tuple(ts) if isinstance(p, tuple) else ts[0])
+    return out
+
+
 def _fit_scan_fused(cfg: MUConfig, W0, H0, Bs0, X, Ys, hyper, draw_counts,
-                    progress):
+                    progress, group=None):
     """Full-batch joint MU with one fused kernel per iteration (the
     counterpart of ``alpine_tpu.ops.mu._fit_scan_pallas``).  The loop
     carries (W, H, Bs, XHt, HHt, bnums, bdens): XHt = X Hᵀ and HHt = H Hᵀ
@@ -636,23 +661,45 @@ def _fit_scan_fused(cfg: MUConfig, W0, H0, Bs0, X, Ys, hyper, draw_counts,
     gets [c_t, c_{t+1}]: row 0 masks its H update, row 1 scales the
     statistics it returns.  T iterations take T + 1 draws; the
     reconstruction loss uses the kernel's unscaled H Hᵀ (HHtU).  The first
-    X Hᵀ is the kernel ``hxt``, so no float32 copy of X is made."""
+    X Hᵀ is the kernel ``hxt``, so no float32 copy of X is made.
+
+    With a process ``group`` (``fit_scan_sharded``) X, H0 and the Ys hold
+    this process's cells and W0 and Bs0 are replicated.  The statistics
+    before the loop (‖X‖², X Hᵀ, H Hᵀ, the B statistics) and after each
+    kernel (X Hᵀ, H Hᵀ, the loss dot, the prediction losses, the B
+    statistics) are then summed over the group, each set in one
+    all-reduce: genes × K + K × K + 1 + n_cov + Σ labels_i × k_i + Σ k_i
+    values an iteration, whatever the cell count.  Every process computes
+    W and the Bs from the same summed values, so they stay bit-identical
+    across processes, and so does the loss history.  The shards are not
+    padded (the JAX package pads each to a tile multiple and strips that
+    padding's KL bias; the kernels here mask the ragged tile).
+    ``cfg.backend == "plain"`` runs the kernels' plain versions in X's
+    precision (float64 X stays float64), for the float64 checks."""
     from alpine_tpu_torch.ops import kernels
 
     lam, _, _, _, eps = hyper
+    fused = cfg.backend == "fused"
+    if fused:
+        iteration, h_update = kernels.fused_iteration, kernels.fused_h_update
+    else:
+        iteration = kernels.fused_iteration_plain
+        h_update = kernels.fused_h_update_plain
     normX2 = _norm_x2(X)
     W, H, Bs = W0, H0, tuple(Bs0)
     c_cur = draw_counts(0) if cfg.weighted_counts else None
     Hc = H if c_cur is None else H * c_cur[None, :]
-    XHt = kernels.hxt(X, Hc.contiguous()).T
+    XHt = kernels.hxt(X, Hc.contiguous()).T if fused else _x_ht(X, _wide(X), Hc)
     HHt = Hc @ H.T
-    Ys_f = [y.float() for y in Ys]
+    Ys_f = [_wide(y) for y in Ys]
     bnums, bdens = (_b_stats(cfg, hyper, Bs, H, Ys_f, scale=c_cur)
                     if cfg.n_cov else ((), ()))
     del Ys_f, Hc
+    normX2, XHt, HHt, bnums, bdens = _all_reduce_parts(
+        [normX2, XHt, HHt, bnums, bdens], group, "setup")
 
-    losses = torch.empty((cfg.max_iter, 2 + cfg.n_cov), dtype=torch.float32,
-                         device=X.device)
+    losses = torch.empty((cfg.max_iter, 2 + cfg.n_cov), device=X.device,
+                         dtype=torch.promote_types(W0.dtype, torch.float32))
     for it in range(cfg.max_iter):
         W = _update_w(hyper, W, XHt, HHt)
         WtW = W.T @ W
@@ -660,20 +707,25 @@ def _fit_scan_fused(cfg: MUConfig, W0, H0, Bs0, X, Ys, hyper, draw_counts,
             c_next = draw_counts(it + 1)
             Bs = _update_bs(cfg, hyper, Bs, bnums, bdens, HHt)
             (H, XHt, HHt, HHtU, lossdot, preds, bnums,
-             bdens) = kernels.fused_iteration(
+             bdens) = iteration(
                 X, W, H, WtW, Ys, Bs, lam, eps, torch.stack([c_cur, c_next]),
                 blocks=cfg.blocks, loss_kl=cfg.loss_kl)
             c_cur = c_next
         elif cfg.n_cov:
             Bs = _update_bs(cfg, hyper, Bs, bnums, bdens, HHt)
-            H, XHt, HHt, lossdot, preds, bnums, bdens = kernels.fused_iteration(
+            H, XHt, HHt, lossdot, preds, bnums, bdens = iteration(
                 X, W, H, WtW, Ys, Bs, lam, eps, blocks=cfg.blocks,
                 loss_kl=cfg.loss_kl)
-            HHtU = HHt
         else:
-            H, XHt, HHt, lossdot = kernels.fused_h_update(X, W, H, WtW, eps)
-            HHtU, preds = HHt, ()
-        recon = normX2 - 2.0 * lossdot + torch.sum(WtW * HHtU)
+            H, XHt, HHt, lossdot = h_update(X, W, H, WtW, eps)
+            preds = ()
+        # a group never fits weighted_counts (fit_scan refuses it), so HHtU
+        # is never summed
+        XHt, HHt, lossdot, preds, bnums, bdens = _all_reduce_parts(
+            [XHt, HHt, lossdot, tuple(preds), bnums, bdens], group,
+            "iteration")
+        recon = normX2 - 2.0 * lossdot + torch.sum(
+            WtW * (HHtU if cfg.weighted_counts else HHt))
         total = recon
         for i in range(cfg.n_cov):
             total = total + lam[i] * preds[i]
@@ -683,7 +735,7 @@ def _fit_scan_fused(cfg: MUConfig, W0, H0, Bs0, X, Ys, hyper, draw_counts,
 
 
 def fit_scan(cfg: MUConfig, W0, H0, Bs0, X, Ys, hyper, draw_counts=None,
-             progress=None, draw_cells=None):
+             progress=None, draw_cells=None, group=None):
     """Run ``cfg.max_iter`` MU epochs.
 
     ``X`` (genes × cells) and ``Ys`` (labels_i × cells) are cast to the
@@ -696,12 +748,18 @@ def fit_scan(cfg: MUConfig, W0, H0, Bs0, X, Ys, hyper, draw_counts=None,
     permutation of X's tiles: X and Ys then hold a zero pad to a tile
     multiple past n_cells, and H0 has n_cells columns or X's.
     ``progress(done, objective loss)``, when given, is called as
-    ``progress_every`` says.  Returns (W, H, Bs, losses), H with n_cells
-    columns and losses (max_iter, 2 + n_cov) on the device: [total, recon,
+    ``progress_every`` says.  With a process ``group`` (see
+    ``fit_scan_sharded``) X, H0 and Ys hold this process's cells.  Returns
+    (W, H, Bs, losses), H with n_cells columns (this process's, with a
+    group) and losses (max_iter, 2 + n_cov) on the device: [total, recon,
     pred_0, ...] per iteration."""
     X = X.to(cfg.xdt).contiguous()
     Ys = [y.to(cfg.xdt).contiguous() for y in Ys]
-    _check_inputs(cfg, W0, H0, X, Ys)
+    _check_inputs(cfg, W0, H0, X, Ys,
+                  cfg.n_cells if group is None else X.shape[1])
+    if group is not None and (cfg.use_als or cfg.minibatch
+                              or cfg.weighted_counts):
+        raise ValueError("fit_scan_sharded requires full-batch joint mode")
     if cfg.weighted_counts and (draw_counts is None or not cfg.n_cov):
         raise ValueError("weighted_counts needs covariates and a draw_counts "
                          "callable (weighted sampling balances over them)")
@@ -717,9 +775,10 @@ def fit_scan(cfg: MUConfig, W0, H0, Bs0, X, Ys, hyper, draw_counts=None,
         H0 = torch.nn.functional.pad(H0, (0, X.shape[1] - H0.shape[1]))
     Bs0 = tuple(b.contiguous() for b in Bs0)
     with matmul_precision(cfg.precision):
-        if cfg.backend == "fused" and not (cfg.use_als or cfg.minibatch):
+        if group is not None or (cfg.backend == "fused"
+                                 and not (cfg.use_als or cfg.minibatch)):
             W, H, Bs, losses = _fit_scan_fused(cfg, W0, H0, Bs0, X, Ys, hyper,
-                                               draw_counts, progress)
+                                               draw_counts, progress, group)
         else:
             W, H, Bs, losses = _fit_scan_steps(cfg, W0, H0, Bs0, X, Ys, hyper,
                                                draw_counts, draw_cells,
@@ -727,102 +786,11 @@ def fit_scan(cfg: MUConfig, W0, H0, Bs0, X, Ys, hyper, draw_counts=None,
     return W, H[:, :cfg.n_cells], Bs, losses
 
 
-# ---------------------------------------------------------------------------
-# The sharded fit loop: each process fits its own cells
-# ---------------------------------------------------------------------------
-
-
-def _all_reduce_parts(parts, group, tag: str):
-    """Sum every tensor of ``parts`` over the ranks of ``group`` with ONE
-    all-reduce of a flat buffer of their dtype (counted under ``tag``), and
-    return them in their shapes."""
-    from alpine_tpu_torch.parallel.distributed import all_reduce_sum
-
-    flat = torch.cat([p.reshape(-1) for p in parts])
-    all_reduce_sum(flat, group, tag=tag)
-    out, off = [], 0
-    for p in parts:
-        out.append(flat[off:off + p.numel()].view(p.shape))
-        off += p.numel()
-    return out
-
-
-def _fit_scan_sharded(cfg: MUConfig, group, W0, H0, Bs0, X, Ys, hyper,
-                      progress):
-    """The loop of ``_fit_scan_fused`` on this process's cells, with the
-    statistics summed over the processes: X, H0 and the Ys hold this
-    process's columns, W0 and Bs0 are replicated.
-
-    Before the loop ‖X‖², the first X Hᵀ (the kernel ``hxt``), H Hᵀ and the
-    B statistics are computed on the local cells and summed in one
-    all-reduce.  Each iteration then runs the replicated W and B updates,
-    the kernel (``fused_iteration``, or ``fused_h_update`` without
-    covariates) on the local cells, and ONE all-reduce of X Hᵀ, H Hᵀ, the
-    loss dot, the prediction losses and the B statistics: genes × K + K × K
-    + 1 + n_cov + Σ labels_i × k_i + Σ k_i values, independent of the cell
-    count.  Every process computes W and the Bs from the same summed
-    values, so they stay bit-identical across processes, and so does the
-    loss history.
-
-    The kernels take any cell count and mask the ragged last tile, so the
-    shards are not padded and no padding bias is stripped from the KL loss
-    (the JAX package pads each shard to a tile multiple and removes that
-    bias).  ``cfg.backend == "plain"`` runs the kernels' plain versions in
-    X's precision (float64 X stays float64), for the float64 checks."""
-    from alpine_tpu_torch.ops import kernels
-
-    lam, _, _, _, eps = hyper
-    fused = cfg.backend == "fused"
-    normX2 = _norm_x2(X)
-    W, H, Bs = W0, H0, tuple(Bs0)
-    Ys_f = [_wide(y) for y in Ys]
-    XHt = kernels.hxt(X, H).T if fused else _x_ht(X, _wide(X), H)
-    HHt = H @ H.T
-    bnums, bdens = (_b_stats(cfg, hyper, Bs, H, Ys_f) if cfg.n_cov
-                    else ((), ()))
-    del Ys_f
-    n_cov = cfg.n_cov
-    normX2, XHt, HHt, *stats = _all_reduce_parts(
-        [torch.as_tensor(normX2, dtype=HHt.dtype), XHt, HHt, *bnums, *bdens],
-        group, "setup")
-    bnums, bdens = tuple(stats[:n_cov]), tuple(stats[n_cov:])
-    if fused:
-        iteration, h_update = kernels.fused_iteration, kernels.fused_h_update
-    else:
-        iteration = kernels.fused_iteration_plain
-        h_update = kernels.fused_h_update_plain
-
-    losses = torch.empty((cfg.max_iter, 2 + n_cov), device=X.device,
-                         dtype=torch.promote_types(W0.dtype, torch.float32))
-    for it in range(cfg.max_iter):
-        W = _update_w(hyper, W, XHt, HHt)
-        WtW = W.T @ W
-        if n_cov:
-            Bs = _update_bs(cfg, hyper, Bs, bnums, bdens, HHt)
-            H, XHt, HHt, lossdot, preds, bnums, bdens = iteration(
-                X, W, H, WtW, Ys, Bs, lam, eps, blocks=cfg.blocks,
-                loss_kl=cfg.loss_kl)
-        else:
-            H, XHt, HHt, lossdot = h_update(X, W, H, WtW, eps)
-            preds = ()
-        XHt, HHt, lossdot, *stats = _all_reduce_parts(
-            [XHt, HHt, lossdot, *preds, *bnums, *bdens], group, "iteration")
-        preds = stats[:n_cov]
-        bnums = tuple(stats[n_cov:2 * n_cov])
-        bdens = tuple(stats[2 * n_cov:])
-        recon = normX2 - 2.0 * lossdot + torch.sum(WtW * HHt)
-        total = recon
-        for i in range(n_cov):
-            total = total + lam[i] * preds[i]
-        losses[it] = torch.stack([total, recon, *preds])
-        _report(progress, losses, it, cfg.max_iter)
-    return W, H, Bs, losses
-
-
 def fit_scan_sharded(cfg: MUConfig, mesh, W0, H0, Bs0, X, Ys, hyper,
                      progress=None):
     """Full-batch joint MU over a 1-D cell mesh, one process a device (the
-    counterpart of ``alpine_tpu.ops.mu.fit_scan_sharded``).
+    counterpart of ``alpine_tpu.ops.mu.fit_scan_sharded``): ``fit_scan``
+    over the mesh's process group.
 
     ``cfg.n_cells`` is the global cell count; ``X`` (genes × n_local),
     ``H0`` (K × n_local) and ``Ys`` hold this process's cells, ``W0`` and
@@ -831,27 +799,10 @@ def fit_scan_sharded(cfg: MUConfig, mesh, W0, H0, Bs0, X, Ys, hyper,
     (W, H, Bs, losses) with H this process's columns and W, Bs and losses
     replicated (bit-identical on every process).  ``progress`` as in
     ``fit_scan``."""
-    if (cfg.use_als or cfg.minibatch or cfg.weighted_counts
-            or cfg.backend != "fused"):
-        raise ValueError(
-            "fit_scan_sharded requires full-batch joint mode with the fused "
-            "backend")
     from alpine_tpu_torch.parallel.mesh import Placement
 
-    X = X.to(cfg.xdt).contiguous()
-    Ys = [y.to(cfg.xdt).contiguous() for y in Ys]
-    n_local = X.shape[1]
-    if (H0.shape != (cfg.K, n_local) or W0.shape != (X.shape[0], cfg.K)
-            or len(Ys) != cfg.n_cov or any(y.shape[1] != n_local for y in Ys)):
-        raise ValueError(
-            f"X, H0 and Ys must hold this process's cells and W0 be (genes, "
-            f"{cfg.K}); got X {tuple(X.shape)}, H0 {tuple(H0.shape)}, W0 "
-            f"{tuple(W0.shape)}")
-    group = Placement(mesh).group
-    with matmul_precision(cfg.precision):
-        return _fit_scan_sharded(cfg, group, W0.contiguous(), H0.contiguous(),
-                                 tuple(b.contiguous() for b in Bs0), X, Ys,
-                                 hyper, progress)
+    return fit_scan(cfg, W0, H0, Bs0, X, Ys, hyper, progress=progress,
+                    group=Placement(mesh).group)
 
 
 # ---------------------------------------------------------------------------
@@ -872,20 +823,15 @@ def transform_scan(W, X, H0, eps: float, *, n_iter: int) -> torch.Tensor:
 
 
 def run_transform(W, X, H0, eps: float, *, n_iter: int,
-                  precision: str = "highest", fused: bool = True, mesh=None):
+                  precision: str = "highest", fused: bool = True):
     """Projection entry point: the fused kernel (all iterations on chip
     per cell tile) or the plain loop.  ``2WᵀX`` widens X to f32 without
     rounding W, as the JAX package's transform does.
 
-    With a cell ``mesh``, X and H0 are this process's columns and the
-    result is too: a column's projection reads only that column and the
-    replicated W, so each process runs ``2WᵀX`` and the kernel on its own
-    cells with no communication (the JAX package's shard_map of the
-    kernel)."""
-    if mesh is not None:
-        from alpine_tpu_torch.parallel.mesh import resolve_device
-
-        resolve_device(mesh)  # a 1-D cell mesh
+    On a cell mesh each process passes its own columns of X and H0 and
+    gets its own columns back: a column's projection reads only that
+    column and the replicated W, so it needs no communication (the JAX
+    package's shard_map of the kernel)."""
     from alpine_tpu_torch.ops import kernels
 
     with matmul_precision(precision):

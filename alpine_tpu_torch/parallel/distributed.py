@@ -62,7 +62,6 @@ def initialize(
     process_id: Optional[int] = None,
     local_device_ids=None,
     backend: Optional[str] = None,
-    cpu_collectives: str = "gloo",
     timeout: float = 600.0,
 ) -> None:
     """Join (or start) the process group.  Call it once in every process,
@@ -75,10 +74,11 @@ def initialize(
     a one-element sequence: one process per card); by default
     ``LOCAL_RANK``, else the process index modulo the cards present.  On a
     machine with a CUDA card the ranks are CUDA ranks and ``backend``
-    defaults to "nccl"; otherwise they are CPU ranks over
-    ``cpu_collectives`` ("gloo").  CUDA ranks may ask for "gloo" (it
-    all-reduces device tensors through host memory, and lets several ranks
-    share one card), but it is never taken as a fallback for NCCL.
+    defaults to "nccl"; otherwise they are CPU ranks and it defaults to
+    "gloo" (the JAX package's ``cpu_collectives``).  CUDA ranks may ask
+    for "gloo" (it all-reduces device tensors through host memory, and
+    lets several ranks share one card), but it is never taken as a
+    fallback for NCCL.
     ``timeout`` (seconds) bounds every collective."""
     tdist = _dist()
     if tdist.is_initialized():
@@ -101,7 +101,7 @@ def initialize(
                          f"{num_processes} processes")
     cuda = torch.cuda.is_available()
     if backend is None:
-        backend = "nccl" if cuda else cpu_collectives
+        backend = "nccl" if cuda else "gloo"
     if backend == "nccl" and not cuda:
         raise RuntimeError("backend='nccl' needs a CUDA card; CPU ranks use "
                            "backend='gloo'")

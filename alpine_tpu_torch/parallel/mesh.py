@@ -99,8 +99,9 @@ def describe_device(dev):
 def restore_device(desc):
     """Inverse of ``describe_device`` in the loading process: a mesh is
     rebuilt over the process group when one of the same size is
-    initialized, else (with a warning) the device of its type on this
-    process, or the CPU where that type is absent."""
+    initialized, else the model loads onto the card (with a warning:
+    later fits run unsharded), and with no card it raises as
+    ``resolve_device("cuda")`` does."""
     if not (isinstance(desc, tuple) and desc and desc[0] == "__mesh__"):
         return desc
     _, axes, shape, device_type = desc
@@ -113,16 +114,15 @@ def restore_device(desc):
         from torch.distributed.device_mesh import init_device_mesh
 
         return init_device_mesh(device_type, tuple(shape), mesh_dim_names=axes)
+    dev = resolve_device("cuda")
     import warnings
 
-    fallback = ("cuda" if device_type == "cuda" and torch.cuda.is_available()
-                else "cpu")
     warnings.warn(
         f"Could not restore pickled device {desc!r} in this process (no "
-        f"process group of {n} ranks); falling back to {fallback!r} — "
-        "subsequent fits run unsharded."
+        f"process group of {n} ranks); loading onto {dev} — subsequent "
+        "fits run unsharded."
     )
-    return resolve_device(fallback)
+    return dev
 
 
 class Placement:
@@ -132,7 +132,10 @@ class Placement:
     On a mesh the tensors a process passes and receives are its own: X,
     H and the Ys hold its cells' columns, W and the Bs are replicated and
     kept bit-identical by computing them from identical all-reduced
-    statistics.  Nothing is assembled into a global tensor."""
+    statistics.  Nothing is assembled into a global tensor.  A process
+    drives one device, so the JAX class's per-process device counts
+    (``is_multiprocess``, ``cell_shards``, ``local_cell_shards``) have no
+    counterpart: the processes are the shards."""
 
     def __init__(self, target):
         self.target = target
@@ -145,28 +148,6 @@ class Placement:
     @property
     def n_processes(self) -> int:
         return 1 if self.mesh is None else int(self.mesh.size())
-
-    @property
-    def is_multiprocess(self) -> bool:
-        """True when the mesh spans more than one process."""
-        return self.n_processes > 1
-
-    @property
-    def cell_shards(self) -> int:
-        """Devices along the cell axis (1 when unsharded)."""
-        return self.n_processes
-
-    @property
-    def local_cell_shards(self) -> int:
-        """This process's devices along the cell axis: one, or an error for
-        a process outside the mesh."""
-        if self.mesh is not None and self.mesh.get_coordinate() is None:
-            raise ValueError(
-                "this process owns no devices of the mesh — every process "
-                "of a multi-process fit must contribute devices (use "
-                "distributed.global_cell_mesh)"
-            )
-        return 1
 
     @property
     def process_chunk_index(self) -> int:

@@ -79,9 +79,13 @@ def disable_debug_checks() -> None:
     _debug_checks = False
 
 
-def check_loss_row(row: torch.Tensor, it: int) -> None:
-    """Raise ``FloatingPointError`` if debug checks are on and iteration
-    ``it``'s loss row holds NaN or ±inf (reads the row to the host)."""
-    if _debug_checks and not bool(torch.isfinite(row).all()):
+def check_loss_row(losses: torch.Tensor, it: int) -> None:
+    """Raise ``FloatingPointError`` if debug checks are on and row ``it``
+    of ``losses`` holds NaN or ±inf (reads the row to the host).  With the
+    checks off it does nothing else."""
+    if not _debug_checks:
+        return
+    row = losses[it]
+    if not bool(torch.isfinite(row).all()):
         raise FloatingPointError(
             f"non-finite loss at iteration {it}: {row.tolist()}")

@@ -103,11 +103,11 @@ Phases, each printing one JSON line:
           slice bit for bit, worlds 2 and 3 within loss rtol 5e-4 of the
           slice's, embeddings within 5e-3 (relative Frobenius) of one
           device's fit of as many iterations, transforms within rtol 1e-5
-          (above 1e-6 of the largest value) of one device's with rank 0's
-          W, W and the losses bit-equal across the ranks, one all-reduce
-          an iteration of the same bytes in every world; each rank prints
-          a slice_sharded_rank line (cells, seconds, device ms an
-          iteration, launches, all-reduce calls, bytes and ms).  Ranks
+          of one device's with rank 0's W, W and the losses bit-equal
+          across the ranks, one all-reduce an iteration of the same bytes
+          in every world; each rank prints a slice_sharded_rank line
+          (cells, seconds, device ms an iteration, launches, all-reduce
+          calls, bytes and ms).  Ranks
           share one card: no time here is a multi-GPU speed;
   slice_unguided  an unguided fit (no covariates) for fused_h_update's
           path;
@@ -986,13 +986,8 @@ def run_sharded_phase(torch, kernels, mu, ALPINE, AnnData, counts, obs, ref):
             T_ref = mu.run_transform(W, X_card, H0, float(np.float32(EPS)),
                                      n_iter=iters).cpu().numpy().T
             T = np.concatenate([o["T"] for o in outs], axis=0)
-            # rtol 1e-5 above a floor of 1e-6 of the largest value: 2WᵀX
-            # sums each column in the order cuBLAS picks for the shard's
-            # width, and relative differences of values near 0 measure
-            # nothing
-            floor = 1e-6 * float(np.max(np.abs(T_ref)))
-            t_err = float(np.max(np.abs(T - T_ref) / (np.abs(T_ref) + floor / 1e-5)))
-            t_err_raw = float(np.max(np.abs(T - T_ref) / np.maximum(np.abs(T_ref), 1e-30)))
+            # elementwise, rtol 1e-5 (a zero beside a non-zero fails)
+            t_err = float(np.max(np.abs(T - T_ref) / np.maximum(np.abs(T_ref), 1e-30)))
             del W, H0
             worlds.append({"world": world, "backend": rows[0]["backend"],
                            "iterations": iters, "cells": [r["cells"] for r in rows],
@@ -1001,8 +996,7 @@ def run_sharded_phase(torch, kernels, mu, ALPINE, AnnData, counts, obs, ref):
                            "allreduce_ms_per_iteration": [r["allreduce_ms_per_iteration"]
                                                           for r in rows],
                            "loss_max_rel_err": loss_gap, "H_rel_frobenius_err": h_err,
-                           "transform_err_over_rtol_1e-5_floor_1e-6_max": t_err,
-                           "transform_max_rel_err": t_err_raw, "replicas_bit_equal": same,
+                           "transform_max_rel_err": t_err, "replicas_bit_equal": same,
                            "seconds": time.perf_counter() - t0})
             check(loss_gap <= 5e-4, f"world {world}: losses {loss_gap} from the slice's")
             check(h_err <= 5e-3, f"world {world}: embedding {h_err} from the slice's")
@@ -1042,8 +1036,8 @@ def run_sharded_phase(torch, kernels, mu, ALPINE, AnnData, counts, obs, ref):
           "allreduce_bytes_per_iteration": payload, "worlds": worlds,
           "k1_alone_by_cells": k1_alone,
           "tolerance": "world 1 bit for bit; worlds 2, 3: loss rtol 5e-4, embedding "
-                       "relative Frobenius 5e-3, transform rtol 1e-5 with atol 1e-6 of "
-                       "its largest value, W and losses bit-equal across ranks",
+                       "relative Frobenius 5e-3, transform rtol 1e-5, W and losses "
+                       "bit-equal across ranks",
           "seconds": time.perf_counter() - phase_t0})
 
 

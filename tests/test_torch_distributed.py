@@ -4,8 +4,9 @@ and transform their own cells, and the parent holds what they wrote
 against the single-process port and the JAX package.
 
 - ``process_cell_range`` against the JAX package's, errors included.
-- ``mu._fit_scan_sharded`` in float64 (the kernels' plain versions; KL,
-  Frobenius, no covariates) against the single-process float64 loop
+- The sharded fit loop ``mu._fit_scan_fused`` in float64 (the kernels'
+  plain versions; KL, Frobenius, no covariates) against the
+  single-process float64 loop
   ``mu._fit_scan_steps`` at rtol 1e-11.
 - ``mu.fit_scan_sharded`` and the sharded ``run_transform`` on 2 ranks
   against the JAX package's on a 4-device (8 for the ragged transform)
@@ -419,8 +420,8 @@ def test_estimator_replicas_bit_equal(ranks, name):
 
 
 def _pickled_model(results):
-    with pytest.warns(UserWarning, match="Could not restore pickled device"):
-        model = pickle.loads(results[0]["pickle"]["blob"])
+    """Rank 0's fitted model, moved to one process on the CPU."""
+    model = pickle.loads(results[0]["cpu_model"])
     assert model.device == torch.device("cpu")
     return model
 
@@ -439,16 +440,20 @@ def test_sharded_transform_matches_single_process(ranks, name):
         assert all(r["tr_96"]["cache"] for r in results)
 
 
-def test_mesh_model_pickle_round_trip(ranks):
+def test_mesh_model_pickle_round_trip(ranks, monkeypatch):
     """In the ranks a pickled mesh model rebuilds its mesh and transforms
-    as the original; elsewhere it falls back to a device with a warning."""
+    as the original.  Where no process group of its size exists it loads
+    onto the card, and with no card it raises as ALPINE(device="cuda")
+    does: there is no silent move to the CPU."""
     _, results = ranks
     for res in results:
         assert res["pickle"]["device"] == "DeviceMesh"
         assert res["pickle"]["mesh_size"] == WORLD
         assert np.array_equal(res["pickle"]["H"], res["tr_61"]["H"])
-    model = _pickled_model(results)
-    assert model.matrices["Ws"][0].shape == (32, 2)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="needs an NVIDIA GPU"):
+        pickle.loads(results[0]["pickle"]["blob"])
+    assert _pickled_model(results).matrices["Ws"][0].shape == (32, 2)
 
 
 def test_elbow_runs_on_the_replicated_losses(ranks):
@@ -478,12 +483,12 @@ def test_auto_dtype_takes_the_widest(ranks):
 # the failure cases: (exception type, message the JAX package also raises,
 # or None where the port's own message is checked by pattern)
 _FAILURES = {
-    "genes_differ": ("ValueError", "per-process fit inputs (gene count, per-process device count"),
+    "genes_differ": ("ValueError", "per-process fit inputs (gene count"),
     "int8_unstorable": ("ValueError", "cannot represent the data on at least one process's shard"),
     "n_restarts": ("ValueError", "n_restarts > 1 is not supported with a sharded (Mesh) device."),
     "weighted": ("ValueError", "sampling_method='weighted' is not supported in multi-process fits"),
     "als_minibatch": ("ValueError", "ALS minibatch fits are not supported in multi-process mode"),
-    "transform_genes_differ": ("ValueError", "per-process transform inputs (genes, per-process"),
+    "transform_genes_differ": ("ValueError", "per-process transform inputs (genes"),
     "minibatch": ("NotImplementedError", None),
     "weighted_fast": ("NotImplementedError", None),
     "tiled": ("NotImplementedError", None),
@@ -586,18 +591,22 @@ def test_world_of_one_is_the_single_device_fit(world_of_one):
         assert np.array_equal(a, b)
 
 
-def test_mesh_refusals_and_descriptors(world_of_one):
+def test_mesh_refusals_and_descriptors(world_of_one, monkeypatch):
     from torch.distributed.device_mesh import init_device_mesh
 
     placement = tmesh.Placement(world_of_one)
-    assert placement.is_sharded and not placement.is_multiprocess
+    assert placement.is_sharded
     assert (placement.n_processes, placement.process_chunk_index,
-            placement.local_cell_shards, placement.device) == (1, 0, 1, torch.device("cpu"))
+            placement.device) == (1, 0, torch.device("cpu"))
     assert tmesh.resolve_device(world_of_one) is world_of_one
     desc = tmesh.describe_device(world_of_one)
     assert desc == ("__mesh__", ("cells",), (1,), "cpu")
     rebuilt = tmesh.restore_device(desc)
     assert tmesh.is_mesh(rebuilt) and rebuilt.mesh_dim_names == ("cells",)
+    # a mesh of another size than the group's: the card, which is absent
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="needs an NVIDIA GPU"):
+        tmesh.restore_device(("__mesh__", ("cells",), (2,), "cpu"))
     with pytest.raises(NotImplementedError, match="item 1D"):
         tmesh.resolve_device(init_device_mesh("cpu", (1, 1),
                                               mesh_dim_names=("genes", "cells")))

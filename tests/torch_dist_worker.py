@@ -57,23 +57,23 @@ def main():
     dist.initialize(coordinator_address=f"localhost:{port}",
                     num_processes=world, process_id=rank, timeout=30.0)
     mesh = dist.global_cell_mesh()
-    group = mesh.get_group()
     out = {"process_count": dist.process_count(), "process_index": dist.process_index(),
            "is_coordinator": dist.is_coordinator()}
 
     def cols(n):
         return dist.process_cell_range(n)
 
-    # fit_scan_sharded in float64 (the kernels' plain versions)
+    # the sharded fit loop in float64 (the kernels' plain versions), past
+    # fit_scan's cast of X to a storage dtype
     for name, case in inputs["f64"].items():
         lo, hi = cols(case["X"].shape[1])
         t = torch.from_numpy
         cfg = mu.MUConfig(**case["cfg"])
-        W, H, Bs, L = mu._fit_scan_sharded(
-            cfg, group, t(case["W0"]), t(case["H0"][:, lo:hi]).contiguous(),
+        W, H, Bs, L = mu._fit_scan_fused(
+            cfg, t(case["W0"]), t(case["H0"][:, lo:hi]).contiguous(),
             tuple(t(b) for b in case["Bs0"]), t(case["X"][:, lo:hi]).contiguous(),
             [t(y[:, lo:hi]).contiguous() for y in case["Ys"]],
-            (t(case["lam"]), *case["hyper"]), None)
+            (t(case["lam"]), *case["hyper"]), None, None, group=mesh.get_group())
         out[f"f64_{name}"] = {"W": W.numpy(), "H": H.numpy(),
                               "Bs": [b.numpy() for b in Bs], "L": L.numpy()}
 
@@ -96,7 +96,7 @@ def main():
         t = torch.from_numpy
         H = mu.run_transform(t(case["W"]), t(case["X"][:, lo:hi]).contiguous(),
                              t(case["H0"][:, lo:hi]).contiguous(), case["eps"],
-                             n_iter=case["n_iter"], mesh=mesh)
+                             n_iter=case["n_iter"])
         out[f"jax_{name}"] = {"H": H.numpy()}
 
     # the all-reduce payload of an iteration at two cell counts
@@ -140,6 +140,10 @@ def main():
     out["pickle"] = {"blob": blob, "device": type(restored.device).__name__,
                      "mesh_size": int(restored.device.size()),
                      "H": obsm_blocks(again)}
+    # the fitted model moved to one process on the CPU: the parent's
+    # single-process reference
+    restored.device = torch.device("cpu")
+    out["cpu_model"] = pickle.dumps(restored)
 
     # max_iter=None: the warm-up and the elbow on the replicated losses
     case = inputs["estimator"]["96"]
@@ -205,7 +209,7 @@ def main():
         drop_gene_on_rank1(local_adata(base, lo, hi)), n_iter=3))
     # the group still works after every refusal
     probe = torch.ones(1)
-    dist.all_reduce_sum(probe, group)
+    dist.all_reduce_sum(probe, mesh.get_group())
     failures["after"] = float(probe)
     out["failures"] = failures
     dist.shutdown()
