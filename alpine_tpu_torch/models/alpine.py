@@ -27,17 +27,25 @@ reuses it.  ``verbose=True`` shows the JAX package's progress bar.
 
 ``device=distributed.global_cell_mesh()`` fits over processes, one a
 device: each process passes its own cells as ``adata``, its fit and
-transform compute on those cells (``mu.fit_scan_sharded``: one all-reduce
-of the small statistics an iteration) and write its rows of ``obsm``,
-while W, the Bs and the loss history are replicated.  Full-batch joint
-fits and transforms run so; the other fit modes raise
-``NotImplementedError`` there (ROADMAP §1 item 1B).
+transform compute on those cells (``mu.fit_scan`` with the mesh's process
+group: all-reduces of the small statistics only) and write its rows of
+``obsm``, while W, the Bs and the loss history are replicated.  Every fit
+mode runs so but the JAX package's refusals (``n_restarts > 1``,
+"weighted", ALS minibatches): full-batch joint and ALS fits give the
+single-process trajectory, weighted_fast too (every process draws the
+global balanced draw and counts its own cells), random minibatch and
+tiled fits sample each process's own cells (stratified by process, as in
+the JAX package), and ``checkpoint_dir`` snapshots each process's state
+in a file of its own.
 
 Random draws come from ``torch.Generator``s seeded with ``random_state``
 through ``draw_init``, ``draw_restart_init``, ``draw_counts_stream``,
 ``draw_cells_stream``, ``draw_tiles_stream`` and ``draw_transform_h0``;
 they differ from the JAX package's ``jax.random`` streams by design.  The
-tiled pre-shuffle is numpy's, as in the JAX package.
+tiled pre-shuffle is numpy's, as in the JAX package.  On a cell mesh the
+cell and tile streams of the process at mesh position s > 0 take s as a
+word of their seeds; the counts stream does not (every process draws the
+global draw).
 """
 
 from __future__ import annotations
@@ -67,7 +75,8 @@ from alpine_tpu_torch.utils.adata import (
 )
 from alpine_tpu_torch.utils.encoder import FeatureEncoders
 from alpine_tpu_torch.utils.sampling import (
-    balanced_group_tables, balanced_sample_probabilities, joint_label_ids,
+    balanced_group_tables, balanced_sample_probabilities, check_group_sizes,
+    joint_label_codes, joint_label_ids, window_group_tables,
 )
 from alpine_tpu_torch.utils.single_cell import library_size_factors
 
@@ -82,18 +91,22 @@ _CELLS_SALT = 0x63656C6C  # "cell": minibatch permutations and weighted draws
 _TILES_SALT = 0x74696C65  # "tile": tiled permutations
 _RESTART_SALT = 0x72737472  # "rstr"
 _CHUNK_SALT = 0x63686E6B  # "chnk"
+_SHARD_SALT = 0x73686172  # "shar"
 
 
 def _draw_seed(random_state: int, salt: int, t: int, restart: int = 0,
-               chunk: Optional[int] = None) -> int:
+               chunk: Optional[int] = None, shard: int = 0) -> int:
     """The generator seed of draw t of a stream, from (random_state, salt,
-    t): restart r > 0 and checkpoint chunk c each add their own words, so
-    restart 0 of a fit without checkpoints draws as a single fit does."""
+    t): restart r > 0, checkpoint chunk c and mesh position s > 0 each add
+    their own words, so restart 0 of a fit without checkpoints draws as a
+    single fit does, and so does the process at mesh position 0."""
     words = [random_state, salt]
     if restart:
         words += [_RESTART_SALT, restart]
     if chunk is not None:
         words += [_CHUNK_SALT, chunk]
+    if shard:
+        words += [_SHARD_SALT, shard]
     seq = np.random.SeedSequence(words + [t])
     return int(seq.generate_state(1, np.uint64)[0] >> 1)
 
@@ -122,36 +135,43 @@ def draw_transform_h0(n_components: int, n_cells: int, random_state: int,
 
 
 def draw_counts_stream(tables, n_cells: int, random_state: int, device,
-                       restart: int = 0, chunk: Optional[int] = None):
+                       restart: int = 0, chunk: Optional[int] = None,
+                       n_out: Optional[int] = None):
     """weighted_fast's draws: returns ``draw(t)``, epoch t's balanced draw
     as a (n_cells,) float32 count tensor on ``device``.  ``tables`` are the
     (start, sizes) group tables of the group-sorted cell axis, on
-    ``device``.  Draw t comes from a device generator seeded from
-    (random_state, salt, restart, chunk, t), so it depends on t alone."""
+    ``device``, or on a cell mesh this process's window tables, whose draw
+    counts its ``n_out`` cells (``mu.grouped_balanced_counts``).  Draw t
+    comes from a device generator seeded from (random_state, salt,
+    restart, chunk, t), so it depends on t alone, and not on the
+    process."""
     gen = torch.Generator(device=device)
 
     def draw(t: int) -> torch.Tensor:
         gen.manual_seed(_draw_seed(random_state, _COUNTS_SALT, t, restart, chunk))
-        return mu.grouped_balanced_counts(gen, n_cells, tables)
+        return mu.grouped_balanced_counts(gen, n_cells, tables, n_out)
 
     return draw
 
 
 def draw_cells_stream(n_cells: int, random_state: int, device, probs=None,
-                      restart: int = 0, chunk: Optional[int] = None):
+                      restart: int = 0, chunk: Optional[int] = None,
+                      shard: int = 0):
     """The cell draws of minibatch and gathered weighted fits: returns
     ``draw(t)``, epoch t's (n_cells,) int64 cell indices on ``device`` — a
     permutation, or with ``probs`` (the balanced per-cell probabilities,
     host numpy) n draws with replacement by inverse CDF.  Draw t comes
     from a device generator seeded from (random_state, salt, restart,
-    chunk, t), so it depends on t alone."""
+    chunk, shard, t), so it depends on t alone (on a cell mesh, ``shard``
+    is this process's position and ``n_cells`` its cell count)."""
     gen = torch.Generator(device=device)
     cdf = None
     if probs is not None:
         cdf = torch.from_numpy(np.cumsum(probs, dtype=np.float64)).to(device)
 
     def draw(t: int) -> torch.Tensor:
-        gen.manual_seed(_draw_seed(random_state, _CELLS_SALT, t, restart, chunk))
+        gen.manual_seed(_draw_seed(random_state, _CELLS_SALT, t, restart, chunk,
+                                   shard))
         if cdf is None:
             return torch.randperm(n_cells, generator=gen, device=device)
         u = torch.rand(n_cells, generator=gen, dtype=torch.float64,
@@ -163,14 +183,17 @@ def draw_cells_stream(n_cells: int, random_state: int, device, probs=None,
 
 
 def draw_tiles_stream(n_tiles: int, random_state: int, device,
-                      restart: int = 0, chunk: Optional[int] = None):
+                      restart: int = 0, chunk: Optional[int] = None,
+                      shard: int = 0):
     """The tile draws of tiled fits: returns ``draw(t)``, epoch t's
     permutation of the n_tiles tiles (int64, on ``device``), from a device
-    generator seeded from (random_state, salt, restart, chunk, t)."""
+    generator seeded from (random_state, salt, restart, chunk, shard, t)
+    (``shard`` as in ``draw_cells_stream``)."""
     gen = torch.Generator(device=device)
 
     def draw(t: int) -> torch.Tensor:
-        gen.manual_seed(_draw_seed(random_state, _TILES_SALT, t, restart, chunk))
+        gen.manual_seed(_draw_seed(random_state, _TILES_SALT, t, restart, chunk,
+                                   shard))
         return torch.randperm(n_tiles, generator=gen, device=device)
 
     return draw
@@ -361,14 +384,18 @@ class ALPINE:
                           else self.data_dtype)
         fe = FeatureEncoders(covariate_keys)
         Ys = [y.T.copy() for y in fe.fit_transform(adata.obs)]
-        n_sample, offset = n_local, 0  # the global cell count, this run's start
+        # the global cell count, the cell counts of the mesh's processes
+        # and this process's position and first cell
+        n_sample, chunk_sizes, shard, offset = n_local, None, 0, 0
         if sharded:
             resolved_dtype, chunk_sizes = self._agree_fit_inputs(
                 placement, X, Ys, fe, covariate_keys, resolved_dtype,
                 max_iter=max_iter, batch_size=batch_size,
-                checkpoint_dir=checkpoint_dir, checkpoint_every=checkpoint_every)
+                sampling_method=sampling_method, checkpoint_dir=checkpoint_dir,
+                checkpoint_every=checkpoint_every)
             n_sample = int(chunk_sizes.sum())
-            offset = int(chunk_sizes[:placement.process_chunk_index].sum())
+            shard = placement.process_chunk_index
+            offset = int(chunk_sizes[:shard].sum())
         if (sharded and self.use_als and batch_size is not None
                 and batch_size < n_sample):
             raise ValueError(
@@ -390,11 +417,7 @@ class ALPINE:
                 f"n_cells ({n_sample}); minibatch weighted fits use "
                 f"sampling_method='weighted'."
             )
-        if sharded:
-            # after the first collectives, so every process raises together
-            self._refuse_unported_sharded(n_sample, batch_size, sampling_method,
-                                          checkpoint_dir)
-        coordinator = placement.process_chunk_index == 0
+        coordinator = shard == 0
 
         # commit estimator state only after the encoders fitted
         self.fe = fe
@@ -411,9 +434,13 @@ class ALPINE:
         dev = placement.device
         rs = self.random_state
         tiled = sampling_method == "tiled"
+        # the largest process's cell count (a minibatch epoch's batch share)
+        widest = n_local if chunk_sizes is None else int(chunk_sizes.max())
         # tiled fits permute whole tiles, so the cell axis is zero-padded to
-        # a tile multiple (zero columns are fixed points of every update)
-        pad = (-n_sample) % mu.DEFAULT_TILE if tiled else 0
+        # a tile multiple (zero columns are fixed points of every update);
+        # on a cell mesh every process pads to the widest one's multiple,
+        # so all of them draw batches of the same tiles
+        pad = -(-widest // mu.DEFAULT_TILE) * mu.DEFAULT_TILE - n_local if tiled else 0
         # X in its storage dtype first, so the pad and the permutation below
         # copy the narrow X (200 MB of int8 at 100k x 2,000, not 800 MB)
         Xh = self._cast_x_host(X)
@@ -422,10 +449,13 @@ class ALPINE:
         Xd = Xh.to(dev)
         del Xh
         Ysd = [torch.from_numpy(np.pad(y, ((0, 0), (0, pad)))).to(dev) for y in Ys]
-        cell_perm = tables = probs = None
+        cell_perm = tables = probs = h0_cols = None
         if sampling_method == "weighted":
             probs = balanced_sample_probabilities(joint_label_ids(Ys))
-        if sampling_method == "weighted_fast":
+        if sampling_method == "weighted_fast" and sharded:
+            cell_perm, h0_cols, tables = self._sharded_group_tables(
+                placement, Ys, dev)
+        elif sampling_method == "weighted_fast":
             # group-sort the cells (stable) for the grouped sampler; H0
             # pairs positionally with the sorted cells and H is un-sorted
             # on extraction
@@ -436,11 +466,15 @@ class ALPINE:
             # one seeded shuffle of the cells (numpy's, as the JAX package
             # draws it; undone on extraction): cells adjacent in storage
             # (usually sorted by sample) would otherwise always share a
-            # tile, and a tile would be a cluster rather than a subsample
-            cell_perm = np.random.default_rng(rs).permutation(n_sample)
+            # tile, and a tile would be a cluster rather than a subsample.
+            # On a cell mesh each process shuffles its own cells (tiles
+            # are drawn from a process's cells anyway), seeded with its
+            # position as the JAX package seeds it
+            cell_perm = np.random.default_rng(
+                (rs, shard) if sharded else rs).permutation(n_local)
         if cell_perm is not None:
             perm = torch.from_numpy(np.concatenate(
-                [cell_perm, np.arange(n_sample, n_sample + pad)])).to(dev)
+                [cell_perm, np.arange(n_local, n_local + pad)])).to(dev)
             Xd = Xd[:, perm]
             Ysd = [y[:, perm] for y in Ysd]
         # the device X of a same-data transform; installed after the fit
@@ -464,27 +498,37 @@ class ALPINE:
                 # phantom components start (and stay) exactly zero
                 W0, H0, Bs0 = mu.mask_block_padding(cfg.blocks, true_blocks,
                                                     W0, H0, Bs0)
-            if sharded:
+            if h0_cols is not None:
+                # weighted_fast: the single-process fit pairs group-sorted
+                # position q with H0 column q, so this process takes the
+                # columns of its cells' global sorted positions
+                H0 = H0[:, torch.from_numpy(h0_cols).to(dev)]
+            elif sharded:
                 # every process draws the global H0 and keeps its own
                 # columns, so the trajectory is the single-process one
                 H0 = H0[:, offset:offset + n_local].contiguous()
             return W0, H0, Bs0
 
         def fit_from(cfg, W0, H0, Bs0, restart=0, chunk=None, report=progress):
-            if sharded:
-                return mu.fit_scan_sharded(cfg, placement.mesh, W0, H0, Bs0, Xd,
-                                           Ysd, hyper, progress=report)
             key = dict(restart=restart, chunk=chunk)
+            if sharded:
+                # this process's window of the global draw; its own cells'
+                # and tiles' streams
+                draw_key = dict(key, n_out=n_local)
+                key["shard"] = shard
+            else:
+                draw_key = key
             draw = (None if tables is None else
-                    draw_counts_stream(tables, n_sample, rs, dev, **key))
+                    draw_counts_stream(tables, n_sample, rs, dev, **draw_key))
             if cfg.tiled:
                 cells = draw_tiles_stream(Xd.shape[1] // cfg.tile, rs, dev, **key)
             elif cfg.minibatch:
-                cells = draw_cells_stream(n_sample, rs, dev, probs, **key)
+                cells = draw_cells_stream(n_local, rs, dev, probs, **key)
             else:
                 cells = None
             return mu.fit_scan(cfg, W0, H0, Bs0, Xd, Ysd, hyper, draw_counts=draw,
-                               progress=report, draw_cells=cells)
+                               progress=report, draw_cells=cells,
+                               group=placement.group, cell_width=widest)
 
         def run(n_iter: int):
             cfg = self._make_cfg(Ys, n_sample, n_iter)
@@ -510,17 +554,34 @@ class ALPINE:
             sampled streams are keyed on c, so a resumed fit draws what the
             uninterrupted one did."""
             ckpt = FitCheckpointer(checkpoint_dir, config_key=self._checkpoint_key(
-                Ys, n_sample, n_iter, checkpoint_every))
+                Ys, n_sample, n_iter, checkpoint_every, placement, chunk_sizes))
             cfg = self._make_cfg(Ys, n_sample, n_iter)
             W, H, Bs = init(cfg)
             done, parts = 0, []
             resumed = ckpt.load()
+            if sharded:
+                # each process resumes its own snapshot (its H columns; W,
+                # the Bs and the losses are replicated): unequal iterations
+                # would put the chunk loops, and so the collectives, out of
+                # step, so every process compares them and all restart
+                # together where they differ
+                from alpine_tpu_torch.parallel import distributed as dist
+
+                ranks_done = dist.process_allgather_rows(np.asarray(
+                    [-1 if resumed is None else int(resumed[0])], np.int64))
+                if not (ranks_done == ranks_done[0]).all():
+                    if coordinator:
+                        warnings.warn(
+                            "fit checkpoints disagree across processes "
+                            f"(iterations {sorted(set(ranks_done.ravel().tolist()))}); "
+                            "restarting the fit from scratch on every rank.")
+                    resumed = None
             if resumed is not None:
                 done, W_np, H_np, Bs_np, losses0 = resumed
                 to = lambda a: torch.from_numpy(np.array(a, dtype=np.float32)).to(dev)
                 W, H, Bs = to(W_np), to(H_np), tuple(to(b) for b in Bs_np)
                 parts.append(np.asarray(losses0, np.float32))
-                if verbose:
+                if verbose and coordinator:
                     print(f"ALPINE fit: resumed from iteration {done}")
             chunk = done // checkpoint_every
             while done < n_iter:
@@ -817,7 +878,7 @@ class ALPINE:
 
     def _agree_fit_inputs(self, placement, X, Ys, fe, covariate_keys,
                           resolved_dtype, *, max_iter, batch_size,
-                          checkpoint_dir, checkpoint_every):
+                          sampling_method, checkpoint_dir, checkpoint_every):
         """The sharded fit's first collectives, in the reference's order
         (alpine_tpu/models/alpine.py:264-374): every fit input that shapes
         the collective sequence or the replicated trajectory is compared
@@ -825,7 +886,10 @@ class ALPINE:
         process resolved, the processes' cell counts are gathered, and an
         explicit integer dtype that one process's cells cannot store raises
         on every process.  Returns (storage dtype, cell counts in mesh
-        order)."""
+        order).  Unlike the JAX package it also compares
+        ``sampling_method``: weighted_fast gathers a group layout that the
+        other modes do not, so a mixed fleet would hang rather than
+        raise."""
         from alpine_tpu_torch.parallel import distributed as dist
 
         def digest(blob: str) -> int:
@@ -847,12 +911,13 @@ class ALPINE:
              int(checkpoint_dir is not None),
              checkpoint_every if checkpoint_dir is not None else -1,
              -1 if max_iter is None else int(max_iter),
-             -1 if batch_size is None else int(batch_size)]
+             -1 if batch_size is None else int(batch_size),
+             digest(sampling_method)]
             + [y.shape[0] for y in Ys]
             + [label_hash(k) for k in covariate_keys],
             "per-process fit inputs (gene count, data_dtype setting, "
             "model hyperparameters, checkpointing, max_iter, batch_size, "
-            "covariate label sets)",
+            "sampling_method, covariate label sets)",
         )
         if self.data_dtype == "auto":
             codes = dist.process_allgather_rows(np.asarray(
@@ -870,23 +935,37 @@ class ALPINE:
                 )
         return resolved_dtype, sizes
 
-    def _refuse_unported_sharded(self, n_sample: int, batch_size,
-                                 sampling_method: str, checkpoint_dir) -> None:
-        """The fit modes the JAX package runs over processes that the port
-        does not run on a cell mesh yet."""
-        unported = [
-            ("sampling_method='weighted_fast'", sampling_method == "weighted_fast"),
-            ("sampling_method='tiled'", sampling_method == "tiled"),
-            ("a minibatch fit (batch_size < n_cells)",
-             batch_size is not None and batch_size < n_sample),
-            ("a full-batch ALS fit (use_als=True)", self.use_als),
-            ("checkpoint_dir (mid-fit checkpoints)", checkpoint_dir is not None),
-        ]
-        for what, refused in unported:
-            if refused:
-                raise NotImplementedError(
-                    f"{what} on a cell mesh is not ported yet (ROADMAP §1 "
-                    "item 1B); full-batch joint fits run sharded.")
+    @staticmethod
+    def _sharded_group_tables(placement, Ys, dev):
+        """weighted_fast over processes (alpine_tpu/models/alpine.py:
+        486-518, 600-612): this process group-sorts its own cells (stable),
+        and one host allgather of (code, count) pairs gives the global
+        group layout, which under the stable sort is the single-process
+        group sort of the processes' cells in mesh order.  Returns (this
+        process's cell order, the global sorted position of each of its
+        sorted cells, its window tables (start_loc, m, off, m_loc) on
+        ``dev``).  The group sizes are checked on their global values, so
+        every process raises together."""
+        from alpine_tpu_torch.parallel import distributed as dist
+
+        codes = joint_label_codes(Ys)
+        order = np.argsort(codes, kind="stable")
+        g_codes, m_gp = dist.allgather_group_layout(placement, codes)
+        m_g = m_gp.sum(axis=0)
+        check_group_sizes(m_g)
+        shard = placement.process_chunk_index
+        base_off = m_gp[:shard].sum(axis=0)
+        local_sizes = m_gp[shard]
+        local_start = np.concatenate([[0], np.cumsum(local_sizes)[:-1]])
+        gid = np.searchsorted(g_codes, codes[order])
+        g_start = np.concatenate([[0], np.cumsum(m_g)[:-1]])
+        h0_cols = (g_start[gid] + base_off[gid] + np.arange(len(codes))
+                   - local_start[gid])
+        start_loc, off, m_loc = window_group_tables(
+            local_start, local_sizes, base_off, 1, len(codes))[0]
+        tables = tuple(torch.from_numpy(np.asarray(t, np.int32)).to(dev)
+                       for t in (start_loc, m_g, off, m_loc))
+        return order, h0_cols, tables
 
     @property
     def _storage_dtype(self) -> str:
@@ -908,11 +987,15 @@ class ALPINE:
         return blocks
 
     def _checkpoint_key(self, Ys, n_sample: int, n_iter: int,
-                        checkpoint_every: int) -> dict:
+                        checkpoint_every: int, placement,
+                        chunk_sizes) -> dict:
         """What a fit snapshot's name hashes: the JAX package's keys and
-        value types (alpine_tpu/models/alpine.py:690-729) with one cell
-        shard on one process, so either package resumes the other's
-        snapshot of the same fit."""
+        value types (alpine_tpu/models/alpine.py:690-729), so either package
+        resumes the other's snapshot of the same single-device fit.  On a
+        cell mesh the topology joins it (one card a process): the shard and
+        process counts, this process's position, which gives each process
+        a file of its own in the shared directory, and the processes' cell
+        counts (``chunk_sizes``, None unsharded)."""
         return {
             "blocks": self.n_all_components,
             "n_labels": [y.shape[0] for y in Ys],
@@ -926,12 +1009,13 @@ class ALPINE:
             "sampling": self.sampling_method,
             "tile": mu.DEFAULT_TILE if self.sampling_method == "tiled" else 0,
             "bucket": self.component_bucket,
-            "cell_shards": 1,
+            "cell_shards": placement.n_processes,
             "seed": self.random_state, "max_iter": n_iter,
             "checkpoint_every": checkpoint_every,
-            "n_processes": 1,
-            "process_index": 0,
-            "cell_layout": None,
+            "n_processes": placement.n_processes,
+            "process_index": placement.process_chunk_index,
+            "cell_layout": (None if chunk_sizes is None
+                            else tuple(int(v) for v in chunk_sizes)),
         }
 
     def _make_cfg(self, Ys, n_sample: int, n_iter: int) -> mu.MUConfig:

@@ -40,6 +40,11 @@ Component bucketing pads each block with phantom components that start
 at zero and stay exactly zero (``bucket_blocks``, ``auto_bucket_blocks``,
 ``mask_block_padding``).
 
+With a process group (``fit_scan_sharded``) each rank holds a run of the
+cells and every mode but gathered weighted draws and ALS minibatches runs
+on it: the same loops, whose sums over cells are all-reduced (the steps'
+``r``, the fused loop's one call an iteration).
+
 A verbose fit passes ``progress``: the loops call it every
 ``progress_every(max_iter)`` iterations and after the last with the
 iterations done and the objective loss, which syncs the host there.
@@ -221,13 +226,16 @@ def _x_ht(X: torch.Tensor, Xf: torch.Tensor, H: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _update_b(cfg: MUConfig, B, Hi, Yi, lam_i, eps, HHt_ii):
-    """B update (reference main.py:614-628)."""
+def _update_b(cfg: MUConfig, hyper, i: int, B, bnum, bden, HHt_ii):
+    """Covariate block i's B update from its statistics over the cells
+    (reference main.py:614-628; ``_b_stats``): KL -> λ·bnum over
+    λ·rowsum(H_i), Frobenius -> 2·bnum over 2·B (H Hᵀ)_ii."""
+    lam, eps = hyper[0], hyper[4]
     if cfg.loss_kl:
-        num = lam_i * ((Yi / _clamp(B @ Hi, eps)) @ Hi.T)
-        den = lam_i * torch.sum(Hi, dim=1)[None, :].expand_as(B)
+        num = lam[i] * bnum
+        den = lam[i] * bden[None, :].expand_as(B)
     else:
-        num = 2.0 * (Yi @ Hi.T)
+        num = 2.0 * bnum
         den = 2.0 * (B @ HHt_ii)
     return B * (num / _clamp(den, eps))
 
@@ -244,35 +252,58 @@ def _guided_h_terms(cfg: MUConfig, B, Hi, Yi, lam_i, eps):
     return gnum, gden
 
 
-def joint_batch_update(cfg: MUConfig, hyper, W, Bs, H, X, Xf, Ys_f):
+def _no_reduce(parts):
+    return parts
+
+
+def _xht_pass(cfg: MUConfig, X, Xf, H) -> torch.Tensor:
+    """X Hᵀ (genes × K): the kernel ``hxt`` on the fused backend,
+    ``_x_ht`` on ``Xf`` on the plain one.  Zero cells (a rank's empty
+    batch) launch nothing and give zeros."""
+    from alpine_tpu_torch.ops import kernels
+
+    if not X.shape[1]:
+        return H.new_zeros((X.shape[0], H.shape[0]))
+    return kernels.hxt(X, H).T if cfg.backend == "fused" else _x_ht(X, Xf, H)
+
+
+def _wtx_pass(cfg: MUConfig, X, Xf, Wm) -> torch.Tensor:
+    """Wmᵀ X (k × cells): the kernel ``wtx`` on the fused backend,
+    ``_dot_x`` on ``Xf`` on the plain one; nothing is launched on zero
+    cells."""
+    from alpine_tpu_torch.ops import kernels
+
+    if not X.shape[1]:
+        return Wm.new_zeros((Wm.shape[1], 0))
+    if cfg.backend == "fused":
+        return kernels.wtx(X, Wm.contiguous())
+    return _dot_x(X, Wm.T, Xf)
+
+
+def joint_batch_update(cfg: MUConfig, hyper, W, Bs, H, X, Xf, Ys_f, r=None):
     """One joint MU step: W, then Bs, then H (reference main.py:589-663).
     ``X`` is the stored X (its dtype decides the rounding), ``Xf`` the same
     values in f32 (unused by the fused backend) and ``Ys_f`` the label
     matrices in f32.  Returns (W, Bs, H, (WtX, WtW)) with WtX/WtW valid
     for the new W.  ``cfg.backend == "fused"`` runs the two X products
     through the kernels ``hxt`` (X Hᵀ) and ``wtx`` (Wᵀ X), "plain" through
-    ``_x_ht``/``_dot_x`` on ``Xf``."""
-    from alpine_tpu_torch.ops import kernels
+    ``_x_ht``/``_dot_x`` on ``Xf``.
 
-    lam, orth_w, alpha_w, l1_ratio, eps = hyper
-    fused = cfg.backend == "fused"
-
+    ``r`` sums a list of statistics over the ranks of a cell-sharded fit
+    (the JAX package's ``r=psum``): X Hᵀ, H Hᵀ and the B statistics all
+    read the step's starting H, so they go in one call; W, the Bs and the
+    H update of this rank's columns are then computed locally.  Without
+    ``r`` nothing is reduced."""
+    r = r or _no_reduce
     HHt = H @ H.T
-    num = 2.0 * (kernels.hxt(X, H).T if fused else _x_ht(X, Xf, H))
-    den = (2.0 * (W @ HHt)
-           + (1.0 - l1_ratio) * alpha_w * W
-           + orth_w * (torch.sum(W, dim=1, keepdim=True) - W)
-           + l1_ratio * alpha_w)
-    W = W * (num / _clamp(den, eps))
+    XHt = _xht_pass(cfg, X, Xf, H)
+    bnums, bdens = _b_stats(cfg, hyper, Bs, H, Ys_f)
+    XHt, HHt, bnums, bdens = r([XHt, HHt, bnums, bdens])
+    W = _update_w(hyper, W, XHt, HHt)
+    Bs = _update_bs(cfg, hyper, Bs, bnums, bdens, HHt)
 
-    newBs = []
-    for i in range(cfg.n_cov):
-        o, k = cfg.offsets[i], cfg.blocks[i]
-        newBs.append(_update_b(cfg, Bs[i], H[o:o + k], Ys_f[i], lam[i], eps,
-                               HHt[o:o + k, o:o + k]))
-    Bs = tuple(newBs)
-
-    WtX = kernels.wtx(X, W.contiguous()) if fused else _dot_x(X, W.T, Xf)
+    lam, eps = hyper[0], hyper[4]
+    WtX = _wtx_pass(cfg, X, Xf, W)
     WtW = W.T @ W
     num = 2.0 * WtX
     den = 2.0 * (WtW @ H)
@@ -324,7 +355,7 @@ def joint_weighted_counts_update(cfg: MUConfig, hyper, W, Bs, H, X, Xf, Ys_f,
     return W, Bs, H, (WtX, WtW)
 
 
-def als_batch_update(cfg: MUConfig, hyper, W, Bs, H, X, Xf, Ys_f):
+def als_batch_update(cfg: MUConfig, hyper, W, Bs, H, X, Xf, Ys_f, r=None):
     """One block-cyclic ("ALS mode") MU step (reference main.py:523-588; the
     counterpart of ``alpine_tpu.ops.mu.als_batch_update``): for each block
     in order, W[idx], then B[idx] (covariate blocks), then H[idx]; later
@@ -337,28 +368,38 @@ def als_batch_update(cfg: MUConfig, hyper, W, Bs, H, X, Xf, Ys_f):
     new W and is returned for the loss, with WtW None.  ``cfg.backend ==
     "fused"`` runs these passes through ``kernels.hxt`` and ``kernels.wtx``
     (their plain versions on the CPU), "plain" through ``_x_ht``/``_dot_x``
-    on ``Xf``."""
-    from alpine_tpu_torch.ops import kernels
+    on ``Xf``.
 
+    ``r`` (as in ``joint_batch_update``) makes n_blocks calls a step: one
+    at the start with X·H_startᵀ, block 0's H·H₀ᵀ and every covariate
+    block's B statistics (a block's statistics read only its own rows of
+    H, which no earlier block's update changes), then one with H·Hᵢᵀ
+    before each later block's W update.  WᵢᵀX and the H updates stay
+    local."""
     lam, orth_w, alpha_w, l1_ratio, eps = hyper
-    fused = cfg.backend == "fused"
-    XHt = kernels.hxt(X, H).T if fused else _x_ht(X, Xf, H)
+    r = r or _no_reduce
+    o0, k0 = cfg.offsets[0], cfg.blocks[0]
+    XHt = _xht_pass(cfg, X, Xf, H)
+    HHi = H @ H[o0:o0 + k0].T
+    bnums, bdens = _b_stats(cfg, hyper, Bs, H, Ys_f)
+    XHt, HHi, bnums, bdens = r([XHt, HHi, bnums, bdens])
     W, H, Bs = W.clone(), H.clone(), list(Bs)
     WtX_rows = []
     for idx, (o, k) in enumerate(zip(cfg.offsets, cfg.blocks)):
         Hi = H[o:o + k]
         Wi = W[:, o:o + k]
-        den = (2.0 * (W @ (H @ Hi.T))
+        if idx:
+            (HHi,) = r([H @ Hi.T])
+        den = (2.0 * (W @ HHi)
                + (1.0 - l1_ratio) * alpha_w * Wi
                + orth_w * (torch.sum(Wi, dim=1, keepdim=True) - Wi)
                + l1_ratio * alpha_w)
         Wi = Wi * (2.0 * XHt[:, o:o + k] / _clamp(den, eps))
         W[:, o:o + k] = Wi
         if idx < cfg.n_cov:
-            Bs[idx] = _update_b(cfg, Bs[idx], Hi, Ys_f[idx], lam[idx], eps,
-                                None if cfg.loss_kl else Hi @ Hi.T)
-        WtXi = (kernels.wtx(X, Wi.contiguous()) if fused
-                else _dot_x(X, Wi.T, Xf))
+            Bs[idx] = _update_b(cfg, hyper, idx, Bs[idx], bnums[idx],
+                                bdens[idx], HHi[o:o + k])
+        WtXi = _wtx_pass(cfg, X, Xf, Wi)
         WtX_rows.append(WtXi)
         num = 2.0 * WtXi
         den = 2.0 * ((Wi.T @ W) @ H)
@@ -385,49 +426,74 @@ def multinomial_counts(generator: torch.Generator, n: int,
     return counts.to(torch.float32)
 
 
-def grouped_balanced_counts(generator: torch.Generator, n: int, tables):
+def grouped_balanced_counts(generator: torch.Generator, n: int, tables,
+                            n_out: Optional[int] = None):
     """One epoch of the balanced sampler as a (n,) float32 count vector on
     the generator's device (the counterpart of
-    ``alpine_tpu.ops.mu.grouped_balanced_counts`` with (start, m) tables).
+    ``alpine_tpu.ops.mu.grouped_balanced_counts``).
 
-    The cell axis is sorted by joint group: group g holds columns
-    [start[g], start[g] + m[g]).  Every group carries the same probability
-    mass, so a draw is a group, uniform over the J groups, then a cell,
-    uniform within it — two uniform vectors instead of an inverse-CDF
-    search over n cells.  The draws are counted with an integer
-    ``index_add_`` (exact; ``bincount`` would read the largest index back to
-    the host and stall the fit loop every iteration)."""
-    start, m = tables
+    With (start, m) tables the cell axis is sorted by joint group: group g
+    holds columns [start[g], start[g] + m[g]).  Every group carries the
+    same probability mass, so a draw is a group, uniform over the J
+    groups, then a cell, uniform within it — two uniform vectors instead of
+    an inverse-CDF search over n cells.  The draws are counted with an
+    integer ``index_add_`` (exact; ``bincount`` would read the largest
+    index back to the host and stall the fit loop every iteration).
+
+    The window form ``(start_loc, m, off, m_loc)`` serves a process that
+    holds ``n_out`` of the n cells (a group-sorted run of its own, from
+    ``utils.sampling.window_group_tables``): it draws the same n (group,
+    position) pairs from the same generator state, over the global group
+    sizes m, and counts only the draws whose position in group g falls in
+    its window [off[g], off[g] + m_loc[g]), at local column start_loc[g] +
+    position − off[g].  The other draws go to a sink column n_out that is
+    sliced off (``index_add_`` cannot drop them).  Every process draws
+    with the same seed, so the processes' count vectors are, integer for
+    integer, the single-process draw of their cells; the returned vector
+    has n_out entries."""
+    window = len(tables) == 4
+    start, m = tables[:2]
     J = m.shape[0]
     u1 = torch.rand(n, generator=generator, device=m.device)
     u2 = torch.rand(n, generator=generator, device=m.device)
     gid = torch.clamp((u1 * J).to(torch.int64), max=J - 1)
     m_g = m[gid].to(torch.int64)
     pos = torch.minimum((u2 * m_g.to(torch.float32)).to(torch.int64), m_g - 1)
-    cell = start[gid].to(torch.int64) + pos
-    counts = torch.zeros(n, dtype=torch.int32, device=m.device)
+    if window:
+        off, m_loc = tables[2][gid].to(torch.int64), tables[3][gid].to(torch.int64)
+        lpos = pos - off
+        cell = torch.where((lpos >= 0) & (lpos < m_loc),
+                           start[gid].to(torch.int64) + lpos, n_out)
+        size = n_out + 1
+    else:
+        cell = start[gid].to(torch.int64) + pos
+        size = n
+    counts = torch.zeros(size, dtype=torch.int32, device=m.device)
     counts.index_add_(0, cell, torch.ones_like(cell, dtype=torch.int32))
-    return counts.to(torch.float32)
+    return counts[:n_out if window else n].to(torch.float32)
 
 
 def compute_loss_parts(cfg: MUConfig, hyper, W, H, Bs, X, Xf, Ys_f, normX2,
                        WtX: Optional[torch.Tensor] = None,
                        WtW: Optional[torch.Tensor] = None,
-                       kl_pad: int = 0) -> torch.Tensor:
+                       kl_pad: int = 0, r=None) -> torch.Tensor:
     """Loss vector [total, recon, pred_0, ...] on the full matrices
     (reference main.py:726-753), with the trace identity for recon.
     ``kl_pad`` zero columns of X, H and Ys (a tiled fit's pad) each add
     clamp(B·0, eps) = eps per label row to the KL prediction term; that
-    constant is subtracted, so the pad never reaches the loss."""
+    constant is subtracted, so the pad never reaches the loss.  In a
+    cell-sharded fit (``r``, as in ``joint_batch_update``) the cell sums —
+    Σ(WᵀX)∘H, H Hᵀ and the prediction terms, each rank's pad constant
+    already out — go in one call; ``normX2`` is the summed ‖X‖²."""
     lam, _, _, _, eps = hyper
+    r = r or _no_reduce
     if WtX is None:
         WtX = _dot_x(X, W.T, Xf)
     if WtW is None:
         WtW = W.T @ W
+    dot = torch.sum(WtX * H)
     HHt = H @ H.T
-    recon = normX2 - 2.0 * torch.sum(WtX * H) + torch.sum(WtW * HHt)
-    parts = [recon]
-    total = recon
+    preds = []
     for i in range(cfg.n_cov):
         o, k = cfg.offsets[i], cfg.blocks[i]
         yhat = Bs[i] @ H[o:o + k]
@@ -440,15 +506,21 @@ def compute_loss_parts(cfg: MUConfig, hyper, W, H, Bs, X, Xf, Ys_f, normX2,
         else:
             d = Y - yhat
             pred = torch.sum(d * d)
-        parts.append(pred)
+        preds.append(pred)
+    dot, HHt, preds = r([dot, HHt, tuple(preds)])
+    recon = normX2 - 2.0 * dot + torch.sum(WtW * HHt)
+    total = recon
+    for i, pred in enumerate(preds):
         total = total + lam[i] * pred
-    return torch.stack([total] + parts)
+    return torch.stack([total, recon, *preds])
 
 
-def _check_inputs(cfg: MUConfig, W0, H0, X, Ys, n_cells: int) -> None:
+def _check_inputs(cfg: MUConfig, W0, H0, X, Ys, n_cells: int,
+                  sharded: bool = False) -> None:
     """Shapes of the inputs, X with ``n_cells`` columns (``cfg.n_cells``,
     or this process's cells in a sharded fit); a tiled fit's X (and Ys)
-    may carry a zero pad to a tile multiple past n_cells, and H0 then has
+    may carry a zero pad to a tile multiple past n_cells (in a sharded fit,
+    to the ranks' common width: any number of tiles), and H0 then has
     n_cells columns or X's."""
     t = cfg.tile
     if cfg.tiled:
@@ -461,7 +533,7 @@ def _check_inputs(cfg: MUConfig, W0, H0, X, Ys, n_cells: int) -> None:
                 f"tiled sampling needs the cell axis padded to a multiple "
                 f"of tile={t}; got {X.shape[1]} columns")
     n_x = X.shape[1]
-    pad_ok = cfg.tiled and n_cells <= n_x < n_cells + t
+    pad_ok = cfg.tiled and n_cells <= n_x and (sharded or n_x < n_cells + t)
     if not (n_x == n_cells or pad_ok) or H0.shape not in (
             (cfg.K, n_cells), (cfg.K, n_x)):
         raise ValueError(
@@ -493,7 +565,8 @@ def _report(progress, losses, it: int, max_iter: int) -> None:
 
 
 def _fit_scan_steps(cfg: MUConfig, W0, H0, Bs0, X, Ys, hyper, draw_counts,
-                    draw_cells, progress):
+                    draw_cells, progress, group=None, n_local=None,
+                    cell_width=None):
     """Whole steps: the joint steps of the plain backend, ALS on either
     backend, and the random-minibatch, gathered weighted and tiled epochs
     of both (the minibatch branch of ``alpine_tpu.ops.mu.fit_scan`` and its
@@ -516,28 +589,54 @@ def _fit_scan_steps(cfg: MUConfig, W0, H0, Bs0, X, Ys, hyper, draw_counts,
     cell drawn twice into one batch gets the same update in both columns
     (an H column's update reads only that column), so the scatter writes
     equal values.  The loss is taken once an epoch over all cells, less
-    the pad's KL constant."""
-    from alpine_tpu_torch.ops import kernels
+    the pad's KL constant.
 
+    With a process ``group`` (X, H0 and the Ys hold this rank's
+    ``n_local`` cells; a tiled fit pads them to the ranks' common width)
+    the steps' sums over cells are all-reduced (``r`` of the steps and of
+    ``compute_loss_parts``; ‖X‖² once before the loop), so W, the Bs and
+    the losses stay bit-equal across the ranks.  A full-batch ALS step
+    makes n_blocks calls, its loss one more.  A minibatch epoch samples
+    each rank's own cells (the JAX package's ``_build_sharded_minibatch_fit``
+    stratifies by shard the same way): with nb = ⌈n_cells / batch size⌉,
+    a batch takes ⌈w / nb⌉ of each rank's draws, w being the common width
+    (``cell_width``, the largest rank's cell count; tiled: the tiles every
+    rank pads to, a batch rounded up to whole tiles), and every rank runs
+    the widest rank's batches: nb of them (fewer only where ⌈w / nb⌉·(nb −
+    1) ≥ w, when the last would be empty on every rank; the JAX package
+    runs that all-pad batch, which zeroes W).  A rank with fewer cells has
+    short batches at the end of its epoch, or empty ones, which launch no
+    kernel but join the all-reduce with zeros, so the ranks' collectives
+    stay in step: one a batch and the loss's an epoch."""
     fused = cfg.backend == "fused"
     wide = torch.promote_types(X.dtype, torch.float32)  # float64 stays float64
     Xf = None if fused else X.to(wide)
     Ys_f = [y.to(wide) for y in Ys]
-    normX2 = _norm_x2(X)
-    kl_pad = X.shape[1] - cfg.n_cells
+    (normX2,) = _all_reduce_parts([_norm_x2(X)], group, "setup")
+    n_local = cfg.n_cells if n_local is None else n_local
+    kl_pad = X.shape[1] - n_local
+    r = None if group is None else (
+        lambda parts: _all_reduce_parts(parts, group, "iteration"))
 
     def step(W, Bs, H, X, Xf, Ys_f, it):
         if cfg.use_als:
-            return als_batch_update(cfg, hyper, W, Bs, H, X, Xf, Ys_f)
+            return als_batch_update(cfg, hyper, W, Bs, H, X, Xf, Ys_f, r)
         if cfg.weighted_counts:
             return joint_weighted_counts_update(cfg, hyper, W, Bs, H, X, Xf,
                                                 Ys_f, draw_counts(it))
-        return joint_batch_update(cfg, hyper, W, Bs, H, X, Xf, Ys_f)
+        return joint_batch_update(cfg, hyper, W, Bs, H, X, Xf, Ys_f, r)
 
     # a batch is a set of units: tiles of cfg.tile columns, or single cells
     unit = cfg.tile if cfg.tiled else 1
     n_units = X.shape[1] // unit
-    per_batch = min(-(-cfg.eff_batch_size // unit), n_units)
+    if group is None:
+        per_batch = min(-(-cfg.eff_batch_size // unit), n_units)
+    else:
+        # the units of the widest rank (tiled: every rank's, padded alike)
+        span = n_units if cfg.tiled else max(cell_width or 0, n_units)
+        nb = -(-cfg.n_cells // cfg.eff_batch_size)
+        batch = -(-span * unit // nb)  # ⌈w / nb⌉ cells
+        per_batch = min(-(-batch // unit), span)
 
     def take(A, u):
         return A.view(A.shape[0], n_units, unit).index_select(1, u).view(
@@ -552,19 +651,20 @@ def _fit_scan_steps(cfg: MUConfig, W0, H0, Bs0, X, Ys, hyper, draw_counts,
             W, Bs, H, (WtX, WtW) = step(W, Bs, H, X, Xf, Ys_f, it)
         else:
             idx = draw_cells(it)
-            for lo in range(0, idx.shape[0], per_batch):
-                u = idx[lo:lo + per_batch]
+            n_batches = -(-(idx.shape[0] if group is None else span) // per_batch)
+            for b in range(n_batches):
+                u = idx[b * per_batch:(b + 1) * per_batch]
                 W, Bs, H_b, _ = step(
                     W, Bs, take(H, u), take(X, u),
                     None if fused else take(Xf, u),
                     [take(y, u) for y in Ys_f], it)
                 H.view(H.shape[0], n_units, unit).index_copy_(
                     1, u, H_b.view(H.shape[0], -1, unit))
-            WtX = kernels.wtx(X, W.contiguous()) if fused else _dot_x(X, W.T, Xf)
+            WtX = _wtx_pass(cfg, X, Xf, W)
             WtW = None
         losses[it] = compute_loss_parts(cfg, hyper, W, H, Bs, X, Xf, Ys_f,
                                         normX2, WtX=WtX, WtW=WtW,
-                                        kl_pad=kl_pad)
+                                        kl_pad=kl_pad, r=r)
         _report(progress, losses, it, cfg.max_iter)
     return W, H, Bs, losses
 
@@ -590,25 +690,15 @@ def _b_stats(cfg: MUConfig, hyper, Bs, H, Ys_f, scale=None):
             bdens.append(torch.sum(His, dim=1))
         else:
             bnums.append(Ys_f[i] @ His.T)
-            bdens.append(torch.zeros((k,), dtype=torch.float32, device=H.device))
+            bdens.append(H.new_zeros((k,)))
     return tuple(bnums), tuple(bdens)
 
 
 def _update_bs(cfg: MUConfig, hyper, Bs, bnums, bdens, HHt):
-    """B_t from the carried statistics (reference main.py:614-628)."""
-    lam, _, _, _, eps = hyper
-    out = []
-    for i in range(cfg.n_cov):
-        o, k = cfg.offsets[i], cfg.blocks[i]
-        B = Bs[i]
-        if cfg.loss_kl:
-            num = lam[i] * bnums[i]
-            den = lam[i] * bdens[i][None, :].expand_as(B)
-        else:
-            num = 2.0 * bnums[i]
-            den = 2.0 * (B @ HHt[o:o + k, o:o + k])
-        out.append(B * (num / _clamp(den, eps)))
-    return tuple(out)
+    """Every B from the carried statistics (reference main.py:614-628)."""
+    return tuple(_update_b(cfg, hyper, i, Bs[i], bnums[i], bdens[i],
+                           HHt[o:o + k, o:o + k])
+                 for i, (o, k) in enumerate(zip(cfg.offsets, cfg.blocks[:cfg.n_cov])))
 
 
 def _update_w(hyper, W, XHt, HHt):
@@ -667,13 +757,19 @@ def _fit_scan_fused(cfg: MUConfig, W0, H0, Bs0, X, Ys, hyper, draw_counts,
     this process's cells and W0 and Bs0 are replicated.  The statistics
     before the loop (‖X‖², X Hᵀ, H Hᵀ, the B statistics) and after each
     kernel (X Hᵀ, H Hᵀ, the loss dot, the prediction losses, the B
-    statistics) are then summed over the group, each set in one
-    all-reduce: genes × K + K × K + 1 + n_cov + Σ labels_i × k_i + Σ k_i
-    values an iteration, whatever the cell count.  Every process computes
-    W and the Bs from the same summed values, so they stay bit-identical
-    across processes, and so does the loss history.  The shards are not
-    padded (the JAX package pads each to a tile multiple and strips that
-    padding's KL bias; the kernels here mask the ragged tile).
+    statistics, and with counts the unscaled H Hᵀ) are then summed over
+    the group, each set in one all-reduce: genes × K + K × K + 1 + n_cov +
+    Σ labels_i × k_i + Σ k_i values an iteration (K × K more with counts),
+    whatever the cell count.  Every process computes W and the Bs from the
+    same summed values, so they stay bit-identical across processes, and
+    so does the loss history.  The shards are not padded (the JAX package
+    pads each to a tile multiple and strips that padding's KL bias; the
+    kernels here mask the ragged tile).  With counts each rank's
+    ``draw_counts(t)`` is its own cells' part of the global draw
+    (``grouped_balanced_counts``' window form), and each rank runs the
+    kernel's counts mode (K4) on its cells; the JAX package runs the
+    sharded weighted_fast fit through XLA under ``shard_map`` instead
+    (alpine_tpu/ops/mu.py:1272-1289), the same function.
     ``cfg.backend == "plain"`` runs the kernels' plain versions in X's
     precision (float64 X stays float64), for the float64 checks."""
     from alpine_tpu_torch.ops import kernels
@@ -703,6 +799,7 @@ def _fit_scan_fused(cfg: MUConfig, W0, H0, Bs0, X, Ys, hyper, draw_counts,
     for it in range(cfg.max_iter):
         W = _update_w(hyper, W, XHt, HHt)
         WtW = W.T @ W
+        HHtU = ()  # the unscaled H Hᵀ of a counts iteration (its loss's)
         if cfg.weighted_counts:
             c_next = draw_counts(it + 1)
             Bs = _update_bs(cfg, hyper, Bs, bnums, bdens, HHt)
@@ -719,10 +816,8 @@ def _fit_scan_fused(cfg: MUConfig, W0, H0, Bs0, X, Ys, hyper, draw_counts,
         else:
             H, XHt, HHt, lossdot = h_update(X, W, H, WtW, eps)
             preds = ()
-        # a group never fits weighted_counts (fit_scan refuses it), so HHtU
-        # is never summed
-        XHt, HHt, lossdot, preds, bnums, bdens = _all_reduce_parts(
-            [XHt, HHt, lossdot, tuple(preds), bnums, bdens], group,
+        XHt, HHt, lossdot, preds, bnums, bdens, HHtU = _all_reduce_parts(
+            [XHt, HHt, lossdot, tuple(preds), bnums, bdens, HHtU], group,
             "iteration")
         recon = normX2 - 2.0 * lossdot + torch.sum(
             WtW * (HHtU if cfg.weighted_counts else HHt))
@@ -735,7 +830,7 @@ def _fit_scan_fused(cfg: MUConfig, W0, H0, Bs0, X, Ys, hyper, draw_counts,
 
 
 def fit_scan(cfg: MUConfig, W0, H0, Bs0, X, Ys, hyper, draw_counts=None,
-             progress=None, draw_cells=None, group=None):
+             progress=None, draw_cells=None, group=None, cell_width=None):
     """Run ``cfg.max_iter`` MU epochs.
 
     ``X`` (genes × cells) and ``Ys`` (labels_i × cells) are cast to the
@@ -748,18 +843,23 @@ def fit_scan(cfg: MUConfig, W0, H0, Bs0, X, Ys, hyper, draw_counts=None,
     permutation of X's tiles: X and Ys then hold a zero pad to a tile
     multiple past n_cells, and H0 has n_cells columns or X's.
     ``progress(done, objective loss)``, when given, is called as
-    ``progress_every`` says.  With a process ``group`` (see
-    ``fit_scan_sharded``) X, H0 and Ys hold this process's cells.  Returns
-    (W, H, Bs, losses), H with n_cells columns (this process's, with a
-    group) and losses (max_iter, 2 + n_cov) on the device: [total, recon,
-    pred_0, ...] per iteration."""
+    ``progress_every`` says.
+
+    With a process ``group`` (see ``fit_scan_sharded``) ``cfg.n_cells`` is
+    the global cell count, H0 holds this process's cells and X and Ys the
+    same (a tiled fit pads them to the ranks' common width), ``draw_counts``
+    and ``draw_cells`` draw for this process's cells, and ``cell_width``
+    is the largest process's cell count (minibatch fits; by default X's
+    columns).  Returns (W, H, Bs, losses), H with n_cells columns (this
+    process's, with a group) and losses (max_iter, 2 + n_cov) on the
+    device: [total, recon, pred_0, ...] per iteration."""
     X = X.to(cfg.xdt).contiguous()
     Ys = [y.to(cfg.xdt).contiguous() for y in Ys]
-    _check_inputs(cfg, W0, H0, X, Ys,
-                  cfg.n_cells if group is None else X.shape[1])
-    if group is not None and (cfg.use_als or cfg.minibatch
-                              or cfg.weighted_counts):
-        raise ValueError("fit_scan_sharded requires full-batch joint mode")
+    n_local = cfg.n_cells if group is None else H0.shape[1]
+    _check_inputs(cfg, W0, H0, X, Ys, n_local, sharded=group is not None)
+    if group is not None and (cfg.weighted or (cfg.use_als and cfg.minibatch)):
+        raise ValueError("a fit over a process group runs neither gathered "
+                         "weighted draws nor ALS minibatches")
     if cfg.weighted_counts and (draw_counts is None or not cfg.n_cov):
         raise ValueError("weighted_counts needs covariates and a draw_counts "
                          "callable (weighted sampling balances over them)")
@@ -775,22 +875,23 @@ def fit_scan(cfg: MUConfig, W0, H0, Bs0, X, Ys, hyper, draw_counts=None,
         H0 = torch.nn.functional.pad(H0, (0, X.shape[1] - H0.shape[1]))
     Bs0 = tuple(b.contiguous() for b in Bs0)
     with matmul_precision(cfg.precision):
-        if group is not None or (cfg.backend == "fused"
-                                 and not (cfg.use_als or cfg.minibatch)):
+        if not (cfg.use_als or cfg.minibatch) and (
+                group is not None or cfg.backend == "fused"):
             W, H, Bs, losses = _fit_scan_fused(cfg, W0, H0, Bs0, X, Ys, hyper,
                                                draw_counts, progress, group)
         else:
-            W, H, Bs, losses = _fit_scan_steps(cfg, W0, H0, Bs0, X, Ys, hyper,
-                                               draw_counts, draw_cells,
-                                               progress)
-    return W, H[:, :cfg.n_cells], Bs, losses
+            W, H, Bs, losses = _fit_scan_steps(
+                cfg, W0, H0, Bs0, X, Ys, hyper, draw_counts, draw_cells,
+                progress, group, n_local, cell_width)
+    return W, H[:, :n_local], Bs, losses
 
 
 def fit_scan_sharded(cfg: MUConfig, mesh, W0, H0, Bs0, X, Ys, hyper,
                      progress=None):
-    """Full-batch joint MU over a 1-D cell mesh, one process a device (the
-    counterpart of ``alpine_tpu.ops.mu.fit_scan_sharded``): ``fit_scan``
-    over the mesh's process group.
+    """Full-batch MU (joint or ALS) over a 1-D cell mesh, one process a
+    device (the counterpart of ``alpine_tpu.ops.mu.fit_scan_sharded``):
+    ``fit_scan`` over the mesh's process group, which also runs the
+    sampled modes given their draws.
 
     ``cfg.n_cells`` is the global cell count; ``X`` (genes × n_local),
     ``H0`` (K × n_local) and ``Ys`` hold this process's cells, ``W0`` and

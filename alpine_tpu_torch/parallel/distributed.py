@@ -20,9 +20,10 @@ the same program on its own cells:
 - ``global_cell_mesh`` is the 1-D ``DeviceMesh`` named "cells" over every
   rank, which ``ALPINE(device=...)`` takes.
 - The host-side helpers (``process_allgather_rows``,
-  ``chunk_cell_sizes``, ``assert_same_across_processes``) check that the
-  processes' inputs agree before a fit; they exchange small host rows over
-  a gloo group, since NCCL moves only device tensors.
+  ``chunk_cell_sizes``, ``assert_same_across_processes``,
+  ``allgather_group_layout``) check that the processes' inputs agree
+  before a fit and build the tables a fit shares; they exchange small host
+  rows over a gloo group, since NCCL moves only device tensors.
 - ``all_reduce_sum`` is the sharded fit's one collective on device
   tensors, counted (and, on request, timed) in ``collectives``.
 
@@ -296,6 +297,42 @@ def chunk_cell_sizes(placement, n_local: int) -> np.ndarray:
     sizes = np.zeros(placement.n_processes, dtype=np.int64)
     sizes[chunks] = pairs[:, 1]
     return sizes
+
+
+def allgather_group_layout(placement, local_codes: np.ndarray):
+    """The global joint-label group layout of a weighted_fast fit over
+    processes, agreed without exchanging cells: every process passes its
+    cells' codes (``utils.sampling.joint_label_codes``) and gets
+
+        g_codes (J,) int64: the codes present anywhere, sorted (the
+                single-process group order), and
+        m_gp (n_chunks, J) int64: each chunk's cell count of each group,
+                chunks in mesh order.
+
+    From these a process derives the global group sizes, its own offsets
+    within each group and the global group-sorted position of each of its
+    cells.  The (code, count) pairs travel as float64 (exact below 2^53,
+    which ``joint_label_codes`` guards).  Collective: every process calls
+    it with its own cells' codes."""
+    uniq, counts = np.unique(np.asarray(local_codes, np.int64),
+                             return_counts=True)
+    j_max = int(process_allgather_rows(
+        np.asarray([len(uniq)], np.int64)).max())
+    row = np.full(1 + 2 * j_max, -1.0, np.float64)
+    row[0] = float(placement.process_chunk_index)
+    row[1:1 + len(uniq)] = uniq
+    row[1 + j_max:1 + j_max + len(counts)] = counts
+    rows = process_allgather_rows(row)
+    codes_all = rows[:, 1:1 + j_max]
+    g_codes = np.unique(codes_all[codes_all >= 0].astype(np.int64))
+    m_gp = np.zeros((placement.n_processes, len(g_codes)), np.int64)
+    for r in rows:
+        codes = r[1:1 + j_max]
+        cnts = r[1 + j_max:1 + 2 * j_max]
+        mask = codes >= 0
+        m_gp[int(r[0]), np.searchsorted(g_codes, codes[mask].astype(np.int64))] \
+            = cnts[mask].astype(np.int64)
+    return g_codes, m_gp
 
 
 def assert_same_across_processes(values, what: str) -> None:

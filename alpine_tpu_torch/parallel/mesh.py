@@ -10,7 +10,8 @@ card unless the caller asks for the CPU.
 On a cell mesh each process computes on one device and holds one
 contiguous run of the cells: its columns of X, H and the Ys.  W and the Bs
 are replicated, and each fit iteration sums the small per-process
-statistics with one all-reduce (``ops/mu.py:fit_scan_sharded``).  Any cell
+statistics with all-reduces (``ops/mu.py:fit_scan_sharded``: one an
+iteration of a full-batch joint or weighted_fast fit).  Any cell
 mesh takes that path, whatever its size: a mesh of one process is the
 degenerate case, whose all-reduce changes nothing.  The JAX package's
 single-process multi-device mesh (``make_cell_mesh``) has no counterpart:

@@ -5,8 +5,10 @@ The port's own copy of the parts of ``alpine_tpu/utils/sampling.py`` that
 each cell, the balanced per-cell probabilities of the reference sampler
 (sklearn ``compute_sample_weight("balanced")`` normalized as torch's
 ``WeightedRandomSampler`` does), and the group-sort tables of the grouped
-sampler (``alpine_tpu_torch.ops.mu.grouped_balanced_counts``).  The draws
-themselves happen on the device.
+sampler (``alpine_tpu_torch.ops.mu.grouped_balanced_counts``), with the
+canonical joint-label codes and the window tables a fit over processes
+builds its part of the global draw from.  The draws themselves happen on
+the device.
 """
 
 from __future__ import annotations
@@ -36,6 +38,57 @@ def balanced_sample_probabilities(joint_ids: np.ndarray) -> np.ndarray:
     w = len(joint_ids) / (len(counts) * counts[inv].astype(np.float64))
     w /= w.sum()
     return w.astype(np.float32)
+
+
+def joint_label_codes(Ys: Sequence[np.ndarray]) -> np.ndarray:
+    """Joint label code of each cell, the same on every process: a
+    mixed-radix integer over the per-covariate argmaxes, first covariate
+    most significant, which is the lexicographic order
+    ``joint_label_ids`` ranks by.  A fit over processes agrees on the
+    global group enumeration from these codes without exchanging cells;
+    they travel between processes as float64, so the radix product must
+    stay below 2^53."""
+    if not Ys:
+        raise ValueError("joint_label_codes requires at least one dummy matrix")
+    radices = [int(Y.shape[0]) for Y in Ys]
+    prod = 1
+    for r in radices:
+        prod *= max(r, 1)
+    if prod >= 2 ** 53:
+        raise ValueError(
+            "multi-process weighted_fast needs a canonical joint-label code, "
+            f"but the joint label space ({'x'.join(map(str, radices))} = "
+            f"{prod}) exceeds 2^53; use sampling_method='random' or fewer/"
+            "coarser covariates."
+        )
+    code = np.zeros(Ys[0].shape[1], dtype=np.int64)
+    for Y in Ys:
+        code = code * int(Y.shape[0]) + np.argmax(Y, axis=0).astype(np.int64)
+    return code
+
+
+def window_group_tables(start_span: np.ndarray, sizes_span: np.ndarray,
+                        base_off: np.ndarray, n_windows: int,
+                        width: int) -> np.ndarray:
+    """Per-window [start_loc, off, m_loc] tables of the grouped sampler's
+    window form (``grouped_balanced_counts`` with 4-tuple tables): one
+    contiguous group-sorted span of cells (a process's cells) cut into
+    ``n_windows`` windows of ``width`` columns.
+
+    ``start_span[g]``/``sizes_span[g]`` are group g's start column and
+    cell count within the span; ``base_off[g]`` is the span's own offset
+    within the group (the group's cells in earlier processes).  Returns
+    int32 (n_windows, 3, J): window w covers span columns [w·width,
+    (w+1)·width) and holds group g's global within-group positions [off,
+    off + m_loc) at local columns [start_loc, start_loc + m_loc)."""
+    start = np.asarray(start_span, np.int64)[None, :]
+    size = np.asarray(sizes_span, np.int64)[None, :]
+    base = np.asarray(base_off, np.int64)[None, :]
+    w = np.arange(int(n_windows), dtype=np.int64)[:, None] * int(width)
+    lo = np.clip(w, start, start + size)
+    hi = np.clip(w + int(width), start, start + size)
+    return np.stack([lo - w, base + (lo - start), hi - lo],
+                    axis=1).astype(np.int32)
 
 
 def check_group_sizes(sizes: np.ndarray) -> None:

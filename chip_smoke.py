@@ -109,6 +109,25 @@ Phases, each printing one JSON line:
           (cells, seconds, device ms an iteration, launches, all-reduce
           calls, bytes and ms).  Ranks
           share one card: no time here is a multi-GPU speed;
+  slice_sharded_modes  the other fit modes over a cell mesh (the slice's
+          model, int8 named): one device's weighted_fast (20 iterations)
+          and ALS (10) fits, then the same on one NCCL process (this one),
+          bit for bit; then 2 gloo ranks spawned on the card (50,000 cells
+          each), each fitting weighted_fast (its first draws concatenated
+          must be one device's; a cached transform after, against the
+          uncached one), ALS (both within loss rtol 5e-4 and H relative
+          Frobenius 5e-3 of one device), 5 epochs of random minibatch and
+          of tiled batches of 8,192 (finite, falling losses; one P1 and
+          one P2 launch a batch, P2 once more an epoch), and a
+          weighted_fast fit with a snapshot every 5 iterations of 10,
+          interrupted after the first and resumed (bit for bit the
+          uninterrupted one); every cell's H changed by each fit, the
+          launches of K4/P1/P2/K3 and the all-reduces counted from zero
+          in every world, W and the losses bit-equal across the ranks;
+          each rank prints a slice_sharded_modes_rank line a mode
+          (seconds, device ms an iteration or epoch, all-reduce calls,
+          bytes and ms); then K4 alone at 50,000 cells and at 50,001
+          (rows off 16-byte alignment) beside its twin 50,016;
   slice_unguided  an unguided fit (no covariates) for fused_h_update's
           path;
   slice_weighted_fast  the same fit with sampling_method="weighted_fast",
@@ -1038,6 +1057,418 @@ def run_sharded_phase(torch, kernels, mu, ALPINE, AnnData, counts, obs, ref):
           "tolerance": "world 1 bit for bit; worlds 2, 3: loss rtol 5e-4, embedding "
                        "relative Frobenius 5e-3, transform rtol 1e-5, W and losses "
                        "bit-equal across ranks",
+          "seconds": time.perf_counter() - phase_t0})
+
+
+# the fit modes of slice_sharded_modes: (name, model keywords, fit keywords,
+# iterations or epochs)
+SHARDED_MODES = (
+    ("weighted_fast", {}, {"sampling_method": "weighted_fast"}, 20),
+    ("als", {"use_als": True}, {}, 10),
+    ("minibatch", {}, {"batch_size": MB_BATCH}, 5),
+    ("tiled", {}, {"batch_size": MB_BATCH, "sampling_method": "tiled"}, 5),
+)
+MODES_CKPT_EVERY, MODES_CKPT_ITERS = 5, 10
+# the slice's model with its storage named: "auto" resolves to int8 on these
+# counts too, but its scan of X for fractions costs seconds a fit
+MODES_PARAMS = dict(SHARDED_PARAMS, data_dtype="int8")
+MODES_RANK_TIMEOUT = 300.0
+
+
+def mode_batches(n_cells, world, batch, tiled):
+    """Batches an epoch of a rank of ``world`` over ``n_cells`` cells
+    (alpine_tpu_torch.ops.mu._fit_scan_steps): a batch takes ⌈w / nb⌉ of
+    the widest rank's w cells (tiled: its tiles, whole ones)."""
+    def cdiv(a, b):
+        return -(-a // b)
+
+    unit = TILE if tiled else 1
+    span = cdiv(cdiv(n_cells, world), unit)  # the widest rank's units
+    per = min(cdiv(cdiv(span * unit, cdiv(n_cells, batch)), unit), span)
+    return cdiv(span, per)
+
+
+def mode_fit(torch, kernels, mu, dist, ALPINE, adata, device, model_kw, fit_kw, iters):
+    """One fit of the slice's model in a mode on ``device`` under the
+    profiler, its kernel launches and all-reduces counted from zero.  The
+    fit loop's H0 and H are compared column by column (every cell
+    trained), and a weighted_fast fit keeps its first draw in caller
+    order."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from alpine_tpu_torch.models import alpine as talpine
+
+    seen = {}
+    real_fit, real_stream = mu.fit_scan, talpine.draw_counts_stream
+
+    def fit_scan(cfg, W0, H0, *args, **kw):
+        out = real_fit(cfg, W0, H0, *args, **kw)
+        seen["trained"] = bool((out[1] != H0).any(dim=0).all())
+        return out
+
+    def stream(*args, **kw):
+        draw = real_stream(*args, **kw)
+
+        def first(t):
+            c = draw(t)
+            if t == 0:
+                seen["first_draw"] = c.cpu().numpy()
+            return c
+        return first
+
+    model = ALPINE(device=device, **MODES_PARAMS, **model_kw)
+    kernels.reset_launches()
+    dist.reset_collectives(timed=True)
+    mu.fit_scan, talpine.draw_counts_stream = fit_scan, stream
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            model.fit(adata, SHARDED_KEYS, max_iter=iters, **fit_kw)
+            torch.cuda.synchronize()
+            fit_s = time.perf_counter() - t0
+    finally:
+        mu.fit_scan, talpine.draw_counts_stream = real_fit, real_stream
+    device_ms, top = _kernel_device_ms(prof, DeviceType)
+    coll = dist.collective_summary()
+    setup, loop = coll.get("setup", {}), coll.get("iteration", {})
+    row = {"iterations": iters, "fit_seconds_profiled": fit_s, "timings": model.timings_,
+           "device_ms_per_iteration": device_ms / iters,
+           "top_kernels_device_ms_per_iteration": [[k, ms / iters] for k, ms in top],
+           "launches": {k: kernels.launches[k] for k in
+                        ("fused_iteration", "fused_iteration_counts", "hxt", "wtx")},
+           "every_cell_trained": seen["trained"],
+           "allreduce_calls_before_loop": setup.get("calls", 0),
+           "allreduce_ms_before_loop": setup.get("ms", 0.0),
+           "allreduce_calls_per_iteration": loop.get("calls", 0) / iters,
+           "allreduce_bytes_per_iteration": loop.get("bytes", 0) / iters,
+           "allreduce_ms_per_iteration": loop.get("ms", 0.0) / iters}
+    out = {"loss": model.loss_history_,
+           "W": np.concatenate(model.matrices["Ws"], axis=1),
+           "H": np.concatenate(model.matrices["Hs"], axis=0)}
+    if "first_draw" in seen:
+        out["first_draw"] = seen["first_draw"][np.argsort(model._x_cache[3])]
+    return model, row, out
+
+
+def mode_checkpoints(ALPINE, FitCheckpointer, adata, device, workdir):
+    """weighted_fast with a snapshot every MODES_CKPT_EVERY iterations:
+    the uninterrupted fit, then one interrupted after its first snapshot
+    and resumed by a fresh model.  Chunk c's draws are keyed on c, so the
+    reference is the uninterrupted fit with the same snapshots."""
+    def fit(directory):
+        model = ALPINE(device=device, **MODES_PARAMS)
+        model.fit(adata, SHARDED_KEYS, max_iter=MODES_CKPT_ITERS,
+                  sampling_method="weighted_fast", checkpoint_every=MODES_CKPT_EVERY,
+                  checkpoint_dir=os.path.join(workdir, directory))
+        return model.loss_history_
+
+    t0 = time.perf_counter()
+    whole = fit("modes_ck_whole")
+    orig_save, orig_load = FitCheckpointer.save, FitCheckpointer.load
+    loaded = []
+
+    def interrupting_save(self, *args):
+        orig_save(self, *args)
+        raise KeyboardInterrupt
+
+    def recording_load(self):
+        r = orig_load(self)
+        loaded.append(None if r is None else int(r[0]))
+        return r
+
+    interrupted = False
+    FitCheckpointer.save = interrupting_save
+    try:
+        fit("modes_ck_resume")
+    except KeyboardInterrupt:
+        interrupted = True
+    finally:
+        FitCheckpointer.save = orig_save
+    FitCheckpointer.load = recording_load
+    try:
+        resumed = fit("modes_ck_resume")
+    finally:
+        FitCheckpointer.load = orig_load
+    return {"interrupted": interrupted, "resumed_from": loaded,
+            "bits_equal_uninterrupted": bool(np.array_equal(whole, resumed)),
+            "seconds": time.perf_counter() - t0}
+
+
+def sharded_modes_rank(here, workdir, world, rank, port, n_cells):
+    """One gloo rank of slice_sharded_modes (a spawned process): every mode
+    on its run of the bench cells, a cached transform after the
+    weighted_fast fit, and the checkpointed weighted_fast fit; a line a
+    mode, and its results saved."""
+    sys.path.insert(0, here)
+    import torch
+
+    from alpine_tpu_torch import ALPINE, AnnData
+    from alpine_tpu_torch.io.checkpoint import FitCheckpointer
+    from alpine_tpu_torch.ops import kernels, mu
+    from alpine_tpu_torch.parallel import distributed as dist
+
+    dist.initialize(f"localhost:{port}", num_processes=world, process_id=rank,
+                    local_device_ids=0, backend="gloo", timeout=RANK_PG_TIMEOUT)
+    try:
+        lo, hi = dist.process_cell_range(n_cells)
+        counts = np.load(os.path.join(workdir, "counts.npy"), mmap_mode="r")
+        labels = np.load(os.path.join(workdir, "obs.npz"), allow_pickle=True)
+        adata = AnnData(np.asarray(counts[lo:hi], dtype=np.float32),
+                        obs={k: labels[k][lo:hi] for k in SHARDED_KEYS})
+        mesh = dist.global_cell_mesh()
+        outs, rows = {}, []
+        for name, model_kw, fit_kw, iters in SHARDED_MODES:
+            t0 = time.perf_counter()
+            model, row, out = mode_fit(torch, kernels, mu, dist, ALPINE, adata, mesh,
+                                       model_kw, fit_kw, iters)
+            if name == "weighted_fast":
+                kernels.reset_launches()
+                model.transform(adata)  # through the fit's group-sorted device X
+                torch.cuda.synchronize()
+                cached = np.concatenate([adata.obsm[k] for k in SHARDED_KEYS]
+                                        + [adata.obsm["ALPINE_embedding"]], axis=1)
+                row["transform_launches"] = kernels.launches["fused_transform"]
+                model.free_device_cache()
+                model.transform(adata)
+                fresh = np.concatenate([adata.obsm[k] for k in SHARDED_KEYS]
+                                       + [adata.obsm["ALPINE_embedding"]], axis=1)
+                row["transform_cached_max_rel_err"] = float(np.max(
+                    np.abs(cached - fresh) / np.maximum(np.abs(fresh), 1e-30)))
+                row["transform_finite"] = bool(np.isfinite(cached).all())
+            model.free_device_cache()
+            del model
+            torch.cuda.empty_cache()
+            row = {"phase": "slice_sharded_modes_rank", "world": world, "rank": rank,
+                   "mode": name, "backend": torch.distributed.get_backend(),
+                   "cells": hi - lo, "first_cell": lo,
+                   "mode_seconds": time.perf_counter() - t0, **row}
+            emit(row)
+            rows.append(row)
+            outs.update({f"{name}_{k}": v for k, v in out.items()})
+        ck = mode_checkpoints(ALPINE, FitCheckpointer, adata, mesh, workdir)
+        emit({"phase": "slice_sharded_modes_rank", "world": world, "rank": rank,
+              "mode": "weighted_fast checkpointed", **ck})
+        np.savez(os.path.join(workdir, f"modes_world{world}_rank{rank}.npz"), **outs)
+        with open(os.path.join(workdir, f"modes_world{world}_rank{rank}.json"), "w") as f:
+            json.dump({"rows": rows, "checkpoint": ck}, f)
+    finally:
+        dist.shutdown()
+
+
+def run_sharded_modes_phase(torch, kernels, mu, ALPINE, AnnData, counts, obs):
+    """slice_sharded_modes: the fit modes beyond full-batch joint over a
+    cell mesh.  One device's weighted_fast (20 iterations) and ALS (10)
+    fits are the references; world 1 (NCCL, this process) must give them
+    bit for bit; world 2 (gloo, two spawned ranks sharing the card) runs
+    every mode, within tolerance of one device for the modes whose
+    trajectory is the single-device one."""
+    import multiprocessing
+    import tempfile
+
+    from alpine_tpu_torch.parallel import distributed as dist
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    phase_t0 = time.perf_counter()
+    n, g = counts.shape
+    K = sum(BLOCKS)
+    adata = AnnData(counts, obs=obs)
+    # one all-reduce an iteration of the fused loop, with the counts' HHtU
+    payload_wf = 4 * (g * K + 2 * K * K + 1 + len(N_LABELS)
+                      + sum(nl * k for nl, k in zip(N_LABELS, BLOCKS)) + sum(BLOCKS[:-1]))
+    modes = {name: (model_kw, fit_kw, iters) for name, model_kw, fit_kw, iters in SHARDED_MODES}
+    expect = {}
+    for name, (_, fit_kw, iters) in modes.items():
+        if name == "weighted_fast":
+            expect[name] = ({"fused_iteration": 0, "fused_iteration_counts": iters, "hxt": 1,
+                             "wtx": 0}, 1)
+        elif name == "als":
+            expect[name] = ({"fused_iteration": 0, "fused_iteration_counts": 0, "hxt": iters,
+                             "wtx": len(BLOCKS) * iters}, len(BLOCKS) + 1)
+    refs, worlds = {}, []
+
+    def check_mode(world, name, row):
+        want, calls = expect.get(name, (None, None))
+        if want is None:  # minibatch, tiled: one P1 and one P2 a batch
+            nbat = mode_batches(n, world, MB_BATCH, name == "tiled")
+            iters = modes[name][2]
+            want = {"fused_iteration": 0, "fused_iteration_counts": 0,
+                    "hxt": nbat * iters, "wtx": (nbat + 1) * iters}
+            calls = nbat + 1
+        check(row["launches"] == want,
+              f"world {world} {name}: launches {row['launches']}, expected {want}")
+        check(row["allreduce_calls_per_iteration"] == calls
+              and row["allreduce_calls_before_loop"] == 1,
+              f"world {world} {name}: {row['allreduce_calls_per_iteration']} all-reduces "
+              f"an iteration, expected {calls} (and one before the loop)")
+        check(row["every_cell_trained"], f"world {world} {name}: a cell kept its H0")
+        if name == "weighted_fast":
+            check(row["allreduce_bytes_per_iteration"] == payload_wf,
+                  f"world {world}: {row['allreduce_bytes_per_iteration']} bytes an "
+                  f"iteration, expected {payload_wf}")
+
+    # one device: the references
+    for name in ("weighted_fast", "als"):
+        model_kw, fit_kw, iters = modes[name]
+        model, row, refs[name] = mode_fit(torch, kernels, mu, dist, ALPINE, adata, "cuda",
+                                          model_kw, fit_kw, iters)
+        model.free_device_cache()
+        del model
+        emit({"phase": "slice_sharded_modes_rank", "world": 0, "rank": 0, "mode": name,
+              "backend": None, "cells": n, **row})
+    torch.cuda.empty_cache()
+
+    # world 1: NCCL in this process, bit for bit one device's fits
+    t0 = time.perf_counter()
+    dist.initialize(f"localhost:{_free_port()}", num_processes=1, process_id=0,
+                    backend="nccl", timeout=RANK_PG_TIMEOUT)
+    try:
+        backend = torch.distributed.get_backend()
+        mesh = dist.global_cell_mesh()
+        w1 = {"world": 1, "backend": backend, "cells": [n], "modes": {}}
+        for name in ("weighted_fast", "als"):
+            model_kw, fit_kw, iters = modes[name]
+            model, row, out = mode_fit(torch, kernels, mu, dist, ALPINE, adata, mesh,
+                                       model_kw, fit_kw, iters)
+            model.free_device_cache()
+            del model
+            bits = {k: bool(np.array_equal(out[k], refs[name][k])) for k in refs[name]}
+            emit({"phase": "slice_sharded_modes_rank", "world": 1, "rank": 0, "mode": name,
+                  "backend": backend, "cells": n, "bits_equal_one_device": bits, **row})
+            check_mode(1, name, row)
+            check(all(bits.values()), f"world 1 {name} must be one device's fit bit for "
+                                      f"bit: {bits}")
+            w1["modes"][name] = {"device_ms_per_iteration": [row["device_ms_per_iteration"]],
+                                 "allreduce_ms_per_iteration": [row["allreduce_ms_per_iteration"]],
+                                 "allreduce_bytes_per_iteration": row["allreduce_bytes_per_iteration"],
+                                 "bits_equal_one_device": bits}
+    finally:
+        dist.shutdown()
+    torch.cuda.empty_cache()
+    w1["seconds"] = time.perf_counter() - t0
+    worlds.append(w1)
+
+    # world 2: gloo ranks spawned on the one card
+    ctx = multiprocessing.get_context("spawn")
+    world = 2
+    with tempfile.TemporaryDirectory() as workdir:
+        np.save(os.path.join(workdir, "counts.npy"), counts.astype(np.int8))
+        np.savez(os.path.join(workdir, "obs.npz"), **obs)
+        t0 = time.perf_counter()
+        port = _free_port()
+        procs = [ctx.Process(target=sharded_modes_rank,
+                             args=(here, workdir, world, r, port, n)) for r in range(world)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + MODES_RANK_TIMEOUT
+        for p in procs:
+            p.join(max(1.0, deadline - time.monotonic()))
+        alive = [p for p in procs if p.is_alive()]
+        for p in alive:
+            p.terminate()
+            p.join(10)
+        codes = [p.exitcode for p in procs]
+        check(not alive and codes == [0] * world,
+              f"slice_sharded_modes world {world}: ranks ended with {codes}"
+              + (" (stopped at the time limit)" if alive else ""))
+        outs = [dict(np.load(os.path.join(workdir, f"modes_world{world}_rank{r}.npz")))
+                for r in range(world)]
+        infos = []
+        for r in range(world):
+            with open(os.path.join(workdir, f"modes_world{world}_rank{r}.json")) as f:
+                infos.append(json.load(f))
+    w2 = {"world": world, "backend": infos[0]["rows"][0]["backend"],
+          "cells": [info["rows"][0]["cells"] for info in infos], "modes": {}}
+    for i, (name, _, _, iters) in enumerate(SHARDED_MODES):
+        rows = [info["rows"][i] for info in infos]
+        for row in rows:
+            check_mode(world, name, row)
+        same = {k: all(np.array_equal(o[f"{name}_{k}"], outs[0][f"{name}_{k}"]) for o in outs)
+                for k in ("loss", "W")}
+        check(all(same.values()), f"world {world} {name}: W and the losses must be "
+                                  f"bit-equal across the ranks: {same}")
+        L = outs[0][f"{name}_loss"]
+        check(np.isfinite(L).all() and L[-1, 0] < L[0, 0],
+              f"world {world} {name}: losses finite and falling")
+        m = {"iterations": iters,
+             "device_ms_per_iteration": [r["device_ms_per_iteration"] for r in rows],
+             "allreduce_calls_per_iteration": rows[0]["allreduce_calls_per_iteration"],
+             "allreduce_bytes_per_iteration": rows[0]["allreduce_bytes_per_iteration"],
+             "allreduce_ms_per_iteration": [r["allreduce_ms_per_iteration"] for r in rows],
+             "fit_seconds": [r["timings"]["fit"] for r in rows],
+             "replicas_bit_equal": same}
+        if name in refs:
+            ref = refs[name]
+            m["loss_max_rel_err"] = float(np.max(np.abs(L / ref["loss"] - 1)))
+            H = np.concatenate([o[f"{name}_H"] for o in outs], axis=1)
+            m["H_rel_frobenius_err"] = float(np.linalg.norm(H - ref["H"])
+                                             / np.linalg.norm(ref["H"]))
+            check(m["loss_max_rel_err"] <= 5e-4,
+                  f"world {world} {name}: losses {m['loss_max_rel_err']} from one device's")
+            check(m["H_rel_frobenius_err"] <= 5e-3,
+                  f"world {world} {name}: H {m['H_rel_frobenius_err']} from one device's")
+            check(worlds[0]["modes"][name]["allreduce_bytes_per_iteration"]
+                  == m["allreduce_bytes_per_iteration"],
+                  f"{name}: the all-reduce bytes must not depend on the cells a rank")
+        if name == "weighted_fast":
+            draw = np.concatenate([o["weighted_fast_first_draw"] for o in outs])
+            m["first_draw_equal_one_device"] = bool(np.array_equal(draw, ref["first_draw"]))
+            check(m["first_draw_equal_one_device"],
+                  "world 2: the ranks' first draws must be one device's draw")
+            errs = [r["transform_cached_max_rel_err"] for r in rows]
+            m["transform_cached_max_rel_err"] = errs
+            check(all(r["transform_launches"] == 1 and r["transform_finite"] for r in rows)
+                  and max(errs) <= 1e-5,
+                  f"world {world}: cached transforms against uncached {errs}")
+        w2["modes"][name] = m
+    cks = [info["checkpoint"] for info in infos]
+    w2["weighted_fast_checkpointed"] = cks
+    check(all(c["interrupted"] and c["resumed_from"] == [MODES_CKPT_EVERY]
+              and c["bits_equal_uninterrupted"] for c in cks),
+          f"world {world}: the resumed weighted_fast fit must be the uninterrupted one "
+          f"bit for bit: {cks}")
+    w2["seconds"] = time.perf_counter() - t0
+    worlds.append(w2)
+    del adata
+    torch.cuda.empty_cache()
+
+    # K4 alone (no rank beside it) at world 2's shard, 50,000 cells, and at
+    # a ragged world-2 shard (100,001 cells: 50,001, rows off 16-byte
+    # alignment) beside its aligned twin, 50,016 cells
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    k4_alone = {}
+    for cells in (n // 2, n // 2 + 1, -(-(n // 2 + 1) // 16) * 16):
+        X, W, H, WtW, Ys, Bs, lam = iteration_problem(
+            torch, gen, torch.device("cuda"), g, cells, BLOCKS, N_LABELS, torch.int8)
+        C = torch.randint(0, 4, (2, cells), generator=gen, device="cuda").float()
+
+        def k4():
+            return kernels.fused_iteration(X, W, H, WtW, Ys, Bs, lam, EPS, C,
+                                           blocks=BLOCKS, loss_kl=True)
+
+        k4()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                k4()
+            torch.cuda.synchronize()
+        k4_alone[str(cells)] = {"device_ms": _kernel_device_ms(prof, DeviceType)[0] / 20,
+                                "ms": time_ms(k4, 5), "x_row_bytes_mod_16": cells % 16}
+        del X, W, H, WtW, Ys, Bs, lam, C
+    torch.cuda.empty_cache()
+    emit({"phase": "slice_sharded_modes", "cells": n, "genes": g,
+          "weighted_fast_allreduce_bytes_per_iteration": payload_wf, "worlds": worlds,
+          "k4_alone_by_cells": k4_alone,
+          "tolerance": "world 1 bit for bit one device's weighted_fast and ALS fits; "
+                       "world 2: weighted_fast and ALS loss rtol 5e-4 and H relative "
+                       "Frobenius 5e-3 against one device, the first draw equal, "
+                       "minibatch and tiled losses finite and falling with every cell "
+                       "trained, the resumed checkpointed fit bit for bit, cached "
+                       "transforms rtol 1e-5 against uncached, W and losses bit-equal "
+                       "across ranks",
           "seconds": time.perf_counter() - phase_t0})
 
 
@@ -2253,6 +2684,7 @@ def main():
                                      + [adata.obsm["ALPINE_embedding"]], axis=1)}
     run_sharded_phase(torch, kernels, mu, ALPINE, AnnData, counts, obs, slice_ref)
     del slice_ref
+    run_sharded_modes_phase(torch, kernels, mu, ALPINE, AnnData, counts, obs)
 
     run_persist_phase(torch, kernels, ALPINE, AnnData, model, adata, counts, obs)
 
