@@ -99,7 +99,8 @@ def _draw_seed(random_state: int, salt: int, t: int, restart: int = 0,
     """The generator seed of draw t of a stream, from (random_state, salt,
     t): restart r > 0, checkpoint chunk c and mesh position s > 0 each add
     their own words, so restart 0 of a fit without checkpoints draws as a
-    single fit does, and so does the process at mesh position 0."""
+    single fit does, and so does the process at mesh position 0 (a tiled
+    fit's cell shuffle is not such a stream: see ``ALPINE.fit``)."""
     words = [random_state, salt]
     if restart:
         words += [_RESTART_SALT, restart]
@@ -434,7 +435,7 @@ class ALPINE:
         dev = placement.device
         rs = self.random_state
         tiled = sampling_method == "tiled"
-        # the largest process's cell count (a minibatch epoch's batch share)
+        # the largest process's cell count (a tiled fit's common width)
         widest = n_local if chunk_sizes is None else int(chunk_sizes.max())
         # tiled fits permute whole tiles, so the cell axis is zero-padded to
         # a tile multiple (zero columns are fixed points of every update);
@@ -469,7 +470,9 @@ class ALPINE:
             # tile, and a tile would be a cluster rather than a subsample.
             # On a cell mesh each process shuffles its own cells (tiles
             # are drawn from a process's cells anyway), seeded with its
-            # position as the JAX package seeds it
+            # position as the JAX package seeds it: position 0's seed is
+            # (rs, 0), so unlike the _draw_seed streams a mesh of one
+            # process shuffles otherwise than a single-device fit
             cell_perm = np.random.default_rng(
                 (rs, shard) if sharded else rs).permutation(n_local)
         if cell_perm is not None:
@@ -528,7 +531,7 @@ class ALPINE:
                 cells = None
             return mu.fit_scan(cfg, W0, H0, Bs0, Xd, Ysd, hyper, draw_counts=draw,
                                progress=report, draw_cells=cells,
-                               group=placement.group, cell_width=widest)
+                               group=placement.group)
 
         def run(n_iter: int):
             cfg = self._make_cfg(Ys, n_sample, n_iter)

@@ -426,6 +426,10 @@ def multinomial_counts(generator: torch.Generator, n: int,
     return counts.to(torch.float32)
 
 
+# the window sampler's sink columns for out-of-window draws (a power of 2)
+_SINK = 1024
+
+
 def grouped_balanced_counts(generator: torch.Generator, n: int, tables,
                             n_out: Optional[int] = None):
     """One epoch of the balanced sampler as a (n,) float32 count vector on
@@ -446,11 +450,13 @@ def grouped_balanced_counts(generator: torch.Generator, n: int, tables,
     position) pairs from the same generator state, over the global group
     sizes m, and counts only the draws whose position in group g falls in
     its window [off[g], off[g] + m_loc[g]), at local column start_loc[g] +
-    position − off[g].  The other draws go to a sink column n_out that is
-    sliced off (``index_add_`` cannot drop them).  Every process draws
-    with the same seed, so the processes' count vectors are, integer for
-    integer, the single-process draw of their cells; the returned vector
-    has n_out entries."""
+    position − off[g].  The other draws go to sink columns past n_out
+    that are sliced off (``index_add_`` cannot drop them): _SINK of them,
+    picked by the draw's position, so that the out-of-window draws, most
+    of the n on a wide mesh, do not all add at one address.  Every
+    process draws with the same seed, so the processes' count vectors
+    are, integer for integer, the single-process draw of their cells; the
+    returned vector has n_out entries."""
     window = len(tables) == 4
     start, m = tables[:2]
     J = m.shape[0]
@@ -463,8 +469,9 @@ def grouped_balanced_counts(generator: torch.Generator, n: int, tables,
         off, m_loc = tables[2][gid].to(torch.int64), tables[3][gid].to(torch.int64)
         lpos = pos - off
         cell = torch.where((lpos >= 0) & (lpos < m_loc),
-                           start[gid].to(torch.int64) + lpos, n_out)
-        size = n_out + 1
+                           start[gid].to(torch.int64) + lpos,
+                           n_out + (pos & (_SINK - 1)))
+        size = n_out + _SINK
     else:
         cell = start[gid].to(torch.int64) + pos
         size = n
@@ -565,8 +572,7 @@ def _report(progress, losses, it: int, max_iter: int) -> None:
 
 
 def _fit_scan_steps(cfg: MUConfig, W0, H0, Bs0, X, Ys, hyper, draw_counts,
-                    draw_cells, progress, group=None, n_local=None,
-                    cell_width=None):
+                    draw_cells, progress, group=None, n_local=None):
     """Whole steps: the joint steps of the plain backend, ALS on either
     backend, and the random-minibatch, gathered weighted and tiled epochs
     of both (the minibatch branch of ``alpine_tpu.ops.mu.fit_scan`` and its
@@ -599,15 +605,16 @@ def _fit_scan_steps(cfg: MUConfig, W0, H0, Bs0, X, Ys, hyper, draw_counts,
     makes n_blocks calls, its loss one more.  A minibatch epoch samples
     each rank's own cells (the JAX package's ``_build_sharded_minibatch_fit``
     stratifies by shard the same way): with nb = ⌈n_cells / batch size⌉,
-    a batch takes ⌈w / nb⌉ of each rank's draws, w being the common width
-    (``cell_width``, the largest rank's cell count; tiled: the tiles every
-    rank pads to, a batch rounded up to whole tiles), and every rank runs
-    the widest rank's batches: nb of them (fewer only where ⌈w / nb⌉·(nb −
-    1) ≥ w, when the last would be empty on every rank; the JAX package
-    runs that all-pad batch, which zeroes W).  A rank with fewer cells has
-    short batches at the end of its epoch, or empty ones, which launch no
-    kernel but join the all-reduce with zeros, so the ranks' collectives
-    stay in step: one a batch and the loss's an epoch."""
+    a batch takes ⌈w / nb⌉ of each rank's draws, w being the widest rank's
+    units (cells, or tiles for a tiled fit, whose batch is rounded up to
+    whole tiles; the ranks agree on w in one MAX all-reduce before the
+    loop), and every rank runs the widest rank's batches: nb of them
+    (fewer only where ⌈w / nb⌉·(nb − 1) ≥ w, when the last would be empty
+    on every rank; the JAX package runs that all-pad batch, which zeroes
+    W).  A rank with fewer units has short batches at the end of its
+    epoch, or empty ones, which launch no kernel but join the all-reduce
+    with zeros, so the ranks' collectives stay in step: one a batch and
+    the loss's an epoch."""
     fused = cfg.backend == "fused"
     wide = torch.promote_types(X.dtype, torch.float32)  # float64 stays float64
     Xf = None if fused else X.to(wide)
@@ -629,11 +636,13 @@ def _fit_scan_steps(cfg: MUConfig, W0, H0, Bs0, X, Ys, hyper, draw_counts,
     # a batch is a set of units: tiles of cfg.tile columns, or single cells
     unit = cfg.tile if cfg.tiled else 1
     n_units = X.shape[1] // unit
-    if group is None:
+    if group is None or not cfg.minibatch:
         per_batch = min(-(-cfg.eff_batch_size // unit), n_units)
     else:
-        # the units of the widest rank (tiled: every rank's, padded alike)
-        span = n_units if cfg.tiled else max(cell_width or 0, n_units)
+        # the units of the widest rank, whose batches every rank runs
+        from alpine_tpu_torch.parallel.distributed import all_reduce_max
+
+        span = all_reduce_max(n_units, group, X.device)
         nb = -(-cfg.n_cells // cfg.eff_batch_size)
         batch = -(-span * unit // nb)  # ⌈w / nb⌉ cells
         per_batch = min(-(-batch // unit), span)
@@ -830,7 +839,7 @@ def _fit_scan_fused(cfg: MUConfig, W0, H0, Bs0, X, Ys, hyper, draw_counts,
 
 
 def fit_scan(cfg: MUConfig, W0, H0, Bs0, X, Ys, hyper, draw_counts=None,
-             progress=None, draw_cells=None, group=None, cell_width=None):
+             progress=None, draw_cells=None, group=None):
     """Run ``cfg.max_iter`` MU epochs.
 
     ``X`` (genes × cells) and ``Ys`` (labels_i × cells) are cast to the
@@ -847,10 +856,9 @@ def fit_scan(cfg: MUConfig, W0, H0, Bs0, X, Ys, hyper, draw_counts=None,
 
     With a process ``group`` (see ``fit_scan_sharded``) ``cfg.n_cells`` is
     the global cell count, H0 holds this process's cells and X and Ys the
-    same (a tiled fit pads them to the ranks' common width), ``draw_counts``
-    and ``draw_cells`` draw for this process's cells, and ``cell_width``
-    is the largest process's cell count (minibatch fits; by default X's
-    columns).  Returns (W, H, Bs, losses), H with n_cells columns (this
+    same (a tiled fit pads them to the ranks' common width), and
+    ``draw_counts`` and ``draw_cells`` draw for this process's cells.
+    Returns (W, H, Bs, losses), H with n_cells columns (this
     process's, with a group) and losses (max_iter, 2 + n_cov) on the
     device: [total, recon, pred_0, ...] per iteration."""
     X = X.to(cfg.xdt).contiguous()
@@ -882,7 +890,7 @@ def fit_scan(cfg: MUConfig, W0, H0, Bs0, X, Ys, hyper, draw_counts=None,
         else:
             W, H, Bs, losses = _fit_scan_steps(
                 cfg, W0, H0, Bs0, X, Ys, hyper, draw_counts, draw_cells,
-                progress, group, n_local, cell_width)
+                progress, group, n_local)
     return W, H[:, :n_local], Bs, losses
 
 

@@ -365,12 +365,25 @@ def reset_collectives(timed: bool = False) -> None:
 def all_reduce_sum(buf: torch.Tensor, group=None, tag: str = "iteration") -> None:
     """Sum ``buf`` in place over the ranks of ``group``, counted under
     ``tag``."""
+    _all_reduce(buf, group, tag, _dist().ReduceOp.SUM)
+
+
+def all_reduce_max(value: int, group, device, tag: str = "setup") -> int:
+    """The largest of the ranks' ``value`` over ``group`` (one all-reduce
+    of an int64 on ``device``, counted under ``tag``); it reads the result
+    back to the host."""
+    buf = torch.tensor([int(value)], dtype=torch.int64, device=device)
+    _all_reduce(buf, group, tag, _dist().ReduceOp.MAX)
+    return int(buf.item())
+
+
+def _all_reduce(buf: torch.Tensor, group, tag: str, op) -> None:
     timed = _events is not None and buf.is_cuda
     if timed:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-    _dist().all_reduce(buf, group=group)
+    _dist().all_reduce(buf, op=op, group=group)
     if timed:
         end.record()
         _events.setdefault(tag, []).append((start, end))

@@ -689,20 +689,47 @@ def x_pass_row(torch, kernels, mu, card, kind, X, P, timed, note=""):
     return row
 
 
+def mode_batch_geometry(n_cells, world, batch, tiled):
+    """(batches an epoch, cells of a full batch, cells of the last batch)
+    of the widest rank of ``world`` over ``n_cells`` cells
+    (alpine_tpu_torch.ops.mu._fit_scan_steps): a batch takes ⌈w / nb⌉ of
+    the widest rank's w cells (tiled: its tiles, whole ones, after the pad
+    to a tile multiple)."""
+    def cdiv(a, b):
+        return -(-a // b)
+
+    unit = TILE if tiled else 1
+    span = cdiv(cdiv(n_cells, world), unit)  # the widest rank's units
+    per = min(cdiv(cdiv(span * unit, cdiv(n_cells, batch)), unit), span)
+    nbat = cdiv(span, per)
+    return nbat, per * unit, (span - per * (nbat - 1)) * unit
+
+
 # P1/P2 on int8 X away from the bench shape, each misaligned shape beside
-# its aligned twin: (label, cells, byte offset of X, twin label)
+# its aligned twin: (label, cells, byte offset of X, twin label); a label
+# with "slab" takes whole tiles of X in a random order, as a tiled batch
+_MB2 = mode_batch_geometry(N, 2, MB_BATCH, False)  # world 2's minibatch fit
+_TL2 = mode_batch_geometry(N, 2, MB_BATCH, True)  # and its tiled fit
 TWIN_SHAPES = (("bench", N, 0, None), ("bench offset 1", N, 1, "bench"),
                ("fold", 66_667, 0, "fold twin"), ("fold twin", 66_672, 0, None),
                ("validation fold", 33_334, 0, "validation twin"),
                ("validation twin", 33_344, 0, None),
                ("minibatch", MB_BATCH, 0, None),
                ("minibatch offset 1", MB_BATCH, 1, "minibatch"),
-               ("tiled slab", MB_BATCH, 0, None))
+               ("tiled slab", MB_BATCH, 0, None),
+               ("world-2 minibatch", _MB2[1], 0, "world-2 minibatch twin"),
+               ("world-2 minibatch twin", -(-_MB2[1] // 16) * 16, 0, None),
+               ("world-2 minibatch last", _MB2[2], 0, None),
+               ("world-2 tiled slab", _TL2[1], 0, None),
+               ("world-2 tiled last slab", _TL2[2], 0, None),
+               ("world-2 shard", -(-N // 2), 0, None))
 
 
 def x_pass_twin_rows(torch, kernels, mu, gen, dev, card, K=40):
-    """P1 and P2 (K = 40) on int8 X at TWIN_SHAPES, and at the optimizer's
-    ALS folds (P1 K = 44, P2 k = 32) at 66,667 cells and its twin 66,672:
+    """P1 and P2 (K = 40) on int8 X at TWIN_SHAPES (among them the batches
+    of slice_sharded_modes' world-2 minibatch and tiled fits, a full one
+    and the last), and at the optimizer's ALS folds (P1 K = 44, P2 k = 32)
+    at 66,667 cells and its twin 66,672:
     each row timed as x_pass_row times it, with a digest of its output and,
     for a copy of X at a byte offset, whether it gives the aligned copy's
     bits.  Returns {(kind, label): row}."""
@@ -710,14 +737,14 @@ def x_pass_twin_rows(torch, kernels, mu, gen, dev, card, K=40):
 
     rows = {}
     Xf, Wf, Hf = make_x_pass_problem(torch, gen, dev, G, N, 44, torch.int8)
-    tiles = torch.randperm(N // TILE, generator=gen, device=dev)[:MB_BATCH // TILE]
-    slab = lambda A: A[:, :N // TILE * TILE].reshape(A.shape[0], -1, TILE).index_select(
-        1, tiles).reshape(A.shape[0], -1).contiguous()
+    tiles = torch.randperm(N // TILE, generator=gen, device=dev)
+    slab = lambda A, n: A[:, :N // TILE * TILE].reshape(A.shape[0], -1, TILE).index_select(
+        1, tiles[:n // TILE]).reshape(A.shape[0], -1).contiguous()
     cases = [(label, n, off, K, K) for label, n, off, _ in TWIN_SHAPES]
     cases += [("als fold", 66_667, 0, 44, 32), ("als fold twin", 66_672, 0, 44, 32)]
     for label, n, off, kh, kw in cases:
-        X = slab(Xf) if label == "tiled slab" else Xf[:, :n].contiguous()
-        H = slab(Hf[:kh]) if label == "tiled slab" else Hf[:kh, :n].contiguous()
+        X = slab(Xf, n) if "slab" in label else Xf[:, :n].contiguous()
+        H = slab(Hf[:kh], n) if "slab" in label else Hf[:kh, :n].contiguous()
         W = Wf[:, :kw].contiguous()
         Xo = at_byte_offset(torch, X, off) if off else X
         for kind, P in (("hxt", H), ("wtx", W)):
@@ -1075,19 +1102,6 @@ MODES_PARAMS = dict(SHARDED_PARAMS, data_dtype="int8")
 MODES_RANK_TIMEOUT = 300.0
 
 
-def mode_batches(n_cells, world, batch, tiled):
-    """Batches an epoch of a rank of ``world`` over ``n_cells`` cells
-    (alpine_tpu_torch.ops.mu._fit_scan_steps): a batch takes ⌈w / nb⌉ of
-    the widest rank's w cells (tiled: its tiles, whole ones)."""
-    def cdiv(a, b):
-        return -(-a // b)
-
-    unit = TILE if tiled else 1
-    span = cdiv(cdiv(n_cells, world), unit)  # the widest rank's units
-    per = min(cdiv(cdiv(span * unit, cdiv(n_cells, batch)), unit), span)
-    return cdiv(span, per)
-
-
 def mode_fit(torch, kernels, mu, dist, ALPINE, adata, device, model_kw, fit_kw, iters):
     """One fit of the slice's model in a mode on ``device`` under the
     profiler, its kernel launches and all-reduces counted from zero.  The
@@ -1290,17 +1304,20 @@ def run_sharded_modes_phase(torch, kernels, mu, ALPINE, AnnData, counts, obs):
     def check_mode(world, name, row):
         want, calls = expect.get(name, (None, None))
         if want is None:  # minibatch, tiled: one P1 and one P2 a batch
-            nbat = mode_batches(n, world, MB_BATCH, name == "tiled")
+            nbat = mode_batch_geometry(n, world, MB_BATCH, name == "tiled")[0]
             iters = modes[name][2]
             want = {"fused_iteration": 0, "fused_iteration_counts": 0,
                     "hxt": nbat * iters, "wtx": (nbat + 1) * iters}
             calls = nbat + 1
         check(row["launches"] == want,
               f"world {world} {name}: launches {row['launches']}, expected {want}")
+        # before the loop: ‖X‖² (with the fused loop's other sums) and, for
+        # a minibatch or tiled fit, the widest rank's units
+        setup = 2 if name in ("minibatch", "tiled") else 1
         check(row["allreduce_calls_per_iteration"] == calls
-              and row["allreduce_calls_before_loop"] == 1,
+              and row["allreduce_calls_before_loop"] == setup,
               f"world {world} {name}: {row['allreduce_calls_per_iteration']} all-reduces "
-              f"an iteration, expected {calls} (and one before the loop)")
+              f"an iteration, expected {calls} (and {setup} before the loop)")
         check(row["every_cell_trained"], f"world {world} {name}: a cell kept its H0")
         if name == "weighted_fast":
             check(row["allreduce_bytes_per_iteration"] == payload_wf,
@@ -1438,35 +1455,86 @@ def run_sharded_modes_phase(torch, kernels, mu, ALPINE, AnnData, counts, obs):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    gen = torch.Generator(device="cuda").manual_seed(0)
+    def device_ms(fn, reps=20):
+        """The card's summed kernel time of a call, and its kernels."""
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total, top = _kernel_device_ms(prof, DeviceType)
+        return total / reps, [[k, ms / reps] for k, ms in top]
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
     k4_alone = {}
     for cells in (n // 2, n // 2 + 1, -(-(n // 2 + 1) // 16) * 16):
         X, W, H, WtW, Ys, Bs, lam = iteration_problem(
-            torch, gen, torch.device("cuda"), g, cells, BLOCKS, N_LABELS, torch.int8)
-        C = torch.randint(0, 4, (2, cells), generator=gen, device="cuda").float()
+            torch, gen, dev, g, cells, BLOCKS, N_LABELS, torch.int8)
+        C = torch.randint(0, 4, (2, cells), generator=gen, device=dev).float()
 
         def k4():
             return kernels.fused_iteration(X, W, H, WtW, Ys, Bs, lam, EPS, C,
                                            blocks=BLOCKS, loss_kl=True)
 
-        k4()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(20):
-                k4()
-            torch.cuda.synchronize()
-        k4_alone[str(cells)] = {"device_ms": _kernel_device_ms(prof, DeviceType)[0] / 20,
-                                "ms": time_ms(k4, 5), "x_row_bytes_mod_16": cells % 16}
+        k4_alone[str(cells)] = {"device_ms": device_ms(k4)[0], "ms": time_ms(k4, 5),
+                                "x_row_bytes_mod_16": cells % 16}
         del X, W, H, WtW, Ys, Bs, lam, C
     torch.cuda.empty_cache()
+
+    # the weighted_fast sampler (mu.grouped_balanced_counts) on the bench's
+    # joint groups: a draw of the full form (one device) and of each window
+    # of a 2-rank mesh, the windows' counts concatenated the full draw; then
+    # its index_add_ alone on n draws, half of them in a window of n / 2
+    # cells and half outside it, those on one sink address or spread over
+    # mu._SINK sink columns
+    from alpine_tpu_torch.utils.sampling import balanced_group_tables, window_group_tables
+
+    ids = np.unique(np.stack([np.asarray(obs[k]).astype(str) for k in SHARDED_KEYS], 1),
+                    axis=0, return_inverse=True)[1].reshape(-1)
+    _, start, sizes = balanced_group_tables(ids)
+    half = -(-n // 2)
+    forms = {"full": ((start, sizes), None)}
+    for w, (sl, off, ml) in enumerate(window_group_tables(start, sizes, np.zeros_like(sizes),
+                                                          2, half)):
+        forms[f"window {w}"] = ((sl, sizes, off, ml), min(half, n - w * half))
+    sgen = torch.Generator(device=dev)
+    sampler = {"draws": n, "groups": int(len(sizes)), "sink_columns": mu._SINK}
+    drawn = {}
+    for name, (tabs, n_out) in forms.items():
+        tabs = tuple(torch.from_numpy(np.asarray(a, np.int32)).to(dev) for a in tabs)
+
+        def draw(tabs=tabs, n_out=n_out):
+            return mu.grouped_balanced_counts(sgen.manual_seed(7), n, tabs, n_out)
+
+        drawn[name] = draw()
+        ms, top = device_ms(draw)
+        sampler[name] = {"device_ms": ms, "ms": time_ms(draw, 5), "kernels": top}
+    sampler["windows_equal_full_draw"] = bool(torch.equal(
+        torch.cat([drawn["window 0"], drawn["window 1"]]), drawn["full"]))
+    check(sampler["windows_equal_full_draw"],
+          "the 2 windows' counts, concatenated, must be the full draw")
+    inside = torch.randint(0, half, (n,), generator=gen, device=dev)
+    outside = torch.rand(n, generator=gen, device=dev) < 0.5
+    spread = torch.randint(0, mu._SINK, (n,), generator=gen, device=dev)
+    ones = torch.ones(n, dtype=torch.int32, device=dev)
+    for name, idx in (("index_add_one_sink", torch.where(outside, half, inside)),
+                      ("index_add_spread_sink", torch.where(outside, half + spread, inside))):
+        acc = torch.zeros(half + mu._SINK, dtype=torch.int32, device=dev)
+        ms, top = device_ms(lambda: acc.index_add_(0, idx, ones))
+        sampler[name] = {"device_ms": ms, "kernels": top}
+    del drawn, inside, outside, spread, ones, acc
     emit({"phase": "slice_sharded_modes", "cells": n, "genes": g,
           "weighted_fast_allreduce_bytes_per_iteration": payload_wf, "worlds": worlds,
-          "k4_alone_by_cells": k4_alone,
+          "k4_alone_by_cells": k4_alone, "sampler": sampler,
           "tolerance": "world 1 bit for bit one device's weighted_fast and ALS fits; "
                        "world 2: weighted_fast and ALS loss rtol 5e-4 and H relative "
                        "Frobenius 5e-3 against one device, the first draw equal, "
                        "minibatch and tiled losses finite and falling with every cell "
-                       "trained, the resumed checkpointed fit bit for bit, cached "
+                       "trained (their batches' P1/P2 held at TWIN_SHAPES), the resumed "
+                       "checkpointed fit bit for bit, the sampler's windows the full "
+                       "draw exactly, cached "
                        "transforms rtol 1e-5 against uncached, W and losses bit-equal "
                        "across ranks",
           "seconds": time.perf_counter() - phase_t0})

@@ -25,7 +25,8 @@ against the single-process port and the JAX package.
   5e-4, factors 5e-3); through the estimator every cell trained (all H
   columns differ between 3 and 6 epochs), the marked cell of a tiled fit
   back in caller order, ragged 48/47 shards, and a rank whose last batch
-  is empty (12 / 9 cells, 4 batches).
+  is empty (12 / 9 cells, 4 batches); ``mu.fit_scan`` called directly on
+  ragged minibatch and tiled shards runs the widest rank's batches.
 - The all-reduces: one an iteration for weighted_fast, n_blocks + 1 for
   ALS, nb + 1 an epoch for minibatch and tiled fits, the same bytes at
   two cell counts.
@@ -197,6 +198,32 @@ def _payload_cases():
     return out
 
 
+def _ragged_cases():
+    """``mu.fit_scan`` called directly on ragged shards: a random minibatch
+    fit of 12 / 9 cells (nb = 4 batches of 3 draws, rank 1's last batch
+    empty) and a tiled fit of 3 / 2 unpadded tiles (batches of one tile,
+    rank 1's last empty)."""
+    out = {}
+    g, iters = 16, 6
+    for name, sizes, extra in (("mb_ragged", (12, 9), dict(batch_size=6)),
+                               ("tiled_ragged", (3 * TILE, 2 * TILE),
+                                dict(batch_size=10, tile=TILE))):
+        r = np.random.default_rng(sum(sizes))
+        n = sum(sizes)
+        X = (r.gamma(2.0, 1.0, (g, 4)) @ r.gamma(2.0, 1.0, (4, n))
+             + r.random((g, n))).astype(np.float32)
+        units = [s // TILE if "tile" in extra else s for s in sizes]
+        out[name] = dict(cfg=dict(blocks=BLOCKS, n_labels=N_LABELS, n_cells=n,
+                                  max_iter=iters, **extra),
+                         X=X, Ys=_labels(r, n, N_LABELS),
+                         lam=np.asarray([1.0, 2.0], np.float32), hyper=(0.0, 0.0, 0.0, EPS),
+                         ranges=[(0, sizes[0]), (sizes[0], n)],
+                         draws=[np.stack([r.permutation(u) for _ in range(iters)])
+                                for u in units],
+                         **_state(r, g, n, BLOCKS, N_LABELS, np.float32))
+    return out
+
+
 def _skew_case():
     """96 cells, two batches and two conditions; the joint group (b1, c1)
     is absent from the first 48 cells (chunk 0), while each chunk holds
@@ -253,7 +280,7 @@ _ESTIMATOR = {
 
 def _build_inputs():
     ops = {**_f64_cases(), **{k: {kk: vv for kk, vv in v.items() if kk not in ("jcfg", "key")}
-                              for k, v in _jax_cases().items()}}
+                              for k, v in _jax_cases().items()}, **_ragged_cases()}
     return {
         "layout": _layout_codes(),
         "ops": ops,
@@ -497,7 +524,9 @@ def test_all_reduces_an_iteration_independent_of_cells(ranks, mode):
     """weighted_fast: one all-reduce an iteration; ALS: n_blocks + 1 (the
     step's n_blocks and the loss's); minibatch and tiled: nb + 1 an epoch.
     ‖X‖² goes once before the loop (with the fused loop's other setup
-    sums), and the bytes do not depend on the cell count."""
+    sums; a minibatch or tiled fit also takes the widest rank's units
+    there, in a MAX of its own), and the bytes do not depend on the cell
+    count."""
     inputs, results = ranks
     case = inputs["payload"][f"{mode}_512"]
     iters, n_blocks = case["cfg"]["max_iter"], len(case["cfg"]["blocks"])
@@ -506,7 +535,7 @@ def test_all_reduces_an_iteration_independent_of_cells(ranks, mode):
         small, big = res[f"payload_{mode}_512"], res[f"payload_{mode}_2048"]
         for summary in (small, big):
             assert summary["iteration"]["calls"] == calls
-            assert summary["setup"]["calls"] == 1
+            assert summary["setup"]["calls"] == (2 if mode in ("mb", "tiled") else 1)
         for tag in ("setup", "iteration"):
             assert small[tag]["bytes"] == big[tag]["bytes"], tag
     assert results[0][f"payload_{mode}_512"] == results[1][f"payload_{mode}_512"]
@@ -617,6 +646,27 @@ def test_ragged_shards_and_empty_batches(ranks, name, calls):
         assert res[key]["collectives"]["iteration"]["calls"] == calls * spec["max_iter"]
     if name == "empty_batch":
         assert [r[key]["emb"].shape[0] for r in results] == [12, 9]
+
+
+@pytest.mark.parametrize("name,batches", [("mb_ragged", 4), ("tiled_ragged", 3)])
+def test_fit_scan_on_ragged_shards_runs_the_widest_ranks_batches(ranks, name, batches):
+    """``mu.fit_scan`` given a group and ragged shards, and nothing of the
+    other ranks' widths: the ranks agree on the widest rank's units before
+    the loop and run its batches (rank 1's last one empty), so their
+    collectives stay in step, W and the losses bit-equal, and every cell
+    is trained."""
+    inputs, results = ranks
+    case = inputs["ops"][name]
+    key = f"ops_{name}"
+    _same_across_ranks(results, key, ("W", "Bs", "L"))
+    iters = case["cfg"]["max_iter"]
+    for (lo, hi), res in zip(case["ranges"], results):
+        c = res[key]["collectives"]
+        assert c["setup"]["calls"] == 2  # ‖X‖² and the widest rank's units
+        assert c["iteration"]["calls"] == (batches + 1) * iters
+        assert (res[key]["H"] != case["H0"][:, lo:hi]).any(axis=0).all()
+    L = results[0][key]["L"][:, 0]
+    assert np.isfinite(L).all() and L[-1] < L[0]
 
 
 @pytest.mark.parametrize("name", ["wf_96", "tiled_95"])

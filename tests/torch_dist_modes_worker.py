@@ -100,8 +100,10 @@ def main():
         return dist.process_cell_range(n)
 
     for name, case in inputs["ops"].items():
-        lo, hi = cols(case["X"].shape[1])
+        lo, hi = case["ranges"][rank] if "ranges" in case else cols(case["X"].shape[1])
+        dist.reset_collectives()
         out[f"ops_{name}"] = ops_fit(case, lo, hi, case.get("draws", [None] * world)[rank])
+        out[f"ops_{name}"]["collectives"] = dist.collective_summary()
 
     # the all-reduces of each mode at two cell counts
     for name, case in inputs["payload"].items():
