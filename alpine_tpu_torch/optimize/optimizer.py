@@ -20,15 +20,33 @@ What differs from the JAX package:
   port's copies of scikit-learn's (``optimize/metrics.py``): the search
   needs neither scikit-learn nor pandas, which only ``get_train_history``
   imports;
-- one process: the JAX package's multi-process route (trial-level
-  parallel rounds, ``tpe.fmin_parallel``) is not ported yet, so a cell mesh
-  as ``device`` raises ``NotImplementedError`` (ROADMAP §1 item 1C), and a
-  ``device`` that ``resolve_device`` rejects raises its error.
+- a ``device`` that ``resolve_device`` rejects raises its error (a
+  ("genes", "cells") mesh its ``NotImplementedError``).
+
+Over processes (``device=distributed.global_cell_mesh()``, one process a
+card) the search runs the JAX package's trial-level parallel rounds
+(``tpe.fmin_parallel``): every rank holds the full dataset, computes the
+same ``n_processes`` suggestions a round from identical TPE state, fits
+and scores one of them on its own card, and only the losses cross
+processes, one float a trial over the gloo rows group
+(``distributed.process_allgather_rows``), so the Trials stay identical
+everywhere.  While ``max_iter`` detection is live the rounds are
+replicated (size 1).  Digests of the inputs (constructor, unpickling), of
+the search state (before the rounds) and of the trials (after them) make
+a disagreement raise on every rank instead of forking the TPE streams.
+The trial fits run on this rank's card, never over the mesh: CV folds are
+host-side subsets of the full data, which a mesh fit would read as
+per-rank shards.  The JAX package shards a trial's folds over the devices
+of a process (``batched._fold_sharding``); a port process drives one
+card, so the largest divisor of ``n_splits`` that fits is always 1 and
+every fold runs on that card, as the JAX package places the folds of a
+one-device process on its device.
 """
 
 from __future__ import annotations
 
 import pickle
+import zlib
 from copy import copy
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -44,12 +62,16 @@ from alpine_tpu_torch.optimize.tpe import (
     STATUS_OK,
     Trials,
     fmin,
+    fmin_parallel,
     hp,
     import_hyperopt_trials,
     load_foreign_pickle,
     tpe,
 )
-from alpine_tpu_torch.parallel.mesh import is_mesh, resolve_device
+from alpine_tpu_torch.parallel import distributed as dist
+from alpine_tpu_torch.parallel.mesh import (
+    Placement, describe_device, resolve_device, restore_device,
+)
 from alpine_tpu_torch.utils.adata import (
     dtype_can_store, is_anndata, is_na, obs_column, obs_keys, suggest_data_dtype,
 )
@@ -222,13 +244,9 @@ class ComponentOptimizer:
             choices = ", ".join(f"'{d}'" for d in mu.DATA_DTYPES)
             raise ValueError(f"data_dtype must be one of: {choices}.")
 
-        # where the trial fits run: one process, the resolved device
-        self._exec_device = resolve_device(device)
-        if is_mesh(self._exec_device):
-            raise NotImplementedError(
-                "ComponentOptimizer on a cell mesh (the multi-process "
-                "search) is not ported yet (ROADMAP §1 item 1C); pass one "
-                "device.")
+        # where the trial fits run: this process's device, also on a mesh
+        # (trial-level parallel rounds, _run_tpe)
+        self._setup_execution(device)
 
         self.adata = adata.copy()
         self.covariate_keys: List[str] = covariate_keys
@@ -269,12 +287,110 @@ class ComponentOptimizer:
             )
         self.best_param: dict = {}
 
+        if self._mp_workers > 1:
+            # the TPE streams, and so the rounds' collectives, stay in step
+            # only if every process built the optimizer from the same data
+            # and settings: checked here, before any trial fit
+            self._assert_consistent_across_processes()
+
         self.max_iter_detect = self.max_iter is None
         if self.max_iter_detect:
             print(
                 "Owing to max_iter being None, it will be determine by the "
                 "average of the first n_splits iterations."
             )
+
+    # ---------------------------------------------------- multi-process
+    def _setup_execution(self, device) -> None:
+        """Where this process's trial fits run: the resolved device, or on
+        a cell mesh this rank's own device (``Placement.device``), with
+        ``_mp_workers`` the mesh's process count and ``_mp_rank`` this
+        process's index, the row of its loss in the exchange."""
+        placement = Placement(resolve_device(device))
+        self._mp_workers, self._mp_rank = 1, 0
+        self._exec_device = placement.device
+        if not placement.is_sharded:
+            return
+        if placement.n_processes != dist.process_count():
+            raise ValueError(
+                "a multi-process search mesh must span every process "
+                f"(mesh has {placement.n_processes} of "
+                f"{dist.process_count()} processes) — the per-round score "
+                "exchange is a global collective."
+            )
+        self._mp_workers = placement.n_processes
+        self._mp_rank = dist.process_index()
+
+    def _assert_consistent_across_processes(self) -> None:
+        """Raise on every process unless all of them built this optimizer
+        from the same data and settings (digests of X, the covariate
+        labels and the settings; the JAX package's)."""
+        shape, sample_bytes, total, minimum, row_hash = ALPINE._x_fingerprint(
+            self.adata.X)
+        labels = "\x1f".join(
+            "\x1e".join(_column_labels(self.adata.obs, key))
+            for key in self.covariate_keys
+        )
+        settings = repr((
+            self.covariate_keys, self.use_als, self.loss_type,
+            self.max_iter, self.batch_size, self.sampling_method,
+            self.random_state, self.fold_batching, self.shape_bucket,
+            self.data_dtype_,
+        ))
+        dist.assert_same_across_processes(
+            [
+                float(zlib.crc32(repr(shape).encode())),
+                float(zlib.crc32(sample_bytes)),
+                total, minimum, row_hash,
+                float(zlib.crc32(labels.encode())),
+                float(zlib.crc32(settings.encode())),
+            ],
+            "ComponentOptimizer inputs (adata digest, covariate labels, "
+            "settings)",
+        )
+
+    def _search_state_digest(self, additional_evals: int) -> List[float]:
+        """Digest of everything the rounds depend on: the space's bounds
+        (not only its labels), the contents of loaded trials, the floors
+        and max_iter.  Same-shaped spaces or trial files with other values
+        would fork the suggestion streams while every count still agreed."""
+        space_repr = repr([(k, self.space[k]) for k in sorted(self.space)])
+        trials_repr = repr([
+            (
+                t.get("tid"),
+                sorted((k, tuple(v))
+                       for k, v in t.get("misc", {}).get("vals", {}).items()),
+                t.get("result", {}).get("loss"),
+                t.get("result", {}).get("status"),
+            )
+            for t in self.trials.trials
+        ])
+        return [
+            float(len(self.trials.trials)),
+            float(additional_evals),
+            float(self.n_splits),
+            float(zlib.crc32(space_repr.encode())),
+            float(zlib.crc32(trials_repr.encode())),
+            float(zlib.crc32(repr((
+                self.min_covariate_components,
+                -1 if self.max_iter is None else self.max_iter,
+            )).encode())),
+        ]
+
+    def _remote_trial_result(self, point: Dict, loss: float) -> Dict:
+        """The record of a trial another process evaluated this round: all
+        but the exchanged loss follows from the point, so every process
+        appends the same record."""
+        params = self._point_to_params(point)
+        if params is None:
+            return {"loss": np.inf, "status": STATUS_FAIL}
+        record = dict(params)
+        record["lam"] = list(record["lam"])
+        # parallel rounds run only once max_iter is frozen (round_size in
+        # _run_tpe), so the evaluating process recorded this same value
+        record["max_iter"] = self.max_iter
+        record["score"] = loss
+        return {"loss": loss, "status": STATUS_OK, "params": record}
 
     # ------------------------------------------------------------- search
     def search_hyperparams(
@@ -322,15 +438,52 @@ class ComponentOptimizer:
 
     def _run_tpe(self, additional_evals: int):
         """Drive fmin for `additional_evals` more trials on top of whatever
-        the Trials object already holds, then decode + record the best."""
-        best = fmin(
-            self.objective,
-            self.space,
-            algo=tpe.suggest,
-            max_evals=len(self.trials.trials) + additional_evals,
-            trials=self.trials,
-            rstate=np.random.default_rng(self.random_state),
-        )
+        the Trials object already holds, then decode + record the best.
+
+        Over processes: ``fmin_parallel``'s rounds of ``_mp_workers``
+        trials, each process evaluating one and the losses exchanged; a
+        round of one (every process evaluates it, no loss crosses) while
+        max_iter detection is live, so every process replays the freeze."""
+        if self._mp_workers == 1:
+            best = fmin(
+                self.objective,
+                self.space,
+                algo=tpe.suggest,
+                max_evals=len(self.trials.trials) + additional_evals,
+                trials=self.trials,
+                rstate=np.random.default_rng(self.random_state),
+            )
+        else:
+            dist.assert_same_across_processes(
+                self._search_state_digest(additional_evals),
+                "search state (completed trials, max_evals, n_splits, "
+                "space bounds, loaded trial contents, floors, max_iter)",
+            )
+            best = fmin_parallel(
+                self.objective,
+                self.space,
+                fn_remote=self._remote_trial_result,
+                exchange_losses=lambda v: dist.process_allgather_rows(
+                    np.asarray([v], np.float64)).ravel(),
+                n_workers=self._mp_workers,
+                worker_index=self._mp_rank,
+                algo=tpe.suggest,
+                max_evals=len(self.trials.trials) + additional_evals,
+                trials=self.trials,
+                rstate=np.random.default_rng(self.random_state),
+                round_size=lambda: (1 if self.max_iter is None
+                                    else self._mp_workers),
+            )
+            # the replicated rounds exchange no loss: a process whose fits
+            # drifted would fork the TPE stream silently, so every loss and
+            # the frozen max_iter are compared once the rounds are over
+            dist.assert_same_across_processes(
+                [float(t["result"].get("loss", np.inf))
+                 for t in self.trials.trials]
+                + [float(-1 if self.max_iter is None else self.max_iter)],
+                "post-search trials (replicated rounds diverged across "
+                "processes — per-device float drift in max_iter detection?)",
+            )
         if best is None:
             raise RuntimeError("Hyperparameter optimization did not return any result.")
         return self._decode_best(best)
@@ -421,7 +574,8 @@ class ComponentOptimizer:
 
     def _scoring_device(self):
         """The card for the folds' kNN search (ops/knn.py), or None (the
-        float64 host search) when the fits run on the CPU."""
+        float64 host search) when the fits run on the CPU.  On a mesh it is
+        this rank's card, where its trials' folds run."""
         dev = self._exec_device
         return dev if dev.type != "cpu" else None
 
@@ -545,15 +699,22 @@ class ComponentOptimizer:
     # -------------------------------------------------------- persistence
     def __getstate__(self):
         # no device tensors in a pickle: the fold cache is rebuilt on
-        # demand, the execution device re-resolved on load
+        # demand; the execution device and the topology follow from
+        # `device` and the live process group on load
         state = dict(self.__dict__)
-        for key in ("_fold_cache", "_exec_device"):
+        for key in ("_fold_cache", "_exec_device", "_mp_workers", "_mp_rank"):
             state.pop(key, None)
+        state["device"] = describe_device(state.get("device"))
         return state
 
     def __setstate__(self, state):
+        state["device"] = restore_device(state.get("device"))
         self.__dict__.update(state)
-        self._exec_device = resolve_device(self.device)
+        self._setup_execution(self.device)
+        if self._mp_workers > 1:
+            # each rank unpickles its own copy (the data travels in the
+            # pickle): a stale one would mix losses of other data
+            self._assert_consistent_across_processes()
 
     def save_trials(self, filename: str):
         """Pickle the current trials (reference optimization.py:335-345)."""
@@ -619,7 +780,13 @@ class ComponentOptimizer:
     def fit_the_best_param(self):
         """Refit on the full data with the best found parameters
         (reference optimization.py:479-510), random_state taken from
-        best_param alone."""
+        best_param alone.
+
+        After a search over processes every process holds the full data,
+        so the refit runs on each rank's own card and is the same
+        everywhere.  For a sharded final fit, pass ``best_param`` to
+        ``ALPINE(device=distributed.global_cell_mesh(), **best_param)`` and
+        fit each process's cells."""
         if not self.best_param:
             raise RuntimeError(
                 "Please run bayesian_search() to find the best parameters first."

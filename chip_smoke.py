@@ -178,7 +178,22 @@ Phases, each printing one JSON line:
   slice_optimize_paths  one calc_score each at max_iter=10 with frozen
           parameters: weighted_fast folds (K4, and its kernel row at the
           fold shape), ALS folds (P1/P2, their rows at the fold shape) and
-          tiled folds of 8,192-cell batches (P1/P2 on slabs).
+          tiled folds of 8,192-cell batches (P1/P2 on slabs);
+  slice_optimize_sharded  ComponentOptimizer over a cell mesh with
+          slice_optimize's settings: one NCCL process (this one) runs the
+          first 2 trials, bit for bit slice_optimize's; then 2 gloo ranks
+          spawned on the card, each memory-mapping all the cells, run 2
+          rounds of 2 trials (each rank fits and scores its own trials,
+          one loss a trial exchanged) and fit_the_best_param: the trials,
+          best parameters and refit losses equal on both ranks, the points
+          slice_optimize's, K1 and K3 launched on each rank for its own
+          trials, one of rank 1's trials against this process's calc_score
+          of its point (atol 1e-6); then a max_iter=None search of 3 trials
+          on the first 20,000 cells (cut; a replicated round, then a
+          parallel one); a slice_optimize_sharded_rank line for each rank
+          (seconds a trial, local evaluations, the exchange's ms a round
+          and alone).  Ranks share the card: no time here is a multi-GPU
+          speed.
 The fit_loop phases include fit_loop_tiled (3 tiled epochs) with the
 device time of the batches' copies beside fit_loop_minibatch's.
 Then one JSON line with every kernel's numbers (fused_transform twice: its
@@ -192,7 +207,8 @@ int16 X, with the launches of the ALS loop on that X; K1, K4 and K2 again
 on their fp32 path, with the launches of the float32/int16 joint,
 weighted_fast and unguided loops; K1, K3 (a row per path), K4, hxt and
 wtx at the optimizer's fold shapes with the launches of slice_optimize and
-slice_optimize_paths) and, last, the result line
+slice_optimize_paths; K1 and K3 again with world 2's launches of
+slice_optimize_sharded, at the same folds) and, last, the result line
 {"ok": true, "device": {...}}.  slice_persist's line says in "h5ad_run"
 whether its .h5ad round trip ran.
 Any failed check raises: the script exits non-zero and prints no result.
@@ -1975,6 +1991,36 @@ PATHS_PARAMS = {"n_components": 30, "n_covariate_components": [5, 5],
                 "lam": [1e3, 1e3], "orth_W": 0.0, "alpha_W": 0.0, "l1_ratio_W": 0.0}
 
 
+def count_k3_paths(kernels):
+    """Wrap ``kernels.fused_transform`` to count its launches by path (the
+    rule by K: ``transform_bucket``), each with the largest K that took it:
+    returns {"registers": [launches, K], "tiled": [launches, K]}.  The
+    caller puts the wrapper's original back."""
+    paths = {"registers": [0, 0], "tiled": [0, 0]}
+    fused_transform = kernels.fused_transform
+
+    def counted(num2, H0, *args, **kw):
+        before = kernels.launches["fused_transform"]
+        out = fused_transform(num2, H0, *args, **kw)
+        K = H0.shape[0]
+        entry = paths["registers" if kernels.transform_bucket(K) else "tiled"]
+        entry[0] += kernels.launches["fused_transform"] - before
+        entry[1] = max(entry[1], K)
+        return out
+
+    kernels.fused_transform = counted
+    return paths
+
+
+def trial_summary(trials):
+    """Each trial's tid, point, loss, status and record (JSON-safe)."""
+    return [{"tid": t["tid"],
+             "vals": {k: [float(x) for x in v] for k, v in t["misc"]["vals"].items()},
+             "loss": float(t["result"].get("loss", np.inf)),
+             "status": t["result"]["status"], "params": t["result"].get("params")}
+            for t in trials.trials]
+
+
 def run_optimize_phase(torch, kernels, adata, cases):
     """slice_optimize: ComponentOptimizer's default search at the bench
     shape (fold batching, auto bucketing, native Leiden, kNN on the card),
@@ -1990,19 +2036,7 @@ def run_optimize_phase(torch, kernels, adata, cases):
     from alpine_tpu_torch.optimize import batched, scoring
 
     seen = {"pad_folds": 0, "pad_nonzero": 0, "k3": None, "knn": None}
-    # the search's K3 launches by path (the rule by K: transform_bucket),
-    # each with the largest K that took it
-    k3_paths = {"registers": [0, 0], "tiled": [0, 0]}
     fused_transform = kernels.fused_transform
-
-    def counted_transform(num2, H0, *args, **kw):
-        before = kernels.launches["fused_transform"]
-        out = fused_transform(num2, H0, *args, **kw)
-        K = H0.shape[0]
-        entry = k3_paths["registers" if kernels.transform_bucket(K) else "tiled"]
-        entry[0] += kernels.launches["fused_transform"] - before
-        entry[1] = max(entry[1], K)
-        return out
 
     def on_fit(orig, args, kw, out):
         fd, f = args[0], args[1]
@@ -2065,7 +2099,7 @@ def run_optimize_phase(torch, kernels, adata, cases):
         co.objective, co._fold_data = timed_objective, timed_fold_data
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        kernels.fused_transform = counted_transform
+        k3_paths = count_k3_paths(kernels)
         kernels.reset_launches()
         t0 = time.perf_counter()
         best = co.search_hyperparams(n_total_components_range=(10, 100),
@@ -2074,6 +2108,7 @@ def run_optimize_phase(torch, kernels, adata, cases):
         search_s = time.perf_counter() - t0
         kernels.fused_transform = fused_transform
         search_launches = dict(kernels.launches)
+        search_trials = trial_summary(co.trials)
         search_peak = torch.cuda.max_memory_allocated()
         co.objective, co._fold_data = objective, fold_data
         valid = [r for r in trial_rows if r["status"] == "ok"]
@@ -2181,7 +2216,7 @@ def run_optimize_phase(torch, kernels, adata, cases):
     model.free_device_cache()
     del co, model, fd
     torch.cuda.empty_cache()
-    return search_launches, {p: n for p, (n, _) in k3_paths.items() if n}
+    return search_launches, {p: n for p, (n, _) in k3_paths.items() if n}, search_trials
 
 
 def run_optimize_paths_phase(torch, kernels, adata, cases):
@@ -2240,6 +2275,304 @@ def run_optimize_paths_phase(torch, kernels, adata, cases):
         del co, fd
         torch.cuda.empty_cache()
     return launches
+
+
+# slice_optimize_sharded: world 1 runs the first trials of slice_optimize's
+# search, world 2 two rounds of two; the max_iter=None search is cut to the
+# first OPT_DETECT_CELLS cells
+OPT_W1_EVALS, OPT_SHARDED_EVALS = 2, 4
+OPT_DETECT_CELLS, OPT_DETECT_EVALS = 20_000, 3
+OPT_RANK_TIMEOUT = 300.0
+
+
+def optimize_sharded_rank(here, workdir, world, rank, port, n_detect):
+    """One gloo rank of slice_optimize_sharded (a spawned process): the full
+    bench data memory-mapped from the parent's file, a search of two rounds
+    over the cell mesh (this rank fits and scores its own trials on the
+    card), the replicated refit, the loss exchange alone, and a
+    max_iter=None search on the first ``n_detect`` cells; its numbers and
+    results saved for the parent."""
+    sys.path.insert(0, here)
+    import torch
+
+    from alpine_tpu_torch import AnnData, ComponentOptimizer
+    from alpine_tpu_torch.ops import kernels
+    from alpine_tpu_torch.parallel import distributed as dist
+
+    dist.initialize(f"localhost:{port}", num_processes=world, process_id=rank,
+                    local_device_ids=0, backend="gloo", timeout=RANK_PG_TIMEOUT)
+    try:
+        rank_t0 = time.perf_counter()
+        counts = np.load(os.path.join(workdir, "counts.npy"), mmap_mode="r")
+        labels = np.load(os.path.join(workdir, "obs.npz"), allow_pickle=True)
+        adata = AnnData(np.asarray(counts, dtype=np.float32),
+                        obs={k: labels[k] for k in OPT_KEYS})
+        load_s = time.perf_counter() - rank_t0
+        mesh = dist.global_cell_mesh()
+
+        def timed(co):
+            """Seconds of each calc_score this rank runs: its own trials."""
+            spent, calc = [], co.calc_score
+
+            def timed_calc(args):
+                t = time.perf_counter()
+                score = calc(args)
+                torch.cuda.synchronize()
+                spent.append(time.perf_counter() - t)
+                return score
+
+            co.calc_score = timed_calc
+            return spent
+
+        # a round's loss exchange: one float a rank (the digests send more)
+        exchanges, allgather = [], dist.process_allgather_rows
+
+        def timed_allgather(row):
+            t = time.perf_counter()
+            out = allgather(row)
+            if np.asarray(row).size == 1:
+                exchanges.append((time.perf_counter() - t) * 1e3)
+            return out
+
+        t0 = time.perf_counter()
+        co = ComponentOptimizer(adata, OPT_KEYS, max_iter=OPT_MAX_ITER, random_state=0,
+                                device=mesh)
+        init_s = time.perf_counter() - t0
+        trial_s = timed(co)
+        kernels.reset_launches()
+        fused_transform = kernels.fused_transform
+        k3_paths = count_k3_paths(kernels)
+        dist.process_allgather_rows = timed_allgather
+        try:
+            t0 = time.perf_counter()
+            best = co.search_hyperparams(n_total_components_range=(10, 100),
+                                         n_splits=OPT_SPLITS, max_evals=OPT_SHARDED_EVALS)
+            torch.cuda.synchronize()
+            search_s = time.perf_counter() - t0
+        finally:
+            dist.process_allgather_rows = allgather
+            kernels.fused_transform = fused_transform
+        launches = dict(kernels.launches)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        model = co.fit_the_best_param()
+        torch.cuda.synchronize()
+        refit_s = time.perf_counter() - t0
+        refit_launches = dict(kernels.launches)
+        refit_loss = model.loss_history_.tolist()
+        del model
+        torch.cuda.empty_cache()
+        # the exchange alone, both ranks in step: 20 gathers of one float
+        allgather(np.zeros(1))
+        t0 = time.perf_counter()
+        for _ in range(20):
+            allgather(np.zeros(1))
+        alone_ms = (time.perf_counter() - t0) * 1e3 / 20
+
+        # max_iter detection: a replicated round (each rank runs the
+        # sequential route's elbow fits), then one parallel round
+        cut = AnnData(np.asarray(counts[:n_detect], dtype=np.float32),
+                      obs={k: labels[k][:n_detect] for k in OPT_KEYS})
+        det = ComponentOptimizer(cut, OPT_KEYS, max_iter=None, random_state=0, device=mesh)
+        det_s = timed(det)
+        t0 = time.perf_counter()
+        det.search_hyperparams(n_total_components_range=(10, 100), n_splits=OPT_SPLITS,
+                               max_evals=OPT_DETECT_EVALS)
+        torch.cuda.synchronize()
+        det_search_s = time.perf_counter() - t0
+        row = {"phase": "slice_optimize_sharded_rank", "world": world, "rank": rank,
+               "backend": torch.distributed.get_backend(),
+               "topology": [co._mp_workers, co._mp_rank, str(co._exec_device)],
+               "load_seconds": load_s, "constructor_seconds": init_s,
+               "search_seconds": search_s, "local_evaluations": len(trial_s),
+               "seconds_per_trial": trial_s,
+               "exchange_ms_per_round": exchanges, "exchange_ms_alone": alone_ms,
+               "launches_search": {"fused_iteration": launches["fused_iteration"],
+                                   "fused_transform": launches["fused_transform"]},
+               "k3_launches_by_path": {p: {"launches": n, "largest_K": K}
+                                       for p, (n, K) in k3_paths.items()},
+               "fit_the_best_param_seconds": refit_s,
+               "launches_fit_the_best_param": {
+                   "fused_iteration": refit_launches["fused_iteration"]},
+               "detect": {"cells": n_detect, "search_seconds": det_search_s,
+                          "local_evaluations": len(det_s), "max_iter": det.max_iter},
+               "rank_seconds": time.perf_counter() - rank_t0}
+        with open(os.path.join(workdir, f"opt_rank{rank}.json"), "w") as f:
+            json.dump({"row": row, "trials": trial_summary(co.trials), "best": best,
+                       "refit_loss": refit_loss,
+                       "detect_trials": trial_summary(det.trials)}, f, default=float)
+    finally:
+        dist.shutdown()
+
+
+def run_optimize_sharded_phase(torch, kernels, adata, counts, obs, ref_trials):
+    """slice_optimize_sharded: ComponentOptimizer over a cell mesh at the
+    bench shape with slice_optimize's settings.  World 1 (NCCL, this
+    process) runs the first two trials, which must be slice_optimize's bit
+    for bit.  World 2 (two gloo ranks spawned on the one card, each holding
+    all cells) runs two rounds of two trials and the replicated refit:
+    identical trials, best parameters and refit losses on both ranks, K1
+    and K3 launched on each for its own trials, and one trial rank 1 fit
+    against this process's calc_score of its point (atol 1e-6); then a
+    max_iter=None search cut to OPT_DETECT_CELLS cells.  Ranks share the
+    card: no time here is a multi-GPU speed."""
+    import multiprocessing
+    import tempfile
+
+    from alpine_tpu_torch import ComponentOptimizer
+    from alpine_tpu_torch.parallel import distributed as dist
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    phase_t0 = time.perf_counter()
+    per_trial = OPT_SPLITS * OPT_MAX_ITER
+
+    # world 1: a mesh of one runs the sequential search on this card
+    t0 = time.perf_counter()
+    dist.initialize(f"localhost:{_free_port()}", num_processes=1, process_id=0,
+                    backend="nccl", timeout=RANK_PG_TIMEOUT)
+    try:
+        backend = torch.distributed.get_backend()
+        co = ComponentOptimizer(adata, OPT_KEYS, max_iter=OPT_MAX_ITER, random_state=0,
+                                device=dist.global_cell_mesh())
+        topology = [co._mp_workers, co._mp_rank, str(co._exec_device)]
+        kernels.reset_launches()
+        co.search_hyperparams(n_total_components_range=(10, 100), n_splits=OPT_SPLITS,
+                              max_evals=OPT_W1_EVALS)
+        torch.cuda.synchronize()
+        w1_launches = dict(kernels.launches)
+    finally:
+        dist.shutdown()
+    w1_trials = trial_summary(co.trials)
+    w1_valid = sum(t["status"] == "ok" for t in w1_trials)
+    w1_bits = [a["vals"] == b["vals"] and a["loss"] == b["loss"] and a["status"] == b["status"]
+               for a, b in zip(w1_trials, ref_trials)]
+    w1 = {"world": 1, "backend": backend, "topology": topology,
+          "trials": [[t["tid"], t["loss"], t["status"]] for t in w1_trials],
+          "bits_equal_slice_optimize": w1_bits,
+          "launches_search": {k: w1_launches[k] for k in ("fused_iteration",
+                                                         "fused_transform")},
+          "seconds": time.perf_counter() - t0}
+    check(topology == [1, 0, "cuda:0"], f"slice_optimize_sharded world 1: {topology}")
+    check(len(w1_bits) == OPT_W1_EVALS and all(w1_bits),
+          f"slice_optimize_sharded world 1: trials must be slice_optimize's: {w1_bits}")
+    check(w1_launches["fused_iteration"] == w1_valid * per_trial
+          and w1_launches["fused_transform"] == w1_valid * OPT_SPLITS and w1_valid > 0,
+          f"slice_optimize_sharded world 1: launches {w1_launches}")
+
+    # world 2: gloo ranks spawned on the one card, each with all cells
+    ctx = multiprocessing.get_context("spawn")
+    world = 2
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as workdir:
+        np.save(os.path.join(workdir, "counts.npy"), counts.astype(np.int8))
+        np.savez(os.path.join(workdir, "obs.npz"), **obs)
+        port = _free_port()
+        procs = [ctx.Process(target=optimize_sharded_rank,
+                             args=(here, workdir, world, r, port, OPT_DETECT_CELLS))
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + OPT_RANK_TIMEOUT
+        for p in procs:
+            p.join(max(1.0, deadline - time.monotonic()))
+        alive = [p for p in procs if p.is_alive()]
+        for p in alive:
+            p.terminate()
+            p.join(10)
+        codes = [p.exitcode for p in procs]
+        check(not alive and codes == [0] * world,
+              f"slice_optimize_sharded world {world}: ranks ended with {codes}"
+              + (" (stopped at the time limit)" if alive else ""))
+        outs = []
+        for r in range(world):
+            with open(os.path.join(workdir, f"opt_rank{r}.json")) as f:
+                outs.append(json.load(f))
+    w2_s = time.perf_counter() - t0
+    rows = [o["row"] for o in outs]
+    for row in rows:  # printed here: two ranks printing at once mix their lines
+        emit(row)
+    trials = outs[0]["trials"]
+    valid = [t for t in trials if t["status"] == "ok"]
+    same = {
+        "trials": all(o["trials"] == trials for o in outs),
+        "best_param": all(o["best"] == outs[0]["best"] for o in outs),
+        "refit_loss": all(o["refit_loss"] == outs[0]["refit_loss"] for o in outs),
+        "detect_trials": all(o["detect_trials"] == outs[0]["detect_trials"] for o in outs),
+        "detect_max_iter": len({r["detect"]["max_iter"] for r in rows}) == 1}
+    # a trial rank 1 fit (worker j takes the j-th point of a round) against
+    # this process's calc_score of the same point on the card
+    mine = [t for t in trials if t["tid"] % world == 1 and t["status"] == "ok"]
+    probe = (mine or valid)[0]
+    args = {k: v for k, v in probe["params"].items() if k not in ("max_iter", "score")}
+    t1 = time.perf_counter()
+    parent_score = co.calc_score(args)
+    parent_s = time.perf_counter() - t1
+    co.free_device_cache()
+    del co
+    torch.cuda.empty_cache()
+    detect = outs[0]["detect_trials"]
+    det_ok = sum(t["status"] == "ok" for t in detect)
+    det_evals = sum(r["detect"]["local_evaluations"] for r in rows)
+    emit({"phase": "slice_optimize_sharded", "cells": N, "genes": G,
+          "covariates": OPT_KEYS, "max_iter": OPT_MAX_ITER, "n_splits": OPT_SPLITS,
+          "worlds": [w1, {
+              "world": world, "backend": rows[0]["backend"], "max_evals": OPT_SHARDED_EVALS,
+              "trials": [[t["tid"], t["loss"], t["status"]] for t in trials],
+              "losses_equal_slice_optimize": [
+                  t["vals"] == r["vals"] and t["loss"] == r["loss"]
+                  for t, r in zip(trials, ref_trials)],
+              "local_evaluations": [r["local_evaluations"] for r in rows],
+              "seconds_per_trial": [r["seconds_per_trial"] for r in rows],
+              "exchange_ms_per_round": [r["exchange_ms_per_round"] for r in rows],
+              "exchange_ms_alone": [r["exchange_ms_alone"] for r in rows],
+              "launches_search": [r["launches_search"] for r in rows],
+              "same_on_every_rank": same, "best_param": outs[0]["best"],
+              "refit_loss_last": outs[0]["refit_loss"][-1],
+              "rank_check": {"tid": probe["tid"], "rank_loss": probe["loss"],
+                             "parent_calc_score": parent_score,
+                             "parent_seconds": parent_s, "tolerance": "atol 1e-6"},
+              "detect": {"cells": OPT_DETECT_CELLS, "max_evals": OPT_DETECT_EVALS,
+                         "trials": [[t["tid"], t["loss"], t["status"]] for t in detect],
+                         "max_iter": rows[0]["detect"]["max_iter"],
+                         "local_evaluations": [r["detect"]["local_evaluations"]
+                                               for r in rows]},
+              "seconds": w2_s}],
+          "reduced": {"detect_cells": f"{OPT_DETECT_CELLS} of {N}"},
+          "seconds": time.perf_counter() - phase_t0})
+    check(all(same.values()), f"slice_optimize_sharded world 2: ranks differ: {same}")
+    # TPE's first draws come from the prior: the same points as
+    # slice_optimize's search, so its kernel rows hold for these folds
+    check(len(ref_trials) >= len(trials)
+          and all(t["vals"] == r["vals"] for t, r in zip(trials, ref_trials)),
+          "slice_optimize_sharded world 2: the points must be slice_optimize's")
+    check(len(trials) == OPT_SHARDED_EVALS and valid
+          and all(np.isfinite(t["loss"]) for t in valid),
+          "slice_optimize_sharded world 2: every valid trial's score must be finite")
+    check(sum(r["local_evaluations"] for r in rows) == len(valid),
+          "slice_optimize_sharded world 2: each valid trial fit on one rank only")
+    for r, row in enumerate(rows):
+        n_local = row["local_evaluations"]
+        L = row["launches_search"]
+        check(row["topology"] == [world, r, "cuda:0"],
+              f"slice_optimize_sharded rank {r}: topology {row['topology']}")
+        check(n_local > 0 and L["fused_iteration"] == n_local * per_trial
+              and L["fused_transform"] == n_local * OPT_SPLITS
+              == sum(v["launches"] for v in row["k3_launches_by_path"].values()),
+              f"slice_optimize_sharded rank {r}: launches {L} for {n_local} trials")
+        check(row["launches_fit_the_best_param"]["fused_iteration"] == OPT_MAX_ITER,
+              f"slice_optimize_sharded rank {r}: the refit runs K1 once an iteration")
+    check(abs(parent_score - probe["loss"]) <= 1e-6,
+          f"slice_optimize_sharded: trial {probe['tid']} {probe['loss']} against "
+          f"calc_score {parent_score}")
+    check(rows[0]["detect"]["max_iter"] is not None and det_ok > 0
+          and det_ok < det_evals < world * det_ok + world,
+          f"slice_optimize_sharded detect: {det_evals} local evaluations of {det_ok}")
+    k3 = {}
+    for row in rows:
+        for p, v in row["k3_launches_by_path"].items():
+            k3[p] = k3.get(p, 0) + v["launches"]
+    return ({"fused_iteration": sum(r["launches_search"]["fused_iteration"] for r in rows)},
+            {p: n for p, n in k3.items() if n})
 
 
 def main():
@@ -2928,8 +3261,10 @@ def main():
         torch.cuda.empty_cache()
 
     cases = {"iteration": iteration_row, "transform": transform_row, "x_pass": x_pass_rows}
-    opt_launches, opt_k3_paths = run_optimize_phase(torch, kernels, adata, cases)
+    opt_launches, opt_k3_paths, opt_trials = run_optimize_phase(torch, kernels, adata, cases)
     paths_launches = run_optimize_paths_phase(torch, kernels, adata, cases)
+    sharded_opt_launches, sharded_opt_k3 = run_optimize_sharded_phase(
+        torch, kernels, adata, counts, obs, opt_trials)
 
     launches = {"fused_iteration": main_launches["fused_iteration"],
                 "fused_iteration_counts": wf_launches["fused_iteration_counts"],
@@ -2958,7 +3293,16 @@ def main():
                 "fused_iteration_counts optimizer":
                     paths_launches["weighted_fast"]["fused_iteration_counts"],
                 "hxt optimizer": paths_launches["als"]["hxt"],
-                "wtx optimizer": paths_launches["als"]["wtx"]}
+                "wtx optimizer": paths_launches["als"]["wtx"],
+                # the search over processes: world 2's ranks together, at the
+                # folds (and points) of slice_optimize
+                "fused_iteration optimizer sharded": sharded_opt_launches["fused_iteration"],
+                **{f"fused_transform optimizer sharded {p}": n
+                   for p, n in sharded_opt_k3.items()}}
+    for p in sharded_opt_k3:
+        results[f"fused_transform optimizer sharded {p}"] = \
+            results[f"fused_transform optimizer {p}"]
+    results["fused_iteration optimizer sharded"] = results["fused_iteration optimizer"]
     rows = []
     for kname in ("fused_iteration", "fused_iteration_counts", "fused_h_update",
                   "fused_iteration float32", "fused_iteration int16",
@@ -2969,8 +3313,12 @@ def main():
                   "hxt_fma float32", "hxt_fma int16",
                   "wtx_fma float32", "wtx_fma int16", "stream_probe",
                   "fused_iteration optimizer",
-                  *(k for k in launches if k.startswith("fused_transform optimizer ")),
-                  "fused_iteration_counts optimizer", "hxt optimizer", "wtx optimizer"):
+                  *(k for k in launches if k.startswith("fused_transform optimizer ")
+                    and "sharded" not in k),
+                  "fused_iteration_counts optimizer", "hxt optimizer", "wtx optimizer",
+                  "fused_iteration optimizer sharded",
+                  *(k for k in launches
+                    if k.startswith("fused_transform optimizer sharded "))):
         res = results[kname]
         base = kname.split()[0].replace("_fma", "")
         rows.append({"name": kname, "route": "cuda", "source": SOURCES[base],

@@ -29,7 +29,8 @@ against the single-process port and the JAX package.
 - Refusals and inconsistent inputs raise on both ranks, with the JAX
   package's message where it has one, and the group still works after;
   the modes ported since (weighted_fast, ALS, minibatch, tiled,
-  checkpoints) fit on both ranks.
+  checkpoints) fit on both ranks, and ComponentOptimizer constructs on
+  both from the full data.
 """
 
 import os
@@ -482,8 +483,7 @@ def test_auto_dtype_takes_the_widest(ranks):
     assert np.array_equal(results[0]["auto"]["loss"], results[1]["auto"]["loss"])
 
 
-# the failure cases: (exception type, message the JAX package also raises,
-# or None where the port's own message is checked by pattern)
+# the failure cases: (exception type, message the JAX package also raises)
 _FAILURES = {
     "genes_differ": ("ValueError", "per-process fit inputs (gene count"),
     "int8_unstorable": ("ValueError", "cannot represent the data on at least one process's shard"),
@@ -491,12 +491,13 @@ _FAILURES = {
     "weighted": ("ValueError", "sampling_method='weighted' is not supported in multi-process fits"),
     "als_minibatch": ("ValueError", "ALS minibatch fits are not supported in multi-process mode"),
     "transform_genes_differ": ("ValueError", "per-process transform inputs (genes"),
-    "optimizer": ("NotImplementedError", None),
 }
-# the modes that raised NotImplementedError until they were ported: each
-# now fits on every rank (tests/test_torch_distributed_modes.py holds their
-# results against the single process and the JAX package)
-_NOW_RUN = ("minibatch", "weighted_fast", "tiled", "als", "checkpoint")
+# the cases that raised NotImplementedError until they were ported: each
+# mode now fits on every rank (tests/test_torch_distributed_modes.py holds
+# their results against the single process and the JAX package), and the
+# optimizer constructs on every rank from the full data
+# (tests/test_torch_optimizer_distributed.py runs its searches)
+_NOW_RUN = ("minibatch", "weighted_fast", "tiled", "als", "checkpoint", "optimizer")
 
 
 @pytest.mark.parametrize("name", list(_FAILURES) + list(_NOW_RUN))
@@ -511,11 +512,8 @@ def test_failures_raise_on_every_rank(ranks, name):
     assert all(g is not None for g in got), got
     assert [g[0] for g in got] == [kind] * WORLD, got
     for _, msg in got:
-        if message is not None:
-            assert message in msg
-            assert message in " ".join(JAX_SOURCE.split()).replace('" "', ""), message
-        else:
-            assert "ROADMAP §1 item 1C" in msg, msg
+        assert message in msg
+        assert message in " ".join(JAX_SOURCE.split()).replace('" "', ""), message
     # the process group outlived every refusal
     assert [r["failures"]["after"] for r in results] == [float(WORLD)] * WORLD
 

@@ -203,8 +203,9 @@ def main():
     attempt("als", lambda: fit_case(model_kw={"use_als": True}))
     attempt("checkpoint", lambda: fit_case(
         fit_kw={"checkpoint_dir": os.path.join(workdir, f"ckpt{rank}")}))
+    # every rank holds the full data: a search's trials fit on each rank
     attempt("optimizer", lambda: ComponentOptimizer(
-        local_adata(base, lo, hi), KEYS, max_iter=3, device=mesh))
+        local_adata(base, 0, base["X"].shape[0]), KEYS, max_iter=3, device=mesh))
     attempt("transform_genes_differ", lambda: model.transform(
         drop_gene_on_rank1(local_adata(base, lo, hi)), n_iter=3))
     # the group still works after every refusal
