@@ -38,6 +38,19 @@ tiled fits sample each process's own cells (stratified by process, as in
 the JAX package), and ``checkpoint_dir`` snapshots each process's state
 in a file of its own.
 
+``device=distributed.global_gene_cell_mesh(n_g, n_c)`` fits over a grid of
+processes: the process at (gi, ci) passes the cells of run ci with every
+gene (``distributed.mesh_cell_range``), moves only its block of X (gene
+block gi, which the gene count must divide evenly) to its card and fits
+its W rows and H columns, summing each iteration's statistics over its
+gene row and its cell column (``mu.fit_scan`` with both groups: P1/P2 on
+the block, never K1/K4).  Full-batch joint, ALS and weighted_fast fits run
+so; after the fit one gather of W's rows gives every process the whole W.
+A transform sums 2WᵀX and WᵀW over the gene blocks and runs K3 on the
+process's columns.  On a grid the JAX package's refusals stay (restarts,
+"weighted", tiled, ALS minibatches), and random minibatches and
+``checkpoint_dir`` are not ported yet.
+
 Random draws come from ``torch.Generator``s seeded with ``random_state``
 through ``draw_init``, ``draw_restart_init``, ``draw_counts_stream``,
 ``draw_cells_stream``, ``draw_tiles_stream`` and ``draw_transform_h0``;
@@ -200,6 +213,19 @@ def draw_tiles_stream(n_tiles: int, random_state: int, device,
     return draw
 
 
+def _digest(blob: bytes) -> int:
+    """A 48-bit digest of ``blob`` (exact as a float64 in the host
+    gathers)."""
+    return int.from_bytes(hashlib.sha256(blob).digest()[:6], "big")
+
+
+def _grid_part_b(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} on a ('genes', 'cells') grid is not ported yet (ROADMAP §1 "
+        "item 1D, part B); fit full batch on the grid, or use a 1-D cell mesh "
+        "(distributed.global_cell_mesh())")
+
+
 def _no_x_cache() -> bool:
     """ALPINE_TPU_NO_X_CACHE (the JAX package's switch): unset, '', '0' or
     'false' mean the device-X cache is on."""
@@ -335,7 +361,7 @@ class ALPINE:
         if n_restarts > 1 and checkpoint_dir is not None:
             raise ValueError("n_restarts > 1 is incompatible with checkpointing.")
         placement = Placement(self.device)
-        sharded = placement.is_sharded
+        sharded, grid = placement.is_sharded, placement.is_grid
         if n_restarts > 1 and sharded:
             # before the upload, as the reference refuses it
             raise ValueError(
@@ -350,7 +376,7 @@ class ALPINE:
                 "weighted sampling requires at least one covariate "
                 "(balancing is over the joint covariate labels)."
             )
-        if sampling_method == "tiled" and self.use_als:
+        if sampling_method == "tiled" and (self.use_als or grid):
             raise ValueError(
                 "tiled sampling requires joint mode on a 1-D cell mesh "
                 "(or one device); use sampling_method='random'."
@@ -385,12 +411,15 @@ class ALPINE:
                           else self.data_dtype)
         fe = FeatureEncoders(covariate_keys)
         Ys = [y.T.copy() for y in fe.fit_transform(adata.obs)]
+        # the device-X cache's key, and on a grid the digest of the cells
+        # that the processes of a cell column must share
+        x_fp = self._x_fingerprint(adata.X) if grid or not _no_x_cache() else None
         # the global cell count, the cell counts of the mesh's processes
         # and this process's position and first cell
         n_sample, chunk_sizes, shard, offset = n_local, None, 0, 0
         if sharded:
             resolved_dtype, chunk_sizes = self._agree_fit_inputs(
-                placement, X, Ys, fe, covariate_keys, resolved_dtype,
+                placement, X, Ys, fe, covariate_keys, resolved_dtype, x_fp,
                 max_iter=max_iter, batch_size=batch_size,
                 sampling_method=sampling_method, checkpoint_dir=checkpoint_dir,
                 checkpoint_every=checkpoint_every)
@@ -404,6 +433,10 @@ class ALPINE:
                 "mode; use full-batch ALS (batch_size=None) or joint-mode "
                 "minibatch (use_als=False)."
             )
+        if grid and batch_size is not None and batch_size < n_sample:
+            raise _grid_part_b("a random minibatch fit")
+        if grid and checkpoint_dir is not None:
+            raise _grid_part_b("a checkpointed fit (checkpoint_dir)")
         if sampling_method == "tiled" and batch_size >= n_sample:
             raise ValueError(
                 f"sampling_method='tiled' is a minibatch mode: batch_size "
@@ -418,7 +451,7 @@ class ALPINE:
                 f"n_cells ({n_sample}); minibatch weighted fits use "
                 f"sampling_method='weighted'."
             )
-        coordinator = shard == 0
+        coordinator = shard == 0 and placement.gene_index == 0
 
         # commit estimator state only after the encoders fitted
         self.fe = fe
@@ -442,9 +475,11 @@ class ALPINE:
         # on a cell mesh every process pads to the widest one's multiple,
         # so all of them draw batches of the same tiles
         pad = -(-widest // mu.DEFAULT_TILE) * mu.DEFAULT_TILE - n_local if tiled else 0
+        # this process's gene rows (on a grid, its block; else every gene)
+        g0, g1 = placement.gene_range(self.n_features)
         # X in its storage dtype first, so the pad and the permutation below
         # copy the narrow X (200 MB of int8 at 100k x 2,000, not 800 MB)
-        Xh = self._cast_x_host(X)
+        Xh = self._cast_x_host(X[g0:g1])
         if pad:
             Xh = torch.nn.functional.pad(Xh, (0, pad))
         Xd = Xh.to(dev)
@@ -482,7 +517,7 @@ class ALPINE:
             Ysd = [y[:, perm] for y in Ysd]
         # the device X of a same-data transform; installed after the fit
         new_x_cache = (None if _no_x_cache() else
-                       (Xd, self._x_fingerprint(adata.X), n_local, cell_perm, pad))
+                       (Xd, x_fp, n_local, cell_perm, pad))
         hyper = self._hyper()
         true_blocks = tuple(self.n_all_components)
         self.timings_: Dict[str, float] = {}
@@ -501,6 +536,9 @@ class ALPINE:
                 # phantom components start (and stay) exactly zero
                 W0, H0, Bs0 = mu.mask_block_padding(cfg.blocks, true_blocks,
                                                     W0, H0, Bs0)
+            if grid:
+                # the global W0's rows of this process's gene block
+                W0 = W0[g0:g1].contiguous()
             if h0_cols is not None:
                 # weighted_fast: the single-process fit pairs group-sorted
                 # position q with H0 column q, so this process takes the
@@ -531,7 +569,8 @@ class ALPINE:
                 cells = None
             return mu.fit_scan(cfg, W0, H0, Bs0, Xd, Ysd, hyper, draw_counts=draw,
                                progress=report, draw_cells=cells,
-                               group=placement.group)
+                               group=placement.group,
+                               gene_group=placement.gene_group)
 
         def run(n_iter: int):
             cfg = self._make_cfg(Ys, n_sample, n_iter)
@@ -619,6 +658,14 @@ class ALPINE:
                     cfg, (Wd, Hd, Bsd, losses) = run_checkpointed(self.max_iter)
                 else:
                     cfg, (Wd, Hd, Bsd, losses) = run(self.max_iter)
+                if grid:
+                    # every process takes the whole W: its cell column's
+                    # gene blocks, in gene order (before the scaling, which
+                    # reads W's column sums over every gene)
+                    from alpine_tpu_torch.parallel import distributed as dist
+
+                    Wd = torch.from_numpy(dist.allgather_gene_blocks(
+                        placement, Wd.cpu().numpy())).to(dev)
                 if self.scale_needed:
                     Wd, Hd, Bsd = mu.scale_matrices(cfg.blocks, Wd, Hd, Bsd)
                 if dev.type == "cuda":
@@ -880,7 +927,7 @@ class ALPINE:
         return Placement(self.device).device
 
     def _agree_fit_inputs(self, placement, X, Ys, fe, covariate_keys,
-                          resolved_dtype, *, max_iter, batch_size,
+                          resolved_dtype, x_fp, *, max_iter, batch_size,
                           sampling_method, checkpoint_dir, checkpoint_every):
         """The sharded fit's first collectives, in the reference's order
         (alpine_tpu/models/alpine.py:264-374): every fit input that shapes
@@ -892,12 +939,14 @@ class ALPINE:
         order).  Unlike the JAX package it also compares
         ``sampling_method``: weighted_fast gathers a group layout that the
         other modes do not, so a mixed fleet would hang rather than
-        raise."""
+        raise.  On a grid the gene count must divide the gene axis (the
+        JAX package's check, before the upload), and the processes of a
+        cell column must pass the same cells: a digest of X's
+        fingerprint (``x_fp``) and the labels is compared along it."""
         from alpine_tpu_torch.parallel import distributed as dist
 
         def digest(blob: str) -> int:
-            return int.from_bytes(hashlib.sha256(blob.encode()).digest()[:6],
-                                  "big")
+            return _digest(blob.encode())
 
         def label_hash(key):
             return digest("\x1f".join(map(str, fe.encoded_labels[key])))
@@ -922,6 +971,11 @@ class ALPINE:
             "model hyperparameters, checkpointing, max_iter, batch_size, "
             "sampling_method, covariate label sets)",
         )
+        placement.check_gene_axis(X.shape[0])
+        dist.assert_same_along_genes(
+            placement, [_digest(repr(x_fp).encode()
+                                + b"".join(y.tobytes() for y in Ys))],
+            "the cells (a digest of X and the covariate labels)")
         if self.data_dtype == "auto":
             codes = dist.process_allgather_rows(np.asarray(
                 [mu.STORAGE_DTYPES.index(resolved_dtype)], np.int64))
@@ -1012,7 +1066,7 @@ class ALPINE:
             "sampling": self.sampling_method,
             "tile": mu.DEFAULT_TILE if self.sampling_method == "tiled" else 0,
             "bucket": self.component_bucket,
-            "cell_shards": placement.n_processes,
+            "cell_shards": placement.cell_shards,
             "seed": self.random_state, "max_iter": n_iter,
             "checkpoint_every": checkpoint_every,
             "n_processes": placement.n_processes,
@@ -1137,9 +1191,12 @@ class ALPINE:
         compared across processes first, the global H0 is drawn on every
         process and sliced to its columns, and the device-X cache is used
         only where every process hits it (alpine_tpu/models/alpine.py:
-        1536-1670)."""
+        1536-1670).  On a grid each process moves its block of X (or
+        reuses the fit's), 2WᵀX and WᵀW of its gene rows are summed over
+        its cell column, and K3 projects its columns; the processes of a
+        column must pass the same cells."""
         placement = Placement(self.device)
-        sharded = placement.is_sharded
+        sharded, grid = placement.is_sharded, placement.is_grid
         if sharded:
             from alpine_tpu_torch.parallel import distributed as dist
 
@@ -1157,23 +1214,27 @@ class ALPINE:
         dev = placement.device
         n_sample = adata.shape[0]
         cached = getattr(self, "_x_cache", None)
+        x_fp = (self._x_fingerprint(adata.X)
+                if grid or (cached is not None and cached[2] == n_sample) else None)
         use_cache = (cached is not None and not _no_x_cache()
-                     and cached[2] == n_sample
-                     and cached[1] == self._x_fingerprint(adata.X))
+                     and cached[2] == n_sample and cached[1] == x_fp)
         n_global, offset = n_sample, 0
         if sharded:
             sizes = dist.chunk_cell_sizes(placement, n_sample)
+            dist.assert_same_along_genes(placement, [_digest(repr(x_fp).encode())],
+                                         "the cells (a digest of X)")
             n_global = int(sizes.sum())
             offset = int(sizes[:placement.process_chunk_index].sum())
             use_cache = bool(dist.process_allgather_rows(
                 np.asarray([float(use_cache)])).all())
+        g0, g1 = placement.gene_range(self.n_features)
         if use_cache:
             X, cell_perm, pad = cached[0], cached[3], cached[4]  # validated at fit
         else:
             if not (x_min(adata.X) >= 0):  # NaN fails this like a negative
                 raise ValueError("All elements in adata.X must be non-negative.")
             # out-of-sample data need not be integer-representable
-            X = self._cast_x_host(dense_x(adata.X).T, strict=False).to(dev)
+            X = self._cast_x_host(dense_x(adata.X).T[g0:g1], strict=False).to(dev)
             cell_perm, pad = None, 0
         H0 = draw_transform_h0(self.total_components, n_global,
                                self.random_state, self.eps, dev)
@@ -1184,9 +1245,12 @@ class ALPINE:
             H0 = H0[:, torch.from_numpy(cell_perm).to(dev)]
         if pad:
             H0 = torch.nn.functional.pad(H0, (0, pad))
-        W = torch.from_numpy(np.concatenate(self.matrices["Ws"], axis=1)).to(dev)
+        W = torch.from_numpy(np.ascontiguousarray(
+            np.concatenate(self.matrices["Ws"], axis=1)[g0:g1])).to(dev)
         H = mu.run_transform(W, X, H0, float(np.float32(self.eps)),
-                             n_iter=n_iter, precision=self.matmul_precision)
+                             n_iter=n_iter, precision=self.matmul_precision,
+                             reduce=mu.reducer(placement.gene_group,
+                                               "genes transform"))
         H_np = H[:, :n_sample].cpu().numpy()
         if cell_perm is not None:
             H_np = H_np[:, np.argsort(cell_perm)]

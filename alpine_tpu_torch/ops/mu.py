@@ -43,7 +43,11 @@ at zero and stay exactly zero (``bucket_blocks``, ``auto_bucket_blocks``,
 With a process group (``fit_scan_sharded``) each rank holds a run of the
 cells and every mode but gathered weighted draws and ALS minibatches runs
 on it: the same loops, whose sums over cells are all-reduced (the steps'
-``r``, the fused loop's one call an iteration).
+``r``, the fused loop's one call an iteration).  On a ("genes", "cells")
+grid a rank holds a block of genes × cells: the steps also sum their
+sums over genes (WᵀX, WᵀW) over the genes group (``rg``), and the
+full-batch joint, ALS and weighted_fast fits run as steps whose X products
+are P1 ``hxt`` and P2 ``wtx`` on the rank's block.
 
 A verbose fit passes ``progress``: the loops call it every
 ``progress_every(max_iter)`` iterations and after the last with the
@@ -280,7 +284,8 @@ def _wtx_pass(cfg: MUConfig, X, Xf, Wm) -> torch.Tensor:
     return _dot_x(X, Wm.T, Xf)
 
 
-def joint_batch_update(cfg: MUConfig, hyper, W, Bs, H, X, Xf, Ys_f, r=None):
+def joint_batch_update(cfg: MUConfig, hyper, W, Bs, H, X, Xf, Ys_f, r=None,
+                       rg=None):
     """One joint MU step: W, then Bs, then H (reference main.py:589-663).
     ``X`` is the stored X (its dtype decides the rounding), ``Xf`` the same
     values in f32 (unused by the fused backend) and ``Ys_f`` the label
@@ -293,8 +298,12 @@ def joint_batch_update(cfg: MUConfig, hyper, W, Bs, H, X, Xf, Ys_f, r=None):
     (the JAX package's ``r=psum``): X Hᵀ, H Hᵀ and the B statistics all
     read the step's starting H, so they go in one call; W, the Bs and the
     H update of this rank's columns are then computed locally.  Without
-    ``r`` nothing is reduced."""
-    r = r or _no_reduce
+    ``r`` nothing is reduced.
+
+    ``rg`` sums over the gene blocks of a grid (X holds this rank's gene
+    rows, W the same rows): WᵀX and WᵀW, in one call after the W update,
+    so the H update reads the whole of both."""
+    r, rg = r or _no_reduce, rg or _no_reduce
     HHt = H @ H.T
     XHt = _xht_pass(cfg, X, Xf, H)
     bnums, bdens = _b_stats(cfg, hyper, Bs, H, Ys_f)
@@ -303,8 +312,7 @@ def joint_batch_update(cfg: MUConfig, hyper, W, Bs, H, X, Xf, Ys_f, r=None):
     Bs = _update_bs(cfg, hyper, Bs, bnums, bdens, HHt)
 
     lam, eps = hyper[0], hyper[4]
-    WtX = _wtx_pass(cfg, X, Xf, W)
-    WtW = W.T @ W
+    WtX, WtW = rg([_wtx_pass(cfg, X, Xf, W), W.T @ W])
     num = 2.0 * WtX
     den = 2.0 * (WtW @ H)
     for i in range(cfg.n_cov):
@@ -318,7 +326,7 @@ def joint_batch_update(cfg: MUConfig, hyper, W, Bs, H, X, Xf, Ys_f, r=None):
 
 
 def joint_weighted_counts_update(cfg: MUConfig, hyper, W, Bs, H, X, Xf, Ys_f,
-                                 c):
+                                 c, r=None, rg=None):
     """One weighted_fast joint MU step over a whole epoch, with the epoch's
     draw given as per-cell counts ``c`` (n,) (the counterpart of
     ``alpine_tpu.ops.mu.joint_weighted_counts_update``).  A contraction
@@ -326,23 +334,23 @@ def joint_weighted_counts_update(cfg: MUConfig, hyper, W, Bs, H, X, Xf, Ys_f,
     H_D H_Dᵀ = (c ⊙ H) Hᵀ, X_D H_Dᵀ = X (c ⊙ H)ᵀ, and likewise for the B
     statistics — while the H update is per column, so undrawn cells
     (c = 0) keep their H.  ``c ⊙ H`` is rounded to X's compute dtype as a
-    whole, as the JAX step rounds it."""
-    lam, orth_w, alpha_w, l1_ratio, eps = hyper
+    whole, as the JAX step rounds it.  The X products are
+    ``_xht_pass``/``_wtx_pass`` (the kernels on the fused backend).  ``r``
+    and ``rg`` as in ``joint_batch_update``: the count-scaled statistics
+    over the cells (each rank passes its own cells' counts), then WᵀX and
+    WᵀW over the gene blocks."""
+    lam, eps = hyper[0], hyper[4]
+    r, rg = r or _no_reduce, rg or _no_reduce
     Hc = H * c[None, :]
 
     HHt = Hc @ H.T
-    num = 2.0 * _x_ht(X, Xf, Hc)
-    den = (2.0 * (W @ HHt)
-           + (1.0 - l1_ratio) * alpha_w * W
-           + orth_w * (torch.sum(W, dim=1, keepdim=True) - W)
-           + l1_ratio * alpha_w)
-    W = W * (num / _clamp(den, eps))
-
+    XHt = _xht_pass(cfg, X, Xf, Hc)
     bnums, bdens = _b_stats(cfg, hyper, Bs, H, Ys_f, scale=c)
+    XHt, HHt, bnums, bdens = r([XHt, HHt, bnums, bdens])
+    W = _update_w(hyper, W, XHt, HHt)
     Bs = _update_bs(cfg, hyper, Bs, bnums, bdens, HHt)
 
-    WtX = _dot_x(X, W.T, Xf)
-    WtW = W.T @ W
+    WtX, WtW = rg([_wtx_pass(cfg, X, Xf, W), W.T @ W])
     num = 2.0 * WtX
     den = 2.0 * (WtW @ H)
     for i in range(cfg.n_cov):
@@ -355,7 +363,8 @@ def joint_weighted_counts_update(cfg: MUConfig, hyper, W, Bs, H, X, Xf, Ys_f,
     return W, Bs, H, (WtX, WtW)
 
 
-def als_batch_update(cfg: MUConfig, hyper, W, Bs, H, X, Xf, Ys_f, r=None):
+def als_batch_update(cfg: MUConfig, hyper, W, Bs, H, X, Xf, Ys_f, r=None,
+                     rg=None):
     """One block-cyclic ("ALS mode") MU step (reference main.py:523-588; the
     counterpart of ``alpine_tpu.ops.mu.als_batch_update``): for each block
     in order, W[idx], then B[idx] (covariate blocks), then H[idx]; later
@@ -375,9 +384,10 @@ def als_batch_update(cfg: MUConfig, hyper, W, Bs, H, X, Xf, Ys_f, r=None):
     block's B statistics (a block's statistics read only its own rows of
     H, which no earlier block's update changes), then one with H·Hᵢᵀ
     before each later block's W update.  WᵢᵀX and the H updates stay
-    local."""
+    local, but on a grid (``rg``) WᵢᵀX and WᵢᵀW are summed over the gene
+    blocks before block i's H update: n_blocks calls a step."""
     lam, orth_w, alpha_w, l1_ratio, eps = hyper
-    r = r or _no_reduce
+    r, rg = r or _no_reduce, rg or _no_reduce
     o0, k0 = cfg.offsets[0], cfg.blocks[0]
     XHt = _xht_pass(cfg, X, Xf, H)
     HHi = H @ H[o0:o0 + k0].T
@@ -399,10 +409,10 @@ def als_batch_update(cfg: MUConfig, hyper, W, Bs, H, X, Xf, Ys_f, r=None):
         if idx < cfg.n_cov:
             Bs[idx] = _update_b(cfg, hyper, idx, Bs[idx], bnums[idx],
                                 bdens[idx], HHi[o:o + k])
-        WtXi = _wtx_pass(cfg, X, Xf, Wi)
+        WtXi, WiW = rg([_wtx_pass(cfg, X, Xf, Wi), Wi.T @ W])
         WtX_rows.append(WtXi)
         num = 2.0 * WtXi
-        den = 2.0 * ((Wi.T @ W) @ H)
+        den = 2.0 * (WiW @ H)
         if idx < cfg.n_cov:
             gnum, gden = _guided_h_terms(cfg, Bs[idx], Hi, Ys_f[idx], lam[idx],
                                          eps)
@@ -483,7 +493,7 @@ def grouped_balanced_counts(generator: torch.Generator, n: int, tables,
 def compute_loss_parts(cfg: MUConfig, hyper, W, H, Bs, X, Xf, Ys_f, normX2,
                        WtX: Optional[torch.Tensor] = None,
                        WtW: Optional[torch.Tensor] = None,
-                       kl_pad: int = 0, r=None) -> torch.Tensor:
+                       kl_pad: int = 0, r=None, rg=None) -> torch.Tensor:
     """Loss vector [total, recon, pred_0, ...] on the full matrices
     (reference main.py:726-753), with the trace identity for recon.
     ``kl_pad`` zero columns of X, H and Ys (a tiled fit's pad) each add
@@ -491,13 +501,15 @@ def compute_loss_parts(cfg: MUConfig, hyper, W, H, Bs, X, Xf, Ys_f, normX2,
     constant is subtracted, so the pad never reaches the loss.  In a
     cell-sharded fit (``r``, as in ``joint_batch_update``) the cell sums —
     Σ(WᵀX)∘H, H Hᵀ and the prediction terms, each rank's pad constant
-    already out — go in one call; ``normX2`` is the summed ‖X‖²."""
+    already out — go in one call; ``normX2`` is the summed ‖X‖².  On a
+    grid the WᵀX and WᵀW passed in are summed over the gene blocks
+    already, and one computed here is summed by ``rg``."""
     lam, _, _, _, eps = hyper
-    r = r or _no_reduce
+    r, rg = r or _no_reduce, rg or _no_reduce
     if WtX is None:
-        WtX = _dot_x(X, W.T, Xf)
+        (WtX,) = rg([_dot_x(X, W.T, Xf)])
     if WtW is None:
-        WtW = W.T @ W
+        (WtW,) = rg([W.T @ W])
     dot = torch.sum(WtX * H)
     HHt = H @ H.T
     preds = []
@@ -572,7 +584,8 @@ def _report(progress, losses, it: int, max_iter: int) -> None:
 
 
 def _fit_scan_steps(cfg: MUConfig, W0, H0, Bs0, X, Ys, hyper, draw_counts,
-                    draw_cells, progress, group=None, n_local=None):
+                    draw_cells, progress, group=None, n_local=None,
+                    gene_group=None):
     """Whole steps: the joint steps of the plain backend, ALS on either
     backend, and the random-minibatch, gathered weighted and tiled epochs
     of both (the minibatch branch of ``alpine_tpu.ops.mu.fit_scan`` and its
@@ -614,24 +627,33 @@ def _fit_scan_steps(cfg: MUConfig, W0, H0, Bs0, X, Ys, hyper, draw_counts,
     W).  A rank with fewer units has short batches at the end of its
     epoch, or empty ones, which launch no kernel but join the all-reduce
     with zeros, so the ranks' collectives stay in step: one a batch and
-    the loss's an epoch."""
+    the loss's an epoch.
+
+    With a ``gene_group`` too (a grid: X holds this rank's gene rows and
+    W0 the same rows) the full-batch steps sum WᵀX and WᵀW over it
+    (``rg``, counted under "genes iteration"), and ‖X‖² is summed over
+    both axes before the loop ("genes setup").  An iteration then makes,
+    over cells and over genes: joint and weighted_fast 2 and 1 (the step,
+    the loss over cells), ALS n_blocks + 1 and n_blocks + 1 (the loss's
+    WᵀW over genes)."""
     fused = cfg.backend == "fused"
     wide = torch.promote_types(X.dtype, torch.float32)  # float64 stays float64
     Xf = None if fused else X.to(wide)
     Ys_f = [y.to(wide) for y in Ys]
     (normX2,) = _all_reduce_parts([_norm_x2(X)], group, "setup")
+    (normX2,) = _all_reduce_parts([normX2], gene_group, "genes setup")
     n_local = cfg.n_cells if n_local is None else n_local
     kl_pad = X.shape[1] - n_local
-    r = None if group is None else (
-        lambda parts: _all_reduce_parts(parts, group, "iteration"))
+    r = reducer(group, "iteration")
+    rg = reducer(gene_group, "genes iteration")
 
     def step(W, Bs, H, X, Xf, Ys_f, it):
         if cfg.use_als:
-            return als_batch_update(cfg, hyper, W, Bs, H, X, Xf, Ys_f, r)
+            return als_batch_update(cfg, hyper, W, Bs, H, X, Xf, Ys_f, r, rg)
         if cfg.weighted_counts:
             return joint_weighted_counts_update(cfg, hyper, W, Bs, H, X, Xf,
-                                                Ys_f, draw_counts(it))
-        return joint_batch_update(cfg, hyper, W, Bs, H, X, Xf, Ys_f, r)
+                                                Ys_f, draw_counts(it), r, rg)
+        return joint_batch_update(cfg, hyper, W, Bs, H, X, Xf, Ys_f, r, rg)
 
     # a batch is a set of units: tiles of cfg.tile columns, or single cells
     unit = cfg.tile if cfg.tiled else 1
@@ -673,7 +695,7 @@ def _fit_scan_steps(cfg: MUConfig, W0, H0, Bs0, X, Ys, hyper, draw_counts,
             WtW = None
         losses[it] = compute_loss_parts(cfg, hyper, W, H, Bs, X, Xf, Ys_f,
                                         normX2, WtX=WtX, WtW=WtW,
-                                        kl_pad=kl_pad, r=r)
+                                        kl_pad=kl_pad, r=r, rg=rg)
         _report(progress, losses, it, cfg.max_iter)
     return W, H, Bs, losses
 
@@ -743,6 +765,15 @@ def _all_reduce_parts(parts, group, tag: str):
             off += t.numel()
         out.append(tuple(ts) if isinstance(p, tuple) else ts[0])
     return out
+
+
+def reducer(group, tag: str):
+    """The steps' reducer over ``group``: ``parts`` summed in one
+    all-reduce counted under ``tag`` (``_all_reduce_parts``), or None
+    without a group (the steps then reduce nothing)."""
+    if group is None:
+        return None
+    return lambda parts: _all_reduce_parts(parts, group, tag)
 
 
 def _fit_scan_fused(cfg: MUConfig, W0, H0, Bs0, X, Ys, hyper, draw_counts,
@@ -839,7 +870,7 @@ def _fit_scan_fused(cfg: MUConfig, W0, H0, Bs0, X, Ys, hyper, draw_counts,
 
 
 def fit_scan(cfg: MUConfig, W0, H0, Bs0, X, Ys, hyper, draw_counts=None,
-             progress=None, draw_cells=None, group=None):
+             progress=None, draw_cells=None, group=None, gene_group=None):
     """Run ``cfg.max_iter`` MU epochs.
 
     ``X`` (genes × cells) and ``Ys`` (labels_i × cells) are cast to the
@@ -860,7 +891,20 @@ def fit_scan(cfg: MUConfig, W0, H0, Bs0, X, Ys, hyper, draw_counts=None,
     ``draw_counts`` and ``draw_cells`` draw for this process's cells.
     Returns (W, H, Bs, losses), H with n_cells columns (this
     process's, with a group) and losses (max_iter, 2 + n_cov) on the
-    device: [total, recon, pred_0, ...] per iteration."""
+    device: [total, recon, pred_0, ...] per iteration.
+
+    On a ("genes", "cells") grid ``group`` is the process's cells group
+    (its gene row) and ``gene_group`` its genes group (its cell column):
+    X and W0 hold its gene block's rows, X, H0 and the Ys its cells, and
+    ``draw_counts`` draws its column's counts.  The full-batch joint, ALS
+    and weighted_fast fits run as steps (``_fit_scan_steps``, P1/P2 on the
+    block), never the fused loop, whose kernels need all of WᵀX inside.
+    W comes back as this process's rows, bit-equal along its gene row; H
+    bit-equal along its cell column; the Bs and losses on every process.
+    Each sum over genes is one all-reduce of a column, whose length
+    follows the column's cell count: where the gene axis has more than
+    two processes and the columns hold different cell counts, the
+    columns' WᵀW, and so the losses, may part by a rounding."""
     X = X.to(cfg.xdt).contiguous()
     Ys = [y.to(cfg.xdt).contiguous() for y in Ys]
     n_local = cfg.n_cells if group is None else H0.shape[1]
@@ -868,6 +912,14 @@ def fit_scan(cfg: MUConfig, W0, H0, Bs0, X, Ys, hyper, draw_counts=None,
     if group is not None and (cfg.weighted or (cfg.use_als and cfg.minibatch)):
         raise ValueError("a fit over a process group runs neither gathered "
                          "weighted draws nor ALS minibatches")
+    if gene_group is not None and group is None:
+        raise ValueError("a fit over a grid needs its cells group and its "
+                         "genes group")
+    if gene_group is not None and cfg.minibatch:
+        raise NotImplementedError(
+            "minibatch fits on a ('genes', 'cells') grid are not ported yet "
+            "(ROADMAP §1 item 1D, part B); fit full batch, or on a 1-D cell "
+            "mesh")
     if cfg.weighted_counts and (draw_counts is None or not cfg.n_cov):
         raise ValueError("weighted_counts needs covariates and a draw_counts "
                          "callable (weighted sampling balances over them)")
@@ -883,23 +935,24 @@ def fit_scan(cfg: MUConfig, W0, H0, Bs0, X, Ys, hyper, draw_counts=None,
         H0 = torch.nn.functional.pad(H0, (0, X.shape[1] - H0.shape[1]))
     Bs0 = tuple(b.contiguous() for b in Bs0)
     with matmul_precision(cfg.precision):
-        if not (cfg.use_als or cfg.minibatch) and (
+        if not (cfg.use_als or cfg.minibatch) and gene_group is None and (
                 group is not None or cfg.backend == "fused"):
             W, H, Bs, losses = _fit_scan_fused(cfg, W0, H0, Bs0, X, Ys, hyper,
                                                draw_counts, progress, group)
         else:
             W, H, Bs, losses = _fit_scan_steps(
                 cfg, W0, H0, Bs0, X, Ys, hyper, draw_counts, draw_cells,
-                progress, group, n_local)
+                progress, group, n_local, gene_group)
     return W, H[:, :n_local], Bs, losses
 
 
 def fit_scan_sharded(cfg: MUConfig, mesh, W0, H0, Bs0, X, Ys, hyper,
                      progress=None):
-    """Full-batch MU (joint or ALS) over a 1-D cell mesh, one process a
-    device (the counterpart of ``alpine_tpu.ops.mu.fit_scan_sharded``):
-    ``fit_scan`` over the mesh's process group, which also runs the
-    sampled modes given their draws.
+    """Full-batch MU (joint or ALS) over a 1-D cell mesh or a ("genes",
+    "cells") grid, one process a device (the counterpart of
+    ``alpine_tpu.ops.mu.fit_scan_sharded``): ``fit_scan`` over the mesh's
+    process groups, which also runs the sampled modes given their draws.
+    On a grid X and W0 hold this process's gene rows too.
 
     ``cfg.n_cells`` is the global cell count; ``X`` (genes × n_local),
     ``H0`` (K × n_local) and ``Ys`` hold this process's cells, ``W0`` and
@@ -910,8 +963,9 @@ def fit_scan_sharded(cfg: MUConfig, mesh, W0, H0, Bs0, X, Ys, hyper,
     ``fit_scan``."""
     from alpine_tpu_torch.parallel.mesh import Placement
 
+    placement = Placement(mesh)
     return fit_scan(cfg, W0, H0, Bs0, X, Ys, hyper, progress=progress,
-                    group=Placement(mesh).group)
+                    group=placement.group, gene_group=placement.gene_group)
 
 
 # ---------------------------------------------------------------------------
@@ -919,12 +973,16 @@ def fit_scan_sharded(cfg: MUConfig, mesh, W0, H0, Bs0, X, Ys, hyper,
 # ---------------------------------------------------------------------------
 
 
-def transform_scan(W, X, H0, eps: float, *, n_iter: int) -> torch.Tensor:
+def transform_scan(W, X, H0, eps: float, *, n_iter: int,
+                   reduce=None) -> torch.Tensor:
     """Plain Frobenius MU projection onto a frozen W (reference
     main.py:705-709): H *= 2WᵀX / max(2(WᵀW)H, eps), with 2WᵀX and WᵀW
-    hoisted out of the loop."""
+    hoisted out of the loop (and, on a grid, summed over the gene blocks
+    by ``reduce``)."""
     num = 2.0 * (W.T @ X.float())
     WtW = W.T @ W
+    if reduce is not None:
+        num, WtW = reduce([num, WtW])
     H = H0
     for _ in range(n_iter):
         H = H * (num / _clamp(2.0 * (WtW @ H), eps))
@@ -932,7 +990,8 @@ def transform_scan(W, X, H0, eps: float, *, n_iter: int) -> torch.Tensor:
 
 
 def run_transform(W, X, H0, eps: float, *, n_iter: int,
-                  precision: str = "highest", fused: bool = True):
+                  precision: str = "highest", fused: bool = True,
+                  reduce=None):
     """Projection entry point: the fused kernel (all iterations on chip
     per cell tile) or the plain loop.  ``2WᵀX`` widens X to f32 without
     rounding W, as the JAX package's transform does.
@@ -940,14 +999,19 @@ def run_transform(W, X, H0, eps: float, *, n_iter: int,
     On a cell mesh each process passes its own columns of X and H0 and
     gets its own columns back: a column's projection reads only that
     column and the replicated W, so it needs no communication (the JAX
-    package's shard_map of the kernel)."""
+    package's shard_map of the kernel).  On a grid it passes its block of
+    X and W's rows of that block, and ``reduce`` sums 2WᵀX and 2WᵀW over
+    the gene blocks (one all-reduce) before the kernel runs on its
+    columns."""
     from alpine_tpu_torch.ops import kernels
 
     with matmul_precision(precision):
         if not fused:
-            return transform_scan(W, X, H0, eps, n_iter=n_iter)
+            return transform_scan(W, X, H0, eps, n_iter=n_iter, reduce=reduce)
         num2 = 2.0 * (W.T @ X.float())
         WtW2 = 2.0 * (W.T @ W)
+        if reduce is not None:
+            num2, WtW2 = reduce([num2, WtW2])
         return kernels.fused_transform(num2, H0.contiguous(), WtW2, eps,
                                        n_iter=n_iter)
 

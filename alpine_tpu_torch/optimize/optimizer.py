@@ -311,6 +311,13 @@ class ComponentOptimizer:
         self._exec_device = placement.device
         if not placement.is_sharded:
             return
+        if placement.is_grid:
+            # every port mesh spans processes: the JAX package's refusal of
+            # a multi-process 2-D mesh
+            raise NotImplementedError(
+                "multi-process searches support 1-D (cell-axis) meshes "
+                "only; use distributed.global_cell_mesh()."
+            )
         if placement.n_processes != dist.process_count():
             raise ValueError(
                 "a multi-process search mesh must span every process "

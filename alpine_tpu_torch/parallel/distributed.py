@@ -18,10 +18,19 @@ the same program on its own cells:
   process count and index, the card of this process and the backend
   ("nccl" for CUDA ranks, "gloo" for CPU ranks by default).
 - ``global_cell_mesh`` is the 1-D ``DeviceMesh`` named "cells" over every
-  rank, which ``ALPINE(device=...)`` takes.
+  rank, which ``ALPINE(device=...)`` takes; ``global_gene_cell_mesh(n_g,
+  n_c)`` is the 2-D ("genes", "cells") grid over every rank, on which the
+  process at (gi, ci) passes the cells of run ci with every gene
+  (``mesh_cell_range``) and computes on the gene rows of block gi:
+
+      mesh = dist.global_gene_cell_mesh(2, 2)   # 4 processes
+      lo, hi = dist.mesh_cell_range(mesh, n_obs)
+      model = ALPINE(..., device=mesh)
+      model.fit(adata[lo:hi], ["batch"])      # every gene of its cells
 - The host-side helpers (``process_allgather_rows``,
   ``chunk_cell_sizes``, ``assert_same_across_processes``,
-  ``allgather_group_layout``) check that the processes' inputs agree
+  ``assert_same_along_genes``, ``allgather_group_layout``,
+  ``allgather_gene_blocks``) check that the processes' inputs agree
   before a fit and build the tables a fit shares; they exchange small host
   rows over a gloo group, since NCCL moves only device tensors.
 - ``all_reduce_sum`` is the sharded fit's one collective on device
@@ -174,6 +183,47 @@ def global_cell_mesh():
                             mesh_dim_names=(CELL_AXIS,))
 
 
+def global_gene_cell_mesh(n_genes_axis: int, n_cells_axis: int):
+    """The 2-D ("genes", "cells") grid over every rank of the process
+    group (the counterpart of ``make_gene_cell_mesh``): rank r at
+    (r // n_cells_axis, r % n_cells_axis), the JAX package's row-major
+    layout, on this rank's device.  The grid must span every process: a
+    process outside it would wait forever in the fit's collectives."""
+    if not _initialized():
+        raise RuntimeError("call distributed.initialize() before "
+                           "global_gene_cell_mesh()")
+    for v in (n_genes_axis, n_cells_axis):
+        if not isinstance(v, (int, np.integer)) or v <= 0:
+            raise ValueError("the grid's axis sizes must be positive integers")
+    need, n = int(n_genes_axis) * int(n_cells_axis), process_count()
+    if n < need:
+        raise ValueError(f"need {need} devices, have {n}")
+    if n > need:
+        raise ValueError(
+            f"a {n_genes_axis} x {n_cells_axis} ('genes', 'cells') grid "
+            f"holds {need} processes, but the process group has {n}: the "
+            "grid must span every process")
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from alpine_tpu_torch.parallel.mesh import CELL_AXIS, GENE_AXIS
+
+    device_type = "cuda" if torch.cuda.is_available() else "cpu"
+    return init_device_mesh(device_type, (int(n_genes_axis), int(n_cells_axis)),
+                            mesh_dim_names=(GENE_AXIS, CELL_AXIS))
+
+
+def mesh_cell_range(mesh, n_cells: int) -> tuple:
+    """This process's cells ``(lo, hi)`` on ``mesh`` (a cell mesh or a
+    grid): the near-equal run of ``n_cells`` at its position along the
+    cell axis (``process_cell_range`` over the cell axis's processes).  On
+    a grid every process of a cell column passes these cells, with all
+    their genes."""
+    from alpine_tpu_torch.parallel.mesh import Placement
+
+    p = Placement(mesh)
+    return process_cell_range(n_cells, p.cell_shards, p.process_chunk_index)
+
+
 def process_cell_range(n_cells: int, n_processes: Optional[int] = None,
                        process_index_: Optional[int] = None) -> tuple:
     """This process's contiguous cell (obs-row) range ``(lo, hi)`` of a
@@ -248,55 +298,82 @@ def chunk_cell_sizes(placement, n_local: int) -> np.ndarray:
     """Allgather every process's local cell count, returned ordered by
     position along the mesh's cell axis (chunk index).  The sum is the
     global cell count and the prefix sums are the chunks' H0 column
-    offsets."""
+    offsets.  On a grid every process of a cell column holds the same
+    cells: the count is read once a column, and a column whose processes
+    hold different counts raises on every process."""
     # gather BEFORE validating: a process raising alone would leave its
     # peers blocked in this collective.  That includes
     # process_chunk_index itself, which raises for a process outside the
     # mesh: ship a -1 sentinel through the gather instead
     try:
-        chunk = int(placement.process_chunk_index)
+        chunk, gene = int(placement.process_chunk_index), int(placement.gene_index)
         chunk_err = ""
     except ValueError as exc:
-        chunk, chunk_err = -1, str(exc)
-    pairs = process_allgather_rows(np.asarray(
-        [chunk, int(n_local), process_index()], np.int64,
+        chunk, gene, chunk_err = -1, -1, str(exc)
+    rows = process_allgather_rows(np.asarray(
+        [chunk, int(n_local), process_index(), gene], np.int64,
     ))
-    if (pairs[:, 0] < 0).any():
-        bad = pairs[pairs[:, 0] < 0, 2].tolist()
+    if (rows[:, 0] < 0).any():
+        bad = rows[rows[:, 0] < 0, 2].tolist()
         raise ValueError(
             f"process(es) {bad} could not place their devices on the mesh "
             "cell axis"
             + (f": {chunk_err}" if chunk_err else
                " (see the failing process's log for the placement error).")
         )
-    if (pairs[:, 1] <= 0).any():
+    if (rows[:, 1] <= 0).any():
         raise ValueError(
             "every process of a multi-process fit must hold at least one "
-            f"cell (per-process (chunk, cells) pairs: {pairs.tolist()})"
+            f"cell (per-process (chunk, cells) pairs: {rows[:, :2].tolist()})"
         )
-    chunks = pairs[:, 0]
-    if sorted(chunks.tolist()) != list(range(placement.n_processes)):
+    n_chunks = placement.cell_shards
+    for g in range(placement.gene_shards):
+        chunks = rows[rows[:, 3] == g, 0]
+        if sorted(chunks.tolist()) != list(range(n_chunks)):
+            raise ValueError(
+                "multi-process mesh chunk indices are not a permutation of "
+                f"0..{n_chunks - 1} (got {chunks.tolist()}); every "
+                "process must own one contiguous run of the mesh cell axis "
+                "(use distributed.global_cell_mesh)."
+            )
+    sizes = np.zeros(n_chunks, dtype=np.int64)
+    sizes[rows[rows[:, 3] == 0, 0]] = rows[rows[:, 3] == 0, 1]
+    if (rows[:, 1] != sizes[rows[:, 0]]).any():
         raise ValueError(
-            "multi-process mesh chunk indices are not a permutation of "
-            f"0..{placement.n_processes - 1} (got {chunks.tolist()}); every "
-            "process must own one contiguous run of the mesh cell axis "
-            "(use distributed.global_cell_mesh)."
+            "the processes of a cell column must pass the same cells (every "
+            "gene of one run of cells); per-process (cell run, gene block, "
+            f"cells): {rows[:, [0, 3, 1]].tolist()}"
         )
-    if (pairs[:, 0] != pairs[:, 2]).any():
+    if (rows[:, 0] != rows[:, 2] % n_chunks).any():
         import warnings
 
         warnings.warn(
             "multi-process mesh chunk order differs from process order "
-            f"((chunk, process) pairs: {pairs[:, [0, 2]].tolist()}); if "
+            f"((chunk, process) pairs: {rows[:, [0, 2]].tolist()}); if "
             "per-process shards were ingested with process_cell_range "
             "(keyed by process index), pass its process_index_ argument "
             "as Placement.process_chunk_index so file rows land at their "
             "chunk positions.",
             stacklevel=2,
         )
-    sizes = np.zeros(placement.n_processes, dtype=np.int64)
-    sizes[chunks] = pairs[:, 1]
     return sizes
+
+
+def assert_same_along_genes(placement, values, what: str) -> None:
+    """On a grid, raise on every process unless the processes of each
+    cell column passed the same small host value (a digest of their
+    cells); nothing off a grid.  Collective on a grid."""
+    if not placement.is_grid:
+        return
+    arr = np.asarray(values, dtype=np.float64).reshape(-1)
+    rows = process_allgather_rows(np.concatenate(
+        [[float(placement.process_chunk_index)], arr]))
+    bad = sorted({int(r[0]) for r in rows
+                  if not np.array_equal(r[1:], rows[rows[:, 0] == r[0]][0, 1:])})
+    if bad:
+        raise ValueError(
+            f"{what} differs within cell column(s) {bad}: the processes of a "
+            "cell column must pass the same cells, with every gene.")
 
 
 def allgather_group_layout(placement, local_codes: np.ndarray):
@@ -307,7 +384,8 @@ def allgather_group_layout(placement, local_codes: np.ndarray):
         g_codes (J,) int64: the codes present anywhere, sorted (the
                 single-process group order), and
         m_gp (n_chunks, J) int64: each chunk's cell count of each group,
-                chunks in mesh order.
+                chunks in mesh order (the cell axis's; on a grid, a
+                cell column's).
 
     From these a process derives the global group sizes, its own offsets
     within each group and the global group-sorted position of each of its
@@ -318,21 +396,41 @@ def allgather_group_layout(placement, local_codes: np.ndarray):
                              return_counts=True)
     j_max = int(process_allgather_rows(
         np.asarray([len(uniq)], np.int64)).max())
-    row = np.full(1 + 2 * j_max, -1.0, np.float64)
+    row = np.full(2 + 2 * j_max, -1.0, np.float64)
     row[0] = float(placement.process_chunk_index)
-    row[1:1 + len(uniq)] = uniq
-    row[1 + j_max:1 + j_max + len(counts)] = counts
+    row[1] = float(placement.gene_index)
+    row[2:2 + len(uniq)] = uniq
+    row[2 + j_max:2 + j_max + len(counts)] = counts
+    # on a grid the processes of a cell column hold the same cells: the
+    # column's row is read once, from gene block 0
     rows = process_allgather_rows(row)
-    codes_all = rows[:, 1:1 + j_max]
+    rows = rows[rows[:, 1] == 0]
+    codes_all = rows[:, 2:2 + j_max]
     g_codes = np.unique(codes_all[codes_all >= 0].astype(np.int64))
-    m_gp = np.zeros((placement.n_processes, len(g_codes)), np.int64)
+    m_gp = np.zeros((placement.cell_shards, len(g_codes)), np.int64)
     for r in rows:
-        codes = r[1:1 + j_max]
-        cnts = r[1 + j_max:1 + 2 * j_max]
+        codes = r[2:2 + j_max]
+        cnts = r[2 + j_max:2 + 2 * j_max]
         mask = codes >= 0
         m_gp[int(r[0]), np.searchsorted(g_codes, codes[mask].astype(np.int64))] \
             = cnts[mask].astype(np.int64)
     return g_codes, m_gp
+
+
+def allgather_gene_blocks(placement, block: np.ndarray) -> np.ndarray:
+    """On a grid, the whole matrix of which each process holds a block of
+    rows (its gene block of W): the blocks of this process's cell column,
+    in gene order; off a grid, ``block`` itself.  Collective on a grid
+    (one host allgather over every process)."""
+    if not placement.is_grid:
+        return block
+    block = np.asarray(block)
+    rows = process_allgather_rows(np.concatenate(
+        [[float(placement.process_chunk_index), float(placement.gene_index)],
+         block.reshape(-1).astype(np.float64)]))
+    mine = rows[rows[:, 0] == placement.process_chunk_index]
+    mine = mine[np.argsort(mine[:, 1])]
+    return np.concatenate([r[2:].reshape(block.shape) for r in mine]).astype(block.dtype)
 
 
 def assert_same_across_processes(values, what: str) -> None:

@@ -34,14 +34,16 @@ Phases, each printing one JSON line:
           float32 copy of X beside it;
           fused_iteration's counts mode (weighted_fast) with counts from the
           port's own balanced sampler, undrawn columns checked bit for bit;
-          fused_transform at K = 40 (the register path) and K = 100, 300 and
+          fused_transform at K = 40 (the register path; also at a 2 x 2
+          grid's 50,000 cells) and K = 100, 300 and
           512 (the tiled path), each row naming its path and grid; ALS's X
           passes hxt (P1,
           K = 40) and wtx (P2, k = 5 and 30) on int8, float32 and int16 X
           (counts above 127) at the bench shape, timed beside a bf16
           (float32) torch.matmul over a pre-cast copy of X (one call, and 20
           back to back, which hides the host's time per call), and at the
-          minibatch steps' shape (8,192 cells, K = 40, int8) and wtx at a
+          minibatch steps' shape (8,192 cells, K = 40, int8), at a 2 x 2
+          grid's block (1,000 genes x 50,000 cells, K = 40, int8) and wtx at a
           minibatch epoch's loss shape (all cells, K = 40, int8), each row with
           the grid it ran (hxt: gene block, splits, ring stages, partial
           bytes; wtx: tile, warp rows or lanes along K, gene chunk, ring
@@ -128,6 +130,28 @@ Phases, each printing one JSON line:
           (seconds, device ms an iteration or epoch, all-reduce calls,
           bytes and ms); then K4 alone at 50,000 cells and at 50,001
           (rows off 16-byte alignment) beside its twin 50,016;
+  slice_gene_cell  the slice's model (int8 named) over ("genes", "cells")
+          grids of processes (distributed.global_gene_cell_mesh), 10
+          iterations a fit: a 1 x 1 grid on one NCCL process (this one)
+          fits joint, ALS and weighted_fast, each bit for bit the step
+          loop (mu._fit_scan_steps) called directly on its inputs on one
+          device, P1/P2 only (no K1/K4), the joint fit's losses beside the
+          slice's K1 fit, and a transform (one K3); then 4 gloo ranks
+          spawned on the card as a 2 x 2 grid (1,000 genes x 50,000 cells
+          a rank: the cells of its column, every gene, memory-mapped from
+          one file) run the three modes and a transform, and 2 ranks as a
+          2 x 1 grid (1,000 x 100,000 a rank) the joint fit; each rank
+          prints a slice_gene_cell_rank line a mode (coordinates, genes,
+          cells, device ms an iteration, launches, all-reduce calls, bytes
+          and ms an iteration over each axis, whether its W, H and Bs are
+          bit-equal to its replicas', its loss gap to world 1); checked:
+          launches, one genes all-reduce of K x (local cells + K) values
+          an iteration (ALS n_blocks + 1), replicas, losses rtol 5e-4 and
+          H relative Frobenius 5e-3 against world 1, transforms at rtol
+          1e-6 against one device's K3 on the same gene-block sums of 2WᵀX
+          and 2WᵀW (their bits reported) and within 1e-4 (relative
+          Frobenius) of the unsplit projection.  Ranks
+          share the card: no time here is a multi-GPU speed;
   slice_unguided  an unguided fit (no covariates) for fused_h_update's
           path;
   slice_weighted_fast  the same fit with sampling_method="weighted_fast",
@@ -208,7 +232,9 @@ on their fp32 path, with the launches of the float32/int16 joint,
 weighted_fast and unguided loops; K1, K3 (a row per path), K4, hxt and
 wtx at the optimizer's fold shapes with the launches of slice_optimize and
 slice_optimize_paths; K1 and K3 again with world 2's launches of
-slice_optimize_sharded, at the same folds) and, last, the result line
+slice_optimize_sharded, at the same folds; hxt, wtx and fused_transform
+at a 2 x 2 grid's block, 1,000 genes x 50,000 cells, with the four ranks'
+launches of slice_gene_cell) and, last, the result line
 {"ok": true, "device": {...}}.  slice_persist's line says in "h5ad_run"
 whether its .h5ad round trip ran.
 Any failed check raises: the script exits non-zero and prints no result.
@@ -275,7 +301,10 @@ COLUMNS_NAME = re.compile(r"transform_columnsILi(\d+)E")
 TILES_NAME = re.compile(r"transform_tilesILi(\d+)ELi(\d+)E")
 
 def emit(obj):
-    print(json.dumps(obj), flush=True)
+    """One JSON line, written in one call, so that the lines of ranks
+    printing at once do not run together."""
+    sys.stdout.flush()
+    os.write(sys.stdout.fileno(), (json.dumps(obj) + "\n").encode())
 
 
 def check(cond, msg):
@@ -1556,6 +1585,383 @@ def run_sharded_modes_phase(torch, kernels, mu, ALPINE, AnnData, counts, obs):
           "seconds": time.perf_counter() - phase_t0})
 
 
+# the fits of slice_gene_cell: (mode, model keywords, fit keywords), each
+# GRID_ITERS iterations, and the grids that run them over spawned gloo ranks
+GRID_ITERS = 10
+GRID_MODES = (("joint", {}, {}), ("als", {"use_als": True}, {}),
+              ("weighted_fast", {}, {"sampling_method": "weighted_fast"}))
+GRID_WORLDS = (((2, 2), ("joint", "als", "weighted_fast")), ((2, 1), ("joint",)))
+GRID_RANK_TIMEOUT = 300.0
+
+
+def _grid_blocks(adata):
+    return np.concatenate([adata.obsm[k] for k in SHARDED_KEYS]
+                          + [adata.obsm["ALPINE_embedding"]], axis=1)
+
+
+def grid_fit(torch, kernels, mu, dist, ALPINE, adata, device, name):
+    """One GRID_ITERS-iteration fit of the slice's model (int8 named) in
+    mode ``name`` on a ("genes", "cells") grid under the profiler, its
+    kernel launches and each axis's all-reduces counted from zero; a joint
+    fit's cached transform after it.  Returns (row, outputs, the inputs
+    and outputs of the fit's one mu.fit_scan call)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    model_kw, fit_kw = {m: (mk, fk) for m, mk, fk in GRID_MODES}[name]
+    seen = {}
+    real_fit = mu.fit_scan
+
+    def fit_scan(*args, **kw):
+        seen["args"], seen["draw"] = args, kw.get("draw_counts")
+        seen["out"] = real_fit(*args, **kw)
+        return seen["out"]
+
+    model = ALPINE(device=device, **MODES_PARAMS, **model_kw)
+    kernels.reset_launches()
+    dist.reset_collectives(timed=True)
+    mu.fit_scan = fit_scan
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            model.fit(adata, SHARDED_KEYS, max_iter=GRID_ITERS, **fit_kw)
+            torch.cuda.synchronize()
+            fit_s = time.perf_counter() - t0
+    finally:
+        mu.fit_scan = real_fit
+    device_ms, top = _kernel_device_ms(prof, DeviceType)
+    coll = dist.collective_summary()
+
+    def axis(tag):
+        c = coll.get(tag, {})
+        return {"calls": c.get("calls", 0) / GRID_ITERS,
+                "bytes": c.get("bytes", 0) / GRID_ITERS,
+                "ms": c.get("ms", 0.0) / GRID_ITERS}
+
+    row = {"mode": name, "iterations": GRID_ITERS, "fit_seconds_profiled": fit_s,
+           "timings": model.timings_, "device_ms_per_iteration": device_ms / GRID_ITERS,
+           "top_kernels_device_ms_per_iteration": [[k, ms / GRID_ITERS] for k, ms in top],
+           "launches": {k: kernels.launches[k] for k in
+                        ("fused_iteration", "fused_iteration_counts", "hxt", "wtx")},
+           "allreduce_per_iteration": {"cells": axis("iteration"),
+                                       "genes": axis("genes iteration")},
+           "allreduce_before_loop": {"cells": coll.get("setup"),
+                                     "genes": coll.get("genes setup")}}
+    out = {"loss": model.loss_history_,
+           "W": np.concatenate(model.matrices["Ws"], axis=1),
+           "H": np.concatenate(model.matrices["Hs"], axis=0),
+           **{f"B{i}": b for i, b in enumerate(model.matrices["Bs"])}}
+    if name == "joint":
+        kernels.reset_launches()
+        dist.reset_collectives(timed=True)
+        model.transform(adata)  # through the fit's device X (its block)
+        torch.cuda.synchronize()
+        row["transform_launches"] = {k: kernels.launches[k]
+                                     for k in ("fused_transform", "hxt", "wtx")}
+        row["transform_allreduce"] = dist.collective_summary().get("genes transform")
+        out["T"] = _grid_blocks(adata)
+    model.free_device_cache()
+    del model
+    torch.cuda.empty_cache()
+    return row, out, seen
+
+
+def _digest(a):
+    """A 48-bit digest of an array's bytes (exact as a float64)."""
+    import hashlib
+
+    return float(int.from_bytes(hashlib.sha256(
+        np.ascontiguousarray(a).tobytes()).digest()[:6], "big"))
+
+
+def grid_transform_check(torch, kernels, mu, W_np, X_card, grid, T):
+    """A grid's transform ``T`` (cells x K) against one device's with the
+    same W (rank 0's) and global H0 draw.  The grid sums 2WᵀX and 2WᵀW
+    gene block by gene block, which the MU steps amplify by WᵀW's
+    conditioning (2e-5 relative seen on large entries at 2 x 2): so T is
+    held against K3 on the same block sums, formed here a cell run at a
+    time as each rank forms them (gloo adds two blocks as a + b), at rtol
+    1e-6 with atol 1e-7 max|T| (and its bits reported), and within 1e-4
+    relative Frobenius of the unsplit projection."""
+    from alpine_tpu_torch.models.alpine import draw_transform_h0
+    from alpine_tpu_torch.parallel.distributed import process_cell_range
+
+    n_g, n_c = grid
+    g, n = X_card.shape
+    eps = float(np.float32(EPS))
+    W = torch.from_numpy(W_np).cuda()
+    H0 = draw_transform_h0(W.shape[1], n, 42, EPS, X_card.device)
+    T_ref = mu.run_transform(W, X_card, H0, eps, n_iter=GRID_ITERS).cpu().numpy().T
+    blocks = []
+    with mu.matmul_precision("highest"):
+        for ci in range(n_c):
+            lo, hi = process_cell_range(n, n_c, ci)
+            num2 = WtW2 = 0.0
+            for gi in range(n_g):
+                a, b = gi * g // n_g, (gi + 1) * g // n_g
+                Xb = X_card[a:b, lo:hi].contiguous()
+                num2 = num2 + 2.0 * (W[a:b].T @ Xb.float())
+                WtW2 = WtW2 + 2.0 * (W[a:b].T @ W[a:b])
+            blocks.append(kernels.fused_transform(
+                num2, H0[:, lo:hi].contiguous(), WtW2, eps,
+                n_iter=GRID_ITERS).cpu().numpy().T)
+    T_sums = np.concatenate(blocks)
+    _, worst = compare(torch.from_numpy(T), torch.from_numpy(T_sums), 1e-6, 1e-7)
+    return {"transform_bits_equal_block_sums": bool(np.array_equal(T, T_sums)),
+            "transform_worst_over_tolerance_block_sums": worst,
+            "transform_max_rel_err_unsplit": float(np.max(
+                np.abs(T - T_ref) / np.maximum(np.abs(T_ref), 1e-30))),
+            "transform_rel_frobenius_err": float(np.linalg.norm(T - T_ref)
+                                                 / np.linalg.norm(T_ref))}
+
+
+def gene_cell_rank(here, workdir, grid, modes, rank, port, n_cells):
+    """One gloo rank of slice_gene_cell (a spawned process) at its place
+    on a ``grid``: the cells of its column with every gene, memory-mapped
+    from the parent's file; each mode's fit (and the joint fit's
+    transform), a line a mode with whether its W, H and Bs are bit-equal
+    to its replicas' (digests gathered from every rank) and its loss gap to
+    world 1's fit; its results saved."""
+    sys.path.insert(0, here)
+    import torch
+
+    from alpine_tpu_torch import ALPINE, AnnData
+    from alpine_tpu_torch.ops import kernels, mu
+    from alpine_tpu_torch.parallel import distributed as dist
+    from alpine_tpu_torch.parallel.mesh import Placement
+
+    world = grid[0] * grid[1]
+    dist.initialize(f"localhost:{port}", num_processes=world, process_id=rank,
+                    local_device_ids=0, backend="gloo", timeout=RANK_PG_TIMEOUT)
+    try:
+        mesh = dist.global_gene_cell_mesh(*grid)
+        place = Placement(mesh)
+        lo, hi = dist.mesh_cell_range(mesh, n_cells)
+        counts = np.load(os.path.join(workdir, "counts.npy"), mmap_mode="r")
+        g0, g1 = place.gene_range(counts.shape[1])
+        labels = np.load(os.path.join(workdir, "obs.npz"), allow_pickle=True)
+        adata = AnnData(np.asarray(counts[lo:hi], dtype=np.float32),
+                        obs={k: labels[k][lo:hi] for k in SHARDED_KEYS})
+        tag = f"{grid[0]}x{grid[1]}"
+        rows, outs = [], {}
+        for name in modes:
+            t0 = time.perf_counter()
+            row, out, _ = grid_fit(torch, kernels, mu, dist, ALPINE, adata, mesh, name)
+            B = np.concatenate([out[k].ravel() for k in sorted(out) if k.startswith("B")])
+            d = dist.process_allgather_rows(np.asarray(
+                [place.process_chunk_index, _digest(out["W"]), _digest(out["H"]),
+                 _digest(B), _digest(out["loss"])]))
+            mine = d[dist.process_index()]
+            column = d[d[:, 0] == mine[0]]
+            ref = np.load(os.path.join(workdir, f"world1_{name}.npz"))
+            row = {"phase": "slice_gene_cell_rank", "grid": list(grid), "rank": rank,
+                   "coordinates": [place.gene_index, place.process_chunk_index],
+                   "backend": torch.distributed.get_backend(), "genes": g1 - g0,
+                   "first_gene": g0, "cells": hi - lo, "first_cell": lo,
+                   "mode_seconds": time.perf_counter() - t0, **row,
+                   # W gathered whole on every rank: equal everywhere exactly
+                   # where each gene row's ranks hold bit-equal rows
+                   "replicas_bit_equal": {"W": bool((d[:, 1] == mine[1]).all()),
+                                          "H": bool((column[:, 2] == mine[2]).all()),
+                                          "Bs": bool((d[:, 3] == mine[3]).all()),
+                                          "loss": bool((d[:, 4] == mine[4]).all())},
+                   "loss_max_rel_gap_to_world_1": float(np.max(np.abs(
+                       out["loss"] / ref["loss"] - 1)))}
+            emit(row)
+            rows.append(row)
+            outs.update({f"{name}_{k}": v for k, v in out.items()})
+        np.savez(os.path.join(workdir, f"grid{tag}_rank{rank}.npz"), **outs)
+        with open(os.path.join(workdir, f"grid{tag}_rank{rank}.json"), "w") as f:
+            json.dump(rows, f)
+    finally:
+        dist.shutdown()
+
+
+def run_gene_cell_phase(torch, kernels, mu, ALPINE, AnnData, counts, obs, slice_loss):
+    """slice_gene_cell: the slice's model over ("genes", "cells") grids of
+    processes.  World 1 (NCCL, this process, a 1 x 1 grid) fits joint, ALS
+    and weighted_fast (GRID_ITERS each), each bit for bit the step loop
+    ``mu._fit_scan_steps`` called directly on its inputs on one device,
+    and transforms; then a 2 x 2 grid (4 gloo ranks sharing the card, 1,000
+    genes x 50,000 cells a rank) runs the three modes and the transform,
+    and a 2 x 1 grid (genes only, 1,000 x 100,000 a rank) the joint fit.
+    Returns the 2 x 2 grid's launches of P1, P2 (at K = 40: joint and
+    weighted_fast) and K3, its four ranks together."""
+    import multiprocessing
+    import tempfile
+
+    from alpine_tpu_torch.parallel import distributed as dist
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    phase_t0 = time.perf_counter()
+    n, g = counts.shape
+    K = sum(BLOCKS)
+    want = {"joint": {"fused_iteration": 0, "fused_iteration_counts": 0,
+                      "hxt": GRID_ITERS, "wtx": GRID_ITERS},
+            "als": {"fused_iteration": 0, "fused_iteration_counts": 0,
+                    "hxt": GRID_ITERS, "wtx": len(BLOCKS) * GRID_ITERS},
+            "weighted_fast": {"fused_iteration": 0, "fused_iteration_counts": 0,
+                              "hxt": GRID_ITERS, "wtx": GRID_ITERS}}
+
+    def check_row(label, row, n_loc):
+        name = row["mode"]
+        check(row["launches"] == want[name],
+              f"{label} {name}: launches {row['launches']}, expected {want[name]}")
+        ar = row["allreduce_per_iteration"]
+        calls = (len(BLOCKS) + 1,) * 2 if name == "als" else (2, 1)
+        check((ar["cells"]["calls"], ar["genes"]["calls"]) == calls,
+              f"{label} {name}: all-reduces an iteration over cells and genes "
+              f"{ar['cells']['calls']}, {ar['genes']['calls']}, expected {calls}")
+        if name != "als":
+            # WᵀX and WᵀW of the rank's cells: K x (local cells + K) values
+            check(ar["genes"]["bytes"] == 4 * K * (n_loc + K),
+                  f"{label} {name}: {ar['genes']['bytes']} bytes over genes an "
+                  f"iteration, expected {4 * K * (n_loc + K)}")
+        if name == "joint":
+            check(row["transform_launches"] == {"fused_transform": 1, "hxt": 0, "wtx": 0}
+                  and row["transform_allreduce"]["calls"] == 1,
+                  f"{label}: the transform must launch K3 once after one genes all-reduce")
+
+    worlds = []
+    with tempfile.TemporaryDirectory() as workdir:
+        # world 1: NCCL in this process, a 1 x 1 grid
+        t0 = time.perf_counter()
+        dist.initialize(f"localhost:{_free_port()}", num_processes=1, process_id=0,
+                        backend="nccl", timeout=RANK_PG_TIMEOUT)
+        adata = AnnData(counts, obs=obs)
+        w1 = {"grid": [1, 1], "modes": {}}
+        try:
+            w1["backend"] = torch.distributed.get_backend()
+            mesh = dist.global_gene_cell_mesh(1, 1)
+            for name, _, _ in GRID_MODES:
+                row, out, seen = grid_fit(torch, kernels, mu, dist, ALPINE, adata, mesh, name)
+                # the step loop called directly on the fit's inputs, one device
+                cfg, W0, H0, Bs0, X, Ys, hyper = seen["args"]
+                W, H, Bs, L = mu._fit_scan_steps(
+                    cfg, W0.contiguous(), H0.contiguous(), tuple(b.contiguous() for b in Bs0),
+                    X.to(cfg.xdt).contiguous(), [y.to(cfg.xdt).contiguous() for y in Ys],
+                    hyper, seen["draw"], None, None)
+                fW, fH, fBs, fL = seen["out"]
+                bits = {"W": torch.equal(W, fW), "H": torch.equal(H, fH),
+                        "Bs": all(torch.equal(a, b) for a, b in zip(Bs, fBs)),
+                        "loss": torch.equal(L, fL)}
+                del W, H, Bs, L, seen
+                row["bits_equal_step_loop"] = bits
+                if name == "joint":
+                    row["loss_max_rel_gap_to_slice_k1"] = float(np.max(np.abs(
+                        out["loss"] / slice_loss[:GRID_ITERS] - 1)))
+                emit({"phase": "slice_gene_cell_rank", "grid": [1, 1], "rank": 0,
+                      "coordinates": [0, 0], "backend": w1["backend"], "genes": g,
+                      "cells": n, **row})
+                check_row("world 1", row, n)
+                check(all(bits.values()), f"world 1 {name} must be the step loop bit for "
+                                          f"bit: {bits}")
+                check(np.isfinite(out["loss"]).all() and out["loss"][-1, 0] < out["loss"][0, 0],
+                      f"world 1 {name}: losses finite and falling")
+                np.savez(os.path.join(workdir, f"world1_{name}.npz"), **out)
+                w1["modes"][name] = {k: row[k] for k in (
+                    "device_ms_per_iteration", "allreduce_per_iteration",
+                    "bits_equal_step_loop")}
+                if name == "joint":
+                    w1["loss_max_rel_gap_to_slice_k1"] = row["loss_max_rel_gap_to_slice_k1"]
+        finally:
+            dist.shutdown()
+        del adata
+        torch.cuda.empty_cache()
+        w1["seconds"] = time.perf_counter() - t0
+        worlds.append(w1)
+
+        # the grids: gloo ranks spawned on the one card (NCCL refuses two
+        # ranks on one GPU), each memory-mapping its cells from one file
+        np.save(os.path.join(workdir, "counts.npy"), counts.astype(np.int8))
+        np.savez(os.path.join(workdir, "obs.npz"), **obs)
+        ctx = multiprocessing.get_context("spawn")
+        X_card = torch.from_numpy(np.ascontiguousarray(counts.T.astype(np.int8))).cuda()
+        launches = {}
+        for grid, modes in GRID_WORLDS:
+            t0 = time.perf_counter()
+            world, tag = grid[0] * grid[1], f"{grid[0]}x{grid[1]}"
+            port = _free_port()
+            procs = [ctx.Process(target=gene_cell_rank,
+                                 args=(here, workdir, grid, modes, r, port, n))
+                     for r in range(world)]
+            for p in procs:
+                p.start()
+            deadline = time.monotonic() + GRID_RANK_TIMEOUT
+            for p in procs:
+                p.join(max(1.0, deadline - time.monotonic()))
+            alive = [p for p in procs if p.is_alive()]
+            for p in alive:
+                p.terminate()
+                p.join(10)
+            codes = [p.exitcode for p in procs]
+            check(not alive and codes == [0] * world,
+                  f"grid {tag}: ranks ended with {codes}"
+                  + (" (stopped at the time limit)" if alive else ""))
+            outs = [dict(np.load(os.path.join(workdir, f"grid{tag}_rank{r}.npz")))
+                    for r in range(world)]
+            rows = []
+            for r in range(world):
+                with open(os.path.join(workdir, f"grid{tag}_rank{r}.json")) as f:
+                    rows.append(json.load(f))
+            summary = {"grid": list(grid), "backend": rows[0][0]["backend"],
+                       "genes": [rr[0]["genes"] for rr in rows],
+                       "cells": [rr[0]["cells"] for rr in rows], "modes": {}}
+            for i, name in enumerate(modes):
+                mrows = [rr[i] for rr in rows]
+                for row in mrows:
+                    check_row(f"grid {tag} rank {row['rank']}", row, row["cells"])
+                    check(all(row["replicas_bit_equal"].values()),
+                          f"grid {tag} rank {row['rank']} {name}: replicas "
+                          f"{row['replicas_bit_equal']}")
+                ref = np.load(os.path.join(workdir, f"world1_{name}.npz"))
+                L = outs[0][f"{name}_loss"]
+                gap = max(r["loss_max_rel_gap_to_world_1"] for r in mrows)
+                # H of every cell: the ranks of gene block 0, in column order
+                H = np.concatenate([outs[r][f"{name}_H"] for r in range(world)
+                                    if mrows[r]["coordinates"][0] == 0], axis=1)
+                h_err = float(np.linalg.norm(H - ref["H"]) / np.linalg.norm(ref["H"]))
+                m = {"device_ms_per_iteration": [r["device_ms_per_iteration"] for r in mrows],
+                     "allreduce_per_iteration": [r["allreduce_per_iteration"] for r in mrows],
+                     "fit_seconds": [r["timings"]["fit"] for r in mrows],
+                     "loss_max_rel_gap_to_world_1": gap, "H_rel_frobenius_err": h_err}
+                check(np.isfinite(L).all() and L[-1, 0] < L[0, 0],
+                      f"grid {tag} {name}: losses finite and falling")
+                check(gap <= 5e-4, f"grid {tag} {name}: losses {gap} from world 1's")
+                check(h_err <= 5e-3, f"grid {tag} {name}: H {h_err} from world 1's")
+                if name == "joint":
+                    T = np.concatenate([outs[r]["joint_T"] for r in range(world)
+                                        if mrows[r]["coordinates"][0] == 0])
+                    m.update(grid_transform_check(torch, kernels, mu, outs[0]["joint_W"],
+                                                  X_card, grid, T))
+                    check(m["transform_worst_over_tolerance_block_sums"] <= 1.0
+                          and m["transform_rel_frobenius_err"] <= 1e-4,
+                          f"grid {tag}: transform against one device's: {m}")
+                summary["modes"][name] = m
+                if grid == (2, 2):
+                    for k in ("hxt", "wtx"):
+                        if k == "hxt" or name != "als":
+                            launches[k] = launches.get(k, 0) + sum(
+                                r["launches"][k] for r in mrows)
+                    if name == "joint":
+                        launches["fused_transform"] = sum(
+                            r["transform_launches"]["fused_transform"] for r in mrows)
+            summary["seconds"] = time.perf_counter() - t0
+            worlds.append(summary)
+        del X_card
+    torch.cuda.empty_cache()
+    emit({"phase": "slice_gene_cell", "cells": n, "genes": g, "iterations": GRID_ITERS,
+          "worlds": worlds, "launches_2x2": launches,
+          "tolerance": "world 1 bit for bit the step loop on one device; grids: W, "
+                       "Bs and losses bit-equal on every rank, H within each cell "
+                       "column, losses rtol 5e-4 and H relative Frobenius 5e-3 "
+                       "against world 1, transform rtol 1e-6 (atol 1e-7*max|T|) "
+                       "against one device's K3 on the same gene-block sums and "
+                       "relative Frobenius 1e-4 against the unsplit projection",
+          "seconds": time.perf_counter() - phase_t0})
+    return launches
+
+
 def run_persist_phase(torch, kernels, ALPINE, AnnData, model, adata, counts, obs):
     """slice_persist: the slice's fitted model saved, loaded onto the card
     and its uncached transform (K3) held against the fitted model's own; the
@@ -2816,6 +3222,8 @@ def main():
 
     results["fused_transform"] = run_transform_case(sum(BLOCKS))
     results["fused_transform tiled"] = run_transform_case(100)
+    # a 2 x 2 ("genes", "cells") grid's rank: its 50,000 cells (slice_gene_cell)
+    results["fused_transform gene_cell"] = run_transform_case(sum(BLOCKS), N // 2)
     for K in (300, 512):
         run_transform_case(K)
     torch.cuda.empty_cache()
@@ -2843,7 +3251,14 @@ def main():
     Xt = slab(X)
     results["hxt tiled"] = run_x_pass_case("hxt", Xt, slab(H), True, " tiled slab")
     results["wtx tiled"] = run_x_pass_case("wtx", Xt, W, True, " tiled slab")
-    del X, W, H, Xb, Xt  # the int8 X goes before the float32 one is made
+    # a 2 x 2 ("genes", "cells") grid's block: 1,000 genes x 50,000 cells
+    # (slice_gene_cell), a contiguous row range of the rank's X
+    Xg = X[:G // 2, :N // 2].contiguous()
+    results["hxt gene_cell"] = run_x_pass_case("hxt", Xg, H[:, :N // 2].contiguous(), True,
+                                               " grid block")
+    results["wtx gene_cell"] = run_x_pass_case("wtx", Xg, W[:G // 2].contiguous(), True,
+                                               " grid block")
+    del X, W, H, Xb, Xt, Xg  # the int8 X goes before the float32 one is made
     torch.cuda.empty_cache()
     # P1/P2 away from the bench shape: X rows off 16-byte alignment beside
     # their aligned twins, small n; K1/K4 at the optimizer's fold widths
@@ -3086,6 +3501,8 @@ def main():
     run_sharded_phase(torch, kernels, mu, ALPINE, AnnData, counts, obs, slice_ref)
     del slice_ref
     run_sharded_modes_phase(torch, kernels, mu, ALPINE, AnnData, counts, obs)
+    grid_launches = run_gene_cell_phase(torch, kernels, mu, ALPINE, AnnData, counts, obs,
+                                        slice_losses)
 
     run_persist_phase(torch, kernels, ALPINE, AnnData, model, adata, counts, obs)
 
@@ -3298,7 +3715,13 @@ def main():
                 # folds (and points) of slice_optimize
                 "fused_iteration optimizer sharded": sharded_opt_launches["fused_iteration"],
                 **{f"fused_transform optimizer sharded {p}": n
-                   for p, n in sharded_opt_k3.items()}}
+                   for p, n in sharded_opt_k3.items()},
+                # the 2 x 2 grid's four ranks together, at a rank's block:
+                # P1 in every fit, P2 at K = 40 (joint and weighted_fast),
+                # K3 in the transform
+                "hxt gene_cell": grid_launches["hxt"],
+                "wtx gene_cell": grid_launches["wtx"],
+                "fused_transform gene_cell": grid_launches["fused_transform"]}
     for p in sharded_opt_k3:
         results[f"fused_transform optimizer sharded {p}"] = \
             results[f"fused_transform optimizer {p}"]
@@ -3318,7 +3741,8 @@ def main():
                   "fused_iteration_counts optimizer", "hxt optimizer", "wtx optimizer",
                   "fused_iteration optimizer sharded",
                   *(k for k in launches
-                    if k.startswith("fused_transform optimizer sharded "))):
+                    if k.startswith("fused_transform optimizer sharded ")),
+                  "hxt gene_cell", "wtx gene_cell", "fused_transform gene_cell"):
         res = results[kname]
         base = kname.split()[0].replace("_fma", "")
         rows.append({"name": kname, "route": "cuda", "source": SOURCES[base],

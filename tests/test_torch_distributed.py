@@ -609,9 +609,13 @@ def test_mesh_refusals_and_descriptors(world_of_one, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="needs an NVIDIA GPU"):
         tmesh.restore_device(("__mesh__", ("cells",), (2,), "cpu"))
-    with pytest.raises(NotImplementedError, match="item 1D"):
-        tmesh.resolve_device(init_device_mesh("cpu", (1, 1),
-                                              mesh_dim_names=("genes", "cells")))
+    # the ("genes", "cells") grid is accepted (tests/test_torch_gene_cell_mesh.py
+    # fits on it), its descriptor round-trips
+    grid = init_device_mesh("cpu", (1, 1), mesh_dim_names=("genes", "cells"))
+    assert tmesh.resolve_device(grid) is grid
+    desc = tmesh.describe_device(grid)
+    assert desc == ("__mesh__", ("genes", "cells"), (1, 1), "cpu")
+    assert tmesh.restore_device(desc).mesh_dim_names == ("genes", "cells")
     with pytest.raises(ValueError, match="ALPINE expects a 1-D mesh"):
         tmesh.resolve_device(init_device_mesh("cpu", (1, 1), mesh_dim_names=("a", "b")))
     assert tmesh.describe_device(torch.device("cpu")) == torch.device("cpu")

@@ -1,8 +1,8 @@
 """The port stands alone: alpine_tpu_torch, chip_smoke.py, the port's
-scripts (scripts/torch_*.py) and the multi-process test worker import
+scripts (scripts/torch_*.py) and the multi-process test workers import
 nothing of JAX or of the JAX package, the fit/transform path (minibatch,
-weighted, tiled, bucketed, restarted, checkpointed and cell-mesh fits
-included), save → load → transform → export and a
+weighted, tiled, bucketed, restarted, checkpointed, cell-mesh and grid
+fits included), save → load → transform → export and a
 ComponentOptimizer search (both fold routes, its kNN, Leiden and folds)
 need neither pandas nor scikit-learn, and the estimator never falls back
 to the CPU silently."""
@@ -92,6 +92,11 @@ sm = ALPINE(n_components=4, n_covariate_components=[2], lam=[1.0],
 sm.fit(ad, ["batch"], max_iter=3)
 sm.transform(ad)
 assert np.isfinite(sm.loss_history_).all() and sm.timings_["fit"] > 0
+gm = ALPINE(n_components=4, n_covariate_components=[2], lam=[1.0],
+            device=dist.global_gene_cell_mesh(1, 1))
+gm.fit(ad, ["batch"], max_iter=3)
+gm.transform(ad)
+assert np.isfinite(gm.loss_history_).all()
 dist.shutdown()
 print("ok")
 """
@@ -111,13 +116,15 @@ _FORBIDDEN = re.compile(
 
 def test_sources_import_no_jax():
     files = sorted((REPO / "alpine_tpu_torch").rglob("*.py"))
-    files += [REPO / "chip_smoke.py", REPO / "tests" / "torch_dist_worker.py"]
+    files += [REPO / "chip_smoke.py"]
+    files += sorted((REPO / "tests").glob("torch_dist_*worker.py"))
     files += sorted((REPO / "scripts").glob("torch_*.py"))
     assert len(files) > 5
     for name in ("alpine_tpu_torch/utils/sampling.py", "alpine_tpu_torch/probe.py",
                  "alpine_tpu_torch/parallel/distributed.py",
                  "alpine_tpu_torch/parallel/mesh.py", "alpine_tpu_torch/profiling.py",
-                 "scripts/torch_envelope_probe.py", "scripts/torch_kernel_ab.py"):
+                 "scripts/torch_envelope_probe.py", "scripts/torch_kernel_ab.py",
+                 "tests/torch_dist_worker.py", "tests/torch_dist_grid_worker.py"):
         assert REPO / name in files
     for f in files:
         hits = _FORBIDDEN.findall(f.read_text())

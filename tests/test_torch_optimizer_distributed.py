@@ -345,10 +345,15 @@ def test_world_of_one_is_the_cpu_search(world_of_one, full):
 def test_mesh_refusals(world_of_one, full, monkeypatch):
     from torch.distributed.device_mesh import init_device_mesh
 
-    with pytest.raises(NotImplementedError, match="item 1D"):
+    # a ("genes", "cells") grid: the JAX package's refusal of a
+    # multi-process 2-D mesh (every port mesh spans processes)
+    with pytest.raises(NotImplementedError) as e:
         ComponentOptimizer(_port(full), ["batch"], **CTOR,
                            device=init_device_mesh("cpu", (1, 1),
                                                    mesh_dim_names=("genes", "cells")))
+    assert str(e.value) == ("multi-process searches support 1-D (cell-axis) meshes "
+                            "only; use distributed.global_cell_mesh().")
+    assert str(e.value) in _source(*OPTIMIZER_SRC)
     # a mesh of fewer processes than the group: the exchange is global
     monkeypatch.setattr(tdist, "process_count", lambda: 2)
     with pytest.raises(ValueError) as e:

@@ -253,6 +253,8 @@ class _Place:
 
     def __init__(self, rank, world):
         self.process_chunk_index, self.n_processes = rank, world
+        # a cell mesh: one gene block, a cell run a process
+        self.gene_index, self.cell_shards = 0, world
 
 
 if __name__ == "__main__":
