@@ -45,11 +45,16 @@ block gi, which the gene count must divide evenly) to its card and fits
 its W rows and H columns, summing each iteration's statistics over its
 gene row and its cell column (``mu.fit_scan`` with both groups: P1/P2 on
 the block, never K1/K4).  Full-batch joint, ALS and weighted_fast fits run
-so; after the fit one gather of W's rows gives every process the whole W.
-A transform sums 2WᵀX and WᵀW over the gene blocks and runs K3 on the
-process's columns.  On a grid the JAX package's refusals stay (restarts,
-"weighted", tiled, ALS minibatches), and random minibatches and
-``checkpoint_dir`` are not ported yet.
+so, and random minibatch fits too: every process draws the global epoch
+permutation (seeded as a single-device fit seeds it) and keeps its
+column's cells of every batch.  ``checkpoint_dir`` snapshots each
+process's W rows and H columns in a file of its own, whose key holds the
+grid's shape, the process's place and its gene rows; the processes agree
+on the resume.  After the fit one gather of W's rows gives every process
+the whole W.  A transform sums 2WᵀX and WᵀW over the gene blocks and runs
+K3 on the process's columns.  On a grid the JAX package's refusals stay
+(restarts, "weighted", tiled, ALS minibatches).  A sharded fit with
+``max_iter=None`` takes the coordinator's elbow on every process.
 
 Random draws come from ``torch.Generator``s seeded with ``random_state``
 through ``draw_init``, ``draw_restart_init``, ``draw_counts_stream``,
@@ -58,7 +63,7 @@ they differ from the JAX package's ``jax.random`` streams by design.  The
 tiled pre-shuffle is numpy's, as in the JAX package.  On a cell mesh the
 cell and tile streams of the process at mesh position s > 0 take s as a
 word of their seeds; the counts stream does not (every process draws the
-global draw).
+global draw), nor does a grid's cell stream (the global permutation).
 """
 
 from __future__ import annotations
@@ -217,13 +222,6 @@ def _digest(blob: bytes) -> int:
     """A 48-bit digest of ``blob`` (exact as a float64 in the host
     gathers)."""
     return int.from_bytes(hashlib.sha256(blob).digest()[:6], "big")
-
-
-def _grid_part_b(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} on a ('genes', 'cells') grid is not ported yet (ROADMAP §1 "
-        "item 1D, part B); fit full batch on the grid, or use a 1-D cell mesh "
-        "(distributed.global_cell_mesh())")
 
 
 def _no_x_cache() -> bool:
@@ -433,10 +431,6 @@ class ALPINE:
                 "mode; use full-batch ALS (batch_size=None) or joint-mode "
                 "minibatch (use_als=False)."
             )
-        if grid and batch_size is not None and batch_size < n_sample:
-            raise _grid_part_b("a random minibatch fit")
-        if grid and checkpoint_dir is not None:
-            raise _grid_part_b("a checkpointed fit (checkpoint_dir)")
         if sampling_method == "tiled" and batch_size >= n_sample:
             raise ValueError(
                 f"sampling_method='tiled' is a minibatch mode: batch_size "
@@ -552,25 +546,29 @@ class ALPINE:
 
         def fit_from(cfg, W0, H0, Bs0, restart=0, chunk=None, report=progress):
             key = dict(restart=restart, chunk=chunk)
-            if sharded:
-                # this process's window of the global draw; its own cells'
-                # and tiles' streams
-                draw_key = dict(key, n_out=n_local)
+            # on a mesh this process's window of the global count draw; on
+            # a cell mesh its own cells' and tiles' streams, on a grid the
+            # global cell draw, of which it keeps its column's cells
+            draw_key = dict(key, n_out=n_local) if sharded else key
+            cell_range = None
+            if grid:
+                cell_range = (offset, offset + n_local)
+            elif sharded:
                 key["shard"] = shard
-            else:
-                draw_key = key
             draw = (None if tables is None else
                     draw_counts_stream(tables, n_sample, rs, dev, **draw_key))
             if cfg.tiled:
                 cells = draw_tiles_stream(Xd.shape[1] // cfg.tile, rs, dev, **key)
             elif cfg.minibatch:
-                cells = draw_cells_stream(n_local, rs, dev, probs, **key)
+                cells = draw_cells_stream(n_sample if grid else n_local, rs, dev,
+                                          probs, **key)
             else:
                 cells = None
             return mu.fit_scan(cfg, W0, H0, Bs0, Xd, Ysd, hyper, draw_counts=draw,
                                progress=report, draw_cells=cells,
                                group=placement.group,
-                               gene_group=placement.gene_group)
+                               gene_group=placement.gene_group,
+                               cell_range=cell_range)
 
         def run(n_iter: int):
             cfg = self._make_cfg(Ys, n_sample, n_iter)
@@ -602,11 +600,12 @@ class ALPINE:
             done, parts = 0, []
             resumed = ckpt.load()
             if sharded:
-                # each process resumes its own snapshot (its H columns; W,
-                # the Bs and the losses are replicated): unequal iterations
-                # would put the chunk loops, and so the collectives, out of
-                # step, so every process compares them and all restart
-                # together where they differ
+                # each process resumes its own snapshot (its H columns, on a
+                # grid its W rows too; the Bs and the losses are
+                # replicated): unequal iterations would put the chunk loops,
+                # and so the collectives, out of step, so every process of
+                # the mesh compares them and all restart together where
+                # they differ
                 from alpine_tpu_torch.parallel import distributed as dist
 
                 ranks_done = dist.process_allgather_rows(np.asarray(
@@ -644,11 +643,13 @@ class ALPINE:
         try:
             if max_iter is None:
                 # warm-up elbow search (reference main.py:114-131) on the
-                # loss history, replicated on a cell mesh
+                # loss history, replicated on a mesh
                 with timer.phase("warmup"):
                     _, (_, _, _, losses) = run(200)
                     recon = losses[:, 1].cpu().numpy()
                 self.max_iter: int = self._compute_best_iter(recon)
+                if sharded:
+                    self.max_iter = self._agree_max_iter(self.max_iter, coordinator)
                 if progress is not None:
                     progress.reset(self.max_iter)
             else:
@@ -993,6 +994,25 @@ class ALPINE:
         return resolved_dtype, sizes
 
     @staticmethod
+    def _agree_max_iter(best: int, coordinator: bool) -> int:
+        """The coordinator's elbow, on every process of a sharded fit (one
+        host allgather): loss rows that part by a rounding (a grid's
+        ragged columns) could otherwise give the processes different
+        ``max_iter`` and put their collectives out of step.  Where the
+        processes' elbows differ the coordinator warns, naming them."""
+        from alpine_tpu_torch.parallel import distributed as dist
+
+        rows = dist.process_allgather_rows(np.asarray([int(coordinator), best],
+                                                      np.int64))
+        agreed = int(rows[rows[:, 0] == 1][0, 1])
+        if coordinator and not (rows[:, 1] == agreed).all():
+            warnings.warn(
+                "the max_iter=None elbow differs across processes "
+                f"({sorted(set(rows[:, 1].tolist()))}); every process takes "
+                f"the coordinator's, {agreed}.")
+        return agreed
+
+    @staticmethod
     def _sharded_group_tables(placement, Ys, dev):
         """weighted_fast over processes (alpine_tpu/models/alpine.py:
         486-518, 600-612): this process group-sorts its own cells (stable),
@@ -1052,8 +1072,11 @@ class ALPINE:
         cell mesh the topology joins it (one card a process): the shard and
         process counts, this process's position, which gives each process
         a file of its own in the shared directory, and the processes' cell
-        counts (``chunk_sizes``, None unsharded)."""
-        return {
+        counts (``chunk_sizes``, None unsharded).  On a grid so do its
+        shape (n_g, n_c), this process's place (gene block, cell run) and
+        its gene rows, so that no other grid, gene split or cell mesh
+        resumes its snapshot."""
+        key = {
             "blocks": self.n_all_components,
             "n_labels": [y.shape[0] for y in Ys],
             "n_cells": n_sample,
@@ -1074,6 +1097,12 @@ class ALPINE:
             "cell_layout": (None if chunk_sizes is None
                             else tuple(int(v) for v in chunk_sizes)),
         }
+        if placement.is_grid:
+            key.update(
+                grid=(placement.gene_shards, placement.cell_shards),
+                grid_place=(placement.gene_index, placement.process_chunk_index),
+                gene_range=placement.gene_range(self.n_features))
+        return key
 
     def _make_cfg(self, Ys, n_sample: int, n_iter: int) -> mu.MUConfig:
         return mu.MUConfig(

@@ -46,8 +46,9 @@ on it: the same loops, whose sums over cells are all-reduced (the steps'
 ``r``, the fused loop's one call an iteration).  On a ("genes", "cells")
 grid a rank holds a block of genes × cells: the steps also sum their
 sums over genes (WᵀX, WᵀW) over the genes group (``rg``), and the
-full-batch joint, ALS and weighted_fast fits run as steps whose X products
-are P1 ``hxt`` and P2 ``wtx`` on the rank's block.
+full-batch joint, ALS and weighted_fast fits and the random minibatch
+fits (each rank's share of the batches of the global draw) run as steps
+whose X products are P1 ``hxt`` and P2 ``wtx`` on the rank's block.
 
 A verbose fit passes ``progress``: the loops call it every
 ``progress_every(max_iter)`` iterations and after the last with the
@@ -583,9 +584,23 @@ def _report(progress, losses, it: int, max_iter: int) -> None:
         progress(done, float(losses[it, 0]))
 
 
+def _column_shares(idx: torch.Tensor, batch: int, lo: int, hi: int):
+    """A grid rank's share of each batch of a global epoch draw ``idx``:
+    the draw cut into ⌈n / batch⌉ batches of ``batch`` cells (the last one
+    short), each kept to the cells in [lo, hi) (its column's) in draw
+    order and shifted by −lo; a share is empty where its batch holds none
+    of them.  Two reads to the host an epoch: the kept cells and the
+    shares' sizes."""
+    keep = (idx >= lo) & (idx < hi)
+    nb = -(-idx.shape[0] // batch)
+    sizes = torch.nn.functional.pad(keep.to(torch.int32),
+                                    (0, nb * batch - idx.shape[0]))
+    return torch.split(idx[keep] - lo, sizes.view(nb, batch).sum(1).tolist())
+
+
 def _fit_scan_steps(cfg: MUConfig, W0, H0, Bs0, X, Ys, hyper, draw_counts,
                     draw_cells, progress, group=None, n_local=None,
-                    gene_group=None):
+                    gene_group=None, cell_range=None):
     """Whole steps: the joint steps of the plain backend, ALS on either
     backend, and the random-minibatch, gathered weighted and tiled epochs
     of both (the minibatch branch of ``alpine_tpu.ops.mu.fit_scan`` and its
@@ -630,12 +645,20 @@ def _fit_scan_steps(cfg: MUConfig, W0, H0, Bs0, X, Ys, hyper, draw_counts,
     the loss's an epoch.
 
     With a ``gene_group`` too (a grid: X holds this rank's gene rows and
-    W0 the same rows) the full-batch steps sum WᵀX and WᵀW over it
-    (``rg``, counted under "genes iteration"), and ‖X‖² is summed over
-    both axes before the loop ("genes setup").  An iteration then makes,
-    over cells and over genes: joint and weighted_fast 2 and 1 (the step,
-    the loss over cells), ALS n_blocks + 1 and n_blocks + 1 (the loss's
-    WᵀW over genes)."""
+    W0 the same rows) the steps sum WᵀX and WᵀW over it (``rg``, counted
+    under "genes iteration"), and ‖X‖² is summed over both axes before the
+    loop ("genes setup").  An iteration then makes, over cells and over
+    genes: joint and weighted_fast 2 and 1 (the step, the loss over
+    cells), ALS n_blocks + 1 and n_blocks + 1 (the loss's WᵀW over genes).
+    A grid's minibatch epoch draws the global permutation of the
+    cfg.n_cells cells (the JAX package's global sampler, not a
+    shard-local one) and each rank keeps its share of every batch, the
+    cells of its column's ``cell_range`` (``_column_shares``); every rank
+    runs all ⌈n / batch size⌉ batches, an empty share launching nothing
+    but joining both all-reduces, and the loss sums WᵀX and WᵀW over the
+    genes in one call: nb + 1 all-reduces over each axis an epoch.  The
+    ranks of a column hold the same share, so their calls over genes
+    have equal lengths."""
     fused = cfg.backend == "fused"
     wide = torch.promote_types(X.dtype, torch.float32)  # float64 stays float64
     Xf = None if fused else X.to(wide)
@@ -658,7 +681,9 @@ def _fit_scan_steps(cfg: MUConfig, W0, H0, Bs0, X, Ys, hyper, draw_counts,
     # a batch is a set of units: tiles of cfg.tile columns, or single cells
     unit = cfg.tile if cfg.tiled else 1
     n_units = X.shape[1] // unit
-    if group is None or not cfg.minibatch:
+    if cell_range is not None:
+        per_batch = cfg.eff_batch_size  # the global draw's batches
+    elif group is None or not cfg.minibatch:
         per_batch = min(-(-cfg.eff_batch_size // unit), n_units)
     else:
         # the units of the widest rank, whose batches every rank runs
@@ -682,17 +707,21 @@ def _fit_scan_steps(cfg: MUConfig, W0, H0, Bs0, X, Ys, hyper, draw_counts,
             W, Bs, H, (WtX, WtW) = step(W, Bs, H, X, Xf, Ys_f, it)
         else:
             idx = draw_cells(it)
-            n_batches = -(-(idx.shape[0] if group is None else span) // per_batch)
-            for b in range(n_batches):
-                u = idx[b * per_batch:(b + 1) * per_batch]
+            if cell_range is not None:
+                shares = _column_shares(idx, per_batch, *cell_range)
+            else:
+                n_batches = -(-(idx.shape[0] if group is None else span)
+                              // per_batch)
+                shares = [idx[b * per_batch:(b + 1) * per_batch]
+                          for b in range(n_batches)]
+            for u in shares:
                 W, Bs, H_b, _ = step(
                     W, Bs, take(H, u), take(X, u),
                     None if fused else take(Xf, u),
                     [take(y, u) for y in Ys_f], it)
                 H.view(H.shape[0], n_units, unit).index_copy_(
                     1, u, H_b.view(H.shape[0], -1, unit))
-            WtX = _wtx_pass(cfg, X, Xf, W)
-            WtW = None
+            WtX, WtW = (rg or _no_reduce)([_wtx_pass(cfg, X, Xf, W), W.T @ W])
         losses[it] = compute_loss_parts(cfg, hyper, W, H, Bs, X, Xf, Ys_f,
                                         normX2, WtX=WtX, WtW=WtW,
                                         kl_pad=kl_pad, r=r, rg=rg)
@@ -870,7 +899,8 @@ def _fit_scan_fused(cfg: MUConfig, W0, H0, Bs0, X, Ys, hyper, draw_counts,
 
 
 def fit_scan(cfg: MUConfig, W0, H0, Bs0, X, Ys, hyper, draw_counts=None,
-             progress=None, draw_cells=None, group=None, gene_group=None):
+             progress=None, draw_cells=None, group=None, gene_group=None,
+             cell_range=None):
     """Run ``cfg.max_iter`` MU epochs.
 
     ``X`` (genes × cells) and ``Ys`` (labels_i × cells) are cast to the
@@ -896,9 +926,13 @@ def fit_scan(cfg: MUConfig, W0, H0, Bs0, X, Ys, hyper, draw_counts=None,
     On a ("genes", "cells") grid ``group`` is the process's cells group
     (its gene row) and ``gene_group`` its genes group (its cell column):
     X and W0 hold its gene block's rows, X, H0 and the Ys its cells, and
-    ``draw_counts`` draws its column's counts.  The full-batch joint, ALS
-    and weighted_fast fits run as steps (``_fit_scan_steps``, P1/P2 on the
-    block), never the fused loop, whose kernels need all of WᵀX inside.
+    ``draw_counts`` draws its column's counts.  A random minibatch fit's
+    ``draw_cells`` draws the global epoch permutation of cfg.n_cells
+    cells, and ``cell_range`` = (lo, hi) gives the column's cells, of
+    which the rank keeps its share of every batch.  The full-batch joint,
+    ALS and weighted_fast fits and the random minibatch fits run as steps
+    (``_fit_scan_steps``, P1/P2 on the block), never the fused loop, whose
+    kernels need all of WᵀX inside.
     W comes back as this process's rows, bit-equal along its gene row; H
     bit-equal along its cell column; the Bs and losses on every process.
     Each sum over genes is one all-reduce of a column, whose length
@@ -915,11 +949,14 @@ def fit_scan(cfg: MUConfig, W0, H0, Bs0, X, Ys, hyper, draw_counts=None,
     if gene_group is not None and group is None:
         raise ValueError("a fit over a grid needs its cells group and its "
                          "genes group")
-    if gene_group is not None and cfg.minibatch:
-        raise NotImplementedError(
-            "minibatch fits on a ('genes', 'cells') grid are not ported yet "
-            "(ROADMAP §1 item 1D, part B); fit full batch, or on a 1-D cell "
-            "mesh")
+    if gene_group is not None and cfg.tiled:
+        raise ValueError("tiled sampling runs on one device or a 1-D cell "
+                         "mesh, not on a ('genes', 'cells') grid")
+    if gene_group is not None and cfg.minibatch and (
+            cell_range is None or cell_range[1] - cell_range[0] != n_local):
+        raise ValueError("a minibatch fit on a grid needs its column's "
+                         f"cell_range (lo, hi) of {n_local} cells; got "
+                         f"{cell_range}")
     if cfg.weighted_counts and (draw_counts is None or not cfg.n_cov):
         raise ValueError("weighted_counts needs covariates and a draw_counts "
                          "callable (weighted sampling balances over them)")
@@ -942,7 +979,8 @@ def fit_scan(cfg: MUConfig, W0, H0, Bs0, X, Ys, hyper, draw_counts=None,
         else:
             W, H, Bs, losses = _fit_scan_steps(
                 cfg, W0, H0, Bs0, X, Ys, hyper, draw_counts, draw_cells,
-                progress, group, n_local, gene_group)
+                progress, group, n_local, gene_group,
+                cell_range if gene_group is not None and cfg.minibatch else None)
     return W, H[:, :n_local], Bs, losses
 
 

@@ -58,9 +58,12 @@ Phases, each printing one JSON line:
           rows are off 16-byte alignment beside its aligned twin: 100k
           cells and the same X at a 1-byte offset (its aligned copy's bits
           checked), 66,667 against 66,672 cells, 33,334 against 33,344,
-          8,192 cells and at a 1-byte offset, a tiled slab, and the
+          8,192 cells and at a 1-byte offset, a tiled slab, the
           optimizer's ALS folds (P1 K = 44, P2 k = 32) at 66,667 against
-          66,672, with a summary of each misaligned row's device time over
+          66,672, and a 2 x 2 grid's minibatch shares (1,000 genes, a cell
+          column's share of epoch 0's batches: the first one off 16-byte
+          alignment beside its aligned twin, and the last batch's), with a
+          summary of each misaligned row's device time over
           its twin's and each row's time over the library's; and K1 at
           K = 144 and K4 at K = 44 on 66,667 against 66,672 cells;
   stream_probe  the streaming probe's entry point (alpine_tpu_torch/
@@ -133,21 +136,34 @@ Phases, each printing one JSON line:
   slice_gene_cell  the slice's model (int8 named) over ("genes", "cells")
           grids of processes (distributed.global_gene_cell_mesh), 10
           iterations a fit: a 1 x 1 grid on one NCCL process (this one)
-          fits joint, ALS and weighted_fast, each bit for bit the step
-          loop (mu._fit_scan_steps) called directly on its inputs on one
-          device, P1/P2 only (no K1/K4), the joint fit's losses beside the
-          slice's K1 fit, and a transform (one K3); then 4 gloo ranks
-          spawned on the card as a 2 x 2 grid (1,000 genes x 50,000 cells
-          a rank: the cells of its column, every gene, memory-mapped from
-          one file) run the three modes and a transform, and 2 ranks as a
-          2 x 1 grid (1,000 x 100,000 a rank) the joint fit; each rank
-          prints a slice_gene_cell_rank line a mode (coordinates, genes,
-          cells, device ms an iteration, launches, all-reduce calls, bytes
-          and ms an iteration over each axis, whether its W, H and Bs are
-          bit-equal to its replicas', its loss gap to world 1); checked:
-          launches, one genes all-reduce of K x (local cells + K) values
-          an iteration (ALS n_blocks + 1), replicas, losses rtol 5e-4 and
-          H relative Frobenius 5e-3 against world 1, transforms at rtol
+          fits joint, ALS, weighted_fast and random minibatches of 8,192
+          (10 epochs: P1 13 and P2 14 times an epoch, also bit for bit
+          the single-device estimator's minibatch fit), each bit for bit
+          the step loop (mu._fit_scan_steps) called directly on its inputs
+          on one device, P1/P2 only (no K1/K4), the joint fit's losses
+          beside the slice's K1 fit, and a transform (one K3), and a joint
+          fit with a snapshot every 5 iterations, interrupted after the
+          first and resumed by a fresh model, bit for bit its joint fit;
+          then 4 gloo ranks spawned on the card as a 2 x 2 grid (1,000
+          genes x 50,000 cells a rank: the cells of its column, every
+          gene, memory-mapped from one file) run the three full-batch
+          modes, 5 minibatch epochs from the global draw (each rank its
+          column's share of every batch), a transform and the
+          checkpointed joint fit (snapshots a rank in one directory, the
+          resume from iteration 5 on every rank, bit for bit the
+          uninterrupted fit), and 2 ranks as a 2 x 1 grid (1,000 x
+          100,000 a rank) the joint fit; each rank prints a
+          slice_gene_cell_rank line a mode (coordinates, genes, cells,
+          device ms an iteration or epoch, launches, all-reduce calls,
+          bytes and ms an iteration over each axis, whether its W, H and
+          Bs are bit-equal to its replicas', its loss gap to world 1; a
+          minibatch fit its shares of every batch and its empty ones) and
+          a line for its checkpointed fit (snapshot seconds and bytes);
+          checked: launches, one genes all-reduce of K x (local cells + K)
+          values an iteration (ALS n_blocks + 1; a minibatch epoch nb + 1
+          over each axis, the bytes from the shares), replicas, losses
+          rtol 5e-4 and (full batch) H relative Frobenius 5e-3 against
+          world 1, the resumed fits, transforms at rtol
           1e-6 against one device's K3 on the same gene-block sums of 2WᵀX
           and 2WᵀW (their bits reported) and within 1e-4 (relative
           Frobenius) of the unsplit projection.  Ranks
@@ -234,7 +250,9 @@ wtx at the optimizer's fold shapes with the launches of slice_optimize and
 slice_optimize_paths; K1 and K3 again with world 2's launches of
 slice_optimize_sharded, at the same folds; hxt, wtx and fused_transform
 at a 2 x 2 grid's block, 1,000 genes x 50,000 cells, with the four ranks'
-launches of slice_gene_cell) and, last, the result line
+launches of slice_gene_cell; hxt and wtx at a 2 x 2 grid rank's share of
+a minibatch batch with the four ranks' minibatch launches) and, last, the
+result line
 {"ok": true, "device": {...}}.  slice_persist's line says in "h5ad_run"
 whether its .h5ad round trip ran.
 Any failed check raises: the script exits non-zero and prints no result.
@@ -770,11 +788,27 @@ TWIN_SHAPES = (("bench", N, 0, None), ("bench offset 1", N, 1, "bench"),
                ("world-2 shard", -(-N // 2), 0, None))
 
 
+def grid_share_widths(torch, mu, dev):
+    """The cells of cell column 0's share of each MB_BATCH-cell batch of a
+    2 x 2 grid's first minibatch epoch over the N cells: the global
+    permutation the slice's model (random_state 42) draws for epoch 0,
+    cut as alpine_tpu_torch.ops.mu._fit_scan_steps cuts it."""
+    from alpine_tpu_torch.models.alpine import draw_cells_stream
+    from alpine_tpu_torch.parallel.distributed import process_cell_range
+
+    idx = draw_cells_stream(N, 42, dev)(0)
+    return [int(s.numel()) for s in mu._column_shares(
+        idx, MB_BATCH, *process_cell_range(N, 2, 0))]
+
+
 def x_pass_twin_rows(torch, kernels, mu, gen, dev, card, K=40):
     """P1 and P2 (K = 40) on int8 X at TWIN_SHAPES (among them the batches
     of slice_sharded_modes' world-2 minibatch and tiled fits, a full one
-    and the last), and at the optimizer's ALS folds (P1 K = 44, P2 k = 32)
-    at 66,667 cells and its twin 66,672:
+    and the last), at the optimizer's ALS folds (P1 K = 44, P2 k = 32)
+    at 66,667 cells and its twin 66,672, and on a 2 x 2 grid's 1,000
+    genes at a cell column's share of a minibatch (``grid_share_widths``:
+    the first full share whose rows sit off 16-byte alignment beside its
+    aligned twin, and the last batch's share):
     each row timed as x_pass_row times it, with a digest of its output and,
     for a copy of X at a byte offset, whether it gives the aligned copy's
     bits.  Returns {(kind, label): row}."""
@@ -785,12 +819,17 @@ def x_pass_twin_rows(torch, kernels, mu, gen, dev, card, K=40):
     tiles = torch.randperm(N // TILE, generator=gen, device=dev)
     slab = lambda A, n: A[:, :N // TILE * TILE].reshape(A.shape[0], -1, TILE).index_select(
         1, tiles[:n // TILE]).reshape(A.shape[0], -1).contiguous()
-    cases = [(label, n, off, K, K) for label, n, off, _ in TWIN_SHAPES]
-    cases += [("als fold", 66_667, 0, 44, 32), ("als fold twin", 66_672, 0, 44, 32)]
-    for label, n, off, kh, kw in cases:
-        X = slab(Xf, n) if "slab" in label else Xf[:, :n].contiguous()
+    cases = [(label, n, off, K, K, G) for label, n, off, _ in TWIN_SHAPES]
+    cases += [("als fold", 66_667, 0, 44, 32, G), ("als fold twin", 66_672, 0, 44, 32, G)]
+    widths = grid_share_widths(torch, mu, dev)
+    share = next((w for w in widths[:-1] if w % 16), widths[0])
+    cases += [("grid minibatch", share, 0, K, K, G // 2),
+              ("grid minibatch twin", -(-share // 16) * 16, 0, K, K, G // 2),
+              ("grid minibatch last", widths[-1], 0, K, K, G // 2)]
+    for label, n, off, kh, kw, g in cases:
+        X = slab(Xf, n) if "slab" in label else Xf[:g, :n].contiguous()
         H = slab(Hf[:kh], n) if "slab" in label else Hf[:kh, :n].contiguous()
-        W = Wf[:, :kw].contiguous()
+        W = Wf[:g, :kw].contiguous()
         Xo = at_byte_offset(torch, X, off) if off else X
         for kind, P in (("hxt", H), ("wtx", W)):
             row = x_pass_row(torch, kernels, mu, card, kind, Xo, P, True, f" {label}")
@@ -810,7 +849,8 @@ def x_pass_twin_rows(torch, kernels, mu, gen, dev, card, K=40):
     torch.cuda.empty_cache()
     twins = {label: twin for label, _, _, twin in TWIN_SHAPES if twin}
     twins["als fold"] = "als fold twin"
-    emit({"phase": "kernel_twin_summary",
+    twins["grid minibatch"] = "grid minibatch twin"
+    emit({"phase": "kernel_twin_summary", "grid_share_widths_epoch_0_column_0": widths,
           "device_us_over_aligned_twin": {
               f"{kind} {label}": rows[(kind, label)]["device_us"] / rows[(kind, twin)]["device_us"]
               for kind in ("hxt", "wtx") for label, twin in twins.items()
@@ -1586,11 +1626,17 @@ def run_sharded_modes_phase(torch, kernels, mu, ALPINE, AnnData, counts, obs):
 
 
 # the fits of slice_gene_cell: (mode, model keywords, fit keywords), each
-# GRID_ITERS iterations, and the grids that run them over spawned gloo ranks
+# GRID_ITERS iterations (epochs) on the 1 x 1 grid, and the grids that run
+# them over spawned gloo ranks; the 2 x 2 grid's minibatch fit runs
+# GRID_MB_EPOCHS epochs, and its checkpointed joint fit GRID_ITERS
+# iterations with a snapshot every GRID_CKPT_EVERY
 GRID_ITERS = 10
+GRID_MB_EPOCHS = 5
+GRID_CKPT_EVERY = 5
 GRID_MODES = (("joint", {}, {}), ("als", {"use_als": True}, {}),
-              ("weighted_fast", {}, {"sampling_method": "weighted_fast"}))
-GRID_WORLDS = (((2, 2), ("joint", "als", "weighted_fast")), ((2, 1), ("joint",)))
+              ("weighted_fast", {}, {"sampling_method": "weighted_fast"}),
+              ("minibatch", {}, {"batch_size": MB_BATCH}))
+GRID_WORLDS = (((2, 2), ("joint", "als", "weighted_fast", "minibatch")), ((2, 1), ("joint",)))
 GRID_RANK_TIMEOUT = 300.0
 
 
@@ -1599,12 +1645,22 @@ def _grid_blocks(adata):
                           + [adata.obsm["ALPINE_embedding"]], axis=1)
 
 
-def grid_fit(torch, kernels, mu, dist, ALPINE, adata, device, name):
-    """One GRID_ITERS-iteration fit of the slice's model (int8 named) in
-    mode ``name`` on a ("genes", "cells") grid under the profiler, its
-    kernel launches and each axis's all-reduces counted from zero; a joint
-    fit's cached transform after it.  Returns (row, outputs, the inputs
-    and outputs of the fit's one mu.fit_scan call)."""
+def _fit_outputs(model):
+    return {"loss": model.loss_history_,
+            "W": np.concatenate(model.matrices["Ws"], axis=1),
+            "H": np.concatenate(model.matrices["Hs"], axis=0),
+            **{f"B{i}": b for i, b in enumerate(model.matrices["Bs"])}}
+
+
+def grid_fit(torch, kernels, mu, dist, ALPINE, adata, device, name, iters=GRID_ITERS):
+    """One ``iters``-iteration (minibatch: epoch) fit of the slice's model
+    (int8 named) in mode ``name`` on a ("genes", "cells") grid under the
+    profiler, its kernel launches and each axis's all-reduces counted from
+    zero; a joint fit's cached transform after it.  A minibatch fit's row
+    holds the cells of this rank's share of each batch of each epoch
+    (the epochs redrawn from the fit's own stream) and its empty shares.
+    Returns (row, outputs, the inputs and outputs of the fit's one
+    mu.fit_scan call)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1613,7 +1669,9 @@ def grid_fit(torch, kernels, mu, dist, ALPINE, adata, device, name):
     real_fit = mu.fit_scan
 
     def fit_scan(*args, **kw):
-        seen["args"], seen["draw"] = args, kw.get("draw_counts")
+        seen["args"], seen["draw"], seen["cells"] = (args, kw.get("draw_counts"),
+                                                     kw.get("draw_cells"))
+        seen["cell_range"] = kw.get("cell_range")
         seen["out"] = real_fit(*args, **kw)
         return seen["out"]
 
@@ -1624,7 +1682,7 @@ def grid_fit(torch, kernels, mu, dist, ALPINE, adata, device, name):
     try:
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            model.fit(adata, SHARDED_KEYS, max_iter=GRID_ITERS, **fit_kw)
+            model.fit(adata, SHARDED_KEYS, max_iter=iters, **fit_kw)
             torch.cuda.synchronize()
             fit_s = time.perf_counter() - t0
     finally:
@@ -1634,23 +1692,25 @@ def grid_fit(torch, kernels, mu, dist, ALPINE, adata, device, name):
 
     def axis(tag):
         c = coll.get(tag, {})
-        return {"calls": c.get("calls", 0) / GRID_ITERS,
-                "bytes": c.get("bytes", 0) / GRID_ITERS,
-                "ms": c.get("ms", 0.0) / GRID_ITERS}
+        return {"calls": c.get("calls", 0) / iters,
+                "bytes": c.get("bytes", 0) / iters,
+                "ms": c.get("ms", 0.0) / iters}
 
-    row = {"mode": name, "iterations": GRID_ITERS, "fit_seconds_profiled": fit_s,
-           "timings": model.timings_, "device_ms_per_iteration": device_ms / GRID_ITERS,
-           "top_kernels_device_ms_per_iteration": [[k, ms / GRID_ITERS] for k, ms in top],
+    row = {"mode": name, "iterations": iters, "fit_seconds_profiled": fit_s,
+           "timings": model.timings_, "device_ms_per_iteration": device_ms / iters,
+           "top_kernels_device_ms_per_iteration": [[k, ms / iters] for k, ms in top],
            "launches": {k: kernels.launches[k] for k in
                         ("fused_iteration", "fused_iteration_counts", "hxt", "wtx")},
            "allreduce_per_iteration": {"cells": axis("iteration"),
                                        "genes": axis("genes iteration")},
            "allreduce_before_loop": {"cells": coll.get("setup"),
                                      "genes": coll.get("genes setup")}}
-    out = {"loss": model.loss_history_,
-           "W": np.concatenate(model.matrices["Ws"], axis=1),
-           "H": np.concatenate(model.matrices["Hs"], axis=0),
-           **{f"B{i}": b for i, b in enumerate(model.matrices["Bs"])}}
+    if name == "minibatch":
+        bs = seen["args"][0].eff_batch_size
+        row["share_cells"] = [[int(u.numel()) for u in mu._column_shares(
+            seen["cells"](t), bs, *seen["cell_range"])] for t in range(iters)]
+        row["empty_shares"] = sum(w == 0 for ws in row["share_cells"] for w in ws)
+    out = _fit_outputs(model)
     if name == "joint":
         kernels.reset_launches()
         dist.reset_collectives(timed=True)
@@ -1664,6 +1724,74 @@ def grid_fit(torch, kernels, mu, dist, ALPINE, adata, device, name):
     del model
     torch.cuda.empty_cache()
     return row, out, seen
+
+
+def grid_checkpoints(torch, kernels, ALPINE, adata, device, directory, whole):
+    """slice_gene_cell's checkpointed joint fit on ``device`` (a grid):
+    GRID_ITERS iterations with a snapshot every GRID_CKPT_EVERY into
+    ``directory`` (a file a rank), interrupted after its first snapshot,
+    then resumed by a fresh model, whose outputs are held bit for bit
+    against ``whole`` (the uninterrupted fit's).  Returns the rank's row:
+    the iteration it resumed from, each snapshot's seconds and bytes,
+    whether its one snapshot file outlived the interruption and went with
+    the fit's end, P1 and P2 launches of both fits, the bits."""
+    from alpine_tpu_torch.io.checkpoint import FitCheckpointer
+
+    orig_save, orig_load = FitCheckpointer.save, FitCheckpointer.load
+    saves, loaded, paths = [], [], set()
+
+    def timed_save(self, iteration, *args):
+        t0 = time.perf_counter()
+        orig_save(self, iteration, *args)
+        saves.append((time.perf_counter() - t0, os.path.getsize(self.path)))
+        paths.add(self.path)
+
+    def interrupting_save(self, *args):
+        timed_save(self, *args)
+        raise KeyboardInterrupt
+
+    def recording_load(self):
+        r = orig_load(self)
+        loaded.append(None if r is None else int(r[0]))
+        return r
+
+    def fit():
+        model = ALPINE(device=device, **MODES_PARAMS)
+        model.fit(adata, SHARDED_KEYS, max_iter=GRID_ITERS, checkpoint_dir=directory,
+                  checkpoint_every=GRID_CKPT_EVERY)
+        return model
+
+    t0 = time.perf_counter()
+    kernels.reset_launches()
+    interrupted = False
+    FitCheckpointer.save = interrupting_save
+    try:
+        fit()
+    except KeyboardInterrupt:
+        interrupted = True
+    finally:
+        FitCheckpointer.save = orig_save
+    kept = [os.path.exists(p) for p in paths]
+    FitCheckpointer.save, FitCheckpointer.load = timed_save, recording_load
+    try:
+        model = fit()
+        torch.cuda.synchronize()
+    finally:
+        FitCheckpointer.save, FitCheckpointer.load = orig_save, orig_load
+    out = _fit_outputs(model)
+    model.free_device_cache()
+    del model
+    torch.cuda.empty_cache()
+    return {"interrupted": interrupted, "resumed_from": loaded,
+            "snapshot_kept_after_interrupt": kept == [True],
+            "snapshot_seconds": [v[0] for v in saves],
+            "snapshot_bytes": [v[1] for v in saves],
+            "launches": {k: kernels.launches[k] for k in ("hxt", "wtx")},
+            "bits_equal_uninterrupted": {k: bool(np.array_equal(out[k], whole[k]))
+                                         for k in out},
+            "snapshot_removed_after_fit": len(paths) == 1 and not any(
+                os.path.exists(p) for p in paths),
+            "seconds": time.perf_counter() - t0}
 
 
 def _digest(a):
@@ -1719,9 +1847,12 @@ def gene_cell_rank(here, workdir, grid, modes, rank, port, n_cells):
     """One gloo rank of slice_gene_cell (a spawned process) at its place
     on a ``grid``: the cells of its column with every gene, memory-mapped
     from the parent's file; each mode's fit (and the joint fit's
-    transform), a line a mode with whether its W, H and Bs are bit-equal
-    to its replicas' (digests gathered from every rank) and its loss gap to
-    world 1's fit; its results saved."""
+    transform; a minibatch fit of GRID_MB_EPOCHS epochs), a line a mode
+    with whether its W, H and Bs are bit-equal to its replicas' (digests
+    gathered from every rank) and its loss gap to world 1's fit; on the
+    2 x 2 grid the checkpointed joint fit (``grid_checkpoints``, snapshots
+    in one directory) against the uninterrupted one, a line; its results
+    saved."""
     sys.path.insert(0, here)
     import torch
 
@@ -1746,7 +1877,9 @@ def gene_cell_rank(here, workdir, grid, modes, rank, port, n_cells):
         rows, outs = [], {}
         for name in modes:
             t0 = time.perf_counter()
-            row, out, _ = grid_fit(torch, kernels, mu, dist, ALPINE, adata, mesh, name)
+            iters = GRID_MB_EPOCHS if name == "minibatch" else GRID_ITERS
+            row, out, _ = grid_fit(torch, kernels, mu, dist, ALPINE, adata, mesh, name,
+                                   iters)
             B = np.concatenate([out[k].ravel() for k in sorted(out) if k.startswith("B")])
             d = dist.process_allgather_rows(np.asarray(
                 [place.process_chunk_index, _digest(out["W"]), _digest(out["H"]),
@@ -1766,27 +1899,42 @@ def gene_cell_rank(here, workdir, grid, modes, rank, port, n_cells):
                                           "Bs": bool((d[:, 3] == mine[3]).all()),
                                           "loss": bool((d[:, 4] == mine[4]).all())},
                    "loss_max_rel_gap_to_world_1": float(np.max(np.abs(
-                       out["loss"] / ref["loss"] - 1)))}
+                       out["loss"] / ref["loss"][:iters] - 1)))}
             emit(row)
             rows.append(row)
             outs.update({f"{name}_{k}": v for k, v in out.items()})
+        ck = None
+        if grid == (2, 2):
+            whole = {k[len("joint_"):]: v for k, v in outs.items()
+                     if k.startswith("joint_") and k != "joint_T"}
+            ck = grid_checkpoints(torch, kernels, ALPINE, adata, mesh,
+                                  os.path.join(workdir, f"ck_{tag}"), whole)
+            emit({"phase": "slice_gene_cell_rank", "grid": list(grid), "rank": rank,
+                  "mode": "joint checkpointed", "checkpoint_every": GRID_CKPT_EVERY,
+                  "iterations": GRID_ITERS, **ck})
         np.savez(os.path.join(workdir, f"grid{tag}_rank{rank}.npz"), **outs)
         with open(os.path.join(workdir, f"grid{tag}_rank{rank}.json"), "w") as f:
-            json.dump(rows, f)
+            json.dump({"rows": rows, "checkpoint": ck}, f)
     finally:
         dist.shutdown()
 
 
 def run_gene_cell_phase(torch, kernels, mu, ALPINE, AnnData, counts, obs, slice_loss):
     """slice_gene_cell: the slice's model over ("genes", "cells") grids of
-    processes.  World 1 (NCCL, this process, a 1 x 1 grid) fits joint, ALS
-    and weighted_fast (GRID_ITERS each), each bit for bit the step loop
-    ``mu._fit_scan_steps`` called directly on its inputs on one device,
-    and transforms; then a 2 x 2 grid (4 gloo ranks sharing the card, 1,000
-    genes x 50,000 cells a rank) runs the three modes and the transform,
-    and a 2 x 1 grid (genes only, 1,000 x 100,000 a rank) the joint fit.
-    Returns the 2 x 2 grid's launches of P1, P2 (at K = 40: joint and
-    weighted_fast) and K3, its four ranks together."""
+    processes.  World 1 (NCCL, this process, a 1 x 1 grid) fits joint, ALS,
+    weighted_fast and random minibatches of MB_BATCH (GRID_ITERS
+    iterations or epochs each), each bit for bit the step loop
+    ``mu._fit_scan_steps`` called directly on its inputs on one device
+    (the minibatch fit also the single-device estimator's fit), and
+    transforms, and a checkpointed joint fit, interrupted and resumed, is
+    its joint fit bit for bit; then a 2 x 2 grid (4 gloo ranks sharing
+    the card, 1,000 genes x 50,000 cells a rank) runs the modes
+    (minibatch: GRID_MB_EPOCHS epochs), the transform and the checkpointed
+    joint fit, and a 2 x 1 grid (genes only, 1,000 x 100,000 a rank) the
+    joint fit.  Returns the 2 x 2 grid's launches, its four ranks
+    together: P1 and P2 at a rank's block (the full-batch fits at K = 40,
+    the checkpointed fit, each minibatch epoch's loss), at a rank's share
+    of a minibatch batch, and K3."""
     import multiprocessing
     import tempfile
 
@@ -1802,21 +1950,46 @@ def run_gene_cell_phase(torch, kernels, mu, ALPINE, AnnData, counts, obs, slice_
                     "hxt": GRID_ITERS, "wtx": len(BLOCKS) * GRID_ITERS},
             "weighted_fast": {"fused_iteration": 0, "fused_iteration_counts": 0,
                               "hxt": GRID_ITERS, "wtx": GRID_ITERS}}
+    nb = -(-n // MB_BATCH)  # batches an epoch
+    # a step's sums over cells: X Hᵀ of the rank's genes, H Hᵀ, the B
+    # statistics; the loss's: its dot, H Hᵀ, the prediction terms
+    b_stats = sum(nl * k for nl, k in zip(N_LABELS, BLOCKS)) + sum(BLOCKS[:-1])
+    loss_sums = 1 + K * K + len(N_LABELS)
 
-    def check_row(label, row, n_loc):
+    def check_row(label, row, n_loc, g_loc):
         name = row["mode"]
-        check(row["launches"] == want[name],
-              f"{label} {name}: launches {row['launches']}, expected {want[name]}")
         ar = row["allreduce_per_iteration"]
-        calls = (len(BLOCKS) + 1,) * 2 if name == "als" else (2, 1)
+        if name == "minibatch":
+            # a P1 and a P2 a non-empty share, a P2 an epoch for the loss;
+            # nb + 1 all-reduces over each axis an epoch, the genes' of
+            # K x (share + K) values a batch and K x (local cells + K) the
+            # loss's
+            busy = sum(w > 0 for ws in row["share_cells"] for w in ws)
+            exp = {"fused_iteration": 0, "fused_iteration_counts": 0, "hxt": busy,
+                   "wtx": busy + row["iterations"]}
+            calls = (nb + 1, nb + 1)
+            genes = 4 * K * sum(sum(w + K for w in ws) + n_loc + K
+                                for ws in row["share_cells"]) / row["iterations"]
+            cells = 4 * (nb * (g_loc * K + K * K + b_stats) + loss_sums)
+            check(all(len(ws) == nb and sum(ws) == n_loc for ws in row["share_cells"]),
+                  f"{label}: a column's shares {row['share_cells']}")
+            check(ar["cells"]["bytes"] == cells,
+                  f"{label} {name}: {ar['cells']['bytes']} bytes over cells an epoch, "
+                  f"expected {cells}")
+        else:
+            exp = want[name]
+            calls = (len(BLOCKS) + 1,) * 2 if name == "als" else (2, 1)
+            # WᵀX and WᵀW of the rank's cells: K x (local cells + K) values
+            genes = None if name == "als" else 4 * K * (n_loc + K)
+        check(row["launches"] == exp,
+              f"{label} {name}: launches {row['launches']}, expected {exp}")
         check((ar["cells"]["calls"], ar["genes"]["calls"]) == calls,
               f"{label} {name}: all-reduces an iteration over cells and genes "
               f"{ar['cells']['calls']}, {ar['genes']['calls']}, expected {calls}")
-        if name != "als":
-            # WᵀX and WᵀW of the rank's cells: K x (local cells + K) values
-            check(ar["genes"]["bytes"] == 4 * K * (n_loc + K),
+        if genes is not None:
+            check(ar["genes"]["bytes"] == genes,
                   f"{label} {name}: {ar['genes']['bytes']} bytes over genes an "
-                  f"iteration, expected {4 * K * (n_loc + K)}")
+                  f"iteration, expected {genes}")
         if name == "joint":
             check(row["transform_launches"] == {"fused_transform": 1, "hxt": 0, "wtx": 0}
                   and row["transform_allreduce"]["calls"] == 1,
@@ -1833,6 +2006,7 @@ def run_gene_cell_phase(torch, kernels, mu, ALPINE, AnnData, counts, obs, slice_
         try:
             w1["backend"] = torch.distributed.get_backend()
             mesh = dist.global_gene_cell_mesh(1, 1)
+            w1_outs = {}
             for name, _, _ in GRID_MODES:
                 row, out, seen = grid_fit(torch, kernels, mu, dist, ALPINE, adata, mesh, name)
                 # the step loop called directly on the fit's inputs, one device
@@ -1840,7 +2014,7 @@ def run_gene_cell_phase(torch, kernels, mu, ALPINE, AnnData, counts, obs, slice_
                 W, H, Bs, L = mu._fit_scan_steps(
                     cfg, W0.contiguous(), H0.contiguous(), tuple(b.contiguous() for b in Bs0),
                     X.to(cfg.xdt).contiguous(), [y.to(cfg.xdt).contiguous() for y in Ys],
-                    hyper, seen["draw"], None, None)
+                    hyper, seen["draw"], seen["cells"], None)
                 fW, fH, fBs, fL = seen["out"]
                 bits = {"W": torch.equal(W, fW), "H": torch.equal(H, fH),
                         "Bs": all(torch.equal(a, b) for a, b in zip(Bs, fBs)),
@@ -1850,20 +2024,49 @@ def run_gene_cell_phase(torch, kernels, mu, ALPINE, AnnData, counts, obs, slice_
                 if name == "joint":
                     row["loss_max_rel_gap_to_slice_k1"] = float(np.max(np.abs(
                         out["loss"] / slice_loss[:GRID_ITERS] - 1)))
+                if name == "minibatch":
+                    # the single-device estimator's fit with the same seed
+                    one = ALPINE(device="cuda", **MODES_PARAMS)
+                    one.fit(adata, SHARDED_KEYS, max_iter=GRID_ITERS, batch_size=MB_BATCH)
+                    row["bits_equal_single_device"] = {
+                        k: bool(np.array_equal(v, out[k]))
+                        for k, v in _fit_outputs(one).items()}
+                    one.free_device_cache()
+                    del one
                 emit({"phase": "slice_gene_cell_rank", "grid": [1, 1], "rank": 0,
                       "coordinates": [0, 0], "backend": w1["backend"], "genes": g,
                       "cells": n, **row})
-                check_row("world 1", row, n)
+                check_row("world 1", row, n, g)
                 check(all(bits.values()), f"world 1 {name} must be the step loop bit for "
                                           f"bit: {bits}")
+                if name == "minibatch":
+                    check(row["launches"]["hxt"] == nb * GRID_ITERS
+                          and row["launches"]["wtx"] == (nb + 1) * GRID_ITERS,
+                          f"world 1 minibatch: P1/P2 {nb} and {nb + 1} times an epoch")
+                    check(all(row["bits_equal_single_device"].values()),
+                          "world 1 minibatch must be the single-device fit bit for bit: "
+                          f"{row['bits_equal_single_device']}")
                 check(np.isfinite(out["loss"]).all() and out["loss"][-1, 0] < out["loss"][0, 0],
                       f"world 1 {name}: losses finite and falling")
                 np.savez(os.path.join(workdir, f"world1_{name}.npz"), **out)
+                w1_outs[name] = out
                 w1["modes"][name] = {k: row[k] for k in (
                     "device_ms_per_iteration", "allreduce_per_iteration",
                     "bits_equal_step_loop")}
                 if name == "joint":
                     w1["loss_max_rel_gap_to_slice_k1"] = row["loss_max_rel_gap_to_slice_k1"]
+            whole = {k: v for k, v in w1_outs["joint"].items() if k != "T"}
+            ck = grid_checkpoints(torch, kernels, ALPINE, adata, mesh,
+                                  os.path.join(workdir, "ck_1x1"), whole)
+            emit({"phase": "slice_gene_cell_rank", "grid": [1, 1], "rank": 0,
+                  "mode": "joint checkpointed", "checkpoint_every": GRID_CKPT_EVERY,
+                  "iterations": GRID_ITERS, **ck})
+            check(ck["interrupted"] and ck["resumed_from"] == [GRID_CKPT_EVERY]
+                  and all(ck["bits_equal_uninterrupted"].values())
+                  and ck["snapshot_kept_after_interrupt"] and ck["snapshot_removed_after_fit"],
+                  f"world 1: the resumed checkpointed joint fit must be its joint fit "
+                  f"bit for bit: {ck}")
+            w1["checkpointed"] = ck
         finally:
             dist.shutdown()
         del adata
@@ -1900,35 +2103,44 @@ def run_gene_cell_phase(torch, kernels, mu, ALPINE, AnnData, counts, obs, slice_
                   + (" (stopped at the time limit)" if alive else ""))
             outs = [dict(np.load(os.path.join(workdir, f"grid{tag}_rank{r}.npz")))
                     for r in range(world)]
-            rows = []
+            reports = []
             for r in range(world):
                 with open(os.path.join(workdir, f"grid{tag}_rank{r}.json")) as f:
-                    rows.append(json.load(f))
+                    reports.append(json.load(f))
+            rows = [rep["rows"] for rep in reports]
             summary = {"grid": list(grid), "backend": rows[0][0]["backend"],
                        "genes": [rr[0]["genes"] for rr in rows],
                        "cells": [rr[0]["cells"] for rr in rows], "modes": {}}
             for i, name in enumerate(modes):
                 mrows = [rr[i] for rr in rows]
                 for row in mrows:
-                    check_row(f"grid {tag} rank {row['rank']}", row, row["cells"])
+                    check_row(f"grid {tag} rank {row['rank']}", row, row["cells"],
+                              row["genes"])
                     check(all(row["replicas_bit_equal"].values()),
                           f"grid {tag} rank {row['rank']} {name}: replicas "
                           f"{row['replicas_bit_equal']}")
                 ref = np.load(os.path.join(workdir, f"world1_{name}.npz"))
                 L = outs[0][f"{name}_loss"]
                 gap = max(r["loss_max_rel_gap_to_world_1"] for r in mrows)
-                # H of every cell: the ranks of gene block 0, in column order
-                H = np.concatenate([outs[r][f"{name}_H"] for r in range(world)
-                                    if mrows[r]["coordinates"][0] == 0], axis=1)
-                h_err = float(np.linalg.norm(H - ref["H"]) / np.linalg.norm(ref["H"]))
                 m = {"device_ms_per_iteration": [r["device_ms_per_iteration"] for r in mrows],
                      "allreduce_per_iteration": [r["allreduce_per_iteration"] for r in mrows],
                      "fit_seconds": [r["timings"]["fit"] for r in mrows],
-                     "loss_max_rel_gap_to_world_1": gap, "H_rel_frobenius_err": h_err}
+                     "loss_max_rel_gap_to_world_1": gap}
                 check(np.isfinite(L).all() and L[-1, 0] < L[0, 0],
                       f"grid {tag} {name}: losses finite and falling")
                 check(gap <= 5e-4, f"grid {tag} {name}: losses {gap} from world 1's")
-                check(h_err <= 5e-3, f"grid {tag} {name}: H {h_err} from world 1's")
+                if name == "minibatch":
+                    # GRID_MB_EPOCHS epochs against world 1's GRID_ITERS: the
+                    # losses of the first epochs only
+                    m["empty_shares"] = [r["empty_shares"] for r in mrows]
+                    m["share_cells_epoch_0"] = [r["share_cells"][0] for r in mrows]
+                else:
+                    # H of every cell: the ranks of gene block 0, in column order
+                    H = np.concatenate([outs[r][f"{name}_H"] for r in range(world)
+                                        if mrows[r]["coordinates"][0] == 0], axis=1)
+                    m["H_rel_frobenius_err"] = h_err = float(
+                        np.linalg.norm(H - ref["H"]) / np.linalg.norm(ref["H"]))
+                    check(h_err <= 5e-3, f"grid {tag} {name}: H {h_err} from world 1's")
                 if name == "joint":
                     T = np.concatenate([outs[r]["joint_T"] for r in range(world)
                                         if mrows[r]["coordinates"][0] == 0])
@@ -1938,7 +2150,14 @@ def run_gene_cell_phase(torch, kernels, mu, ALPINE, AnnData, counts, obs, slice_
                           and m["transform_rel_frobenius_err"] <= 1e-4,
                           f"grid {tag}: transform against one device's: {m}")
                 summary["modes"][name] = m
-                if grid == (2, 2):
+                if grid == (2, 2) and name == "minibatch":
+                    # a share's P1/P2 at the batch shape, the loss's P2 at the block
+                    epochs = sum(r["iterations"] for r in mrows)
+                    launches["hxt minibatch"] = sum(r["launches"]["hxt"] for r in mrows)
+                    launches["wtx minibatch"] = sum(r["launches"]["wtx"]
+                                                    for r in mrows) - epochs
+                    launches["wtx"] = launches.get("wtx", 0) + epochs
+                elif grid == (2, 2):
                     for k in ("hxt", "wtx"):
                         if k == "hxt" or name != "als":
                             launches[k] = launches.get(k, 0) + sum(
@@ -1946,16 +2165,34 @@ def run_gene_cell_phase(torch, kernels, mu, ALPINE, AnnData, counts, obs, slice_
                     if name == "joint":
                         launches["fused_transform"] = sum(
                             r["transform_launches"]["fused_transform"] for r in mrows)
+            if grid == (2, 2):
+                cks = [rep["checkpoint"] for rep in reports]
+                for k in ("hxt", "wtx"):
+                    launches[k] += sum(c["launches"][k] for c in cks)
+                summary["checkpointed"] = {
+                    k: [c[k] for c in cks] for k in (
+                        "resumed_from", "snapshot_seconds", "snapshot_bytes",
+                        "bits_equal_uninterrupted", "seconds")}
+                check(all(c["interrupted"] and c["resumed_from"] == [GRID_CKPT_EVERY]
+                          and c["snapshot_kept_after_interrupt"]
+                          and c["snapshot_removed_after_fit"]
+                          and all(c["bits_equal_uninterrupted"].values()) for c in cks),
+                      f"grid {tag}: the resumed checkpointed joint fit must resume from "
+                      f"iteration {GRID_CKPT_EVERY} on every rank and be the "
+                      f"uninterrupted fit bit for bit: {summary['checkpointed']}")
             summary["seconds"] = time.perf_counter() - t0
             worlds.append(summary)
         del X_card
     torch.cuda.empty_cache()
     emit({"phase": "slice_gene_cell", "cells": n, "genes": g, "iterations": GRID_ITERS,
           "worlds": worlds, "launches_2x2": launches,
-          "tolerance": "world 1 bit for bit the step loop on one device; grids: W, "
-                       "Bs and losses bit-equal on every rank, H within each cell "
-                       "column, losses rtol 5e-4 and H relative Frobenius 5e-3 "
-                       "against world 1, transform rtol 1e-6 (atol 1e-7*max|T|) "
+          "tolerance": "world 1 bit for bit the step loop on one device (minibatch "
+                       "also the single-device fit, the resumed checkpointed fit "
+                       "its joint fit); grids: W, Bs and losses bit-equal on every "
+                       "rank, H within each cell column, losses rtol 5e-4 and (but "
+                       "minibatch) H relative Frobenius 5e-3 against world 1, the "
+                       "resumed checkpointed 2 x 2 fit bit for bit the uninterrupted "
+                       "one on every rank, transform rtol 1e-6 (atol 1e-7*max|T|) "
                        "against one device's K3 on the same gene-block sums and "
                        "relative Frobenius 1e-4 against the unsplit projection",
           "seconds": time.perf_counter() - phase_t0})
@@ -3262,7 +3499,10 @@ def main():
     torch.cuda.empty_cache()
     # P1/P2 away from the bench shape: X rows off 16-byte alignment beside
     # their aligned twins, small n; K1/K4 at the optimizer's fold widths
-    x_pass_twin_rows(torch, kernels, mu, gen, dev, card)
+    twin_rows = x_pass_twin_rows(torch, kernels, mu, gen, dev, card)
+    # a 2 x 2 grid's minibatch batch share (slice_gene_cell)
+    results["hxt gene_cell minibatch"] = twin_rows[("hxt", "grid minibatch")]
+    results["wtx gene_cell minibatch"] = twin_rows[("wtx", "grid minibatch")]
     iteration_twin_rows(torch, kernels, gen, dev, card)
     # float32 and int16 X (the FP32 units): one X at a time
     for xdt in (torch.float32, torch.int16):
@@ -3717,11 +3957,15 @@ def main():
                 **{f"fused_transform optimizer sharded {p}": n
                    for p, n in sharded_opt_k3.items()},
                 # the 2 x 2 grid's four ranks together, at a rank's block:
-                # P1 in every fit, P2 at K = 40 (joint and weighted_fast),
-                # K3 in the transform
+                # P1 in every full-batch fit and the checkpointed one, P2 at
+                # K = 40 (joint, weighted_fast, checkpointed, each minibatch
+                # epoch's loss), K3 in the transform; at a rank's share of a
+                # minibatch batch, P1 and P2 a non-empty share
                 "hxt gene_cell": grid_launches["hxt"],
                 "wtx gene_cell": grid_launches["wtx"],
-                "fused_transform gene_cell": grid_launches["fused_transform"]}
+                "fused_transform gene_cell": grid_launches["fused_transform"],
+                "hxt gene_cell minibatch": grid_launches["hxt minibatch"],
+                "wtx gene_cell minibatch": grid_launches["wtx minibatch"]}
     for p in sharded_opt_k3:
         results[f"fused_transform optimizer sharded {p}"] = \
             results[f"fused_transform optimizer {p}"]
@@ -3742,7 +3986,8 @@ def main():
                   "fused_iteration optimizer sharded",
                   *(k for k in launches
                     if k.startswith("fused_transform optimizer sharded ")),
-                  "hxt gene_cell", "wtx gene_cell", "fused_transform gene_cell"):
+                  "hxt gene_cell", "wtx gene_cell", "fused_transform gene_cell",
+                  "hxt gene_cell minibatch", "wtx gene_cell minibatch"):
         res = results[kname]
         base = kname.split()[0].replace("_fma", "")
         rows.append({"name": kname, "route": "cuda", "source": SOURCES[base],

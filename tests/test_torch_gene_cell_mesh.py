@@ -9,35 +9,49 @@ and the single-process port.
   not span the group raise (the JAX package's ``need … devices`` message
   where there are too few processes).
 - The step loop ``mu._fit_scan_steps`` in float64 (joint KL and
-  Frobenius, ALS, weighted_fast with given counts) on ragged columns
-  (31 / 30 cells) against the single-process float64 loop at rtol 1e-11,
-  W's rows and H's columns concatenated; the all-reduces an iteration
-  over each axis.
+  Frobenius, ALS, weighted_fast with given counts, random minibatches of
+  20 cells from a given permutation, among them one whose first batch
+  holds no cell of column 1) on ragged columns (31 / 30 cells) against
+  the single-process float64 loop at rtol 1e-11, W's rows and H's
+  columns concatenated; the all-reduces an iteration (a minibatch epoch:
+  nb + 1 over each axis, bytes from each column's share of every batch);
+  the kernel wrappers' calls of a fused minibatch fit (none for a
+  column's empty share).
 - ``mu.fit_scan`` on the grid against the JAX package's ``mu.fit_scan``
   on ``make_gene_cell_mesh(2, 2)`` from ``alpine_tpu.ops.mu.
   init_matrices``' draws: loss rtol 1e-4, factors 5e-3
   (tests/test_sharding.py:74-75); weighted_fast from the JAX package's
   count stream at H rtol 2e-4 atol 1e-6 and loss rtol 5e-5
-  (tests/test_weighted_counts.py:494-495).  The grid's transform
-  against the JAX package's and the single-process port's.
+  (tests/test_weighted_counts.py:494-495); random minibatches (KL,
+  Frobenius, int8 at loss 5e-4) from the JAX package's own epoch
+  permutations.  The grid's transform against the JAX package's and the
+  single-process port's.
 - The joint step's all-reduces: one over genes an iteration of K ×
   (local cells + K) values, which grows with the cells, and two over
   cells (the step's and the loss's), which do not.
 - The estimator (96 and 95 cells × 32 genes; KL, Frobenius, ALS,
-  weighted_fast; int8 over 5 iterations) against the port's
-  single-process fit: loss rtol 1e-4 (int8 5e-4), embedding rtol 5e-3
+  weighted_fast, random minibatches of 24 cells; int8 over 5 iterations)
+  against the port's single-process fit: loss rtol 1e-4 (int8 5e-4), embedding rtol 5e-3
   atol 1e-5; W, the Bs and the losses bit-equal on all four ranks, H
   within each cell column.  Its transforms (through the fit's device X,
   the weighted_fast fit's group-sorted X, 61 fresh cells, a pickled grid
   model) against the single-process transform with the same W, rtol
   1e-5.
 - Refusals raise on every rank: an indivisible gene count (the JAX
-  package's message), columns holding different cells, random
-  minibatches and checkpoints (not ported yet), the optimizer (the JAX
-  package's message), and the JAX package's other refusals; the groups
-  still work after.
+  package's message), columns holding different cells, the optimizer
+  (the JAX package's message), and the JAX package's other refusals; the
+  groups still work after.
+- Snapshots (``checkpoint_dir``): a file a rank, its key holding the
+  grid's shape, the rank's place and its gene rows; joint and minibatch
+  fits interrupted and resumed are the uninterrupted ones bit for bit on
+  every rank; snapshots of different iterations restart every rank with
+  one warning; a 1-D mesh's or a 2 × 1 grid's snapshots in the same
+  directory are not resumed.
+- A ``max_iter=None`` fit whose last rank computes another elbow ends
+  with the coordinator's ``max_iter`` on every rank, with one warning.
 - A 1 × 1 grid in this process is the step loop on one device bit for
-  bit, through ``mu.fit_scan`` and through the estimator.
+  bit, through ``mu.fit_scan`` and through the estimator, and its
+  minibatch and checkpointed fits are the single-device ones.
 """
 
 import functools
@@ -119,16 +133,34 @@ def _counts(r, n, draws):
 # ---------------------------------------------------------------------------
 
 
+_MB_BATCH = 20  # of the f64 minibatch cases' 61 cells: batches 20, 20, 20, 1
+
+
+def _first_batch_in_column_0(r, n, iters):
+    """Permutations of n cells whose first batch holds only cells of
+    column 0 (the first 31), so column 1's share of it is empty."""
+    perms = []
+    for _ in range(iters):
+        first = r.permutation(31)[:_MB_BATCH]
+        perms.append(np.concatenate([first, r.permutation(np.setdiff1d(np.arange(n), first))]))
+    return np.stack(perms)
+
+
 def _f64_cases():
     out = {}
-    for name, kl, als, wf in (("kl", True, False, False), ("fro", False, False, False),
-                              ("als", True, True, False), ("wf", True, False, True)):
+    for name, kl, als, wf, mb in (
+            ("kl", True, False, False, None), ("fro", False, False, False, None),
+            ("als", True, True, False, None), ("wf", True, False, True, None),
+            ("mb", True, False, False, "random"), ("mb_empty", False, False, False, "column 0")):
         r = np.random.default_rng(len(out))
         g, n, iters = 20, 61, 20  # 10 genes a block; 31 / 30 cells a column
+        if mb:
+            iters = 6
         K = sum(BLOCKS)
         case = dict(
             cfg=dict(blocks=BLOCKS, n_labels=N_LABELS, n_cells=n, loss_kl=kl,
-                     max_iter=iters, backend="plain", use_als=als, weighted_counts=wf),
+                     max_iter=iters, backend="plain", use_als=als, weighted_counts=wf,
+                     batch_size=_MB_BATCH if mb else None),
             X=r.random((g, n)) * 2,
             Ys=[y.astype(np.float64) for y in _labels(r, n, N_LABELS)],
             W0=r.random((g, K)) + 0.1, H0=r.random((K, n)) + 0.1,
@@ -136,6 +168,10 @@ def _f64_cases():
             lam=np.asarray([2.0, 0.5]), hyper=(0.3, 0.7, 0.4, EPS))
         if wf:
             case["counts"] = _counts(r, n, iters).astype(np.float64)
+        if mb == "random":
+            case["perms"] = np.stack([r.permutation(n) for _ in range(iters)])
+        elif mb:
+            case["perms"] = _first_batch_in_column_0(r, n, iters)
         out[name] = case
     return out
 
@@ -146,14 +182,20 @@ _JAX_ITERS = 8
 def _jax_fit_cases():
     """fit_scan cases at 32 genes × 128 cells, the JAX package's initial
     state from its ``init_matrices``; weighted_fast on a group-sorted cell
-    axis with the JAX package's count stream."""
+    axis with the JAX package's count stream; random minibatches of 48
+    cells (batches 48, 48, 32) with the JAX package's epoch permutations
+    (``jax.random.permutation`` over ``jax.random.split(key, max_iter)``,
+    as its fit_scan draws them)."""
     cases = {}
-    for name, seed, dtype, kl, als, wf in (
-            ("joint", 3, "float32", True, False, False),
-            ("fro", 4, "float32", False, False, False),
-            ("als", 5, "float32", True, True, False),
-            ("wf", 6, "float32", True, False, True),
-            ("int8", 9, "int8", True, False, False)):
+    for name, seed, dtype, kl, als, wf, bs in (
+            ("joint", 3, "float32", True, False, False, None),
+            ("fro", 4, "float32", False, False, False, None),
+            ("als", 5, "float32", True, True, False, None),
+            ("wf", 6, "float32", True, False, True, None),
+            ("int8", 9, "int8", True, False, False, None),
+            ("mb", 10, "float32", True, False, False, 48),
+            ("mb_fro", 11, "float32", False, False, False, 48),
+            ("mb_int8", 12, "int8", True, False, False, 48)):
         g, n = 32, 128
         iters = 5 if dtype == "int8" else _JAX_ITERS
         r = np.random.default_rng(seed)
@@ -171,12 +213,13 @@ def _jax_fit_cases():
             tables = (jnp.asarray(start), jnp.asarray(sizes))
         jcfg = jmu.MUConfig(blocks=BLOCKS, n_labels=N_LABELS, n_cells=n, loss_kl=kl,
                             max_iter=iters, x_dtype=dtype, use_als=als, weighted=wf,
-                            weighted_counts=wf)
+                            weighted_counts=wf, batch_size=bs)
         W0, H0, Bs0 = jmu.init_matrices(jcfg, g, jax.random.PRNGKey(seed + 100), EPS)
         hyper = ([2.0, 1.0], 0.1, 0.2, 0.3)
         case = dict(
             cfg=dict(blocks=BLOCKS, n_labels=N_LABELS, n_cells=n, loss_kl=kl,
-                     max_iter=iters, x_dtype=dtype, use_als=als, weighted_counts=wf),
+                     max_iter=iters, x_dtype=dtype, use_als=als, weighted_counts=wf,
+                     batch_size=bs),
             X=X, Ys=Ys, W0=np.asarray(W0), H0=np.asarray(H0),
             Bs0=[np.asarray(b) for b in Bs0],
             lam=np.asarray(hyper[0], np.float32),
@@ -186,6 +229,9 @@ def _jax_fit_cases():
             keys = jax.random.split(key, iters)
             case["counts"] = np.stack([np.asarray(jmu.grouped_balanced_counts(
                 keys[t], n, tables, n)) for t in range(iters)]).astype(np.float32)
+        if bs:
+            case["perms"] = np.stack([np.asarray(jax.random.permutation(k, n))
+                                      for k in jax.random.split(key, iters)]).astype(np.int64)
         cases[name] = case
     return cases
 
@@ -238,6 +284,7 @@ _ESTIMATOR = {
     "als": _adata_case(96, 3, model_kw={"use_als": True}),
     "wf": _adata_case(96, 8, fit_kw={"sampling_method": "weighted_fast"}),
     "int8": _adata_case(96, 5, "int8", 5, integer=True),
+    "mb": _adata_case(95, 12, fit_kw={"batch_size": 24}),
 }
 _LOSS_RTOL = {"int8": 5e-4}
 
@@ -399,13 +446,14 @@ def _single_steps(case):
     t = torch.from_numpy
     cfg = tmu.MUConfig(**case["cfg"])
     draw = (lambda it: t(case["counts"][it])) if "counts" in case else None
+    cells = (lambda it: t(case["perms"][it])) if "perms" in case else None
     return tmu._fit_scan_steps(
         cfg, t(case["W0"]), t(case["H0"]), tuple(t(b) for b in case["Bs0"]),
         t(case["X"]), [t(y) for y in case["Ys"]], (t(case["lam"]), *case["hyper"]),
-        draw, None, None)
+        draw, cells, None)
 
 
-@pytest.mark.parametrize("name", ["kl", "fro", "als", "wf"])
+@pytest.mark.parametrize("name", ["kl", "fro", "als", "wf", "mb", "mb_empty"])
 def test_grid_loop_f64_matches_single_process(ranks, name):
     inputs, results = ranks
     W, H, Bs, L = _single_steps(inputs["f64"][name])
@@ -433,6 +481,71 @@ def test_grid_loop_all_reduces_an_iteration(ranks, name):
         assert c["setup"]["calls"] == c["genes setup"]["calls"] == 1
         assert c["iteration"]["calls"] == cells * iters
         assert c["genes iteration"]["calls"] == genes * iters
+
+
+def _column_shares(perm, lo, hi, batch=_MB_BATCH):
+    """The sizes of a column's share of each batch of a permutation."""
+    return [int(((b >= lo) & (b < hi)).sum())
+            for b in np.array_split(perm, range(batch, len(perm), batch))]
+
+
+@pytest.mark.parametrize("name", ["mb", "mb_empty"])
+def test_grid_minibatch_all_reduces_an_epoch(ranks, name):
+    """A minibatch epoch of nb = 4 batches: nb + 1 all-reduces over each
+    axis (a batch's step, the loss).  Over genes a batch carries WᵀX_b of
+    the column's share and WᵀW, K × (share + K) float64 values, and the
+    loss K × (column cells + K); over cells a batch carries X Hᵀ of the
+    rank's 10 genes, H Hᵀ and the B statistics, the loss its dot, H Hᵀ and
+    the prediction terms, whatever the shares."""
+    inputs, results = ranks
+    case = inputs["f64"][name]
+    iters, K = case["cfg"]["max_iter"], sum(BLOCKS)
+    step = 10 * K + K * K + sum(nl * k for nl, k in zip(N_LABELS, BLOCKS)) + sum(BLOCKS[:-1])
+    loss = 1 + K * K + len(N_LABELS)
+    for r, res in enumerate(results):
+        c = res[f"f64_{name}"]["collectives"]
+        lo, hi = tdist.process_cell_range(61, 2, COORDS[r][1])
+        shares = [_column_shares(p, lo, hi) for p in case["perms"]]
+        assert all(len(s) == 4 for s in shares)
+        assert c["iteration"]["calls"] == c["genes iteration"]["calls"] == 5 * iters
+        assert c["setup"]["calls"] == c["genes setup"]["calls"] == 1
+        assert c["iteration"]["bytes"] == 8 * (4 * step + loss) * iters
+        assert c["genes iteration"]["bytes"] == 8 * K * sum(
+            sum(w + K for w in s) + (hi - lo + K) for s in shares)
+        if name == "mb_empty" and COORDS[r][1] == 1:
+            assert all(s[0] == 0 for s in shares)
+
+
+def test_empty_share_launches_nothing_and_stays_in_step(ranks):
+    """The fused float32 fit of the case whose first batch holds no cell
+    of column 1: column 1's ranks call neither kernel wrapper for it (nor
+    for any other empty share), every rank makes nb + 1 all-reduces over
+    each axis an epoch, and the losses agree across the ranks and with
+    the single-process fused fit on the same permutations."""
+    inputs, results = ranks
+    case = inputs["f64"]["mb_empty"]
+    iters = case["cfg"]["max_iter"]
+    t = torch.from_numpy
+    f32 = lambda a: t(np.asarray(a, np.float32))  # noqa: E731
+    cfg = tmu.MUConfig(**{**case["cfg"], "backend": "fused"})
+    want = tmu.fit_scan(cfg, f32(case["W0"]), f32(case["H0"]),
+                        tuple(f32(b) for b in case["Bs0"]), f32(case["X"]),
+                        [f32(y) for y in case["Ys"]],
+                        (f32(case["lam"]), *case["hyper"]),
+                        draw_cells=lambda it: t(case["perms"][it]))[3]
+    for r, res in enumerate(results):
+        got = res["mb_empty_fused"]
+        lo, hi = tdist.process_cell_range(61, 2, COORDS[r][1])
+        widths = [w for p in case["perms"] for w in _column_shares(p, lo, hi) if w]
+        assert [w for k, w in got["calls"] if k == "hxt"] == widths
+        assert [w for k, w in got["calls"] if k == "wtx"] == sum(
+            ([w for w in _column_shares(p, lo, hi) if w] + [hi - lo]
+             for p in case["perms"]), [])
+        c = got["collectives"]
+        assert c["iteration"]["calls"] == c["genes iteration"]["calls"] == 5 * iters
+        assert np.array_equal(got["L"], results[0]["mb_empty_fused"]["L"])
+        np.testing.assert_allclose(got["L"], want.numpy(), rtol=1e-5)
+    assert all(_column_shares(p, 31, 61)[0] == 0 for p in case["perms"])
 
 
 def _jax_grid_fit(case):
@@ -463,7 +576,10 @@ _JAX_TOL = {"joint": (1e-4, (5e-3, 1e-6), (5e-3, 1e-6)),
             "fro": (1e-4, (5e-3, 1e-6), (5e-3, 1e-6)),
             "als": (1e-4, (5e-3, 1e-6), (5e-3, 1e-6)),
             "wf": (5e-5, (5e-3, 1e-6), (2e-4, 1e-6)),
-            "int8": (5e-4, (5e-3, 1e-6), None)}
+            "int8": (5e-4, (5e-3, 1e-6), None),
+            "mb": (1e-4, (5e-3, 1e-6), (5e-3, 1e-6)),
+            "mb_fro": (1e-4, (5e-3, 1e-6), (5e-3, 1e-6)),
+            "mb_int8": (5e-4, (5e-3, 1e-6), None)}
 
 
 @pytest.mark.parametrize("name", list(_JAX_TOL))
@@ -568,7 +684,9 @@ def test_estimator_replicas_bit_equal(ranks, name):
         assert res[key]["emb"].shape[0] == hi - lo
         assert res[key]["W"].shape == (32, 11)
         c = res[key]["collectives"]
-        cells, genes = (len(BLOCKS) + 1, len(BLOCKS) + 1) if name == "als" else (2, 1)
+        # ALS: n_blocks + 1 over each axis; minibatch: nb + 1 (4 batches of
+        # 95 cells, the loss)
+        cells, genes = {"als": (len(BLOCKS) + 1,) * 2, "mb": (5, 5)}.get(name, (2, 1))
         assert c["iteration"]["calls"] == cells * case["max_iter"]
         assert c["genes iteration"]["calls"] == genes * case["max_iter"]
         assert res[key]["timings"]["fit"] > 0
@@ -620,8 +738,6 @@ _REFUSALS = {
                           "'genes' axis (2 devices); choose a gene-axis size that divides "
                           "the gene count.", None),
     "column_differs": ("ValueError", "differs within cell column(s) [0, 1]", None),
-    "minibatch": ("NotImplementedError", "ROADMAP §1 item 1D, part B", None),
-    "checkpoint": ("NotImplementedError", "ROADMAP §1 item 1D, part B", None),
     "tiled": ("ValueError", "tiled sampling requires joint mode on a 1-D cell mesh "
               "(or one device); use sampling_method='random'.", ("models", "alpine.py")),
     "weighted": ("ValueError", "sampling_method='weighted' is not supported in "
@@ -653,6 +769,113 @@ def test_refusals_raise_on_every_rank(ranks, name):
 
 
 # ---------------------------------------------------------------------------
+# snapshots and the agreed max_iter
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("name", ["joint", "mb"])
+def test_resumed_grid_fit_is_the_uninterrupted_one(ranks, name):
+    """Joint (12 iterations, a snapshot every 4) and minibatch (6 epochs of
+    24-cell batches, every 2) fits interrupted after their first snapshot
+    and resumed by fresh models: every rank resumes from that snapshot
+    and ends bit for bit where the uninterrupted checkpointed fit ends
+    (chunk c's cell draws are keyed on c), with no snapshot left."""
+    _, results = ranks
+    every = {"joint": 4, "mb": 2}[name]
+    for res in results:
+        ck = res["checkpoint"]
+        assert ck[f"{name}_first"] == "interrupted"
+        assert ck[f"{name}_resumed_from"] == [every]
+        for field in ("loss", "W", "H", "Bs", "emb"):
+            assert _equal(ck[f"{name}_resumed"][field], ck[f"{name}_whole"][field]), field
+    assert results[0]["checkpoint"]["files_left"] == []
+    grid = [{"whole": r["checkpoint"][f"{name}_whole"]} for r in results]
+    _replicas_bit_equal(grid, "whole", w_whole=True)
+    L = grid[0]["whole"]["loss"][:, 0]
+    assert np.isfinite(L).all() and L[-1] < L[0]
+
+
+def test_chunked_grid_fit_is_the_plain_one(ranks):
+    """The step loop carries nothing across iterations but W, H and the
+    Bs, so the joint fit in chunks of 4 is the 12-iteration fit of the
+    same data (est_96) bit for bit."""
+    _, results = ranks
+    for res in results:
+        ck, plain = res["checkpoint"]["joint_whole"], res["est_96"]
+        for field in ("loss", "W", "H", "Bs", "emb"):
+            assert _equal(ck[field], plain[field]), field
+
+
+def test_snapshot_a_rank_keyed_on_the_grid(ranks):
+    """Each rank writes its own file; its key holds the grid's shape, the
+    rank's place and its gene rows (and, as on a cell mesh, the process
+    count, the cell layout of the columns and the column index)."""
+    _, results = ranks
+    paths = set()
+    for r, res in enumerate(results):
+        gi, ci = COORDS[r]
+        for key, path in res["checkpoint"]["keys"]:
+            if f"{os.sep}ck_joint{os.sep}" not in path:
+                continue
+            paths.add(path)
+            assert tuple(key["grid"]) == GRID and tuple(key["grid_place"]) == (gi, ci)
+            assert tuple(key["gene_range"]) == (16 * gi, 16 * gi + 16)
+            assert key["n_processes"] == WORLD and key["cell_shards"] == GRID[1]
+            assert key["process_index"] == ci and tuple(key["cell_layout"]) == (48, 48)
+    assert len(paths) == WORLD
+
+
+def test_other_topologies_snapshots_are_not_resumed(ranks):
+    """A directory holding a 1-D cell mesh's snapshots of the same fit (4
+    ranks, interrupted at iteration 4) and those a 2 × 1 grid's ranks
+    would write (same gene rows as the 2 × 2 ranks): the grid loads
+    nothing, runs the whole fit, and leaves the others' files."""
+    _, results = ranks
+    for r, res in enumerate(results):
+        ck = res["checkpoint"]
+        assert ck["shared_loaded"] == [None]
+        for field in ("loss", "W", "H", "Bs"):
+            assert _equal(ck["shared"][field], ck["joint_whole"][field]), field
+        assert len(ck["shared_files"]) == WORLD + GRID[0]
+        shared = {k.get("grid") and tuple(k["grid"]) for k, p in ck["keys"]
+                  if f"{os.sep}ck_shared{os.sep}" in p}
+        # the 2 × 1 snapshots: one a gene block, from column 0's ranks
+        assert shared == {None, (2, 2)} | ({(2, 1)} if COORDS[r][1] == 0 else set())
+
+
+def test_disagreeing_grid_snapshots_restart_every_rank(ranks):
+    """Ranks 0-2 hold the snapshot of iteration 8, rank 3 that of 4: every
+    rank restarts from scratch, only the coordinator warns, and the fit
+    ends bit for bit as the uninterrupted one."""
+    _, results = ranks
+    assert [r["checkpoint"]["disagree_loaded"] for r in results] == [[8], [8], [8], [4]]
+    assert [len(r["checkpoint"]["disagree_warnings"]) for r in results] == [1, 0, 0, 0]
+    assert "iterations [4, 8]" in results[0]["checkpoint"]["disagree_warnings"][0]
+    for res in results:
+        for field in ("loss", "W", "H", "Bs"):
+            assert _equal(res["checkpoint"]["disagree"][field],
+                          res["checkpoint"]["joint_whole"][field]), field
+
+
+def test_max_iter_none_takes_the_coordinators_elbow(ranks):
+    """max_iter=None with the last rank's elbow moved by 3: every rank fits
+    the coordinator's max_iter (so the fit ends, in step), the loss
+    histories are bit-equal, and the coordinator alone warns, naming both
+    elbows."""
+    _, results = ranks
+    first = results[0]["agreed"]
+    own = [r["agreed"]["own"][0] for r in results]
+    assert own[:3] == [first["own"][0]] * 3 and own[3] == own[0] + 3
+    for res in results:
+        got = res["agreed"]
+        assert got["max_iter"] == own[0]
+        assert got["loss"].shape == (own[0], 2 + len(KEYS))
+        assert np.array_equal(got["loss"], first["loss"])
+    assert [len(r["agreed"]["warnings"]) for r in results] == [1, 0, 0, 0]
+    assert f"[{own[0]}, {own[3]}]" in first["warnings"][0]
+
+
+# ---------------------------------------------------------------------------
 # a 1 × 1 grid in this process
 # ---------------------------------------------------------------------------
 
@@ -667,7 +890,7 @@ def grid_of_one():
         tdist.shutdown()
 
 
-@pytest.mark.parametrize("name", ["joint", "als", "wf"])
+@pytest.mark.parametrize("name", ["joint", "als", "wf", "mb"])
 def test_grid_of_one_is_the_step_loop(grid_of_one, name):
     """A 1 × 1 grid runs the steps with all-reduces over groups of one,
     which change nothing: fit_scan on it is the single-device step loop
@@ -676,16 +899,18 @@ def test_grid_of_one_is_the_step_loop(grid_of_one, name):
     t = torch.from_numpy
     cfg = tmu.MUConfig(**case["cfg"])
     draw = (lambda it: t(case["counts"][it])) if "counts" in case else None
+    cells = (lambda it: t(case["perms"][it])) if "perms" in case else None
     args = (cfg, t(case["W0"]), t(case["H0"]), tuple(t(b) for b in case["Bs0"]),
             t(case["X"]), [t(y) for y in case["Ys"]],
             (t(case["lam"]), *case["hyper"]))
     place = tmesh.Placement(grid_of_one)
     tdist.reset_collectives()
-    got = tmu.fit_scan(*args, draw_counts=draw, group=place.group,
-                       gene_group=place.gene_group)
-    assert tdist.collectives["genes iteration"]["calls"] == (
-        (len(BLOCKS) + 1) * cfg.max_iter if name == "als" else cfg.max_iter)
-    want = tmu._fit_scan_steps(*args, draw, None, None)
+    got = tmu.fit_scan(*args, draw_counts=draw, draw_cells=cells, group=place.group,
+                       gene_group=place.gene_group, cell_range=(0, cfg.n_cells))
+    # ALS n_blocks + 1 an iteration, minibatch 3 batches + the loss an epoch
+    assert tdist.collectives["genes iteration"]["calls"] == cfg.max_iter * {
+        "als": len(BLOCKS) + 1, "mb": 4}.get(name, 1)
+    want = tmu._fit_scan_steps(*args, draw, cells, None)
     for a, b in zip(got[:2] + got[3:], want[:2] + want[3:]):
         assert torch.equal(a, b)
     assert all(torch.equal(a, b) for a, b in zip(got[2], want[2]))
@@ -717,3 +942,74 @@ def test_grid_of_one_estimator_is_the_step_loop(grid_of_one, monkeypatch):
     Ws, Hs, _ = tmu.scale_matrices(cfg.blocks, *want[:3])
     assert np.array_equal(np.concatenate(model.matrices["Ws"], axis=1), Ws.numpy())
     assert np.array_equal(ad.obsm["ALPINE_embedding"], Hs[5:].numpy().T)
+
+
+@pytest.mark.parametrize("model_kw,fit_kw", [
+    ({}, {"batch_size": 24}), ({"use_als": True}, {"checkpoint_every": 4}),
+    ({}, {"batch_size": 24, "checkpoint_every": 2})],
+    ids=["minibatch", "als_checkpoint", "minibatch_checkpoint"])
+def test_grid_of_one_fits_are_single_device(grid_of_one, tmp_path, model_kw, fit_kw):
+    """The estimator's minibatch and checkpointed fits on a 1 × 1 grid are
+    the single-device fits bit for bit where one device runs the step
+    loop too (minibatch, ALS): the grid's global cell draw is the
+    single-device stream, the chunks draw alike, and the all-reduces over
+    groups of one change nothing."""
+    case = _ESTIMATOR["95"]
+    out = []
+    for device in ("cpu", grid_of_one):
+        kw = dict(fit_kw)
+        if "checkpoint_every" in kw:
+            kw["checkpoint_dir"] = str(tmp_path / str(len(out)))
+        model = ALPINE(device=device, **{**KW, **model_kw})
+        ad = _port_adata(case)
+        model.fit(ad, KEYS, max_iter=8, **kw)
+        out.append((model, ad))
+    (one, ad1), (grid, adg) = out
+    assert np.array_equal(one.loss_history_, grid.loss_history_)
+    for name in ("Ws", "Hs", "Bs"):
+        assert _equal(one.matrices[name], grid.matrices[name]), name
+    assert np.array_equal(ad1.obsm["ALPINE_embedding"], adg.obsm["ALPINE_embedding"])
+    assert not any(os.listdir(tmp_path / d) for d in os.listdir(tmp_path))
+
+
+def test_grid_of_one_resumed_joint_fit_is_the_plain_one(grid_of_one, tmp_path):
+    """A joint fit on a 1 × 1 grid with a snapshot every 3 iterations of 9,
+    interrupted after its first and resumed by a fresh model, is the
+    uninterrupted fit of the grid without snapshots bit for bit."""
+    from alpine_tpu_torch.io.checkpoint import FitCheckpointer
+
+    case = _ESTIMATOR["96"]
+
+    def fit(**kw):
+        model = ALPINE(device=grid_of_one, **KW)
+        ad = _port_adata(case)
+        model.fit(ad, KEYS, max_iter=9, **kw)
+        return model, ad
+
+    plain, ad_plain = fit()
+    orig_save, loaded = FitCheckpointer.save, []
+
+    def interrupting_save(self, *args):
+        orig_save(self, *args)
+        raise KeyboardInterrupt
+
+    ck = dict(checkpoint_dir=str(tmp_path), checkpoint_every=3)
+    FitCheckpointer.save = interrupting_save
+    try:
+        with pytest.raises(KeyboardInterrupt):
+            fit(**ck)
+    finally:
+        FitCheckpointer.save = orig_save
+    orig_load = FitCheckpointer.load
+    FitCheckpointer.load = lambda self: loaded.append(orig_load(self)[0]) or orig_load(self)
+    try:
+        resumed, ad_resumed = fit(**ck)
+    finally:
+        FitCheckpointer.load = orig_load
+    assert loaded == [3]
+    assert np.array_equal(plain.loss_history_, resumed.loss_history_)
+    for name in ("Ws", "Hs", "Bs"):
+        assert _equal(plain.matrices[name], resumed.matrices[name]), name
+    assert np.array_equal(ad_plain.obsm["ALPINE_embedding"],
+                          ad_resumed.obsm["ALPINE_embedding"])
+    assert os.listdir(tmp_path) == []
