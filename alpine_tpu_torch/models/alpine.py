@@ -30,13 +30,21 @@ device: each process passes its own cells as ``adata``, its fit and
 transform compute on those cells (``mu.fit_scan`` with the mesh's process
 group: all-reduces of the small statistics only) and write its rows of
 ``obsm``, while W, the Bs and the loss history are replicated.  Every fit
-mode runs so but the JAX package's refusals (``n_restarts > 1``,
-"weighted", ALS minibatches): full-batch joint and ALS fits give the
-single-process trajectory, weighted_fast too (every process draws the
-global balanced draw and counts its own cells), random minibatch and
-tiled fits sample each process's own cells (stratified by process, as in
-the JAX package), and ``checkpoint_dir`` snapshots each process's state
-in a file of its own.
+mode runs so but the JAX package's refusal of ``n_restarts > 1``:
+full-batch joint and ALS fits give the single-process trajectory,
+weighted_fast too (every process draws the global balanced draw and
+counts its own cells), random joint minibatch and tiled fits sample each
+process's own cells (stratified by process, as in the JAX package), and
+``checkpoint_dir`` snapshots each process's state in a file of its own.
+ALS minibatch and gathered "weighted" fits (joint or ALS) take the global
+draw: every process draws the single-device epoch (a permutation, or the
+balanced draw with replacement over the global probabilities, which one
+host gather of the cells' joint-label codes gives every process) and
+runs its share of every batch, so the trajectory is the single-process
+one.  For "weighted" this departs by design from the JAX package's 1-D
+mesh, which pre-shuffles the cells globally and draws within each shard:
+here no cell crosses processes, and the draw is the single-device one
+(the JAX package's 2-D mesh semantics).
 
 ``device=distributed.global_gene_cell_mesh(n_g, n_c)`` fits over a grid of
 processes: the process at (gi, ci) passes the cells of run ci with every
@@ -45,25 +53,26 @@ block gi, which the gene count must divide evenly) to its card and fits
 its W rows and H columns, summing each iteration's statistics over its
 gene row and its cell column (``mu.fit_scan`` with both groups: P1/P2 on
 the block, never K1/K4).  Full-batch joint, ALS and weighted_fast fits run
-so, and random minibatch fits too: every process draws the global epoch
-permutation (seeded as a single-device fit seeds it) and keeps its
-column's cells of every batch.  ``checkpoint_dir`` snapshots each
-process's W rows and H columns in a file of its own, whose key holds the
-grid's shape, the process's place and its gene rows; the processes agree
-on the resume.  After the fit one gather of W's rows gives every process
-the whole W.  A transform sums 2WᵀX and WᵀW over the gene blocks and runs
+so, and the minibatch fits too (random, ALS and "weighted"): every
+process draws the global epoch (seeded as a single-device fit seeds it)
+and keeps its column's cells of every batch.  ``checkpoint_dir``
+snapshots each process's W rows and H columns in a file of its own,
+whose key holds the grid's shape, the process's place and its gene rows;
+the processes agree on the resume.  After the fit one gather of W's rows
+gives every process the whole W.  A transform sums 2WᵀX and WᵀW over the gene blocks and runs
 K3 on the process's columns.  On a grid the JAX package's refusals stay
-(restarts, "weighted", tiled, ALS minibatches).  A sharded fit with
-``max_iter=None`` takes the coordinator's elbow on every process.
+(restarts, tiled).  A sharded fit with ``max_iter=None`` takes the
+coordinator's elbow on every process.
 
 Random draws come from ``torch.Generator``s seeded with ``random_state``
 through ``draw_init``, ``draw_restart_init``, ``draw_counts_stream``,
 ``draw_cells_stream``, ``draw_tiles_stream`` and ``draw_transform_h0``;
 they differ from the JAX package's ``jax.random`` streams by design.  The
 tiled pre-shuffle is numpy's, as in the JAX package.  On a cell mesh the
-cell and tile streams of the process at mesh position s > 0 take s as a
-word of their seeds; the counts stream does not (every process draws the
-global draw), nor does a grid's cell stream (the global permutation).
+random joint minibatch's cell stream and the tile stream of the process at
+mesh position s > 0 take s as a word of their seeds; the counts stream
+does not (every process draws the global draw), nor does the cell stream
+of a global-draw fit (a grid's, ALS minibatch, "weighted").
 """
 
 from __future__ import annotations
@@ -391,15 +400,6 @@ class ALPINE:
                 "batch_size (< n_cells); full-batch fits use "
                 "sampling_method='random'."
             )
-        if sharded and sampling_method == "weighted":
-            # the gathered draw needs a global pre-shuffle: a cell exchange
-            # across processes
-            raise ValueError(
-                "sampling_method='weighted' is not supported in "
-                "multi-process fits; use 'weighted_fast' (the exact "
-                "balanced counts strategy — supported multi-process) "
-                "or 'random'."
-            )
 
         # (genes x cells) layout, as in the reference (main.py:104); on a
         # cell mesh this process's cells
@@ -424,13 +424,6 @@ class ALPINE:
             n_sample = int(chunk_sizes.sum())
             shard = placement.process_chunk_index
             offset = int(chunk_sizes[:shard].sum())
-        if (sharded and self.use_als and batch_size is not None
-                and batch_size < n_sample):
-            raise ValueError(
-                "ALS minibatch fits are not supported in multi-process "
-                "mode; use full-batch ALS (batch_size=None) or joint-mode "
-                "minibatch (use_als=False)."
-            )
         if sampling_method == "tiled" and batch_size >= n_sample:
             raise ValueError(
                 f"sampling_method='tiled' is a minibatch mode: batch_size "
@@ -446,6 +439,11 @@ class ALPINE:
                 f"sampling_method='weighted'."
             )
         coordinator = shard == 0 and placement.gene_index == 0
+        # over processes the minibatch fits of a grid and the ALS minibatch
+        # and gathered weighted fits of either mesh draw the single-device
+        # epoch, and each process runs its share of every batch
+        global_draw = sharded and (grid or sampling_method == "weighted" or (
+            self.use_als and batch_size is not None and batch_size < n_sample))
 
         # commit estimator state only after the encoders fitted
         self.fe = fe
@@ -480,7 +478,13 @@ class ALPINE:
         del Xh
         Ysd = [torch.from_numpy(np.pad(y, ((0, 0), (0, pad)))).to(dev) for y in Ys]
         cell_perm = tables = probs = h0_cols = None
-        if sampling_method == "weighted":
+        if sampling_method == "weighted" and sharded:
+            # the global probabilities, in the global cell order
+            from alpine_tpu_torch.parallel import distributed as dist
+
+            probs = balanced_sample_probabilities(dist.allgather_cell_codes(
+                placement, joint_label_codes(Ys), chunk_sizes))
+        elif sampling_method == "weighted":
             probs = balanced_sample_probabilities(joint_label_ids(Ys))
         if sampling_method == "weighted_fast" and sharded:
             cell_perm, h0_cols, tables = self._sharded_group_tables(
@@ -546,12 +550,12 @@ class ALPINE:
 
         def fit_from(cfg, W0, H0, Bs0, restart=0, chunk=None, report=progress):
             key = dict(restart=restart, chunk=chunk)
-            # on a mesh this process's window of the global count draw; on
-            # a cell mesh its own cells' and tiles' streams, on a grid the
-            # global cell draw, of which it keeps its column's cells
+            # on a mesh this process's window of the global count draw; the
+            # global cell draw, of which it keeps its cells' share; else on
+            # a cell mesh its own cells' and tiles' streams
             draw_key = dict(key, n_out=n_local) if sharded else key
             cell_range = None
-            if grid:
+            if global_draw:
                 cell_range = (offset, offset + n_local)
             elif sharded:
                 key["shard"] = shard
@@ -560,8 +564,8 @@ class ALPINE:
             if cfg.tiled:
                 cells = draw_tiles_stream(Xd.shape[1] // cfg.tile, rs, dev, **key)
             elif cfg.minibatch:
-                cells = draw_cells_stream(n_sample if grid else n_local, rs, dev,
-                                          probs, **key)
+                cells = draw_cells_stream(n_sample if global_draw else n_local,
+                                          rs, dev, probs, **key)
             else:
                 cells = None
             return mu.fit_scan(cfg, W0, H0, Bs0, Xd, Ysd, hyper, draw_counts=draw,
@@ -938,12 +942,14 @@ class ALPINE:
         explicit integer dtype that one process's cells cannot store raises
         on every process.  Returns (storage dtype, cell counts in mesh
         order).  Unlike the JAX package it also compares
-        ``sampling_method``: weighted_fast gathers a group layout that the
-        other modes do not, so a mixed fleet would hang rather than
-        raise.  On a grid the gene count must divide the gene axis (the
-        JAX package's check, before the upload), and the processes of a
-        cell column must pass the same cells: a digest of X's
-        fingerprint (``x_fp``) and the labels is compared along it."""
+        ``sampling_method``: weighted_fast gathers a group layout and
+        "weighted" the cells' label codes, which the other modes do not,
+        and ``use_als`` (in the constructor's digest) and ``batch_size``
+        decide whether the draw is the global one, so a mixed fleet would
+        hang rather than raise.  On a grid the gene count must divide the
+        gene axis (the JAX package's check, before the upload), and the
+        processes of a cell column must pass the same cells: a digest of
+        X's fingerprint (``x_fp``) and the labels is compared along it."""
         from alpine_tpu_torch.parallel import distributed as dist
 
         def digest(blob: str) -> int:

@@ -41,14 +41,15 @@ at zero and stay exactly zero (``bucket_blocks``, ``auto_bucket_blocks``,
 ``mask_block_padding``).
 
 With a process group (``fit_scan_sharded``) each rank holds a run of the
-cells and every mode but gathered weighted draws and ALS minibatches runs
-on it: the same loops, whose sums over cells are all-reduced (the steps'
-``r``, the fused loop's one call an iteration).  On a ("genes", "cells")
-grid a rank holds a block of genes × cells: the steps also sum their
-sums over genes (WᵀX, WᵀW) over the genes group (``rg``), and the
-full-batch joint, ALS and weighted_fast fits and the random minibatch
-fits (each rank's share of the batches of the global draw) run as steps
-whose X products are P1 ``hxt`` and P2 ``wtx`` on the rank's block.
+cells and every mode runs on it: the same loops, whose sums over cells
+are all-reduced (the steps' ``r``, the fused loop's one call an
+iteration).  On a ("genes", "cells") grid a rank holds a block of genes ×
+cells: the steps also sum their sums over genes (WᵀX, WᵀW) over the genes
+group (``rg``), and every fit runs as steps whose X products are P1
+``hxt`` and P2 ``wtx`` on the rank's block.  Gathered weighted draws and
+ALS minibatches (on either mesh) and a grid's random minibatches take the
+global draw: every rank draws the single-device epoch and runs its share
+of each batch (``cell_range``, ``_column_shares``).
 
 A verbose fit passes ``progress``: the loops call it every
 ``progress_every(max_iter)`` iterations and after the last with the
@@ -585,12 +586,12 @@ def _report(progress, losses, it: int, max_iter: int) -> None:
 
 
 def _column_shares(idx: torch.Tensor, batch: int, lo: int, hi: int):
-    """A grid rank's share of each batch of a global epoch draw ``idx``:
-    the draw cut into ⌈n / batch⌉ batches of ``batch`` cells (the last one
-    short), each kept to the cells in [lo, hi) (its column's) in draw
-    order and shifted by −lo; a share is empty where its batch holds none
-    of them.  Two reads to the host an epoch: the kept cells and the
-    shares' sizes."""
+    """A rank's share of each batch of a global epoch draw ``idx``: the
+    draw cut into ⌈n / batch⌉ batches of ``batch`` cells (the last one
+    short), each kept to the cells in [lo, hi) (the rank's, on a grid its
+    column's) in draw order, duplicates included, and shifted by −lo; a
+    share is empty where its batch holds none of them.  Two reads to the
+    host an epoch: the kept cells and the shares' sizes."""
     keep = (idx >= lo) & (idx < hi)
     nb = -(-idx.shape[0] // batch)
     sizes = torch.nn.functional.pad(keep.to(torch.int32),
@@ -650,14 +651,20 @@ def _fit_scan_steps(cfg: MUConfig, W0, H0, Bs0, X, Ys, hyper, draw_counts,
     loop ("genes setup").  An iteration then makes, over cells and over
     genes: joint and weighted_fast 2 and 1 (the step, the loss over
     cells), ALS n_blocks + 1 and n_blocks + 1 (the loss's WᵀW over genes).
-    A grid's minibatch epoch draws the global permutation of the
-    cfg.n_cells cells (the JAX package's global sampler, not a
-    shard-local one) and each rank keeps its share of every batch, the
-    cells of its column's ``cell_range`` (``_column_shares``); every rank
-    runs all ⌈n / batch size⌉ batches, an empty share launching nothing
-    but joining both all-reduces, and the loss sums WᵀX and WᵀW over the
-    genes in one call: nb + 1 all-reduces over each axis an epoch.  The
-    ranks of a column hold the same share, so their calls over genes
+    With a ``cell_range`` = (lo, hi), the cells of this rank's run (on a
+    grid, of its cell column), a minibatch epoch takes the global draw
+    instead: ``draw_cells(t)`` is the single-device epoch over the
+    cfg.n_cells cells (a permutation, or n balanced draws with
+    replacement: the JAX package's global sampler, not a shard-local
+    one), and each rank keeps its share of every batch, the drawn cells in
+    [lo, hi) in draw order, duplicates included (``_column_shares``).
+    Every rank runs all nb = ⌈n / batch size⌉ batches, an empty share
+    launching nothing but joining every all-reduce of its step with
+    zeros, so the ranks stay in step.  An epoch then makes, over cells
+    and (on a grid) over genes: a joint step's nb + 1 each (one a batch,
+    the loss's; the loss sums WᵀX and WᵀW over the genes in one call),
+    an ALS step's nb · n_blocks + 1 each (n_blocks a batch, the loss's).
+    The ranks of a column hold the same share, so their calls over genes
     have equal lengths."""
     fused = cfg.backend == "fused"
     wide = torch.promote_types(X.dtype, torch.float32)  # float64 stays float64
@@ -923,14 +930,18 @@ def fit_scan(cfg: MUConfig, W0, H0, Bs0, X, Ys, hyper, draw_counts=None,
     process's, with a group) and losses (max_iter, 2 + n_cov) on the
     device: [total, recon, pred_0, ...] per iteration.
 
+    ``cell_range`` = (lo, hi), this process's cells (on a grid its
+    column's), makes a minibatch fit over a group take the global draw:
+    ``draw_cells`` then draws the single-device epoch of cfg.n_cells cells
+    and the rank keeps its share of every batch (``_fit_scan_steps``).  A
+    gathered weighted fit, an ALS minibatch fit and any minibatch fit on a
+    grid need it; a random joint minibatch fit on a cell mesh without it
+    samples each rank's own cells.
+
     On a ("genes", "cells") grid ``group`` is the process's cells group
     (its gene row) and ``gene_group`` its genes group (its cell column):
     X and W0 hold its gene block's rows, X, H0 and the Ys its cells, and
-    ``draw_counts`` draws its column's counts.  A random minibatch fit's
-    ``draw_cells`` draws the global epoch permutation of cfg.n_cells
-    cells, and ``cell_range`` = (lo, hi) gives the column's cells, of
-    which the rank keeps its share of every batch.  The full-batch joint,
-    ALS and weighted_fast fits and the random minibatch fits run as steps
+    ``draw_counts`` draws its column's counts.  Every fit runs as steps
     (``_fit_scan_steps``, P1/P2 on the block), never the fused loop, whose
     kernels need all of WᵀX inside.
     W comes back as this process's rows, bit-equal along its gene row; H
@@ -943,20 +954,21 @@ def fit_scan(cfg: MUConfig, W0, H0, Bs0, X, Ys, hyper, draw_counts=None,
     Ys = [y.to(cfg.xdt).contiguous() for y in Ys]
     n_local = cfg.n_cells if group is None else H0.shape[1]
     _check_inputs(cfg, W0, H0, X, Ys, n_local, sharded=group is not None)
-    if group is not None and (cfg.weighted or (cfg.use_als and cfg.minibatch)):
-        raise ValueError("a fit over a process group runs neither gathered "
-                         "weighted draws nor ALS minibatches")
     if gene_group is not None and group is None:
         raise ValueError("a fit over a grid needs its cells group and its "
                          "genes group")
     if gene_group is not None and cfg.tiled:
         raise ValueError("tiled sampling runs on one device or a 1-D cell "
                          "mesh, not on a ('genes', 'cells') grid")
-    if gene_group is not None and cfg.minibatch and (
-            cell_range is None or cell_range[1] - cell_range[0] != n_local):
-        raise ValueError("a minibatch fit on a grid needs its column's "
-                         f"cell_range (lo, hi) of {n_local} cells; got "
-                         f"{cell_range}")
+    # the fits over a group that take the global draw
+    global_draw = group is not None and cfg.minibatch and not cfg.tiled and (
+        cell_range is not None or gene_group is not None or cfg.weighted
+        or cfg.use_als)
+    if global_draw and (cell_range is None
+                        or cell_range[1] - cell_range[0] != n_local):
+        raise ValueError("a gathered weighted, ALS minibatch or grid minibatch "
+                         "fit over processes needs this process's cell_range "
+                         f"(lo, hi) of {n_local} cells; got {cell_range}")
     if cfg.weighted_counts and (draw_counts is None or not cfg.n_cov):
         raise ValueError("weighted_counts needs covariates and a draw_counts "
                          "callable (weighted sampling balances over them)")
@@ -980,7 +992,7 @@ def fit_scan(cfg: MUConfig, W0, H0, Bs0, X, Ys, hyper, draw_counts=None,
             W, H, Bs, losses = _fit_scan_steps(
                 cfg, W0, H0, Bs0, X, Ys, hyper, draw_counts, draw_cells,
                 progress, group, n_local, gene_group,
-                cell_range if gene_group is not None and cfg.minibatch else None)
+                cell_range if global_draw else None)
     return W, H[:, :n_local], Bs, losses
 
 

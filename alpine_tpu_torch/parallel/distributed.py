@@ -30,9 +30,10 @@ the same program on its own cells:
 - The host-side helpers (``process_allgather_rows``,
   ``chunk_cell_sizes``, ``assert_same_across_processes``,
   ``assert_same_along_genes``, ``allgather_group_layout``,
-  ``allgather_gene_blocks``) check that the processes' inputs agree
-  before a fit and build the tables a fit shares; they exchange small host
-  rows over a gloo group, since NCCL moves only device tensors.
+  ``allgather_cell_codes``, ``allgather_gene_blocks``) check that the
+  processes' inputs agree before a fit and build the tables a fit shares;
+  they exchange small host rows over a gloo group, since NCCL moves only
+  device tensors.
 - ``all_reduce_sum`` is the sharded fit's one collective on device
   tensors, counted (and, on request, timed) in ``collectives``.
 
@@ -44,6 +45,7 @@ from __future__ import annotations
 
 import datetime
 import os
+import time
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -55,7 +57,9 @@ _host_group = None
 
 # the sharded fit's all-reduces since reset_collectives(), by tag ("setup":
 # the statistics before the loop, "iteration": one an iteration): calls and
-# bytes; with timing on, the CUDA events around each call
+# bytes; with timing on, the CUDA events around each call.  The host gather
+# of a gathered weighted fit's label codes counts under "labels gather",
+# with its bytes received and its host milliseconds ("host_ms")
 collectives: Dict[str, Dict[str, int]] = {}
 _events: Optional[Dict[str, List]] = None
 
@@ -415,6 +419,33 @@ def allgather_group_layout(placement, local_codes: np.ndarray):
         m_gp[int(r[0]), np.searchsorted(g_codes, codes[mask].astype(np.int64))] \
             = cnts[mask].astype(np.int64)
     return g_codes, m_gp
+
+
+def allgather_cell_codes(placement, local_codes: np.ndarray,
+                         chunk_sizes: np.ndarray) -> np.ndarray:
+    """Every cell's joint-label code (``utils.sampling.joint_label_codes``)
+    in the global cell order: the runs of the cell axis in order (on a
+    grid, the cell columns'), each of ``chunk_sizes[c]`` cells.  A
+    gathered weighted fit over processes derives the global balanced
+    probabilities from them, so every process draws the single-device
+    draw.  One host allgather of the rows padded to the widest run (int64:
+    8 · processes · widest bytes received, 8 · n_cells on equal runs of a
+    cell mesh), counted under "labels gather" in ``collectives``.
+    Collective: every process calls it with its own cells' codes."""
+    widest = int(np.max(chunk_sizes))
+    row = np.full(2 + widest, -1, np.int64)
+    row[0], row[1] = placement.process_chunk_index, placement.gene_index
+    row[2:2 + len(local_codes)] = local_codes
+    t0 = time.perf_counter()
+    rows = process_allgather_rows(row)
+    c = collectives.setdefault("labels gather", {"calls": 0, "bytes": 0, "host_ms": 0.0})
+    c["calls"] += 1
+    c["bytes"] += rows.nbytes
+    c["host_ms"] += (time.perf_counter() - t0) * 1e3
+    # on a grid a cell column's processes hold the same cells: gene block 0's
+    rows = rows[rows[:, 1] == 0]
+    rows = rows[np.argsort(rows[:, 0])]
+    return np.concatenate([r[2:2 + int(m)] for r, m in zip(rows, chunk_sizes)])
 
 
 def allgather_gene_blocks(placement, block: np.ndarray) -> np.ndarray:

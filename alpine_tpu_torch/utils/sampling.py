@@ -1,14 +1,16 @@
 """Class-balanced sampling tables of the port (host-side numpy).
 
 The port's own copy of the parts of ``alpine_tpu/utils/sampling.py`` that
-``sampling_method="weighted_fast"`` needs: the joint covariate label of
-each cell, the balanced per-cell probabilities of the reference sampler
-(sklearn ``compute_sample_weight("balanced")`` normalized as torch's
-``WeightedRandomSampler`` does), and the group-sort tables of the grouped
-sampler (``alpine_tpu_torch.ops.mu.grouped_balanced_counts``), with the
-canonical joint-label codes and the window tables a fit over processes
-builds its part of the global draw from.  The draws themselves happen on
-the device.
+the balanced samplers need: the joint covariate label of each cell, the
+balanced per-cell probabilities of the reference sampler (sklearn
+``compute_sample_weight("balanced")`` normalized as torch's
+``WeightedRandomSampler`` does; ``sampling_method="weighted"``), and the
+group-sort tables of the grouped sampler
+(``alpine_tpu_torch.ops.mu.grouped_balanced_counts``; "weighted_fast"),
+with the canonical joint-label codes from which a fit over processes
+builds the global draw (weighted_fast's window tables; the gathered
+weighted fit's global probabilities, from every cell's code).  The draws
+themselves happen on the device.
 """
 
 from __future__ import annotations
@@ -33,7 +35,9 @@ def joint_label_ids(Ys: Sequence[np.ndarray]) -> np.ndarray:
 
 def balanced_sample_probabilities(joint_ids: np.ndarray) -> np.ndarray:
     """Per-cell probabilities of the balanced sampler:
-    w_i = n / (n_groups · count[group_i]), normalized to sum 1."""
+    w_i = n / (n_groups · count[group_i]), normalized to sum 1.  Any
+    integer naming each cell's joint group will do: ``joint_label_ids``
+    and ``joint_label_codes`` of the same cells give the same bits."""
     _, inv, counts = np.unique(joint_ids, return_inverse=True, return_counts=True)
     w = len(joint_ids) / (len(counts) * counts[inv].astype(np.float64))
     w /= w.sum()

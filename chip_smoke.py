@@ -115,30 +115,43 @@ Phases, each printing one JSON line:
           calls, bytes and ms).  Ranks
           share one card: no time here is a multi-GPU speed;
   slice_sharded_modes  the other fit modes over a cell mesh (the slice's
-          model, int8 named): one device's weighted_fast (20 iterations)
-          and ALS (10) fits, then the same on one NCCL process (this one),
-          bit for bit; then 2 gloo ranks spawned on the card (50,000 cells
-          each), each fitting weighted_fast (its first draws concatenated
-          must be one device's; a cached transform after, against the
-          uncached one), ALS (both within loss rtol 5e-4 and H relative
-          Frobenius 5e-3 of one device), 5 epochs of random minibatch and
-          of tiled batches of 8,192 (finite, falling losses; one P1 and
-          one P2 launch a batch, P2 once more an epoch), and a
-          weighted_fast fit with a snapshot every 5 iterations of 10,
-          interrupted after the first and resumed (bit for bit the
-          uninterrupted one); every cell's H changed by each fit, the
-          launches of K4/P1/P2/K3 and the all-reduces counted from zero
-          in every world, W and the losses bit-equal across the ranks;
-          each rank prints a slice_sharded_modes_rank line a mode
-          (seconds, device ms an iteration or epoch, all-reduce calls,
-          bytes and ms); then K4 alone at 50,000 cells and at 50,001
-          (rows off 16-byte alignment) beside its twin 50,016;
+          model, int8 named): one device's weighted_fast (20 iterations),
+          ALS (10) and ALS "weighted" (10 epochs of 8,192 draws) fits,
+          then those and the ALS minibatch and "weighted" fits (10 epochs
+          of 8,192, bit for bit slice_minibatch_als and slice_weighted) on
+          one NCCL process (this one), bit for bit; then 2 gloo ranks
+          spawned on the card (50,000 cells each), each fitting
+          weighted_fast (its first draws concatenated must be one
+          device's; a cached transform after, against the uncached one),
+          ALS, 5 epochs of random minibatch and of tiled batches of 8,192
+          (finite, falling losses; one P1 and one P2 launch a batch, P2
+          once more an epoch), the three global-draw fits (ALS minibatch,
+          "weighted", ALS "weighted": each rank its share of every batch
+          of the single-device epoch; P1 once and P2 once a block for a
+          non-empty share, P2 once an epoch; nb · blocks + 1 all-reduces
+          an epoch; a weighted fit's one gather of the label codes), the
+          modes with a one-device reference within loss rtol 5e-4 and H
+          relative Frobenius 5e-3 of it, and a weighted_fast fit with a
+          snapshot every 5 iterations of 10, interrupted after the first
+          and resumed (bit for bit the uninterrupted one); every cell's H
+          changed by each fit (but the gathered weighted ones, which leave
+          undrawn cells alone), the launches of K4/P1/P2/K3 and the
+          all-reduces counted from zero in every world, W, the Bs and the
+          losses bit-equal across the ranks; each rank prints a
+          slice_sharded_modes_rank line a mode (seconds, device ms an
+          iteration or epoch, launches, all-reduce calls, bytes and ms; a
+          global-draw fit its shares of every batch and its empty ones, a
+          weighted one the label gather's bytes and ms); then K4 alone at
+          50,000 cells and at 50,001 (rows off 16-byte alignment) beside
+          its twin 50,016;
   slice_gene_cell  the slice's model (int8 named) over ("genes", "cells")
           grids of processes (distributed.global_gene_cell_mesh), 10
           iterations a fit: a 1 x 1 grid on one NCCL process (this one)
-          fits joint, ALS, weighted_fast and random minibatches of 8,192
-          (10 epochs: P1 13 and P2 14 times an epoch, also bit for bit
-          the single-device estimator's minibatch fit), each bit for bit
+          fits joint, ALS, weighted_fast and minibatches of 8,192 from the
+          global draw, random, ALS and "weighted" (10 epochs: P1 13 and P2
+          14 times an epoch, ALS 40; also bit for bit the single-device
+          estimator's fits: slice_minibatch, slice_minibatch_als and
+          slice_weighted), each bit for bit
           the step loop (mu._fit_scan_steps) called directly on its inputs
           on one device, P1/P2 only (no K1/K4), the joint fit's losses
           beside the slice's K1 fit, and a transform (one K3), and a joint
@@ -147,21 +160,24 @@ Phases, each printing one JSON line:
           then 4 gloo ranks spawned on the card as a 2 x 2 grid (1,000
           genes x 50,000 cells a rank: the cells of its column, every
           gene, memory-mapped from one file) run the three full-batch
-          modes, 5 minibatch epochs from the global draw (each rank its
-          column's share of every batch), a transform and the
-          checkpointed joint fit (snapshots a rank in one directory, the
-          resume from iteration 5 on every rank, bit for bit the
-          uninterrupted fit), and 2 ranks as a 2 x 1 grid (1,000 x
+          modes, 5 epochs of each minibatch mode from the global draw
+          (each rank its column's share of every batch), a transform and
+          the checkpointed joint and "weighted" fits (the weighted one 5
+          epochs with a snapshot every 2; snapshots a rank in one
+          directory, the resume on every rank, bit for bit the
+          uninterrupted checkpointed fit), and 2 ranks as a 2 x 1 grid (1,000 x
           100,000 a rank) the joint fit; each rank prints a
           slice_gene_cell_rank line a mode (coordinates, genes, cells,
           device ms an iteration or epoch, launches, all-reduce calls,
           bytes and ms an iteration over each axis, whether its W, H and
           Bs are bit-equal to its replicas', its loss gap to world 1; a
-          minibatch fit its shares of every batch and its empty ones) and
-          a line for its checkpointed fit (snapshot seconds and bytes);
+          minibatch fit its shares of every batch and its empty ones, a
+          weighted fit the label gather's bytes and ms) and a line for
+          each checkpointed fit (snapshot seconds and bytes);
           checked: launches, one genes all-reduce of K x (local cells + K)
           values an iteration (ALS n_blocks + 1; a minibatch epoch nb + 1
-          over each axis, the bytes from the shares), replicas, losses
+          over each axis, ALS nb · n_blocks + 1, the bytes from the
+          shares), replicas, losses
           rtol 5e-4 and (full batch) H relative Frobenius 5e-3 against
           world 1, the resumed fits, transforms at rtol
           1e-6 against one device's K3 on the same gene-block sums of 2WᵀX
@@ -175,8 +191,9 @@ Phases, each printing one JSON line:
           free_device_cache() and the uncached transform;
   slice_als  the same fit with use_als=True (hxt once and wtx three times
           an iteration, fused_iteration never) and a cached transform;
-  slice_minibatch, slice_minibatch_als, slice_weighted, slice_tiled  fits
-          of 10 epochs with batch_size=8192 (13 batches an epoch): random
+  slice_minibatch, slice_minibatch_als, slice_weighted, slice_tiled  (run
+          after slice, before the mesh phases, whose references they are)
+          fits of 10 epochs with batch_size=8192 (13 batches an epoch): random
           minibatch joint, the same with use_als=True,
           sampling_method="weighted" (balanced draws with replacement) and
           sampling_method="tiled" (64 whole 128-cell tiles a batch of 782,
@@ -251,7 +268,13 @@ slice_optimize_paths; K1 and K3 again with world 2's launches of
 slice_optimize_sharded, at the same folds; hxt, wtx and fused_transform
 at a 2 x 2 grid's block, 1,000 genes x 50,000 cells, with the four ranks'
 launches of slice_gene_cell; hxt and wtx at a 2 x 2 grid rank's share of
-a minibatch batch with the four ranks' minibatch launches) and, last, the
+a minibatch batch with the four ranks' minibatch launches; hxt and wtx (k =
+5, 30 and 40) at the shares of the global-draw fits, a cell mesh rank's
+(2,000 genes, world 2 of slice_sharded_modes) and a 2 x 2 grid rank's, ALS
+and weighted apart, and wtx at a world-2 rank's 50,000 cells for those
+fits' losses; their timings are kernel_twin rows measured after the mesh
+phases at rank 0's shares of the fits' first epochs, an ALS share beside
+its aligned twin) and, last, the
 result line
 {"ok": true, "device": {...}}.  slice_persist's line says in "h5ad_run"
 whether its .h5ad round trip ran.
@@ -862,6 +885,96 @@ def x_pass_twin_rows(torch, kernels, mu, gen, dev, card, K=40):
     return rows
 
 
+def x_pass_share_rows(torch, kernels, mu, gen, dev, card, specs):
+    """P1 (K = 40) and P2 on int8 X at the shares of a batch that the mesh
+    phases' global-draw fits ran, rank 0's of their first epoch: each spec
+    (label, genes, share widths, P2's widths k) gives the first share but
+    the last whose X rows sit off 16-byte alignment (or the first) and,
+    for an ALS spec, its aligned twin, then the last share; each row timed
+    as x_pass_row times it ("kernel_twin" lines).  Returns {(kind, label):
+    row}, a P2 label ending in " k=<k>"."""
+    rows = {}
+    Xf, Wf, Hf = make_x_pass_problem(torch, gen, dev, G, MB_BATCH + 16, 40, torch.int8)
+    for label, g, widths, ks in specs:
+        first = next((w for w in widths[:-1] if w % 16), widths[0])
+        shapes = [(label, first)]
+        if "als" in label:
+            shapes.append((f"{label} twin", -(-first // 16) * 16))
+        shapes.append((f"{label} last", widths[-1]))
+        for tag, n in shapes:
+            if not n:  # an empty share launches nothing
+                continue
+            X = Xf[:g, :n].contiguous()
+            passes = [("hxt", tag, Hf[:, :n].contiguous())] + [
+                ("wtx", f"{tag} k={k}", Wf[:g, :k].contiguous()) for k in ks]
+            for kind, name, P in passes:
+                row = x_pass_row(torch, kernels, mu, card, kind, X, P, True, f" {name}")
+                emit({"phase": "kernel_twin", "kind": kind, "label": name,
+                      "x_row_bytes_mod_16": n % 16,
+                      **{k: v for k, v in row.items() if k != "phase"}})
+                rows[(kind, name)] = row
+            del X, passes
+    del Xf, Wf, Hf
+    torch.cuda.empty_cache()
+    emit({"phase": "kernel_twin_summary", "global_draw_shares": {
+              label: widths for label, _, widths, _ in specs},
+          "device_us_over_aligned_twin": {
+              f"{kind} {name}": rows[(kind, name)]["device_us"] / rows[twin]["device_us"]
+              for (kind, name), twin in (
+                  ((kind, name), (kind, name.replace(" k=", " twin k=") if " k=" in name
+                                  else f"{name} twin")) for kind, name in rows)
+              if twin in rows and rows[(kind, name)]["device_us"]
+              and rows[twin]["device_us"]},
+          "ms_over_library": {f"{kind} {name}": [r["ms"] / r["library_ms"],
+                                                 r["ms_back_to_back"]
+                                                 / r["library_ms_back_to_back"]]
+                              for (kind, name), r in rows.items()}})
+    return rows
+
+
+# the kernels line's rows at the global-draw shares: row name -> the
+# x_pass_share_rows row that times it
+SHARE_ROW_SOURCE = {
+    "hxt global share als": ("hxt", "global share als"),
+    "wtx global share als k=5": ("wtx", "global share als k=5"),
+    "wtx global share als k=30": ("wtx", "global share als k=30"),
+    "hxt global share weighted": ("hxt", "global share weighted"),
+    "wtx global share weighted": ("wtx", "global share weighted k=40"),
+    "wtx global share weighted k=5": ("wtx", "global share weighted k=5"),
+    "wtx global share weighted k=30": ("wtx", "global share weighted k=30"),
+    "hxt gene_cell als share": ("hxt", "grid share als"),
+    "wtx gene_cell als share k=5": ("wtx", "grid share als k=5"),
+    "wtx gene_cell als share k=30": ("wtx", "grid share als k=30"),
+    "hxt gene_cell weighted share": ("hxt", "grid share weighted"),
+    "wtx gene_cell weighted share": ("wtx", "grid share weighted k=40"),
+}
+
+
+def share_launches(sharded, grid):
+    """The launches of the kernels line's share rows (and of world 2's
+    losses) from slice_sharded_modes' world-2 counts (``sharded``: P1 and
+    P2 by mode, the non-empty shares by mode, the epochs) and the 2 x 2
+    grid's (``grid``: P1 and P2 at the shares by mode).  An ALS share runs
+    P2 at k = 5 twice and at k = 30 once; a weighted ALS fit's shares are
+    the weighted fit's widths, so its P2s count in the weighted rows."""
+    busy_als = sharded["busy shares als_minibatch"]
+    busy_wals = sharded["busy shares weighted_als"]
+    grid_als = grid["wtx als_minibatch"] // len(BLOCKS)
+    return {"hxt global share als": sharded["hxt als_minibatch"],
+            "wtx global share als k=5": 2 * busy_als,
+            "wtx global share als k=30": busy_als,
+            "hxt global share weighted": sharded["hxt weighted"] + sharded["hxt weighted_als"],
+            "wtx global share weighted": sharded["busy shares weighted"],
+            "wtx global share weighted k=5": 2 * busy_wals,
+            "wtx global share weighted k=30": busy_wals,
+            "hxt gene_cell als share": grid["hxt als_minibatch"],
+            "wtx gene_cell als share k=5": 2 * grid_als,
+            "wtx gene_cell als share k=30": grid_als,
+            "hxt gene_cell weighted share": grid["hxt weighted"],
+            "wtx gene_cell weighted share": grid["wtx weighted"],
+            "wtx global shard loss": sharded["epochs"]}
+
+
 def iteration_twin_rows(torch, kernels, gen, dev, card):
     """K1 at the optimizer's fold K = 144 (blocks (24, 24, 96)) and K4 at
     the weighted_fast folds' K = 44 (blocks (6, 6, 32), counts 0..3) on
@@ -1173,13 +1286,20 @@ def run_sharded_phase(torch, kernels, mu, ALPINE, AnnData, counts, obs, ref):
 
 
 # the fit modes of slice_sharded_modes: (name, model keywords, fit keywords,
-# iterations or epochs)
+# iterations or epochs); the last three take the global draw (each rank its
+# share of every batch of the single-device epoch) and run MB_EPOCHS epochs,
+# as slice_minibatch_als and slice_weighted do
 SHARDED_MODES = (
     ("weighted_fast", {}, {"sampling_method": "weighted_fast"}, 20),
     ("als", {"use_als": True}, {}, 10),
     ("minibatch", {}, {"batch_size": MB_BATCH}, 5),
     ("tiled", {}, {"batch_size": MB_BATCH, "sampling_method": "tiled"}, 5),
+    ("als_minibatch", {"use_als": True}, {"batch_size": MB_BATCH}, MB_EPOCHS),
+    ("weighted", {}, {"batch_size": MB_BATCH, "sampling_method": "weighted"}, MB_EPOCHS),
+    ("weighted_als", {"use_als": True}, {"batch_size": MB_BATCH, "sampling_method": "weighted"},
+     MB_EPOCHS),
 )
+GLOBAL_DRAW_MODES = ("als_minibatch", "weighted", "weighted_als")
 MODES_CKPT_EVERY, MODES_CKPT_ITERS = 5, 10
 # the slice's model with its storage named: "auto" resolves to int8 on these
 # counts too, but its scan of X for fractions costs seconds a fit
@@ -1187,12 +1307,23 @@ MODES_PARAMS = dict(SHARDED_PARAMS, data_dtype="int8")
 MODES_RANK_TIMEOUT = 300.0
 
 
+def share_widths(mu, cfg, cells, cell_range, iters):
+    """The cells of a global-draw fit's share of each batch of each epoch
+    (the epochs redrawn from the fit's own stream, cut as
+    mu._fit_scan_steps cuts them), and how many shares were empty."""
+    widths = [[int(u.numel()) for u in mu._column_shares(
+        cells(t), cfg.eff_batch_size, *cell_range)] for t in range(iters)]
+    return widths, sum(w == 0 for ws in widths for w in ws)
+
+
 def mode_fit(torch, kernels, mu, dist, ALPINE, adata, device, model_kw, fit_kw, iters):
     """One fit of the slice's model in a mode on ``device`` under the
     profiler, its kernel launches and all-reduces counted from zero.  The
-    fit loop's H0 and H are compared column by column (every cell
-    trained), and a weighted_fast fit keeps its first draw in caller
-    order."""
+    fit loop's H0 and H are compared column by column (the cells it left
+    untrained: none but undrawn ones of a weighted fit), a weighted_fast
+    fit keeps its first draw in caller order, a global-draw fit over a
+    mesh reports its shares of every batch and a weighted one the gather
+    of the cells' label codes."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1203,7 +1334,9 @@ def mode_fit(torch, kernels, mu, dist, ALPINE, adata, device, model_kw, fit_kw, 
 
     def fit_scan(cfg, W0, H0, *args, **kw):
         out = real_fit(cfg, W0, H0, *args, **kw)
-        seen["trained"] = bool((out[1] != H0).any(dim=0).all())
+        seen["untrained"] = int((out[1] == H0).all(dim=0).sum())
+        seen["cfg"], seen["cells"] = cfg, kw.get("draw_cells")
+        seen["cell_range"] = kw.get("cell_range")
         return out
 
     def stream(*args, **kw):
@@ -1236,15 +1369,18 @@ def mode_fit(torch, kernels, mu, dist, ALPINE, adata, device, model_kw, fit_kw, 
            "top_kernels_device_ms_per_iteration": [[k, ms / iters] for k, ms in top],
            "launches": {k: kernels.launches[k] for k in
                         ("fused_iteration", "fused_iteration_counts", "hxt", "wtx")},
-           "every_cell_trained": seen["trained"],
+           "every_cell_trained": seen["untrained"] == 0,
+           "cells_untrained": seen["untrained"],
            "allreduce_calls_before_loop": setup.get("calls", 0),
            "allreduce_ms_before_loop": setup.get("ms", 0.0),
            "allreduce_calls_per_iteration": loop.get("calls", 0) / iters,
            "allreduce_bytes_per_iteration": loop.get("bytes", 0) / iters,
-           "allreduce_ms_per_iteration": loop.get("ms", 0.0) / iters}
-    out = {"loss": model.loss_history_,
-           "W": np.concatenate(model.matrices["Ws"], axis=1),
-           "H": np.concatenate(model.matrices["Hs"], axis=0)}
+           "allreduce_ms_per_iteration": loop.get("ms", 0.0) / iters,
+           "labels_gather": coll.get("labels gather")}
+    if seen["cell_range"] is not None:
+        row["share_cells"], row["empty_shares"] = share_widths(
+            mu, seen["cfg"], seen["cells"], seen["cell_range"], iters)
+    out = _fit_outputs(model)
     if "first_draw" in seen:
         out["first_draw"] = seen["first_draw"][np.argsort(model._x_cache[3])]
     return model, row, out
@@ -1355,13 +1491,16 @@ def sharded_modes_rank(here, workdir, world, rank, port, n_cells):
         dist.shutdown()
 
 
-def run_sharded_modes_phase(torch, kernels, mu, ALPINE, AnnData, counts, obs):
+def run_sharded_modes_phase(torch, kernels, mu, ALPINE, AnnData, counts, obs, mb_refs):
     """slice_sharded_modes: the fit modes beyond full-batch joint over a
-    cell mesh.  One device's weighted_fast (20 iterations) and ALS (10)
-    fits are the references; world 1 (NCCL, this process) must give them
-    bit for bit; world 2 (gloo, two spawned ranks sharing the card) runs
-    every mode, within tolerance of one device for the modes whose
-    trajectory is the single-device one."""
+    cell mesh.  One device's weighted_fast (20 iterations), ALS (10) and
+    ALS "weighted" (MB_EPOCHS) fits, and ``mb_refs``' slice_minibatch_als
+    and slice_weighted fits, are the references; world 1 (NCCL, this
+    process) must give them bit for bit; world 2 (gloo, two spawned ranks
+    sharing the card) runs every mode, within tolerance of one device for
+    the modes whose trajectory is the single-device one.  Returns world
+    2's launches of the global-draw fits, its two ranks together, and
+    rank 0's shares of their first epochs."""
     import multiprocessing
     import tempfile
 
@@ -1385,32 +1524,55 @@ def run_sharded_modes_phase(torch, kernels, mu, ALPINE, AnnData, counts, obs):
             expect[name] = ({"fused_iteration": 0, "fused_iteration_counts": 0, "hxt": iters,
                              "wtx": len(BLOCKS) * iters}, len(BLOCKS) + 1)
     refs, worlds = {}, []
+    nb = -(-n // MB_BATCH)  # the global draw's batches an epoch
 
     def check_mode(world, name, row):
         want, calls = expect.get(name, (None, None))
-        if want is None:  # minibatch, tiled: one P1 and one P2 a batch
+        iters = modes[name][2]
+        blocks = len(BLOCKS) if modes[name][0].get("use_als") else 1
+        if name in GLOBAL_DRAW_MODES:
+            # a P1 and a P2 a block for each non-empty share of a batch (one
+            # device: every batch), a P2 an epoch for the loss
+            busy = (nb * iters if "share_cells" not in row else
+                    sum(w > 0 for ws in row["share_cells"] for w in ws))
+            want = {"fused_iteration": 0, "fused_iteration_counts": 0, "hxt": busy,
+                    "wtx": blocks * busy + iters}
+            calls = nb * blocks + 1
+            if "share_cells" in row:
+                check(all(len(ws) == nb for ws in row["share_cells"]),
+                      f"world {world} {name}: {nb} shares an epoch")
+        elif want is None:  # minibatch, tiled: one P1 and one P2 a batch
             nbat = mode_batch_geometry(n, world, MB_BATCH, name == "tiled")[0]
-            iters = modes[name][2]
             want = {"fused_iteration": 0, "fused_iteration_counts": 0,
                     "hxt": nbat * iters, "wtx": (nbat + 1) * iters}
             calls = nbat + 1
         check(row["launches"] == want,
               f"world {world} {name}: launches {row['launches']}, expected {want}")
         # before the loop: ‖X‖² (with the fused loop's other sums) and, for
-        # a minibatch or tiled fit, the widest rank's units
+        # a shard-local minibatch or tiled fit, the widest rank's units
         setup = 2 if name in ("minibatch", "tiled") else 1
         check(row["allreduce_calls_per_iteration"] == calls
               and row["allreduce_calls_before_loop"] == setup,
               f"world {world} {name}: {row['allreduce_calls_per_iteration']} all-reduces "
               f"an iteration, expected {calls} (and {setup} before the loop)")
-        check(row["every_cell_trained"], f"world {world} {name}: a cell kept its H0")
+        # a gathered weighted fit leaves the cells it never drew as they were
+        if name not in ("weighted", "weighted_als"):
+            check(row["every_cell_trained"], f"world {world} {name}: a cell kept its H0")
+        else:
+            gathered = row["labels_gather"]
+            check(gathered is not None and gathered["calls"] == 1
+                  and gathered["bytes"] == 8 * world * (2 + -(-n // world)),
+                  f"world {world} {name}: one gather of the label codes: {gathered}")
         if name == "weighted_fast":
             check(row["allreduce_bytes_per_iteration"] == payload_wf,
                   f"world {world}: {row['allreduce_bytes_per_iteration']} bytes an "
                   f"iteration, expected {payload_wf}")
 
-    # one device: the references
-    for name in ("weighted_fast", "als"):
+    # one device: the references (slice_minibatch_als and slice_weighted
+    # fitted the slice's model in those modes already)
+    refs["als_minibatch"] = mb_refs["slice_minibatch_als"]
+    refs["weighted"] = mb_refs["slice_weighted"]
+    for name in ("weighted_fast", "als", "weighted_als"):
         model_kw, fit_kw, iters = modes[name]
         model, row, refs[name] = mode_fit(torch, kernels, mu, dist, ALPINE, adata, "cuda",
                                           model_kw, fit_kw, iters)
@@ -1428,7 +1590,7 @@ def run_sharded_modes_phase(torch, kernels, mu, ALPINE, AnnData, counts, obs):
         backend = torch.distributed.get_backend()
         mesh = dist.global_cell_mesh()
         w1 = {"world": 1, "backend": backend, "cells": [n], "modes": {}}
-        for name in ("weighted_fast", "als"):
+        for name in ("weighted_fast", "als", *GLOBAL_DRAW_MODES):
             model_kw, fit_kw, iters = modes[name]
             model, row, out = mode_fit(torch, kernels, mu, dist, ALPINE, adata, mesh,
                                        model_kw, fit_kw, iters)
@@ -1443,6 +1605,7 @@ def run_sharded_modes_phase(torch, kernels, mu, ALPINE, AnnData, counts, obs):
             w1["modes"][name] = {"device_ms_per_iteration": [row["device_ms_per_iteration"]],
                                  "allreduce_ms_per_iteration": [row["allreduce_ms_per_iteration"]],
                                  "allreduce_bytes_per_iteration": row["allreduce_bytes_per_iteration"],
+                                 "labels_gather": row["labels_gather"],
                                  "bits_equal_one_device": bits}
     finally:
         dist.shutdown()
@@ -1481,13 +1644,14 @@ def run_sharded_modes_phase(torch, kernels, mu, ALPINE, AnnData, counts, obs):
                 infos.append(json.load(f))
     w2 = {"world": world, "backend": infos[0]["rows"][0]["backend"],
           "cells": [info["rows"][0]["cells"] for info in infos], "modes": {}}
+    global_launches, global_shares = {}, {}
     for i, (name, _, _, iters) in enumerate(SHARDED_MODES):
         rows = [info["rows"][i] for info in infos]
         for row in rows:
             check_mode(world, name, row)
         same = {k: all(np.array_equal(o[f"{name}_{k}"], outs[0][f"{name}_{k}"]) for o in outs)
-                for k in ("loss", "W")}
-        check(all(same.values()), f"world {world} {name}: W and the losses must be "
+                for k in ("loss", "W", "B0", "B1")}
+        check(all(same.values()), f"world {world} {name}: W, the Bs and the losses must be "
                                   f"bit-equal across the ranks: {same}")
         L = outs[0][f"{name}_loss"]
         check(np.isfinite(L).all() and L[-1, 0] < L[0, 0],
@@ -1499,6 +1663,18 @@ def run_sharded_modes_phase(torch, kernels, mu, ALPINE, AnnData, counts, obs):
              "allreduce_ms_per_iteration": [r["allreduce_ms_per_iteration"] for r in rows],
              "fit_seconds": [r["timings"]["fit"] for r in rows],
              "replicas_bit_equal": same}
+        if name in GLOBAL_DRAW_MODES:
+            m["launches"] = [r["launches"] for r in rows]
+            m["empty_shares"] = [r["empty_shares"] for r in rows]
+            m["share_cells_epoch_0"] = [r["share_cells"][0] for r in rows]
+            m["labels_gather"] = [r["labels_gather"] for r in rows]
+            m["cells_untrained"] = [r["cells_untrained"] for r in rows]
+            for k in ("hxt", "wtx"):
+                global_launches[f"{k} {name}"] = sum(r["launches"][k] for r in rows)
+            global_launches[f"busy shares {name}"] = sum(
+                w > 0 for r in rows for ws in r["share_cells"] for w in ws)
+            global_launches["epochs"] = global_launches.get("epochs", 0) + iters * world
+            global_shares[name] = rows[0]["share_cells"][0]
         if name in refs:
             ref = refs[name]
             m["loss_max_rel_err"] = float(np.max(np.abs(L / ref["loss"] - 1)))
@@ -1613,9 +1789,11 @@ def run_sharded_modes_phase(torch, kernels, mu, ALPINE, AnnData, counts, obs):
     emit({"phase": "slice_sharded_modes", "cells": n, "genes": g,
           "weighted_fast_allreduce_bytes_per_iteration": payload_wf, "worlds": worlds,
           "k4_alone_by_cells": k4_alone, "sampler": sampler,
-          "tolerance": "world 1 bit for bit one device's weighted_fast and ALS fits; "
-                       "world 2: weighted_fast and ALS loss rtol 5e-4 and H relative "
-                       "Frobenius 5e-3 against one device, the first draw equal, "
+          "tolerance": "world 1 bit for bit one device's weighted_fast, ALS, ALS "
+                       "minibatch, weighted and ALS weighted fits; world 2: those "
+                       "modes' loss rtol 5e-4 and H relative Frobenius 5e-3 against "
+                       "one device, W, Bs and losses bit-equal across ranks, the "
+                       "first weighted_fast draw equal, "
                        "minibatch and tiled losses finite and falling with every cell "
                        "trained (their batches' P1/P2 held at TWIN_SHAPES), the resumed "
                        "checkpointed fit bit for bit, the sampler's windows the full "
@@ -1623,20 +1801,28 @@ def run_sharded_modes_phase(torch, kernels, mu, ALPINE, AnnData, counts, obs):
                        "transforms rtol 1e-5 against uncached, W and losses bit-equal "
                        "across ranks",
           "seconds": time.perf_counter() - phase_t0})
+    return global_launches, global_shares
 
 
 # the fits of slice_gene_cell: (mode, model keywords, fit keywords), each
 # GRID_ITERS iterations (epochs) on the 1 x 1 grid, and the grids that run
-# them over spawned gloo ranks; the 2 x 2 grid's minibatch fit runs
-# GRID_MB_EPOCHS epochs, and its checkpointed joint fit GRID_ITERS
-# iterations with a snapshot every GRID_CKPT_EVERY
+# them over spawned gloo ranks; the 2 x 2 grid's minibatch fits (random,
+# ALS, weighted: GRID_MB_MODES) run GRID_MB_EPOCHS epochs, its
+# checkpointed joint fit GRID_ITERS iterations with a snapshot every
+# GRID_CKPT_EVERY, its checkpointed weighted fit GRID_MB_EPOCHS epochs with
+# a snapshot every GRID_MB_CKPT_EVERY
 GRID_ITERS = 10
 GRID_MB_EPOCHS = 5
 GRID_CKPT_EVERY = 5
+GRID_MB_CKPT_EVERY = 2
 GRID_MODES = (("joint", {}, {}), ("als", {"use_als": True}, {}),
               ("weighted_fast", {}, {"sampling_method": "weighted_fast"}),
-              ("minibatch", {}, {"batch_size": MB_BATCH}))
-GRID_WORLDS = (((2, 2), ("joint", "als", "weighted_fast", "minibatch")), ((2, 1), ("joint",)))
+              ("minibatch", {}, {"batch_size": MB_BATCH}),
+              ("als_minibatch", {"use_als": True}, {"batch_size": MB_BATCH}),
+              ("weighted", {}, {"batch_size": MB_BATCH, "sampling_method": "weighted"}))
+GRID_MB_MODES = ("minibatch", "als_minibatch", "weighted")
+GRID_WORLDS = (((2, 2), ("joint", "als", "weighted_fast", "minibatch", "als_minibatch",
+                         "weighted")), ((2, 1), ("joint",)))
 GRID_RANK_TIMEOUT = 300.0
 
 
@@ -1658,9 +1844,9 @@ def grid_fit(torch, kernels, mu, dist, ALPINE, adata, device, name, iters=GRID_I
     profiler, its kernel launches and each axis's all-reduces counted from
     zero; a joint fit's cached transform after it.  A minibatch fit's row
     holds the cells of this rank's share of each batch of each epoch
-    (the epochs redrawn from the fit's own stream) and its empty shares.
-    Returns (row, outputs, the inputs and outputs of the fit's one
-    mu.fit_scan call)."""
+    (the epochs redrawn from the fit's own stream) and its empty shares,
+    a weighted fit's the gather of the cells' label codes.  Returns (row,
+    outputs, the inputs and outputs of the fit's one mu.fit_scan call)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1704,12 +1890,11 @@ def grid_fit(torch, kernels, mu, dist, ALPINE, adata, device, name, iters=GRID_I
            "allreduce_per_iteration": {"cells": axis("iteration"),
                                        "genes": axis("genes iteration")},
            "allreduce_before_loop": {"cells": coll.get("setup"),
-                                     "genes": coll.get("genes setup")}}
-    if name == "minibatch":
-        bs = seen["args"][0].eff_batch_size
-        row["share_cells"] = [[int(u.numel()) for u in mu._column_shares(
-            seen["cells"](t), bs, *seen["cell_range"])] for t in range(iters)]
-        row["empty_shares"] = sum(w == 0 for ws in row["share_cells"] for w in ws)
+                                     "genes": coll.get("genes setup")},
+           "labels_gather": coll.get("labels gather")}
+    if name in GRID_MB_MODES:
+        row["share_cells"], row["empty_shares"] = share_widths(
+            mu, seen["args"][0], seen["cells"], seen["cell_range"], iters)
     out = _fit_outputs(model)
     if name == "joint":
         kernels.reset_launches()
@@ -1726,15 +1911,19 @@ def grid_fit(torch, kernels, mu, dist, ALPINE, adata, device, name, iters=GRID_I
     return row, out, seen
 
 
-def grid_checkpoints(torch, kernels, ALPINE, adata, device, directory, whole):
-    """slice_gene_cell's checkpointed joint fit on ``device`` (a grid):
-    GRID_ITERS iterations with a snapshot every GRID_CKPT_EVERY into
-    ``directory`` (a file a rank), interrupted after its first snapshot,
-    then resumed by a fresh model, whose outputs are held bit for bit
-    against ``whole`` (the uninterrupted fit's).  Returns the rank's row:
-    the iteration it resumed from, each snapshot's seconds and bytes,
-    whether its one snapshot file outlived the interruption and went with
-    the fit's end, P1 and P2 launches of both fits, the bits."""
+def grid_checkpoints(torch, kernels, ALPINE, adata, device, directory, whole, name="joint"):
+    """slice_gene_cell's checkpointed fit in mode ``name`` on ``device`` (a
+    grid): the joint fit's GRID_ITERS iterations with a snapshot every
+    GRID_CKPT_EVERY, or a minibatch mode's GRID_MB_EPOCHS epochs with one
+    every GRID_MB_CKPT_EVERY, into ``directory`` (a file a rank),
+    interrupted after its first snapshot, then resumed by a fresh model,
+    whose outputs are held bit for bit against ``whole`` (the
+    uninterrupted fit's).  A sampled fit's chunk c draws with c in its
+    seeds, so its ``whole`` is None and the uninterrupted checkpointed fit
+    runs first.  Returns the rank's row: the iteration it resumed from,
+    each snapshot's seconds and bytes, whether its one snapshot file
+    outlived the interruption and went with the fit's end, P1 and P2
+    launches of the interrupted and resumed fits, the bits."""
     from alpine_tpu_torch.io.checkpoint import FitCheckpointer
 
     orig_save, orig_load = FitCheckpointer.save, FitCheckpointer.load
@@ -1755,13 +1944,22 @@ def grid_checkpoints(torch, kernels, ALPINE, adata, device, directory, whole):
         loaded.append(None if r is None else int(r[0]))
         return r
 
-    def fit():
-        model = ALPINE(device=device, **MODES_PARAMS)
-        model.fit(adata, SHARDED_KEYS, max_iter=GRID_ITERS, checkpoint_dir=directory,
-                  checkpoint_every=GRID_CKPT_EVERY)
+    model_kw, fit_kw = {m: (mk, fk) for m, mk, fk in GRID_MODES}[name]
+    iters, every = ((GRID_MB_EPOCHS, GRID_MB_CKPT_EVERY) if name in GRID_MB_MODES
+                    else (GRID_ITERS, GRID_CKPT_EVERY))
+
+    def fit(where=directory):
+        model = ALPINE(device=device, **MODES_PARAMS, **model_kw)
+        model.fit(adata, SHARDED_KEYS, max_iter=iters, checkpoint_dir=where,
+                  checkpoint_every=every, **fit_kw)
         return model
 
     t0 = time.perf_counter()
+    if whole is None:
+        model = fit(directory + "_whole")
+        whole = _fit_outputs(model)
+        model.free_device_cache()
+        del model
     kernels.reset_launches()
     interrupted = False
     FitCheckpointer.save = interrupting_save
@@ -1782,7 +1980,8 @@ def grid_checkpoints(torch, kernels, ALPINE, adata, device, directory, whole):
     model.free_device_cache()
     del model
     torch.cuda.empty_cache()
-    return {"interrupted": interrupted, "resumed_from": loaded,
+    return {"mode": name, "iterations": iters, "checkpoint_every": every,
+            "interrupted": interrupted, "resumed_from": loaded,
             "snapshot_kept_after_interrupt": kept == [True],
             "snapshot_seconds": [v[0] for v in saves],
             "snapshot_bytes": [v[1] for v in saves],
@@ -1877,7 +2076,7 @@ def gene_cell_rank(here, workdir, grid, modes, rank, port, n_cells):
         rows, outs = [], {}
         for name in modes:
             t0 = time.perf_counter()
-            iters = GRID_MB_EPOCHS if name == "minibatch" else GRID_ITERS
+            iters = GRID_MB_EPOCHS if name in GRID_MB_MODES else GRID_ITERS
             row, out, _ = grid_fit(torch, kernels, mu, dist, ALPINE, adata, mesh, name,
                                    iters)
             B = np.concatenate([out[k].ravel() for k in sorted(out) if k.startswith("B")])
@@ -1903,15 +2102,16 @@ def gene_cell_rank(here, workdir, grid, modes, rank, port, n_cells):
             emit(row)
             rows.append(row)
             outs.update({f"{name}_{k}": v for k, v in out.items()})
-        ck = None
+        ck = []
         if grid == (2, 2):
             whole = {k[len("joint_"):]: v for k, v in outs.items()
                      if k.startswith("joint_") and k != "joint_T"}
-            ck = grid_checkpoints(torch, kernels, ALPINE, adata, mesh,
-                                  os.path.join(workdir, f"ck_{tag}"), whole)
-            emit({"phase": "slice_gene_cell_rank", "grid": list(grid), "rank": rank,
-                  "mode": "joint checkpointed", "checkpoint_every": GRID_CKPT_EVERY,
-                  "iterations": GRID_ITERS, **ck})
+            for name, ref in (("joint", whole), ("weighted", None)):
+                ck.append(grid_checkpoints(torch, kernels, ALPINE, adata, mesh,
+                                           os.path.join(workdir, f"ck_{tag}_{name}"), ref,
+                                           name))
+                emit({"phase": "slice_gene_cell_rank", "grid": list(grid), "rank": rank,
+                      **ck[-1], "mode": f"{name} checkpointed"})
         np.savez(os.path.join(workdir, f"grid{tag}_rank{rank}.npz"), **outs)
         with open(os.path.join(workdir, f"grid{tag}_rank{rank}.json"), "w") as f:
             json.dump({"rows": rows, "checkpoint": ck}, f)
@@ -1919,22 +2119,26 @@ def gene_cell_rank(here, workdir, grid, modes, rank, port, n_cells):
         dist.shutdown()
 
 
-def run_gene_cell_phase(torch, kernels, mu, ALPINE, AnnData, counts, obs, slice_loss):
+def run_gene_cell_phase(torch, kernels, mu, ALPINE, AnnData, counts, obs, slice_loss,
+                        mb_refs):
     """slice_gene_cell: the slice's model over ("genes", "cells") grids of
     processes.  World 1 (NCCL, this process, a 1 x 1 grid) fits joint, ALS,
-    weighted_fast and random minibatches of MB_BATCH (GRID_ITERS
-    iterations or epochs each), each bit for bit the step loop
-    ``mu._fit_scan_steps`` called directly on its inputs on one device
-    (the minibatch fit also the single-device estimator's fit), and
-    transforms, and a checkpointed joint fit, interrupted and resumed, is
-    its joint fit bit for bit; then a 2 x 2 grid (4 gloo ranks sharing
+    weighted_fast and minibatches of MB_BATCH from the global draw (random,
+    ALS, weighted; GRID_ITERS iterations or epochs each), each bit for bit
+    the step loop ``mu._fit_scan_steps`` called directly on its inputs on
+    one device (the minibatch fits also the single-device estimator's
+    fits: ``mb_refs``' slice_minibatch, slice_minibatch_als and
+    slice_weighted), and transforms, and a checkpointed joint fit,
+    interrupted and resumed, is its joint fit bit for bit; then a 2 x 2
+    grid (4 gloo ranks sharing
     the card, 1,000 genes x 50,000 cells a rank) runs the modes
-    (minibatch: GRID_MB_EPOCHS epochs), the transform and the checkpointed
-    joint fit, and a 2 x 1 grid (genes only, 1,000 x 100,000 a rank) the
-    joint fit.  Returns the 2 x 2 grid's launches, its four ranks
-    together: P1 and P2 at a rank's block (the full-batch fits at K = 40,
-    the checkpointed fit, each minibatch epoch's loss), at a rank's share
-    of a minibatch batch, and K3."""
+    (minibatch modes: GRID_MB_EPOCHS epochs), the transform and the
+    checkpointed joint and weighted fits, and a 2 x 1 grid (genes only,
+    1,000 x 100,000 a rank) the joint fit.  Returns the 2 x 2 grid's
+    launches, its four ranks together (P1 and P2 at a rank's block: the
+    full-batch fits at K = 40, the checkpointed joint fit, each minibatch
+    epoch's loss; at a rank's share of a batch of each minibatch mode;
+    K3), and rank 0's shares of the first epoch of each minibatch mode."""
     import multiprocessing
     import tempfile
 
@@ -1959,20 +2163,32 @@ def run_gene_cell_phase(torch, kernels, mu, ALPINE, AnnData, counts, obs, slice_
     def check_row(label, row, n_loc, g_loc):
         name = row["mode"]
         ar = row["allreduce_per_iteration"]
-        if name == "minibatch":
-            # a P1 and a P2 a non-empty share, a P2 an epoch for the loss;
-            # nb + 1 all-reduces over each axis an epoch, the genes' of
-            # K x (share + K) values a batch and K x (local cells + K) the
-            # loss's
+        if name in GRID_MB_MODES:
+            # a P1 and a P2 a block for a non-empty share, a P2 an epoch for
+            # the loss; nb · blocks + 1 all-reduces over each axis an epoch,
+            # the genes' of K x (share + K) values a batch (ALS: its blocks'
+            # k_i x (share + K) together) and K x (local cells + K) the
+            # loss's, the cells' of the step's sums a batch (ALS: X Hᵀ, H Hᵀ
+            # and the B statistics over its blocks' calls) and the loss's
+            blocks = len(BLOCKS) if name == "als_minibatch" else 1
             busy = sum(w > 0 for ws in row["share_cells"] for w in ws)
             exp = {"fused_iteration": 0, "fused_iteration_counts": 0, "hxt": busy,
-                   "wtx": busy + row["iterations"]}
-            calls = (nb + 1, nb + 1)
+                   "wtx": blocks * busy + row["iterations"]}
+            calls = (nb * blocks + 1,) * 2
             genes = 4 * K * sum(sum(w + K for w in ws) + n_loc + K
                                 for ws in row["share_cells"]) / row["iterations"]
             cells = 4 * (nb * (g_loc * K + K * K + b_stats) + loss_sums)
-            check(all(len(ws) == nb and sum(ws) == n_loc for ws in row["share_cells"]),
+            # a permutation's shares hold the column's cells once; weighted
+            # draws repeat cells and miss others
+            check(all(len(ws) == nb and (name == "weighted" or sum(ws) == n_loc)
+                      for ws in row["share_cells"]),
                   f"{label}: a column's shares {row['share_cells']}")
+            if name == "weighted":
+                gathered = row["labels_gather"]
+                world = n // n_loc * g // g_loc
+                check(gathered is not None and gathered["calls"] == 1
+                      and gathered["bytes"] == 8 * world * (2 + n_loc),
+                      f"{label}: one gather of the label codes: {gathered}")
             check(ar["cells"]["bytes"] == cells,
                   f"{label} {name}: {ar['cells']['bytes']} bytes over cells an epoch, "
                   f"expected {cells}")
@@ -2007,6 +2223,12 @@ def run_gene_cell_phase(torch, kernels, mu, ALPINE, AnnData, counts, obs, slice_
             w1["backend"] = torch.distributed.get_backend()
             mesh = dist.global_gene_cell_mesh(1, 1)
             w1_outs = {}
+            # the single-device estimator's fits of the slice's model in the
+            # minibatch modes, with the same seed and GRID_ITERS epochs
+            assert GRID_ITERS == MB_EPOCHS
+            one_device = {"minibatch": mb_refs["slice_minibatch"],
+                          "als_minibatch": mb_refs["slice_minibatch_als"],
+                          "weighted": mb_refs["slice_weighted"]}
             for name, _, _ in GRID_MODES:
                 row, out, seen = grid_fit(torch, kernels, mu, dist, ALPINE, adata, mesh, name)
                 # the step loop called directly on the fit's inputs, one device
@@ -2024,27 +2246,23 @@ def run_gene_cell_phase(torch, kernels, mu, ALPINE, AnnData, counts, obs, slice_
                 if name == "joint":
                     row["loss_max_rel_gap_to_slice_k1"] = float(np.max(np.abs(
                         out["loss"] / slice_loss[:GRID_ITERS] - 1)))
-                if name == "minibatch":
-                    # the single-device estimator's fit with the same seed
-                    one = ALPINE(device="cuda", **MODES_PARAMS)
-                    one.fit(adata, SHARDED_KEYS, max_iter=GRID_ITERS, batch_size=MB_BATCH)
+                if name in GRID_MB_MODES:
                     row["bits_equal_single_device"] = {
                         k: bool(np.array_equal(v, out[k]))
-                        for k, v in _fit_outputs(one).items()}
-                    one.free_device_cache()
-                    del one
+                        for k, v in one_device[name].items()}
                 emit({"phase": "slice_gene_cell_rank", "grid": [1, 1], "rank": 0,
                       "coordinates": [0, 0], "backend": w1["backend"], "genes": g,
                       "cells": n, **row})
                 check_row("world 1", row, n, g)
                 check(all(bits.values()), f"world 1 {name} must be the step loop bit for "
                                           f"bit: {bits}")
-                if name == "minibatch":
+                if name in GRID_MB_MODES:
+                    blocks = len(BLOCKS) if name == "als_minibatch" else 1
                     check(row["launches"]["hxt"] == nb * GRID_ITERS
-                          and row["launches"]["wtx"] == (nb + 1) * GRID_ITERS,
-                          f"world 1 minibatch: P1/P2 {nb} and {nb + 1} times an epoch")
+                          and row["launches"]["wtx"] == (nb * blocks + 1) * GRID_ITERS,
+                          f"world 1 {name}: P1/P2 {nb} and {nb * blocks + 1} times an epoch")
                     check(all(row["bits_equal_single_device"].values()),
-                          "world 1 minibatch must be the single-device fit bit for bit: "
+                          f"world 1 {name} must be the single-device fit bit for bit: "
                           f"{row['bits_equal_single_device']}")
                 check(np.isfinite(out["loss"]).all() and out["loss"][-1, 0] < out["loss"][0, 0],
                       f"world 1 {name}: losses finite and falling")
@@ -2058,9 +2276,8 @@ def run_gene_cell_phase(torch, kernels, mu, ALPINE, AnnData, counts, obs, slice_
             whole = {k: v for k, v in w1_outs["joint"].items() if k != "T"}
             ck = grid_checkpoints(torch, kernels, ALPINE, adata, mesh,
                                   os.path.join(workdir, "ck_1x1"), whole)
-            emit({"phase": "slice_gene_cell_rank", "grid": [1, 1], "rank": 0,
-                  "mode": "joint checkpointed", "checkpoint_every": GRID_CKPT_EVERY,
-                  "iterations": GRID_ITERS, **ck})
+            emit({"phase": "slice_gene_cell_rank", "grid": [1, 1], "rank": 0, **ck,
+                  "mode": "joint checkpointed"})
             check(ck["interrupted"] and ck["resumed_from"] == [GRID_CKPT_EVERY]
                   and all(ck["bits_equal_uninterrupted"].values())
                   and ck["snapshot_kept_after_interrupt"] and ck["snapshot_removed_after_fit"],
@@ -2080,7 +2297,7 @@ def run_gene_cell_phase(torch, kernels, mu, ALPINE, AnnData, counts, obs, slice_
         np.savez(os.path.join(workdir, "obs.npz"), **obs)
         ctx = multiprocessing.get_context("spawn")
         X_card = torch.from_numpy(np.ascontiguousarray(counts.T.astype(np.int8))).cuda()
-        launches = {}
+        launches, shares = {}, {}
         for grid, modes in GRID_WORLDS:
             t0 = time.perf_counter()
             world, tag = grid[0] * grid[1], f"{grid[0]}x{grid[1]}"
@@ -2129,11 +2346,13 @@ def run_gene_cell_phase(torch, kernels, mu, ALPINE, AnnData, counts, obs, slice_
                 check(np.isfinite(L).all() and L[-1, 0] < L[0, 0],
                       f"grid {tag} {name}: losses finite and falling")
                 check(gap <= 5e-4, f"grid {tag} {name}: losses {gap} from world 1's")
-                if name == "minibatch":
+                if name in GRID_MB_MODES:
                     # GRID_MB_EPOCHS epochs against world 1's GRID_ITERS: the
                     # losses of the first epochs only
                     m["empty_shares"] = [r["empty_shares"] for r in mrows]
                     m["share_cells_epoch_0"] = [r["share_cells"][0] for r in mrows]
+                    m["launches"] = [r["launches"] for r in mrows]
+                    m["labels_gather"] = [r["labels_gather"] for r in mrows]
                 else:
                     # H of every cell: the ranks of gene block 0, in column order
                     H = np.concatenate([outs[r][f"{name}_H"] for r in range(world)
@@ -2150,13 +2369,15 @@ def run_gene_cell_phase(torch, kernels, mu, ALPINE, AnnData, counts, obs, slice_
                           and m["transform_rel_frobenius_err"] <= 1e-4,
                           f"grid {tag}: transform against one device's: {m}")
                 summary["modes"][name] = m
-                if grid == (2, 2) and name == "minibatch":
-                    # a share's P1/P2 at the batch shape, the loss's P2 at the block
+                if grid == (2, 2) and name in GRID_MB_MODES:
+                    # a share's P1 and P2s (one a block) at the batch shape, the
+                    # loss's P2 at the block
                     epochs = sum(r["iterations"] for r in mrows)
-                    launches["hxt minibatch"] = sum(r["launches"]["hxt"] for r in mrows)
-                    launches["wtx minibatch"] = sum(r["launches"]["wtx"]
-                                                    for r in mrows) - epochs
+                    launches[f"hxt {name}"] = sum(r["launches"]["hxt"] for r in mrows)
+                    launches[f"wtx {name}"] = sum(r["launches"]["wtx"]
+                                                  for r in mrows) - epochs
                     launches["wtx"] = launches.get("wtx", 0) + epochs
+                    shares[name] = mrows[0]["share_cells"][0]
                 elif grid == (2, 2):
                     for k in ("hxt", "wtx"):
                         if k == "hxt" or name != "als":
@@ -2166,37 +2387,43 @@ def run_gene_cell_phase(torch, kernels, mu, ALPINE, AnnData, counts, obs, slice_
                         launches["fused_transform"] = sum(
                             r["transform_launches"]["fused_transform"] for r in mrows)
             if grid == (2, 2):
-                cks = [rep["checkpoint"] for rep in reports]
-                for k in ("hxt", "wtx"):
-                    launches[k] += sum(c["launches"][k] for c in cks)
-                summary["checkpointed"] = {
-                    k: [c[k] for c in cks] for k in (
-                        "resumed_from", "snapshot_seconds", "snapshot_bytes",
-                        "bits_equal_uninterrupted", "seconds")}
-                check(all(c["interrupted"] and c["resumed_from"] == [GRID_CKPT_EVERY]
-                          and c["snapshot_kept_after_interrupt"]
-                          and c["snapshot_removed_after_fit"]
-                          and all(c["bits_equal_uninterrupted"].values()) for c in cks),
-                      f"grid {tag}: the resumed checkpointed joint fit must resume from "
-                      f"iteration {GRID_CKPT_EVERY} on every rank and be the "
-                      f"uninterrupted fit bit for bit: {summary['checkpointed']}")
+                summary["checkpointed"] = {}
+                for i, name in enumerate(("joint", "weighted")):
+                    cks = [rep["checkpoint"][i] for rep in reports]
+                    if name == "joint":  # at the block; the weighted fit's P1 and
+                        # its P2s but the losses' at shares, not counted
+                        for k in ("hxt", "wtx"):
+                            launches[k] += sum(c["launches"][k] for c in cks)
+                    summary["checkpointed"][name] = {
+                        k: [c[k] for c in cks] for k in (
+                            "resumed_from", "snapshot_seconds", "snapshot_bytes",
+                            "bits_equal_uninterrupted", "seconds")}
+                    every = cks[0]["checkpoint_every"]
+                    check(all(c["interrupted"] and c["resumed_from"] == [every]
+                              and c["snapshot_kept_after_interrupt"]
+                              and c["snapshot_removed_after_fit"]
+                              and all(c["bits_equal_uninterrupted"].values()) for c in cks),
+                          f"grid {tag}: the resumed checkpointed {name} fit must resume "
+                          f"from iteration {every} on every rank and be the "
+                          f"uninterrupted fit bit for bit: {summary['checkpointed'][name]}")
             summary["seconds"] = time.perf_counter() - t0
             worlds.append(summary)
         del X_card
     torch.cuda.empty_cache()
     emit({"phase": "slice_gene_cell", "cells": n, "genes": g, "iterations": GRID_ITERS,
           "worlds": worlds, "launches_2x2": launches,
-          "tolerance": "world 1 bit for bit the step loop on one device (minibatch "
-                       "also the single-device fit, the resumed checkpointed fit "
-                       "its joint fit); grids: W, Bs and losses bit-equal on every "
-                       "rank, H within each cell column, losses rtol 5e-4 and (but "
-                       "minibatch) H relative Frobenius 5e-3 against world 1, the "
-                       "resumed checkpointed 2 x 2 fit bit for bit the uninterrupted "
-                       "one on every rank, transform rtol 1e-6 (atol 1e-7*max|T|) "
-                       "against one device's K3 on the same gene-block sums and "
-                       "relative Frobenius 1e-4 against the unsplit projection",
+          "tolerance": "world 1 bit for bit the step loop on one device (the "
+                       "minibatch modes also the single-device fits, the resumed "
+                       "checkpointed fit its joint fit); grids: W, Bs and losses "
+                       "bit-equal on every rank, H within each cell column, losses "
+                       "rtol 5e-4 and (but the minibatch modes) H relative Frobenius "
+                       "5e-3 against world 1, the resumed checkpointed 2 x 2 joint and "
+                       "weighted fits bit for bit the uninterrupted ones on every "
+                       "rank, transform rtol 1e-6 (atol 1e-7*max|T|) against one "
+                       "device's K3 on the same gene-block sums and relative "
+                       "Frobenius 1e-4 against the unsplit projection",
           "seconds": time.perf_counter() - phase_t0})
-    return launches
+    return launches, shares
 
 
 def run_persist_phase(torch, kernels, ALPINE, AnnData, model, adata, counts, obs):
@@ -2300,7 +2527,9 @@ def run_minibatch_phase(phase, torch, kernels, ALPINE, adata, slice_peak, use_al
     X's float32 bytes, and at most the slice's).  Tiled: batches of whole
     128-cell tiles of the padded, shuffled cell axis, then a transform
     through that device X against the uncached one; ``baseline`` is
-    slice_minibatch's row, whose ms an epoch is reported beside."""
+    slice_minibatch's row, whose ms an epoch is reported beside.  Returns
+    the launches, the row and the fit's outputs (the mesh phases'
+    single-device references)."""
     model = ALPINE(n_components=30, n_covariate_components=[5, 5],
                    lam=[1e3, 1e3], use_als=use_als, device="cuda")
     torch.cuda.synchronize()
@@ -2362,9 +2591,10 @@ def run_minibatch_phase(phase, torch, kernels, ALPINE, adata, slice_peak, use_al
               f"{phase}: device X {row['device_x_shape']}, pad {row['pad']}")
         check(row["cached_matches_uncached"],
               f"{phase}: cached and uncached transforms must agree (rtol 1e-5)")
+    out = _fit_outputs(model)
     model.free_device_cache()
     torch.cuda.empty_cache()
-    return launches, row
+    return launches, row, out
 
 
 def run_bucket_phase(torch, kernels, mu, ALPINE, adata):
@@ -3733,16 +3963,44 @@ def main():
         check(np.isfinite(adata.obsm[key]).all(), f"{key} block finite")
     check(np.isfinite(adata.obsm["ALPINE_embedding"]).all(), "embedding finite")
 
-    # -- the slice over a cell mesh of 1, 2 and 3 processes ------------------
     slice_ref = {"loss": slice_losses, "W": np.concatenate(model.matrices["Ws"], axis=1),
                  "H": np.concatenate(model.matrices["Hs"], axis=0),
                  "T": np.concatenate([adata.obsm[k] for k in ("batch", "condition")]
                                      + [adata.obsm["ALPINE_embedding"]], axis=1)}
+
+    # -- random-minibatch and gathered weighted fits: hxt/wtx on the batches;
+    # their fits are the mesh phases' single-device references (on an
+    # AnnData of their own: slice_persist reads the slice's embeddings) -----
+    mb_launches, mb_rows, mb_refs = {}, {}, {}
+    mb_adata = AnnData(counts, obs=obs)
+    for phase, kw in (("slice_minibatch", {}),
+                      ("slice_minibatch_als", dict(use_als=True)),
+                      ("slice_weighted", dict(sampling_method="weighted")),
+                      ("slice_tiled", dict(sampling_method="tiled"))):
+        mb_launches[phase], mb_rows[phase], mb_refs[phase] = run_minibatch_phase(
+            phase, torch, kernels, ALPINE, mb_adata, slice_peak,
+            baseline=mb_rows.get("slice_minibatch"), **kw)
+    del mb_adata
+
+    # -- the slice over a cell mesh of 1, 2 and 3 processes ------------------
     run_sharded_phase(torch, kernels, mu, ALPINE, AnnData, counts, obs, slice_ref)
     del slice_ref
-    run_sharded_modes_phase(torch, kernels, mu, ALPINE, AnnData, counts, obs)
-    grid_launches = run_gene_cell_phase(torch, kernels, mu, ALPINE, AnnData, counts, obs,
-                                        slice_losses)
+    global_launches, global_shares = run_sharded_modes_phase(
+        torch, kernels, mu, ALPINE, AnnData, counts, obs, mb_refs)
+    grid_launches, grid_shares = run_gene_cell_phase(
+        torch, kernels, mu, ALPINE, AnnData, counts, obs, slice_losses, mb_refs)
+    del mb_refs
+    # P1/P2 at the shares of a batch that those fits ran (rank 0's, epoch 0;
+    # the ALS and weighted fits' shares differ, the ALS ones of the random
+    # minibatch's permutation): a cell mesh rank's 2,000 genes, a 2 x 2
+    # grid rank's 1,000
+    share_rows = x_pass_share_rows(torch, kernels, mu, gen, dev, card, (
+        ("global share als", G, global_shares["als_minibatch"], (5, 30)),
+        ("global share weighted", G, global_shares["weighted"], (5, 30, 40)),
+        ("grid share als", G // 2, grid_shares["als_minibatch"], (5, 30)),
+        ("grid share weighted", G // 2, grid_shares["weighted"], (40,))))
+    check(global_shares["weighted"] == global_shares["weighted_als"],
+          "the weighted fits' shares come from one draw stream")
 
     run_persist_phase(torch, kernels, ALPINE, AnnData, model, adata, counts, obs)
 
@@ -3856,16 +4114,6 @@ def main():
     del als
     torch.cuda.empty_cache()
 
-    # -- random-minibatch and gathered weighted fits: hxt/wtx on the batches --
-    mb_launches, mb_rows = {}, {}
-    for phase, kw in (("slice_minibatch", {}),
-                      ("slice_minibatch_als", dict(use_als=True)),
-                      ("slice_weighted", dict(sampling_method="weighted")),
-                      ("slice_tiled", dict(sampling_method="tiled"))):
-        mb_launches[phase], mb_rows[phase] = run_minibatch_phase(
-            phase, torch, kernels, ALPINE, adata, slice_peak,
-            baseline=mb_rows.get("slice_minibatch"), **kw)
-
     # -- component bucketing, restarts and mid-fit checkpoints ----------------
     bucket_launches = run_bucket_phase(torch, kernels, mu, ALPINE, adata)
     run_restarts_phase(torch, kernels, mu, ALPINE, adata, slice_losses)
@@ -3965,7 +4213,17 @@ def main():
                 "wtx gene_cell": grid_launches["wtx"],
                 "fused_transform gene_cell": grid_launches["fused_transform"],
                 "hxt gene_cell minibatch": grid_launches["hxt minibatch"],
-                "wtx gene_cell minibatch": grid_launches["wtx minibatch"]}
+                "wtx gene_cell minibatch": grid_launches["wtx minibatch"],
+                # the global-draw fits over processes at a rank's share of a
+                # batch: slice_sharded_modes' world 2 (2,000 genes; its two
+                # ranks together) and the 2 x 2 grid of slice_gene_cell (1,000
+                # genes; four ranks), P1 one a non-empty share, P2 one a block
+                # of it (ALS: k = 5, 5, 30); and world 2's losses, a P2 at a
+                # rank's 50,000 cells an epoch
+                **share_launches(global_launches, grid_launches)}
+    for kname in SHARE_ROW_SOURCE:
+        results[kname] = share_rows[SHARE_ROW_SOURCE[kname]]
+    results["wtx global shard loss"] = twin_rows[("wtx", "world-2 shard")]
     for p in sharded_opt_k3:
         results[f"fused_transform optimizer sharded {p}"] = \
             results[f"fused_transform optimizer {p}"]
@@ -3987,7 +4245,8 @@ def main():
                   *(k for k in launches
                     if k.startswith("fused_transform optimizer sharded ")),
                   "hxt gene_cell", "wtx gene_cell", "fused_transform gene_cell",
-                  "hxt gene_cell minibatch", "wtx gene_cell minibatch"):
+                  "hxt gene_cell minibatch", "wtx gene_cell minibatch",
+                  *SHARE_ROW_SOURCE, "wtx global shard loss"):
         res = results[kname]
         base = kname.split()[0].replace("_fma", "")
         rows.append({"name": kname, "route": "cuda", "source": SOURCES[base],

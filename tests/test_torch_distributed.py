@@ -29,8 +29,8 @@ against the single-process port and the JAX package.
 - Refusals and inconsistent inputs raise on both ranks, with the JAX
   package's message where it has one, and the group still works after;
   the modes ported since (weighted_fast, ALS, minibatch, tiled,
-  checkpoints) fit on both ranks, and ComponentOptimizer constructs on
-  both from the full data.
+  checkpoints, gathered weighted, ALS minibatch) fit on both ranks, and
+  ComponentOptimizer constructs on both from the full data.
 """
 
 import os
@@ -488,16 +488,15 @@ _FAILURES = {
     "genes_differ": ("ValueError", "per-process fit inputs (gene count"),
     "int8_unstorable": ("ValueError", "cannot represent the data on at least one process's shard"),
     "n_restarts": ("ValueError", "n_restarts > 1 is not supported with a sharded (Mesh) device."),
-    "weighted": ("ValueError", "sampling_method='weighted' is not supported in multi-process fits"),
-    "als_minibatch": ("ValueError", "ALS minibatch fits are not supported in multi-process mode"),
     "transform_genes_differ": ("ValueError", "per-process transform inputs (genes"),
 }
-# the cases that raised NotImplementedError until they were ported: each
-# mode now fits on every rank (tests/test_torch_distributed_modes.py holds
-# their results against the single process and the JAX package), and the
-# optimizer constructs on every rank from the full data
+# the cases that raised until they were ported: each mode now fits on
+# every rank (tests/test_torch_distributed_modes.py holds their results
+# against the single process and the JAX package), and the optimizer
+# constructs on every rank from the full data
 # (tests/test_torch_optimizer_distributed.py runs its searches)
-_NOW_RUN = ("minibatch", "weighted_fast", "tiled", "als", "checkpoint", "optimizer")
+_NOW_RUN = ("minibatch", "weighted_fast", "tiled", "als", "checkpoint", "optimizer",
+            "weighted", "als_minibatch")
 
 
 @pytest.mark.parametrize("name", list(_FAILURES) + list(_NOW_RUN))

@@ -36,9 +36,26 @@ against the single-process port and the JAX package.
   bit, tiled, ALS and minibatch checkpointed fits, the key's topology
   fields; W, the Bs and the losses bit-equal across the ranks in every
   case.
-- Transforms after sharded weighted_fast and tiled fits: through the
-  fit's device X as without it (rtol 1e-5).
+- Transforms after sharded weighted_fast, tiled and gathered weighted
+  fits: through the fit's device X as without it (rtol 1e-5).
 - A sampling_method that differs across the ranks raises on both.
+- The global-draw fits (ALS minibatch, gathered "weighted" joint and ALS:
+  every rank draws the single-device epoch and runs its share of every
+  batch): the step loop in float64 on ragged shards (31 / 30 cells) with
+  rank 1's share of the first batch empty and weighted draws repeating
+  cells, against the single process at rtol 1e-11, with nb · n_blocks + 1
+  (ALS) or nb + 1 (joint) all-reduces an epoch; a fused float32 ALS fit
+  of that draw calls no kernel wrapper for the empty share; ``mu.fit_scan``
+  on 51 / 50 cells fed the JAX package's own epoch draws
+  (``jax.random.permutation``, or ``jax.random.choice`` over its balanced
+  probabilities) from ``jmu.init_matrices``' state against its
+  single-device ``fit_scan`` (loss rtol 5e-4, factors 5e-3); the
+  estimator on 48 / 47 cells against the port's single-process fit (loss
+  rtol 5e-4, embedding 5e-3), the label codes gathered once; snapshots
+  resumed bit for bit; a world of one bit for bit the single process; a
+  "weighted" fit of cells sorted by batch on each rank back in the
+  caller's order (``compute_loss`` of the gathered embeddings within rtol
+  2e-2 of the final loss, tests/test_sharding.py:201-233).
 """
 
 import os
@@ -139,6 +156,45 @@ def _f64_cases():
     return out
 
 
+_GB = 20  # of the global-draw float64 cases' 61 cells: batches 20, 20, 20, 1
+
+
+def _global_f64_cases():
+    """Float64 global-draw cases on 31 / 30 cells: an ALS minibatch fit
+    whose epochs' first batch holds only rank 0's cells, and gathered
+    weighted joint (batches of 20 draws, the first of rank 0's cells) and
+    ALS (one batch of 61 draws) fits, whose draws repeat cells.  Every
+    rank gets the same single-device epochs."""
+    out = {}
+    for name, als, weighted, bs in (("als_mb_empty_f64", True, False, _GB),
+                                    ("wt_f64", False, True, _GB),
+                                    ("wt_als_f64", True, True, None)):
+        r = np.random.default_rng(len(out) + 40)
+        g, n, iters = 20, 61, 6
+        Ys = _labels(r, n, N_LABELS)
+        draws = []
+        for _ in range(iters):
+            if weighted:
+                p = tsampling.balanced_sample_probabilities(
+                    tsampling.joint_label_ids(Ys)).astype(np.float64)
+                d = r.choice(n, n, p=p / p.sum())
+            else:
+                d = r.permutation(n)
+            if bs:  # the first batch from rank 0's cells alone
+                first = r.choice(31, bs, replace=weighted)
+                rest = d[bs:] if weighted else r.permutation(np.setdiff1d(np.arange(n), first))
+                d = np.concatenate([first, rest])
+            draws.append(d.astype(np.int64))
+        out[name] = dict(cfg=dict(blocks=BLOCKS, n_labels=N_LABELS, n_cells=n, max_iter=iters,
+                                  backend="plain", use_als=als, weighted=weighted,
+                                  batch_size=bs),
+                         X=r.random((g, n)) * 2, Ys=[y.astype(np.float64) for y in Ys],
+                         lam=np.asarray([2.0, 0.5]), hyper=(0.3, 0.7, 0.4, EPS), f64=True,
+                         draws=[np.stack(draws)] * WORLD, **{"global": True},
+                         **_state(r, g, n, BLOCKS, N_LABELS, np.float64))
+    return out
+
+
 def _jax_cases():
     """float32 cases from the JAX package's initial state: full-batch ALS,
     and random minibatch and tiled epochs on equal shards driven by the
@@ -146,7 +202,10 @@ def _jax_cases():
     out = {}
     for name, n, iters, extra in (("als_jax", 96, 8, dict(use_als=True)),
                                   ("mb_jax", 128, 4, dict(batch_size=32)),
-                                  ("tiled_jax", 128, 4, dict(batch_size=32, tile=TILE))):
+                                  ("tiled_jax", 128, 4, dict(batch_size=32, tile=TILE)),
+                                  ("als_mb_jax", 101, 6, dict(use_als=True, batch_size=32)),
+                                  ("wt_jax", 101, 8, dict(weighted=True, batch_size=32)),
+                                  ("wt_als_jax", 101, 6, dict(weighted=True, use_als=True))):
         r = np.random.default_rng(n + iters)
         g = 24
         X = (r.gamma(2.0, 1.0, (g, 6)) @ r.gamma(2.0, 1.0, (6, n))
@@ -161,7 +220,20 @@ def _jax_cases():
                     Bs0=[np.asarray(b) for b in Bs0],
                     lam=np.asarray([2.0, 1.0], np.float32), hyper=(0.1, 0.2, 0.3, EPS),
                     jcfg=jcfg, key=jax.random.PRNGKey(7))
-        if "batch_size" in extra:
+        if name in _GLOBAL_JAX:
+            # the JAX package's single-device epochs (alpine_tpu/ops/mu.py:
+            # 900-905), the same on every rank
+            probs = None
+            if extra.get("weighted"):
+                probs = jsampling.balanced_sample_probabilities(jsampling.joint_label_ids(Ys))
+                case["probs"] = probs
+            keys = jax.random.split(case["key"], iters)
+            epochs = np.stack([np.asarray(
+                jax.random.permutation(k, n) if probs is None else
+                jax.random.choice(k, n, shape=(n,), replace=True, p=jnp.asarray(probs)))
+                for k in keys]).astype(np.int64)
+            case["draws"], case["global"] = [epochs] * WORLD, True
+        elif "batch_size" in extra:
             n_loc = n // WORLD
             units = n_loc // TILE if "tile" in extra else n_loc
             draws = []
@@ -172,6 +244,9 @@ def _jax_cases():
             case["draws"] = draws
         out[name] = case
     return out
+
+
+_GLOBAL_JAX = ("als_mb_jax", "wt_jax", "wt_als_jax")
 
 
 def _payload_cases():
@@ -249,6 +324,20 @@ def _small_case():
     return case
 
 
+def _sorted_case():
+    """160 cells × 24 genes as tests/test_sharding.py:201-233 makes them
+    (120 of batch b0, 40 of b1), stored sorted by batch within each
+    rank's 80 cells (70 b0 then 10 b1, 50 b0 then 30 b1): every rank
+    must hold every label, so the whole axis cannot be sorted."""
+    r = np.random.default_rng(3)
+    n, g, k = 160, 24, 4
+    X = (r.gamma(2.0, 1.0, (g, k)) @ r.gamma(2.0, 1.0, (k, n))
+         + r.random((g, n))).astype(np.float32).T
+    batch = np.array(["b0"] * 70 + ["b1"] * 10 + ["b0"] * 50 + ["b1"] * 30, dtype=object)
+    condition = np.array(["c0", "c1", "c2"], dtype=object)[np.arange(n) % 3]
+    return dict(X=X, obs={"batch": batch, "condition": condition})
+
+
 SKEW_MODEL = {"n_covariate_components": [2, 2], "lam": [1.0, 1.0]}
 
 _ESTIMATOR = {
@@ -275,18 +364,28 @@ _ESTIMATOR = {
     # empty on both ranks (and zero W), so the epoch runs 3
     "short_epoch": dict(data="21", ranges=[(0, 9), (9, 18)],
                         fit=dict(max_iter=3, batch_size=5)),
+    # the global-draw fits on 48 / 47 cells
+    "als_mb_95": dict(data="95", model={"use_als": True}, fit=dict(max_iter=6, batch_size=24)),
+    "wt_95": dict(data="95", fit=dict(max_iter=6, batch_size=24, sampling_method="weighted"),
+                  transform=True),
+    "wt_als_95": dict(data="95", model={"use_als": True},
+                      fit=dict(max_iter=6, sampling_method="weighted")),
+    "wt_sorted": dict(data="sorted", cpu_model=True,
+                      fit=dict(max_iter=15, batch_size=40, sampling_method="weighted")),
 }
+_GLOBAL_EST = ("als_mb_95", "wt_95", "wt_als_95")
 
 
 def _build_inputs():
-    ops = {**_f64_cases(), **{k: {kk: vv for kk, vv in v.items() if kk not in ("jcfg", "key")}
-                              for k, v in _jax_cases().items()}, **_ragged_cases()}
+    ops = {**_f64_cases(), **_global_f64_cases(),
+           **{k: {kk: vv for kk, vv in v.items() if kk not in ("jcfg", "key")}
+              for k, v in _jax_cases().items()}, **_ragged_cases()}
     return {
         "layout": _layout_codes(),
         "ops": ops,
         "payload": _payload_cases(),
         "data": {"96": _adata_case(96, 2), "95": _adata_case(95, 4),
-                 "21": _small_case(), "skew": _skew_case()},
+                 "21": _small_case(), "skew": _skew_case(), "sorted": _sorted_case()},
         "estimator": _ESTIMATOR,
     }
 
@@ -481,6 +580,85 @@ def test_sharded_f64_matches_single_process(ranks, name):
         np.testing.assert_allclose(b, want.numpy(), rtol=1e-11)
 
 
+def _single_global(case, backend=None):
+    """The single-process step loop (or, with ``backend``, ``fit_scan`` in
+    float32) fed a global-draw case's epochs."""
+    t = torch.from_numpy
+    cfg = tmu.MUConfig(**{**case["cfg"], **({"backend": backend} if backend else {})})
+    cells = lambda it: t(case["draws"][0][it])  # noqa: E731
+    if backend:
+        f32 = lambda a: t(np.asarray(a, np.float32))  # noqa: E731
+        return tmu.fit_scan(cfg, f32(case["W0"]), f32(case["H0"]),
+                            tuple(f32(b) for b in case["Bs0"]), f32(case["X"]),
+                            [f32(y) for y in case["Ys"]], (f32(case["lam"]), *case["hyper"]),
+                            draw_cells=cells)
+    return tmu._fit_scan_steps(
+        cfg, t(case["W0"]), t(case["H0"]), tuple(t(b) for b in case["Bs0"]), t(case["X"]),
+        [t(y) for y in case["Ys"]], (t(case["lam"]), *case["hyper"]), None, cells, None)
+
+
+def _shares(draw, batch, lo, hi):
+    """The cells of [lo, hi) in each ``batch``-draw batch of an epoch."""
+    return [int(((b >= lo) & (b < hi)).sum())
+            for b in np.array_split(draw, range(batch, len(draw), batch))]
+
+
+@pytest.mark.parametrize("name", ["als_mb_empty_f64", "wt_f64", "wt_als_f64"])
+def test_global_draw_f64_matches_single_process(ranks, name):
+    """Each rank runs its share of every batch of the single-device epoch
+    (rank 1's share of the first batch empty, weighted draws repeating
+    cells within a batch): W, the Bs and the losses bit-equal across the
+    ranks and, with H, the single process's at rtol 1e-11; nb · n_blocks +
+    1 (ALS) or nb + 1 all-reduces an epoch, and one before the loop (the
+    global draw needs no widest rank)."""
+    inputs, results = ranks
+    case = inputs["ops"][name]
+    W, H, Bs, L = _single_global(case)
+    key = f"ops_{name}"
+    _same_across_ranks(results, key, ("W", "Bs", "L"))
+    got = results[0][key]
+    assert got["W"].dtype == np.float64
+    np.testing.assert_allclose(got["W"], W.numpy(), rtol=1e-11)
+    np.testing.assert_allclose(_cat(results, key), H.numpy(), rtol=1e-11)
+    np.testing.assert_allclose(got["L"], L.numpy(), rtol=1e-11)
+    for b, want in zip(got["Bs"], Bs):
+        np.testing.assert_allclose(b, want.numpy(), rtol=1e-11)
+    cfg = case["cfg"]
+    nb = -(-cfg["n_cells"] // (cfg["batch_size"] or cfg["n_cells"]))
+    per_epoch = nb * (len(BLOCKS) if cfg["use_als"] else 1) + 1
+    for res in results:
+        c = res[key]["collectives"]
+        assert c["iteration"]["calls"] == per_epoch * cfg["max_iter"]
+        assert c["setup"]["calls"] == 1
+    if cfg["batch_size"]:
+        assert all(_shares(d, _GB, 31, 61)[0] == 0 for d in case["draws"][0])
+    if cfg["weighted"]:  # a cell drawn twice into one batch
+        assert any(len(np.unique(d[:_GB])) < _GB for d in case["draws"][0])
+
+
+def test_empty_share_launches_nothing_and_stays_in_step(ranks):
+    """A fused float32 ALS minibatch fit of the case whose first batch
+    holds no cell of rank 1: rank 1 calls neither kernel wrapper for that
+    share (nor for any other empty one), every rank makes nb · n_blocks + 1
+    all-reduces an epoch, and the losses agree across the ranks and with
+    the single-process fused fit of the same epochs."""
+    inputs, results = ranks
+    case = inputs["ops"]["als_mb_empty_f64"]
+    iters = case["cfg"]["max_iter"]
+    want = _single_global(case, backend="fused")[3]
+    for rank, res in enumerate(results):
+        got = res["als_mb_empty_fused"]
+        lo, hi = tdist.process_cell_range(61, WORLD, rank)
+        shares = [[w for w in _shares(d, _GB, lo, hi) if w] for d in case["draws"][0]]
+        assert [w for k, w in got["calls"] if k == "hxt"] == sum(shares, [])
+        assert [w for k, w in got["calls"] if k == "wtx"] == sum(
+            ([w for w in ws for _ in BLOCKS] + [hi - lo] for ws in shares), [])
+        assert got["collectives"]["iteration"]["calls"] == (4 * len(BLOCKS) + 1) * iters
+        assert np.array_equal(got["L"], results[0]["als_mb_empty_fused"]["L"])
+        np.testing.assert_allclose(got["L"], want.numpy(), rtol=1e-5)
+    assert all(len(_shares(d, _GB, 31, 61)) == 4 for d in case["draws"][0])
+
+
 def _jax_reference(case):
     from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
@@ -489,8 +667,10 @@ def _jax_reference(case):
     W0, H0 = jnp.asarray(case["W0"]), jnp.asarray(case["H0"])
     Bs0 = tuple(jnp.asarray(b) for b in case["Bs0"])
     X, Ys = jnp.asarray(case["X"]), tuple(jnp.asarray(y) for y in case["Ys"])
-    if jcfg.batch_size is None:
-        W, H, _, L = jmu.fit_scan(jcfg, W0, H0, Bs0, X, Ys, hyper, case["key"], None)
+    if jcfg.batch_size is None or case.get("global"):
+        probs = case.get("probs")
+        W, H, _, L = jmu.fit_scan(jcfg, W0, H0, Bs0, X, Ys, hyper, case["key"],
+                                  None if probs is None else jnp.asarray(probs))
     else:
         mesh = Mesh(np.asarray(jax.devices()[:WORLD]), ("cells",))
         sh = lambda a: jax.device_put(a, NamedSharding(mesh, P(None, "cells")))  # noqa: E731
@@ -501,11 +681,14 @@ def _jax_reference(case):
     return np.asarray(W), np.asarray(H), np.asarray(L)
 
 
-@pytest.mark.parametrize("name", ["als_jax", "mb_jax", "tiled_jax"])
+@pytest.mark.parametrize("name", ["als_jax", "mb_jax", "tiled_jax", *_GLOBAL_JAX])
 def test_sharded_modes_match_jax(ranks, name):
     """ALS against the JAX package's fit_scan, random minibatch and tiled
     epochs against its shard-local fit_scan_minibatch_sharded driven by
-    the same per-shard permutations: loss rtol 5e-4, W and H 5e-3."""
+    the same per-shard permutations, and the global-draw fits (ALS
+    minibatch, gathered weighted joint and ALS on 51 / 50 cells) against
+    its single-device fit_scan, each rank fed the epochs that fit draws
+    from its key: loss rtol 5e-4, W and H 5e-3."""
     if len(jax.devices()) < WORLD:
         pytest.skip("needs 2 virtual devices")
     _, results = ranks
@@ -592,6 +775,57 @@ def test_estimator_matches_single_process(ranks, name):
         assert c["setup"]["calls"] == 1
 
 
+@pytest.mark.parametrize("name", _GLOBAL_EST)
+def test_global_draw_estimator_matches_single_process(ranks, name):
+    """ALS minibatch and gathered weighted (joint: batches of 24; ALS: one
+    batch of 95 draws) fits on 48 / 47 cells: the single-process
+    trajectory up to summation order (loss rtol 5e-4, embedding 5e-3);
+    nb · n_blocks + 1 (ALS) or nb + 1 all-reduces an epoch and one before
+    the loop; a weighted fit gathers the cells' label codes once (8 bytes a
+    cell of the widest rank, from every rank)."""
+    inputs, results = ranks
+    model, ad = _single_process_fit(inputs, name)
+    key = f"est_{name}"
+    _same_across_ranks(results, key, ("W", "loss", "Bs"))
+    np.testing.assert_allclose(results[0][key]["loss"], model.loss_history_, rtol=5e-4)
+    emb = _cat(results, key, "emb", axis=0)
+    np.testing.assert_allclose(emb, ad.obsm["ALPINE_embedding"], rtol=5e-3, atol=1e-5)
+    spec = _ESTIMATOR[name]
+    als = spec.get("model", {}).get("use_als", False)
+    weighted = spec["fit"].get("sampling_method") == "weighted"
+    nb = -(-95 // spec["fit"].get("batch_size", 95))
+    per_epoch = nb * (len(BLOCKS) if als else 1) + 1
+    for res in results:
+        c = res[key]["collectives"]
+        assert c["iteration"]["calls"] == per_epoch * spec["fit"]["max_iter"]
+        assert c["setup"]["calls"] == 1
+        if weighted:
+            assert c["labels gather"]["calls"] == 1
+            assert c["labels gather"]["bytes"] == 8 * WORLD * (2 + 48)
+        else:
+            assert "labels gather" not in c
+
+
+def test_weighted_fit_of_sorted_cells_comes_back_in_caller_order(ranks):
+    """tests/test_sharding.py:201-233 on a 2-rank cell mesh: a weighted fit
+    (15 epochs of 40 draws) of cells stored sorted by batch; the loss
+    recomputed on the host from the ranks' embeddings, concatenated in the
+    caller's order, agrees with the fit's final loss within rtol 2e-2."""
+    inputs, results = ranks
+    key = "est_wt_sorted"
+    L = results[0][key]["loss"][:, 0]
+    assert np.isfinite(L).all() and L[-1] < L[0]
+    model = pickle.loads(results[0][key]["cpu_model"])
+    ad = _port_adata(inputs["data"]["sorted"])
+    blocks = np.concatenate([res[key]["blocks"] for res in results])
+    edges = np.cumsum([0] + KW["n_covariate_components"] + [KW["n_components"]])
+    for i, k in enumerate(KEYS + ["ALPINE_embedding"]):
+        ad.obsm[k] = blocks[:, edges[i]:edges[i + 1]]
+        ad.varm[k if i < len(KEYS) else "ALPINE_weights"] = model.matrices["Ws"][i]
+    recomputed = float(model.compute_loss(ad))
+    assert np.isclose(recomputed, L[-1], rtol=2e-2), (recomputed, L[-1])
+
+
 def test_weighted_fast_first_draw_is_the_single_process_draw(ranks):
     """The ranks' first draws, in caller order and concatenated, are the
     single-process first draw integer for integer."""
@@ -669,7 +903,7 @@ def test_fit_scan_on_ragged_shards_runs_the_widest_ranks_batches(ranks, name, ba
     assert np.isfinite(L).all() and L[-1] < L[0]
 
 
-@pytest.mark.parametrize("name", ["wf_96", "tiled_95"])
+@pytest.mark.parametrize("name", ["wf_96", "tiled_95", "wt_95"])
 def test_cached_transform_after_sharded_fit(ranks, name):
     _, results = ranks
     for res in results:
@@ -741,6 +975,24 @@ def test_sampled_checkpointed_fits(ranks):
             assert np.array_equal(ck[name]["W"], results[0]["checkpoint"][name]["W"])
 
 
+@pytest.mark.parametrize("name", ["wt", "als_mb"])
+def test_global_draw_fits_resume_bit_for_bit(ranks, name):
+    """Gathered weighted and ALS minibatch fits (6 epochs, a snapshot every
+    2) interrupted after their first snapshot and resumed by fresh models
+    on both ranks are the uninterrupted checkpointed fits bit for bit
+    (chunk c's draws are keyed on c on every rank)."""
+    _, results = ranks
+    for res in results:
+        ck = res["checkpoint"]
+        assert ck[f"{name}_first"] == "interrupted" and ck[f"{name}_resumed_from"] == [2]
+        for field in ("loss", "W", "H", "emb"):
+            assert np.array_equal(ck[f"{name}_resumed"][field], ck[f"{name}_plain"][field])
+        assert all(np.array_equal(a, b) for a, b in zip(ck[f"{name}_resumed"]["Bs"],
+                                                        ck[f"{name}_plain"]["Bs"]))
+        assert np.array_equal(ck[f"{name}_plain"]["W"],
+                              results[0]["checkpoint"][f"{name}_plain"]["W"])
+
+
 def test_checkpoint_key_holds_the_topology(ranks):
     _, results = ranks
     for rank, res in enumerate(results):
@@ -782,5 +1034,35 @@ def test_world_of_one_weighted_fast_and_als_are_single_device():
                 out.append((model.loss_history_, ad.obsm["ALPINE_embedding"]))
             assert np.array_equal(out[0][0], out[1][0])
             assert np.array_equal(out[0][1], out[1][1])
+    finally:
+        tdist.shutdown()
+
+
+@pytest.mark.parametrize("model_kw,fit_kw", [
+    ({"use_als": True}, dict(batch_size=24)),
+    ({}, dict(sampling_method="weighted", batch_size=24)),
+    ({"use_als": True}, dict(sampling_method="weighted"))],
+    ids=["als_minibatch", "weighted", "weighted_als"])
+def test_world_of_one_global_draw_fits_are_single_device(model_kw, fit_kw):
+    """A mesh of one process: the ALS minibatch and gathered weighted fits
+    draw the single-device epochs and their all-reduces change nothing, so
+    they equal the single-device fits bit for bit."""
+    tdist.initialize(f"localhost:{_free_port()}", num_processes=1, process_id=0,
+                     timeout=30.0)
+    try:
+        mesh = tdist.global_cell_mesh()
+        case = _adata_case(95, 4)
+        out = []
+        for device in ("cpu", mesh):
+            model = ALPINE(device=device, **{**KW, **model_kw})
+            ad = _port_adata(case)
+            model.fit(ad, KEYS, max_iter=5, **fit_kw)
+            out.append((model, ad))
+        (one, ad1), (meshed, adm) = out
+        assert np.array_equal(one.loss_history_, meshed.loss_history_)
+        for field in ("Ws", "Bs"):
+            assert all(np.array_equal(a, b) for a, b in zip(one.matrices[field],
+                                                            meshed.matrices[field]))
+        assert np.array_equal(ad1.obsm["ALPINE_embedding"], adm.obsm["ALPINE_embedding"])
     finally:
         tdist.shutdown()

@@ -40,7 +40,17 @@ and the single-process port.
 - Refusals raise on every rank: an indivisible gene count (the JAX
   package's message), columns holding different cells, the optimizer
   (the JAX package's message), and the JAX package's other refusals; the
-  groups still work after.
+  groups still work after.  Gathered weighted and ALS minibatch fits,
+  which the JAX package refuses on a multi-process mesh, run on every
+  rank.
+- The global-draw fits beyond random minibatches: ALS minibatch (the
+  float64 step loop with column 1's first share empty; fit_scan from the
+  JAX package's permutations against its 2-D mesh; the estimator) and
+  gathered "weighted" joint and ALS fits (draws with replacement that
+  repeat cells; fit_scan from the JAX package's ``jax.random.choice``
+  epochs; the estimator), nb · n_blocks + 1 (ALS) or nb + 1 all-reduces
+  over each axis an epoch; a weighted fit resumed from a snapshot bit for
+  bit.
 - Snapshots (``checkpoint_dir``): a file a rank, its key holding the
   grid's shape, the rank's place and its gene rows; joint and minibatch
   fits interrupted and resumed are the uninterrupted ones bit for bit on
@@ -75,6 +85,7 @@ from alpine_tpu_torch import ALPINE, AnnData
 from alpine_tpu_torch.ops import mu as tmu
 from alpine_tpu_torch.parallel import distributed as tdist
 from alpine_tpu_torch.parallel import mesh as tmesh
+from alpine_tpu_torch.utils import sampling as tsmp
 
 from .conftest import make_synthetic_adata
 
@@ -146,12 +157,23 @@ def _first_batch_in_column_0(r, n, iters):
     return np.stack(perms)
 
 
+def _weighted_draws(r, Ys, n, iters):
+    """Balanced draws with replacement (the port's probabilities) whose
+    first batch holds only cells of column 0, so column 1's share of it
+    is empty; draws repeat cells within a batch."""
+    p = tsmp.balanced_sample_probabilities(tsmp.joint_label_ids(Ys)).astype(np.float64)
+    return np.stack([np.concatenate([r.choice(31, _MB_BATCH), r.choice(n, n - _MB_BATCH,
+                                                                       p=p / p.sum())])
+                     for _ in range(iters)])
+
+
 def _f64_cases():
     out = {}
     for name, kl, als, wf, mb in (
             ("kl", True, False, False, None), ("fro", False, False, False, None),
             ("als", True, True, False, None), ("wf", True, False, True, None),
-            ("mb", True, False, False, "random"), ("mb_empty", False, False, False, "column 0")):
+            ("mb", True, False, False, "random"), ("mb_empty", False, False, False, "column 0"),
+            ("als_mb", True, True, False, "column 0"), ("wt", True, False, False, "weighted")):
         r = np.random.default_rng(len(out))
         g, n, iters = 20, 61, 20  # 10 genes a block; 31 / 30 cells a column
         if mb:
@@ -160,7 +182,7 @@ def _f64_cases():
         case = dict(
             cfg=dict(blocks=BLOCKS, n_labels=N_LABELS, n_cells=n, loss_kl=kl,
                      max_iter=iters, backend="plain", use_als=als, weighted_counts=wf,
-                     batch_size=_MB_BATCH if mb else None),
+                     batch_size=_MB_BATCH if mb else None, weighted=mb == "weighted"),
             X=r.random((g, n)) * 2,
             Ys=[y.astype(np.float64) for y in _labels(r, n, N_LABELS)],
             W0=r.random((g, K)) + 0.1, H0=r.random((K, n)) + 0.1,
@@ -170,6 +192,8 @@ def _f64_cases():
             case["counts"] = _counts(r, n, iters).astype(np.float64)
         if mb == "random":
             case["perms"] = np.stack([r.permutation(n) for _ in range(iters)])
+        elif mb == "weighted":
+            case["perms"] = _weighted_draws(r, case["Ys"], n, iters)
         elif mb:
             case["perms"] = _first_batch_in_column_0(r, n, iters)
         out[name] = case
@@ -182,10 +206,12 @@ _JAX_ITERS = 8
 def _jax_fit_cases():
     """fit_scan cases at 32 genes × 128 cells, the JAX package's initial
     state from its ``init_matrices``; weighted_fast on a group-sorted cell
-    axis with the JAX package's count stream; random minibatches of 48
-    cells (batches 48, 48, 32) with the JAX package's epoch permutations
-    (``jax.random.permutation`` over ``jax.random.split(key, max_iter)``,
-    as its fit_scan draws them)."""
+    axis with the JAX package's count stream; random and ALS minibatches
+    of 48 cells (batches 48, 48, 32) with the JAX package's epoch
+    permutations (``jax.random.permutation`` over ``jax.random.split(key,
+    max_iter)``, as its fit_scan draws them), and gathered weighted fits
+    (joint: batches of 48; ALS: one batch of 128) with its balanced draws
+    with replacement (``jax.random.choice`` over its probabilities)."""
     cases = {}
     for name, seed, dtype, kl, als, wf, bs in (
             ("joint", 3, "float32", True, False, False, None),
@@ -195,7 +221,12 @@ def _jax_fit_cases():
             ("int8", 9, "int8", True, False, False, None),
             ("mb", 10, "float32", True, False, False, 48),
             ("mb_fro", 11, "float32", False, False, False, 48),
-            ("mb_int8", 12, "int8", True, False, False, 48)):
+            ("mb_int8", 12, "int8", True, False, False, 48),
+            ("als_mb", 13, "float32", True, True, False, 48),
+            ("wt", 14, "float32", True, False, "gathered", 48),
+            ("wt_als", 15, "float32", True, True, "gathered", None)):
+        gathered = wf == "gathered"
+        wf = wf is True
         g, n = 32, 128
         iters = 5 if dtype == "int8" else _JAX_ITERS
         r = np.random.default_rng(seed)
@@ -212,14 +243,14 @@ def _jax_fit_cases():
             Ys = [np.ascontiguousarray(y[:, order]) for y in Ys]
             tables = (jnp.asarray(start), jnp.asarray(sizes))
         jcfg = jmu.MUConfig(blocks=BLOCKS, n_labels=N_LABELS, n_cells=n, loss_kl=kl,
-                            max_iter=iters, x_dtype=dtype, use_als=als, weighted=wf,
-                            weighted_counts=wf, batch_size=bs)
+                            max_iter=iters, x_dtype=dtype, use_als=als,
+                            weighted=wf or gathered, weighted_counts=wf, batch_size=bs)
         W0, H0, Bs0 = jmu.init_matrices(jcfg, g, jax.random.PRNGKey(seed + 100), EPS)
         hyper = ([2.0, 1.0], 0.1, 0.2, 0.3)
         case = dict(
             cfg=dict(blocks=BLOCKS, n_labels=N_LABELS, n_cells=n, loss_kl=kl,
                      max_iter=iters, x_dtype=dtype, use_als=als, weighted_counts=wf,
-                     batch_size=bs),
+                     batch_size=bs, weighted=gathered),
             X=X, Ys=Ys, W0=np.asarray(W0), H0=np.asarray(H0),
             Bs0=[np.asarray(b) for b in Bs0],
             lam=np.asarray(hyper[0], np.float32),
@@ -229,7 +260,13 @@ def _jax_fit_cases():
             keys = jax.random.split(key, iters)
             case["counts"] = np.stack([np.asarray(jmu.grouped_balanced_counts(
                 keys[t], n, tables, n)) for t in range(iters)]).astype(np.float32)
-        if bs:
+        elif gathered:
+            probs = jnp.asarray(jsmp.balanced_sample_probabilities(jsmp.joint_label_ids(Ys)))
+            case["tables"] = probs  # fit_scan's weights
+            case["perms"] = np.stack([np.asarray(jax.random.choice(
+                k, n, shape=(n,), replace=True, p=probs))
+                for k in jax.random.split(key, iters)]).astype(np.int64)
+        elif bs:
             case["perms"] = np.stack([np.asarray(jax.random.permutation(k, n))
                                       for k in jax.random.split(key, iters)]).astype(np.int64)
         cases[name] = case
@@ -285,8 +322,15 @@ _ESTIMATOR = {
     "wf": _adata_case(96, 8, fit_kw={"sampling_method": "weighted_fast"}),
     "int8": _adata_case(96, 5, "int8", 5, integer=True),
     "mb": _adata_case(95, 12, fit_kw={"batch_size": 24}),
+    "als_mb": _adata_case(95, 13, max_iter=6, model_kw={"use_als": True},
+                          fit_kw={"batch_size": 24}),
+    "wt": _adata_case(95, 14, fit_kw={"batch_size": 24, "sampling_method": "weighted"}),
+    "wt_als": _adata_case(96, 15, max_iter=6, model_kw={"use_als": True},
+                          fit_kw={"sampling_method": "weighted"}),
 }
-_LOSS_RTOL = {"int8": 5e-4}
+# int8 computes in bf16; the global-draw fits take the tolerance of
+# tests/test_torch_minibatch.py's port-vs-JAX minibatch fits
+_LOSS_RTOL = {"int8": 5e-4, "als_mb": 5e-4, "wt": 5e-4, "wt_als": 5e-4}
 
 
 def _build_inputs():
@@ -453,7 +497,7 @@ def _single_steps(case):
         draw, cells, None)
 
 
-@pytest.mark.parametrize("name", ["kl", "fro", "als", "wf", "mb", "mb_empty"])
+@pytest.mark.parametrize("name", ["kl", "fro", "als", "wf", "mb", "mb_empty", "als_mb", "wt"])
 def test_grid_loop_f64_matches_single_process(ranks, name):
     inputs, results = ranks
     W, H, Bs, L = _single_steps(inputs["f64"][name])
@@ -514,6 +558,30 @@ def test_grid_minibatch_all_reduces_an_epoch(ranks, name):
             sum(w + K for w in s) + (hi - lo + K) for s in shares)
         if name == "mb_empty" and COORDS[r][1] == 1:
             assert all(s[0] == 0 for s in shares)
+
+
+@pytest.mark.parametrize("name", ["als_mb", "wt"])
+def test_grid_global_draw_all_reduces_an_epoch(ranks, name):
+    """An ALS minibatch epoch of nb = 4 batches makes nb · n_blocks + 1
+    all-reduces over each axis (n_blocks a batch, the loss), a weighted
+    one nb + 1, whatever the shares (column 1's first share is empty, and
+    a weighted share may repeat a cell); ‖X‖² once over each axis."""
+    inputs, results = ranks
+    case = inputs["f64"][name]
+    iters = case["cfg"]["max_iter"]
+    per_epoch = 4 * (len(BLOCKS) if case["cfg"]["use_als"] else 1) + 1
+    for r, res in enumerate(results):
+        c = res[f"f64_{name}"]["collectives"]
+        assert c["iteration"]["calls"] == c["genes iteration"]["calls"] == per_epoch * iters
+        assert c["setup"]["calls"] == c["genes setup"]["calls"] == 1
+        lo, hi = tdist.process_cell_range(61, 2, COORDS[r][1])
+        shares = [_column_shares(p, lo, hi) for p in case["perms"]]
+        assert all(len(ws) == 4 and sum(ws) == int(((p >= lo) & (p < hi)).sum())
+                   for ws, p in zip(shares, case["perms"]))
+        if COORDS[r][1] == 1:
+            assert all(ws[0] == 0 for ws in shares)
+    if name == "wt":
+        assert any(len(np.unique(p[:_MB_BATCH])) < _MB_BATCH for p in case["perms"])
 
 
 def test_empty_share_launches_nothing_and_stays_in_step(ranks):
@@ -579,7 +647,10 @@ _JAX_TOL = {"joint": (1e-4, (5e-3, 1e-6), (5e-3, 1e-6)),
             "int8": (5e-4, (5e-3, 1e-6), None),
             "mb": (1e-4, (5e-3, 1e-6), (5e-3, 1e-6)),
             "mb_fro": (1e-4, (5e-3, 1e-6), (5e-3, 1e-6)),
-            "mb_int8": (5e-4, (5e-3, 1e-6), None)}
+            "mb_int8": (5e-4, (5e-3, 1e-6), None),
+            "als_mb": (5e-4, (5e-3, 1e-6), (5e-3, 1e-6)),
+            "wt": (5e-4, (5e-3, 1e-6), (5e-3, 1e-6)),
+            "wt_als": (5e-4, (5e-3, 1e-6), (5e-3, 1e-6))}
 
 
 @pytest.mark.parametrize("name", list(_JAX_TOL))
@@ -684,9 +755,12 @@ def test_estimator_replicas_bit_equal(ranks, name):
         assert res[key]["emb"].shape[0] == hi - lo
         assert res[key]["W"].shape == (32, 11)
         c = res[key]["collectives"]
-        # ALS: n_blocks + 1 over each axis; minibatch: nb + 1 (4 batches of
-        # 95 cells, the loss)
-        cells, genes = {"als": (len(BLOCKS) + 1,) * 2, "mb": (5, 5)}.get(name, (2, 1))
+        # ALS: n_blocks + 1 over each axis; minibatch and weighted: nb + 1
+        # (4 batches of 95 cells, the loss); ALS minibatch nb · n_blocks + 1,
+        # ALS weighted (one batch of 96 draws) n_blocks + 1
+        cells, genes = {"als": (len(BLOCKS) + 1,) * 2, "mb": (5, 5), "wt": (5, 5),
+                        "als_mb": (4 * len(BLOCKS) + 1,) * 2,
+                        "wt_als": (len(BLOCKS) + 1,) * 2}.get(name, (2, 1))
         assert c["iteration"]["calls"] == cells * case["max_iter"]
         assert c["genes iteration"]["calls"] == genes * case["max_iter"]
         assert res[key]["timings"]["fit"] > 0
@@ -740,12 +814,8 @@ _REFUSALS = {
     "column_differs": ("ValueError", "differs within cell column(s) [0, 1]", None),
     "tiled": ("ValueError", "tiled sampling requires joint mode on a 1-D cell mesh "
               "(or one device); use sampling_method='random'.", ("models", "alpine.py")),
-    "weighted": ("ValueError", "sampling_method='weighted' is not supported in "
-                 "multi-process fits", ("models", "alpine.py")),
     "n_restarts": ("ValueError", "n_restarts > 1 is not supported with a sharded "
                    "(Mesh) device.", ("models", "alpine.py")),
-    "als_minibatch": ("ValueError", "ALS minibatch fits are not supported in "
-                      "multi-process mode", ("models", "alpine.py")),
     "optimizer": ("NotImplementedError", "multi-process searches support 1-D (cell-axis) "
                   "meshes only; use distributed.global_cell_mesh().",
                   ("optimize", "optimizer.py")),
@@ -753,11 +823,20 @@ _REFUSALS = {
 }
 
 
-@pytest.mark.parametrize("name", list(_REFUSALS))
+# the JAX package's refusals on a multi-process mesh that the grid now
+# runs (the global draw): each fits on every rank
+_NOW_RUN = ("weighted", "als_minibatch")
+
+
+@pytest.mark.parametrize("name", list(_REFUSALS) + list(_NOW_RUN))
 def test_refusals_raise_on_every_rank(ranks, name):
     _, results = ranks
-    kind, message, source = _REFUSALS[name]
     got = [r["failures"][name] for r in results]
+    if name in _NOW_RUN:
+        assert got == [None] * WORLD, got
+        assert [r["failures"]["after"] for r in results] == [4.0] * WORLD
+        return
+    kind, message, source = _REFUSALS[name]
     assert all(g is not None for g in got), got
     assert [g[0] for g in got] == [kind] * WORLD, got
     for _, msg in got:
@@ -773,15 +852,16 @@ def test_refusals_raise_on_every_rank(ranks, name):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("name", ["joint", "mb"])
+@pytest.mark.parametrize("name", ["joint", "mb", "wt"])
 def test_resumed_grid_fit_is_the_uninterrupted_one(ranks, name):
-    """Joint (12 iterations, a snapshot every 4) and minibatch (6 epochs of
-    24-cell batches, every 2) fits interrupted after their first snapshot
-    and resumed by fresh models: every rank resumes from that snapshot
-    and ends bit for bit where the uninterrupted checkpointed fit ends
-    (chunk c's cell draws are keyed on c), with no snapshot left."""
+    """Joint (12 iterations, a snapshot every 4), minibatch and gathered
+    weighted (6 epochs of 24-cell batches, every 2) fits interrupted after
+    their first snapshot and resumed by fresh models: every rank resumes
+    from that snapshot and ends bit for bit where the uninterrupted
+    checkpointed fit ends (chunk c's cell draws are keyed on c), with no
+    snapshot left."""
     _, results = ranks
-    every = {"joint": 4, "mb": 2}[name]
+    every = {"joint": 4, "mb": 2, "wt": 2}[name]
     for res in results:
         ck = res["checkpoint"]
         assert ck[f"{name}_first"] == "interrupted"
@@ -890,7 +970,7 @@ def grid_of_one():
         tdist.shutdown()
 
 
-@pytest.mark.parametrize("name", ["joint", "als", "wf", "mb"])
+@pytest.mark.parametrize("name", ["joint", "als", "wf", "mb", "als_mb", "wt"])
 def test_grid_of_one_is_the_step_loop(grid_of_one, name):
     """A 1 × 1 grid runs the steps with all-reduces over groups of one,
     which change nothing: fit_scan on it is the single-device step loop
@@ -907,9 +987,10 @@ def test_grid_of_one_is_the_step_loop(grid_of_one, name):
     tdist.reset_collectives()
     got = tmu.fit_scan(*args, draw_counts=draw, draw_cells=cells, group=place.group,
                        gene_group=place.gene_group, cell_range=(0, cfg.n_cells))
-    # ALS n_blocks + 1 an iteration, minibatch 3 batches + the loss an epoch
+    # ALS n_blocks + 1 an iteration, minibatch and weighted 3 batches + the
+    # loss an epoch, ALS minibatch 3 · n_blocks + 1
     assert tdist.collectives["genes iteration"]["calls"] == cfg.max_iter * {
-        "als": len(BLOCKS) + 1, "mb": 4}.get(name, 1)
+        "als": len(BLOCKS) + 1, "mb": 4, "wt": 4, "als_mb": 3 * len(BLOCKS) + 1}.get(name, 1)
     want = tmu._fit_scan_steps(*args, draw, cells, None)
     for a, b in zip(got[:2] + got[3:], want[:2] + want[3:]):
         assert torch.equal(a, b)
@@ -946,14 +1027,19 @@ def test_grid_of_one_estimator_is_the_step_loop(grid_of_one, monkeypatch):
 
 @pytest.mark.parametrize("model_kw,fit_kw", [
     ({}, {"batch_size": 24}), ({"use_als": True}, {"checkpoint_every": 4}),
-    ({}, {"batch_size": 24, "checkpoint_every": 2})],
-    ids=["minibatch", "als_checkpoint", "minibatch_checkpoint"])
+    ({}, {"batch_size": 24, "checkpoint_every": 2}),
+    ({"use_als": True}, {"batch_size": 24}),
+    ({}, {"batch_size": 24, "sampling_method": "weighted"}),
+    ({"use_als": True}, {"sampling_method": "weighted", "checkpoint_every": 3})],
+    ids=["minibatch", "als_checkpoint", "minibatch_checkpoint", "als_minibatch", "weighted",
+         "weighted_als_checkpoint"])
 def test_grid_of_one_fits_are_single_device(grid_of_one, tmp_path, model_kw, fit_kw):
-    """The estimator's minibatch and checkpointed fits on a 1 × 1 grid are
-    the single-device fits bit for bit where one device runs the step
-    loop too (minibatch, ALS): the grid's global cell draw is the
-    single-device stream, the chunks draw alike, and the all-reduces over
-    groups of one change nothing."""
+    """The estimator's minibatch (random, ALS, gathered weighted) and
+    checkpointed fits on a 1 × 1 grid are the single-device fits bit for
+    bit where one device runs the step loop too: the grid's global cell
+    draw (and a weighted fit's probabilities, from the gathered label
+    codes) is the single-device stream, the chunks draw alike, and the
+    all-reduces over groups of one change nothing."""
     case = _ESTIMATOR["95"]
     out = []
     for device in ("cpu", grid_of_one):

@@ -263,9 +263,9 @@ def main():
 
 
 def checkpoints(inputs, workdir, mesh, rank):
-    """Checkpointed fits of the 96-cell case on the grid: joint and
-    minibatch, each uninterrupted, then interrupted after a snapshot and
-    resumed by a fresh model; the ranks' snapshots at different
+    """Checkpointed fits of the 96-cell case on the grid: joint, minibatch
+    and gathered weighted, each uninterrupted, then interrupted after a
+    snapshot and resumed by a fresh model; the ranks' snapshots at different
     iterations; and a shared directory holding a 1-D mesh's and a 2 × 1
     grid's snapshots of the same fit.  Every FitCheckpointer's key and
     path and every load's iteration are recorded."""
@@ -316,7 +316,9 @@ def checkpoints(inputs, workdir, mesh, rank):
     ck, whole = {}, {}
     try:
         for name, fit_kw in (("joint", dict(max_iter=12, checkpoint_every=4)),
-                             ("mb", dict(max_iter=6, checkpoint_every=2, batch_size=24))):
+                             ("mb", dict(max_iter=6, checkpoint_every=2, batch_size=24)),
+                             ("wt", dict(max_iter=6, checkpoint_every=2, batch_size=24,
+                                         sampling_method="weighted"))):
             whole[name], ck[f"{name}_whole"] = ck_fit(f"ck_{name}_whole", fit_kw)
             ck[f"{name}_first"] = ck_fit(f"ck_{name}", fit_kw, stop=fit_kw["checkpoint_every"])[1]
             del loaded[:]

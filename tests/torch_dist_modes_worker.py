@@ -1,7 +1,8 @@
 """One rank of tests/test_torch_distributed_modes.py: joins a gloo process
 group on the CPU, runs every case of ``inputs.pkl`` on its own cells (the
 fit modes beyond full-batch joint: weighted_fast, ALS, random minibatch,
-tiled, checkpoints) and writes ``rank<i>.pkl``.
+tiled, and the global-draw fits: ALS minibatch and gathered weighted;
+checkpoints) and writes ``rank<i>.pkl``.
 
     python tests/torch_dist_modes_worker.py PORT RANK WORLD WORKDIR
 
@@ -24,7 +25,7 @@ sys.path.insert(0, REPO)
 from alpine_tpu_torch import ALPINE, AnnData  # noqa: E402
 from alpine_tpu_torch.io.checkpoint import FitCheckpointer  # noqa: E402
 from alpine_tpu_torch.models import alpine as talpine  # noqa: E402
-from alpine_tpu_torch.ops import mu  # noqa: E402
+from alpine_tpu_torch.ops import kernels, mu  # noqa: E402
 from alpine_tpu_torch.parallel import distributed as dist  # noqa: E402
 
 KEYS = ["batch", "condition"]
@@ -70,10 +71,11 @@ def main():
             _Place(rank, world), codes[rank])
         out[f"layout_{name}"] = (g_codes, m_gp)
 
-    def ops_fit(case, lo, hi, draws=None):
+    def ops_fit(case, lo, hi, draws=None, backend=None):
         """mu.fit_scan (or its step loop in float64) over the group on
-        columns lo:hi of a case."""
-        cfg = mu.MUConfig(**case["cfg"])
+        columns lo:hi of a case; a "global" case's draws are the
+        single-device epochs, of which the rank keeps its share."""
+        cfg = mu.MUConfig(**{**case["cfg"], **({"backend": backend} if backend else {})})
         X = t(case["X"][:, lo:hi]).contiguous()
         Ys = [t(y[:, lo:hi]).contiguous() for y in case["Ys"]]
         hyper = (t(case["lam"]), *case["hyper"])
@@ -84,15 +86,18 @@ def main():
             draw_counts = lambda it: t(case["counts"][it, lo:hi])  # noqa: E731
         if draws is not None:
             draw_cells = lambda it: t(draws[it])  # noqa: E731
-        if case.get("f64"):
+        cell_range = (lo, hi) if case.get("global") else None
+        if case.get("f64") and backend is None:
             # past fit_scan's cast of X to a storage dtype
             if cfg.weighted_counts:
                 W, H, Bs, L = mu._fit_scan_fused(*args, draw_counts, None, group)
             else:
-                W, H, Bs, L = mu._fit_scan_steps(*args, None, None, None, group, hi - lo)
+                W, H, Bs, L = mu._fit_scan_steps(*args, None, draw_cells, None, group,
+                                                 hi - lo, None, cell_range)
         else:
             W, H, Bs, L = mu.fit_scan(*args, draw_counts=draw_counts,
-                                      draw_cells=draw_cells, group=group)
+                                      draw_cells=draw_cells, group=group,
+                                      cell_range=cell_range)
         return {"W": W.numpy(), "H": H.numpy(), "Bs": [b.numpy() for b in Bs],
                 "L": L.numpy()}
 
@@ -104,6 +109,24 @@ def main():
         dist.reset_collectives()
         out[f"ops_{name}"] = ops_fit(case, lo, hi, case.get("draws", [None] * world)[rank])
         out[f"ops_{name}"]["collectives"] = dist.collective_summary()
+
+    # the kernel wrappers' calls in a fused float32 ALS minibatch fit whose
+    # first batch holds no cell of rank 1: (kind, cells) a call
+    calls, real_passes = [], (kernels.hxt, kernels.wtx)
+    kernels.hxt = lambda X, H: calls.append(("hxt", X.shape[1])) or real_passes[0](X, H)
+    kernels.wtx = lambda X, W: calls.append(("wtx", X.shape[1])) or real_passes[1](X, W)
+    case = inputs["ops"]["als_mb_empty_f64"]
+    f32 = {**case, **{k: np.asarray(case[k], np.float32) for k in ("X", "W0", "H0", "lam")},
+           "Bs0": [np.asarray(b, np.float32) for b in case["Bs0"]],
+           "Ys": [np.asarray(y, np.float32) for y in case["Ys"]]}
+    lo, hi = cols(case["X"].shape[1])
+    dist.reset_collectives()
+    try:
+        fused = ops_fit(f32, lo, hi, case["draws"][rank], backend="fused")
+    finally:
+        kernels.hxt, kernels.wtx = real_passes
+    out["als_mb_empty_fused"] = {"calls": calls, "L": fused["L"],
+                                 "collectives": dist.collective_summary()}
 
     # the all-reduces of each mode at two cell counts
     for name, case in inputs["payload"].items():
@@ -148,6 +171,11 @@ def main():
         if first:
             # this rank's first draw, back in its caller order
             res["first_draw"] = first[0][np.argsort(model._x_cache[3])]
+        if spec.get("cpu_model"):
+            # the fitted model moved to one process on the CPU
+            model.device = torch.device("cpu")
+            res["cpu_model"] = pickle.dumps(model)
+            model.device = mesh
         if spec.get("transform"):
             model.transform(ad, n_iter=5)
             res["cached"] = (model._x_cache is not None, blocks_of(ad))
@@ -225,6 +253,17 @@ def main():
                            model_kw={"use_als": True})
         ck["minibatch"] = ck_fit("ck_mb", dict(max_iter=4, checkpoint_every=2,
                                                batch_size=24))
+        # the global-draw fits: uninterrupted, then interrupted after the
+        # first snapshot and resumed
+        for name, model_kw, fit_kw in (
+                ("wt", {}, dict(sampling_method="weighted", batch_size=24)),
+                ("als_mb", {"use_als": True}, dict(batch_size=24))):
+            fit_kw = dict(fit_kw, max_iter=6, checkpoint_every=2)
+            ck[f"{name}_plain"] = ck_fit(f"ck_{name}_plain", fit_kw, model_kw=model_kw)
+            ck[f"{name}_first"] = ck_fit(f"ck_{name}", fit_kw, stop=2, model_kw=model_kw)
+            loaded.clear()
+            ck[f"{name}_resumed"] = ck_fit(f"ck_{name}", fit_kw, model_kw=model_kw)
+            ck[f"{name}_resumed_from"] = list(loaded["it"])
         ck["files_left"] = sorted(os.listdir(os.path.join(workdir, "ck_plain")))
     finally:
         FitCheckpointer.__init__, FitCheckpointer.save, FitCheckpointer.load = (
