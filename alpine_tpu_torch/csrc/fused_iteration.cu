@@ -24,8 +24,8 @@
 //    outputs and writes one partial.  This reads X a second time from
 //    device memory (the TPU kernel reads it once); fusing the two passes is
 //    later work.
-//  * reduce_partials: sums every partial in a fixed order, so a run gives
-//    the same bits each time (no floating-point atomics).
+//  * reduce_partials (fma_passes.cuh): sums every partial in a fixed order,
+//    so a run gives the same bits each time (no floating-point atomics).
 //
 // Where X computes in bf16 (int8 and bf16 storage, kBf16), both X products
 // run on the tensor cores through the WMMA API (bf16 m16n16k16, fp32
@@ -708,28 +708,6 @@ hxt_partial(const XT* __restrict__ X, const float* __restrict__ Hn,
   }
 }
 
-// stats[j] = sum over blocks of part[b][j]; XHt[gi][k] = sum over splits of
-// part_hxt[s][k][gi].  Fixed summation order: the same bits every run.
-__global__ void __launch_bounds__(kThreads)
-reduce_partials(const float* __restrict__ part, int n_part, int S_len,
-                float* __restrict__ stats, const float* __restrict__ part_hxt,
-                int n_split, int K, int g, float* __restrict__ XHt) {
-  size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx < (size_t)S_len) {
-    float s = 0.f;
-    for (int b = 0; b < n_part; ++b) s += part[(size_t)b * S_len + idx];
-    stats[idx] = s;
-    return;
-  }
-  idx -= S_len;
-  if (idx < (size_t)g * K) {
-    const int gi = (int)(idx / K), k = (int)(idx - (size_t)gi * K);
-    float s = 0.f;
-    for (int sp = 0; sp < n_split; ++sp) s += part_hxt[((size_t)sp * K + k) * g + gi];
-    XHt[idx] = s;
-  }
-}
-
 // The bf16 path: iter_tiles (its own phase 1), hxt_partial over
 // _cell_splits' grid of GB-gene blocks, reduce_partials.  The fp32 path:
 // wtx_fma into the scratch WtX (wtx_T, wtx_LK, wtx_GC, wtx_S: its grid),
@@ -761,7 +739,8 @@ static int launch(const void* X, const float* W, const float* H,
     if (err != cudaSuccess) return (int)err;
   } else {
     if (WtX == nullptr || (kCounts && Hs == nullptr)) return (int)cudaErrorInvalidValue;
-    const int rc = launch_wtx_fma<XT>(X, W, g, n, K, wtx_T, wtx_LK, wtx_GC, wtx_S, WtX, stream);
+    const int rc =
+        launch_wtx_fma<XT>(X, W, g, n, K, K, wtx_T, wtx_LK, wtx_GC, wtx_S, WtX, stream);
     if (rc != 0) return rc;
   }
   err = cudaFuncSetAttribute(iter_tiles<XT, kBf16, kCounts>,
@@ -780,7 +759,7 @@ static int launch(const void* X, const float* W, const float* H,
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   } else {
-    const int rc = launch_hxt_fma<XT>(X, kCounts ? Hs : Hn, g, n, K, GB, n_split,
+    const int rc = launch_hxt_fma<XT>(X, kCounts ? Hs : Hn, g, n, K, K, GB, n_split,
                                       cells_per_split, S, CW, part_hxt, stream);
     if (rc != 0) return rc;
   }

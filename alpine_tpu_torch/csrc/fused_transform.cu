@@ -66,7 +66,13 @@
 // then crosses from L2 n / T * n_iter * 4 KP^2 bytes a call: 32 GB at
 // K = 300 (KP = 320), 100k cells and 50 steps, a seventh of the 225 GB
 // that the earlier kernel (8 cells a block, WtW2 read once an output) read.
+//
+// Per-step path (K > 512): one launch a step of wtw_gemm.cuh's fp32
+// product WtW2 H with the update in its epilogue, H ping-ponged between
+// `out` and a K x n scratch, so the last step lands in `out`.  Its sums and
+// update are formed as above: the same bits as the tiled path.
 #include "common.cuh"
+#include "wtw_gemm.cuh"
 
 namespace alpine {
 
@@ -353,6 +359,25 @@ cudaError_t launch_tiles(const float* num2, const float* H0, const float* WtW2, 
   return cudaGetLastError();
 }
 
+// n_iter launches of wtw_gemm's update: step i reads the previous step's H
+// (H0 first) and writes the buffer that makes the last step write `out`.
+static cudaError_t launch_steps(const float* num2, const float* H0, const float* WtW2, int K,
+                                int n, int n_iter, float eps, float* scratch, float* out,
+                                cudaStream_t stream) {
+  if (n_iter == 0)
+    return cudaMemcpyAsync(out, H0, (size_t)K * n * sizeof(float), cudaMemcpyDeviceToDevice,
+                           stream);
+  const float* src = H0;
+  for (int it = 0; it < n_iter; ++it) {
+    float* dst = (n_iter - 1 - it) % 2 == 0 ? out : scratch;
+    const cudaError_t err =
+        launch_wtw_gemm<kGemmUpdate>(WtW2, src, K, n, num2, eps, dst, stream);
+    if (err != cudaSuccess) return err;
+    src = dst;
+  }
+  return cudaSuccess;
+}
+
 template <int KB>
 cudaError_t launch_columns(const float* num2, const float* H0,
                            const float* WtW2, int K, int n, int n_iter,
@@ -374,7 +399,8 @@ cudaError_t launch_columns(const float* num2, const float* H0,
 // with T cells a tile, K padded to KP, S ring stages of J rows and Wt, a
 // KP x KP scratch for WtW2 transposed and zero-padded
 // (ops/kernels.py:transform_tiles_grid); T, KP, J, S and Wt are not read
-// when KB > 0.
+// when KB > 0.  KB = 0 and T = 0: the per-step path, Wt a K x n scratch
+// (ops/kernels.py:transform_path).
 extern "C" int alpine_fused_transform(const float* num2, const float* H0,
                                       const float* WtW2, int K, int KB, int n,
                                       int T, int KP, int J, int S, int n_iter,
@@ -401,6 +427,10 @@ extern "C" int alpine_fused_transform(const float* num2, const float* H0,
       default:
         return (int)cudaErrorInvalidValue;
     }
+  }
+  if (T == 0) {
+    if (Wt == nullptr) return (int)cudaErrorInvalidValue;
+    return (int)launch_steps(num2, H0, WtW2, K, n, n_iter, eps, Wt, out, s);
   }
   // J: a multiple of the 8 rows the kernel unrolls, dividing KP
   if (Wt == nullptr || KP < K || J <= 0 || J % 8 != 0 || KP % J != 0 || S < 2 || S > 8)

@@ -65,7 +65,20 @@
 //    fused_iteration.cu shares; grids ops/kernels.py: hxt_fma_grid,
 //    wtx_fma_grid).  At the bench shape a pass is bound by
 //    X's bytes and the fp32 FMA rate alike (float32 X: 816 MB, 16 GFLOP).
+//  * Any K: above 512 a grid axis runs each kernel on ranges of at most 512
+//    rows of K (rows of H, columns of W; ops/kernels.py:k_ranges), so X is
+//    read once a range.
+//
+// Also here, because its X products are these passes: the large-K route of
+// fused_iteration (K1, K2, K4 at K > 512; replaces alpine_tpu/ops/
+// pallas_kernels.py:fused_iteration and fused_h_update where K > 512), one
+// C call launching a chain: WᵀX (wtx) → D = WᵀW H (wtw_gemm.cuh) →
+// iter_wide (the H update and the per-cell statistics) → X Hsᵀ (hxt) →
+// H Hᵀ by hxt_fma over Hn → the partials' sums.  Its bound at 100k cells x
+// 2000 genes, K = 768, int8: the fp32 (WᵀW)H and Hn Hnᵀ, 236 GFLOP, 3.5 ms
+// at 67 TFLOP/s (the bf16 X products 614 GFLOP, 0.62 ms; bytes 0.24 ms).
 #include "fma_passes.cuh"
+#include "wtw_gemm.cuh"
 
 #include <mutex>
 
@@ -270,31 +283,34 @@ __device__ __forceinline__ bool last_to_arrive(unsigned* arrivals, int tile, int
 template <typename XT, int CW, bool kAligned>
 __global__ void __launch_bounds__(kThreads, 2)
 hxt_mma(const XT* __restrict__ X, const __nv_bfloat16* __restrict__ Hb, int g, int n,
-        int n_pad, int K, int GB, int cells_per_split, int S, float* __restrict__ part) {
+        int n_pad, int K, int KR, int GB, int cells_per_split, int S, float* __restrict__ part) {
   constexpr bool kInt8 = sizeof(XT) == 1;
   constexpr int V = 16 / sizeof(XT);  // values of a 16-byte copy
   extern __shared__ __align__(128) unsigned char smem[];
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g0 = blockIdx.x * GB, split = blockIdx.y;
+  // this block's range of K: rows k0 .. k0 + KB - 1 of Hb and of each partial
+  const int k0 = blockIdx.z * KR, KB = min(KR, K - k0);
+  Hb += (size_t)k0 * n_pad;
   const int cbeg = split * cells_per_split;
   const int n_chunks = (min(n, cbeg + cells_per_split) - cbeg + CW - 1) / CW;
   constexpr int HR = hxt_row_bytes(2 * CW, 64);
   constexpr int XR = kInt8 ? hxt_row_bytes(CW + 16, 32) : hxt_row_bytes(2 * CW + 16, 64);
   constexpr int HV = CW / 8;  // 16-byte copies an Hb row
-  const int Kp = pad16(K), RF = Kp / 16, gcols = GB / 16;
+  const int Kp = pad16(KB), RF = Kp / 16, gcols = GB / 16;
   const int h_bytes = Kp * HR, stage_bytes = h_bytes + GB * XR;
   const CopyWalk walk0(tid, CW / V + (kAligned ? 0 : 1));  // 16-byte copies an X row
-  // Hb's rows K .. Kp - 1 are never copied: zero in every stage
+  // Hb's rows KB .. Kp - 1 are never copied: zero in every stage
   for (int st = 0; st < S; ++st)
-    for (int o = tid; o < (Kp - K) * HR / 16; o += kThreads)
-      reinterpret_cast<uint4*>(smem + st * stage_bytes + K * HR)[o] = make_uint4(0, 0, 0, 0);
+    for (int o = tid; o < (Kp - KB) * HR / 16; o += kThreads)
+      reinterpret_cast<uint4*>(smem + st * stage_bytes + KB * HR)[o] = make_uint4(0, 0, 0, 0);
 
   // chunk c's copies into stage st; one group committed, empty past the split
   auto issue = [&](int c, int st) {
     if (c < n_chunks) {
       const int c0 = cbeg + c * CW;
       unsigned char* h = smem + st * stage_bytes;
-      for (int q = tid; q < K * HV; q += kThreads) {
+      for (int q = tid; q < KB * HV; q += kThreads) {
         const int k = q / HV, j = (q % HV) * 8;
         cp_async16(h + k * HR + j * 2, Hb + (size_t)k * n_pad + c0 + j, true);
       }
@@ -412,9 +428,9 @@ hxt_mma(const XT* __restrict__ X, const __nv_bfloat16* __restrict__ Hb, int g, i
     }
   }
   __syncthreads();
-  for (int o = tid; o < K * GB; o += kThreads) {
+  for (int o = tid; o < KB * GB; o += kThreads) {
     const int k = o / GB, gg = o - k * GB;
-    if (g0 + gg < g) part[((size_t)split * K + k) * g + g0 + gg] = sOut[k * LO + gg];
+    if (g0 + gg < g) part[((size_t)split * K + k0 + k) * g + g0 + gg] = sOut[k * LO + gg];
   }
 }
 
@@ -453,20 +469,22 @@ static cudaError_t allow_smem(const void* kernel, size_t bytes) {
 }
 
 // The bf16 path: H rounded into Hb (K x n_pad, n_pad a multiple of CW), then
-// hxt_mma over a grid of (gene block) x (cell split) with S ring stages of
-// CW cells, X's rows on 16-byte boundaries or not.
+// hxt_mma over a grid of (gene block) x (cell split) x (range of KR rows of
+// K) with S ring stages of CW cells, X's rows on 16-byte boundaries or not.
 template <typename XT>
-static int launch_hxt_mma(const void* X, const float* H, int g, int n, int K, int GB,
+static int launch_hxt_mma(const void* X, const float* H, int g, int n, int K, int KR, int GB,
                           int n_split, int cells_per_split, int S, int CW,
                           __nv_bfloat16* Hb, float* part, cudaStream_t stream) {
   const bool aligned = (reinterpret_cast<uintptr_t>(X) & 15) == 0 && (size_t)n * sizeof(XT) % 16 == 0;
-  void (*kernel)(const XT*, const __nv_bfloat16*, int, int, int, int, int, int, int,
+  void (*kernel)(const XT*, const __nv_bfloat16*, int, int, int, int, int, int, int, int,
                  float*) =
       CW == 128 ? (aligned ? hxt_mma<XT, 128, true> : hxt_mma<XT, 128, false>)
                 : (aligned ? hxt_mma<XT, 64, true> : hxt_mma<XT, 64, false>);
-  const int Kp = pad16(K), gcols = GB / 16;
-  const size_t smem = hxt_mma_smem_bytes(K, GB, S, CW, sizeof(XT) == 1);
-  const bool ok = GB % 16 == 0 && GB <= 128 && kWarps % gcols == 0 &&
+  const int Kp = pad16(KR), gcols = GB / 16;
+  const size_t smem = hxt_mma_smem_bytes(KR, GB, S, CW, sizeof(XT) == 1);
+  // ranges after the first start on whole fragment rows of Hb
+  const bool ok = KR >= 1 && KR <= K && (KR == K || KR % 16 == 0) && GB % 16 == 0 &&
+                  GB <= 128 && kWarps % gcols == 0 &&
                   (Kp / 16) * gcols <= kWarps * kHxtFrags && S >= 2 && S <= 8 &&
                   (CW == 64 || CW == 128) &&
                   cells_per_split % CW == 0 && Hb != nullptr;
@@ -479,22 +497,22 @@ static int launch_hxt_mma(const void* X, const float* H, int g, int n, int K, in
   if (err != cudaSuccess) return (int)err;
   err = allow_smem(reinterpret_cast<const void*>(kernel), smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((g + GB - 1) / GB, n_split);
-  kernel<<<grid, kThreads, smem, stream>>>(static_cast<const XT*>(X), Hb, g, n, n_pad, K, GB,
-                                           cells_per_split, S, part);
+  dim3 grid((g + GB - 1) / GB, n_split, (K + KR - 1) / KR);
+  kernel<<<grid, kThreads, smem, stream>>>(static_cast<const XT*>(X), Hb, g, n, n_pad, K, KR,
+                                           GB, cells_per_split, S, part);
   return (int)cudaGetLastError();
 }
 
 template <typename XT, bool kBf16>
-static int launch_hxt(const void* X, const float* H, int g, int n, int K, int GB,
+static int launch_hxt(const void* X, const float* H, int g, int n, int K, int KR, int GB,
                       int n_split, int cells_per_split, int S, int CW,
                       __nv_bfloat16* Hb, float* part, float* out, cudaStream_t stream) {
   int rc;
   if constexpr (kBf16) {
-    rc = launch_hxt_mma<XT>(X, H, g, n, K, GB, n_split, cells_per_split, S, CW, Hb, part,
+    rc = launch_hxt_mma<XT>(X, H, g, n, K, KR, GB, n_split, cells_per_split, S, CW, Hb, part,
                             stream);
   } else {
-    rc = launch_hxt_fma<XT>(X, H, g, n, K, GB, n_split, cells_per_split, S, CW, part,
+    rc = launch_hxt_fma<XT>(X, H, g, n, K, KR, GB, n_split, cells_per_split, S, CW, part,
                             stream);
   }
   if (rc != 0) return rc;
@@ -615,7 +633,7 @@ round_w(const float* __restrict__ W, int g, int K, int Kp, int g_pad,
 template <typename XT, int NT, bool kAligned>
 __global__ void __launch_bounds__(kThreads, 2)
 wtx_mma(const XT* __restrict__ X, const __nv_bfloat16* __restrict__ Wb, int g, int n,
-        int g_pad, int K, int T, int WR, int GC, int S, int range_genes,
+        int g_pad, int K, int KR, int T, int WR, int GC, int S, int range_genes,
         float* __restrict__ part, unsigned* __restrict__ arrivals, float* __restrict__ out) {
   constexpr bool kInt8 = sizeof(XT) == 1;
   constexpr int V = 16 / sizeof(XT);        // values of a 16-byte copy
@@ -623,7 +641,13 @@ wtx_mma(const XT* __restrict__ X, const __nv_bfloat16* __restrict__ Wb, int g, i
   extern __shared__ __align__(128) unsigned char smem[];
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int c0 = blockIdx.x * T, range = blockIdx.y, ranges = gridDim.y;
-  const int Kp = pad16(K), RF = Kp / 16;
+  // this block's range of K: rows k0 .. k0 + KB - 1 of Wb, of the output and
+  // of each gene range's partial; its own arrival counters
+  const int k0 = blockIdx.z * KR, KB = min(KR, K - k0);
+  Wb += (size_t)k0 * g_pad;
+  out += (size_t)k0 * n;
+  arrivals += (size_t)blockIdx.z * gridDim.x;
+  const int Kp = pad16(KB), RF = Kp / 16;
   const int WB = ldsm_row_bytes(2 * GC), XR = wtx_x_row_bytes(T, kInt8);
   const int wv_shift = GC == 64 ? 3 : 2;  // log2 of Wb's 16-byte copies a row
   const int w_bytes = Kp * WB, stage_bytes = w_bytes + GC * XR;
@@ -754,7 +778,7 @@ wtx_mma(const XT* __restrict__ X, const __nv_bfloat16* __restrict__ Wb, int g, i
   // (bf16: n-tiles of cells 0-7 and 8-15), whole 32-byte sectors a warp;
   // into out, or into its range's partial
   const int gq = lane / 4, t = lane % 4;
-  float* dst = ranges == 1 ? out : part + (size_t)range * K * n;
+  float* dst = ranges == 1 ? out : part + ((size_t)range * K + k0) * n;
   const bool vec = (reinterpret_cast<uintptr_t>(dst) & 15) == 0 && n % (kInt8 ? 4 : 2) == 0;
 #pragma unroll
   for (int f = 0; f < MF; ++f) {
@@ -763,7 +787,7 @@ wtx_mma(const XT* __restrict__ X, const __nv_bfloat16* __restrict__ Wb, int g, i
 #pragma unroll
     for (int hr = 0; hr < 2; ++hr) {
       const int k = rf * 16 + gq + 8 * hr;
-      if (k >= K) continue;
+      if (k >= KB) continue;
       float* o = dst + (size_t)k * n;
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) {
@@ -800,23 +824,24 @@ wtx_mma(const XT* __restrict__ X, const __nv_bfloat16* __restrict__ Wb, int g, i
   if (!last_to_arrive(arrivals, blockIdx.x, ranges, reinterpret_cast<volatile int*>(smem)))
     return;
   const int cells = min(T, n - c0);
-  for (int o = tid; o < K * cells; o += kThreads) {
+  for (int o = tid; o < KB * cells; o += kThreads) {
     const int k = o / cells;
     const size_t idx = (size_t)k * n + c0 + (o - k * cells);
     float s = 0.f;
-    for (int r = 0; r < ranges; ++r) s += __ldcg(part + (size_t)r * K * n + idx);
+    for (int r = 0; r < ranges; ++r) s += __ldcg(part + ((size_t)r * K + k0) * n + idx);
     out[idx] = s;
   }
 }
 
 // The bf16 path: W rounded and transposed into Wb (Kp x g_pad, g_pad a
 // multiple of the gene chunk GC), then wtx_mma over tiles of T cells x
-// `ranges` gene ranges of `range_genes` genes (a multiple of GC), with the
-// warps as WR rows x (8 / WR) columns of NT groups of 16 cells, S stages of
-// GC genes; with more than one range, `part` holds the ranges' partials
-// (ranges x K x n) and `arrivals` one zeroed counter a tile.
+// `ranges` gene ranges of `range_genes` genes (a multiple of GC) x ranges of
+// KR rows of K, with the warps as WR rows x (8 / WR) columns of NT groups of
+// 16 cells, S stages of GC genes; with more than one gene range, `part`
+// holds their partials (ranges x K x n) and `arrivals` one zeroed counter a
+// tile and range of K.
 template <typename XT>
-static int launch_wtx_mma(const void* X, const float* W, int g, int n, int K, int T,
+static int launch_wtx_mma(const void* X, const float* W, int g, int n, int K, int KR, int T,
                           int WR, int GC, int S, int ranges, int range_genes,
                           __nv_bfloat16* Wb, float* part, unsigned* arrivals, float* out,
                           cudaStream_t stream) {
@@ -824,14 +849,16 @@ static int launch_wtx_mma(const void* X, const float* W, int g, int n, int K, in
   const int NT = (WC && T % (16 * WC) == 0) ? T / (16 * WC) : 0;
   const bool aligned = (reinterpret_cast<uintptr_t>(X) & 15) == 0 && (size_t)n * sizeof(XT) % 16 == 0;
   void (*kernel)(const XT*, const __nv_bfloat16*, int, int, int, int, int, int, int, int, int,
-                 float*, unsigned*, float*) =
+                 int, float*, unsigned*, float*) =
       NT == 1   ? (aligned ? wtx_mma<XT, 1, true> : wtx_mma<XT, 1, false>)
       : NT == 2 ? (aligned ? wtx_mma<XT, 2, true> : wtx_mma<XT, 2, false>)
       : NT == 3 ? (aligned ? wtx_mma<XT, 3, true> : wtx_mma<XT, 3, false>) : nullptr;
-  const int Kp = pad16(K), MF = NT ? kWtxAcc / (8 * NT) : 0;
-  const size_t smem = wtx_mma_smem_bytes(K, T, S, GC, sizeof(XT) == 1);
+  const int Kp = pad16(KR), MF = NT ? kWtxAcc / (8 * NT) : 0;
+  const size_t smem = wtx_mma_smem_bytes(KR, T, S, GC, sizeof(XT) == 1);
   const int g_pad = (g + GC - 1) / GC * GC;
-  const bool ok = kernel != nullptr && K >= 1 && (Kp / 16 + WR - 1) / WR <= MF &&
+  // ranges of K after the first start on whole fragment rows of Wb
+  const bool ok = kernel != nullptr && KR >= 1 && KR <= K && (KR == K || KR % 16 == 0) &&
+                  (Kp / 16 + WR - 1) / WR <= MF &&
                   S >= 2 && S <= 8 && (GC == 32 || GC == 64) && Wb != nullptr &&
                   ranges >= 1 &&
                   range_genes >= GC && range_genes % GC == 0 &&
@@ -839,18 +866,254 @@ static int launch_wtx_mma(const void* X, const float* W, int g, int n, int K, in
                   (size_t)ranges * range_genes >= (size_t)g_pad &&
                   (ranges == 1 || (part != nullptr && arrivals != nullptr));
   if (!ok || smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
-  const size_t vecs = (size_t)Kp * (g_pad / 8);
+  const size_t vecs = (size_t)pad16(K) * (g_pad / 8);
   if (vecs > 0) {
     round_w<<<(unsigned)((vecs + kThreads - 1) / kThreads), kThreads, 0, stream>>>(
-        W, g, K, Kp, g_pad, Wb);
+        W, g, K, pad16(K), g_pad, Wb);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
   cudaError_t err = allow_smem(reinterpret_cast<const void*>(kernel), smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((n + T - 1) / T, ranges);
-  kernel<<<grid, kThreads, smem, stream>>>(static_cast<const XT*>(X), Wb, g, n, g_pad, K, T,
-                                           WR, GC, S, range_genes, part, arrivals, out);
+  dim3 grid((n + T - 1) / T, ranges, (K + KR - 1) / KR);
+  kernel<<<grid, kThreads, smem, stream>>>(static_cast<const XT*>(X), Wb, g, n, g_pad, K, KR,
+                                           T, WR, GC, S, range_genes, part, arrivals, out);
+  return (int)cudaGetLastError();
+}
+
+// ---- the large-K iteration (fused_iteration at K > 512) -------------------
+//
+// The K <= 512 kernel keeps a K x T tile a block and writes a K x K partial of
+// H Hᵀ a block; neither holds at large K.  Here no kernel's shared memory
+// grows with K: the X products are P1's and P2's kernels over their K
+// ranges, the denominator's (WᵀW)H is wtw_gemm, H Hᵀ is hxt_fma with Hn in
+// X's place, and iter_wide takes one lane a cell and one row of K a warp
+// pass, reading H, WᵀX and D from device memory.
+
+constexpr int kWideT = 32;  // cells a tile of iter_wide (ops/kernels.py:_WIDE_T)
+
+// iter_wide's shared memory: Y, B H (then Q) and the prediction-loss terms
+// (L x 32 each), the counts rows (2 x 32) and a block reduction.
+// ops/kernels.py:wide_smem_bytes holds the same formula.
+__host__ __device__ inline size_t wide_smem_bytes(int L, bool counts) {
+  return (size_t)(3 * L * kWideT + (counts ? 2 * kWideT : 0) + kThreads) * sizeof(float);
+}
+
+// The sum of v over a warp, in a fixed order (lane 0's value is used).
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// The H update of 32-cell tiles (lane t: cell c0 + t) with the guided terms of
+// every covariate through the block-embedded Bg (L x Kg), then each tile's
+// statistics into the block's partial: rowsum(Hs) (K), Bnum = Q Hsᵀ (L x K),
+// the prediction-loss rows (L) and the loss dot sum(WᵀX ⊙ Hn) (1).  The
+// block walks a run of tiles in order, so the partial's sums take a fixed
+// order.  Every sum over j or l is formed as iter_tiles forms it (fmaf in
+// order from 0); the sums over a tile's cells are warp trees.  Counts mode
+// as in iter_tiles: a column drawn 0 times keeps its H; Hs = c_next ⊙ Hn
+// (written to Hs for the passes after) feeds rowsum and Bnum.
+template <typename YT, bool kCounts>
+__global__ void __launch_bounds__(kThreads, 1)
+iter_wide(const float* __restrict__ H, const float* __restrict__ WtX,
+          const float* __restrict__ D, const YT* __restrict__ Y,
+          const float* __restrict__ Bg, const float* __restrict__ lam_rows,
+          const float* __restrict__ C, int n, int K, int L, int Kg, int loss_kl, float eps,
+          int tiles_per_block, int n_tiles, int S_small, float* Hn, float* Hs,
+          float* __restrict__ part) {
+  extern __shared__ __align__(16) float sm[];
+  float* sY = sm;                  // L x 32: Y widened to fp32
+  float* sA = sY + L * kWideT;     // L x 32: B H (Y / max(B H, eps) for KL), then Q
+  float* sE = sA + L * kWideT;     // L x 32: prediction-loss terms
+  float* sC = sE + L * kWideT;     // 2 x 32, counts mode: c_cur, c_next
+  float* sRed = sC + (kCounts ? 2 * kWideT : 0);  // kThreads
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int off_bnum = K, off_pred = K + L * K, off_ld = off_pred + L;
+  float* mypart = part + (size_t)blockIdx.x * S_small;
+  const float* Hsrc = kCounts ? Hs : Hn;  // the operand of rowsum and Bnum
+  for (int j = tid; j < S_small; j += kThreads) mypart[j] = 0.f;
+  float ld = 0.f;
+  const int tile_begin = blockIdx.x * tiles_per_block;
+  const int tile_end = min(n_tiles, tile_begin + tiles_per_block);
+  for (int tile = tile_begin; tile < tile_end; ++tile) {
+    const int c0 = tile * kWideT, c = c0 + lane;
+    const bool valid = c < n;
+    __syncthreads();  // the previous tile is done with shared memory (the partial is zeroed)
+    for (int l = warp; l < L; l += kWarps) {
+      const float y = valid ? to_f(Y[(size_t)l * n + c]) : 0.f;
+      float bh = 0.f;
+      if (valid) {
+        const float* b = Bg + (size_t)l * Kg;
+#pragma unroll 4
+        for (int j = 0; j < Kg; ++j) bh = fmaf(__ldg(b + j), H[(size_t)j * n + c], bh);
+      }
+      sY[l * kWideT + lane] = y;
+      sA[l * kWideT + lane] = loss_kl ? y / fmaxf(bh, eps) : bh;
+    }
+    if constexpr (kCounts) {
+      if (tid < 2 * kWideT) sC[tid] = valid ? C[(size_t)(tid / kWideT) * n + c] : 0.f;
+    }
+    __syncthreads();
+    // the multiplicative update, one row of K a warp pass
+    for (int k = warp; k < K; k += kWarps) {
+      const size_t o = (size_t)k * n + c;
+      float h = 0.f, wtx = 0.f, d = 0.f;
+      if (valid) h = H[o], wtx = WtX[o], d = D[o];
+      float num = 2.f * wtx, den = 2.f * d;
+      if (k < Kg) {
+        const float lam = __ldg(lam_rows + k);
+        if (loss_kl) {
+          float s = 0.f, col = 0.f;
+          for (int l = 0; l < L; ++l) {
+            const float b = __ldg(Bg + (size_t)l * Kg + k);
+            s = fmaf(b, sA[l * kWideT + lane], s);
+            col += b;
+          }
+          num += lam * s;
+          den += lam * col;
+        } else {
+          float sy = 0.f, sb = 0.f;
+          for (int l = 0; l < L; ++l) {
+            const float b = __ldg(Bg + (size_t)l * Kg + k);
+            sy = fmaf(b, sY[l * kWideT + lane], sy);
+            sb = fmaf(b, sA[l * kWideT + lane], sb);
+          }
+          const float l2 = 2.f * lam;
+          num += l2 * sy;
+          den += l2 * sb;
+        }
+      }
+      float hn = valid ? h * (num / fmaxf(den, eps)) : 0.f;
+      float hs = hn;
+      if constexpr (kCounts) {
+        if (!(sC[lane] > 0.f)) hn = h;  // undrawn (and past n): keep H
+        hs = hn * sC[kWideT + lane];
+        if (valid) Hs[o] = hs;
+      }
+      if (valid) Hn[o] = hn;
+      ld = fmaf(wtx, hn, ld);
+      const float rs = warp_sum(hs);
+      if (lane == 0) mypart[k] += rs;
+    }
+    if (L == 0) continue;
+    __syncthreads();  // the tile's Hn (Hs), from every warp, visible to the block
+    // prediction loss on (B, Hn) and the next B update's Q
+    for (int l = warp; l < L; l += kWarps) {
+      float yh = 0.f;
+      if (valid) {
+        const float* b = Bg + (size_t)l * Kg;
+#pragma unroll 4
+        for (int j = 0; j < Kg; ++j) yh = fmaf(__ldg(b + j), Hn[(size_t)j * n + c], yh);
+      }
+      const float y = sY[l * kWideT + lane];
+      float q, e;
+      if (loss_kl) {
+        const float yc = fmaxf(yh, eps);
+        q = y / yc;
+        e = y * logf(fmaxf(q, eps)) - y + yc;
+      } else {
+        const float dd = y - yh;
+        q = y;
+        e = dd * dd;
+      }
+      sA[l * kWideT + lane] = valid ? q : 0.f;
+      const float es = warp_sum(valid ? e : 0.f);
+      if (lane == 0) mypart[off_pred + l] += es;
+    }
+    __syncthreads();
+    // Bnum = Q Hsᵀ over the tile
+    for (int k = warp; k < K; k += kWarps) {
+      const float hs = valid ? Hsrc[(size_t)k * n + c] : 0.f;
+      for (int l = 0; l < L; ++l) {
+        const float s = warp_sum(sA[l * kWideT + lane] * hs);
+        if (lane == 0) mypart[off_bnum + (size_t)l * K + k] += s;
+      }
+    }
+  }
+  // the loss dot, a tree over the block's threads
+  sRed[tid] = ld;
+  __syncthreads();
+  for (int s = kThreads / 2; s > 0; s >>= 1) {
+    if (tid < s) sRed[tid] += sRed[tid + s];
+    __syncthreads();
+  }
+  if (tid == 0) mypart[off_ld] = sRed[0];
+}
+
+// The launch parameters of the chain (ops/kernels.py:WideIterationGrid, in
+// its order).
+struct WideGrid {
+  int T, n_part, tiles_per_block, KR;
+  int wT, wWR, wGC, wS, w_ranges, w_range_genes;  // P2 (wWR: LK on the fp32 path)
+  int GB, n_split, cells_per_split, S, CW;        // P1 for X Hsᵀ
+  int hGB, h_n_split, h_cells_per_split, hS, hCW;  // hxt_fma over Hn for H Hᵀ
+};
+
+// WᵀX → D = WᵀW H → iter_wide → X Hsᵀ partials → Hs Hnᵀ (and, in counts
+// mode, Hn Hnᵀ) by hxt_fma over Hn, each summed by reduce_splits into stats
+// → reduce_partials: the small statistics into stats after H Hᵀ, and XHt.
+// The X products take P1/P2's path by X's dtype (bf16 tensor cores for
+// int8/bf16 X, FP32 units for float32/int16), as the K <= 512 kernel does.
+template <typename XT, bool kBf16, bool kCounts>
+static int launch_iteration_wide(const void* X, const float* W, const float* H,
+                                 const float* WtW, const void* Y, const float* Bg,
+                                 const float* lam_rows, const float* C, int g, int n, int K,
+                                 int L, int Kg, int loss_kl, float eps, const WideGrid& p,
+                                 float* Hn, float* XHt, float* stats, float* WtX, float* D,
+                                 float* Hs, float* part, float* part_x, float* part_hh,
+                                 void* hb, void* wb, float* wpart, unsigned* warr,
+                                 cudaStream_t stream) {
+  if (p.T != kWideT || K < 1 || L < 0 || (kCounts && (C == nullptr || Hs == nullptr)) ||
+      (L > 0 && (Y == nullptr || Bg == nullptr || lam_rows == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  int rc;
+  if constexpr (kBf16) {
+    rc = launch_wtx_mma<XT>(X, W, g, n, K, p.KR, p.wT, p.wWR, p.wGC, p.wS, p.w_ranges,
+                            p.w_range_genes, static_cast<__nv_bfloat16*>(wb), wpart, warr,
+                            WtX, stream);
+  } else {
+    rc = launch_wtx_fma<XT>(X, W, g, n, K, p.KR, p.wT, p.wWR, p.wGC, p.wS, WtX, stream);
+  }
+  if (rc != 0) return rc;
+  cudaError_t err = launch_wtw_gemm<kGemmStore>(WtW, H, K, n, nullptr, 0.f, D, stream);
+  if (err != cudaSuccess) return (int)err;
+  const size_t smem = wide_smem_bytes(L, kCounts);
+  if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
+  err = allow_smem(reinterpret_cast<const void*>(iter_wide<XT, kCounts>), smem);
+  if (err != cudaSuccess) return (int)err;
+  const int n_tiles = (n + kWideT - 1) / kWideT;
+  const int S_small = K + L * K + L + 1;  // rowsum, Bnum, prediction rows, loss dot
+  iter_wide<XT, kCounts><<<p.n_part, kThreads, smem, stream>>>(
+      H, WtX, D, static_cast<const XT*>(Y), Bg, lam_rows, C, n, K, L, Kg, loss_kl, eps,
+      p.tiles_per_block, n_tiles, S_small, Hn, Hs, part);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const float* Hx = kCounts ? Hs : Hn;  // X Hsᵀ, H Hᵀ = Hs Hnᵀ
+  if constexpr (kBf16) {
+    rc = launch_hxt_mma<XT>(X, Hx, g, n, K, p.KR, p.GB, p.n_split, p.cells_per_split, p.S,
+                            p.CW, static_cast<__nv_bfloat16*>(hb), part_x, stream);
+  } else {
+    rc = launch_hxt_fma<XT>(X, Hx, g, n, K, p.KR, p.GB, p.n_split, p.cells_per_split, p.S,
+                            p.CW, part_x, stream);
+  }
+  if (rc != 0) return rc;
+  const size_t kk = (size_t)K * K;
+  const unsigned kk_blocks = (unsigned)((kk + kThreads - 1) / kThreads);
+  for (int u = 0; u < (kCounts ? 2 : 1); ++u) {  // Hs Hnᵀ, then (counts) Hn Hnᵀ
+    rc = launch_hxt_fma<float>(Hn, u == 0 ? Hx : Hn, K, n, K, p.KR, p.hGB, p.h_n_split,
+                               p.h_cells_per_split, p.hS, p.hCW, part_hh, stream);
+    if (rc != 0) return rc;
+    // HHtU follows the small statistics: ops/kernels.py:_stats_len
+    reduce_splits<<<kk_blocks, kThreads, 0, stream>>>(part_hh, p.h_n_split, K, K,
+                                                      stats + (u == 0 ? 0 : kk + S_small));
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  const size_t total = (size_t)S_small + (size_t)g * K;
+  reduce_partials<<<(unsigned)((total + kThreads - 1) / kThreads), kThreads, 0, stream>>>(
+      part, p.n_part, S_small, stats + kk, part_x, p.n_split, K, g, XHt);
   return (int)cudaGetLastError();
 }
 
@@ -865,30 +1128,30 @@ static int launch_wtx_mma(const void* X, const float* W, int g, int n, int K, in
 // x g rounded up to the chunk, bf16), `part` (ranges x K x n) and
 // `arrivals` (a zeroed counter a tile) serve the bf16 path only.
 extern "C" int alpine_hxt(const void* X, int xtype, const float* H, int g, int n,
-                          int K, int GB, int n_split, int cells_per_split, int stages,
+                          int K, int KR, int GB, int n_split, int cells_per_split, int stages,
                           int chunk, void* hb, float* part, float* out, void* stream) {
   using namespace alpine;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   __nv_bfloat16* Hb = static_cast<__nv_bfloat16*>(hb);
   switch (xtype) {
     case kF32:
-      return launch_hxt<float, false>(X, H, g, n, K, GB, n_split, cells_per_split, stages,
-                                      chunk, Hb, part, out, s);
+      return launch_hxt<float, false>(X, H, g, n, K, KR, GB, n_split, cells_per_split,
+                                      stages, chunk, Hb, part, out, s);
     case kBF16:
-      return launch_hxt<__nv_bfloat16, true>(X, H, g, n, K, GB, n_split, cells_per_split,
+      return launch_hxt<__nv_bfloat16, true>(X, H, g, n, K, KR, GB, n_split, cells_per_split,
                                              stages, chunk, Hb, part, out, s);
     case kI8:
-      return launch_hxt<int8_t, true>(X, H, g, n, K, GB, n_split, cells_per_split, stages,
-                                      chunk, Hb, part, out, s);
+      return launch_hxt<int8_t, true>(X, H, g, n, K, KR, GB, n_split, cells_per_split,
+                                      stages, chunk, Hb, part, out, s);
     case kI16:
-      return launch_hxt<int16_t, false>(X, H, g, n, K, GB, n_split, cells_per_split, stages,
-                                        chunk, Hb, part, out, s);
+      return launch_hxt<int16_t, false>(X, H, g, n, K, KR, GB, n_split, cells_per_split,
+                                        stages, chunk, Hb, part, out, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 extern "C" int alpine_wtx(const void* X, int xtype, const float* W, int g, int n,
-                          int K, int T, int WR, int chunk, int stages, int ranges,
+                          int K, int KR, int T, int WR, int chunk, int stages, int ranges,
                           int range_genes, void* wb, float* part, void* arrivals, float* out,
                           void* stream) {
   using namespace alpine;
@@ -896,14 +1159,62 @@ extern "C" int alpine_wtx(const void* X, int xtype, const float* W, int g, int n
   __nv_bfloat16* Wb = static_cast<__nv_bfloat16*>(wb);
   unsigned* arr = static_cast<unsigned*>(arrivals);
   switch (xtype) {
-    case kF32: return launch_wtx_fma<float>(X, W, g, n, K, T, WR, chunk, stages, out, s);
+    case kF32: return launch_wtx_fma<float>(X, W, g, n, K, KR, T, WR, chunk, stages, out, s);
     case kBF16:
-      return launch_wtx_mma<__nv_bfloat16>(X, W, g, n, K, T, WR, chunk, stages, ranges,
+      return launch_wtx_mma<__nv_bfloat16>(X, W, g, n, K, KR, T, WR, chunk, stages, ranges,
                                            range_genes, Wb, part, arr, out, s);
     case kI8:
-      return launch_wtx_mma<int8_t>(X, W, g, n, K, T, WR, chunk, stages, ranges, range_genes,
-                                    Wb, part, arr, out, s);
-    case kI16: return launch_wtx_fma<int16_t>(X, W, g, n, K, T, WR, chunk, stages, out, s);
+      return launch_wtx_mma<int8_t>(X, W, g, n, K, KR, T, WR, chunk, stages, ranges,
+                                    range_genes, Wb, part, arr, out, s);
+    case kI16:
+      return launch_wtx_fma<int16_t>(X, W, g, n, K, KR, T, WR, chunk, stages, out, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// The large-K route of fused_iteration (ops/kernels.py:_launch_iteration_wide):
+// the K1 entry's inputs and outputs (stats in its layout), the 20 ints of
+// WideIterationGrid, and scratch: wtx, d (K x n each), hs (K x n, counts mode),
+// part (n_part x (K + L K + L + 1)), part_x (n_split x K x g), part_hh
+// (hh_n_split x K x K), and on the bf16 path hb (H rounded, K x n padded to
+// the chunk), wb (W rounded, pad16(K) x g padded to the gene chunk), wpart
+// and warr (P2's gene ranges' partials and zeroed counters, where it splits
+// the genes).
+extern "C" int alpine_fused_iteration_wide(
+    const void* X, int xtype, const float* W, const float* H, const float* WtW,
+    const void* Y, const float* Bg, const float* lam_rows, const float* counts,
+    int g, int n, int K, int L, int Kg, int loss_kl, float eps, int T, int n_part,
+    int tiles_per_block, int KR, int wtx_T, int wtx_WR, int wtx_GC, int wtx_S,
+    int wtx_ranges, int wtx_range_genes, int GB, int n_split, int cells_per_split,
+    int stages, int chunk, int hh_GB, int hh_n_split, int hh_cells_per_split, int hh_stages,
+    int hh_chunk, float* Hn, float* XHt, float* stats, float* wtx, float* d, float* hs,
+    float* part, float* part_x, float* part_hh, void* hb, void* wb, float* wpart,
+    void* warr, void* stream) {
+  using namespace alpine;
+  const WideGrid p{T,      n_part,  tiles_per_block, KR,         wtx_T,
+                   wtx_WR, wtx_GC,  wtx_S,           wtx_ranges, wtx_range_genes,
+                   GB,     n_split, cells_per_split, stages,     chunk,
+                   hh_GB,  hh_n_split, hh_cells_per_split, hh_stages, hh_chunk};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  unsigned* arr = static_cast<unsigned*>(warr);
+#define ALPINE_WIDE_ARGS                                                                 \
+  X, W, H, WtW, Y, Bg, lam_rows, counts, g, n, K, L, Kg, loss_kl, eps, p, Hn, XHt, stats, \
+      wtx, d, hs, part, part_x, part_hh, hb, wb, wpart, arr, s
+  const bool c = counts != nullptr;
+  switch (xtype) {
+    case kF32:
+      return c ? launch_iteration_wide<float, false, true>(ALPINE_WIDE_ARGS)
+               : launch_iteration_wide<float, false, false>(ALPINE_WIDE_ARGS);
+    case kBF16:
+      return c ? launch_iteration_wide<__nv_bfloat16, true, true>(ALPINE_WIDE_ARGS)
+               : launch_iteration_wide<__nv_bfloat16, true, false>(ALPINE_WIDE_ARGS);
+    case kI8:
+      return c ? launch_iteration_wide<int8_t, true, true>(ALPINE_WIDE_ARGS)
+               : launch_iteration_wide<int8_t, true, false>(ALPINE_WIDE_ARGS);
+    case kI16:
+      return c ? launch_iteration_wide<int16_t, false, true>(ALPINE_WIDE_ARGS)
+               : launch_iteration_wide<int16_t, false, false>(ALPINE_WIDE_ARGS);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef ALPINE_WIDE_ARGS
 }

@@ -41,8 +41,13 @@ SIGNATURES = {
                         + [_I] * 6 + [_F] + [_I] * 12 + [_P] * 8),
     "fused_transform": ("fused_transform", "alpine_fused_transform",
                         [_P, _P, _P] + [_I] * 8 + [_F, _P, _P, _P]),
-    "hxt": ("x_passes", "alpine_hxt", [_P, _I, _P] + [_I] * 8 + [_P] * 4),
-    "wtx": ("x_passes", "alpine_wtx", [_P, _I, _P] + [_I] * 9 + [_P] * 5),
+    # the large-K chain of K1/K2/K4 (K > 512): X's products are P1's and
+    # P2's kernels, so it lives beside them
+    "fused_iteration_wide": ("x_passes", "alpine_fused_iteration_wide",
+                             [_P, _I] + [_P] * 7 + [_I] * 6 + [_F] + [_I] * 20
+                             + [_P] * 14),
+    "hxt": ("x_passes", "alpine_hxt", [_P, _I, _P] + [_I] * 9 + [_P] * 4),
+    "wtx": ("x_passes", "alpine_wtx", [_P, _I, _P] + [_I] * 10 + [_P] * 5),
     "stream_probe": ("stream_probe", "alpine_stream_probe",
                      [_P, _I] + [_I] * 5 + [_P] * 4),
 }

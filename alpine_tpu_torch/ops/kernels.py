@@ -14,6 +14,13 @@ run can show that its main path went through the kernels.
 steps (and ``hxt`` the first X Hᵀ of the joint fit loops); ``stream_probe``
 is the streaming read-rate probe's kernel, on no fit path
 (``alpine_tpu_torch/probe.py``).
+
+Every kernel of the fit and transform path takes any component count K
+(``route``): K <= 512 runs the routes that hold a tile or a thread's rows
+of all of K, K > 512 the large-K routes (``k_ranges`` for P1/P2,
+``wide_iteration_grid`` for K1/K2/K4, ``transform_path`` for K3).  No
+rule caps K: what does is the card's memory, which must hold the K x n
+and K x K operands, outputs and scratch of a call.
 """
 
 from __future__ import annotations
@@ -36,6 +43,17 @@ launches: Dict[str, int] = {"fused_iteration": 0, "fused_iteration_counts": 0,
 _XTYPE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2, torch.int16: 3}
 _THREADS = 256
 _MAX_TILE_VALUES = 4096  # K × cells of a tile at most (tile_width)
+# the largest K of the routes that hold all of K in a tile or a thread's
+# rows; above it, the large-K routes (route)
+_RANGE_K = _MAX_TILE_VALUES // 8
+# the large-K H update (csrc/x_passes.cu: iter_wide): cells a tile, one
+# lane a cell
+_WIDE_T = 32
+# P1's cell splits on the large-K route: at most this many cells a split,
+# so that no fp32 accumulator sums a whole 100k-cell row (one split of
+# 100k cells left P1 at K = 768 1.2x its rtol 1e-4 from the plain version
+# on an H100)
+_WIDE_SPLIT_CELLS = 16384
 _MAX_SMEM = 232448  # bytes of dynamic shared memory a Hopper block may use
 # Grid sizes of fused_iteration's two passes: fixed numbers (not the SM
 # count), so a given shape sums its partials in the same order on any card.
@@ -59,7 +77,8 @@ _TRANSFORM_BUCKETS = (8, 16, 24, 32, 40, 48, 56, 64)
 # and K padded to KP = 2 TR G, TR = 2048 / T threads along K; a thread holds
 # G pairs of rows x 8 cells and their num2 (G <= 6: 252 registers at 6).
 # Chunks of 32 rows of WtW2ᵀ in a ring of two stages: on an H100, 16-row
-# chunks cost 2 ms more at K = 300 and more stages bought nothing (PERF.md)
+# chunks cost 2 ms more at K = 300 and more stages bought nothing (PERF.md).
+# Past K = 512 the per-step path (transform_path)
 _TRANSFORM_TILES = tuple((64, 64 * g) for g in range(1, 7)) + ((32, 512),)
 _TRANSFORM_J = 32
 _TRANSFORM_STAGES = 2
@@ -104,18 +123,43 @@ def reset_launches() -> None:
         launches[name] = 0
 
 
+def route(K: int) -> str:
+    """The rule by K that names each kernel's route: "tile" for 1 <= K <=
+    512 (a tile, a thread's rows or a warp's fragments hold all of K),
+    "wide" above (P1/P2 over ranges of at most 512 rows of K, K1/K2/K4 as
+    the chain of ``wide_iteration_grid``, K3 on ``transform_path``'s
+    per-step path).  K < 1 raises; no K above is refused: the card's
+    memory is the cap."""
+    if K < 1:
+        raise ValueError(f"the CUDA kernels take K >= 1 components, got K={K}")
+    return "tile" if K <= _RANGE_K else "wide"
+
+
 def tile_width(K: int) -> int:
     """The port's tile rule: cells per tile for K components (fused_iteration's
     per-tile pass and, on its bf16 path, genes per block of the X Hnᵀ pass).
     A tile holds K × width values, at most 4096, so the width halves from 64
-    as K grows; K > 512 is not supported by the kernels."""
-    if not 1 <= K <= _MAX_TILE_VALUES // 8:
-        raise ValueError(f"the CUDA kernels support 1 <= K <= "
-                         f"{_MAX_TILE_VALUES // 8} components, got K={K}")
+    as K grows to 512; above, the large-K H update's tile of 32 cells, one
+    lane a cell (``route``)."""
+    if route(K) == "wide":
+        return _WIDE_T
     w = 64
     while K * w > _MAX_TILE_VALUES:
         w //= 2
     return w
+
+
+def k_ranges(K: int) -> Tuple[int, int]:
+    """(R, KR) of P1/P2 (and of the large-K K1 chain's X passes): K's rows in
+    R ranges of KR rows, the last one shorter where KR does not divide K;
+    each range is a grid layer of the K <= 512 kernel on its rows of H or
+    columns of W, so X is read R times.  (1, K) for K <= 512; above, the
+    fewest ranges of at most 512 rows, KR rounded up to 16 (whole
+    fragment rows on the bf16 paths)."""
+    if route(K) == "tile":
+        return 1, K
+    KR = _pad16(-(-K // -(-K // _RANGE_K)))
+    return -(-K // KR), KR
 
 
 def iteration_tile_width(K: int, x_dtype: torch.dtype) -> int:
@@ -130,16 +174,31 @@ def iteration_tile_width(K: int, x_dtype: torch.dtype) -> int:
     instead of 8).  Its Kp × T output, Kp = K rounded up to 16, is one pass
     of at most 16 fragments for K <= 256 and two passes above."""
     w = tile_width(K)
-    return max(16, w) if x_dtype in _MMA_XTYPES else w
+    return max(16, w) if x_dtype in _MMA_XTYPES and route(K) == "tile" else w
 
 
 def transform_bucket(K: int) -> int:
-    """fused_transform's path for K components: the smallest bucket of
-    ``_TRANSFORM_BUCKETS`` that holds K (the register path: the cells'
-    columns of H, padded to the bucket, stay in registers), or 0 above the
-    largest bucket (the tiled path over ``transform_tiles_grid(K)``)."""
-    tile_width(K)  # 1 <= K <= 512
+    """fused_transform's register-path bucket for K components: the smallest
+    bucket of ``_TRANSFORM_BUCKETS`` that holds K (the cells' columns of H,
+    padded to the bucket, stay in registers), or 0 above the largest bucket
+    (``transform_path``: the tiled or the per-step path)."""
+    route(K)  # K >= 1
     return next((b for b in _TRANSFORM_BUCKETS if K <= b), 0)
+
+
+def transform_path(K: int) -> str:
+    """fused_transform's path, a rule by K: "registers" up to the largest
+    bucket, "tiles" up to K = 512, "steps" above: one launch a step, a
+    tiled fp32 product of WtW2 and H with the update in its epilogue, H
+    ping-ponged in device memory (csrc/wtw_gemm.cuh), for any K the card's
+    memory holds.  On an H100 the per-step path took 0.87, 0.89 and 0.64
+    times the time of a tiled path of 16- and 8-cell tiles at K = 768, 1024
+    and 2048 (PERF.md).  Every path forms each
+    sum d = fmaf(WtW2[k][j], H[j][c], d) over j in order from 0 and updates
+    h * (num2 / max(d, eps)), so all three give the same bits."""
+    if transform_bucket(K):
+        return "registers"
+    return "tiles" if K <= _TRANSFORM_TILES[-1][1] else "steps"
 
 
 class TransformGrid(NamedTuple):
@@ -189,8 +248,13 @@ def transform_tiles_grid(K: int) -> TransformGrid:
     6 pairs of rows: K <= 384), else T = 32 (64 threads along K, KP = 512,
     4 pairs).  Each thread holds 2 G rows × 8 cells (80 accumulators at
     K = 300).  The ring: two stages of 32 rows of WtW2ᵀ, beside H's tile in
-    the block's share of an SM (``transform_blocks_per_sm``) for every K."""
-    tile_width(K)  # 1 <= K <= 512
+    the block's share of an SM (``transform_blocks_per_sm``) for every K up
+    to 512; K > 512 takes the per-step path (``transform_path``) and raises
+    here."""
+    route(K)  # K >= 1
+    if K > _TRANSFORM_TILES[-1][1]:
+        raise ValueError(f"fused_transform's tiled path holds K <= "
+                         f"{_TRANSFORM_TILES[-1][1]}; K={K} takes the per-step path")
     T, KP = next(tile for tile in _TRANSFORM_TILES if tile[1] >= K)
     J, S = _TRANSFORM_J, _TRANSFORM_STAGES
     return TransformGrid(T, KP, J, S, transform_tiles_smem_bytes(KP, T, J, S))
@@ -423,10 +487,13 @@ def hxt_grid(g: int, n: int, K: int, x_dtype: torch.dtype
     those blocks on 132 SMs; their fp32 partials (splits × K × g, summed in
     split order by a second pass) are a few % of X's bytes from 33k cells
     up, and a third of them at 8,192 cells, where filling the wave took
-    less time than fewer splits (PERF.md)."""
+    less time than fewer splits (PERF.md).  K > 512: the same rule for a
+    range of KR rows (``k_ranges``), the R ranges a third grid axis
+    sharing the wave, so X is read R times, and splits of at most
+    _WIDE_SPLIT_CELLS cells."""
     if x_dtype not in _MMA_XTYPES:
         raise ValueError(f"hxt_grid is for int8 and bf16 X, got {x_dtype}")
-    tile_width(K)  # 1 <= K <= 512
+    R, K = k_ranges(K)
     rows = _pad16(K) // 16
     GB = next(w for w in (128, 64, 32, 16) if rows * (w // 16) <= _HXT_MAX_FRAGS)
     S = 0
@@ -441,7 +508,9 @@ def hxt_grid(g: int, n: int, K: int, x_dtype: torch.dtype
             break
     gene_blocks = -(-g // GB)
     n_chunks = -(-n // chunk)
-    want = max(1, min(n_chunks, _SMS * per_sm // gene_blocks))
+    want = max(1, min(n_chunks, _SMS * per_sm // (gene_blocks * R)))
+    if R > 1:
+        want = max(want, -(-n // _WIDE_SPLIT_CELLS))
     cells_per_split = -(-n_chunks // want) * chunk
     return GB, -(-n // cells_per_split), cells_per_split, S, chunk
 
@@ -500,10 +569,13 @@ def hxt_fma_grid(g: int, n: int, K: int, x_dtype: torch.dtype
     most stages (2..8) that fit; else one block takes an SM (K > 448 always:
     a thread of 8 rows takes an SM's registers).  The splits, each a
     multiple of the chunk, make gene blocks × splits at most one wave of
-    those blocks on 132 SMs."""
+    those blocks on 132 SMs.  K > 512: the same rule for a range of KR rows
+    (``k_ranges``), one launch a range (the last, of the rows left, on its
+    own layout), the R ranges sharing the wave, and splits of at most
+    _WIDE_SPLIT_CELLS cells."""
     if x_dtype not in (torch.float32, torch.int16):
         raise ValueError(f"hxt_fma_grid is for float32 and int16 X, got {x_dtype}")
-    tile_width(K)  # 1 <= K <= 512
+    R, K = k_ranges(K)
     WK, MK = hxt_fma_rows(K)
     GB = 32 * min(4, 8 // WK)
     S, chunk, per_sm = _fma_ring(
@@ -512,7 +584,9 @@ def hxt_fma_grid(g: int, n: int, K: int, x_dtype: torch.dtype
         per_sm = 1
     gene_blocks = -(-g // GB)
     n_chunks = -(-n // chunk)
-    want = max(1, min(n_chunks, _SMS * per_sm // gene_blocks))
+    want = max(1, min(n_chunks, _SMS * per_sm // (gene_blocks * R)))
+    if R > 1:
+        want = max(want, -(-n // _WIDE_SPLIT_CELLS))
     cells_per_split = -(-n_chunks // want) * chunk
     return GB, -(-n // cells_per_split), cells_per_split, S, chunk
 
@@ -537,18 +611,92 @@ class IterationGrid(NamedTuple):
     wtx_S: int = 0
 
 
+class WideIterationGrid(NamedTuple):
+    """fused_iteration's large-K chain (K > 512; csrc/x_passes.cu:
+    launch_iteration_wide): iter_wide's T-cell tiles (T, n_part,
+    tiles_per_block); KR, the rows of a range of K (``k_ranges``) in every
+    X pass; P2's grid for WᵀX (wtx_T, wtx_WR, wtx_GC, wtx_S, wtx_ranges,
+    wtx_range_genes: ``wtx_grid`` and ``wtx_gene_split`` on int8/bf16 X,
+    ``wtx_fma_grid`` with wtx_WR its lanes along K on float32/int16);
+    P1's for X Hsᵀ (GB, n_split, cells_per_split, S, chunk: ``hxt_grid``
+    or ``hxt_fma_grid``); and hxt_fma's over Hn as fp32 rows for H Hᵀ
+    (hh_*: ``hxt_fma_grid(K, n, K, float32)``)."""
+    T: int
+    n_part: int
+    tiles_per_block: int
+    KR: int
+    wtx_T: int
+    wtx_WR: int
+    wtx_GC: int
+    wtx_S: int
+    wtx_ranges: int
+    wtx_range_genes: int
+    GB: int
+    n_split: int
+    cells_per_split: int
+    S: int
+    chunk: int
+    hh_GB: int
+    hh_n_split: int
+    hh_cells_per_split: int
+    hh_S: int
+    hh_chunk: int
+
+
+def _part_grid(n: int, T: int) -> Tuple[int, int]:
+    """(n_part, tiles_per_block): the per-tile pass's blocks, at most
+    _MAX_PART_BLOCKS, each a run of T-cell tiles."""
+    n_tiles = -(-n // T)
+    tiles_per_block = -(-n_tiles // _MAX_PART_BLOCKS)
+    return -(-n_tiles // tiles_per_block), tiles_per_block
+
+
 @lru_cache(maxsize=None)  # called once a fit iteration
-def iteration_grid(g: int, n: int, K: int, x_dtype: torch.dtype) -> IterationGrid:
+def wide_iteration_grid(g: int, n: int, K: int, x_dtype: torch.dtype) -> WideIterationGrid:
+    """fused_iteration's launch parameters for K > 512: the chain WᵀX (P2's
+    kernel over its K-range grid) → D = WᵀW H (csrc/wtw_gemm.cuh) →
+    iter_wide (the H update with the guided terms, the prediction loss,
+    the loss dot, Hn's row sums and Bnum = Q Hsᵀ as one partial a block of
+    32-cell tiles) → X Hsᵀ (P1's kernel over its K-range grid) → H Hᵀ =
+    Hs Hnᵀ (and HHtU = Hn Hnᵀ in counts mode) by hxt_fma over Hn → the
+    partials' sums.  Every kernel's shared memory is independent of K (but
+    iter_wide's of the labels), so any K the card's memory holds runs."""
+    if route(K) != "wide":
+        raise ValueError(f"the large-K chain is for K > {_RANGE_K}, got K={K}")
+    n_part, tiles_per_block = _part_grid(n, _WIDE_T)
+    KR = k_ranges(K)[1]
+    if x_dtype in _MMA_XTYPES:
+        T, WR, GC, S, _ = wtx_grid(g, n, K, x_dtype)
+        wtx = (T, WR, GC, S, *wtx_gene_split(g, n, K, x_dtype))
+        hxt_g = hxt_grid(g, n, K, x_dtype)
+    else:
+        T, LK, GC, S, _ = wtx_fma_grid(g, n, K, x_dtype)
+        wtx = (T, LK, GC, S, 1, g)
+        hxt_g = hxt_fma_grid(g, n, K, x_dtype)
+    return WideIterationGrid(_WIDE_T, n_part, tiles_per_block, KR, *wtx, *hxt_g,
+                             *hxt_fma_grid(K, n, K, torch.float32))
+
+
+def wide_smem_bytes(L: int, counts: bool) -> int:
+    """csrc/x_passes.cu:wide_smem_bytes: iter_wide's Y, B H (then Q) and
+    prediction-loss rows (3 L × 32 fp32), the counts rows (2 × 32) and a
+    block reduction's kThreads values; independent of K."""
+    return 4 * (3 * L * _WIDE_T + (2 * _WIDE_T if counts else 0) + _THREADS)
+
+
+@lru_cache(maxsize=None)  # called once a fit iteration
+def iteration_grid(g: int, n: int, K: int, x_dtype: torch.dtype):
     """fused_iteration's launch parameters for X (g, n) of ``x_dtype`` and
     K components.  iter_tiles walks tiles of ``iteration_tile_width`` cells,
     at most _MAX_PART_BLOCKS blocks.  int8/bf16 X: the X Hnᵀ pass takes
     GB = T genes a block and ``_cell_splits``.  float32/int16 X: WᵀX comes
     from wtx_fma over ``wtx_fma_grid`` and X Hnᵀ from hxt_fma over
-    ``hxt_fma_grid``, the kernels of ALS's fp32 X passes."""
+    ``hxt_fma_grid``, the kernels of ALS's fp32 X passes.  K > 512 (a rule
+    by K, ``route``): the large-K chain's ``wide_iteration_grid``."""
+    if route(K) == "wide":
+        return wide_iteration_grid(g, n, K, x_dtype)
     T = iteration_tile_width(K, x_dtype)
-    n_tiles = -(-n // T)
-    tiles_per_block = -(-n_tiles // _MAX_PART_BLOCKS)
-    n_part = -(-n_tiles // tiles_per_block)
+    n_part, tiles_per_block = _part_grid(n, T)
     if x_dtype in _MMA_XTYPES:
         return IterationGrid(T, n_part, tiles_per_block, T, *_cell_splits(g, n, T))
     GB, n_split, cells_per_split, S, chunk = hxt_fma_grid(g, n, K, x_dtype)
@@ -587,6 +735,10 @@ def _launch_iteration(X, W, H, WtW, Ys, Bs, lam, eps, counts, blocks, loss_kl):
         lam_rows = _lam_rows(lam, blocks).contiguous()
     if not isinstance(eps, float):
         raise TypeError("eps must be a Python float")
+    if route(K) == "wide":
+        return _launch_iteration_wide(X, W, H, WtW, Y_all if Ys else None,
+                                      Bg if Ys else None, lam_rows if Ys else None,
+                                      eps, counts, L, Kg, loss_kl, n_labels)
     mma = X.dtype in _MMA_XTYPES
     grid = iteration_grid(g, n, K, X.dtype)
     smem = _iter_smem_bytes(K, grid.T, L, Kg, counts is not None, mma)
@@ -623,6 +775,53 @@ def _launch_iteration(X, W, H, WtW, Ys, Bs, lam, eps, counts, blocks, loss_kl):
     return Hn, XHt, stats, n_labels
 
 
+def _launch_iteration_wide(X, W, H, WtW, Y_all, Bg, lam_rows, eps, counts, L,
+                           Kg, loss_kl, n_labels):
+    """Run the large-K chain (csrc/x_passes.cu: alpine_fused_iteration_wide,
+    one C call) over ``wide_iteration_grid``; returns what
+    ``_launch_iteration`` does, stats in the same layout."""
+    dev, f32 = X.device, torch.float32
+    g, n = X.shape
+    K = H.shape[0]
+    grid = wide_iteration_grid(g, n, K, X.dtype)
+    smem = wide_smem_bytes(L, counts is not None)
+    if smem > _MAX_SMEM:
+        raise ValueError(f"fused_iteration needs {smem} bytes of shared memory "
+                         f"for {L} labels; a Hopper block has {_MAX_SMEM}")
+    mma = X.dtype in _MMA_XTYPES
+    S_small = K + L * K + L + 1  # rowsum, Bnum, prediction rows, loss dot
+    buf = lambda *shape: torch.empty(shape, dtype=f32, device=dev)
+    Hn, XHt, stats = buf(K, n), buf(g, K), buf(_stats_len(K, L, counts is not None))
+    wtx, D = buf(K, n), buf(K, n)
+    hs = buf(K, n) if counts is not None else None
+    part = buf(grid.n_part, S_small)
+    part_x = buf(grid.n_split, K, g)
+    part_hh = buf(grid.hh_n_split, K, K)
+    hb = wb = wpart = warr = None
+    if mma:  # H (Hs) rounded for P1, W transposed and rounded for P2
+        hb = torch.empty(2 * K * -(-n // grid.chunk) * grid.chunk, dtype=torch.uint8,
+                         device=dev)
+        wb = torch.empty(2 * _pad16(K) * -(-g // grid.wtx_GC) * grid.wtx_GC,
+                         dtype=torch.uint8, device=dev)
+        if grid.wtx_ranges > 1:
+            wpart = buf(grid.wtx_ranges, K, n)
+            warr = torch.zeros(-(-n // grid.wtx_T) * k_ranges(K)[0], dtype=torch.int32,
+                               device=dev)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    fn = _build.entry("fused_iteration_wide")
+    rc = _on_device(dev, fn, X.data_ptr(), _XTYPE[X.dtype], W.data_ptr(), H.data_ptr(),
+                    WtW.data_ptr(), ptr(Y_all), ptr(Bg), ptr(lam_rows), ptr(counts),
+                    g, n, K, L, Kg, int(bool(loss_kl)), eps, *grid,
+                    Hn.data_ptr(), XHt.data_ptr(), stats.data_ptr(), wtx.data_ptr(),
+                    D.data_ptr(), ptr(hs), part.data_ptr(), part_x.data_ptr(),
+                    part_hh.data_ptr(), ptr(hb), ptr(wb), ptr(wpart), ptr(warr),
+                    _stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"fused_iteration's large-K chain failed to launch: CUDA "
+                           f"error {rc}")
+    return Hn, XHt, stats, n_labels
+
+
 def fused_iteration(X, W, H, WtW, Ys, Bs, lam, eps, counts=None, *, blocks,
                     loss_kl):
     """One full-batch joint H-update pass with the guided terms of every
@@ -649,7 +848,9 @@ def fused_iteration(X, W, H, WtW, Ys, Bs, lam, eps, counts=None, *, blocks,
     by X's dtype and K, not a fallback.  float32 and int16 X run them on
     the FP32 units (true fp32, no TF32) in the kernels of ALS's fp32 X
     passes: wtx_fma (WᵀX), the per-tile pass, hxt_fma (X Hnᵀ, or X Hsᵀ
-    in counts mode), then the partials' sum, over ``iteration_grid``."""
+    in counts mode), then the partials' sum, over ``iteration_grid``.
+    K > 512 runs the large-K chain (``wide_iteration_grid``), by the same
+    rule by X's dtype for its X products: a rule by K, not a fallback."""
     blocks = tuple(blocks)
     if counts is not None and not Ys:
         raise ValueError("counts mode requires covariates (weighted "
@@ -702,8 +903,10 @@ def fused_transform(num2, H0, WtW2, eps, *, n_iter: int):
     lanes share two cells, whose columns of H stay in registers for all
     steps), larger K the tiled path (a block keeps a tile of cells in
     shared memory for all steps and streams WtW2ᵀ, padded into a KP × KP
-    scratch once a call, through a ring; ``transform_tiles_grid``): a rule
-    by K (``transform_bucket``).  Both give the same bits for the same
+    scratch once a call, through a ring; ``transform_tiles_grid``), and
+    K > 512 the per-step path (one tiled fp32 product a step with the
+    update in its epilogue, H ping-ponged through a K × n scratch): a rule
+    by K (``transform_path``).  All three give the same bits for the same
     inputs."""
     if not _cuda_or_cpu(H0):
         return fused_transform_plain(num2, H0, WtW2, eps, n_iter=n_iter)
@@ -716,10 +919,15 @@ def fused_transform(num2, H0, WtW2, eps, *, n_iter: int):
         raise TypeError("eps must be a float and n_iter a non-negative int")
     KB = transform_bucket(K)
     T = KP = J = S = 0
-    Wt = None  # the tiled path's padded WtW2ᵀ (KP × KP), written by the call
-    if not KB:
+    # the tiled path's padded WtW2ᵀ (KP × KP), or the per-step path's second
+    # buffer of H (K × n; T = 0), written by the call
+    Wt = None
+    path = transform_path(K)
+    if path == "tiles":
         T, KP, J, S, _ = transform_tiles_grid(K)
         Wt = torch.empty((KP, KP), dtype=torch.float32, device=dev)
+    elif path == "steps":
+        Wt = torch.empty((K, n), dtype=torch.float32, device=dev)
     out = torch.empty((K, n), dtype=torch.float32, device=dev)
     fn = _build.entry("fused_transform")
     with torch.cuda.device(dev):
@@ -788,9 +996,10 @@ def _workspace(dev: torch.device, stream: int, counters: int, nbytes: int):
 def hxt(X, H):
     """H Xᵀ (K, g) f32, summed over all cells (the counterpart of
     benchmarks/als_probe.py's ``hxt`` kernel): X (g, n) int8/int16/bf16/f32,
-    H (K, n) f32, 1 <= K <= 512.  ALS runs it once an iteration (or a
-    batch) for X H_startᵀ; a joint minibatch step once for X_b H_bᵀ; the
-    joint fit loops for their first X Hᵀ.
+    H (K, n) f32, any K >= 1 (above 512 over ranges of H's rows,
+    ``k_ranges``).  ALS runs it once an iteration (or a batch) for
+    X H_startᵀ; a joint minibatch step once for X_b H_bᵀ; the joint fit
+    loops for their first X Hᵀ.
 
     On the card, int8 and bf16 X run on bf16 tensor cores (H rounded to
     bf16 once a call, exact products, fp32 sums) over ``hxt_grid``'s grid,
@@ -817,8 +1026,8 @@ def hxt(X, H):
     _, hb = _workspace(dev, stream, 0, hb_bytes + 4 * n_split * K * g)
     out = torch.empty((K, g), dtype=torch.float32, device=dev)
     rc = _on_device(dev, _build.entry("hxt"), X.data_ptr(), _XTYPE[X.dtype], H.data_ptr(),
-                    g, n, K, GB, n_split, cells_per_split, S, chunk, hb, hb + hb_bytes,
-                    out.data_ptr(), stream)
+                    g, n, K, k_ranges(K)[1], GB, n_split, cells_per_split, S, chunk, hb,
+                    hb + hb_bytes, out.data_ptr(), stream)
     _launched("hxt", rc)
     return out
 
@@ -856,10 +1065,12 @@ def wtx_grid(g: int, n: int, K: int, x_dtype: torch.dtype
     output in the same order on any card.  GC, the genes a ring stage, is
     the wider of 64 and 32 for which two stages fit with two blocks an SM
     (fewer barriers a pass; the genes are summed in the same order either
-    way), and S the most stages (2..8) that fit."""
+    way), and S the most stages (2..8) that fit.  K > 512: the same rule
+    for a range of KR columns of W (``k_ranges``), the R ranges a second
+    grid axis beside the tiles, their blocks counted in the waves."""
     if x_dtype not in _MMA_XTYPES:
         raise ValueError(f"wtx_grid is for int8 and bf16 X, got {x_dtype}")
-    tile_width(K)  # 1 <= K <= 512
+    R, K = k_ranges(K)
     rows = _pad16(K) // 16
     fewest = next(w for w in (1, 2, 4, 8) if -(-rows // w) * 8 <= _WTX_ACC)
     itemsize = 1 if x_dtype == torch.int8 else 2
@@ -869,7 +1080,7 @@ def wtx_grid(g: int, n: int, K: int, x_dtype: torch.dtype
         for NT in _WTX_GROUPS:
             if WR <= min(rows, 8) and frags * NT * 8 <= _WTX_ACC:
                 T = 8 // WR * 16 * NT
-                waves = -(-(-(-n // T)) // (2 * _SMS))  # ceil(blocks / slots)
+                waves = -(-(-(-n // T) * R) // (2 * _SMS))  # ceil(blocks / slots)
                 layouts.append((waves * (T * itemsize + 2 * rows * 16), -T, WR))
     _, neg_t, WR = min(layouts)
     T = -neg_t
@@ -891,10 +1102,12 @@ def wtx_gene_split(g: int, n: int, K: int, x_dtype: torch.dtype) -> Tuple[int, i
     range into a K × T partial, and the last block of a tile to finish
     adds the partials in range order.  One range (all genes) otherwise.
     The split depends on the shape only, so a shape gives the same bits
-    on every launch and card."""
+    on every launch and card.  K > 512: the tiles of every range of K's
+    columns (``k_ranges``) count toward the wave."""
     T, _, GC, _, blocks = wtx_grid(g, n, K, x_dtype)
     chunks = -(-g // GC)
-    ranges = max(1, min(2 * _SMS // blocks, chunks // _WTX_RANGE_CHUNKS))
+    ranges = max(1, min(2 * _SMS // (blocks * k_ranges(K)[0]),
+                        chunks // _WTX_RANGE_CHUNKS))
     per_range = -(-chunks // ranges)
     return -(-chunks // per_range), per_range * GC
 
@@ -934,10 +1147,12 @@ def wtx_fma_grid(g: int, n: int, K: int, x_dtype: torch.dtype
     blocks at two an SM at the bench shape), and all of K is one pass over
     X for every K <= 512.  The warps not needed along K (``wtx_fma_rows``)
     split each chunk's 32 genes.  S is the most ring stages (2..8) for
-    which two blocks share an SM, else one block takes it."""
+    which two blocks share an SM, else one block takes it.  K > 512: the
+    same rule for a range of KR columns of W (``k_ranges``), the R ranges a
+    second grid axis."""
     if x_dtype not in (torch.float32, torch.int16):
         raise ValueError(f"wtx_fma_grid is for float32 and int16 X, got {x_dtype}")
-    tile_width(K)  # 1 <= K <= 512
+    _, K = k_ranges(K)
     LK = next(lk for lk in (1, 2, 4, 8, 16) if K <= 8 * lk * _WTX_FMA_MAX_MK)
     S, _, _ = _fma_ring(lambda s, _: wtx_fma_smem_bytes(K, LK, s, x_dtype),
                         (_WTX_FMA_GC,))
@@ -947,7 +1162,8 @@ def wtx_fma_grid(g: int, n: int, K: int, x_dtype: torch.dtype
 
 def wtx(X, W):
     """Wᵀ X (K, n) f32 (the counterpart of benchmarks/als_probe.py's ``wtx``
-    kernel): X (g, n) int8/int16/bf16/f32, W (g, K) f32, 1 <= K <= 512.
+    kernel): X (g, n) int8/int16/bf16/f32, W (g, K) f32, any K >= 1 (above
+    512 over ranges of W's columns, ``k_ranges``).
     ALS runs it once a block an iteration (or a batch), with the block's
     Wᵢ; a joint minibatch step once for Wᵀ X_b, and a minibatch fit once an
     epoch for the loss's WᵀX over all cells.
@@ -976,12 +1192,13 @@ def wtx(X, W):
     else:  # WR carries the fp32 path's lanes along K
         T, WR, GC, S, blocks = wtx_fma_grid(g, n, K, X.dtype)
     stream = _stream(dev)
-    arrivals, wb = _workspace(dev, stream, blocks if ranges > 1 else 0,
+    R, KR = k_ranges(K)
+    arrivals, wb = _workspace(dev, stream, blocks * R if ranges > 1 else 0,
                               wb_bytes + (4 * ranges * K * n if ranges > 1 else 0))
     part = wb + wb_bytes
     out = torch.empty((K, n), dtype=torch.float32, device=dev)
     rc = _on_device(dev, _build.entry("wtx"), X.data_ptr(), _XTYPE[X.dtype], W.data_ptr(),
-                    g, n, K, T, WR, GC, S, ranges, range_genes, wb, part, arrivals,
+                    g, n, K, KR, T, WR, GC, S, ranges, range_genes, wb, part, arrivals,
                     out.data_ptr(), stream)
     _launched("wtx", rc)
     return out

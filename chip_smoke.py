@@ -66,6 +66,19 @@ Phases, each printing one JSON line:
           summary of each misaligned row's device time over
           its twin's and each row's time over the library's; and K1 at
           K = 144 and K4 at K = 44 on 66,667 against 66,672 cells;
+  kernel_wide  every large-K route (K > 512: kernels.route) against its
+          plain version: K1 with and without counts, K2, P1, P2 on int8,
+          bf16, int16 and float32 X at K = 513, 600, 768, 1024, 2048 on 70
+          genes x 17, 1,001 and 5,040 cells (int8 also at a 1-byte offset),
+          K3 on its per-step path there, each launched twice (bit for
+          bit), and the per-step path called directly at K = 40, 300 and
+          512 bit for bit the register and tiled paths (one summary line);
+          then rows at the bench shape, K = 768: K1, K4, K2 (int8) and K1
+          on float32 X, K3 (50 steps), P1, and P2 at K = 768 and k = 384,
+          each with every output against the plain version's, a second
+          launch bit for bit, its time, bound, plain and library time
+          (bf16 cuBLAS X products with fp32 (WᵀW)H and H Hᵀ; 50 fp32
+          torch.matmul for K3) and grid;
   stream_probe  the streaming probe's entry point (alpine_tpu_torch/
           probe.py) on int8 and float32 X at the bench shape: ms and GB/s
           read, the fold and column sums checked exactly against the plain
@@ -83,6 +96,8 @@ Phases, each printing one JSON line:
           the unguided loop (fit_loop_unguided_int16: K2's), and on float32
           X the ALS loop (fit_loop_als_float32) and the joint loop
           (fit_loop_float32), each with the launch counts of its timed run;
+          and the full-batch loop at K = 768 (fit_loop_k768, blocks (192,
+          192, 384): K1's large-K chain);
   small   a small fit on the card against the same fit on the CPU (plain
           kernel versions, same seed); small_als the same with
           use_als=True;
@@ -217,6 +232,16 @@ Phases, each printing one JSON line:
   slice_k100  ALPINE(n_components=90, n_covariate_components=[5, 5]) (K =
           100: fused_transform's tiled path), a 5-iteration fit and a
           50-step transform through the fit's device X;
+  slice_k768  ALPINE(n_components=384, n_covariate_components=[192, 192])
+          (K = 768, the JAX package's bucket level) fit 20 iterations and
+          transformed 50 steps at 100k x 2,000 (int8): K1 20, P1 1, K3 1
+          launches, finite falling losses, cached = uncached transform;
+          then the same model on the first 5,000 cells on the card against
+          the CPU (plain versions) at the small phase's tolerances;
+  slice_k768_modes  K = 768 on the first 20,000 cells, 5 iterations each:
+          unguided (K2), weighted_fast (K4), use_als=True (P1 at K = 768,
+          P2 a block) and random minibatch of 8,192 (P1 and P2 at K = 768),
+          launch counts and finite losses;
   slice_optimize  ComponentOptimizer(adata, ["batch", "condition"],
           max_iter=50, random_state=0) with its defaults (the card, fold
           batching, auto bucketing, int8), search_hyperparams((10, 100),
@@ -267,7 +292,8 @@ wtx at the optimizer's fold shapes with the launches of slice_optimize and
 slice_optimize_paths; K1 and K3 again with world 2's launches of
 slice_optimize_sharded, at the same folds; hxt, wtx and fused_transform
 at a 2 x 2 grid's block, 1,000 genes x 50,000 cells, with the four ranks'
-launches of slice_gene_cell; hxt and wtx at a 2 x 2 grid rank's share of
+launches of slice_gene_cell; the large-K routes at K = 768 (kernel_wide's
+bench rows) with the launches of slice_k768 and slice_k768_modes; hxt and wtx at a 2 x 2 grid rank's share of
 a minibatch batch with the four ranks' minibatch launches; hxt and wtx (k =
 5, 30 and 40) at the shares of the global-draw fits, a cell mesh rank's
 (2,000 genes, world 2 of slice_sharded_modes) and a 2 x 2 grid rank's, ALS
@@ -491,7 +517,7 @@ def sass_check(_build, kernels):
         u = usage.get(fn, {})
         T, G = (int(t.group(1)), int(t.group(2))) if t else (None, None)
         trows.append({"kernel": ("transform_columns" if m else "transform_tiles" if t
-                                 else "pad_transpose"),
+                                 else "wtw_gemm" if "wtw_gemm" in fn else "pad_transpose"),
                       "bucket": int(m.group(1)) if m else None, "T": T,
                       "KP": 2 * kernels._THREADS // (T // 8) * G if t else None,
                       "row_pairs": G,
@@ -508,7 +534,7 @@ def sass_check(_build, kernels):
               f"{tag}: HMMA count {r['hmma']} does not fit its path")
         if r["tensor_core_path"]:
             check(r["spill_stores"] == 0, f"{tag}: spill stores {r['spill_stores']}")
-    xrows = []
+    xrows, wide = [], []
     usage = ptxas_usage(_build.build_log("x_passes"))
     ops = ("HMMA", "LDGSTS", "LDSM", "FFMA")
     for fn, count in sorted(sass_counts(_build, "x_passes", ops).items()):
@@ -516,6 +542,12 @@ def sass_check(_build, kernels):
         # or the fp32 kernels' rows a thread (MK); the bf16 kernels' third
         # argument: X's rows on 16-byte boundaries, or not (aligned windows)
         m = FMA_NAME.search(fn)
+        if not m and ("iter_wide" in fn or "wtw_gemm" in fn):  # the large-K chain's own
+            u = usage.get(fn, {})
+            wide.append({"kernel": "iter_wide" if "iter_wide" in fn else "wtw_gemm",
+                         "mangled": fn, **{op.lower(): count[op] for op in ops},
+                         "registers": u.get("registers"),
+                         "spill_stores": u.get("spill_stores")})
         if m:
             u = usage.get(fn, {})
             arg = int(m.group(3)) if m.group(3) else None
@@ -527,7 +559,17 @@ def sass_check(_build, kernels):
                           **{op.lower(): count[op] for op in ops},
                           "registers": u.get("registers"),
                           "spill_stores": u.get("spill_stores")})
-    emit({"phase": "sass", "x_passes": xrows})
+    emit({"phase": "sass", "x_passes": xrows, "x_passes_wide": wide})
+    # iter_wide on four Y types with and without counts, wtw_gemm's store
+    # epilogue: true fp32 (no HMMA), no spill store
+    check(sum(r["kernel"] == "iter_wide" for r in wide) == 8
+          and sum(r["kernel"] == "wtw_gemm" for r in wide) == 1,
+          f"expected 8 iter_wide and 1 wtw_gemm in x_passes, found {len(wide)}")
+    for r in wide + [r for r in trows if r["kernel"] == "wtw_gemm"]:
+        check(r["spill_stores"] == 0 and r.get("hmma", 0) == 0,
+              f"{r['kernel']}: spill stores {r['spill_stores']}, HMMA {r.get('hmma')}")
+        if r["kernel"] == "wtw_gemm":  # 8 unrolled j x 8 x 8 outputs a thread
+            check(r["ffma"] >= 512, f"wtw_gemm: {r['ffma']} FFMA")
     # hxt_fma<XT, 1 .. _FMA_MAX_MK + 1> (8 rows only past K = 448), wtx_fma<XT, 1 .. 6>
     fma_rows = {"hxt_fma": kernels._FMA_MAX_MK + 1, "wtx_fma": kernels._WTX_FMA_MAX_MK}
     n_fma = 2 * sum(fma_rows.values())
@@ -2597,6 +2639,431 @@ def run_minibatch_phase(phase, torch, kernels, ALPINE, adata, slice_peak, use_al
     return launches, row, out
 
 
+# -- K > 512: the large-K routes (kernel_wide, slice_k768, slice_k768_modes) --
+WIDE_KS = (513, 600, 768, 1024, 2048)
+WIDE_NS = (17, 1001, 5040)  # 17 and 1,001: rows off 16-byte alignment for int8/bf16/int16
+WIDE_G = 70  # not a multiple of any gene chunk
+# K3 at a K of the register and of the tiled path, where the per-step path
+# called directly must give that path's bits
+STEPS_SAME_BITS_KS = (40, 300, 512)
+# the kernels line's rows of the large-K routes (kernel_wide's bench rows)
+# and their sources: K1/K2/K4's chain lives beside P1/P2
+WIDE_ROWS = {"fused_iteration wide": "alpine_tpu_torch/csrc/x_passes.cu",
+             "fused_iteration_counts wide": "alpine_tpu_torch/csrc/x_passes.cu",
+             "fused_h_update wide": "alpine_tpu_torch/csrc/x_passes.cu",
+             "fused_transform wide K=768 n_iter=50": "alpine_tpu_torch/csrc/fused_transform.cu",
+             "hxt wide K=768": "alpine_tpu_torch/csrc/x_passes.cu",
+             "wtx wide K=768": "alpine_tpu_torch/csrc/x_passes.cu",
+             "wtx k=384 K=384": "alpine_tpu_torch/csrc/x_passes.cu"}
+K768 = 768  # the JAX package's component bucket level (alpine_tpu/ops/mu.py:1681)
+K768_BLOCKS = (192, 192, 384)
+K768_ITERS = 20
+K768_SMALL_CELLS = 5000
+K768_MODE_CELLS = 20_000
+K768_MODE_ITERS = 5
+
+
+def wide_blocks(K):
+    """Two covariates of K // 4 and K // 8 components, the rest unguided."""
+    return (K // 4, K // 8, K - K // 4 - K // 8)
+
+
+def transform_steps_direct(torch, _build, num2, H0, WtW2, n_iter):
+    """fused_transform's per-step path called through its C entry at any K
+    (the wrapper takes it only for K > 512), for the bit-for-bit check
+    against the register and tiled paths; not counted as a launch."""
+    K, n = H0.shape
+    out, scratch = torch.empty_like(H0), torch.empty_like(H0)
+    rc = _build.entry("fused_transform")(
+        num2.data_ptr(), H0.data_ptr(), WtW2.data_ptr(), K, 0, n, 0, 0, 0, 0, n_iter, EPS,
+        scratch.data_ptr(), out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    check(rc == 0, f"fused_transform's per-step path failed to launch: CUDA error {rc}")
+    return out
+
+
+def run_kernel_wide_phase(torch, kernels, _build, gen, dev, card):
+    """Every large-K route (K > 512) against its plain version on the card:
+    small ragged shapes (70 genes x 17, 1,001 and 5,040 cells; int8, bf16,
+    int16, float32 X; K = 513, 600, 768, 1024, 2048; X at a 1-byte offset
+    too), a second launch of each bit for bit the first; K3's per-step path
+    and, called directly at K = 40, 300 and 512, bit for bit the register
+    and tiled paths.
+    Then rows at the bench shape, K = 768: K1, K4, K2 (int8) and K1 on
+    float32 X, K3 (50 steps), P1, and P2 at K = 768 and k = 384, each with
+    its time, bound, plain and library time and grid.  Returns the bench
+    rows by name."""
+    flat = lambda o: [t for v in (o if isinstance(o, tuple) else (o,))
+                      for t in (v if isinstance(v, tuple) else (v,))]
+    worst = {}  # kernel -> (worst error over tolerance, max abs error, cases)
+
+    def hold(name, kern, plain, rtol, atol, hs=None):
+        got, again, want = kern(), kern(), plain()
+        torch.cuda.synchronize()
+        got, again, want = flat(got), flat(again), flat(want)
+        if hs is not None:
+            # int8/bf16 X: XHt against the plain product over the kernel's own
+            # Hs; an Hn one ulp off the plain one can round Hs to the next
+            # bf16 value, which moves a sum over 17 cells past rtol 1e-4
+            want[1] = kernels.hxt_plain(hs[0], hs[1](got[0])).T
+        errs = [compare(a, b, rtol, atol) for a, b in zip(got, want)]
+        w, a = max(e[1] for e in errs), max(e[0] for e in errs)
+        check(w <= 1.0, f"kernel_wide {name}: disagrees with its plain version ({w})")
+        check(all(torch.equal(x, y) for x, y in zip(got, again)),
+              f"kernel_wide {name}: a second launch gave other bits")
+        kname = name.split()[0]
+        old = worst.get(kname, (0.0, 0.0, 0))
+        worst[kname] = (max(old[0], w), max(old[1], a), old[2] + 1)
+        return got
+
+    xdts = (torch.int8, torch.bfloat16, torch.int16, torch.float32)
+    mixed_counts = lambda n: torch.randint(0, 4, (2, n), generator=gen, device=dev).float()
+    for xdt in xdts:
+        kl = xdt in (torch.int8, torch.float32)
+        for K in WIDE_KS:
+            blocks = wide_blocks(K)
+            for n in WIDE_NS:
+                X, W, H, WtW, Ys, Bs, lam = iteration_problem(
+                    torch, gen, dev, WIDE_G, n, blocks, (2, 3), xdt)
+                if xdt == torch.int16:
+                    X *= 3
+                variants = [("", X)]
+                if xdt == torch.int8 and n == 5040:
+                    variants.append((" offset 1", at_byte_offset(torch, X, 1)))
+                bf16 = xdt in kernels._MMA_XTYPES
+                for note, Xv in variants:
+                    tag = f"{str(xdt)[6:]} K={K} n={n}{note}"
+                    C = mixed_counts(n)
+                    hs = (Xv, lambda Hn: Hn) if bf16 else None
+                    hold(f"fused_iteration {tag}",
+                         lambda: kernels.fused_iteration(Xv, W, H, WtW, Ys, Bs, lam, EPS,
+                                                         blocks=blocks, loss_kl=kl),
+                         lambda: kernels.fused_iteration_plain(Xv, W, H, WtW, Ys, Bs, lam, EPS,
+                                                               blocks=blocks, loss_kl=kl),
+                         1e-4, 1e-6, hs)
+                    got = hold(f"fused_iteration_counts {tag}",
+                               lambda: kernels.fused_iteration(Xv, W, H, WtW, Ys, Bs, lam, EPS,
+                                                               C, blocks=blocks, loss_kl=kl),
+                               lambda: kernels.fused_iteration_plain(
+                                   Xv, W, H, WtW, Ys, Bs, lam, EPS, C, blocks=blocks,
+                                   loss_kl=kl), 1e-4, 1e-6,
+                               (Xv, lambda Hn: Hn * C[1]) if bf16 else None)
+                    undrawn = C[0] == 0
+                    check(torch.equal(got[0][:, undrawn], H[:, undrawn]),
+                          f"kernel_wide K4 {tag}: undrawn columns must keep H bit for bit")
+                    hold(f"fused_h_update {tag}",
+                         lambda: kernels.fused_h_update(Xv, W, H, WtW, EPS),
+                         lambda: kernels.fused_h_update_plain(Xv, W, H, WtW, EPS), 1e-4, 1e-6,
+                         hs)
+                    hold(f"hxt {tag}", lambda: kernels.hxt(Xv, H),
+                         lambda: kernels.hxt_plain(Xv, H), 1e-4, 1e-6)
+                    hold(f"wtx {tag}", lambda: kernels.wtx(Xv, W),
+                         lambda: kernels.wtx_plain(Xv, W), 1e-4, 1e-6)
+                del X, W, H, WtW, Ys, Bs, variants
+    # K3: the per-step path at every K > 512, and at a K of the register and
+    # of the tiled path called directly
+    for K in WIDE_KS + STEPS_SAME_BITS_KS:
+        for n in WIDE_NS:
+            W = torch.rand((WIDE_G, K), generator=gen, device=dev)
+            X = torch.poisson(torch.full((WIDE_G, n), 1.5, device=dev), generator=gen)
+            num2, WtW2 = 2.0 * (W.T @ X), 2.0 * (W.T @ W)
+            H0 = torch.rand((K, n), generator=gen, device=dev) + 0.05
+            if K in STEPS_SAME_BITS_KS:
+                # every path forms its sums and update alike: the same bits
+                got = kernels.fused_transform(num2, H0, WtW2, EPS, n_iter=TRANSFORM_ITERS)
+                check(torch.equal(transform_steps_direct(torch, _build, num2, H0, WtW2,
+                                                         TRANSFORM_ITERS), got),
+                      f"kernel_wide: K3's per-step path at K={K} n={n} must give the "
+                      f"{kernels.transform_path(K)} path's bits")
+                continue
+            hold(f"fused_transform {kernels.transform_path(K)} K={K} n={n}",
+                 lambda: kernels.fused_transform(num2, H0, WtW2, EPS, n_iter=TRANSFORM_ITERS),
+                 lambda: kernels.fused_transform_plain(num2, H0, WtW2, EPS,
+                                                       n_iter=TRANSFORM_ITERS),
+                 2e-4, 1e-6)
+    emit({"phase": "kernel_wide", "small_cases": {
+        k: {"cases": c, "worst_err_over_tolerance": w, "max_abs_err": a}
+        for k, (w, a, c) in worst.items()},
+        "ks": list(WIDE_KS), "cells": list(WIDE_NS), "genes": WIDE_G,
+        "steps_bit_equal_other_paths_at": list(STEPS_SAME_BITS_KS),
+        "tolerance": "rtol 1e-4 (K3 2e-4), atol 1e-6*max|plain| per output (K1/K2/K4 "
+                     "on int8/bf16 X: XHt against the plain product over the kernel's "
+                     "own Hs); second launch bit for bit"})
+    torch.cuda.empty_cache()
+    return run_kernel_wide_bench(torch, kernels, gen, dev, card)
+
+
+def device_ms_by_kernel(torch, fn):
+    """The card's ms of each CUDA kernel one call of `fn` launches
+    (torch.profiler), by kernel name; empty where the profiler saw none."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key[:48]: e.self_device_time_total * 1e-3 for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
+
+
+def run_kernel_wide_bench(torch, kernels, gen, dev, card):
+    """The bench-shape rows of kernel_wide (100k x 2,000, K = 768), the
+    large-K chain's rows (K1, K4, K2) and K3's with the card's ms of each
+    kernel they launch."""
+    rows = {}
+
+    def timed_row(name, kern, plain, library, library_name, rtol, atol, cost, grid, note=None,
+                  names=("out",), xht_of=None):
+        # every output against the plain version's, and a second launch bit
+        # for bit the first, as the K <= 512 rows (run_iteration_case) hold them
+        got, again, want = kern(), kern(), plain()
+        torch.cuda.synchronize()
+        got, again, want = flat(got), flat(again), flat(want)
+        if xht_of is not None:
+            # int8 X: XHt against the plain product over the kernel's own Hs
+            want[1] = xht_of(got[0])
+        errs = [compare(a, b, rtol, atol) for a, b in zip(got, want)]
+        repeats = all(torch.equal(a, b) for a, b in zip(got, again))
+        worst = max(e[1] for e in errs)
+        del got, again, want
+        row = {"phase": "kernel_wide", "case": name, "max_abs_err": max(e[0] for e in errs),
+               "worst_err_over_tolerance": worst,
+               "err_by_output": {nm: {"max_abs_err": e[0], "worst_err_over_tolerance": e[1]}
+                                 for nm, e in zip(names, errs)},
+               "second_launch_bit_equal": repeats,
+               "tolerance": f"rtol {rtol}, atol {atol}*max|plain| per output"
+                            + (" (XHt against the plain product over the kernel's own Hs)"
+                               if xht_of is not None else ""),
+               "ms": time_ms(kern, 5), "plain_ms": time_ms(plain, 3),
+               "library_ms": time_ms(library, 3), "library": library_name,
+               "bytes": cost[0], "bf16_flop": cost[1], "fp32_flop": cost[2], "grid": grid}
+        row["bound_ms"], row["bound_by"] = bound(*cost, card)
+        if not name.startswith(("hxt", "wtx")):
+            row["device_ms_by_kernel"] = device_ms_by_kernel(torch, kern)
+        if note:
+            row["note"] = note
+        emit(row)
+        check(len(errs) == len(names), f"kernel_wide {name}: {len(errs)} outputs, "
+                                       f"{len(names)} names")
+        bad = [nm for nm, e in zip(names, errs) if e[1] > 1.0]
+        check(not bad, f"kernel_wide {name}: {bad} disagree with the plain version's")
+        check(repeats, f"kernel_wide {name}: a second launch gave other bits")
+        rows[name] = row
+        return row
+
+    flat = lambda o: [t for v in (o if isinstance(o, tuple) else (o,))
+                      for t in (v if isinstance(v, tuple) else (v,))]
+
+    def iteration_names(blocks, counts, guided=True):
+        head = ["Hn", "XHt", "HHt"] + (["HHtU"] if counts else []) + ["lossdot"]
+        if not guided:
+            return tuple(head)
+        per = lambda what: [f"{what}[{c}]" for c in range(len(blocks) - 1)]
+        return tuple(head + per("pred") + per("bnum") + per("bden"))
+
+    labels = (2, 3)
+    for xdt, kinds in ((torch.int8, ("K1", "K4", "K2")), (torch.float32, ("K1",))):
+        bf16 = xdt == torch.int8
+        X, W, H, WtW, Ys, Bs, lam = iteration_problem(torch, gen, dev, G, N, K768_BLOCKS,
+                                                      labels, xdt)
+        cdt = torch.bfloat16 if bf16 else torch.float32
+        Xc, Wc, Hc = X.to(cdt), W.to(cdt), H.to(cdt)
+        library = lambda: (Wc.T @ Xc, Hc @ Xc.T, WtW @ H, H @ H.T)
+        lib_name = (f"{str(cdt)[6:]} torch.matmul X products (WᵀX, H Xᵀ) and fp32 "
+                    "torch.matmul (WᵀW)H, H Hᵀ")
+        grid = kernels.iteration_grid(G, N, K768, xdt)._asdict()
+        for kind in kinds:
+            if kind == "K2":
+                blocks, args = (K768,), ()
+                kern = lambda: kernels.fused_h_update(X, W, H, WtW, EPS)
+                plain = lambda: kernels.fused_h_update_plain(X, W, H, WtW, EPS)
+                name, cost = "fused_h_update wide", iteration_cost(G, N, (K768,), (), 1, True)
+                names, Hs = iteration_names((K768,), False, guided=False), lambda Hn: Hn
+            else:
+                C = None
+                if kind == "K4":
+                    C = torch.randint(0, 3, (2, N), generator=gen, device=dev).float()
+                kern = lambda C=C: kernels.fused_iteration(X, W, H, WtW, Ys, Bs, lam, EPS, C,
+                                                           blocks=K768_BLOCKS, loss_kl=True)
+                plain = lambda C=C: kernels.fused_iteration_plain(
+                    X, W, H, WtW, Ys, Bs, lam, EPS, C, blocks=K768_BLOCKS, loss_kl=True)
+                name = ("fused_iteration_counts wide" if kind == "K4" else "fused_iteration wide")
+                if not bf16:
+                    name += " float32"
+                cost = iteration_cost(G, N, K768_BLOCKS, labels, X.element_size(), bf16,
+                                      counts=kind == "K4")
+                names = iteration_names(K768_BLOCKS, C is not None)
+                Hs = (lambda Hn: Hn) if C is None else (lambda Hn, C=C: Hn * C[1])
+            xht_of = lambda Hn, Hs=Hs: kernels.hxt_plain(X, Hs(Hn)).T
+            timed_row(name, kern, plain, library, lib_name, 1e-4, 1e-6, cost, grid,
+                      names=names, xht_of=xht_of if bf16 else None)
+        del X, W, H, WtW, Ys, Bs, Xc, Wc, Hc
+        torch.cuda.empty_cache()
+    # K3 at K = 768: the per-step path, 50 launches a call
+    Wt = torch.rand((G, K768), generator=gen, device=dev)
+    Xt = torch.poisson(torch.full((G, N), 1.5, device=dev), generator=gen)
+    num2, WtW2 = 2.0 * (Wt.T @ Xt), 2.0 * (Wt.T @ Wt)
+    del Xt
+    H0 = torch.rand((K768, N), generator=gen, device=dev) + 0.05
+    t_ops = TRANSFORM_ITERS * (2.0 * K768 * K768 + 3.0 * K768) * N
+    timed_row(f"fused_transform wide K={K768} n_iter={TRANSFORM_ITERS}",
+              lambda: kernels.fused_transform(num2, H0, WtW2, EPS, n_iter=TRANSFORM_ITERS),
+              lambda: kernels.fused_transform_plain(num2, H0, WtW2, EPS, n_iter=TRANSFORM_ITERS),
+              lambda: [torch.matmul(WtW2, H0) for _ in range(TRANSFORM_ITERS)],
+              f"{TRANSFORM_ITERS} x fp32 torch.matmul(WtW2, H)", 2e-4, 1e-6,
+              (3 * 4 * K768 * N + 4 * K768 * K768, 0.0, t_ops),
+              {"path": kernels.transform_path(K768)})
+    del Wt, num2, WtW2, H0
+    torch.cuda.empty_cache()
+    # P1 at K = 768, P2 at K = 768 and at an ALS block's k = 384
+    X, W, H = make_x_pass_problem(torch, gen, dev, G, N, K768, torch.int8)
+    Xc = X.to(torch.bfloat16)
+    for kind, K in (("hxt", K768), ("wtx", K768), ("wtx", K768 // 2)):
+        P = H if kind == "hxt" else W[:, :K].contiguous()
+        Pc = P.bfloat16()
+        lib = ((lambda: torch.matmul(Pc, Xc.T)) if kind == "hxt"
+               else (lambda: torch.matmul(Pc.T, Xc)))
+        side = 4 * K * N if kind == "hxt" else 4 * G * K
+        out = 4 * K * G if kind == "hxt" else 4 * K * N
+        grid = x_pass_grid(kernels, kind, G, N, K, torch.int8)
+        grid["k_ranges"] = list(kernels.k_ranges(K))
+        timed_row(f"{kind} {'wide' if K > 512 else 'k=384'} K={K}",
+                  lambda: getattr(kernels, kind)(X, P), lambda: getattr(kernels, f"{kind}_plain")(X, P),
+                  lib, "torch.matmul, bf16 operands", 1e-4, 1e-6,
+                  (G * N + side + out, 2.0 * K * G * N, 0.0), grid,
+                  note=(f"X read {kernels.k_ranges(K)[0]} times (one a range of K)"
+                        if K > 512 else None))
+    del X, W, H, Xc
+    torch.cuda.empty_cache()
+    return rows
+
+
+def run_k768_phase(torch, kernels, ALPINE, AnnData, counts, obs):
+    """slice_k768: ALPINE(n_components=384, n_covariate_components=[192,
+    192]) (K = 768) through fit (20 iterations, int8) and a 50-step
+    transform at 100k x 2,000; then the same model on the first 5,000 cells
+    on the card against the CPU.  Returns the launches of the fit and
+    transform."""
+    adata = AnnData(counts, obs=obs)
+    model = ALPINE(n_components=K768_BLOCKS[-1], n_covariate_components=list(K768_BLOCKS[:-1]),
+                   lam=[1e3, 1e3], device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    model.fit(adata, ["batch", "condition"], max_iter=K768_ITERS)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    check(model._x_cache is not None, "slice_k768: the fit must keep its device X")
+    t0 = time.perf_counter()
+    model.transform(adata, n_iter=TRANSFORM_ITERS)  # through the fit's device X
+    torch.cuda.synchronize()
+    transform_s = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    emb_cached = {k: adata.obsm[k].copy() for k in ("ALPINE_embedding", "batch", "condition")}
+    model.free_device_cache()
+    model.transform(adata, n_iter=TRANSFORM_ITERS)  # uploads X again
+    torch.cuda.synchronize()
+    cache_ok = all(np.allclose(emb_cached[k], adata.obsm[k], rtol=1e-5) for k in emb_cached)
+    L = model.loss_history_
+    row = {"phase": "slice_k768", "components": K768, "blocks": list(K768_BLOCKS),
+           "cells": N, "genes": G, "fit_seconds": fit_s, "fit_iterations": K768_ITERS,
+           "timings": model.timings_, "transform_seconds_cached": transform_s,
+           "transform_iterations": TRANSFORM_ITERS, "data_dtype": model.data_dtype_,
+           "transform_path": kernels.transform_path(K768),
+           "launches": launches, "cached_matches_uncached": bool(cache_ok),
+           "loss_first": L[0].tolist(), "loss_last": L[-1].tolist(),
+           "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+    model.free_device_cache()
+    del model
+    torch.cuda.empty_cache()
+    check(row["data_dtype"] == "int8", "slice_k768: auto must resolve to int8")
+    check(launches["fused_iteration"] == K768_ITERS,
+          f"slice_k768: {launches['fused_iteration']} K1 launches, expected {K768_ITERS}")
+    check(launches["hxt"] == 1, f"slice_k768: {launches['hxt']} P1 launches, expected 1")
+    check(launches["fused_transform"] == 1, "slice_k768: transform must launch K3 once")
+    check(np.isfinite(L).all(), "slice_k768: loss history must be finite")
+    check(L[-1, 0] < L[0, 0], "slice_k768: total loss must fall")
+    check(all(np.isfinite(v).all() for v in emb_cached.values()),
+          "slice_k768: embeddings finite")
+    check(emb_cached["ALPINE_embedding"].shape == (N, K768_BLOCKS[-1]), "slice_k768: shape")
+    check(cache_ok, "slice_k768: cached and uncached transforms must agree (rtol 1e-5)")
+    # the same model on the first cells: the card against the CPU (plain versions)
+    m_cells = K768_SMALL_CELLS
+    sub = {k: v[:m_cells] for k, v in obs.items()}
+    fits = {}
+    for where in ("cuda", "cpu"):
+        ad = AnnData(counts[:m_cells], obs=sub)
+        m = ALPINE(n_components=K768_BLOCKS[-1], n_covariate_components=list(K768_BLOCKS[:-1]),
+                   lam=[1e3, 1e3], device=where, random_state=7)
+        t0 = time.perf_counter()
+        m.fit(ad, ["batch", "condition"], max_iter=K768_ITERS)
+        m.transform(ad, n_iter=TRANSFORM_ITERS)
+        fits[where] = (m.loss_history_, ad.obsm["ALPINE_embedding"], time.perf_counter() - t0)
+        m.free_device_cache()
+    X64 = counts[:m_cells].astype(np.float64)
+    floor = 2e-6 * float(np.sum(np.square(X64)))
+    loss_gap = float(np.max(np.abs(fits["cuda"][0] - fits["cpu"][0])
+                            - 5e-4 * np.abs(fits["cpu"][0]) - floor))
+    emb_ok = np.allclose(fits["cuda"][1], fits["cpu"][1], rtol=5e-3, atol=1e-5)
+    rel = float(np.linalg.norm(fits["cuda"][1] - fits["cpu"][1])
+                / np.linalg.norm(fits["cpu"][1]))
+    row.update({"small_cells": m_cells, "small_loss_excess_over_tolerance": loss_gap,
+                "small_embedding_allclose": bool(emb_ok),
+                "small_embedding_relative_frobenius": rel,
+                "small_seconds": {w: f[2] for w, f in fits.items()},
+                "small_tolerance": "loss rtol 5e-4 + 2e-6*|X|^2, embedding rtol 5e-3 atol 1e-5"})
+    emit(row)
+    check(loss_gap <= 0 and emb_ok, "slice_k768: the card's fit disagrees with the CPU's")
+    return launches
+
+
+def run_k768_modes_phase(torch, kernels, ALPINE, AnnData, counts, obs):
+    """slice_k768_modes: K = 768 on the first 20,000 cells, 5 iterations
+    (epochs) each: unguided (K2), weighted_fast (K4), use_als=True (P1 at
+    K = 768, P2 a block) and random minibatch of 8,192 (P1 and P2 at
+    K = 768).  Returns each mode's launches."""
+    n = K768_MODE_CELLS
+    sub = {k: v[:n] for k, v in obs.items()}
+    nb = -(-n // MB_BATCH)
+    modes = (("unguided", dict(n_components=K768, n_covariate_components=[], lam=[]), {},
+              {"fused_h_update": K768_MODE_ITERS, "hxt": 1}),
+             ("weighted_fast", {}, dict(sampling_method="weighted_fast"),
+              {"fused_iteration_counts": K768_MODE_ITERS, "fused_iteration": 0}),
+             ("als", dict(use_als=True), {},
+              {"hxt": K768_MODE_ITERS, "wtx": 3 * K768_MODE_ITERS, "fused_iteration": 0}),
+             ("minibatch", {}, dict(batch_size=MB_BATCH),
+              {"hxt": nb * K768_MODE_ITERS, "wtx": (nb + 1) * K768_MODE_ITERS,
+               "fused_iteration": 0}))
+    out = {}
+    for name, model_kw, fit_kw, expect in modes:
+        ad = AnnData(counts[:n], obs=sub)
+        kw = dict(n_components=K768_BLOCKS[-1], n_covariate_components=list(K768_BLOCKS[:-1]),
+                  lam=[1e3, 1e3], device="cuda")
+        kw.update(model_kw)
+        m = ALPINE(**kw)
+        keys = [] if name == "unguided" else ["batch", "condition"]
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        m.fit(ad, keys, max_iter=K768_MODE_ITERS, **fit_kw)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = dict(kernels.launches)
+        L = m.loss_history_
+        emit({"phase": "slice_k768_modes", "mode": name, "cells": n, "genes": G,
+              "components": K768, "iterations": K768_MODE_ITERS, "fit_seconds": fit_s,
+              "launches": launches, "loss_first": L[0].tolist(), "loss_last": L[-1].tolist()})
+        m.free_device_cache()
+        del m
+        for kname, want in expect.items():
+            check(launches[kname] == want,
+                  f"slice_k768_modes {name}: {launches[kname]} {kname} launches, expected {want}")
+        check(np.isfinite(L).all(), f"slice_k768_modes {name}: loss history must be finite")
+        out[name] = launches
+    torch.cuda.empty_cache()
+    return out
+
+
 def run_bucket_phase(torch, kernels, mu, ALPINE, adata):
     """slice_bucket: component_bucket=8 pads the blocks (5, 5, 30) to (8, 8,
     32), so K1 runs at K = 48 and the transform (K3) at the true K = 40;
@@ -3750,6 +4217,9 @@ def main():
             run_x_pass_case("hxt", X, H, False)
             run_x_pass_case("wtx", X, W, False)
 
+    # -- K > 512: every large-K route against its plain version ---------------
+    results.update(run_kernel_wide_phase(torch, kernels, _build, gen, dev, card))
+
     # -- the streaming probe's entry point (P3) -------------------------------
     kernels.reset_launches()
     rates = probe.streaming_GBps(("int8", "float32"))
@@ -3780,7 +4250,7 @@ def main():
         del X
 
     # -- where the fit's device time goes: the fused fit loop alone ----------
-    def run_fit_loops(loops, xdtype):
+    def run_fit_loops(loops, xdtype, blocks=BLOCKS):
         """Each (phase, weighted, als, iterations[, batch size[, tile]]) fit
         loop on device-resident bench data whose X is stored as xdtype
         (int16: counts above 127); weighted None: the unguided loop (no
@@ -3789,7 +4259,7 @@ def main():
         tile, tiled epochs over X, Ys and H zero-padded to a tile multiple
         (a permutation of the tiles an epoch)."""
         X, W, H, _, Ys, Bs, lam = iteration_problem(
-            torch, gen, dev, G, N, BLOCKS, N_LABELS, xdtype)
+            torch, gen, dev, G, N, blocks, N_LABELS, xdtype)
         if xdtype == torch.int16:
             X *= 3
         hyper = (lam, 0.0, 0.0, 0.0, EPS)
@@ -3806,7 +4276,7 @@ def main():
             batch = mb[0] if mb else None
             tile = mb[1] if len(mb) > 1 else 0
             guided = weighted is not None
-            cfg = mu.MUConfig(blocks=BLOCKS if guided else (sum(BLOCKS),),
+            cfg = mu.MUConfig(blocks=blocks if guided else (sum(blocks),),
                               n_labels=N_LABELS if guided else (), n_cells=N,
                               max_iter=iters, x_dtype=str(xdtype)[6:],
                               weighted_counts=bool(weighted), use_als=als,
@@ -3879,6 +4349,11 @@ def main():
     float32_loops = run_fit_loops(
         (("fit_loop_als_float32", False, True, ALS_LOOP_ITERS),
          ("fit_loop_float32", False, False, LOOP_ITERS)), torch.float32)
+    # K = 768: the full-batch loop on the large-K chain (K1 a step)
+    k768_loop = run_fit_loops((("fit_loop_k768", False, False, LOOP_ITERS),), torch.int8,
+                              K768_BLOCKS)["fit_loop_k768"]
+    check(k768_loop["fused_iteration"] == LOOP_ITERS,
+          f"fit_loop_k768: {k768_loop['fused_iteration']} K1 launches")
     int16_launches = int16_loops["fit_loop_als_int16"]
     float32_launches = float32_loops["fit_loop_als_float32"]
     for tag, counted in (("int16", int16_launches), ("float32", float32_launches)):
@@ -4147,6 +4622,10 @@ def main():
     del k100
     torch.cuda.empty_cache()
 
+    # -- K = 768 (the JAX package's bucket level): the large-K routes --------
+    k768_launches = run_k768_phase(torch, kernels, ALPINE, AnnData, counts, obs)
+    k768_modes = run_k768_modes_phase(torch, kernels, ALPINE, AnnData, counts, obs)
+
     # -- ComponentOptimizer: a search at the bench shape, then its paths ------
     def iteration_row(tag, g, n, blocks, counts=False):
         results[tag[:-len(" fold")]] = run_iteration_case(
@@ -4220,7 +4699,21 @@ def main():
                 # genes; four ranks), P1 one a non-empty share, P2 one a block
                 # of it (ALS: k = 5, 5, 30); and world 2's losses, a P2 at a
                 # rank's 50,000 cells an epoch
-                **share_launches(global_launches, grid_launches)}
+                **share_launches(global_launches, grid_launches),
+                # K = 768: slice_k768 (K1 once an iteration, P1 once, K3
+                # once) and slice_k768_modes (K2, K4; ALS: P1 once an
+                # iteration and P2 a block, the k = 384 block a third of
+                # them; minibatch: P1 and P2 at K = 768 a batch, P2 an epoch)
+                "fused_iteration wide": k768_launches["fused_iteration"],
+                "fused_iteration_counts wide":
+                    k768_modes["weighted_fast"]["fused_iteration_counts"],
+                "fused_h_update wide": k768_modes["unguided"]["fused_h_update"],
+                f"fused_transform wide K={K768} n_iter={TRANSFORM_ITERS}":
+                    k768_launches["fused_transform"],
+                f"hxt wide K={K768}": k768_launches["hxt"] + sum(
+                    m["hxt"] for m in k768_modes.values()),
+                f"wtx wide K={K768}": k768_modes["minibatch"]["wtx"],
+                f"wtx k=384 K={K768 // 2}": k768_modes["als"]["wtx"] // 3}
     for kname in SHARE_ROW_SOURCE:
         results[kname] = share_rows[SHARE_ROW_SOURCE[kname]]
     results["wtx global shard loss"] = twin_rows[("wtx", "world-2 shard")]
@@ -4246,10 +4739,12 @@ def main():
                     if k.startswith("fused_transform optimizer sharded ")),
                   "hxt gene_cell", "wtx gene_cell", "fused_transform gene_cell",
                   "hxt gene_cell minibatch", "wtx gene_cell minibatch",
-                  *SHARE_ROW_SOURCE, "wtx global shard loss"):
+                  *SHARE_ROW_SOURCE, "wtx global shard loss",
+                  *WIDE_ROWS):
         res = results[kname]
         base = kname.split()[0].replace("_fma", "")
-        rows.append({"name": kname, "route": "cuda", "source": SOURCES[base],
+        rows.append({"name": kname, "route": "cuda",
+                     "source": WIDE_ROWS.get(kname, SOURCES[base]),
                      "replaces": REPLACES[base], "launches": launches[kname],
                      "max_abs_err": res.get("max_abs_err_Hn", res.get("max_abs_err")),
                      "ms": res["ms"], "plain_ms": res["plain_ms"],

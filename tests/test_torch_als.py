@@ -38,6 +38,7 @@ from alpine_tpu_torch.ops import mu as tmu
 from .oracle import _cat_h, _cat_w, oracle_als_step, oracle_loss
 from .test_torch_model import (  # noqa: F401  (jax_draws is a fixture)
     KEYS, KW, _adata, _check_fit_and_transform, jax_draws)
+from .torch_k_samples import COVER_KS
 
 torch.set_num_threads(1)
 
@@ -166,13 +167,15 @@ def test_wtx_tile_rule():
     """wtx's fp32 path takes wtx_fma_grid's tile (12 cells a thread, 32 / LK
     threads along the cells), its bf16 path wtx_grid's: all of K in one
     pass (at most 6 fragment rows a warp, 48 accumulators a thread) for
-    every K up to 512, T a multiple of 16."""
-    for K in range(1, 513):
+    every K up to 512, T a multiple of 16; above 512, all of a range of
+    KR <= 512 columns of W in one pass (tests/torch_k_samples.py)."""
+    for K in COVER_KS:
         for xdt in (torch.float32, torch.int16):
             T, LK, _, _, blocks = kernels.wtx_fma_grid(2000, 100_000, K, xdt)
             assert T == 12 * 32 // LK and blocks == -(-100_000 // T)
         T, WR, GC, S, blocks = kernels.wtx_grid(2000, 100_000, K, torch.int8)
-        frags = -(-(kernels._pad16(K) // 16) // WR)  # fragment rows a warp
+        KR = kernels.k_ranges(K)[1]
+        frags = -(-(kernels._pad16(KR) // 16) // WR)  # fragment rows a warp
         cells = T // (8 // WR)  # cells a warp
         assert T % 16 == 0 and cells % 16 == 0 and frags <= 6
         assert frags * cells // 2 <= 48  # 8 accumulators a 16 x 16 fragment

@@ -909,3 +909,117 @@ def test_world_of_one_nccl_fit_is_the_single_device_fit(cuda, guided):
     assert ca == {} and cb["iteration"]["calls"] == 6 and cb["setup"]["calls"] == 1
     for a, b in ((La, Lb), (Wa, Wb), (Fa, Fb), (Ta, Tb)):
         assert np.array_equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# K > 512: the large-K routes (kernels.route), at chip_smoke.py's kernel_wide
+# small shapes: 70 genes x 17, 1,001 and 5,040 cells
+# ---------------------------------------------------------------------------
+
+WIDE_CASES = [(d, K, n) for d in DTYPES for K in (513, 600, 768, 1024, 2048)
+              for n in (17, 1001, 5040)]
+
+
+def _wide_blocks(K):
+    return (K // 4, K // 8, K - K // 4 - K // 8)
+
+
+def _hold_xht_on_own_hs(dtype, X, got, want, scale=None):
+    """int8/bf16 X: XHt against the plain product over the kernel's own Hs
+    (an Hn one ulp off the plain one can round Hs to the next bf16 value,
+    which moves a sum over 17 cells past rtol 1e-4)."""
+    want = list(want)
+    if dtype in ("int8", "bfloat16"):
+        Hs = got[0] if scale is None else got[0] * scale
+        want[1] = kernels.hxt_plain(X, Hs).T
+    return want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,K,n", WIDE_CASES)
+def test_wide_fused_iteration_cuda_matches_plain(cuda, dtype, K, n):
+    """K1, K4 and K2 on the large-K chain against their plain versions
+    (rtol 1e-4 / atol 1e-5), undrawn columns bit for bit, a second launch
+    bit for bit the first."""
+    blocks = _wide_blocks(K)
+    X, W, H, WtW, Ys, Bs, lam = _problem(K + n, 70, n, blocks, (2, 3), dtype, cuda)
+    C = torch.randint(0, 4, (2, n), generator=torch.Generator().manual_seed(n)).float().to(cuda)
+    flat = lambda o: [t for v in o for t in (v if isinstance(v, tuple) else (v,))]
+    for counts in (None, C):
+        before = dict(kernels.launches)
+        got = kernels.fused_iteration(X, W, H, WtW, Ys, Bs, lam, EPS, counts, blocks=blocks,
+                                      loss_kl=dtype != "int16")
+        again = kernels.fused_iteration(X, W, H, WtW, Ys, Bs, lam, EPS, counts, blocks=blocks,
+                                        loss_kl=dtype != "int16")
+        torch.cuda.synchronize()
+        name = "fused_iteration" if counts is None else "fused_iteration_counts"
+        assert kernels.launches[name] == before[name] + 2
+        want = kernels.fused_iteration_plain(X, W, H, WtW, Ys, Bs, lam, EPS, counts,
+                                             blocks=blocks, loss_kl=dtype != "int16")
+        want = _hold_xht_on_own_hs(dtype, X, got, want, None if counts is None else C[1])
+        for a, b, c in zip(flat(got), flat(want), flat(again), strict=True):
+            _close(a, b, 1e-4, 1e-5)
+            assert torch.equal(a, c)
+        if counts is not None:
+            undrawn = C[0] == 0
+            assert torch.equal(got[0][:, undrawn], H[:, undrawn])
+    got = kernels.fused_h_update(X, W, H, WtW, EPS)
+    want = _hold_xht_on_own_hs(dtype, X, got, kernels.fused_h_update_plain(X, W, H, WtW, EPS))
+    for a, b in zip(got, want, strict=True):
+        _close(a, b, 1e-4, 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,K,n", WIDE_CASES)
+def test_wide_x_passes_cuda_match_plain(cuda, dtype, K, n):
+    """P1 and P2 over ranges of at most 512 rows of K against their plain
+    versions; X off 16-byte alignment gives the same bits."""
+    X, W, H = _x_pass_problem(K + n, 70, n, K, dtype, cuda)
+    got_h, got_w = kernels.hxt(X, H), kernels.wtx(X, W)
+    moved_h = kernels.hxt(_unaligned(X), _unaligned(H))
+    moved_w = kernels.wtx(_unaligned(X), _unaligned(W))
+    torch.cuda.synchronize()
+    _close(got_h, kernels.hxt_plain(X, H), 1e-4, 1e-5)
+    _close(got_w, kernels.wtx_plain(X, W), 1e-4, 1e-5)
+    assert torch.equal(got_h, moved_h) and torch.equal(got_w, moved_w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [513, 768, 1024, 1536, 2048, 2056, 2600])
+@pytest.mark.parametrize("n", [17, 1001, 5040])
+def test_wide_fused_transform_cuda_matches_plain(cuda, K, n):
+    """K3's per-step path (every K > 512) against the plain loop (rtol
+    2e-4), a second launch bit for bit."""
+    r = np.random.default_rng(K + n)
+    t = lambda a: torch.from_numpy(a).to(cuda)
+    W = r.random((70, K), dtype=np.float32)
+    X = r.poisson(1.5, (70, n)).astype(np.float32)
+    num2, WtW2 = t(2.0 * (W.T @ X)), t(2.0 * (W.T @ W))
+    H0 = t(r.random((K, n), dtype=np.float32) + 0.05)
+    got = kernels.fused_transform(num2, H0, WtW2, EPS, n_iter=20)
+    again = kernels.fused_transform(num2, H0, WtW2, EPS, n_iter=20)
+    want = kernels.fused_transform_plain(num2, H0, WtW2, EPS, n_iter=20)
+    _close(got, want, 2e-4, 1e-6)
+    assert torch.equal(got, again)
+    assert kernels.transform_path(K) == "steps"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [40, 65, 300, 512])
+def test_per_step_transform_gives_the_other_paths_bits(cuda, K):
+    """K3's per-step path, called through the C entry (T = 0) at a K the
+    register or tiled path takes, gives that path's bits: every path forms
+    each sum over j in order from 0 and the same update."""
+    from alpine_tpu_torch.ops import _build
+
+    n = 1001
+    num2, H0, WtW2 = _transform_problem(17, K, n, cuda)
+    got = kernels.fused_transform(num2, H0, WtW2, EPS, n_iter=20)
+    steps, scratch = torch.empty_like(got), torch.empty_like(got)
+    rc = _build.entry("fused_transform")(
+        num2.data_ptr(), H0.data_ptr(), WtW2.data_ptr(), K, 0, n, 0, 0, 0, 0, 20, EPS,
+        scratch.data_ptr(), steps.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert rc == 0
+    assert kernels.transform_path(K) != "steps"
+    assert torch.equal(steps, got)

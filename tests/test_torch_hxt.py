@@ -3,9 +3,10 @@
 The CUDA kernel (csrc/x_passes.cu: hxt_mma) runs only on the card; these
 tests hold what it is given: every gene and cell covered once, splits that
 are multiples of the ring's chunk, shared memory within a Hopper block's
-limit for every K, and the sum of per-split partials in split order over
-that grid equal to ``hxt_plain`` (rtol 1e-5: fp32 sums of positive terms in
-another order).  The float32/int16 path takes ``hxt_fma_grid``
+limit for every K (1..512 and a sample of the large-K route's ranges up
+to 2048), and the sum of per-split partials in split order over that grid
+equal to ``hxt_plain`` (rtol 1e-5: fp32 sums of positive terms in another
+order).  The float32/int16 path takes ``hxt_fma_grid``
 (tests/test_torch_fp32_passes.py); K1's bf16 path keeps ``_cell_splits``.
 """
 
@@ -16,9 +17,10 @@ import torch
 from alpine_tpu_torch.ops import kernels
 from alpine_tpu_torch.ops.mu import round_partner
 from tests.test_torch_wtx import as_values, device_bytes, keep_bytes, stage_windows, words_at
+from tests.torch_k_samples import COVER_KS
 
 MMA = {"int8": torch.int8, "bfloat16": torch.bfloat16}
-KS = (1, 13, 40, 64, 65, 300, 512)
+KS = (1, 13, 40, 64, 65, 300, 512, 600, 768, 2048)
 
 
 def _grid_ranges(g, n, K, dtype):
@@ -49,25 +51,32 @@ def test_hxt_grid_covers_each_gene_and_cell_once(dtype, g, n, K):
 @pytest.mark.parametrize("dtype", list(MMA))
 def test_hxt_grid_fits_shared_memory_and_fragments(dtype):
     """For every K the kernels take: one pass of at most 4 fragments a warp
-    (X read once), shared memory within a Hopper block's limit, two blocks
-    an SM up to the K where three stages no longer fit half an SM, and the
-    blocks of a wide grid within one wave on 132 SMs."""
+    (X read once a range of K), shared memory within a Hopper block's
+    limit, two blocks an SM up to the K where three stages no longer fit
+    half an SM, and the blocks of a wide grid (gene blocks x splits x
+    ranges of K) within one wave on 132 SMs.  Above K = 512 every launch
+    is a range of KR <= 512 rows, on whole fragment rows."""
     xdt = MMA[dtype]
     two_per_sm = []
-    for K in range(1, 513):
+    for K in COVER_KS:
         GB, n_split, cps, S, chunk = kernels.hxt_grid(2000, 100_000, K, xdt)
-        frags = (kernels._pad16(K) // 16) * (GB // 16)
+        R, KR = kernels.k_ranges(K)
+        assert KR <= 512 and (R - 1) * KR < K <= R * KR and (R == 1 or KR % 16 == 0)
+        frags = (kernels._pad16(KR) // 16) * (GB // 16)
         assert frags <= 32 and 8 % (GB // 16) == 0
-        smem = kernels.hxt_smem_bytes(K, GB, S, xdt, chunk)
+        smem = kernels.hxt_smem_bytes(KR, GB, S, xdt, chunk)
         assert smem <= kernels._MAX_SMEM
         per_sm = 2 if smem <= kernels._SM_SMEM // 2 - 1024 else 1
-        two_per_sm.append(per_sm == 2)
+        if K <= 512:
+            two_per_sm.append(per_sm == 2)
         # the most stages that fit: one more would pass the budget or 8
         budget = min(kernels._MAX_SMEM, kernels._SM_SMEM // per_sm - 1024)
-        assert S == 8 or kernels.hxt_smem_bytes(K, GB, S + 1, xdt, chunk) > budget
+        assert S == 8 or kernels.hxt_smem_bytes(KR, GB, S + 1, xdt, chunk) > budget
         if chunk != 128:  # the wider chunk does not fit the same budget
-            assert kernels.hxt_smem_bytes(K, GB, 2, xdt, 128) > budget
-        assert -(-2000 // GB) * n_split <= max(-(-2000 // GB), 132 * per_sm)
+            assert kernels.hxt_smem_bytes(KR, GB, 2, xdt, 128) > budget
+        # one wave, or (above 512) the splits of at most 16,384 cells
+        assert (-(-2000 // GB) * n_split * R <= max(-(-2000 // GB) * R, 132 * per_sm)
+                or (R > 1 and n_split <= -(-100_000 // kernels._WIDE_SPLIT_CELLS)))
     # two blocks an SM from K = 1 up to some K, one above it
     first_one = two_per_sm.index(False)
     assert first_one > 64 and not any(two_per_sm[first_one:])
@@ -95,12 +104,21 @@ def test_cell_splits_keep_the_fp32_and_k1_grid():
 
 
 def test_hxt_grid_rejects_what_the_kernel_does_not_take():
+    """float32/int16 X and K = 0 raise; K = 513 .. 2048 take the large-K
+    route: ranges of at most 512 rows of H, each the K <= 512 grid rule's
+    at its KR, within a Hopper block."""
     for xdt in (torch.float32, torch.int16):
         with pytest.raises(ValueError, match="int8 and bf16"):
             kernels.hxt_grid(100, 100, 8, xdt)
-    for K in (0, 513):
-        with pytest.raises(ValueError):
-            kernels.hxt_grid(100, 100, K, torch.int8)
+    with pytest.raises(ValueError, match="K=0"):
+        kernels.hxt_grid(100, 100, 0, torch.int8)
+    for K in (513, 600, 768, 1024, 1025, 2048):
+        assert kernels.route(K) == "wide"
+        R, KR = kernels.k_ranges(K)
+        assert R == -(-K // 512) and KR <= 512 and KR % 16 == 0
+        GB, n_split, cps, S, chunk = kernels.hxt_grid(100, 100, K, torch.int8)
+        assert GB == kernels.hxt_grid(100, 100, KR, torch.int8)[0]
+        assert kernels.hxt_smem_bytes(KR, GB, S, torch.int8, chunk) <= kernels._MAX_SMEM
 
 
 def _emulate_hxt(X, H, K, base=None):
@@ -197,8 +215,14 @@ def test_hxt_partials_stay_a_small_share_of_x(dtype):
     sz = 1 if dtype == "int8" else 2
     share = lambda n, K: 4 * kernels.hxt_grid(2000, n, K, xdt)[1] * K * 2000 / (2000 * n * sz)
     for n in (33_334, 66_667, 100_000):
-        for K in range(1, 513):
-            assert share(n, K) <= 1 / 8
+        for K in COVER_KS:
+            # above 512 the ranges of K fill the wave: the splits are the
+            # fewest of at most 16,384 cells (the fp32 sums' length)
+            _, n_split, cps, _, chunk = kernels.hxt_grid(2000, n, K, xdt)
+            assert share(n, K) <= 1 / 8 or (
+                K > 512 and n_split == -(-n // cps)
+                and cps <= kernels._WIDE_SPLIT_CELLS + chunk
+                and (n_split - 1) * kernels._WIDE_SPLIT_CELLS < n)
     assert share(100_000, 40) <= 0.03
     assert kernels.hxt_grid(2000, 8192, 40, torch.int8) == (128, 16, 512, 3, 128)
     assert 0.3 < share(8192, 40) * sz < 0.32

@@ -11,7 +11,8 @@ on the card; these tests hold what they are given:
 - ``kernels.iteration_grid``'s launch parameters for every K in 1..512:
   every cell and gene covered once by each of the four launches, shared
   memory within a Hopper block's limit, the bench shape's grid pinned, and
-  the int8/bf16 path's grid as it was;
+  the int8/bf16 path's grid as it was; and for a sample of K up to 2048
+  the large-K chain's (``wide_iteration_grid``), on every X dtype;
 - a PyTorch emulation of the new summation order (WᵀX in wtx_fma's order,
   tests/test_torch_fp32_passes.py:_emulate_wtx; the plain H update and
   statistics; X Hnᵀ in hxt_fma's order, _emulate_hxt) against
@@ -30,6 +31,7 @@ from alpine_tpu_torch.ops import kernels
 from alpine_tpu_torch.ops.mu import guided_width
 
 from .test_torch_fp32_passes import FP32, SHAPES, _emulate_hxt, _emulate_wtx
+from .torch_k_samples import WIDE_SAMPLE
 
 torch.set_num_threads(1)
 
@@ -74,6 +76,58 @@ def test_iteration_grid_covers_each_cell_and_gene_once(dtype, g, n):
         # the X passes' own grids, as ALS runs them
         assert grid[3:8] == kernels.hxt_fma_grid(g, n, K, xdt)
         assert grid[8:] == kernels.wtx_fma_grid(g, n, K, xdt)[:4]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int16", "int8", "bfloat16"])
+@pytest.mark.parametrize("g,n", SHAPES)
+def test_wide_iteration_grid_covers_each_cell_and_gene_once(dtype, g, n):
+    """The large-K chain (K > 512) on every X dtype: iter_wide's blocks walk
+    runs of 32-cell tiles, P2's tiles and P1's gene blocks and splits cover
+    their axes once, X's passes take P1/P2's own grids at the same K (X's
+    dtype picks the bf16 or fp32 kernels), H Hᵀ takes hxt_fma's over the K
+    rows of Hn, and every launch fits a Hopper block."""
+    xdt = {"float32": torch.float32, "int16": torch.int16, "int8": torch.int8,
+           "bfloat16": torch.bfloat16}[dtype]
+    mma = xdt in kernels._MMA_XTYPES
+    for K in WIDE_SAMPLE:
+        grid = kernels.iteration_grid(g, n, K, xdt)
+        assert isinstance(grid, kernels.WideIterationGrid)
+        assert grid.T == kernels.tile_width(K) == 32 and grid.n_part <= kernels._MAX_PART_BLOCKS
+        run = grid.T * grid.tiles_per_block
+        assert _covered_once(n, range(0, grid.n_part * run, run), run)
+        assert grid.KR == kernels.k_ranges(K)[1]
+        assert _covered_once(n, range(0, n, grid.wtx_T), grid.wtx_T)
+        assert _covered_once(g, range(0, g, grid.GB), grid.GB)
+        cps = grid.cells_per_split
+        assert cps % grid.chunk == 0
+        assert _covered_once(n, range(0, grid.n_split * cps, cps), cps)
+        hh = grid.hh_cells_per_split
+        assert _covered_once(K, range(0, K, grid.hh_GB), grid.hh_GB)
+        assert _covered_once(n, range(0, grid.hh_n_split * hh, hh), hh)
+        if mma:
+            assert grid[4:8] == kernels.wtx_grid(g, n, K, xdt)[:4]
+            assert grid[8:10] == kernels.wtx_gene_split(g, n, K, xdt)
+            assert grid[10:15] == kernels.hxt_grid(g, n, K, xdt)
+        else:
+            assert grid[4:8] == kernels.wtx_fma_grid(g, n, K, xdt)[:4]
+            assert grid[8:10] == (1, g)
+            assert grid[10:15] == kernels.hxt_fma_grid(g, n, K, xdt)
+        assert grid[15:] == kernels.hxt_fma_grid(K, n, K, torch.float32)
+        KR = grid.KR
+        if mma:
+            assert kernels.wtx_smem_bytes(KR, grid.wtx_T, grid.wtx_S, xdt,
+                                          grid.wtx_GC) <= kernels._MAX_SMEM
+            assert kernels.hxt_smem_bytes(KR, grid.GB, grid.S, xdt,
+                                          grid.chunk) <= kernels._MAX_SMEM
+        else:
+            assert kernels.wtx_fma_smem_bytes(KR, grid.wtx_WR, grid.wtx_S,
+                                              xdt) <= kernels._MAX_SMEM
+            assert kernels.hxt_fma_smem_bytes(KR, grid.GB, grid.S, xdt,
+                                              grid.chunk) <= kernels._MAX_SMEM
+        assert kernels.hxt_fma_smem_bytes(KR, grid.hh_GB, grid.hh_S, torch.float32,
+                                          grid.hh_chunk) <= kernels._MAX_SMEM
+    with pytest.raises(ValueError, match="K > 512"):
+        kernels.wide_iteration_grid(g, n, 512, xdt)
 
 
 @pytest.mark.parametrize("dtype", list(FP32))

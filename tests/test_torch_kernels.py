@@ -15,6 +15,7 @@ import torch
 
 from alpine_tpu.ops import pallas_kernels as pk
 from alpine_tpu_torch.ops import kernels
+from tests.torch_k_samples import COVER_KS, WIDE_SAMPLE
 
 torch.set_num_threads(1)
 
@@ -132,23 +133,29 @@ def test_fused_transform_plain_matches_pallas(K):
 
 def test_transform_path_rule():
     """fused_transform's rule by K: the smallest bucket that holds K (the
-    register path), or the tiled path above the largest bucket; every
-    supported K has one."""
+    register path), the tiled path above the largest bucket up to K = 512,
+    the per-step path above; every K >= 1 has one and K = 0 raises."""
     buckets = kernels._TRANSFORM_BUCKETS
     assert list(buckets) == sorted(set(buckets))
     # two lanes split a bucket's rows, each half read in 16-byte loads
     assert all(b % 8 == 0 for b in buckets)
-    for K in range(1, 513):
+    for K in COVER_KS + (2049, 2600, 5000):
         b = kernels.transform_bucket(K)
+        path = kernels.transform_path(K)
         if K <= buckets[-1]:
-            assert b == min(x for x in buckets if x >= K), K
-        else:  # the tiled path: a grid for every K above the largest bucket
-            assert b == 0, K
+            assert b == min(x for x in buckets if x >= K) and path == "registers", K
+        elif K <= 512:  # the tiled path: a grid for every K above the largest bucket
+            assert b == 0 and path == "tiles", K
             grid = kernels.transform_tiles_grid(K)
             assert (grid.T, grid.KP) in kernels._TRANSFORM_TILES, K
+        else:  # one launch a step, for any K
+            assert b == 0 and path == "steps", K
+            with pytest.raises(ValueError, match="per-step"):
+                kernels.transform_tiles_grid(K)
     assert kernels.transform_bucket(40) == 40  # the bench shape needs no padding
-    with pytest.raises(ValueError, match="K=513"):
-        kernels.transform_bucket(513)
+    for rule in (kernels.transform_bucket, kernels.transform_path):
+        with pytest.raises(ValueError, match="K=0"):
+            rule(0)
 
 
 def test_transform_tiles_grid_fits_a_hopper_block():
@@ -158,13 +165,15 @@ def test_transform_tiles_grid_fits_a_hopper_block():
     kernel's 8 unrolled rows) divides KP; the block's shared memory with
     its two ring stages fits a Hopper block (and half an SM where two
     blocks share one); the register estimate stays under the hardware's 255
-    (128 for two blocks an SM).  K = 300 takes 80 accumulators a thread."""
+    (128 for two blocks an SM).  K = 300 takes 80 accumulators a thread.
+    K > 512 takes the per-step path and has no tiled grid."""
     for K in range(1, 513):
         T, KP, J, S, smem = kernels.transform_tiles_grid(K)
         TR = kernels._THREADS // (T // 8)
         assert (T, KP) == next(t for t in kernels._TRANSFORM_TILES if t[1] >= K), K
         assert KP >= K and KP % (2 * TR) == 0 and KP - K < 2 * TR, K
         assert T % 8 == 0 and (T // 8) * TR == kernels._THREADS, K
+        assert KP * T % (8 * kernels._THREADS) == 0, K  # eight loads of H a thread
         assert J == kernels._TRANSFORM_J and J % 8 == 0 and KP % J == 0, K
         assert S == kernels._TRANSFORM_STAGES == 2, K
         assert smem == kernels.transform_tiles_smem_bytes(KP, T, J, S)
@@ -180,8 +189,10 @@ def test_transform_tiles_grid_fits_a_hopper_block():
     # the instantiations: one more pair of rows at T = 64 would not fit
     assert [kp for t, kp in kernels._TRANSFORM_TILES if t == 64] == [64 * g for g in range(1, 7)]
     assert kernels.transform_tiles_registers(64, 448) > 255
-    with pytest.raises(ValueError, match="K=513"):
+    with pytest.raises(ValueError, match="K=513 takes the per-step path"):
         kernels.transform_tiles_grid(513)
+    with pytest.raises(ValueError, match="K=0"):
+        kernels.transform_tiles_grid(0)
 
 
 @pytest.mark.parametrize("K", [65, 100, 300, 512])
@@ -235,13 +246,18 @@ def test_transform_zero_padding_is_exact(K, num_pad):
 
 
 def test_tile_rule():
+    """The tile rule up to K = 512 (at most 4096 values a tile); K = 513 ..
+    2048 get the large-K route's 32-cell tile (one lane a cell, shared
+    memory independent of K); K = 0 raises."""
     assert kernels.tile_width(40) == 64
     assert kernels.tile_width(100) == 32
     assert kernels.tile_width(512) == 8
     for K in (1, 7, 64, 65, 129, 300, 512):
-        assert K * kernels.tile_width(K) <= 4096
-    with pytest.raises(ValueError, match="K=513"):
-        kernels.tile_width(513)
+        assert K * kernels.tile_width(K) <= 4096 and kernels.route(K) == "tile"
+    for K in (513, 600, 768, 1024, 2048):
+        assert kernels.route(K) == "wide" and kernels.tile_width(K) == kernels._WIDE_T == 32
+    with pytest.raises(ValueError, match="K=0"):
+        kernels.tile_width(0)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -255,6 +271,10 @@ def test_iteration_tile_rule_fits_its_path(dtype):
     xdt = _TORCH[dtype]
     mma = dtype in ("int8", "bfloat16")
     assert (xdt in kernels._MMA_XTYPES) == mma
+    for K in WIDE_SAMPLE:  # the large-K chain: 32-cell tiles on every path
+        assert kernels.iteration_tile_width(K, xdt) == 32
+        for L, counts in ((0, False), (8, False), (8, True)):
+            assert kernels.wide_smem_bytes(L, counts) <= kernels._MAX_SMEM
     for K in range(1, 513):
         T = kernels.iteration_tile_width(K, xdt)
         assert T in (8, 16, 32, 64)
@@ -272,8 +292,8 @@ def test_iteration_tile_rule_fits_its_path(dtype):
     # the fp32 layout stages no X or W: its tile of WᵀX comes from wtx_fma
     assert kernels._iter_smem_bytes(40, 64, 5, 10, False) == 4 * (
         3 * 40 * 65 + 3 * 5 * 65 + 5 * 10 + 2 * 10 + 256)
-    with pytest.raises(ValueError, match="K=513"):
-        kernels.iteration_tile_width(513, xdt)
+    with pytest.raises(ValueError, match="K=0"):
+        kernels.iteration_tile_width(0, xdt)
 
 
 def test_wrappers_reject_other_devices_and_bad_input():

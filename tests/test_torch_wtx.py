@@ -17,9 +17,10 @@ import torch
 
 from alpine_tpu_torch.ops import kernels
 from alpine_tpu_torch.ops.mu import round_partner
+from tests.torch_k_samples import COVER_KS
 
 MMA = {"int8": torch.int8, "bfloat16": torch.bfloat16}
-KS = (1, 5, 13, 30, 64, 65, 300, 512)
+KS = (1, 5, 13, 30, 64, 65, 300, 512, 600, 768, 2048)
 SLOTS = 2 * kernels._SMS  # two blocks an SM
 
 
@@ -40,25 +41,27 @@ def test_wtx_grid_covers_each_cell_once(dtype, g, n, K):
 
 @pytest.mark.parametrize("dtype", list(MMA))
 def test_wtx_grid_fits_shared_memory_and_accumulators(dtype):
-    """For every K the kernel takes: one pass over X (every fragment row of
-    Kp held by some warp row, at most 6 a warp), at most 48 accumulators a
-    thread, no idle warp row, and the ring within half an SM's shared
-    memory (two blocks an SM): 64 genes a stage where two such stages fit,
-    else 32, with the most stages that fit (each X row with room for the
-    aligned window of a row off 16-byte alignment)."""
+    """For every K the kernel takes: one pass over X a range of K (every
+    fragment row of Kp held by some warp row, at most 6 a warp), at most 48
+    accumulators a thread, no idle warp row, and the ring within half an
+    SM's shared memory (two blocks an SM): 64 genes a stage where two such
+    stages fit, else 32, with the most stages that fit (each X row with
+    room for the aligned window of a row off 16-byte alignment).  Above
+    K = 512 each launch layer is a range of KR <= 512 columns of W."""
     xdt = MMA[dtype]
     budget = min(kernels._MAX_SMEM, kernels._SM_SMEM // 2 - 1024)
     for n in (100_000, 5040):
-        for K in range(1, 513):
+        for K in COVER_KS:
             T, WR, GC, S, blocks = kernels.wtx_grid(2000, n, K, xdt)
-            rows = kernels._pad16(K) // 16
+            KR = kernels.k_ranges(K)[1]
+            rows = kernels._pad16(KR) // 16
             frags = -(-rows // WR)
             assert frags <= 6 and WR <= rows
             assert frags * (T // (8 // WR) // 16) * 8 <= 48
-            smem = kernels.wtx_smem_bytes(K, T, S, xdt, GC)
+            smem = kernels.wtx_smem_bytes(KR, T, S, xdt, GC)
             assert smem <= budget <= kernels._MAX_SMEM
-            assert S == 8 or kernels.wtx_smem_bytes(K, T, S + 1, xdt, GC) > budget
-            assert GC == 64 or kernels.wtx_smem_bytes(K, T, 2, xdt, 64) > budget
+            assert S == 8 or kernels.wtx_smem_bytes(KR, T, S + 1, xdt, GC) > budget
+            assert GC == 64 or kernels.wtx_smem_bytes(KR, T, 2, xdt, 64) > budget
 
 
 def test_wtx_grid_at_the_bench_shape():
@@ -79,12 +82,21 @@ def test_wtx_grid_at_the_bench_shape():
 
 
 def test_wtx_grid_rejects_what_the_kernel_does_not_take():
+    """float32/int16 X and K = 0 raise; K = 513 .. 2048 take the large-K
+    route: ranges of at most 512 columns of W, each the K <= 512 rule's
+    layout at its KR, with its blocks counted in the gene split's wave."""
     for xdt in (torch.float32, torch.int16):
         with pytest.raises(ValueError, match="int8 and bf16"):
             kernels.wtx_grid(100, 100, 8, xdt)
-    for K in (0, 513):
-        with pytest.raises(ValueError):
-            kernels.wtx_grid(100, 100, K, torch.int8)
+    with pytest.raises(ValueError, match="K=0"):
+        kernels.wtx_grid(100, 100, 0, torch.int8)
+    for K in (513, 600, 768, 1024, 1025, 2048):
+        R, KR = kernels.k_ranges(K)
+        T, WR, GC, S, blocks = kernels.wtx_grid(100, 100, K, torch.int8)
+        assert R >= 2 and blocks == -(-100 // T)
+        assert kernels.wtx_smem_bytes(KR, T, S, torch.int8, GC) <= kernels._MAX_SMEM
+        ranges, genes = kernels.wtx_gene_split(100, 100, K, torch.int8)
+        assert blocks * R * ranges <= max(blocks * R, SLOTS)
 
 
 # ---- X rows at any byte alignment: the aligned-window staging -----------
