@@ -19,6 +19,11 @@ Mechanics, as in the JAX package:
 - only the unguided embeddings return to the host, where each fold is
   clustered and scored.
 
+A process may hold some of the folds only (``prepare_fold_data(owned=)``:
+a search on a grid of processes fits each fold on the card of the process
+that owns it).  The widths stay those of the whole stack, so a fold's
+fit is the single-device batched fit of that fold bit for bit.
+
 The draws come from this module's ``draw_init``, ``draw_transform_h0``,
 ``draw_counts_stream``, ``draw_cells_stream`` and ``draw_tiles_stream``
 (the model layer's torch-generator streams, seeded by ``random_state``);
@@ -66,21 +71,28 @@ class FoldData:
 
     They depend only on (adata, folds, sampling mode, dtype) — not on a
     trial's hyperparameters — so the optimizer builds them once a search
-    and every trial's fold fits read them."""
+    and every trial's fold fits read them.  The stack holds the folds of
+    ``owned`` (indices into ``folds``), in that order; ``n_tr`` and
+    ``n_va`` are the widest of all the folds."""
 
     folds: Sequence[Tuple[np.ndarray, np.ndarray]]
+    owned: Tuple[int, ...]
     g: int
     n_labels: Tuple[int, ...]
     n_tr: int
     n_va: int
-    Xtr: torch.Tensor                 # (n_folds, g, n_tr), storage dtype
-    Xva: torch.Tensor                 # (n_folds, g, n_va), storage dtype
-    Ystr: Tuple[torch.Tensor, ...]    # each (n_folds, labels_i, n_tr)
-    weights: Optional[torch.Tensor]   # (n_folds, n_tr) float32, or None
-    valid_cols: torch.Tensor          # (n_folds, 1, n_tr) bool: real cells
+    Xtr: torch.Tensor                 # (n_owned, g, n_tr), storage dtype
+    Xva: torch.Tensor                 # (n_owned, g, n_va), storage dtype
+    Ystr: Tuple[torch.Tensor, ...]    # each (n_owned, labels_i, n_tr)
+    weights: Optional[torch.Tensor]   # (n_owned, n_tr) float32, or None
+    valid_cols: torch.Tensor          # (n_owned, 1, n_tr) bool: real cells
     device: torch.device
     x_dtype: str = "float32"          # storage dtype name
     tile: int = 0                     # > 0: folds staged for "tiled"
+
+    def slot(self, f: int) -> int:
+        """The stack position of fold ``f``."""
+        return self.owned.index(f)
 
 
 def _storage_rows(X, x_dtype: str) -> torch.Tensor:
@@ -106,6 +118,7 @@ def prepare_fold_data(
     x_dtype: str = "float32",
     tile: int = 0,
     shuffle_seed: int = 0,
+    owned: Optional[Sequence[int]] = None,
 ) -> FoldData:
     """Build the trial-invariant stacked fold tensors on ``device``.
 
@@ -119,11 +132,13 @@ def prepare_fold_data(
     batched form of the estimator's cell pre-shuffle: stratified fold
     indices arrive grouped by class, and a tile of adjacent columns would
     otherwise be a biased sample).  ``weighted`` adds each fold's balanced
-    per-cell probabilities over its training cells."""
+    per-cell probabilities over its training cells.  ``owned`` (default:
+    every fold) names the folds to stack; the widths are all folds'."""
     if tile and weighted:
         raise ValueError("tiled and weighted sampling are exclusive")
     dev = resolve_device(device)
-    n_folds = len(folds)
+    owned = tuple(range(len(folds)) if owned is None else (int(f) for f in owned))
+    n_folds = len(owned)
     g = X_cells_by_genes.shape[1]
     storage = mu.x_storage_dtype(x_dtype)
     Ys_all = [np.asarray(y, np.float32) for y in Ys_cells_by_labels]
@@ -133,29 +148,31 @@ def prepare_fold_data(
     if tile:
         n_tr = -(-n_tr // tile) * tile  # tile-aligned cell axis
 
-    X_dev = _storage_rows(X_cells_by_genes, x_dtype).to(dev)  # the one upload
+    # the one upload (none for a process that holds no fold)
+    X_dev = _storage_rows(X_cells_by_genes, x_dtype).to(dev) if owned else None
     Xtr = torch.zeros((n_folds, g, n_tr), dtype=storage, device=dev)
     Xva = torch.zeros((n_folds, g, n_va), dtype=storage, device=dev)
     Ystr = [np.zeros((n_folds, nl, n_tr), np.float32) for nl in n_labels]
     weights = np.zeros((n_folds, n_tr), np.float32) if weighted else None
-    for f, (tr, va) in enumerate(folds):
+    for i, f in enumerate(owned):
+        tr, va = folds[f]
         tr = np.asarray(tr)
         if tile:
             tr = tr[np.random.default_rng(shuffle_seed + f).permutation(len(tr))]
         for dst, rows in ((Xtr, tr), (Xva, np.asarray(va))):
             idx = torch.from_numpy(rows.astype(np.int64)).to(dev)
-            dst[f, :, :len(rows)] = X_dev.index_select(0, idx).T
-        for i, y in enumerate(Ys_all):
-            Ystr[i][f, :, :len(tr)] = y[tr].T
+            dst[i, :, :len(rows)] = X_dev.index_select(0, idx).T
+        for j, y in enumerate(Ys_all):
+            Ystr[j][i, :, :len(tr)] = y[tr].T
         if weighted:
             ids = sampling.joint_label_ids([y[tr].T for y in Ys_all])
             w = sampling.balanced_sample_probabilities(ids)
-            weights[f, :len(tr)] = w / w.sum()
+            weights[i, :len(tr)] = w / w.sum()
     del X_dev
     col = torch.arange(n_tr, device=dev)[None, None, :]
-    sizes = torch.tensor([len(tr) for tr, _ in folds], device=dev)[:, None, None]
+    sizes = torch.tensor([len(folds[f][0]) for f in owned], device=dev)[:, None, None]
     return FoldData(
-        folds=folds, g=g, n_labels=n_labels, n_tr=n_tr, n_va=n_va,
+        folds=folds, owned=owned, g=g, n_labels=n_labels, n_tr=n_tr, n_va=n_va,
         Xtr=Xtr, Xva=Xva,
         # one-hot Ys are exact in any storage dtype
         Ystr=tuple(torch.from_numpy(y).to(storage).to(dev) for y in Ystr),
@@ -185,20 +202,21 @@ def fold_config(fd: FoldData, blocks: Tuple[int, ...], *, loss_kl: bool,
 
 def fit_fold(fd: FoldData, f: int, cfg: mu.MUConfig, W0, H0, Bs0, hyper,
              seed: int):
-    """Fit fold ``f`` from the shared init: H0 zeroed past the fold's
-    cells (a phantom cell with nonzero H would add to HHᵀ and rowsum(H) on
-    the first iteration), the fold's streams.  Returns mu.fit_scan's
-    (W, H, Bs, losses)."""
-    H0f = torch.where(fd.valid_cols[f], H0, 0.0)
+    """Fit fold ``f`` (an index into ``fd.folds``, held by ``fd``) from
+    the shared init: H0 zeroed past the fold's cells (a phantom cell with
+    nonzero H would add to HHᵀ and rowsum(H) on the first iteration), the
+    fold's streams.  Returns mu.fit_scan's (W, H, Bs, losses)."""
+    i = fd.slot(f)
+    H0f = torch.where(fd.valid_cols[i], H0, 0.0)
     draw_counts = draw_cells = None
     if cfg.weighted_counts:
-        draw_counts = draw_counts_stream(fd.weights[f], fd.n_tr, seed)
+        draw_counts = draw_counts_stream(fd.weights[i], fd.n_tr, seed)
     elif cfg.tiled:
         draw_cells = draw_tiles_stream(fd.n_tr // cfg.tile, seed, fd.device)
     elif cfg.minibatch:
-        probs = None if not cfg.weighted else fd.weights[f].cpu().numpy()
+        probs = None if not cfg.weighted else fd.weights[i].cpu().numpy()
         draw_cells = draw_cells_stream(fd.n_tr, seed, fd.device, probs)
-    return mu.fit_scan(cfg, W0, H0f, Bs0, fd.Xtr[f], [y[f] for y in fd.Ystr],
+    return mu.fit_scan(cfg, W0, H0f, Bs0, fd.Xtr[i], [y[i] for y in fd.Ystr],
                        hyper, draw_counts=draw_counts, draw_cells=draw_cells)
 
 
@@ -220,9 +238,10 @@ def batched_fold_embeddings(
     seed: int,
     true_blocks: Tuple[int, ...] = None,
 ) -> List[np.ndarray]:
-    """Fit one model per fold of ``fd`` (``prepare_fold_data``, built once
-    a search) and return each fold's validation unguided embedding, from
-    the scaled fit, as a (n_val_fold, k_unguided) numpy array.
+    """Fit one model per fold that ``fd`` holds (``prepare_fold_data``,
+    built once a search) and return each one's validation unguided
+    embedding, from the scaled fit, as a (n_val_fold, k_unguided) numpy
+    array, in the order of ``fd.owned``.
 
     With ``true_blocks``, ``blocks`` is a bucket-padded shape
     (``mu.auto_bucket_blocks``): the phantom components start at zero, stay
@@ -253,10 +272,11 @@ def batched_fold_embeddings(
     off_last = sum(blocks[:-1])
     k_unguided = true_blocks[-1]
     out = []
-    for f, (_, va) in enumerate(fd.folds):
+    for i, f in enumerate(fd.owned):
+        va = fd.folds[f][1]
         W, H, Bs, _ = fit_fold(fd, f, cfg, W0, H0, Bs0, hyper, seed)
         W, H, Bs = mu.scale_matrices(blocks, W, H, Bs)
-        Hva = mu.run_transform(W, fd.Xva[f], H0v, f32(eps), n_iter=max_iter,
+        Hva = mu.run_transform(W, fd.Xva[i], H0v, f32(eps), n_iter=max_iter,
                                precision="highest")
         out.append(np.ascontiguousarray(
             Hva[off_last:off_last + k_unguided, :len(va)].T.cpu().numpy()))

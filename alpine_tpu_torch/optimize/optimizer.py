@@ -20,8 +20,7 @@ What differs from the JAX package:
   port's copies of scikit-learn's (``optimize/metrics.py``): the search
   needs neither scikit-learn nor pandas, which only ``get_train_history``
   imports;
-- a ``device`` that ``resolve_device`` rejects raises its error (a
-  ("genes", "cells") mesh its ``NotImplementedError``).
+- a ``device`` that ``resolve_device`` rejects raises its error.
 
 Over processes (``device=distributed.global_cell_mesh()``, one process a
 card) the search runs the JAX package's trial-level parallel rounds
@@ -41,6 +40,23 @@ of a process (``batched._fold_sharding``); a port process drives one
 card, so the largest divisor of ``n_splits`` that fits is always 1 and
 every fold runs on that card, as the JAX package places the folds of a
 one-device process on its device.
+
+On a ("genes", "cells") grid of processes
+(``device=distributed.global_gene_cell_mesh(n_g, n_c)``) the search runs
+the JAX package's single-process 2-D mesh search: every process passes
+the full data and runs the same sequential ``fmin`` over the same losses
+(no trial-parallel rounds).  A batched trial fits fold f whole on the card
+of process f mod P (P the grid's processes) from that process's upload
+of its own folds, padded to the width of the whole stack so that the
+fold's bits are the single-device batched fold's; the owner scores its
+folds and one host exchange of the per-fold scores gives every process
+the same list.  A sequential trial (the first one under ``max_iter=None``,
+every one with ``fold_batching=False``) fits each training fold as a grid
+fit (each process passes its cell column's cells of the fold, with every
+gene), projects the validation fold on the grid and gathers its
+embedding rows for the fold's scorer; ``fit_the_best_param`` is a grid
+fit of the full data.  Only embeddings (validation cells × k floats) and
+scores cross processes, never a cell of X.
 """
 
 from __future__ import annotations
@@ -244,8 +260,9 @@ class ComponentOptimizer:
             choices = ", ".join(f"'{d}'" for d in mu.DATA_DTYPES)
             raise ValueError(f"data_dtype must be one of: {choices}.")
 
-        # where the trial fits run: this process's device, also on a mesh
-        # (trial-level parallel rounds, _run_tpe)
+        # where the trial fits run: this process's device, also on a cell
+        # mesh (trial-level parallel rounds, _run_tpe); the grid, for a
+        # grid's sequential fold fits and refit
         self._setup_execution(device)
 
         self.adata = adata.copy()
@@ -287,11 +304,10 @@ class ComponentOptimizer:
             )
         self.best_param: dict = {}
 
-        if self._mp_workers > 1:
-            # the TPE streams, and so the rounds' collectives, stay in step
-            # only if every process built the optimizer from the same data
-            # and settings: checked here, before any trial fit
-            self._assert_consistent_across_processes()
+        # the TPE streams, and so the collectives, stay in step only if
+        # every process built the optimizer from the same data and
+        # settings: checked here, before any trial fit
+        self._check_processes()
 
         self.max_iter_detect = self.max_iter is None
         if self.max_iter_detect:
@@ -302,22 +318,20 @@ class ComponentOptimizer:
 
     # ---------------------------------------------------- multi-process
     def _setup_execution(self, device) -> None:
-        """Where this process's trial fits run: the resolved device, or on
-        a cell mesh this rank's own device (``Placement.device``), with
-        ``_mp_workers`` the mesh's process count and ``_mp_rank`` this
-        process's index, the row of its loss in the exchange."""
+        """Where this process's trial fits run: ``_local_device`` is the
+        resolved device, or on a mesh this rank's own device
+        (``Placement.device``), where the batched folds and the kNN run;
+        ``_exec_device`` is the device of the sequential fold fits and the
+        refit, the grid itself on a grid (``_grid`` its placement, else
+        None), else ``_local_device``.  ``_mp_workers`` is the mesh's
+        process count and ``_mp_rank`` this process's index, the row of
+        its loss in a cell mesh's exchange."""
         placement = Placement(resolve_device(device))
         self._mp_workers, self._mp_rank = 1, 0
-        self._exec_device = placement.device
+        self._local_device = self._exec_device = placement.device
+        self._grid = None
         if not placement.is_sharded:
             return
-        if placement.is_grid:
-            # every port mesh spans processes: the JAX package's refusal of
-            # a multi-process 2-D mesh
-            raise NotImplementedError(
-                "multi-process searches support 1-D (cell-axis) meshes "
-                "only; use distributed.global_cell_mesh()."
-            )
         if placement.n_processes != dist.process_count():
             raise ValueError(
                 "a multi-process search mesh must span every process "
@@ -327,6 +341,18 @@ class ComponentOptimizer:
             )
         self._mp_workers = placement.n_processes
         self._mp_rank = dist.process_index()
+        if placement.is_grid:
+            self._grid, self._exec_device = placement, placement.mesh
+
+    def _check_processes(self) -> None:
+        """Over processes, the inputs' digest (``_assert_consistent_across_
+        processes``), then on a grid the gene count against its gene axis
+        (the grid fits' equal gene blocks; the digest compared the count,
+        so every process raises together)."""
+        if self._mp_workers > 1:
+            self._assert_consistent_across_processes()
+        if self._grid is not None:
+            self._grid.check_gene_axis(self.adata.shape[1])
 
     def _assert_consistent_across_processes(self) -> None:
         """Raise on every process unless all of them built this optimizer
@@ -447,11 +473,19 @@ class ComponentOptimizer:
         """Drive fmin for `additional_evals` more trials on top of whatever
         the Trials object already holds, then decode + record the best.
 
-        Over processes: ``fmin_parallel``'s rounds of ``_mp_workers``
+        Over a cell mesh: ``fmin_parallel``'s rounds of ``_mp_workers``
         trials, each process evaluating one and the losses exchanged; a
         round of one (every process evaluates it, no loss crosses) while
-        max_iter detection is live, so every process replays the freeze."""
-        if self._mp_workers == 1:
+        max_iter detection is live, so every process replays the freeze.
+        On a grid: the sequential ``fmin`` on every process, whose trials
+        are the grid's fits and exchanged fold scores."""
+        if self._mp_workers > 1:
+            dist.assert_same_across_processes(
+                self._search_state_digest(additional_evals),
+                "search state (completed trials, max_evals, n_splits, "
+                "space bounds, loaded trial contents, floors, max_iter)",
+            )
+        if self._mp_workers == 1 or self._grid is not None:
             best = fmin(
                 self.objective,
                 self.space,
@@ -461,11 +495,6 @@ class ComponentOptimizer:
                 rstate=np.random.default_rng(self.random_state),
             )
         else:
-            dist.assert_same_across_processes(
-                self._search_state_digest(additional_evals),
-                "search state (completed trials, max_evals, n_splits, "
-                "space bounds, loaded trial contents, floors, max_iter)",
-            )
             best = fmin_parallel(
                 self.objective,
                 self.space,
@@ -481,9 +510,11 @@ class ComponentOptimizer:
                 round_size=lambda: (1 if self.max_iter is None
                                     else self._mp_workers),
             )
-            # the replicated rounds exchange no loss: a process whose fits
-            # drifted would fork the TPE stream silently, so every loss and
-            # the frozen max_iter are compared once the rounds are over
+        if self._mp_workers > 1:
+            # the replicated rounds (on a grid, the whole search) exchange
+            # no loss: a process whose fits drifted would fork the TPE
+            # stream silently, so every loss and the frozen max_iter are
+            # compared once the search is over
             dist.assert_same_across_processes(
                 [float(t["result"].get("loss", np.inf))
                  for t in self.trials.trials]
@@ -583,7 +614,7 @@ class ComponentOptimizer:
         """The card for the folds' kNN search (ops/knn.py), or None (the
         float64 host search) when the fits run on the CPU.  On a mesh it is
         this rank's card, where its trials' folds run."""
-        dev = self._exec_device
+        dev = self._local_device
         return dev if dev.type != "cpu" else None
 
     def _leakage_score(self, embedding: np.ndarray, rows: np.ndarray) -> float:
@@ -604,7 +635,10 @@ class ComponentOptimizer:
         setting (reference optimization.py:220-287): fit on train folds,
         transform validation, score the unguided embedding; mean over folds."""
         folds = self._stratified_folds()
-        if self.fold_batching and self.max_iter is not None:
+        batched = self.fold_batching and self.max_iter is not None
+        if self._grid is not None:
+            return float(np.mean(self._grid_fold_scores(args, folds, batched)))
+        if batched:
             embeddings = self._batched_fold_embeddings(args, folds)
         else:
             embeddings = (self._fit_one_fold(args, tr, va) for tr, va in folds)
@@ -613,6 +647,47 @@ class ComponentOptimizer:
             for (_, val_idx), emb in zip(folds, embeddings)
         ]
         return float(np.mean(scores))
+
+    def _owned_folds(self, n_folds: int) -> List[int]:
+        """The folds this process fits (batched) or scores on a grid: fold
+        f belongs to process f mod P."""
+        P = self._mp_workers
+        return [f for f in range(n_folds) if f % P == self._mp_rank]
+
+    def _grid_fold_scores(self, args, folds, batched: bool) -> List[float]:
+        """Every fold's score, in fold order, the same on every process of
+        a grid.  Batched: this process fits its folds whole on its card;
+        sequential: every fold is a grid fit, its validation embedding
+        gathered for its owner.  Each process scores the folds it owns,
+        then one host exchange of a row of scores (NaN at the folds it
+        does not own) and a failure flag gives every process the list.  A
+        failure on one process raises on every one, after the exchange,
+        so that no process waits in a collective its peers left."""
+        n_folds = len(folds)
+        owned = self._owned_folds(n_folds)
+        row = np.full(n_folds + 1, np.nan)
+        error = None
+        try:
+            if batched:
+                embeddings = self._batched_fold_embeddings(args, folds) if owned else []
+            else:
+                embeddings = [self._fit_one_fold(args, tr, va) for tr, va in folds]
+                embeddings = [embeddings[f] for f in owned]
+            for f, emb in zip(owned, embeddings):
+                row[f] = self._leakage_score(emb, folds[f][1])
+            row[-1] = 0.0
+        except Exception as exc:  # raised again below, on every process
+            error = exc
+            row[-1] = 1.0
+        rows = dist.counted_allgather_rows(row, "fold scores")
+        failed = np.flatnonzero(rows[:, -1] != 0).tolist()
+        if error is not None:
+            raise error
+        if failed:
+            raise RuntimeError(
+                f"the fold fits or scores of process(es) {failed} failed; "
+                "see their logs.")
+        return [float(rows[f % self._mp_workers, f]) for f in range(n_folds)]
 
     def _bucketed(self, true_blocks):
         """Padded block shape for one trial's blocks (None = exact)."""
@@ -624,7 +699,13 @@ class ComponentOptimizer:
 
     def _fit_one_fold(self, args, train_idx, val_idx) -> np.ndarray:
         """Fit on one training fold, return the validation fold's unguided
-        embedding (host-side)."""
+        embedding (host-side).  On a grid the fit and the projection are
+        grid fits: each process passes its cell column's cells of each fold
+        (``distributed.mesh_cell_range``) with every gene, and the
+        validation embedding's rows are gathered from every column."""
+        if self._grid is not None:
+            train_idx = self._column_cells(train_idx)
+            val_all, val_idx = val_idx, self._column_cells(val_idx)
         train_adata = self.adata[train_idx].copy()
         val_adata = self.adata[val_idx].copy()
 
@@ -653,7 +734,15 @@ class ComponentOptimizer:
             # only while elbow detection is live: after the freeze the fits
             # run at the frozen value and must not drift the recorded mean
             self.iter_records.append(model.max_iter)
-        return np.asarray(val_adata.obsm["ALPINE_embedding"])
+        embedding = np.asarray(val_adata.obsm["ALPINE_embedding"])
+        if self._grid is not None:
+            embedding = dist.allgather_cell_rows(self._grid, embedding, len(val_all))
+        return embedding
+
+    def _column_cells(self, cells: np.ndarray) -> np.ndarray:
+        """This process's cell column's run of ``cells`` on the grid."""
+        lo, hi = dist.mesh_cell_range(self._exec_device, len(cells))
+        return np.asarray(cells)[lo:hi]
 
     def _fold_data(self, folds):
         """The trial-invariant stacked fold tensors, built and uploaded once
@@ -670,17 +759,20 @@ class ComponentOptimizer:
         fd = prepare_fold_data(
             self.adata.X, Ys, folds,
             weighted=(self.sampling_method in ("weighted", "weighted_fast")),
-            device=self._exec_device,
+            device=self._local_device,
             x_dtype=self.data_dtype_,
             tile=mu.DEFAULT_TILE if self.sampling_method == "tiled" else 0,
             shuffle_seed=self.random_state,
+            # on a grid, the folds this process owns
+            owned=None if self._grid is None else self._owned_folds(len(folds)),
         )
         self._fold_cache = (key, fd)
         return fd
 
     def _batched_fold_embeddings(self, args, folds) -> List[np.ndarray]:
-        """All CV folds of this trial from the uploaded fold tensors
-        (optimize/batched.py); one validation embedding per fold."""
+        """The CV folds of this trial from the uploaded fold tensors
+        (optimize/batched.py): one validation embedding per fold, of every
+        fold (on a grid, of this process's folds)."""
         from alpine_tpu_torch.optimize.batched import batched_fold_embeddings
 
         true_blocks = tuple(args["n_covariate_components"]) + (args["n_components"],)
@@ -709,7 +801,8 @@ class ComponentOptimizer:
         # demand; the execution device and the topology follow from
         # `device` and the live process group on load
         state = dict(self.__dict__)
-        for key in ("_fold_cache", "_exec_device", "_mp_workers", "_mp_rank"):
+        for key in ("_fold_cache", "_exec_device", "_local_device", "_grid",
+                    "_mp_workers", "_mp_rank"):
             state.pop(key, None)
         state["device"] = describe_device(state.get("device"))
         return state
@@ -718,10 +811,9 @@ class ComponentOptimizer:
         state["device"] = restore_device(state.get("device"))
         self.__dict__.update(state)
         self._setup_execution(self.device)
-        if self._mp_workers > 1:
-            # each rank unpickles its own copy (the data travels in the
-            # pickle): a stale one would mix losses of other data
-            self._assert_consistent_across_processes()
+        # each rank unpickles its own copy (the data travels in the
+        # pickle): a stale one would mix losses of other data
+        self._check_processes()
 
     def save_trials(self, filename: str):
         """Pickle the current trials (reference optimization.py:335-345)."""
@@ -789,11 +881,16 @@ class ComponentOptimizer:
         (reference optimization.py:479-510), random_state taken from
         best_param alone.
 
-        After a search over processes every process holds the full data,
+        After a search over a cell mesh every process holds the full data,
         so the refit runs on each rank's own card and is the same
         everywhere.  For a sharded final fit, pass ``best_param`` to
         ``ALPINE(device=distributed.global_cell_mesh(), **best_param)`` and
-        fit each process's cells."""
+        fit each process's cells.  On a grid the refit is a grid fit of the
+        full data: each process fits its cell column's cells
+        (``distributed.mesh_cell_range``) with every gene; the model's W is
+        whole on every process, its H holds the column's cells, and the
+        embeddings go to a copy of those cells (``self.adata`` is left as
+        it is)."""
         if not self.best_param:
             raise RuntimeError(
                 "Please run bayesian_search() to find the best parameters first."
@@ -810,8 +907,11 @@ class ComponentOptimizer:
             device=self._exec_device,
             data_dtype=self.data_dtype_,
         )
+        adata = self.adata
+        if self._grid is not None:
+            adata = adata[self._column_cells(np.arange(adata.shape[0]))].copy()
         model.fit(
-            adata=self.adata,
+            adata=adata,
             covariate_keys=self.covariate_keys,
             max_iter=self.max_iter,
             batch_size=self.batch_size,

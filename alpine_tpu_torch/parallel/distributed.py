@@ -30,10 +30,11 @@ the same program on its own cells:
 - The host-side helpers (``process_allgather_rows``,
   ``chunk_cell_sizes``, ``assert_same_across_processes``,
   ``assert_same_along_genes``, ``allgather_group_layout``,
-  ``allgather_cell_codes``, ``allgather_gene_blocks``) check that the
-  processes' inputs agree before a fit and build the tables a fit shares;
-  they exchange small host rows over a gloo group, since NCCL moves only
-  device tensors.
+  ``allgather_cell_codes``, ``allgather_gene_blocks``,
+  ``allgather_cell_rows``, ``counted_allgather_rows``) check that the
+  processes' inputs agree before a fit, build the tables a fit shares and
+  gather a search's validation embeddings and fold scores; they exchange
+  host rows over a gloo group, since NCCL moves only device tensors.
 - ``all_reduce_sum`` is the sharded fit's one collective on device
   tensors, counted (and, on request, timed) in ``collectives``.
 
@@ -59,7 +60,9 @@ _host_group = None
 # the statistics before the loop, "iteration": one an iteration): calls and
 # bytes; with timing on, the CUDA events around each call.  The host gather
 # of a gathered weighted fit's label codes counts under "labels gather",
-# with its bytes received and its host milliseconds ("host_ms")
+# a search's gathers of validation embeddings under "embedding gather" and
+# its fold-score exchanges under "fold scores", each with its bytes
+# received and its host milliseconds ("host_ms")
 collectives: Dict[str, Dict[str, int]] = {}
 _events: Optional[Dict[str, List]] = None
 
@@ -436,16 +439,49 @@ def allgather_cell_codes(placement, local_codes: np.ndarray,
     row = np.full(2 + widest, -1, np.int64)
     row[0], row[1] = placement.process_chunk_index, placement.gene_index
     row[2:2 + len(local_codes)] = local_codes
-    t0 = time.perf_counter()
-    rows = process_allgather_rows(row)
-    c = collectives.setdefault("labels gather", {"calls": 0, "bytes": 0, "host_ms": 0.0})
-    c["calls"] += 1
-    c["bytes"] += rows.nbytes
-    c["host_ms"] += (time.perf_counter() - t0) * 1e3
+    rows = counted_allgather_rows(row, "labels gather")
     # on a grid a cell column's processes hold the same cells: gene block 0's
     rows = rows[rows[:, 1] == 0]
     rows = rows[np.argsort(rows[:, 0])]
     return np.concatenate([r[2:2 + int(m)] for r, m in zip(rows, chunk_sizes)])
+
+
+def allgather_cell_rows(placement, local_rows: np.ndarray, n_cells: int) -> np.ndarray:
+    """The rows of all ``n_cells`` cells (one row a cell, such as a
+    validation fold's embedding), in the global cell order, on every
+    process of a mesh: each process passes the rows of its run of the
+    cells (``mesh_cell_range``; on a grid, its cell column's, of which
+    every gene block holds an equal copy, so gene block 0's are read).
+    One host allgather of float64 rows padded to the widest run, counted
+    under "embedding gather" (calls, bytes received, ``host_ms``).
+    Collective: every process calls it with its own rows."""
+    local = np.asarray(local_rows)
+    runs = [process_cell_range(n_cells, placement.cell_shards, c)
+            for c in range(placement.cell_shards)]
+    widest = max(hi - lo for lo, hi in runs)
+    width = local.shape[1]
+    row = np.zeros(2 + widest * width, np.float64)
+    row[0], row[1] = placement.process_chunk_index, placement.gene_index
+    row[2:2 + local.size] = local.reshape(-1)
+    rows = counted_allgather_rows(row, "embedding gather")
+    rows = rows[rows[:, 1] == 0]
+    rows = rows[np.argsort(rows[:, 0])]
+    return np.concatenate([
+        r[2:2 + (hi - lo) * width].reshape(hi - lo, width)
+        for r, (lo, hi) in zip(rows, runs)]).astype(local.dtype)
+
+
+def counted_allgather_rows(row, tag: str) -> np.ndarray:
+    """``process_allgather_rows``, counted under ``tag`` in
+    ``collectives``: its calls, the bytes received and its host
+    milliseconds (``host_ms``)."""
+    t0 = time.perf_counter()
+    rows = process_allgather_rows(row)
+    c = collectives.setdefault(tag, {"calls": 0, "bytes": 0, "host_ms": 0.0})
+    c["calls"] += 1
+    c["bytes"] += rows.nbytes
+    c["host_ms"] += (time.perf_counter() - t0) * 1e3
+    return rows
 
 
 def allgather_gene_blocks(placement, block: np.ndarray) -> np.ndarray:

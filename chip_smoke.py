@@ -105,7 +105,9 @@ Phases, each printing one JSON line:
           max_iter=50) and .transform() (through the fit's device X) on
           100k x 2,000 Poisson counts (int8), with the launch counts read
           around it;
-  slice_persist  that fitted model saved (compressed NPZ, the JAX
+  slice_persist  the slice's model fit and transformed on the first
+          20,000 cells (cut: the file holds X as float32, whose compression
+          took 85 s at 100k cells), saved (compressed NPZ, the JAX
           package's format), loaded onto the card, its uncached transform
           (one K3 launch) held against the fitted model's own (the same
           bits, or K3's plain tolerance), the export on the card
@@ -275,7 +277,25 @@ Phases, each printing one JSON line:
           parallel one); a slice_optimize_sharded_rank line for each rank
           (seconds a trial, local evaluations, the exchange's ms a round
           and alone).  Ranks share the card: no time here is a multi-GPU
-          speed.
+          speed;
+  slice_optimize_grid  ComponentOptimizer on a 2 x 2 ("genes", "cells")
+          grid: 4 gloo ranks spawned on the card, each memory-mapping all
+          the cells: (a) slice_optimize's search of 4 trials, each fold fit
+          whole on the card of its owner (fold f on rank f mod 4: K1 and
+          K3 there only), the scores exchanged, the trials slice_optimize's
+          bit for bit; (b) a max_iter=None search of 3 trials on the first
+          20,000 cells, whose first trial's folds are grid fits (P1/P2 on
+          each rank's block of 1,000 genes x its column's share of the
+          fold, the validation embedding gathered for the fold's scorer),
+          its first-trial loss beside slice_optimize_sharded's
+          single-device one; (c) the refit of (a)'s best parameters, a grid
+          fit of all cells (P1/P2, no K1), its loss within rtol 5e-4 of
+          slice_optimize's refit; trials, max_iter and the refit's W and
+          losses bit-equal on every rank, no rank on the CPU; a
+          slice_optimize_grid_rank line for each rank (seconds, fold fits
+          and scoring a trial, the embedding gathers' and score exchange's
+          bytes and ms, the exchange alone, launches of K1, K3, P1, P2).
+          Ranks share the card: no time here is a multi-GPU speed.
 The fit_loop phases include fit_loop_tiled (3 tiled epochs) with the
 device time of the batches' copies beside fit_loop_minibatch's.
 Then one JSON line with every kernel's numbers (fused_transform twice: its
@@ -290,7 +310,9 @@ on their fp32 path, with the launches of the float32/int16 joint,
 weighted_fast and unguided loops; K1, K3 (a row per path), K4, hxt and
 wtx at the optimizer's fold shapes with the launches of slice_optimize and
 slice_optimize_paths; K1 and K3 again with world 2's launches of
-slice_optimize_sharded, at the same folds; hxt, wtx and fused_transform
+slice_optimize_sharded, and with the 2 x 2 grid's of slice_optimize_grid,
+at the same folds; hxt and wtx at a grid rank's block of
+slice_optimize_grid's sequential folds and of its refit; hxt, wtx and fused_transform
 at a 2 x 2 grid's block, 1,000 genes x 50,000 cells, with the four ranks'
 launches of slice_gene_cell; the large-K routes at K = 768 (kernel_wide's
 bench rows) with the launches of slice_k768 and slice_k768_modes; hxt and wtx at a 2 x 2 grid rank's share of
@@ -367,9 +389,17 @@ X_CODES = {"f": "float32", "13__nv_bfloat16": "bfloat16", "a": "int8", "s": "int
 COLUMNS_NAME = re.compile(r"transform_columnsILi(\d+)E")
 TILES_NAME = re.compile(r"transform_tilesILi(\d+)ELi(\d+)E")
 
+# the script's start (set by main; spawned ranks leave it unset)
+_T0 = None
+
+
 def emit(obj):
     """One JSON line, written in one call, so that the lines of ranks
-    printing at once do not run together."""
+    printing at once do not run together.  A phase's line printed by the
+    script's own process carries the seconds since the script started
+    ("script_seconds")."""
+    if _T0 is not None and "phase" in obj:
+        obj = dict(obj, script_seconds=time.perf_counter() - _T0)
     sys.stdout.flush()
     os.write(sys.stdout.fileno(), (json.dumps(obj) + "\n").encode())
 
@@ -2468,11 +2498,16 @@ def run_gene_cell_phase(torch, kernels, mu, ALPINE, AnnData, counts, obs, slice_
     return launches, shares
 
 
-def run_persist_phase(torch, kernels, ALPINE, AnnData, model, adata, counts, obs):
-    """slice_persist: the slice's fitted model saved, loaded onto the card
-    and its uncached transform (K3) held against the fitted model's own; the
-    export on the card against the host's; the AnnData written to .h5ad and
-    read back whole and by a range of cells."""
+PERSIST_CELLS = 20_000
+
+
+def run_persist_phase(torch, kernels, ALPINE, AnnData, counts, obs):
+    """slice_persist: the slice's model fit (FIT_ITERS iterations) and
+    transformed on the first PERSIST_CELLS cells (the saved file holds X as
+    float32: at 100k cells its compression alone took 85 s), saved, loaded
+    onto the card and its uncached transform (K3) held against the fitted
+    model's own; the export on the card against the host's; the AnnData
+    written to .h5ad and read back whole and by a range of cells."""
     import importlib.util
     import tempfile
 
@@ -2486,6 +2521,14 @@ def run_persist_phase(torch, kernels, ALPINE, AnnData, model, adata, counts, obs
         sec[name] = time.perf_counter() - t0
         return out
 
+    n = PERSIST_CELLS
+    cut = lambda: AnnData(counts[:n], obs={k: v[:n] for k, v in obs.items()})  # noqa: E731
+    adata = cut()
+    model = ALPINE(n_components=30, n_covariate_components=[5, 5], lam=[1e3, 1e3],
+                   device="cuda")
+    timed("fit", lambda: model.fit(adata, ["batch", "condition"], max_iter=FIT_ITERS))
+    timed("transform_cached", lambda: model.transform(adata))
+    model.free_device_cache()
     keys = ["ALPINE_embedding", "batch", "condition"]
     with tempfile.TemporaryDirectory() as d:
         path = os.path.join(d, "model")
@@ -2496,7 +2539,7 @@ def run_persist_phase(torch, kernels, ALPINE, AnnData, model, adata, counts, obs
         kernels.reset_launches()
         loaded = timed("load", lambda: ALPINE.load(path, device="cuda"))
         check(getattr(loaded, "_x_cache", None) is None, "a loaded model has no device X")
-        fresh = AnnData(counts, obs=obs)
+        fresh = cut()
         timed("transform_uncached", lambda: loaded.transform(fresh))
         persist_launches = dict(kernels.launches)
         diffs = {k: float(np.max(np.abs(fresh.obsm[k] - adata.obsm[k]))) for k in keys}
@@ -2520,7 +2563,8 @@ def run_persist_phase(torch, kernels, ALPINE, AnnData, model, adata, counts, obs
         missing = [m for m in ("h5py", "pandas") if importlib.util.find_spec(m) is None]
         h5ad = {"not_run": f"{', '.join(missing)} not installed"} if missing else (
             h5ad_round_trip(fresh, os.path.join(d, "slice.h5ad"), timed, sizes))
-    emit({"phase": "slice_persist", "cells": N, "genes": G, "seconds": sec,
+    emit({"phase": "slice_persist", "cells": n, "genes": G,
+          "reduced": {"cells": f"{n} of {N}"}, "seconds": sec,
           "total_seconds": sum(sec.values()), "file_bytes": sizes,
           "layer_bytes": int(host.nbytes), "launches": persist_launches,
           "transform_bits_equal_fitted": same_bits, "transform_max_abs_diff": diffs,
@@ -3556,7 +3600,8 @@ def run_optimize_phase(torch, kernels, adata, cases):
     model.free_device_cache()
     del co, model, fd
     torch.cuda.empty_cache()
-    return search_launches, {p: n for p, (n, _) in k3_paths.items() if n}, search_trials
+    return (search_launches, {p: n for p, (n, _) in k3_paths.items() if n},
+            {"trials": search_trials, "best": best, "refit_loss": Lb.tolist()})
 
 
 def run_optimize_paths_phase(torch, kernels, adata, cases):
@@ -3912,10 +3957,326 @@ def run_optimize_sharded_phase(torch, kernels, adata, counts, obs, ref_trials):
         for p, v in row["k3_launches_by_path"].items():
             k3[p] = k3.get(p, 0) + v["launches"]
     return ({"fused_iteration": sum(r["launches_search"]["fused_iteration"] for r in rows)},
-            {p: n for p, n in k3.items() if n})
+            {p: n for p, n in k3.items() if n}, detect)
+
+
+# slice_optimize_grid: a 2 x 2 ("genes", "cells") grid of gloo ranks on the
+# one card, each holding all cells; its max_iter=None search is cut to the
+# first OPT_DETECT_CELLS cells, as slice_optimize_sharded's
+OPT_GRID = (2, 2)
+OPT_GRID_RANK_TIMEOUT = 420.0
+GRID_LAUNCH_KEYS = ("fused_iteration", "fused_transform", "hxt", "wtx")
+
+
+def instrument_search(torch, kernels, dist, co):
+    """Per trial of ``co`` on this rank: the seconds of calc_score, of its
+    fold fits (the batched route's, with their projections; on a grid the
+    sequential grid fits with their projections and embedding gathers) and
+    of its scoring (kNN, graph, Leiden), the host collectives (embedding
+    gathers, score exchange; their bytes and ms) and the all-reduces of
+    its grid fits, and its launches of K1, K3, P1 and P2."""
+    rows, stage = [], {}
+
+    def wrap(name, key):
+        orig = getattr(co, name)
+
+        def timed(*args, **kw):
+            t = time.perf_counter()
+            out = orig(*args, **kw)
+            torch.cuda.synchronize()
+            stage[key] = stage.get(key, 0.0) + time.perf_counter() - t
+            return out
+
+        setattr(co, name, timed)
+
+    wrap("_batched_fold_embeddings", "fits")
+    wrap("_fit_one_fold", "fits")
+    wrap("_leakage_score", "scoring")
+    calc = co.calc_score
+
+    def timed_calc(args):
+        stage.clear()
+        dist.reset_collectives()
+        before = {k: kernels.launches[k] for k in GRID_LAUNCH_KEYS}
+        t = time.perf_counter()
+        score = calc(args)
+        torch.cuda.synchronize()
+        rows.append({"seconds": time.perf_counter() - t,
+                     "fits_seconds": stage.get("fits", 0.0),
+                     "scoring_seconds": stage.get("scoring", 0.0),
+                     "collectives": dist.collective_summary(),
+                     "launches": {k: kernels.launches[k] - before[k]
+                                  for k in GRID_LAUNCH_KEYS}})
+        return score
+
+    co.calc_score = timed_calc
+    return rows
+
+
+def optimize_grid_rank(here, workdir, rank, port, n_detect):
+    """One gloo rank of slice_optimize_grid (a spawned process) at its
+    place on the 2 x 2 grid: the full bench data memory-mapped from the
+    parent's file; (a) the batched search (its folds fit on the card of
+    their owners), (b) a max_iter=None search on the first ``n_detect``
+    cells (the first trial's folds are grid fits), (c) the refit of (a)'s
+    best parameters, a grid fit of all cells; its numbers and results
+    saved for the parent."""
+    sys.path.insert(0, here)
+    import torch
+
+    from alpine_tpu_torch import AnnData, ComponentOptimizer
+    from alpine_tpu_torch.ops import kernels
+    from alpine_tpu_torch.parallel import distributed as dist
+
+    world = OPT_GRID[0] * OPT_GRID[1]
+    dist.initialize(f"localhost:{port}", num_processes=world, process_id=rank,
+                    local_device_ids=0, backend="gloo", timeout=RANK_PG_TIMEOUT)
+    try:
+        rank_t0 = time.perf_counter()
+        counts = np.load(os.path.join(workdir, "counts.npy"), mmap_mode="r")
+        labels = np.load(os.path.join(workdir, "obs.npz"), allow_pickle=True)
+        adata = AnnData(np.asarray(counts, dtype=np.float32),
+                        obs={k: labels[k] for k in OPT_KEYS})
+        load_s = time.perf_counter() - rank_t0
+        mesh = dist.global_gene_cell_mesh(*OPT_GRID)
+
+        # (a) the batched search: slice_optimize's settings
+        t0 = time.perf_counter()
+        co = ComponentOptimizer(adata, OPT_KEYS, max_iter=OPT_MAX_ITER, random_state=0,
+                                device=mesh)
+        init_s = time.perf_counter() - t0
+        topology = [co._mp_workers, co._mp_rank, str(co._local_device),
+                    type(co._exec_device).__name__, co._exec_device.device_type]
+        trial_rows = instrument_search(torch, kernels, dist, co)
+        kernels.reset_launches()
+        fused_transform = kernels.fused_transform
+        k3_paths = count_k3_paths(kernels)
+        try:
+            t0 = time.perf_counter()
+            best = co.search_hyperparams(n_total_components_range=(10, 100),
+                                         n_splits=OPT_SPLITS, max_evals=OPT_EVALS)
+            torch.cuda.synchronize()
+            search_s = time.perf_counter() - t0
+        finally:
+            kernels.fused_transform = fused_transform
+        launches = {k: kernels.launches[k] for k in GRID_LAUNCH_KEYS}
+
+        # (b) max_iter=None: the first trial's folds are grid fits
+        cut = AnnData(np.asarray(counts[:n_detect], dtype=np.float32),
+                      obs={k: labels[k][:n_detect] for k in OPT_KEYS})
+        det = ComponentOptimizer(cut, OPT_KEYS, max_iter=None, random_state=0, device=mesh)
+        det_rows = instrument_search(torch, kernels, dist, det)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        det.search_hyperparams(n_total_components_range=(10, 100), n_splits=OPT_SPLITS,
+                               max_evals=OPT_DETECT_EVALS)
+        torch.cuda.synchronize()
+        det_s = time.perf_counter() - t0
+        det_launches = {k: kernels.launches[k] for k in GRID_LAUNCH_KEYS}
+        # this rank's cells of each training fold of (b)'s grid fits
+        det_shares = [hi - lo for lo, hi in (dist.mesh_cell_range(mesh, len(tr))
+                                             for tr, _ in det._stratified_folds())]
+        det_out = {"trials": trial_summary(det.trials), "max_iter": det.max_iter}
+        del det, cut
+
+        # the score exchange alone, every rank in step: 20 exchanges of a
+        # trial's row (a float a fold and the failure flag)
+        dist.process_allgather_rows(np.zeros(OPT_SPLITS + 1))
+        t0 = time.perf_counter()
+        for _ in range(20):
+            dist.process_allgather_rows(np.zeros(OPT_SPLITS + 1))
+        exchange_alone_ms = (time.perf_counter() - t0) * 1e3 / 20
+
+        # (c) the refit: a grid fit of all cells
+        co.free_device_cache()
+        kernels.reset_launches()
+        dist.reset_collectives()
+        t0 = time.perf_counter()
+        model = co.fit_the_best_param()
+        torch.cuda.synchronize()
+        refit_s = time.perf_counter() - t0
+        W = np.concatenate(model.matrices["Ws"], axis=1)
+        refit = {"seconds": refit_s,
+                 "launches": {k: kernels.launches[k] for k in GRID_LAUNCH_KEYS},
+                 "collectives": dist.collective_summary(),
+                 "cells": int(model.matrices["Hs"][-1].shape[1]),
+                 "K": int(W.shape[1]), "W_digest": _digest(W),
+                 "loss": model.loss_history_.tolist()}
+        del model
+        row = {"phase": "slice_optimize_grid_rank", "grid": list(OPT_GRID), "rank": rank,
+               "backend": torch.distributed.get_backend(), "topology": topology,
+               "owned_folds": co._owned_folds(OPT_SPLITS),
+               "load_seconds": load_s, "constructor_seconds": init_s,
+               "search_seconds": search_s, "trials": trial_rows,
+               "score_exchange_ms_alone": exchange_alone_ms,
+               "launches_search": launches,
+               "k3_launches_by_path": {p: {"launches": n, "largest_K": K}
+                                       for p, (n, K) in k3_paths.items()},
+               "detect": {"cells": n_detect, "search_seconds": det_s, "trials": det_rows,
+                          "launches": det_launches, "train_fold_shares": det_shares},
+               "refit": {k: v for k, v in refit.items() if k not in ("W_digest", "loss")},
+               "rank_seconds": time.perf_counter() - rank_t0}
+        with open(os.path.join(workdir, f"grid_opt_rank{rank}.json"), "w") as f:
+            json.dump({"row": row, "trials": trial_summary(co.trials), "best": best,
+                       "detect": det_out, "refit_W_digest": refit["W_digest"],
+                       "refit_loss": refit["loss"]}, f, default=float)
+    finally:
+        dist.shutdown()
+
+
+def run_optimize_grid_phase(torch, kernels, counts, obs, ref, detect_ref, cases):
+    """slice_optimize_grid: ComponentOptimizer on a 2 x 2 ("genes", "cells")
+    grid, four gloo ranks spawned on the one card, each holding all cells.
+    (a) slice_optimize's search (OPT_EVALS trials of OPT_SPLITS folds at
+    OPT_MAX_ITER): each fold fit whole on the card of its owner (fold f on
+    rank f mod 4), the scores exchanged; its trials must be
+    slice_optimize's bit for bit (``ref``).  (b) A max_iter=None search of
+    OPT_DETECT_EVALS trials on the first OPT_DETECT_CELLS cells: the first
+    trial's folds are grid fits (P1/P2 on each rank's block), printed
+    beside the single-device first trial on those cells (``detect_ref``,
+    slice_optimize_sharded's replicated round; a difference, not a
+    check).  (c) The refit of (a)'s best parameters, a grid fit of all
+    cells, against slice_optimize's single-device refit (loss rtol 5e-4).
+    Checks: the same trials, best parameters, max_iter and refit W and
+    losses on every rank, K1/K3 (and P1 once a fold fit, for its first
+    X Hᵀ) on the folds' owners only, P1/P2 on every rank in (b)'s grid
+    folds and in (c), no rank on the CPU.  Returns the
+    launches of its kernel rows.  Ranks share the card: no time here is a
+    multi-GPU speed."""
+    import multiprocessing
+    import tempfile
+
+    from alpine_tpu_torch.ops import mu
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    phase_t0 = time.perf_counter()
+    world = OPT_GRID[0] * OPT_GRID[1]
+    ctx = multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory() as workdir:
+        np.save(os.path.join(workdir, "counts.npy"), counts.astype(np.int8))
+        np.savez(os.path.join(workdir, "obs.npz"), **obs)
+        port = _free_port()
+        procs = [ctx.Process(target=optimize_grid_rank,
+                             args=(here, workdir, r, port, OPT_DETECT_CELLS))
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + OPT_GRID_RANK_TIMEOUT
+        for p in procs:
+            p.join(max(1.0, deadline - time.monotonic()))
+        alive = [p for p in procs if p.is_alive()]
+        for p in alive:
+            p.terminate()
+            p.join(10)
+        codes = [p.exitcode for p in procs]
+        check(not alive and codes == [0] * world,
+              f"slice_optimize_grid: ranks ended with {codes}"
+              + (" (stopped at the time limit)" if alive else ""))
+        outs = []
+        for r in range(world):
+            with open(os.path.join(workdir, f"grid_opt_rank{r}.json")) as f:
+                outs.append(json.load(f))
+    rows = [o["row"] for o in outs]
+    for row in rows:  # printed here: ranks printing at once mix their lines
+        emit(row)
+    trials = outs[0]["trials"]
+    valid = [t for t in trials if t["status"] == "ok"]
+    detect = outs[0]["detect"]
+    det_valid = [t for t in detect["trials"] if t["status"] == "ok"]
+    same = {"trials": all(o["trials"] == trials for o in outs),
+            "best_param": all(o["best"] == outs[0]["best"] for o in outs),
+            "detect_trials": all(o["detect"] == detect for o in outs),
+            "refit_W": all(o["refit_W_digest"] == outs[0]["refit_W_digest"] for o in outs),
+            "refit_loss": all(o["refit_loss"] == outs[0]["refit_loss"] for o in outs)}
+    bits = [t["vals"] == r["vals"] and t["loss"] == r["loss"] and t["status"] == r["status"]
+            for t, r in zip(trials, ref["trials"])]
+    refit_loss = np.asarray(outs[0]["refit_loss"])
+    # the total loss's gap (the other columns printed)
+    refit_gaps = np.abs(refit_loss[-1] / np.asarray(ref["refit_loss"][-1]) - 1)
+    refit_gap = float(refit_gaps[0])
+    first_single = next(t for t in detect_ref if t["status"] == "ok")
+    first_grid = det_valid[0] if det_valid else None
+    emit({"phase": "slice_optimize_grid", "grid": list(OPT_GRID), "cells": N, "genes": G,
+          "covariates": OPT_KEYS, "max_iter": OPT_MAX_ITER, "n_splits": OPT_SPLITS,
+          "max_evals": OPT_EVALS, "backend": rows[0]["backend"],
+          "trials": [[t["tid"], t["loss"], t["status"]] for t in trials],
+          "bits_equal_slice_optimize": bits, "same_on_every_rank": same,
+          "best_param": outs[0]["best"],
+          "owned_folds": [r["owned_folds"] for r in rows],
+          "seconds_per_trial": [[t["seconds"] for t in r["trials"]] for r in rows],
+          "launches_search": [r["launches_search"] for r in rows],
+          "detect": {"cells": OPT_DETECT_CELLS, "max_evals": OPT_DETECT_EVALS,
+                     "trials": [[t["tid"], t["loss"], t["status"]] for t in detect["trials"]],
+                     "max_iter": detect["max_iter"],
+                     "first_trial_loss_grid": first_grid and first_grid["loss"],
+                     "first_trial_loss_single_device": first_single["loss"],
+                     "first_trial_points_equal": bool(first_grid and
+                                                      first_grid["vals"] == first_single["vals"]),
+                     "first_trial_loss_difference": first_grid and
+                     first_grid["loss"] - first_single["loss"],
+                     "launches": [r["detect"]["launches"] for r in rows]},
+          "refit": {"loss_last": refit_loss[-1].tolist(),
+                    "slice_optimize_loss_last": ref["refit_loss"][-1],
+                    "rel_gap_last": refit_gaps.tolist(),
+                    "tolerance": "total loss rtol 5e-4",
+                    "launches": [r["refit"]["launches"] for r in rows],
+                    "seconds": [r["refit"]["seconds"] for r in rows]},
+          "reduced": {"detect_cells": f"{OPT_DETECT_CELLS} of {N}"},
+          "seconds": time.perf_counter() - phase_t0})
+    check(all(same.values()), f"slice_optimize_grid: ranks differ: {same}")
+    check(len(bits) == OPT_EVALS and all(bits),
+          f"slice_optimize_grid: the trials must be slice_optimize's bit for bit: {bits}")
+    check(det_valid and all(np.isfinite(t["loss"]) for t in det_valid)
+          and detect["max_iter"] is not None,
+          f"slice_optimize_grid detect: trials {detect}")
+    check(refit_gap <= 5e-4, f"slice_optimize_grid: refit loss gap {refit_gap}")
+    n_valid = len(valid)
+    for r, row in enumerate(rows):
+        mine = len(row["owned_folds"])
+        L, D, R = row["launches_search"], row["detect"]["launches"], row["refit"]["launches"]
+        check(row["topology"] == [world, r, "cuda:0", "DeviceMesh", "cuda"],
+              f"slice_optimize_grid rank {r}: topology {row['topology']}")
+        check(row["owned_folds"] == [f for f in range(OPT_SPLITS) if f % world == r],
+              f"slice_optimize_grid rank {r}: folds {row['owned_folds']}")
+        check(L["fused_iteration"] == n_valid * mine * OPT_MAX_ITER
+              and L["fused_transform"] == n_valid * mine
+              == sum(v["launches"] for v in row["k3_launches_by_path"].values())
+              and L["hxt"] == n_valid * mine and L["wtx"] == 0,
+              f"slice_optimize_grid rank {r}: search launches {L} for {mine} folds a trial")
+        first = row["detect"]["trials"][0]["launches"]
+        check(first["fused_iteration"] == 0 and first["hxt"] > 0 and first["wtx"] > 0
+              and first["fused_transform"] == OPT_SPLITS,
+              f"slice_optimize_grid rank {r}: the grid folds' launches {first}")
+        check(R["fused_iteration"] == 0 and R["hxt"] == R["wtx"] == OPT_MAX_ITER,
+              f"slice_optimize_grid rank {r}: refit launches {R}")
+    # the kernel rows: P1/P2 at a rank's block of (b)'s first training fold
+    # (its column's share, the trial's bucketed K) and of the refit (its
+    # column's 50,000 cells, the best parameters' K)
+    p_first = first_grid["params"]
+    K_first = sum(mu.auto_bucket_blocks(tuple(p_first["n_covariate_components"])
+                                        + (p_first["n_components"],)))
+    share = rows[0]["detect"]["train_fold_shares"][0]
+    cases["grid_x_pass"]("optimizer grid fold", G // OPT_GRID[0], share, K_first)
+    cases["grid_x_pass"]("optimizer grid refit", G // OPT_GRID[0], rows[0]["refit"]["cells"],
+                         rows[0]["refit"]["K"])
+    k3 = {}
+    for row in rows:
+        for p, v in row["k3_launches_by_path"].items():
+            k3[p] = k3.get(p, 0) + v["launches"]
+    return {"fused_iteration optimizer grid":
+            sum(r["launches_search"]["fused_iteration"] for r in rows),
+            **{f"fused_transform optimizer grid {p}": n for p, n in k3.items() if n},
+            "hxt optimizer grid fold": sum(r["detect"]["trials"][0]["launches"]["hxt"]
+                                           for r in rows),
+            "wtx optimizer grid fold": sum(r["detect"]["trials"][0]["launches"]["wtx"]
+                                           for r in rows),
+            "hxt optimizer grid refit": sum(r["refit"]["launches"]["hxt"] for r in rows),
+            "wtx optimizer grid refit": sum(r["refit"]["launches"]["wtx"] for r in rows)}
 
 
 def main():
+    global _T0
+    _T0 = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -4477,7 +4838,7 @@ def main():
     check(global_shares["weighted"] == global_shares["weighted_als"],
           "the weighted fits' shares come from one draw stream")
 
-    run_persist_phase(torch, kernels, ALPINE, AnnData, model, adata, counts, obs)
+    run_persist_phase(torch, kernels, ALPINE, AnnData, counts, obs)
 
     # -- the unguided path (no covariates): fused_h_update -------------------
     unguided = ALPINE(n_components=40, n_covariate_components=[], lam=[],
@@ -4635,6 +4996,14 @@ def main():
     def transform_row(tag, K, n):
         results[tag[:-len(" fold")]] = run_transform_case(K, n)
 
+    def grid_x_pass_rows(name, g, n, K):
+        """P1 and P2 (all of W) at a grid rank's block of g genes x n cells."""
+        X, W, H = x_pass_problem(g, n, K, torch.int8)
+        results[f"hxt {name}"] = run_x_pass_case("hxt", X, H, True, " grid optimizer")
+        results[f"wtx {name}"] = run_x_pass_case("wtx", X, W, True, " grid optimizer")
+        del X, W, H
+        torch.cuda.empty_cache()
+
     def x_pass_rows(g, n, K):
         X, W, H = x_pass_problem(g, n, K, torch.int8)
         results["hxt optimizer"] = run_x_pass_case("hxt", X, H, True, " optimizer fold")
@@ -4644,11 +5013,14 @@ def main():
         del X, W, H
         torch.cuda.empty_cache()
 
-    cases = {"iteration": iteration_row, "transform": transform_row, "x_pass": x_pass_rows}
-    opt_launches, opt_k3_paths, opt_trials = run_optimize_phase(torch, kernels, adata, cases)
+    cases = {"iteration": iteration_row, "transform": transform_row, "x_pass": x_pass_rows,
+             "grid_x_pass": grid_x_pass_rows}
+    opt_launches, opt_k3_paths, opt_ref = run_optimize_phase(torch, kernels, adata, cases)
     paths_launches = run_optimize_paths_phase(torch, kernels, adata, cases)
-    sharded_opt_launches, sharded_opt_k3 = run_optimize_sharded_phase(
-        torch, kernels, adata, counts, obs, opt_trials)
+    sharded_opt_launches, sharded_opt_k3, sharded_detect = run_optimize_sharded_phase(
+        torch, kernels, adata, counts, obs, opt_ref["trials"])
+    grid_opt_launches = run_optimize_grid_phase(torch, kernels, counts, obs, opt_ref,
+                                                sharded_detect, cases)
 
     launches = {"fused_iteration": main_launches["fused_iteration"],
                 "fused_iteration_counts": wf_launches["fused_iteration_counts"],
@@ -4683,6 +5055,11 @@ def main():
                 "fused_iteration optimizer sharded": sharded_opt_launches["fused_iteration"],
                 **{f"fused_transform optimizer sharded {p}": n
                    for p, n in sharded_opt_k3.items()},
+                # the search on a 2 x 2 grid: K1 and K3 on the folds' owners
+                # (four ranks together, at slice_optimize's folds), P1/P2 in
+                # the max_iter=None search's grid folds (at a rank's share of
+                # a training fold) and in the grid refit (a rank's block)
+                **grid_opt_launches,
                 # the 2 x 2 grid's four ranks together, at a rank's block:
                 # P1 in every full-batch fit and the checkpointed one, P2 at
                 # K = 40 (joint, weighted_fast, checkpointed, each minibatch
@@ -4721,6 +5098,9 @@ def main():
         results[f"fused_transform optimizer sharded {p}"] = \
             results[f"fused_transform optimizer {p}"]
     results["fused_iteration optimizer sharded"] = results["fused_iteration optimizer"]
+    for kname in grid_opt_launches:
+        if kname.startswith(("fused_iteration", "fused_transform")):
+            results[kname] = results[kname.replace(" grid", "")]
     rows = []
     for kname in ("fused_iteration", "fused_iteration_counts", "fused_h_update",
                   "fused_iteration float32", "fused_iteration int16",
@@ -4732,11 +5112,12 @@ def main():
                   "wtx_fma float32", "wtx_fma int16", "stream_probe",
                   "fused_iteration optimizer",
                   *(k for k in launches if k.startswith("fused_transform optimizer ")
-                    and "sharded" not in k),
+                    and "sharded" not in k and "grid" not in k),
                   "fused_iteration_counts optimizer", "hxt optimizer", "wtx optimizer",
                   "fused_iteration optimizer sharded",
                   *(k for k in launches
                     if k.startswith("fused_transform optimizer sharded ")),
+                  *grid_opt_launches,
                   "hxt gene_cell", "wtx gene_cell", "fused_transform gene_cell",
                   "hxt gene_cell minibatch", "wtx gene_cell minibatch",
                   *SHARE_ROW_SOURCE, "wtx global shard loss",

@@ -38,11 +38,10 @@ and the single-process port.
   model) against the single-process transform with the same W, rtol
   1e-5.
 - Refusals raise on every rank: an indivisible gene count (the JAX
-  package's message), columns holding different cells, the optimizer
-  (the JAX package's message), and the JAX package's other refusals; the
-  groups still work after.  Gathered weighted and ALS minibatch fits,
-  which the JAX package refuses on a multi-process mesh, run on every
-  rank.
+  package's message), columns holding different cells, and the JAX
+  package's other refusals; the groups still work after.  Gathered
+  weighted and ALS minibatch fits and the optimizer, which the JAX
+  package refuses on a multi-process mesh, run on every rank.
 - The global-draw fits beyond random minibatches: ALS minibatch (the
   float64 step loop with column 1's first share empty; fit_scan from the
   JAX package's permutations against its 2-D mesh; the estimator) and
@@ -816,16 +815,14 @@ _REFUSALS = {
               "(or one device); use sampling_method='random'.", ("models", "alpine.py")),
     "n_restarts": ("ValueError", "n_restarts > 1 is not supported with a sharded "
                    "(Mesh) device.", ("models", "alpine.py")),
-    "optimizer": ("NotImplementedError", "multi-process searches support 1-D (cell-axis) "
-                  "meshes only; use distributed.global_cell_mesh().",
-                  ("optimize", "optimizer.py")),
     "transform_column_differs": ("ValueError", "differs within cell column(s) [0, 1]", None),
 }
 
 
 # the JAX package's refusals on a multi-process mesh that the grid now
-# runs (the global draw): each fits on every rank
-_NOW_RUN = ("weighted", "als_minibatch")
+# runs: the global-draw fits (each fits on every rank) and the optimizer
+# (built on every rank; tests/test_torch_optimizer_grid.py searches)
+_NOW_RUN = ("weighted", "als_minibatch", "optimizer")
 
 
 @pytest.mark.parametrize("name", list(_REFUSALS) + list(_NOW_RUN))

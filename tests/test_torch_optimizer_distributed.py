@@ -24,8 +24,8 @@ The scenario is tests/test_multiprocess.py's: 96 cells × 32 genes
   trial fit where the JAX package checks first, and the group still
   works after each.
 - In this process, a world of one: the mesh search is the ``device="cpu"``
-  search bit for bit; a mesh that does not span every process and the
-  ("genes", "cells") mesh raise.
+  search bit for bit; a mesh that does not span every process raises,
+  and a 1 × 1 ("genes", "cells") grid builds and searches.
 """
 
 import os
@@ -345,15 +345,15 @@ def test_world_of_one_is_the_cpu_search(world_of_one, full):
 def test_mesh_refusals(world_of_one, full, monkeypatch):
     from torch.distributed.device_mesh import init_device_mesh
 
-    # a ("genes", "cells") grid: the JAX package's refusal of a
-    # multi-process 2-D mesh (every port mesh spans processes)
-    with pytest.raises(NotImplementedError) as e:
-        ComponentOptimizer(_port(full), ["batch"], **CTOR,
-                           device=init_device_mesh("cpu", (1, 1),
-                                                   mesh_dim_names=("genes", "cells")))
-    assert str(e.value) == ("multi-process searches support 1-D (cell-axis) meshes "
-                            "only; use distributed.global_cell_mesh().")
-    assert str(e.value) in _source(*OPTIMIZER_SRC)
+    # a ("genes", "cells") grid, which the JAX package refuses over
+    # processes, builds and searches (tests/test_torch_optimizer_grid.py
+    # holds a 2 x 2 grid's search)
+    grid = init_device_mesh("cpu", (1, 1), mesh_dim_names=("genes", "cells"))
+    co = ComponentOptimizer(_port(full), ["batch"], **CTOR, device=grid)
+    assert co._grid is not None and co._exec_device is grid
+    best = co.search_hyperparams(max_evals=2, **SEARCH)
+    assert best and all(np.isfinite(t["result"]["loss"]) for t in co.trials.trials
+                        if t["result"]["status"] == "ok")
     # a mesh of fewer processes than the group: the exchange is global
     monkeypatch.setattr(tdist, "process_count", lambda: 2)
     with pytest.raises(ValueError) as e:
