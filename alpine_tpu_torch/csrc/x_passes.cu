@@ -65,18 +65,20 @@
 //    fused_iteration.cu shares; grids ops/kernels.py: hxt_fma_grid,
 //    wtx_fma_grid).  At the bench shape a pass is bound by
 //    X's bytes and the fp32 FMA rate alike (float32 X: 816 MB, 16 GFLOP).
-//  * Any K: above 512 a grid axis runs each kernel on ranges of at most 512
-//    rows of K (rows of H, columns of W; ops/kernels.py:k_ranges), so X is
-//    read once a range.
+//  * Any K: above 512 the int8/bf16 passes are hxt_wide and wtx_wide
+//    (x_passes_wide.cuh: wgmma tiles of 256 rows of K fed by TMA), and the
+//    fp32 passes run on ranges of at most 512 rows of K (rows of H, columns
+//    of W; ops/kernels.py:k_ranges), so X is read once a range.
 //
 // Also here, because its X products are these passes: the large-K route of
 // fused_iteration (K1, K2, K4 at K > 512; replaces alpine_tpu/ops/
 // pallas_kernels.py:fused_iteration and fused_h_update where K > 512), one
-// C call launching a chain: WᵀX (wtx) → D = WᵀW H (wtw_gemm.cuh) →
-// iter_wide (the H update and the per-cell statistics) → X Hsᵀ (hxt) →
-// H Hᵀ by hxt_fma over Hn → the partials' sums.  Its bound at 100k cells x
-// 2000 genes, K = 768, int8: the fp32 (WᵀW)H and Hn Hnᵀ, 236 GFLOP, 3.5 ms
-// at 67 TFLOP/s (the bf16 X products 614 GFLOP, 0.62 ms; bytes 0.24 ms).
+// C call launching a chain: WᵀX (wtx_wide, or wtx_fma) → D = WᵀW H
+// (wtw_gemm.cuh) → iter_wide (the H update and the per-cell statistics) →
+// X Hsᵀ (hxt_wide, or hxt_fma) → H Hᵀ by hxt_fma over Hn → the partials'
+// sums.  Its bound at 100k cells x 2000 genes, K = 768, int8: the fp32
+// (WᵀW)H and Hn Hnᵀ, 236 GFLOP, 3.5 ms at 67 TFLOP/s (the bf16 X products
+// 614 GFLOP, 0.62 ms; bytes 0.24 ms).
 #include "fma_passes.cuh"
 #include "wtw_gemm.cuh"
 
@@ -283,34 +285,31 @@ __device__ __forceinline__ bool last_to_arrive(unsigned* arrivals, int tile, int
 template <typename XT, int CW, bool kAligned>
 __global__ void __launch_bounds__(kThreads, 2)
 hxt_mma(const XT* __restrict__ X, const __nv_bfloat16* __restrict__ Hb, int g, int n,
-        int n_pad, int K, int KR, int GB, int cells_per_split, int S, float* __restrict__ part) {
+        int n_pad, int K, int GB, int cells_per_split, int S, float* __restrict__ part) {
   constexpr bool kInt8 = sizeof(XT) == 1;
   constexpr int V = 16 / sizeof(XT);  // values of a 16-byte copy
   extern __shared__ __align__(128) unsigned char smem[];
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g0 = blockIdx.x * GB, split = blockIdx.y;
-  // this block's range of K: rows k0 .. k0 + KB - 1 of Hb and of each partial
-  const int k0 = blockIdx.z * KR, KB = min(KR, K - k0);
-  Hb += (size_t)k0 * n_pad;
   const int cbeg = split * cells_per_split;
   const int n_chunks = (min(n, cbeg + cells_per_split) - cbeg + CW - 1) / CW;
   constexpr int HR = hxt_row_bytes(2 * CW, 64);
   constexpr int XR = kInt8 ? hxt_row_bytes(CW + 16, 32) : hxt_row_bytes(2 * CW + 16, 64);
   constexpr int HV = CW / 8;  // 16-byte copies an Hb row
-  const int Kp = pad16(KB), RF = Kp / 16, gcols = GB / 16;
+  const int Kp = pad16(K), RF = Kp / 16, gcols = GB / 16;
   const int h_bytes = Kp * HR, stage_bytes = h_bytes + GB * XR;
   const CopyWalk walk0(tid, CW / V + (kAligned ? 0 : 1));  // 16-byte copies an X row
-  // Hb's rows KB .. Kp - 1 are never copied: zero in every stage
+  // Hb's rows K .. Kp - 1 are never copied: zero in every stage
   for (int st = 0; st < S; ++st)
-    for (int o = tid; o < (Kp - KB) * HR / 16; o += kThreads)
-      reinterpret_cast<uint4*>(smem + st * stage_bytes + KB * HR)[o] = make_uint4(0, 0, 0, 0);
+    for (int o = tid; o < (Kp - K) * HR / 16; o += kThreads)
+      reinterpret_cast<uint4*>(smem + st * stage_bytes + K * HR)[o] = make_uint4(0, 0, 0, 0);
 
   // chunk c's copies into stage st; one group committed, empty past the split
   auto issue = [&](int c, int st) {
     if (c < n_chunks) {
       const int c0 = cbeg + c * CW;
       unsigned char* h = smem + st * stage_bytes;
-      for (int q = tid; q < KB * HV; q += kThreads) {
+      for (int q = tid; q < K * HV; q += kThreads) {
         const int k = q / HV, j = (q % HV) * 8;
         cp_async16(h + k * HR + j * 2, Hb + (size_t)k * n_pad + c0 + j, true);
       }
@@ -428,9 +427,9 @@ hxt_mma(const XT* __restrict__ X, const __nv_bfloat16* __restrict__ Hb, int g, i
     }
   }
   __syncthreads();
-  for (int o = tid; o < KB * GB; o += kThreads) {
+  for (int o = tid; o < K * GB; o += kThreads) {
     const int k = o / GB, gg = o - k * GB;
-    if (g0 + gg < g) part[((size_t)split * K + k0 + k) * g + g0 + gg] = sOut[k * LO + gg];
+    if (g0 + gg < g) part[((size_t)split * K + k) * g + g0 + gg] = sOut[k * LO + gg];
   }
 }
 
@@ -468,22 +467,21 @@ static cudaError_t allow_smem(const void* kernel, size_t bytes) {
   return cudaSuccess;
 }
 
-// The bf16 path: H rounded into Hb (K x n_pad, n_pad a multiple of CW), then
-// hxt_mma over a grid of (gene block) x (cell split) x (range of KR rows of
-// K) with S ring stages of CW cells, X's rows on 16-byte boundaries or not.
+// The bf16 path (K <= 512: all of K a block; above, hxt_wide): H rounded
+// into Hb (K x n_pad, n_pad a multiple of CW), then hxt_mma over a grid of
+// (gene block) x (cell split) with S ring stages of CW cells, X's rows on
+// 16-byte boundaries or not.
 template <typename XT>
-static int launch_hxt_mma(const void* X, const float* H, int g, int n, int K, int KR, int GB,
+static int launch_hxt_mma(const void* X, const float* H, int g, int n, int K, int GB,
                           int n_split, int cells_per_split, int S, int CW,
                           __nv_bfloat16* Hb, float* part, cudaStream_t stream) {
   const bool aligned = (reinterpret_cast<uintptr_t>(X) & 15) == 0 && (size_t)n * sizeof(XT) % 16 == 0;
-  void (*kernel)(const XT*, const __nv_bfloat16*, int, int, int, int, int, int, int, int,
-                 float*) =
+  void (*kernel)(const XT*, const __nv_bfloat16*, int, int, int, int, int, int, int, float*) =
       CW == 128 ? (aligned ? hxt_mma<XT, 128, true> : hxt_mma<XT, 128, false>)
                 : (aligned ? hxt_mma<XT, 64, true> : hxt_mma<XT, 64, false>);
-  const int Kp = pad16(KR), gcols = GB / 16;
-  const size_t smem = hxt_mma_smem_bytes(KR, GB, S, CW, sizeof(XT) == 1);
-  // ranges after the first start on whole fragment rows of Hb
-  const bool ok = KR >= 1 && KR <= K && (KR == K || KR % 16 == 0) && GB % 16 == 0 &&
+  const int Kp = pad16(K), gcols = GB / 16;
+  const size_t smem = hxt_mma_smem_bytes(K, GB, S, CW, sizeof(XT) == 1);
+  const bool ok = K >= 1 && GB % 16 == 0 &&
                   GB <= 128 && kWarps % gcols == 0 &&
                   (Kp / 16) * gcols <= kWarps * kHxtFrags && S >= 2 && S <= 8 &&
                   (CW == 64 || CW == 128) &&
@@ -497,9 +495,9 @@ static int launch_hxt_mma(const void* X, const float* H, int g, int n, int K, in
   if (err != cudaSuccess) return (int)err;
   err = allow_smem(reinterpret_cast<const void*>(kernel), smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((g + GB - 1) / GB, n_split, (K + KR - 1) / KR);
-  kernel<<<grid, kThreads, smem, stream>>>(static_cast<const XT*>(X), Hb, g, n, n_pad, K, KR,
-                                           GB, cells_per_split, S, part);
+  dim3 grid((g + GB - 1) / GB, n_split);
+  kernel<<<grid, kThreads, smem, stream>>>(static_cast<const XT*>(X), Hb, g, n, n_pad, K, GB,
+                                           cells_per_split, S, part);
   return (int)cudaGetLastError();
 }
 
@@ -509,7 +507,7 @@ static int launch_hxt(const void* X, const float* H, int g, int n, int K, int KR
                       __nv_bfloat16* Hb, float* part, float* out, cudaStream_t stream) {
   int rc;
   if constexpr (kBf16) {
-    rc = launch_hxt_mma<XT>(X, H, g, n, K, KR, GB, n_split, cells_per_split, S, CW, Hb, part,
+    rc = launch_hxt_mma<XT>(X, H, g, n, K, GB, n_split, cells_per_split, S, CW, Hb, part,
                             stream);
   } else {
     rc = launch_hxt_fma<XT>(X, H, g, n, K, KR, GB, n_split, cells_per_split, S, CW, part,
@@ -633,7 +631,7 @@ round_w(const float* __restrict__ W, int g, int K, int Kp, int g_pad,
 template <typename XT, int NT, bool kAligned>
 __global__ void __launch_bounds__(kThreads, 2)
 wtx_mma(const XT* __restrict__ X, const __nv_bfloat16* __restrict__ Wb, int g, int n,
-        int g_pad, int K, int KR, int T, int WR, int GC, int S, int range_genes,
+        int g_pad, int K, int T, int WR, int GC, int S, int range_genes,
         float* __restrict__ part, unsigned* __restrict__ arrivals, float* __restrict__ out) {
   constexpr bool kInt8 = sizeof(XT) == 1;
   constexpr int V = 16 / sizeof(XT);        // values of a 16-byte copy
@@ -641,13 +639,7 @@ wtx_mma(const XT* __restrict__ X, const __nv_bfloat16* __restrict__ Wb, int g, i
   extern __shared__ __align__(128) unsigned char smem[];
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int c0 = blockIdx.x * T, range = blockIdx.y, ranges = gridDim.y;
-  // this block's range of K: rows k0 .. k0 + KB - 1 of Wb, of the output and
-  // of each gene range's partial; its own arrival counters
-  const int k0 = blockIdx.z * KR, KB = min(KR, K - k0);
-  Wb += (size_t)k0 * g_pad;
-  out += (size_t)k0 * n;
-  arrivals += (size_t)blockIdx.z * gridDim.x;
-  const int Kp = pad16(KB), RF = Kp / 16;
+  const int Kp = pad16(K), RF = Kp / 16;
   const int WB = ldsm_row_bytes(2 * GC), XR = wtx_x_row_bytes(T, kInt8);
   const int wv_shift = GC == 64 ? 3 : 2;  // log2 of Wb's 16-byte copies a row
   const int w_bytes = Kp * WB, stage_bytes = w_bytes + GC * XR;
@@ -778,7 +770,7 @@ wtx_mma(const XT* __restrict__ X, const __nv_bfloat16* __restrict__ Wb, int g, i
   // (bf16: n-tiles of cells 0-7 and 8-15), whole 32-byte sectors a warp;
   // into out, or into its range's partial
   const int gq = lane / 4, t = lane % 4;
-  float* dst = ranges == 1 ? out : part + ((size_t)range * K + k0) * n;
+  float* dst = ranges == 1 ? out : part + (size_t)range * K * n;
   const bool vec = (reinterpret_cast<uintptr_t>(dst) & 15) == 0 && n % (kInt8 ? 4 : 2) == 0;
 #pragma unroll
   for (int f = 0; f < MF; ++f) {
@@ -787,7 +779,7 @@ wtx_mma(const XT* __restrict__ X, const __nv_bfloat16* __restrict__ Wb, int g, i
 #pragma unroll
     for (int hr = 0; hr < 2; ++hr) {
       const int k = rf * 16 + gq + 8 * hr;
-      if (k >= KB) continue;
+      if (k >= K) continue;
       float* o = dst + (size_t)k * n;
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) {
@@ -824,24 +816,24 @@ wtx_mma(const XT* __restrict__ X, const __nv_bfloat16* __restrict__ Wb, int g, i
   if (!last_to_arrive(arrivals, blockIdx.x, ranges, reinterpret_cast<volatile int*>(smem)))
     return;
   const int cells = min(T, n - c0);
-  for (int o = tid; o < KB * cells; o += kThreads) {
+  for (int o = tid; o < K * cells; o += kThreads) {
     const int k = o / cells;
     const size_t idx = (size_t)k * n + c0 + (o - k * cells);
     float s = 0.f;
-    for (int r = 0; r < ranges; ++r) s += __ldcg(part + ((size_t)r * K + k0) * n + idx);
+    for (int r = 0; r < ranges; ++r) s += __ldcg(part + (size_t)r * K * n + idx);
     out[idx] = s;
   }
 }
 
-// The bf16 path: W rounded and transposed into Wb (Kp x g_pad, g_pad a
-// multiple of the gene chunk GC), then wtx_mma over tiles of T cells x
-// `ranges` gene ranges of `range_genes` genes (a multiple of GC) x ranges of
-// KR rows of K, with the warps as WR rows x (8 / WR) columns of NT groups of
-// 16 cells, S stages of GC genes; with more than one gene range, `part`
-// holds their partials (ranges x K x n) and `arrivals` one zeroed counter a
-// tile and range of K.
+// The bf16 path (K <= 512: all of K a block; above, wtx_wide): W rounded
+// and transposed into Wb (Kp x g_pad, g_pad a multiple of the gene chunk
+// GC), then wtx_mma over tiles of T cells x `ranges` gene ranges of
+// `range_genes` genes (a multiple of GC), with the warps as WR rows x
+// (8 / WR) columns of NT groups of 16 cells, S stages of GC genes; with
+// more than one gene range, `part` holds their partials (ranges x K x n)
+// and `arrivals` one zeroed counter a tile.
 template <typename XT>
-static int launch_wtx_mma(const void* X, const float* W, int g, int n, int K, int KR, int T,
+static int launch_wtx_mma(const void* X, const float* W, int g, int n, int K, int T,
                           int WR, int GC, int S, int ranges, int range_genes,
                           __nv_bfloat16* Wb, float* part, unsigned* arrivals, float* out,
                           cudaStream_t stream) {
@@ -849,15 +841,14 @@ static int launch_wtx_mma(const void* X, const float* W, int g, int n, int K, in
   const int NT = (WC && T % (16 * WC) == 0) ? T / (16 * WC) : 0;
   const bool aligned = (reinterpret_cast<uintptr_t>(X) & 15) == 0 && (size_t)n * sizeof(XT) % 16 == 0;
   void (*kernel)(const XT*, const __nv_bfloat16*, int, int, int, int, int, int, int, int, int,
-                 int, float*, unsigned*, float*) =
+                 float*, unsigned*, float*) =
       NT == 1   ? (aligned ? wtx_mma<XT, 1, true> : wtx_mma<XT, 1, false>)
       : NT == 2 ? (aligned ? wtx_mma<XT, 2, true> : wtx_mma<XT, 2, false>)
       : NT == 3 ? (aligned ? wtx_mma<XT, 3, true> : wtx_mma<XT, 3, false>) : nullptr;
-  const int Kp = pad16(KR), MF = NT ? kWtxAcc / (8 * NT) : 0;
-  const size_t smem = wtx_mma_smem_bytes(KR, T, S, GC, sizeof(XT) == 1);
+  const int Kp = pad16(K), MF = NT ? kWtxAcc / (8 * NT) : 0;
+  const size_t smem = wtx_mma_smem_bytes(K, T, S, GC, sizeof(XT) == 1);
   const int g_pad = (g + GC - 1) / GC * GC;
-  // ranges of K after the first start on whole fragment rows of Wb
-  const bool ok = kernel != nullptr && KR >= 1 && KR <= K && (KR == K || KR % 16 == 0) &&
+  const bool ok = kernel != nullptr && K >= 1 &&
                   (Kp / 16 + WR - 1) / WR <= MF &&
                   S >= 2 && S <= 8 && (GC == 32 || GC == 64) && Wb != nullptr &&
                   ranges >= 1 &&
@@ -875,20 +866,27 @@ static int launch_wtx_mma(const void* X, const float* W, int g, int n, int K, in
   }
   cudaError_t err = allow_smem(reinterpret_cast<const void*>(kernel), smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((n + T - 1) / T, ranges, (K + KR - 1) / KR);
-  kernel<<<grid, kThreads, smem, stream>>>(static_cast<const XT*>(X), Wb, g, n, g_pad, K, KR,
-                                           T, WR, GC, S, range_genes, part, arrivals, out);
+  dim3 grid((n + T - 1) / T, ranges);
+  kernel<<<grid, kThreads, smem, stream>>>(static_cast<const XT*>(X), Wb, g, n, g_pad, K, T,
+                                           WR, GC, S, range_genes, part, arrivals, out);
   return (int)cudaGetLastError();
 }
+
+}  // namespace alpine
+
+#include "x_passes_wide.cuh"
+
+namespace alpine {
 
 // ---- the large-K iteration (fused_iteration at K > 512) -------------------
 //
 // The K <= 512 kernel keeps a K x T tile a block and writes a K x K partial of
 // H Hᵀ a block; neither holds at large K.  Here no kernel's shared memory
-// grows with K: the X products are P1's and P2's kernels over their K
-// ranges, the denominator's (WᵀW)H is wtw_gemm, H Hᵀ is hxt_fma with Hn in
-// X's place, and iter_wide takes one lane a cell and one row of K a warp
-// pass, reading H, WᵀX and D from device memory.
+// grows with K: the X products are P1's and P2's large-K kernels (hxt_wide
+// and wtx_wide on int8/bf16 X, the fp32 passes over their K ranges), the
+// denominator's (WᵀW)H is wtw_gemm, H Hᵀ is hxt_fma with Hn in X's place,
+// and iter_wide takes one lane a cell and one row of K a warp pass, reading
+// H, WᵀX and D from device memory.
 
 constexpr int kWideT = 32;  // cells a tile of iter_wide (ops/kernels.py:_WIDE_T)
 
@@ -1043,10 +1041,12 @@ iter_wide(const float* __restrict__ H, const float* __restrict__ WtX,
 }
 
 // The launch parameters of the chain (ops/kernels.py:WideIterationGrid, in
-// its order).
+// its order).  P2 and P1 on int8/bf16 X: wtx_wide (wWR its cluster size) and
+// hxt_wide (GB its cluster size); on float32/int16 X wtx_fma (wWR its lanes
+// along K) and hxt_fma over K ranges of KR rows.
 struct WideGrid {
   int T, n_part, tiles_per_block, KR;
-  int wT, wWR, wGC, wS, w_ranges, w_range_genes;  // P2 (wWR: LK on the fp32 path)
+  int wT, wWR, wGC, wS, w_ranges, w_range_genes;  // P2 for WᵀX
   int GB, n_split, cells_per_split, S, CW;        // P1 for X Hsᵀ
   int hGB, h_n_split, h_cells_per_split, hS, hCW;  // hxt_fma over Hn for H Hᵀ
 };
@@ -1063,16 +1063,14 @@ static int launch_iteration_wide(const void* X, const float* W, const float* H,
                                  int L, int Kg, int loss_kl, float eps, const WideGrid& p,
                                  float* Hn, float* XHt, float* stats, float* WtX, float* D,
                                  float* Hs, float* part, float* part_x, float* part_hh,
-                                 void* hb, void* wb, float* wpart, unsigned* warr,
-                                 cudaStream_t stream) {
+                                 void* hb, void* wb, float* wpart, cudaStream_t stream) {
   if (p.T != kWideT || K < 1 || L < 0 || (kCounts && (C == nullptr || Hs == nullptr)) ||
       (L > 0 && (Y == nullptr || Bg == nullptr || lam_rows == nullptr)))
     return (int)cudaErrorInvalidValue;
   int rc;
   if constexpr (kBf16) {
-    rc = launch_wtx_mma<XT>(X, W, g, n, K, p.KR, p.wT, p.wWR, p.wGC, p.wS, p.w_ranges,
-                            p.w_range_genes, static_cast<__nv_bfloat16*>(wb), wpart, warr,
-                            WtX, stream);
+    rc = launch_wtx_wide<XT>(X, W, g, n, K, p.wWR, p.w_ranges, p.w_range_genes, p.wS,
+                             static_cast<__nv_bfloat16*>(wb), wpart, WtX, stream);
   } else {
     rc = launch_wtx_fma<XT>(X, W, g, n, K, p.KR, p.wT, p.wWR, p.wGC, p.wS, WtX, stream);
   }
@@ -1091,9 +1089,9 @@ static int launch_iteration_wide(const void* X, const float* W, const float* H,
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const float* Hx = kCounts ? Hs : Hn;  // X Hsᵀ, H Hᵀ = Hs Hnᵀ
-  if constexpr (kBf16) {
-    rc = launch_hxt_mma<XT>(X, Hx, g, n, K, p.KR, p.GB, p.n_split, p.cells_per_split, p.S,
-                            p.CW, static_cast<__nv_bfloat16*>(hb), part_x, stream);
+  if constexpr (kBf16) {  // the splits' partials, summed by reduce_partials
+    rc = launch_hxt_wide<XT>(X, Hx, g, n, K, p.GB, p.n_split, p.cells_per_split, p.S,
+                             static_cast<__nv_bfloat16*>(hb), part_x, nullptr, stream);
   } else {
     rc = launch_hxt_fma<XT>(X, Hx, g, n, K, p.KR, p.GB, p.n_split, p.cells_per_split, p.S,
                             p.CW, part_x, stream);
@@ -1120,6 +1118,8 @@ static int launch_iteration_wide(const void* X, const float* W, const float* H,
 }  // namespace alpine
 
 // Plain C entry points (ctypes).  Each returns 0 or a cudaError_t code.
+// `KR` (rows of a range of K, k_ranges) serves the fp32 paths; the bf16
+// paths take K <= 512 here (above, alpine_hxt_wide / alpine_wtx_wide).
 // hxt: `stages` and `chunk` (cells a ring stage holds) serve both paths,
 // the scratch `hb` (K x n rounded up to the chunk, bf16) only the bf16 path
 // (int8, bf16 X).  wtx: `T` (cells a tile), `chunk` (genes a ring stage) and
@@ -1161,10 +1161,10 @@ extern "C" int alpine_wtx(const void* X, int xtype, const float* W, int g, int n
   switch (xtype) {
     case kF32: return launch_wtx_fma<float>(X, W, g, n, K, KR, T, WR, chunk, stages, out, s);
     case kBF16:
-      return launch_wtx_mma<__nv_bfloat16>(X, W, g, n, K, KR, T, WR, chunk, stages, ranges,
+      return launch_wtx_mma<__nv_bfloat16>(X, W, g, n, K, T, WR, chunk, stages, ranges,
                                            range_genes, Wb, part, arr, out, s);
     case kI8:
-      return launch_wtx_mma<int8_t>(X, W, g, n, K, KR, T, WR, chunk, stages, ranges,
+      return launch_wtx_mma<int8_t>(X, W, g, n, K, T, WR, chunk, stages, ranges,
                                     range_genes, Wb, part, arr, out, s);
     case kI16:
       return launch_wtx_fma<int16_t>(X, W, g, n, K, KR, T, WR, chunk, stages, out, s);
@@ -1177,9 +1177,8 @@ extern "C" int alpine_wtx(const void* X, int xtype, const float* W, int g, int n
 // WideIterationGrid, and scratch: wtx, d (K x n each), hs (K x n, counts mode),
 // part (n_part x (K + L K + L + 1)), part_x (n_split x K x g), part_hh
 // (hh_n_split x K x K), and on the bf16 path hb (H rounded, K x n padded to
-// the chunk), wb (W rounded, pad16(K) x g padded to the gene chunk), wpart
-// and warr (P2's gene ranges' partials and zeroed counters, where it splits
-// the genes).
+// 64), wb (W rounded, pad16(K) x g padded to 64) and wpart (P2's gene
+// ranges' partials, where it splits the genes).
 extern "C" int alpine_fused_iteration_wide(
     const void* X, int xtype, const float* W, const float* H, const float* WtW,
     const void* Y, const float* Bg, const float* lam_rows, const float* counts,
@@ -1189,17 +1188,16 @@ extern "C" int alpine_fused_iteration_wide(
     int stages, int chunk, int hh_GB, int hh_n_split, int hh_cells_per_split, int hh_stages,
     int hh_chunk, float* Hn, float* XHt, float* stats, float* wtx, float* d, float* hs,
     float* part, float* part_x, float* part_hh, void* hb, void* wb, float* wpart,
-    void* warr, void* stream) {
+    void* stream) {
   using namespace alpine;
   const WideGrid p{T,      n_part,  tiles_per_block, KR,         wtx_T,
                    wtx_WR, wtx_GC,  wtx_S,           wtx_ranges, wtx_range_genes,
                    GB,     n_split, cells_per_split, stages,     chunk,
                    hh_GB,  hh_n_split, hh_cells_per_split, hh_stages, hh_chunk};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  unsigned* arr = static_cast<unsigned*>(warr);
 #define ALPINE_WIDE_ARGS                                                                 \
   X, W, H, WtW, Y, Bg, lam_rows, counts, g, n, K, L, Kg, loss_kl, eps, p, Hn, XHt, stats, \
-      wtx, d, hs, part, part_x, part_hh, hb, wb, wpart, arr, s
+      wtx, d, hs, part, part_x, part_hh, hb, wb, wpart, s
   const bool c = counts != nullptr;
   switch (xtype) {
     case kF32:

@@ -45,9 +45,13 @@ SIGNATURES = {
     # P2's kernels, so it lives beside them
     "fused_iteration_wide": ("x_passes", "alpine_fused_iteration_wide",
                              [_P, _I] + [_P] * 7 + [_I] * 6 + [_F] + [_I] * 20
-                             + [_P] * 14),
+                             + [_P] * 13),
     "hxt": ("x_passes", "alpine_hxt", [_P, _I, _P] + [_I] * 9 + [_P] * 4),
     "wtx": ("x_passes", "alpine_wtx", [_P, _I, _P] + [_I] * 10 + [_P] * 5),
+    # P1/P2 above K = 512 on int8/bf16 X (csrc/x_passes_wide.cuh, which
+    # x_passes.cu includes)
+    "hxt_wide": ("x_passes", "alpine_hxt_wide", [_P, _I, _P] + [_I] * 7 + [_P] * 4),
+    "wtx_wide": ("x_passes", "alpine_wtx_wide", [_P, _I, _P] + [_I] * 7 + [_P] * 4),
     "stream_probe": ("stream_probe", "alpine_stream_probe",
                      [_P, _I] + [_I] * 5 + [_P] * 4),
 }

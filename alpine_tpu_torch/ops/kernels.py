@@ -17,9 +17,10 @@ is the streaming read-rate probe's kernel, on no fit path
 
 Every kernel of the fit and transform path takes any component count K
 (``route``): K <= 512 runs the routes that hold a tile or a thread's rows
-of all of K, K > 512 the large-K routes (``k_ranges`` for P1/P2,
-``wide_iteration_grid`` for K1/K2/K4, ``transform_path`` for K3).  No
-rule caps K: what does is the card's memory, which must hold the K x n
+of all of K, K > 512 the large-K routes (``hxt_wide_grid`` and
+``wtx_wide_grid`` for P1/P2 on int8/bf16 X, ``k_ranges`` for their fp32
+paths, ``wide_iteration_grid`` for K1/K2/K4, ``transform_path`` for K3).
+No rule caps K: what does is the card's memory, which must hold the K x n
 and K x K operands, outputs and scratch of a call.
 """
 
@@ -37,7 +38,10 @@ from alpine_tpu_torch.ops.mu import (
 
 launches: Dict[str, int] = {"fused_iteration": 0, "fused_iteration_counts": 0,
                             "fused_h_update": 0, "fused_transform": 0,
-                            "hxt": 0, "wtx": 0, "stream_probe": 0}
+                            "hxt": 0, "wtx": 0, "stream_probe": 0,
+                            # the large-K wgmma kernels of P1/P2 (int8/bf16 X):
+                            # from hxt/wtx and from K1/K2/K4's large-K chain
+                            "hxt_wide": 0, "wtx_wide": 0}
 
 # X storage dtype -> code of csrc/common.cuh:XType
 _XTYPE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2, torch.int16: 3}
@@ -102,6 +106,15 @@ _WTX_GROUPS = (1, 2, 3)
 _WTX_STAGES = range(2, 9)
 # wtx's gene ranges (small n): at least this many ring chunks a range
 _WTX_RANGE_CHUNKS = 4
+# P1/P2 above K = 512 on int8/bf16 X (csrc/x_passes_wide.cuh: hxt_wide,
+# wtx_wide): output tiles of 128 rows (genes, or cells: two warpgroups of
+# wgmma's 64) x 256 rows of K (wgmma's widest N), 64 reduction values a ring
+# stage; blocks a cluster (hxt_wide: two gene tiles share each stage's tile
+# of Hb by TMA multicast; wtx_wide alone: kHxtWideCL, kWtxWideCL); X rows
+# off 16-byte alignment staged in rows of these bytes
+_WIDE_BM, _WIDE_BN, _WIDE_BK = 128, 256, 64
+_WIDE_CL = {"hxt": 2, "wtx": 1}
+_WIDE_XROW = {"hxt": {1: 96, 2: 160}, "wtx": {1: 144, 2: 272}}
 # the fp32 paths of hxt and wtx (csrc/x_passes.cu: hxt_fma, wtx_fma): hxt
 # stages 64 or 32 cells a ring stage, 8 genes and at most 7 rows of H a
 # thread (8 only at K > 448; lanes 8 along K x 4 along genes), at most 4
@@ -126,10 +139,11 @@ def reset_launches() -> None:
 def route(K: int) -> str:
     """The rule by K that names each kernel's route: "tile" for 1 <= K <=
     512 (a tile, a thread's rows or a warp's fragments hold all of K),
-    "wide" above (P1/P2 over ranges of at most 512 rows of K, K1/K2/K4 as
-    the chain of ``wide_iteration_grid``, K3 on ``transform_path``'s
-    per-step path).  K < 1 raises; no K above is refused: the card's
-    memory is the cap."""
+    "wide" above (P1/P2 as the wgmma kernels of ``hxt_wide_grid`` and
+    ``wtx_wide_grid`` on int8/bf16 X and over ranges of at most 512 rows of
+    K on float32/int16 X, K1/K2/K4 as the chain of
+    ``wide_iteration_grid``, K3 on ``transform_path``'s per-step path).
+    K < 1 raises; no K above is refused: the card's memory is the cap."""
     if K < 1:
         raise ValueError(f"the CUDA kernels take K >= 1 components, got K={K}")
     return "tile" if K <= _RANGE_K else "wide"
@@ -150,12 +164,12 @@ def tile_width(K: int) -> int:
 
 
 def k_ranges(K: int) -> Tuple[int, int]:
-    """(R, KR) of P1/P2 (and of the large-K K1 chain's X passes): K's rows in
-    R ranges of KR rows, the last one shorter where KR does not divide K;
-    each range is a grid layer of the K <= 512 kernel on its rows of H or
-    columns of W, so X is read R times.  (1, K) for K <= 512; above, the
-    fewest ranges of at most 512 rows, KR rounded up to 16 (whole
-    fragment rows on the bf16 paths)."""
+    """(R, KR) of P1/P2's fp32 paths (and of the large-K K1 chain's on
+    float32/int16 X): K's rows in R ranges of KR rows, the last one
+    shorter where KR does not divide K; each range runs the K <= 512
+    kernel on its rows of H or columns of W, so X is read R times.  (1, K)
+    for K <= 512; above, the fewest ranges of at most 512 rows, KR rounded
+    up to 16."""
     if route(K) == "tile":
         return 1, K
     KR = _pad16(-(-K // -(-K // _RANGE_K)))
@@ -262,6 +276,10 @@ def transform_tiles_grid(K: int) -> TransformGrid:
 
 def _pad16(v: int) -> int:
     return -(-v // 16) * 16
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
 
 
 def _iter_smem_bytes(K: int, T: int, L: int, Kg: int, counts: bool,
@@ -487,13 +505,11 @@ def hxt_grid(g: int, n: int, K: int, x_dtype: torch.dtype
     those blocks on 132 SMs; their fp32 partials (splits × K × g, summed in
     split order by a second pass) are a few % of X's bytes from 33k cells
     up, and a third of them at 8,192 cells, where filling the wave took
-    less time than fewer splits (PERF.md).  K > 512: the same rule for a
-    range of KR rows (``k_ranges``), the R ranges a third grid axis
-    sharing the wave, so X is read R times, and splits of at most
-    _WIDE_SPLIT_CELLS cells."""
+    less time than fewer splits (PERF.md).  K > 512 takes
+    ``hxt_wide_grid`` (and raises here)."""
     if x_dtype not in _MMA_XTYPES:
         raise ValueError(f"hxt_grid is for int8 and bf16 X, got {x_dtype}")
-    R, K = k_ranges(K)
+    _check_tile_route(K, "hxt_wide_grid")
     rows = _pad16(K) // 16
     GB = next(w for w in (128, 64, 32, 16) if rows * (w // 16) <= _HXT_MAX_FRAGS)
     S = 0
@@ -508,11 +524,109 @@ def hxt_grid(g: int, n: int, K: int, x_dtype: torch.dtype
             break
     gene_blocks = -(-g // GB)
     n_chunks = -(-n // chunk)
-    want = max(1, min(n_chunks, _SMS * per_sm // (gene_blocks * R)))
-    if R > 1:
-        want = max(want, -(-n // _WIDE_SPLIT_CELLS))
+    want = max(1, min(n_chunks, _SMS * per_sm // gene_blocks))
     cells_per_split = -(-n_chunks // want) * chunk
     return GB, -(-n // cells_per_split), cells_per_split, S, chunk
+
+
+def _check_tile_route(K: int, wide_rule: str) -> None:
+    """K <= 512, or a ValueError naming the large-K rule that takes K."""
+    if route(K) == "wide":
+        raise ValueError(f"K={K} > {_RANGE_K} takes the large-K route ({wide_rule})")
+
+
+def x_wide_stage_bytes(kind: str, x_dtype: torch.dtype, aligned: bool = False) -> int:
+    """csrc/x_passes_wide.cuh:hxt_wide_stage / wtx_wide_stage: a ring stage
+    of ``kind`` ("hxt" or "wtx"): the 256 x 64 bf16 tile of Hb or Wb, then
+    X's rows (hxt: 128 genes x 64 cells, wtx: 64 genes x 128 cells), as
+    stored where X's rows are 16-byte aligned, else as the aligned windows
+    that cover them; rounded up to 1,024 bytes."""
+    sz = 1 if x_dtype == torch.int8 else 2
+    rows, vals = (_WIDE_BM, _WIDE_BK) if kind == "hxt" else (_WIDE_BK, _WIDE_BM)
+    x = rows * (vals * sz if aligned else _WIDE_XROW[kind][sz])
+    return -(-(_WIDE_BN * _WIDE_BK * 2 + x) // 1024) * 1024
+
+
+def x_wide_smem_bytes(kind: str, S: int, x_dtype: torch.dtype, aligned: bool = False) -> int:
+    """csrc/x_passes_wide.cuh:x_wide_smem: 1,024 bytes to align the ring, S
+    stages and two mbarriers a stage."""
+    return 1024 + S * (x_wide_stage_bytes(kind, x_dtype, aligned) + 16)
+
+
+def _x_wide_stages(kind: str, x_dtype: torch.dtype) -> int:
+    """The most ring stages (2..8) of ``kind`` within a Hopper block's shared
+    memory, for X's rows off 16-byte alignment (the larger stage), so that
+    an aligned X and its misaligned copy take one grid."""
+    return max(s for s in range(2, 9)
+               if x_wide_smem_bytes(kind, s, x_dtype) <= _MAX_SMEM)
+
+
+def _wave_share(blocks: int) -> float:
+    """The share of the last of ceil(blocks / 132) waves' block slots (one
+    block an SM) that ``blocks`` fill."""
+    return blocks / (_SMS * -(-blocks // _SMS))
+
+
+def _wide_tiles(kind: str, rows: int, K: int) -> int:
+    """Output tiles of a large-K pass ("hxt": rows = genes, "wtx": cells):
+    128-row tiles in whole clusters x 256-row tiles of K."""
+    CL = _WIDE_CL[kind]
+    return -(-_cdiv(rows, _WIDE_BM) // CL) * CL * _cdiv(K, _WIDE_BN)
+
+
+@lru_cache(maxsize=None)
+def hxt_wide_grid(g: int, n: int, K: int, x_dtype: torch.dtype) -> Tuple[int, int, int, int]:
+    """(CL, n_split, cells_per_split, S) of P1 above K = 512 on int8/bf16 X
+    (csrc/x_passes_wide.cuh: hxt_wide).
+
+    Tiles of 128 genes x 256 rows of K, in clusters of CL = 2 blocks along
+    the genes (each stage of Hb multicast to both); the cells are split
+    into whole 64-cell stages, at most _WIDE_SPLIT_CELLS a split (no fp32
+    accumulator sums longer runs), at least that many splits and at most
+    twice as many (or as many as fill one wave), taking the count whose
+    tiles x splits best fill their last wave of 132 blocks (ties: fewer).
+    The splits' partials are added in split order.  S: the most ring
+    stages within a block's shared memory.  The grid depends on the shape
+    only, so a shape sums each output in the same order on any card, X's
+    rows aligned or not."""
+    if x_dtype not in _MMA_XTYPES:
+        raise ValueError(f"hxt_wide_grid is for int8 and bf16 X, got {x_dtype}")
+    if route(K) != "wide":
+        raise ValueError(f"hxt_wide_grid is for K > {_RANGE_K}, got K={K}")
+    tiles = _wide_tiles("hxt", g, K)
+    chunks = -(-n // _WIDE_BK)
+    least = -(-n // _WIDE_SPLIT_CELLS)
+    most = max(least, min(chunks, max(2 * least, -(-_SMS // tiles))))
+    want = max(range(least, most + 1), key=lambda s: (_wave_share(tiles * s), -s))
+    cells_per_split = -(-chunks // want) * _WIDE_BK
+    return (_WIDE_CL["hxt"], -(-n // cells_per_split), cells_per_split,
+            _x_wide_stages("hxt", x_dtype))
+
+
+@lru_cache(maxsize=None)
+def wtx_wide_grid(g: int, n: int, K: int, x_dtype: torch.dtype) -> Tuple[int, int, int, int]:
+    """(CL, ranges, range_genes, S) of P2 above K = 512 on int8/bf16 X
+    (csrc/x_passes_wide.cuh: wtx_wide).
+
+    Tiles of 128 cells x 256 rows of K, one block a cluster (CL = 1:
+    sharing each stage of Wb between two cell tiles ran slower); each block
+    sums its outputs over all genes, or, where the tiles fill less than
+    four waves of 132 blocks, over one of 1..4 ranges of whole 64-gene
+    stages (at least 4 a range), taking the count whose tiles x ranges best
+    fill their last wave (ties: fewer); the ranges' partials are added in
+    range order.
+    S: the most ring stages within a block's shared memory.  The grid
+    depends on the shape only."""
+    if x_dtype not in _MMA_XTYPES:
+        raise ValueError(f"wtx_wide_grid is for int8 and bf16 X, got {x_dtype}")
+    if route(K) != "wide":
+        raise ValueError(f"wtx_wide_grid is for K > {_RANGE_K}, got K={K}")
+    tiles = _wide_tiles("wtx", n, K)
+    chunks = -(-g // _WIDE_BK)
+    most = 1 if tiles >= 4 * _SMS else max(1, min(4, chunks // _WTX_RANGE_CHUNKS))
+    want = max(range(1, most + 1), key=lambda r: (_wave_share(tiles * r), -r))
+    per = -(-chunks // want)
+    return _WIDE_CL["wtx"], -(-chunks // per), per * _WIDE_BK, _x_wide_stages("wtx", x_dtype)
 
 
 def hxt_fma_rows(K: int) -> Tuple[int, int]:
@@ -614,13 +728,16 @@ class IterationGrid(NamedTuple):
 class WideIterationGrid(NamedTuple):
     """fused_iteration's large-K chain (K > 512; csrc/x_passes.cu:
     launch_iteration_wide): iter_wide's T-cell tiles (T, n_part,
-    tiles_per_block); KR, the rows of a range of K (``k_ranges``) in every
-    X pass; P2's grid for WᵀX (wtx_T, wtx_WR, wtx_GC, wtx_S, wtx_ranges,
-    wtx_range_genes: ``wtx_grid`` and ``wtx_gene_split`` on int8/bf16 X,
-    ``wtx_fma_grid`` with wtx_WR its lanes along K on float32/int16);
-    P1's for X Hsᵀ (GB, n_split, cells_per_split, S, chunk: ``hxt_grid``
-    or ``hxt_fma_grid``); and hxt_fma's over Hn as fp32 rows for H Hᵀ
-    (hh_*: ``hxt_fma_grid(K, n, K, float32)``)."""
+    tiles_per_block); KR, the rows of a range of K (``k_ranges``) in the
+    fp32 X passes; P2's grid for WᵀX (wtx_T, wtx_WR, wtx_GC, wtx_S,
+    wtx_ranges, wtx_range_genes: on int8/bf16 X wtx_wide's 128-cell tiles,
+    its cluster size, 64-gene stages, stages and gene ranges of
+    ``wtx_wide_grid``; on float32/int16 ``wtx_fma_grid`` with wtx_WR its
+    lanes along K); P1's for X Hsᵀ (GB, n_split, cells_per_split, S,
+    chunk: on int8/bf16 X hxt_wide's cluster size, splits, cells a split,
+    stages and 64-cell stages of ``hxt_wide_grid``; else ``hxt_fma_grid``);
+    and hxt_fma's over Hn as fp32 rows for H Hᵀ (hh_*:
+    ``hxt_fma_grid(K, n, K, float32)``)."""
     T: int
     n_part: int
     tiles_per_block: int
@@ -654,10 +771,10 @@ def _part_grid(n: int, T: int) -> Tuple[int, int]:
 @lru_cache(maxsize=None)  # called once a fit iteration
 def wide_iteration_grid(g: int, n: int, K: int, x_dtype: torch.dtype) -> WideIterationGrid:
     """fused_iteration's launch parameters for K > 512: the chain WᵀX (P2's
-    kernel over its K-range grid) → D = WᵀW H (csrc/wtw_gemm.cuh) →
-    iter_wide (the H update with the guided terms, the prediction loss,
-    the loss dot, Hn's row sums and Bnum = Q Hsᵀ as one partial a block of
-    32-cell tiles) → X Hsᵀ (P1's kernel over its K-range grid) → H Hᵀ =
+    large-K kernel) → D = WᵀW H (csrc/wtw_gemm.cuh) → iter_wide (the H
+    update with the guided terms, the prediction loss, the loss dot, Hn's
+    row sums and Bnum = Q Hsᵀ as one partial a block of 32-cell tiles) →
+    X Hsᵀ (P1's large-K kernel, its splits' partials) → H Hᵀ =
     Hs Hnᵀ (and HHtU = Hn Hnᵀ in counts mode) by hxt_fma over Hn → the
     partials' sums.  Every kernel's shared memory is independent of K (but
     iter_wide's of the labels), so any K the card's memory holds runs."""
@@ -666,9 +783,10 @@ def wide_iteration_grid(g: int, n: int, K: int, x_dtype: torch.dtype) -> WideIte
     n_part, tiles_per_block = _part_grid(n, _WIDE_T)
     KR = k_ranges(K)[1]
     if x_dtype in _MMA_XTYPES:
-        T, WR, GC, S, _ = wtx_grid(g, n, K, x_dtype)
-        wtx = (T, WR, GC, S, *wtx_gene_split(g, n, K, x_dtype))
-        hxt_g = hxt_grid(g, n, K, x_dtype)
+        CL, ranges, range_genes, S = wtx_wide_grid(g, n, K, x_dtype)
+        wtx = (_WIDE_BM, CL, _WIDE_BK, S, ranges, range_genes)
+        CL, n_split, cells_per_split, S = hxt_wide_grid(g, n, K, x_dtype)
+        hxt_g = (CL, n_split, cells_per_split, S, _WIDE_BK)
     else:
         T, LK, GC, S, _ = wtx_fma_grid(g, n, K, x_dtype)
         wtx = (T, LK, GC, S, 1, g)
@@ -797,16 +915,13 @@ def _launch_iteration_wide(X, W, H, WtW, Y_all, Bg, lam_rows, eps, counts, L,
     part = buf(grid.n_part, S_small)
     part_x = buf(grid.n_split, K, g)
     part_hh = buf(grid.hh_n_split, K, K)
-    hb = wb = wpart = warr = None
+    hb = wb = wpart = None
     if mma:  # H (Hs) rounded for P1, W transposed and rounded for P2
-        hb = torch.empty(2 * K * -(-n // grid.chunk) * grid.chunk, dtype=torch.uint8,
+        hb = torch.empty(2 * K * -(-n // _WIDE_BK) * _WIDE_BK, dtype=torch.uint8, device=dev)
+        wb = torch.empty(2 * _pad16(K) * -(-g // _WIDE_BK) * _WIDE_BK, dtype=torch.uint8,
                          device=dev)
-        wb = torch.empty(2 * _pad16(K) * -(-g // grid.wtx_GC) * grid.wtx_GC,
-                         dtype=torch.uint8, device=dev)
         if grid.wtx_ranges > 1:
             wpart = buf(grid.wtx_ranges, K, n)
-            warr = torch.zeros(-(-n // grid.wtx_T) * k_ranges(K)[0], dtype=torch.int32,
-                               device=dev)
     ptr = lambda t: None if t is None else t.data_ptr()
     fn = _build.entry("fused_iteration_wide")
     rc = _on_device(dev, fn, X.data_ptr(), _XTYPE[X.dtype], W.data_ptr(), H.data_ptr(),
@@ -814,11 +929,13 @@ def _launch_iteration_wide(X, W, H, WtW, Y_all, Bg, lam_rows, eps, counts, L,
                     g, n, K, L, Kg, int(bool(loss_kl)), eps, *grid,
                     Hn.data_ptr(), XHt.data_ptr(), stats.data_ptr(), wtx.data_ptr(),
                     D.data_ptr(), ptr(hs), part.data_ptr(), part_x.data_ptr(),
-                    part_hh.data_ptr(), ptr(hb), ptr(wb), ptr(wpart), ptr(warr),
-                    _stream(dev))
+                    part_hh.data_ptr(), ptr(hb), ptr(wb), ptr(wpart), _stream(dev))
     if rc != 0:
         raise RuntimeError(f"fused_iteration's large-K chain failed to launch: CUDA "
                            f"error {rc}")
+    if mma:
+        launches["hxt_wide"] += 1
+        launches["wtx_wide"] += 1
     return Hn, XHt, stats, n_labels
 
 
@@ -996,19 +1113,20 @@ def _workspace(dev: torch.device, stream: int, counters: int, nbytes: int):
 def hxt(X, H):
     """H Xᵀ (K, g) f32, summed over all cells (the counterpart of
     benchmarks/als_probe.py's ``hxt`` kernel): X (g, n) int8/int16/bf16/f32,
-    H (K, n) f32, any K >= 1 (above 512 over ranges of H's rows,
-    ``k_ranges``).  ALS runs it once an iteration (or a batch) for
-    X H_startᵀ; a joint minibatch step once for X_b H_bᵀ; the joint fit
+    H (K, n) f32, any K >= 1.  ALS runs it once an iteration (or a batch)
+    for X H_startᵀ; a joint minibatch step once for X_b H_bᵀ; the joint fit
     loops for their first X Hᵀ.
 
     On the card, int8 and bf16 X run on bf16 tensor cores (H rounded to
     bf16 once a call, exact products, fp32 sums) over ``hxt_grid``'s grid,
-    float32 and int16 X on the FP32 units (true fp32, register micro-tiles)
-    over ``hxt_fma_grid``'s; each block sums a range of cells into a
-    partial of its own and the partials are added in a fixed order, so two
-    launches give the same bits.  X's rows need not lie on 16-byte
-    boundaries (any cell count, X at any address): the bf16 path gives
-    the bits of X's aligned copy."""
+    and above K = 512 as wgmma tiles fed by TMA over ``hxt_wide_grid``'s
+    (a rule by K, ``route``); float32 and int16 X on the FP32 units (true
+    fp32, register micro-tiles) over ``hxt_fma_grid``'s, above K = 512 a
+    launch a range of H's rows (``k_ranges``).  Each block sums a range of
+    cells into a partial of its own and the partials are added in a fixed
+    order, so two launches give the same bits.  X's rows need not lie on
+    16-byte boundaries (any cell count, X at any address): the bf16 paths
+    give the bits of X's aligned copy."""
     _check_x(X)
     g, n = X.shape
     K = H.shape[0]
@@ -1017,6 +1135,8 @@ def hxt(X, H):
         return hxt_plain(X, H)
     dev = X.device
     bf16 = X.dtype in _MMA_XTYPES
+    if bf16 and route(K) == "wide":
+        return _hxt_wide(X, H)
     GB, n_split, cells_per_split, S, chunk = (hxt_grid if bf16 else hxt_fma_grid)(
         g, n, K, X.dtype)
     # bf16 path: H rounded (K x n padded to the chunk); then the splits'
@@ -1029,6 +1149,29 @@ def hxt(X, H):
                     g, n, K, k_ranges(K)[1], GB, n_split, cells_per_split, S, chunk, hb,
                     hb + hb_bytes, out.data_ptr(), stream)
     _launched("hxt", rc)
+    return out
+
+
+def _hxt_wide(X, H):
+    """``hxt`` above K = 512 on int8/bf16 X: csrc/x_passes_wide.cuh's
+    round_h_wide, hxt_wide over ``hxt_wide_grid`` and, with more than one
+    split, reduce_splits."""
+    dev = X.device
+    g, n = X.shape
+    K = H.shape[0]
+    CL, n_split, cells_per_split, S = hxt_wide_grid(g, n, K, X.dtype)
+    # H rounded in hxt_wide's slot order (K x n padded to 64) and the
+    # splits' partials: a call's own scratch (hundreds of MB at large K,
+    # returned to the allocator's cache after the call, where the per-stream
+    # workspace would keep it)
+    hb = torch.empty(2 * K * -(-n // _WIDE_BK) * _WIDE_BK, dtype=torch.uint8, device=dev)
+    part = torch.empty((n_split, K, g), dtype=torch.float32, device=dev) if n_split > 1 else None
+    out = torch.empty((K, g), dtype=torch.float32, device=dev)
+    rc = _on_device(dev, _build.entry("hxt_wide"), X.data_ptr(), _XTYPE[X.dtype],
+                    H.data_ptr(), g, n, K, CL, n_split, cells_per_split, S, hb.data_ptr(),
+                    None if part is None else part.data_ptr(), out.data_ptr(), _stream(dev))
+    _launched("hxt", rc)
+    launches["hxt_wide"] += 1
     return out
 
 
@@ -1065,12 +1208,11 @@ def wtx_grid(g: int, n: int, K: int, x_dtype: torch.dtype
     output in the same order on any card.  GC, the genes a ring stage, is
     the wider of 64 and 32 for which two stages fit with two blocks an SM
     (fewer barriers a pass; the genes are summed in the same order either
-    way), and S the most stages (2..8) that fit.  K > 512: the same rule
-    for a range of KR columns of W (``k_ranges``), the R ranges a second
-    grid axis beside the tiles, their blocks counted in the waves."""
+    way), and S the most stages (2..8) that fit.  K > 512 takes
+    ``wtx_wide_grid`` (and raises here)."""
     if x_dtype not in _MMA_XTYPES:
         raise ValueError(f"wtx_grid is for int8 and bf16 X, got {x_dtype}")
-    R, K = k_ranges(K)
+    _check_tile_route(K, "wtx_wide_grid")
     rows = _pad16(K) // 16
     fewest = next(w for w in (1, 2, 4, 8) if -(-rows // w) * 8 <= _WTX_ACC)
     itemsize = 1 if x_dtype == torch.int8 else 2
@@ -1080,7 +1222,7 @@ def wtx_grid(g: int, n: int, K: int, x_dtype: torch.dtype
         for NT in _WTX_GROUPS:
             if WR <= min(rows, 8) and frags * NT * 8 <= _WTX_ACC:
                 T = 8 // WR * 16 * NT
-                waves = -(-(-(-n // T) * R) // (2 * _SMS))  # ceil(blocks / slots)
+                waves = -(-_cdiv(n, T) // (2 * _SMS))  # ceil(blocks / slots)
                 layouts.append((waves * (T * itemsize + 2 * rows * 16), -T, WR))
     _, neg_t, WR = min(layouts)
     T = -neg_t
@@ -1102,12 +1244,10 @@ def wtx_gene_split(g: int, n: int, K: int, x_dtype: torch.dtype) -> Tuple[int, i
     range into a K × T partial, and the last block of a tile to finish
     adds the partials in range order.  One range (all genes) otherwise.
     The split depends on the shape only, so a shape gives the same bits
-    on every launch and card.  K > 512: the tiles of every range of K's
-    columns (``k_ranges``) count toward the wave."""
+    on every launch and card.  K > 512 takes ``wtx_wide_grid``."""
     T, _, GC, _, blocks = wtx_grid(g, n, K, x_dtype)
     chunks = -(-g // GC)
-    ranges = max(1, min(2 * _SMS // (blocks * k_ranges(K)[0]),
-                        chunks // _WTX_RANGE_CHUNKS))
+    ranges = max(1, min(2 * _SMS // blocks, chunks // _WTX_RANGE_CHUNKS))
     per_range = -(-chunks // ranges)
     return -(-chunks // per_range), per_range * GC
 
@@ -1162,19 +1302,21 @@ def wtx_fma_grid(g: int, n: int, K: int, x_dtype: torch.dtype
 
 def wtx(X, W):
     """Wᵀ X (K, n) f32 (the counterpart of benchmarks/als_probe.py's ``wtx``
-    kernel): X (g, n) int8/int16/bf16/f32, W (g, K) f32, any K >= 1 (above
-    512 over ranges of W's columns, ``k_ranges``).
+    kernel): X (g, n) int8/int16/bf16/f32, W (g, K) f32, any K >= 1.
     ALS runs it once a block an iteration (or a batch), with the block's
     Wᵢ; a joint minibatch step once for Wᵀ X_b, and a minibatch fit once an
     epoch for the loss's WᵀX over all cells.
 
     Each block computes the K × T outputs of T cells over all genes (or, at
-    small n on the bf16 path, over a range of them, the ranges' partials
-    added in a fixed order: ``wtx_gene_split``), so two launches give the
-    same bits.  On the card, int8 and bf16 X run on bf16 tensor cores (W
-    rounded to bf16 once a call, exact products, fp32 sums) over
-    ``wtx_grid``'s tiles, float32 and int16 X on the FP32 units (true fp32,
-    register micro-tiles) over ``wtx_fma_grid``'s."""
+    small n on the bf16 paths, over a range of them, the ranges' partials
+    added in a fixed order: ``wtx_gene_split``, ``wtx_wide_grid``), so two
+    launches give the same bits.  On the card, int8 and bf16 X run on bf16
+    tensor cores (W rounded to bf16 once a call, exact products, fp32
+    sums) over ``wtx_grid``'s tiles, and above K = 512 as wgmma tiles fed
+    by TMA over ``wtx_wide_grid``'s (a rule by K, ``route``); float32 and
+    int16 X on the FP32 units (true fp32, register micro-tiles) over
+    ``wtx_fma_grid``'s, above K = 512 over ranges of W's columns
+    (``k_ranges``)."""
     _check_x(X)
     g, n = X.shape
     K = W.shape[1] if W.dim() == 2 else -1
@@ -1182,6 +1324,8 @@ def wtx(X, W):
     if not _cuda_or_cpu(X):
         return wtx_plain(X, W)
     dev = X.device
+    if X.dtype in _MMA_XTYPES and route(K) == "wide":
+        return _wtx_wide(X, W)
     ranges, range_genes, wb_bytes = 1, g, 0
     if X.dtype in _MMA_XTYPES:
         T, WR, GC, S, blocks = wtx_grid(g, n, K, X.dtype)
@@ -1192,8 +1336,8 @@ def wtx(X, W):
     else:  # WR carries the fp32 path's lanes along K
         T, WR, GC, S, blocks = wtx_fma_grid(g, n, K, X.dtype)
     stream = _stream(dev)
-    R, KR = k_ranges(K)
-    arrivals, wb = _workspace(dev, stream, blocks * R if ranges > 1 else 0,
+    KR = k_ranges(K)[1]
+    arrivals, wb = _workspace(dev, stream, blocks if ranges > 1 else 0,
                               wb_bytes + (4 * ranges * K * n if ranges > 1 else 0))
     part = wb + wb_bytes
     out = torch.empty((K, n), dtype=torch.float32, device=dev)
@@ -1201,6 +1345,29 @@ def wtx(X, W):
                     g, n, K, KR, T, WR, GC, S, ranges, range_genes, wb, part, arrivals,
                     out.data_ptr(), stream)
     _launched("wtx", rc)
+    return out
+
+
+def _wtx_wide(X, W):
+    """``wtx`` above K = 512 on int8/bf16 X: round_w, then
+    csrc/x_passes_wide.cuh's wtx_wide over ``wtx_wide_grid`` and, with more
+    than one gene range, reduce_splits."""
+    dev = X.device
+    g, n = X.shape
+    K = W.shape[1]
+    CL, ranges, range_genes, S = wtx_wide_grid(g, n, K, X.dtype)
+    # W transposed and rounded (pad16(K) x g padded to 64) and the ranges'
+    # partials where the genes are split: a call's own scratch, as hxt's
+    wb = torch.empty(2 * _pad16(K) * -(-g // _WIDE_BK) * _WIDE_BK, dtype=torch.uint8,
+                     device=dev)
+    part = (torch.empty((ranges, K, n), dtype=torch.float32, device=dev) if ranges > 1
+            else None)
+    out = torch.empty((K, n), dtype=torch.float32, device=dev)
+    rc = _on_device(dev, _build.entry("wtx_wide"), X.data_ptr(), _XTYPE[X.dtype],
+                    W.data_ptr(), g, n, K, CL, ranges, range_genes, S, wb.data_ptr(),
+                    None if part is None else part.data_ptr(), out.data_ptr(), _stream(dev))
+    _launched("wtx", rc)
+    launches["wtx_wide"] += 1
     return out
 
 

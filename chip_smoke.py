@@ -20,7 +20,11 @@ Phases, each printing one JSON line:
           the fp32 ones, FFMA in the fp32 ones, cp.async copies (LDGSTS) in
           every one (their rings) and ldmatrix (LDSM) in wtx_mma (none
           there, or a spill store anywhere, fails), registers and spill
-          stores;
+          stores; the wgmma X passes above K = 512 (hxt_wide, wtx_wide on
+          int8/bf16 X, rows aligned or not): HGMMA, TMA loads (UTMALDG)
+          of the Hb/Wb tiles and of aligned X, cp.async windows of
+          misaligned X, LDSM in wtx_wide's aligned path, no spill store,
+          and ptxas's performance notes (C75xx);
   kernel  each kernel against its plain PyTorch version on the card, at the
           bench shape (100k cells x 2,000 genes, K = 40, labels (2, 3), int8)
           and at small shapes over the other storage types, blocks and
@@ -74,11 +78,16 @@ Phases, each printing one JSON line:
           bit), and the per-step path called directly at K = 40, 300 and
           512 bit for bit the register and tiled paths (one summary line);
           then rows at the bench shape, K = 768: K1, K4, K2 (int8) and K1
-          on float32 X, K3 (50 steps), P1, and P2 at K = 768 and k = 384,
-          each with every output against the plain version's, a second
-          launch bit for bit, its time, bound, plain and library time
-          (bf16 cuBLAS X products with fp32 (WᵀW)H and H Hᵀ; 50 fp32
-          torch.matmul for K3) and grid;
+          on float32 X, K3 (50 steps), with the card's ms of each kernel
+          they launch, P1 and P2 (int8: the wgmma kernels hxt_wide and
+          wtx_wide) at K = 520, 768, 1024 and 2048 and P2 at k = 384, and
+          P1/P2 at K = 768 on the minibatch's 8,192 cells and on 66,667
+          cells beside a 66,672-cell twin (zero cells added: its bits
+          checked), each with every output against the plain version's, a
+          second launch bit for bit, its time, bound, plain and library
+          time (bf16 cuBLAS X products with fp32 (WᵀW)H and H Hᵀ; 50 fp32
+          torch.matmul for K3; bf16 torch.matmul for P1/P2, with the card's
+          µs of a call beside the library's) and grid;
   stream_probe  the streaming probe's entry point (alpine_tpu_torch/
           probe.py) on int8 and float32 X at the bench shape: ms and GB/s
           read, the fold and column sums checked exactly against the plain
@@ -382,6 +391,8 @@ PASS_NAME = re.compile(r"(iter_tiles)I(\w+?)Lb([01])ELb([01])E|(hxt_partial)I(\w
 # the fp32 X passes: <X type, rows a thread>; and the bf16 ones: <X type,
 # ring chunk or cell groups, X rows aligned>
 FMA_NAME = re.compile(r"(hxt_mma|hxt_fma|wtx_mma|wtx_fma)I(\w+?)(?:Li(\d+)E)?(?:Lb([01])E)?E")
+# the wgmma X passes above K = 512: <X type, X rows aligned, cluster size>
+WIDE_NAME = re.compile(r"(hxt_wide|wtx_wide)I(\w+?)Lb([01])ELi(\d+)EE")
 X_CODES = {"f": "float32", "13__nv_bfloat16": "bfloat16", "a": "int8", "s": "int16"}
 # mangled names of fused_transform.cu's register path, transform_columns<KB>,
 # and of its tiled path, transform_tiles<T, G> (T cells a tile, G pairs of
@@ -564,10 +575,19 @@ def sass_check(_build, kernels):
               f"{tag}: HMMA count {r['hmma']} does not fit its path")
         if r["tensor_core_path"]:
             check(r["spill_stores"] == 0, f"{tag}: spill stores {r['spill_stores']}")
-    xrows, wide = [], []
+    xrows, wide, wgmma = [], [], []
     usage = ptxas_usage(_build.build_log("x_passes"))
-    ops = ("HMMA", "LDGSTS", "LDSM", "FFMA")
+    ops = ("HMMA", "LDGSTS", "LDSM", "FFMA", "HGMMA", "UTMALDG")
     for fn, count in sorted(sass_counts(_build, "x_passes", ops).items()):
+        w = WIDE_NAME.search(fn)
+        if w:  # hxt_wide / wtx_wide
+            u = usage.get(fn, {})
+            wgmma.append({"kernel": w.group(1), "x": X_CODES.get(w.group(2), w.group(2)),
+                          "aligned": w.group(3) == "1", "cluster": int(w.group(4)),
+                          **{op.lower(): count[op] for op in ops},
+                          "registers": u.get("registers"),
+                          "spill_stores": u.get("spill_stores")})
+            continue
         # <X type>, and hxt_mma's ring chunk, wtx_mma's 16-cell groups a warp
         # or the fp32 kernels' rows a thread (MK); the bf16 kernels' third
         # argument: X's rows on 16-byte boundaries, or not (aligned windows)
@@ -589,7 +609,28 @@ def sass_check(_build, kernels):
                           **{op.lower(): count[op] for op in ops},
                           "registers": u.get("registers"),
                           "spill_stores": u.get("spill_stores")})
-    emit({"phase": "sass", "x_passes": xrows, "x_passes_wide": wide})
+    notes = sorted({m.group(1) for m in re.finditer(r"\((C75\d\d)\)",
+                                                    _build.build_log("x_passes"))})
+    emit({"phase": "sass", "x_passes": xrows, "x_passes_wide": wide, "wgmma_passes": wgmma,
+          "wgmma_ptxas_notes": notes})
+    # ptxas's performance notes (C75xx: wgmma serialized, setmaxnreg ignored)
+    check(not notes, f"x_passes: ptxas performance notes {notes}")
+    # hxt_wide and wtx_wide on int8 and bf16 X, rows aligned or not, at the
+    # cluster size of the grid rules: wgmma (HGMMA), TMA loads of the
+    # Hb / Wb tiles (and of X where its rows are aligned, else the windows'
+    # cp.async), wtx's ldmatrix on the aligned tile, no spill store
+    check(sorted((r["kernel"], r["x"], r["aligned"], r["cluster"]) for r in wgmma)
+          == sorted((k, x, a, kernels._WIDE_CL[k[:3]]) for k in ("hxt_wide", "wtx_wide")
+                    for x in ("int8", "bfloat16") for a in (False, True)),
+          f"the wgmma passes' instantiations differ from the wrapper's: {len(wgmma)}")
+    for r in wgmma:
+        tag = f"{r['kernel']} {r['x']} aligned={r['aligned']}"
+        check(r["hgmma"] > 0 and r["hmma"] == 0, f"{tag}: HGMMA {r['hgmma']}, HMMA {r['hmma']}")
+        check(r["utmaldg"] >= (2 if r["aligned"] else 1), f"{tag}: UTMALDG {r['utmaldg']}")
+        check(r["aligned"] or r["ldgsts"] > 0, f"{tag}: no cp.async (LDGSTS) for the windows")
+        check(r["kernel"] == "hxt_wide" or not r["aligned"] or r["ldsm"] > 0,
+              f"{tag}: no ldmatrix (LDSM)")
+        check(r["spill_stores"] == 0, f"{tag}: spill stores {r['spill_stores']}")
     # iter_wide on four Y types with and without counts, wtw_gemm's store
     # epilogue: true fp32 (no HMMA), no spill store
     check(sum(r["kernel"] == "iter_wide" for r in wide) == 8
@@ -778,6 +819,18 @@ def at_byte_offset(torch, X, offset):
 def x_pass_grid(kernels, kind, g, n, K, dtype):
     """The grid the X pass runs at this shape, as its rule gives it."""
     bf16 = dtype in kernels._MMA_XTYPES
+    if bf16 and kernels.route(K) == "wide":  # hxt_wide / wtx_wide
+        if kind == "hxt":
+            CL, n_split, cps, S = kernels.hxt_wide_grid(g, n, K, dtype)
+            return dict(kernel="hxt_wide", cluster=CL, n_split=n_split, cells_per_split=cps,
+                        stages=S, tiles=kernels._wide_tiles("hxt", g, K),
+                        blocks=kernels._wide_tiles("hxt", g, K) * n_split,
+                        partial_bytes=4 * n_split * K * g if n_split > 1 else 0)
+        CL, ranges, range_genes, S = kernels.wtx_wide_grid(g, n, K, dtype)
+        return dict(kernel="wtx_wide", cluster=CL, gene_ranges=ranges,
+                    genes_a_range=range_genes, stages=S, tiles=kernels._wide_tiles("wtx", n, K),
+                    blocks=kernels._wide_tiles("wtx", n, K) * ranges,
+                    partial_bytes=4 * K * n * ranges if ranges > 1 else 0)
     if kind == "hxt" and bf16:
         GB, n_split, cps, S, chunk = kernels.hxt_grid(g, n, K, dtype)
         return dict(gene_block=GB, n_split=n_split, cells_per_split=cps, stages=S,
@@ -2691,15 +2744,18 @@ WIDE_G = 70  # not a multiple of any gene chunk
 # called directly must give that path's bits
 STEPS_SAME_BITS_KS = (40, 300, 512)
 # the kernels line's rows of the large-K routes (kernel_wide's bench rows)
-# and their sources: K1/K2/K4's chain lives beside P1/P2
+# and their sources: K1/K2/K4's chain lives beside P1/P2, whose int8/bf16
+# kernels above K = 512 (hxt_wide, wtx_wide) x_passes.cu includes
 WIDE_ROWS = {"fused_iteration wide": "alpine_tpu_torch/csrc/x_passes.cu",
              "fused_iteration_counts wide": "alpine_tpu_torch/csrc/x_passes.cu",
              "fused_h_update wide": "alpine_tpu_torch/csrc/x_passes.cu",
              "fused_transform wide K=768 n_iter=50": "alpine_tpu_torch/csrc/fused_transform.cu",
-             "hxt wide K=768": "alpine_tpu_torch/csrc/x_passes.cu",
-             "wtx wide K=768": "alpine_tpu_torch/csrc/x_passes.cu",
+             "hxt wide K=768": "alpine_tpu_torch/csrc/x_passes_wide.cuh",
+             "wtx wide K=768": "alpine_tpu_torch/csrc/x_passes_wide.cuh",
              "wtx k=384 K=384": "alpine_tpu_torch/csrc/x_passes.cu"}
 K768 = 768  # the JAX package's component bucket level (alpine_tpu/ops/mu.py:1681)
+# kernel_wide's P1/P2 bench rows above K = 512 (hxt_wide, wtx_wide)
+WIDE_BENCH_KS = (520, 768, 1024, 2048)
 K768_BLOCKS = (192, 192, 384)
 K768_ITERS = 20
 K768_SMALL_CELLS = 5000
@@ -2733,9 +2789,12 @@ def run_kernel_wide_phase(torch, kernels, _build, gen, dev, card):
     and, called directly at K = 40, 300 and 512, bit for bit the register
     and tiled paths.
     Then rows at the bench shape, K = 768: K1, K4, K2 (int8) and K1 on
-    float32 X, K3 (50 steps), P1, and P2 at K = 768 and k = 384, each with
-    its time, bound, plain and library time and grid.  Returns the bench
-    rows by name."""
+    float32 X, K3 (50 steps), each with its time, bound, plain and library
+    time, grid and device ms by kernel; P1 and P2 (hxt_wide, wtx_wide) at
+    K = 520, 768, 1024 and 2048 and P2 at k = 384, and at K = 768 on the
+    minibatch's 8,192 cells and on 66,667 cells beside their 66,672-cell
+    twin (zero cells added: the same bits), each with the card's µs of a
+    call beside bf16 torch.matmul's.  Returns the bench rows by name."""
     flat = lambda o: [t for v in (o if isinstance(o, tuple) else (o,))
                       for t in (v if isinstance(v, tuple) else (v,))]
     worst = {}  # kernel -> (worst error over tolerance, max abs error, cases)
@@ -2883,7 +2942,11 @@ def run_kernel_wide_bench(torch, kernels, gen, dev, card):
                "library_ms": time_ms(library, 3), "library": library_name,
                "bytes": cost[0], "bf16_flop": cost[1], "fp32_flop": cost[2], "grid": grid}
         row["bound_ms"], row["bound_by"] = bound(*cost, card)
-        if not name.startswith(("hxt", "wtx")):
+        if name.startswith(("hxt", "wtx")):  # the card's time of a call, and the library's
+            row["device_us"], row["kernels_a_call"] = device_us(torch, kern)
+            row["library_device_us"], _ = device_us(torch, library)
+            row["device_ms_by_kernel"] = device_ms_by_kernel(torch, kern)
+        else:
             row["device_ms_by_kernel"] = device_ms_by_kernel(torch, kern)
         if note:
             row["note"] = note
@@ -2960,27 +3023,68 @@ def run_kernel_wide_bench(torch, kernels, gen, dev, card):
               {"path": kernels.transform_path(K768)})
     del Wt, num2, WtW2, H0
     torch.cuda.empty_cache()
-    # P1 at K = 768, P2 at K = 768 and at an ALS block's k = 384
-    X, W, H = make_x_pass_problem(torch, gen, dev, G, N, K768, torch.int8)
+    # P1/P2 above K = 512 (hxt_wide, wtx_wide) at the bench shape at K = 520,
+    # 768, 1024 and 2048, and P2 at an ALS block's k = 384 (wtx_mma); then at
+    # K = 768 the minibatch batch (8,192 cells) and an optimizer fold's
+    # 66,667 cells (rows off 16-byte alignment) beside its 66,672-cell twin
+    X, W, H = make_x_pass_problem(torch, gen, dev, G, N, max(WIDE_BENCH_KS), torch.int8)
     Xc = X.to(torch.bfloat16)
-    for kind, K in (("hxt", K768), ("wtx", K768), ("wtx", K768 // 2)):
-        P = H if kind == "hxt" else W[:, :K].contiguous()
-        Pc = P.bfloat16()
-        lib = ((lambda: torch.matmul(Pc, Xc.T)) if kind == "hxt"
-               else (lambda: torch.matmul(Pc.T, Xc)))
-        side = 4 * K * N if kind == "hxt" else 4 * G * K
-        out = 4 * K * G if kind == "hxt" else 4 * K * N
-        grid = x_pass_grid(kernels, kind, G, N, K, torch.int8)
-        grid["k_ranges"] = list(kernels.k_ranges(K))
-        timed_row(f"{kind} {'wide' if K > 512 else 'k=384'} K={K}",
-                  lambda: getattr(kernels, kind)(X, P), lambda: getattr(kernels, f"{kind}_plain")(X, P),
-                  lib, "torch.matmul, bf16 operands", 1e-4, 1e-6,
-                  (G * N + side + out, 2.0 * K * G * N, 0.0), grid,
-                  note=(f"X read {kernels.k_ranges(K)[0]} times (one a range of K)"
-                        if K > 512 else None))
-    del X, W, H, Xc
+    cases = [(kind, K) for K in WIDE_BENCH_KS for kind in ("hxt", "wtx")] + [("wtx", K768 // 2)]
+    for kind, K in cases:
+        P = H[:K].contiguous() if kind == "hxt" else W[:, :K].contiguous()
+        wide_row(torch, kernels, timed_row, kind, X, Xc, P, K,
+                 f"{kind} {'wide' if K > 512 else 'k=384'} K={K}")
+    del X, W, H, Xc, P
+    torch.cuda.empty_cache()
+    twins = {}
+    for n in (MB_BATCH, 66_667, 66_672):
+        if n == 66_672:  # the 66,667-cell problem padded with zero cells
+            X = torch.zeros((G, n), dtype=torch.int8, device=dev)
+            X[:, :66_667] = twins["X"]
+            H = torch.zeros((K768, n), device=dev)
+            H[:, :66_667] = twins["H"]
+            W = twins["W"]
+        else:
+            X, W, H = make_x_pass_problem(torch, gen, dev, G, n, K768, torch.int8)
+        Xc = X.to(torch.bfloat16)
+        for kind in ("hxt", "wtx"):
+            got = wide_row(torch, kernels, timed_row, kind, X, Xc, H if kind == "hxt" else W,
+                           K768, f"{kind} wide K={K768} n={n}")
+            if n == 66_667:
+                twins[kind] = got
+            elif n == 66_672:
+                same = (torch.equal(got, twins["hxt"]) if kind == "hxt"
+                        else torch.equal(got[:, :66_667], twins["wtx"]))
+                rows[f"{kind} wide K={K768} n={n}"]["twin_bit_equal"] = same
+                emit({"phase": "kernel_wide", "case": f"{kind} wide K={K768} twins",
+                      "cells": [66_667, 66_672], "bit_equal": same,
+                      "grid_equal": x_pass_grid(kernels, kind, G, 66_667, K768, torch.int8)
+                      == x_pass_grid(kernels, kind, G, 66_672, K768, torch.int8)})
+                check(same, f"kernel_wide {kind} at 66,667 cells: not its 66,672-cell twin's bits")
+        if n == 66_667:
+            twins.update(X=X, W=W, H=H)
+        del X, W, H, Xc
+    twins.clear()
     torch.cuda.empty_cache()
     return rows
+
+
+def wide_row(torch, kernels, timed_row, kind, X, Xc, P, K, name):
+    """One P1 (P = H) or P2 (P = W) row of kernel_wide's bench rows: the
+    kernel against its plain version, timed beside bf16 torch.matmul over
+    bf16 copies made outside the timed region; returns the kernel's
+    output."""
+    g, n = X.shape
+    Pc = P.bfloat16()
+    lib = ((lambda: torch.matmul(Pc, Xc.T)) if kind == "hxt" else (lambda: torch.matmul(Pc.T, Xc)))
+    side = 4 * K * n if kind == "hxt" else 4 * g * K
+    out = 4 * K * g if kind == "hxt" else 4 * K * n
+    grid = x_pass_grid(kernels, kind, g, n, K, X.dtype)
+    timed_row(name, lambda: getattr(kernels, kind)(X, P),
+              lambda: getattr(kernels, f"{kind}_plain")(X, P), lib,
+              "torch.matmul, bf16 operands", 1e-4, 1e-6,
+              (g * n + side + out, 2.0 * K * g * n, 0.0), grid)
+    return getattr(kernels, kind)(X, P)
 
 
 def run_k768_phase(torch, kernels, ALPINE, AnnData, counts, obs):
@@ -3025,6 +3129,11 @@ def run_k768_phase(torch, kernels, ALPINE, AnnData, counts, obs):
     check(launches["fused_iteration"] == K768_ITERS,
           f"slice_k768: {launches['fused_iteration']} K1 launches, expected {K768_ITERS}")
     check(launches["hxt"] == 1, f"slice_k768: {launches['hxt']} P1 launches, expected 1")
+    # the wgmma X passes: P1's first X Hᵀ and, in each K1 call, its chain's
+    # WᵀX and X Hsᵀ
+    check(launches["hxt_wide"] == 1 + K768_ITERS and launches["wtx_wide"] == K768_ITERS,
+          f"slice_k768: hxt_wide {launches['hxt_wide']}, wtx_wide {launches['wtx_wide']} "
+          f"launches, expected {1 + K768_ITERS} and {K768_ITERS}")
     check(launches["fused_transform"] == 1, "slice_k768: transform must launch K3 once")
     check(np.isfinite(L).all(), "slice_k768: loss history must be finite")
     check(L[-1, 0] < L[0, 0], "slice_k768: total loss must fall")
@@ -3070,15 +3179,21 @@ def run_k768_modes_phase(torch, kernels, ALPINE, AnnData, counts, obs):
     n = K768_MODE_CELLS
     sub = {k: v[:n] for k, v in obs.items()}
     nb = -(-n // MB_BATCH)
+    # the wgmma X passes (hxt_wide, wtx_wide) in every P1/P2 call at K = 768
+    # and twice in each K2/K4 call (its chain's WᵀX and X Hsᵀ); ALS's blocks
+    # (192, 192, 384 components) take wtx_mma
+    its = K768_MODE_ITERS
     modes = (("unguided", dict(n_components=K768, n_covariate_components=[], lam=[]), {},
-              {"fused_h_update": K768_MODE_ITERS, "hxt": 1}),
+              {"fused_h_update": its, "hxt": 1, "hxt_wide": its + 1, "wtx_wide": its}),
              ("weighted_fast", {}, dict(sampling_method="weighted_fast"),
-              {"fused_iteration_counts": K768_MODE_ITERS, "fused_iteration": 0}),
+              {"fused_iteration_counts": its, "fused_iteration": 0,
+               "hxt_wide": its + 1, "wtx_wide": its}),
              ("als", dict(use_als=True), {},
-              {"hxt": K768_MODE_ITERS, "wtx": 3 * K768_MODE_ITERS, "fused_iteration": 0}),
+              {"hxt": its, "wtx": 3 * its, "fused_iteration": 0, "hxt_wide": its,
+               "wtx_wide": 0}),
              ("minibatch", {}, dict(batch_size=MB_BATCH),
-              {"hxt": nb * K768_MODE_ITERS, "wtx": (nb + 1) * K768_MODE_ITERS,
-               "fused_iteration": 0}))
+              {"hxt": nb * its, "wtx": (nb + 1) * its, "fused_iteration": 0,
+               "hxt_wide": nb * its, "wtx_wide": (nb + 1) * its}))
     out = {}
     for name, model_kw, fit_kw, expect in modes:
         ad = AnnData(counts[:n], obs=sub)

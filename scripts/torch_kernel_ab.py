@@ -40,7 +40,16 @@ A run times, at the bench shape (100k cells x 2,000 genes, K = 40, labels
   ``hxt`` and ``wtx`` (k = 5 and 30) on float32 and int16 X, and of ``hxt``
   and ``wtx`` on int8 and bf16 X (the tensor-core path); the fp32-path
   outputs of K1/K4/K2 and the X passes' outputs are also saved beside
-  their plain versions'.
+  their plain versions';
+- K = 768 (the large-K routes; blocks (192, 192, 384)) on the int8 X: P1
+  ``hxt``, P2 ``wtx``, K1, K4 and K2, median CUDA-event ms of 10 warm
+  launches (``hxt_k768_ms``, ...) and of one bf16 ``torch.matmul`` that
+  computes P1's or P2's product over bf16 copies made outside the timed
+  region (``hxt_k768_library_ms``, ``wtx_k768_library_ms``), a digest of
+  their outputs
+  (``wide_bf16_bits``) and their worst error over the plain versions'
+  tolerance (``wide_k768_worst_err_over_tolerance``: rtol 1e-4 + 1e-6
+  max|plain|; XHt against the plain product over the kernel's own Hs).
 
 Prints one JSON line per run, then one summary line with the mean of each
 checkout's two runs, whether all four runs agree bit for bit on the
@@ -49,7 +58,9 @@ int8/bf16 outputs (``k1_bf16_path_bits_equal``), on K3's
 (``k3_bits_equal``), on ``hxt``'s float32/int16 outputs
 (``x_pass_fp32_bits_equal``) and int8/bf16 ones
 (``x_pass_bf16_path_bits_equal``), on ``wtx``'s (``wtx_fp32_bits_equal``)
-and on ``wtx``'s tensor-core path (``wtx_bf16_path_bits_equal``); for
+and on ``wtx``'s tensor-core path (``wtx_bf16_path_bits_equal``), and on
+the K = 768 outputs (``wide_bf16_path_bits_equal``; whether each
+checkout's two runs agree: ``wide_bf16_path_runs_repeat``); for
 ``fp32_path``, ``x_pass_fp32``, ``wtx_fp32`` and ``wtx_bf16_path``, whether
 each checkout's two runs agree (``..._runs_repeat``)
 and the largest difference between the two checkouts' outputs, absolute
@@ -295,6 +306,48 @@ def child(root, save_path):
     als_loops["fit_loop_float32_ms_per_iteration"] = host
     als_loops["fit_loop_float32_device_ms_per_iteration"] = dev_ms
     del X32
+    torch.cuda.empty_cache()
+    # K = 768 on the int8 X: the large-K routes of P1, P2, K1, K4 and K2
+    KW, BW = 768, (192, 192, 384)
+    Ww = torch.rand((G, KW), generator=gen, device=dev) + 0.05
+    Hw = torch.rand((KW, N), generator=gen, device=dev) + 0.05
+    WtWw = Ww.T @ Ww
+    Bw = [torch.rand((nl, BW[c]), generator=gen, device=dev) + 0.05
+          for c, nl in enumerate(N_LABELS)]
+    wide = {
+        "hxt": (lambda: kernels.hxt(X, Hw), lambda: kernels.hxt_plain(X, Hw), None),
+        "wtx": (lambda: kernels.wtx(X, Ww), lambda: kernels.wtx_plain(X, Ww), None),
+        "fused_iteration": (
+            lambda: kernels.fused_iteration(X, Ww, Hw, WtWw, Ys, Bw, lam, EPS, blocks=BW,
+                                            loss_kl=True),
+            lambda: kernels.fused_iteration_plain(X, Ww, Hw, WtWw, Ys, Bw, lam, EPS,
+                                                  blocks=BW, loss_kl=True), None),
+        "fused_iteration_counts": (
+            lambda: kernels.fused_iteration(X, Ww, Hw, WtWw, Ys, Bw, lam, EPS, C, blocks=BW,
+                                            loss_kl=True),
+            lambda: kernels.fused_iteration_plain(X, Ww, Hw, WtWw, Ys, Bw, lam, EPS, C,
+                                                  blocks=BW, loss_kl=True), C[1]),
+        "fused_h_update": (lambda: kernels.fused_h_update(X, Ww, Hw, WtWw, EPS),
+                           lambda: kernels.fused_h_update_plain(X, Ww, Hw, WtWw, EPS),
+                           None)}
+    flat = lambda o: [t for v in (o if isinstance(o, tuple) else (o,))
+                      for t in (v if isinstance(v, tuple) else (v,))]
+    wide_ms, wide_bits, wide_worst = {}, {}, 0.0
+    for name, (fn, plain, scale) in wide.items():
+        got, want = flat(fn()), flat(plain())
+        if len(got) > 1:  # XHt against the plain product over the kernel's own Hs
+            want[1] = kernels.hxt_plain(X, got[0] if scale is None else got[0] * scale).T
+        for a, b in zip(got, want):
+            allowed = 1e-6 * float(b.abs().max()) + 1e-4 * b.abs()
+            wide_worst = max(wide_worst, float(((a - b).abs() / allowed).max()))
+        wide_bits[name] = digest([got])
+        del got, want
+        wide_ms[f"{name}_k768_ms"] = time_ms(fn, reps=10)
+    Xb, Hb, Wb = X.to(torch.bfloat16), Hw.bfloat16(), Ww.bfloat16()
+    wide_ms["hxt_k768_library_ms"] = time_ms(lambda: torch.matmul(Hb, Xb.T), reps=10)
+    wide_ms["wtx_k768_library_ms"] = time_ms(lambda: torch.matmul(Wb.T, Xb), reps=10)
+    del Ww, Hw, WtWw, Bw, wide, Xb, Hb, Wb
+    torch.cuda.empty_cache()
     print(json.dumps({"root": root, "fused_iteration_ms": k1,
                       "fused_h_update_ms": k2,
                       "fused_iteration_counts_ms": k4,
@@ -305,12 +358,14 @@ def child(root, save_path):
                       "wtx_k30_ms": wtx30_ms, "wtx_k30_back_to_back_ms": wtx30_b2b_ms,
                       "fit_loop_ms_per_iteration": loop_ms(False),
                       "fit_loop_weighted_fast_ms_per_iteration": loop_ms(True),
-                      **fp32_k_ms, **x_pass_ms, **als_loops,
+                      **fp32_k_ms, **x_pass_ms, **als_loops, **wide_ms,
+                      "wide_k768_worst_err_over_tolerance": wide_worst,
                       "fp32_path_bits": bits, "k1_bf16_path_bits": k1_bf16_bits,
                       "k3_bits": k3_bits,
                       "x_pass_fp32_bits": x_pass_bits, "x_pass_bf16_bits": hxt_bf16_bits,
                       "wtx_fp32_bits": wtx_fp32_bits,
-                      "wtx_bf16_bits": wtx_bf16_bits}), flush=True)
+                      "wtx_bf16_bits": wtx_bf16_bits,
+                      "wide_bf16_bits": wide_bits}), flush=True)
 
 
 def path_difference(parent_path, change_path, group):
@@ -365,7 +420,8 @@ def main(argv):
                ("x_pass_fp32_bits", "x_pass_fp32_bits_equal"),
                ("x_pass_bf16_bits", "x_pass_bf16_path_bits_equal"),
                ("wtx_fp32_bits", "wtx_fp32_bits_equal"),
-               ("wtx_bf16_bits", "wtx_bf16_path_bits_equal"))
+               ("wtx_bf16_bits", "wtx_bf16_path_bits_equal"),
+               ("wide_bf16_bits", "wide_bf16_path_bits_equal"))
     for label, root in (("parent", parent), ("change", change)):
         summary[label] = {k: sum(r[k] for r in runs[root]) / 2
                           for k in runs[root][0]
@@ -374,6 +430,8 @@ def main(argv):
         seen = {json.dumps(r.get(key), sort_keys=True)
                 for rs in runs.values() for r in rs}
         summary[out] = len(seen) == 1
+    summary["wide_bf16_path_runs_repeat"] = all(
+        rs[0].get("wide_bf16_bits") == rs[1].get("wide_bf16_bits") for rs in runs.values())
     for key, group, out in (("fp32_path_bits", "fp32_path", "fp32_path"),
                             ("wtx_bf16_bits", "wtx_bf16", "wtx_bf16_path"),
                             ("wtx_fp32_bits", "wtx_fp32", "wtx_fp32"),

@@ -167,12 +167,21 @@ def test_wtx_tile_rule():
     """wtx's fp32 path takes wtx_fma_grid's tile (12 cells a thread, 32 / LK
     threads along the cells), its bf16 path wtx_grid's: all of K in one
     pass (at most 6 fragment rows a warp, 48 accumulators a thread) for
-    every K up to 512, T a multiple of 16; above 512, all of a range of
-    KR <= 512 columns of W in one pass (tests/torch_k_samples.py)."""
+    every K up to 512, T a multiple of 16; above 512, wtx_wide_grid's
+    128-cell tiles of 256 rows of K (a warpgroup's 64 cells x 256 rows: 128
+    accumulators a thread), all genes in one pass at the bench shape
+    (tests/torch_k_samples.py)."""
     for K in COVER_KS:
         for xdt in (torch.float32, torch.int16):
             T, LK, _, _, blocks = kernels.wtx_fma_grid(2000, 100_000, K, xdt)
             assert T == 12 * 32 // LK and blocks == -(-100_000 // T)
+        if K > 512:
+            CL, ranges, _, _ = kernels.wtx_wide_grid(2000, 100_000, K, torch.int8)
+            assert kernels._WIDE_BM % 16 == 0 and 64 * kernels._WIDE_BN // 128 == 128
+            assert kernels._wide_tiles("wtx", 100_000, K) == (
+                -(-(-(-100_000 // kernels._WIDE_BM)) // CL) * CL * -(-K // kernels._WIDE_BN))
+            assert ranges == 1
+            continue
         T, WR, GC, S, blocks = kernels.wtx_grid(2000, 100_000, K, torch.int8)
         KR = kernels.k_ranges(K)[1]
         frags = -(-(kernels._pad16(KR) // 16) // WR)  # fragment rows a warp

@@ -972,8 +972,10 @@ def test_wide_fused_iteration_cuda_matches_plain(cuda, dtype, K, n):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,K,n", WIDE_CASES)
 def test_wide_x_passes_cuda_match_plain(cuda, dtype, K, n):
-    """P1 and P2 over ranges of at most 512 rows of K against their plain
-    versions; X off 16-byte alignment gives the same bits."""
+    """P1 and P2 at K > 512 (int8/bf16 X: the wgmma kernels hxt_wide and
+    wtx_wide; float32/int16 X: over ranges of at most 512 rows of K)
+    against their plain versions; X off 16-byte alignment gives the same
+    bits."""
     X, W, H = _x_pass_problem(K + n, 70, n, K, dtype, cuda)
     got_h, got_w = kernels.hxt(X, H), kernels.wtx(X, W)
     moved_h = kernels.hxt(_unaligned(X), _unaligned(H))
@@ -982,6 +984,39 @@ def test_wide_x_passes_cuda_match_plain(cuda, dtype, K, n):
     _close(got_h, kernels.hxt_plain(X, H), 1e-4, 1e-5)
     _close(got_w, kernels.wtx_plain(X, W), 1e-4, 1e-5)
     assert torch.equal(got_h, moved_h) and torch.equal(got_w, moved_w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["int8", "bfloat16"])
+@pytest.mark.parametrize("K", [513, 520, 768, 1024])
+@pytest.mark.parametrize("n", [17, 1001, 5003, 8192, 66_667, 100_000])
+def test_wide_passes_cuda_match_plain(cuda, dtype, K, n):
+    """hxt_wide and wtx_wide (P1/P2 above K = 512 on int8/bf16 X) against
+    their plain versions (rtol 1e-4 / atol 1e-5) over 300 genes: a second
+    launch bit for bit the first, one launch of each kernel a call, and
+    the same values at an odd byte offset (bf16: 2 bytes) the same bits;
+    5,003 and 66,667 cells take the aligned windows, the others TMA's
+    tiles.  At 66,667 cells the 66,672-cell copy padded with zeros has the
+    same grid, so P2's outputs of the first 66,667 cells are its bits."""
+    X, W, H = _x_pass_problem(K + n, 300, n, K, dtype, cuda)
+    before = dict(kernels.launches)
+    got_h, got_w = kernels.hxt(X, H), kernels.wtx(X, W)
+    again_h, again_w = kernels.hxt(X, H), kernels.wtx(X, W)
+    torch.cuda.synchronize()
+    assert kernels.launches["hxt_wide"] == before["hxt_wide"] + 2
+    assert kernels.launches["wtx_wide"] == before["wtx_wide"] + 2
+    assert torch.equal(got_h, again_h) and torch.equal(got_w, again_w)
+    _close(got_h, kernels.hxt_plain(X, H), 1e-4, 1e-5)
+    _close(got_w, kernels.wtx_plain(X, W), 1e-4, 1e-5)
+    Xo = _at_byte_offset(X, X.element_size())
+    assert torch.equal(kernels.hxt(Xo, H), got_h)
+    assert torch.equal(kernels.wtx(Xo, W), got_w)
+    if n == 66_667:
+        Xp = torch.zeros((300, 66_672), dtype=X.dtype, device=cuda)
+        Xp[:, :n] = X
+        assert kernels.wtx_wide_grid(300, n, K, X.dtype) == kernels.wtx_wide_grid(
+            300, 66_672, K, X.dtype)
+        assert torch.equal(kernels.wtx(Xp, W)[:, :n], got_w)
 
 
 @pytest.mark.cuda

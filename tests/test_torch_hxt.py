@@ -1,13 +1,16 @@
-"""The grid rule of P1 ``hxt``'s bf16 path (``kernels.hxt_grid``) on the CPU.
+"""The grid rules of P1 ``hxt``'s bf16 path on the CPU: ``kernels.hxt_grid``
+for K <= 512 and ``kernels.hxt_wide_grid`` above.
 
-The CUDA kernel (csrc/x_passes.cu: hxt_mma) runs only on the card; these
-tests hold what it is given: every gene and cell covered once, splits that
-are multiples of the ring's chunk, shared memory within a Hopper block's
-limit for every K (1..512 and a sample of the large-K route's ranges up
-to 2048), and the sum of per-split partials in split order over that grid
-equal to ``hxt_plain`` (rtol 1e-5: fp32 sums of positive terms in another
-order).  The float32/int16 path takes ``hxt_fma_grid``
-(tests/test_torch_fp32_passes.py); K1's bf16 path keeps ``_cell_splits``.
+The CUDA kernels (csrc/x_passes.cu: hxt_mma; csrc/x_passes_wide.cuh:
+hxt_wide) run only on the card; these tests hold what they are given: every
+gene and cell covered once, splits that are multiples of the ring's chunk
+(the wide kernel's 64-cell stage), shared memory within a Hopper block's
+limit for every K (1..512 and a sample of the large-K route up to 2048),
+and the sum of per-split partials in split order over that grid equal to
+``hxt_plain`` (rtol 1e-5: fp32 sums of positive terms in another order).
+The float32/int16 path takes ``hxt_fma_grid``
+(tests/test_torch_fp32_passes.py); K1's bf16 path keeps ``_cell_splits``;
+the wide kernel's slot order and staging: tests/test_torch_wide_passes.py.
 """
 
 import numpy as np
@@ -23,8 +26,18 @@ MMA = {"int8": torch.int8, "bfloat16": torch.bfloat16}
 KS = (1, 13, 40, 64, 65, 300, 512, 600, 768, 2048)
 
 
+def hxt_launch_grid(g, n, K, dtype):
+    """(GB, n_split, cells_per_split, S, chunk) of the bf16 path's kernel at
+    K: hxt_grid's, or above 512 hxt_wide's (128-gene tiles, 64-cell
+    stages)."""
+    if kernels.route(K) == "wide":
+        _, n_split, cps, S = kernels.hxt_wide_grid(g, n, K, dtype)
+        return kernels._WIDE_BM, n_split, cps, S, kernels._WIDE_BK
+    return kernels.hxt_grid(g, n, K, dtype)
+
+
 def _grid_ranges(g, n, K, dtype):
-    GB, n_split, cps, S, chunk = kernels.hxt_grid(g, n, K, dtype)
+    GB, n_split, cps, S, chunk = hxt_launch_grid(g, n, K, dtype)
     genes = [(g0, min(g, g0 + GB)) for g0 in range(0, g, GB)]
     cells = [(s * cps, min(n, (s + 1) * cps)) for s in range(n_split)]
     return GB, n_split, cps, S, chunk, genes, cells
@@ -36,7 +49,8 @@ def _grid_ranges(g, n, K, dtype):
 @pytest.mark.parametrize("K", KS)
 def test_hxt_grid_covers_each_gene_and_cell_once(dtype, g, n, K):
     GB, n_split, cps, S, chunk, genes, cells = _grid_ranges(g, n, K, MMA[dtype])
-    assert chunk in kernels._HXT_CHUNKS and cps % chunk == 0 and GB % 16 == 0
+    assert chunk in (kernels._HXT_CHUNKS if K <= 512 else (kernels._WIDE_BK,))
+    assert cps % chunk == 0 and GB % 16 == 0
     assert 2 <= S <= 8
     seen_g = np.zeros(g, np.int64)
     for a, b in genes:
@@ -51,32 +65,45 @@ def test_hxt_grid_covers_each_gene_and_cell_once(dtype, g, n, K):
 @pytest.mark.parametrize("dtype", list(MMA))
 def test_hxt_grid_fits_shared_memory_and_fragments(dtype):
     """For every K the kernels take: one pass of at most 4 fragments a warp
-    (X read once a range of K), shared memory within a Hopper block's
-    limit, two blocks an SM up to the K where three stages no longer fit
-    half an SM, and the blocks of a wide grid (gene blocks x splits x
-    ranges of K) within one wave on 132 SMs.  Above K = 512 every launch
-    is a range of KR <= 512 rows, on whole fragment rows."""
+    (X read once), shared memory within a Hopper block's limit, two blocks
+    an SM up to the K where three stages no longer fit half an SM, and the
+    blocks of a grid (gene blocks x splits) within one wave on 132 SMs.
+    Above K = 512 the wide kernel: wgmma tiles of legal widths (64 rows a
+    warpgroup, N = 256 a multiple of 8 up to 256) that cover K, whole
+    clusters of gene tiles, the most ring stages within a block, and
+    splits of at most 16,384 cells."""
     xdt = MMA[dtype]
     two_per_sm = []
     for K in COVER_KS:
+        if K > 512:
+            CL, n_split, cps, S = kernels.hxt_wide_grid(2000, 100_000, K, xdt)
+            assert kernels._WIDE_BM == 2 * 64 and kernels._WIDE_BN % 8 == 0
+            assert kernels._WIDE_BN <= 256 and kernels._WIDE_BK % 16 == 0
+            assert -(-K // kernels._WIDE_BN) * kernels._WIDE_BN >= K and CL in (1, 2)
+            tiles = kernels._wide_tiles("hxt", 2000, K)
+            assert tiles % (CL * -(-K // kernels._WIDE_BN)) == 0
+            for aligned in (False, True):
+                assert kernels.x_wide_smem_bytes("hxt", S, xdt, aligned) <= kernels._MAX_SMEM
+            assert S == 8 or kernels.x_wide_smem_bytes("hxt", S + 1, xdt) > kernels._MAX_SMEM
+            assert cps % 64 == 0 and cps <= kernels._WIDE_SPLIT_CELLS
+            assert (n_split - 1) * cps < 100_000 <= n_split * cps
+            continue
         GB, n_split, cps, S, chunk = kernels.hxt_grid(2000, 100_000, K, xdt)
         R, KR = kernels.k_ranges(K)
-        assert KR <= 512 and (R - 1) * KR < K <= R * KR and (R == 1 or KR % 16 == 0)
+        assert (R, KR) == (1, K)
         frags = (kernels._pad16(KR) // 16) * (GB // 16)
         assert frags <= 32 and 8 % (GB // 16) == 0
         smem = kernels.hxt_smem_bytes(KR, GB, S, xdt, chunk)
         assert smem <= kernels._MAX_SMEM
         per_sm = 2 if smem <= kernels._SM_SMEM // 2 - 1024 else 1
-        if K <= 512:
-            two_per_sm.append(per_sm == 2)
+        two_per_sm.append(per_sm == 2)
         # the most stages that fit: one more would pass the budget or 8
         budget = min(kernels._MAX_SMEM, kernels._SM_SMEM // per_sm - 1024)
         assert S == 8 or kernels.hxt_smem_bytes(KR, GB, S + 1, xdt, chunk) > budget
         if chunk != 128:  # the wider chunk does not fit the same budget
             assert kernels.hxt_smem_bytes(KR, GB, 2, xdt, 128) > budget
-        # one wave, or (above 512) the splits of at most 16,384 cells
-        assert (-(-2000 // GB) * n_split * R <= max(-(-2000 // GB) * R, 132 * per_sm)
-                or (R > 1 and n_split <= -(-100_000 // kernels._WIDE_SPLIT_CELLS)))
+        # one wave
+        assert -(-2000 // GB) * n_split <= max(-(-2000 // GB), 132 * per_sm)
     # two blocks an SM from K = 1 up to some K, one above it
     first_one = two_per_sm.index(False)
     assert first_one > 64 and not any(two_per_sm[first_one:])
@@ -105,20 +132,27 @@ def test_cell_splits_keep_the_fp32_and_k1_grid():
 
 def test_hxt_grid_rejects_what_the_kernel_does_not_take():
     """float32/int16 X and K = 0 raise; K = 513 .. 2048 take the large-K
-    route: ranges of at most 512 rows of H, each the K <= 512 grid rule's
-    at its KR, within a Hopper block."""
+    route: hxt_grid refuses them and hxt_wide_grid takes them (and refuses
+    K <= 512 and float32/int16 X), within a Hopper block; the fp32 path
+    keeps its ranges of at most 512 rows of H."""
     for xdt in (torch.float32, torch.int16):
         with pytest.raises(ValueError, match="int8 and bf16"):
             kernels.hxt_grid(100, 100, 8, xdt)
+        with pytest.raises(ValueError, match="int8 and bf16"):
+            kernels.hxt_wide_grid(100, 100, 768, xdt)
     with pytest.raises(ValueError, match="K=0"):
         kernels.hxt_grid(100, 100, 0, torch.int8)
+    with pytest.raises(ValueError, match="K > 512"):
+        kernels.hxt_wide_grid(100, 100, 512, torch.int8)
     for K in (513, 600, 768, 1024, 1025, 2048):
         assert kernels.route(K) == "wide"
         R, KR = kernels.k_ranges(K)
         assert R == -(-K // 512) and KR <= 512 and KR % 16 == 0
-        GB, n_split, cps, S, chunk = kernels.hxt_grid(100, 100, K, torch.int8)
-        assert GB == kernels.hxt_grid(100, 100, KR, torch.int8)[0]
-        assert kernels.hxt_smem_bytes(KR, GB, S, torch.int8, chunk) <= kernels._MAX_SMEM
+        with pytest.raises(ValueError, match="hxt_wide_grid"):
+            kernels.hxt_grid(100, 100, K, torch.int8)
+        CL, n_split, cps, S = kernels.hxt_wide_grid(100, 100, K, torch.int8)
+        assert (CL, n_split, cps) == (2, 2, 64)  # two 64-cell splits fill more of a wave
+        assert kernels.x_wide_smem_bytes("hxt", S, torch.int8) <= kernels._MAX_SMEM
 
 
 def _emulate_hxt(X, H, K, base=None):
@@ -128,7 +162,11 @@ def _emulate_hxt(X, H, K, base=None):
     zero.  ``base`` None takes X's values as they are (the aligned path);
     an address stages each chunk through the aligned windows of X laid out
     there and reads a lane's 8 cells at each row's offset, masked past n
-    (lds8_at / lds16_at, keep_bytes)."""
+    (lds8_at / lds16_at, keep_bytes).  Above K = 512 hxt_wide's
+    (tests/test_torch_wide_passes.py)."""
+    if kernels.route(K) == "wide":
+        from tests.test_torch_wide_passes import emulate_hxt_wide
+        return emulate_hxt_wide(X, H, base)
     g, n = X.shape
     GB, n_split, cps, _, chunk = kernels.hxt_grid(g, n, K, X.dtype)
     Hb, Xf = round_partner(H, X.dtype), X.float()
@@ -213,16 +251,16 @@ def test_hxt_partials_stay_a_small_share_of_x(dtype):
     partials a third of X's int8 bytes."""
     xdt = MMA[dtype]
     sz = 1 if dtype == "int8" else 2
-    share = lambda n, K: 4 * kernels.hxt_grid(2000, n, K, xdt)[1] * K * 2000 / (2000 * n * sz)
+    share = lambda n, K: 4 * hxt_launch_grid(2000, n, K, xdt)[1] * K * 2000 / (2000 * n * sz)
     for n in (33_334, 66_667, 100_000):
         for K in COVER_KS:
-            # above 512 the ranges of K fill the wave: the splits are the
-            # fewest of at most 16,384 cells (the fp32 sums' length)
-            _, n_split, cps, _, chunk = kernels.hxt_grid(2000, n, K, xdt)
+            # above 512 the splits are at least the fewest of at most 16,384
+            # cells (the fp32 sums' length) and at most twice as many
+            _, n_split, cps, _, chunk = hxt_launch_grid(2000, n, K, xdt)
+            least = -(-n // kernels._WIDE_SPLIT_CELLS)
             assert share(n, K) <= 1 / 8 or (
-                K > 512 and n_split == -(-n // cps)
-                and cps <= kernels._WIDE_SPLIT_CELLS + chunk
-                and (n_split - 1) * kernels._WIDE_SPLIT_CELLS < n)
+                K > 512 and n_split == -(-n // cps) and cps <= kernels._WIDE_SPLIT_CELLS
+                and least <= n_split <= 2 * least)
     assert share(100_000, 40) <= 0.03
     assert kernels.hxt_grid(2000, 8192, 40, torch.int8) == (128, 16, 512, 3, 128)
     assert 0.3 < share(8192, 40) * sz < 0.32

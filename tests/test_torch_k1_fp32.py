@@ -83,9 +83,10 @@ def test_iteration_grid_covers_each_cell_and_gene_once(dtype, g, n):
 def test_wide_iteration_grid_covers_each_cell_and_gene_once(dtype, g, n):
     """The large-K chain (K > 512) on every X dtype: iter_wide's blocks walk
     runs of 32-cell tiles, P2's tiles and P1's gene blocks and splits cover
-    their axes once, X's passes take P1/P2's own grids at the same K (X's
-    dtype picks the bf16 or fp32 kernels), H Hᵀ takes hxt_fma's over the K
-    rows of Hn, and every launch fits a Hopper block."""
+    their axes once, X's passes take P1/P2's own large-K grids at the same
+    K (X's dtype picks the wgmma kernels hxt_wide / wtx_wide or the fp32
+    kernels over K's ranges), H Hᵀ takes hxt_fma's over the K rows of Hn,
+    and every launch fits a Hopper block."""
     xdt = {"float32": torch.float32, "int16": torch.int16, "int8": torch.int8,
            "bfloat16": torch.bfloat16}[dtype]
     mma = xdt in kernels._MMA_XTYPES
@@ -97,17 +98,23 @@ def test_wide_iteration_grid_covers_each_cell_and_gene_once(dtype, g, n):
         assert _covered_once(n, range(0, grid.n_part * run, run), run)
         assert grid.KR == kernels.k_ranges(K)[1]
         assert _covered_once(n, range(0, n, grid.wtx_T), grid.wtx_T)
-        assert _covered_once(g, range(0, g, grid.GB), grid.GB)
+        # P1's gene block: hxt_wide's 128-gene tile (GB carries its cluster
+        # size on that path), hxt_fma's GB genes
+        gene_block = kernels._WIDE_BM if mma else grid.GB
+        assert _covered_once(g, range(0, g, gene_block), gene_block)
         cps = grid.cells_per_split
         assert cps % grid.chunk == 0
         assert _covered_once(n, range(0, grid.n_split * cps, cps), cps)
         hh = grid.hh_cells_per_split
         assert _covered_once(K, range(0, K, grid.hh_GB), grid.hh_GB)
         assert _covered_once(n, range(0, grid.hh_n_split * hh, hh), hh)
-        if mma:
-            assert grid[4:8] == kernels.wtx_grid(g, n, K, xdt)[:4]
-            assert grid[8:10] == kernels.wtx_gene_split(g, n, K, xdt)
-            assert grid[10:15] == kernels.hxt_grid(g, n, K, xdt)
+        if mma:  # (tile, cluster, stage, stages, ranges, genes a range) and
+            # (cluster, splits, cells a split, stages, stage) of the wgmma kernels
+            CL, ranges, range_genes, S = kernels.wtx_wide_grid(g, n, K, xdt)
+            assert grid[4:10] == (kernels._WIDE_BM, CL, kernels._WIDE_BK, S, ranges,
+                                  range_genes)
+            CL, n_split, cps, S = kernels.hxt_wide_grid(g, n, K, xdt)
+            assert grid[10:15] == (CL, n_split, cps, S, kernels._WIDE_BK)
         else:
             assert grid[4:8] == kernels.wtx_fma_grid(g, n, K, xdt)[:4]
             assert grid[8:10] == (1, g)
@@ -115,10 +122,8 @@ def test_wide_iteration_grid_covers_each_cell_and_gene_once(dtype, g, n):
         assert grid[15:] == kernels.hxt_fma_grid(K, n, K, torch.float32)
         KR = grid.KR
         if mma:
-            assert kernels.wtx_smem_bytes(KR, grid.wtx_T, grid.wtx_S, xdt,
-                                          grid.wtx_GC) <= kernels._MAX_SMEM
-            assert kernels.hxt_smem_bytes(KR, grid.GB, grid.S, xdt,
-                                          grid.chunk) <= kernels._MAX_SMEM
+            assert kernels.x_wide_smem_bytes("wtx", grid.wtx_S, xdt) <= kernels._MAX_SMEM
+            assert kernels.x_wide_smem_bytes("hxt", grid.S, xdt) <= kernels._MAX_SMEM
         else:
             assert kernels.wtx_fma_smem_bytes(KR, grid.wtx_WR, grid.wtx_S,
                                               xdt) <= kernels._MAX_SMEM

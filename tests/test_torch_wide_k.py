@@ -1,11 +1,13 @@
 """K > 512 on the CPU: the large-K routes of the port's kernels.
 
 On the card every kernel of the fit and transform path takes any K by a
-rule by K (``kernels.route``): P1/P2 over ranges of at most 512 rows of K,
-K1/K2/K4 as the chain of ``kernels.wide_iteration_grid`` (WᵀX by P2's
-kernel, D = WᵀW H by csrc/wtw_gemm.cuh, iter_wide's H update and per-cell
-statistics over 32-cell tiles, X Hsᵀ by P1's kernel, H Hᵀ by hxt_fma over
-Hn), K3 as one launch a step (csrc/wtw_gemm.cuh's update).  The
+rule by K (``kernels.route``): P1/P2 as the wgmma kernels hxt_wide and
+wtx_wide on int8/bf16 X (csrc/x_passes_wide.cuh) and over ranges of at
+most 512 rows of K on float32/int16 X, K1/K2/K4 as the chain of
+``kernels.wide_iteration_grid`` (WᵀX by P2's large-K kernel, D = WᵀW H by
+csrc/wtw_gemm.cuh, iter_wide's H update and per-cell statistics over
+32-cell tiles, X Hsᵀ by P1's large-K kernel, H Hᵀ by hxt_fma over Hn), K3
+as one launch a step (csrc/wtw_gemm.cuh's update).  The
 CUDA kernels run only on the card (tests/test_torch_cuda.py); here, on
 numpy-seeded inputs:
 
@@ -141,13 +143,15 @@ def test_fused_transform_plain_matches_pallas_at_wide_k(K):
 
 
 def _emulate_wide(X, W, H, WtW, Ys, Bs, lam, C, blocks, loss_kl):
-    """fused_iteration's large-K chain in PyTorch: WᵀX in P2's order over its
-    K ranges (bf16 or fp32 path by X's dtype), D = WᵀW H, the H update and
+    """fused_iteration's large-K chain in PyTorch: WᵀX in P2's large-K order
+    (wtx_wide's on int8/bf16 X, wtx_fma's over its K ranges on
+    float32/int16: tests/test_torch_wide_passes.py, test_torch_fp32_passes.py),
+    D = WᵀW H, the H update and
     guided terms elementwise as iter_wide forms them, iter_wide's per-block
     partials (each block's 32-cell tiles in order, rowsum, Bnum = Q Hsᵀ,
     the prediction-loss rows and the loss dot), added in block order; X Hsᵀ
-    in P1's order and H Hᵀ = Hs Hnᵀ (and HHtU) in hxt_fma's over Hn's
-    rows.  Returns the outputs of ``fused_iteration`` (``fused_h_update``
+    in P1's large-K order (hxt_wide's splits, or hxt_fma's) and H Hᵀ =
+    Hs Hnᵀ (and HHtU) in hxt_fma's over Hn's rows.  Returns the outputs of ``fused_iteration`` (``fused_h_update``
     without covariates)."""
     g, n = X.shape
     K = H.shape[0]
@@ -244,8 +248,9 @@ def test_wide_chain_emulation_matches_plain(dtype, K, n, counts, loss_kl):
     """The large-K chain's summation order against the plain version at
     rtol 1e-5, undrawn columns of H bit for bit; XHt against the plain
     product over the emulation's own Hs (an Hn one ulp off can round Hs to
-    another bf16 value on int8/bf16 X).  K = 1030 takes three ranges of 352
-    rows, the last of 326 on its own layout."""
+    another bf16 value on int8/bf16 X).  K = 1030 takes, on float32/int16
+    X, three ranges of 352 rows, the last of 326 on its own layout, and on
+    int8/bf16 X five 256-row tiles of K, the last of 6 rows."""
     X, W, H, WtW, Ys, Bs, lam, C, blocks = _wide_problem(K + n, n, K, dtype, counts)
     want = list(kernels.fused_iteration_plain(X, W, H, WtW, Ys, Bs, lam, EPS, C,
                                               blocks=blocks, loss_kl=loss_kl))

@@ -1,14 +1,17 @@
-"""The grid rule of P2 ``wtx``'s bf16 path (``kernels.wtx_grid``) on the CPU.
+"""The grid rules of P2 ``wtx``'s bf16 path on the CPU: ``kernels.wtx_grid``
+for K <= 512 and ``kernels.wtx_wide_grid`` above.
 
-The CUDA kernel (csrc/x_passes.cu: round_w, then wtx_mma) runs only on the
-card; these tests hold what it is given: every cell covered once by tiles
-that are multiples of 16, all of K in one pass within 48 accumulators a
-thread, shared memory within a Hopper block's limit with two blocks an SM
-for every K, the bench shape's grid pinned, and an emulation of the
-kernel's arithmetic over that grid (W rounded to bf16, exact products, fp32
-sums chunk by chunk over the genes) equal to ``wtx_plain`` at rtol 1e-5
-(fp32 sums of positive terms in another order).  The float32/int16 path
-takes ``wtx_fma_grid`` (tests/test_torch_fp32_passes.py).
+The CUDA kernels (csrc/x_passes.cu: round_w, then wtx_mma; above K = 512
+csrc/x_passes_wide.cuh: wtx_wide) run only on the card; these tests hold
+what they are given: every cell covered once by tiles that are multiples
+of 16, all of K in one pass within 48 accumulators a thread (K <= 512),
+shared memory within a Hopper block's limit (two blocks an SM for K <=
+512), the bench shape's grid pinned, and an emulation of the kernel's
+arithmetic over that grid (W rounded to bf16, exact products, fp32 sums
+chunk by chunk over the genes) equal to ``wtx_plain`` at rtol 1e-5 (fp32
+sums of positive terms in another order).  The float32/int16 path takes
+``wtx_fma_grid`` (tests/test_torch_fp32_passes.py); the wide kernel's
+operands: tests/test_torch_wide_passes.py.
 """
 
 import numpy as np
@@ -29,7 +32,13 @@ SLOTS = 2 * kernels._SMS  # two blocks an SM
                                  (300, 50_016), (20_000, 1001), (1, 64)])
 @pytest.mark.parametrize("K", KS)
 def test_wtx_grid_covers_each_cell_once(dtype, g, n, K):
-    T, WR, GC, S, blocks = kernels.wtx_grid(g, n, K, MMA[dtype])
+    if K > 512:  # 128-cell tiles in whole clusters, 64-gene stages
+        CL, _, _, S = kernels.wtx_wide_grid(g, n, K, MMA[dtype])
+        T, WR, GC = kernels._WIDE_BM, 8, kernels._WIDE_BK
+        blocks = -(-n // T)
+        assert kernels._wide_tiles("wtx", n, K) == -(-blocks // CL) * CL * -(-K // kernels._WIDE_BN)
+    else:
+        T, WR, GC, S, blocks = kernels.wtx_grid(g, n, K, MMA[dtype])
     assert T % 16 == 0 and T // (8 // WR) % 16 == 0 and GC in (32, 64)
     assert WR in (1, 2, 4, 8) and 2 <= S <= 8
     seen = np.zeros(n, np.int64)
@@ -52,6 +61,15 @@ def test_wtx_grid_fits_shared_memory_and_accumulators(dtype):
     budget = min(kernels._MAX_SMEM, kernels._SM_SMEM // 2 - 1024)
     for n in (100_000, 5040):
         for K in COVER_KS:
+            if K > 512:  # the wide kernel: one block an SM, the most stages
+                S = kernels.wtx_wide_grid(2000, n, K, xdt)[3]
+                for aligned in (False, True):
+                    smem = kernels.x_wide_smem_bytes("wtx", S, xdt, aligned)
+                    assert smem <= kernels._MAX_SMEM
+                    # the ring holds the epilogue's 256 x 132 fp32 outputs
+                    assert smem - 1024 - 16 * S >= 256 * 132 * 4
+                assert S == 8 or kernels.x_wide_smem_bytes("wtx", S + 1, xdt) > kernels._MAX_SMEM
+                continue
             T, WR, GC, S, blocks = kernels.wtx_grid(2000, n, K, xdt)
             KR = kernels.k_ranges(K)[1]
             rows = kernels._pad16(KR) // 16
@@ -83,20 +101,25 @@ def test_wtx_grid_at_the_bench_shape():
 
 def test_wtx_grid_rejects_what_the_kernel_does_not_take():
     """float32/int16 X and K = 0 raise; K = 513 .. 2048 take the large-K
-    route: ranges of at most 512 columns of W, each the K <= 512 rule's
-    layout at its KR, with its blocks counted in the gene split's wave."""
+    route: wtx_grid and wtx_gene_split refuse them, wtx_wide_grid takes
+    them (one 128-cell tile, a block alone, all 100 genes in one
+    range) within a Hopper block and refuses K <= 512."""
     for xdt in (torch.float32, torch.int16):
         with pytest.raises(ValueError, match="int8 and bf16"):
             kernels.wtx_grid(100, 100, 8, xdt)
+        with pytest.raises(ValueError, match="int8 and bf16"):
+            kernels.wtx_wide_grid(100, 100, 768, xdt)
     with pytest.raises(ValueError, match="K=0"):
         kernels.wtx_grid(100, 100, 0, torch.int8)
+    with pytest.raises(ValueError, match="K > 512"):
+        kernels.wtx_wide_grid(100, 100, 512, torch.int8)
     for K in (513, 600, 768, 1024, 1025, 2048):
-        R, KR = kernels.k_ranges(K)
-        T, WR, GC, S, blocks = kernels.wtx_grid(100, 100, K, torch.int8)
-        assert R >= 2 and blocks == -(-100 // T)
-        assert kernels.wtx_smem_bytes(KR, T, S, torch.int8, GC) <= kernels._MAX_SMEM
-        ranges, genes = kernels.wtx_gene_split(100, 100, K, torch.int8)
-        assert blocks * R * ranges <= max(blocks * R, SLOTS)
+        for rule in (kernels.wtx_grid, kernels.wtx_gene_split):
+            with pytest.raises(ValueError, match="wtx_wide_grid"):
+                rule(100, 100, K, torch.int8)
+        CL, ranges, genes, S = kernels.wtx_wide_grid(100, 100, K, torch.int8)
+        assert (CL, ranges, genes) == (1, 1, 128)
+        assert kernels.x_wide_smem_bytes("wtx", S, torch.int8) <= kernels._MAX_SMEM
 
 
 # ---- X rows at any byte alignment: the aligned-window staging -----------
@@ -215,7 +238,11 @@ def _emulate_wtx(X, W, K, base=None):
     product, in gene order; with several ranges their partials added in
     range order from zero.  ``base`` None takes X's values as they are (the
     aligned path); an address stages each tile through the aligned windows
-    of X laid out there and reads each row from its offset."""
+    of X laid out there and reads each row from its offset.  Above K = 512
+    wtx_wide's (tests/test_torch_wide_passes.py)."""
+    if kernels.route(K) == "wide":
+        from tests.test_torch_wide_passes import emulate_wtx_wide
+        return emulate_wtx_wide(X, W, base)
     g, n = X.shape
     T, _, GC, _, blocks = kernels.wtx_grid(g, n, K, X.dtype)
     ranges, range_genes = kernels.wtx_gene_split(g, n, K, X.dtype)
@@ -298,9 +325,22 @@ def test_wtx_window_staging_gives_the_aligned_bits(dtype, n, base):
 def test_wtx_gene_split_covers_each_gene_once(dtype, K):
     """Gene ranges are whole ring chunks, at least 4 a range, each gene in
     one range; tiles × ranges stay within one wave (two blocks an SM), and
-    a grid of a wave or more keeps one range."""
+    a grid of a wave or more keeps one range.  Above K = 512 (wtx_wide's
+    ranges of 64-gene stages): 1..4 ranges, only where the tiles fill less
+    than four waves of one block an SM."""
     for g, n in ((2000, 8192), (2000, 100_000), (2000, 66_667), (600, 1001),
                  (20_000, 1001), (70, 17), (1, 64)):
+        if K > 512:
+            _, ranges, per, _ = kernels.wtx_wide_grid(g, n, K, MMA[dtype])
+            tiles = kernels._wide_tiles("wtx", n, K)
+            assert per % kernels._WIDE_BK == 0 and 1 <= ranges <= 4
+            assert ranges == 1 or (tiles < 4 * kernels._SMS and per // kernels._WIDE_BK >= 4)
+            seen = np.zeros(g, np.int64)
+            for r in range(ranges):
+                assert r * per < g  # no empty range
+                seen[r * per:(r + 1) * per] += 1
+            assert (seen == 1).all()
+            continue
         T, _, GC, _, blocks = kernels.wtx_grid(g, n, K, MMA[dtype])
         ranges, per = kernels.wtx_gene_split(g, n, K, MMA[dtype])
         assert per % GC == 0
