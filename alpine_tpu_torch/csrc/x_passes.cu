@@ -74,11 +74,12 @@
 // fused_iteration (K1, K2, K4 at K > 512; replaces alpine_tpu/ops/
 // pallas_kernels.py:fused_iteration and fused_h_update where K > 512), one
 // C call launching a chain: WᵀX (wtx_wide, or wtx_fma) → D = WᵀW H
-// (wtw_gemm.cuh) → iter_wide (the H update and the per-cell statistics) →
-// X Hsᵀ (hxt_wide, or hxt_fma) → H Hᵀ by hxt_fma over Hn → the partials'
+// (wtw_gemm.cuh) → iter_wide (the H update, Q and the loss rows) → X Hsᵀ
+// (hxt_wide, or hxt_fma) → gram_wide (gram_wide.cuh: H Hᵀ over the upper
+// triangle, HHtU, rowsum and Bnum from one read of Hn) → the partials'
 // sums.  Its bound at 100k cells x 2000 genes, K = 768, int8: the fp32
-// (WᵀW)H and Hn Hnᵀ, 236 GFLOP, 3.5 ms at 67 TFLOP/s (the bf16 X products
-// 614 GFLOP, 0.62 ms; bytes 0.24 ms).
+// (WᵀW)H and the upper triangle of Hn Hnᵀ, 177 GFLOP, 2.7 ms at 67 TFLOP/s
+// (the bf16 X products 614 GFLOP, 0.62 ms; bytes 0.25 ms).
 #include "fma_passes.cuh"
 #include "wtw_gemm.cuh"
 
@@ -875,6 +876,7 @@ static int launch_wtx_mma(const void* X, const float* W, int g, int n, int K, in
 }  // namespace alpine
 
 #include "x_passes_wide.cuh"
+#include "gram_wide.cuh"
 
 namespace alpine {
 
@@ -884,17 +886,23 @@ namespace alpine {
 // H Hᵀ a block; neither holds at large K.  Here no kernel's shared memory
 // grows with K: the X products are P1's and P2's large-K kernels (hxt_wide
 // and wtx_wide on int8/bf16 X, the fp32 passes over their K ranges), the
-// denominator's (WᵀW)H is wtw_gemm, H Hᵀ is hxt_fma with Hn in X's place,
-// and iter_wide takes one lane a cell and one row of K a warp pass, reading
-// H, WᵀX and D from device memory.
+// denominator's (WᵀW)H is wtw_gemm, the H update is iter_wide (a pass at
+// the card's read rate over H, WᵀX and D), and every statistic over cells
+// against Hn (H Hᵀ, HHtU, rowsum, Bnum) is gram_wide, from one read of Hn.
 
-constexpr int kWideT = 32;  // cells a tile of iter_wide (ops/kernels.py:_WIDE_T)
+constexpr int kWideV = 4;             // cells a lane of iter_wide (one 16-byte load)
+constexpr int kWideT = 32 * kWideV;   // cells a tile (ops/kernels.py:_WIDE_T)
+constexpr int kWideLC = 8;            // labels a pass of iter_wide's sums over j
 
-// iter_wide's shared memory: Y, B H (then Q) and the prediction-loss terms
-// (L x 32 each), the counts rows (2 x 32) and a block reduction.
+// iter_wide's shared memory in floats: Y and B H (then the loss terms)
+// (L x 128 each), the warps' partial sums over j (8 x kWideLC x 128), the
+// counts rows (2 x 128), a block reduction (kThreads), the prediction-loss
+// rows (L, rounded up to 4) and, where it fits, Bg (L x Kg).
 // ops/kernels.py:wide_smem_bytes holds the same formula.
-__host__ __device__ inline size_t wide_smem_bytes(int L, bool counts) {
-  return (size_t)(3 * L * kWideT + (counts ? 2 * kWideT : 0) + kThreads) * sizeof(float);
+__host__ __device__ inline size_t wide_smem_floats(int L, int Kg, bool counts, bool stage_bg) {
+  const size_t labels = L > 0 ? 2 * (size_t)L * kWideT + (size_t)kWarps * kWideLC * kWideT : 0;
+  return labels + (counts ? 2 * kWideT : 0) + kThreads + (size_t)(L + 3) / 4 * 4 +
+         (stage_bg ? (size_t)L * Kg : 0);
 }
 
 // The sum of v over a warp, in a fixed order (lane 0's value is used).
@@ -904,130 +912,235 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// The H update of 32-cell tiles (lane t: cell c0 + t) with the guided terms of
-// every covariate through the block-embedded Bg (L x Kg), then each tile's
-// statistics into the block's partial: rowsum(Hs) (K), Bnum = Q Hsᵀ (L x K),
-// the prediction-loss rows (L) and the loss dot sum(WᵀX ⊙ Hn) (1).  The
-// block walks a run of tiles in order, so the partial's sums take a fixed
-// order.  Every sum over j or l is formed as iter_tiles forms it (fmaf in
-// order from 0); the sums over a tile's cells are warp trees.  Counts mode
-// as in iter_tiles: a column drawn 0 times keeps its H; Hs = c_next ⊙ Hn
-// (written to Hs for the passes after) feeds rowsum and Bnum.
+// The 4 cells cb .. cb + 3 of a row: one 16-byte load where rows are 16-byte
+// aligned (n % 4 == 0: the 4 cells are all in or all past n), else element
+// loads; zeros past n either way.
+__device__ __forceinline__ void wide_ld4(const float* row, int cb, int n, bool vec, float* v) {
+  if (vec) {
+    if (cb < n) {
+      const float4 t = *reinterpret_cast<const float4*>(row + cb);
+      v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
+    } else {
+      v[0] = v[1] = v[2] = v[3] = 0.f;
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < kWideV; ++q) v[q] = cb + q < n ? row[cb + q] : 0.f;
+  }
+}
+
+__device__ __forceinline__ void wide_st4(float* row, int cb, int n, bool vec, const float* v) {
+  if (vec) {
+    if (cb < n) *reinterpret_cast<float4*>(row + cb) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+#pragma unroll
+    for (int q = 0; q < kWideV; ++q)
+      if (cb + q < n) row[cb + q] = v[q];
+  }
+}
+
+// The label sums of a 128-cell tile over the guided rows of src (H, or Hn):
+// warp w takes rows j = w, w + 8, ... < Kg in order and writes its partial
+// sums of labels l0 .. l0 + nl - 1, sum over its j of Bg[l][j] src[j][cell],
+// to sP[w][l][cell] (fmaf in order from 0).
+__device__ __forceinline__ void wide_label_sums(const float* src, const float* sBg,
+                                                const float* __restrict__ Bg, bool stage_bg,
+                                                int n, int Kg, int l0, int nl, int cb,
+                                                bool vec, float* sP) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  float acc[kWideLC][kWideV];
+#pragma unroll
+  for (int l = 0; l < kWideLC; ++l)
+#pragma unroll
+    for (int q = 0; q < kWideV; ++q) acc[l][q] = 0.f;
+  for (int j = warp; j < Kg; j += kWarps) {
+    float v[kWideV];
+    wide_ld4(src + (size_t)j * n, cb, n, vec, v);
+#pragma unroll
+    for (int l = 0; l < kWideLC; ++l) {
+      if (l < nl) {
+        const size_t o = (size_t)(l0 + l) * Kg + j;
+        const float b = stage_bg ? sBg[o] : __ldg(Bg + o);
+#pragma unroll
+        for (int q = 0; q < kWideV; ++q) acc[l][q] = fmaf(b, v[q], acc[l][q]);
+      }
+    }
+  }
+#pragma unroll
+  for (int l = 0; l < kWideLC; ++l)
+    if (l < nl)
+      *reinterpret_cast<float4*>(sP + (warp * kWideLC + l) * kWideT + kWideV * lane) =
+          make_float4(acc[l][0], acc[l][1], acc[l][2], acc[l][3]);
+}
+
+// The H update of 128-cell tiles (lane t: cells c0 + 4 t .. + 3) with the
+// guided terms of every covariate through the block-embedded Bg (L x Kg,
+// staged in shared memory where it fits); it writes Hn (and, in counts mode,
+// Hs = c_next ⊙ Hn), Q (L x n: Y / max(Bg Hn, eps) for KL, Y otherwise, the
+// next B update's ratio, read by gram_wide), and a partial a block: the
+// prediction-loss rows (L) and the loss dot sum(WᵀX ⊙ Hn) (1).
+//  * B H and ŷ = Bg Hn[:Kg]: every warp takes an eighth of the guided rows
+//    for all labels of a pass (kWideLC), and the eight partials of each
+//    (label, cell) are added in warp order through shared memory.
+//  * The update: one row of K a warp pass, 16-byte loads of H, WᵀX and D
+//    where rows are 16-byte aligned (else element loads: the same bits);
+//    each element's num / den formed as iter_tiles forms it (sums over l
+//    in order from 0, IEEE division).  Counts mode as in iter_tiles: a
+//    column drawn 0 times keeps its H.
+//  * A label's loss terms over a tile: a warp adds a lane's 4 cells in
+//    order, then a warp tree, into the block's row in shared memory.  The
+//    loss dot: each thread's terms in order, a block tree at the end.  The
+//    block walks a run of tiles in order on a fixed grid, so the partials
+//    sum in a fixed order.
 template <typename YT, bool kCounts>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(kThreads, 4)
 iter_wide(const float* __restrict__ H, const float* __restrict__ WtX,
           const float* __restrict__ D, const YT* __restrict__ Y,
           const float* __restrict__ Bg, const float* __restrict__ lam_rows,
           const float* __restrict__ C, int n, int K, int L, int Kg, int loss_kl, float eps,
-          int tiles_per_block, int n_tiles, int S_small, float* Hn, float* Hs,
+          int stage_bg, int tiles_per_block, int n_tiles, float* Hn, float* Hs, float* Q,
           float* __restrict__ part) {
   extern __shared__ __align__(16) float sm[];
-  float* sY = sm;                  // L x 32: Y widened to fp32
-  float* sA = sY + L * kWideT;     // L x 32: B H (Y / max(B H, eps) for KL), then Q
-  float* sE = sA + L * kWideT;     // L x 32: prediction-loss terms
-  float* sC = sE + L * kWideT;     // 2 x 32, counts mode: c_cur, c_next
-  float* sRed = sC + (kCounts ? 2 * kWideT : 0);  // kThreads
+  const int LT = L * kWideT;
+  float* sY = sm;                                     // L x 128: Y widened to fp32
+  float* sA = sY + LT;                                // L x 128: B H (Y / max(B H, eps) for KL)
+  float* sP = sA + LT;                                // 8 x kWideLC x 128 (L > 0)
+  float* sC = sP + (L > 0 ? kWarps * kWideLC * kWideT : 0);  // 2 x 128: c_cur, c_next
+  float* sRed = sC + (kCounts ? 2 * kWideT : 0);      // kThreads
+  float* sPred = sRed + kThreads;                     // L
+  float* sBg = sPred + (L + 3) / 4 * 4;               // L x Kg
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int off_bnum = K, off_pred = K + L * K, off_ld = off_pred + L;
-  float* mypart = part + (size_t)blockIdx.x * S_small;
-  const float* Hsrc = kCounts ? Hs : Hn;  // the operand of rowsum and Bnum
-  for (int j = tid; j < S_small; j += kThreads) mypart[j] = 0.f;
+  const bool bg_smem = stage_bg != 0;
+  auto a16 = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; };
+  const bool vec = n % 4 == 0 && a16(H) && a16(WtX) && a16(D) && a16(Hn) && (!kCounts || a16(Hs));
+  if (bg_smem)
+    for (int e = tid; e < L * Kg; e += kThreads) sBg[e] = Bg[e];
+  for (int l = tid; l < L; l += kThreads) sPred[l] = 0.f;
   float ld = 0.f;
   const int tile_begin = blockIdx.x * tiles_per_block;
   const int tile_end = min(n_tiles, tile_begin + tiles_per_block);
   for (int tile = tile_begin; tile < tile_end; ++tile) {
-    const int c0 = tile * kWideT, c = c0 + lane;
-    const bool valid = c < n;
-    __syncthreads();  // the previous tile is done with shared memory (the partial is zeroed)
-    for (int l = warp; l < L; l += kWarps) {
-      const float y = valid ? to_f(Y[(size_t)l * n + c]) : 0.f;
-      float bh = 0.f;
-      if (valid) {
-        const float* b = Bg + (size_t)l * Kg;
-#pragma unroll 4
-        for (int j = 0; j < Kg; ++j) bh = fmaf(__ldg(b + j), H[(size_t)j * n + c], bh);
-      }
-      sY[l * kWideT + lane] = y;
-      sA[l * kWideT + lane] = loss_kl ? y / fmaxf(bh, eps) : bh;
+    const int c0 = tile * kWideT, cb = c0 + kWideV * lane;
+    __syncthreads();  // the previous tile is done with shared memory
+    for (int e = tid; e < LT; e += kThreads) {
+      const int l = e / kWideT, cell = c0 + e % kWideT;
+      sY[e] = cell < n ? to_f(Y[(size_t)l * n + cell]) : 0.f;
     }
     if constexpr (kCounts) {
-      if (tid < 2 * kWideT) sC[tid] = valid ? C[(size_t)(tid / kWideT) * n + c] : 0.f;
+      for (int e = tid; e < 2 * kWideT; e += kThreads) {
+        const int r = e / kWideT, cell = c0 + e % kWideT;
+        sC[e] = cell < n ? C[(size_t)r * n + cell] : 0.f;
+      }
     }
     __syncthreads();
+    // B H, then A = Y / max(B H, eps) (KL) or B H (Frobenius)
+    for (int l0 = 0; l0 < L; l0 += kWideLC) {
+      const int nl = min(kWideLC, L - l0);
+      wide_label_sums(H, sBg, Bg, bg_smem, n, Kg, l0, nl, cb, vec, sP);
+      __syncthreads();
+      for (int e = tid; e < nl * kWideT; e += kThreads) {
+        const int l = e / kWideT, t = e % kWideT;
+        float s = sP[e];
+#pragma unroll
+        for (int w = 1; w < kWarps; ++w) s += sP[(w * kWideLC + l) * kWideT + t];
+        const float y = sY[(l0 + l) * kWideT + t];
+        sA[(l0 + l) * kWideT + t] = loss_kl ? y / fmaxf(s, eps) : s;
+      }
+      __syncthreads();
+    }
     // the multiplicative update, one row of K a warp pass
     for (int k = warp; k < K; k += kWarps) {
-      const size_t o = (size_t)k * n + c;
-      float h = 0.f, wtx = 0.f, d = 0.f;
-      if (valid) h = H[o], wtx = WtX[o], d = D[o];
-      float num = 2.f * wtx, den = 2.f * d;
+      const size_t o = (size_t)k * n;
+      float h[kWideV], w4[kWideV], d[kWideV], num[kWideV], den[kWideV];
+      wide_ld4(H + o, cb, n, vec, h);
+      wide_ld4(WtX + o, cb, n, vec, w4);
+      wide_ld4(D + o, cb, n, vec, d);
+#pragma unroll
+      for (int q = 0; q < kWideV; ++q) num[q] = 2.f * w4[q], den[q] = 2.f * d[q];
       if (k < Kg) {
         const float lam = __ldg(lam_rows + k);
-        if (loss_kl) {
-          float s = 0.f, col = 0.f;
-          for (int l = 0; l < L; ++l) {
-            const float b = __ldg(Bg + (size_t)l * Kg + k);
-            s = fmaf(b, sA[l * kWideT + lane], s);
+        float s1[kWideV] = {0.f, 0.f, 0.f, 0.f}, s2[kWideV] = {0.f, 0.f, 0.f, 0.f};
+        float col = 0.f;
+        for (int l = 0; l < L; ++l) {
+          const size_t ob = (size_t)l * Kg + k;
+          const float b = bg_smem ? sBg[ob] : __ldg(Bg + ob);
+          const float4 a = *reinterpret_cast<const float4*>(sA + l * kWideT + kWideV * lane);
+          const float av[kWideV] = {a.x, a.y, a.z, a.w};
+          if (loss_kl) {
+#pragma unroll
+            for (int q = 0; q < kWideV; ++q) s1[q] = fmaf(b, av[q], s1[q]);
             col += b;
+          } else {
+            const float4 y = *reinterpret_cast<const float4*>(sY + l * kWideT + kWideV * lane);
+            const float yv[kWideV] = {y.x, y.y, y.z, y.w};
+#pragma unroll
+            for (int q = 0; q < kWideV; ++q) {
+              s1[q] = fmaf(b, yv[q], s1[q]);
+              s2[q] = fmaf(b, av[q], s2[q]);
+            }
           }
-          num += lam * s;
-          den += lam * col;
-        } else {
-          float sy = 0.f, sb = 0.f;
-          for (int l = 0; l < L; ++l) {
-            const float b = __ldg(Bg + (size_t)l * Kg + k);
-            sy = fmaf(b, sY[l * kWideT + lane], sy);
-            sb = fmaf(b, sA[l * kWideT + lane], sb);
+        }
+#pragma unroll
+        for (int q = 0; q < kWideV; ++q) {
+          if (loss_kl) {
+            num[q] += lam * s1[q];
+            den[q] += lam * col;
+          } else {
+            const float l2 = 2.f * lam;
+            num[q] += l2 * s1[q];
+            den[q] += l2 * s2[q];
           }
-          const float l2 = 2.f * lam;
-          num += l2 * sy;
-          den += l2 * sb;
         }
       }
-      float hn = valid ? h * (num / fmaxf(den, eps)) : 0.f;
-      float hs = hn;
-      if constexpr (kCounts) {
-        if (!(sC[lane] > 0.f)) hn = h;  // undrawn (and past n): keep H
-        hs = hn * sC[kWideT + lane];
-        if (valid) Hs[o] = hs;
+      float hn[kWideV];
+#pragma unroll
+      for (int q = 0; q < kWideV; ++q) {
+        hn[q] = cb + q < n ? h[q] * (num[q] / fmaxf(den[q], eps)) : 0.f;
+        if constexpr (kCounts) {
+          if (!(sC[kWideV * lane + q] > 0.f)) hn[q] = h[q];  // undrawn (and past n): keep H
+        }
+        ld = fmaf(w4[q], hn[q], ld);
       }
-      if (valid) Hn[o] = hn;
-      ld = fmaf(wtx, hn, ld);
-      const float rs = warp_sum(hs);
-      if (lane == 0) mypart[k] += rs;
+      wide_st4(Hn + o, cb, n, vec, hn);
+      if constexpr (kCounts) {  // Hs = c_next ⊙ Hn
+#pragma unroll
+        for (int q = 0; q < kWideV; ++q) hn[q] *= sC[kWideT + kWideV * lane + q];
+        wide_st4(Hs + o, cb, n, vec, hn);
+      }
     }
     if (L == 0) continue;
-    __syncthreads();  // the tile's Hn (Hs), from every warp, visible to the block
-    // prediction loss on (B, Hn) and the next B update's Q
-    for (int l = warp; l < L; l += kWarps) {
-      float yh = 0.f;
-      if (valid) {
-        const float* b = Bg + (size_t)l * Kg;
-#pragma unroll 4
-        for (int j = 0; j < Kg; ++j) yh = fmaf(__ldg(b + j), Hn[(size_t)j * n + c], yh);
+    __syncthreads();  // the tile's Hn, from every warp, visible to the block
+    // ŷ = Bg Hn, the prediction-loss terms and Q
+    for (int l0 = 0; l0 < L; l0 += kWideLC) {
+      const int nl = min(kWideLC, L - l0);
+      wide_label_sums(Hn, sBg, Bg, bg_smem, n, Kg, l0, nl, cb, vec, sP);
+      __syncthreads();
+      for (int e = tid; e < nl * kWideT; e += kThreads) {
+        const int l = e / kWideT, t = e % kWideT, cell = c0 + t;
+        float yh = sP[e];
+#pragma unroll
+        for (int w = 1; w < kWarps; ++w) yh += sP[(w * kWideLC + l) * kWideT + t];
+        const float y = sY[(l0 + l) * kWideT + t];
+        float q, err;
+        if (loss_kl) {
+          const float yc = fmaxf(yh, eps);
+          q = y / yc;
+          err = y * logf(fmaxf(q, eps)) - y + yc;
+        } else {
+          const float dd = y - yh;
+          q = y;
+          err = dd * dd;
+        }
+        if (cell < n) Q[(size_t)(l0 + l) * n + cell] = q;
+        sP[e] = cell < n ? err : 0.f;  // over warp 0's partial, read above by this thread
       }
-      const float y = sY[l * kWideT + lane];
-      float q, e;
-      if (loss_kl) {
-        const float yc = fmaxf(yh, eps);
-        q = y / yc;
-        e = y * logf(fmaxf(q, eps)) - y + yc;
-      } else {
-        const float dd = y - yh;
-        q = y;
-        e = dd * dd;
+      __syncthreads();
+      for (int l = warp; l < nl; l += kWarps) {
+        const float4 v = *reinterpret_cast<const float4*>(sP + l * kWideT + kWideV * lane);
+        const float s = warp_sum(((v.x + v.y) + v.z) + v.w);
+        if (lane == 0) sPred[l0 + l] += s;
       }
-      sA[l * kWideT + lane] = valid ? q : 0.f;
-      const float es = warp_sum(valid ? e : 0.f);
-      if (lane == 0) mypart[off_pred + l] += es;
-    }
-    __syncthreads();
-    // Bnum = Q Hsᵀ over the tile
-    for (int k = warp; k < K; k += kWarps) {
-      const float hs = valid ? Hsrc[(size_t)k * n + c] : 0.f;
-      for (int l = 0; l < L; ++l) {
-        const float s = warp_sum(sA[l * kWideT + lane] * hs);
-        if (lane == 0) mypart[off_bnum + (size_t)l * K + k] += s;
-      }
+      __syncthreads();  // before sP is written again
     }
   }
   // the loss dot, a tree over the block's threads
@@ -1037,35 +1150,39 @@ iter_wide(const float* __restrict__ H, const float* __restrict__ WtX,
     if (tid < s) sRed[tid] += sRed[tid + s];
     __syncthreads();
   }
-  if (tid == 0) mypart[off_ld] = sRed[0];
+  float* mypart = part + (size_t)blockIdx.x * (L + 1);
+  for (int l = tid; l < L; l += kThreads) mypart[l] = sPred[l];
+  if (tid == 0) mypart[L] = sRed[0];
 }
 
 // The launch parameters of the chain (ops/kernels.py:WideIterationGrid, in
 // its order).  P2 and P1 on int8/bf16 X: wtx_wide (wWR its cluster size) and
 // hxt_wide (GB its cluster size); on float32/int16 X wtx_fma (wWR its lanes
-// along K) and hxt_fma over K ranges of KR rows.
+// along K) and hxt_fma over K ranges of KR rows.  gram_wide's splits.
 struct WideGrid {
   int T, n_part, tiles_per_block, KR;
   int wT, wWR, wGC, wS, w_ranges, w_range_genes;  // P2 for WᵀX
   int GB, n_split, cells_per_split, S, CW;        // P1 for X Hsᵀ
-  int hGB, h_n_split, h_cells_per_split, hS, hCW;  // hxt_fma over Hn for H Hᵀ
+  int g_split, g_cells_per_split;                 // gram_wide
 };
 
-// WᵀX → D = WᵀW H → iter_wide → X Hsᵀ partials → Hs Hnᵀ (and, in counts
-// mode, Hn Hnᵀ) by hxt_fma over Hn, each summed by reduce_splits into stats
-// → reduce_partials: the small statistics into stats after H Hᵀ, and XHt.
-// The X products take P1/P2's path by X's dtype (bf16 tensor cores for
-// int8/bf16 X, FP32 units for float32/int16), as the K <= 512 kernel does.
+// WᵀX → D = WᵀW H → iter_wide (Hn, Hs, Q) → X Hsᵀ partials → gram_wide (H Hᵀ,
+// HHtU, rowsum, Bnum into stats) → reduce_partials: the prediction rows and
+// the loss dot into stats, and XHt.  The X products take P1/P2's path by
+// X's dtype (bf16 tensor cores for int8/bf16 X, FP32 units for
+// float32/int16), as the K <= 512 kernel does.
 template <typename XT, bool kBf16, bool kCounts>
 static int launch_iteration_wide(const void* X, const float* W, const float* H,
                                  const float* WtW, const void* Y, const float* Bg,
                                  const float* lam_rows, const float* C, int g, int n, int K,
-                                 int L, int Kg, int loss_kl, float eps, const WideGrid& p,
+                                 int L, int Kg, int loss_kl, int stage_bg, float eps,
+                                 const WideGrid& p,
                                  float* Hn, float* XHt, float* stats, float* WtX, float* D,
-                                 float* Hs, float* part, float* part_x, float* part_hh,
-                                 void* hb, void* wb, float* wpart, cudaStream_t stream) {
+                                 float* Hs, float* Q, float* part, float* part_x,
+                                 float* part_hh, void* hb, void* wb, float* wpart,
+                                 cudaStream_t stream) {
   if (p.T != kWideT || K < 1 || L < 0 || (kCounts && (C == nullptr || Hs == nullptr)) ||
-      (L > 0 && (Y == nullptr || Bg == nullptr || lam_rows == nullptr)))
+      (L > 0 && (Y == nullptr || Bg == nullptr || lam_rows == nullptr || Q == nullptr)))
     return (int)cudaErrorInvalidValue;
   int rc;
   if constexpr (kBf16) {
@@ -1077,18 +1194,17 @@ static int launch_iteration_wide(const void* X, const float* W, const float* H,
   if (rc != 0) return rc;
   cudaError_t err = launch_wtw_gemm<kGemmStore>(WtW, H, K, n, nullptr, 0.f, D, stream);
   if (err != cudaSuccess) return (int)err;
-  const size_t smem = wide_smem_bytes(L, kCounts);
+  const size_t smem = wide_smem_floats(L, Kg, kCounts, stage_bg != 0) * sizeof(float);
   if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
   err = allow_smem(reinterpret_cast<const void*>(iter_wide<XT, kCounts>), smem);
   if (err != cudaSuccess) return (int)err;
   const int n_tiles = (n + kWideT - 1) / kWideT;
-  const int S_small = K + L * K + L + 1;  // rowsum, Bnum, prediction rows, loss dot
   iter_wide<XT, kCounts><<<p.n_part, kThreads, smem, stream>>>(
       H, WtX, D, static_cast<const XT*>(Y), Bg, lam_rows, C, n, K, L, Kg, loss_kl, eps,
-      p.tiles_per_block, n_tiles, S_small, Hn, Hs, part);
+      stage_bg, p.tiles_per_block, n_tiles, Hn, Hs, Q, part);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const float* Hx = kCounts ? Hs : Hn;  // X Hsᵀ, H Hᵀ = Hs Hnᵀ
+  const float* Hx = kCounts ? Hs : Hn;  // X Hsᵀ
   if constexpr (kBf16) {  // the splits' partials, summed by reduce_partials
     rc = launch_hxt_wide<XT>(X, Hx, g, n, K, p.GB, p.n_split, p.cells_per_split, p.S,
                              static_cast<__nv_bfloat16*>(hb), part_x, nullptr, stream);
@@ -1097,21 +1213,18 @@ static int launch_iteration_wide(const void* X, const float* W, const float* H,
                             p.CW, part_x, stream);
   }
   if (rc != 0) return rc;
+  // stats: HHt (K K), rowsum (K), Bnum (L K), the prediction rows (L), the
+  // loss dot (1) and, in counts mode, HHtU (ops/kernels.py:_stats_len)
   const size_t kk = (size_t)K * K;
-  const unsigned kk_blocks = (unsigned)((kk + kThreads - 1) / kThreads);
-  for (int u = 0; u < (kCounts ? 2 : 1); ++u) {  // Hs Hnᵀ, then (counts) Hn Hnᵀ
-    rc = launch_hxt_fma<float>(Hn, u == 0 ? Hx : Hn, K, n, K, p.KR, p.hGB, p.h_n_split,
-                               p.h_cells_per_split, p.hS, p.hCW, part_hh, stream);
-    if (rc != 0) return rc;
-    // HHtU follows the small statistics: ops/kernels.py:_stats_len
-    reduce_splits<<<kk_blocks, kThreads, 0, stream>>>(part_hh, p.h_n_split, K, K,
-                                                      stats + (u == 0 ? 0 : kk + S_small));
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  const size_t total = (size_t)S_small + (size_t)g * K;
+  const size_t S_small = (size_t)K + (size_t)L * K + L + 1;
+  rc = launch_gram_wide(Hn, kCounts ? C + n : nullptr, Q, K, n, L, p.g_split,
+                        p.g_cells_per_split, part_hh, stats,
+                        kCounts ? stats + kk + S_small : nullptr, stats + kk, stats + kk + K,
+                        stream);
+  if (rc != 0) return rc;
+  const size_t total = (size_t)(L + 1) + (size_t)g * K;
   reduce_partials<<<(unsigned)((total + kThreads - 1) / kThreads), kThreads, 0, stream>>>(
-      part, p.n_part, S_small, stats + kk, part_x, p.n_split, K, g, XHt);
+      part, p.n_part, L + 1, stats + kk + K + (size_t)L * K, part_x, p.n_split, K, g, XHt);
   return (int)cudaGetLastError();
 }
 
@@ -1173,31 +1286,32 @@ extern "C" int alpine_wtx(const void* X, int xtype, const float* W, int g, int n
 }
 
 // The large-K route of fused_iteration (ops/kernels.py:_launch_iteration_wide):
-// the K1 entry's inputs and outputs (stats in its layout), the 20 ints of
+// the K1 entry's inputs and outputs (stats in its layout), whether iter_wide
+// stages Bg in shared memory (kernels.wide_stages_bg), the 17 ints of
 // WideIterationGrid, and scratch: wtx, d (K x n each), hs (K x n, counts mode),
-// part (n_part x (K + L K + L + 1)), part_x (n_split x K x g), part_hh
-// (hh_n_split x K x K), and on the bf16 path hb (H rounded, K x n padded to
-// 64), wb (W rounded, pad16(K) x g padded to 64) and wpart (P2's gene
-// ranges' partials, where it splits the genes).
+// q (L x n), part (n_part x (L + 1)), part_x (n_split x K x g), part_hh
+// (gram_split x gram_split_floats), and on the bf16 path hb (H rounded,
+// K x n padded to 64), wb (W rounded, pad16(K) x g padded to 64) and wpart
+// (P2's gene ranges' partials, where it splits the genes).
 extern "C" int alpine_fused_iteration_wide(
     const void* X, int xtype, const float* W, const float* H, const float* WtW,
     const void* Y, const float* Bg, const float* lam_rows, const float* counts,
-    int g, int n, int K, int L, int Kg, int loss_kl, float eps, int T, int n_part,
+    int g, int n, int K, int L, int Kg, int loss_kl, int stage_bg, float eps, int T,
+    int n_part,
     int tiles_per_block, int KR, int wtx_T, int wtx_WR, int wtx_GC, int wtx_S,
     int wtx_ranges, int wtx_range_genes, int GB, int n_split, int cells_per_split,
-    int stages, int chunk, int hh_GB, int hh_n_split, int hh_cells_per_split, int hh_stages,
-    int hh_chunk, float* Hn, float* XHt, float* stats, float* wtx, float* d, float* hs,
-    float* part, float* part_x, float* part_hh, void* hb, void* wb, float* wpart,
-    void* stream) {
+    int stages, int chunk, int gram_split, int gram_cells_per_split, float* Hn, float* XHt,
+    float* stats, float* wtx, float* d, float* hs, float* q, float* part, float* part_x,
+    float* part_hh, void* hb, void* wb, float* wpart, void* stream) {
   using namespace alpine;
   const WideGrid p{T,      n_part,  tiles_per_block, KR,         wtx_T,
                    wtx_WR, wtx_GC,  wtx_S,           wtx_ranges, wtx_range_genes,
                    GB,     n_split, cells_per_split, stages,     chunk,
-                   hh_GB,  hh_n_split, hh_cells_per_split, hh_stages, hh_chunk};
+                   gram_split, gram_cells_per_split};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define ALPINE_WIDE_ARGS                                                                 \
-  X, W, H, WtW, Y, Bg, lam_rows, counts, g, n, K, L, Kg, loss_kl, eps, p, Hn, XHt, stats, \
-      wtx, d, hs, part, part_x, part_hh, hb, wb, wpart, s
+  X, W, H, WtW, Y, Bg, lam_rows, counts, g, n, K, L, Kg, loss_kl, stage_bg, eps, p, Hn, XHt, \
+      stats, wtx, d, hs, q, part, part_x, part_hh, hb, wb, wpart, s
   const bool c = counts != nullptr;
   switch (xtype) {
     case kF32:
@@ -1215,4 +1329,16 @@ extern "C" int alpine_fused_iteration_wide(
     default: return (int)cudaErrorInvalidValue;
   }
 #undef ALPINE_WIDE_ARGS
+}
+
+// gram_wide alone (ops/kernels.py:gram_wide): HHt = Hn diag(c) Hnᵀ (c: a
+// row of n, or nullptr for all ones), HHtU = Hn Hnᵀ (only with c), rowsum =
+// Hn c and Bnum = Q diag(c) Hnᵀ (Q: L x n) over gram_split splits of
+// gram_cells_per_split cells; part: gram_split x gram_split_floats scratch.
+extern "C" int alpine_gram_wide(const float* Hn, const float* c, const float* Q, int K, int n,
+                                int L, int gram_split, int gram_cells_per_split, float* part,
+                                float* hht, float* hhtu, float* rowsum, float* bnum,
+                                void* stream) {
+  return alpine::launch_gram_wide(Hn, c, Q, K, n, L, gram_split, gram_cells_per_split, part,
+                                  hht, hhtu, rowsum, bnum, static_cast<cudaStream_t>(stream));
 }

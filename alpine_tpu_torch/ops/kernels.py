@@ -41,7 +41,10 @@ launches: Dict[str, int] = {"fused_iteration": 0, "fused_iteration_counts": 0,
                             "hxt": 0, "wtx": 0, "stream_probe": 0,
                             # the large-K wgmma kernels of P1/P2 (int8/bf16 X):
                             # from hxt/wtx and from K1/K2/K4's large-K chain
-                            "hxt_wide": 0, "wtx_wide": 0}
+                            "hxt_wide": 0, "wtx_wide": 0,
+                            # the large-K chain's H Hᵀ, rowsum and Bnum: one a
+                            # K1/K2/K4 call at K > 512, and gram_wide's own
+                            "gram_wide": 0}
 
 # X storage dtype -> code of csrc/common.cuh:XType
 _XTYPE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2, torch.int16: 3}
@@ -50,9 +53,23 @@ _MAX_TILE_VALUES = 4096  # K × cells of a tile at most (tile_width)
 # the largest K of the routes that hold all of K in a tile or a thread's
 # rows; above it, the large-K routes (route)
 _RANGE_K = _MAX_TILE_VALUES // 8
-# the large-K H update (csrc/x_passes.cu: iter_wide): cells a tile, one
-# lane a cell
-_WIDE_T = 32
+# the large-K H update (csrc/x_passes.cu: iter_wide): cells a tile, 4 a
+# lane (one 16-byte load of a row), labels a pass of its sums over the
+# guided rows, and its blocks at most (4 an H100 SM: the blocks that fit
+# at once at 5 labels), a fixed number so the partials sum in a fixed order
+_WIDE_T = 128
+_WIDE_LC = 8
+_WIDE_PART_BLOCKS = 528
+# the large-K chain's statistics against Hn (csrc/gram_wide.cuh: gram_wide):
+# 128 x 128 tiles of K x K, chunks of 8 cells, 8 extra columns (rows of Q
+# and the ones row) a block, and about this many tile-pair blocks a launch
+# (8 an H100 SM: finer splits even out the SMs' loads and let the extra
+# columns' blocks share the last waves; scripts/torch_gram_variants.py
+# times the rule's grid beside 12, 24 and 48 splits)
+_GRAM_BM = 128
+_GRAM_BK = 8
+_GRAM_XC = 8
+_GRAM_BLOCKS = 1056
 # P1's cell splits on the large-K route: at most this many cells a split,
 # so that no fp32 accumulator sums a whole 100k-cell row (one split of
 # 100k cells left P1 at K = 768 1.2x its rtol 1e-4 from the plain version
@@ -153,8 +170,8 @@ def tile_width(K: int) -> int:
     """The port's tile rule: cells per tile for K components (fused_iteration's
     per-tile pass and, on its bf16 path, genes per block of the X Hnᵀ pass).
     A tile holds K × width values, at most 4096, so the width halves from 64
-    as K grows to 512; above, the large-K H update's tile of 32 cells, one
-    lane a cell (``route``)."""
+    as K grows to 512; above, the large-K H update's tile of 128 cells, 4 a
+    lane (``route``)."""
     if route(K) == "wide":
         return _WIDE_T
     w = 64
@@ -736,8 +753,8 @@ class WideIterationGrid(NamedTuple):
     lanes along K); P1's for X Hsᵀ (GB, n_split, cells_per_split, S,
     chunk: on int8/bf16 X hxt_wide's cluster size, splits, cells a split,
     stages and 64-cell stages of ``hxt_wide_grid``; else ``hxt_fma_grid``);
-    and hxt_fma's over Hn as fp32 rows for H Hᵀ (hh_*:
-    ``hxt_fma_grid(K, n, K, float32)``)."""
+    and gram_wide's splits for H Hᵀ, HHtU, rowsum and Bnum (gram_split,
+    gram_cells_per_split: ``gram_wide_grid``)."""
     T: int
     n_part: int
     tiles_per_block: int
@@ -753,34 +770,67 @@ class WideIterationGrid(NamedTuple):
     cells_per_split: int
     S: int
     chunk: int
-    hh_GB: int
-    hh_n_split: int
-    hh_cells_per_split: int
-    hh_S: int
-    hh_chunk: int
+    gram_split: int
+    gram_cells_per_split: int
 
 
-def _part_grid(n: int, T: int) -> Tuple[int, int]:
+def _part_grid(n: int, T: int, most: int = _MAX_PART_BLOCKS) -> Tuple[int, int]:
     """(n_part, tiles_per_block): the per-tile pass's blocks, at most
-    _MAX_PART_BLOCKS, each a run of T-cell tiles."""
+    ``most``, each a run of T-cell tiles."""
     n_tiles = -(-n // T)
-    tiles_per_block = -(-n_tiles // _MAX_PART_BLOCKS)
+    tiles_per_block = -(-n_tiles // most)
     return -(-n_tiles // tiles_per_block), tiles_per_block
+
+
+def gram_wide_pairs(K: int) -> Tuple[Tuple[int, int], ...]:
+    """gram_wide's tile pairs (ti, tj), ti <= tj, of the upper triangle of
+    128 x 128 tiles of K x K, in block order (row by row); block p of a
+    split owns pair p (csrc/gram_wide.cuh: gram_pair_index)."""
+    T = _cdiv(K, _GRAM_BM)
+    return tuple((ti, tj) for ti in range(T) for tj in range(ti, T))
+
+
+def gram_items(K: int, L: int) -> int:
+    """gram_wide's blocks a split: the tile pairs, and for every row tile a
+    block a chunk of _GRAM_XC extra columns (L rows of Q, the ones row)."""
+    return len(gram_wide_pairs(K)) + _cdiv(K, _GRAM_BM) * _cdiv(L + 1, _GRAM_XC)
+
+
+def gram_split_floats(K: int, L: int, counts: bool) -> int:
+    """Floats of one split's partials of gram_wide: a 128 x 128 tile a pair
+    (two in counts mode: HHt and HHtU), then 128 rows of each row tile for
+    each of the L + 1 extra columns."""
+    T = _cdiv(K, _GRAM_BM)
+    return len(gram_wide_pairs(K)) * (2 if counts else 1) * _GRAM_BM ** 2 + T * (L + 1) * _GRAM_BM
+
+
+@lru_cache(maxsize=None)
+def gram_wide_grid(n: int, K: int) -> Tuple[int, int]:
+    """(n_split, cells_per_split) of gram_wide: about _GRAM_BLOCKS tile-pair
+    blocks in all, never a split over _WIDE_SPLIT_CELLS cells (fp32 sums
+    over at most 16,384 terms), each split a multiple of a chunk's
+    _GRAM_BK cells: at K = 768 and 100k cells 21 pairs x 50 splits of
+    2,000 cells.  Fixed numbers, so a shape sums its partials in the same
+    order on any card."""
+    want = max(_cdiv(n, _WIDE_SPLIT_CELLS), round(_GRAM_BLOCKS / len(gram_wide_pairs(K))))
+    cps = _cdiv(_cdiv(n, want), _GRAM_BK) * _GRAM_BK
+    return _cdiv(n, cps), cps
 
 
 @lru_cache(maxsize=None)  # called once a fit iteration
 def wide_iteration_grid(g: int, n: int, K: int, x_dtype: torch.dtype) -> WideIterationGrid:
     """fused_iteration's launch parameters for K > 512: the chain WᵀX (P2's
     large-K kernel) → D = WᵀW H (csrc/wtw_gemm.cuh) → iter_wide (the H
-    update with the guided terms, the prediction loss, the loss dot, Hn's
-    row sums and Bnum = Q Hsᵀ as one partial a block of 32-cell tiles) →
-    X Hsᵀ (P1's large-K kernel, its splits' partials) → H Hᵀ =
-    Hs Hnᵀ (and HHtU = Hn Hnᵀ in counts mode) by hxt_fma over Hn → the
+    update with the guided terms, Q, and the prediction loss and the loss
+    dot as one partial a block of 128-cell tiles) → X Hsᵀ (P1's large-K
+    kernel, its splits' partials) → gram_wide (H Hᵀ = Hs Hnᵀ over the
+    upper triangle of 128 x 128 tiles, HHtU = Hn Hnᵀ in counts mode, rowsum
+    and Bnum = Q Hsᵀ, from one read of Hn: ``gram_wide_grid``) → the
     partials' sums.  Every kernel's shared memory is independent of K (but
     iter_wide's of the labels), so any K the card's memory holds runs."""
     if route(K) != "wide":
         raise ValueError(f"the large-K chain is for K > {_RANGE_K}, got K={K}")
-    n_part, tiles_per_block = _part_grid(n, _WIDE_T)
+    n_part, tiles_per_block = _part_grid(n, _WIDE_T, _WIDE_PART_BLOCKS)
     KR = k_ranges(K)[1]
     if x_dtype in _MMA_XTYPES:
         CL, ranges, range_genes, S = wtx_wide_grid(g, n, K, x_dtype)
@@ -792,14 +842,27 @@ def wide_iteration_grid(g: int, n: int, K: int, x_dtype: torch.dtype) -> WideIte
         wtx = (T, LK, GC, S, 1, g)
         hxt_g = hxt_fma_grid(g, n, K, x_dtype)
     return WideIterationGrid(_WIDE_T, n_part, tiles_per_block, KR, *wtx, *hxt_g,
-                             *hxt_fma_grid(K, n, K, torch.float32))
+                             *gram_wide_grid(n, K))
 
 
-def wide_smem_bytes(L: int, counts: bool) -> int:
-    """csrc/x_passes.cu:wide_smem_bytes: iter_wide's Y, B H (then Q) and
-    prediction-loss rows (3 L × 32 fp32), the counts rows (2 × 32) and a
-    block reduction's kThreads values; independent of K."""
-    return 4 * (3 * L * _WIDE_T + (2 * _WIDE_T if counts else 0) + _THREADS)
+def wide_smem_bytes(L: int, Kg: int, counts: bool, stage_bg: bool = True) -> int:
+    """csrc/x_passes.cu:wide_smem_floats, in bytes: iter_wide's Y and B H
+    (L × 128 fp32 each), its warps' partial sums over the guided rows
+    (8 × _WIDE_LC × 128, with labels), the counts rows (2 × 128), a block
+    reduction's kThreads values, the prediction-loss rows (L, rounded up to
+    4) and, with ``stage_bg``, Bg (L × Kg); independent of K."""
+    labels = 2 * L * _WIDE_T + 8 * _WIDE_LC * _WIDE_T if L else 0
+    return 4 * (labels + (2 * _WIDE_T if counts else 0) + _THREADS + -(-L // 4) * 4
+                + (L * Kg if stage_bg else 0))
+
+
+def wide_stages_bg(L: int, Kg: int, counts: bool) -> bool:
+    """Whether iter_wide stages Bg in shared memory: where it fits, else it
+    reads Bg through the cache (the same values in the same order).  Staged
+    is 0.18 ms faster a call at the bench shape and 5 labels (0.61 against
+    0.79 device ms on an H100; scripts/torch_gram_variants.py).  The launch
+    takes this choice as it is."""
+    return L > 0 and wide_smem_bytes(L, Kg, counts) <= _MAX_SMEM
 
 
 @lru_cache(maxsize=None)  # called once a fit iteration
@@ -902,19 +965,20 @@ def _launch_iteration_wide(X, W, H, WtW, Y_all, Bg, lam_rows, eps, counts, L,
     g, n = X.shape
     K = H.shape[0]
     grid = wide_iteration_grid(g, n, K, X.dtype)
-    smem = wide_smem_bytes(L, counts is not None)
+    stage_bg = wide_stages_bg(L, Kg, counts is not None)
+    smem = wide_smem_bytes(L, Kg, counts is not None, stage_bg)
     if smem > _MAX_SMEM:
         raise ValueError(f"fused_iteration needs {smem} bytes of shared memory "
                          f"for {L} labels; a Hopper block has {_MAX_SMEM}")
     mma = X.dtype in _MMA_XTYPES
-    S_small = K + L * K + L + 1  # rowsum, Bnum, prediction rows, loss dot
     buf = lambda *shape: torch.empty(shape, dtype=f32, device=dev)
     Hn, XHt, stats = buf(K, n), buf(g, K), buf(_stats_len(K, L, counts is not None))
     wtx, D = buf(K, n), buf(K, n)
     hs = buf(K, n) if counts is not None else None
-    part = buf(grid.n_part, S_small)
+    q = buf(L, n) if L else None  # iter_wide's Q, gram_wide's extra columns
+    part = buf(grid.n_part, L + 1)  # prediction rows, loss dot
     part_x = buf(grid.n_split, K, g)
-    part_hh = buf(grid.hh_n_split, K, K)
+    part_hh = buf(grid.gram_split, gram_split_floats(K, L, counts is not None))
     hb = wb = wpart = None
     if mma:  # H (Hs) rounded for P1, W transposed and rounded for P2
         hb = torch.empty(2 * K * -(-n // _WIDE_BK) * _WIDE_BK, dtype=torch.uint8, device=dev)
@@ -926,9 +990,9 @@ def _launch_iteration_wide(X, W, H, WtW, Y_all, Bg, lam_rows, eps, counts, L,
     fn = _build.entry("fused_iteration_wide")
     rc = _on_device(dev, fn, X.data_ptr(), _XTYPE[X.dtype], W.data_ptr(), H.data_ptr(),
                     WtW.data_ptr(), ptr(Y_all), ptr(Bg), ptr(lam_rows), ptr(counts),
-                    g, n, K, L, Kg, int(bool(loss_kl)), eps, *grid,
+                    g, n, K, L, Kg, int(bool(loss_kl)), int(stage_bg), eps, *grid,
                     Hn.data_ptr(), XHt.data_ptr(), stats.data_ptr(), wtx.data_ptr(),
-                    D.data_ptr(), ptr(hs), part.data_ptr(), part_x.data_ptr(),
+                    D.data_ptr(), ptr(hs), ptr(q), part.data_ptr(), part_x.data_ptr(),
                     part_hh.data_ptr(), ptr(hb), ptr(wb), ptr(wpart), _stream(dev))
     if rc != 0:
         raise RuntimeError(f"fused_iteration's large-K chain failed to launch: CUDA "
@@ -936,6 +1000,7 @@ def _launch_iteration_wide(X, W, H, WtW, Y_all, Bg, lam_rows, eps, counts, L,
     if mma:
         launches["hxt_wide"] += 1
         launches["wtx_wide"] += 1
+    launches["gram_wide"] += 1
     return Hn, XHt, stats, n_labels
 
 
@@ -1009,6 +1074,45 @@ def fused_h_update(X, W, H, WtW, eps):
     launches["fused_h_update"] += 1
     K = H.shape[0]
     return Hn, XHt, stats[:K * K].view(K, K), stats[-1]
+
+
+def gram_wide_plain(Hn, c=None, Q=None):
+    """Plain PyTorch version of ``gram_wide``."""
+    Hs = Hn if c is None else Hn * c
+    Q = Hn.new_zeros((0, Hn.shape[1])) if Q is None else Q
+    return (Hs @ Hn.T, None if c is None else Hn @ Hn.T, torch.sum(Hs, dim=1), Q @ Hs.T)
+
+
+def gram_wide(Hn, c=None, Q=None):
+    """The large-K chain's statistics against Hn alone (csrc/gram_wide.cuh,
+    K1/K2/K4's at K > 512): returns (HHt = Hn diag(c) Hnᵀ (K, K), HHtU =
+    Hn Hnᵀ or None without ``c``, rowsum = Hn c (K,), Bnum = Q diag(c) Hnᵀ
+    (L, K)).  Hn (K, n) and Q (L, n) float32, c (n,) float32 or None (all
+    ones).  On the card true fp32 over the upper triangle of 128 × 128
+    tiles, mirrored, over ``gram_wide_grid``'s splits; any K and n."""
+    if not _cuda_or_cpu(Hn):
+        return gram_wide_plain(Hn, c, Q)
+    dev, f32 = Hn.device, torch.float32
+    K, n = Hn.shape
+    _check("Hn", Hn, (K, n), f32, dev)
+    if c is not None:
+        _check("c", c, (n,), f32, dev)
+    L = 0 if Q is None else Q.shape[0]
+    if Q is not None:
+        _check("Q", Q, (L, n), f32, dev)
+    n_split, cps = gram_wide_grid(n, K)
+    counts = c is not None
+    part = torch.empty((n_split, gram_split_floats(K, L, counts)), dtype=f32, device=dev)
+    hht = torch.empty((K, K), dtype=f32, device=dev)
+    hhtu = torch.empty((K, K), dtype=f32, device=dev) if counts else None
+    rowsum = torch.empty((K,), dtype=f32, device=dev)
+    bnum = torch.empty((L, K), dtype=f32, device=dev)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    rc = _on_device(dev, _build.entry("gram_wide"), Hn.data_ptr(), ptr(c), ptr(Q), K, n, L,
+                    n_split, cps, part.data_ptr(), hht.data_ptr(), ptr(hhtu),
+                    rowsum.data_ptr(), bnum.data_ptr(), _stream(dev))
+    _launched("gram_wide", rc)
+    return hht, hhtu, rowsum, bnum
 
 
 def fused_transform(num2, H0, WtW2, eps, *, n_iter: int):

@@ -375,6 +375,9 @@ REPLACES = {
     "hxt": "benchmarks/als_probe.py:172",
     "wtx": "benchmarks/als_probe.py:180",
     "stream_probe": "benchmarks/envelope_probe.py:129",
+    # the large-K chain's statistics against Hn: fused_iteration's H_stat
+    # contractions (HHt_ref, HHtU_ref, rowsum_Hn, bnum_all)
+    "gram_wide": "alpine_tpu/ops/pallas_kernels.py:584",
 }
 SOURCES = {
     "fused_iteration": "alpine_tpu_torch/csrc/fused_iteration.cu",
@@ -384,6 +387,7 @@ SOURCES = {
     "hxt": "alpine_tpu_torch/csrc/x_passes.cu",
     "wtx": "alpine_tpu_torch/csrc/x_passes.cu",
     "stream_probe": "alpine_tpu_torch/csrc/stream_probe.cu",
+    "gram_wide": "alpine_tpu_torch/csrc/gram_wide.cuh",
 }
 # mangled names of fused_iteration.cu's passes: iter_tiles<X type, kBf16,
 # kCounts>, hxt_partial<X type, kCounts> (the bf16 path only)
@@ -575,7 +579,7 @@ def sass_check(_build, kernels):
               f"{tag}: HMMA count {r['hmma']} does not fit its path")
         if r["tensor_core_path"]:
             check(r["spill_stores"] == 0, f"{tag}: spill stores {r['spill_stores']}")
-    xrows, wide, wgmma = [], [], []
+    xrows, wide, wgmma, gram = [], [], [], []
     usage = ptxas_usage(_build.build_log("x_passes"))
     ops = ("HMMA", "LDGSTS", "LDSM", "FFMA", "HGMMA", "UTMALDG")
     for fn, count in sorted(sass_counts(_build, "x_passes", ops).items()):
@@ -592,6 +596,13 @@ def sass_check(_build, kernels):
         # or the fp32 kernels' rows a thread (MK); the bf16 kernels' third
         # argument: X's rows on 16-byte boundaries, or not (aligned windows)
         m = FMA_NAME.search(fn)
+        if "gram_wideILb" in fn:  # gram_wide<kCounts>
+            u = usage.get(fn, {})
+            gram.append({"kernel": "gram_wide", "counts": "gram_wideILb1E" in fn,
+                         **{op.lower(): count[op] for op in ops},
+                         "registers": u.get("registers"),
+                         "spill_stores": u.get("spill_stores")})
+            continue
         if not m and ("iter_wide" in fn or "wtw_gemm" in fn):  # the large-K chain's own
             u = usage.get(fn, {})
             wide.append({"kernel": "iter_wide" if "iter_wide" in fn else "wtw_gemm",
@@ -612,7 +623,7 @@ def sass_check(_build, kernels):
     notes = sorted({m.group(1) for m in re.finditer(r"\((C75\d\d)\)",
                                                     _build.build_log("x_passes"))})
     emit({"phase": "sass", "x_passes": xrows, "x_passes_wide": wide, "wgmma_passes": wgmma,
-          "wgmma_ptxas_notes": notes})
+          "gram_wide": gram, "wgmma_ptxas_notes": notes})
     # ptxas's performance notes (C75xx: wgmma serialized, setmaxnreg ignored)
     check(not notes, f"x_passes: ptxas performance notes {notes}")
     # hxt_wide and wtx_wide on int8 and bf16 X, rows aligned or not, at the
@@ -631,6 +642,16 @@ def sass_check(_build, kernels):
         check(r["kernel"] == "hxt_wide" or not r["aligned"] or r["ldsm"] > 0,
               f"{tag}: no ldmatrix (LDSM)")
         check(r["spill_stores"] == 0, f"{tag}: spill stores {r['spill_stores']}")
+    # gram_wide with and without counts: true fp32 on the FP32 units (no
+    # HMMA), a chunk of 8 cells unrolled (8 x 64 FMAs a thread; counts mode
+    # 8 x 128), no spill store
+    check(sorted(r["counts"] for r in gram) == [False, True],
+          f"expected gram_wide with and without counts, found {len(gram)}")
+    for r in gram:
+        tag = f"gram_wide counts={r['counts']}"
+        check(r["spill_stores"] == 0 and r["hmma"] == 0,
+              f"{tag}: spill stores {r['spill_stores']}, HMMA {r['hmma']}")
+        check(r["ffma"] >= (1024 if r["counts"] else 512), f"{tag}: {r['ffma']} FFMA")
     # iter_wide on four Y types with and without counts, wtw_gemm's store
     # epilogue: true fp32 (no HMMA), no spill store
     check(sum(r["kernel"] == "iter_wide" for r in wide) == 8
@@ -723,18 +744,32 @@ def iteration_problem(torch, gen, dev, g, n, blocks, n_labels, xdtype):
     return X, W, H, W.T @ W, Ys, Bs, lam
 
 
-def iteration_cost(g, n, blocks, n_labels, xbytes, bf16, counts=False):
+def iteration_cost(g, n, blocks, n_labels, xbytes, bf16, counts=False, symmetric=False):
     """(bytes, bf16 flop, fp32 flop) one fused iteration must move/do; the
-    counts mode also reads the (2, n) f32 counts and forms HHtU (K x K)."""
+    counts mode also reads the (2, n) f32 counts and forms HHtU (K x K).
+    ``symmetric``: H Hᵀ (and HHtU) as the upper triangle that determines
+    them, K (K + 1) n flop each (the large-K rows); else 2 K² n each."""
     K, L, Kg = sum(blocks), sum(n_labels), sum(blocks[:-1])
     nbytes = (xbytes * g * n + xbytes * L * n + 4 * 2 * K * n + 4 * 2 * g * K
               + 4 * K * K * 2 + 4 * L * Kg)
     x_ops = 4.0 * g * n * K
-    f32_ops = 4.0 * K * K * n + (8.0 * L * Kg + 2.0 * L * K) * n + 12.0 * K * n
+    gram = (K * (K + 1.0) if symmetric else 2.0 * K * K) * n
+    f32_ops = 2.0 * K * K * n + gram + (8.0 * L * Kg + 2.0 * L * K) * n + 12.0 * K * n
     if counts:
         nbytes += 4 * 2 * n + 4 * K * K
-        f32_ops += 2.0 * K * K * n
+        f32_ops += gram
     return nbytes, (x_ops if bf16 else 0.0), f32_ops + (0.0 if bf16 else x_ops)
+
+
+def gram_cost(K, n, L, counts):
+    """(bytes, bf16 flop, fp32 flop) of gram_wide: Hn, c and Q read once, HHt
+    (and HHtU), rowsum and Bnum written once; the upper triangles of HHt (and
+    HHtU), K (K + 1) n flop each, and the L + 1 extra columns, 2 (L + 1) K n
+    (counts mode: K n products Hs = c Hn more)."""
+    nmat = 2 if counts else 1
+    nbytes = 4 * (K * n + (n if counts else 0) + L * n + nmat * K * K + (L + 1) * K)
+    ops = (nmat * K * (K + 1.0) + 2.0 * (L + 1) * K + (K if counts else 0)) * n
+    return nbytes, 0.0, ops
 
 
 def bound(nbytes, bf16_ops, f32_ops, card):
@@ -2752,7 +2787,10 @@ WIDE_ROWS = {"fused_iteration wide": "alpine_tpu_torch/csrc/x_passes.cu",
              "fused_transform wide K=768 n_iter=50": "alpine_tpu_torch/csrc/fused_transform.cu",
              "hxt wide K=768": "alpine_tpu_torch/csrc/x_passes_wide.cuh",
              "wtx wide K=768": "alpine_tpu_torch/csrc/x_passes_wide.cuh",
-             "wtx k=384 K=384": "alpine_tpu_torch/csrc/x_passes.cu"}
+             "wtx k=384 K=384": "alpine_tpu_torch/csrc/x_passes.cu",
+             # the chain's H Hᵀ, HHtU, rowsum and Bnum (gram_wide alone)
+             "gram_wide K=768": "alpine_tpu_torch/csrc/gram_wide.cuh",
+             "gram_wide counts K=768": "alpine_tpu_torch/csrc/gram_wide.cuh"}
 K768 = 768  # the JAX package's component bucket level (alpine_tpu/ops/mu.py:1681)
 # kernel_wide's P1/P2 bench rows above K = 512 (hxt_wide, wtx_wide)
 WIDE_BENCH_KS = (520, 768, 1024, 2048)
@@ -2862,6 +2900,46 @@ def run_kernel_wide_phase(torch, kernels, _build, gen, dev, card):
                     hold(f"wtx {tag}", lambda: kernels.wtx(Xv, W),
                          lambda: kernels.wtx_plain(Xv, W), 1e-4, 1e-6)
                 del X, W, H, WtW, Ys, Bs, variants
+    # 60 labels over 768 guided components at K = 2048: iter_wide reads Bg
+    # through the cache (it does not fit beside the label rows) in 8 label
+    # passes, gram_wide takes 8 blocks of extra columns a row tile
+    many, K, n = (30, 30), 2048, 1001
+    blocks = wide_blocks(K)
+    check(not kernels.wide_stages_bg(sum(many), sum(blocks[:-1]), False),
+          "kernel_wide: 60 labels at K = 2048 should not stage Bg")
+    for xdt in (torch.int8, torch.float32):
+        X, W, H, WtW, Ys, Bs, lam = iteration_problem(torch, gen, dev, WIDE_G, n, blocks, many,
+                                                      xdt)
+        bf16 = xdt in kernels._MMA_XTYPES
+        C = mixed_counts(n)
+        for Cc in (None, C):
+            hold(f"fused_iteration {str(xdt)[6:]} K={K} n={n} L=60 counts={Cc is not None}",
+                 lambda: kernels.fused_iteration(X, W, H, WtW, Ys, Bs, lam, EPS, Cc,
+                                                 blocks=blocks, loss_kl=True),
+                 lambda: kernels.fused_iteration_plain(X, W, H, WtW, Ys, Bs, lam, EPS, Cc,
+                                                       blocks=blocks, loss_kl=True),
+                 1e-4, 1e-6,
+                 (X, (lambda Hn: Hn) if Cc is None else (lambda Hn: Hn * C[1])) if bf16 else None)
+        del X, W, H, WtW, Ys, Bs
+    # gram_wide alone (the chain's H Hᵀ, HHtU, rowsum and Bnum) at every K
+    # and cell count, with and without counts, 5 labels (the diagonal
+    # blocks' extra columns) and 9 (a second chunk: blocks of their own);
+    # HHt and HHtU exactly symmetric
+    real = lambda out: tuple(t for t in out if t is not None)
+    for K in WIDE_KS:
+        for n in WIDE_NS:
+            Hn = torch.rand((K, n), generator=gen, device=dev) + 0.05
+            cn = torch.randint(0, 4, (n,), generator=gen, device=dev).float()
+            for L in (5, 9):
+                Q = torch.rand((L, n), generator=gen, device=dev)
+                for c in (None, cn):
+                    got = hold(f"gram_wide K={K} n={n} L={L} counts={c is not None}",
+                               lambda: real(kernels.gram_wide(Hn, c, Q)),
+                               lambda: real(kernels.gram_wide_plain(Hn, c, Q)), 1e-4, 1e-6)
+                    check(torch.equal(got[0], got[0].T)
+                          and (c is None or torch.equal(got[1], got[1].T)),
+                          f"kernel_wide gram_wide K={K} n={n}: HHt not symmetric")
+            del Hn, cn, Q
     # K3: the per-step path at every K > 512, and at a K of the register and
     # of the tiled path called directly
     for K in WIDE_KS + STEPS_SAME_BITS_KS:
@@ -2886,7 +2964,8 @@ def run_kernel_wide_phase(torch, kernels, _build, gen, dev, card):
     emit({"phase": "kernel_wide", "small_cases": {
         k: {"cases": c, "worst_err_over_tolerance": w, "max_abs_err": a}
         for k, (w, a, c) in worst.items()},
-        "ks": list(WIDE_KS), "cells": list(WIDE_NS), "genes": WIDE_G,
+        "ks": list(WIDE_KS), "cells": list(WIDE_NS), "genes": WIDE_G, "gram_labels": [5, 9],
+        "many_labels": {"K": 2048, "cells": 1001, "labels": 60, "bg_staged": False},
         "steps_bit_equal_other_paths_at": list(STEPS_SAME_BITS_KS),
         "tolerance": "rtol 1e-4 (K3 2e-4), atol 1e-6*max|plain| per output (K1/K2/K4 "
                      "on int8/bf16 X: XHt against the plain product over the kernel's "
@@ -2917,7 +2996,7 @@ def run_kernel_wide_bench(torch, kernels, gen, dev, card):
     rows = {}
 
     def timed_row(name, kern, plain, library, library_name, rtol, atol, cost, grid, note=None,
-                  names=("out",), xht_of=None):
+                  names=("out",), xht_of=None, extra=None):
         # every output against the plain version's, and a second launch bit
         # for bit the first, as the K <= 512 rows (run_iteration_case) hold them
         got, again, want = kern(), kern(), plain()
@@ -2950,6 +3029,7 @@ def run_kernel_wide_bench(torch, kernels, gen, dev, card):
             row["device_ms_by_kernel"] = device_ms_by_kernel(torch, kern)
         if note:
             row["note"] = note
+        row.update(extra or {})
         emit(row)
         check(len(errs) == len(names), f"kernel_wide {name}: {len(errs)} outputs, "
                                        f"{len(names)} names")
@@ -2985,7 +3065,9 @@ def run_kernel_wide_bench(torch, kernels, gen, dev, card):
                 blocks, args = (K768,), ()
                 kern = lambda: kernels.fused_h_update(X, W, H, WtW, EPS)
                 plain = lambda: kernels.fused_h_update_plain(X, W, H, WtW, EPS)
-                name, cost = "fused_h_update wide", iteration_cost(G, N, (K768,), (), 1, True)
+                name = "fused_h_update wide"
+                cost = iteration_cost(G, N, (K768,), (), 1, True, symmetric=True)
+                full = iteration_cost(G, N, (K768,), (), 1, True)
                 names, Hs = iteration_names((K768,), False, guided=False), lambda Hn: Hn
             else:
                 C = None
@@ -2999,14 +3081,51 @@ def run_kernel_wide_bench(torch, kernels, gen, dev, card):
                 if not bf16:
                     name += " float32"
                 cost = iteration_cost(G, N, K768_BLOCKS, labels, X.element_size(), bf16,
+                                      counts=kind == "K4", symmetric=True)
+                full = iteration_cost(G, N, K768_BLOCKS, labels, X.element_size(), bf16,
                                       counts=kind == "K4")
                 names = iteration_names(K768_BLOCKS, C is not None)
                 Hs = (lambda Hn: Hn) if C is None else (lambda Hn, C=C: Hn * C[1])
             xht_of = lambda Hn, Hs=Hs: kernels.hxt_plain(X, Hs(Hn)).T
-            timed_row(name, kern, plain, library, lib_name, 1e-4, 1e-6, cost, grid,
-                      names=names, xht_of=xht_of if bf16 else None)
+            # beside the bound, that of the full K x K products (as the chain
+            # formed H Hᵀ before it took the upper triangle alone)
+            row = timed_row(name, kern, plain, library, lib_name, 1e-4, 1e-6, cost, grid,
+                            names=names, xht_of=xht_of if bf16 else None,
+                            extra={"bound_full_ms": bound(*full, card)[0]})
+            by = row["device_ms_by_kernel"]
+            check(not by or (any("gram_wide" in k for k in by)
+                             and any("iter_wide" in k for k in by)
+                             and not any("hxt_fma" in k for k in by if bf16)),
+                  f"kernel_wide {name}: its kernels {sorted(by)} lack gram_wide or iter_wide")
         del X, W, H, WtW, Ys, Bs, Xc, Wc, Hc
         torch.cuda.empty_cache()
+    # gram_wide alone at the bench shape (5 labels), without and with counts,
+    # beside fp32 torch.matmul (no TF32) of H Hᵀ (counts mode: Hs Hnᵀ and
+    # Hn Hnᵀ)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    Hn = torch.rand((K768, N), generator=gen, device=dev) + 0.05
+    Q = torch.rand((sum(labels), N), generator=gen, device=dev)
+    cn = torch.randint(0, 3, (N,), generator=gen, device=dev).float()
+    real = lambda out: tuple(t for t in out if t is not None)
+    n_split, cps = kernels.gram_wide_grid(N, K768)
+    ggrid = {"pairs": len(kernels.gram_wide_pairs(K768)), "splits": n_split,
+             "cells_per_split": cps, "blocks": kernels.gram_items(K768, sum(labels)) * n_split}
+    for c in (None, cn):
+        Hs = Hn if c is None else Hn * c
+        lib = ((lambda: torch.matmul(Hn, Hn.T)) if c is None
+               else (lambda Hs=Hs: (torch.matmul(Hs, Hn.T), torch.matmul(Hn, Hn.T))))
+        timed_row(f"gram_wide{'' if c is None else ' counts'} K={K768}",
+                  lambda c=c: real(kernels.gram_wide(Hn, c, Q)),
+                  lambda c=c: real(kernels.gram_wide_plain(Hn, c, Q)), lib,
+                  "fp32 torch.matmul(Hn, Hn.T), TF32 off" if c is None else
+                  "fp32 torch.matmul(Hs, Hn.T) and (Hn, Hn.T), TF32 off", 1e-4, 1e-6,
+                  gram_cost(K768, N, sum(labels), c is not None), ggrid,
+                  names=("HHt", "rowsum", "Bnum") if c is None
+                  else ("HHt", "HHtU", "rowsum", "Bnum"))
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    del Hn, Q, cn, Hs
+    torch.cuda.empty_cache()
     # K3 at K = 768: the per-step path, 50 launches a call
     Wt = torch.rand((G, K768), generator=gen, device=dev)
     Xt = torch.poisson(torch.full((G, N), 1.5, device=dev), generator=gen)
@@ -3134,6 +3253,8 @@ def run_k768_phase(torch, kernels, ALPINE, AnnData, counts, obs):
     check(launches["hxt_wide"] == 1 + K768_ITERS and launches["wtx_wide"] == K768_ITERS,
           f"slice_k768: hxt_wide {launches['hxt_wide']}, wtx_wide {launches['wtx_wide']} "
           f"launches, expected {1 + K768_ITERS} and {K768_ITERS}")
+    check(launches["gram_wide"] == K768_ITERS,
+          f"slice_k768: gram_wide {launches['gram_wide']} launches, expected {K768_ITERS}")
     check(launches["fused_transform"] == 1, "slice_k768: transform must launch K3 once")
     check(np.isfinite(L).all(), "slice_k768: loss history must be finite")
     check(L[-1, 0] < L[0, 0], "slice_k768: total loss must fall")
@@ -3184,16 +3305,17 @@ def run_k768_modes_phase(torch, kernels, ALPINE, AnnData, counts, obs):
     # (192, 192, 384 components) take wtx_mma
     its = K768_MODE_ITERS
     modes = (("unguided", dict(n_components=K768, n_covariate_components=[], lam=[]), {},
-              {"fused_h_update": its, "hxt": 1, "hxt_wide": its + 1, "wtx_wide": its}),
+              {"fused_h_update": its, "hxt": 1, "hxt_wide": its + 1, "wtx_wide": its,
+               "gram_wide": its}),
              ("weighted_fast", {}, dict(sampling_method="weighted_fast"),
               {"fused_iteration_counts": its, "fused_iteration": 0,
-               "hxt_wide": its + 1, "wtx_wide": its}),
+               "hxt_wide": its + 1, "wtx_wide": its, "gram_wide": its}),
              ("als", dict(use_als=True), {},
               {"hxt": its, "wtx": 3 * its, "fused_iteration": 0, "hxt_wide": its,
-               "wtx_wide": 0}),
+               "wtx_wide": 0, "gram_wide": 0}),
              ("minibatch", {}, dict(batch_size=MB_BATCH),
               {"hxt": nb * its, "wtx": (nb + 1) * its, "fused_iteration": 0,
-               "hxt_wide": nb * its, "wtx_wide": (nb + 1) * its}))
+               "hxt_wide": nb * its, "wtx_wide": (nb + 1) * its, "gram_wide": 0}))
     out = {}
     for name, model_kw, fit_kw, expect in modes:
         ad = AnnData(counts[:n], obs=sub)
@@ -5205,7 +5327,12 @@ def main():
                 f"hxt wide K={K768}": k768_launches["hxt"] + sum(
                     m["hxt"] for m in k768_modes.values()),
                 f"wtx wide K={K768}": k768_modes["minibatch"]["wtx"],
-                f"wtx k=384 K={K768 // 2}": k768_modes["als"]["wtx"] // 3}
+                f"wtx k=384 K={K768 // 2}": k768_modes["als"]["wtx"] // 3,
+                # gram_wide: once in each K1 (slice_k768) and K2 call, and
+                # in counts mode once in each K4 call
+                f"gram_wide K={K768}": k768_launches["gram_wide"]
+                + k768_modes["unguided"]["gram_wide"],
+                f"gram_wide counts K={K768}": k768_modes["weighted_fast"]["gram_wide"]}
     for kname in SHARE_ROW_SOURCE:
         results[kname] = share_rows[SHARE_ROW_SOURCE[kname]]
     results["wtx global shard loss"] = twin_rows[("wtx", "world-2 shard")]

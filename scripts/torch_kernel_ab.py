@@ -38,7 +38,8 @@ A run times, at the bench shape (100k cells x 2,000 genes, K = 40, labels
   float32 and as int16 X (the fp32 path) and as int8 and bf16 X (the
   tensor-core path), of K3's output at the bench shape, K = 100 and 300, of
   ``hxt`` and ``wtx`` (k = 5 and 30) on float32 and int16 X, and of ``hxt``
-  and ``wtx`` on int8 and bf16 X (the tensor-core path); the fp32-path
+  and ``wtx`` on int8 and bf16 X (the tensor-core path), and of K3's
+  per-step path at K = 768 (``k3_bits["K768"]``); the fp32-path
   outputs of K1/K4/K2 and the X passes' outputs are also saved beside
   their plain versions';
 - K = 768 (the large-K routes; blocks (192, 192, 384)) on the int8 X: P1
@@ -49,7 +50,9 @@ A run times, at the bench shape (100k cells x 2,000 genes, K = 40, labels
   their outputs
   (``wide_bf16_bits``) and their worst error over the plain versions'
   tolerance (``wide_k768_worst_err_over_tolerance``: rtol 1e-4 + 1e-6
-  max|plain|; XHt against the plain product over the kernel's own Hs).
+  max|plain|; XHt against the plain product over the kernel's own Hs);
+  the summary says for each of them whether all four runs agree bit for
+  bit (``wide_bits_equal_by_kernel``).
 
 Prints one JSON line per run, then one summary line with the mean of each
 checkout's two runs, whether all four runs agree bit for bit on the
@@ -346,7 +349,9 @@ def child(root, save_path):
     Xb, Hb, Wb = X.to(torch.bfloat16), Hw.bfloat16(), Ww.bfloat16()
     wide_ms["hxt_k768_library_ms"] = time_ms(lambda: torch.matmul(Hb, Xb.T), reps=10)
     wide_ms["wtx_k768_library_ms"] = time_ms(lambda: torch.matmul(Wb.T, Xb), reps=10)
-    del Ww, Hw, WtWw, Bw, wide, Xb, Hb, Wb
+    del Xb, Hb, Wb
+    k3_bits["K768"] = digest([[k3(Ww, Hw)()]])  # the per-step path (wtw_gemm)
+    del Ww, Hw, WtWw, Bw, wide
     torch.cuda.empty_cache()
     print(json.dumps({"root": root, "fused_iteration_ms": k1,
                       "fused_h_update_ms": k2,
@@ -432,6 +437,9 @@ def main(argv):
         summary[out] = len(seen) == 1
     summary["wide_bf16_path_runs_repeat"] = all(
         rs[0].get("wide_bf16_bits") == rs[1].get("wide_bf16_bits") for rs in runs.values())
+    summary["wide_bits_equal_by_kernel"] = {
+        name: len({r["wide_bf16_bits"].get(name) for rs in runs.values() for r in rs}) == 1
+        for name in runs[change][0]["wide_bf16_bits"]}
     for key, group, out in (("fp32_path_bits", "fp32_path", "fp32_path"),
                             ("wtx_bf16_bits", "wtx_bf16", "wtx_bf16_path"),
                             ("wtx_fp32_bits", "wtx_fp32", "wtx_fp32"),

@@ -970,6 +970,89 @@ def test_wide_fused_iteration_cuda_matches_plain(cuda, dtype, K, n):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("K", [513, 768, 1030, 2048])
+@pytest.mark.parametrize("n", [17, 1001, 5040])
+@pytest.mark.parametrize("L,counts", [(0, False), (5, False), (5, True), (9, True)])
+def test_gram_wide_cuda_matches_plain(cuda, K, n, L, counts):
+    """gram_wide alone (the large-K chain's H Hᵀ, HHtU, rowsum and Bnum)
+    against its plain version (rtol 1e-4 / atol 1e-5): HHt and HHtU exactly
+    symmetric, a second launch bit for bit the first, the same values off
+    16-byte alignment the same bits, one launch counted a call; 9 labels
+    take a second chunk of extra columns, blocks of their own."""
+    r = np.random.default_rng(K * 3 + n + L)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+    Hn = t(r.random((K, n), dtype=np.float32) + 0.05)
+    c = t(r.integers(0, 4, n).astype(np.float32)) if counts else None
+    Q = t(r.random((L, n), dtype=np.float32)) if L else None
+    before = kernels.launches["gram_wide"]
+    got = kernels.gram_wide(Hn, c, Q)
+    again = kernels.gram_wide(Hn, c, Q)
+    moved = kernels.gram_wide(_unaligned(Hn), None if c is None else _unaligned(c),
+                              None if Q is None else _unaligned(Q))
+    torch.cuda.synchronize()
+    assert kernels.launches["gram_wide"] == before + 3
+    want = kernels.gram_wide_plain(Hn, c, Q)
+    for a, b, x, y in zip(got, want, again, moved, strict=True):
+        if b is None:
+            assert a is None and x is None and y is None
+            continue
+        _close(a, b, 1e-4, 1e-5)
+        assert torch.equal(a, x) and torch.equal(a, y)
+    assert torch.equal(got[0], got[0].T)
+    assert not counts or torch.equal(got[1], got[1].T)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,n", [(513, 17), (768, 1001), (1030, 5040)])
+def test_wide_chain_launches_gram_wide(cuda, K, n):
+    """K1, K4 and K2 above K = 512 launch gram_wide once a call; their HHt
+    (and K4's HHtU) come out exactly symmetric and equal to gram_wide's over
+    the chain's own Hn and counts row."""
+    blocks = _wide_blocks(K)
+    X, W, H, WtW, Ys, Bs, lam = _problem(K + 2 * n, 70, n, blocks, (2, 3), "int8", cuda)
+    C = torch.randint(0, 4, (2, n), generator=torch.Generator().manual_seed(K)).float().to(cuda)
+    before = kernels.launches["gram_wide"]
+    k1 = kernels.fused_iteration(X, W, H, WtW, Ys, Bs, lam, EPS, blocks=blocks, loss_kl=True)
+    k4 = kernels.fused_iteration(X, W, H, WtW, Ys, Bs, lam, EPS, C, blocks=blocks,
+                                 loss_kl=True)
+    k2 = kernels.fused_h_update(X, W, H, WtW, EPS)
+    torch.cuda.synchronize()
+    assert kernels.launches["gram_wide"] == before + 3
+    for out in (k1, k4, k2):
+        assert torch.equal(out[2], out[2].T)
+    assert torch.equal(k4[3], k4[3].T)
+    assert torch.equal(k1[2], kernels.gram_wide(k1[0])[0])
+    alone = kernels.gram_wide(k4[0], C[1].contiguous())
+    assert torch.equal(k4[2], alone[0]) and torch.equal(k4[3], alone[1])
+    assert torch.equal(k2[2], kernels.gram_wide(k2[0])[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["int8", "float32"])
+def test_wide_chain_many_labels_cuda_matches_plain(cuda, dtype):
+    """60 labels over 768 guided components at K = 2048: Bg does not fit
+    iter_wide's shared memory beside its label rows, so it is read through
+    the cache (``kernels.wide_stages_bg``), and the labels take 8 passes of
+    iter_wide's sums and 8 blocks of gram_wide's extra columns a row tile;
+    K1 and K4 against their plain versions (rtol 1e-4 / atol 1e-5)."""
+    K, n, labels = 2048, 1001, (30, 30)
+    blocks = _wide_blocks(K)
+    assert not kernels.wide_stages_bg(sum(labels), sum(blocks[:-1]), False)
+    X, W, H, WtW, Ys, Bs, lam = _problem(K + 7, 70, n, blocks, labels, dtype, cuda)
+    C = torch.randint(0, 4, (2, n), generator=torch.Generator().manual_seed(3)).float().to(cuda)
+    flat = lambda o: [t for v in o for t in (v if isinstance(v, tuple) else (v,))]
+    for counts in (None, C):
+        got = kernels.fused_iteration(X, W, H, WtW, Ys, Bs, lam, EPS, counts, blocks=blocks,
+                                      loss_kl=True)
+        want = kernels.fused_iteration_plain(X, W, H, WtW, Ys, Bs, lam, EPS, counts,
+                                             blocks=blocks, loss_kl=True)
+        torch.cuda.synchronize()
+        want = _hold_xht_on_own_hs(dtype, X, got, want, None if counts is None else C[1])
+        for a, b in zip(flat(got), flat(want), strict=True):
+            _close(a, b, 1e-4, 1e-5)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype,K,n", WIDE_CASES)
 def test_wide_x_passes_cuda_match_plain(cuda, dtype, K, n):
     """P1 and P2 at K > 512 (int8/bf16 X: the wgmma kernels hxt_wide and

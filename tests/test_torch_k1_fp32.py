@@ -82,18 +82,19 @@ def test_iteration_grid_covers_each_cell_and_gene_once(dtype, g, n):
 @pytest.mark.parametrize("g,n", SHAPES)
 def test_wide_iteration_grid_covers_each_cell_and_gene_once(dtype, g, n):
     """The large-K chain (K > 512) on every X dtype: iter_wide's blocks walk
-    runs of 32-cell tiles, P2's tiles and P1's gene blocks and splits cover
+    runs of 128-cell tiles, P2's tiles and P1's gene blocks and splits cover
     their axes once, X's passes take P1/P2's own large-K grids at the same
     K (X's dtype picks the wgmma kernels hxt_wide / wtx_wide or the fp32
-    kernels over K's ranges), H Hᵀ takes hxt_fma's over the K rows of Hn,
-    and every launch fits a Hopper block."""
+    kernels over K's ranges), H Hᵀ takes gram_wide's splits
+    (``gram_wide_grid``), and every launch fits a Hopper block."""
     xdt = {"float32": torch.float32, "int16": torch.int16, "int8": torch.int8,
            "bfloat16": torch.bfloat16}[dtype]
     mma = xdt in kernels._MMA_XTYPES
     for K in WIDE_SAMPLE:
         grid = kernels.iteration_grid(g, n, K, xdt)
         assert isinstance(grid, kernels.WideIterationGrid)
-        assert grid.T == kernels.tile_width(K) == 32 and grid.n_part <= kernels._MAX_PART_BLOCKS
+        assert grid.T == kernels.tile_width(K) == 128
+        assert grid.n_part <= kernels._WIDE_PART_BLOCKS
         run = grid.T * grid.tiles_per_block
         assert _covered_once(n, range(0, grid.n_part * run, run), run)
         assert grid.KR == kernels.k_ranges(K)[1]
@@ -105,9 +106,9 @@ def test_wide_iteration_grid_covers_each_cell_and_gene_once(dtype, g, n):
         cps = grid.cells_per_split
         assert cps % grid.chunk == 0
         assert _covered_once(n, range(0, grid.n_split * cps, cps), cps)
-        hh = grid.hh_cells_per_split
-        assert _covered_once(K, range(0, K, grid.hh_GB), grid.hh_GB)
-        assert _covered_once(n, range(0, grid.hh_n_split * hh, hh), hh)
+        hh = grid.gram_cells_per_split
+        assert hh <= kernels._WIDE_SPLIT_CELLS and hh % kernels._GRAM_BK == 0
+        assert _covered_once(n, range(0, grid.gram_split * hh, hh), hh)
         if mma:  # (tile, cluster, stage, stages, ranges, genes a range) and
             # (cluster, splits, cells a split, stages, stage) of the wgmma kernels
             CL, ranges, range_genes, S = kernels.wtx_wide_grid(g, n, K, xdt)
@@ -119,7 +120,7 @@ def test_wide_iteration_grid_covers_each_cell_and_gene_once(dtype, g, n):
             assert grid[4:8] == kernels.wtx_fma_grid(g, n, K, xdt)[:4]
             assert grid[8:10] == (1, g)
             assert grid[10:15] == kernels.hxt_fma_grid(g, n, K, xdt)
-        assert grid[15:] == kernels.hxt_fma_grid(K, n, K, torch.float32)
+        assert grid[15:] == kernels.gram_wide_grid(n, K)
         KR = grid.KR
         if mma:
             assert kernels.x_wide_smem_bytes("wtx", grid.wtx_S, xdt) <= kernels._MAX_SMEM
@@ -129,8 +130,6 @@ def test_wide_iteration_grid_covers_each_cell_and_gene_once(dtype, g, n):
                                               xdt) <= kernels._MAX_SMEM
             assert kernels.hxt_fma_smem_bytes(KR, grid.GB, grid.S, xdt,
                                               grid.chunk) <= kernels._MAX_SMEM
-        assert kernels.hxt_fma_smem_bytes(KR, grid.hh_GB, grid.hh_S, torch.float32,
-                                          grid.hh_chunk) <= kernels._MAX_SMEM
     with pytest.raises(ValueError, match="K > 512"):
         kernels.wide_iteration_grid(g, n, 512, xdt)
 

@@ -247,7 +247,7 @@ def test_transform_zero_padding_is_exact(K, num_pad):
 
 def test_tile_rule():
     """The tile rule up to K = 512 (at most 4096 values a tile); K = 513 ..
-    2048 get the large-K route's 32-cell tile (one lane a cell, shared
+    2048 get the large-K route's 128-cell tile (4 cells a lane, shared
     memory independent of K); K = 0 raises."""
     assert kernels.tile_width(40) == 64
     assert kernels.tile_width(100) == 32
@@ -255,7 +255,7 @@ def test_tile_rule():
     for K in (1, 7, 64, 65, 129, 300, 512):
         assert K * kernels.tile_width(K) <= 4096 and kernels.route(K) == "tile"
     for K in (513, 600, 768, 1024, 2048):
-        assert kernels.route(K) == "wide" and kernels.tile_width(K) == kernels._WIDE_T == 32
+        assert kernels.route(K) == "wide" and kernels.tile_width(K) == kernels._WIDE_T == 128
     with pytest.raises(ValueError, match="K=0"):
         kernels.tile_width(0)
 
@@ -271,10 +271,11 @@ def test_iteration_tile_rule_fits_its_path(dtype):
     xdt = _TORCH[dtype]
     mma = dtype in ("int8", "bfloat16")
     assert (xdt in kernels._MMA_XTYPES) == mma
-    for K in WIDE_SAMPLE:  # the large-K chain: 32-cell tiles on every path
-        assert kernels.iteration_tile_width(K, xdt) == 32
+    for K in WIDE_SAMPLE:  # the large-K chain: 128-cell tiles on every path
+        assert kernels.iteration_tile_width(K, xdt) == 128
         for L, counts in ((0, False), (8, False), (8, True)):
-            assert kernels.wide_smem_bytes(L, counts) <= kernels._MAX_SMEM
+            assert kernels.wide_stages_bg(L, K - 1, counts) == (L > 0)
+            assert kernels.wide_smem_bytes(L, K - 1, counts) <= kernels._MAX_SMEM
     for K in range(1, 513):
         T = kernels.iteration_tile_width(K, xdt)
         assert T in (8, 16, 32, 64)

@@ -5,8 +5,9 @@ rule by K (``kernels.route``): P1/P2 as the wgmma kernels hxt_wide and
 wtx_wide on int8/bf16 X (csrc/x_passes_wide.cuh) and over ranges of at
 most 512 rows of K on float32/int16 X, K1/K2/K4 as the chain of
 ``kernels.wide_iteration_grid`` (WᵀX by P2's large-K kernel, D = WᵀW H by
-csrc/wtw_gemm.cuh, iter_wide's H update and per-cell statistics over
-32-cell tiles, X Hsᵀ by P1's large-K kernel, H Hᵀ by hxt_fma over Hn), K3
+csrc/wtw_gemm.cuh, iter_wide's H update, Q and loss rows over 128-cell
+tiles, X Hsᵀ by P1's large-K kernel, H Hᵀ, HHtU, rowsum and Bnum by
+gram_wide from one read of Hn: tests/test_torch_gram_wide.py), K3
 as one launch a step (csrc/wtw_gemm.cuh's update).  The
 CUDA kernels run only on the card (tests/test_torch_cuda.py); here, on
 numpy-seeded inputs:
@@ -36,6 +37,7 @@ from alpine_tpu_torch.ops.mu import guided_width
 
 from .test_torch_fp32_passes import _emulate_hxt as _emulate_hxt_fp32
 from .test_torch_fp32_passes import _emulate_wtx as _emulate_wtx_fp32
+from .test_torch_gram_wide import emulate_gram
 from .test_torch_hxt import _emulate_hxt as _emulate_hxt_bf16
 from .test_torch_kernels import _both, _close, _problem, _t
 from .test_torch_model import (  # noqa: F401  (jax_draws is a fixture)
@@ -148,11 +150,12 @@ def _emulate_wide(X, W, H, WtW, Ys, Bs, lam, C, blocks, loss_kl):
     float32/int16: tests/test_torch_wide_passes.py, test_torch_fp32_passes.py),
     D = WᵀW H, the H update and
     guided terms elementwise as iter_wide forms them, iter_wide's per-block
-    partials (each block's 32-cell tiles in order, rowsum, Bnum = Q Hsᵀ,
-    the prediction-loss rows and the loss dot), added in block order; X Hsᵀ
-    in P1's large-K order (hxt_wide's splits, or hxt_fma's) and H Hᵀ =
-    Hs Hnᵀ (and HHtU) in hxt_fma's over Hn's rows.  Returns the outputs of ``fused_iteration`` (``fused_h_update``
-    without covariates)."""
+    partials (each block's 128-cell tiles in order: the prediction-loss rows
+    and the loss dot), added in block order; X Hsᵀ in P1's large-K order
+    (hxt_wide's splits, or hxt_fma's); H Hᵀ = Hs Hnᵀ, HHtU, rowsum and
+    Bnum = Q Hsᵀ in gram_wide's (its splits' upper-triangle tiles and extra
+    columns, mirrored: ``emulate_gram``).  Returns the outputs of
+    ``fused_iteration`` (``fused_h_update`` without covariates)."""
     g, n = X.shape
     K = H.shape[0]
     mma = X.dtype in kernels._MMA_XTYPES
@@ -186,25 +189,22 @@ def _emulate_wide(X, W, H, WtW, Ys, Bs, lam, C, blocks, loss_kl):
             E = Yf * torch.log(torch.clamp(Q, min=EPS)) - Yf + yh
         else:
             Q, E = Yf, (Yf - yhat) ** 2
-    small = torch.zeros(K + L * K + L + 1)
+    small = torch.zeros(L + 1)  # the prediction-loss rows, the loss dot
     run = grid.T * grid.tiles_per_block
     for b in range(grid.n_part):
         part = torch.zeros_like(small)
         for c0 in range(b * run, min(n, (b + 1) * run), grid.T):
             cells = slice(c0, min(n, c0 + grid.T))
-            part[:K] += torch.sum(Hs[:, cells], dim=1)
-            part[K:K + L * K] += (Q[:, cells] @ Hs[:, cells].T).reshape(-1)
-            part[K + L * K:K + L * K + L] += torch.sum(E[:, cells], dim=1)
+            part[:L] += torch.sum(E[:, cells], dim=1)
             part[-1] += torch.sum(WtX[:, cells] * Hn[:, cells])
         small += part
     XHt = (_emulate_hxt_bf16 if mma else _emulate_hxt_fp32)(X, Hs, K).T
-    HHt = _emulate_hxt_fp32(Hn, Hs, K)
+    HHt, HHtU, rowsum, bnum = emulate_gram(Hn, None if C is None else C[1], Q if Ys else None)
     if not Ys:
         return Hn, XHt, HHt, small[-1]
     preds, bnums, bdens = kernels._split_stats(
-        blocks, [y.shape[0] for y in Ys], small[K:K + L * K].view(L, K), small[:K],
-        small[K + L * K:K + L * K + L])
-    extra = [_emulate_hxt_fp32(Hn, Hn, K)] if C is not None else []
+        blocks, [y.shape[0] for y in Ys], bnum, rowsum, small[:L])
+    extra = [HHtU] if C is not None else []
     return (Hn, XHt, HHt, *extra, small[-1], preds, bnums, bdens)
 
 
@@ -243,14 +243,17 @@ def _wide_problem(seed, n, K, dtype, counts):
 @pytest.mark.parametrize("dtype", ["float32", "int16", "int8", "bfloat16"])
 @pytest.mark.parametrize("K,n,counts,loss_kl", [(520, 17, False, True), (520, 1001, True, True),
                                                 (1030, 1001, False, False),
-                                                (1030, 300, True, True)])
+                                                (1030, 300, True, True), (513, 17, True, True),
+                                                (1030, 17, True, False)])
 def test_wide_chain_emulation_matches_plain(dtype, K, n, counts, loss_kl):
     """The large-K chain's summation order against the plain version at
     rtol 1e-5, undrawn columns of H bit for bit; XHt against the plain
     product over the emulation's own Hs (an Hn one ulp off can round Hs to
     another bf16 value on int8/bf16 X).  K = 1030 takes, on float32/int16
     X, three ranges of 352 rows, the last of 326 on its own layout, and on
-    int8/bf16 X five 256-row tiles of K, the last of 6 rows."""
+    int8/bf16 X five 256-row tiles of K, the last of 6 rows; gram_wide's
+    last row tile has 6 rows there and 1 at K = 513.  HHt (and HHtU) come
+    out exactly symmetric."""
     X, W, H, WtW, Ys, Bs, lam, C, blocks = _wide_problem(K + n, n, K, dtype, counts)
     want = list(kernels.fused_iteration_plain(X, W, H, WtW, Ys, Bs, lam, EPS, C,
                                               blocks=blocks, loss_kl=loss_kl))
@@ -259,6 +262,7 @@ def test_wide_chain_emulation_matches_plain(dtype, K, n, counts, loss_kl):
     want[1] = kernels.hxt_plain(X, Hs).T
     for a, b in zip(_flat(got), _flat(want), strict=True):
         np.testing.assert_allclose(a, b, rtol=1e-5, atol=0)
+    assert torch.equal(got[2], got[2].T) and (not counts or torch.equal(got[3], got[3].T))
     if counts:
         undrawn = (C[0] == 0).numpy()
         assert undrawn.any()
@@ -274,6 +278,21 @@ def test_wide_chain_emulation_matches_plain_without_covariates(dtype):
     want[1] = kernels.hxt_plain(X, got[0]).T
     for a, b in zip(_flat(got), _flat(want), strict=True):
         np.testing.assert_allclose(a, b, rtol=1e-5, atol=0)
+
+
+def test_iter_wide_stages_bg_where_it_fits():
+    """iter_wide stages Bg (labels x guided components) in shared memory
+    where it fits beside its label rows, and reads it through the cache
+    where it does not; either way its shared memory fits a Hopper block up
+    to about 190 labels, whatever K."""
+    assert kernels.wide_stages_bg(5, 384, True) and kernels.wide_stages_bg(5, 1536, True)
+    assert not kernels.wide_stages_bg(0, 384, False)
+    assert not kernels.wide_stages_bg(60, 768, False)
+    for L in (1, 5, 60, 190):
+        for counts in (False, True):
+            staged = kernels.wide_stages_bg(L, 768, counts)
+            assert kernels.wide_smem_bytes(L, 768, counts, staged) <= kernels._MAX_SMEM
+    assert kernels.wide_smem_bytes(200, 768, True, False) > kernels._MAX_SMEM
 
 
 @pytest.mark.parametrize("n_iter", [0, 1, 2, 5])
