@@ -67,10 +67,12 @@
 // K = 300 (KP = 320), 100k cells and 50 steps, a seventh of the 225 GB
 // that the earlier kernel (8 cells a block, WtW2 read once an output) read.
 //
-// Per-step path (K > 512): one launch a step of wtw_gemm.cuh's fp32
-// product WtW2 H with the update in its epilogue, H ping-ponged between
-// `out` and a K x n scratch, so the last step lands in `out`.  Its sums and
-// update are formed as above: the same bits as the tiled path.
+// Per-step path (K > 512): WtW2 transposed once a call into a K x K
+// scratch (wtw_gemm.cuh: wtw_transpose), then one launch a step of
+// wtw_gemm.cuh's fp32 product WtW2 H with the update in its epilogue, both
+// operands through its cp.async ring, H ping-ponged between `out` and a
+// K x n scratch, so the last step lands in `out`.  Its sums and update are
+// formed as above: the same bits as the tiled path.
 #include "common.cuh"
 #include "wtw_gemm.cuh"
 
@@ -359,19 +361,21 @@ cudaError_t launch_tiles(const float* num2, const float* H0, const float* WtW2, 
   return cudaGetLastError();
 }
 
-// n_iter launches of wtw_gemm's update: step i reads the previous step's H
-// (H0 first) and writes the buffer that makes the last step write `out`.
+// WtW2's transpose into At (K x K), then n_iter launches of wtw_gemm's
+// update: step i reads the previous step's H (H0 first) and writes the
+// buffer that makes the last step write `out`.
 static cudaError_t launch_steps(const float* num2, const float* H0, const float* WtW2, int K,
-                                int n, int n_iter, float eps, float* scratch, float* out,
-                                cudaStream_t stream) {
+                                int n, int n_iter, float eps, float* scratch, float* At,
+                                float* out, cudaStream_t stream) {
   if (n_iter == 0)
     return cudaMemcpyAsync(out, H0, (size_t)K * n * sizeof(float), cudaMemcpyDeviceToDevice,
                            stream);
+  cudaError_t err = launch_wtw_transpose(WtW2, K, At, stream);
+  if (err != cudaSuccess) return err;
   const float* src = H0;
   for (int it = 0; it < n_iter; ++it) {
     float* dst = (n_iter - 1 - it) % 2 == 0 ? out : scratch;
-    const cudaError_t err =
-        launch_wtw_gemm<kGemmUpdate>(WtW2, src, K, n, num2, eps, dst, stream);
+    err = launch_wtw_gemm<kGemmUpdate>(At, src, K, n, num2, eps, dst, stream);
     if (err != cudaSuccess) return err;
     src = dst;
   }
@@ -400,11 +404,12 @@ cudaError_t launch_columns(const float* num2, const float* H0,
 // KP x KP scratch for WtW2 transposed and zero-padded
 // (ops/kernels.py:transform_tiles_grid); T, KP, J, S and Wt are not read
 // when KB > 0.  KB = 0 and T = 0: the per-step path, Wt a K x n scratch
-// (ops/kernels.py:transform_path).
+// and At a K x K one (WtW2 transposed; ops/kernels.py:transform_path); At
+// is read by that path alone.
 extern "C" int alpine_fused_transform(const float* num2, const float* H0,
                                       const float* WtW2, int K, int KB, int n,
                                       int T, int KP, int J, int S, int n_iter,
-                                      float eps, float* Wt, float* out,
+                                      float eps, float* Wt, float* At, float* out,
                                       void* stream) {
   using namespace alpine;
   if (n <= 0 || K <= 0 || n_iter < 0) return (int)cudaErrorInvalidValue;
@@ -429,8 +434,8 @@ extern "C" int alpine_fused_transform(const float* num2, const float* H0,
     }
   }
   if (T == 0) {
-    if (Wt == nullptr) return (int)cudaErrorInvalidValue;
-    return (int)launch_steps(num2, H0, WtW2, K, n, n_iter, eps, Wt, out, s);
+    if (Wt == nullptr || At == nullptr) return (int)cudaErrorInvalidValue;
+    return (int)launch_steps(num2, H0, WtW2, K, n, n_iter, eps, Wt, At, out, s);
   }
   // J: a multiple of the 8 rows the kernel unrolls, dividing KP
   if (Wt == nullptr || KP < K || J <= 0 || J % 8 != 0 || KP % J != 0 || S < 2 || S > 8)

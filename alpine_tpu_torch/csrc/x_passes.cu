@@ -74,10 +74,10 @@
 // fused_iteration (K1, K2, K4 at K > 512; replaces alpine_tpu/ops/
 // pallas_kernels.py:fused_iteration and fused_h_update where K > 512), one
 // C call launching a chain: WᵀX (wtx_wide, or wtx_fma) → D = WᵀW H
-// (wtw_gemm.cuh) → iter_wide (the H update, Q and the loss rows) → X Hsᵀ
-// (hxt_wide, or hxt_fma) → gram_wide (gram_wide.cuh: H Hᵀ over the upper
-// triangle, HHtU, rowsum and Bnum from one read of Hn) → the partials'
-// sums.  Its bound at 100k cells x 2000 genes, K = 768, int8: the fp32
+// (wtw_gemm.cuh, from WᵀW transposed into a K x K scratch) → iter_wide
+// (the H update, Q and the loss rows) → X Hsᵀ (hxt_wide, or hxt_fma) →
+// gram_wide (gram_wide.cuh: H Hᵀ over the upper triangle, HHtU, rowsum
+// and Bnum from one read of Hn) → the partials' sums.  Its bound at 100k cells x 2000 genes, K = 768, int8: the fp32
 // (WᵀW)H and the upper triangle of Hn Hnᵀ, 177 GFLOP, 2.7 ms at 67 TFLOP/s
 // (the bf16 X products 614 GFLOP, 0.62 ms; bytes 0.25 ms).
 #include "fma_passes.cuh"
@@ -1180,7 +1180,7 @@ static int launch_iteration_wide(const void* X, const float* W, const float* H,
                                  float* Hn, float* XHt, float* stats, float* WtX, float* D,
                                  float* Hs, float* Q, float* part, float* part_x,
                                  float* part_hh, void* hb, void* wb, float* wpart,
-                                 cudaStream_t stream) {
+                                 float* WtWt, cudaStream_t stream) {
   if (p.T != kWideT || K < 1 || L < 0 || (kCounts && (C == nullptr || Hs == nullptr)) ||
       (L > 0 && (Y == nullptr || Bg == nullptr || lam_rows == nullptr || Q == nullptr)))
     return (int)cudaErrorInvalidValue;
@@ -1192,7 +1192,9 @@ static int launch_iteration_wide(const void* X, const float* W, const float* H,
     rc = launch_wtx_fma<XT>(X, W, g, n, K, p.KR, p.wT, p.wWR, p.wGC, p.wS, WtX, stream);
   }
   if (rc != 0) return rc;
-  cudaError_t err = launch_wtw_gemm<kGemmStore>(WtW, H, K, n, nullptr, 0.f, D, stream);
+  cudaError_t err = launch_wtw_transpose(WtW, K, WtWt, stream);
+  if (err != cudaSuccess) return (int)err;
+  err = launch_wtw_gemm<kGemmStore>(WtWt, H, K, n, nullptr, 0.f, D, stream);
   if (err != cudaSuccess) return (int)err;
   const size_t smem = wide_smem_floats(L, Kg, kCounts, stage_bg != 0) * sizeof(float);
   if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
@@ -1302,7 +1304,7 @@ extern "C" int alpine_fused_iteration_wide(
     int wtx_ranges, int wtx_range_genes, int GB, int n_split, int cells_per_split,
     int stages, int chunk, int gram_split, int gram_cells_per_split, float* Hn, float* XHt,
     float* stats, float* wtx, float* d, float* hs, float* q, float* part, float* part_x,
-    float* part_hh, void* hb, void* wb, float* wpart, void* stream) {
+    float* part_hh, void* hb, void* wb, float* wpart, float* wtwt, void* stream) {
   using namespace alpine;
   const WideGrid p{T,      n_part,  tiles_per_block, KR,         wtx_T,
                    wtx_WR, wtx_GC,  wtx_S,           wtx_ranges, wtx_range_genes,
@@ -1311,7 +1313,7 @@ extern "C" int alpine_fused_iteration_wide(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define ALPINE_WIDE_ARGS                                                                 \
   X, W, H, WtW, Y, Bg, lam_rows, counts, g, n, K, L, Kg, loss_kl, stage_bg, eps, p, Hn, XHt, \
-      stats, wtx, d, hs, q, part, part_x, part_hh, hb, wb, wpart, s
+      stats, wtx, d, hs, q, part, part_x, part_hh, hb, wb, wpart, wtwt, s
   const bool c = counts != nullptr;
   switch (xtype) {
     case kF32:
@@ -1329,6 +1331,17 @@ extern "C" int alpine_fused_iteration_wide(
     default: return (int)cudaErrorInvalidValue;
   }
 #undef ALPINE_WIDE_ARGS
+}
+
+// wtw_gemm's store alone (ops/kernels.py:wtw_gemm): out = A B for A K x K
+// and B K x n, A transposed first into At (a K x K scratch).
+extern "C" int alpine_wtw_gemm(const float* A, const float* B, int K, int n, float* At,
+                               float* out, void* stream) {
+  using namespace alpine;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err = launch_wtw_transpose(A, K, At, s);
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_wtw_gemm<kGemmStore>(At, B, K, n, nullptr, 0.f, out, s);
 }
 
 // gram_wide alone (ops/kernels.py:gram_wide): HHt = Hn diag(c) Hnᵀ (c: a

@@ -44,7 +44,11 @@ launches: Dict[str, int] = {"fused_iteration": 0, "fused_iteration_counts": 0,
                             "hxt_wide": 0, "wtx_wide": 0,
                             # the large-K chain's H Hᵀ, rowsum and Bnum: one a
                             # K1/K2/K4 call at K > 512, and gram_wide's own
-                            "gram_wide": 0}
+                            "gram_wide": 0,
+                            # the large-K chain's D = WᵀW H (wtw_gemm's store):
+                            # one a K1/K2/K4 call at K > 512, and wtw_gemm's
+                            # own; K3's per-step updates count as fused_transform
+                            "wtw_gemm": 0}
 
 # X storage dtype -> code of csrc/common.cuh:XType
 _XTYPE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2, torch.int16: 3}
@@ -291,6 +295,20 @@ def transform_tiles_grid(K: int) -> TransformGrid:
     return TransformGrid(T, KP, J, S, transform_tiles_smem_bytes(KP, T, J, S))
 
 
+def transform_scratch_shapes(K: int, n: int) -> Tuple[Tuple[int, int], ...]:
+    """The scratch tensors a fused_transform call on the card allocates, by
+    path: none on the register path, WtW2ᵀ padded to KP × KP on the tiled
+    path, and on the per-step path H's second buffer (K × n) and WtW2ᵀ
+    (``wtw_scratch_shape``: K × K, shared by the steps)."""
+    path = transform_path(K)
+    if path == "tiles":
+        KP = transform_tiles_grid(K).KP
+        return ((KP, KP),)
+    if path == "steps":
+        return ((K, n), wtw_scratch_shape(K))
+    return ()
+
+
 def _pad16(v: int) -> int:
     return -(-v // 16) * 16
 
@@ -417,6 +435,11 @@ def fused_transform_plain(num2, H0, WtW2, eps, *, n_iter):
     for _ in range(n_iter):
         H = H * (num2 / torch.clamp(WtW2 @ H, min=eps))
     return H
+
+
+def wtw_gemm_plain(A, B):
+    """Plain PyTorch version of ``wtw_gemm``: A B."""
+    return A @ B
 
 
 def hxt_plain(X, H):
@@ -979,6 +1002,7 @@ def _launch_iteration_wide(X, W, H, WtW, Y_all, Bg, lam_rows, eps, counts, L,
     part = buf(grid.n_part, L + 1)  # prediction rows, loss dot
     part_x = buf(grid.n_split, K, g)
     part_hh = buf(grid.gram_split, gram_split_floats(K, L, counts is not None))
+    wtwt = buf(*wtw_scratch_shape(K))  # WᵀW transposed, for D = WᵀW H
     hb = wb = wpart = None
     if mma:  # H (Hs) rounded for P1, W transposed and rounded for P2
         hb = torch.empty(2 * K * -(-n // _WIDE_BK) * _WIDE_BK, dtype=torch.uint8, device=dev)
@@ -993,7 +1017,8 @@ def _launch_iteration_wide(X, W, H, WtW, Y_all, Bg, lam_rows, eps, counts, L,
                     g, n, K, L, Kg, int(bool(loss_kl)), int(stage_bg), eps, *grid,
                     Hn.data_ptr(), XHt.data_ptr(), stats.data_ptr(), wtx.data_ptr(),
                     D.data_ptr(), ptr(hs), ptr(q), part.data_ptr(), part_x.data_ptr(),
-                    part_hh.data_ptr(), ptr(hb), ptr(wb), ptr(wpart), _stream(dev))
+                    part_hh.data_ptr(), ptr(hb), ptr(wb), ptr(wpart), wtwt.data_ptr(),
+                    _stream(dev))
     if rc != 0:
         raise RuntimeError(f"fused_iteration's large-K chain failed to launch: CUDA "
                            f"error {rc}")
@@ -1001,6 +1026,7 @@ def _launch_iteration_wide(X, W, H, WtW, Y_all, Bg, lam_rows, eps, counts, L,
         launches["hxt_wide"] += 1
         launches["wtx_wide"] += 1
     launches["gram_wide"] += 1
+    launches["wtw_gemm"] += 1
     return Hn, XHt, stats, n_labels
 
 
@@ -1076,6 +1102,54 @@ def fused_h_update(X, W, H, WtW, eps):
     return Hn, XHt, stats[:K * K].view(K, K), stats[-1]
 
 
+def wtw_design(K: int = None, n: int = None) -> Dict[str, object]:
+    """wtw_gemm's output tile, ring chunk (values of j) and stages, read
+    from csrc/wtw_gemm.cuh, whose launch alone decides them; with K and n
+    also the launch's blocks, one an output tile.  For reports and checks:
+    no launch reads it."""
+    import re
+
+    m = re.search(r"constexpr int kGemmBM = (\d+), kGemmBN = (\d+), kGemmBK = (\d+), "
+                  r"kGemmStages = (\d+);", (_build.CSRC / "wtw_gemm.cuh").read_text())
+    if m is None:
+        raise RuntimeError("csrc/wtw_gemm.cuh declares no kGemm constants")
+    bm, bn, bk, stages = (int(v) for v in m.groups())
+    out = {"tile": [bm, bn], "chunk": bk, "stages": stages}
+    if K is not None:
+        out["blocks"] = _cdiv(K, bm) * _cdiv(n, bn)
+    return out
+
+
+def wtw_scratch_shape(K: int) -> Tuple[int, int]:
+    """The scratch a wtw_gemm call writes A's transpose into, once a call
+    (csrc/wtw_gemm.cuh: wtw_transpose): K x K, in the chain (WᵀW), in the
+    per-step transform (WtW2, shared by its steps) and in ``wtw_gemm``."""
+    route(K)  # K >= 1
+    return (K, K)
+
+
+def wtw_gemm(A, B):
+    """The large-K chain's D = WᵀW H alone (csrc/wtw_gemm.cuh's store
+    epilogue): A B for A (K, K) and B (K, n) float32.  On the card A is
+    transposed into a ``wtw_scratch_shape`` scratch, then true fp32 over
+    128 x 128 output tiles (the kernel's grid, chunk and ring are its own:
+    csrc/wtw_gemm.cuh), each sum d = fmaf(A[k][j], B[j][c], d) over j in
+    order from 0: the bits of the chain's product and of K3's per-step
+    path's; any K and n."""
+    if not _cuda_or_cpu(B):
+        return wtw_gemm_plain(A, B)
+    dev, f32 = B.device, torch.float32
+    K, n = B.shape
+    _check("A", A, (K, K), f32, dev)
+    _check("B", B, (K, n), f32, dev)
+    At = torch.empty(wtw_scratch_shape(K), dtype=f32, device=dev)
+    out = torch.empty((K, n), dtype=f32, device=dev)
+    rc = _on_device(dev, _build.entry("wtw_gemm"), A.data_ptr(), B.data_ptr(), K, n,
+                    At.data_ptr(), out.data_ptr(), _stream(dev))
+    _launched("wtw_gemm", rc)
+    return out
+
+
 def gram_wide_plain(Hn, c=None, Q=None):
     """Plain PyTorch version of ``gram_wide``."""
     Hs = Hn if c is None else Hn * c
@@ -1125,10 +1199,10 @@ def fused_transform(num2, H0, WtW2, eps, *, n_iter: int):
     steps), larger K the tiled path (a block keeps a tile of cells in
     shared memory for all steps and streams WtW2ᵀ, padded into a KP × KP
     scratch once a call, through a ring; ``transform_tiles_grid``), and
-    K > 512 the per-step path (one tiled fp32 product a step with the
-    update in its epilogue, H ping-ponged through a K × n scratch): a rule
-    by K (``transform_path``).  All three give the same bits for the same
-    inputs."""
+    K > 512 the per-step path (WtW2 transposed once into a K × K scratch,
+    then one tiled fp32 product a step with the update in its epilogue, H
+    ping-ponged through a K × n scratch): a rule by K (``transform_path``).
+    All three give the same bits for the same inputs."""
     if not _cuda_or_cpu(H0):
         return fused_transform_plain(num2, H0, WtW2, eps, n_iter=n_iter)
     dev = H0.device
@@ -1140,22 +1214,17 @@ def fused_transform(num2, H0, WtW2, eps, *, n_iter: int):
         raise TypeError("eps must be a float and n_iter a non-negative int")
     KB = transform_bucket(K)
     T = KP = J = S = 0
-    # the tiled path's padded WtW2ᵀ (KP × KP), or the per-step path's second
-    # buffer of H (K × n; T = 0), written by the call
-    Wt = None
-    path = transform_path(K)
-    if path == "tiles":
+    if transform_path(K) == "tiles":
         T, KP, J, S, _ = transform_tiles_grid(K)
-        Wt = torch.empty((KP, KP), dtype=torch.float32, device=dev)
-    elif path == "steps":
-        Wt = torch.empty((K, n), dtype=torch.float32, device=dev)
+    # the tiled path's padded WtW2ᵀ, or the per-step path's second buffer of
+    # H (T = 0) and its WtW2ᵀ, written by the call
+    Wt, At = ([torch.empty(shape, dtype=torch.float32, device=dev)
+               for shape in transform_scratch_shapes(K, n)] + [None, None])[:2]
     out = torch.empty((K, n), dtype=torch.float32, device=dev)
-    fn = _build.entry("fused_transform")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(num2.data_ptr(), H0.data_ptr(), WtW2.data_ptr(), K, KB, n, T,
-                KP, J, S, n_iter, eps, None if Wt is None else Wt.data_ptr(),
-                out.data_ptr(), stream)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    rc = _on_device(dev, _build.entry("fused_transform"), num2.data_ptr(), H0.data_ptr(),
+                    WtW2.data_ptr(), K, KB, n, T, KP, J, S, n_iter, eps, ptr(Wt), ptr(At),
+                    out.data_ptr(), _stream(dev))
     if rc != 0:
         raise RuntimeError(f"fused_transform kernel failed to launch: CUDA "
                            f"error {rc}")

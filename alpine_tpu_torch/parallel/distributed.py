@@ -47,6 +47,7 @@ from __future__ import annotations
 import datetime
 import os
 import time
+import weakref
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -55,6 +56,11 @@ import torch
 # the gloo group of the host rows: the default group when it is gloo, else
 # a gloo group over the same ranks, made at the first host collective
 _host_group = None
+
+# the meshes built here (global_cell_mesh, global_gene_cell_mesh, and
+# mesh.restore_device through _device_mesh): a DeviceMesh holds the process
+# groups of its axes, which shutdown() takes from it
+_meshes: List[weakref.ref] = []
 
 # the sharded fit's all-reduces since reset_collectives(), by tag ("setup":
 # the statistics before the loop, "iteration": one an iteration): calls and
@@ -147,12 +153,37 @@ def initialize(
 
 def shutdown() -> None:
     """Leave the process group (the counterpart of
-    ``jax.distributed.shutdown``)."""
+    ``jax.distributed.shutdown``).
+
+    Every mesh built by this module gives up its process groups first, so
+    that destroying them frees them here and a gloo group's worker threads
+    end now.  A mesh still referenced (by a model, or by the traceback of
+    a search that raised) would otherwise keep them running until the
+    interpreter's exit, and a thread that was still releasing the tensors
+    of the last collective then aborts the process ("terminate called
+    without an active exception").  Such a mesh runs no collective after
+    this call."""
     global _host_group
     tdist = _dist()
     _host_group = None
+    for ref in _meshes:
+        mesh = ref()
+        registry = getattr(mesh, "_pg_registry", None)
+        if isinstance(registry, dict):
+            registry.clear()
+    _meshes.clear()
     if tdist.is_initialized():
         tdist.destroy_process_group()
+
+
+def _device_mesh(device_type: str, shape, names):
+    """``init_device_mesh`` over the process group, recorded for
+    ``shutdown``."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    mesh = init_device_mesh(device_type, tuple(shape), mesh_dim_names=tuple(names))
+    _meshes.append(weakref.ref(mesh))
+    return mesh
 
 
 def _initialized() -> bool:
@@ -181,13 +212,10 @@ def global_cell_mesh():
     if not _initialized():
         raise RuntimeError("call distributed.initialize() before "
                            "global_cell_mesh()")
-    from torch.distributed.device_mesh import init_device_mesh
-
     from alpine_tpu_torch.parallel.mesh import CELL_AXIS
 
     device_type = "cuda" if torch.cuda.is_available() else "cpu"
-    return init_device_mesh(device_type, (process_count(),),
-                            mesh_dim_names=(CELL_AXIS,))
+    return _device_mesh(device_type, (process_count(),), (CELL_AXIS,))
 
 
 def global_gene_cell_mesh(n_genes_axis: int, n_cells_axis: int):
@@ -210,13 +238,11 @@ def global_gene_cell_mesh(n_genes_axis: int, n_cells_axis: int):
             f"a {n_genes_axis} x {n_cells_axis} ('genes', 'cells') grid "
             f"holds {need} processes, but the process group has {n}: the "
             "grid must span every process")
-    from torch.distributed.device_mesh import init_device_mesh
-
     from alpine_tpu_torch.parallel.mesh import CELL_AXIS, GENE_AXIS
 
     device_type = "cuda" if torch.cuda.is_available() else "cpu"
-    return init_device_mesh(device_type, (int(n_genes_axis), int(n_cells_axis)),
-                            mesh_dim_names=(GENE_AXIS, CELL_AXIS))
+    return _device_mesh(device_type, (int(n_genes_axis), int(n_cells_axis)),
+                        (GENE_AXIS, CELL_AXIS))
 
 
 def mesh_cell_range(mesh, n_cells: int) -> tuple:

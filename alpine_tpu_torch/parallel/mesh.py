@@ -118,9 +118,7 @@ def restore_device(desc):
     for s in shape:
         n *= s
     if dist._initialized() and dist.process_count() == n:
-        from torch.distributed.device_mesh import init_device_mesh
-
-        return init_device_mesh(device_type, tuple(shape), mesh_dim_names=axes)
+        return dist._device_mesh(device_type, shape, axes)
     dev = resolve_device("cuda")
     import warnings
 

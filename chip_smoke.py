@@ -74,19 +74,22 @@ Phases, each printing one JSON line:
           plain version: K1 with and without counts, K2, P1, P2 on int8,
           bf16, int16 and float32 X at K = 513, 600, 768, 1024, 2048 on 70
           genes x 17, 1,001 and 5,040 cells (int8 also at a 1-byte offset),
-          K3 on its per-step path there, each launched twice (bit for
-          bit), and the per-step path called directly at K = 40, 300 and
-          512 bit for bit the register and tiled paths (one summary line);
-          then rows at the bench shape, K = 768: K1, K4, K2 (int8) and K1
-          on float32 X, K3 (50 steps), with the card's ms of each kernel
+          K3 on its per-step path there and the large-K product alone
+          (wtw_gemm's store), each launched twice (bit for bit), and the
+          per-step path called directly at K = 40, 300 and 512 bit for bit
+          the register and tiled paths (one summary line); then rows at the
+          bench shape, K = 768: K1, K4, K2 (int8) and K1 on float32 X, the
+          chain's D = WᵀW H alone (wtw_gemm), K3 (50 steps), with the card's
+          ms of each kernel
           they launch, P1 and P2 (int8: the wgmma kernels hxt_wide and
           wtx_wide) at K = 520, 768, 1024 and 2048 and P2 at k = 384, and
           P1/P2 at K = 768 on the minibatch's 8,192 cells and on 66,667
           cells beside a 66,672-cell twin (zero cells added: its bits
           checked), each with every output against the plain version's, a
           second launch bit for bit, its time, bound, plain and library
-          time (bf16 cuBLAS X products with fp32 (WᵀW)H and H Hᵀ; 50 fp32
-          torch.matmul for K3; bf16 torch.matmul for P1/P2, with the card's
+          time (bf16 cuBLAS X products with fp32 (WᵀW)H and H Hᵀ; fp32
+          torch.matmul for wtw_gemm, 50 of them for K3; bf16 torch.matmul
+          for P1/P2, with the card's
           µs of a call beside the library's) and grid;
   stream_probe  the streaming probe's entry point (alpine_tpu_torch/
           probe.py) on int8 and float32 X at the bench shape: ms and GB/s
@@ -378,6 +381,8 @@ REPLACES = {
     # the large-K chain's statistics against Hn: fused_iteration's H_stat
     # contractions (HHt_ref, HHtU_ref, rowsum_Hn, bnum_all)
     "gram_wide": "alpine_tpu/ops/pallas_kernels.py:584",
+    # the large-K chain's denominator: fused_iteration's WtW H product
+    "wtw_gemm": "alpine_tpu/ops/pallas_kernels.py:500",
 }
 SOURCES = {
     "fused_iteration": "alpine_tpu_torch/csrc/fused_iteration.cu",
@@ -388,6 +393,7 @@ SOURCES = {
     "wtx": "alpine_tpu_torch/csrc/x_passes.cu",
     "stream_probe": "alpine_tpu_torch/csrc/stream_probe.cu",
     "gram_wide": "alpine_tpu_torch/csrc/gram_wide.cuh",
+    "wtw_gemm": "alpine_tpu_torch/csrc/wtw_gemm.cuh",
 }
 # mangled names of fused_iteration.cu's passes: iter_tiles<X type, kBf16,
 # kCounts>, hxt_partial<X type, kCounts> (the bf16 path only)
@@ -556,13 +562,15 @@ def sass_check(_build, kernels):
                      "spill_stores": u.get("spill_stores")})
     usage = ptxas_usage(_build.build_log("fused_transform"))
     trows = []
-    ops = ("FFMA", "LDS", "LDGSTS", "SHFL", "MUFU")
+    ops = ("FFMA", "LDS", "LDGSTS", "SHFL", "MUFU", "HMMA")
     for fn, count in sorted(sass_counts(_build, "fused_transform", ops).items()):
         m, t = COLUMNS_NAME.search(fn), TILES_NAME.search(fn)
         u = usage.get(fn, {})
         T, G = (int(t.group(1)), int(t.group(2))) if t else (None, None)
         trows.append({"kernel": ("transform_columns" if m else "transform_tiles" if t
-                                 else "wtw_gemm" if "wtw_gemm" in fn else "pad_transpose"),
+                                 else "wtw_gemm" if "wtw_gemm" in fn
+                                 else "wtw_transpose" if "wtw_transpose" in fn
+                                 else "pad_transpose"),
                       "bucket": int(m.group(1)) if m else None, "T": T,
                       "KP": 2 * kernels._THREADS // (T // 8) * G if t else None,
                       "row_pairs": G,
@@ -653,15 +661,24 @@ def sass_check(_build, kernels):
               f"{tag}: spill stores {r['spill_stores']}, HMMA {r['hmma']}")
         check(r["ffma"] >= (1024 if r["counts"] else 512), f"{tag}: {r['ffma']} FFMA")
     # iter_wide on four Y types with and without counts, wtw_gemm's store
-    # epilogue: true fp32 (no HMMA), no spill store
+    # epilogue (and, in fused_transform, its update), each with 16- and
+    # 4-byte copies: true fp32 (no HMMA), no spill store
     check(sum(r["kernel"] == "iter_wide" for r in wide) == 8
-          and sum(r["kernel"] == "wtw_gemm" for r in wide) == 1,
-          f"expected 8 iter_wide and 1 wtw_gemm in x_passes, found {len(wide)}")
-    for r in wide + [r for r in trows if r["kernel"] == "wtw_gemm"]:
-        check(r["spill_stores"] == 0 and r.get("hmma", 0) == 0,
-              f"{r['kernel']}: spill stores {r['spill_stores']}, HMMA {r.get('hmma')}")
-        if r["kernel"] == "wtw_gemm":  # 8 unrolled j x 8 x 8 outputs a thread
-            check(r["ffma"] >= 512, f"wtw_gemm: {r['ffma']} FFMA")
+          and sum(r["kernel"] == "wtw_gemm" for r in wide) == 2,
+          f"expected 8 iter_wide and 2 wtw_gemm in x_passes, found {len(wide)}")
+    gemms = [r for r in wide + trows if r["kernel"] == "wtw_gemm"]
+    check(len(gemms) == 4, f"expected wtw_gemm's store and update twice, found {len(gemms)}")
+    for r in wide + gemms:
+        check(r["spill_stores"] == 0 and r["hmma"] == 0,
+              f"{r['kernel']}: spill stores {r['spill_stores']}, HMMA {r['hmma']}")
+        if r["kernel"] == "wtw_gemm":
+            # a chunk of the ring (kGemmBK values of j) unrolled, 8 x 8
+            # outputs a thread; both operands by cp.async (LDGSTS) into the
+            # ring; two blocks an SM
+            check(r["ffma"] >= 64 * kernels.wtw_design()["chunk"] and r["ldgsts"] > 0
+                  and r["registers"] is not None and r["registers"] <= 128,
+                  f"wtw_gemm: {r['ffma']} FFMA, {r['ldgsts']} LDGSTS, "
+                  f"{r['registers']} registers")
     # hxt_fma<XT, 1 .. _FMA_MAX_MK + 1> (8 rows only past K = 448), wtx_fma<XT, 1 .. 6>
     fma_rows = {"hxt_fma": kernels._FMA_MAX_MK + 1, "wtx_fma": kernels._WTX_FMA_MAX_MK}
     n_fma = 2 * sum(fma_rows.values())
@@ -2790,7 +2807,9 @@ WIDE_ROWS = {"fused_iteration wide": "alpine_tpu_torch/csrc/x_passes.cu",
              "wtx k=384 K=384": "alpine_tpu_torch/csrc/x_passes.cu",
              # the chain's H Hᵀ, HHtU, rowsum and Bnum (gram_wide alone)
              "gram_wide K=768": "alpine_tpu_torch/csrc/gram_wide.cuh",
-             "gram_wide counts K=768": "alpine_tpu_torch/csrc/gram_wide.cuh"}
+             "gram_wide counts K=768": "alpine_tpu_torch/csrc/gram_wide.cuh",
+             # the chain's D = WᵀW H (wtw_gemm's store alone)
+             "wtw_gemm K=768": "alpine_tpu_torch/csrc/wtw_gemm.cuh"}
 K768 = 768  # the JAX package's component bucket level (alpine_tpu/ops/mu.py:1681)
 # kernel_wide's P1/P2 bench rows above K = 512 (hxt_wide, wtx_wide)
 WIDE_BENCH_KS = (520, 768, 1024, 2048)
@@ -2812,9 +2831,11 @@ def transform_steps_direct(torch, _build, num2, H0, WtW2, n_iter):
     against the register and tiled paths; not counted as a launch."""
     K, n = H0.shape
     out, scratch = torch.empty_like(H0), torch.empty_like(H0)
+    At = torch.empty((K, K), dtype=torch.float32, device=H0.device)
     rc = _build.entry("fused_transform")(
         num2.data_ptr(), H0.data_ptr(), WtW2.data_ptr(), K, 0, n, 0, 0, 0, 0, n_iter, EPS,
-        scratch.data_ptr(), out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        scratch.data_ptr(), At.data_ptr(), out.data_ptr(),
+        torch.cuda.current_stream().cuda_stream)
     check(rc == 0, f"fused_transform's per-step path failed to launch: CUDA error {rc}")
     return out
 
@@ -2940,6 +2961,18 @@ def run_kernel_wide_phase(torch, kernels, _build, gen, dev, card):
                           and (c is None or torch.equal(got[1], got[1].T)),
                           f"kernel_wide gram_wide K={K} n={n}: HHt not symmetric")
             del Hn, cn, Q
+    # the large-K product alone (wtw_gemm's store: the chain's D = WᵀW H) at
+    # every K and cell count, B at a 4-byte offset too (rows off 16-byte
+    # alignment at any n)
+    for K in WIDE_KS:
+        A = torch.rand((K, K), generator=gen, device=dev)
+        for n in WIDE_NS:
+            Bm = torch.rand((K, n + 1), generator=gen, device=dev) + 0.05
+            for note, Bv in (("", Bm[:, :n].contiguous()),
+                             (" offset 4", Bm.view(-1)[1:1 + K * n].view(K, n))):
+                hold(f"wtw_gemm K={K} n={n}{note}", lambda: kernels.wtw_gemm(A, Bv),
+                     lambda: kernels.wtw_gemm_plain(A, Bv), 1e-4, 1e-6)
+        del A, Bm, Bv
     # K3: the per-step path at every K > 512, and at a K of the register and
     # of the tiled path called directly
     for K in WIDE_KS + STEPS_SAME_BITS_KS:
@@ -2965,6 +2998,7 @@ def run_kernel_wide_phase(torch, kernels, _build, gen, dev, card):
         k: {"cases": c, "worst_err_over_tolerance": w, "max_abs_err": a}
         for k, (w, a, c) in worst.items()},
         "ks": list(WIDE_KS), "cells": list(WIDE_NS), "genes": WIDE_G, "gram_labels": [5, 9],
+        "wtw_gemm_b_offsets_bytes": [0, 4],
         "many_labels": {"K": 2048, "cells": 1001, "labels": 60, "bg_staged": False},
         "steps_bit_equal_other_paths_at": list(STEPS_SAME_BITS_KS),
         "tolerance": "rtol 1e-4 (K3 2e-4), atol 1e-6*max|plain| per output (K1/K2/K4 "
@@ -3123,8 +3157,19 @@ def run_kernel_wide_bench(torch, kernels, gen, dev, card):
                   gram_cost(K768, N, sum(labels), c is not None), ggrid,
                   names=("HHt", "rowsum", "Bnum") if c is None
                   else ("HHt", "HHtU", "rowsum", "Bnum"))
+    # the chain's D = WᵀW H alone (wtw_gemm's store) beside fp32
+    # torch.matmul(WtW, H), TF32 off, which is its plain version too
+    Wt = torch.rand((G, K768), generator=gen, device=dev)
+    WtW = Wt.T @ Wt
+    mm = lambda: torch.matmul(WtW, Hn)
+    timed_row(f"wtw_gemm K={K768}", lambda: kernels.wtw_gemm(WtW, Hn),
+              lambda: kernels.wtw_gemm_plain(WtW, Hn), mm,
+              "fp32 torch.matmul(WtW, H), TF32 off", 1e-4, 1e-6,
+              (4 * (K768 * K768 + 2 * K768 * N), 0.0, 2.0 * K768 * K768 * N),
+              kernels.wtw_design(K768, N),
+              names=("D",))
     torch.backends.cuda.matmul.allow_tf32 = tf32
-    del Hn, Q, cn, Hs
+    del Hn, Q, cn, Hs, Wt, WtW
     torch.cuda.empty_cache()
     # K3 at K = 768: the per-step path, 50 launches a call
     Wt = torch.rand((G, K768), generator=gen, device=dev)
@@ -3253,8 +3298,9 @@ def run_k768_phase(torch, kernels, ALPINE, AnnData, counts, obs):
     check(launches["hxt_wide"] == 1 + K768_ITERS and launches["wtx_wide"] == K768_ITERS,
           f"slice_k768: hxt_wide {launches['hxt_wide']}, wtx_wide {launches['wtx_wide']} "
           f"launches, expected {1 + K768_ITERS} and {K768_ITERS}")
-    check(launches["gram_wide"] == K768_ITERS,
-          f"slice_k768: gram_wide {launches['gram_wide']} launches, expected {K768_ITERS}")
+    check(launches["gram_wide"] == K768_ITERS and launches["wtw_gemm"] == K768_ITERS,
+          f"slice_k768: gram_wide {launches['gram_wide']}, wtw_gemm {launches['wtw_gemm']} "
+          f"launches, expected {K768_ITERS}")
     check(launches["fused_transform"] == 1, "slice_k768: transform must launch K3 once")
     check(np.isfinite(L).all(), "slice_k768: loss history must be finite")
     check(L[-1, 0] < L[0, 0], "slice_k768: total loss must fall")
@@ -3306,16 +3352,17 @@ def run_k768_modes_phase(torch, kernels, ALPINE, AnnData, counts, obs):
     its = K768_MODE_ITERS
     modes = (("unguided", dict(n_components=K768, n_covariate_components=[], lam=[]), {},
               {"fused_h_update": its, "hxt": 1, "hxt_wide": its + 1, "wtx_wide": its,
-               "gram_wide": its}),
+               "gram_wide": its, "wtw_gemm": its}),
              ("weighted_fast", {}, dict(sampling_method="weighted_fast"),
               {"fused_iteration_counts": its, "fused_iteration": 0,
-               "hxt_wide": its + 1, "wtx_wide": its, "gram_wide": its}),
+               "hxt_wide": its + 1, "wtx_wide": its, "gram_wide": its, "wtw_gemm": its}),
              ("als", dict(use_als=True), {},
               {"hxt": its, "wtx": 3 * its, "fused_iteration": 0, "hxt_wide": its,
-               "wtx_wide": 0, "gram_wide": 0}),
+               "wtx_wide": 0, "gram_wide": 0, "wtw_gemm": 0}),
              ("minibatch", {}, dict(batch_size=MB_BATCH),
               {"hxt": nb * its, "wtx": (nb + 1) * its, "fused_iteration": 0,
-               "hxt_wide": nb * its, "wtx_wide": (nb + 1) * its, "gram_wide": 0}))
+               "hxt_wide": nb * its, "wtx_wide": (nb + 1) * its, "gram_wide": 0,
+               "wtw_gemm": 0}))
     out = {}
     for name, model_kw, fit_kw, expect in modes:
         ad = AnnData(counts[:n], obs=sub)
@@ -5332,7 +5379,11 @@ def main():
                 # in counts mode once in each K4 call
                 f"gram_wide K={K768}": k768_launches["gram_wide"]
                 + k768_modes["unguided"]["gram_wide"],
-                f"gram_wide counts K={K768}": k768_modes["weighted_fast"]["gram_wide"]}
+                f"gram_wide counts K={K768}": k768_modes["weighted_fast"]["gram_wide"],
+                # wtw_gemm's store: once in each K1 (slice_k768), K2 and K4
+                # call (K3's per-step updates are fused_transform's row)
+                f"wtw_gemm K={K768}": k768_launches["wtw_gemm"]
+                + k768_modes["unguided"]["wtw_gemm"] + k768_modes["weighted_fast"]["wtw_gemm"]}
     for kname in SHARE_ROW_SOURCE:
         results[kname] = share_rows[SHARE_ROW_SOURCE[kname]]
     results["wtx global shard loss"] = twin_rows[("wtx", "world-2 shard")]

@@ -52,7 +52,10 @@ A run times, at the bench shape (100k cells x 2,000 genes, K = 40, labels
   tolerance (``wide_k768_worst_err_over_tolerance``: rtol 1e-4 + 1e-6
   max|plain|; XHt against the plain product over the kernel's own Hs);
   the summary says for each of them whether all four runs agree bit for
-  bit (``wide_bits_equal_by_kernel``).
+  bit (``wide_bits_equal_by_kernel``); K3's per-step path at K = 768, 50
+  steps, median CUDA-event ms of 3 warm launches
+  (``fused_transform_k768_ms``) beside 50 fp32 ``torch.matmul(WtW2, H)``
+  with TF32 off (``fused_transform_k768_library_ms``).
 
 Prints one JSON line per run, then one summary line with the mean of each
 checkout's two runs, whether all four runs agree bit for bit on the
@@ -350,7 +353,16 @@ def child(root, save_path):
     wide_ms["hxt_k768_library_ms"] = time_ms(lambda: torch.matmul(Hb, Xb.T), reps=10)
     wide_ms["wtx_k768_library_ms"] = time_ms(lambda: torch.matmul(Wb.T, Xb), reps=10)
     del Xb, Hb, Wb
-    k3_bits["K768"] = digest([[k3(Ww, Hw)()]])  # the per-step path (wtw_gemm)
+    k3w = k3(Ww, Hw)  # the per-step path (wtw_gemm's update a step)
+    k3_bits["K768"] = digest([[k3w()]])
+    wide_ms["fused_transform_k768_ms"] = time_ms(k3w, reps=3)
+    num2w, WtW2w = 2.0 * (Ww.T @ X.float()), 2.0 * (Ww.T @ Ww)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    wide_ms["fused_transform_k768_library_ms"] = time_ms(
+        lambda: [torch.matmul(WtW2w, Hw) for _ in range(TRANSFORM_ITERS)], reps=3)
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    del k3w, num2w, WtW2w
     del Ww, Hw, WtWw, Bw, wide
     torch.cuda.empty_cache()
     print(json.dumps({"root": root, "fused_iteration_ms": k1,

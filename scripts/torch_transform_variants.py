@@ -331,7 +331,7 @@ def child(copy_root, name):
         out = torch.empty_like(H0)
         for J, S in [(j, s) for k, j, s in SWEEP.get(name, ()) if k == K]:
             call = lambda: fn(num2.data_ptr(), H0.data_ptr(), WtW2.data_ptr(), K, 0, N,
-                              T, KP, J, S, ITERS, 1e-6, Wt.data_ptr(), out.data_ptr(),
+                              T, KP, J, S, ITERS, 1e-6, Wt.data_ptr(), None, out.data_ptr(),
                               torch.cuda.current_stream().cuda_stream)
             rc = call()
             row[f"K{K}_J{J}_S{S}_ms"] = time_ms(call) if rc == 0 else f"rc {rc}"
@@ -351,7 +351,7 @@ def child(copy_root, name):
             Wt = torch.empty((KP, KP), device=dev)
             out = torch.empty_like(H0)
             tiled = lambda: fn(num2.data_ptr(), H0.data_ptr(), WtW2.data_ptr(), K, 0, N,
-                               T, KP, J, S, ITERS, 1e-6, Wt.data_ptr(), out.data_ptr(),
+                               T, KP, J, S, ITERS, 1e-6, Wt.data_ptr(), None, out.data_ptr(),
                                torch.cuda.current_stream().cuda_stream)
             register = lambda: kernels.fused_transform(num2, H0, WtW2, 1e-6, n_iter=ITERS)
             row[f"K{K}_register_path_ms"] = time_ms(register)

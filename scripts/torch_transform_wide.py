@@ -59,9 +59,12 @@ def child(root, ks):
     def steps_direct(num2, H0, WtW2):
         K, n = H0.shape
         out, scratch = torch.empty_like(H0), torch.empty_like(H0)
+        # trees since wtw_gemm's ring take WtW2's K x K transpose scratch too
+        At = torch.empty((K, K), dtype=torch.float32, device=H0.device)
+        at = [At.data_ptr()] if len(_build.SIGNATURES["fused_transform"][2]) == 16 else []
         rc = _build.entry("fused_transform")(
             num2.data_ptr(), H0.data_ptr(), WtW2.data_ptr(), K, 0, n, 0, 0, 0, 0, STEPS, EPS,
-            scratch.data_ptr(), out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+            scratch.data_ptr(), *at, out.data_ptr(), torch.cuda.current_stream().cuda_stream)
         if rc != 0:
             raise RuntimeError(f"the per-step path failed to launch: CUDA error {rc}")
         return out

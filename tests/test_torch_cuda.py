@@ -296,7 +296,7 @@ def test_fused_transform_cuda_same_bits(cuda, K, eps):
     Wt = torch.empty((KP, KP), dtype=torch.float32, device=cuda)
     fn = _build.entry("fused_transform")
     rc = fn(num2.data_ptr(), H0.data_ptr(), WtW2.data_ptr(), K, 0, n, T, KP, J, S,
-            20, eps, Wt.data_ptr(), tiled.data_ptr(),
+            20, eps, Wt.data_ptr(), None, tiled.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
     torch.cuda.synchronize()
     assert rc == 0
@@ -1122,6 +1122,67 @@ def test_wide_fused_transform_cuda_matches_plain(cuda, K, n):
     assert kernels.transform_path(K) == "steps"
 
 
+@pytest.fixture(scope="module")
+def wtw_parent(tmp_path_factory):
+    """The design of wtw_gemm before the ring (scripts/wtw_gemm_variants.cu,
+    variant 0), built with the package's nvcc flags: fn(epi, A, B, num2,
+    out) launches it, epi 0 the store and 1 the update."""
+    import ctypes
+    import subprocess
+    from pathlib import Path
+
+    from alpine_tpu_torch.ops import _build
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    src = Path(__file__).resolve().parent.parent / "scripts" / "wtw_gemm_variants.cu"
+    lib = tmp_path_factory.mktemp("wtw_parent") / "libwtw_variants.so"
+    subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o",
+                    str(lib), str(src)], check=True, capture_output=True)
+    fn = ctypes.CDLL(str(lib)).alpine_wtw_variant
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [I, I, P, P, I, I, P, ctypes.c_float, P, P, P]
+    fn.restype = I
+
+    def run(epi, A, B, num2, out):
+        K, n = B.shape
+        rc = fn(0, epi, A.data_ptr(), B.data_ptr(), K, n,
+                None if num2 is None else num2.data_ptr(), EPS, None, out.data_ptr(),
+                torch.cuda.current_stream().cuda_stream)
+        assert rc == 0
+        torch.cuda.synchronize()
+        return out
+
+    return run
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,n", [(513, 17), (513, 1001), (768, 5040), (1024, 1001),
+                                 (2048, 17)])
+def test_wtw_gemm_gives_the_parent_designs_bits(cuda, wtw_parent, K, n):
+    """wtw_gemm's ring (A transposed once, both operands by cp.async, rows
+    off 16-byte alignment by 4-byte copies) forms each sum over j in order
+    from 0, as the design before it did: its store (``kernels.wtw_gemm``,
+    B also at a 4-byte offset) and its update (one step of K3's per-step
+    path) give that design's bits, and a second launch its own."""
+    r = np.random.default_rng(K + n)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+    A = t(r.random((K, K), dtype=np.float32))
+    Bm = t(r.random((K * n + 1,), dtype=np.float32) + 0.05)
+    num2 = t(r.random((K, n), dtype=np.float32) * K)
+    for B in (Bm[:K * n].view(K, n), Bm[1:].view(K, n)):
+        want = wtw_parent(0, A, B, None, torch.empty((K, n), device=cuda))
+        got, again = kernels.wtw_gemm(A, B), kernels.wtw_gemm(A, B)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want) and torch.equal(again, got)
+        want = wtw_parent(1, A, B, num2, torch.empty((K, n), device=cuda))
+        step = kernels.fused_transform(num2, B, A, EPS, n_iter=1)
+        again = kernels.fused_transform(num2, B, A, EPS, n_iter=1)
+        torch.cuda.synchronize()
+        assert kernels.transform_path(K) == "steps"
+        assert torch.equal(step, want) and torch.equal(again, step)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("K", [40, 65, 300, 512])
 def test_per_step_transform_gives_the_other_paths_bits(cuda, K):
@@ -1134,9 +1195,11 @@ def test_per_step_transform_gives_the_other_paths_bits(cuda, K):
     num2, H0, WtW2 = _transform_problem(17, K, n, cuda)
     got = kernels.fused_transform(num2, H0, WtW2, EPS, n_iter=20)
     steps, scratch = torch.empty_like(got), torch.empty_like(got)
+    At = torch.empty((K, K), dtype=torch.float32, device=cuda)
     rc = _build.entry("fused_transform")(
         num2.data_ptr(), H0.data_ptr(), WtW2.data_ptr(), K, 0, n, 0, 0, 0, 0, 20, EPS,
-        scratch.data_ptr(), steps.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        scratch.data_ptr(), At.data_ptr(), steps.data_ptr(),
+        torch.cuda.current_stream().cuda_stream)
     torch.cuda.synchronize()
     assert rc == 0
     assert kernels.transform_path(K) != "steps"

@@ -33,11 +33,8 @@ against the single-process port and the JAX package.
   ComponentOptimizer constructs on both from the full data.
 """
 
-import os
 import pickle
 import socket
-import subprocess
-import sys
 from pathlib import Path
 
 import jax
@@ -54,6 +51,7 @@ from alpine_tpu_torch.parallel import distributed as tdist
 from alpine_tpu_torch.parallel import mesh as tmesh
 
 from .conftest import make_synthetic_adata
+from .torch_ranks import group_threads, run_ranks
 
 torch.set_num_threads(1)
 
@@ -206,28 +204,7 @@ def ranks(tmp_path_factory):
     inputs = _build_inputs()
     with open(workdir / "inputs.pkl", "wb") as f:
         pickle.dump(inputs, f)
-    port = _free_port()
-    env = dict(os.environ, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1")
-    procs = [subprocess.Popen(
-        [sys.executable, str(WORKER), str(port), str(r), str(WORLD), str(workdir)],
-        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        for r in range(WORLD)]
-    logs = []
-    try:
-        for p in procs:
-            logs.append(p.communicate(timeout=100))
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.communicate()
-    for r, (p, (_, err)) in enumerate(zip(procs, logs)):
-        assert p.returncode == 0, f"rank {r} failed:\n{err[-4000:]}"
-    results = []
-    for r in range(WORLD):
-        with open(workdir / f"rank{r}.pkl", "rb") as f:
-            results.append(pickle.load(f))
-    return inputs, results
+    return inputs, run_ranks(WORKER, workdir, WORLD, timeout=100)
 
 
 def _cat(results, key, field="H", axis=1):
@@ -559,6 +536,35 @@ def test_initialize_reads_torchrun_env(monkeypatch):
     finally:
         tdist.shutdown()
     assert not torch.distributed.is_initialized()
+
+
+@pytest.mark.parametrize("kind", ["cells", "grid", "restored"])
+def test_shutdown_ends_the_group_threads_while_meshes_live(kind):
+    """A mesh holds its process groups; shutdown takes them from every mesh
+    the port built, so the gloo group's threads end in the call even while
+    the mesh, its sub-mesh and a model on it are still referenced (a
+    thread left running to the interpreter's exit aborts the process
+    there when it still holds tensors of the last collective)."""
+    before = group_threads()
+    tdist.initialize(f"localhost:{_free_port()}", num_processes=1, process_id=0,
+                     timeout=30.0)
+    try:
+        if kind == "cells":
+            mesh = tdist.global_cell_mesh()
+        elif kind == "grid":
+            mesh = tdist.global_gene_cell_mesh(1, 1)
+        else:
+            mesh = tmesh.restore_device(("__mesh__", ("cells",), (1,), "cpu"))
+        model = ALPINE(device=mesh, **KW)
+        placement = tmesh.Placement(mesh)
+        assert placement.group is not None
+        sub = mesh["cells"] if kind == "grid" else mesh
+        np.testing.assert_array_equal(tdist.process_allgather_rows([7]), [[7]])
+        assert len(group_threads()) > len(before)
+    finally:
+        tdist.shutdown()
+    assert group_threads() == before
+    assert model.device is mesh and sub is not None
 
 
 @pytest.fixture

@@ -58,10 +58,7 @@ against the single-process port and the JAX package.
   2e-2 of the final loss, tests/test_sharding.py:201-233).
 """
 
-import os
 import pickle
-import subprocess
-import sys
 import threading
 from pathlib import Path
 
@@ -81,6 +78,7 @@ from alpine_tpu_torch.parallel import distributed as tdist
 from alpine_tpu_torch.utils import sampling as tsampling
 
 from .test_torch_distributed import _adata_case, _free_port, _labels
+from .torch_ranks import run_ranks
 
 torch.set_num_threads(1)
 
@@ -398,28 +396,7 @@ def ranks(tmp_path_factory):
     inputs = _build_inputs()
     with open(workdir / "inputs.pkl", "wb") as f:
         pickle.dump(inputs, f)
-    port = _free_port()
-    env = dict(os.environ, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1")
-    procs = [subprocess.Popen(
-        [sys.executable, str(WORKER), str(port), str(r), str(WORLD), str(workdir)],
-        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        for r in range(WORLD)]
-    logs = []
-    try:
-        for p in procs:
-            logs.append(p.communicate(timeout=100))
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.communicate()
-    for r, (p, (_, err)) in enumerate(zip(procs, logs)):
-        assert p.returncode == 0, f"rank {r} failed:\n{err[-4000:]}"
-    results = []
-    for r in range(WORLD):
-        with open(workdir / f"rank{r}.pkl", "rb") as f:
-            results.append(pickle.load(f))
-    return inputs, results
+    return inputs, run_ranks(WORKER, workdir, WORLD, timeout=100)
 
 
 def _cat(results, key, field="H", axis=1):

@@ -67,8 +67,6 @@ import functools
 import os
 import pickle
 import socket
-import subprocess
-import sys
 from pathlib import Path
 
 import jax
@@ -87,6 +85,7 @@ from alpine_tpu_torch.parallel import mesh as tmesh
 from alpine_tpu_torch.utils import sampling as tsmp
 
 from .conftest import make_synthetic_adata
+from .torch_ranks import run_ranks
 
 torch.set_num_threads(1)
 
@@ -353,28 +352,7 @@ def ranks(tmp_path_factory):
     inputs = _build_inputs()
     with open(workdir / "inputs.pkl", "wb") as f:
         pickle.dump(inputs, f)
-    port = _free_port()
-    env = dict(os.environ, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1")
-    procs = [subprocess.Popen(
-        [sys.executable, str(WORKER), str(port), str(r), str(WORLD), str(workdir)],
-        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        for r in range(WORLD)]
-    logs = []
-    try:
-        for p in procs:
-            logs.append(p.communicate(timeout=150))
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.communicate()
-    for r, (p, (_, err)) in enumerate(zip(procs, logs)):
-        assert p.returncode == 0, f"rank {r} failed:\n{err[-4000:]}"
-    results = []
-    for r in range(WORLD):
-        with open(workdir / f"rank{r}.pkl", "rb") as f:
-            results.append(pickle.load(f))
-    return inputs, results
+    return inputs, run_ranks(WORKER, workdir, WORLD, timeout=150)
 
 
 def _whole(results, key, field="H"):

@@ -28,11 +28,8 @@ The scenario is tests/test_multiprocess.py's: 96 cells × 32 genes
   and a 1 × 1 ("genes", "cells") grid builds and searches.
 """
 
-import os
 import pickle
 import socket
-import subprocess
-import sys
 import threading
 from pathlib import Path
 
@@ -50,6 +47,7 @@ from alpine_tpu_torch import AnnData, ComponentOptimizer
 from alpine_tpu_torch.parallel import distributed as tdist
 
 from .conftest import make_synthetic_adata
+from .torch_ranks import run_ranks
 
 torch.set_num_threads(1)
 
@@ -124,6 +122,7 @@ def _jax_lockstep(ad, n_workers=WORLD, max_evals=6):
         th.start()
     for th in threads:
         th.join(timeout=300)
+    assert not any(th.is_alive() for th in threads), "a lockstep worker did not finish"
     assert not errors, errors
     return cos
 
@@ -172,28 +171,7 @@ def ranks(full, jax_search, tmp_path_factory):
         pickle.dump({"X": np.asarray(full.X, np.float32),
                      "batch": full.obs["batch"].to_numpy(dtype=object),
                      "draw_init": init, "draw_transform_h0": h0}, f)
-    port = _free_port()
-    env = dict(os.environ, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1")
-    procs = [subprocess.Popen(
-        [sys.executable, str(WORKER), str(port), str(r), str(WORLD), str(workdir)],
-        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        for r in range(WORLD)]
-    logs = []
-    try:
-        for p in procs:
-            logs.append(p.communicate(timeout=150))
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.communicate()
-    for r, (p, (_, err)) in enumerate(zip(procs, logs)):
-        assert p.returncode == 0, f"rank {r} failed:\n{err[-4000:]}"
-    results = []
-    for r in range(WORLD):
-        with open(workdir / f"rank{r}.pkl", "rb") as f:
-            results.append(pickle.load(f))
-    return results
+    return run_ranks(WORKER, workdir, WORLD, timeout=150)
 
 
 def _losses(rows):
@@ -263,6 +241,14 @@ def test_max_iter_detection_search(ranks):
     for row in ranks[0]["detect"]["trials"][1:]:
         if row[3] == "ok":
             assert row[4]["max_iter"] == ranks[0]["detect"]["max_iter"]
+
+
+def test_shutdown_ends_the_group_threads(ranks):
+    """Each rank, whose meshes outlive dist.shutdown() (rank 1's also in the
+    traceback of its objective's error), has no thread of the gloo group
+    left after it, and so leaves through the interpreter's exit with code 0
+    (the fixture holds the exit codes)."""
+    assert [r["group_threads"] for r in ranks] == [[]] * WORLD
 
 
 OPTIMIZER_SRC = ("optimize", "optimizer.py")

@@ -35,11 +35,7 @@ package's refusal at its first sequential fold fit, and a pickled
 optimizer rebuilds its grid.
 """
 
-import os
 import pickle
-import socket
-import subprocess
-import sys
 import zlib
 from pathlib import Path
 
@@ -60,6 +56,7 @@ from .conftest import make_synthetic_adata
 from .test_torch_minibatch import _jax_cells
 from .test_torch_model import jax_fit_key
 from .test_torch_tiled import _jax_tiles
+from .torch_ranks import run_ranks
 
 torch.set_num_threads(1)
 
@@ -80,14 +77,6 @@ CASES = {
 }
 BATCHED = [name for name, kw in CASES.items() if kw["max_iter"] is not None]
 _MAX_DRAWS = 256  # split(key, T)[t] does not depend on T
-
-
-def _free_port() -> int:
-    s = socket.socket()
-    s.bind(("localhost", 0))
-    port = s.getsockname()[1]
-    s.close()
-    return port
 
 
 def _port(ad):
@@ -181,28 +170,7 @@ def ranks(full, tables, tmp_path_factory):
         pickle.dump({"X": np.asarray(full.X, np.float32),
                      "batch": full.obs["batch"].to_numpy(dtype=object),
                      "cases": CASES, "max_evals": MAX_EVALS, "tables": tables}, f)
-    port = _free_port()
-    env = dict(os.environ, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1")
-    procs = [subprocess.Popen(
-        [sys.executable, str(WORKER), str(port), str(r), str(WORLD), str(workdir)],
-        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        for r in range(WORLD)]
-    logs = []
-    try:
-        for p in procs:
-            logs.append(p.communicate(timeout=300))
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.communicate()
-    for r, (p, (_, err)) in enumerate(zip(procs, logs)):
-        assert p.returncode == 0, f"rank {r} failed:\n{err[-4000:]}"
-    results = []
-    for r in range(WORLD):
-        with open(workdir / f"rank{r}.pkl", "rb") as f:
-            results.append(pickle.load(f))
-    return results
+    return run_ranks(WORKER, workdir, WORLD, timeout=300)
 
 
 @pytest.fixture(scope="module")

@@ -9,7 +9,10 @@ mismatch case raised).
 Imports neither JAX nor the JAX package: the main search's fold draws come
 from the tables in ``inputs.pkl`` (the JAX package's draws, made by the
 parent).  The process group's timeout is short, so a rank left waiting in
-a collective raises instead of hanging.
+a collective raises instead of hanging.  After ``dist.shutdown()`` the
+rank records the threads of the process group still running while its
+meshes are still referenced (on rank 1 also by the traceback of the
+objective's error), then leaves through the interpreter's normal exit.
 """
 
 import copy
@@ -29,6 +32,7 @@ import alpine_tpu_torch.optimize.batched as batched  # noqa: E402
 from alpine_tpu_torch import AnnData, ComponentOptimizer  # noqa: E402
 from alpine_tpu_torch.convert import state_from_numpy  # noqa: E402
 from alpine_tpu_torch.parallel import distributed as dist  # noqa: E402
+from tests.torch_ranks import group_threads  # noqa: E402
 
 KEYS = ["batch"]
 CTOR = dict(max_iter=6, random_state=0, data_dtype="float32")
@@ -165,6 +169,8 @@ def main():
         fail=boom if rank == 1 else None)
     out["failures"] = failures
     dist.shutdown()
+    # the gloo group's threads (worker loops, transport, store) left running
+    out["group_threads"] = group_threads()
     with open(os.path.join(workdir, f"rank{rank}.pkl"), "wb") as f:
         pickle.dump(out, f)
 
