@@ -3,18 +3,11 @@
 //   wtx_fma: out[k][c] = sum over genes gi of W[gi][k] X[gi][c].
 // x_passes.cu runs them as ALS's P1 and P2 (hxt, wtx); fused_iteration.cu
 // runs them as the two X products of its float32/int16 path (K1, K2, K4).
-// Grids: ops/kernels.py:hxt_fma_grid, wtx_fma_grid.
+// Grids: ops/kernels.py:hxt_fma_grid, wtx_fma_grid.  K <= 512: a thread's
+// rows hold all of K; above, fma_wide.cuh's kernels take both passes.
 //
 // Bound on the H100: X's bytes and the fp32 FMA rate alike (float32 X at
 // 100k cells x 2000 genes, K = 40: 816 MB, 16 GFLOP a pass).
-//
-// K > 512 (ops/kernels.py:k_ranges): both kernels run on ranges of KR rows
-// of K (rows of H, columns of W), the K <= 512 kernel on each range's rows
-// of its operand and of the output, so X is read once a range.  wtx_fma
-// takes the ranges as a grid axis; hxt_fma as one launch a range (a grid
-// axis's range bounds took registers of its main loop and spilled it at 4-6
-// rows a thread), each writing its rows of the splits' K x g partials.  One
-// range (KR = K) is the K <= 512 kernel as it was.
 //
 // Also here: the row-alignment test of both sources (the cp.async helpers
 // of every ring are in common.cuh) and reduce_partials, the last launch of
@@ -27,7 +20,7 @@ namespace alpine {
 
 // True when every row of a (rows, n) array of T at p starts 16-byte aligned.
 template <typename T>
-__device__ __forceinline__ bool rows_aligned16(const T* p, int n) {
+__host__ __device__ __forceinline__ bool rows_aligned16(const T* p, int n) {
   return ((size_t)n * sizeof(T)) % 16 == 0 && (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
@@ -102,8 +95,8 @@ __host__ __device__ inline size_t hxt_fma_smem_bytes(int K, int GB, int S, int C
 // thread of 8 rows (K > 448) takes an SM's registers alone.
 template <typename XT, int MK>
 __global__ void __launch_bounds__(kThreads, MK > kFmaMaxMK ? 1 : 2)
-hxt_fma(const XT* __restrict__ X, const float* __restrict__ H, int g, int n, int K, int Kpart,
-        int GB, int cells_per_split, int S, int CW, float* __restrict__ part) {
+hxt_fma(const XT* __restrict__ X, const float* __restrict__ H, int g, int n, int K, int GB,
+        int cells_per_split, int S, int CW, float* __restrict__ part) {
   constexpr bool kI16 = sizeof(XT) == 2;
   constexpr int V = 16 / sizeof(XT);  // values of a 16-byte copy
   const int RW = hxt_fma_row(CW);
@@ -223,15 +216,14 @@ hxt_fma(const XT* __restrict__ X, const float* __restrict__ H, int g, int n, int
     if (g0 + gg < g) {
       float s = red[k * LO + gg];
       for (int qq = 1; qq < Q; ++qq) s += red[(qq * Kp + k) * LO + gg];
-      part[((size_t)split * Kpart + k) * g + g0 + gg] = s;
+      part[((size_t)split * K + k) * g + g0 + gg] = s;
     }
   }
 }
 
 // hxt_fma<XT, MK> for MK = 1 .. kFmaMaxMK + 1, or nullptr.
 template <typename XT>
-using HxtFmaFn = void (*)(const XT*, const float*, int, int, int, int, int, int, int, int,
-                          float*);
+using HxtFmaFn = void (*)(const XT*, const float*, int, int, int, int, int, int, int, float*);
 
 template <typename XT>
 static HxtFmaFn<XT> hxt_fma_kernel(int MK) {
@@ -249,36 +241,27 @@ static HxtFmaFn<XT> hxt_fma_kernel(int MK) {
 }
 
 // The fp32 path: hxt_fma over a grid of (gene block of GB = 32 WG genes) x
-// (cell split), S ring stages of CW cells, one launch a range of KR rows of
-// K (its rows of H, and of each split's K x g partial); the last range, of
-// the rows left, on its own layout (rows a thread, warp rows), which GB
-// also serves; ops/kernels.py:hxt_fma_grid, k_ranges.
+// (cell split), S ring stages of CW cells; ops/kernels.py:hxt_fma_grid.
 template <typename XT>
-static int launch_hxt_fma(const void* X, const float* H, int g, int n, int K, int KR, int GB,
+static int launch_hxt_fma(const void* X, const float* H, int g, int n, int K, int GB,
                           int n_split, int cells_per_split, int S, int CW, float* part,
                           cudaStream_t stream) {
   const int WG = GB / 32;
-  if (K < 1 || KR < 1 || KR > K || GB % 32 != 0 || WG < 1 || (CW != 32 && CW != 64) ||
-      S < 2 || S > 8 || cells_per_split % CW != 0)
+  if (K < 1 || GB % 32 != 0 || WG < 1 || (CW != 32 && CW != 64) || S < 2 || S > 8 ||
+      cells_per_split % CW != 0)
     return (int)cudaErrorInvalidValue;
+  const int WK = hxt_fma_wk(K), MK = (K + 8 * WK - 1) / (8 * WK);
+  const HxtFmaFn<XT> kernel = hxt_fma_kernel<XT>(MK);
+  if (kernel == nullptr || kWarps % (WK * WG) != 0) return (int)cudaErrorInvalidValue;
+  const size_t smem = hxt_fma_smem_bytes(K, GB, S, CW, sizeof(XT) == 2);
+  if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
   dim3 grid((g + GB - 1) / GB, n_split);
-  for (int k0 = 0; k0 < K; k0 += KR) {
-    const int KB = K - k0 < KR ? K - k0 : KR;
-    const int WK = hxt_fma_wk(KB), MK = (KB + 8 * WK - 1) / (8 * WK);
-    const HxtFmaFn<XT> kernel = hxt_fma_kernel<XT>(MK);
-    if (kernel == nullptr || kWarps % (WK * WG) != 0) return (int)cudaErrorInvalidValue;
-    const size_t smem = hxt_fma_smem_bytes(KB, GB, S, CW, sizeof(XT) == 2);
-    if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
-    cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    kernel<<<grid, kThreads, smem, stream>>>(static_cast<const XT*>(X), H + (size_t)k0 * n, g,
-                                             n, KB, K, GB, cells_per_split, S, CW,
-                                             part + (size_t)k0 * g);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  return 0;
+  kernel<<<grid, kThreads, smem, stream>>>(static_cast<const XT*>(X), H, g, n, K, GB,
+                                           cells_per_split, S, CW, part);
+  return (int)cudaGetLastError();
 }
 
 // wtx's fp32 layout for K components and LK lanes along K (the rest of a
@@ -320,21 +303,16 @@ __host__ __device__ inline size_t wtx_fma_smem_bytes(int K, int LK, int S, bool 
 // are added in q order at the end.  Each output is written once.
 template <typename XT, int MK>
 __global__ void __launch_bounds__(kThreads, 2)
-wtx_fma(const XT* __restrict__ X, const float* __restrict__ W, int g, int n, int K, int KR,
-        int LK, int S, float* __restrict__ out) {
+wtx_fma(const XT* __restrict__ X, const float* __restrict__ W, int g, int n, int K, int LK,
+        int S, float* __restrict__ out) {
   constexpr bool kI16 = sizeof(XT) == 2;
   constexpr int V = 16 / sizeof(XT);  // values of a 16-byte copy
   constexpr int GC = kWtxGC;
   extern __shared__ __align__(128) unsigned char smem[];
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int WK = wtx_fma_wk(KR, LK), Q = kWarps / WK, Kp = WK * LK * MK;
+  const int WK = wtx_fma_wk(K, LK), Q = kWarps / WK, Kp = WK * LK * MK;
   const int LC = 32 / LK, T = LC * kWtxCells;
   const int c0 = blockIdx.x * T;
-  // this block's range of K: columns k0 .. k0 + KB - 1 of W, staged KB
-  // values a gene (all of a row, one run, with one range), and those rows
-  // of the output
-  const int k0 = blockIdx.y * KR, KB = min(KR, K - k0);
-  out += (size_t)k0 * n;
   const int w_bytes = GC * Kp * 4, XRB = T * (int)sizeof(XT);
   const int stage_bytes = w_bytes + GC * XRB;
   float* sXf = reinterpret_cast<float*>(smem + (size_t)S * stage_bytes);  // int16: widened
@@ -345,33 +323,16 @@ wtx_fma(const XT* __restrict__ X, const float* __restrict__ W, int g, int n, int
   // chunk c's copies into stage st; one group committed, empty past g
   auto issue = [&](int c, int st) {
     if (c < n_chunks) {
-      const int g0 = c * GC, nw = min(GC, g - g0) * KB;  // W values of the chunk
+      const int g0 = c * GC, nw = min(GC, g - g0) * K;  // W values of the chunk
       float* w = reinterpret_cast<float*>(smem + st * stage_bytes);
-      if (KB == K) {
-        const float* wsrc = W + (size_t)g0 * K;  // 16-byte aligned with W (g0 K is a multiple of 16)
-        for (int q = tid; q < GC * K / 4; q += kThreads) {
-          const int e = 4 * q;
-          if (wvec && e + 4 <= nw) {
-            cp_async16(w + e, wsrc + e, true);
-          } else {  // past g (zeros), or the same values element by element
+      const float* wsrc = W + (size_t)g0 * K;  // 16-byte aligned with W (g0 K is a multiple of 16)
+      for (int q = tid; q < GC * K / 4; q += kThreads) {
+        const int e = 4 * q;
+        if (wvec && e + 4 <= nw) {
+          cp_async16(w + e, wsrc + e, true);
+        } else {  // past g (zeros), or the same values element by element
 #pragma unroll
-            for (int u = 0; u < 4; ++u) w[e + u] = e + u < nw ? wsrc[e + u] : 0.f;
-          }
-        }
-      } else {  // a range of W's columns: KB values of each gene's row
-        const bool rvec = wvec && K % 4 == 0 && KB % 4 == 0;  // k0 is a multiple of 16
-        for (int q = tid; q < GC * KB / 4; q += kThreads) {
-          const int e = 4 * q, gg = e / KB, kk = e - gg * KB;
-          const float* src = W + (size_t)(g0 + gg) * K + k0 + kk;
-          if (rvec && e + 4 <= nw) {
-            cp_async16(w + e, src, true);
-          } else {
-#pragma unroll
-            for (int u = 0; u < 4; ++u) {
-              const int eu = e + u, gu = eu / KB;
-              w[eu] = eu < nw ? W[(size_t)(g0 + gu) * K + k0 + eu - gu * KB] : 0.f;
-            }
-          }
+          for (int u = 0; u < 4; ++u) w[e + u] = e + u < nw ? wsrc[e + u] : 0.f;
         }
       }
       unsigned char* x = smem + st * stage_bytes + w_bytes;
@@ -428,8 +389,8 @@ wtx_fma(const XT* __restrict__ X, const float* __restrict__ W, int g, int n, int
       float4 xv4[3];
 #pragma unroll
       for (int v = 0; v < 3; ++v) xv4[v] = *reinterpret_cast<const float4*>(xr + 4 * LC * v);
-      // rows past KB read other values of the stage: their outputs are never written
-      const float* wr = w + gg * KB + r0;
+      // rows past K read other values of the stage: their outputs are never written
+      const float* wr = w + gg * K + r0;
 #pragma unroll
       for (int i = 0; i < MK; ++i) {
         const float a = wr[i];
@@ -449,7 +410,7 @@ wtx_fma(const XT* __restrict__ X, const float* __restrict__ W, int g, int n, int
     const bool vec = (reinterpret_cast<uintptr_t>(out) & 15) == 0 && n % 4 == 0;
 #pragma unroll
     for (int i = 0; i < MK; ++i) {
-      if (r0 + i >= KB) continue;
+      if (r0 + i >= K) continue;
       float* o = out + (size_t)(r0 + i) * n;
 #pragma unroll
       for (int v = 0; v < 3; ++v) {
@@ -475,7 +436,7 @@ wtx_fma(const XT* __restrict__ X, const float* __restrict__ W, int g, int n, int
       *reinterpret_cast<float4*>(red + (size_t)(q * Kp + r0 + i) * T + 4 * lc + 4 * LC * v) =
           make_float4(acc[i][4 * v], acc[i][4 * v + 1], acc[i][4 * v + 2], acc[i][4 * v + 3]);
   __syncthreads();
-  for (int o = tid; o < KB * T; o += kThreads) {
+  for (int o = tid; o < K * T; o += kThreads) {
     const int k = o / T, t = o - k * T;
     if (c0 + t < n) {
       float s = red[o];
@@ -487,7 +448,7 @@ wtx_fma(const XT* __restrict__ X, const float* __restrict__ W, int g, int n, int
 
 // wtx_fma<XT, MK> for MK = 1 .. kWtxMaxMK, or nullptr.
 template <typename XT>
-using WtxFmaFn = void (*)(const XT*, const float*, int, int, int, int, int, int, float*);
+using WtxFmaFn = void (*)(const XT*, const float*, int, int, int, int, int, float*);
 
 template <typename XT>
 static WtxFmaFn<XT> wtx_fma_kernel(int MK) {
@@ -502,27 +463,25 @@ static WtxFmaFn<XT> wtx_fma_kernel(int MK) {
   }
 }
 
-// The fp32 path: wtx_fma over tiles of T = 12 (32 / LK) cells x ranges of
-// KR columns of W, S ring stages of kWtxGC genes; ops/kernels.py:
-// wtx_fma_grid, k_ranges.
+// The fp32 path: wtx_fma over tiles of T = 12 (32 / LK) cells, S ring
+// stages of kWtxGC genes; ops/kernels.py:wtx_fma_grid.
 template <typename XT>
-static int launch_wtx_fma(const void* X, const float* W, int g, int n, int K, int KR, int T,
-                          int LK, int GC, int S, float* out, cudaStream_t stream) {
-  const bool lk_ok = LK >= 1 && LK <= 16 && (LK & (LK - 1)) == 0 && KR >= 1 && KR <= K;
-  const int WK = lk_ok ? wtx_fma_wk(KR, LK) : 1;
-  const int MK = lk_ok ? (KR + LK * WK - 1) / (LK * WK) : 0;
+static int launch_wtx_fma(const void* X, const float* W, int g, int n, int K, int T, int LK,
+                          int GC, int S, float* out, cudaStream_t stream) {
+  const bool lk_ok = LK >= 1 && LK <= 16 && (LK & (LK - 1)) == 0 && K >= 1;
+  const int WK = lk_ok ? wtx_fma_wk(K, LK) : 1;
+  const int MK = lk_ok ? (K + LK * WK - 1) / (LK * WK) : 0;
   const WtxFmaFn<XT> kernel = wtx_fma_kernel<XT>(MK);
   const bool ok = kernel != nullptr && T == 32 / LK * kWtxCells && GC == kWtxGC && S >= 2 &&
                   S <= 8;
   if (!ok) return (int)cudaErrorInvalidValue;
-  const size_t smem = wtx_fma_smem_bytes(KR, LK, S, sizeof(XT) == 2);
+  const size_t smem = wtx_fma_smem_bytes(K, LK, S, sizeof(XT) == 2);
   if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((n + T - 1) / T, (K + KR - 1) / KR);
-  kernel<<<grid, kThreads, smem, stream>>>(static_cast<const XT*>(X), W, g, n, K, KR, LK, S,
-                                           out);
+  kernel<<<(n + T - 1) / T, kThreads, smem, stream>>>(static_cast<const XT*>(X), W, g, n, K, LK,
+                                                      S, out);
   return (int)cudaGetLastError();
 }
 

@@ -740,7 +740,7 @@ static int launch(const void* X, const float* W, const float* H,
   } else {
     if (WtX == nullptr || (kCounts && Hs == nullptr)) return (int)cudaErrorInvalidValue;
     const int rc =
-        launch_wtx_fma<XT>(X, W, g, n, K, K, wtx_T, wtx_LK, wtx_GC, wtx_S, WtX, stream);
+        launch_wtx_fma<XT>(X, W, g, n, K, wtx_T, wtx_LK, wtx_GC, wtx_S, WtX, stream);
     if (rc != 0) return rc;
   }
   err = cudaFuncSetAttribute(iter_tiles<XT, kBf16, kCounts>,
@@ -759,7 +759,7 @@ static int launch(const void* X, const float* W, const float* H,
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   } else {
-    const int rc = launch_hxt_fma<XT>(X, kCounts ? Hs : Hn, g, n, K, K, GB, n_split,
+    const int rc = launch_hxt_fma<XT>(X, kCounts ? Hs : Hn, g, n, K, GB, n_split,
                                       cells_per_split, S, CW, part_hxt, stream);
     if (rc != 0) return rc;
   }

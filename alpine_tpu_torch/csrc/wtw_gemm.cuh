@@ -92,6 +92,34 @@ __device__ __forceinline__ void wtw_copy_tile(float* dst, const float* __restric
   }
 }
 
+// One chunk of the ring into thread (ty, tx)'s 8 x 8 outputs: for each of
+// its kGemmBK values of j, two 16-byte loads of the [j][row] tile (rows
+// 4 ty .. and 64 + 4 ty .., kPA floats a j), two of the [j][cell] tile
+// (cells 4 tx .. and 64 + 4 tx .., kPB floats a j) and 64 FMAs; sa and sb
+// already offset by 4 ty and 4 tx.  Also the inner loop of fma_wide.cuh's
+// kernels.
+template <int kPA = kGemmBM, int kPB = kGemmBN>
+__device__ __forceinline__ void gemm_chunk(float (&acc)[8][8], const float* sa, const float* sb) {
+#pragma unroll
+  for (int jj = 0; jj < kGemmBK; ++jj) {
+    float a[8], b[8];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float4 v = *reinterpret_cast<const float4*>(sa + jj * kPA + 64 * h);
+      a[4 * h] = v.x, a[4 * h + 1] = v.y, a[4 * h + 2] = v.z, a[4 * h + 3] = v.w;
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float4 v = *reinterpret_cast<const float4*>(sb + jj * kPB + 64 * h);
+      b[4 * h] = v.x, b[4 * h + 1] = v.y, b[4 * h + 2] = v.z, b[4 * h + 3] = v.w;
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int u = 0; u < 8; ++u) acc[i][u] = fmaf(a[i], b[u], acc[i][u]);
+  }
+}
+
 template <int kEpi, bool kVec>
 __global__ void __launch_bounds__(kThreads, 2)
 wtw_gemm(const float* __restrict__ At, const float* __restrict__ B, int K, int n,
@@ -128,26 +156,8 @@ wtw_gemm(const float* __restrict__ At, const float* __restrict__ B, int K, int n
     // the next copies refill
     __syncthreads();
     issue(t + kGemmStages - 1);
-    const float* sa = ring + (t % kGemmStages) * kGemmStage + 4 * ty;
-    const float* sb = ring + (t % kGemmStages) * kGemmStage + kGemmBK * kGemmBM + 4 * tx;
-#pragma unroll
-    for (int jj = 0; jj < kGemmBK; ++jj) {
-      float a[8], b[8];
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const float4 v = *reinterpret_cast<const float4*>(sa + jj * kGemmBM + 64 * h);
-        a[4 * h] = v.x, a[4 * h + 1] = v.y, a[4 * h + 2] = v.z, a[4 * h + 3] = v.w;
-      }
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const float4 v = *reinterpret_cast<const float4*>(sb + jj * kGemmBN + 64 * h);
-        b[4 * h] = v.x, b[4 * h + 1] = v.y, b[4 * h + 2] = v.z, b[4 * h + 3] = v.w;
-      }
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int u = 0; u < 8; ++u) acc[i][u] = fmaf(a[i], b[u], acc[i][u]);
-    }
+    const float* stage = ring + (t % kGemmStages) * kGemmStage;
+    gemm_chunk<>(acc, stage + 4 * ty, stage + kGemmBK * kGemmBM + 4 * tx);
   }
   // the epilogue: 16-byte reads of B and num2 and stores of out where the
   // rows lie on 16-byte boundaries

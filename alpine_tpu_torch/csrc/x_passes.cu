@@ -67,20 +67,21 @@
 //    X's bytes and the fp32 FMA rate alike (float32 X: 816 MB, 16 GFLOP).
 //  * Any K: above 512 the int8/bf16 passes are hxt_wide and wtx_wide
 //    (x_passes_wide.cuh: wgmma tiles of 256 rows of K fed by TMA), and the
-//    fp32 passes run on ranges of at most 512 rows of K (rows of H, columns
-//    of W; ops/kernels.py:k_ranges), so X is read once a range.
+//    fp32 passes hxt_fma_wide and wtx_fma_wide (fma_wide.cuh: 128 x 128
+//    FP32 tiles on wtw_gemm's ring, all of K in one launch).
 //
 // Also here, because its X products are these passes: the large-K route of
 // fused_iteration (K1, K2, K4 at K > 512; replaces alpine_tpu/ops/
 // pallas_kernels.py:fused_iteration and fused_h_update where K > 512), one
-// C call launching a chain: WᵀX (wtx_wide, or wtx_fma) → D = WᵀW H
+// C call launching a chain: WᵀX (wtx_wide, or wtx_fma_wide) → D = WᵀW H
 // (wtw_gemm.cuh, from WᵀW transposed into a K x K scratch) → iter_wide
-// (the H update, Q and the loss rows) → X Hsᵀ (hxt_wide, or hxt_fma) →
+// (the H update, Q and the loss rows) → X Hsᵀ (hxt_wide, or hxt_fma_wide) →
 // gram_wide (gram_wide.cuh: H Hᵀ over the upper triangle, HHtU, rowsum
 // and Bnum from one read of Hn) → the partials' sums.  Its bound at 100k cells x 2000 genes, K = 768, int8: the fp32
 // (WᵀW)H and the upper triangle of Hn Hnᵀ, 177 GFLOP, 2.7 ms at 67 TFLOP/s
 // (the bf16 X products 614 GFLOP, 0.62 ms; bytes 0.25 ms).
 #include "fma_passes.cuh"
+#include "fma_wide.cuh"
 #include "wtw_gemm.cuh"
 
 #include <mutex>
@@ -503,16 +504,15 @@ static int launch_hxt_mma(const void* X, const float* H, int g, int n, int K, in
 }
 
 template <typename XT, bool kBf16>
-static int launch_hxt(const void* X, const float* H, int g, int n, int K, int KR, int GB,
-                      int n_split, int cells_per_split, int S, int CW,
+static int launch_hxt(const void* X, const float* H, int g, int n, int K, int GB, int n_split,
+                      int cells_per_split, int S, int CW,
                       __nv_bfloat16* Hb, float* part, float* out, cudaStream_t stream) {
   int rc;
   if constexpr (kBf16) {
     rc = launch_hxt_mma<XT>(X, H, g, n, K, GB, n_split, cells_per_split, S, CW, Hb, part,
                             stream);
   } else {
-    rc = launch_hxt_fma<XT>(X, H, g, n, K, KR, GB, n_split, cells_per_split, S, CW, part,
-                            stream);
+    rc = launch_hxt_fma<XT>(X, H, g, n, K, GB, n_split, cells_per_split, S, CW, part, stream);
   }
   if (rc != 0) return rc;
   const size_t total = (size_t)K * g;
@@ -1157,10 +1157,11 @@ iter_wide(const float* __restrict__ H, const float* __restrict__ WtX,
 
 // The launch parameters of the chain (ops/kernels.py:WideIterationGrid, in
 // its order).  P2 and P1 on int8/bf16 X: wtx_wide (wWR its cluster size) and
-// hxt_wide (GB its cluster size); on float32/int16 X wtx_fma (wWR its lanes
-// along K) and hxt_fma over K ranges of KR rows.  gram_wide's splits.
+// hxt_wide (GB its cluster size); on float32/int16 X wtx_fma_wide and
+// hxt_fma_wide (their tiles, chunk and stages are fma_wide.cuh's: P1 takes
+// n_split and cells_per_split).  gram_wide's splits.
 struct WideGrid {
-  int T, n_part, tiles_per_block, KR;
+  int T, n_part, tiles_per_block;
   int wT, wWR, wGC, wS, w_ranges, w_range_genes;  // P2 for WᵀX
   int GB, n_split, cells_per_split, S, CW;        // P1 for X Hsᵀ
   int g_split, g_cells_per_split;                 // gram_wide
@@ -1189,7 +1190,7 @@ static int launch_iteration_wide(const void* X, const float* W, const float* H,
     rc = launch_wtx_wide<XT>(X, W, g, n, K, p.wWR, p.w_ranges, p.w_range_genes, p.wS,
                              static_cast<__nv_bfloat16*>(wb), wpart, WtX, stream);
   } else {
-    rc = launch_wtx_fma<XT>(X, W, g, n, K, p.KR, p.wT, p.wWR, p.wGC, p.wS, WtX, stream);
+    rc = launch_wtx_fma_wide<XT>(X, W, g, n, K, WtX, stream);
   }
   if (rc != 0) return rc;
   cudaError_t err = launch_wtw_transpose(WtW, K, WtWt, stream);
@@ -1211,8 +1212,8 @@ static int launch_iteration_wide(const void* X, const float* W, const float* H,
     rc = launch_hxt_wide<XT>(X, Hx, g, n, K, p.GB, p.n_split, p.cells_per_split, p.S,
                              static_cast<__nv_bfloat16*>(hb), part_x, nullptr, stream);
   } else {
-    rc = launch_hxt_fma<XT>(X, Hx, g, n, K, p.KR, p.GB, p.n_split, p.cells_per_split, p.S,
-                            p.CW, part_x, stream);
+    rc = launch_hxt_fma_wide<XT>(X, Hx, g, n, K, p.n_split, p.cells_per_split, part_x,
+                                 stream);
   }
   if (rc != 0) return rc;
   // stats: HHt (K K), rowsum (K), Bnum (L K), the prediction rows (L), the
@@ -1233,8 +1234,8 @@ static int launch_iteration_wide(const void* X, const float* W, const float* H,
 }  // namespace alpine
 
 // Plain C entry points (ctypes).  Each returns 0 or a cudaError_t code.
-// `KR` (rows of a range of K, k_ranges) serves the fp32 paths; the bf16
-// paths take K <= 512 here (above, alpine_hxt_wide / alpine_wtx_wide).
+// hxt and wtx take K <= 512 (above: alpine_hxt_wide / alpine_wtx_wide on
+// int8/bf16 X, alpine_hxt_fma_wide / alpine_wtx_fma_wide on float32/int16).
 // hxt: `stages` and `chunk` (cells a ring stage holds) serve both paths,
 // the scratch `hb` (K x n rounded up to the chunk, bf16) only the bf16 path
 // (int8, bf16 X).  wtx: `T` (cells a tile), `chunk` (genes a ring stage) and
@@ -1243,30 +1244,30 @@ static int launch_iteration_wide(const void* X, const float* W, const float* H,
 // x g rounded up to the chunk, bf16), `part` (ranges x K x n) and
 // `arrivals` (a zeroed counter a tile) serve the bf16 path only.
 extern "C" int alpine_hxt(const void* X, int xtype, const float* H, int g, int n,
-                          int K, int KR, int GB, int n_split, int cells_per_split, int stages,
+                          int K, int GB, int n_split, int cells_per_split, int stages,
                           int chunk, void* hb, float* part, float* out, void* stream) {
   using namespace alpine;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   __nv_bfloat16* Hb = static_cast<__nv_bfloat16*>(hb);
   switch (xtype) {
     case kF32:
-      return launch_hxt<float, false>(X, H, g, n, K, KR, GB, n_split, cells_per_split,
+      return launch_hxt<float, false>(X, H, g, n, K, GB, n_split, cells_per_split,
                                       stages, chunk, Hb, part, out, s);
     case kBF16:
-      return launch_hxt<__nv_bfloat16, true>(X, H, g, n, K, KR, GB, n_split, cells_per_split,
+      return launch_hxt<__nv_bfloat16, true>(X, H, g, n, K, GB, n_split, cells_per_split,
                                              stages, chunk, Hb, part, out, s);
     case kI8:
-      return launch_hxt<int8_t, true>(X, H, g, n, K, KR, GB, n_split, cells_per_split,
+      return launch_hxt<int8_t, true>(X, H, g, n, K, GB, n_split, cells_per_split,
                                       stages, chunk, Hb, part, out, s);
     case kI16:
-      return launch_hxt<int16_t, false>(X, H, g, n, K, KR, GB, n_split, cells_per_split,
+      return launch_hxt<int16_t, false>(X, H, g, n, K, GB, n_split, cells_per_split,
                                         stages, chunk, Hb, part, out, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 extern "C" int alpine_wtx(const void* X, int xtype, const float* W, int g, int n,
-                          int K, int KR, int T, int WR, int chunk, int stages, int ranges,
+                          int K, int T, int WR, int chunk, int stages, int ranges,
                           int range_genes, void* wb, float* part, void* arrivals, float* out,
                           void* stream) {
   using namespace alpine;
@@ -1274,7 +1275,7 @@ extern "C" int alpine_wtx(const void* X, int xtype, const float* W, int g, int n
   __nv_bfloat16* Wb = static_cast<__nv_bfloat16*>(wb);
   unsigned* arr = static_cast<unsigned*>(arrivals);
   switch (xtype) {
-    case kF32: return launch_wtx_fma<float>(X, W, g, n, K, KR, T, WR, chunk, stages, out, s);
+    case kF32: return launch_wtx_fma<float>(X, W, g, n, K, T, WR, chunk, stages, out, s);
     case kBF16:
       return launch_wtx_mma<__nv_bfloat16>(X, W, g, n, K, T, WR, chunk, stages, ranges,
                                            range_genes, Wb, part, arr, out, s);
@@ -1282,14 +1283,54 @@ extern "C" int alpine_wtx(const void* X, int xtype, const float* W, int g, int n
       return launch_wtx_mma<int8_t>(X, W, g, n, K, T, WR, chunk, stages, ranges,
                                     range_genes, Wb, part, arr, out, s);
     case kI16:
-      return launch_wtx_fma<int16_t>(X, W, g, n, K, KR, T, WR, chunk, stages, out, s);
+      return launch_wtx_fma<int16_t>(X, W, g, n, K, T, WR, chunk, stages, out, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// P1 and P2 above K = 512 on float32/int16 X (fma_wide.cuh), all of K in
+// one launch.  hxt: n_split splits of cells_per_split cells into `part`
+// (n_split x K x g), added in split order into `out` (K x g) by
+// reduce_splits; with one split the kernel writes `out` itself (part may be
+// nullptr).  wtx: out (K x n).
+extern "C" int alpine_hxt_fma_wide(const void* X, int xtype, const float* H, int g, int n,
+                                   int K, int n_split, int cells_per_split, float* part,
+                                   float* out, void* stream) {
+  using namespace alpine;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* dst = n_split > 1 ? part : out;
+  if (dst == nullptr) return (int)cudaErrorInvalidValue;
+  int rc;
+  switch (xtype) {
+    case kF32:
+      rc = launch_hxt_fma_wide<float>(X, H, g, n, K, n_split, cells_per_split, dst, s);
+      break;
+    case kI16:
+      rc = launch_hxt_fma_wide<int16_t>(X, H, g, n, K, n_split, cells_per_split, dst, s);
+      break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  if (rc != 0 || n_split == 1) return rc;
+  const size_t total = (size_t)K * g;
+  reduce_splits<<<(unsigned)((total + kThreads - 1) / kThreads), kThreads, 0, s>>>(
+      part, n_split, K, g, out);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int alpine_wtx_fma_wide(const void* X, int xtype, const float* W, int g, int n,
+                                   int K, float* out, void* stream) {
+  using namespace alpine;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (xtype) {
+    case kF32: return launch_wtx_fma_wide<float>(X, W, g, n, K, out, s);
+    case kI16: return launch_wtx_fma_wide<int16_t>(X, W, g, n, K, out, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 // The large-K route of fused_iteration (ops/kernels.py:_launch_iteration_wide):
 // the K1 entry's inputs and outputs (stats in its layout), whether iter_wide
-// stages Bg in shared memory (kernels.wide_stages_bg), the 17 ints of
+// stages Bg in shared memory (kernels.wide_stages_bg), the 16 ints of
 // WideIterationGrid, and scratch: wtx, d (K x n each), hs (K x n, counts mode),
 // q (L x n), part (n_part x (L + 1)), part_x (n_split x K x g), part_hh
 // (gram_split x gram_split_floats), and on the bf16 path hb (H rounded,
@@ -1300,16 +1341,16 @@ extern "C" int alpine_fused_iteration_wide(
     const void* Y, const float* Bg, const float* lam_rows, const float* counts,
     int g, int n, int K, int L, int Kg, int loss_kl, int stage_bg, float eps, int T,
     int n_part,
-    int tiles_per_block, int KR, int wtx_T, int wtx_WR, int wtx_GC, int wtx_S,
+    int tiles_per_block, int wtx_T, int wtx_WR, int wtx_GC, int wtx_S,
     int wtx_ranges, int wtx_range_genes, int GB, int n_split, int cells_per_split,
     int stages, int chunk, int gram_split, int gram_cells_per_split, float* Hn, float* XHt,
     float* stats, float* wtx, float* d, float* hs, float* q, float* part, float* part_x,
     float* part_hh, void* hb, void* wb, float* wpart, float* wtwt, void* stream) {
   using namespace alpine;
-  const WideGrid p{T,      n_part,  tiles_per_block, KR,         wtx_T,
-                   wtx_WR, wtx_GC,  wtx_S,           wtx_ranges, wtx_range_genes,
-                   GB,     n_split, cells_per_split, stages,     chunk,
-                   gram_split, gram_cells_per_split};
+  const WideGrid p{T,       n_part,          tiles_per_block, wtx_T,      wtx_WR,
+                   wtx_GC,  wtx_S,           wtx_ranges,      wtx_range_genes, GB,
+                   n_split, cells_per_split, stages,          chunk,      gram_split,
+                   gram_cells_per_split};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define ALPINE_WIDE_ARGS                                                                 \
   X, W, H, WtW, Y, Bg, lam_rows, counts, g, n, K, L, Kg, loss_kl, stage_bg, eps, p, Hn, XHt, \

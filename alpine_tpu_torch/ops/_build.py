@@ -44,18 +44,21 @@ SIGNATURES = {
     # the large-K chain of K1/K2/K4 (K > 512): X's products are P1's and
     # P2's kernels, so it lives beside them
     "fused_iteration_wide": ("x_passes", "alpine_fused_iteration_wide",
-                             [_P, _I] + [_P] * 7 + [_I] * 7 + [_F] + [_I] * 17
+                             [_P, _I] + [_P] * 7 + [_I] * 7 + [_F] + [_I] * 16
                              + [_P] * 15),
     # its statistics against Hn alone (csrc/gram_wide.cuh, included there)
     "gram_wide": ("x_passes", "alpine_gram_wide", [_P] * 3 + [_I] * 5 + [_P] * 6),
     # its D = WᵀW H alone (csrc/wtw_gemm.cuh's store, included there)
     "wtw_gemm": ("x_passes", "alpine_wtw_gemm", [_P, _P, _I, _I, _P, _P, _P]),
-    "hxt": ("x_passes", "alpine_hxt", [_P, _I, _P] + [_I] * 9 + [_P] * 4),
-    "wtx": ("x_passes", "alpine_wtx", [_P, _I, _P] + [_I] * 10 + [_P] * 5),
+    "hxt": ("x_passes", "alpine_hxt", [_P, _I, _P] + [_I] * 8 + [_P] * 4),
+    "wtx": ("x_passes", "alpine_wtx", [_P, _I, _P] + [_I] * 9 + [_P] * 5),
     # P1/P2 above K = 512 on int8/bf16 X (csrc/x_passes_wide.cuh, which
     # x_passes.cu includes)
     "hxt_wide": ("x_passes", "alpine_hxt_wide", [_P, _I, _P] + [_I] * 7 + [_P] * 4),
     "wtx_wide": ("x_passes", "alpine_wtx_wide", [_P, _I, _P] + [_I] * 7 + [_P] * 4),
+    # and on float32/int16 X (csrc/fma_wide.cuh, which x_passes.cu includes)
+    "hxt_fma_wide": ("x_passes", "alpine_hxt_fma_wide", [_P, _I, _P] + [_I] * 5 + [_P] * 3),
+    "wtx_fma_wide": ("x_passes", "alpine_wtx_fma_wide", [_P, _I, _P] + [_I] * 3 + [_P] * 2),
     "stream_probe": ("stream_probe", "alpine_stream_probe",
                      [_P, _I] + [_I] * 5 + [_P] * 4),
 }

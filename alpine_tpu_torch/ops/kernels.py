@@ -18,8 +18,9 @@ is the streaming read-rate probe's kernel, on no fit path
 Every kernel of the fit and transform path takes any component count K
 (``route``): K <= 512 runs the routes that hold a tile or a thread's rows
 of all of K, K > 512 the large-K routes (``hxt_wide_grid`` and
-``wtx_wide_grid`` for P1/P2 on int8/bf16 X, ``k_ranges`` for their fp32
-paths, ``wide_iteration_grid`` for K1/K2/K4, ``transform_path`` for K3).
+``wtx_wide_grid`` for P1/P2 on int8/bf16 X, ``hxt_fma_wide_grid`` and
+``wtx_fma_wide_grid`` for their fp32 paths, ``wide_iteration_grid`` for
+K1/K2/K4, ``transform_path`` for K3).
 No rule caps K: what does is the card's memory, which must hold the K x n
 and K x K operands, outputs and scratch of a call.
 """
@@ -42,6 +43,9 @@ launches: Dict[str, int] = {"fused_iteration": 0, "fused_iteration_counts": 0,
                             # the large-K wgmma kernels of P1/P2 (int8/bf16 X):
                             # from hxt/wtx and from K1/K2/K4's large-K chain
                             "hxt_wide": 0, "wtx_wide": 0,
+                            # their fp32 counterparts (float32/int16 X), from
+                            # the same callers
+                            "hxt_fma_wide": 0, "wtx_fma_wide": 0,
                             # the large-K chain's H Hᵀ, rowsum and Bnum: one a
                             # K1/K2/K4 call at K > 512, and gram_wide's own
                             "gram_wide": 0,
@@ -136,17 +140,26 @@ _WTX_RANGE_CHUNKS = 4
 _WIDE_BM, _WIDE_BN, _WIDE_BK = 128, 256, 64
 _WIDE_CL = {"hxt": 2, "wtx": 1}
 _WIDE_XROW = {"hxt": {1: 96, 2: 160}, "wtx": {1: 144, 2: 272}}
-# the fp32 paths of hxt and wtx (csrc/x_passes.cu: hxt_fma, wtx_fma): hxt
-# stages 64 or 32 cells a ring stage, 8 genes and at most 7 rows of H a
-# thread (8 only at K > 448; lanes 8 along K x 4 along genes), at most 4
-# columns of 32 genes a block; wtx stages 32 genes, 12 cells and at most 6
-# rows of W a thread
+# the fp32 paths of hxt and wtx at K <= 512 (csrc/fma_passes.cuh: hxt_fma,
+# wtx_fma): hxt stages 64 or 32 cells a ring stage, 8 genes and at most 7
+# rows of H a thread (8 only at K > 448; lanes 8 along K x 4 along genes),
+# at most 4 columns of 32 genes a block; wtx stages 32 genes, 12 cells and
+# at most 6 rows of W a thread
 _FMA_CHUNKS = (64, 32)
 _FMA_MAX_MK = 7
 _WTX_FMA_GC = 32
 _WTX_FMA_CELLS = 12
 _WTX_FMA_MAX_MK = 6
 _FMA_STAGES = range(2, 9)
+# the fp32 paths above K = 512 (csrc/fma_wide.cuh: hxt_fma_wide,
+# wtx_fma_wide) take wtw_gemm's tile and chunk (``wtw_design``) in a ring of
+# _FW_STAGES stages; the header's own sizes, in floats: hxt's staged rows of
+# 16 cells and its turned tiles' pitch, and the words of an int16 row of a
+# stage (wtx: 16 threads' 8 cells as 5 words each, hxt: 2 threads' 2 x 4
+# cells as 3 words each, at any 2-byte offset; ``fma_wide_smem_bytes``)
+_FW_STAGES = 2
+_FW_ROW, _FW_TURN = 24, 132
+_FW_WORDS = {"wtx": 80, "hxt": 12}
 _SMS = 132  # SMs of an H100 SXM
 _SM_SMEM = 233472  # shared memory of one H100 SM, in bytes
 _BLOCK_SMEM_RESERVED = 1024  # of it, what the card keeps for each block
@@ -161,8 +174,9 @@ def route(K: int) -> str:
     """The rule by K that names each kernel's route: "tile" for 1 <= K <=
     512 (a tile, a thread's rows or a warp's fragments hold all of K),
     "wide" above (P1/P2 as the wgmma kernels of ``hxt_wide_grid`` and
-    ``wtx_wide_grid`` on int8/bf16 X and over ranges of at most 512 rows of
-    K on float32/int16 X, K1/K2/K4 as the chain of
+    ``wtx_wide_grid`` on int8/bf16 X and as the FP32 tiles of
+    ``hxt_fma_wide_grid`` and ``wtx_fma_wide_grid`` on float32/int16 X,
+    K1/K2/K4 as the chain of
     ``wide_iteration_grid``, K3 on ``transform_path``'s per-step path).
     K < 1 raises; no K above is refused: the card's memory is the cap."""
     if K < 1:
@@ -182,19 +196,6 @@ def tile_width(K: int) -> int:
     while K * w > _MAX_TILE_VALUES:
         w //= 2
     return w
-
-
-def k_ranges(K: int) -> Tuple[int, int]:
-    """(R, KR) of P1/P2's fp32 paths (and of the large-K K1 chain's on
-    float32/int16 X): K's rows in R ranges of KR rows, the last one
-    shorter where KR does not divide K; each range runs the K <= 512
-    kernel on its rows of H or columns of W, so X is read R times.  (1, K)
-    for K <= 512; above, the fewest ranges of at most 512 rows, KR rounded
-    up to 16."""
-    if route(K) == "tile":
-        return 1, K
-    KR = _pad16(-(-K // -(-K // _RANGE_K)))
-    return -(-K // KR), KR
 
 
 def iteration_tile_width(K: int, x_dtype: torch.dtype) -> int:
@@ -601,10 +602,11 @@ def _x_wide_stages(kind: str, x_dtype: torch.dtype) -> int:
                if x_wide_smem_bytes(kind, s, x_dtype) <= _MAX_SMEM)
 
 
-def _wave_share(blocks: int) -> float:
-    """The share of the last of ceil(blocks / 132) waves' block slots (one
-    block an SM) that ``blocks`` fill."""
-    return blocks / (_SMS * -(-blocks // _SMS))
+def _wave_share(blocks: int, per_sm: int = 1) -> float:
+    """The share of the last of ceil(blocks / (132 per_sm)) waves' block
+    slots (``per_sm`` blocks an SM) that ``blocks`` fill."""
+    slots = _SMS * per_sm
+    return blocks / (slots * -(-blocks // slots))
 
 
 def _wide_tiles(kind: str, rows: int, K: int) -> int:
@@ -723,13 +725,11 @@ def hxt_fma_grid(g: int, n: int, K: int, x_dtype: torch.dtype
     most stages (2..8) that fit; else one block takes an SM (K > 448 always:
     a thread of 8 rows takes an SM's registers).  The splits, each a
     multiple of the chunk, make gene blocks × splits at most one wave of
-    those blocks on 132 SMs.  K > 512: the same rule for a range of KR rows
-    (``k_ranges``), one launch a range (the last, of the rows left, on its
-    own layout), the R ranges sharing the wave, and splits of at most
-    _WIDE_SPLIT_CELLS cells."""
+    those blocks on 132 SMs.  K > 512 takes ``hxt_fma_wide_grid`` (and
+    raises here)."""
     if x_dtype not in (torch.float32, torch.int16):
         raise ValueError(f"hxt_fma_grid is for float32 and int16 X, got {x_dtype}")
-    R, K = k_ranges(K)
+    _check_tile_route(K, "hxt_fma_wide_grid")
     WK, MK = hxt_fma_rows(K)
     GB = 32 * min(4, 8 // WK)
     S, chunk, per_sm = _fma_ring(
@@ -738,11 +738,78 @@ def hxt_fma_grid(g: int, n: int, K: int, x_dtype: torch.dtype
         per_sm = 1
     gene_blocks = -(-g // GB)
     n_chunks = -(-n // chunk)
-    want = max(1, min(n_chunks, _SMS * per_sm // (gene_blocks * R)))
-    if R > 1:
-        want = max(want, -(-n // _WIDE_SPLIT_CELLS))
+    want = max(1, min(n_chunks, _SMS * per_sm // gene_blocks))
     cells_per_split = -(-n_chunks // want) * chunk
     return GB, -(-n // cells_per_split), cells_per_split, S, chunk
+
+
+def fma_wide_smem_bytes(kind: str, x_dtype: torch.dtype) -> int:
+    """csrc/fma_wide.cuh:fma_wide_smem, the shared memory of ``kind``
+    ("hxt" or "wtx") above K = 512 on float32/int16 X: the ring's stages
+    (wtx: 16 genes of W's 128 columns and of X's 128 cells; hxt: 16 cells of
+    H's 128 rows and of X's 128 gene rows, padded to 24 floats; int16 X
+    rows as the words that cover them), then two of wtx's widened int16
+    tiles or of hxt's pairs of turned tiles (16 x 132 floats each);
+    independent of K."""
+    d = wtw_design()
+    (bm, bn), bk, stages = d["tile"], d["chunk"], _FW_STAGES
+    int16 = x_dtype == torch.int16
+    if kind == "wtx":
+        stage = bk * bm + (bk * _FW_WORDS["wtx"] if int16 else bk * bn)
+        tail = 2 * bk * bn if int16 else 0
+    else:
+        stage = bm * _FW_ROW + (bn * _FW_WORDS["hxt"] if int16 else bn * _FW_ROW)
+        tail = 2 * 2 * bk * _FW_TURN
+    return 4 * (stages * stage + tail)
+
+
+def _check_fma_wide(rule: str, K: int, x_dtype: torch.dtype) -> None:
+    if x_dtype not in (torch.float32, torch.int16):
+        raise ValueError(f"{rule} is for float32 and int16 X, got {x_dtype}")
+    if route(K) != "wide":
+        raise ValueError(f"{rule} is for K > {_RANGE_K}, got K={K}")
+
+
+@lru_cache(maxsize=None)
+def hxt_fma_wide_grid(g: int, n: int, K: int, x_dtype: torch.dtype) -> Tuple[int, int]:
+    """(n_split, cells_per_split) of P1 above K = 512 on float32/int16 X
+    (csrc/fma_wide.cuh: hxt_fma_wide, all of K in one launch).
+
+    Output tiles of 128 rows of K x 128 genes (``wtw_design``), two blocks
+    an SM; the cells are split into whole 16-cell chunks, at most
+    _WIDE_SPLIT_CELLS a split (no fp32 sum runs longer), at least enough
+    splits for tiles x splits to fill two waves of 264 blocks (fewer only
+    where the cells run out) and at most twice that count, taking the one
+    whose blocks best fill their last wave (ties: fewer).  At the bench
+    shape (2,000 genes x 100k cells, K = 768) 96 tiles x 11 splits of 9,104
+    cells: 1,056 blocks, four whole waves.  The splits' K x g partials are
+    added in split order.  The grid depends on the shape only, so a shape
+    sums each output in the same order on any card, X's rows aligned or
+    not."""
+    _check_fma_wide("hxt_fma_wide_grid", K, x_dtype)
+    d = wtw_design()
+    (bm, bn), bk = d["tile"], d["chunk"]
+    tiles = _cdiv(K, bm) * _cdiv(g, bn)
+    chunks = _cdiv(n, bk)
+    least = max(_cdiv(n, _WIDE_SPLIT_CELLS), min(chunks, _cdiv(2 * 2 * _SMS, tiles)))
+    most = max(least, min(chunks, 2 * least))
+    want = max(range(least, most + 1), key=lambda s: (_wave_share(tiles * s, 2), -s))
+    cells_per_split = _cdiv(chunks, want) * bk
+    return _cdiv(n, cells_per_split), cells_per_split
+
+
+@lru_cache(maxsize=None)
+def wtx_fma_wide_grid(g: int, n: int, K: int, x_dtype: torch.dtype
+                      ) -> Tuple[int, int, int, int]:
+    """(T, chunk, S, blocks) of P2 above K = 512 on float32/int16 X
+    (csrc/fma_wide.cuh: wtx_fma_wide, all of K in one launch): output tiles
+    of 128 rows of K x T = 128 cells (``wtw_design``), each summed over all
+    genes in chunks of 16 through a ring of S = _FW_STAGES stages, two
+    blocks an SM; the K / 128 row tiles of a cell tile run back to back."""
+    _check_fma_wide("wtx_fma_wide_grid", K, x_dtype)
+    d = wtw_design()
+    (bm, bn), bk = d["tile"], d["chunk"]
+    return bn, bk, _FW_STAGES, _cdiv(K, bm) * _cdiv(n, bn)
 
 
 class IterationGrid(NamedTuple):
@@ -768,20 +835,21 @@ class IterationGrid(NamedTuple):
 class WideIterationGrid(NamedTuple):
     """fused_iteration's large-K chain (K > 512; csrc/x_passes.cu:
     launch_iteration_wide): iter_wide's T-cell tiles (T, n_part,
-    tiles_per_block); KR, the rows of a range of K (``k_ranges``) in the
-    fp32 X passes; P2's grid for WᵀX (wtx_T, wtx_WR, wtx_GC, wtx_S,
+    tiles_per_block); P2's grid for WᵀX (wtx_T, wtx_WR, wtx_GC, wtx_S,
     wtx_ranges, wtx_range_genes: on int8/bf16 X wtx_wide's 128-cell tiles,
     its cluster size, 64-gene stages, stages and gene ranges of
-    ``wtx_wide_grid``; on float32/int16 ``wtx_fma_grid`` with wtx_WR its
-    lanes along K); P1's for X Hsᵀ (GB, n_split, cells_per_split, S,
-    chunk: on int8/bf16 X hxt_wide's cluster size, splits, cells a split,
-    stages and 64-cell stages of ``hxt_wide_grid``; else ``hxt_fma_grid``);
-    and gram_wide's splits for H Hᵀ, HHtU, rowsum and Bnum (gram_split,
-    gram_cells_per_split: ``gram_wide_grid``)."""
+    ``wtx_wide_grid``; on float32/int16 wtx_fma_wide's 128-cell tiles, no
+    cluster (1), its 16-gene chunks and stages of ``wtx_fma_wide_grid``,
+    all genes in one range); P1's for X Hsᵀ (GB, n_split, cells_per_split,
+    S, chunk: on int8/bf16 X hxt_wide's cluster size, splits, cells a
+    split, stages and 64-cell stages of ``hxt_wide_grid``; on float32/int16
+    hxt_fma_wide's 128-gene tiles and the splits of ``hxt_fma_wide_grid``,
+    its stages and 16-cell chunks); and gram_wide's splits for H Hᵀ, HHtU,
+    rowsum and Bnum (gram_split, gram_cells_per_split:
+    ``gram_wide_grid``)."""
     T: int
     n_part: int
     tiles_per_block: int
-    KR: int
     wtx_T: int
     wtx_WR: int
     wtx_GC: int
@@ -854,17 +922,16 @@ def wide_iteration_grid(g: int, n: int, K: int, x_dtype: torch.dtype) -> WideIte
     if route(K) != "wide":
         raise ValueError(f"the large-K chain is for K > {_RANGE_K}, got K={K}")
     n_part, tiles_per_block = _part_grid(n, _WIDE_T, _WIDE_PART_BLOCKS)
-    KR = k_ranges(K)[1]
     if x_dtype in _MMA_XTYPES:
         CL, ranges, range_genes, S = wtx_wide_grid(g, n, K, x_dtype)
         wtx = (_WIDE_BM, CL, _WIDE_BK, S, ranges, range_genes)
         CL, n_split, cells_per_split, S = hxt_wide_grid(g, n, K, x_dtype)
         hxt_g = (CL, n_split, cells_per_split, S, _WIDE_BK)
     else:
-        T, LK, GC, S, _ = wtx_fma_grid(g, n, K, x_dtype)
-        wtx = (T, LK, GC, S, 1, g)
-        hxt_g = hxt_fma_grid(g, n, K, x_dtype)
-    return WideIterationGrid(_WIDE_T, n_part, tiles_per_block, KR, *wtx, *hxt_g,
+        T, chunk, S, _ = wtx_fma_wide_grid(g, n, K, x_dtype)
+        wtx = (T, 1, chunk, S, 1, g)
+        hxt_g = (wtw_design()["tile"][1], *hxt_fma_wide_grid(g, n, K, x_dtype), S, chunk)
+    return WideIterationGrid(_WIDE_T, n_part, tiles_per_block, *wtx, *hxt_g,
                              *gram_wide_grid(n, K))
 
 
@@ -1022,9 +1089,9 @@ def _launch_iteration_wide(X, W, H, WtW, Y_all, Bg, lam_rows, eps, counts, L,
     if rc != 0:
         raise RuntimeError(f"fused_iteration's large-K chain failed to launch: CUDA "
                            f"error {rc}")
-    if mma:
-        launches["hxt_wide"] += 1
-        launches["wtx_wide"] += 1
+    wide = "" if mma else "_fma"
+    launches[f"hxt{wide}_wide"] += 1
+    launches[f"wtx{wide}_wide"] += 1
     launches["gram_wide"] += 1
     launches["wtw_gemm"] += 1
     return Hn, XHt, stats, n_labels
@@ -1294,12 +1361,12 @@ def hxt(X, H):
     bf16 once a call, exact products, fp32 sums) over ``hxt_grid``'s grid,
     and above K = 512 as wgmma tiles fed by TMA over ``hxt_wide_grid``'s
     (a rule by K, ``route``); float32 and int16 X on the FP32 units (true
-    fp32, register micro-tiles) over ``hxt_fma_grid``'s, above K = 512 a
-    launch a range of H's rows (``k_ranges``).  Each block sums a range of
-    cells into a partial of its own and the partials are added in a fixed
-    order, so two launches give the same bits.  X's rows need not lie on
-    16-byte boundaries (any cell count, X at any address): the bf16 paths
-    give the bits of X's aligned copy."""
+    fp32, register micro-tiles) over ``hxt_fma_grid``'s, above K = 512 as
+    128 x 128 tiles over ``hxt_fma_wide_grid``'s.  Each block sums a range
+    of cells into a partial of its own and the partials are added in a
+    fixed order, so two launches give the same bits.  X's rows need not lie
+    on 16-byte boundaries (any cell count, X at any address): the bf16
+    paths and the large-K fp32 path give the bits of X's aligned copy."""
     _check_x(X)
     g, n = X.shape
     K = H.shape[0]
@@ -1308,8 +1375,8 @@ def hxt(X, H):
         return hxt_plain(X, H)
     dev = X.device
     bf16 = X.dtype in _MMA_XTYPES
-    if bf16 and route(K) == "wide":
-        return _hxt_wide(X, H)
+    if route(K) == "wide":
+        return (_hxt_wide if bf16 else _hxt_fma_wide)(X, H)
     GB, n_split, cells_per_split, S, chunk = (hxt_grid if bf16 else hxt_fma_grid)(
         g, n, K, X.dtype)
     # bf16 path: H rounded (K x n padded to the chunk); then the splits'
@@ -1319,8 +1386,8 @@ def hxt(X, H):
     _, hb = _workspace(dev, stream, 0, hb_bytes + 4 * n_split * K * g)
     out = torch.empty((K, g), dtype=torch.float32, device=dev)
     rc = _on_device(dev, _build.entry("hxt"), X.data_ptr(), _XTYPE[X.dtype], H.data_ptr(),
-                    g, n, K, k_ranges(K)[1], GB, n_split, cells_per_split, S, chunk, hb,
-                    hb + hb_bytes, out.data_ptr(), stream)
+                    g, n, K, GB, n_split, cells_per_split, S, chunk, hb, hb + hb_bytes,
+                    out.data_ptr(), stream)
     _launched("hxt", rc)
     return out
 
@@ -1345,6 +1412,25 @@ def _hxt_wide(X, H):
                     None if part is None else part.data_ptr(), out.data_ptr(), _stream(dev))
     _launched("hxt", rc)
     launches["hxt_wide"] += 1
+    return out
+
+
+def _hxt_fma_wide(X, H):
+    """``hxt`` above K = 512 on float32/int16 X: csrc/fma_wide.cuh's
+    hxt_fma_wide over ``hxt_fma_wide_grid`` and, with more than one split,
+    reduce_splits."""
+    dev = X.device
+    g, n = X.shape
+    K = H.shape[0]
+    n_split, cells_per_split = hxt_fma_wide_grid(g, n, K, X.dtype)
+    # the splits' partials: a call's own scratch, as _hxt_wide's
+    part = torch.empty((n_split, K, g), dtype=torch.float32, device=dev) if n_split > 1 else None
+    out = torch.empty((K, g), dtype=torch.float32, device=dev)
+    rc = _on_device(dev, _build.entry("hxt_fma_wide"), X.data_ptr(), _XTYPE[X.dtype],
+                    H.data_ptr(), g, n, K, n_split, cells_per_split,
+                    None if part is None else part.data_ptr(), out.data_ptr(), _stream(dev))
+    _launched("hxt", rc)
+    launches["hxt_fma_wide"] += 1
     return out
 
 
@@ -1460,12 +1546,11 @@ def wtx_fma_grid(g: int, n: int, K: int, x_dtype: torch.dtype
     blocks at two an SM at the bench shape), and all of K is one pass over
     X for every K <= 512.  The warps not needed along K (``wtx_fma_rows``)
     split each chunk's 32 genes.  S is the most ring stages (2..8) for
-    which two blocks share an SM, else one block takes it.  K > 512: the
-    same rule for a range of KR columns of W (``k_ranges``), the R ranges a
-    second grid axis."""
+    which two blocks share an SM, else one block takes it.  K > 512 takes
+    ``wtx_fma_wide_grid`` (and raises here)."""
     if x_dtype not in (torch.float32, torch.int16):
         raise ValueError(f"wtx_fma_grid is for float32 and int16 X, got {x_dtype}")
-    _, K = k_ranges(K)
+    _check_tile_route(K, "wtx_fma_wide_grid")
     LK = next(lk for lk in (1, 2, 4, 8, 16) if K <= 8 * lk * _WTX_FMA_MAX_MK)
     S, _, _ = _fma_ring(lambda s, _: wtx_fma_smem_bytes(K, LK, s, x_dtype),
                         (_WTX_FMA_GC,))
@@ -1488,8 +1573,8 @@ def wtx(X, W):
     sums) over ``wtx_grid``'s tiles, and above K = 512 as wgmma tiles fed
     by TMA over ``wtx_wide_grid``'s (a rule by K, ``route``); float32 and
     int16 X on the FP32 units (true fp32, register micro-tiles) over
-    ``wtx_fma_grid``'s, above K = 512 over ranges of W's columns
-    (``k_ranges``)."""
+    ``wtx_fma_grid``'s, above K = 512 as 128 x 128 tiles over
+    ``wtx_fma_wide_grid``'s."""
     _check_x(X)
     g, n = X.shape
     K = W.shape[1] if W.dim() == 2 else -1
@@ -1497,8 +1582,8 @@ def wtx(X, W):
     if not _cuda_or_cpu(X):
         return wtx_plain(X, W)
     dev = X.device
-    if X.dtype in _MMA_XTYPES and route(K) == "wide":
-        return _wtx_wide(X, W)
+    if route(K) == "wide":
+        return (_wtx_wide if X.dtype in _MMA_XTYPES else _wtx_fma_wide)(X, W)
     ranges, range_genes, wb_bytes = 1, g, 0
     if X.dtype in _MMA_XTYPES:
         T, WR, GC, S, blocks = wtx_grid(g, n, K, X.dtype)
@@ -1509,13 +1594,12 @@ def wtx(X, W):
     else:  # WR carries the fp32 path's lanes along K
         T, WR, GC, S, blocks = wtx_fma_grid(g, n, K, X.dtype)
     stream = _stream(dev)
-    KR = k_ranges(K)[1]
     arrivals, wb = _workspace(dev, stream, blocks if ranges > 1 else 0,
                               wb_bytes + (4 * ranges * K * n if ranges > 1 else 0))
     part = wb + wb_bytes
     out = torch.empty((K, n), dtype=torch.float32, device=dev)
     rc = _on_device(dev, _build.entry("wtx"), X.data_ptr(), _XTYPE[X.dtype], W.data_ptr(),
-                    g, n, K, KR, T, WR, GC, S, ranges, range_genes, wb, part, arrivals,
+                    g, n, K, T, WR, GC, S, ranges, range_genes, wb, part, arrivals,
                     out.data_ptr(), stream)
     _launched("wtx", rc)
     return out
@@ -1541,6 +1625,20 @@ def _wtx_wide(X, W):
                     None if part is None else part.data_ptr(), out.data_ptr(), _stream(dev))
     _launched("wtx", rc)
     launches["wtx_wide"] += 1
+    return out
+
+
+def _wtx_fma_wide(X, W):
+    """``wtx`` above K = 512 on float32/int16 X: csrc/fma_wide.cuh's
+    wtx_fma_wide over ``wtx_fma_wide_grid``, every output written once."""
+    dev = X.device
+    g, n = X.shape
+    K = W.shape[1]
+    out = torch.empty((K, n), dtype=torch.float32, device=dev)
+    rc = _on_device(dev, _build.entry("wtx_fma_wide"), X.data_ptr(), _XTYPE[X.dtype],
+                    W.data_ptr(), g, n, K, out.data_ptr(), _stream(dev))
+    _launched("wtx", rc)
+    launches["wtx_fma_wide"] += 1
     return out
 
 

@@ -24,7 +24,10 @@ Phases, each printing one JSON line:
           int8/bf16 X, rows aligned or not): HGMMA, TMA loads (UTMALDG)
           of the Hb/Wb tiles and of aligned X, cp.async windows of
           misaligned X, LDSM in wtx_wide's aligned path, no spill store,
-          and ptxas's performance notes (C75xx);
+          and ptxas's performance notes (C75xx); the fp32 X passes above
+          K = 512 (hxt_fma_wide, wtx_fma_wide on float32/int16 X, rows
+          aligned or not): FFMA of a ring chunk, cp.async copies (LDGSTS),
+          no HMMA, at most 128 registers (two blocks an SM), no spill;
   kernel  each kernel against its plain PyTorch version on the card, at the
           bench shape (100k cells x 2,000 genes, K = 40, labels (2, 3), int8)
           and at small shapes over the other storage types, blocks and
@@ -78,11 +81,17 @@ Phases, each printing one JSON line:
           (wtw_gemm's store), each launched twice (bit for bit), and the
           per-step path called directly at K = 40, 300 and 512 bit for bit
           the register and tiled paths (one summary line); then rows at the
-          bench shape, K = 768: K1, K4, K2 (int8) and K1 on float32 X, the
+          bench shape, K = 768: K1, K4, K2 (int8) and K1 on float32 and on
+          int16 X (counts x 3), the
           chain's D = WᵀW H alone (wtw_gemm), K3 (50 steps), with the card's
           ms of each kernel
           they launch, P1 and P2 (int8: the wgmma kernels hxt_wide and
-          wtx_wide) at K = 520, 768, 1024 and 2048 and P2 at k = 384, and
+          wtx_wide) at K = 520, 768, 1024 and 2048 and P2 at k = 384; P1
+          and P2 on float32 and int16 X (the FP32 kernels hxt_fma_wide and
+          wtx_fma_wide) at K = 768, on float32 also at 1024 and 2048, and
+          at K = 768 on 66,667 cells beside their 66,672-cell twins
+          (their bits checked), beside fp32 torch.matmul (TF32 off; int16
+          through a float32 copy); and
           P1/P2 at K = 768 on the minibatch's 8,192 cells and on 66,667
           cells beside a 66,672-cell twin (zero cells added: its bits
           checked), each with every output against the plain version's, a
@@ -109,7 +118,8 @@ Phases, each printing one JSON line:
           X the ALS loop (fit_loop_als_float32) and the joint loop
           (fit_loop_float32), each with the launch counts of its timed run;
           and the full-batch loop at K = 768 (fit_loop_k768, blocks (192,
-          192, 384): K1's large-K chain);
+          192, 384): K1's large-K chain), also on int16 X (counts x 3:
+          fit_loop_k768_int16, the chain's fp32 X passes);
   small   a small fit on the card against the same fit on the CPU (plain
           kernel versions, same seed); small_als the same with
           use_als=True;
@@ -252,6 +262,13 @@ Phases, each printing one JSON line:
           launches, finite falling losses, cached = uncached transform;
           then the same model on the first 5,000 cells on the card against
           the CPU (plain versions) at the small phase's tolerances;
+  slice_k768_int16  the same model on the counts x 5 (some above 127, so
+          data_dtype "auto" resolves to int16): fit 10 iterations and a
+          50-step transform at 100k x 2,000: K1 10, P1 1, K3 1 launches,
+          hxt_fma_wide 11 and wtx_fma_wide 10 (P1's first X Hᵀ, and the
+          chain's X Hsᵀ and WᵀX in every K1 call), finite falling losses,
+          cached = uncached transform; the first 5,000 cells fit on the
+          card and on the CPU at slice_k768's tolerances;
   slice_k768_modes  K = 768 on the first 20,000 cells, 5 iterations each:
           unguided (K2), weighted_fast (K4), use_als=True (P1 at K = 768,
           P2 a block) and random minibatch of 8,192 (P1 and P2 at K = 768),
@@ -327,7 +344,9 @@ at the same folds; hxt and wtx at a grid rank's block of
 slice_optimize_grid's sequential folds and of its refit; hxt, wtx and fused_transform
 at a 2 x 2 grid's block, 1,000 genes x 50,000 cells, with the four ranks'
 launches of slice_gene_cell; the large-K routes at K = 768 (kernel_wide's
-bench rows) with the launches of slice_k768 and slice_k768_modes; hxt and wtx at a 2 x 2 grid rank's share of
+bench rows) with the launches of slice_k768 and slice_k768_modes, and K1,
+hxt_fma_wide and wtx_fma_wide on int16 X with those of slice_k768_int16;
+hxt and wtx at a 2 x 2 grid rank's share of
 a minibatch batch with the four ranks' minibatch launches; hxt and wtx (k =
 5, 30 and 40) at the shares of the global-draw fits, a cell mesh rank's
 (2,000 genes, world 2 of slice_sharded_modes) and a 2 x 2 grid rank's, ALS
@@ -403,6 +422,8 @@ PASS_NAME = re.compile(r"(iter_tiles)I(\w+?)Lb([01])ELb([01])E|(hxt_partial)I(\w
 FMA_NAME = re.compile(r"(hxt_mma|hxt_fma|wtx_mma|wtx_fma)I(\w+?)(?:Li(\d+)E)?(?:Lb([01])E)?E")
 # the wgmma X passes above K = 512: <X type, X rows aligned, cluster size>
 WIDE_NAME = re.compile(r"(hxt_wide|wtx_wide)I(\w+?)Lb([01])ELi(\d+)EE")
+# the fp32 X passes above K = 512: <X type, X rows aligned>
+FMA_WIDE_NAME = re.compile(r"(hxt_fma_wide|wtx_fma_wide)I(\w+?)Lb([01])EE")
 X_CODES = {"f": "float32", "13__nv_bfloat16": "bfloat16", "a": "int8", "s": "int16"}
 # mangled names of fused_transform.cu's register path, transform_columns<KB>,
 # and of its tiled path, transform_tiles<T, G> (T cells a tile, G pairs of
@@ -590,7 +611,17 @@ def sass_check(_build, kernels):
     xrows, wide, wgmma, gram = [], [], [], []
     usage = ptxas_usage(_build.build_log("x_passes"))
     ops = ("HMMA", "LDGSTS", "LDSM", "FFMA", "HGMMA", "UTMALDG")
+    fma_wide = []
     for fn, count in sorted(sass_counts(_build, "x_passes", ops).items()):
+        fw = FMA_WIDE_NAME.search(fn)
+        if fw:  # hxt_fma_wide / wtx_fma_wide
+            u = usage.get(fn, {})
+            fma_wide.append({"kernel": fw.group(1), "x": X_CODES.get(fw.group(2), fw.group(2)),
+                             "aligned": fw.group(3) == "1",
+                             **{op.lower(): count[op] for op in ops},
+                             "registers": u.get("registers"),
+                             "spill_stores": u.get("spill_stores")})
+            continue
         w = WIDE_NAME.search(fn)
         if w:  # hxt_wide / wtx_wide
             u = usage.get(fn, {})
@@ -631,7 +662,7 @@ def sass_check(_build, kernels):
     notes = sorted({m.group(1) for m in re.finditer(r"\((C75\d\d)\)",
                                                     _build.build_log("x_passes"))})
     emit({"phase": "sass", "x_passes": xrows, "x_passes_wide": wide, "wgmma_passes": wgmma,
-          "gram_wide": gram, "wgmma_ptxas_notes": notes})
+          "fma_wide_passes": fma_wide, "gram_wide": gram, "wgmma_ptxas_notes": notes})
     # ptxas's performance notes (C75xx: wgmma serialized, setmaxnreg ignored)
     check(not notes, f"x_passes: ptxas performance notes {notes}")
     # hxt_wide and wtx_wide on int8 and bf16 X, rows aligned or not, at the
@@ -650,6 +681,21 @@ def sass_check(_build, kernels):
         check(r["kernel"] == "hxt_wide" or not r["aligned"] or r["ldsm"] > 0,
               f"{tag}: no ldmatrix (LDSM)")
         check(r["spill_stores"] == 0, f"{tag}: spill stores {r['spill_stores']}")
+    # hxt_fma_wide and wtx_fma_wide on float32 and int16 X, rows aligned or
+    # not: true fp32 (no HMMA), a ring chunk of 8 x 8 outputs a thread
+    # unrolled (64 FFMA a reduction value), cp.async into the ring (LDGSTS),
+    # at most 128 registers (two blocks an SM), no spill store
+    check(sorted((r["kernel"], r["x"], r["aligned"]) for r in fma_wide)
+          == sorted((k, x, a) for k in ("hxt_fma_wide", "wtx_fma_wide")
+                    for x in ("float32", "int16") for a in (False, True)),
+          f"the fp32 large-K passes' instantiations differ: {len(fma_wide)}")
+    for r in fma_wide:
+        tag = f"{r['kernel']} {r['x']} aligned={r['aligned']}"
+        check(r["hmma"] == 0 and r["ffma"] >= 64 * kernels.wtw_design()["chunk"]
+              and r["ldgsts"] > 0,
+              f"{tag}: HMMA {r['hmma']}, FFMA {r['ffma']}, LDGSTS {r['ldgsts']}")
+        check(r["registers"] is not None and r["registers"] <= 128 and r["spill_stores"] == 0,
+              f"{tag}: {r['registers']} registers, spill stores {r['spill_stores']}")
     # gram_wide with and without counts: true fp32 on the FP32 units (no
     # HMMA), a chunk of 8 cells unrolled (8 x 64 FMAs a thread; counts mode
     # 8 x 128), no spill store
@@ -871,6 +917,19 @@ def at_byte_offset(torch, X, offset):
 def x_pass_grid(kernels, kind, g, n, K, dtype):
     """The grid the X pass runs at this shape, as its rule gives it."""
     bf16 = dtype in kernels._MMA_XTYPES
+    if not bf16 and kernels.route(K) == "wide":  # hxt_fma_wide / wtx_fma_wide
+        d = kernels.wtw_design()
+        smem = kernels.fma_wide_smem_bytes(kind, dtype)
+        if kind == "hxt":
+            n_split, cps = kernels.hxt_fma_wide_grid(g, n, K, dtype)
+            blocks = kernels.wtw_design(K, g)["blocks"] * n_split
+            return dict(kernel="hxt_fma_wide", tile=d["tile"], chunk=d["chunk"],
+                        stages=d["stages"], n_split=n_split, cells_per_split=cps,
+                        blocks=blocks, waves=blocks / (2 * kernels._SMS), smem_bytes=smem,
+                        partial_bytes=4 * n_split * K * g if n_split > 1 else 0)
+        T, chunk, S, blocks = kernels.wtx_fma_wide_grid(g, n, K, dtype)
+        return dict(kernel="wtx_fma_wide", tile=[d["tile"][0], T], chunk=chunk, stages=S,
+                    blocks=blocks, waves=blocks / (2 * kernels._SMS), smem_bytes=smem)
     if bf16 and kernels.route(K) == "wide":  # hxt_wide / wtx_wide
         if kind == "hxt":
             CL, n_split, cps, S = kernels.hxt_wide_grid(g, n, K, dtype)
@@ -2809,12 +2868,24 @@ WIDE_ROWS = {"fused_iteration wide": "alpine_tpu_torch/csrc/x_passes.cu",
              "gram_wide K=768": "alpine_tpu_torch/csrc/gram_wide.cuh",
              "gram_wide counts K=768": "alpine_tpu_torch/csrc/gram_wide.cuh",
              # the chain's D = WᵀW H (wtw_gemm's store alone)
-             "wtw_gemm K=768": "alpine_tpu_torch/csrc/wtw_gemm.cuh"}
+             "wtw_gemm K=768": "alpine_tpu_torch/csrc/wtw_gemm.cuh",
+             # K1's chain and P1/P2 on int16 X (slice_k768_int16): the fp32
+             # X passes hxt_fma_wide and wtx_fma_wide
+             "fused_iteration wide int16": "alpine_tpu_torch/csrc/x_passes.cu",
+             "hxt fma_wide K=768 int16": "alpine_tpu_torch/csrc/fma_wide.cuh",
+             "wtx fma_wide K=768 int16": "alpine_tpu_torch/csrc/fma_wide.cuh"}
 K768 = 768  # the JAX package's component bucket level (alpine_tpu/ops/mu.py:1681)
-# kernel_wide's P1/P2 bench rows above K = 512 (hxt_wide, wtx_wide)
+# kernel_wide's P1/P2 bench rows above K = 512 (hxt_wide, wtx_wide; and
+# hxt_fma_wide, wtx_fma_wide on float32 X)
 WIDE_BENCH_KS = (520, 768, 1024, 2048)
+FMA_WIDE_KS = (768, 1024, 2048)
 K768_BLOCKS = (192, 192, 384)
 K768_ITERS = 20
+K768_INT16_ITERS = 10  # slice_k768_int16's fit (cut, as slice_k768's, for the time limit)
+# slice_k768_int16's counts: the bench counts times this, so that some pass
+# 127 (the largest is 38; x 3 would stay at 114, which "auto" stores as
+# int8), in the first 5,000 cells too (largest 32)
+K768_INT16_SCALE = 5
 K768_SMALL_CELLS = 5000
 K768_MODE_CELLS = 20_000
 K768_MODE_ITERS = 5
@@ -3084,10 +3155,13 @@ def run_kernel_wide_bench(torch, kernels, gen, dev, card):
         return tuple(head + per("pred") + per("bnum") + per("bden"))
 
     labels = (2, 3)
-    for xdt, kinds in ((torch.int8, ("K1", "K4", "K2")), (torch.float32, ("K1",))):
+    for xdt, kinds in ((torch.int8, ("K1", "K4", "K2")), (torch.float32, ("K1",)),
+                       (torch.int16, ("K1",))):
         bf16 = xdt == torch.int8
         X, W, H, WtW, Ys, Bs, lam = iteration_problem(torch, gen, dev, G, N, K768_BLOCKS,
                                                       labels, xdt)
+        if xdt == torch.int16:
+            X *= 3  # counts above 127: what "auto" stores as int16
         cdt = torch.bfloat16 if bf16 else torch.float32
         Xc, Wc, Hc = X.to(cdt), W.to(cdt), H.to(cdt)
         library = lambda: (Wc.T @ Xc, Hc @ Xc.T, WtW @ H, H @ H.T)
@@ -3113,7 +3187,7 @@ def run_kernel_wide_bench(torch, kernels, gen, dev, card):
                     X, W, H, WtW, Ys, Bs, lam, EPS, C, blocks=K768_BLOCKS, loss_kl=True)
                 name = ("fused_iteration_counts wide" if kind == "K4" else "fused_iteration wide")
                 if not bf16:
-                    name += " float32"
+                    name += f" {str(xdt)[6:]}"
                 cost = iteration_cost(G, N, K768_BLOCKS, labels, X.element_size(), bf16,
                                       counts=kind == "K4", symmetric=True)
                 full = iteration_cost(G, N, K768_BLOCKS, labels, X.element_size(), bf16,
@@ -3127,10 +3201,12 @@ def run_kernel_wide_bench(torch, kernels, gen, dev, card):
                             names=names, xht_of=xht_of if bf16 else None,
                             extra={"bound_full_ms": bound(*full, card)[0]})
             by = row["device_ms_by_kernel"]
-            check(not by or (any("gram_wide" in k for k in by)
-                             and any("iter_wide" in k for k in by)
-                             and not any("hxt_fma" in k for k in by if bf16)),
-                  f"kernel_wide {name}: its kernels {sorted(by)} lack gram_wide or iter_wide")
+            # X's passes: the wgmma kernels on int8 X, the fp32 ones else
+            passes = ("hxt_wide", "wtx_wide") if bf16 else ("hxt_fma_wide", "wtx_fma_wide")
+            check(not by or all(any(k in key for key in by)
+                                for k in ("gram_wide", "iter_wide") + passes),
+                  f"kernel_wide {name}: its kernels {sorted(by)} lack one of gram_wide, "
+                  f"iter_wide, {passes}")
         del X, W, H, WtW, Ys, Bs, Xc, Wc, Hc
         torch.cuda.empty_cache()
     # gram_wide alone at the bench shape (5 labels), without and with counts,
@@ -3200,73 +3276,109 @@ def run_kernel_wide_bench(torch, kernels, gen, dev, card):
                  f"{kind} {'wide' if K > 512 else 'k=384'} K={K}")
     del X, W, H, Xc, P
     torch.cuda.empty_cache()
-    twins = {}
-    for n in (MB_BATCH, 66_667, 66_672):
-        if n == 66_672:  # the 66,667-cell problem padded with zero cells
-            X = torch.zeros((G, n), dtype=torch.int8, device=dev)
-            X[:, :66_667] = twins["X"]
-            H = torch.zeros((K768, n), device=dev)
-            H[:, :66_667] = twins["H"]
-            W = twins["W"]
-        else:
-            X, W, H = make_x_pass_problem(torch, gen, dev, G, n, K768, torch.int8)
-        Xc = X.to(torch.bfloat16)
-        for kind in ("hxt", "wtx"):
-            got = wide_row(torch, kernels, timed_row, kind, X, Xc, H if kind == "hxt" else W,
-                           K768, f"{kind} wide K={K768} n={n}")
+    # P1/P2 on float32 and int16 X (hxt_fma_wide, wtx_fma_wide) at K = 768
+    # and, on float32, 1024 and 2048, beside fp32 torch.matmul (TF32 off;
+    # int16 through a float32 copy)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for xdt in (torch.float32, torch.int16):
+        ks = FMA_WIDE_KS if xdt == torch.float32 else (K768,)
+        X, W, H = make_x_pass_problem(torch, gen, dev, G, N, max(ks), xdt)
+        Xc = X.float()
+        for K in ks:
+            for kind in ("hxt", "wtx"):
+                P = H[:K].contiguous() if kind == "hxt" else W[:, :K].contiguous()
+                wide_row(torch, kernels, timed_row, kind, X, Xc, P, K,
+                         f"{kind} fma_wide K={K} {str(xdt)[6:]}")
+        del X, W, H, Xc, P
+        torch.cuda.empty_cache()
+    # at K = 768: the minibatch batch (8,192 cells, int8) and an optimizer
+    # fold's 66,667 cells (rows off 16-byte alignment) beside its
+    # 66,672-cell twin, on int8 X (the wgmma kernels) and on float32 and
+    # int16 X (the fp32 ones)
+    for xdt, ns in ((torch.int8, (MB_BATCH, 66_667, 66_672)),
+                    (torch.float32, (66_667, 66_672)), (torch.int16, (66_667, 66_672))):
+        twins = {}
+        tag = "wide" if xdt == torch.int8 else "fma_wide"
+        dt = "" if xdt == torch.int8 else f" {str(xdt)[6:]}"
+        for n in ns:
+            if n == 66_672:  # the 66,667-cell problem padded with zero cells
+                X = torch.zeros((G, n), dtype=xdt, device=dev)
+                X[:, :66_667] = twins["X"]
+                H = torch.zeros((K768, n), device=dev)
+                H[:, :66_667] = twins["H"]
+                W = twins["W"]
+            else:
+                X, W, H = make_x_pass_problem(torch, gen, dev, G, n, K768, xdt)
+            Xc = X.to(torch.bfloat16) if xdt == torch.int8 else X.float()
+            for kind in ("hxt", "wtx"):
+                got = wide_row(torch, kernels, timed_row, kind, X, Xc,
+                               H if kind == "hxt" else W, K768,
+                               f"{kind} {tag} K={K768} n={n}{dt}")
+                if n == 66_667:
+                    twins[kind] = got
+                elif n == 66_672:
+                    same = (torch.equal(got, twins["hxt"]) if kind == "hxt"
+                            else torch.equal(got[:, :66_667], twins["wtx"]))
+                    rows[f"{kind} {tag} K={K768} n={n}{dt}"]["twin_bit_equal"] = same
+                    emit({"phase": "kernel_wide", "case": f"{kind} {tag} K={K768} twins{dt}",
+                          "cells": [66_667, 66_672], "bit_equal": same,
+                          "grid_equal": x_pass_grid(kernels, kind, G, 66_667, K768, xdt)
+                          == x_pass_grid(kernels, kind, G, 66_672, K768, xdt)})
+                    check(same, f"kernel_wide {kind}{dt} at 66,667 cells: not its 66,672-cell "
+                                "twin's bits")
             if n == 66_667:
-                twins[kind] = got
-            elif n == 66_672:
-                same = (torch.equal(got, twins["hxt"]) if kind == "hxt"
-                        else torch.equal(got[:, :66_667], twins["wtx"]))
-                rows[f"{kind} wide K={K768} n={n}"]["twin_bit_equal"] = same
-                emit({"phase": "kernel_wide", "case": f"{kind} wide K={K768} twins",
-                      "cells": [66_667, 66_672], "bit_equal": same,
-                      "grid_equal": x_pass_grid(kernels, kind, G, 66_667, K768, torch.int8)
-                      == x_pass_grid(kernels, kind, G, 66_672, K768, torch.int8)})
-                check(same, f"kernel_wide {kind} at 66,667 cells: not its 66,672-cell twin's bits")
-        if n == 66_667:
-            twins.update(X=X, W=W, H=H)
-        del X, W, H, Xc
-    twins.clear()
-    torch.cuda.empty_cache()
+                twins.update(X=X, W=W, H=H)
+            del X, W, H, Xc
+        twins.clear()
+        torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = tf32
     return rows
 
 
 def wide_row(torch, kernels, timed_row, kind, X, Xc, P, K, name):
     """One P1 (P = H) or P2 (P = W) row of kernel_wide's bench rows: the
-    kernel against its plain version, timed beside bf16 torch.matmul over
-    bf16 copies made outside the timed region; returns the kernel's
+    kernel against its plain version, timed beside one torch.matmul over
+    Xc, a copy of X made outside the timed region (int8/bf16 X: bf16
+    operands; float32/int16 X: fp32, TF32 off); returns the kernel's
     output."""
     g, n = X.shape
-    Pc = P.bfloat16()
+    bf16 = X.dtype in kernels._MMA_XTYPES
+    Pc = P.bfloat16() if bf16 else P
     lib = ((lambda: torch.matmul(Pc, Xc.T)) if kind == "hxt" else (lambda: torch.matmul(Pc.T, Xc)))
     side = 4 * K * n if kind == "hxt" else 4 * g * K
     out = 4 * K * g if kind == "hxt" else 4 * K * n
+    ops = 2.0 * K * g * n
     grid = x_pass_grid(kernels, kind, g, n, K, X.dtype)
     timed_row(name, lambda: getattr(kernels, kind)(X, P),
               lambda: getattr(kernels, f"{kind}_plain")(X, P), lib,
-              "torch.matmul, bf16 operands", 1e-4, 1e-6,
-              (g * n + side + out, 2.0 * K * g * n, 0.0), grid)
+              "torch.matmul, bf16 operands" if bf16 else
+              "fp32 torch.matmul, TF32 off" + (" (over a float32 copy of X)"
+                                               if X.dtype == torch.int16 else ""),
+              1e-4, 1e-6, (X.element_size() * g * n + side + out,
+                           ops if bf16 else 0.0, 0.0 if bf16 else ops), grid)
     return getattr(kernels, kind)(X, P)
 
 
-def run_k768_phase(torch, kernels, ALPINE, AnnData, counts, obs):
+def run_k768_phase(torch, kernels, ALPINE, AnnData, counts, obs, phase="slice_k768",
+                   iters=K768_ITERS, dtype="int8", extra=None):
     """slice_k768: ALPINE(n_components=384, n_covariate_components=[192,
-    192]) (K = 768) through fit (20 iterations, int8) and a 50-step
-    transform at 100k x 2,000; then the same model on the first 5,000 cells
-    on the card against the CPU.  Returns the launches of the fit and
-    transform."""
+    192]) (K = 768) through fit (``iters`` iterations) and a 50-step
+    transform at 100k x 2,000 on ``counts``, which data_dtype "auto" must
+    store as ``dtype`` (int8: P1/P2 as the wgmma kernels; int16, the counts
+    x 5 of slice_k768_int16: the fp32 ones); then the same model on the
+    first 5,000 cells on the card against the CPU.  ``extra`` joins the
+    phase's line.  Returns the launches of the fit and transform."""
     adata = AnnData(counts, obs=obs)
     model = ALPINE(n_components=K768_BLOCKS[-1], n_covariate_components=list(K768_BLOCKS[:-1]),
                    lam=[1e3, 1e3], device="cuda")
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     t0 = time.perf_counter()
-    model.fit(adata, ["batch", "condition"], max_iter=K768_ITERS)
+    model.fit(adata, ["batch", "condition"], max_iter=iters)
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
-    check(model._x_cache is not None, "slice_k768: the fit must keep its device X")
+    check(model._x_cache is not None, f"{phase}: the fit must keep its device X")
     t0 = time.perf_counter()
     model.transform(adata, n_iter=TRANSFORM_ITERS)  # through the fit's device X
     torch.cuda.synchronize()
@@ -3278,36 +3390,40 @@ def run_k768_phase(torch, kernels, ALPINE, AnnData, counts, obs):
     torch.cuda.synchronize()
     cache_ok = all(np.allclose(emb_cached[k], adata.obsm[k], rtol=1e-5) for k in emb_cached)
     L = model.loss_history_
-    row = {"phase": "slice_k768", "components": K768, "blocks": list(K768_BLOCKS),
-           "cells": N, "genes": G, "fit_seconds": fit_s, "fit_iterations": K768_ITERS,
+    row = {"phase": phase, "components": K768, "blocks": list(K768_BLOCKS),
+           "cells": N, "genes": G, "fit_seconds": fit_s, "fit_iterations": iters,
            "timings": model.timings_, "transform_seconds_cached": transform_s,
            "transform_iterations": TRANSFORM_ITERS, "data_dtype": model.data_dtype_,
            "transform_path": kernels.transform_path(K768),
            "launches": launches, "cached_matches_uncached": bool(cache_ok),
            "loss_first": L[0].tolist(), "loss_last": L[-1].tolist(),
-           "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(), **(extra or {})}
     model.free_device_cache()
     del model
     torch.cuda.empty_cache()
-    check(row["data_dtype"] == "int8", "slice_k768: auto must resolve to int8")
-    check(launches["fused_iteration"] == K768_ITERS,
-          f"slice_k768: {launches['fused_iteration']} K1 launches, expected {K768_ITERS}")
-    check(launches["hxt"] == 1, f"slice_k768: {launches['hxt']} P1 launches, expected 1")
-    # the wgmma X passes: P1's first X Hᵀ and, in each K1 call, its chain's
-    # WᵀX and X Hsᵀ
-    check(launches["hxt_wide"] == 1 + K768_ITERS and launches["wtx_wide"] == K768_ITERS,
-          f"slice_k768: hxt_wide {launches['hxt_wide']}, wtx_wide {launches['wtx_wide']} "
-          f"launches, expected {1 + K768_ITERS} and {K768_ITERS}")
-    check(launches["gram_wide"] == K768_ITERS and launches["wtw_gemm"] == K768_ITERS,
-          f"slice_k768: gram_wide {launches['gram_wide']}, wtw_gemm {launches['wtw_gemm']} "
-          f"launches, expected {K768_ITERS}")
-    check(launches["fused_transform"] == 1, "slice_k768: transform must launch K3 once")
-    check(np.isfinite(L).all(), "slice_k768: loss history must be finite")
-    check(L[-1, 0] < L[0, 0], "slice_k768: total loss must fall")
-    check(all(np.isfinite(v).all() for v in emb_cached.values()),
-          "slice_k768: embeddings finite")
-    check(emb_cached["ALPINE_embedding"].shape == (N, K768_BLOCKS[-1]), "slice_k768: shape")
-    check(cache_ok, "slice_k768: cached and uncached transforms must agree (rtol 1e-5)")
+    check(row["data_dtype"] == dtype, f"{phase}: auto must resolve to {dtype}")
+    check(launches["fused_iteration"] == iters,
+          f"{phase}: {launches['fused_iteration']} K1 launches, expected {iters}")
+    check(launches["hxt"] == 1, f"{phase}: {launches['hxt']} P1 launches, expected 1")
+    # X's passes: P1's first X Hᵀ and, in each K1 call, its chain's WᵀX and
+    # X Hsᵀ: the wgmma kernels on int8 X, the fp32 ones on int16
+    used, unused = ("hxt_wide", "wtx_wide"), ("hxt_fma_wide", "wtx_fma_wide")
+    if dtype != "int8":
+        used, unused = unused, used
+    check(launches[used[0]] == 1 + iters and launches[used[1]] == iters
+          and launches[unused[0]] == launches[unused[1]] == 0,
+          f"{phase}: {used[0]} {launches[used[0]]}, {used[1]} {launches[used[1]]} launches, "
+          f"expected {1 + iters} and {iters}; {unused} {launches[unused[0]]}, "
+          f"{launches[unused[1]]}, expected 0")
+    check(launches["gram_wide"] == iters and launches["wtw_gemm"] == iters,
+          f"{phase}: gram_wide {launches['gram_wide']}, wtw_gemm {launches['wtw_gemm']} "
+          f"launches, expected {iters}")
+    check(launches["fused_transform"] == 1, f"{phase}: transform must launch K3 once")
+    check(np.isfinite(L).all(), f"{phase}: loss history must be finite")
+    check(L[-1, 0] < L[0, 0], f"{phase}: total loss must fall")
+    check(all(np.isfinite(v).all() for v in emb_cached.values()), f"{phase}: embeddings finite")
+    check(emb_cached["ALPINE_embedding"].shape == (N, K768_BLOCKS[-1]), f"{phase}: shape")
+    check(cache_ok, f"{phase}: cached and uncached transforms must agree (rtol 1e-5)")
     # the same model on the first cells: the card against the CPU (plain versions)
     m_cells = K768_SMALL_CELLS
     sub = {k: v[:m_cells] for k, v in obs.items()}
@@ -3317,11 +3433,12 @@ def run_k768_phase(torch, kernels, ALPINE, AnnData, counts, obs):
         m = ALPINE(n_components=K768_BLOCKS[-1], n_covariate_components=list(K768_BLOCKS[:-1]),
                    lam=[1e3, 1e3], device=where, random_state=7)
         t0 = time.perf_counter()
-        m.fit(ad, ["batch", "condition"], max_iter=K768_ITERS)
+        m.fit(ad, ["batch", "condition"], max_iter=iters)
         m.transform(ad, n_iter=TRANSFORM_ITERS)
-        fits[where] = (m.loss_history_, ad.obsm["ALPINE_embedding"], time.perf_counter() - t0)
+        fits[where] = (m.loss_history_, ad.obsm["ALPINE_embedding"], time.perf_counter() - t0,
+                       m.data_dtype_)
         m.free_device_cache()
-    X64 = counts[:m_cells].astype(np.float64)
+    X64 = np.asarray(counts[:m_cells], dtype=np.float64)
     floor = 2e-6 * float(np.sum(np.square(X64)))
     loss_gap = float(np.max(np.abs(fits["cuda"][0] - fits["cpu"][0])
                             - 5e-4 * np.abs(fits["cpu"][0]) - floor))
@@ -3332,9 +3449,12 @@ def run_k768_phase(torch, kernels, ALPINE, AnnData, counts, obs):
                 "small_embedding_allclose": bool(emb_ok),
                 "small_embedding_relative_frobenius": rel,
                 "small_seconds": {w: f[2] for w, f in fits.items()},
+                "small_data_dtype": fits["cuda"][3],
                 "small_tolerance": "loss rtol 5e-4 + 2e-6*|X|^2, embedding rtol 5e-3 atol 1e-5"})
     emit(row)
-    check(loss_gap <= 0 and emb_ok, "slice_k768: the card's fit disagrees with the CPU's")
+    check(fits["cuda"][3] == fits["cpu"][3] == dtype,
+          f"{phase}: the small fits stored X as {fits['cuda'][3]} / {fits['cpu'][3]}")
+    check(loss_gap <= 0 and emb_ok, f"{phase}: the card's fit disagrees with the CPU's")
     return launches
 
 
@@ -4895,6 +5015,8 @@ def main():
         del X
 
     # -- where the fit's device time goes: the fused fit loop alone ----------
+    loop_rows = {}  # each loop's line, by phase
+
     def run_fit_loops(loops, xdtype, blocks=BLOCKS):
         """Each (phase, weighted, als, iterations[, batch size[, tile]]) fit
         loop on device-resident bench data whose X is stored as xdtype
@@ -4962,16 +5084,18 @@ def main():
             copy_us = sum(e.self_device_time_total for e in events
                           if re.search(r"index|gather|scatter", e.key, re.I))
             del Xl, Ysl
-            emit({"phase": phase, "iterations": iters, "x_dtype": str(xdtype)[6:],
-                  "launches": loop_launches[phase], "tile": tile,
-                  "ms_per_iteration": wall * 1e3 / iters,
-                  "gather_scatter_device_ms_per_iteration": copy_us * 1e-3 / iters,
-                  # kernel time over wall time, both of the traced run
-                  "device_busy_share": busy_us * 1e-6 / traced_wall,
-                  "device_ms_per_iteration": busy_us * 1e-3 / iters,
-                  "top_device_kernels_ms_per_iteration": [
-                      [e.key[:60], e.self_device_time_total * 1e-3 / iters]
-                      for e in events[:10]]})
+            loop_rows[phase] = {
+                "phase": phase, "iterations": iters, "x_dtype": str(xdtype)[6:],
+                "launches": loop_launches[phase], "tile": tile,
+                "ms_per_iteration": wall * 1e3 / iters,
+                "gather_scatter_device_ms_per_iteration": copy_us * 1e-3 / iters,
+                # kernel time over wall time, both of the traced run
+                "device_busy_share": busy_us * 1e-6 / traced_wall,
+                "device_ms_per_iteration": busy_us * 1e-3 / iters,
+                "top_device_kernels_ms_per_iteration": [
+                    [e.key[:60], e.self_device_time_total * 1e-3 / iters]
+                    for e in events[:10]]}
+            emit(loop_rows[phase])
         del X, W, H, Ys, Bs, tables
         torch.cuda.empty_cache()
         return loop_launches
@@ -4999,6 +5123,14 @@ def main():
                               K768_BLOCKS)["fit_loop_k768"]
     check(k768_loop["fused_iteration"] == LOOP_ITERS,
           f"fit_loop_k768: {k768_loop['fused_iteration']} K1 launches")
+    # and on int16 X (counts x 3): the chain's fp32 X passes
+    k768_int16_loop = run_fit_loops((("fit_loop_k768_int16", False, False, LOOP_ITERS),),
+                                    torch.int16, K768_BLOCKS)["fit_loop_k768_int16"]
+    check(k768_int16_loop["fused_iteration"] == LOOP_ITERS
+          and k768_int16_loop["wtx_fma_wide"] == LOOP_ITERS
+          and k768_int16_loop["hxt_fma_wide"] >= LOOP_ITERS
+          and k768_int16_loop["hxt_wide"] == k768_int16_loop["wtx_wide"] == 0,
+          f"fit_loop_k768_int16: launches {k768_int16_loop}")
     int16_launches = int16_loops["fit_loop_als_int16"]
     float32_launches = float32_loops["fit_loop_als_float32"]
     for tag, counted in (("int16", int16_launches), ("float32", float32_launches)):
@@ -5269,6 +5401,17 @@ def main():
 
     # -- K = 768 (the JAX package's bucket level): the large-K routes --------
     k768_launches = run_k768_phase(torch, kernels, ALPINE, AnnData, counts, obs)
+    # the same model on counts above 127 (x 5): "auto" stores int16 X, so
+    # K1's chain and P1 take the fp32 X passes hxt_fma_wide / wtx_fma_wide;
+    # the device loop's ms an iteration and ms by kernel are
+    # fit_loop_k768_int16's
+    loop = loop_rows["fit_loop_k768_int16"]
+    k768_int16_launches = run_k768_phase(
+        torch, kernels, ALPINE, AnnData, counts * K768_INT16_SCALE, obs,
+        phase="slice_k768_int16", iters=K768_INT16_ITERS, dtype="int16",
+        extra={"device_loop": {k: loop[k] for k in (
+            "phase", "ms_per_iteration", "device_ms_per_iteration", "device_busy_share",
+            "top_device_kernels_ms_per_iteration")}})
     k768_modes = run_k768_modes_phase(torch, kernels, ALPINE, AnnData, counts, obs)
 
     # -- ComponentOptimizer: a search at the bench shape, then its paths ------
@@ -5383,7 +5526,12 @@ def main():
                 # wtw_gemm's store: once in each K1 (slice_k768), K2 and K4
                 # call (K3's per-step updates are fused_transform's row)
                 f"wtw_gemm K={K768}": k768_launches["wtw_gemm"]
-                + k768_modes["unguided"]["wtw_gemm"] + k768_modes["weighted_fast"]["wtw_gemm"]}
+                + k768_modes["unguided"]["wtw_gemm"] + k768_modes["weighted_fast"]["wtw_gemm"],
+                # int16 X at K = 768 (slice_k768_int16): K1's chain and the
+                # fp32 X passes, P1's first X Hᵀ and the chain's X Hsᵀ and WᵀX
+                "fused_iteration wide int16": k768_int16_launches["fused_iteration"],
+                f"hxt fma_wide K={K768} int16": k768_int16_launches["hxt_fma_wide"],
+                f"wtx fma_wide K={K768} int16": k768_int16_launches["wtx_fma_wide"]}
     for kname in SHARE_ROW_SOURCE:
         results[kname] = share_rows[SHARE_ROW_SOURCE[kname]]
     results["wtx global shard loss"] = twin_rows[("wtx", "world-2 shard")]
@@ -5394,6 +5542,9 @@ def main():
     for kname in grid_opt_launches:
         if kname.startswith(("fused_iteration", "fused_transform")):
             results[kname] = results[kname.replace(" grid", "")]
+    for kname in ("fused_iteration wide int16", f"hxt fma_wide K={K768} int16",
+                  f"wtx fma_wide K={K768} int16"):
+        check(launches[kname] > 0, f"{kname}: no launch on slice_k768_int16's path")
     rows = []
     for kname in ("fused_iteration", "fused_iteration_counts", "fused_h_update",
                   "fused_iteration float32", "fused_iteration int16",

@@ -55,7 +55,13 @@ A run times, at the bench shape (100k cells x 2,000 genes, K = 40, labels
   bit (``wide_bits_equal_by_kernel``); K3's per-step path at K = 768, 50
   steps, median CUDA-event ms of 3 warm launches
   (``fused_transform_k768_ms``) beside 50 fp32 ``torch.matmul(WtW2, H)``
-  with TF32 off (``fused_transform_k768_library_ms``).
+  with TF32 off (``fused_transform_k768_library_ms``); on float32 X (the
+  counts plus a uniform fraction) and int16 X (the counts times 3) P1, P2
+  and K1 at K = 768 (``hxt_k768_float32_ms``, ...), median CUDA-event ms of
+  5 warm launches, beside fp32 ``torch.matmul`` of P1's and P2's products
+  with TF32 off (``hxt_k768_float32_library_ms``, ...), and their worst
+  error over the plain versions' tolerance
+  (``fp32_wide_k768_worst_err_over_tolerance``).
 
 Prints one JSON line per run, then one summary line with the mean of each
 checkout's two runs, whether all four runs agree bit for bit on the
@@ -363,6 +369,34 @@ def child(root, save_path):
         lambda: [torch.matmul(WtW2w, Hw) for _ in range(TRANSFORM_ITERS)], reps=3)
     torch.backends.cuda.matmul.allow_tf32 = tf32
     del k3w, num2w, WtW2w
+    # K = 768 on float32 and int16 X (counts x 3): P1, P2 and K1 on the fp32
+    # large-K passes, beside fp32 torch.matmul (TF32 off) of P1's and P2's
+    # products; their bits follow the passes' design, so only the times and
+    # the worst error over the plain versions' tolerance are kept
+    fp32_wide_worst = 0.0
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for xname, Xw in (("float32", X.float() + torch.rand(X.shape, generator=gen, device=dev)),
+                      ("int16", X.to(torch.int16) * 3)):
+        Yw = [y.to(Xw.dtype) for y in Ys]
+        fp32_wide = {
+            "hxt": (lambda: kernels.hxt(Xw, Hw), lambda: kernels.hxt_plain(Xw, Hw)),
+            "wtx": (lambda: kernels.wtx(Xw, Ww), lambda: kernels.wtx_plain(Xw, Ww)),
+            "fused_iteration": (
+                lambda: kernels.fused_iteration(Xw, Ww, Hw, WtWw, Yw, Bw, lam, EPS, blocks=BW,
+                                                loss_kl=True),
+                lambda: kernels.fused_iteration_plain(Xw, Ww, Hw, WtWw, Yw, Bw, lam, EPS,
+                                                      blocks=BW, loss_kl=True))}
+        for name, (fn, plain) in fp32_wide.items():
+            for a, b in zip(flat(fn()), flat(plain())):
+                allowed = 1e-6 * float(b.abs().max()) + 1e-4 * b.abs()
+                fp32_wide_worst = max(fp32_wide_worst, float(((a - b).abs() / allowed).max()))
+            wide_ms[f"{name}_k768_{xname}_ms"] = time_ms(fn, reps=5)
+        Xf = Xw.float()
+        wide_ms[f"hxt_k768_{xname}_library_ms"] = time_ms(lambda: torch.matmul(Hw, Xf.T), reps=5)
+        wide_ms[f"wtx_k768_{xname}_library_ms"] = time_ms(lambda: torch.matmul(Ww.T, Xf), reps=5)
+        del Xw, Xf, Yw, fp32_wide
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    wide_ms["fp32_wide_k768_worst_err_over_tolerance"] = fp32_wide_worst
     del Ww, Hw, WtWw, Bw, wide
     torch.cuda.empty_cache()
     print(json.dumps({"root": root, "fused_iteration_ms": k1,

@@ -165,7 +165,8 @@ def test_x_pass_wrappers_check_inputs():
 
 def test_wtx_tile_rule():
     """wtx's fp32 path takes wtx_fma_grid's tile (12 cells a thread, 32 / LK
-    threads along the cells), its bf16 path wtx_grid's: all of K in one
+    threads along the cells; above 512 wtx_fma_wide_grid's 128-cell tiles),
+    its bf16 path wtx_grid's: all of K in one
     pass (at most 6 fragment rows a warp, 48 accumulators a thread) for
     every K up to 512, T a multiple of 16; above 512, wtx_wide_grid's
     128-cell tiles of 256 rows of K (a warpgroup's 64 cells x 256 rows: 128
@@ -173,6 +174,10 @@ def test_wtx_tile_rule():
     (tests/torch_k_samples.py)."""
     for K in COVER_KS:
         for xdt in (torch.float32, torch.int16):
+            if K > 512:  # wtx_fma_wide's 128-cell tiles of 128 rows of K
+                T, _, _, blocks = kernels.wtx_fma_wide_grid(2000, 100_000, K, xdt)
+                assert T == 128 and blocks == -(-K // 128) * -(-100_000 // T)
+                continue
             T, LK, _, _, blocks = kernels.wtx_fma_grid(2000, 100_000, K, xdt)
             assert T == 12 * 32 // LK and blocks == -(-100_000 // T)
         if K > 512:
@@ -183,8 +188,7 @@ def test_wtx_tile_rule():
             assert ranges == 1
             continue
         T, WR, GC, S, blocks = kernels.wtx_grid(2000, 100_000, K, torch.int8)
-        KR = kernels.k_ranges(K)[1]
-        frags = -(-(kernels._pad16(KR) // 16) // WR)  # fragment rows a warp
+        frags = -(-(kernels._pad16(K) // 16) // WR)  # fragment rows a warp
         cells = T // (8 // WR)  # cells a warp
         assert T % 16 == 0 and cells % 16 == 0 and frags <= 6
         assert frags * cells // 2 <= 48  # 8 accumulators a 16 x 16 fragment

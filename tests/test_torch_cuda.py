@@ -1056,9 +1056,9 @@ def test_wide_chain_many_labels_cuda_matches_plain(cuda, dtype):
 @pytest.mark.parametrize("dtype,K,n", WIDE_CASES)
 def test_wide_x_passes_cuda_match_plain(cuda, dtype, K, n):
     """P1 and P2 at K > 512 (int8/bf16 X: the wgmma kernels hxt_wide and
-    wtx_wide; float32/int16 X: over ranges of at most 512 rows of K)
-    against their plain versions; X off 16-byte alignment gives the same
-    bits."""
+    wtx_wide; float32/int16 X: the FP32 tiles hxt_fma_wide and
+    wtx_fma_wide) against their plain versions; X off 16-byte alignment
+    gives the same bits."""
     X, W, H = _x_pass_problem(K + n, 70, n, K, dtype, cuda)
     got_h, got_w = kernels.hxt(X, H), kernels.wtx(X, W)
     moved_h = kernels.hxt(_unaligned(X), _unaligned(H))
@@ -1099,6 +1099,42 @@ def test_wide_passes_cuda_match_plain(cuda, dtype, K, n):
         Xp[:, :n] = X
         assert kernels.wtx_wide_grid(300, n, K, X.dtype) == kernels.wtx_wide_grid(
             300, 66_672, K, X.dtype)
+        assert torch.equal(kernels.wtx(Xp, W)[:, :n], got_w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "int16"])
+@pytest.mark.parametrize("K", [513, 768, 1024, 2048])
+@pytest.mark.parametrize("n", [17, 1001, 5040, 66_667])
+def test_fma_wide_passes_cuda_match_plain(cuda, dtype, K, n):
+    """hxt_fma_wide and wtx_fma_wide (P1/P2 above K = 512 on float32/int16
+    X) against their plain versions (rtol 1e-4 / atol 1e-5) over 300
+    genes: a second launch bit for bit the first, one launch of each kernel
+    a call, and the same values off 16-byte alignment (X, H and W one
+    element into their buffers: int16 rows at a 2-byte offset) the same
+    bits; 17, 1,001 and 66,667 cells take the 4-byte copies.  At 66,667
+    cells the 66,672-cell copy padded with zeros has the same grids, so its
+    outputs (P2: of the first 66,667 cells) are the same bits."""
+    X, W, H = _x_pass_problem(K + n, 300, n, K, dtype, cuda)
+    before = dict(kernels.launches)
+    got_h, got_w = kernels.hxt(X, H), kernels.wtx(X, W)
+    again_h, again_w = kernels.hxt(X, H), kernels.wtx(X, W)
+    torch.cuda.synchronize()
+    assert kernels.launches["hxt_fma_wide"] == before["hxt_fma_wide"] + 2
+    assert kernels.launches["wtx_fma_wide"] == before["wtx_fma_wide"] + 2
+    assert torch.equal(got_h, again_h) and torch.equal(got_w, again_w)
+    _close(got_h, kernels.hxt_plain(X, H), 1e-4, 1e-5)
+    _close(got_w, kernels.wtx_plain(X, W), 1e-4, 1e-5)
+    assert torch.equal(kernels.hxt(_unaligned(X), _unaligned(H)), got_h)
+    assert torch.equal(kernels.wtx(_unaligned(X), _unaligned(W)), got_w)
+    if n == 66_667:
+        Xp = torch.zeros((300, 66_672), dtype=X.dtype, device=cuda)
+        Xp[:, :n] = X
+        Hp = torch.zeros((K, 66_672), device=cuda)
+        Hp[:, :n] = H
+        assert kernels.hxt_fma_wide_grid(300, n, K, X.dtype) == kernels.hxt_fma_wide_grid(
+            300, 66_672, K, X.dtype)
+        assert torch.equal(kernels.hxt(Xp, Hp), got_h)
         assert torch.equal(kernels.wtx(Xp, W)[:, :n], got_w)
 
 

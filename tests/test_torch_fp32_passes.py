@@ -5,8 +5,8 @@
 The CUDA kernels (csrc/x_passes.cu: hxt_fma, wtx_fma) run only on the card;
 these tests hold what they are given: every gene and cell covered once,
 shared memory within a Hopper block's limit and accumulators within the
-register budget for every K in 1..512 (and a sample of the large-K route's
-ranges of K up to 2048), the bench shape's grids pinned, and a
+register budget for every K in 1..512 (above, tests/test_torch_fma_wide.py
+holds the large-K kernels), the bench shape's grids pinned, and a
 PyTorch emulation of each kernel's summation order (micro-tiles, the warps'
 split of each chunk's cells or genes added in warp order, partials in split
 order) equal to ``hxt_plain`` / ``wtx_plain`` at rtol 1e-5 (fp32 sums of
@@ -22,7 +22,8 @@ from alpine_tpu_torch.ops import kernels
 from tests.torch_k_samples import COVER_KS
 
 FP32 = {"float32": torch.float32, "int16": torch.int16}
-KS = (1, 5, 13, 30, 40, 64, 65, 300, 512, 600, 768, 2048)
+KS = (1, 5, 13, 30, 40, 64, 65, 300, 512)
+TILE_KS = [K for K in COVER_KS if K <= 512]
 SHAPES = [(2000, 100_000), (70, 17), (300, 50_001), (300, 50_016), (20_000, 1001),
           (1, 64)]
 HALF_SM = min(kernels._MAX_SMEM, kernels._SM_SMEM // 2 - 1024)
@@ -65,34 +66,26 @@ def test_hxt_fma_grid_fits_shared_memory_and_registers(dtype):
     most 8 x 8 accumulators a thread, 8 warps = Q x WK x WG, shared memory
     within a Hopper block's limit with 64-cell chunks where two stages fit
     half an SM and the most stages that fit, two blocks an SM up to some K
-    and one above it, and a wide grid within one wave on 132 SMs.  Above
-    K = 512 the same for each range of KR <= 512 rows (a grid layer)."""
+    and one above it, and a wide grid within one wave on 132 SMs."""
     xdt = FP32[dtype]
     two_per_sm = []
-    for K in COVER_KS:
+    for K in TILE_KS:
         GB, n_split, cps, S, chunk = kernels.hxt_fma_grid(2000, 100_000, K, xdt)
-        R, KR = kernels.k_ranges(K)
-        WK, MK = kernels.hxt_fma_rows(KR)
+        WK, MK = kernels.hxt_fma_rows(K)
         WG = GB // 32
-        assert 8 * WK * MK >= KR and 8 * MK <= 64 and (MK <= 7 or WK == 8)
-        assert WK == 1 or -(-KR // (4 * WK)) > 7  # the fewest warp rows
+        assert 8 * WK * MK >= K and 8 * MK <= 64 and (MK <= 7 or WK == 8)
+        assert WK == 1 or -(-K // (4 * WK)) > 7  # the fewest warp rows
         assert 8 % (WK * WG) == 0 and WG == min(4, 8 // WK)
-        smem = kernels.hxt_fma_smem_bytes(KR, GB, S, xdt, chunk)
+        smem = kernels.hxt_fma_smem_bytes(K, GB, S, xdt, chunk)
         assert smem <= kernels._MAX_SMEM
-        if K % KR:  # the last range's launch, on its own layout
-            WKl, _ = kernels.hxt_fma_rows(K % KR)
-            assert 8 % (WKl * WG) == 0
-            assert kernels.hxt_fma_smem_bytes(K % KR, GB, S, xdt, chunk) <= kernels._MAX_SMEM
         per_sm = 2 if smem <= HALF_SM and MK <= 7 else 1
-        if K <= 512:
-            two_per_sm.append(per_sm == 2)
+        two_per_sm.append(per_sm == 2)
         budget = min(kernels._MAX_SMEM, kernels._SM_SMEM // per_sm - 1024)
         if per_sm == 2:  # the wider chunk where two of its stages fit
-            assert chunk == 64 or kernels.hxt_fma_smem_bytes(KR, GB, 2, xdt, 64) > HALF_SM
-            assert S == 8 or kernels.hxt_fma_smem_bytes(KR, GB, S + 1, xdt, chunk) > budget
-        # one wave, or (above 512) the splits of at most 16,384 cells
-        assert (-(-2000 // GB) * n_split * R <= max(-(-2000 // GB) * R, 132 * per_sm)
-                or (R > 1 and n_split <= -(-100_000 // kernels._WIDE_SPLIT_CELLS)))
+            assert chunk == 64 or kernels.hxt_fma_smem_bytes(K, GB, 2, xdt, 64) > HALF_SM
+            assert S == 8 or kernels.hxt_fma_smem_bytes(K, GB, S + 1, xdt, chunk) > budget
+        # one wave
+        assert -(-2000 // GB) * n_split <= max(-(-2000 // GB), 132 * per_sm)
     first_one = two_per_sm.index(False)
     assert first_one > 128 and not any(two_per_sm[first_one:])
 
@@ -111,18 +104,16 @@ def test_hxt_fma_grid_at_the_bench_shape():
 
 
 def test_hxt_fma_grid_rejects_what_the_kernel_does_not_take():
-    """int8/bf16 X and K = 0 raise; K = 513 .. 2048 take the large-K route's
-    grid, the K <= 512 rule's at each range's KR."""
+    """int8/bf16 X and K = 0 raise; K = 513 .. 2048 raise, naming the
+    large-K kernel's rule (``hxt_fma_wide_grid``)."""
     for xdt in (torch.int8, torch.bfloat16):
         with pytest.raises(ValueError, match="float32 and int16"):
             kernels.hxt_fma_grid(100, 100, 8, xdt)
     with pytest.raises(ValueError, match="K=0"):
         kernels.hxt_fma_grid(100, 100, 0, torch.float32)
     for K in (513, 600, 768, 1024, 1025, 2048):
-        R, KR = kernels.k_ranges(K)
-        GB, n_split, cps, S, chunk = kernels.hxt_fma_grid(100, 100, K, torch.float32)
-        assert R >= 2 and GB == 32 * min(4, 8 // kernels.hxt_fma_rows(KR)[0])
-        assert kernels.hxt_fma_smem_bytes(KR, GB, S, torch.float32, chunk) <= kernels._MAX_SMEM
+        with pytest.raises(ValueError, match="hxt_fma_wide_grid"):
+            kernels.hxt_fma_grid(100, 100, K, torch.float32)
 
 
 def _emulate_hxt(X, H, K):
@@ -132,20 +123,17 @@ def _emulate_hxt(X, H, K):
     partial, and the partials in split order."""
     g, n = X.shape
     GB, n_split, cps, _, CW = kernels.hxt_fma_grid(g, n, K, X.dtype)
-    KR = kernels.k_ranges(K)[1]
+    WK, _ = kernels.hxt_fma_rows(K)
+    Q = 8 // (WK * (GB // 32))
     Xf = X.float()
     out = torch.zeros((K, g), dtype=torch.float32)
     for s in range(n_split):
         cells = torch.arange(s * cps, min(n, (s + 1) * cps))
         part = torch.zeros((K, g), dtype=torch.float32)
-        for k0 in range(0, K, KR):  # a launch a range of K, each on its own layout
-            rows = slice(k0, min(K, k0 + KR))
-            WK, _ = kernels.hxt_fma_rows(rows.stop - k0)
-            Q = 8 // (WK * (GB // 32))
-            for q in range(Q):
-                mine = cells[(cells % CW) // (CW // Q) == q]
-                for g0 in range(0, g, GB):
-                    part[rows, g0:g0 + GB] += H[rows][:, mine] @ Xf[g0:g0 + GB, mine].T
+        for q in range(Q):
+            mine = cells[(cells % CW) // (CW // Q) == q]
+            for g0 in range(0, g, GB):
+                part[:, g0:g0 + GB] += H[:, mine] @ Xf[g0:g0 + GB, mine].T
         out += part
     return out
 
@@ -189,22 +177,20 @@ def test_wtx_fma_grid_fits_shared_memory_and_registers(dtype):
     """For every K the kernel takes: all of K in one pass (LK lanes x MK
     rows x WK warp rows reach K, MK <= 6), 12 x MK <= 72 accumulators a
     thread, the fewest lanes along K, two blocks an SM where two stages fit
-    half an SM (else one), with the most stages that fit.  Above K = 512 the
-    same for each range of KR <= 512 columns of W (a grid layer)."""
+    half an SM (else one), with the most stages that fit."""
     xdt = FP32[dtype]
-    for K in COVER_KS:
+    for K in TILE_KS:
         T, LK, GC, S, blocks = kernels.wtx_fma_grid(2000, 100_000, K, xdt)
-        KR = kernels.k_ranges(K)[1]
-        WK, MK = kernels.wtx_fma_rows(KR, LK)
-        assert WK * LK * MK >= KR and MK <= 6 and 12 * MK <= 72
-        assert LK == 1 or KR > 8 * (LK // 2) * 6  # the fewest lanes along K
+        WK, MK = kernels.wtx_fma_rows(K, LK)
+        assert WK * LK * MK >= K and MK <= 6 and 12 * MK <= 72
+        assert LK == 1 or K > 8 * (LK // 2) * 6  # the fewest lanes along K
         assert 8 % WK == 0 and blocks == -(-100_000 // T)
-        smem = kernels.wtx_fma_smem_bytes(KR, LK, S, xdt)
+        smem = kernels.wtx_fma_smem_bytes(K, LK, S, xdt)
         assert smem <= kernels._MAX_SMEM
         if smem > HALF_SM:  # one block an SM only where two stages pass half an SM
-            assert kernels.wtx_fma_smem_bytes(KR, LK, 2, xdt) > HALF_SM
+            assert kernels.wtx_fma_smem_bytes(K, LK, 2, xdt) > HALF_SM
         budget = HALF_SM if smem <= HALF_SM else kernels._MAX_SMEM
-        assert S == 8 or kernels.wtx_fma_smem_bytes(KR, LK, S + 1, xdt) > budget
+        assert S == 8 or kernels.wtx_fma_smem_bytes(K, LK, S + 1, xdt) > budget
 
 
 def test_wtx_fma_grid_at_the_bench_shape():
@@ -221,19 +207,16 @@ def test_wtx_fma_grid_at_the_bench_shape():
 
 
 def test_wtx_fma_grid_rejects_what_the_kernel_does_not_take():
-    """int8/bf16 X and K = 0 raise; K = 513 .. 2048 take the large-K route's
-    grid, the K <= 512 rule's at each range's KR."""
+    """int8/bf16 X and K = 0 raise; K = 513 .. 2048 raise, naming the
+    large-K kernel's rule (``wtx_fma_wide_grid``)."""
     for xdt in (torch.int8, torch.bfloat16):
         with pytest.raises(ValueError, match="float32 and int16"):
             kernels.wtx_fma_grid(100, 100, 8, xdt)
     with pytest.raises(ValueError, match="K=0"):
         kernels.wtx_fma_grid(100, 100, 0, torch.float32)
     for K in (513, 600, 768, 1024, 1025, 2048):
-        R, KR = kernels.k_ranges(K)
-        T, LK, GC, S, blocks = kernels.wtx_fma_grid(100, 100, K, torch.float32)
-        assert R >= 2 and (T, LK, GC, S, blocks) == kernels.wtx_fma_grid(100, 100, KR,
-                                                                          torch.float32)
-        assert kernels.wtx_fma_smem_bytes(KR, LK, S, torch.float32) <= kernels._MAX_SMEM
+        with pytest.raises(ValueError, match="wtx_fma_wide_grid"):
+            kernels.wtx_fma_grid(100, 100, K, torch.float32)
 
 
 def _emulate_wtx(X, W, K):
@@ -242,7 +225,7 @@ def _emulate_wtx(X, W, K):
     genes, and the Q tiles are added in q order."""
     g, n = X.shape
     T, LK, GC, _, blocks = kernels.wtx_fma_grid(g, n, K, X.dtype)
-    WK, _ = kernels.wtx_fma_rows(kernels.k_ranges(K)[1], LK)  # every range's layout
+    WK, _ = kernels.wtx_fma_rows(K, LK)
     Q = 8 // WK
     genes = torch.arange(g)
     Xf = X.float()

@@ -89,19 +89,17 @@ def test_hxt_grid_fits_shared_memory_and_fragments(dtype):
             assert (n_split - 1) * cps < 100_000 <= n_split * cps
             continue
         GB, n_split, cps, S, chunk = kernels.hxt_grid(2000, 100_000, K, xdt)
-        R, KR = kernels.k_ranges(K)
-        assert (R, KR) == (1, K)
-        frags = (kernels._pad16(KR) // 16) * (GB // 16)
+        frags = (kernels._pad16(K) // 16) * (GB // 16)
         assert frags <= 32 and 8 % (GB // 16) == 0
-        smem = kernels.hxt_smem_bytes(KR, GB, S, xdt, chunk)
+        smem = kernels.hxt_smem_bytes(K, GB, S, xdt, chunk)
         assert smem <= kernels._MAX_SMEM
         per_sm = 2 if smem <= kernels._SM_SMEM // 2 - 1024 else 1
         two_per_sm.append(per_sm == 2)
         # the most stages that fit: one more would pass the budget or 8
         budget = min(kernels._MAX_SMEM, kernels._SM_SMEM // per_sm - 1024)
-        assert S == 8 or kernels.hxt_smem_bytes(KR, GB, S + 1, xdt, chunk) > budget
+        assert S == 8 or kernels.hxt_smem_bytes(K, GB, S + 1, xdt, chunk) > budget
         if chunk != 128:  # the wider chunk does not fit the same budget
-            assert kernels.hxt_smem_bytes(KR, GB, 2, xdt, 128) > budget
+            assert kernels.hxt_smem_bytes(K, GB, 2, xdt, 128) > budget
         # one wave
         assert -(-2000 // GB) * n_split <= max(-(-2000 // GB), 132 * per_sm)
     # two blocks an SM from K = 1 up to some K, one above it
@@ -146,8 +144,6 @@ def test_hxt_grid_rejects_what_the_kernel_does_not_take():
         kernels.hxt_wide_grid(100, 100, 512, torch.int8)
     for K in (513, 600, 768, 1024, 1025, 2048):
         assert kernels.route(K) == "wide"
-        R, KR = kernels.k_ranges(K)
-        assert R == -(-K // 512) and KR <= 512 and KR % 16 == 0
         with pytest.raises(ValueError, match="hxt_wide_grid"):
             kernels.hxt_grid(100, 100, K, torch.int8)
         CL, n_split, cps, S = kernels.hxt_wide_grid(100, 100, K, torch.int8)

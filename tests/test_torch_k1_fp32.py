@@ -85,7 +85,7 @@ def test_wide_iteration_grid_covers_each_cell_and_gene_once(dtype, g, n):
     runs of 128-cell tiles, P2's tiles and P1's gene blocks and splits cover
     their axes once, X's passes take P1/P2's own large-K grids at the same
     K (X's dtype picks the wgmma kernels hxt_wide / wtx_wide or the fp32
-    kernels over K's ranges), H Hᵀ takes gram_wide's splits
+    kernels hxt_fma_wide / wtx_fma_wide), H Hᵀ takes gram_wide's splits
     (``gram_wide_grid``), and every launch fits a Hopper block."""
     xdt = {"float32": torch.float32, "int16": torch.int16, "int8": torch.int8,
            "bfloat16": torch.bfloat16}[dtype]
@@ -97,7 +97,6 @@ def test_wide_iteration_grid_covers_each_cell_and_gene_once(dtype, g, n):
         assert grid.n_part <= kernels._WIDE_PART_BLOCKS
         run = grid.T * grid.tiles_per_block
         assert _covered_once(n, range(0, grid.n_part * run, run), run)
-        assert grid.KR == kernels.k_ranges(K)[1]
         assert _covered_once(n, range(0, n, grid.wtx_T), grid.wtx_T)
         # P1's gene block: hxt_wide's 128-gene tile (GB carries its cluster
         # size on that path), hxt_fma's GB genes
@@ -112,24 +111,23 @@ def test_wide_iteration_grid_covers_each_cell_and_gene_once(dtype, g, n):
         if mma:  # (tile, cluster, stage, stages, ranges, genes a range) and
             # (cluster, splits, cells a split, stages, stage) of the wgmma kernels
             CL, ranges, range_genes, S = kernels.wtx_wide_grid(g, n, K, xdt)
-            assert grid[4:10] == (kernels._WIDE_BM, CL, kernels._WIDE_BK, S, ranges,
-                                  range_genes)
+            assert grid[3:9] == (kernels._WIDE_BM, CL, kernels._WIDE_BK, S, ranges,
+                                 range_genes)
             CL, n_split, cps, S = kernels.hxt_wide_grid(g, n, K, xdt)
-            assert grid[10:15] == (CL, n_split, cps, S, kernels._WIDE_BK)
-        else:
-            assert grid[4:8] == kernels.wtx_fma_grid(g, n, K, xdt)[:4]
-            assert grid[8:10] == (1, g)
-            assert grid[10:15] == kernels.hxt_fma_grid(g, n, K, xdt)
-        assert grid[15:] == kernels.gram_wide_grid(n, K)
-        KR = grid.KR
+            assert grid[9:14] == (CL, n_split, cps, S, kernels._WIDE_BK)
+        else:  # (tile, no cluster, chunk, stages, one range, all genes) and
+            # (gene tile, splits, cells a split, stages, chunk) of the fp32 kernels
+            T, chunk, S, _ = kernels.wtx_fma_wide_grid(g, n, K, xdt)
+            assert grid[3:9] == (T, 1, chunk, S, 1, g)
+            assert grid[9:14] == (kernels.wtw_design()["tile"][1],
+                                  *kernels.hxt_fma_wide_grid(g, n, K, xdt), S, chunk)
+        assert grid[14:] == kernels.gram_wide_grid(n, K)
         if mma:
             assert kernels.x_wide_smem_bytes("wtx", grid.wtx_S, xdt) <= kernels._MAX_SMEM
             assert kernels.x_wide_smem_bytes("hxt", grid.S, xdt) <= kernels._MAX_SMEM
         else:
-            assert kernels.wtx_fma_smem_bytes(KR, grid.wtx_WR, grid.wtx_S,
-                                              xdt) <= kernels._MAX_SMEM
-            assert kernels.hxt_fma_smem_bytes(KR, grid.GB, grid.S, xdt,
-                                              grid.chunk) <= kernels._MAX_SMEM
+            assert kernels.fma_wide_smem_bytes("wtx", xdt) <= kernels._MAX_SMEM
+            assert kernels.fma_wide_smem_bytes("hxt", xdt) <= kernels._MAX_SMEM
     with pytest.raises(ValueError, match="K > 512"):
         kernels.wide_iteration_grid(g, n, 512, xdt)
 

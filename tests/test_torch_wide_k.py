@@ -2,8 +2,9 @@
 
 On the card every kernel of the fit and transform path takes any K by a
 rule by K (``kernels.route``): P1/P2 as the wgmma kernels hxt_wide and
-wtx_wide on int8/bf16 X (csrc/x_passes_wide.cuh) and over ranges of at
-most 512 rows of K on float32/int16 X, K1/K2/K4 as the chain of
+wtx_wide on int8/bf16 X (csrc/x_passes_wide.cuh) and as hxt_fma_wide
+and wtx_fma_wide on float32/int16 X (csrc/fma_wide.cuh), K1/K2/K4 as the
+chain of
 ``kernels.wide_iteration_grid`` (WᵀX by P2's large-K kernel, D = WᵀW H by
 csrc/wtw_gemm.cuh, iter_wide's H update, Q and loss rows over 128-cell
 tiles, X Hsᵀ by P1's large-K kernel, H Hᵀ, HHtU, rowsum and Bnum by
@@ -35,8 +36,8 @@ from alpine_tpu_torch.convert import fitted_from_numpy
 from alpine_tpu_torch.ops import kernels
 from alpine_tpu_torch.ops.mu import guided_width
 
-from .test_torch_fp32_passes import _emulate_hxt as _emulate_hxt_fp32
-from .test_torch_fp32_passes import _emulate_wtx as _emulate_wtx_fp32
+from .test_torch_fma_wide import emulate_hxt_fma_wide as _emulate_hxt_fp32
+from .test_torch_fma_wide import emulate_wtx_fma_wide as _emulate_wtx_fp32
 from .test_torch_gram_wide import emulate_gram
 from .test_torch_hxt import _emulate_hxt as _emulate_hxt_bf16
 from .test_torch_kernels import _both, _close, _problem, _t
@@ -146,13 +147,13 @@ def test_fused_transform_plain_matches_pallas_at_wide_k(K):
 
 def _emulate_wide(X, W, H, WtW, Ys, Bs, lam, C, blocks, loss_kl):
     """fused_iteration's large-K chain in PyTorch: WᵀX in P2's large-K order
-    (wtx_wide's on int8/bf16 X, wtx_fma's over its K ranges on
-    float32/int16: tests/test_torch_wide_passes.py, test_torch_fp32_passes.py),
+    (wtx_wide's on int8/bf16 X, wtx_fma_wide's on float32/int16:
+    tests/test_torch_wide_passes.py, test_torch_fma_wide.py),
     D = WᵀW H, the H update and
     guided terms elementwise as iter_wide forms them, iter_wide's per-block
     partials (each block's 128-cell tiles in order: the prediction-loss rows
     and the loss dot), added in block order; X Hsᵀ in P1's large-K order
-    (hxt_wide's splits, or hxt_fma's); H Hᵀ = Hs Hnᵀ, HHtU, rowsum and
+    (hxt_wide's splits, or hxt_fma_wide's); H Hᵀ = Hs Hnᵀ, HHtU, rowsum and
     Bnum = Q Hsᵀ in gram_wide's (its splits' upper-triangle tiles and extra
     columns, mirrored: ``emulate_gram``).  Returns the outputs of
     ``fused_iteration`` (``fused_h_update`` without covariates)."""
@@ -160,7 +161,7 @@ def _emulate_wide(X, W, H, WtW, Ys, Bs, lam, C, blocks, loss_kl):
     K = H.shape[0]
     mma = X.dtype in kernels._MMA_XTYPES
     grid = kernels.wide_iteration_grid(g, n, K, X.dtype)
-    WtX = (_emulate_wtx_bf16 if mma else _emulate_wtx_fp32)(X, W, K)
+    WtX = _emulate_wtx_bf16(X, W, K) if mma else _emulate_wtx_fp32(X, W)
     num, den = 2.0 * WtX, 2.0 * (WtW @ H)
     Kg = guided_width(blocks) if Ys else 0
     if Ys:
@@ -198,7 +199,7 @@ def _emulate_wide(X, W, H, WtW, Ys, Bs, lam, C, blocks, loss_kl):
             part[:L] += torch.sum(E[:, cells], dim=1)
             part[-1] += torch.sum(WtX[:, cells] * Hn[:, cells])
         small += part
-    XHt = (_emulate_hxt_bf16 if mma else _emulate_hxt_fp32)(X, Hs, K).T
+    XHt = (_emulate_hxt_bf16(X, Hs, K) if mma else _emulate_hxt_fp32(X, Hs)).T
     HHt, HHtU, rowsum, bnum = emulate_gram(Hn, None if C is None else C[1], Q if Ys else None)
     if not Ys:
         return Hn, XHt, HHt, small[-1]
@@ -250,9 +251,9 @@ def test_wide_chain_emulation_matches_plain(dtype, K, n, counts, loss_kl):
     rtol 1e-5, undrawn columns of H bit for bit; XHt against the plain
     product over the emulation's own Hs (an Hn one ulp off can round Hs to
     another bf16 value on int8/bf16 X).  K = 1030 takes, on float32/int16
-    X, three ranges of 352 rows, the last of 326 on its own layout, and on
-    int8/bf16 X five 256-row tiles of K, the last of 6 rows; gram_wide's
-    last row tile has 6 rows there and 1 at K = 513.  HHt (and HHtU) come
+    X, nine 128-row tiles of K, the last of 6 rows, and on int8/bf16 X
+    five 256-row tiles of K, the last of 6 rows; gram_wide's last row tile
+    has 6 rows there and 1 at K = 513.  HHt (and HHtU) come
     out exactly symmetric."""
     X, W, H, WtW, Ys, Bs, lam, C, blocks = _wide_problem(K + n, n, K, dtype, counts)
     want = list(kernels.fused_iteration_plain(X, W, H, WtW, Ys, Bs, lam, EPS, C,

@@ -56,7 +56,7 @@ def test_wtx_grid_fits_shared_memory_and_accumulators(dtype):
     SM's shared memory (two blocks an SM): 64 genes a stage where two such
     stages fit, else 32, with the most stages that fit (each X row with
     room for the aligned window of a row off 16-byte alignment).  Above
-    K = 512 each launch layer is a range of KR <= 512 columns of W."""
+    K = 512 the wide kernel: one block an SM, the most stages that fit."""
     xdt = MMA[dtype]
     budget = min(kernels._MAX_SMEM, kernels._SM_SMEM // 2 - 1024)
     for n in (100_000, 5040):
@@ -71,15 +71,14 @@ def test_wtx_grid_fits_shared_memory_and_accumulators(dtype):
                 assert S == 8 or kernels.x_wide_smem_bytes("wtx", S + 1, xdt) > kernels._MAX_SMEM
                 continue
             T, WR, GC, S, blocks = kernels.wtx_grid(2000, n, K, xdt)
-            KR = kernels.k_ranges(K)[1]
-            rows = kernels._pad16(KR) // 16
+            rows = kernels._pad16(K) // 16
             frags = -(-rows // WR)
             assert frags <= 6 and WR <= rows
             assert frags * (T // (8 // WR) // 16) * 8 <= 48
-            smem = kernels.wtx_smem_bytes(KR, T, S, xdt, GC)
+            smem = kernels.wtx_smem_bytes(K, T, S, xdt, GC)
             assert smem <= budget <= kernels._MAX_SMEM
-            assert S == 8 or kernels.wtx_smem_bytes(KR, T, S + 1, xdt, GC) > budget
-            assert GC == 64 or kernels.wtx_smem_bytes(KR, T, 2, xdt, 64) > budget
+            assert S == 8 or kernels.wtx_smem_bytes(K, T, S + 1, xdt, GC) > budget
+            assert GC == 64 or kernels.wtx_smem_bytes(K, T, 2, xdt, 64) > budget
 
 
 def test_wtx_grid_at_the_bench_shape():
