@@ -1,17 +1,17 @@
-// The fp32 X passes (float32 and int16 X), shared by two libraries:
+// The fp32 X passes (float32 and int16 X):
 //   hxt_fma: part[split][k][gi] = sum over a split's cells c of H[k][c] X[gi][c];
 //   wtx_fma: out[k][c] = sum over genes gi of W[gi][k] X[gi][c].
-// x_passes.cu runs them as ALS's P1 and P2 (hxt, wtx); fused_iteration.cu
-// runs them as the two X products of its float32/int16 path (K1, K2, K4).
+// x_passes.cu runs them as ALS's P1 and P2 (hxt, wtx) and as the two X
+// products of K1/K2/K4's chain on float32/int16 X at K <= 512.
 // Grids: ops/kernels.py:hxt_fma_grid, wtx_fma_grid.  K <= 512: a thread's
 // rows hold all of K; above, fma_wide.cuh's kernels take both passes.
 //
 // Bound on the H100: X's bytes and the fp32 FMA rate alike (float32 X at
 // 100k cells x 2000 genes, K = 40: 816 MB, 16 GFLOP a pass).
 //
-// Also here: the row-alignment test of both sources (the cp.async helpers
-// of every ring are in common.cuh) and reduce_partials, the last launch of
-// fused_iteration.cu's chain and of x_passes.cu's large-K one.
+// Also here: the row-alignment test (the cp.async helpers of every ring are
+// in common.cuh) and reduce_partials, the last launch of x_passes.cu's
+// K1/K2/K4 chain.
 #pragma once
 
 #include "common.cuh"

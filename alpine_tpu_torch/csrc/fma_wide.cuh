@@ -4,8 +4,8 @@
 //                 H[k][c] X[gi][c] (P1; reduce_splits, or the chain's
 //                 reduce_partials, adds the splits in order);
 //   wtx_fma_wide: out[k][c] = sum over genes gi of W[gi][k] X[gi][c] (P2).
-// x_passes.cu runs them as ALS's hxt / wtx and inside the large-K chain of
-// K1/K2/K4 (WᵀX and X Hsᵀ); grids: ops/kernels.py:hxt_fma_wide_grid,
+// x_passes.cu runs them as ALS's hxt / wtx and inside K1/K2/K4's chain
+// above K = 512 (WᵀX and X Hsᵀ); grids: ops/kernels.py:hxt_fma_wide_grid,
 // wtx_fma_wide_grid.
 //
 // Bound on the H100: operations.  A pass at K = 768, 100k cells x 2,000

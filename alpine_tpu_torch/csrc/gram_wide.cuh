@@ -1,4 +1,4 @@
-// gram_wide: the large-K chain's statistics over cells against Hn (K > 512),
+// gram_wide: K1/K2/K4's statistics over cells against Hn (every K),
 // from one read of Hn (K x n fp32) and the counts row c (c_next in counts
 // mode; all ones otherwise, then not read):
 //   HHt    = Hn diag(c) Hnᵀ  (K x K; H_stat Hnᵀ, H_stat = Hs = c ⊙ Hn)
@@ -6,8 +6,7 @@
 //   rowsum = Hn c            (K; rowsum(H_stat))
 //   Bnum   = Q diag(c) Hnᵀ   (L x K; Q from iter_wide)
 // Replaces the H_stat contractions of alpine_tpu/ops/pallas_kernels.py:
-// fused_iteration (:584-620: HHt_ref, HHtU_ref, rowsum_Hn, bnum_all) where
-// K > 512 (the K <= 512 kernel keeps them in fused_iteration.cu).
+// fused_iteration (:584-620: HHt_ref, HHtU_ref, rowsum_Hn, bnum_all).
 //
 // Bound on the H100: the FP32 units (true fp32, no TF32: matmul_precision
 // "highest").  At 100k cells and K = 768 the 21 tile pairs of the upper

@@ -1,15 +1,14 @@
 // The fp32 product of a K x K matrix and a K x n one, for any K:
 //   D[k][c] = sum over j of A[k][j] B[j][c],
 // with one of two epilogues:
-//   kGemmStore:  out = D (x_passes.cu: WᵀW H, the large-K H update's
+//   kGemmStore:  out = D (x_passes.cu: WᵀW H, K1/K2/K4's H update's
 //                denominator);
 //   kGemmUpdate: out = B * (num2 / max(D, eps)), one step of the transform
 //                (fused_transform.cu's per-step path, K > 512: B is H).
 //
-// Every output's sum is formed as fused_transform's other paths and
-// fused_iteration's per-tile pass form it: d = fmaf(A[k][j], B[j][c], d) over
-// j = 0 .. K - 1 in order from 0.f (zeros past K add nothing), IEEE
-// division, no fast-math.  So the per-step transform gives the bits of the
+// Every output's sum is formed as fused_transform's other paths form it:
+// d = fmaf(A[k][j], B[j][c], d) over j = 0 .. K - 1 in order from 0.f
+// (zeros past K add nothing), IEEE division, no fast-math.  So the per-step transform gives the bits of the
 // tiled and register paths.  True fp32 (no TF32, no tensor cores, no split
 // of j): matmul_precision "highest".
 //

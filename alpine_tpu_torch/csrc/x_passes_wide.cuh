@@ -2,11 +2,11 @@
 // MMA fed by the Tensor Memory Accelerator:
 //   hxt_wide: part[split][k][gi] = sum over a split's cells c of Hb[k][c] X[gi][c];
 //   wtx_wide: out[k][c] = sum over genes gi of Wb[k][gi] X[gi][c].
-// Included by x_passes.cu after its staging helpers (row_offset, window_src,
-// keep_bytes, lds16_at, the int8 widening, ldsm_x4_trans, round_w,
-// reduce_splits, allow_smem), which these kernels share with hxt_mma and
-// wtx_mma; x_passes.cu's large-K chain (K1, K2, K4 at K > 512) runs them
-// for its WᵀX and X Hsᵀ.
+// Included by x_passes.cu after the staging helpers of mma_passes.cuh
+// (row_offset, window_src, keep_bytes, lds16_at, the int8 widening,
+// ldsm_x4_trans, round_w, allow_smem), which these kernels share with
+// hxt_mma and wtx_mma, and after its reduce_splits; x_passes.cu's K1/K2/K4
+// chain runs them above K = 512 for its WᵀX and X Hsᵀ.
 //
 // Replaces, above K = 512: benchmarks/als_probe.py:_pallas_dots, its
 // hxt_kernel (call :172) and wtx_kernel (call :180), as hxt_mma and wtx_mma

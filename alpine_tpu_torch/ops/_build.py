@@ -24,7 +24,7 @@ from typing import Callable, Dict, Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
-SOURCES = ("fused_iteration", "fused_transform", "x_passes", "stream_probe")
+SOURCES = ("fused_transform", "x_passes", "stream_probe")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
               "-Xptxas", "-v")
@@ -36,16 +36,12 @@ _F = ctypes.c_float
 # and the stream are c_void_p, sizes c_int, eps c_float: ctypes would
 # otherwise cut 64-bit pointers)
 SIGNATURES = {
-    "fused_iteration": ("fused_iteration", "alpine_fused_iteration",
-                        [_P, _I] + [_P] * 7
-                        + [_I] * 6 + [_F] + [_I] * 12 + [_P] * 8),
     "fused_transform": ("fused_transform", "alpine_fused_transform",
                         [_P, _P, _P] + [_I] * 8 + [_F, _P, _P, _P, _P]),
-    # the large-K chain of K1/K2/K4 (K > 512): X's products are P1's and
-    # P2's kernels, so it lives beside them
-    "fused_iteration_wide": ("x_passes", "alpine_fused_iteration_wide",
-                             [_P, _I] + [_P] * 7 + [_I] * 7 + [_F] + [_I] * 16
-                             + [_P] * 15),
+    # K1/K2/K4's chain at every K: X's products are P1's and P2's kernels,
+    # so it lives beside them
+    "fused_iteration": ("x_passes", "alpine_fused_iteration",
+                        [_P, _I] + [_P] * 7 + [_I] * 7 + [_F] + [_I] * 16 + [_P] * 16),
     # its statistics against Hn alone (csrc/gram_wide.cuh, included there)
     "gram_wide": ("x_passes", "alpine_gram_wide", [_P] * 3 + [_I] * 5 + [_P] * 6),
     # its D = WᵀW H alone (csrc/wtw_gemm.cuh's store, included there)

@@ -19,8 +19,9 @@ Every kernel of the fit and transform path takes any component count K
 (``route``): K <= 512 runs the routes that hold a tile or a thread's rows
 of all of K, K > 512 the large-K routes (``hxt_wide_grid`` and
 ``wtx_wide_grid`` for P1/P2 on int8/bf16 X, ``hxt_fma_wide_grid`` and
-``wtx_fma_wide_grid`` for their fp32 paths, ``wide_iteration_grid`` for
-K1/K2/K4, ``transform_path`` for K3).
+``wtx_fma_wide_grid`` for their fp32 paths, ``transform_path`` for K3).
+K1/K2/K4 are one chain at every K around those X passes
+(``iteration_grid``).
 No rule caps K: what does is the card's memory, which must hold the K x n
 and K x K operands, outputs and scratch of a call.
 """
@@ -40,35 +41,37 @@ from alpine_tpu_torch.ops.mu import (
 launches: Dict[str, int] = {"fused_iteration": 0, "fused_iteration_counts": 0,
                             "fused_h_update": 0, "fused_transform": 0,
                             "hxt": 0, "wtx": 0, "stream_probe": 0,
+                            # the bf16 X passes at K <= 512 (int8/bf16 X):
+                            # from hxt/wtx and from K1/K2/K4's chain
+                            "hxt_mma": 0, "wtx_mma": 0,
                             # the large-K wgmma kernels of P1/P2 (int8/bf16 X):
-                            # from hxt/wtx and from K1/K2/K4's large-K chain
+                            # from hxt/wtx and from K1/K2/K4's chain above 512
                             "hxt_wide": 0, "wtx_wide": 0,
                             # their fp32 counterparts (float32/int16 X), from
                             # the same callers
                             "hxt_fma_wide": 0, "wtx_fma_wide": 0,
-                            # the large-K chain's H Hᵀ, rowsum and Bnum: one a
-                            # K1/K2/K4 call at K > 512, and gram_wide's own
+                            # K1/K2/K4's H Hᵀ, rowsum and Bnum: one a call, and
+                            # gram_wide's own
                             "gram_wide": 0,
-                            # the large-K chain's D = WᵀW H (wtw_gemm's store):
-                            # one a K1/K2/K4 call at K > 512, and wtw_gemm's
-                            # own; K3's per-step updates count as fused_transform
+                            # K1/K2/K4's D = WᵀW H (wtw_gemm's store): one a
+                            # call, and wtw_gemm's own; K3's per-step updates
+                            # count as fused_transform
                             "wtw_gemm": 0}
 
 # X storage dtype -> code of csrc/common.cuh:XType
 _XTYPE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2, torch.int16: 3}
 _THREADS = 256
-_MAX_TILE_VALUES = 4096  # K × cells of a tile at most (tile_width)
 # the largest K of the routes that hold all of K in a tile or a thread's
 # rows; above it, the large-K routes (route)
-_RANGE_K = _MAX_TILE_VALUES // 8
-# the large-K H update (csrc/x_passes.cu: iter_wide): cells a tile, 4 a
+_RANGE_K = 512
+# K1/K2/K4's H update (csrc/x_passes.cu: iter_wide): cells a tile, 4 a
 # lane (one 16-byte load of a row), labels a pass of its sums over the
 # guided rows, and its blocks at most (4 an H100 SM: the blocks that fit
 # at once at 5 labels), a fixed number so the partials sum in a fixed order
 _WIDE_T = 128
 _WIDE_LC = 8
 _WIDE_PART_BLOCKS = 528
-# the large-K chain's statistics against Hn (csrc/gram_wide.cuh: gram_wide):
+# K1/K2/K4's statistics against Hn (csrc/gram_wide.cuh: gram_wide):
 # 128 x 128 tiles of K x K, chunks of 8 cells, 8 extra columns (rows of Q
 # and the ones row) a block, and about this many tile-pair blocks a launch
 # (8 an H100 SM: finer splits even out the SMs' loads and let the extra
@@ -78,26 +81,21 @@ _GRAM_BM = 128
 _GRAM_BK = 8
 _GRAM_XC = 8
 _GRAM_BLOCKS = 1056
+# at K <= 512 (at most 10 tile pairs) a fixed split count instead: 264
+# splits were the fastest or within 6 % of it at K = 16-512 on 66,667 and
+# 100k cells without counts (with counts 132 were, 264 within 10 %), where
+# ~1,056 / pairs splits took up to 1.6x as long, their partials' sum most of
+# the difference (scripts/torch_gram_splits.py, PERF.md)
+_GRAM_TILE_SPLITS = 264
 # P1's cell splits on the large-K route: at most this many cells a split,
 # so that no fp32 accumulator sums a whole 100k-cell row (one split of
 # 100k cells left P1 at K = 768 1.2x its rtol 1e-4 from the plain version
 # on an H100)
 _WIDE_SPLIT_CELLS = 16384
 _MAX_SMEM = 232448  # bytes of dynamic shared memory a Hopper block may use
-# Grid sizes of fused_iteration's two passes: fixed numbers (not the SM
-# count), so a given shape sums its partials in the same order on any card.
-# Several blocks per SM hide the latency of each block's staged loads.
-_MAX_PART_BLOCKS = 2112  # blocks of the per-tile pass (16 per H100 SM)
-# the bf16 path's X Hnᵀ pass (hxt_partial): about this many blocks (32 per
-# H100 SM), each split a multiple of _CELL_CHUNK cells
-_TARGET_HXT_BLOCKS = 4224
-_CELL_CHUNK = 32
-# fused_iteration's bf16 path (X products on tensor cores, wmma 16x16x16)
-_MMA_XTYPES = (torch.int8, torch.bfloat16)  # X storage that computes in bf16
-_MMA_GENE_CHUNK = 32  # csrc/fused_iteration.cu: kMmaGeneChunk
-# accumulator fragments a block holds in one pass over the genes or cells
-# (kWarps * kMmaFrags); a larger output takes more passes
-_MMA_PASS_FRAGS = 16
+# X storage whose X products compute in bf16 on the tensor cores (P1/P2 and
+# K1/K2/K4's X passes)
+_MMA_XTYPES = (torch.int8, torch.bfloat16)
 # fused_transform's register path: the K buckets it is compiled for
 # (csrc/fused_transform.cu: the instantiations of transform_columns)
 _TRANSFORM_BUCKETS = (8, 16, 24, 32, 40, 48, 56, 64)
@@ -114,14 +112,14 @@ _TRANSFORM_STAGES = 2
 # stream_probe: blocks of column sums a launch aims at (8 per H100 SM); a
 # block sums 32 lanes x one 16-byte vector of columns over its genes
 _STREAM_BLOCKS = 1056
-# hxt's bf16 path (csrc/x_passes.cu: hxt_mma): chunks of 128 or 64 cells in
+# hxt's bf16 path (csrc/mma_passes.cuh: hxt_mma): chunks of 128 or 64 cells in
 # a ring of 2..8 stages, at most 4 accumulator fragments of 16 × 16 a warp
 # (32 a block, one pass); its grid is one wave on a fixed SM count, so a
 # shape sums its partials in the same order on any card
 _HXT_CHUNKS = (128, 64)
 _HXT_MAX_FRAGS = 32
 _HXT_STAGES = range(2, 9)
-# wtx's bf16 path (csrc/x_passes.cu: wtx_mma): chunks of 64 or 32 genes in
+# wtx's bf16 path (csrc/mma_passes.cuh: wtx_mma): chunks of 64 or 32 genes in
 # a ring of 2..8 stages; a warp holds at most 48 accumulators (6 fragments
 # of 16 x 16) over 1, 2 or 3 groups of 16 cells (the kernel's
 # instantiations)
@@ -176,41 +174,12 @@ def route(K: int) -> str:
     "wide" above (P1/P2 as the wgmma kernels of ``hxt_wide_grid`` and
     ``wtx_wide_grid`` on int8/bf16 X and as the FP32 tiles of
     ``hxt_fma_wide_grid`` and ``wtx_fma_wide_grid`` on float32/int16 X,
-    K1/K2/K4 as the chain of
-    ``wide_iteration_grid``, K3 on ``transform_path``'s per-step path).
+    K1/K2/K4's chain with those X passes (``iteration_grid``), K3 on
+    ``transform_path``'s per-step path).
     K < 1 raises; no K above is refused: the card's memory is the cap."""
     if K < 1:
         raise ValueError(f"the CUDA kernels take K >= 1 components, got K={K}")
     return "tile" if K <= _RANGE_K else "wide"
-
-
-def tile_width(K: int) -> int:
-    """The port's tile rule: cells per tile for K components (fused_iteration's
-    per-tile pass and, on its bf16 path, genes per block of the X Hnᵀ pass).
-    A tile holds K × width values, at most 4096, so the width halves from 64
-    as K grows to 512; above, the large-K H update's tile of 128 cells, 4 a
-    lane (``route``)."""
-    if route(K) == "wide":
-        return _WIDE_T
-    w = 64
-    while K * w > _MAX_TILE_VALUES:
-        w //= 2
-    return w
-
-
-def iteration_tile_width(K: int, x_dtype: torch.dtype) -> int:
-    """fused_iteration's tile width for K components and X's storage dtype.
-
-    float32 and int16 X keep ``tile_width``: their X products run in
-    wtx_fma and hxt_fma over grids of their own (``iteration_grid``), and
-    the tile holds the H update and the statistics.  int8 and bf16 X run
-    their X products on tensor cores, whose 16 × 16 accumulator fragments
-    take the place of a per-thread register tile: that path takes
-    max(16, tile_width(K)), which differs only for 256 < K <= 512 (16
-    instead of 8).  Its Kp × T output, Kp = K rounded up to 16, is one pass
-    of at most 16 fragments for K <= 256 and two passes above."""
-    w = tile_width(K)
-    return max(16, w) if x_dtype in _MMA_XTYPES and route(K) == "tile" else w
 
 
 def transform_bucket(K: int) -> int:
@@ -316,23 +285,6 @@ def _pad16(v: int) -> int:
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
-
-
-def _iter_smem_bytes(K: int, T: int, L: int, Kg: int, counts: bool,
-                     mma: bool = False) -> int:
-    """csrc/fused_iteration.cu:iter_smem_floats, in bytes; ``mma`` for the
-    bf16 (tensor-core) path.  The fp32 path stages no X or W: its tile of
-    WᵀX comes from wtx_fma."""
-    TP = T + 1
-    if mma:
-        stage = _MMA_GENE_CHUNK * (_pad16(K) + 8 + T + 8) // 2
-        h = -(-K * TP // 8) * 8
-        wtx = _pad16(K) * (T + 4)
-    else:
-        stage = 0
-        h = wtx = K * TP
-    return 4 * (stage + h + wtx + K * TP + 3 * L * TP + L * Kg + 2 * Kg
-                + _THREADS + ((K + 2) * TP if counts else 0))
 
 
 def _embed_b(Bs: Sequence[torch.Tensor], blocks: Tuple[int, ...]) -> torch.Tensor:
@@ -500,26 +452,15 @@ def _cuda_or_cpu(X: torch.Tensor) -> bool:
     raise ValueError(f"unsupported device {X.device}")
 
 
-def _cell_splits(g: int, n: int, GB: int) -> Tuple[int, int]:
-    """(n_split, cells_per_split) of an X Hᵀ pass over blocks of GB genes:
-    about _TARGET_HXT_BLOCKS blocks, each summing a range of cells that is
-    a multiple of _CELL_CHUNK into a partial of its own."""
-    gene_blocks = -(-g // GB)
-    n_chunks = -(-n // _CELL_CHUNK)
-    want = max(1, min(n_chunks, -(-_TARGET_HXT_BLOCKS // gene_blocks)))
-    cells_per_split = -(-n_chunks // want) * _CELL_CHUNK
-    return -(-n // cells_per_split), cells_per_split
-
-
 def _hxt_row_bytes(data: int, target: int) -> int:
-    """csrc/x_passes.cu:hxt_row_bytes: ``data`` bytes padded so that rows
+    """csrc/mma_passes.cuh:hxt_row_bytes: ``data`` bytes padded so that rows
     start ``target`` bytes apart modulo 128."""
     return data + (target - data) % 128
 
 
 def hxt_smem_bytes(K: int, GB: int, S: int, x_dtype: torch.dtype,
                    chunk: int) -> int:
-    """csrc/x_passes.cu:hxt_mma_smem_bytes: S ring stages of a chunk of Hb
+    """csrc/mma_passes.cuh:hxt_mma_smem_bytes: S ring stages of a chunk of Hb
     (Kp rows of ``chunk`` bf16) and of X's GB rows (``chunk`` values as
     stored and 16 bytes more, the aligned window of a row off 16-byte
     alignment), each row padded against bank conflicts; at least the
@@ -813,40 +754,13 @@ def wtx_fma_wide_grid(g: int, n: int, K: int, x_dtype: torch.dtype
 
 
 class IterationGrid(NamedTuple):
-    """fused_iteration's launch parameters (csrc/fused_iteration.cu:
-    launch).  T, n_part, tiles_per_block: the per-tile pass iter_tiles;
-    GB, n_split, cells_per_split: the X Hnᵀ pass (both paths); S, chunk:
-    hxt_fma's ring, and wtx_T, wtx_LK, wtx_GC, wtx_S: wtx_fma's grid (fp32
-    path only, 0 on the bf16 path)."""
-    T: int
-    n_part: int
-    tiles_per_block: int
-    GB: int
-    n_split: int
-    cells_per_split: int
-    S: int = 0
-    chunk: int = 0
-    wtx_T: int = 0
-    wtx_LK: int = 0
-    wtx_GC: int = 0
-    wtx_S: int = 0
-
-
-class WideIterationGrid(NamedTuple):
-    """fused_iteration's large-K chain (K > 512; csrc/x_passes.cu:
-    launch_iteration_wide): iter_wide's T-cell tiles (T, n_part,
-    tiles_per_block); P2's grid for WᵀX (wtx_T, wtx_WR, wtx_GC, wtx_S,
-    wtx_ranges, wtx_range_genes: on int8/bf16 X wtx_wide's 128-cell tiles,
-    its cluster size, 64-gene stages, stages and gene ranges of
-    ``wtx_wide_grid``; on float32/int16 wtx_fma_wide's 128-cell tiles, no
-    cluster (1), its 16-gene chunks and stages of ``wtx_fma_wide_grid``,
-    all genes in one range); P1's for X Hsᵀ (GB, n_split, cells_per_split,
-    S, chunk: on int8/bf16 X hxt_wide's cluster size, splits, cells a
-    split, stages and 64-cell stages of ``hxt_wide_grid``; on float32/int16
-    hxt_fma_wide's 128-gene tiles and the splits of ``hxt_fma_wide_grid``,
-    its stages and 16-cell chunks); and gram_wide's splits for H Hᵀ, HHtU,
-    rowsum and Bnum (gram_split, gram_cells_per_split:
-    ``gram_wide_grid``)."""
+    """fused_iteration's chain (csrc/x_passes.cu: launch_iteration), in the
+    C entry's order: iter_wide's T-cell tiles (T, n_part, tiles_per_block);
+    P2's grid for WᵀX (wtx_T, wtx_WR, wtx_GC, wtx_S, wtx_ranges,
+    wtx_range_genes) and P1's for X Hsᵀ (GB, n_split, cells_per_split, S,
+    chunk), each P2's and P1's own grid at the same shape (``iteration_grid``
+    names them); and gram_wide's splits for H Hᵀ, HHtU, rowsum and Bnum
+    (gram_split, gram_cells_per_split: ``gram_wide_grid``)."""
     T: int
     n_part: int
     tiles_per_block: int
@@ -865,11 +779,11 @@ class WideIterationGrid(NamedTuple):
     gram_cells_per_split: int
 
 
-def _part_grid(n: int, T: int, most: int = _MAX_PART_BLOCKS) -> Tuple[int, int]:
-    """(n_part, tiles_per_block): the per-tile pass's blocks, at most
-    ``most``, each a run of T-cell tiles."""
-    n_tiles = -(-n // T)
-    tiles_per_block = -(-n_tiles // most)
+def _part_grid(n: int) -> Tuple[int, int]:
+    """(n_part, tiles_per_block): the H update's (iter_wide's) blocks, at
+    most _WIDE_PART_BLOCKS, each a run of _WIDE_T-cell tiles."""
+    n_tiles = -(-n // _WIDE_T)
+    tiles_per_block = -(-n_tiles // _WIDE_PART_BLOCKS)
     return -(-n_tiles // tiles_per_block), tiles_per_block
 
 
@@ -897,31 +811,31 @@ def gram_split_floats(K: int, L: int, counts: bool) -> int:
 
 @lru_cache(maxsize=None)
 def gram_wide_grid(n: int, K: int) -> Tuple[int, int]:
-    """(n_split, cells_per_split) of gram_wide: about _GRAM_BLOCKS tile-pair
-    blocks in all, never a split over _WIDE_SPLIT_CELLS cells (fp32 sums
-    over at most 16,384 terms), each split a multiple of a chunk's
-    _GRAM_BK cells: at K = 768 and 100k cells 21 pairs x 50 splits of
-    2,000 cells.  Fixed numbers, so a shape sums its partials in the same
-    order on any card."""
-    want = max(_cdiv(n, _WIDE_SPLIT_CELLS), round(_GRAM_BLOCKS / len(gram_wide_pairs(K))))
+    """(n_split, cells_per_split) of gram_wide: above K = 512 about
+    _GRAM_BLOCKS tile-pair blocks in all (at K = 768 and 100k cells 21
+    pairs x 50 splits of 2,000 cells), at K <= 512 about _GRAM_TILE_SPLITS
+    splits; never a split over _WIDE_SPLIT_CELLS cells (fp32 sums over at
+    most 16,384 terms), each split a multiple of a chunk's _GRAM_BK cells.
+    Fixed numbers, so a shape sums its partials in the same order on any
+    card."""
+    target = (_GRAM_TILE_SPLITS if route(K) == "tile"
+              else round(_GRAM_BLOCKS / len(gram_wide_pairs(K))))
+    want = max(_cdiv(n, _WIDE_SPLIT_CELLS), target)
     cps = _cdiv(_cdiv(n, want), _GRAM_BK) * _GRAM_BK
     return _cdiv(n, cps), cps
 
 
 @lru_cache(maxsize=None)  # called once a fit iteration
-def wide_iteration_grid(g: int, n: int, K: int, x_dtype: torch.dtype) -> WideIterationGrid:
-    """fused_iteration's launch parameters for K > 512: the chain WᵀX (P2's
-    large-K kernel) → D = WᵀW H (csrc/wtw_gemm.cuh) → iter_wide (the H
-    update with the guided terms, Q, and the prediction loss and the loss
-    dot as one partial a block of 128-cell tiles) → X Hsᵀ (P1's large-K
-    kernel, its splits' partials) → gram_wide (H Hᵀ = Hs Hnᵀ over the
-    upper triangle of 128 x 128 tiles, HHtU = Hn Hnᵀ in counts mode, rowsum
-    and Bnum = Q Hsᵀ, from one read of Hn: ``gram_wide_grid``) → the
-    partials' sums.  Every kernel's shared memory is independent of K (but
-    iter_wide's of the labels), so any K the card's memory holds runs."""
+def wide_iteration_grid(g: int, n: int, K: int, x_dtype: torch.dtype) -> IterationGrid:
+    """``iteration_grid`` for K > 512 (and a ValueError below): P2 and P1
+    as their large-K kernels (``wtx_wide_grid`` / ``hxt_wide_grid`` on
+    int8/bf16 X, the fp32 tiles of ``wtx_fma_wide_grid`` /
+    ``hxt_fma_wide_grid`` on float32/int16).  Every kernel's shared memory
+    is independent of K (but iter_wide's of the labels), so any K the
+    card's memory holds runs."""
     if route(K) != "wide":
         raise ValueError(f"the large-K chain is for K > {_RANGE_K}, got K={K}")
-    n_part, tiles_per_block = _part_grid(n, _WIDE_T, _WIDE_PART_BLOCKS)
+    n_part, tiles_per_block = _part_grid(n)
     if x_dtype in _MMA_XTYPES:
         CL, ranges, range_genes, S = wtx_wide_grid(g, n, K, x_dtype)
         wtx = (_WIDE_BM, CL, _WIDE_BK, S, ranges, range_genes)
@@ -931,8 +845,8 @@ def wide_iteration_grid(g: int, n: int, K: int, x_dtype: torch.dtype) -> WideIte
         T, chunk, S, _ = wtx_fma_wide_grid(g, n, K, x_dtype)
         wtx = (T, 1, chunk, S, 1, g)
         hxt_g = (wtw_design()["tile"][1], *hxt_fma_wide_grid(g, n, K, x_dtype), S, chunk)
-    return WideIterationGrid(_WIDE_T, n_part, tiles_per_block, *wtx, *hxt_g,
-                             *gram_wide_grid(n, K))
+    return IterationGrid(_WIDE_T, n_part, tiles_per_block, *wtx, *hxt_g,
+                         *gram_wide_grid(n, K))
 
 
 def wide_smem_bytes(L: int, Kg: int, counts: bool, stage_bg: bool = True) -> int:
@@ -955,30 +869,55 @@ def wide_stages_bg(L: int, Kg: int, counts: bool) -> bool:
     return L > 0 and wide_smem_bytes(L, Kg, counts) <= _MAX_SMEM
 
 
+def k1_hxt_grid(g: int, n: int, K: int, x_dtype: torch.dtype
+                ) -> Tuple[int, int, int, int, int]:
+    """(GB, n_split, cells_per_split, S, chunk) of K1/K2/K4's X Hnᵀ pass on
+    int8/bf16 X (hxt_mma): ``hxt_grid``'s, but with at least ceil(n /
+    _WIDE_SPLIT_CELLS) splits, each a multiple of the chunk, as the large-K
+    route keeps them: the tensor cores' fp32 sums over one split of 100k
+    cells left P1 at K = 768 1.2x its rtol 1e-4 (PERF.md), and
+    hxt_grid takes one split at K = 512 on 2,000 genes.  P1's own grid is
+    unchanged."""
+    GB, n_split, cells_per_split, S, chunk = hxt_grid(g, n, K, x_dtype)
+    if cells_per_split > _WIDE_SPLIT_CELLS:
+        cells_per_split = _cdiv(_cdiv(n, _cdiv(n, _WIDE_SPLIT_CELLS)), chunk) * chunk
+        n_split = _cdiv(n, cells_per_split)
+    return GB, n_split, cells_per_split, S, chunk
+
+
 @lru_cache(maxsize=None)  # called once a fit iteration
-def iteration_grid(g: int, n: int, K: int, x_dtype: torch.dtype):
+def iteration_grid(g: int, n: int, K: int, x_dtype: torch.dtype) -> IterationGrid:
     """fused_iteration's launch parameters for X (g, n) of ``x_dtype`` and
-    K components.  iter_tiles walks tiles of ``iteration_tile_width`` cells,
-    at most _MAX_PART_BLOCKS blocks.  int8/bf16 X: the X Hnᵀ pass takes
-    GB = T genes a block and ``_cell_splits``.  float32/int16 X: WᵀX comes
-    from wtx_fma over ``wtx_fma_grid`` and X Hnᵀ from hxt_fma over
-    ``hxt_fma_grid``, the kernels of ALS's fp32 X passes.  K > 512 (a rule
-    by K, ``route``): the large-K chain's ``wide_iteration_grid``."""
+    K components: one chain at every K, WᵀX (P2's kernel) → D = WᵀW H
+    (csrc/wtw_gemm.cuh) → iter_wide (the H update with the guided terms,
+    Hs, Q, and the prediction loss and the loss dot as one partial a block
+    of 128-cell tiles) → X Hsᵀ (P1's kernel, its splits' partials) →
+    gram_wide (H Hᵀ = Hs Hnᵀ over the upper triangle of 128 x 128 tiles,
+    HHtU = Hn Hnᵀ in counts mode, rowsum and Bnum = Q Hsᵀ, from one read
+    of Hn: ``gram_wide_grid``) → the partials' sums.  The X passes take
+    P2's and P1's own grids at the same shape, by K (``route``) and X's
+    dtype: at K <= 512 ``wtx_grid`` with ``wtx_gene_split`` (wtx_mma) and
+    ``k1_hxt_grid`` (hxt_mma) on int8/bf16 X, ``wtx_fma_grid`` (wtx_fma,
+    all genes one range; its lanes along K ride in wtx_WR) and
+    ``hxt_fma_grid`` (hxt_fma) on float32/int16; above,
+    ``wide_iteration_grid``'s."""
     if route(K) == "wide":
         return wide_iteration_grid(g, n, K, x_dtype)
-    T = iteration_tile_width(K, x_dtype)
-    n_part, tiles_per_block = _part_grid(n, T)
+    n_part, tiles_per_block = _part_grid(n)
     if x_dtype in _MMA_XTYPES:
-        return IterationGrid(T, n_part, tiles_per_block, T, *_cell_splits(g, n, T))
-    GB, n_split, cells_per_split, S, chunk = hxt_fma_grid(g, n, K, x_dtype)
-    wtx_T, wtx_LK, wtx_GC, wtx_S, _ = wtx_fma_grid(g, n, K, x_dtype)
-    return IterationGrid(T, n_part, tiles_per_block, GB, n_split, cells_per_split,
-                         S, chunk, wtx_T, wtx_LK, wtx_GC, wtx_S)
+        wtx_g = wtx_grid(g, n, K, x_dtype)[:4] + wtx_gene_split(g, n, K, x_dtype)
+        hxt_g = k1_hxt_grid(g, n, K, x_dtype)
+    else:
+        wtx_g = wtx_fma_grid(g, n, K, x_dtype)[:4] + (1, g)
+        hxt_g = hxt_fma_grid(g, n, K, x_dtype)
+    return IterationGrid(_WIDE_T, n_part, tiles_per_block, *wtx_g, *hxt_g,
+                         *gram_wide_grid(n, K))
 
 
 def _launch_iteration(X, W, H, WtW, Ys, Bs, lam, eps, counts, blocks, loss_kl):
-    """Run csrc/fused_iteration.cu; returns (Hn, XHt, stats, n_labels) with
-    stats laid out as ``_stats_len`` says."""
+    """Run the chain of ``iteration_grid`` (csrc/x_passes.cu:
+    alpine_fused_iteration, one C call); returns (Hn, XHt, stats, n_labels)
+    with stats laid out as ``_stats_len`` says."""
     dev = X.device
     f32 = torch.float32
     if X.dim() != 2 or X.dtype not in _XTYPE:
@@ -1006,55 +945,7 @@ def _launch_iteration(X, W, H, WtW, Ys, Bs, lam, eps, counts, blocks, loss_kl):
         lam_rows = _lam_rows(lam, blocks).contiguous()
     if not isinstance(eps, float):
         raise TypeError("eps must be a Python float")
-    if route(K) == "wide":
-        return _launch_iteration_wide(X, W, H, WtW, Y_all if Ys else None,
-                                      Bg if Ys else None, lam_rows if Ys else None,
-                                      eps, counts, L, Kg, loss_kl, n_labels)
-    mma = X.dtype in _MMA_XTYPES
     grid = iteration_grid(g, n, K, X.dtype)
-    smem = _iter_smem_bytes(K, grid.T, L, Kg, counts is not None, mma)
-    if smem > _MAX_SMEM:
-        raise ValueError(
-            f"fused_iteration needs {smem} bytes of shared memory at K={K}, "
-            f"{L} labels, guided width {Kg}; a Hopper block has {_MAX_SMEM}")
-    S_len = _stats_len(K, L, counts is not None)
-
-    Hn = torch.empty((K, n), dtype=f32, device=dev)
-    XHt = torch.empty((g, K), dtype=f32, device=dev)
-    stats = torch.empty((S_len,), dtype=f32, device=dev)
-    part = torch.empty((grid.n_part, S_len), dtype=f32, device=dev)
-    part_hxt = torch.empty((grid.n_split, K, g), dtype=f32, device=dev)
-    # fp32 path: wtx_fma's WᵀX and, in counts mode, Hs = c_next ⊙ Hn
-    wtx = None if mma else torch.empty((K, n), dtype=f32, device=dev)
-    hs = None if mma or counts is None else torch.empty((K, n), dtype=f32, device=dev)
-    fn = _build.entry("fused_iteration")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(X.data_ptr(), _XTYPE[X.dtype], W.data_ptr(), H.data_ptr(),
-                WtW.data_ptr(), Y_all.data_ptr() if Ys else None,
-                Bg.data_ptr() if Ys else None,
-                lam_rows.data_ptr() if Ys else None,
-                counts.data_ptr() if counts is not None else None,
-                g, n, K, L, Kg, int(bool(loss_kl)), eps, *grid,
-                Hn.data_ptr(), XHt.data_ptr(), stats.data_ptr(),
-                part.data_ptr(), part_hxt.data_ptr(),
-                wtx.data_ptr() if wtx is not None else None,
-                hs.data_ptr() if hs is not None else None, stream)
-    if rc != 0:
-        raise RuntimeError(f"fused_iteration kernel failed to launch: CUDA "
-                           f"error {rc}")
-    return Hn, XHt, stats, n_labels
-
-
-def _launch_iteration_wide(X, W, H, WtW, Y_all, Bg, lam_rows, eps, counts, L,
-                           Kg, loss_kl, n_labels):
-    """Run the large-K chain (csrc/x_passes.cu: alpine_fused_iteration_wide,
-    one C call) over ``wide_iteration_grid``; returns what
-    ``_launch_iteration`` does, stats in the same layout."""
-    dev, f32 = X.device, torch.float32
-    g, n = X.shape
-    K = H.shape[0]
-    grid = wide_iteration_grid(g, n, K, X.dtype)
     stage_bg = wide_stages_bg(L, Kg, counts is not None)
     smem = wide_smem_bytes(L, Kg, counts is not None, stage_bg)
     if smem > _MAX_SMEM:
@@ -1070,28 +961,36 @@ def _launch_iteration_wide(X, W, H, WtW, Y_all, Bg, lam_rows, eps, counts, L,
     part_x = buf(grid.n_split, K, g)
     part_hh = buf(grid.gram_split, gram_split_floats(K, L, counts is not None))
     wtwt = buf(*wtw_scratch_shape(K))  # WᵀW transposed, for D = WᵀW H
-    hb = wb = wpart = None
-    if mma:  # H (Hs) rounded for P1, W transposed and rounded for P2
-        hb = torch.empty(2 * K * -(-n // _WIDE_BK) * _WIDE_BK, dtype=torch.uint8, device=dev)
-        wb = torch.empty(2 * _pad16(K) * -(-g // _WIDE_BK) * _WIDE_BK, dtype=torch.uint8,
+    stream = _stream(dev)
+    hb = wb = wpart = arrivals = None
+    if mma:  # Hs rounded for P1, W transposed and rounded for P2 (padded to their chunks)
+        hb = torch.empty(2 * K * _cdiv(n, grid.chunk) * grid.chunk, dtype=torch.uint8,
                          device=dev)
-        if grid.wtx_ranges > 1:
+        wb = torch.empty(2 * _pad16(K) * _cdiv(g, grid.wtx_GC) * grid.wtx_GC,
+                         dtype=torch.uint8, device=dev)
+        if grid.wtx_ranges > 1:  # P2's gene ranges' partials (and its tiles' counters)
             wpart = buf(grid.wtx_ranges, K, n)
+            if route(K) == "tile":
+                arrivals, _ = _workspace(dev, stream, _cdiv(n, grid.wtx_T), 0)
     ptr = lambda t: None if t is None else t.data_ptr()
-    fn = _build.entry("fused_iteration_wide")
-    rc = _on_device(dev, fn, X.data_ptr(), _XTYPE[X.dtype], W.data_ptr(), H.data_ptr(),
-                    WtW.data_ptr(), ptr(Y_all), ptr(Bg), ptr(lam_rows), ptr(counts),
+    rc = _on_device(dev, _build.entry("fused_iteration"), X.data_ptr(), _XTYPE[X.dtype],
+                    W.data_ptr(), H.data_ptr(), WtW.data_ptr(), ptr(Y_all if Ys else None),
+                    ptr(Bg if Ys else None), ptr(lam_rows if Ys else None), ptr(counts),
                     g, n, K, L, Kg, int(bool(loss_kl)), int(stage_bg), eps, *grid,
                     Hn.data_ptr(), XHt.data_ptr(), stats.data_ptr(), wtx.data_ptr(),
                     D.data_ptr(), ptr(hs), ptr(q), part.data_ptr(), part_x.data_ptr(),
-                    part_hh.data_ptr(), ptr(hb), ptr(wb), ptr(wpart), wtwt.data_ptr(),
-                    _stream(dev))
+                    part_hh.data_ptr(), ptr(hb), ptr(wb), ptr(wpart), arrivals,
+                    wtwt.data_ptr(), stream)
     if rc != 0:
-        raise RuntimeError(f"fused_iteration's large-K chain failed to launch: CUDA "
+        raise RuntimeError(f"fused_iteration kernel failed to launch: CUDA "
                            f"error {rc}")
-    wide = "" if mma else "_fma"
-    launches[f"hxt{wide}_wide"] += 1
-    launches[f"wtx{wide}_wide"] += 1
+    if route(K) == "wide":
+        wide = "" if mma else "_fma"
+        launches[f"hxt{wide}_wide"] += 1
+        launches[f"wtx{wide}_wide"] += 1
+    elif mma:
+        launches["hxt_mma"] += 1
+        launches["wtx_mma"] += 1
     launches["gram_wide"] += 1
     launches["wtw_gemm"] += 1
     return Hn, XHt, stats, n_labels
@@ -1116,16 +1015,16 @@ def fused_iteration(X, W, H, WtW, Ys, Bs, lam, eps, counts=None, *, blocks,
     stay unscaled).  The return then gains the unscaled HHtU = Hn Hnᵀ after
     HHt, as the JAX function's does.
 
-    On the card, int8 and bf16 X run both X products on bf16 tensor cores
-    (exact products, fp32 sums: the plain version's result up to summation
-    order) with tiles from ``iteration_tile_width``, which gives them
-    16 cells per tile where float32/int16 X take 8 (256 < K <= 512): a rule
-    by X's dtype and K, not a fallback.  float32 and int16 X run them on
-    the FP32 units (true fp32, no TF32) in the kernels of ALS's fp32 X
-    passes: wtx_fma (WᵀX), the per-tile pass, hxt_fma (X Hnᵀ, or X Hsᵀ
-    in counts mode), then the partials' sum, over ``iteration_grid``.
-    K > 512 runs the large-K chain (``wide_iteration_grid``), by the same
-    rule by X's dtype for its X products: a rule by K, not a fallback."""
+    On the card one call runs the chain of ``iteration_grid`` at every K:
+    WᵀX by P2's kernel, D = WᵀW H (wtw_gemm), the H update (iter_wide), X
+    Hnᵀ (X Hsᵀ in counts mode) by P1's kernel, H Hᵀ, HHtU, rowsum and Bnum
+    (gram_wide), then the partials' sum.  int8 and bf16 X run both X
+    products on bf16 tensor cores (W and Hn rounded to bf16 once a call,
+    exact products, fp32 sums: the plain version's result up to summation
+    order; wtx_mma / hxt_mma at K <= 512, wtx_wide / hxt_wide above);
+    float32 and int16 X on the FP32 units (true fp32, no TF32; wtx_fma /
+    hxt_fma, or wtx_fma_wide / hxt_fma_wide): a rule by X's dtype and K,
+    not a fallback.  X's rows need not lie on 16-byte boundaries."""
     blocks = tuple(blocks)
     if counts is not None and not Ys:
         raise ValueError("counts mode requires covariates (weighted "
@@ -1196,7 +1095,7 @@ def wtw_scratch_shape(K: int) -> Tuple[int, int]:
 
 
 def wtw_gemm(A, B):
-    """The large-K chain's D = WᵀW H alone (csrc/wtw_gemm.cuh's store
+    """K1/K2/K4's D = WᵀW H alone (csrc/wtw_gemm.cuh's store
     epilogue): A B for A (K, K) and B (K, n) float32.  On the card A is
     transposed into a ``wtw_scratch_shape`` scratch, then true fp32 over
     128 x 128 output tiles (the kernel's grid, chunk and ring are its own:
@@ -1225,8 +1124,7 @@ def gram_wide_plain(Hn, c=None, Q=None):
 
 
 def gram_wide(Hn, c=None, Q=None):
-    """The large-K chain's statistics against Hn alone (csrc/gram_wide.cuh,
-    K1/K2/K4's at K > 512): returns (HHt = Hn diag(c) Hnᵀ (K, K), HHtU =
+    """K1/K2/K4's statistics against Hn alone (csrc/gram_wide.cuh): returns (HHt = Hn diag(c) Hnᵀ (K, K), HHtU =
     Hn Hnᵀ or None without ``c``, rowsum = Hn c (K,), Bnum = Q diag(c) Hnᵀ
     (L, K)).  Hn (K, n) and Q (L, n) float32, c (n,) float32 or None (all
     ones).  On the card true fp32 over the upper triangle of 128 × 128
@@ -1389,6 +1287,8 @@ def hxt(X, H):
                     g, n, K, GB, n_split, cells_per_split, S, chunk, hb, hb + hb_bytes,
                     out.data_ptr(), stream)
     _launched("hxt", rc)
+    if bf16:
+        launches["hxt_mma"] += 1
     return out
 
 
@@ -1435,14 +1335,14 @@ def _hxt_fma_wide(X, H):
 
 
 def _ldsm_row_bytes(data: int) -> int:
-    """csrc/x_passes.cu:ldsm_row_bytes: ``data`` bytes (a multiple of 16)
+    """csrc/mma_passes.cuh:ldsm_row_bytes: ``data`` bytes (a multiple of 16)
     padded so that rows start an odd multiple of 16 bytes apart modulo 128."""
     return data if data // 16 % 2 else data + 16
 
 
 def wtx_smem_bytes(K: int, T: int, S: int, x_dtype: torch.dtype,
                    chunk: int) -> int:
-    """csrc/x_passes.cu:wtx_mma_smem_bytes: S ring stages of a chunk of
+    """csrc/mma_passes.cuh:wtx_mma_smem_bytes: S ring stages of a chunk of
     ``chunk`` genes of Wb (Kp rows of ``chunk`` bf16) and of X's ``chunk``
     rows (T cells as stored and 16 bytes more, the aligned window of a row
     off 16-byte alignment), each row padded against bank conflicts."""
@@ -1602,6 +1502,8 @@ def wtx(X, W):
                     g, n, K, T, WR, GC, S, ranges, range_genes, wb, part, arrivals,
                     out.data_ptr(), stream)
     _launched("wtx", rc)
+    if X.dtype in _MMA_XTYPES:
+        launches["wtx_mma"] += 1
     return out
 
 

@@ -6,22 +6,20 @@
 Phases, each printing one JSON line:
   device  the card's name, count and power limit (nvidia-smi);
   build   nvcc builds every kernel of alpine_tpu_torch/csrc for sm_90a;
-  sass    cuobjdump of the fused_iteration library: tensor-core (HMMA)
-          instructions in both passes of the int8 and bf16 instantiations
-          and in none of the float32/int16 per-tile pass, and no spill
-          stores on the bf16 path (ptxas -v); the library's copies of the
-          fp32 X passes (hxt_fma, wtx_fma: K1's float32/int16 path) with
-          FFMA and cp.async copies (LDGSTS), no HMMA, no spill store and the
-          registers of x_passes' copies; for fused_transform, registers, spill stores (none
+  sass    cuobjdump (and ptxas -v) of the built libraries: for
+          fused_transform, registers, spill stores (none
           allowed) and FFMA count of each bucket of the register path, and
           registers, spill stores (none allowed), FFMA, LDGSTS (its WtW2
           ring) and LDS of each instantiation of the tiled path; for
-          x_passes (ALS's hxt and wtx), HMMA in the bf16 kernels and none in
+          x_passes (ALS's hxt and wtx, and K1/K2/K4's X products at every
+          K), HMMA in the bf16 kernels (hxt_mma, wtx_mma) and none in
           the fp32 ones, FFMA in the fp32 ones, cp.async copies (LDGSTS) in
           every one (their rings) and ldmatrix (LDSM) in wtx_mma (none
           there, or a spill store anywhere, fails), registers and spill
-          stores; the wgmma X passes above K = 512 (hxt_wide, wtx_wide on
-          int8/bf16 X, rows aligned or not): HGMMA, TMA loads (UTMALDG)
+          stores of every instantiation; K1/K2/K4's own kernels (iter_wide,
+          wtw_gemm, gram_wide): no HMMA, no spill; the wgmma X passes
+          above K = 512 (hxt_wide, wtx_wide on int8/bf16 X, rows aligned
+          or not): HGMMA, TMA loads (UTMALDG)
           of the Hb/Wb tiles and of aligned X, cp.async windows of
           misaligned X, LDSM in wtx_wide's aligned path, no spill store,
           and ptxas's performance notes (C75xx); the fp32 X passes above
@@ -32,9 +30,10 @@ Phases, each printing one JSON line:
           bench shape (100k cells x 2,000 genes, K = 40, labels (2, 3), int8)
           and at small shapes over the other storage types, blocks and
           losses (K not a multiple of 16, ragged genes and cells, K = 300
-          and 512 where the bf16 path takes its own tile), a second launch
-          of each fused_iteration case bit for bit the first, with its time
-          beside the plain version's and its bound; beside K1, K4 and K2 the
+          and 512), a second launch of each fused_iteration case bit for
+          bit the first, with its time beside the plain version's and its
+          bound, the card's ms of each kernel of its chain and its grid;
+          beside K1, K4 and K2 the
           two bf16 cuBLAS products over a bf16 copy of X as a yardstick; K1, K4 and
           K2 on int16 X (counts above 127) and K1 on float32 X at the bench
           shape, each with the two products as fp32 torch.matmul over a
@@ -404,9 +403,9 @@ REPLACES = {
     "wtw_gemm": "alpine_tpu/ops/pallas_kernels.py:500",
 }
 SOURCES = {
-    "fused_iteration": "alpine_tpu_torch/csrc/fused_iteration.cu",
-    "fused_iteration_counts": "alpine_tpu_torch/csrc/fused_iteration.cu",
-    "fused_h_update": "alpine_tpu_torch/csrc/fused_iteration.cu",
+    "fused_iteration": "alpine_tpu_torch/csrc/x_passes.cu",
+    "fused_iteration_counts": "alpine_tpu_torch/csrc/x_passes.cu",
+    "fused_h_update": "alpine_tpu_torch/csrc/x_passes.cu",
     "fused_transform": "alpine_tpu_torch/csrc/fused_transform.cu",
     "hxt": "alpine_tpu_torch/csrc/x_passes.cu",
     "wtx": "alpine_tpu_torch/csrc/x_passes.cu",
@@ -414,9 +413,6 @@ SOURCES = {
     "gram_wide": "alpine_tpu_torch/csrc/gram_wide.cuh",
     "wtw_gemm": "alpine_tpu_torch/csrc/wtw_gemm.cuh",
 }
-# mangled names of fused_iteration.cu's passes: iter_tiles<X type, kBf16,
-# kCounts>, hxt_partial<X type, kCounts> (the bf16 path only)
-PASS_NAME = re.compile(r"(iter_tiles)I(\w+?)Lb([01])ELb([01])E|(hxt_partial)I(\w+?)Lb([01])E")
 # the fp32 X passes: <X type, rows a thread>; and the bf16 ones: <X type,
 # ring chunk or cell groups, X rows aligned>
 FMA_NAME = re.compile(r"(hxt_mma|hxt_fma|wtx_mma|wtx_fma)I(\w+?)(?:Li(\d+)E)?(?:Lb([01])E)?E")
@@ -546,10 +542,8 @@ def sass_counts(_build, name, opcodes):
 
 
 def sass_check(_build, kernels):
-    """Which instantiations of fused_iteration's two passes run on tensor
-    cores: HMMA instructions in the SASS of the built library (cuobjdump)
-    for int8/bf16 X and none for float32/int16, and no spill stores on the
-    tensor-core path (ptxas -v).  For fused_transform's register path, one
+    """x_passes' X passes (ALS's P1/P2 and K1/K2/K4's X products) and the
+    chain's own kernels, below.  For fused_transform's register path, one
     instantiation per bucket with no spill stores, and at least K² FFMA in
     the K = 40 bucket (its step's sums, each a FFMA of its own); the counts
     of shared loads, shuffles and MUFU (the division's reciprocal) beside
@@ -558,29 +552,6 @@ def sass_check(_build, kernels):
     most 128 registers where two blocks share an SM, cp.async copies
     (LDGSTS, its ring) and at least 8 × 16 G FFMA (8 unrolled rows of a
     chunk, G pairs of rows × 8 cells each)."""
-    usage = ptxas_usage(_build.build_log("fused_iteration"))
-    rows, k1_fma = [], []
-    ops = ("HMMA", "LDGSTS", "FFMA")
-    for fn, count in sorted(sass_counts(_build, "fused_iteration", ops).items()):
-        m = PASS_NAME.search(fn)
-        u = usage.get(fn, {})
-        if m and m.group(1):
-            kernel, x, bf16, counts = m.group(1, 2, 3, 4)
-        elif m:
-            kernel, x, bf16, counts = m.group(5), m.group(6), "1", m.group(7)
-        else:
-            f = FMA_NAME.search(fn)
-            if f:
-                k1_fma.append({"kernel": f.group(1), "x": X_CODES.get(f.group(2), f.group(2)),
-                               "rows": int(f.group(3)),
-                               **{op.lower(): count[op] for op in ops},
-                               "registers": u.get("registers"),
-                               "spill_stores": u.get("spill_stores")})
-            continue
-        rows.append({"kernel": kernel, "x": X_CODES.get(x, x),
-                     "counts": counts == "1", "tensor_core_path": bf16 == "1",
-                     "hmma": count["HMMA"], "registers": u.get("registers"),
-                     "spill_stores": u.get("spill_stores")})
     usage = ptxas_usage(_build.build_log("fused_transform"))
     trows = []
     ops = ("FFMA", "LDS", "LDGSTS", "SHFL", "MUFU", "HMMA")
@@ -598,16 +569,7 @@ def sass_check(_build, kernels):
                       **{op.lower(): count[op] for op in ops},
                       "registers": u.get("registers"),
                       "spill_stores": u.get("spill_stores")})
-    emit({"phase": "sass", "functions": rows, "fused_iteration_fp32_passes": k1_fma,
-          "fused_transform": trows})
-    # iter_tiles on four X types with and without counts, hxt_partial on two
-    check(len(rows) == 12, f"expected 12 pass instantiations, found {len(rows)}")
-    for r in rows:
-        tag = f"{r['kernel']} {r['x']} counts={r['counts']}"
-        check((r["hmma"] > 0) == r["tensor_core_path"],
-              f"{tag}: HMMA count {r['hmma']} does not fit its path")
-        if r["tensor_core_path"]:
-            check(r["spill_stores"] == 0, f"{tag}: spill stores {r['spill_stores']}")
+    emit({"phase": "sass", "fused_transform": trows})
     xrows, wide, wgmma, gram = [], [], [], []
     usage = ptxas_usage(_build.build_log("x_passes"))
     ops = ("HMMA", "LDGSTS", "LDSM", "FFMA", "HGMMA", "UTMALDG")
@@ -752,21 +714,6 @@ def sass_check(_build, kernels):
             check(r["ldsm"] > 0, f"{tag}: no ldmatrix (LDSM)")
         if r["kernel"].endswith("_fma"):  # the FP32 units
             check(r["ffma"] >= 8 * r["rows"], f"{tag}: {r['ffma']} FFMA")
-    # fused_iteration's copies of the fp32 X passes (fma_passes.cuh): the same
-    # instantiations, FFMA and LDGSTS, no HMMA, no spill, x_passes' registers
-    check(sorted((r["kernel"], r["x"], r["rows"]) for r in k1_fma)
-          == sorted((r["kernel"], r["x"], r["rows"]) for r in xrows
-                    if r["kernel"].endswith("_fma")),
-          "fused_iteration's fp32 X passes differ from x_passes'")
-    x_regs = {(r["kernel"], r["x"], r["rows"]): r["registers"] for r in xrows}
-    for r in k1_fma:
-        tag = f"fused_iteration {r['kernel']} {r['x']} {r['rows']}"
-        check(r["hmma"] == 0 and r["ldgsts"] > 0 and r["ffma"] >= 8 * r["rows"],
-              f"{tag}: HMMA {r['hmma']}, LDGSTS {r['ldgsts']}, FFMA {r['ffma']}")
-        check(r["spill_stores"] == 0, f"{tag}: spill stores {r['spill_stores']}")
-        check(r["registers"] == x_regs[(r["kernel"], r["x"], r["rows"])],
-              f"{tag}: {r['registers']} registers, x_passes' copy "
-              f"{x_regs[(r['kernel'], r['x'], r['rows'])]}")
     buckets = sorted(r["bucket"] for r in trows if r["bucket"])
     check(buckets == sorted(kernels._TRANSFORM_BUCKETS),
           f"fused_transform buckets {buckets} differ from the wrapper's")
@@ -1234,6 +1181,7 @@ def iteration_twin_rows(torch, kernels, gen, dev, card):
                    "x_row_bytes_mod_16": n % 16,
                    "grid": kernels.iteration_grid(G, n, sum(blocks), torch.int8)._asdict()}
             row["device_us"], row["kernels_a_call"] = device_us(torch, kern)
+            row["device_ms_by_kernel"] = device_ms_by_kernel(torch, kern)
             emit(row)
             rows[(tag, n)] = row
             del X, W, H, WtW, Ys, Bs, lam, C
@@ -2863,7 +2811,7 @@ WIDE_ROWS = {"fused_iteration wide": "alpine_tpu_torch/csrc/x_passes.cu",
              "fused_transform wide K=768 n_iter=50": "alpine_tpu_torch/csrc/fused_transform.cu",
              "hxt wide K=768": "alpine_tpu_torch/csrc/x_passes_wide.cuh",
              "wtx wide K=768": "alpine_tpu_torch/csrc/x_passes_wide.cuh",
-             "wtx k=384 K=384": "alpine_tpu_torch/csrc/x_passes.cu",
+             "wtx k=384 K=384": "alpine_tpu_torch/csrc/mma_passes.cuh",
              # the chain's H Hᵀ, HHtU, rowsum and Bnum (gram_wide alone)
              "gram_wide K=768": "alpine_tpu_torch/csrc/gram_wide.cuh",
              "gram_wide counts K=768": "alpine_tpu_torch/csrc/gram_wide.cuh",
@@ -3077,6 +3025,17 @@ def run_kernel_wide_phase(torch, kernels, _build, gen, dev, card):
                      "own Hs); second launch bit for bit"})
     torch.cuda.empty_cache()
     return run_kernel_wide_bench(torch, kernels, gen, dev, card)
+
+
+def k1_chain(kname):
+    """The kernels one K1/K2/K4 call of the kernels line's row ``kname``
+    launches, in order (round_w / round_h, which round an operand of the
+    bf16 X passes, and wtw_transpose left out)."""
+    fp32 = "int16" in kname or "float32" in kname
+    x = ("fma" if fp32 else "mma") + ("_wide" if " wide" in kname else "")
+    if x == "mma_wide":
+        x = "wide"
+    return f"wtx_{x} → wtw_gemm → iter_wide → hxt_{x} → gram_wide → reduce_partials"
 
 
 def device_ms_by_kernel(torch, fn):
@@ -4771,6 +4730,8 @@ def main():
         if timed:
             row["ms"] = time_ms(kern, 5)
             row["plain_ms"] = time_ms(plain, 3)
+            # the chain's split: the card's ms of each kernel of one call
+            row["device_ms_by_kernel"] = device_ms_by_kernel(torch, kern)
             xb = torch.empty((), dtype=xdtype).element_size()
             bf16 = xdtype in (torch.int8, torch.bfloat16)
             cost = iteration_cost(g, n, blocks, n_labels, xb, bf16,
@@ -4786,10 +4747,11 @@ def main():
             del Xb
         if timed and not bf16:
             # the same yardstick on the fp32 path: fp32 torch.matmul over a
-            # float32 copy of X; and the grid the four launches ran
+            # float32 copy of X
             Xf = X.float()
             row["x_products_cublas_fp32_ms"] = time_ms(lambda: (W.T @ Xf, H @ Xf.T), 5)
             del Xf
+        if timed:  # the grid the chain's launches ran
             row["grid"] = kernels.iteration_grid(g, n, sum(blocks), xdtype)._asdict()
         emit(row)
         check(worst <= 1.0, f"{tag}: kernel disagrees with its plain version")
@@ -4805,7 +4767,7 @@ def main():
     # small cases: 300 genes (not a multiple of either gene chunk) and 5000
     # or 5003 cells (not a multiple of any tile or of the cell chunk); K not
     # a multiple of 16 on the tensor-core path (int8, bf16), and K = 300 and
-    # 512, where that path takes 16-cell tiles and float32 8-cell ones
+    # 512 (8-cell tiles)
     edge_cases = [
         (torch.int8, (7, 14), (3,), True),
         (torch.bfloat16, (5, 5, 30), (2, 3), False),
@@ -4838,9 +4800,9 @@ def main():
                            f"{blocks}/{labels} {'kl' if kl else 'frob'}",
                            300, 5003, blocks, labels, xdt, kl, False,
                            counts=mixed_counts)
-    # 5040 cells: a multiple of 16, so the tensor-core path stages X, W and
-    # Hn in 16-byte loads (5000 and 5003 take its element-by-element
-    # staging), but not of the 64-cell tile or chunk
+    # 5040 cells: a multiple of 16, so the X passes copy X's rows as they
+    # are (5000 and 5003 take the aligned windows that cover each row), but
+    # not of the 64-cell tile or chunk
     for xdt, blocks, labels, kl in edge_cases:
         for C in (None, mixed_counts):
             run_iteration_case(f"fused_iteration {'counts ' if C else ''}small "
@@ -5568,13 +5530,16 @@ def main():
                   *WIDE_ROWS):
         res = results[kname]
         base = kname.split()[0].replace("_fma", "")
-        rows.append({"name": kname, "route": "cuda",
-                     "source": WIDE_ROWS.get(kname, SOURCES[base]),
-                     "replaces": REPLACES[base], "launches": launches[kname],
-                     "max_abs_err": res.get("max_abs_err_Hn", res.get("max_abs_err")),
-                     "ms": res["ms"], "plain_ms": res["plain_ms"],
-                     "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
-                     "library_ms": res.get("library_ms")})
+        row = {"name": kname, "route": "cuda",
+               "source": WIDE_ROWS.get(kname, SOURCES[base]),
+               "replaces": REPLACES[base], "launches": launches[kname],
+               "max_abs_err": res.get("max_abs_err_Hn", res.get("max_abs_err")),
+               "ms": res["ms"], "plain_ms": res["plain_ms"],
+               "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
+               "library_ms": res.get("library_ms")}
+        if base in ("fused_iteration", "fused_iteration_counts", "fused_h_update"):
+            row["chain"] = k1_chain(kname)
+        rows.append(row)
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}})
     return 0

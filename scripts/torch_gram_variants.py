@@ -73,7 +73,7 @@ def main():
                os.path.join(ROOT, "scripts", "gram_wide_variants.cu")]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                 text=True)
-        _build.entry("fused_iteration_wide")
+        _build.entry("fused_iteration")
         logs = {"x_passes": _build.build_log("x_passes"), "variants": proc.communicate()[0]}
         if proc.returncode != 0:
             raise SystemExit(f"nvcc failed for the variants:\n{logs['variants']}")

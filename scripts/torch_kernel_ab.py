@@ -61,7 +61,22 @@ A run times, at the bench shape (100k cells x 2,000 genes, K = 40, labels
   5 warm launches, beside fp32 ``torch.matmul`` of P1's and P2's products
   with TF32 off (``hxt_k768_float32_library_ms``, ...), and their worst
   error over the plain versions' tolerance
-  (``fp32_wide_k768_worst_err_over_tolerance``).
+  (``fp32_wide_k768_worst_err_over_tolerance``);
+- K1, K4 and K2 on int8 X at K = 40, 56, 112, 144 and 224 (blocks (K // 6,
+  K // 6, the rest), labels (2, 3)) on 66,667, 66,672 and 100,000 cells:
+  median CUDA-event ms of 10 warm launches (``sweep_K144_n66667_k1_ms``,
+  ``..._k4_ms``, ``..._k2_ms``), the card's ms of each kernel one call
+  launches (``k_sweep_split``, torch.profiler) and the worst error over the
+  plain versions' tolerance (``k_sweep_worst_err_over_tolerance``; XHt
+  against the plain product over the call's own Hs); digests of the
+  outputs that must not move there, P1 ``hxt`` at K and P2 ``wtx`` at K
+  on the int8 X (``k_sweep_bits``), and of K1/K4/K2 on the int8 X
+  (``k_sweep_bf16_bits``) and on the same X as float32
+  (``k_sweep_fp32_bits``).
+
+The full-batch and weighted_fast loops also report their device ms per
+iteration (``fit_loop_device_ms_per_iteration``, ...; torch.profiler, one
+more run).
 
 Prints one JSON line per run, then one summary line with the mean of each
 checkout's two runs, whether all four runs agree bit for bit on the
@@ -72,7 +87,10 @@ int8/bf16 outputs (``k1_bf16_path_bits_equal``), on K3's
 (``x_pass_bf16_path_bits_equal``), on ``wtx``'s (``wtx_fp32_bits_equal``)
 and on ``wtx``'s tensor-core path (``wtx_bf16_path_bits_equal``), and on
 the K = 768 outputs (``wide_bf16_path_bits_equal``; whether each
-checkout's two runs agree: ``wide_bf16_path_runs_repeat``); for
+checkout's two runs agree: ``wide_bf16_path_runs_repeat``), on the K
+sweep's P1/P2 outputs (``k_sweep_bits_equal``) and whether each
+checkout's two runs repeat its int8 and float32 K1/K4/K2 bits
+(``k_sweep_bf16_runs_repeat``, ``k_sweep_fp32_runs_repeat``); for
 ``fp32_path``, ``x_pass_fp32``, ``wtx_fp32`` and ``wtx_bf16_path``, whether
 each checkout's two runs agree (``..._runs_repeat``)
 and the largest difference between the two checkouts' outputs, absolute
@@ -99,6 +117,8 @@ TRANSFORM_ITERS = 50
 LOOP_ITERS = 10
 ALS_LOOP_ITERS = 20
 LOOP_REPEATS = 3  # timed runs of each loop; their median is reported
+SWEEP_KS = (40, 56, 112, 144, 224)
+SWEEP_NS = (66_667, 66_672, 100_000)
 
 
 def child(root, save_path):
@@ -303,6 +323,80 @@ def child(root, save_path):
                       if e.device_type == DeviceType.CUDA)
         return float(np.median(times)), busy_us * 1e-3 / iters
 
+    def k_sweep():
+        """K1/K4/K2 on int8 X at SWEEP_KS x SWEEP_NS: times, each kernel's
+        device ms, worst error over the plain tolerance, and digests."""
+        times, split, fixed_bits, bf16_bits, fp32_bits, worst = {}, {}, {}, {}, {}, 0.0
+        for n in SWEEP_NS:
+            Xn = torch.poisson(torch.full((G, n), 1.5, device=dev),
+                               generator=gen).clamp_(max=127).to(torch.int8)
+            Yn = [torch.nn.functional.one_hot(
+                torch.randint(0, nl, (n,), generator=gen, device=dev), nl).T.contiguous()
+                .to(torch.int8) for nl in N_LABELS]
+            Cn = torch.randint(0, 4, (2, n), generator=gen, device=dev).float()
+            Xf, Yf = Xn.float(), [y.float() for y in Yn]
+            for K in SWEEP_KS:
+                blocks = (K // 6, K // 6, K - 2 * (K // 6))
+                Wk = torch.rand((G, K), generator=gen, device=dev) + 0.05
+                Hk = torch.rand((K, n), generator=gen, device=dev) + 0.05
+                Bk = [torch.rand((nl, blocks[c]), generator=gen, device=dev) + 0.05
+                      for c, nl in enumerate(N_LABELS)]
+                WtWk = Wk.T @ Wk
+
+                def modes(Xd, Yd):
+                    return {
+                        "k1": (lambda: kernels.fused_iteration(
+                                   Xd, Wk, Hk, WtWk, Yd, Bk, lam, EPS, blocks=blocks,
+                                   loss_kl=True),
+                               lambda: kernels.fused_iteration_plain(
+                                   Xd, Wk, Hk, WtWk, Yd, Bk, lam, EPS, blocks=blocks,
+                                   loss_kl=True), None),
+                        "k4": (lambda: kernels.fused_iteration(
+                                   Xd, Wk, Hk, WtWk, Yd, Bk, lam, EPS, Cn, blocks=blocks,
+                                   loss_kl=True),
+                               lambda: kernels.fused_iteration_plain(
+                                   Xd, Wk, Hk, WtWk, Yd, Bk, lam, EPS, Cn, blocks=blocks,
+                                   loss_kl=True), Cn[1]),
+                        "k2": (lambda: kernels.fused_h_update(Xd, Wk, Hk, WtWk, EPS),
+                               lambda: kernels.fused_h_update_plain(Xd, Wk, Hk, WtWk, EPS),
+                               None)}
+
+                tag = f"sweep_K{K}_n{n}"
+                outs = []
+                for mode, (fn, plain, scale) in modes(Xn, Yn).items():
+                    got, want = flat(fn()), flat(plain())
+                    want[1] = kernels.hxt_plain(Xn, got[0] if scale is None
+                                                else got[0] * scale).T
+                    for a, b in zip(got, want):
+                        allowed = 1e-6 * float(b.abs().max()) + 1e-4 * b.abs()
+                        worst = max(worst, float(((a - b).abs() / allowed).max()))
+                    outs.append(got)
+                    del want
+                    times[f"{tag}_{mode}_ms"] = time_ms(fn, reps=10)
+                    fn()
+                    torch.cuda.synchronize()
+                    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                        fn()
+                        torch.cuda.synchronize()
+                    split[f"{tag}_{mode}"] = {
+                        e.key.split("<")[0].split("(")[0].replace("void alpine::", ""):
+                            e.self_device_time_total * 1e-3
+                        for e in prof.key_averages()
+                        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
+                bf16_bits[tag] = digest(outs)
+                del outs
+                fixed_bits[tag] = digest([[kernels.hxt(Xn, Hk)], [kernels.wtx(Xn, Wk)]])
+                fp32_bits[tag] = digest([fn() for fn, _, _ in modes(Xf, Yf).values()])
+                del Wk, Hk, Bk, WtWk
+            del Xn, Yn, Cn, Xf, Yf
+            torch.cuda.empty_cache()
+        return {**times, "k_sweep_worst_err_over_tolerance": worst, "k_sweep_split": split,
+                "k_sweep_bits": fixed_bits, "k_sweep_bf16_bits": bf16_bits,
+                "k_sweep_fp32_bits": fp32_bits}
+
+    flat = lambda o: [t for v in (o if isinstance(o, tuple) else (o,))
+                      for t in (v if isinstance(v, tuple) else (v,))]
+    sweep = k_sweep()
     als_loops = {}
     X16, Ys16 = X.to(torch.int16) * 3, [y.to(torch.int16) for y in Ys]
     for tag, Xl, Yl in (("", X, Ys), ("_int16", X16, Ys16)):
@@ -342,8 +436,6 @@ def child(root, save_path):
         "fused_h_update": (lambda: kernels.fused_h_update(X, Ww, Hw, WtWw, EPS),
                            lambda: kernels.fused_h_update_plain(X, Ww, Hw, WtWw, EPS),
                            None)}
-    flat = lambda o: [t for v in (o if isinstance(o, tuple) else (o,))
-                      for t in (v if isinstance(v, tuple) else (v,))]
     wide_ms, wide_bits, wide_worst = {}, {}, 0.0
     for name, (fn, plain, scale) in wide.items():
         got, want = flat(fn()), flat(plain())
@@ -407,9 +499,13 @@ def child(root, save_path):
                       "hxt_ms": hxt_ms, "hxt_back_to_back_ms": hxt_b2b_ms,
                       "wtx_k5_ms": wtx5_ms, "wtx_k5_back_to_back_ms": wtx5_b2b_ms,
                       "wtx_k30_ms": wtx30_ms, "wtx_k30_back_to_back_ms": wtx30_b2b_ms,
-                      "fit_loop_ms_per_iteration": loop_ms(False),
-                      "fit_loop_weighted_fast_ms_per_iteration": loop_ms(True),
-                      **fp32_k_ms, **x_pass_ms, **als_loops, **wide_ms,
+                      **dict(zip(("fit_loop_ms_per_iteration",
+                                  "fit_loop_device_ms_per_iteration"),
+                                 loop_ms(False, device=True))),
+                      **dict(zip(("fit_loop_weighted_fast_ms_per_iteration",
+                                  "fit_loop_weighted_fast_device_ms_per_iteration"),
+                                 loop_ms(True, device=True))),
+                      **fp32_k_ms, **x_pass_ms, **als_loops, **wide_ms, **sweep,
                       "wide_k768_worst_err_over_tolerance": wide_worst,
                       "fp32_path_bits": bits, "k1_bf16_path_bits": k1_bf16_bits,
                       "k3_bits": k3_bits,
@@ -472,17 +568,24 @@ def main(argv):
                ("x_pass_bf16_bits", "x_pass_bf16_path_bits_equal"),
                ("wtx_fp32_bits", "wtx_fp32_bits_equal"),
                ("wtx_bf16_bits", "wtx_bf16_path_bits_equal"),
-               ("wide_bf16_bits", "wide_bf16_path_bits_equal"))
+               ("wide_bf16_bits", "wide_bf16_path_bits_equal"),
+               ("k_sweep_bits", "k_sweep_bits_equal"))
+    unaveraged = {"root", "k_sweep_split", "k_sweep_bf16_bits", "k_sweep_fp32_bits",
+                  *dict(digests)}
     for label, root in (("parent", parent), ("change", change)):
         summary[label] = {k: sum(r[k] for r in runs[root]) / 2
-                          for k in runs[root][0]
-                          if k != "root" and k not in dict(digests)}
+                          for k in runs[root][0] if k not in unaveraged}
+        summary[f"{label}_k_sweep_split"] = runs[root][0]["k_sweep_split"]
     for key, out in digests:
         seen = {json.dumps(r.get(key), sort_keys=True)
                 for rs in runs.values() for r in rs}
         summary[out] = len(seen) == 1
     summary["wide_bf16_path_runs_repeat"] = all(
         rs[0].get("wide_bf16_bits") == rs[1].get("wide_bf16_bits") for rs in runs.values())
+    for kind in ("bf16", "fp32"):
+        summary[f"k_sweep_{kind}_runs_repeat"] = all(
+            rs[0].get(f"k_sweep_{kind}_bits") == rs[1].get(f"k_sweep_{kind}_bits")
+            for rs in runs.values())
     summary["wide_bits_equal_by_kernel"] = {
         name: len({r["wide_bf16_bits"].get(name) for rs in runs.values() for r in rs}) == 1
         for name in runs[change][0]["wide_bf16_bits"]}

@@ -4,7 +4,7 @@
     python3 scripts/torch_wtx_variants.py         # from the repository root
 
 Each variant is a copy of ``alpine_tpu_torch`` in a temporary directory with
-textual edits of ``csrc/x_passes.cu`` (and, where the wrapper must
+textual edits of ``csrc/mma_passes.cuh`` (and, where the wrapper must
 follow, of ``ops/kernels.py``), built there and timed in a process of its own:
 
 - ``as_is``: the kernel as it is;
@@ -154,24 +154,24 @@ GRID_PY_REALIGN = """    least = 2 if aligned else 3  # stages
                 return T, WR, GC, S, -(-n // T)
     raise ValueError("no ring fits")"""
 REALIGN = [
-    ("csrc/x_passes.cu", "// Wb[k][gi] = bf16(W[gi][k]) for k < K",
+    ("csrc/mma_passes.cuh", "// Wb[k][gi] = bf16(W[gi][k]) for k < K",
      REALIGN_FN + "// Wb[k][gi] = bf16(W[gi][k]) for k < K"),
-    ("csrc/x_passes.cu", LOOP, REALIGN_LOOP),
-    ("csrc/x_passes.cu", "          if constexpr (kAligned) {\n"
+    ("csrc/mma_passes.cuh", LOOP, REALIGN_LOOP),
+    ("csrc/mma_passes.cuh", "          if constexpr (kAligned) {\n"
      "            ldsm_x4_trans(r, x + (g32 + lane) * XR + cw + nt * 16);",
      "          if constexpr (true) {\n"
      "            ldsm_x4_trans(r, x + (g32 + lane) * XR + cw + nt * 16);"),
-    ("csrc/x_passes.cu", "            if constexpr (kAligned) {\n"
+    ("csrc/mma_passes.cuh", "            if constexpr (kAligned) {\n"
      "              ldsm_x4_trans(r, x + (g32 + ks * 16 + (lane & 15)) * XR +",
      "            if constexpr (true) {\n"
      "              ldsm_x4_trans(r, x + (g32 + ks * 16 + (lane & 15)) * XR +"),
-    ("csrc/x_passes.cu", SMEM_C, SMEM_C_REALIGN),
-    ("csrc/x_passes.cu", "wtx_mma_smem_bytes(K, T, S, GC, sizeof(XT) == 1);",
+    ("csrc/mma_passes.cuh", SMEM_C, SMEM_C_REALIGN),
+    ("csrc/mma_passes.cuh", "wtx_mma_smem_bytes(K, T, S, GC, sizeof(XT) == 1);",
      "wtx_mma_smem_bytes(K, T, S, GC, sizeof(XT) == 1, !aligned);"),
-    ("csrc/x_passes.cu", "S >= 2 && S <= 8 && (GC == 32 || GC == 64) && Wb != nullptr",
+    ("csrc/mma_passes.cuh", "S >= 2 && S <= 8 && (GC == 32 || GC == 64) && Wb != nullptr",
      "S >= (aligned ? 2 : 3) && S <= 8 && (GC == 32 || GC == 64) && Wb != nullptr"),
-    ("ops/kernels.py", "                   chunk: int) -> int:\n    \"\"\"csrc/x_passes.cu:wtx_mma_smem_bytes",
-     "                   chunk: int, realign: bool = False) -> int:\n    \"\"\"csrc/x_passes.cu:wtx_mma_smem_bytes"),
+    ("ops/kernels.py", "                   chunk: int) -> int:\n    \"\"\"csrc/mma_passes.cuh:wtx_mma_smem_bytes",
+     "                   chunk: int, realign: bool = False) -> int:\n    \"\"\"csrc/mma_passes.cuh:wtx_mma_smem_bytes"),
     ("ops/kernels.py", SMEM_PY, SMEM_PY_REALIGN),
     ("ops/kernels.py", "def wtx_grid(g: int, n: int, K: int, x_dtype: torch.dtype\n",
      "def wtx_grid(g: int, n: int, K: int, x_dtype: torch.dtype, aligned: bool = True\n"),
@@ -185,13 +185,13 @@ REALIGN = [
 VARIANTS = {
     "as_is": [],
     "realign": REALIGN,
-    "stagger": [("csrc/x_passes.cu", "      const int g0 = (chunk0 + c) * GC;",
+    "stagger": [("csrc/mma_passes.cuh", "      const int g0 = (chunk0 + c) * GC;",
                  "      const int g0 = (chunk0 + (c + (int)blockIdx.x) % n_chunks) * GC;")],
     "wb_replicas": [
-        ("csrc/x_passes.cu", COPY_W,
+        ("csrc/mma_passes.cuh", COPY_W,
          "        cp_async16(w + k * WB + j * 2, Wb + ((size_t)(blockIdx.x % 8) * Kp + k)"
          " * g_pad + g0 + j, true);"),
-        ("csrc/x_passes.cu",
+        ("csrc/mma_passes.cuh",
          "  *reinterpret_cast<uint4*>(Wb + (size_t)k * g_pad + g0) = "
          "*reinterpret_cast<const uint4*>(r);",
          "  for (int cpy = 0; cpy < 8; ++cpy)\n"
@@ -199,7 +199,7 @@ VARIANTS = {
          "        *reinterpret_cast<const uint4*>(r);"),
         ("ops/kernels.py", "        wb_bytes = -(-2 * _pad16(K) * ",
          "        wb_bytes = -(-16 * _pad16(K) * ")],
-    "wb_once": [("csrc/x_passes.cu",
+    "wb_once": [("csrc/mma_passes.cuh",
                  "      for (int q = tid; q < Kp << wv_shift; q += kThreads) {",
                  "      for (int q = tid; c < S && q < Kp << wv_shift; q += kThreads) {")],
     "gene_chunk_32": [("ops/kernels.py", "_WTX_GENE_CHUNKS = (64, 32)",
@@ -212,10 +212,10 @@ VARIANTS = {
     "ranges_x2": [("ops/kernels.py", "_WTX_RANGE_CHUNKS = 4", "_WTX_RANGE_CHUNKS = 2"),
                   ("ops/kernels.py", "min(2 * _SMS // blocks,", "min(4 * _SMS // blocks,")],
     "copies_only": [
-        ("csrc/x_passes.cu",
+        ("csrc/mma_passes.cuh",
          "#pragma unroll 1\n    for (int g32 = 0; g32 < GC; g32 += 32) {",
          "    if (K > (1 << 30)) {\n#pragma unroll 1\n    for (int g32 = 0; g32 < GC; g32 += 32) {"),
-        ("csrc/x_passes.cu",
+        ("csrc/mma_passes.cuh",
          "    st = st + 1 == S ? 0 : st + 1;\n  }\n  cp_async_wait(0);\n  // each lane",
          "    }\n    st = st + 1 == S ? 0 : st + 1;\n  }\n  cp_async_wait(0);\n  // each lane")],
 }

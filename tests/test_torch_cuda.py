@@ -166,10 +166,10 @@ def _unaligned(t):
 def test_fused_iteration_cuda_staging_paths_agree(cuda, dtype, blocks, n_labels,
                                                   loss_kl):
     """At 1040 cells (a multiple of 16, not of the 64-cell tile or chunk) the
-    tensor-core path stages X, W and Hn in 16-byte loads; the same X and W
-    at addresses off 16-byte alignment take its element-by-element staging.
-    Both match the plain version and give the same bits, with and without
-    counts."""
+    int8/bf16 chain's X passes copy X's rows as they are; the same X and W
+    at addresses off 16-byte alignment take the aligned windows that cover
+    X's rows (and round_w reads W element by element anyway).  Both match
+    the plain version and give the same bits, with and without counts."""
     X, W, H, WtW, Ys, Bs, lam = _problem(11, 70, 1040, blocks, n_labels, dtype,
                                          cuda)
     r = np.random.default_rng(12)
@@ -384,6 +384,56 @@ def test_fused_iteration_fp32_path_same_bits(cuda, dtype, n, mode):
     else:
         want = kernels.fused_iteration_plain(X, W, H, WtW, Ys, Bs, lam, EPS, C,
                                              blocks=blocks, loss_kl=True)
+    for a, b in zip(flat(got), flat(want), strict=True):
+        _close(a, b, 1e-4, 1e-5)
+    if mode == "K4":
+        undrawn = C[0] == 0
+        assert bool(undrawn.any())
+        assert torch.equal(got[0][:, undrawn], H[:, undrawn])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["int8", "bfloat16"])
+@pytest.mark.parametrize("K", [16, 40, 144, 224, 512])
+@pytest.mark.parametrize("n", [66_667, 1001])
+@pytest.mark.parametrize("mode", ["K1", "K2", "K4"])
+def test_k1_chain_cuda_matches_plain(cuda, dtype, K, n, mode):
+    """K1, K2 and K4 on int8/bf16 X at K <= 512 (the chain wtx_mma →
+    iter_tiles → hxt_mma → reduce_partials) against their plain versions
+    (rtol 1e-4 / atol 1e-5; XHt against the plain product over the call's
+    own Hs), on 300 genes and 66,667 or 1,001 cells (rows off 16-byte
+    alignment); a second launch and the same X one element off its address
+    (1 byte for int8, 2 for bf16) give the same bits; each call counts one wtx_mma and one hxt_mma launch; in K4
+    undrawn columns keep H bit for bit."""
+    blocks, n_labels = ((K // 5, K // 5, K - 2 * (K // 5)), (2, 3)) if mode != "K2" else ((K,), ())
+    X, W, H, WtW, Ys, Bs, lam = _problem(K + n, 300, n, blocks, n_labels, dtype, cuda)
+    C = None
+    if mode == "K4":
+        r = np.random.default_rng(K)
+        C = torch.from_numpy(r.integers(0, 4, (2, n)).astype(np.float32)).to(cuda)
+    flat = lambda o: [t for v in o for t in (v if isinstance(v, tuple) else (v,))]
+
+    def run(X):
+        if mode == "K2":
+            return kernels.fused_h_update(X, W, H, WtW, EPS)
+        return kernels.fused_iteration(X, W, H, WtW, Ys, Bs, lam, EPS, C, blocks=blocks,
+                                       loss_kl=n % 2 == 1)
+
+    before = dict(kernels.launches)
+    got, again, moved = run(X), run(X), run(_at_byte_offset(X, X.element_size()))
+    torch.cuda.synchronize()
+    name = {"K1": "fused_iteration", "K2": "fused_h_update",
+            "K4": "fused_iteration_counts"}[mode]
+    for key in (name, "wtx_mma", "hxt_mma"):
+        assert kernels.launches[key] == before[key] + 3, key
+    for a, b, c in zip(flat(got), flat(again), flat(moved), strict=True):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    if mode == "K2":
+        want = kernels.fused_h_update_plain(X, W, H, WtW, EPS)
+    else:
+        want = kernels.fused_iteration_plain(X, W, H, WtW, Ys, Bs, lam, EPS, C,
+                                             blocks=blocks, loss_kl=n % 2 == 1)
+    want = _hold_xht_on_own_hs(dtype, X, got, want, None if C is None else C[1])
     for a, b in zip(flat(got), flat(want), strict=True):
         _close(a, b, 1e-4, 1e-5)
     if mode == "K4":

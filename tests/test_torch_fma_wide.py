@@ -347,7 +347,7 @@ def test_chain_passes_the_fma_wide_grid(monkeypatch, dtype):
     kernels.fused_iteration(X, torch.ones((g, K)), torch.ones((K, n)), torch.ones((K, K)), Ys,
                             Bs, torch.ones(2), 1e-6, blocks=blocks, loss_kl=True)
     ((name, args),) = calls
-    assert name == "fused_iteration_wide"
+    assert name == "fused_iteration"
     grid = kernels.wide_iteration_grid(g, n, K, X.dtype)
     assert args[17:33] == tuple(grid) and len(grid) == 16
     d, S = kernels.wtw_design(), kernels._FW_STAGES

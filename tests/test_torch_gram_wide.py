@@ -35,7 +35,7 @@ torch.set_num_threads(1)
 
 EPS = 1e-6
 BM = kernels._GRAM_BM
-GRID_KS = (513, 640, 768, 1030, 2048)
+GRID_KS = (1, 40, 128, 144, 512, 513, 640, 768, 1030, 2048)  # K <= 512: K1's chain too
 GRID_NS = (17, 1001, 5040, 16_384, 16_385, 66_667, 100_000, 250_000)
 
 
@@ -130,8 +130,14 @@ def test_gram_wide_grid_covers_each_cell_once(K, n):
 def test_gram_wide_grid_at_the_bench_shape():
     """At K = 768 and 100k cells: 21 tile pairs x 50 splits of 2,000
     cells, 1,050 tile-pair blocks (about eight an SM of 132), and a block
-    of extra columns a row tile and chunk of 8."""
+    of extra columns a row tile and chunk of 8.  At K <= 512 (K1's chain
+    below the large-K route) about 264 splits whatever the pairs: 261 of
+    384 cells at 100k cells, K = 40 (one pair) or 512 (ten), 261 of 256 at
+    the optimizer's fold (66,667 cells, K = 144)."""
     assert kernels.gram_wide_grid(100_000, 768) == (50, 2000)
+    for K in (40, 512):
+        assert kernels.gram_wide_grid(100_000, K) == (261, 384)
+    assert kernels.gram_wide_grid(66_667, 144) == (261, 256)
     assert len(kernels.gram_wide_pairs(768)) == 21
     assert kernels.gram_items(768, 5) == 21 + 6  # 6 extra columns: one chunk a row tile
     assert kernels.gram_items(768, 8) == 21 + 12  # 9: two chunks a row tile

@@ -9,7 +9,8 @@ limit for every K (1..512 and a sample of the large-K route up to 2048),
 and the sum of per-split partials in split order over that grid equal to
 ``hxt_plain`` (rtol 1e-5: fp32 sums of positive terms in another order).
 The float32/int16 path takes ``hxt_fma_grid``
-(tests/test_torch_fp32_passes.py); K1's bf16 path keeps ``_cell_splits``;
+(tests/test_torch_fp32_passes.py); K1's X Hnᵀ on int8/bf16 X runs the same
+kernel over ``k1_hxt_grid`` (hxt_grid with splits of at most 16,384 cells);
 the wide kernel's slot order and staging: tests/test_torch_wide_passes.py.
 """
 
@@ -118,14 +119,33 @@ def test_hxt_grid_at_the_bench_shape():
             for K in (64, 65, 128, 129, 256, 257, 512)] == [128, 64, 64, 32, 32, 16, 16]
 
 
-def test_cell_splits_keep_the_fp32_and_k1_grid():
-    """_cell_splits, which K1's bf16 path (fused_iteration's X Hnᵀ pass on
-    int8/bf16 X) uses, keeps its grid at the bench shape; the float32/int16
-    paths of hxt and of K1 take hxt_fma_grid instead."""
-    for xdt in (torch.int8, torch.float32):
-        assert kernels.iteration_tile_width(40, xdt) == 64
-    assert kernels._cell_splits(2000, 100_000, 64) == (131, 768)
-    assert kernels._cell_splits(300, 50_000, 64) == (782, 64)
+@pytest.mark.parametrize("dtype", list(MMA))
+@pytest.mark.parametrize("g,n", [(2000, 100_000), (2000, 66_667), (300, 50_000),
+                                 (70, 17), (20_000, 1001)])
+def test_k1_x_hnt_takes_p1s_grid_with_short_splits(dtype, g, n):
+    """K1's X Hnᵀ on int8/bf16 X (``k1_hxt_grid``) is P1's grid (the same
+    gene blocks, ring and chunk; at the bench shape 16 gene blocks x 16
+    splits of 6,272 cells, as hxt runs) wherever P1's splits hold at most
+    16,384 cells, and otherwise the fewest splits of whole chunks that do,
+    covering every cell once: at 2,000 genes, K = 512, 66,667 cells 5
+    splits of 13,376 (hxt_grid: one of 66,688)."""
+    xdt = MMA[dtype]
+    for K in COVER_KS[:512]:
+        GB, n_split, cps, S, chunk = kernels.k1_hxt_grid(g, n, K, xdt)
+        p1 = kernels.hxt_grid(g, n, K, xdt)
+        assert (GB, S, chunk) == (p1[0], p1[3], p1[4])
+        if p1[2] <= kernels._WIDE_SPLIT_CELLS:
+            assert (n_split, cps) == p1[1:3]
+        else:
+            assert cps % chunk == 0 and cps <= kernels._WIDE_SPLIT_CELLS
+            assert n_split == -(-n // kernels._WIDE_SPLIT_CELLS)
+        assert (n_split - 1) * cps < n <= n_split * cps
+        assert kernels.iteration_grid(g, n, K, xdt)[9:14] == (GB, n_split, cps, S, chunk)
+    if (g, n) == (2000, 100_000):
+        assert kernels.k1_hxt_grid(g, n, 40, xdt)[:3] == (128, 16, 6272)
+    if (g, n) == (2000, 66_667):
+        assert kernels.hxt_grid(g, n, 512, xdt)[1:3] == (1, 66_688)
+        assert kernels.k1_hxt_grid(g, n, 512, xdt)[1:3] == (5, 13_376)
 
 
 def test_hxt_grid_rejects_what_the_kernel_does_not_take():
@@ -151,8 +171,9 @@ def test_hxt_grid_rejects_what_the_kernel_does_not_take():
         assert kernels.x_wide_smem_bytes("hxt", S, torch.int8) <= kernels._MAX_SMEM
 
 
-def _emulate_hxt(X, H, K, base=None):
-    """hxt_mma's arithmetic in PyTorch over hxt_grid's grid: each (gene
+def _emulate_hxt(X, H, K, base=None, grid=None):
+    """hxt_mma's arithmetic in PyTorch over hxt_grid's grid (or ``grid``,
+    the same 5-tuple: K1's ``k1_hxt_grid``): each (gene
     block, split) sums H rounded to bf16 times X over its cells, chunk by
     chunk, into its partial; the partials are added in split order from
     zero.  ``base`` None takes X's values as they are (the aligned path);
@@ -164,7 +185,7 @@ def _emulate_hxt(X, H, K, base=None):
         from tests.test_torch_wide_passes import emulate_hxt_wide
         return emulate_hxt_wide(X, H, base)
     g, n = X.shape
-    GB, n_split, cps, _, chunk = kernels.hxt_grid(g, n, K, X.dtype)
+    GB, n_split, cps, _, chunk = grid or kernels.hxt_grid(g, n, K, X.dtype)
     Hb, Xf = round_partner(H, X.dtype), X.float()
     sz = X.element_size()
     mem = None if base is None else device_bytes(X, base)

@@ -1,24 +1,27 @@
 """K1's float32/int16 path (``kernels.fused_iteration`` and its counts mode
 K4 on float32 and int16 X) on the CPU.
 
-On the card that path runs the kernels of ALS's fp32 X passes: wtx_fma
-writes WᵀX, the per-tile pass (csrc/fused_iteration.cu: iter_tiles) reads
-its tile of it and does the H update and the statistics, hxt_fma sums
-X Hnᵀ (X Hsᵀ in counts mode) into one partial a cell split, and
-reduce_partials adds the partials in split order.  The CUDA kernels run only
-on the card; these tests hold what they are given:
+On the card that path runs the chain of ``kernels.iteration_grid``: at
+K <= 512 the kernels of ALS's fp32 X passes, wtx_fma (WᵀX) and hxt_fma
+(X Hnᵀ, X Hsᵀ in counts mode, one partial a cell split), around the
+chain's own D = WᵀW H (wtw_gemm), H update (iter_wide) and statistics
+against Hn (gram_wide), then reduce_partials; above, the same chain with
+the fp32 X passes of fma_wide.cuh.  The CUDA kernels run only on the card;
+these tests hold what they are given:
 
 - ``kernels.iteration_grid``'s launch parameters for every K in 1..512:
-  every cell and gene covered once by each of the four launches, shared
-  memory within a Hopper block's limit, the bench shape's grid pinned, and
-  the int8/bf16 path's grid as it was; and for a sample of K up to 2048
-  the large-K chain's (``wide_iteration_grid``), on every X dtype;
-- a PyTorch emulation of the new summation order (WᵀX in wtx_fma's order,
-  tests/test_torch_fp32_passes.py:_emulate_wtx; the plain H update and
-  statistics; X Hnᵀ in hxt_fma's order, _emulate_hxt) against
-  ``kernels.fused_iteration_plain`` at rtol 1e-5 (fp32 sums of positive
-  terms in another order) and against the Pallas kernel in interpret mode at
-  the tolerances of tests/test_torch_kernels.py, with and without counts.
+  every cell and gene covered once by each launch, shared memory within a
+  Hopper block's limit, the bench shape's grid pinned (the int8/bf16
+  chain's: tests/test_torch_k1_chain.py); and for a sample of K up to 2048
+  the large-K grid (``wide_iteration_grid``), on every X dtype;
+- a PyTorch emulation of the chain's summation order
+  (tests/test_torch_wide_k.py:emulate_chain: WᵀX in wtx_fma's order,
+  tests/test_torch_fp32_passes.py:_emulate_wtx; the H update and iter_wide's
+  partials; X Hnᵀ in hxt_fma's order, _emulate_hxt; gram_wide's tiles)
+  against ``kernels.fused_iteration_plain`` at rtol 1e-5 (fp32 sums of
+  positive terms in another order) and against the Pallas kernel in
+  interpret mode at the tolerances of tests/test_torch_kernels.py, with
+  and without counts.
 """
 
 import jax.numpy as jnp
@@ -30,7 +33,8 @@ from alpine_tpu.ops import pallas_kernels as pk
 from alpine_tpu_torch.ops import kernels
 from alpine_tpu_torch.ops.mu import guided_width
 
-from .test_torch_fp32_passes import FP32, SHAPES, _emulate_hxt, _emulate_wtx
+from .test_torch_fp32_passes import FP32, SHAPES
+from .test_torch_wide_k import emulate_chain
 from .torch_k_samples import WIDE_SAMPLE
 
 torch.set_num_threads(1)
@@ -58,13 +62,14 @@ def _covered_once(n, starts, width):
 @pytest.mark.parametrize("g,n", SHAPES)
 def test_iteration_grid_covers_each_cell_and_gene_once(dtype, g, n):
     """Every launch of the fp32 path covers its axis once for every K:
-    iter_tiles' blocks walk their runs of T-cell tiles, wtx_fma's tiles the
-    cells, hxt_fma's gene blocks the genes and its splits the cells."""
+    iter_wide's blocks walk their runs of 128-cell tiles, wtx_fma's tiles
+    the cells, hxt_fma's gene blocks the genes and its splits the cells,
+    gram_wide's splits the cells."""
     xdt = FP32[dtype]
     for K in range(1, 513):
         grid = kernels.iteration_grid(g, n, K, xdt)
         T, n_part, tpb = grid.T, grid.n_part, grid.tiles_per_block
-        assert T == kernels.tile_width(K) and n_part <= kernels._MAX_PART_BLOCKS
+        assert T == kernels._WIDE_T and n_part <= kernels._WIDE_PART_BLOCKS
         run = T * tpb
         assert _covered_once(n, range(0, n_part * run, run), run)
         assert grid.wtx_T * -(-n // grid.wtx_T) >= n
@@ -73,9 +78,13 @@ def test_iteration_grid_covers_each_cell_and_gene_once(dtype, g, n):
         cps = grid.cells_per_split
         assert cps % grid.chunk == 0
         assert _covered_once(n, range(0, grid.n_split * cps, cps), cps)
-        # the X passes' own grids, as ALS runs them
-        assert grid[3:8] == kernels.hxt_fma_grid(g, n, K, xdt)
-        assert grid[8:] == kernels.wtx_fma_grid(g, n, K, xdt)[:4]
+        hh = grid.gram_cells_per_split
+        assert _covered_once(n, range(0, grid.gram_split * hh, hh), hh)
+        # the X passes' own grids, as ALS runs them (all genes one range),
+        # and gram_wide's
+        assert grid[3:9] == kernels.wtx_fma_grid(g, n, K, xdt)[:4] + (1, g)
+        assert grid[9:14] == kernels.hxt_fma_grid(g, n, K, xdt)
+        assert grid[14:] == kernels.gram_wide_grid(n, K)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "int16", "int8", "bfloat16"])
@@ -92,8 +101,8 @@ def test_wide_iteration_grid_covers_each_cell_and_gene_once(dtype, g, n):
     mma = xdt in kernels._MMA_XTYPES
     for K in WIDE_SAMPLE:
         grid = kernels.iteration_grid(g, n, K, xdt)
-        assert isinstance(grid, kernels.WideIterationGrid)
-        assert grid.T == kernels.tile_width(K) == 128
+        assert isinstance(grid, kernels.IterationGrid)
+        assert grid.T == kernels._WIDE_T == 128
         assert grid.n_part <= kernels._WIDE_PART_BLOCKS
         run = grid.T * grid.tiles_per_block
         assert _covered_once(n, range(0, grid.n_part * run, run), run)
@@ -135,32 +144,28 @@ def test_wide_iteration_grid_covers_each_cell_and_gene_once(dtype, g, n):
 @pytest.mark.parametrize("dtype", list(FP32))
 def test_iteration_grid_fits_shared_memory(dtype):
     """Shared memory of each of the fp32 path's kernels within a Hopper
-    block's limit for every K, at the widest per-tile layout (8 labels over
-    K - 1 guided components, with counts)."""
+    block's limit for every K, iter_wide at 8 labels over K - 1 guided
+    components, with and without counts (independent of K)."""
     xdt = FP32[dtype]
     for K in range(1, 513):
         grid = kernels.iteration_grid(2000, 100_000, K, xdt)
         for L, Kg, counts in ((0, 0, False), (8, K - 1, False), (8, K - 1, True)):
-            assert kernels._iter_smem_bytes(K, grid.T, L, Kg, counts) <= kernels._MAX_SMEM
+            assert kernels.wide_smem_bytes(L, Kg, counts) <= kernels._MAX_SMEM
         assert kernels.hxt_fma_smem_bytes(K, grid.GB, grid.S, xdt,
                                           grid.chunk) <= kernels._MAX_SMEM
-        assert kernels.wtx_fma_smem_bytes(K, grid.wtx_LK, grid.wtx_S,
+        assert kernels.wtx_fma_smem_bytes(K, grid.wtx_WR, grid.wtx_S,
                                           xdt) <= kernels._MAX_SMEM
 
 
 def test_iteration_grid_at_the_bench_shape():
-    """100k cells x 2,000 genes, K = 40: 1,563 per-tile blocks of one
-    64-cell tile; hxt_fma 16 gene blocks of 128 x 16 splits of 6,272 cells
-    (5.1 MB of partials instead of the old 131 splits' 42 MB), two stages
-    of 64 cells; wtx_fma 261 tiles of 384 cells, one lane along K, two
-    stages of 32 genes.  int8/bf16 X keep their grid: GB = T = 64 and
-    _cell_splits' 131 splits of 768 cells."""
+    """100k cells x 2,000 genes, K = 40: iter_wide 391 blocks of two
+    128-cell tiles; wtx_fma 261 tiles of 384 cells, one lane along K, two
+    stages of 32 genes, all genes one range; hxt_fma 16 gene blocks of 128
+    x 16 splits of 6,272 cells (5.1 MB of partials), two stages of 64
+    cells; gram_wide 261 splits of 384 cells (one tile pair)."""
     for xdt in (torch.float32, torch.int16):
         assert kernels.iteration_grid(2000, 100_000, 40, xdt) == (
-            64, 1563, 1, 128, 16, 6272, 2, 64, 384, 1, 32, 2)
-    for xdt in (torch.int8, torch.bfloat16):
-        assert kernels.iteration_grid(2000, 100_000, 40, xdt) == (
-            64, 1563, 1, 64, 131, 768, 0, 0, 0, 0, 0, 0)
+            128, 391, 2, 384, 1, 32, 2, 1, 2000, 128, 16, 6272, 2, 64, 261, 384)
     g = kernels.iteration_grid(2000, 100_000, 40, torch.float32)
     assert g.n_split * 40 * 2000 * 4 == 5_120_000
 
@@ -202,45 +207,9 @@ def _blocks(K):
 
 
 def _emulate(X, W, H, WtW, Ys, Bs, lam, C, blocks, loss_kl):
-    """K1's fp32 path in PyTorch: WᵀX in wtx_fma's order, the H update and
-    the statistics as the plain version forms them, X Hnᵀ (X Hsᵀ) in
-    hxt_fma's order.  With no covariates (K2): (Hn, XHt, HHt, lossdot)."""
-    K = H.shape[0]
-    WtX = _emulate_wtx(X, W, K)
-    num = 2.0 * WtX
-    den = 2.0 * (WtW @ H)
-    Kg = guided_width(blocks)
-    if Ys:
-        Yf = torch.cat([y.float() for y in Ys])
-        Bg = kernels._embed_b(Bs, blocks)
-        lam_rows = kernels._lam_rows(lam, blocks)[:, None]
-        BH = Bg @ H[:Kg]
-        if loss_kl:
-            num[:Kg] += lam_rows * (Bg.T @ (Yf / torch.clamp(BH, min=EPS)))
-            den[:Kg] += lam_rows * torch.sum(Bg, dim=0)[:, None]
-        else:
-            num[:Kg] += 2.0 * lam_rows * (Bg.T @ Yf)
-            den[:Kg] += 2.0 * lam_rows * (Bg.T @ BH)
-    Hn = H * (num / torch.clamp(den, min=EPS))
-    Hs = Hn
-    if C is not None:
-        Hn = torch.where(C[0] > 0, Hn, H)
-        Hs = Hn * C[1]
-    XHt = _emulate_hxt(X, Hs, K).T
-    if not Ys:
-        return Hn, XHt, Hn @ Hn.T, torch.sum(WtX * Hn)
-    yhat = Bg @ Hn[:Kg]
-    if loss_kl:
-        yh = torch.clamp(yhat, min=EPS)
-        Q = Yf / yh
-        E = Yf * torch.log(torch.clamp(Q, min=EPS)) - Yf + yh
-    else:
-        Q, E = Yf, (Yf - yhat) ** 2
-    preds, bnums, bdens = kernels._split_stats(
-        blocks, [y.shape[0] for y in Ys], Q @ Hs.T, torch.sum(Hs, dim=1),
-        torch.sum(E, dim=1))
-    out = [Hn, XHt, Hs @ Hn.T] + ([Hn @ Hn.T] if C is not None else [])
-    return tuple(out) + (torch.sum(WtX * Hn), preds, bnums, bdens)
+    """K1's fp32 path in PyTorch (tests/test_torch_wide_k.py:emulate_chain).
+    With no covariates (K2): (Hn, XHt, HHt, lossdot)."""
+    return emulate_chain(X, W, H, WtW, Ys, Bs, lam, C, blocks, loss_kl)
 
 
 def _flat(out):

@@ -15,7 +15,7 @@ import torch
 
 from alpine_tpu.ops import pallas_kernels as pk
 from alpine_tpu_torch.ops import kernels
-from tests.torch_k_samples import COVER_KS, WIDE_SAMPLE
+from tests.torch_k_samples import COVER_KS
 
 torch.set_num_threads(1)
 
@@ -245,56 +245,38 @@ def test_transform_zero_padding_is_exact(K, num_pad):
     _close(got[:K], want, 1e-12)
 
 
-def test_tile_rule():
-    """The tile rule up to K = 512 (at most 4096 values a tile); K = 513 ..
-    2048 get the large-K route's 128-cell tile (4 cells a lane, shared
-    memory independent of K); K = 0 raises."""
-    assert kernels.tile_width(40) == 64
-    assert kernels.tile_width(100) == 32
-    assert kernels.tile_width(512) == 8
-    for K in (1, 7, 64, 65, 129, 300, 512):
-        assert K * kernels.tile_width(K) <= 4096 and kernels.route(K) == "tile"
-    for K in (513, 600, 768, 1024, 2048):
-        assert kernels.route(K) == "wide" and kernels.tile_width(K) == kernels._WIDE_T == 128
-    with pytest.raises(ValueError, match="K=0"):
-        kernels.tile_width(0)
-
-
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_iteration_tile_rule_fits_its_path(dtype):
-    """For every supported K, fused_iteration's tile (iteration_tile_width)
-    suits the path X's dtype selects: int8/bf16 run their X products on
-    tensor cores (16-wide fragments, 16 a pass: one pass up to K = 256, two
-    above), float32/int16 keep tile_width (at most 4096 outputs a tile;
-    their X products run in wtx_fma and hxt_fma).  Shared memory stays within a Hopper block's at 8 labels over
-    K - 1 guided components with counts, the widest layout."""
+    """For every K, fused_iteration's H update (iter_wide) takes 128-cell
+    tiles on every X dtype, its shared memory independent of K and within a
+    Hopper block's up to 8 labels over K - 1 guided components with counts;
+    at K <= 512 the X passes' rings fit too (wtx_mma / hxt_mma on int8/bf16
+    X, wtx_fma / hxt_fma on float32/int16); above, the large-K passes'
+    (tests/test_torch_k1_fp32.py).  K = 0 raises."""
     xdt = _TORCH[dtype]
     mma = dtype in ("int8", "bfloat16")
     assert (xdt in kernels._MMA_XTYPES) == mma
-    for K in WIDE_SAMPLE:  # the large-K chain: 128-cell tiles on every path
-        assert kernels.iteration_tile_width(K, xdt) == 128
+    for K in COVER_KS:
+        grid = kernels.iteration_grid(2000, 100_000, K, xdt)
+        assert grid.T == kernels._WIDE_T == 128
+        assert kernels.route(K) == ("tile" if K <= 512 else "wide")
         for L, counts in ((0, False), (8, False), (8, True)):
             assert kernels.wide_stages_bg(L, K - 1, counts) == (L > 0)
             assert kernels.wide_smem_bytes(L, K - 1, counts) <= kernels._MAX_SMEM
-    for K in range(1, 513):
-        T = kernels.iteration_tile_width(K, xdt)
-        assert T in (8, 16, 32, 64)
+        if K > 512:
+            continue
         if mma:
-            assert T % 16 == 0
-            passes = -(-(-(-K // 16) * (T // 16)) // kernels._MMA_PASS_FRAGS)
-            assert passes == (1 if K <= 256 else 2)
-            assert T == max(16, kernels.tile_width(K))
+            assert kernels.hxt_smem_bytes(K, grid.GB, grid.S, xdt,
+                                          grid.chunk) <= kernels._MAX_SMEM
+            assert kernels.wtx_smem_bytes(K, grid.wtx_T, grid.wtx_S, xdt,
+                                          grid.wtx_GC) <= kernels._MAX_SMEM
         else:
-            assert T == kernels.tile_width(K)
-            assert K * T <= 4096
-        for L, Kg, counts in ((0, 0, False), (8, K - 1, False), (8, K - 1, True)):
-            smem = kernels._iter_smem_bytes(K, T, L, Kg, counts, mma)
-            assert smem <= kernels._MAX_SMEM, (K, T, L, Kg, counts)
-    # the fp32 layout stages no X or W: its tile of WᵀX comes from wtx_fma
-    assert kernels._iter_smem_bytes(40, 64, 5, 10, False) == 4 * (
-        3 * 40 * 65 + 3 * 5 * 65 + 5 * 10 + 2 * 10 + 256)
+            assert kernels.hxt_fma_smem_bytes(K, grid.GB, grid.S, xdt,
+                                              grid.chunk) <= kernels._MAX_SMEM
+            assert kernels.wtx_fma_smem_bytes(K, grid.wtx_WR, grid.wtx_S,
+                                              xdt) <= kernels._MAX_SMEM
     with pytest.raises(ValueError, match="K=0"):
-        kernels.iteration_tile_width(0, xdt)
+        kernels.iteration_grid(2000, 100_000, 0, xdt)
 
 
 def test_wrappers_reject_other_devices_and_bad_input():

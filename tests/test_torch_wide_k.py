@@ -38,6 +38,8 @@ from alpine_tpu_torch.ops.mu import guided_width
 
 from .test_torch_fma_wide import emulate_hxt_fma_wide as _emulate_hxt_fp32
 from .test_torch_fma_wide import emulate_wtx_fma_wide as _emulate_wtx_fp32
+from .test_torch_fp32_passes import _emulate_hxt as _emulate_hxt_fma
+from .test_torch_fp32_passes import _emulate_wtx as _emulate_wtx_fma
 from .test_torch_gram_wide import emulate_gram
 from .test_torch_hxt import _emulate_hxt as _emulate_hxt_bf16
 from .test_torch_kernels import _both, _close, _problem, _t
@@ -145,23 +147,36 @@ def test_fused_transform_plain_matches_pallas_at_wide_k(K):
 # ---------------------------------------------------------------------------
 
 
-def _emulate_wide(X, W, H, WtW, Ys, Bs, lam, C, blocks, loss_kl):
-    """fused_iteration's large-K chain in PyTorch: WᵀX in P2's large-K order
-    (wtx_wide's on int8/bf16 X, wtx_fma_wide's on float32/int16:
+def emulate_chain(X, W, H, WtW, Ys, Bs, lam, C, blocks, loss_kl, base=None):
+    """fused_iteration's chain (``kernels.iteration_grid``, every K) in
+    PyTorch: WᵀX in P2's order (at K <= 512 wtx_mma's on int8/bf16 X,
+    tests/test_torch_wtx.py, and wtx_fma's on float32/int16,
+    tests/test_torch_fp32_passes.py; above, wtx_wide's and wtx_fma_wide's:
     tests/test_torch_wide_passes.py, test_torch_fma_wide.py),
     D = WᵀW H, the H update and
     guided terms elementwise as iter_wide forms them, iter_wide's per-block
     partials (each block's 128-cell tiles in order: the prediction-loss rows
-    and the loss dot), added in block order; X Hsᵀ in P1's large-K order
-    (hxt_wide's splits, or hxt_fma_wide's); H Hᵀ = Hs Hnᵀ, HHtU, rowsum and
+    and the loss dot), added in block order; X Hsᵀ in P1's order (hxt_mma's
+    over ``k1_hxt_grid``, hxt_fma's; hxt_wide's splits, or hxt_fma_wide's);
+    H Hᵀ = Hs Hnᵀ, HHtU, rowsum and
     Bnum = Q Hsᵀ in gram_wide's (its splits' upper-triangle tiles and extra
-    columns, mirrored: ``emulate_gram``).  Returns the outputs of
-    ``fused_iteration`` (``fused_h_update`` without covariates)."""
+    columns, mirrored: ``emulate_gram``).  ``base``: int8/bf16 X staged
+    from that address (the aligned windows of misaligned rows), None as
+    aligned.  Returns the outputs of ``fused_iteration``
+    (``fused_h_update`` without covariates)."""
     g, n = X.shape
     K = H.shape[0]
     mma = X.dtype in kernels._MMA_XTYPES
-    grid = kernels.wide_iteration_grid(g, n, K, X.dtype)
-    WtX = _emulate_wtx_bf16(X, W, K) if mma else _emulate_wtx_fp32(X, W)
+    tile = kernels.route(K) == "tile"
+    grid = kernels.iteration_grid(g, n, K, X.dtype)
+    if mma:
+        WtX = _emulate_wtx_bf16(X, W, K, base=base)
+        hxt = lambda Hs: _emulate_hxt_bf16(X, Hs, K, base=base,
+                                           grid=tuple(grid[9:14]) if tile else None)
+    elif tile:
+        WtX, hxt = _emulate_wtx_fma(X, W, K), lambda Hs: _emulate_hxt_fma(X, Hs, K)
+    else:
+        WtX, hxt = _emulate_wtx_fp32(X, W), lambda Hs: _emulate_hxt_fp32(X, Hs)
     num, den = 2.0 * WtX, 2.0 * (WtW @ H)
     Kg = guided_width(blocks) if Ys else 0
     if Ys:
@@ -199,7 +214,7 @@ def _emulate_wide(X, W, H, WtW, Ys, Bs, lam, C, blocks, loss_kl):
             part[:L] += torch.sum(E[:, cells], dim=1)
             part[-1] += torch.sum(WtX[:, cells] * Hn[:, cells])
         small += part
-    XHt = (_emulate_hxt_bf16(X, Hs, K) if mma else _emulate_hxt_fp32(X, Hs)).T
+    XHt = hxt(Hs).T
     HHt, HHtU, rowsum, bnum = emulate_gram(Hn, None if C is None else C[1], Q if Ys else None)
     if not Ys:
         return Hn, XHt, HHt, small[-1]
@@ -258,7 +273,7 @@ def test_wide_chain_emulation_matches_plain(dtype, K, n, counts, loss_kl):
     X, W, H, WtW, Ys, Bs, lam, C, blocks = _wide_problem(K + n, n, K, dtype, counts)
     want = list(kernels.fused_iteration_plain(X, W, H, WtW, Ys, Bs, lam, EPS, C,
                                               blocks=blocks, loss_kl=loss_kl))
-    got = _emulate_wide(X, W, H, WtW, Ys, Bs, lam, C, blocks, loss_kl)
+    got = emulate_chain(X, W, H, WtW, Ys, Bs, lam, C, blocks, loss_kl)
     Hs = got[0] if C is None else got[0] * C[1]
     want[1] = kernels.hxt_plain(X, Hs).T
     for a, b in zip(_flat(got), _flat(want), strict=True):
@@ -275,7 +290,7 @@ def test_wide_chain_emulation_matches_plain_without_covariates(dtype):
     """K2's large-K chain (no covariates, no iter_wide label rows)."""
     X, W, H, WtW, _, _, _, _, _ = _wide_problem(7, 1001, 600, dtype, False)
     want = list(kernels.fused_h_update_plain(X, W, H, WtW, EPS))
-    got = _emulate_wide(X, W, H, WtW, [], [], None, None, (600,), True)
+    got = emulate_chain(X, W, H, WtW, [], [], None, None, (600,), True)
     want[1] = kernels.hxt_plain(X, got[0]).T
     for a, b in zip(_flat(got), _flat(want), strict=True):
         np.testing.assert_allclose(a, b, rtol=1e-5, atol=0)

@@ -108,8 +108,8 @@ def test_callers_pass_a_k_by_k_transposed_scratch(monkeypatch, K):
     kernels.fused_transform(H, H, WtW, EPS, n_iter=3)  # K3's per-step path
     kernels.wtw_gemm(WtW, H)
     (chain, a_chain), (steps, a_steps), (alone, a_alone) = calls
-    assert (chain, steps, alone) == ("fused_iteration_wide", "fused_transform", "wtw_gemm")
-    # the chain: ..., wpart, WᵀW transposed, stream
+    assert (chain, steps, alone) == ("fused_iteration", "fused_transform", "wtw_gemm")
+    # the chain: ..., wpart, arrivals, WᵀW transposed, stream
     assert tuple(made[a_chain[-2]].shape) == (K, K)
     # K3: ..., eps, H's second buffer, WtW2 transposed, out, stream
     assert tuple(made[a_steps[12]].shape) == (K, n)
